@@ -5,25 +5,38 @@
 Phases (any failure raises and the script exits nonzero):
 
   1. device: requires CUDA and prints the card's name and power limit;
-  2. build: compiles the CUDA C++ kernels (nvcc) and every Triton
-     specialisation the later phases launch, and prints the seconds;
-  3. kernels: K1-K4 against their plain torch versions on the card at
-     n = 2^24 and at a ragged even n, for f32 vectors with a bf16 and an
-     f32 history and for f64 with f64 (K4's ring write bit for bit), and
-     each kernel's time at n = 2^24 beside its plain version's;
+  2. build: compiles the CUDA C++ kernels (nvcc, one process per source)
+     and every Triton specialisation the later phases launch, and prints
+     the seconds;
+  3. kernels: K1-K4 and OWL-QN's K8 (both forms), K10, K13 and K14
+     against their plain torch versions on the card at n = 2^24 and at a
+     ragged even n, for f32 vectors with a bf16 and an f32 history and for
+     f64 with f64, the OWL-QN kernels with the window [0, n - 1) and with
+     one whose ends are off the blocks' boundaries (K4's and K14's ring
+     writes bit for bit, K8's two forms bit for bit against each other),
+     and each kernel's time at n = 2^24 beside its plain version's;
   4. goldens: the n = 100 float64 Rosenbrock runs through the kernels
      (35 iterations at the defaults; the recorded 2018 trajectory,
      38 iterations, without the step cap), through ``lbfgs().minimize``
      and through ``minimize_jit``;
-  5. main path: n = 2^24 Rosenbrock, f32, m = 6, bf16 history,
+  5. OWL-QN golden: from that L-BFGS solution, OWL-QN with c = 1 on
+     [0, 99) without the step cap, through both entry points and the
+     kernels (the recorded fx 43.50249999999999, x[0] 0.25, x[1] 0.0575);
+  6. main path: n = 2^24 Rosenbrock, f32, m = 6, bf16 history,
      More-Thuente, uncapped step, epsilon 0, 100 iterations of
      ``minimize_jit``, with the kernel launch counts checked; then
      ``minimize_jit`` through the plain versions on the card against the
      kernels, after 8 and after 15 iterations;
-  6. north star: n = 1e8, m = 3, time to epsilon 3e-2;
-  7. with ``--profile PATH`` only: one main-path run under torch.profiler
-     (device busy time against the unprofiled walls, device items, host
-     launch and copy calls); the operator table goes to PATH.
+  7. OWL-QN main path: n = 2^24, f32, m = 6, bf16 history, c = 1 on
+     [0, n - 1), BacktrackingArmijo, uncapped step, time to epsilon 3e-2
+     within 300 iterations of ``minimize_jit``, with the launch counts
+     checked (no plain version and no plain stand-in runs); then the
+     plain versions against the kernels after 8 and 15 iterations;
+  8. north star: n = 1e8, m = 3, time to epsilon 3e-2;
+  9. with ``--profile PATH`` only: one run of each main path under
+     torch.profiler (device busy time against the unprofiled walls,
+     device items, host launch and copy calls); the operator tables go to
+     PATH.
 
 Prints one JSON line per phase result, the kernel table as one JSON line
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -46,7 +59,8 @@ from lbfgs_torch.core import to_host
 from lbfgs_torch.minimize import minimize_jit
 from lbfgs_torch.models import rosenbrock
 from lbfgs_torch.ops import _build, fused
-from lbfgs_torch.params import LbfgsParams
+from lbfgs_torch.orthantwise import Orthantwise, choose_orthant
+from lbfgs_torch.params import LbfgsParams, LineSearchAlgorithm
 from lbfgs_torch.status import Status
 
 SEED = 20261016
@@ -71,7 +85,22 @@ KERNELS = {
                    "lbfgs_tpu/ops/fused.py:1359"),
     "K4_trial_pair_gram": ("triton", "lbfgs_torch/ops/_factory_triton.py",
                            "lbfgs_tpu/ops/factory.py:722"),
+    "K8_owlqn_probe": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                       "lbfgs_tpu/ops/factory.py:487"),
+    "K10_pseudo_gradient_norm": ("cuda", "lbfgs_torch/csrc/owlqn.cu",
+                                 "lbfgs_tpu/ops/fused.py:619"),
+    "K13_combine_ow": ("cuda", "lbfgs_torch/csrc/combine.cu",
+                       "lbfgs_tpu/ops/fused.py:1464"),
+    "K14_owlqn_trial_pair_gram": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                  "lbfgs_tpu/ops/factory.py:923"),
 }
+#: the kernels each main path must launch
+PLAIN_PATH = ("K1_trial", "K2_probe", "K3_combine", "K4_trial_pair_gram")
+OWLQN_PATH = ("K1_trial", "K8_owlqn_probe", "K10_pseudo_gradient_norm",
+              "K13_combine_ow", "K14_owlqn_trial_pair_gram")
+#: the OWL-QN kernels' L1 weight in the kernel checks (not 1: its
+#: rounding to the vectors' dtype is part of what is checked)
+C_L1 = 0.7
 DTYPES = [
     (torch.float32, torch.bfloat16),
     (torch.float32, torch.float32),
@@ -101,14 +130,14 @@ def check(name: str, a: torch.Tensor, b: torch.Tensor, tol: float) -> tuple:
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return (a.shape == b.shape and a.dtype == b.dtype
-            and torch.equal(a.contiguous().view(torch.uint8),
-                            b.contiguous().view(torch.uint8)))
+            and torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                            b.reshape(-1).contiguous().view(torch.uint8)))
 
 
 def check_ring(name: str, S_out, Y_out, S_in, Y_in, s, y) -> None:
-    """K4's ring write, bit for bit: row END holds the pair (s, y) rounded
-    to the history dtype (round to nearest even), every other row is its
-    input unchanged."""
+    """K4's and K14's ring write, bit for bit: row END holds the pair
+    (s, y) rounded to the history dtype (round to nearest even), every
+    other row is its input unchanged."""
     keep = [j for j in range(S_in.shape[0]) if j != END]
     for ring, out, inp, new in (("S", S_out, S_in, s), ("Y", Y_out, Y_in, y)):
         want = new.to(out.dtype)
@@ -162,15 +191,26 @@ def device_time(fn, reps: int) -> float:
 
 
 def inputs(n: int, vd, hd, seed: int):
+    """Seeded inputs of every kernel; xp has exact zeros at every 17th
+    element (the OWL-QN orthant's at-zero choice) and pg is random."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=torch.float64)
     xp = (rosenbrock.initial_point(n, torch.float64, "cuda") + 0.1 * r(n)).to(vd)
+    xp0 = xp.clone()
+    xp0[::17] = 0.0
     return dict(
         xp=xp, d=(0.1 * r(n)).to(vd), gp=r(n).to(vd),
         S=r(M, n).to(hd), Y=r(M, n).to(hd),
         gamma=torch.tensor(0.8, dtype=vd, device="cuda"),
         cs=r(M).to(vd), cy=r(M).to(vd),
+        xp0=xp0, pg=r(n).to(vd),
     )
+
+
+def windows(n: int) -> list:
+    """The OWL-QN windows the kernels are checked on: the main path's
+    [0, n - 1), and one whose ends fall inside kernel blocks."""
+    return [(0, n - 1), (3 * 1024 + 5, n - 7 * 1024 - 3)]
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +254,12 @@ def phase_build() -> None:
                 rosenbrock.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1)
                 z = torch.zeros(m, dtype=vd, device="cuda")
                 fused.combine(x, S, S, z[0], z, z)
+            # the OWL-QN kernels run at m = M only
+            S = torch.zeros((M, n), dtype=hd, device="cuda")
+            rosenbrock.owlqn_probe(x, x, x, 0.0, 1.0, 0, n - 1)
+            rosenbrock.owlqn_probe_pg(x, x, x, 0.0, 1.0, 0, n - 1)
+            rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
+                                             n - 1, S, S.clone(), 1)
     torch.cuda.synchronize()
     emit(phase="build", nvcc_s=round(t_nvcc, 3),
          triton_s=round(time.perf_counter() - t1, 3),
@@ -267,7 +313,10 @@ def phase_kernels() -> dict:
                     for i in (1, 3, 4, 5, 7, 8)))
             if bool(k[6]) != bool(p[6]):
                 raise AssertionError(f"K4 changed flag differs {tag}")
-            del a, Sk, Yk, Sp, Yp, k, p, s
+            del Sk, Yk, Sp, Yp, k, p, s
+            for lo, hi in windows(n):
+                check_owlqn(errs, a, lo, hi, f"{tag} window=[{lo},{hi})", tv, ts)
+            del a
             torch.cuda.empty_cache()
         emit(phase="kernels", n=n, max_abs_err={k: v[0] for k, v in errs.items()},
              max_normwise_err={k: v[1] for k, v in errs.items()},
@@ -275,7 +324,7 @@ def phase_kernels() -> dict:
                   "f32_sum": TOL[(torch.float32, "sum")],
                   "f64_vec": TOL[(torch.float64, "vec")],
                   "f64_sum": TOL[(torch.float64, "sum")],
-                  "k4_ring_row": "bit-exact"})
+                  "k4_k14_ring_row": "bit-exact", "k8_forms": "bit-exact"})
 
     # times at the main path's shapes: n = 2^24, f32 vectors, bf16 history
     a = inputs(N_BIG, torch.float32, torch.bfloat16, SEED)
@@ -292,6 +341,25 @@ def phase_kernels() -> dict:
             lambda: rosenbrock.trial_pair_gram(a["xp"], a["d"], a["gp"], STP, S, Y, END),
             lambda: rosenbrock.trial_pair_gram_ref(a["xp"], a["d"], a["gp"], STP, S, Y, END)),
     }
+    # the OWL-QN kernels in the form the OWL-QN main path runs them: c = 1
+    # on [0, n - 1), K8 with the orthant rebuilt from pg
+    xp0, pg, hi = a["xp0"], a["pg"], N_BIG - 1
+    cases.update({
+        "K8_owlqn_probe": (
+            lambda: rosenbrock.owlqn_probe_pg(xp0, a["d"], pg, STP, 1.0, 0, hi),
+            lambda: rosenbrock.owlqn_probe_pg_ref(xp0, a["d"], pg, STP, 1.0, 0, hi)),
+        "K10_pseudo_gradient_norm": (
+            lambda: fused.pseudo_gradient_norm(xp0, a["gp"], 1.0, 0, hi),
+            lambda: fused.pseudo_gradient_norm_ref(xp0, a["gp"], 1.0, 0, hi)),
+        "K13_combine_ow": (
+            lambda: fused.combine_ow(pg, S, Y, a["gamma"], a["cs"], a["cy"], 0, hi),
+            lambda: fused.combine_ow_ref(pg, S, Y, a["gamma"], a["cs"], a["cy"], 0, hi)),
+        "K14_owlqn_trial_pair_gram": (
+            lambda: rosenbrock.owlqn_trial_pair_gram(xp0, a["d"], a["gp"], pg, STP, 1.0,
+                                                     0, hi, S, Y, END),
+            lambda: rosenbrock.owlqn_trial_pair_gram_ref(xp0, a["d"], a["gp"], pg, STP,
+                                                         1.0, 0, hi, S, Y, END)),
+    })
     times, walls = {}, {}
     for name, (kern, plain) in cases.items():
         # plain, kernel, kernel, plain: both sides see the same clocks
@@ -306,30 +374,90 @@ def phase_kernels() -> dict:
     return {"errs": errs, "times": times}
 
 
+def check_owlqn(errs: dict, a: dict, lo: int, hi: int, tag: str, tv: float,
+                ts: float) -> None:
+    """K8 (both forms), K10, K13 and K14 against their plain versions on
+    one window; K8's two forms bit for bit against each other, K14's ring
+    write bit for bit."""
+    xp, d, gp, pg = a["xp0"], a["d"], a["gp"], a["pg"]
+    wp = choose_orthant(Orthantwise(C_L1, lo, hi), xp, pg)
+    # K8: materialized orthant and the orthant rebuilt from (xp, pg)
+    k = rosenbrock.owlqn_probe(xp, d, wp, STP, C_L1, lo, hi)
+    p = rosenbrock.owlqn_probe_ref(xp, d, wp, STP, C_L1, lo, hi)
+    k2 = rosenbrock.owlqn_probe_pg(xp, d, pg, STP, C_L1, lo, hi)
+    p2 = rosenbrock.owlqn_probe_pg_ref(xp, d, pg, STP, C_L1, lo, hi)
+    _fold(errs, "K8_owlqn_probe",
+          *(check(f"K8 wp {tag} {i}", k[i], p[i], ts) for i in (0, 1)),
+          *(check(f"K8 pg {tag} {i}", k2[i], p2[i], ts) for i in (0, 1)))
+    if not (same_bits(k[0], k2[0]) and same_bits(k[1], k2[1])):
+        raise AssertionError(f"K8's two forms differ {tag}: {k} {k2}")
+    # K10 on a point with exact zeros
+    k = fused.pseudo_gradient_norm(xp, gp, C_L1, lo, hi)
+    p = fused.pseudo_gradient_norm_ref(xp, gp, C_L1, lo, hi)
+    _fold(errs, "K10_pseudo_gradient_norm", check(f"K10 pg {tag}", k[0], p[0], tv),
+          check(f"K10 pg.pg {tag}", k[1], p[1], ts))
+    # K13 with d = pg
+    args = (pg, a["S"], a["Y"], a["gamma"], a["cs"], a["cy"], lo, hi)
+    k = fused.combine_ow(*args)
+    p = fused.combine_ow_ref(*args)
+    _fold(errs, "K13_combine_ow", check(f"K13 rc {tag}", k[0], p[0], tv),
+          *(check(f"K13 sum{i} {tag}", k[i], p[i], ts) for i in (1, 2, 3)))
+    # K14: the ring row is the pair of each side's own projected x and g
+    Sk, Yk, Sp, Yp = (a["S"].clone(), a["Y"].clone(), a["S"].clone(), a["Y"].clone())
+    k = rosenbrock.owlqn_trial_pair_gram(xp, d, gp, pg, STP, C_L1, lo, hi, Sk, Yk, END)
+    p = rosenbrock.owlqn_trial_pair_gram_ref(xp, d, gp, pg, STP, C_L1, lo, hi, Sp, Yp, END)
+    check_ring(f"K14 kernel {tag}", Sk, Yk, a["S"], a["Y"], k[0] - xp, k[1] - gp)
+    check_ring(f"K14 plain {tag}", Sp, Yp, a["S"], a["Y"], p[0] - xp, p[1] - gp)
+    _fold(errs, "K14_owlqn_trial_pair_gram",
+          *(check(f"K14 {name} {tag}", k[i], p[i], tv)
+            for i, name in ((0, "x"), (1, "g"), (2, "pg"))),
+          *(check(f"K14 sum{i} {tag}", k[i], p[i], ts) for i in (3, 4, 5, 6)))
+    if bool(k[7]) != bool(p[7]):
+        raise AssertionError(f"K14 changed flag differs {tag}")
+
+
 def launches() -> dict:
     return {
         "K1_trial": rosenbrock.trial.launches,
         "K2_probe": rosenbrock.probe.launches,
         "K3_combine": fused.combine.launches,
         "K4_trial_pair_gram": rosenbrock.trial_pair_gram.launches,
+        "K8_owlqn_probe": (rosenbrock.owlqn_probe.launches
+                           + rosenbrock.owlqn_probe_pg.launches),
+        "K10_pseudo_gradient_norm": fused.pseudo_gradient_norm.launches,
+        "K13_combine_ow": fused.combine_ow.launches,
+        "K14_owlqn_trial_pair_gram": rosenbrock.owlqn_trial_pair_gram.launches,
     }
+
+
+#: plain versions, and the plain stand-ins of kernels not ported yet
+PLAIN = {
+    "K1_trial": rosenbrock.trial_ref,
+    "K2_probe": rosenbrock.probe_ref,
+    "K3_combine": fused.combine_ref,
+    "K4_trial_pair_gram": rosenbrock.trial_pair_gram_ref,
+    "K8_owlqn_probe": rosenbrock.owlqn_probe_ref,
+    "K8_owlqn_probe_pg": rosenbrock.owlqn_probe_pg_ref,
+    "K10_pseudo_gradient_norm": fused.pseudo_gradient_norm_ref,
+    "K13_combine_ow": fused.combine_ow_ref,
+    "K14_owlqn_trial_pair_gram": rosenbrock.owlqn_trial_pair_gram_ref,
+    "K5_standin": fused.pair_gram_sd_ref,
+    "K9_standin": fused.owlqn_trial_step_ref,
+    "K12_standin": fused.pair_gram_xg_ref,
+}
 
 
 def plain_calls() -> dict:
-    return {
-        "K1_trial": rosenbrock.trial_ref.calls,
-        "K2_probe": rosenbrock.probe_ref.calls,
-        "K3_combine": fused.combine_ref.calls,
-        "K4_trial_pair_gram": rosenbrock.trial_pair_gram_ref.calls,
-    }
+    return {name: fn.calls for name, fn in PLAIN.items()}
 
 
 def reset_counts() -> None:
     for fn in (rosenbrock.trial, rosenbrock.probe, fused.combine,
-               rosenbrock.trial_pair_gram):
+               rosenbrock.trial_pair_gram, rosenbrock.owlqn_probe,
+               rosenbrock.owlqn_probe_pg, fused.pseudo_gradient_norm,
+               fused.combine_ow, rosenbrock.owlqn_trial_pair_gram):
         fn.launches = 0
-    for fn in (rosenbrock.trial_ref, rosenbrock.probe_ref, fused.combine_ref,
-               rosenbrock.trial_pair_gram_ref):
+    for fn in PLAIN.values():
         fn.calls = 0
     to_host.reads = 0
 
@@ -350,10 +478,35 @@ def phase_goldens() -> None:
         if not ok:
             raise AssertionError(f"{entry} golden: {r2}")
         lc, pc = launches(), plain_calls()
-        if min(lc.values()) == 0 or max(pc.values()) != 0:
+        if min(lc[k] for k in PLAIN_PATH) == 0 or max(pc.values()) != 0:
             raise AssertionError(f"{entry} golden did not run on the kernels: {lc} {pc}")
         emit(phase="golden_f64_n100", entry=entry, niter_default=r.niter,
              niter=r2.niter, fx=r2.fx, gnorm=r2.gnorm, launches=lc)
+
+
+#: the recorded OWL-QN trajectory (tests/test_native_parity.py:57-66)
+OWLQN_GOLDEN = dict(fx=43.50249999999999, x0=0.25, x1=0.0575, niter=172)
+
+
+def phase_owlqn_golden() -> None:
+    x0 = rosenbrock.initial_point(100, torch.float64, "cuda")
+    x1 = lbfgs().with_constrain_step_size(False).minimize(x0, default_evaluate()).x
+    b = lbfgs().with_orthantwise(1.0, 0, 99).with_constrain_step_size(False)
+    for entry in ("minimize", "minimize_jit"):
+        reset_counts()
+        r = getattr(b, entry)(x1.clone(), default_evaluate())
+        lc, pc = launches(), plain_calls()
+        g = OWLQN_GOLDEN
+        ok = (abs(r.fx / g["fx"] - 1) <= 1e-6 and abs(float(r.x[0]) - g["x0"]) <= 1e-4
+              and abs(float(r.x[1]) - g["x1"]) <= 1e-4)
+        if not ok:
+            raise AssertionError(f"{entry} OWL-QN golden: {r}")
+        if min(lc[k] for k in OWLQN_PATH) == 0 or max(pc.values()) != 0:
+            raise AssertionError(f"{entry} OWL-QN golden did not run on the kernels: "
+                                 f"{lc} {pc}")
+        emit(phase="owlqn_golden_f64_n100", entry=entry, niter=r.niter,
+             niter_recorded=g["niter"], fx=r.fx, x0=float(r.x[0]), x1=float(r.x[1]),
+             gnorm=r.gnorm, launches=lc)
 
 
 #: the main path: n = 2^24 (N_BIG), f32, m = 6, bf16 history, More-Thuente,
@@ -425,12 +578,88 @@ def phase_main_path() -> dict:
     return lc
 
 
+#: the OWL-QN main path (bench_owlqn.py:61-76 at n = 2^24): f32, m = 6,
+#: bf16 history, c = 1 on [0, n - 1), BacktrackingArmijo, uncapped step,
+#: time to epsilon 3e-2 within 300 iterations
+OWLQN_PARAMS = LbfgsParams(
+    m=M, history_dtype="bfloat16", constrain_step_size=False, epsilon=3e-2,
+    max_iterations=301, orthantwise=Orthantwise(1.0, 0, N_BIG - 1),
+).replace_ls(algorithm=LineSearchAlgorithm.BacktrackingArmijo)
+#: bound on the plain-vs-kernel rel fx after 15 OWL-QN iterations, set
+#: before the first run (PERF.md, section 6); printed, not asserted
+OWLQN_VS_PLAIN_15 = 1e-2
+
+
+def phase_owlqn_main_path() -> dict:
+    params = OWLQN_PARAMS
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    f0 = float(rosenbrock.probe_ref(x0, x0, 0.0)[0]) + float(x0[:-1].abs().sum())
+    minimize_jit(params, x0, default_evaluate(), return_state=True)  # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    st = minimize_jit(params, x0, default_evaluate(), return_state=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lc, pc, reads = launches(), plain_calls(), to_host.reads
+    iters = st.k - 1
+    fx = float(st.prob.fx)
+    if st.status != Status.CONVERGED:
+        raise AssertionError(f"OWL-QN main path: status {st.status} after {iters} "
+                             f"iterations (fx {fx})")
+    if not (np.isfinite(fx) and fx < f0):
+        raise AssertionError(f"OWL-QN main path: fx {fx} (start {f0})")
+    probes = st.prob.neval - 1
+    want = {"K1_trial": 1, "K10_pseudo_gradient_norm": 1, "K8_owlqn_probe": probes,
+            "K13_combine_ow": iters, "K14_owlqn_trial_pair_gram": iters,
+            "K2_probe": 0, "K3_combine": 0, "K4_trial_pair_gram": 0}
+    if lc != want:
+        raise AssertionError(f"OWL-QN main path launch counts {lc}, expected {want}")
+    if max(pc.values()) != 0:
+        raise AssertionError(f"OWL-QN main path called plain versions: {pc}")
+    emit(phase="owlqn_main_path", n=N_BIG, iters=iters, status=st.status, eps=3e-2,
+         seconds=dt, iters_per_s=iters / dt, ms_per_iter=1e3 * dt / iters,
+         probes_per_iter=probes / iters, syncs_per_iter=reads / iters, fx0=f0, fx=fx,
+         gnorm=float(np.sqrt(st.prob.gnorm2)), launches=lc, plain_calls=pc)
+
+    # minimize_jit through the plain versions on the card against the
+    # kernels: the same evaluations and fx to rel 1e-4 after 8 iterations
+    # (tests/test_native_parity.py:228-229); after 15 the difference is
+    # printed beside the bound set before the first run
+    for n_it in (8, 15):
+        p = params.replace(epsilon=0.0, max_iterations=n_it + 1)
+        st_k = minimize_jit(p, x0, default_evaluate(), return_state=True)
+        st_p = minimize_jit(p, x0, default_evaluate().plain, return_state=True)
+        rel = abs(float(st_k.prob.fx) / float(st_p.prob.fx) - 1)
+        x_err = err(st_k.prob.x, st_p.prob.x)
+        same = (st_k.k, st_k.prob.neval) == (st_p.k, st_p.prob.neval)
+        if n_it == 8 and not (same and st_k.k == n_it + 1 and rel <= 1e-4):
+            raise AssertionError(
+                f"OWL-QN plain vs kernel after 8 iterations: k/neval {st_k.k}/"
+                f"{st_k.prob.neval} vs {st_p.k}/{st_p.prob.neval}, rel fx {rel:.3e}")
+        emit(phase="owlqn_main_path_vs_plain", iters=n_it, neval_kernel=st_k.prob.neval,
+             neval_plain=st_p.prob.neval, rel_fx=rel,
+             fx_tol=1e-4 if n_it == 8 else OWLQN_VS_PLAIN_15, asserted=n_it == 8,
+             x_err=x_err)
+        del st_k, st_p
+    del st
+    torch.cuda.empty_cache()
+    return lc
+
+
 def phase_profile(path: str) -> None:
-    """One main-path run under torch.profiler after three unprofiled ones:
-    device busy time (the summed durations of the kernels and copies the
-    profiler saw on the card) against the walls, the device items by
-    time, and the host's launch and copy calls.  The full operator table
-    goes to ``path``."""
+    """For each main path (plain, then OWL-QN), one run under
+    torch.profiler after three unprofiled ones: device busy time (the
+    summed durations of the kernels and copies the profiler saw on the
+    card) against the walls, the device items by time, and the host's
+    launch and copy calls.  The full operator tables go to ``path``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for name, params in (("main_path", MAIN_PARAMS), ("owlqn_main_path", OWLQN_PARAMS)):
+            _profile_one(name, params, f)
+
+
+def _profile_one(name: str, params: LbfgsParams, f) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
@@ -438,12 +667,12 @@ def phase_profile(path: str) -> None:
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = minimize_jit(MAIN_PARAMS, x0, default_evaluate(), return_state=True)
+        st = minimize_jit(params, x0, default_evaluate(), return_state=True)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st = minimize_jit(MAIN_PARAMS, x0, default_evaluate(), return_state=True)
+        st = minimize_jit(params, x0, default_evaluate(), return_state=True)
         torch.cuda.synchronize()
         wall_prof = 1e3 * (time.perf_counter() - t0)
     iters = st.k - 1
@@ -456,15 +685,13 @@ def phase_profile(path: str) -> None:
            if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy"))}
     top = [dict(name=e.key[:70], ms=e.self_device_time_total / 1e3, count=e.count)
            for e in dev[:12]]
-    out = dict(phase="profile", n=N_BIG, iters=iters, walls_ms=walls,
+    out = dict(phase="profile", path=name, n=N_BIG, iters=iters, walls_ms=walls,
                profiled_wall_ms=wall_prof, device_busy_ms=busy,
                device_busy_ms_per_iter=busy / iters,
                busy_share_of_walls=[busy / w for w in walls],
                device_items=len(dev), host_calls=api, top=top)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "w") as f:
-        f.write(json.dumps(out) + "\n\n")
-        f.write(ka.table(sort_by="self_device_time_total", row_limit=60))
+    f.write(json.dumps(out) + "\n\n")
+    f.write(ka.table(sort_by="self_device_time_total", row_limit=60) + "\n\n")
     emit(**out)
 
 
@@ -487,16 +714,30 @@ def phase_north_star() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
-                    help="also profile one main-path run; operator table to PATH")
+                    help="also profile one run of each main path; operator tables to PATH")
     args = ap.parse_args()
-    phase_device()
-    phase_build()
-    k = phase_kernels()
-    phase_goldens()
-    lc = phase_main_path()
-    phase_north_star()
+    seconds = {}
+
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[fn.__name__.removeprefix("phase_")] = round(time.perf_counter() - t0, 3)
+        return out
+
+    timed(phase_device)
+    timed(phase_build)
+    k = timed(phase_kernels)
+    timed(phase_goldens)
+    timed(phase_owlqn_golden)
+    lc = timed(phase_main_path)
+    lc_ow = timed(phase_owlqn_main_path)
+    timed(phase_north_star)
     if args.profile:
-        phase_profile(args.profile)
+        timed(phase_profile, args.profile)
+    emit(phase="timing", seconds=seconds)
+    # each kernel's launches on its own main path
+    lc = {**{name: lc[name] for name in PLAIN_PATH},
+          **{name: lc_ow[name] for name in OWLQN_PATH if name not in PLAIN_PATH}}
     table = [
         dict(name=name, route=route, source=src, replaces=rep, launches=lc[name],
              max_abs_err=k["errs"][name][0], max_normwise_err=k["errs"][name][1],

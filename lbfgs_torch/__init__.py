@@ -22,10 +22,18 @@ Quick start (mirrors the reference crate doc-example, ``src/lib.rs:8-53``)::
     )
     print(report.fx)
 
-Ported so far: plain L-BFGS with the More-Thuente line search and the
-compact two-loop, the step-at-a-time and whole-run loops.  OWL-QN,
-damping, the backtracking searches, the wide fx mode and the batched and
-sharded runners raise ``NotImplementedError``.
+OWL-QN (L1 on a window of the vector) runs the same way, through the
+backtracking search and its own kernels::
+
+    report = lbfgs().with_orthantwise(1.0, 0, 99).minimize(x0, default_evaluate())
+
+Ported so far: plain L-BFGS with the More-Thuente and the three
+backtracking searches (Armijo, Wolfe, strong Wolfe), OWL-QN, the compact
+two-loop, the step-at-a-time (``minimize``, ``LbfgsState``) and whole-run
+(``minimize_jit``) loops.  Damping (with damped OWL-QN and
+gradient_only), the scan two-loop, the wide fx mode, the speculative
+search, the adaptive entry step, fp8 and float16 histories, and the
+batched and native runners raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -26,6 +26,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import orthantwise as ow_ops
+from .orthantwise import Orthantwise
+
 
 class ProblemState(NamedTuple):
     """Optimization vectors (reference ``Problem``, ``src/core.rs:10-52``)."""
@@ -40,10 +43,13 @@ class ProblemState(NamedTuple):
     #: keeps them for the reference's revert (``src/core.rs:201-210``).
     xp: Optional[torch.Tensor]
     gp: Optional[torch.Tensor]
+    #: OWL-QN pseudo-gradient at x; ``None`` whenever OWL-QN is off (the
+    #: reference keeps pg == gx then, ``src/core.rs:95-101``)
+    pg: Optional[torch.Tensor]
     d: torch.Tensor        #: search direction                   [n]
     neval: int             #: total objective evaluations
-    #: carried squared norms of the current gradient and point, so the
-    #: stop test (src/lbfgs.rs:714-722) reads no vector
+    #: carried squared norms of the current gradient (pg under OWL-QN)
+    #: and point, so the stop test (src/lbfgs.rs:714-722) reads no vector
     gnorm2: np.floating
     xnorm2: np.floating
 
@@ -112,6 +118,11 @@ class ProblemDef:
     """Problem definition handed to the solver."""
 
     value_and_grad: EvalFn
+    owlqn: Optional[Orthantwise] = None
+
+    @property
+    def orthantwise(self) -> bool:
+        return self.owlqn is not None
 
 
 def _required_positional(fn: Callable) -> int:
@@ -164,12 +175,39 @@ def normalize_objective(fn: Callable) -> EvalFn:
 
 
 def evaluate(pdef: ProblemDef, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One objective evaluation (``Problem::evaluate``, src/core.rs:119-132)."""
-    return pdef.value_and_grad(x)
+    """One objective evaluation with the OWL-QN L1 term folded into fx
+    (``Problem::evaluate``, src/core.rs:119-132, minus the
+    pseudo-gradient, which callers compute only where needed)."""
+    fx, gx = pdef.value_and_grad(x)
+    if pdef.owlqn is not None:
+        fx = fx + ow_ops.x1norm(pdef.owlqn, x)
+    return fx, gx
+
+
+def pseudo_gradient_and_norm(pdef: ProblemDef, x: torch.Tensor,
+                             gx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pg, pg . pg) under OWL-QN in one pass: the objective's
+    ``__lbfgs_pseudo_gradient_norm__`` when it has one (its ``.plain``
+    twin runs the plain version), else K10 (``fused.pseudo_gradient_norm``)."""
+    from .ops import fused
+
+    fn = getattr(pdef.value_and_grad, "__lbfgs_pseudo_gradient_norm__",
+                 fused.pseudo_gradient_norm)
+    start, end = pdef.owlqn.start_end(x.shape[0])
+    return fn(x, gx, pdef.owlqn.c, start, end)
+
+
+def pseudo_gradient(pdef: ProblemDef, x: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
+    """pg under OWL-QN, or gx itself otherwise (``src/core.rs:123-126``).
+    The port has no pg-only kernel: K10 gives pg with its norm."""
+    if pdef.owlqn is None:
+        return gx
+    return pseudo_gradient_and_norm(pdef, x, gx)[0]
 
 
 def gnorm_of(prob: ProblemState) -> np.floating:
-    """||gx|| from the carried squared norm (``src/core.rs:183-189``)."""
+    """||pg|| under OWL-QN, else ||gx||, from the carried squared norm
+    (``src/core.rs:183-189``): the solver carries ||pg||^2 under OWL-QN."""
     return np.sqrt(prob.gnorm2)
 
 

@@ -1,6 +1,7 @@
-// K3: the compact two-loop's direction combine, by hand for Hopper (sm_90a).
+// K3 and K13: the compact two-loop's direction combine, by hand for Hopper
+// (sm_90a).
 //
-// Replaces lbfgs_tpu/ops/fused.py:_combine_kernel (launched by
+// K3 replaces lbfgs_tpu/ops/fused.py:_combine_kernel (launched by
 // _combine_single).  Computes, for every element i of the vectors,
 //
 //     r_i = gamma * g_i + sum_j cs_j * S[j, i] + sum_j cy_j * Y[j, i]
@@ -9,6 +10,16 @@
 // squared direction norm) and r.g (the next line search's dginit when the
 // caller folds the two-loop's sign into gamma and the coefficients).
 //
+// K13 (kOw = true) replaces lbfgs_tpu/ops/fused.py:_combine_ow_kernel:
+// the same body, with OWL-QN's direction constraint applied in the pass.
+// There g holds the pseudo-gradient pg, and inside the global window
+// [lo, hi) an element whose sign disagrees with -pg is zeroed
+// (rc = pi(r; -pg), src/orthantwise.rs:140-161).  Its three partials are
+// r.r BEFORE the constraint (the reference's dnorm, src/lbfgs.rs:544),
+// rc.rc (the zero-direction check) and rc.pg (the next search's dginit).
+// Signs are compared with msign, which maps NaN to 0 as the reference's
+// signum does.
+//
 // What bounds it on the H100: bytes.  It reads g and the 2m history rows
 // and writes r, doing 2m+1 multiply-adds per element: with f32 vectors
 // and a bf16 history at m = 6 that is 4 + 24 + 4 = 32 bytes per element
@@ -16,11 +27,12 @@
 // design therefore streams every operand exactly once, coalesced (thread
 // t of a block touches element base + k*256 + t of each row), keeps the
 // 2m+1 coefficients in shared memory, widens the bf16 history in
-// registers, and never writes an intermediate.  The cross-block sums are
-// not done with atomics: each block writes its two partials and the
-// caller adds the [blocks, 2] partials in a fixed order, so runs repeat
-// bit for bit.  Vectorised loads and more work per thread are left for
-// later tuning.
+// registers, and never writes an intermediate.  The constraint costs no
+// bytes: the window test is on the element's global index and pg is the
+// g already loaded.  The cross-block sums are not done with atomics: each
+// block writes its partials and the caller adds the [blocks, k] partials
+// in a fixed order, so runs repeat bit for bit.  Vectorised loads and
+// more work per thread are left for later tuning.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,20 +61,29 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// coef = [gamma, cs_0 .. cs_{m-1}, cy_0 .. cy_{m-1}]; partials = [gridDim.x, 2]
-template <typename T, typename H>
+// sign with NaN and +-0 mapped to 0 (the reference's signum)
+template <typename T>
+__device__ __forceinline__ int msign(T v) {
+  return v > T(0) ? 1 : (v < T(0) ? -1 : 0);
+}
+
+// coef = [gamma, cs_0 .. cs_{m-1}, cy_0 .. cy_{m-1}];
+// partials = [gridDim.x, kOw ? 3 : 2]
+template <typename T, typename H, bool kOw>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const T* __restrict__ g, const H* __restrict__ S, const H* __restrict__ Y,
                const T* __restrict__ coef, T* __restrict__ r, T* __restrict__ partials,
-               long long n, int m) {
+               long long n, int m, long long lo, long long hi) {
+  constexpr int kParts = kOw ? 3 : 2;
   __shared__ T c[1 + 2 * kMaxM];
-  __shared__ T red[2][kThreads / 32];
+  __shared__ T red[kParts][kThreads / 32];
   for (int i = threadIdx.x; i < 1 + 2 * m; i += kThreads) c[i] = coef[i];
   __syncthreads();
 
   const long long base = static_cast<long long>(blockIdx.x) * kBlockElems;
-  T rr = T(0);
-  T rg = T(0);
+  T acc[kParts];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) acc[p] = T(0);
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     const long long i = base + k * kThreads + threadIdx.x;
@@ -75,41 +96,48 @@ combine_kernel(const T* __restrict__ g, const H* __restrict__ S, const H* __rest
         acc_y += c[1 + m + j] * widen<T, H>(Y[j * n + i]);
       }
       const T rv = c[0] * gv + (acc_s + acc_y);
-      r[i] = rv;
-      rr += rv * rv;
-      rg += rv * gv;
+      acc[0] += rv * rv;
+      if constexpr (kOw) {
+        const bool kill = i >= lo && i < hi && msign(rv) != -msign(gv);
+        const T rc = kill ? T(0) : rv;
+        r[i] = rc;
+        acc[1] += rc * rc;
+        acc[2] += rc * gv;
+      } else {
+        r[i] = rv;
+        acc[1] += rv * gv;
+      }
     }
   }
 
-  rr = warp_sum(rr);
-  rg = warp_sum(rg);
   const int warp = threadIdx.x / 32;
-  if ((threadIdx.x & 31) == 0) {
-    red[0][warp] = rr;
-    red[1][warp] = rg;
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    const T v = warp_sum(acc[p]);
+    if ((threadIdx.x & 31) == 0) red[p][warp] = v;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    T a = T(0);
-    T b = T(0);
-    for (int w = 0; w < kThreads / 32; ++w) {
-      a += red[0][w];
-      b += red[1][w];
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      T a = T(0);
+      for (int w = 0; w < kThreads / 32; ++w) a += red[p][w];
+      partials[kParts * blockIdx.x + p] = a;
     }
-    partials[2 * blockIdx.x] = a;
-    partials[2 * blockIdx.x + 1] = b;
   }
 }
 
-template <typename T, typename H>
+template <typename T, typename H, bool kOw>
 int launch_combine(const void* g, const void* S, const void* Y, const void* coef, void* r,
-                   void* partials, long long n, int m, void* stream) {
+                   void* partials, long long n, int m, long long lo, long long hi,
+                   void* stream) {
   if (n <= 0 || m < 1 || m > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kBlockElems - 1) / kBlockElems;
-  combine_kernel<T, H><<<static_cast<unsigned>(blocks), kThreads, 0,
-                         reinterpret_cast<cudaStream_t>(stream)>>>(
+  combine_kernel<T, H, kOw><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(g), static_cast<const H*>(S), static_cast<const H*>(Y),
-      static_cast<const T*>(coef), static_cast<T*>(r), static_cast<T*>(partials), n, m);
+      static_cast<const T*>(coef), static_cast<T*>(r), static_cast<T*>(partials), n, m,
+      lo, hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -125,19 +153,21 @@ const char* lbfgs_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int lbfgs_combine_f32_bf16(const void* g, const void* S, const void* Y, const void* coef,
-                           void* r, void* partials, long long n, int m, void* stream) {
-  return launch_combine<float, __nv_bfloat16>(g, S, Y, coef, r, partials, n, m, stream);
-}
+#define LBFGS_COMBINE_ENTRY(SFX, T, H)                                                    \
+  int lbfgs_combine_##SFX(const void* g, const void* S, const void* Y, const void* coef,  \
+                          void* r, void* partials, long long n, int m, void* stream) {   \
+    return launch_combine<T, H, false>(g, S, Y, coef, r, partials, n, m, 0, 0, stream);  \
+  }                                                                                       \
+  int lbfgs_combine_ow_##SFX(const void* g, const void* S, const void* Y,                \
+                             const void* coef, void* r, void* partials, long long n,     \
+                             int m, long long lo, long long hi, void* stream) {          \
+    return launch_combine<T, H, true>(g, S, Y, coef, r, partials, n, m, lo, hi, stream); \
+  }
 
-int lbfgs_combine_f32_f32(const void* g, const void* S, const void* Y, const void* coef,
-                          void* r, void* partials, long long n, int m, void* stream) {
-  return launch_combine<float, float>(g, S, Y, coef, r, partials, n, m, stream);
-}
+LBFGS_COMBINE_ENTRY(f32_bf16, float, __nv_bfloat16)
+LBFGS_COMBINE_ENTRY(f32_f32, float, float)
+LBFGS_COMBINE_ENTRY(f64_f64, double, double)
 
-int lbfgs_combine_f64_f64(const void* g, const void* S, const void* Y, const void* coef,
-                          void* r, void* partials, long long n, int m, void* stream) {
-  return launch_combine<double, double>(g, S, Y, coef, r, partials, n, m, stream);
-}
+#undef LBFGS_COMBINE_ENTRY
 
 }  // extern "C"

@@ -32,15 +32,17 @@ def _tensor(a, device) -> torch.Tensor:
 
 def state_from_jax(tree: Any, device) -> SolverState:
     """This package's ``SolverState`` from a JAX ``SolverState`` with
-    numpy leaves.  Host scalars keep the vectors' dtype; the OWL-QN,
-    speculative-probe and wide-fx slots are not carried (unported)."""
+    numpy leaves, the OWL-QN pseudo-gradient included.  Host scalars keep
+    the vectors' dtype; the speculative-probe and wide-fx slots are not
+    carried (unported)."""
     p, h = tree.prob, tree.hist
     f = np.asarray(p.x).dtype.type
     m = np.asarray(h.s).shape[0]
     vec = lambda a: None if a is None else _tensor(a, device)
     prob = ProblemState(
         x=vec(p.x), fx=f(np.asarray(p.fx)), gx=vec(p.gx),
-        xp=vec(p.xp), gp=vec(p.gp), d=vec(p.d), neval=int(np.asarray(p.neval)),
+        xp=vec(p.xp), gp=vec(p.gp), pg=vec(p.pg), d=vec(p.d),
+        neval=int(np.asarray(p.neval)),
         gnorm2=f(np.asarray(p.gnorm2)), xnorm2=f(np.asarray(p.xnorm2)),
     )
     hist = History(
@@ -76,7 +78,8 @@ def state_to_numpy(st: SolverState) -> dict:
     return {
         "prob": {
             "x": _numpy(p.x), "fx": p.fx, "gx": _numpy(p.gx),
-            "xp": _numpy(p.xp), "gp": _numpy(p.gp), "d": _numpy(p.d),
+            "xp": _numpy(p.xp), "gp": _numpy(p.gp), "pg": _numpy(p.pg),
+            "d": _numpy(p.d),
             "neval": p.neval, "gnorm2": p.gnorm2, "xnorm2": p.xnorm2,
         },
         "hist": {k: _numpy(getattr(h, k)) for k in History._fields},

@@ -1,23 +1,33 @@
-"""More-Thuente line search, run on the host.
+"""The line searches, run on the host: More-Thuente and backtracking.
 
-More-Thuente is sequential by nature: each trial step depends on the
-scalars of the one before.  So the search runs as a Python loop over
-numpy scalars of the vectors' dtype (``np.float32`` for float32 runs,
-which round as the JAX package's float32 search does), and each trip
-reads exactly two scalars from the device, (ft, g.d), in one transfer
-(``core.to_host``).  The vectors never leave the device.
+Both are sequential by nature: each trial step depends on the scalars of
+the one before.  So a search runs as a Python loop over numpy scalars of
+the vectors' dtype (``np.float32`` for float32 runs, which round as the
+JAX package's float32 search does), and each trip reads exactly two
+scalars from the device, (ft, g.d), in one transfer (``core.to_host``).
+The vectors never leave the device.
 
-For objectives with the fused protocol (``__lbfgs_trial_probe__``) each
-trip is one probe kernel that writes no vector; the accepted point is
-materialized afterwards, either by one trial here (``materialize=True``)
-or by the solver's one-pass epilogue (``materialize=False``).  Generic
-objectives evaluate (x, f, g) on every trip.
+For objectives with the fused protocol (``__lbfgs_trial_probe__``, or
+under OWL-QN ``__lbfgs_owlqn_probe_pg__``) each trip is one probe kernel
+that writes no vector; the accepted point is materialized afterwards,
+either by one trial here (``materialize=True``, plain L-BFGS only) or by
+the solver's one-pass epilogue (``materialize=False``).  Generic
+objectives, and OWL-QN searches that materialize, evaluate (x, f, g) on
+every trip.
+
+Routing (``find``, reference ``src/line.rs:193-223``): More-Thuente only
+when the algorithm selects it AND OWL-QN is off; otherwise backtracking,
+and under OWL-QN with the Armijo-only exit and every trial point
+projected onto the orthant chosen before the loop.
 
 Reference quirks kept (each cited in ``lbfgs_tpu/linesearch.py``): the
-loop makes at most ``max_linesearch - 1`` trials and then succeeds with
-``max_linesearch`` (``src/line.rs:258,395-398``); the first convergence
-test returns on the curvature condition alone (``src/line.rs:315-321``);
-``uinfo`` never becomes nonzero.
+More-Thuente loop makes at most ``max_linesearch - 1`` trials and then
+succeeds with ``max_linesearch`` (``src/line.rs:258,395-398``); its first
+convergence test returns on the curvature condition alone
+(``src/line.rs:315-321``); ``uinfo`` never becomes nonzero.  Backtracking
+exhausts the same way and then reports the next, never evaluated, step
+(``src/line.rs:777``); its gradient_only exit is the literal, nearly
+unsatisfiable test (``src/line.rs:768-774``).
 """
 
 from __future__ import annotations
@@ -28,7 +38,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import orthantwise as ow_ops
 from .core import ProblemDef, evaluate, to_host
+from .ops import fused
 from .params import LineSearchAlgorithm, LineSearchParams
 from .status import Status
 
@@ -208,29 +220,48 @@ class LineSearchResult(NamedTuple):
 
 
 def _has_fused_trial(pdef: ProblemDef) -> bool:
-    return getattr(pdef.value_and_grad, "__lbfgs_trial__", None) is not None
+    """The plain fused trial applies with OWL-QN off only: under OWL-QN
+    the trial point is projected and fx carries the L1 term."""
+    return (getattr(pdef.value_and_grad, "__lbfgs_trial__", None) is not None
+            and not pdef.orthantwise)
 
 
-def _probe(pdef: ProblemDef, xp, d, stp):
+def _owlqn_args(pdef: ProblemDef, n: int):
+    start, end = pdef.owlqn.start_end(n)
+    return pdef.owlqn.c, start, end
+
+
+def _probe(pdef: ProblemDef, xp, d, stp, pg=None):
     """(ft, dg) of one trial on the host, without materializing the trial
-    point or gradient (the objective's probe kernel when it has one)."""
-    probe = getattr(pdef.value_and_grad, "__lbfgs_trial_probe__", None)
-    if probe is not None:
-        ft, dg = probe(xp, d, stp)
+    point or gradient: the objective's probe kernel when it has one.
+    Under OWL-QN the probe (K8) is projected onto the orthant that it
+    rebuilds in registers from (xp, pg)."""
+    vag = pdef.value_and_grad
+    if pdef.orthantwise:
+        c, start, end = _owlqn_args(pdef, xp.shape[0])
+        ft, dg = vag.__lbfgs_owlqn_probe_pg__(xp, d, pg, stp, c, start, end)
+    elif getattr(vag, "__lbfgs_trial_probe__", None) is not None:
+        ft, dg = vag.__lbfgs_trial_probe__(xp, d, stp)
     else:
-        res = pdef.value_and_grad.__lbfgs_trial__(xp, d, stp)
+        res = vag.__lbfgs_trial__(xp, d, stp)
         ft, dg = res[1], res[3]
     return tuple(to_host(ft, dg))
 
 
-def _trial(pdef: ProblemDef, xp, d, stp):
+def _trial(pdef: ProblemDef, xp, d, stp, wp=None):
     """One materialized trial: (xt, ft, gt, g.d[, gg, xx, changed]) as
     device tensors — the objective's fused trial when it has one
     (reference ``take_line_step`` + ``evaluate`` + the dg dot,
-    ``src/line.rs:285-290``)."""
+    ``src/line.rs:285-290``).  Under OWL-QN the point is projected onto
+    ``wp`` (the plain stand-in of the JAX package's K9) and ft includes
+    the L1 term."""
     if _has_fused_trial(pdef):
         return pdef.value_and_grad.__lbfgs_trial__(xp, d, stp)
-    xt = xp + float(stp) * d
+    if pdef.orthantwise:
+        start, end = pdef.owlqn.start_end(xp.shape[0])
+        xt = fused.owlqn_trial_step_ref(xp, d, wp, stp, start, end)
+    else:
+        xt = xp + float(stp) * d
     ft, gt = evaluate(pdef, xt)
     return xt, ft, gt, torch.dot(gt, d)
 
@@ -384,6 +415,122 @@ def morethuente(
 
 
 # ---------------------------------------------------------------------------
+# Backtracking
+# ---------------------------------------------------------------------------
+
+
+def backtracking(
+    pdef: ProblemDef,
+    ls: LineSearchParams,
+    xp: torch.Tensor,
+    finit: np.floating,
+    gp: torch.Tensor,
+    d: torch.Tensor,
+    stp0: np.floating,
+    dginit: np.floating,
+    neval0: int,
+    wp: Optional[torch.Tensor] = None,
+    materialize: bool = True,
+) -> LineSearchResult:
+    """Backtracking search with the Armijo / Wolfe / strong-Wolfe exit
+    ladder (reference ``line_search_backtracking``, ``src/line.rs:716-784``):
+    the step shrinks by 0.5 or grows by 2.1 until the ladder's exit holds,
+    ``validate_step`` fails (``LS_MIN_STEP``/``LS_MAX_STEP``), or the loop
+    runs out after ``max_linesearch - 1`` trials.
+
+    Under OWL-QN every trial point is projected onto the orthant chosen
+    before the loop (``src/line.rs:733-736``), and only the Armijo exit
+    applies (``src/line.rs:747-751``).  ``wp`` is that orthant when the
+    trials materialize; in remat mode (``materialize=False``) it is the
+    pseudo-gradient at xp, from which each probe rebuilds the orthant in
+    registers.  A fused plain trial is remat too; see ``morethuente``
+    for ``materialize``.
+    """
+    f = np.dtype(finit.dtype).type
+    finit, dginit = f(finit), f(dginit)
+    dec, inc = f(0.5), f(2.1)
+    dgtest = f(ls.ftol) * dginit
+    gtol = f(ls.gtol)
+    min_step, max_step = f(ls.min_step), f(ls.max_step)
+    armijo_only = (ls.algorithm == LineSearchAlgorithm.BacktrackingArmijo
+                   or pdef.orthantwise)
+    wolfe = ls.algorithm == LineSearchAlgorithm.BacktrackingWolfe
+    max_ls = ls.max_linesearch
+    remat = _has_fused_trial(pdef) or (pdef.orthantwise and not materialize)
+
+    stp, stp_eval = f(stp0), f(0.0)
+    count, done, result, status = 1, False, max_ls, 0
+    neval = neval0
+    ft = finit
+    xt, gt = xp, gp
+
+    with np.errstate(all="ignore"):
+        while not done and count < max_ls:
+            if remat:
+                ft, dg = _probe(pdef, xp, d, stp, wp)
+            else:
+                xt, ft_t, gt, dg_t = _trial(pdef, xp, d, stp, wp)[:4]
+                ft, dg = to_host(ft_t, dg_t)
+            ft, dg = f(ft), f(dg)
+            neval += 1
+
+            armijo_fail = ft > finit + stp * dgtest
+            if armijo_only:
+                # Armijo-only exit ladder (src/line.rs:745-751)
+                success, width = not armijo_fail, dec
+            elif wolfe:
+                # regular Wolfe (src/line.rs:754-757)
+                curv_low = dg < gtol * dginit
+                success = not armijo_fail and not curv_low
+                width = dec if armijo_fail else inc
+            else:
+                # strong Wolfe (src/line.rs:759-763)
+                curv_low = dg < gtol * dginit
+                curv_high = dg > -gtol * dginit
+                success = not (armijo_fail or curv_low or curv_high)
+                width = dec if armijo_fail else (inc if curv_low else dec)
+            if ls.gradient_only:
+                # literal quirk: |dg| <= -gtol*|dginit| holds only when
+                # dginit == 0 (src/line.rs:768-774)
+                success = success or np.abs(dg) <= -gtol * np.abs(dginit)
+
+            # validate_step after a failed trial (src/line.rs:776, :166-178)
+            status = 0
+            if not success and stp < min_step:
+                status = int(Status.LS_MIN_STEP)
+            elif not success and stp > max_step:
+                status = int(Status.LS_MAX_STEP)
+
+            done = success or status != 0
+            stp_eval = stp
+            if success:
+                result = count
+            if not done:
+                stp = f(stp * width)
+            count += 1
+
+    ncall = 0 if status != 0 else result
+    if remat and not materialize:
+        # the solver's one-pass epilogue materializes the accepted point
+        return LineSearchResult(
+            x=None, fx=ft, gx=None, step=stp, ncall=ncall, neval=neval,
+            status=status, step_eval=stp_eval,
+        )
+    if remat:
+        # plain L-BFGS only (see _has_fused_trial): one deterministic
+        # re-evaluation, whose fx equals the probe's
+        xt, _ft, gt, _dg, gg, xx, changed = _trial(pdef, xp, d, stp_eval)
+    else:
+        # under OWL-QN the solver needs ||pg||^2, not ||g||^2
+        gg = None if pdef.orthantwise else torch.dot(gt, gt)
+        xx, changed = torch.dot(xt, xt), None
+    return LineSearchResult(
+        x=xt, fx=ft, gx=gt, step=stp, ncall=ncall, neval=neval, status=status,
+        gg=gg, xx=xx, changed=changed, step_eval=stp_eval,
+    )
+
+
+# ---------------------------------------------------------------------------
 # Dispatcher
 # ---------------------------------------------------------------------------
 
@@ -399,28 +546,40 @@ def find(
     neval0: int,
     dginit: Optional[np.floating] = None,
     materialize: bool = True,
+    pgp: Optional[torch.Tensor] = None,
 ) -> LineSearchResult:
     """Line-search entry (reference ``LineSearch::find``,
-    ``src/line.rs:193-223``), on its More-Thuente route.
+    ``src/line.rs:193-223``).
 
-    The reference's gradient_only + More-Thuente combination is a hard
-    error (``src/line.rs:208``).  A negative entry step is a logic error
-    that leaves find before any evaluation (``src/line.rs:197-201``).  On
-    an internal search failure the caller reverts (``src/line.rs:213-220``).
+    Routing parity: More-Thuente only when the algorithm selects it AND
+    OWL-QN is off; otherwise backtracking.  Under OWL-QN (``pgp`` the
+    pseudo-gradient at xp) the orthant is chosen before the loop
+    (``src/line.rs:733-736``), or, when the solver's epilogue will
+    materialize (``materialize=False``), pg is passed on and each probe
+    (K8) rebuilds the orthant in registers.  The reference's
+    gradient_only + More-Thuente combination is a hard error
+    (``src/line.rs:208``).  A negative entry
+    step is a logic error that leaves find before any evaluation
+    (``src/line.rs:197-201``).  On an internal search failure the caller
+    reverts (``src/line.rs:213-220``).
     """
-    if not materialize and not _has_fused_trial(pdef):
+    ow = pdef.orthantwise
+    has_pg_probe = getattr(pdef.value_and_grad, "__lbfgs_owlqn_probe_pg__",
+                           None) is not None
+    if not materialize and not (has_pg_probe if ow else _has_fused_trial(pdef)):
         raise ValueError(
-            "materialize=False requires a fused-trial objective (__lbfgs_trial__)"
+            "materialize=False requires a fused-trial objective "
+            "(__lbfgs_trial__, or __lbfgs_owlqn_probe_pg__ under OWL-QN)"
         )
-    if ls.algorithm != LineSearchAlgorithm.MoreThuente:
-        raise NotImplementedError(f"backtracking line search ({ls.algorithm})")
-    if ls.gradient_only:
+    use_mt = ls.algorithm == LineSearchAlgorithm.MoreThuente and not ow
+    if use_mt and ls.gradient_only:
         raise ValueError(
             "Gradient only optimization is incompatible with MoreThuente line search."
         )
     if dginit is None:
-        (dginit,) = to_host(torch.dot(gp, d))
-    if ls.warn_ascent and dginit > 0.0:
+        # pg.d under OWL-QN, else g.d (src/core.rs:78-92)
+        (dginit,) = to_host(torch.dot(pgp if ow else gp, d))
+    if not ow and ls.warn_ascent and dginit > 0.0:
         # ascent-direction warning (reference Problem::dginit, src/core.rs:78-92)
         logger.warning(
             "The current search direction increases the objective "
@@ -431,5 +590,11 @@ def find(
             x=xp, fx=finit, gx=gp, step=stp0, ncall=0, neval=neval0,
             status=int(Status.ERR_NEGATIVE_STEP), step_eval=stp0,
         )
-    return morethuente(pdef, ls, xp, finit, gp, d, stp0, dginit, neval0,
-                       materialize=materialize)
+    if use_mt:
+        return morethuente(pdef, ls, xp, finit, gp, d, stp0, dginit, neval0,
+                           materialize=materialize)
+    wp = None
+    if ow:
+        wp = pgp if not materialize else ow_ops.choose_orthant(pdef.owlqn, xp, pgp)
+    return backtracking(pdef, ls, xp, finit, gp, d, stp0, dginit, neval0, wp,
+                        materialize=materialize)

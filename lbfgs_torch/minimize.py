@@ -28,6 +28,7 @@ from .core import (
     SolverState,
     gnorm_of,
     normalize_objective,
+    pseudo_gradient,
     xnorm_of,
 )
 from .params import LbfgsParams
@@ -48,8 +49,9 @@ def _log_stop_status(code: int) -> None:
         logger.warning("Max allowed evaluations reached!")
 
 
-def _make_pdef(evaluate: Callable) -> ProblemDef:
-    return ProblemDef(value_and_grad=normalize_objective(evaluate))
+def _make_pdef(evaluate: Callable, params: LbfgsParams) -> ProblemDef:
+    return ProblemDef(value_and_grad=normalize_objective(evaluate),
+                      owlqn=params.orthantwise)
 
 
 def _report(st: SolverState) -> Report:
@@ -77,7 +79,7 @@ class LbfgsState:
     @classmethod
     def build(cls, params: LbfgsParams, x0: torch.Tensor, evaluate: Callable) -> "LbfgsState":
         """Initial evaluation + direction (``Lbfgs::build``, src/lbfgs.rs:443-481)."""
-        pdef = _make_pdef(evaluate)
+        pdef = _make_pdef(evaluate, params)
         return cls(pdef, params, init_state(pdef, params, x0))
 
     def restore(self, state: SolverState) -> None:
@@ -111,10 +113,14 @@ class LbfgsState:
                 logger.error("line search failed, revert to the previous point!")
                 logger.error("%s", LS_ERROR_MESSAGES.get(Status(ls_code), ls_code))
             if ls_code != 0:
-                # vector revert (reference Problem::revert, src/core.rs:201-210);
+                # vector revert (reference Problem::revert, src/core.rs:201-210),
+                # the pseudo-gradient with them under OWL-QN (pg is a
+                # function of (x, g): recomputed, as the JAX package does);
                 # the carried scalars were reverted inside propagate
                 st = self.state
                 prob = st.prob._replace(x=st.prob.xp, gx=st.prob.gp)
+                if self.pdef.orthantwise:
+                    prob = prob._replace(pg=pseudo_gradient(self.pdef, prob.x, prob.gx))
                 self.state = st._replace(prob=prob)
         if is_fatal(self.state.status):
             raise LbfgsError(Status(self.state.status))
@@ -203,7 +209,7 @@ def minimize_jit(
     Returns a ``Report`` (or the final ``SolverState`` when
     ``return_state``, which also does not raise on a fatal status).
     """
-    pdef = _make_pdef(evaluate)
+    pdef = _make_pdef(evaluate, params)
     st = _run_while(pdef, params, init_state(pdef, params, x0, lean=True))
     if return_state:
         return st

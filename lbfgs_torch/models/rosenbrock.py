@@ -59,6 +59,12 @@ probe_ref = _k.probe_ref
 trial_pair_gram = _k.trial_pair_gram
 trial_pair_gram_ref = _k.trial_pair_gram_ref
 trial_pair_gram_ok = _k.trial_pair_gram_ok
+owlqn_probe = _k.owlqn_probe
+owlqn_probe_ref = _k.owlqn_probe_ref
+owlqn_probe_pg = _k.owlqn_probe_pg
+owlqn_probe_pg_ref = _k.owlqn_probe_pg_ref
+owlqn_trial_pair_gram = _k.owlqn_trial_pair_gram
+owlqn_trial_pair_gram_ref = _k.owlqn_trial_pair_gram_ref
 
 
 def initial_point(n: int, dtype=torch.float64, device=None) -> torch.Tensor:

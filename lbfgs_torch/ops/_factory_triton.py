@@ -1,4 +1,6 @@
-"""Triton kernels K1 (trial), K2 (probe) and K4 (trial + pair + Gram).
+"""Triton kernels K1 (trial), K2 (probe), K4 (trial + pair + Gram), and
+OWL-QN's K8 (projected probe) and K14 (projected trial + pseudo-gradient
++ pair + Gram).
 
 This module imports ``triton`` at the top, so only the launching wrappers
 in ``ops/factory.py`` import it, at their first launch on a CUDA tensor.
@@ -12,8 +14,9 @@ the JAX package, and any objective written to that contract reuses the
 kernels unchanged.
 
 The wrappers launch them without multiply-add contraction
-(``factory.LAUNCH``), so each rounds as its plain version does and K4's
-stored pair is exactly round(stp*d) and round(g - gp).
+(``factory.LAUNCH``), so each rounds as its plain version does and the
+stored pairs of K4 and K14 are exactly the rounded pair of the kernel's
+own registers.
 
 Each program handles one block of ROWS*W consecutive elements and writes
 its partial sums into its own row of a [programs, k] array, which
@@ -36,6 +39,26 @@ nothing that is not a result:
     with all 6m Gram products taken in the same pass.  Row ``end`` is
     never read: its products use the unrounded (s, y) held in registers,
     and only the stored row is rounded to the history dtype.
+  * K8 ``owlqn_probe_kernel`` (replaces factory.py:_owlqn_probe_body):
+    the OWL-QN trial point x = pi(xp + stp*d; wp) inside the window
+    [lo, hi), and per program the objective, the window's sum |x| and
+    g.d, writing no vector.  With ``WP_IS_PG`` the third operand is the
+    pseudo-gradient and the orthant wp is rebuilt in registers from
+    (xp, pg), as ``orthantwise.choose_orthant`` would materialize it, so
+    the search needs no orthant pass (12 B/elem in f32 either way).
+  * K14 ``owlqn_trial_pair_gram_kernel`` (replaces
+    factory.py:_owlqn_tpg_kernel): the accepted projected point x with wp
+    rebuilt from (xp, pg_old), its gradient g and pseudo-gradient pg, the
+    pair (x - xp, g - gp) written into ring row ``end`` and the 6m
+    products against (y, s, -pg), with x.x, pg.pg and the changed count.
+    It reads xp, d, gp, pg_old and m-1 rows of each ring and writes x, g,
+    pg and one row of each (in f32 with a bf16 history, m = 6: 16 + 20 +
+    12 + 4 = 52 B/elem).  x, g and pg may alias xp, gp and pg_old: each
+    element is loaded before it is stored and no element reads another's.
+
+The orthant tests use ``_msign``, which maps NaN to 0 as the reference's
+signum does; the pseudo-gradient's x != 0 branch uses ``_sign``, which
+keeps NaN, as ``jnp.sign`` does in the JAX kernels.
 """
 
 from __future__ import annotations
@@ -55,6 +78,25 @@ def _offsets(ROWS: tl.constexpr, W: tl.constexpr):
     rows = tl.arange(0, ROWS)[:, None]
     cols = tl.arange(0, W)[None, :]
     return pid * (ROWS * W) + rows * W + cols
+
+
+@triton.jit
+def _msign(v):
+    # NaN and +-0 -> 0 (the reference's signum)
+    return tl.where(v > 0, 1.0, tl.where(v < 0, -1.0, 0.0))
+
+
+@triton.jit
+def _sign(v):
+    # +-1, 0 at +-0, NaN at NaN (jnp.sign)
+    return tl.where(v > 0, 1.0, tl.where(v < 0, -1.0, v))
+
+
+@triton.jit
+def _ow_point(xp, d, stp, wp_sign, in_win):
+    # x = pi(xp + stp*d; wp) inside the window
+    xr = xp + stp * d
+    return tl.where(in_win & (_msign(xr) != wp_sign), 0.0, xr)
 
 
 @triton.jit
@@ -140,3 +182,83 @@ def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
         y_row += n
     tl.store(x_ptr + offs, x, mask=mask)
     tl.store(g_ptr + offs, g, mask=mask)
+
+
+@triton.jit(do_not_specialize=["lo", "hi"])
+def owlqn_probe_kernel(xp_ptr, d_ptr, w_ptr, stp_ptr, part_ptr, n, lo, hi,
+                       body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+                       WP_IS_PG: tl.constexpr):
+    offs = _offsets(ROWS, W)
+    mask = offs < n
+    stp = tl.load(stp_ptr)
+    xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+    w = tl.load(w_ptr + offs, mask=mask, other=0.0)
+    if WP_IS_PG:
+        # the orthant in registers from (xp, pg): choose_orthant's formula
+        wp_sign = tl.where(xp == 0.0, _msign(-w), _msign(xp))
+    else:
+        wp_sign = _msign(w)
+    in_win = (offs >= lo) & (offs < hi)
+    x = _ow_point(xp, d, stp, wp_sign, in_win)
+    fe, g = body(x, offs)
+    part = part_ptr + tl.program_id(0) * 3
+    tl.store(part + 0, _block_sum(fe, mask))
+    tl.store(part + 1, _block_sum(tl.abs(x), mask & in_win))
+    tl.store(part + 2, _block_sum(g * d, mask))
+
+
+@triton.jit(do_not_specialize=["end", "lo", "hi"])
+def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
+                                 x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, n,
+                                 lo, hi, end, body: tl.constexpr, M: tl.constexpr,
+                                 ROWS: tl.constexpr, W: tl.constexpr):
+    offs = _offsets(ROWS, W)
+    mask = offs < n
+    stp = tl.load(stp_ptr)
+    c = tl.load(c_ptr)
+    xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+    gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+    pgo = tl.load(pg_ptr + offs, mask=mask, other=0.0)
+    in_win = (offs >= lo) & (offs < hi)
+    # orthant from the previous point's (x, pg): the search's choose_orthant
+    wp_sign = tl.where(xp == 0.0, _msign(-pgo), _msign(xp))
+    x = _ow_point(xp, d, stp, wp_sign, in_win)
+    fe, g = body(x, offs)
+    # pseudo-gradient at the new point (Andrew & Gao Eq. 4)
+    right = g + c
+    left = g - c
+    at_zero = tl.where(right < 0.0, right, tl.where(left > 0.0, left, 0.0))
+    inside = tl.where(x != 0.0, g + _sign(x) * c, at_zero)
+    pg = tl.where(in_win, inside, g)
+    # the pair of the PROJECTED step and the two-loop's d0 = -pg
+    s = x - xp
+    y = g - gp
+    d0 = -pg
+    part = part_ptr + tl.program_id(0) * (3 + 6 * M)
+    tl.store(part + 0, _block_sum(x * x, mask))
+    tl.store(part + 1, _block_sum(pg * pg, mask))
+    tl.store(part + 2, _block_sum(tl.where(x != xp, 1.0, 0.0).to(x.dtype), mask))
+    s_row = S_ptr + offs
+    y_row = Y_ptr + offs
+    for j in tl.static_range(M):
+        is_end = end == j
+        Sj = tl.load(s_row, mask=mask & (end != j), other=0.0).to(x.dtype)
+        Yj = tl.load(y_row, mask=mask & (end != j), other=0.0).to(x.dtype)
+        Sj = tl.where(is_end, s, Sj)
+        Yj = tl.where(is_end, y, Yj)
+        pj = part + 3 + 6 * j
+        tl.store(pj + 0, _block_sum(Sj * y, mask))
+        tl.store(pj + 1, _block_sum(Sj * s, mask))
+        tl.store(pj + 2, _block_sum(Sj * d0, mask))
+        tl.store(pj + 3, _block_sum(Yj * y, mask))
+        tl.store(pj + 4, _block_sum(Yj * s, mask))
+        tl.store(pj + 5, _block_sum(Yj * d0, mask))
+        tl.store(s_row, s.to(s_row.dtype.element_ty), mask=mask & is_end)
+        tl.store(y_row, y.to(y_row.dtype.element_ty), mask=mask & is_end)
+        s_row += n
+        y_row += n
+    tl.store(x_ptr + offs, x, mask=mask)
+    tl.store(g_ptr + offs, g, mask=mask)
+    tl.store(pgn_ptr + offs, pg, mask=mask)

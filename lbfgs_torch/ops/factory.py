@@ -11,7 +11,23 @@ protocol the solver looks for:
   * ``__lbfgs_trial_pair_gram__(...)`` / ``..._ok__`` — K4: the trial, the
     correction pair written into ring row ``end``, and all 6m Gram
     products in one pass (the iteration's epilogue);
-  * ``__lbfgs_combine__`` — the direction combine (K3, ``fused.combine``).
+  * ``__lbfgs_owlqn_probe__`` / ``__lbfgs_owlqn_probe_pg__`` — K8: (fx +
+    c*L1, g.d) at the OWL-QN trial point pi(xp + stp*d; wp), the orthant
+    given, or rebuilt in registers from (xp, pg);
+  * ``__lbfgs_owlqn_trial_pair_gram__(...)`` / ``..._ok__`` — K14: the
+    OWL-QN epilogue, the projected point with its gradient and
+    pseudo-gradient, the pair (x - xp, g - gp) written into ring row
+    ``end`` and all 6m products against (y, s, -pg);
+  * ``__lbfgs_combine__`` / ``__lbfgs_combine_ow__`` — the direction
+    combine (K3, ``fused.combine``) and its OWL-QN form (K13,
+    ``fused.combine_ow``);
+  * ``__lbfgs_pseudo_gradient_norm__`` — OWL-QN's (pg, pg.pg) (K10,
+    ``fused.pseudo_gradient_norm``), which the solver's init runs.
+
+The OWL-QN trial with materialized outputs (``__lbfgs_owlqn_trial__``,
+K7 in the JAX package) is not ported: objectives here do not carry it,
+so no OWL-QN path can reach a plain trial unseen.  Under OWL-QN the line
+search probes with K8 and the solver materializes with K14.
 
 Each wrapper launches its Triton kernel (``ops/_factory_triton.py``) on a
 CUDA tensor and runs its plain version (``*_ref``, same module) on a CPU
@@ -36,6 +52,7 @@ from types import SimpleNamespace
 import torch
 
 from . import _build, fused
+from ..orthantwise import Orthantwise, choose_orthant, project_window, pseudo_gradient
 
 #: elements per kernel program (a power of two; ``row`` divides it)
 BLOCK = 1024
@@ -60,6 +77,12 @@ def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     kernels load the step from memory: a Python float argument would be
     narrowed to float32)."""
     return torch.full((1,), float(v), dtype=like.dtype, device=like.device)
+
+
+def _window(n: int, start: int, end: int) -> tuple[int, int]:
+    if not 0 <= start < end <= n:
+        raise ValueError(f"OWL-QN window [{start}, {end}) outside [0, {n})")
+    return int(start), int(end)
 
 
 def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
@@ -153,17 +176,7 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         stp = float(stp)
         x = xp + stp * d
         fx, g = value_and_grad(x)
-        s = stp * d
-        y = g - gp
-        Z = torch.stack([y, s, -g], dim=1)
-        SP = S.to(x.dtype) @ Z
-        YP = Y.to(x.dtype) @ Z
-        # row `end` is the new pair, unrounded (the kernel's products see
-        # the values in registers, not the stored row)
-        SP[end] = torch.stack([s @ y, s @ s, -(s @ g)])
-        YP[end] = torch.stack([y @ y, y @ s, -(y @ g)])
-        S[end] = s.to(S.dtype)
-        Y[end] = y.to(Y.dtype)
+        SP, YP = fused.pair_products(stp * d, g - gp, -g, S, Y, end)
         out = (fx, torch.dot(g, d), torch.dot(g, g), torch.dot(x, x),
                torch.any(x != xp))
         if inplace:
@@ -204,9 +217,118 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         # the wrapper instead of quietly taking the composed path
         return fused.can_pair_gram(xp, S)
 
-    for fn in (trial, probe, trial_pair_gram):
+    # ------------------------------------------- K8 OWL-QN probe
+
+    def _ow_eval(xp, d, wp, stp, c, start, end):
+        """(x, fx + c*L1, g) at the projected trial point."""
+        x = project_window(xp + float(stp) * d, wp, start, end)
+        fx, g = value_and_grad(x)
+        return x, fx + torch.sum(torch.abs(x[start:end])) * c, g
+
+    def owlqn_probe_ref(xp, d, wp, stp, c, start, end):
+        """Plain version of ``owlqn_probe``."""
+        owlqn_probe_ref.calls += 1
+        _, ft, g = _ow_eval(xp, d, wp, stp, c, start, end)
+        return ft, torch.dot(g, d)
+
+    def owlqn_probe_pg_ref(xp, d, pg, stp, c, start, end):
+        """Plain version of ``owlqn_probe_pg``."""
+        owlqn_probe_pg_ref.calls += 1
+        wp = choose_orthant(Orthantwise(c, start, end), xp, pg)
+        _, ft, g = _ow_eval(xp, d, wp, stp, c, start, end)
+        return ft, torch.dot(g, d)
+
+    def _ow_probe(xp, d, w, stp, c, start, end, wp_is_pg):
+        fused.check_contiguous("owlqn_probe", xp, d, w)
+        n = xp.shape[0]
+        lo, hi = _window(n, start, end)
+        grid = _grid(n)
+        part = torch.empty((grid[0], 3), dtype=xp.dtype, device=xp.device)
+        _kernels().owlqn_probe_kernel[grid](
+            xp, d, w, _scalar(stp, xp), part, n, lo, hi,
+            body=block_fn(), ROWS=rows, W=row, WP_IS_PG=wp_is_pg, **LAUNCH,
+        )
+        tot = fused.reduce_partials(part)
+        # fx + c*L1 from the two columns, in the vectors' dtype
+        return tot[0] + tot[1] * c, tot[2]
+
+    def owlqn_probe(xp, d, wp, stp, c, start, end):
+        """(fx + c*L1, g.d) at x = pi(xp + stp*d; wp) inside the window
+        [start, end), writing no vector."""
+        _check(xp)
+        if not fused.on_cuda(xp, "owlqn_probe"):
+            return owlqn_probe_ref(xp, d, wp, stp, c, start, end)
+        out = _ow_probe(xp, d, wp, stp, c, start, end, False)
+        owlqn_probe.launches += 1
+        return out
+
+    def owlqn_probe_pg(xp, d, pg, stp, c, start, end):
+        """``owlqn_probe`` with the orthant rebuilt in registers from
+        (xp, pg) by ``choose_orthant``'s formula: the same scalars, bit
+        for bit, without the orthant vector."""
+        _check(xp)
+        if not fused.on_cuda(xp, "owlqn_probe_pg"):
+            return owlqn_probe_pg_ref(xp, d, pg, stp, c, start, end)
+        out = _ow_probe(xp, d, pg, stp, c, start, end, True)
+        owlqn_probe_pg.launches += 1
+        return out
+
+    # ------------------------ K14 OWL-QN trial + pseudo-gradient + pair + Gram
+
+    def owlqn_trial_pair_gram_ref(xp, d, gp, pg, stp, c, start, end_w, S, Y, end,
+                                  inplace=False):
+        """Plain version of ``owlqn_trial_pair_gram``."""
+        owlqn_trial_pair_gram_ref.calls += 1
+        ow = Orthantwise(c, start, end_w)
+        x, _, g = _ow_eval(xp, d, choose_orthant(ow, xp, pg), stp, c, start, end_w)
+        pg_new = pseudo_gradient(ow, x, g)
+        SP, YP = fused.pair_products(x - xp, g - gp, -pg_new, S, Y, end)
+        out = (torch.dot(x, x), torch.dot(pg_new, pg_new), torch.any(x != xp))
+        if inplace:
+            xp.copy_(x)
+            gp.copy_(g)
+            pg.copy_(pg_new)
+            x, g, pg_new = xp, gp, pg
+        return (x, g, pg_new, SP, YP, *out)
+
+    def owlqn_trial_pair_gram(xp, d, gp, pg, stp, c, start, end_w, S, Y, end,
+                              inplace=False):
+        """OWL-QN's one-pass epilogue: the accepted point x = pi(xp +
+        stp*d; wp), wp = choose_orthant(xp, pg) rebuilt in registers, its
+        gradient g and pseudo-gradient pg_new (L1 weight ``c`` on the
+        window [start, end_w)), the pair (x - xp, g - gp) written into
+        ring row ``end`` of S and Y (in place), and SP = S.[y, s, -pg_new],
+        YP = Y.[y, s, -pg_new] ([m, 3]).  Returns (x, g, pg_new, SP, YP,
+        x.x, pg_new.pg_new, changed); fx is the search's last probe.
+        ``inplace=True`` writes x, g and pg_new over xp, gp and pg."""
+        _check(xp)
+        fused._check_hist(xp, S, Y)
+        if not fused.on_cuda(xp, "owlqn_trial_pair_gram"):
+            return owlqn_trial_pair_gram_ref(xp, d, gp, pg, stp, c, start, end_w,
+                                             S, Y, end, inplace)
+        fused.check_contiguous("owlqn_trial_pair_gram", xp, d, gp, pg, S, Y)
+        m, n = S.shape
+        lo, hi = _window(n, start, end_w)
+        grid = _grid(n)
+        x = xp if inplace else torch.empty_like(xp)
+        g = gp if inplace else torch.empty_like(gp)
+        pg_new = pg if inplace else torch.empty_like(pg)
+        part = torch.empty((grid[0], 3 + 6 * m), dtype=xp.dtype, device=xp.device)
+        _kernels().owlqn_trial_pair_gram_kernel[grid](
+            xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new, S, Y,
+            part, n, lo, hi, int(end), body=block_fn(), M=m, ROWS=rows, W=row,
+            **LAUNCH,
+        )
+        owlqn_trial_pair_gram.launches += 1
+        tot = fused.reduce_partials(part)
+        P = tot[3:].reshape(m, 6)
+        return x, g, pg_new, P[:, :3], P[:, 3:], tot[0], tot[1], tot[2] > 0
+
+    for fn in (trial, probe, trial_pair_gram, owlqn_probe, owlqn_probe_pg,
+               owlqn_trial_pair_gram):
         fn.launches = 0
-    for fn in (trial_ref, probe_ref, trial_pair_gram_ref):
+    for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_probe_ref,
+               owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref):
         fn.calls = 0
 
     ns = SimpleNamespace(
@@ -215,6 +337,10 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         trial_pair_gram=trial_pair_gram,
         trial_pair_gram_ref=trial_pair_gram_ref,
         trial_pair_gram_ok=trial_pair_gram_ok,
+        owlqn_probe=owlqn_probe, owlqn_probe_ref=owlqn_probe_ref,
+        owlqn_probe_pg=owlqn_probe_pg, owlqn_probe_pg_ref=owlqn_probe_pg_ref,
+        owlqn_trial_pair_gram=owlqn_trial_pair_gram,
+        owlqn_trial_pair_gram_ref=owlqn_trial_pair_gram_ref,
     )
 
     def vag(x):
@@ -224,18 +350,28 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         return value_and_grad(x)
 
     _attach(vag, trial, probe, trial_pair_gram, trial_pair_gram_ok,
-            fused.combine)
-    _attach(plain, trial_ref, probe_ref, trial_pair_gram_ref,
-            trial_pair_gram_ok, fused.combine_ref)
+            owlqn_probe, owlqn_probe_pg, owlqn_trial_pair_gram,
+            fused.combine, fused.combine_ow, fused.pseudo_gradient_norm)
+    _attach(plain, trial_ref, probe_ref, trial_pair_gram_ref, trial_pair_gram_ok,
+            owlqn_probe_ref, owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref,
+            fused.combine_ref, fused.combine_ow_ref, fused.pseudo_gradient_norm_ref)
     vag.kernels = plain.kernels = ns
     vag.plain = plain
     return vag
 
 
-def _attach(obj, trial, probe, tpg, tpg_ok, combine) -> None:
+def _attach(obj, trial, probe, tpg, tpg_ok, ow_probe, ow_probe_pg, ow_tpg,
+            combine, combine_ow, pg_norm) -> None:
     obj.__lbfgs_value_and_grad__ = True
     obj.__lbfgs_trial__ = trial
     obj.__lbfgs_trial_probe__ = probe
     obj.__lbfgs_trial_pair_gram__ = tpg
     obj.__lbfgs_trial_pair_gram_ok__ = tpg_ok
+    obj.__lbfgs_owlqn_probe__ = ow_probe
+    obj.__lbfgs_owlqn_probe_pg__ = ow_probe_pg
+    obj.__lbfgs_owlqn_trial_pair_gram__ = ow_tpg
+    # the OWL-QN epilogue takes the same shapes and dtypes as K4's
+    obj.__lbfgs_owlqn_trial_pair_gram_ok__ = tpg_ok
     obj.__lbfgs_combine__ = combine
+    obj.__lbfgs_combine_ow__ = combine_ow
+    obj.__lbfgs_pseudo_gradient_norm__ = pg_norm

@@ -1,16 +1,27 @@
-"""The direction combine kernel (K3) and what the fused kernels share.
+"""The CUDA C++ kernels (K3, K10, K13) and what the fused kernels share.
 
-  * ``combine`` — r = gamma*d + coef_s @ S + coef_y @ Y with ||r||^2 and
-    r . d from one pass (the compact two-loop's output direction).  On a
-    CUDA tensor it launches the hand-written kernel ``csrc/combine.cu``;
-    on a CPU tensor it runs ``combine_ref``, its plain version.
+  * ``combine`` (K3) — r = gamma*d + coef_s @ S + coef_y @ Y with ||r||^2
+    and r . d from one pass (the compact two-loop's output direction).
+  * ``combine_ow`` (K13) — the same pass with OWL-QN's direction
+    constraint rc = pi(r; -pg) inside the window, returning ||r||^2
+    before the constraint, ||rc||^2 and rc . pg.
+  * ``pseudo_gradient_norm`` (K10) — OWL-QN's pseudo-gradient and its
+    squared norm in one pass.
+
+  On a CUDA tensor each launches its hand-written kernel
+  (``csrc/combine.cu``, ``csrc/owlqn.cu``); on a CPU tensor it runs its
+  plain version (``*_ref``).
+
   * ``reduce_partials`` — the fixed-order cross-block sum that every
     kernel of the package uses: each kernel program writes its own
     partial sums, and this adds them, so no float atomics touch the
     trajectory and runs repeat bit for bit.
-  * ``pair_gram_ref`` / ``pair_gram_sd_ref`` — the composed correction-
-    pair update with all 6m Gram products, the solver's path when the
-    objective provides no one-pass epilogue.
+  * ``pair_gram_ref`` / ``pair_gram_sd_ref`` / ``pair_gram_xg_ref`` and
+    ``owlqn_trial_step_ref`` — the composed correction-pair updates with
+    all 6m Gram products and the projected trial point, the solver's path
+    when the objective provides no one-pass epilogue.  They are plain
+    stand-ins for kernels not ported yet (K5, K12, K9), so each counts
+    its calls: the main path on the card makes none.
   * the predicates ``can_combine`` / ``can_pair_gram`` and the dtype
     rules all kernels follow.
 
@@ -24,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ..orthantwise import Orthantwise, project_window, pseudo_gradient
 
 #: (vector dtype, history dtype) pairs the kernels take
 SUPPORTED = {
@@ -101,14 +113,40 @@ can_pair_gram = can_combine
 # ---------------------------------------------------------------------------
 
 
+def _combination(d, S, Y, gamma, coef_s, coef_y):
+    return gamma * d + (coef_s @ S.to(d.dtype) + coef_y @ Y.to(d.dtype))
+
+
 def combine_ref(d, S, Y, gamma, coef_s, coef_y):
     """Plain version of ``combine``: (r, r.r, r.d)."""
     combine_ref.calls += 1
-    r = gamma * d + (coef_s @ S.to(d.dtype) + coef_y @ Y.to(d.dtype))
+    r = _combination(d, S, Y, gamma, coef_s, coef_y)
     return r, torch.dot(r, r), torch.dot(r, d)
 
 
 combine_ref.calls = 0
+
+
+def _launch_combine(name, d, S, Y, gamma, coef_s, coef_y, nparts, *window):
+    """Launch the combine kernel ``name`` (K3, or K13 with ``window`` =
+    (lo, hi)); returns (r, column sums of its [blocks, nparts] partials)."""
+    m, n = S.shape
+    if m > MAX_M:
+        raise ValueError(f"{name}: m = {m} exceeds {MAX_M}")
+    check_contiguous(name, d, S, Y)
+    lib = _build.load_library()
+    coef = torch.cat(
+        [gamma.reshape(1), coef_s.reshape(-1), coef_y.reshape(-1)]
+    ).to(d.dtype)
+    blocks = -(-n // lib.lbfgs_combine_block_elems())
+    r = torch.empty_like(d)
+    part = torch.empty((blocks, nparts), dtype=d.dtype, device=d.device)
+    fn = getattr(lib, f"lbfgs_{name}_{_SUFFIX[d.dtype]}_{_SUFFIX[S.dtype]}")
+    code = fn(d.data_ptr(), S.data_ptr(), Y.data_ptr(), coef.data_ptr(),
+              r.data_ptr(), part.data_ptr(), n, m, *window,
+              torch.cuda.current_stream(d.device).cuda_stream)
+    _build.check_launch(code, name)
+    return r, reduce_partials(part)
 
 
 def combine(d, S, Y, gamma, coef_s, coef_y):
@@ -122,28 +160,93 @@ def combine(d, S, Y, gamma, coef_s, coef_y):
     _check_hist(d, S, Y)
     if not on_cuda(d, "combine"):
         return combine_ref(d, S, Y, gamma, coef_s, coef_y)
-    m, n = S.shape
-    if m > MAX_M:
-        raise ValueError(f"combine: m = {m} exceeds {MAX_M}")
-    check_contiguous("combine", d, S, Y)
-    lib = _build.load_library()
-    coef = torch.cat(
-        [gamma.reshape(1), coef_s.reshape(-1), coef_y.reshape(-1)]
-    ).to(d.dtype)
-    blocks = -(-n // lib.lbfgs_combine_block_elems())
-    r = torch.empty_like(d)
-    part = torch.empty((blocks, 2), dtype=d.dtype, device=d.device)
-    fn = getattr(lib, f"lbfgs_combine_{_SUFFIX[d.dtype]}_{_SUFFIX[S.dtype]}")
-    code = fn(d.data_ptr(), S.data_ptr(), Y.data_ptr(), coef.data_ptr(),
-              r.data_ptr(), part.data_ptr(), n, m,
-              torch.cuda.current_stream(d.device).cuda_stream)
-    _build.check_launch(code, "combine")
+    r, tot = _launch_combine("combine", d, S, Y, gamma, coef_s, coef_y, 2)
     combine.launches += 1
-    tot = reduce_partials(part)
     return r, tot[0], tot[1]
 
 
 combine.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13: OWL-QN combine with the direction constraint
+# ---------------------------------------------------------------------------
+
+
+def combine_ow_ref(d, S, Y, gamma, coef_s, coef_y, start: int, end: int):
+    """Plain version of ``combine_ow``: (rc, r.r, rc.rc, rc.d)."""
+    combine_ow_ref.calls += 1
+    r = _combination(d, S, Y, gamma, coef_s, coef_y)
+    rc = project_window(r, -d, start, end)
+    return rc, torch.dot(r, r), torch.dot(rc, rc), torch.dot(rc, d)
+
+
+combine_ow_ref.calls = 0
+
+
+def combine_ow(d, S, Y, gamma, coef_s, coef_y, start: int, end: int):
+    """The combine of ``combine`` with OWL-QN's direction constraint in
+    the same pass: ``d`` is the pseudo-gradient pg (the two-loop's sign
+    folded into gamma and the coefficients), and r is projected onto the
+    orthant of -pg inside the window [start, end).  Returns (rc, ||r||^2
+    before the constraint, ||rc||^2, rc . pg): the reference's dnorm
+    (``src/lbfgs.rs:544``), the zero-direction check and the next
+    search's dginit."""
+    _check_hist(d, S, Y)
+    if not on_cuda(d, "combine_ow"):
+        return combine_ow_ref(d, S, Y, gamma, coef_s, coef_y, start, end)
+    r, tot = _launch_combine("combine_ow", d, S, Y, gamma, coef_s, coef_y, 3,
+                             int(start), int(end))
+    combine_ow.launches += 1
+    return r, tot[0], tot[1], tot[2]
+
+
+combine_ow.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10: OWL-QN pseudo-gradient and its norm
+# ---------------------------------------------------------------------------
+
+
+def pseudo_gradient_norm_ref(x, g, c: float, start: int, end: int):
+    """Plain version of ``pseudo_gradient_norm``."""
+    pseudo_gradient_norm_ref.calls += 1
+    pg = pseudo_gradient(Orthantwise(c=c, start=start, end=end), x, g)
+    return pg, torch.dot(pg, pg)
+
+
+pseudo_gradient_norm_ref.calls = 0
+
+
+def pseudo_gradient_norm(x, g, c: float, start: int, end: int):
+    """(pg, pg . pg): OWL-QN's pseudo-gradient (Andrew & Gao Eq. 4, L1
+    weight ``c`` on the window [start, end)) and its squared norm in one
+    pass."""
+    check_dtypes(x.dtype)
+    if x.ndim != 1 or g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"expected x, g [n] of one dtype; got {tuple(x.shape)}, "
+                         f"{tuple(g.shape)}")
+    if c < 0:
+        raise ValueError(f"invalid orthantwise param c: {c}")
+    if not on_cuda(x, "pseudo_gradient_norm"):
+        return pseudo_gradient_norm_ref(x, g, c, start, end)
+    check_contiguous("pseudo_gradient_norm", x, g)
+    lib = _build.load_library()
+    n = x.shape[0]
+    blocks = -(-n // lib.lbfgs_pseudo_grad_norm_block_elems())
+    pg = torch.empty_like(x)
+    part = torch.empty((blocks, 1), dtype=x.dtype, device=x.device)
+    fn = getattr(lib, f"lbfgs_pseudo_grad_norm_{_SUFFIX[x.dtype]}")
+    code = fn(x.data_ptr(), g.data_ptr(), float(c), int(start), int(end),
+              pg.data_ptr(), part.data_ptr(), n,
+              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(code, "pseudo_gradient_norm")
+    pseudo_gradient_norm.launches += 1
+    return pg, reduce_partials(part)[0]
+
+
+pseudo_gradient_norm.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -165,5 +268,50 @@ def pair_gram_ref(s, y, g, S, Y, end: int):
 
 def pair_gram_sd_ref(stp, d, gx, gp, S, Y, end: int):
     """The s = stp*d form of ``pair_gram_ref`` (exact on the projection-
-    free path, src/core.rs:155-164); returns (SP, YP)."""
+    free path, src/core.rs:155-164); returns (SP, YP).  The plain stand-in
+    for K5 (``lbfgs_tpu/ops/fused.py:_pair_gram_kernel``)."""
+    pair_gram_sd_ref.calls += 1
     return pair_gram_ref(stp * d, gx - gp, gx, S, Y, end)
+
+
+pair_gram_sd_ref.calls = 0
+
+
+def pair_products(s, y, d0, S, Y, end: int):
+    """SP = S . [y, s, d0] and YP = Y . [y, s, d0] ([m, 3]) over the rings
+    with row ``end`` replaced by the new pair UNROUNDED (the one-pass
+    kernels hold it in registers), then the pair stored into ring row
+    ``end``, rounded to the history dtype.  Shared by the plain versions
+    of the one-pass epilogues."""
+    Z = torch.stack([y, s, d0], dim=1)
+    SP = S.to(s.dtype) @ Z
+    YP = Y.to(s.dtype) @ Z
+    SP[end] = torch.stack([s @ y, s @ s, s @ d0])
+    YP[end] = torch.stack([y @ y, y @ s, y @ d0])
+    S[end] = s.to(S.dtype)
+    Y[end] = y.to(Y.dtype)
+    return SP, YP
+
+
+def pair_gram_xg_ref(x, xp, gx, gp, pg, S, Y, end: int):
+    """OWL-QN pair + Gram update: s = x - xp (the projected step), y = gx -
+    gp and d0 = -pg, the pair written into ring row ``end``; returns (SP,
+    YP).  The plain stand-in for K12
+    (``lbfgs_tpu/ops/fused.py:_pair_gram_xg_kernel``), whose products of
+    row ``end`` use the unrounded pair as here."""
+    pair_gram_xg_ref.calls += 1
+    return pair_products(x - xp, gx - gp, -pg, S, Y, end)
+
+
+pair_gram_xg_ref.calls = 0
+
+
+def owlqn_trial_step_ref(xp, d, wp, stp, start: int, end: int):
+    """The projected trial point x = pi(xp + stp*d; wp) inside [start,
+    end).  The plain stand-in for K9
+    (``lbfgs_tpu/ops/fused.py:_trial_step_kernel``)."""
+    owlqn_trial_step_ref.calls += 1
+    return project_window(xp + float(stp) * d, wp, start, end)
+
+
+owlqn_trial_step_ref.calls = 0

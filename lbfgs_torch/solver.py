@@ -5,17 +5,24 @@ The reference optimizer loop (``src/lbfgs.rs:424-693``) as one
 run's device; the line search and the control decisions run on the host
 (see ``linesearch``).  On the main path an iteration is:
 
-  1. the More-Thuente search, one probe kernel (K2) per trip;
-  2. the one-pass epilogue (K4): the accepted point and gradient, the
+  1. the line search, one probe kernel per trip (K2; under OWL-QN K8,
+     projected, with the orthant rebuilt from (xp, pg) in registers);
+  2. the one-pass epilogue (K4; under OWL-QN K14, which also gives the
+     new pseudo-gradient): the accepted point and gradient, the
      correction pair written into ring row ``end``, and all 6m Gram
      products;
   3. the compact two-loop's O(m^2) recurrences on [m]-sized tensors, and
-     the direction combine (K3), which also yields ||d||^2 and the next
-     search's dginit;
+     the direction combine (K3; under OWL-QN K13, which applies the
+     direction constraint in the same pass), which also yields ||d||^2
+     and the next search's dginit;
   4. one device-to-host read of the scalars the host decides on.
 
-The damped update, OWL-QN and the literal scan two-loop are not ported
-yet; ``init_state`` raises ``NotImplementedError`` for them.
+An objective without the one-pass epilogue takes the composed branch:
+the search materializes each trial, and under OWL-QN the pseudo-gradient
+(K10) and the pair update (a plain stand-in) follow as separate passes.
+
+The damped update and the literal scan two-loop are not ported yet;
+``init_state`` raises ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import orthantwise as ow_ops
 from .core import (
     History,
     ProblemDef,
@@ -32,6 +40,7 @@ from .core import (
     SolverState,
     evaluate,
     gnorm_of,
+    pseudo_gradient_and_norm,
     to_host,
     xnorm_of,
 )
@@ -62,6 +71,8 @@ def two_loop_compact(
     Yd_ring: Optional[torch.Tensor] = None,
     neg: bool = False,
     combine=fused.combine,
+    ow_window: Optional[tuple] = None,
+    combine_ow=fused.combine_ow,
 ):
     """Byrd-Nocedal-Schnabel compact two-loop.
 
@@ -84,6 +95,13 @@ def two_loop_compact(
     combine's gamma (bitwise the same as negating the vector, by IEEE sign
     symmetry), and the combine's r . d is then dginit = d_new . g of the
     next line search.  Returns (r, alpha_ring, r.r, r.d).
+
+    Under OWL-QN (``ow_window`` = (start, end), ``d`` the pseudo-gradient)
+    the combine is ``combine_ow`` (K13), which applies the direction
+    constraint r <- pi(r; -pg) (``src/lbfgs.rs:554``) in the same pass: r
+    is then the constrained direction, r.r stays the norm BEFORE the
+    constraint (the reference's dnorm) and the fourth value is the pair
+    (||rc||^2, rc . pg).
     """
     m = hist.s.shape[0]
     if Sd_ring is None:
@@ -118,7 +136,12 @@ def two_loop_compact(
     coef_s[idx] = coefs
     coef_y[idx] = -gamma * alphas
     gamma_eff = -gamma if neg else gamma
-    r, rr, rd = combine(d, hist.s, hist.y, gamma_eff, coef_s, coef_y)
+    if ow_window is not None:
+        r, rr, rc2, rcd = combine_ow(d, hist.s, hist.y, gamma_eff, coef_s, coef_y,
+                                     *ow_window)
+        rd = (rc2, rcd)
+    else:
+        r, rr, rd = combine(d, hist.s, hist.y, gamma_eff, coef_s, coef_y)
     alpha_ring = hist.alpha.clone()
     alpha_ring[idx] = alphas
     return r, alpha_ring, rr, rd
@@ -164,8 +187,9 @@ def update_pair(params: LbfgsParams, x, xp, gx, gp) -> PairUpdate:
 
 def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> SolverState:
     """One optimization iteration: line search, history update, two-loop,
-    step size (``LbfgsState::propagate``, ``src/lbfgs.rs:503-560``, minus
-    the k == 1 bookkeeping, which the callers do).
+    step size, and under OWL-QN the direction constraint
+    (``LbfgsState::propagate``, ``src/lbfgs.rs:503-560``, minus the k == 1
+    bookkeeping, which the callers do).
 
     A line-search failure is terminal here: ERR_X_NOT_CHANGED is set in
     the same call (the reference errors on the next propagate, after its
@@ -175,6 +199,7 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
     prob = st.prob
     m = params.m
     lean = prob.xp is None
+    ow = pdef.orthantwise
     vag = pdef.value_and_grad
     hist = st.hist
     end = st.end
@@ -182,16 +207,30 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
     # save state (src/core.rs:207-210): same buffers, no copy
     xp, gp = prob.x, prob.gx
 
-    mega_fn = getattr(vag, "__lbfgs_trial_pair_gram__", None)
-    mega_ok = getattr(vag, "__lbfgs_trial_pair_gram_ok__", None)
+    # the one-pass epilogue: K4, or under OWL-QN K14
+    prefix = "__lbfgs_owlqn_trial_pair_gram" if ow else "__lbfgs_trial_pair_gram"
+    mega_fn = getattr(vag, prefix + "__", None)
+    mega_ok = getattr(vag, prefix + "_ok__", None)
     use_mega = mega_fn is not None and mega_ok is not None and mega_ok(xp, hist.s)
     combine = getattr(vag, "__lbfgs_combine__", fused.combine)
+    combine_ow = getattr(vag, "__lbfgs_combine_ow__", fused.combine_ow)
 
     ls = ls_find(pdef, params.linesearch, xp, prob.fx, gp, prob.d, st.step,
-                 prob.neval, dginit=st.dg0, materialize=not use_mega)
+                 prob.neval, dginit=st.dg0, materialize=not use_mega, pgp=prob.pg)
     ls_failed = ls.status != 0
 
-    if use_mega:
+    pg = pgpg = None
+    if use_mega and ow:
+        # one pass: the accepted projected point, its gradient and
+        # pseudo-gradient, the pair (x - xp, g - gp) written into ring row
+        # `end` and all 6m products against (y, s, -pg); in the lean state
+        # x, g and pg overwrite xp, gp and the previous pg in place
+        lo, hi = pdef.owlqn.start_end(xp.shape[0])
+        (x, gx, pg, SP, YP, ls_xx, pgpg, ls_changed) = mega_fn(
+            xp, prob.d, gp, prob.pg, ls.step_eval, pdef.owlqn.c, lo, hi,
+            hist.s, hist.y, end, inplace=lean,
+        )
+    elif use_mega:
         # one pass: the accepted (x, g), the pair written into ring row
         # `end` and all 6m Gram products; in the lean state x and g
         # overwrite xp and gp in place
@@ -201,7 +240,13 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
     else:
         x, gx = ls.x, ls.gx
         ls_gg, ls_xx, ls_changed = ls.gg, ls.xx, ls.changed
-        if ls_changed is not None:
+        if ow:
+            # composed OWL-QN branch: pseudo-gradient and its norm (K10),
+            # then the pair of the projected step, s = x - xp, with d0 = -pg
+            # (the kernel form, K12, is not ported yet)
+            pg, pgpg = pseudo_gradient_and_norm(pdef, x, gx)
+            SP, YP = fused.pair_gram_xg_ref(x, xp, gx, gp, pg, hist.s, hist.y, end)
+        elif ls_changed is not None:
             # fused trial but no one-pass epilogue: composed pair + Gram
             # from s = stp*d (the kernel form, K5, is not ported yet)
             SP, YP = fused.pair_gram_sd_ref(
@@ -229,22 +274,31 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
     gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
     hist = History(s=hist.s, y=hist.y, ys=ys, alpha=hist.alpha, sy=sy, yy=yy)
 
-    # two-loop (src/lbfgs.rs:538-540) on d0 = -g, the sign folded in
+    # two-loop (src/lbfgs.rs:538-540) on d0 = -g (-pg under OWL-QN), the
+    # sign folded in; under OWL-QN the combine also constrains the
+    # direction (src/lbfgs.rs:554)
     bound = min(m, st.k - 1)
     d, alpha_ring, dd, rd = two_loop_compact(
-        hist, gx, gamma, bound, end, Sd_ring, Yd_ring, neg=True, combine=combine,
+        hist, pg if ow else gx, gamma, bound, end, Sd_ring, Yd_ring, neg=True,
+        combine=combine, combine_ow=combine_ow,
+        ow_window=pdef.owlqn.start_end(xp.shape[0]) if ow else None,
     )
     hist = hist._replace(alpha=alpha_ring)
 
-    # the one read of the iteration: what the host decides on next
+    # the one read of the iteration: what the host decides on next.
+    # Generic objectives carry no `changed` count: the reference's
+    # s.s == 0 test decides then (src/lbfgs.rs:646)
     if ls_changed is None:
         ls_changed = ss_new != 0.0
+    # under OWL-QN the combine's fourth value is (||rc||^2, rc . pg)
+    rc2, rd = rd if ow else (None, rd)
+    scalars = [yy_new, dd, rd, ls_changed] + ([rc2] if ow else [])
     if ls_failed:
         gnorm2, xnorm2 = prob.gnorm2, prob.xnorm2
-        yy_h, dd_h, dg0, changed = to_host(yy_new, dd, rd, ls_changed)
+        yy_h, dd_h, dg0, changed, *rc2_h = to_host(*scalars)
     else:
-        gnorm2, xnorm2, yy_h, dd_h, dg0, changed = to_host(
-            ls_gg, ls_xx, yy_new, dd, rd, ls_changed)
+        gnorm2, xnorm2, yy_h, dd_h, dg0, changed, *rc2_h = to_host(
+            pgpg if ow else ls_gg, ls_xx, *scalars)
 
     # status: the reference's s == 0 "x not changed" test
     # (src/lbfgs.rs:646) is decided by the trial's exact `changed` count
@@ -259,8 +313,13 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
     # +0.0 (src/lbfgs.rs:544); only NaN/negative is fatal
     if status == 0 and not dnorm >= 0.0:
         status = int(Status.ERR_INVALID_DNORM)
+    # OWL-QN: the constrained direction must not vanish (the reference's
+    # assertion in constrain_search_direction, src/orthantwise.rs:140-161)
+    if status == 0 and ow and rc2_h[0] == 0.0:
+        status = int(Status.ERR_OWLQN_ZERO_DIRECTION)
 
-    # next-iteration step size (src/lbfgs.rs:547-551)
+    # next-iteration step size (src/lbfgs.rs:547-551), from the norm
+    # before the OWL-QN constraint
     f = type(st.step)
     if params.constrain_step_size:
         dnorm_safe = dnorm if dnorm != 0.0 else f(1.0)
@@ -273,7 +332,7 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
 
     prob_new = ProblemState(
         x=x, fx=fx, gx=gx,
-        xp=None if lean else xp, gp=None if lean else gp,
+        xp=None if lean else xp, gp=None if lean else gp, pg=pg,
         d=d, neval=ls.neval, gnorm2=gnorm2, xnorm2=xnorm2,
     )
     return SolverState(
@@ -325,12 +384,10 @@ def start_state(st: SolverState, params: Optional[LbfgsParams] = None) -> Solver
 
 def check_supported(params: LbfgsParams) -> None:
     """Raise ``NotImplementedError`` naming any setting this package does
-    not run yet."""
+    not run yet.  Damping covers damped OWL-QN and gradient_only too."""
     ls = params.linesearch
     missing = [
-        (params.orthantwise is not None, "with_orthantwise (OWL-QN)"),
         (params.damping, "with_damping(True) (Powell damping; also gradient_only)"),
-        (ls.algorithm != "MoreThuente", f"backtracking line search ({ls.algorithm})"),
         (not params.compact_two_loop, "compact_two_loop=False (scan two-loop)"),
         (params.fx_wide, "fx_wide (wide objective scalar)"),
         (int(ls.speculative) > 1, "speculative line search"),
@@ -348,8 +405,12 @@ def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
 
     With a fused-trial objective the evaluation is its trial at stp = 0
     (K1): x0 + 0*x0 reproduces x0, and fx, g, ||g||^2 and ||x||^2 come
-    out of one pass.  ``lean=True`` carries no previous-point slots (the
-    whole-run loop; see ``ProblemState``).
+    out of one pass.  Under OWL-QN fx gains c*||x0||_1 over the window (a
+    torch reduction, as the JAX package computes it outside any kernel)
+    and K10 gives the pseudo-gradient and its norm; then d = -pg, the
+    step is initial_inverse_hessian / ||pg|| and dginit = -||pg||^2.
+    ``lean=True`` carries no previous-point slots (the whole-run loop;
+    see ``ProblemState``).
     """
     check_supported(params)
     fused.check_dtypes(x0.dtype)
@@ -367,20 +428,25 @@ def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
     if trial is not None:
         zero = f(0.0)
         x, fx_t, gx, _dg, gg_t, xx_t, _ch = trial(x0, x0, zero)
+        if pdef.orthantwise:
+            fx_t = fx_t + ow_ops.x1norm(pdef.owlqn, x)
     else:
         x = x0.clone()
         fx_t, gx = evaluate(pdef, x)
         gg_t, xx_t = torch.dot(gx, gx), torch.dot(x, x)
+    pg = None
+    if pdef.orthantwise:
+        pg, gg_t = pseudo_gradient_and_norm(pdef, x, gx)
     fx, gnorm2, xnorm2 = (f(v) for v in to_host(fx_t, gg_t, xx_t))
-    d = -gx
-    # step = initial_inverse_hessian / ||d||, and ||d|| = ||g||
+    d = -(gx if pg is None else pg)
+    # step = initial_inverse_hessian / ||d||, and ||d|| = ||g|| (||pg||)
     step = f(params.initial_inverse_hessian) / np.sqrt(gnorm2 if gnorm2 != 0.0 else f(1.0))
 
     prob = ProblemState(
         x=x, fx=fx, gx=gx,
         xp=None if lean else torch.zeros_like(x),
         gp=None if lean else torch.zeros_like(x),
-        d=d, neval=1, gnorm2=gnorm2, xnorm2=xnorm2,
+        pg=pg, d=d, neval=1, gnorm2=gnorm2, xnorm2=xnorm2,
     )
     z = dict(dtype=x0.dtype, device=x0.device)
     hist = History(
@@ -398,7 +464,7 @@ def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
     return SolverState(
         prob=prob, hist=hist, end=0, step=f(step), step_ls=f(step), k=0,
         ncall=0, status=0, ls_status=0, pf=pf,
-        # d = -g, so dginit = g . d = -||g||^2 exactly (IEEE sign symmetry)
+        # d = -g (-pg), so dginit = -||g||^2 exactly (IEEE sign symmetry)
         dg0=-gnorm2,
     )
 

@@ -109,11 +109,14 @@ def test_progress_cancellation_gives_status_4():
     assert calls == [1] and rep.niter == 1
 
 
+#: OWL-QN and the backtracking searches run; what of them still raises is
+#: damped OWL-QN and the speculative (K-way) backtracking search
 UNPORTED = {
-    "orthantwise": lambda b: b.with_orthantwise(1.0, 0, 99),
+    "orthantwise": lambda b: b.with_orthantwise(1.0, 0, 99).with_damping(True),
     "damping": lambda b: b.with_damping(True),
     "gradient_only": lambda b: b.with_gradient_only(),
-    "backtracking": lambda b: b.with_linesearch_algorithm("BacktrackingWolfe"),
+    "backtracking": lambda b: (b.with_linesearch_algorithm("BacktrackingWolfe")
+                               .with_speculative_linesearch(2)),
     "scan_two_loop": lambda b: b.with_compact_two_loop(False),
     "fx_wide": lambda b: b.with_fx_wide(),
     "speculative": lambda b: b.with_speculative_linesearch(2),

@@ -1,12 +1,15 @@
-"""K1-K4 of the PyTorch port against the JAX package's Pallas kernels.
+"""K1-K4 and OWL-QN's K8, K10, K13 and K14 of the PyTorch port against
+the JAX package's Pallas kernels.
 
 On the CPU each wrapper runs its kernel's plain version; here those plain
 versions meet the TPU kernels run through the Pallas interpreter on the
 same inputs (n = 2^14, m = 6, f32 vectors, bf16 history), made from a
 seed with numpy.  Tolerances: rel 1e-5 on vectors (the same f32
 elementwise arithmetic), rel 1e-4 on the reductions (the sums run in
-another order).  The cases marked ``cuda`` hold each hand-written kernel
-to its plain version on the card and skip without one.
+another order); ring rows within one bf16 ulp of the JAX kernel's and bit
+for bit the port's own rounding.  The OWL-QN window's ends fall inside
+the 128-lane rows.  The cases marked ``cuda`` hold each hand-written
+kernel to its plain version on the card and skip without one.
 """
 
 import numpy as np
@@ -18,10 +21,13 @@ import jax.numpy as jnp
 
 from lbfgs_torch.models import rosenbrock as t_rosen
 from lbfgs_torch.ops import fused as t_fused
+from lbfgs_torch.orthantwise import Orthantwise, choose_orthant
 from lbfgs_tpu.models import rosenbrock as j_rosen
 from lbfgs_tpu.ops import fused as j_fused
 
 N, M, STP, END = 1 << 14, 6, 0.37, 2
+#: OWL-QN's L1 weight and a window whose ends are off the kernel blocks
+C, LO, HI = 0.7, 3 * 128 + 5, N - 7 * 128 - 3
 VEC = dict(rtol=1e-5)
 SUM = dict(rtol=1e-4)
 
@@ -46,6 +52,10 @@ def data():
         Y=f32(rng.standard_normal((M, N))),
         cs=f32(rng.standard_normal(M)),
         cy=f32(rng.standard_normal(M)),
+        # OWL-QN: a point with exact zeros (the orthant's at-zero choice)
+        # and a pseudo-gradient
+        xp0=f32(np.where(np.arange(N) % 17 == 0, 0.0, x0 + 0.1 * rng.standard_normal(N))),
+        pg=f32(rng.standard_normal(N)),
     )
 
 
@@ -138,6 +148,95 @@ def test_k4_inplace_overwrites_previous_point(data):
     np.testing.assert_array_equal(xp.numpy(), data["xp"] + np.float32(STP) * data["d"])
 
 
+def _bf16_ulps(a, b):
+    """Distance in bf16 units in the last place, element by element."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def test_k8_owlqn_probe_matches_pallas(data):
+    xp, d, pg = (_t(data[k]) for k in ("xp0", "d", "pg"))
+    wp = choose_orthant(Orthantwise(C, LO, HI), xp, pg)
+    t_wp = t_rosen.owlqn_probe(xp, d, wp, np.float32(STP), C, LO, HI)
+    t_pg = t_rosen.owlqn_probe_pg(xp, d, pg, np.float32(STP), C, LO, HI)
+    jx = [jnp.asarray(data[k]) for k in ("xp0", "d")]
+    j_wp = j_rosen.owlqn_probe_pallas(*jx, jnp.asarray(wp.numpy()), STP, C, LO, HI,
+                                      interpret=True)
+    j_pg = j_rosen.owlqn_probe_pg_pallas(*jx, jnp.asarray(data["pg"]), STP, C, LO, HI,
+                                         interpret=True)
+    for t, j in ((t_wp, j_wp), (t_pg, j_pg)):
+        _close(t[0], j[0], SUM)
+        _close(t[1], j[1], SUM)
+    # the orthant rebuilt from (xp, pg) gives the materialized one's scalars
+    assert _same_bits(t_wp[0].reshape(1), t_pg[0].reshape(1))
+    assert _same_bits(t_wp[1].reshape(1), t_pg[1].reshape(1))
+
+
+def test_k10_pseudo_gradient_norm_matches_pallas(data):
+    t = t_fused.pseudo_gradient_norm(_t(data["xp0"]), _t(data["gp"]), C, LO, HI)
+    j = j_fused.owlqn_pseudo_gradient_norm_pallas(
+        jnp.asarray(data["xp0"]), jnp.asarray(data["gp"]), C, LO, HI, interpret=True)
+    _close(t[0], j[0], VEC)
+    _close(t[1], j[1], SUM)
+
+
+def test_k13_combine_ow_matches_pallas(data):
+    S, Y = _t(data["S"], torch.bfloat16), _t(data["Y"], torch.bfloat16)
+    t = t_fused.combine_ow(_t(data["pg"]), S, Y, torch.tensor(-0.8), _t(data["cs"]),
+                           _t(data["cy"]), LO, HI)
+    j = j_fused.combine_ow_pallas(jnp.asarray(data["pg"]), _ring(data["S"]),
+                                  _ring(data["Y"]), -0.8, jnp.asarray(data["cs"]),
+                                  jnp.asarray(data["cy"]), LO, HI, interpret=True)
+    _close(t[0], j[0], VEC)
+    for i in (1, 2, 3):
+        _close(t[i], j[i], SUM)
+    # the constraint zeroed elements inside the window only
+    rc = t[0].numpy()
+    assert (rc[LO:HI] == 0).any() and (rc[:LO] != 0).all()
+
+
+def test_k14_owlqn_trial_pair_gram_matches_pallas(data):
+    S, Y = _t(data["S"], torch.bfloat16), _t(data["Y"], torch.bfloat16)
+    xp, d, gp, pg = (_t(data[k]) for k in ("xp0", "d", "gp", "pg"))
+    t = t_rosen.owlqn_trial_pair_gram(xp, d, gp, pg, np.float32(STP), C, LO, HI,
+                                      S, Y, END)
+    j = j_rosen.owlqn_trial_pair_gram_pallas(
+        *(jnp.asarray(data[k]) for k in ("xp0", "d", "gp", "pg")), STP, C, LO, HI,
+        _ring(data["S"]), _ring(data["Y"]), END, interpret=True)
+    for i in (0, 1, 2):          # x, g, pg_new
+        _close(t[i], j[i], VEC)
+    np.testing.assert_array_equal(t[0].numpy() == 0, np.asarray(j[0]) == 0)
+    _close(t[3], j[5], SUM)      # SP, YP: row `end` from the unrounded pair
+    _close(t[4], j[6], SUM)
+    _close(t[5], j[7], SUM)      # x.x
+    _close(t[6], j[8], SUM)      # pg.pg
+    assert bool(t[7]) == bool(j[9])
+    # ring row `end`: one bf16 ulp of the JAX kernel's, bit for bit the
+    # port's own rounding of its (x - xp, g - gp); the other rows kept
+    for ring, jr in ((S, j[3]), (Y, j[4])):
+        jr = torch.from_numpy(np.asarray(jr).astype(np.float32).reshape(M, N))
+        assert int(_bf16_ulps(ring[END], jr[END].to(torch.bfloat16)).max()) <= 1
+    _assert_ring_write(S, Y, _t(data["S"], torch.bfloat16), _t(data["Y"], torch.bfloat16),
+                       t[0] - xp, t[1] - gp)
+
+
+def test_k14_inplace_overwrites_previous_point(data):
+    xp, gp, pg = _t(data["xp0"]), _t(data["gp"]), _t(data["pg"])
+    S, Y = _t(data["S"]), _t(data["Y"])
+    want = t_rosen.owlqn_trial_pair_gram(xp.clone(), _t(data["d"]), gp.clone(),
+                                         pg.clone(), np.float32(STP), C, LO, HI,
+                                         S.clone(), Y.clone(), END)
+    x, g, pg_new = t_rosen.owlqn_trial_pair_gram(xp, _t(data["d"]), gp, pg,
+                                                 np.float32(STP), C, LO, HI, S, Y, END,
+                                                 inplace=True)[:3]
+    assert (x.data_ptr(), g.data_ptr(), pg_new.data_ptr()) == (
+        xp.data_ptr(), gp.data_ptr(), pg.data_ptr())
+    for a, b in zip((xp, gp, pg), want[:3]):
+        assert torch.equal(a, b)
+
+
 def test_plain_versions_are_counted_and_kernels_are_not_on_cpu(data):
     before = (t_rosen.probe_ref.calls, t_rosen.probe.launches)
     t_rosen.probe(_t(data["xp"]), _t(data["d"]), np.float32(STP))
@@ -189,10 +288,35 @@ def _cuda_close(a, b, rtol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["trial", "probe", "combine", "trial_pair_gram"])
+@pytest.mark.parametrize("kernel", ["trial", "probe", "combine", "trial_pair_gram",
+                                    "owlqn_probe", "owlqn_probe_pg",
+                                    "pseudo_gradient_norm", "combine_ow",
+                                    "owlqn_trial_pair_gram"])
 def test_kernel_matches_plain_on_card(cuda, data, kernel):
     xp, d, gp, S, Y, cs, cy = _cuda_inputs(data, cuda)
-    if kernel == "combine":
+    xp0, pg = _t(data["xp0"]).to(cuda), _t(data["pg"]).to(cuda)
+    wp = choose_orthant(Orthantwise(C, LO, HI), xp0, pg)
+    if kernel in ("owlqn_probe", "owlqn_probe_pg"):
+        w = wp if kernel == "owlqn_probe" else pg
+        k = getattr(t_rosen, kernel)(xp0, d, w, STP, C, LO, HI)
+        p = getattr(t_rosen, kernel + "_ref")(xp0, d, w, STP, C, LO, HI)
+        if kernel == "owlqn_probe_pg":
+            other = t_rosen.owlqn_probe(xp0, d, wp, STP, C, LO, HI)
+            assert all(_same_bits(a.reshape(1), b.reshape(1)) for a, b in zip(k, other))
+    elif kernel == "pseudo_gradient_norm":
+        k = t_fused.pseudo_gradient_norm(xp0, gp, C, LO, HI)
+        p = t_fused.pseudo_gradient_norm_ref(xp0, gp, C, LO, HI)
+    elif kernel == "combine_ow":
+        gamma = torch.tensor(-0.8, device=cuda)
+        k = t_fused.combine_ow(pg, S, Y, gamma, cs, cy, LO, HI)
+        p = t_fused.combine_ow_ref(pg, S, Y, gamma, cs, cy, LO, HI)
+    elif kernel == "owlqn_trial_pair_gram":
+        S0, Y0, S2, Y2 = S.clone(), Y.clone(), S.clone(), Y.clone()
+        k = t_rosen.owlqn_trial_pair_gram(xp0, d, gp, pg, STP, C, LO, HI, S, Y, END)
+        p = t_rosen.owlqn_trial_pair_gram_ref(xp0, d, gp, pg, STP, C, LO, HI, S2, Y2, END)
+        _assert_ring_write(S, Y, S0, Y0, k[0] - xp0, k[1] - gp)
+        _assert_ring_write(S2, Y2, S0, Y0, p[0] - xp0, p[1] - gp)
+    elif kernel == "combine":
         gamma = torch.tensor(-0.8, device=cuda)
         k = t_fused.combine(gp, S, Y, gamma, cs, cy)
         p = t_fused.combine_ref(gp, S, Y, gamma, cs, cy)
