@@ -33,8 +33,28 @@ Phases (any failure raises and the script exits nonzero):
      checked (no plain version and no plain stand-in runs); then the
      plain versions against the kernels after 8 and 15 iterations;
   8. north star: n = 1e8, m = 3, time to epsilon 3e-2;
-  9. with ``--profile PATH`` only: one run of each main path under
-     torch.profiler (device busy time against the unprofiled walls,
+  9. damped f64 n = 100: Powell damping, with ``damping_fixed``, and
+     damped OWL-QN (c = 1 on [0, 99)), 50 iterations each through
+     ``minimize`` with a progress callback, per iteration against the
+     same runs on the CPU, and against the JAX package's recorded runs
+     (``DAMPED_N100``); damping case 1 and case 2 must fire;
+ 10. LJ38: the reference's 38-atom cluster in f64 on the card, default
+     L-BFGS to the relaxed energy, and ``with_gradient_only()`` for 50
+     iterations per iteration against the CPU (the composed damped
+     branch and K3);
+ 11. damped main path: the plain main path with ``damping=True`` (K1, K2
+     per probe, K4 with its . gp column and K6 per iteration), then
+     through the plain versions against the kernels after 8 and 15
+     iterations;
+ 12. gradient-only main path: the same size with
+     ``with_gradient_only()``, 50 iterations;
+ 13. damped OWL-QN main path: the OWL-QN main path with ``damping=True``
+     (K8 per probe, K14 with its . gp columns and K13 per iteration);
+ 14. K5 route: a Rosenbrock that has the trial and probe kernels but no
+     one-pass epilogue, damped, 10 iterations at n = 2^24 (K1 per
+     materialized trial, K2, K5 with the . gp column and K6);
+ 15. with ``--profile PATH`` only: one run of each main path (plain,
+     OWL-QN, damped, damped OWL-QN) under torch.profiler (device busy time against the unprofiled walls,
      device items, host launch and copy calls); the operator tables go to
      PATH.
 
@@ -57,10 +77,10 @@ import torch
 from lbfgs_torch import default_evaluate, lbfgs
 from lbfgs_torch.core import to_host
 from lbfgs_torch.minimize import minimize_jit
-from lbfgs_torch.models import rosenbrock
+from lbfgs_torch.models import lennard_jones, rosenbrock
 from lbfgs_torch.ops import _build, fused
 from lbfgs_torch.orthantwise import Orthantwise, choose_orthant
-from lbfgs_torch.params import LbfgsParams, LineSearchAlgorithm
+from lbfgs_torch.params import Lbfgs, LbfgsParams, LineSearchAlgorithm
 from lbfgs_torch.status import Status
 
 SEED = 20261016
@@ -85,6 +105,12 @@ KERNELS = {
                    "lbfgs_tpu/ops/fused.py:1359"),
     "K4_trial_pair_gram": ("triton", "lbfgs_torch/ops/_factory_triton.py",
                            "lbfgs_tpu/ops/factory.py:722"),
+    "K4_trial_pair_gram_gp": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                              "lbfgs_tpu/ops/factory.py:722 (with_gp)"),
+    "K5_pair_gram": ("cuda", "lbfgs_torch/csrc/pair_gram.cu",
+                     "lbfgs_tpu/ops/fused.py:837"),
+    "K6_combine_fix": ("cuda", "lbfgs_torch/csrc/combine.cu",
+                       "lbfgs_tpu/ops/fused.py:1216"),
     "K8_owlqn_probe": ("triton", "lbfgs_torch/ops/_factory_triton.py",
                        "lbfgs_tpu/ops/factory.py:487"),
     "K10_pseudo_gradient_norm": ("cuda", "lbfgs_torch/csrc/owlqn.cu",
@@ -93,11 +119,17 @@ KERNELS = {
                        "lbfgs_tpu/ops/fused.py:1464"),
     "K14_owlqn_trial_pair_gram": ("triton", "lbfgs_torch/ops/_factory_triton.py",
                                   "lbfgs_tpu/ops/factory.py:923"),
+    "K14_owlqn_trial_pair_gram_gp": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                     "lbfgs_tpu/ops/factory.py:923 (with_gp)"),
 }
 #: the kernels each main path must launch
 PLAIN_PATH = ("K1_trial", "K2_probe", "K3_combine", "K4_trial_pair_gram")
 OWLQN_PATH = ("K1_trial", "K8_owlqn_probe", "K10_pseudo_gradient_norm",
               "K13_combine_ow", "K14_owlqn_trial_pair_gram")
+#: the kernel of each damped path whose launches the kernel table shows
+DAMPED_PATH = ("K4_trial_pair_gram_gp", "K6_combine_fix")
+DAMPED_OWLQN_PATH = ("K14_owlqn_trial_pair_gram_gp",)
+K5_PATH = ("K5_pair_gram",)
 #: the OWL-QN kernels' L1 weight in the kernel checks (not 1: its
 #: rounding to the vectors' dtype is part of what is checked)
 C_L1 = 0.7
@@ -135,7 +167,7 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def check_ring(name: str, S_out, Y_out, S_in, Y_in, s, y) -> None:
-    """K4's and K14's ring write, bit for bit: row END holds the pair
+    """K4's, K5's and K14's ring write, bit for bit: row END holds the pair
     (s, y) rounded to the history dtype (round to nearest even), every
     other row is its input unchanged."""
     keep = [j for j in range(S_in.shape[0]) if j != END]
@@ -147,6 +179,19 @@ def check_ring(name: str, S_out, Y_out, S_in, Y_in, s, y) -> None:
                                  f"pair in {bad} elements")
         if not same_bits(out[keep], inp[keep]):
             raise AssertionError(f"{name}: {ring} rows other than end changed")
+
+
+def check_extends(name: str, base, ext, cols) -> None:
+    """A . gp launch against the 3-column launch on the same inputs, bit
+    for bit: the outputs at ``cols`` ([m, 4]) in their columns 0-2, every
+    other output whole."""
+    for i, (a, b) in enumerate(zip(base, ext)):
+        if i in cols:
+            if b.shape[1] != 4:
+                raise AssertionError(f"{name}: output {i} has shape {tuple(b.shape)}")
+            b = b[:, :3]
+        if not same_bits(a, b):
+            raise AssertionError(f"{name}: output {i} differs from the 3-column launch")
 
 
 def sync_time(fn, reps: int) -> float:
@@ -260,6 +305,10 @@ def phase_build() -> None:
             rosenbrock.owlqn_probe_pg(x, x, x, 0.0, 1.0, 0, n - 1)
             rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
                                              n - 1, S, S.clone(), 1)
+            # the damped paths' . gp specialisations
+            rosenbrock.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1, with_gp=True)
+            rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
+                                             n - 1, S, S.clone(), 1, with_gp=True)
     torch.cuda.synchronize()
     emit(phase="build", nvcc_s=round(t_nvcc, 3),
          triton_s=round(time.perf_counter() - t1, 3),
@@ -313,7 +362,22 @@ def phase_kernels() -> dict:
                     for i in (1, 3, 4, 5, 7, 8)))
             if bool(k[6]) != bool(p[6]):
                 raise AssertionError(f"K4 changed flag differs {tag}")
-            del Sk, Yk, Sp, Yp, k, p, s
+            # K4 with the . gp column: the 3-column launch's outputs and
+            # ring bit for bit, the column against the plain version
+            Sg, Yg, Sq, Yq = (a["S"].clone(), a["Y"].clone(),
+                              a["S"].clone(), a["Y"].clone())
+            kg = rosenbrock.trial_pair_gram(a["xp"], a["d"], a["gp"], STP, Sg, Yg, END,
+                                            with_gp=True)
+            pg_ = rosenbrock.trial_pair_gram_ref(a["xp"], a["d"], a["gp"], STP, Sq, Yq, END,
+                                                 with_gp=True)
+            check_extends(f"K4+gp {tag}", k, kg, (7, 8))
+            if not (same_bits(Sg, Sk) and same_bits(Yg, Yk)):
+                raise AssertionError(f"K4+gp ring differs from the 3-column launch {tag}")
+            _fold(errs, "K4_trial_pair_gram_gp",
+                  check(f"K4+gp g {tag}", kg[2], pg_[2], tv),
+                  *(check(f"K4+gp sum{i} {tag}", kg[i], pg_[i], ts) for i in (7, 8)))
+            del Sk, Yk, Sp, Yp, Sg, Yg, Sq, Yq, k, p, kg, pg_, s
+            check_k5_k6(errs, a, tag, tv, ts)
             for lo, hi in windows(n):
                 check_owlqn(errs, a, lo, hi, f"{tag} window=[{lo},{hi})", tv, ts)
             del a
@@ -324,7 +388,8 @@ def phase_kernels() -> dict:
                   "f32_sum": TOL[(torch.float32, "sum")],
                   "f64_vec": TOL[(torch.float64, "vec")],
                   "f64_sum": TOL[(torch.float64, "sum")],
-                  "k4_k14_ring_row": "bit-exact", "k8_forms": "bit-exact"})
+                  "k4_k5_k6_k14_ring_row": "bit-exact", "k8_forms": "bit-exact",
+                  "with_gp_columns_0_2": "bit-exact"})
 
     # times at the main path's shapes: n = 2^24, f32 vectors, bf16 history
     a = inputs(N_BIG, torch.float32, torch.bfloat16, SEED)
@@ -344,6 +409,31 @@ def phase_kernels() -> dict:
     # the OWL-QN kernels in the form the OWL-QN main path runs them: c = 1
     # on [0, n - 1), K8 with the orthant rebuilt from pg
     xp0, pg, hi = a["xp0"], a["pg"], N_BIG - 1
+    ca, cb = (torch.tensor(v, dtype=torch.float32, device="cuda") for v in (0.7, -0.2))
+    # the damped kernels in the form their paths run them: K4, K5 and K14
+    # with the . gp column
+    cases.update({
+        "K4_trial_pair_gram_gp": (
+            lambda: rosenbrock.trial_pair_gram(a["xp"], a["d"], a["gp"], STP, S, Y, END,
+                                               with_gp=True),
+            lambda: rosenbrock.trial_pair_gram_ref(a["xp"], a["d"], a["gp"], STP, S, Y,
+                                                   END, with_gp=True)),
+        "K5_pair_gram": (
+            lambda: fused.pair_gram_sd(STP, a["d"], pg, a["gp"], S, Y, END, with_gp=True),
+            lambda: fused.pair_gram_sd_ref(STP, a["d"], pg, a["gp"], S, Y, END,
+                                           with_gp=True)),
+        "K6_combine_fix": (
+            lambda: fused.combine_fix(a["gp"], S, Y, a["gamma"], a["cs"], a["cy"], END,
+                                      ca, cb),
+            lambda: fused.combine_fix_ref(a["gp"], S, Y, a["gamma"], a["cs"], a["cy"],
+                                          END, ca, cb)),
+        "K14_owlqn_trial_pair_gram_gp": (
+            lambda: rosenbrock.owlqn_trial_pair_gram(xp0, a["d"], a["gp"], pg, STP, 1.0,
+                                                     0, hi, S, Y, END, with_gp=True),
+            lambda: rosenbrock.owlqn_trial_pair_gram_ref(xp0, a["d"], a["gp"], pg, STP,
+                                                         1.0, 0, hi, S, Y, END,
+                                                         with_gp=True)),
+    })
     cases.update({
         "K8_owlqn_probe": (
             lambda: rosenbrock.owlqn_probe_pg(xp0, a["d"], pg, STP, 1.0, 0, hi),
@@ -414,19 +504,69 @@ def check_owlqn(errs: dict, a: dict, lo: int, hi: int, tag: str, tv: float,
           *(check(f"K14 sum{i} {tag}", k[i], p[i], ts) for i in (3, 4, 5, 6)))
     if bool(k[7]) != bool(p[7]):
         raise AssertionError(f"K14 changed flag differs {tag}")
+    # K14 with the . gp column, gp.gp and gp.pg: the 3-column launch's
+    # outputs and ring bit for bit, the rest against the plain version
+    Sg, Yg, Sq, Yq = (a["S"].clone(), a["Y"].clone(), a["S"].clone(), a["Y"].clone())
+    kg = rosenbrock.owlqn_trial_pair_gram(xp, d, gp, pg, STP, C_L1, lo, hi, Sg, Yg, END,
+                                          with_gp=True)
+    pg_ = rosenbrock.owlqn_trial_pair_gram_ref(xp, d, gp, pg, STP, C_L1, lo, hi, Sq, Yq,
+                                               END, with_gp=True)
+    check_extends(f"K14+gp {tag}", k, kg[:8], (3, 4))
+    if not (same_bits(Sg, Sk) and same_bits(Yg, Yk)):
+        raise AssertionError(f"K14+gp ring differs from the 3-column launch {tag}")
+    _fold(errs, "K14_owlqn_trial_pair_gram_gp",
+          check(f"K14+gp pg {tag}", kg[2], pg_[2], tv),
+          *(check(f"K14+gp sum{i} {tag}", kg[i], pg_[i], ts) for i in (3, 4, 8, 9)))
+
+
+def check_k5_k6(errs: dict, a: dict, tag: str, tv: float, ts: float) -> None:
+    """K5 (3 and 4 columns) and K6 against their plain versions: K5's ring
+    write bit for bit (row END the rounded (STP*d, gx - gp), gx here the
+    random pg), its 4-column launch's columns 0-2 and rings bit for bit
+    the 3-column launch's; K6's fixed row round(ca*Y[END] + cb*g) bit for
+    bit the plain version's, the other rows untouched."""
+    d, gx, gp, S, Y = a["d"], a["pg"], a["gp"], a["S"], a["Y"]
+    S3, Y3, S4, Y4, Sp, Yp = (S.clone(), Y.clone(), S.clone(), Y.clone(), S.clone(),
+                              Y.clone())
+    k3 = fused.pair_gram_sd(STP, d, gx, gp, S3, Y3, END)
+    k4 = fused.pair_gram_sd(STP, d, gx, gp, S4, Y4, END, with_gp=True)
+    p4 = fused.pair_gram_sd_ref(STP, d, gx, gp, Sp, Yp, END, with_gp=True)
+    check_ring(f"K5 kernel {tag}", S3, Y3, S, Y, STP * d, gx - gp)
+    check_ring(f"K5 plain {tag}", Sp, Yp, S, Y, STP * d, gx - gp)
+    check_extends(f"K5 4 columns {tag}", k3, k4, (0, 1))
+    if not (same_bits(S4, S3) and same_bits(Y4, Y3)):
+        raise AssertionError(f"K5's two forms wrote different rings {tag}")
+    _fold(errs, "K5_pair_gram", *(check(f"K5 {tag} {i}", k4[i], p4[i], ts) for i in (0, 1)))
+    del S3, Y3, S4, Y4, Sp, Yp
+    ca, cb = (torch.tensor(v, dtype=d.dtype, device="cuda") for v in (0.7, -0.2))
+    Yk, Yq = Y.clone(), Y.clone()
+    k = fused.combine_fix(gp, S, Yk, a["gamma"], a["cs"], a["cy"], END, ca, cb)
+    p = fused.combine_fix_ref(gp, S, Yq, a["gamma"], a["cs"], a["cy"], END, ca, cb)
+    if not same_bits(Yk, Yq):
+        raise AssertionError(f"K6's fixed ring differs from the plain version's {tag}")
+    keep = [j for j in range(M) if j != END]
+    if not same_bits(Yk[keep], Y[keep]):
+        raise AssertionError(f"K6 changed rows other than end {tag}")
+    _fold(errs, "K6_combine_fix", check(f"K6 r {tag}", k[0], p[0], tv),
+          *(check(f"K6 sum{i} {tag}", k[i], p[i], ts) for i in (1, 2)))
 
 
 def launches() -> dict:
+    tpg, ow_tpg = rosenbrock.trial_pair_gram, rosenbrock.owlqn_trial_pair_gram
     return {
         "K1_trial": rosenbrock.trial.launches,
         "K2_probe": rosenbrock.probe.launches,
         "K3_combine": fused.combine.launches,
-        "K4_trial_pair_gram": rosenbrock.trial_pair_gram.launches,
+        "K4_trial_pair_gram": tpg.launches - tpg.gp_launches,
+        "K4_trial_pair_gram_gp": tpg.gp_launches,
+        "K5_pair_gram": fused.pair_gram_sd.launches,
+        "K6_combine_fix": fused.combine_fix.launches,
         "K8_owlqn_probe": (rosenbrock.owlqn_probe.launches
                            + rosenbrock.owlqn_probe_pg.launches),
         "K10_pseudo_gradient_norm": fused.pseudo_gradient_norm.launches,
         "K13_combine_ow": fused.combine_ow.launches,
-        "K14_owlqn_trial_pair_gram": rosenbrock.owlqn_trial_pair_gram.launches,
+        "K14_owlqn_trial_pair_gram": ow_tpg.launches - ow_tpg.gp_launches,
+        "K14_owlqn_trial_pair_gram_gp": ow_tpg.gp_launches,
     }
 
 
@@ -441,7 +581,8 @@ PLAIN = {
     "K10_pseudo_gradient_norm": fused.pseudo_gradient_norm_ref,
     "K13_combine_ow": fused.combine_ow_ref,
     "K14_owlqn_trial_pair_gram": rosenbrock.owlqn_trial_pair_gram_ref,
-    "K5_standin": fused.pair_gram_sd_ref,
+    "K5_pair_gram": fused.pair_gram_sd_ref,
+    "K6_combine_fix": fused.combine_fix_ref,
     "K9_standin": fused.owlqn_trial_step_ref,
     "K12_standin": fused.pair_gram_xg_ref,
 }
@@ -455,8 +596,11 @@ def reset_counts() -> None:
     for fn in (rosenbrock.trial, rosenbrock.probe, fused.combine,
                rosenbrock.trial_pair_gram, rosenbrock.owlqn_probe,
                rosenbrock.owlqn_probe_pg, fused.pseudo_gradient_norm,
-               fused.combine_ow, rosenbrock.owlqn_trial_pair_gram):
+               fused.combine_ow, rosenbrock.owlqn_trial_pair_gram,
+               fused.pair_gram_sd, fused.combine_fix):
         fn.launches = 0
+    rosenbrock.trial_pair_gram.gp_launches = 0
+    rosenbrock.owlqn_trial_pair_gram.gp_launches = 0
     for fn in PLAIN.values():
         fn.calls = 0
     to_host.reads = 0
@@ -486,6 +630,15 @@ def phase_goldens() -> None:
 
 #: the recorded OWL-QN trajectory (tests/test_native_parity.py:57-66)
 OWLQN_GOLDEN = dict(fx=43.50249999999999, x0=0.25, x1=0.0575, niter=172)
+
+#: the JAX package's n = 100 float64 damped runs from initial_point(100),
+#: at most 50 iterations through ``minimize``: iterations, fx after 15 and
+#: the final fx (tests/test_torch_damped.py holds these to lbfgs_tpu)
+DAMPED_N100 = {
+    "damped": dict(niter=34, fx15=40.059866126029206, fx=7.9619800215897e-14),
+    "damped_fixed": dict(niter=43, fx15=90.57043092482998, fx=3.912403849224467e-14),
+    "damped_owlqn": dict(niter=50, fx15=257.9911080938514, fx=47.247445716752445),
+}
 
 
 def phase_owlqn_golden() -> None:
@@ -555,6 +708,7 @@ def phase_main_path() -> dict:
                gb_per_s_vs_1_44=1.44 * iters / dt, fx0=f0, fx=fx, launches=lc,
                plain_calls=pc)
     emit(**out)
+    syncs = reads / iters
 
     # the same entry point through the plain versions on the card, against
     # the kernels, at two iteration budgets
@@ -575,7 +729,7 @@ def phase_main_path() -> dict:
         del st_k, st_p
     del st
     torch.cuda.empty_cache()
-    return lc
+    return lc, syncs
 
 
 #: the OWL-QN main path (bench_owlqn.py:61-76 at n = 2^24): f32, m = 6,
@@ -610,9 +764,9 @@ def phase_owlqn_main_path() -> dict:
     if not (np.isfinite(fx) and fx < f0):
         raise AssertionError(f"OWL-QN main path: fx {fx} (start {f0})")
     probes = st.prob.neval - 1
-    want = {"K1_trial": 1, "K10_pseudo_gradient_norm": 1, "K8_owlqn_probe": probes,
-            "K13_combine_ow": iters, "K14_owlqn_trial_pair_gram": iters,
-            "K2_probe": 0, "K3_combine": 0, "K4_trial_pair_gram": 0}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"K1_trial": 1, "K10_pseudo_gradient_norm": 1, "K8_owlqn_probe": probes,
+                 "K13_combine_ow": iters, "K14_owlqn_trial_pair_gram": iters})
     if lc != want:
         raise AssertionError(f"OWL-QN main path launch counts {lc}, expected {want}")
     if max(pc.values()) != 0:
@@ -648,14 +802,16 @@ def phase_owlqn_main_path() -> dict:
 
 
 def phase_profile(path: str) -> None:
-    """For each main path (plain, then OWL-QN), one run under
-    torch.profiler after three unprofiled ones: device busy time (the
+    """For each main path (plain, OWL-QN, damped, damped OWL-QN), one run
+    under torch.profiler after three unprofiled ones: device busy time (the
     summed durations of the kernels and copies the profiler saw on the
     card) against the walls, the device items by time, and the host's
     launch and copy calls.  The full operator tables go to ``path``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
-        for name, params in (("main_path", MAIN_PARAMS), ("owlqn_main_path", OWLQN_PARAMS)):
+        for name, params in (("main_path", MAIN_PARAMS), ("owlqn_main_path", OWLQN_PARAMS),
+                             ("damped_main_path", DAMPED_PARAMS),
+                             ("damped_owlqn_main_path", DAMPED_OWLQN_PARAMS)):
             _profile_one(name, params, f)
 
 
@@ -695,6 +851,276 @@ def _profile_one(name: str, params: LbfgsParams, f) -> None:
     emit(**out)
 
 
+# ---------------------------------------------------------------------------
+# The damped paths
+# ---------------------------------------------------------------------------
+
+#: the damped n = 100 configurations (DAMPED_N100 holds their JAX runs)
+DAMPED_CONFIGS = {
+    "damped": lambda b: b.with_damping(True),
+    "damped_fixed": lambda b: b.with_damping(True).with_damping_fixed(),
+    "damped_owlqn": lambda b: b.with_orthantwise(1.0, 0, 99).with_damping(True),
+}
+#: per-iteration bounds of a card run against the same run on the CPU:
+#: the JAX package's own pins to the native core (damped OWL-QN,
+#: tests/test_damped_fused.py:221-226; LJ38, tests/test_lennard_jones.py:
+#: 100-104).  The plain damped Rosenbrock runs are held to them up to
+#: HORIZON iterations only: the valley amplifies a sum's rounding ~10x
+#: every two iterations (the port against the JAX package on the CPU:
+#: rel fx 1.3e-10 at iteration 16, 7.3e-9 at 22, 5.5e-6 at 34), so past it
+#: only the iterations, the status and the final fx are held
+TRACE_TOL = dict(fx=1e-9, gnorm=1e-6, step=1e-6)
+LJ_TOL = dict(fx=1e-8, gnorm=1e-6, step=1e-6)
+HORIZON = 15
+
+
+def run_traced(builder: Lbfgs, x0: torch.Tensor, fn) -> tuple:
+    """``minimize`` with a progress callback that records (niter, fx,
+    gnorm, step, neval) per iteration; returns (trace, report)."""
+    trace = []
+
+    def progress(p) -> bool:
+        trace.append((p.niter, p.fx, p.gnorm, p.step, p.neval))
+        return False
+
+    return trace, builder.minimize(x0, fn, progress)
+
+
+def compare_traces(name: str, card: list, cpu: list, tol: dict, upto: int) -> dict:
+    """Hold the card's trace to the CPU's per iteration up to ``upto``:
+    the same evaluations, fx, gnorm and step within ``tol`` (relative).
+    Returns the largest relative gaps over the whole common prefix."""
+    worst = dict.fromkeys(tol, 0.0)
+    if len(card) != len(cpu):
+        raise AssertionError(f"{name}: {len(card)} iterations on the card, {len(cpu)} on "
+                             "the CPU")
+    for (k, *a, ea), (kc, *b, eb) in zip(card, cpu):
+        gaps = {key: abs(x - y) / max(abs(y), 1e-300) for key, x, y in zip(tol, a, b)}
+        for key, g in gaps.items():
+            worst[key] = max(worst[key], g)
+        if k > upto:
+            continue
+        if k != kc or ea != eb:
+            raise AssertionError(f"{name}: iteration {k}/{kc}, evaluations {ea}/{eb}")
+        bad = {key: g for key, g in gaps.items() if not g <= tol[key]}
+        if bad:
+            raise AssertionError(f"{name}: iteration {k} differs from the CPU: {bad}")
+    return worst
+
+
+def phase_damped_n100() -> dict:
+    """The three damped f64 runs at n = 100 through the kernels, each held
+    to the same run on the CPU and to the JAX package's recorded run;
+    returns the damping cases seen."""
+    x0 = rosenbrock.initial_point(100, torch.float64, "cuda")
+    seen = {}
+    for name, chain in DAMPED_CONFIGS.items():
+        b = chain(lbfgs()).with_max_iterations(50)
+        ow = name == "damped_owlqn"
+        reset_counts()
+        tk, rk = run_traced(b, x0, default_evaluate())
+        lc, pc = launches(), plain_calls()
+        tc, rc = run_traced(b, x0.cpu(), default_evaluate())
+        worst = compare_traces(name, tk, tc, TRACE_TOL, 50 if ow else HORIZON)
+        if (rk.niter, rk.status) != (rc.niter, rc.status):
+            raise AssertionError(f"{name}: card {rk.niter}/{rk.status}, CPU "
+                                 f"{rc.niter}/{rc.status}")
+        # the JAX package's run: iterations, fx after 15, the final fx
+        # (rel 1e-9 under OWL-QN; the plain runs end at fx ~1e-13, where
+        # the packages' rounding has grown to ~1e-5 rel)
+        want = DAMPED_N100[name]
+        fx15 = tk[HORIZON - 1][1]
+        final_tol = 1e-9 if ow else 1e-3
+        if not (rk.niter == want["niter"]
+                and abs(fx15 / want["fx15"] - 1) <= 1e-9
+                and abs(rk.fx / want["fx"] - 1) <= final_tol):
+            raise AssertionError(f"{name}: niter {rk.niter}, fx15 {fx15}, fx {rk.fx} "
+                                 f"against the JAX package's {want}")
+        iters, probes = rk.niter - 1, rk.neval - 1
+        if ow:
+            _expect(name, lc, pc, K1_trial=1, K10_pseudo_gradient_norm=1,
+                    K8_owlqn_probe=probes, K13_combine_ow=iters,
+                    K14_owlqn_trial_pair_gram_gp=iters)
+        else:
+            _expect(name, lc, pc, K1_trial=1, K2_probe=probes,
+                    K4_trial_pair_gram_gp=iters, K6_combine_fix=iters)
+        seen[name] = rk.damping_cases
+        emit(phase="damped_f64_n100", config=name, niter=rk.niter, status=rk.status,
+             fx=rk.fx, fx15=fx15, fx_jax=want["fx"], neval=rk.neval,
+             damping_cases=dict(zip(("none", "case1", "case2"), rk.damping_cases)),
+             max_rel_gap_vs_cpu=worst, asserted_to=50 if ow else HORIZON, launches=lc)
+    if seen["damped"][1] == 0 or seen["damped_fixed"][2] == 0:
+        raise AssertionError(f"damping did not fire: {seen}")
+    return seen
+
+
+def phase_lj38() -> None:
+    """LJ38 in f64 on the card: the start energy, default L-BFGS to the
+    relaxed energy, and 50 gradient-only iterations against the CPU."""
+    obj = lennard_jones.make_objective()
+    x0 = lennard_jones.lj38_positions(device="cuda")
+    e0 = float(obj(x0)[0])
+    if abs(e0 - (-116.84147098)) > 1e-6:
+        raise AssertionError(f"LJ38 start energy {e0}")
+    reset_counts()
+    t0 = time.perf_counter()
+    r = lbfgs().with_max_iterations(400).minimize(x0, obj)
+    dt = time.perf_counter() - t0
+    if abs(r.fx - (-164.2701507)) > 1e-4:
+        raise AssertionError(f"LJ38 default L-BFGS: fx {r.fx} after {r.niter} iterations")
+    emit(phase="lj38_default", niter=r.niter, fx=r.fx, status=r.status, seconds=dt)
+    b = lbfgs().with_gradient_only().with_max_iterations(50)
+    reset_counts()
+    tk, rk = run_traced(b, x0, obj)
+    lc, pc = launches(), plain_calls()
+    tc, _ = run_traced(b, x0.cpu(), obj)
+    worst = compare_traces("lj38 gradient_only", tk, tc, LJ_TOL, 50)
+    if not tk[-1][1] < -150.0:
+        raise AssertionError(f"LJ38 gradient-only ends at fx {tk[-1][1]}")
+    _expect("LJ38 gradient-only", lc, pc, K3_combine=rk.niter - 1)
+    emit(phase="lj38_gradient_only", niter=rk.niter, fx=rk.fx, neval=rk.neval,
+         damping_cases=dict(zip(("none", "case1", "case2"), rk.damping_cases)),
+         max_rel_gap_vs_cpu=worst, tol=LJ_TOL, launches=lc)
+
+
+def _run_2e24(name: str, params: LbfgsParams, fn=None) -> tuple:
+    """One warm and one timed ``minimize_jit`` at n = 2^24; returns (state,
+    seconds, launches, plain calls, host reads)."""
+    fn = fn or default_evaluate()
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    minimize_jit(params, x0, fn, return_state=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    st = minimize_jit(params, x0, fn, return_state=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lc, pc, reads = launches(), plain_calls(), to_host.reads
+    if st.status not in (Status.CONVERGED, Status.MAX_ITERATIONS):
+        raise AssertionError(f"{name}: status {st.status} after {st.k - 1} iterations")
+    if not np.isfinite(float(st.prob.fx)):
+        raise AssertionError(f"{name}: fx {st.prob.fx}")
+    return st, dt, lc, pc, reads
+
+
+def _expect(name: str, lc: dict, pc: dict, **counts) -> None:
+    """A run's launches are ``counts`` for the named kernels and none of
+    any other, and it called no plain version (stand-ins included)."""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(counts)
+    if lc != want:
+        raise AssertionError(f"{name} launch counts {lc}, expected {want}")
+    if max(pc.values()) != 0:
+        raise AssertionError(f"{name} called plain versions: {pc}")
+
+
+def _report_2e24(phase: str, st, dt: float, lc: dict, reads: int, **extra) -> dict:
+    iters = st.k - 1
+    out = dict(phase=phase, n=N_BIG, iters=iters, status=st.status, seconds=dt,
+               iters_per_s=iters / dt, ms_per_iter=1e3 * dt / iters,
+               probes_per_iter=(st.prob.neval - 1) / iters, syncs_per_iter=reads / iters,
+               fx=float(st.prob.fx),
+               damping_cases=dict(zip(("none", "case1", "case2"), st.damping_cases)),
+               launches=lc, **extra)
+    emit(**out)
+    return out
+
+
+#: the damped main path: bench.py's BENCH_DAMPING=1 configuration
+#: (bench.py:21, 101) at the main path's widths, epsilon 0, at most 100
+#: iterations
+DAMPED_PARAMS = MAIN_PARAMS.replace(damping=True)
+#: the damped OWL-QN main path: the OWL-QN main path with damping
+DAMPED_OWLQN_PARAMS = OWLQN_PARAMS.replace(damping=True)
+#: the damped path's plain-vs-kernel bounds (tests/test_damped_fused.py:
+#: 136-139): asserted after 8 iterations, printed after 15
+DAMPED_VS_PLAIN = ((8, 1e-3), (15, 5e-2))
+
+
+def phase_damped_main_path(undamped_syncs: float) -> dict:
+    st, dt, lc, pc, reads = _run_2e24("damped main path", DAMPED_PARAMS)
+    iters = st.k - 1
+    _expect("damped main path", lc, pc, K1_trial=1, K2_probe=st.prob.neval - 1,
+            K4_trial_pair_gram_gp=iters, K6_combine_fix=iters)
+    _report_2e24("damped_main_path", st, dt, lc, reads,
+                 syncs_per_iter_undamped=undamped_syncs)
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    for n_it, fx_tol in DAMPED_VS_PLAIN:
+        p = DAMPED_PARAMS.replace(max_iterations=n_it + 1)
+        st_k = minimize_jit(p, x0, default_evaluate(), return_state=True)
+        st_p = minimize_jit(p, x0, default_evaluate().plain, return_state=True)
+        rel = abs(float(st_k.prob.fx) / float(st_p.prob.fx) - 1)
+        same = (st_k.k, st_k.prob.neval) == (st_p.k, st_p.prob.neval)
+        if n_it == 8 and not (same and st_k.k == n_it + 1 and rel <= fx_tol):
+            raise AssertionError(
+                f"damped plain vs kernel after 8 iterations: k/neval {st_k.k}/"
+                f"{st_k.prob.neval} vs {st_p.k}/{st_p.prob.neval}, rel fx {rel:.3e}")
+        emit(phase="damped_main_path_vs_plain", iters=n_it, neval_kernel=st_k.prob.neval,
+             neval_plain=st_p.prob.neval, rel_fx=rel, fx_tol=fx_tol, asserted=n_it == 8,
+             x_err=err(st_k.prob.x, st_p.prob.x))
+        del st_k, st_p
+    del st
+    torch.cuda.empty_cache()
+    return lc
+
+
+def phase_gradient_only_main_path() -> None:
+    params = Lbfgs(MAIN_PARAMS).with_gradient_only().with_max_iterations(51).param
+    st, dt, lc, pc, reads = _run_2e24("gradient-only main path", params)
+    iters = st.k - 1
+    _expect("gradient-only main path", lc, pc, K1_trial=1, K2_probe=st.prob.neval - 1,
+            K4_trial_pair_gram_gp=iters, K6_combine_fix=iters)
+    _report_2e24("gradient_only_main_path", st, dt, lc, reads)
+    del st
+    torch.cuda.empty_cache()
+
+
+def phase_damped_owlqn_main_path() -> dict:
+    st, dt, lc, pc, reads = _run_2e24("damped OWL-QN main path", DAMPED_OWLQN_PARAMS)
+    iters = st.k - 1
+    _expect("damped OWL-QN main path", lc, pc, K1_trial=1, K10_pseudo_gradient_norm=1,
+            K8_owlqn_probe=st.prob.neval - 1, K13_combine_ow=iters,
+            K14_owlqn_trial_pair_gram_gp=iters)
+    _report_2e24("damped_owlqn_main_path", st, dt, lc, reads, eps=3e-2,
+                 gnorm=float(np.sqrt(st.prob.gnorm2)))
+    del st
+    torch.cuda.empty_cache()
+    return lc
+
+
+def trial_only_objective():
+    """Rosenbrock with its trial (K1) and probe (K2) kernels but no one-pass
+    epilogue, so that the damped solver takes K5 and K6: the K5 route."""
+    def vag(x):
+        return rosenbrock.value_and_grad(x)
+
+    vag.__lbfgs_value_and_grad__ = True
+    vag.__lbfgs_trial__ = rosenbrock.trial
+    vag.__lbfgs_trial_probe__ = rosenbrock.probe
+    return vag
+
+
+def phase_k5_route() -> dict:
+    params = DAMPED_PARAMS.replace(max_iterations=11)
+    st, dt, lc, pc, reads = _run_2e24("K5 route", params, trial_only_objective())
+    iters = st.k - 1
+    # K1 at the start and once per iteration to materialize the search's
+    # accepted point
+    _expect("K5 route", lc, pc, K1_trial=1 + iters, K2_probe=st.prob.neval - 1,
+            K5_pair_gram=iters, K6_combine_fix=iters)
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    p = DAMPED_PARAMS.replace(max_iterations=9)
+    st5 = minimize_jit(p, x0, trial_only_objective(), return_state=True)
+    st4 = minimize_jit(p, x0, default_evaluate(), return_state=True)
+    _report_2e24("k5_route", st, dt, lc, reads,
+                 vs_epilogue_after_8=dict(
+                     rel_fx=abs(float(st5.prob.fx) / float(st4.prob.fx) - 1),
+                     neval=(st5.prob.neval, st4.prob.neval)))
+    del st, st5, st4
+    torch.cuda.empty_cache()
+    return lc
+
+
 def phase_north_star() -> None:
     n = 100_000_000
     params = LbfgsParams(m=3, history_dtype="bfloat16", constrain_step_size=False,
@@ -729,15 +1155,24 @@ def main() -> None:
     k = timed(phase_kernels)
     timed(phase_goldens)
     timed(phase_owlqn_golden)
-    lc = timed(phase_main_path)
+    lc, syncs = timed(phase_main_path)
     lc_ow = timed(phase_owlqn_main_path)
     timed(phase_north_star)
+    timed(phase_damped_n100)
+    timed(phase_lj38)
+    lc_d = timed(phase_damped_main_path, syncs)
+    timed(phase_gradient_only_main_path)
+    lc_dow = timed(phase_damped_owlqn_main_path)
+    lc_k5 = timed(phase_k5_route)
     if args.profile:
         timed(phase_profile, args.profile)
     emit(phase="timing", seconds=seconds)
     # each kernel's launches on its own main path
     lc = {**{name: lc[name] for name in PLAIN_PATH},
-          **{name: lc_ow[name] for name in OWLQN_PATH if name not in PLAIN_PATH}}
+          **{name: lc_ow[name] for name in OWLQN_PATH if name not in PLAIN_PATH},
+          **{name: lc_d[name] for name in DAMPED_PATH},
+          **{name: lc_dow[name] for name in DAMPED_OWLQN_PATH},
+          **{name: lc_k5[name] for name in K5_PATH}}
     table = [
         dict(name=name, route=route, source=src, replaces=rep, launches=lc[name],
              max_abs_err=k["errs"][name][0], max_normwise_err=k["errs"][name][1],

@@ -27,13 +27,22 @@ backtracking search and its own kernels::
 
     report = lbfgs().with_orthantwise(1.0, 0, 99).minimize(x0, default_evaluate())
 
+Powell damping (also under OWL-QN, and with ``with_damping_fixed()``) and
+the gradient-only mode of the chemistry workload::
+
+    report = lbfgs().with_damping(True).minimize_jit(x0, default_evaluate())
+
+    from lbfgs_torch.models import lennard_jones
+    report = lbfgs().with_gradient_only().minimize(
+        lennard_jones.lj38_positions(device="cuda"), lennard_jones.make_objective())
+
 Ported so far: plain L-BFGS with the More-Thuente and the three
-backtracking searches (Armijo, Wolfe, strong Wolfe), OWL-QN, the compact
+backtracking searches (Armijo, Wolfe, strong Wolfe), OWL-QN, Powell
+damping and gradient-only mode on every solver branch, the compact
 two-loop, the step-at-a-time (``minimize``, ``LbfgsState``) and whole-run
-(``minimize_jit``) loops.  Damping (with damped OWL-QN and
-gradient_only), the scan two-loop, the wide fx mode, the speculative
-search, the adaptive entry step, fp8 and float16 histories, and the
-batched and native runners raise ``NotImplementedError``.
+(``minimize_jit``) loops.  The scan two-loop, the wide fx mode, the
+speculative search, the adaptive entry step, fp8 and float16 histories,
+and the batched and native runners raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

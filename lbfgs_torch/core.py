@@ -91,6 +91,9 @@ class SolverState(NamedTuple):
     #: dginit = g . d of the next line search (src/core.rs:78-92), a free
     #: byproduct of the combine kernel
     dg0: Optional[np.floating] = None
+    #: damped runs: how many iterations took no damping, case 1 and case 2
+    #: (counted where the literal reference drops case 2's write-back too)
+    damping_cases: tuple = (0, 0, 0)
 
 
 def to_host(*values: torch.Tensor) -> np.ndarray:
@@ -240,7 +243,7 @@ class Progress:
 @dataclasses.dataclass
 class Report:
     """Final optimization outcome (reference ``Report``, ``src/core.rs:273-299``),
-    plus ``x``, ``niter`` and ``status``."""
+    plus ``x``, ``niter``, ``status`` and the damping cases."""
 
     fx: float
     xnorm: float
@@ -249,3 +252,5 @@ class Report:
     x: torch.Tensor = None
     niter: int = 0
     status: int = 0
+    #: iterations without damping, with case 1, with case 2 (damped runs)
+    damping_cases: tuple = (0, 0, 0)

@@ -1,5 +1,5 @@
-// K3 and K13: the compact two-loop's direction combine, by hand for Hopper
-// (sm_90a).
+// K3, K6 and K13: the compact two-loop's direction combine, by hand for
+// Hopper (sm_90a).
 //
 // K3 replaces lbfgs_tpu/ops/fused.py:_combine_kernel (launched by
 // _combine_single).  Computes, for every element i of the vectors,
@@ -19,6 +19,20 @@
 // rc.rc (the zero-direction check) and rc.pg (the next search's dginit).
 // Signs are compared with msign, which maps NaN to 0 as the reference's
 // signum does.
+//
+// K6 (kFix = true) replaces lbfgs_tpu/ops/fused.py:_combine_fix_kernel:
+// K3's body, which also persists the damped ring row in the same pass,
+//
+//     Y[end, i] = round(ca * Y[end, i] + cb * g_i)
+//
+// with (ca, cb) after the coefficients.  The caller has folded the
+// damping into gamma and cy[end], so the combination reads the row as it
+// was; each thread reads its element of the row before it writes it.  The
+// products and the sum are rounded one by one (__fmul_rn/__fadd_rn and
+// their f64 forms: no contraction into an fma), and the result is
+// rounded to the history type to nearest even, so the row equals the
+// plain version's bit for bit.  It costs one row write (2 bytes per
+// element with a bf16 history) and no read.
 //
 // What bounds it on the H100: bytes.  It reads g and the 2m history rows
 // and writes r, doing 2m+1 multiply-adds per element: with f32 vectors
@@ -54,6 +68,25 @@ __device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+template <typename H, typename T>
+__device__ __forceinline__ H narrow(T v) {
+  return static_cast<H>(v);
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// a * b + c * d with every operation rounded on its own (never an fma)
+__device__ __forceinline__ float blend_rn(float a, float b, float c, float d) {
+  return __fadd_rn(__fmul_rn(a, b), __fmul_rn(c, d));
+}
+
+__device__ __forceinline__ double blend_rn(double a, double b, double c, double d) {
+  return __dadd_rn(__dmul_rn(a, b), __dmul_rn(c, d));
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   // fixed shuffle tree: the same inputs always add in the same order
@@ -67,17 +100,18 @@ __device__ __forceinline__ int msign(T v) {
   return v > T(0) ? 1 : (v < T(0) ? -1 : 0);
 }
 
-// coef = [gamma, cs_0 .. cs_{m-1}, cy_0 .. cy_{m-1}];
-// partials = [gridDim.x, kOw ? 3 : 2]
-template <typename T, typename H, bool kOw>
+// coef = [gamma, cs_0 .. cs_{m-1}, cy_0 .. cy_{m-1}] (kFix: then ca, cb);
+// partials = [gridDim.x, kOw ? 3 : 2]; only K6 writes Y (row fix_end)
+template <typename T, typename H, bool kOw, bool kFix>
 __global__ void __launch_bounds__(kThreads)
-combine_kernel(const T* __restrict__ g, const H* __restrict__ S, const H* __restrict__ Y,
+combine_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __restrict__ Y,
                const T* __restrict__ coef, T* __restrict__ r, T* __restrict__ partials,
-               long long n, int m, long long lo, long long hi) {
+               long long n, int m, long long lo, long long hi, int fix_end) {
   constexpr int kParts = kOw ? 3 : 2;
-  __shared__ T c[1 + 2 * kMaxM];
+  __shared__ T c[3 + 2 * kMaxM];
   __shared__ T red[kParts][kThreads / 32];
-  for (int i = threadIdx.x; i < 1 + 2 * m; i += kThreads) c[i] = coef[i];
+  const int ncoef = kFix ? 3 + 2 * m : 1 + 2 * m;
+  for (int i = threadIdx.x; i < ncoef; i += kThreads) c[i] = coef[i];
   __syncthreads();
 
   const long long base = static_cast<long long>(blockIdx.x) * kBlockElems;
@@ -91,11 +125,19 @@ combine_kernel(const T* __restrict__ g, const H* __restrict__ S, const H* __rest
       const T gv = g[i];
       T acc_s = T(0);
       T acc_y = T(0);
+      T y_end = T(0);
       for (int j = 0; j < m; ++j) {
         acc_s += c[1 + j] * widen<T, H>(S[j * n + i]);
-        acc_y += c[1 + m + j] * widen<T, H>(Y[j * n + i]);
+        const T yj = widen<T, H>(Y[j * n + i]);
+        acc_y += c[1 + m + j] * yj;
+        if constexpr (kFix) {
+          if (j == fix_end) y_end = yj;
+        }
       }
       const T rv = c[0] * gv + (acc_s + acc_y);
+      if constexpr (kFix) {
+        Y[fix_end * n + i] = narrow<H, T>(blend_rn(c[1 + 2 * m], y_end, c[2 + 2 * m], gv));
+      }
       acc[0] += rv * rv;
       if constexpr (kOw) {
         const bool kill = i >= lo && i < hi && msign(rv) != -msign(gv);
@@ -127,17 +169,18 @@ combine_kernel(const T* __restrict__ g, const H* __restrict__ S, const H* __rest
   }
 }
 
-template <typename T, typename H, bool kOw>
-int launch_combine(const void* g, const void* S, const void* Y, const void* coef, void* r,
+template <typename T, typename H, bool kOw, bool kFix>
+int launch_combine(const void* g, const void* S, void* Y, const void* coef, void* r,
                    void* partials, long long n, int m, long long lo, long long hi,
-                   void* stream) {
+                   int fix_end, void* stream) {
   if (n <= 0 || m < 1 || m > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
+  if (kFix && (fix_end < 0 || fix_end >= m)) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kBlockElems - 1) / kBlockElems;
-  combine_kernel<T, H, kOw><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(g), static_cast<const H*>(S), static_cast<const H*>(Y),
+  combine_kernel<T, H, kOw, kFix><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                    reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<const H*>(S), static_cast<H*>(Y),
       static_cast<const T*>(coef), static_cast<T*>(r), static_cast<T*>(partials), n, m,
-      lo, hi);
+      lo, hi, fix_end);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -153,15 +196,23 @@ const char* lbfgs_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-#define LBFGS_COMBINE_ENTRY(SFX, T, H)                                                    \
-  int lbfgs_combine_##SFX(const void* g, const void* S, const void* Y, const void* coef,  \
-                          void* r, void* partials, long long n, int m, void* stream) {   \
-    return launch_combine<T, H, false>(g, S, Y, coef, r, partials, n, m, 0, 0, stream);  \
-  }                                                                                       \
-  int lbfgs_combine_ow_##SFX(const void* g, const void* S, const void* Y,                \
-                             const void* coef, void* r, void* partials, long long n,     \
-                             int m, long long lo, long long hi, void* stream) {          \
-    return launch_combine<T, H, true>(g, S, Y, coef, r, partials, n, m, lo, hi, stream); \
+#define LBFGS_COMBINE_ENTRY(SFX, T, H)                                                      \
+  int lbfgs_combine_##SFX(const void* g, const void* S, void* Y, const void* coef, void* r, \
+                          void* partials, long long n, int m, void* stream) {              \
+    return launch_combine<T, H, false, false>(g, S, Y, coef, r, partials, n, m, 0, 0, 0,   \
+                                              stream);                                     \
+  }                                                                                         \
+  int lbfgs_combine_fix_##SFX(const void* g, const void* S, void* Y, const void* coef,     \
+                              void* r, void* partials, long long n, int m, int end,        \
+                              void* stream) {                                              \
+    return launch_combine<T, H, false, true>(g, S, Y, coef, r, partials, n, m, 0, 0, end,  \
+                                             stream);                                      \
+  }                                                                                         \
+  int lbfgs_combine_ow_##SFX(const void* g, const void* S, void* Y, const void* coef,      \
+                             void* r, void* partials, long long n, int m, long long lo,    \
+                             long long hi, void* stream) {                                 \
+    return launch_combine<T, H, true, false>(g, S, Y, coef, r, partials, n, m, lo, hi, 0,  \
+                                             stream);                                      \
   }
 
 LBFGS_COMBINE_ENTRY(f32_bf16, float, __nv_bfloat16)

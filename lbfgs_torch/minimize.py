@@ -63,6 +63,7 @@ def _report(st: SolverState) -> Report:
         x=st.prob.x,
         niter=st.k,
         status=st.status,
+        damping_cases=st.damping_cases,
     )
 
 

@@ -34,10 +34,22 @@ _SIGNATURES = {
     "lbfgs_combine_block_elems": ([], ctypes.c_int),
     "lbfgs_combine_max_m": ([], ctypes.c_int),
     "lbfgs_pseudo_grad_norm_block_elems": ([], ctypes.c_int),
+    "lbfgs_pair_gram_block_elems": ([], ctypes.c_int),
     "lbfgs_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     **{
         f"lbfgs_combine_{sfx}": (
             [_P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, _P], ctypes.c_int)
+        for sfx in ("f32_bf16", "f32_f32", "f64_f64")
+    },
+    **{
+        f"lbfgs_combine_fix_{sfx}": (
+            [_P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int)
+        for sfx in ("f32_bf16", "f32_f32", "f64_f64")
+    },
+    **{
+        f"lbfgs_pair_gram_{sfx}": (
+            [ctypes.c_double, _P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, _P], ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{

@@ -38,7 +38,10 @@ nothing that is not a result:
     (in f32 with a bf16 history, m = 6: 12 + 20 + 8 + 4 = 44 B/elem),
     with all 6m Gram products taken in the same pass.  Row ``end`` is
     never read: its products use the unrounded (s, y) held in registers,
-    and only the stored row is rounded to the history dtype.
+    and only the stored row is rounded to the history dtype.  With
+    ``WITH_GP`` (the damped path) it adds the 2m products S_j.gp, Y_j.gp
+    into partials of their own: gp already streams, so no byte is added,
+    and the other partials are those of the plain launch bit for bit.
   * K8 ``owlqn_probe_kernel`` (replaces factory.py:_owlqn_probe_body):
     the OWL-QN trial point x = pi(xp + stp*d; wp) inside the window
     [lo, hi), and per program the objective, the window's sum |x| and
@@ -55,6 +58,8 @@ nothing that is not a result:
     pg and one row of each (in f32 with a bf16 history, m = 6: 16 + 20 +
     12 + 4 = 52 B/elem).  x, g and pg may alias xp, gp and pg_old: each
     element is loaded before it is stored and no element reads another's.
+    With ``WITH_GP`` (damped OWL-QN) it adds gp.gp, gp.pg and the 2m
+    products S_j.gp, Y_j.gp, in partials of their own, at no byte.
 
 The orthant tests use ``_msign``, which maps NaN to 0 as the reference's
 signum does; the pseudo-gradient's x != 0 branch uses ``_sign``, which
@@ -136,9 +141,10 @@ def probe_kernel(xp_ptr, d_ptr, stp_ptr, part_ptr, n,
 
 @triton.jit(do_not_specialize=["end"])
 def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
-                           S_ptr, Y_ptr, part_ptr, n, end,
+                           S_ptr, Y_ptr, part_ptr, gpart_ptr, n, end,
                            body: tl.constexpr, M: tl.constexpr,
-                           ROWS: tl.constexpr, W: tl.constexpr):
+                           ROWS: tl.constexpr, W: tl.constexpr,
+                           WITH_GP: tl.constexpr):
     offs = _offsets(ROWS, W)
     mask = offs < n
     stp = tl.load(stp_ptr)
@@ -175,6 +181,12 @@ def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
         tl.store(pj + 3, _block_sum(Yj * y, mask))
         tl.store(pj + 4, _block_sum(Yj * s, mask))
         tl.store(pj + 5, _block_sum(Yj * d0, mask))
+        if WITH_GP:
+            # the damped update's basis column, after the six others and
+            # into partials of its own
+            gj = gpart_ptr + tl.program_id(0) * (2 * M) + 2 * j
+            tl.store(gj + 0, _block_sum(Sj * gp, mask))
+            tl.store(gj + 1, _block_sum(Yj * gp, mask))
         # the new pair into ring row `end`, rounded to the history dtype
         tl.store(s_row, s.to(s_row.dtype.element_ty), mask=mask & is_end)
         tl.store(y_row, y.to(y_row.dtype.element_ty), mask=mask & is_end)
@@ -210,9 +222,10 @@ def owlqn_probe_kernel(xp_ptr, d_ptr, w_ptr, stp_ptr, part_ptr, n, lo, hi,
 
 @triton.jit(do_not_specialize=["end", "lo", "hi"])
 def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
-                                 x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, n,
-                                 lo, hi, end, body: tl.constexpr, M: tl.constexpr,
-                                 ROWS: tl.constexpr, W: tl.constexpr):
+                                 x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr,
+                                 n, lo, hi, end, body: tl.constexpr, M: tl.constexpr,
+                                 ROWS: tl.constexpr, W: tl.constexpr,
+                                 WITH_GP: tl.constexpr):
     offs = _offsets(ROWS, W)
     mask = offs < n
     stp = tl.load(stp_ptr)
@@ -240,6 +253,13 @@ def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
     tl.store(part + 0, _block_sum(x * x, mask))
     tl.store(part + 1, _block_sum(pg * pg, mask))
     tl.store(part + 2, _block_sum(tl.where(x != xp, 1.0, 0.0).to(x.dtype), mask))
+    gpart = gpart_ptr + tl.program_id(0) * (2 + 2 * M)
+    if WITH_GP:
+        # the damped reconstruction's gp.gp and gp.pg: under OWL-QN the
+        # carried norm is ||pg_prev||^2, and gp is gone after an in-place
+        # pass, so both come from here
+        tl.store(gpart + 0, _block_sum(gp * gp, mask))
+        tl.store(gpart + 1, _block_sum(gp * pg, mask))
     s_row = S_ptr + offs
     y_row = Y_ptr + offs
     for j in tl.static_range(M):
@@ -255,6 +275,9 @@ def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
         tl.store(pj + 3, _block_sum(Yj * y, mask))
         tl.store(pj + 4, _block_sum(Yj * s, mask))
         tl.store(pj + 5, _block_sum(Yj * d0, mask))
+        if WITH_GP:
+            tl.store(gpart + 2 + 2 * j, _block_sum(Sj * gp, mask))
+            tl.store(gpart + 3 + 2 * j, _block_sum(Yj * gp, mask))
         tl.store(s_row, s.to(s_row.dtype.element_ty), mask=mask & is_end)
         tl.store(y_row, y.to(y_row.dtype.element_ty), mask=mask & is_end)
         s_row += n

@@ -10,17 +10,20 @@ protocol the solver looks for:
     with no vector written (the More-Thuente step);
   * ``__lbfgs_trial_pair_gram__(...)`` / ``..._ok__`` — K4: the trial, the
     correction pair written into ring row ``end``, and all 6m Gram
-    products in one pass (the iteration's epilogue);
+    products in one pass (the iteration's epilogue); ``with_gp=True``
+    adds the damped update's . gp column;
   * ``__lbfgs_owlqn_probe__`` / ``__lbfgs_owlqn_probe_pg__`` — K8: (fx +
     c*L1, g.d) at the OWL-QN trial point pi(xp + stp*d; wp), the orthant
     given, or rebuilt in registers from (xp, pg);
   * ``__lbfgs_owlqn_trial_pair_gram__(...)`` / ``..._ok__`` — K14: the
     OWL-QN epilogue, the projected point with its gradient and
     pseudo-gradient, the pair (x - xp, g - gp) written into ring row
-    ``end`` and all 6m products against (y, s, -pg);
-  * ``__lbfgs_combine__`` / ``__lbfgs_combine_ow__`` — the direction
-    combine (K3, ``fused.combine``) and its OWL-QN form (K13,
-    ``fused.combine_ow``);
+    ``end`` and all 6m products against (y, s, -pg); ``with_gp=True``
+    adds the . gp column, gp.gp and gp.pg (damped OWL-QN);
+  * ``__lbfgs_combine__`` / ``__lbfgs_combine_fix__`` /
+    ``__lbfgs_combine_ow__`` — the direction combine (K3,
+    ``fused.combine``), its form that persists the damped ring row (K6,
+    ``fused.combine_fix``) and its OWL-QN form (K13, ``fused.combine_ow``);
   * ``__lbfgs_pseudo_gradient_norm__`` — OWL-QN's (pg, pg.pg) (K10,
     ``fused.pseudo_gradient_norm``), which the solver's init runs.
 
@@ -32,9 +35,11 @@ search probes with K8 and the solver materializes with K14.
 Each wrapper launches its Triton kernel (``ops/_factory_triton.py``) on a
 CUDA tensor and runs its plain version (``*_ref``, same module) on a CPU
 tensor.  Launches and plain calls are counted on the functions
-(``fn.launches``, ``ref.calls``).  ``objective.plain`` is a twin objective
-whose protocol runs the plain versions on any device: the reference that
-a run through the kernels is compared with on the card.
+(``fn.launches``, ``ref.calls``; K4's and K14's ``.gp_launches`` count
+their ``with_gp`` launches among ``.launches``).  ``objective.plain`` is
+a twin objective whose protocol runs the plain versions on any device:
+the reference that a run through the kernels is compared with on the
+card.
 
 Contract for the body: a ``@triton.jit`` function ``body(x, gidx) ->
 (fx_elem, g)`` over one ``[ROWS, row]`` block (``gidx`` the global
@@ -170,13 +175,14 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
 
     # ------------------------------------------- K4 trial + pair + Gram
 
-    def trial_pair_gram_ref(xp, d, gp, stp, S, Y, end, inplace=False):
+    def trial_pair_gram_ref(xp, d, gp, stp, S, Y, end, inplace=False, with_gp=False):
         """Plain version of ``trial_pair_gram``."""
         trial_pair_gram_ref.calls += 1
         stp = float(stp)
         x = xp + stp * d
         fx, g = value_and_grad(x)
-        SP, YP = fused.pair_products(stp * d, g - gp, -g, S, Y, end)
+        SP, YP = fused.pair_products(stp * d, g - gp, -g, S, Y, end,
+                                     gp=gp if with_gp else None)
         out = (fx, torch.dot(g, d), torch.dot(g, g), torch.dot(x, x),
                torch.any(x != xp))
         if inplace:
@@ -185,32 +191,40 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
             x, g = xp, gp
         return (x, out[0], g, *out[1:], SP, YP)
 
-    def trial_pair_gram(xp, d, gp, stp, S, Y, end, inplace=False):
+    def trial_pair_gram(xp, d, gp, stp, S, Y, end, inplace=False, with_gp=False):
         """One-pass epilogue: the trial at xp + stp*d, the correction pair
         (s, y) = (stp*d, g - gp) written into ring row ``end`` of S and Y
         (in place), and SP = S.[y, s, -g], YP = Y.[y, s, -g] ([m, 3]) over
         the updated rings.  Returns (x, fx, g, g.d, g.g, x.x, changed, SP,
         YP).  ``inplace=True`` writes x over xp and g over gp (the lean
-        whole-run state, which never reads the previous point again)."""
+        whole-run state, which never reads the previous point again).
+        ``with_gp=True`` appends the damped update's basis column S.gp,
+        Y.gp ([m, 4]); every other output is that of the plain launch bit
+        for bit."""
         _check(xp)
         fused._check_hist(xp, S, Y)
         if not fused.on_cuda(xp, "trial_pair_gram"):
-            return trial_pair_gram_ref(xp, d, gp, stp, S, Y, end, inplace)
+            return trial_pair_gram_ref(xp, d, gp, stp, S, Y, end, inplace, with_gp)
         fused.check_contiguous("trial_pair_gram", xp, d, gp, S, Y)
         m, n = S.shape
         grid = _grid(n)
         x = xp if inplace else torch.empty_like(xp)
         g = gp if inplace else torch.empty_like(gp)
         part = torch.empty((grid[0], 5 + 6 * m), dtype=xp.dtype, device=xp.device)
+        gpart = torch.empty((grid[0], 2 * m), dtype=xp.dtype, device=xp.device) \
+            if with_gp else part
         _kernels().trial_pair_gram_kernel[grid](
-            xp, d, gp, _scalar(stp, xp), x, g, S, Y, part, n, int(end),
-            body=block_fn(), M=m, ROWS=rows, W=row, **LAUNCH,
+            xp, d, gp, _scalar(stp, xp), x, g, S, Y, part, gpart, n, int(end),
+            body=block_fn(), M=m, ROWS=rows, W=row, WITH_GP=bool(with_gp), **LAUNCH,
         )
         trial_pair_gram.launches += 1
+        trial_pair_gram.gp_launches += bool(with_gp)
         tot = fused.reduce_partials(part)
         P = tot[5:].reshape(m, 6)
-        return (x, tot[0], g, tot[1], tot[2], tot[3], tot[4] > 0,
-                P[:, :3], P[:, 3:])
+        SP, YP = P[:, :3], P[:, 3:]
+        if with_gp:
+            SP, YP = fused.append_gp(SP, YP, fused.reduce_partials(gpart))
+        return (x, tot[0], g, tot[1], tot[2], tot[3], tot[4] > 0, SP, YP)
 
     def trial_pair_gram_ok(xp, S) -> bool:
         # shape and dtype only: a size the objective rejects raises inside
@@ -276,14 +290,17 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
     # ------------------------ K14 OWL-QN trial + pseudo-gradient + pair + Gram
 
     def owlqn_trial_pair_gram_ref(xp, d, gp, pg, stp, c, start, end_w, S, Y, end,
-                                  inplace=False):
+                                  inplace=False, with_gp=False):
         """Plain version of ``owlqn_trial_pair_gram``."""
         owlqn_trial_pair_gram_ref.calls += 1
         ow = Orthantwise(c, start, end_w)
         x, _, g = _ow_eval(xp, d, choose_orthant(ow, xp, pg), stp, c, start, end_w)
         pg_new = pseudo_gradient(ow, x, g)
-        SP, YP = fused.pair_products(x - xp, g - gp, -pg_new, S, Y, end)
+        SP, YP = fused.pair_products(x - xp, g - gp, -pg_new, S, Y, end,
+                                     gp=gp if with_gp else None)
         out = (torch.dot(x, x), torch.dot(pg_new, pg_new), torch.any(x != xp))
+        if with_gp:
+            out += (torch.dot(gp, gp), torch.dot(gp, pg_new))
         if inplace:
             xp.copy_(x)
             gp.copy_(g)
@@ -292,7 +309,7 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         return (x, g, pg_new, SP, YP, *out)
 
     def owlqn_trial_pair_gram(xp, d, gp, pg, stp, c, start, end_w, S, Y, end,
-                              inplace=False):
+                              inplace=False, with_gp=False):
         """OWL-QN's one-pass epilogue: the accepted point x = pi(xp +
         stp*d; wp), wp = choose_orthant(xp, pg) rebuilt in registers, its
         gradient g and pseudo-gradient pg_new (L1 weight ``c`` on the
@@ -300,12 +317,16 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         ring row ``end`` of S and Y (in place), and SP = S.[y, s, -pg_new],
         YP = Y.[y, s, -pg_new] ([m, 3]).  Returns (x, g, pg_new, SP, YP,
         x.x, pg_new.pg_new, changed); fx is the search's last probe.
-        ``inplace=True`` writes x, g and pg_new over xp, gp and pg."""
+        ``inplace=True`` writes x, g and pg_new over xp, gp and pg.
+        ``with_gp=True`` (damped OWL-QN) appends the . gp column to SP and
+        YP ([m, 4]) and gp.gp, gp.pg_new to the returns, taken before g
+        overwrites gp; every other output is that of the plain launch bit
+        for bit."""
         _check(xp)
         fused._check_hist(xp, S, Y)
         if not fused.on_cuda(xp, "owlqn_trial_pair_gram"):
             return owlqn_trial_pair_gram_ref(xp, d, gp, pg, stp, c, start, end_w,
-                                             S, Y, end, inplace)
+                                             S, Y, end, inplace, with_gp)
         fused.check_contiguous("owlqn_trial_pair_gram", xp, d, gp, pg, S, Y)
         m, n = S.shape
         lo, hi = _window(n, start, end_w)
@@ -314,19 +335,28 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         g = gp if inplace else torch.empty_like(gp)
         pg_new = pg if inplace else torch.empty_like(pg)
         part = torch.empty((grid[0], 3 + 6 * m), dtype=xp.dtype, device=xp.device)
+        gpart = torch.empty((grid[0], 2 + 2 * m), dtype=xp.dtype, device=xp.device) \
+            if with_gp else part
         _kernels().owlqn_trial_pair_gram_kernel[grid](
             xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new, S, Y,
-            part, n, lo, hi, int(end), body=block_fn(), M=m, ROWS=rows, W=row,
-            **LAUNCH,
+            part, gpart, n, lo, hi, int(end), body=block_fn(), M=m, ROWS=rows, W=row,
+            WITH_GP=bool(with_gp), **LAUNCH,
         )
         owlqn_trial_pair_gram.launches += 1
+        owlqn_trial_pair_gram.gp_launches += bool(with_gp)
         tot = fused.reduce_partials(part)
         P = tot[3:].reshape(m, 6)
-        return x, g, pg_new, P[:, :3], P[:, 3:], tot[0], tot[1], tot[2] > 0
+        if not with_gp:
+            return x, g, pg_new, P[:, :3], P[:, 3:], tot[0], tot[1], tot[2] > 0
+        G = fused.reduce_partials(gpart)
+        SP, YP = fused.append_gp(P[:, :3], P[:, 3:], G[2:])
+        return x, g, pg_new, SP, YP, tot[0], tot[1], tot[2] > 0, G[0], G[1]
 
     for fn in (trial, probe, trial_pair_gram, owlqn_probe, owlqn_probe_pg,
                owlqn_trial_pair_gram):
         fn.launches = 0
+    # the . gp (damped) specialisations of K4 and K14, counted apart too
+    trial_pair_gram.gp_launches = owlqn_trial_pair_gram.gp_launches = 0
     for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_probe_ref,
                owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref):
         fn.calls = 0
@@ -351,17 +381,19 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
 
     _attach(vag, trial, probe, trial_pair_gram, trial_pair_gram_ok,
             owlqn_probe, owlqn_probe_pg, owlqn_trial_pair_gram,
-            fused.combine, fused.combine_ow, fused.pseudo_gradient_norm)
+            fused.combine, fused.combine_fix, fused.combine_ow,
+            fused.pseudo_gradient_norm)
     _attach(plain, trial_ref, probe_ref, trial_pair_gram_ref, trial_pair_gram_ok,
             owlqn_probe_ref, owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref,
-            fused.combine_ref, fused.combine_ow_ref, fused.pseudo_gradient_norm_ref)
+            fused.combine_ref, fused.combine_fix_ref, fused.combine_ow_ref,
+            fused.pseudo_gradient_norm_ref)
     vag.kernels = plain.kernels = ns
     vag.plain = plain
     return vag
 
 
 def _attach(obj, trial, probe, tpg, tpg_ok, ow_probe, ow_probe_pg, ow_tpg,
-            combine, combine_ow, pg_norm) -> None:
+            combine, combine_fix, combine_ow, pg_norm) -> None:
     obj.__lbfgs_value_and_grad__ = True
     obj.__lbfgs_trial__ = trial
     obj.__lbfgs_trial_probe__ = probe
@@ -373,5 +405,6 @@ def _attach(obj, trial, probe, tpg, tpg_ok, ow_probe, ow_probe_pg, ow_tpg,
     # the OWL-QN epilogue takes the same shapes and dtypes as K4's
     obj.__lbfgs_owlqn_trial_pair_gram_ok__ = tpg_ok
     obj.__lbfgs_combine__ = combine
+    obj.__lbfgs_combine_fix__ = combine_fix
     obj.__lbfgs_combine_ow__ = combine_ow
     obj.__lbfgs_pseudo_gradient_norm__ = pg_norm

@@ -1,27 +1,37 @@
-"""The CUDA C++ kernels (K3, K10, K13) and what the fused kernels share.
+"""The CUDA C++ kernels (K3, K5, K6, K10, K13) and what the fused kernels
+share.
 
   * ``combine`` (K3) — r = gamma*d + coef_s @ S + coef_y @ Y with ||r||^2
     and r . d from one pass (the compact two-loop's output direction).
+  * ``combine_fix`` (K6) — the same pass, which also persists the damped
+    ring row Y[end] <- ca*Y[end] + cb*d in place.
   * ``combine_ow`` (K13) — the same pass with OWL-QN's direction
     constraint rc = pi(r; -pg) inside the window, returning ||r||^2
     before the constraint, ||rc||^2 and rc . pg.
+  * ``pair_gram_sd`` (K5) — the correction pair (stp*d, gx - gp) written
+    into ring row ``end`` and all 6m Gram products (8m with the damped
+    update's . gp column), for fused-trial objectives that have no
+    one-pass epilogue.
   * ``pseudo_gradient_norm`` (K10) — OWL-QN's pseudo-gradient and its
     squared norm in one pass.
 
   On a CUDA tensor each launches its hand-written kernel
-  (``csrc/combine.cu``, ``csrc/owlqn.cu``); on a CPU tensor it runs its
-  plain version (``*_ref``).
+  (``csrc/combine.cu``, ``csrc/pair_gram.cu``, ``csrc/owlqn.cu``); on a
+  CPU tensor it runs its plain version (``*_ref``).
 
   * ``reduce_partials`` — the fixed-order cross-block sum that every
     kernel of the package uses: each kernel program writes its own
     partial sums, and this adds them, so no float atomics touch the
     trajectory and runs repeat bit for bit.
-  * ``pair_gram_ref`` / ``pair_gram_sd_ref`` / ``pair_gram_xg_ref`` and
-    ``owlqn_trial_step_ref`` — the composed correction-pair updates with
-    all 6m Gram products and the projected trial point, the solver's path
-    when the objective provides no one-pass epilogue.  They are plain
-    stand-ins for kernels not ported yet (K5, K12, K9), so each counts
-    its calls: the main path on the card makes none.
+  * ``pair_products`` — the 6m (8m) products of the one-pass epilogues'
+    and K5's plain versions, with row ``end`` taken from the unrounded
+    pair as the kernels hold it in registers.
+  * ``pair_gram_ref`` — the composed pair update whose products see the
+    STORED pair (the damped composed branch, and generic objectives).
+  * ``pair_gram_xg_ref`` and ``owlqn_trial_step_ref`` — the composed
+    OWL-QN pair update and projected trial point for generic objectives.
+    They are plain stand-ins for kernels not ported yet (K12, K9), so
+    each counts its calls: the main paths on the card make none.
   * the predicates ``can_combine`` / ``can_pair_gram`` and the dtype
     rules all kernels follow.
 
@@ -127,23 +137,23 @@ def combine_ref(d, S, Y, gamma, coef_s, coef_y):
 combine_ref.calls = 0
 
 
-def _launch_combine(name, d, S, Y, gamma, coef_s, coef_y, nparts, *window):
-    """Launch the combine kernel ``name`` (K3, or K13 with ``window`` =
-    (lo, hi)); returns (r, column sums of its [blocks, nparts] partials)."""
+def _launch_combine(name, d, S, Y, coefs, nparts, *args):
+    """Launch the combine kernel ``name`` (K3; K6 with ``coefs`` ending in
+    (ca, cb) and ``args`` = (end,); K13 with ``args`` = (lo, hi)); returns
+    (r, column sums of its [blocks, nparts] partials)."""
     m, n = S.shape
     if m > MAX_M:
         raise ValueError(f"{name}: m = {m} exceeds {MAX_M}")
     check_contiguous(name, d, S, Y)
     lib = _build.load_library()
-    coef = torch.cat(
-        [gamma.reshape(1), coef_s.reshape(-1), coef_y.reshape(-1)]
-    ).to(d.dtype)
+    coef = torch.cat([torch.as_tensor(c, dtype=d.dtype, device=d.device).reshape(-1)
+                      for c in coefs])
     blocks = -(-n // lib.lbfgs_combine_block_elems())
     r = torch.empty_like(d)
     part = torch.empty((blocks, nparts), dtype=d.dtype, device=d.device)
     fn = getattr(lib, f"lbfgs_{name}_{_SUFFIX[d.dtype]}_{_SUFFIX[S.dtype]}")
     code = fn(d.data_ptr(), S.data_ptr(), Y.data_ptr(), coef.data_ptr(),
-              r.data_ptr(), part.data_ptr(), n, m, *window,
+              r.data_ptr(), part.data_ptr(), n, m, *args,
               torch.cuda.current_stream(d.device).cuda_stream)
     _build.check_launch(code, name)
     return r, reduce_partials(part)
@@ -160,12 +170,58 @@ def combine(d, S, Y, gamma, coef_s, coef_y):
     _check_hist(d, S, Y)
     if not on_cuda(d, "combine"):
         return combine_ref(d, S, Y, gamma, coef_s, coef_y)
-    r, tot = _launch_combine("combine", d, S, Y, gamma, coef_s, coef_y, 2)
+    r, tot = _launch_combine("combine", d, S, Y, (gamma, coef_s, coef_y), 2)
     combine.launches += 1
     return r, tot[0], tot[1]
 
 
 combine.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: combine + damped ring-row persist
+# ---------------------------------------------------------------------------
+
+
+def _check_row(S, end: int) -> int:
+    if not 0 <= int(end) < S.shape[0]:
+        raise ValueError(f"ring row {end} outside [0, {S.shape[0]})")
+    return int(end)
+
+
+def combine_fix_ref(d, S, Y, gamma, coef_s, coef_y, end: int, ca, cb):
+    """Plain version of ``combine_fix``: (r, r.r, r.d), Y[end] fixed in
+    place."""
+    combine_fix_ref.calls += 1
+    end = _check_row(S, end)
+    r = _combination(d, S, Y, gamma, coef_s, coef_y)
+    Y[end] = (ca * Y[end].to(d.dtype) + cb * d).to(Y.dtype)
+    return r, torch.dot(r, r), torch.dot(r, d)
+
+
+combine_fix_ref.calls = 0
+
+
+def combine_fix(d, S, Y, gamma, coef_s, coef_y, end: int, ca, cb):
+    """``combine`` over the history as it stands, then the damped ring row
+    persisted in place: Y[end] <- round(ca*Y[end] + cb*d) to the history
+    dtype, the products and the sum rounded one by one in the vectors'
+    dtype.  The caller has folded the damping into gamma and coef_y
+    (``solver.two_loop_compact``'s ``row_fix``), so r is the direction of
+    the damped history although the combine reads the row before the fix.
+    ``ca`` and ``cb`` are 0-d tensors on d's device (no host read).
+    Returns (r, r.r, r.d)."""
+    _check_hist(d, S, Y)
+    if not on_cuda(d, "combine_fix"):
+        return combine_fix_ref(d, S, Y, gamma, coef_s, coef_y, end, ca, cb)
+    end = _check_row(S, end)
+    r, tot = _launch_combine("combine_fix", d, S, Y, (gamma, coef_s, coef_y, ca, cb),
+                             2, end)
+    combine_fix.launches += 1
+    return r, tot[0], tot[1]
+
+
+combine_fix.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +251,7 @@ def combine_ow(d, S, Y, gamma, coef_s, coef_y, start: int, end: int):
     _check_hist(d, S, Y)
     if not on_cuda(d, "combine_ow"):
         return combine_ow_ref(d, S, Y, gamma, coef_s, coef_y, start, end)
-    r, tot = _launch_combine("combine_ow", d, S, Y, gamma, coef_s, coef_y, 3,
+    r, tot = _launch_combine("combine_ow", d, S, Y, (gamma, coef_s, coef_y), 3,
                              int(start), int(end))
     combine_ow.launches += 1
     return r, tot[0], tot[1], tot[2]
@@ -250,7 +306,7 @@ pseudo_gradient_norm.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Composed pair + Gram update
+# Pair + Gram updates: K5 and the composed forms
 # ---------------------------------------------------------------------------
 
 
@@ -266,31 +322,90 @@ def pair_gram_ref(s, y, g, S, Y, end: int):
     return S.to(s.dtype) @ Z, Y.to(s.dtype) @ Z
 
 
-def pair_gram_sd_ref(stp, d, gx, gp, S, Y, end: int):
-    """The s = stp*d form of ``pair_gram_ref`` (exact on the projection-
-    free path, src/core.rs:155-164); returns (SP, YP).  The plain stand-in
-    for K5 (``lbfgs_tpu/ops/fused.py:_pair_gram_kernel``)."""
+def pair_products(s, y, d0, S, Y, end: int, gp=None):
+    """SP = S . [y, s, d0] and YP = Y . [y, s, d0] ([m, 3]) over the rings
+    with row ``end`` replaced by the new pair UNROUNDED (the kernels hold
+    it in registers), then the pair stored into ring row ``end``, rounded
+    to the history dtype.  With ``gp`` a fourth column S . gp, Y . gp
+    ([m, 4]), taken apart so that columns 0-2 are those of the 3-column
+    form bit for bit.  Shared by the plain versions of K4, K5 and K14."""
+    Sw, Yw = S.to(s.dtype), Y.to(s.dtype)
+    Z = torch.stack([y, s, d0], dim=1)
+    SP = Sw @ Z
+    YP = Yw @ Z
+    SP[end] = torch.stack([s @ y, s @ s, s @ d0])
+    YP[end] = torch.stack([y @ y, y @ s, y @ d0])
+    if gp is not None:
+        Sg, Yg = Sw @ gp, Yw @ gp
+        Sg[end], Yg[end] = s @ gp, y @ gp
+        SP = torch.cat([SP, Sg[:, None]], dim=1)
+        YP = torch.cat([YP, Yg[:, None]], dim=1)
+    S[end] = s.to(S.dtype)
+    Y[end] = y.to(Y.dtype)
+    return SP, YP
+
+
+def _check_pair(d, gx, gp, S, Y, end: int) -> int:
+    _check_hist(d, S, Y)
+    if gx.shape != d.shape or gp.shape != d.shape or not (
+            gx.dtype == gp.dtype == d.dtype):
+        raise ValueError("d, gx and gp must be [n] vectors of one dtype")
+    return _check_row(S, end)
+
+
+def append_gp(SP, YP, G):
+    """SP, YP ([m, 3]) with the . gp column appended from ``G``, the [2m]
+    sums (S_0.gp, Y_0.gp, S_1.gp, ...) of a kernel's . gp partials."""
+    G = G.reshape(-1, 2)
+    return torch.cat([SP, G[:, :1]], dim=1), torch.cat([YP, G[:, 1:]], dim=1)
+
+
+def pair_gram_sd_ref(stp, d, gx, gp, S, Y, end: int, with_gp: bool = False):
+    """Plain version of ``pair_gram_sd``: ``pair_products`` of s = stp*d,
+    y = gx - gp and d0 = -gx, whose products of row ``end`` see the
+    unrounded pair, as K5 (``lbfgs_tpu/ops/fused.py:_pair_gram_kernel``)
+    holds it in registers."""
     pair_gram_sd_ref.calls += 1
-    return pair_gram_ref(stp * d, gx - gp, gx, S, Y, end)
+    end = _check_pair(d, gx, gp, S, Y, end)
+    return pair_products(float(stp) * d, gx - gp, -gx, S, Y, end,
+                         gp=gp if with_gp else None)
 
 
 pair_gram_sd_ref.calls = 0
 
 
-def pair_products(s, y, d0, S, Y, end: int):
-    """SP = S . [y, s, d0] and YP = Y . [y, s, d0] ([m, 3]) over the rings
-    with row ``end`` replaced by the new pair UNROUNDED (the one-pass
-    kernels hold it in registers), then the pair stored into ring row
-    ``end``, rounded to the history dtype.  Shared by the plain versions
-    of the one-pass epilogues."""
-    Z = torch.stack([y, s, d0], dim=1)
-    SP = S.to(s.dtype) @ Z
-    YP = Y.to(s.dtype) @ Z
-    SP[end] = torch.stack([s @ y, s @ s, s @ d0])
-    YP[end] = torch.stack([y @ y, y @ s, y @ d0])
-    S[end] = s.to(S.dtype)
-    Y[end] = y.to(Y.dtype)
-    return SP, YP
+def pair_gram_sd(stp, d, gx, gp, S, Y, end: int, with_gp: bool = False):
+    """The correction pair of the projection-free step (s = stp*d exactly,
+    src/core.rs:155-164, and y = gx - gp) written into ring row ``end`` of
+    S and Y in place, rounded to the history dtype, and SP = S . [y, s,
+    -gx], YP = Y . [y, s, -gx] over the updated rings ([m, 3]), with the
+    new row's products from the unrounded pair.  ``with_gp`` adds the
+    damped update's basis column . gp ([m, 4]); columns 0-2 stay those of
+    the 3-column launch bit for bit.  ``stp`` is a host scalar.  The
+    trial's ``changed`` count, not this pass, decides "x not changed"."""
+    end = _check_pair(d, gx, gp, S, Y, end)
+    if not on_cuda(d, "pair_gram_sd"):
+        return pair_gram_sd_ref(stp, d, gx, gp, S, Y, end, with_gp)
+    m, n = S.shape
+    check_contiguous("pair_gram_sd", d, gx, gp, S, Y)
+    lib = _build.load_library()
+    blocks = -(-n // lib.lbfgs_pair_gram_block_elems())
+    part = torch.empty((blocks, 6 * m), dtype=d.dtype, device=d.device)
+    gpart = torch.empty((blocks, 2 * m), dtype=d.dtype, device=d.device) if with_gp \
+        else part
+    fn = getattr(lib, f"lbfgs_pair_gram_{_SUFFIX[d.dtype]}_{_SUFFIX[S.dtype]}")
+    code = fn(float(stp), d.data_ptr(), gx.data_ptr(), gp.data_ptr(), S.data_ptr(),
+              Y.data_ptr(), part.data_ptr(), gpart.data_ptr(), n, m, end, int(with_gp),
+              torch.cuda.current_stream(d.device).cuda_stream)
+    _build.check_launch(code, "pair_gram_sd")
+    pair_gram_sd.launches += 1
+    P = reduce_partials(part).reshape(m, 6)
+    if with_gp:
+        return append_gp(P[:, :3], P[:, 3:], reduce_partials(gpart))
+    return P[:, :3], P[:, 3:]
+
+
+pair_gram_sd.launches = 0
 
 
 def pair_gram_xg_ref(x, xp, gx, gp, pg, S, Y, end: int):

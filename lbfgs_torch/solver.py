@@ -20,13 +20,24 @@ run's device; the line search and the control decisions run on the host
 An objective without the one-pass epilogue takes the composed branch:
 the search materializes each trial, and under OWL-QN the pseudo-gradient
 (K10) and the pair update (a plain stand-in) follow as separate passes.
+A fused-trial objective without the epilogue takes K5 for the pair.
 
-The damped update and the literal scan two-loop are not ported yet;
-``init_state`` raises ``NotImplementedError`` for them.
+Powell damping (``src/lbfgs.rs:658-691``) runs on every branch the JAX
+package has.  On the fused branches (K4 or K5 with the . gp column, K14
+with it under OWL-QN) the damped pair is y_d = a*y + b*gp with scalars
+(a, b) from global sums only, so every post-damping Gram quantity is
+[m]-scalar algebra on the 4-column basis, on the device, and the damped
+ring row is persisted by K6 inside the combine (under OWL-QN by a plain
+row blend before K13).  Generic objectives take the composed
+``update_pair``.  Stored ys and gamma stay pre-damping everywhere.
+
+The literal scan two-loop is not ported yet; ``init_state`` raises
+``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -49,6 +60,7 @@ from .ops import fused
 from .params import LbfgsParams
 from .status import Status
 
+logger = logging.getLogger("lbfgs_torch")
 
 # ---------------------------------------------------------------------------
 # Two-loop recursion, compact form
@@ -73,6 +85,8 @@ def two_loop_compact(
     combine=fused.combine,
     ow_window: Optional[tuple] = None,
     combine_ow=fused.combine_ow,
+    row_fix: Optional[tuple] = None,
+    combine_fix=fused.combine_fix,
 ):
     """Byrd-Nocedal-Schnabel compact two-loop.
 
@@ -102,6 +116,13 @@ def two_loop_compact(
     is then the constrained direction, r.r stays the norm BEFORE the
     constraint (the reference's dnorm) and the fourth value is the pair
     (||rc||^2, rc . pg).
+
+    ``row_fix`` = (end, ca, cb) (the plain damped branch, ``neg=True``):
+    ring row ``end`` of Y still holds the PRE-damping y, and the damped
+    row is ca*Y[end] + cb*d.  Its coefficient is split exactly, cy[end]*ca
+    on the stored row and cy[end]*cb added to the combine's gamma, and the
+    combine is ``combine_fix`` (K6), which also persists the damped row
+    into Y in place (``lbfgs_tpu/solver.py:317-339``).
     """
     m = hist.s.shape[0]
     if Sd_ring is None:
@@ -140,6 +161,15 @@ def two_loop_compact(
         r, rr, rc2, rcd = combine_ow(d, hist.s, hist.y, gamma_eff, coef_s, coef_y,
                                      *ow_window)
         rd = (rc2, rcd)
+    elif row_fix is not None:
+        if not neg:
+            raise ValueError("row_fix needs the sign-folded two-loop (neg=True)")
+        fix_end, ca, cb = row_fix
+        cy_end = coef_y[fix_end].clone()
+        gamma_eff = gamma_eff + cy_end * cb
+        coef_y[fix_end] = cy_end * ca
+        r, rr, rd = combine_fix(d, hist.s, hist.y, gamma_eff, coef_s, coef_y,
+                                fix_end, ca, cb)
     else:
         r, rr, rd = combine(d, hist.s, hist.y, gamma_eff, coef_s, coef_y)
     alpha_ring = hist.alpha.clone()
@@ -148,8 +178,11 @@ def two_loop_compact(
 
 
 # ---------------------------------------------------------------------------
-# Correction-pair update (undamped)
+# Correction-pair update (+ Powell/Al-Baali damping)
 # ---------------------------------------------------------------------------
+
+#: Powell damping's sigma2 and sigma3 (src/lbfgs.rs:662-663)
+SIGMA2, SIGMA3 = 0.6, 3.0
 
 
 class PairUpdate(NamedTuple):
@@ -158,26 +191,101 @@ class PairUpdate(NamedTuple):
     ys: torch.Tensor
     gamma: torch.Tensor
     status: int
+    #: damping case: 0 none, 1, 2 (case 2 counts even where the literal
+    #: reference drops its write-back)
+    case: int = 0
 
 
-def update_pair(params: LbfgsParams, x, xp, gx, gp) -> PairUpdate:
+def _log_damping(case: int) -> None:
+    """The reference's damping traces (src/lbfgs.rs:667, 676-687)."""
+    if case and logger.isEnabledFor(logging.DEBUG):
+        logger.debug("Applying Powell damping, sigma2 = %s, sigma3 = %s", SIGMA2, SIGMA3)
+        logger.debug("damping case%d", case)
+
+
+def update_pair(params: LbfgsParams, x, xp, gx, gp, step=None) -> PairUpdate:
     """The new correction pair (reference ``IterationData::update``,
-    ``src/lbfgs.rs:640-656``), undamped.  Reads (s.s, y.y) to the host
-    for the reference's two fatal checks."""
-    if params.damping:
-        raise NotImplementedError("with_damping(True) (Powell damping)")
+    ``src/lbfgs.rs:640-692``) with the literal damping semantics:
+    B s ~ -step*gp; case 1 (ys < (1 - sigma2) sbs) blends y toward it;
+    case 2 (ys > (1 + sigma3) sbs) is computed and stored only under
+    ``damping_fixed`` (the reference drops it); ys and gamma stay
+    pre-damping.  ``step`` (a host scalar, the reported step) is needed
+    under damping only.  Reads (s.s, y.y) and the damping case to the
+    host in one transfer, for the reference's two fatal checks."""
     s = x - xp
     y = gx - gp
     ys, ss, yy = torch.dot(y, s), torch.dot(s, s), torch.dot(y, y)
-    ss_h, yy_h = to_host(ss, yy)
+    # gamma = ys / yy from the PRE-damping pair (src/lbfgs.rs:653-656)
+    gamma = ys / torch.where(yy == 0.0, torch.ones_like(yy), yy)
+    case = 0
+    if params.damping:
+        if step is None:
+            raise ValueError("the damped update needs the step")
+        bs = -float(step) * gp
+        sbs = torch.dot(s, bs)
+        case1 = ys < (1.0 - SIGMA2) * sbs
+        case2 = ~case1 & (ys > (1.0 + SIGMA3) * sbs)
+        ss_h, yy_h, case = to_host(
+            ss, yy, torch.where(case1, 1.0, torch.where(case2, 2.0, 0.0)))
+        case = int(case)
+        _log_damping(case)
+        if case == 1:
+            # no guard on the denominator here, as in the JAX package
+            theta = SIGMA2 * sbs / (sbs - ys)
+            y = (1.0 - theta) * bs + theta * y
+        elif case == 2 and params.damping_fixed:
+            theta = SIGMA3 * sbs / (ys - sbs)
+            y = (1.0 - theta) * bs + theta * y
+    else:
+        ss_h, yy_h = to_host(ss, yy)
     status = 0
     if ss_h == 0.0:
         status = int(Status.ERR_X_NOT_CHANGED)
     elif yy_h == 0.0:
         status = int(Status.ERR_G_NOT_CHANGED)
-    # gamma = ys / yy (src/lbfgs.rs:653-656)
-    gamma = ys / torch.where(yy == 0.0, torch.ones_like(yy), yy)
-    return PairUpdate(s=s, y=y, ys=ys, gamma=gamma, status=status)
+    return PairUpdate(s=s, y=y, ys=ys, gamma=gamma, status=status, case=case)
+
+
+def _damped_gram(params: LbfgsParams, SP, YP, end: int, stp_d, gpgp, gp_d0):
+    """The post-damping Gram quantities of the fused branches from the
+    4-column basis SP = S.[y, s, d0, gp], YP = Y.[y, s, d0, gp] of the
+    PRE-damping pair (``lbfgs_tpu/solver.py:704-771, 772-823``).  The
+    damped pair is y_d = a*y + b*gp, with (a, b) from ys = s.y and sbs =
+    s.(-stp_d*gp) alone, so every product with y_d is linear in the basis
+    except y_d.y_d = a^2 yy + 2ab y.gp + b^2 gp.gp.  ``gpgp`` is gp.gp and
+    ``gp_d0`` gp.d0.  [m]-scalar torch ops on the device: no host read.
+    Returns (u, v, w, Yd_ring, a, b, case), case a 0-d tensor (0, 1, 2)."""
+    m = SP.shape[0]
+    stp_d = float(stp_d)
+    ys_raw, yy_raw = SP[end, 0], YP[end, 0]
+    sgp, ygp = SP[end, 3], YP[end, 3]
+    sbs = -stp_d * sgp
+    case1 = ys_raw < (1.0 - SIGMA2) * sbs
+    case2 = ~case1 & (ys_raw > (1.0 + SIGMA3) * sbs)
+    den1 = sbs - ys_raw
+    theta1 = SIGMA2 * sbs / torch.where(den1 == 0.0, 1.0, den1)
+    if params.damping_fixed:
+        den2 = ys_raw - sbs
+        theta2 = SIGMA3 * sbs / torch.where(den2 == 0.0, 1.0, den2)
+        theta = torch.where(case1, theta1, torch.where(case2, theta2, 1.0))
+        apply = case1 | case2
+    else:
+        # the literal case 2: computed (and counted), never stored
+        theta = torch.where(case1, theta1, 1.0)
+        apply = case1
+    a = torch.where(apply, theta, 1.0)
+    b = torch.where(apply, -(1.0 - theta) * stp_d, 0.0)
+    ridx = torch.arange(m, device=SP.device)
+    # S . y_d (row end is s . y_d, the same linear form)
+    u = a * SP[:, 0] + b * SP[:, 3]
+    # Y . s: the old rows are damped already; row end is y_d . s = s . y_d
+    w = torch.where(ridx == end, u[end], YP[:, 1])
+    # Y . y_d: linear for the old rows; row end the quadratic form
+    ydyd = a * a * yy_raw + 2.0 * a * b * ygp + b * b * gpgp
+    v = torch.where(ridx == end, ydyd, a * YP[:, 0] + b * YP[:, 3])
+    Yd_ring = torch.where(ridx == end, a * YP[end, 2] + b * gp_d0, YP[:, 2])
+    case = torch.where(case1, 1.0, torch.where(case2, 2.0, 0.0)).to(SP.dtype)
+    return u, v, w, Yd_ring, a, b, case
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +308,7 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
     m = params.m
     lean = prob.xp is None
     ow = pdef.orthantwise
+    damping = params.damping
     vag = pdef.value_and_grad
     hist = st.hist
     end = st.end
@@ -213,48 +322,60 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
     mega_ok = getattr(vag, prefix + "_ok__", None)
     use_mega = mega_fn is not None and mega_ok is not None and mega_ok(xp, hist.s)
     combine = getattr(vag, "__lbfgs_combine__", fused.combine)
+    combine_fix = getattr(vag, "__lbfgs_combine_fix__", fused.combine_fix)
     combine_ow = getattr(vag, "__lbfgs_combine_ow__", fused.combine_ow)
 
     ls = ls_find(pdef, params.linesearch, xp, prob.fx, gp, prob.d, st.step,
                  prob.neval, dginit=st.dg0, materialize=not use_mega, pgp=prob.pg)
     ls_failed = ls.status != 0
+    step_ls = st.step if ls_failed else ls.step
 
-    pg = pgpg = None
+    pg = pgpg = pu = gp_scalars = None
     if use_mega and ow:
         # one pass: the accepted projected point, its gradient and
         # pseudo-gradient, the pair (x - xp, g - gp) written into ring row
         # `end` and all 6m products against (y, s, -pg); in the lean state
-        # x, g and pg overwrite xp, gp and the previous pg in place
+        # x, g and pg overwrite xp, gp and the previous pg in place.
+        # Damped: also the . gp column, gp.gp and gp.pg (K14 with_gp)
         lo, hi = pdef.owlqn.start_end(xp.shape[0])
-        (x, gx, pg, SP, YP, ls_xx, pgpg, ls_changed) = mega_fn(
+        (x, gx, pg, SP, YP, ls_xx, pgpg, ls_changed, *gp_scalars) = mega_fn(
             xp, prob.d, gp, prob.pg, ls.step_eval, pdef.owlqn.c, lo, hi,
-            hist.s, hist.y, end, inplace=lean,
+            hist.s, hist.y, end, inplace=lean, with_gp=damping,
         )
     elif use_mega:
         # one pass: the accepted (x, g), the pair written into ring row
-        # `end` and all 6m Gram products; in the lean state x and g
-        # overwrite xp and gp in place
+        # `end` and all 6m Gram products (8m damped: K4 with_gp); in the
+        # lean state x and g overwrite xp and gp in place
         (x, _fx, gx, _dg, ls_gg, ls_xx, ls_changed, SP, YP) = mega_fn(
             xp, prob.d, gp, ls.step_eval, hist.s, hist.y, end, inplace=lean,
+            with_gp=damping,
         )
     else:
         x, gx = ls.x, ls.gx
         ls_gg, ls_xx, ls_changed = ls.gg, ls.xx, ls.changed
         if ow:
-            # composed OWL-QN branch: pseudo-gradient and its norm (K10),
-            # then the pair of the projected step, s = x - xp, with d0 = -pg
-            # (the kernel form, K12, is not ported yet)
+            # pseudo-gradient and its norm (K10)
             pg, pgpg = pseudo_gradient_and_norm(pdef, x, gx)
+        if damping and ls_changed is None:
+            # composed damped branch (generic objectives, plain or OWL-QN;
+            # lbfgs_tpu/solver.py:847-869): the damped pair, stored, then
+            # the Gram products of the STORED pair with d0 = -g (-pg)
+            pu = update_pair(params, x, xp, gx, gp, step_ls)
+            SP, YP = fused.pair_gram_ref(pu.s, pu.y, pg if ow else gx,
+                                         hist.s, hist.y, end)
+        elif ow:
+            # composed OWL-QN branch: the pair of the projected step,
+            # s = x - xp, with d0 = -pg (the kernel form, K12, is not
+            # ported yet)
             SP, YP = fused.pair_gram_xg_ref(x, xp, gx, gp, pg, hist.s, hist.y, end)
         elif ls_changed is not None:
-            # fused trial but no one-pass epilogue: composed pair + Gram
-            # from s = stp*d (the kernel form, K5, is not ported yet)
-            SP, YP = fused.pair_gram_sd_ref(
-                float(ls.step_eval), prob.d, gx, gp, hist.s, hist.y, end)
+            # fused trial but no one-pass epilogue: K5 from s = stp*d
+            # (with the . gp column when damped)
+            SP, YP = fused.pair_gram_sd(ls.step_eval, prob.d, gx, gp, hist.s, hist.y,
+                                        end, with_gp=damping)
         else:
             SP, YP = fused.pair_gram_ref(x - xp, gx - gp, gx, hist.s, hist.y, end)
     fx = ls.fx
-    step_ls = st.step if ls_failed else ls.step
 
     u = SP[:, 0]         # S . y_new
     v = YP[:, 0]         # Y . y_new
@@ -262,16 +383,40 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
     Sd_ring = SP[:, 2]   # S . d0
     Yd_ring = YP[:, 2]   # Y . d0
     ss_new, ys_new, yy_new = SP[end, 1], SP[end, 0], YP[end, 0]
+    row_fix = case = None
+    if damping and pu is None:
+        # the fused reconstructions (lbfgs_tpu/solver.py:704-823): the
+        # plain one with the search's evaluated step and the carried
+        # ||gp||^2, gp.d0 = -(y.gp + gp.gp); the OWL-QN one with the
+        # reported step and K14's own gp.gp and gp.pg_new (the carried
+        # norm is ||pg_prev||^2 there), gp.d0 = -gp.pg_new
+        if ow:
+            gpgp, gppg = gp_scalars
+            u, v, w, Yd_ring, a, b, case = _damped_gram(
+                params, SP, YP, end, step_ls, gpgp, -gppg)
+            # persist the damped row from the NEW gradient (gp is gone in
+            # the lean state): a*y + b*gp = (a - b)*y + b*gx
+            hist.y[end] = ((a - b) * hist.y[end].to(gx.dtype) + b * gx).to(hist.y.dtype)
+        else:
+            gpgp = float(prob.gnorm2)
+            u, v, w, Yd_ring, a, b, case = _damped_gram(
+                params, SP, YP, end, ls.step_eval, gpgp, -(YP[end, 3] + gpgp))
+            # the same row, persisted by the combine (K6)
+            row_fix = (end, a - b, b)
     sy = hist.sy.clone()
     sy[:, end] = u
     sy[end, :] = w
     yy = hist.yy.clone()
     yy[:, end] = v
     yy[end, :] = v
+    if pu is not None:
+        # composed: ys and gamma from update_pair, pre-damping
+        ys_new, gamma = pu.ys, pu.gamma
+    else:
+        # gamma = ys/yy of the new pair, pre-damping (src/lbfgs.rs:653-656)
+        gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
     ys = hist.ys.clone()
     ys[end] = ys_new
-    # gamma = ys/yy of the new pair (src/lbfgs.rs:653-656)
-    gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
     hist = History(s=hist.s, y=hist.y, ys=ys, alpha=hist.alpha, sy=sy, yy=yy)
 
     # two-loop (src/lbfgs.rs:538-540) on d0 = -g (-pg under OWL-QN), the
@@ -282,27 +427,41 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
         hist, pg if ow else gx, gamma, bound, end, Sd_ring, Yd_ring, neg=True,
         combine=combine, combine_ow=combine_ow,
         ow_window=pdef.owlqn.start_end(xp.shape[0]) if ow else None,
+        row_fix=row_fix, combine_fix=combine_fix,
     )
     hist = hist._replace(alpha=alpha_ring)
 
-    # the one read of the iteration: what the host decides on next.
-    # Generic objectives carry no `changed` count: the reference's
-    # s.s == 0 test decides then (src/lbfgs.rs:646)
+    # the one read of the iteration: what the host decides on next, the
+    # fused branches' damping case included.  Generic objectives carry
+    # no `changed` count: the reference's s.s == 0 test decides then
+    # (src/lbfgs.rs:646)
     if ls_changed is None:
         ls_changed = ss_new != 0.0
     # under OWL-QN the combine's fourth value is (||rc||^2, rc . pg)
     rc2, rd = rd if ow else (None, rd)
-    scalars = [yy_new, dd, rd, ls_changed] + ([rc2] if ow else [])
+    extra = ([rc2] if ow else []) + ([case] if case is not None else [])
+    scalars = [yy_new, dd, rd, ls_changed] + extra
     if ls_failed:
         gnorm2, xnorm2 = prob.gnorm2, prob.xnorm2
-        yy_h, dd_h, dg0, changed, *rc2_h = to_host(*scalars)
+        yy_h, dd_h, dg0, changed, *extra_h = to_host(*scalars)
     else:
-        gnorm2, xnorm2, yy_h, dd_h, dg0, changed, *rc2_h = to_host(
+        gnorm2, xnorm2, yy_h, dd_h, dg0, changed, *extra_h = to_host(
             pgpg if ow else ls_gg, ls_xx, *scalars)
+    rc2_h = extra_h[0] if ow else None
+    if case is not None:
+        case = int(extra_h[-1])
+        _log_damping(case)
+    elif pu is not None:
+        case = pu.case
 
     # status: the reference's s == 0 "x not changed" test
-    # (src/lbfgs.rs:646) is decided by the trial's exact `changed` count
-    if ls_failed or not changed:
+    # (src/lbfgs.rs:646) is decided by the trial's exact `changed` count,
+    # or on the composed damped branch by update_pair's own read
+    if ls_failed:
+        status = int(Status.ERR_X_NOT_CHANGED)
+    elif pu is not None:
+        status = pu.status
+    elif not changed:
         status = int(Status.ERR_X_NOT_CHANGED)
     elif yy_h == 0.0:
         status = int(Status.ERR_G_NOT_CHANGED)
@@ -315,7 +474,7 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
         status = int(Status.ERR_INVALID_DNORM)
     # OWL-QN: the constrained direction must not vanish (the reference's
     # assertion in constrain_search_direction, src/orthantwise.rs:140-161)
-    if status == 0 and ow and rc2_h[0] == 0.0:
+    if status == 0 and ow and rc2_h == 0.0:
         status = int(Status.ERR_OWLQN_ZERO_DIRECTION)
 
     # next-iteration step size (src/lbfgs.rs:547-551), from the norm
@@ -335,10 +494,13 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
         xp=None if lean else xp, gp=None if lean else gp, pg=pg,
         d=d, neval=ls.neval, gnorm2=gnorm2, xnorm2=xnorm2,
     )
+    cases = st.damping_cases
+    if case is not None:
+        cases = tuple(c + (i == case) for i, c in enumerate(cases))
     return SolverState(
         prob=prob_new, hist=hist, end=(end + 1) % m, step=f(step_next),
         step_ls=step_ls, k=st.k, ncall=ls.ncall, status=status,
-        ls_status=ls.status, pf=st.pf, dg0=dg0,
+        ls_status=ls.status, pf=st.pf, dg0=dg0, damping_cases=cases,
     )
 
 
@@ -384,10 +546,9 @@ def start_state(st: SolverState, params: Optional[LbfgsParams] = None) -> Solver
 
 def check_supported(params: LbfgsParams) -> None:
     """Raise ``NotImplementedError`` naming any setting this package does
-    not run yet.  Damping covers damped OWL-QN and gradient_only too."""
+    not run yet."""
     ls = params.linesearch
     missing = [
-        (params.damping, "with_damping(True) (Powell damping; also gradient_only)"),
         (not params.compact_two_loop, "compact_two_loop=False (scan two-loop)"),
         (params.fx_wide, "fx_wide (wide objective scalar)"),
         (int(ls.speculative) > 1, "speculative line search"),

@@ -109,12 +109,14 @@ def test_progress_cancellation_gives_status_4():
     assert calls == [1] and rep.niter == 1
 
 
-#: OWL-QN and the backtracking searches run; what of them still raises is
-#: damped OWL-QN and the speculative (K-way) backtracking search
+#: OWL-QN, the backtracking searches, damping (damped OWL-QN included) and
+#: gradient_only run; what of them still raises is each with a setting not
+#: ported yet: the wide fx mode, the scan two-loop, the speculative
+#: (K-way) backtracking search
 UNPORTED = {
-    "orthantwise": lambda b: b.with_orthantwise(1.0, 0, 99).with_damping(True),
-    "damping": lambda b: b.with_damping(True),
-    "gradient_only": lambda b: b.with_gradient_only(),
+    "orthantwise": lambda b: b.with_orthantwise(1.0, 0, 99).with_damping(True).with_fx_wide(),
+    "damping": lambda b: b.with_damping(True).with_compact_two_loop(False),
+    "gradient_only": lambda b: b.with_gradient_only().with_speculative_linesearch(2),
     "backtracking": lambda b: (b.with_linesearch_algorithm("BacktrackingWolfe")
                                .with_speculative_linesearch(2)),
     "scan_two_loop": lambda b: b.with_compact_two_loop(False),
@@ -161,7 +163,8 @@ def test_gradient_only_with_more_thuente_is_a_value_error():
 def test_import_leaves_out_jax_and_triton():
     code = (
         "import sys, lbfgs_torch, lbfgs_torch.minimize, lbfgs_torch.interop, "
-        "lbfgs_torch.models.rosenbrock, lbfgs_torch.ops.fused, "
+        "lbfgs_torch.models.rosenbrock, lbfgs_torch.models.lennard_jones, "
+        "lbfgs_torch.ops.fused, "
         "lbfgs_torch.ops.factory, lbfgs_torch.ops._build; "
         "bad = [m for m in ('jax', 'triton') if m in sys.modules]; "
         "assert not bad, bad"

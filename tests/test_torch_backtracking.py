@@ -50,6 +50,9 @@ OBJECTIVES = {
     # +x0, searched with a claimed dginit of -1: Armijo fails on every trip
     "up": (lambda x: (x[0], torch.zeros_like(x).index_fill(0, torch.tensor([0]), 1.0)),
            lambda x: (x[0], jnp.zeros_like(x).at[0].set(1.0))),
+    # +x0 with a zero gradient reported: Armijo fails, g.d = 0 everywhere
+    "blind": (lambda x: (x[0], torch.zeros_like(x)),
+              lambda x: (x[0], jnp.zeros_like(x))),
 }
 E0 = np.eye(4)[0]
 #: case: (objective, d, stp0, dginit or None for g.d, line-search settings)
@@ -61,6 +64,10 @@ CASES = {
     "max_step": ("down", E0, 1.0, None, dict(max_step=10.0)),
     "exhausted": ("up", E0, 1.0, -1.0, dict(max_linesearch=5)),
     "gradient_only": ("down", E0, 1.0, None, dict(max_step=10.0, gradient_only=True)),
+    # the literal gradient-only exit |dg| <= -gtol*|dginit| accepts only
+    # when dginit = 0 (src/line.rs:768-774): here it accepts a trial that
+    # every ladder's own test rejects
+    "gradient_only_quirk": ("blind", E0, 1.0, 0.0, dict(gradient_only=True)),
 }
 
 
@@ -109,6 +116,10 @@ def test_backtracking_exits_are_the_reference_codes():
     # strong Wolfe shrinks where the slope turned too far up
     assert _run_both("curvature_high", "BacktrackingStrongWolfe")[0].step == 0.24
     assert _run_both("curvature_high", "BacktrackingWolfe")[0].step == 0.48
+    # the gradient-only quirk takes the first trial although Armijo fails
+    for algorithm in LADDERS:
+        r = _run_both("gradient_only_quirk", algorithm)[0]
+        assert (r.status, r.ncall, r.step) == (0, 1, 1.0)
 
 
 @pytest.mark.parametrize("algorithm", LADDERS)

@@ -1,5 +1,6 @@
-"""K1-K4 and OWL-QN's K8, K10, K13 and K14 of the PyTorch port against
-the JAX package's Pallas kernels.
+"""K1-K4, OWL-QN's K8, K10, K13 and K14, and the damped path's K5, K6 and
+the . gp columns of K4 and K14 of the PyTorch port against the JAX
+package's Pallas kernels.
 
 On the CPU each wrapper runs its kernel's plain version; here those plain
 versions meet the TPU kernels run through the Pallas interpreter on the
@@ -7,8 +8,9 @@ same inputs (n = 2^14, m = 6, f32 vectors, bf16 history), made from a
 seed with numpy.  Tolerances: rel 1e-5 on vectors (the same f32
 elementwise arithmetic), rel 1e-4 on the reductions (the sums run in
 another order); ring rows within one bf16 ulp of the JAX kernel's and bit
-for bit the port's own rounding.  The OWL-QN window's ends fall inside
-the 128-lane rows.  The cases marked ``cuda`` hold each hand-written
+for bit the port's own rounding; with the . gp column, columns 0-2 and
+every other output bit for bit those of the 3-column form.  The OWL-QN
+window's ends fall inside the 128-lane rows.  The cases marked ``cuda`` hold each hand-written
 kernel to its plain version on the card and skip without one.
 """
 
@@ -237,6 +239,147 @@ def test_k14_inplace_overwrites_previous_point(data):
         assert torch.equal(a, b)
 
 
+# ---------------------------------------------------------------------------
+# the damped path: K5, K6, and the . gp columns of K4 and K14
+# ---------------------------------------------------------------------------
+
+
+def _assert_row_near_jax(ring, jax_ring):
+    """Ring row END within one bf16 ulp of the JAX kernel's."""
+    jr = torch.from_numpy(np.asarray(jax_ring).astype(np.float32).reshape(M, N))
+    assert int(_bf16_ulps(ring[END], jr[END].to(torch.bfloat16)).max()) <= 1
+
+
+@pytest.mark.parametrize("with_gp", [False, True], ids=["3col", "4col"])
+def test_k5_pair_gram_matches_pallas(data, with_gp):
+    S, Y = _t(data["S"], torch.bfloat16), _t(data["Y"], torch.bfloat16)
+    d, gx, gp = _t(data["d"]), _t(data["xp"]), _t(data["gp"])
+    SP, YP = t_fused.pair_gram_sd(np.float32(STP), d, gx, gp, S, Y, END, with_gp=with_gp)
+    j = j_fused.pair_gram_update_pallas(
+        STP, jnp.asarray(data["d"]), jnp.asarray(data["xp"]), jnp.asarray(data["gp"]),
+        _ring(data["S"]), _ring(data["Y"]), END, interpret=True, with_gp=with_gp)
+    assert SP.shape == YP.shape == (M, 4 if with_gp else 3)
+    _close(SP, j[2], SUM)
+    _close(YP, j[3], SUM)
+    # ring row `end`: one bf16 ulp of the JAX kernel's, bit for bit the
+    # port's own rounding of (stp*d, gx - gp); the other rows kept
+    _assert_row_near_jax(S, j[0])
+    _assert_row_near_jax(Y, j[1])
+    _assert_ring_write(S, Y, _t(data["S"], torch.bfloat16), _t(data["Y"], torch.bfloat16),
+                       float(np.float32(STP)) * d, gx - gp)
+
+
+def test_k5_plain_version_uses_the_unrounded_pair(data):
+    """At a bf16 history the plain K5 is ``pair_products`` of the
+    unrounded pair bit for bit, as the kernel holds it in registers; the
+    old stand-in, whose products saw the stored (rounded) row, differs."""
+    S0, Y0 = _t(data["S"], torch.bfloat16), _t(data["Y"], torch.bfloat16)
+    d, gx, gp = _t(data["d"]), _t(data["xp"]), _t(data["gp"])
+    stp = float(np.float32(STP))
+    out = t_fused.pair_gram_sd_ref(stp, d, gx, gp, S0.clone(), Y0.clone(), END)
+    want = t_fused.pair_products(stp * d, gx - gp, -gx, S0.clone(), Y0.clone(), END)
+    old = t_fused.pair_gram_ref(stp * d, gx - gp, gx, S0.clone(), Y0.clone(), END)
+    for a, b in zip(out, want):
+        assert _same_bits(a, b)
+    assert not torch.equal(out[0][END], old[0][END])
+    assert not torch.equal(out[1][END], old[1][END])
+    # rows other than `end` see the same stored rings either way
+    keep = [j for j in range(M) if j != END]
+    assert torch.equal(out[0][keep], old[0][keep])
+
+
+@pytest.mark.parametrize("kernel", ["pair_gram_sd", "trial_pair_gram",
+                                    "owlqn_trial_pair_gram"])
+def test_with_gp_columns_extend_the_base_form(data, kernel):
+    """Columns 0-2 and every other output of the . gp form equal the
+    3-column form bit for bit (tests/test_damped_fused.py:52-67)."""
+    S0, Y0 = _t(data["S"], torch.bfloat16), _t(data["Y"], torch.bfloat16)
+    d, gp, pg = _t(data["d"]), _t(data["gp"]), _t(data["pg"])
+
+    def run(with_gp):
+        S, Y = S0.clone(), Y0.clone()
+        if kernel == "pair_gram_sd":
+            out = t_fused.pair_gram_sd(np.float32(STP), d, _t(data["xp"]), gp, S, Y, END,
+                                       with_gp=with_gp)
+        elif kernel == "trial_pair_gram":
+            out = t_rosen.trial_pair_gram(_t(data["xp"]), d, gp, np.float32(STP), S, Y, END,
+                                          with_gp=with_gp)
+        else:
+            out = t_rosen.owlqn_trial_pair_gram(_t(data["xp0"]), d, gp, pg, np.float32(STP),
+                                                C, LO, HI, S, Y, END, with_gp=with_gp)
+        return list(out), S, Y
+
+    base, S3, Y3 = run(False)
+    ext, S4, Y4 = run(True)
+    assert _same_bits(S3, S4) and _same_bits(Y3, Y4)
+    sp = {"pair_gram_sd": 0, "trial_pair_gram": 7, "owlqn_trial_pair_gram": 3}[kernel]
+    for i, (a, b) in enumerate(zip(base, ext)):
+        if i in (sp, sp + 1):
+            assert b.shape == (M, 4)
+            b = b[:, :3].contiguous()
+        assert _same_bits(a.reshape(-1), b.reshape(-1)), i
+    assert len(ext) == len(base) + (2 if kernel == "owlqn_trial_pair_gram" else 0)
+
+
+def test_k4_with_gp_matches_pallas(data):
+    S, Y = _t(data["S"], torch.bfloat16), _t(data["Y"], torch.bfloat16)
+    t = t_rosen.trial_pair_gram(_t(data["xp"]), _t(data["d"]), _t(data["gp"]),
+                                np.float32(STP), S, Y, END, with_gp=True)
+    j = j_rosen.trial_pair_gram_pallas(
+        jnp.asarray(data["xp"]), jnp.asarray(data["d"]), jnp.asarray(data["gp"]),
+        STP, _ring(data["S"]), _ring(data["Y"]), END, interpret=True, with_gp=True)
+    _close(t[0], j[0], VEC)
+    _close(t[2], j[2], VEC)
+    for i in (1, 3, 4, 5):
+        _close(t[i], j[i], SUM)
+    _close(t[7], j[9], SUM)       # SP, YP [m, 4]
+    _close(t[8], j[10], SUM)
+    _assert_row_near_jax(S, j[7])
+    _assert_row_near_jax(Y, j[8])
+
+
+def test_k14_with_gp_matches_pallas(data):
+    S, Y = _t(data["S"], torch.bfloat16), _t(data["Y"], torch.bfloat16)
+    xp, d, gp, pg = (_t(data[k]) for k in ("xp0", "d", "gp", "pg"))
+    t = t_rosen.owlqn_trial_pair_gram(xp, d, gp, pg, np.float32(STP), C, LO, HI,
+                                      S, Y, END, with_gp=True)
+    j = j_rosen.owlqn_trial_pair_gram_pallas(
+        *(jnp.asarray(data[k]) for k in ("xp0", "d", "gp", "pg")), STP, C, LO, HI,
+        _ring(data["S"]), _ring(data["Y"]), END, interpret=True, with_gp=True)
+    for i in (0, 1, 2):          # x, g, pg_new
+        _close(t[i], j[i], VEC)
+    _close(t[3], j[5], SUM)      # SP, YP [m, 4]
+    _close(t[4], j[6], SUM)
+    for i, ji in ((5, 7), (6, 8), (8, 10), (9, 11)):   # x.x, pg.pg, gp.gp, gp.pg
+        _close(t[i], j[ji], SUM)
+    assert bool(t[7]) == bool(j[9])
+    _assert_row_near_jax(S, j[3])
+    _assert_row_near_jax(Y, j[4])
+
+
+def test_k6_combine_fix_matches_pallas(data):
+    S, Y = _t(data["S"], torch.bfloat16), _t(data["Y"], torch.bfloat16)
+    Y0 = Y.clone()
+    ca, cb = torch.tensor(0.7), torch.tensor(-0.2)
+    g = _t(data["gp"])
+    t = t_fused.combine_fix(g, S, Y, torch.tensor(-0.4), _t(data["cs"]), _t(data["cy"]),
+                            END, ca, cb)
+    j = j_fused.combine_fix_pallas(jnp.asarray(data["gp"]), _ring(data["S"]),
+                                   _ring(data["Y"]), -0.4, jnp.asarray(data["cs"]),
+                                   jnp.asarray(data["cy"]), END, 0.7, -0.2, interpret=True)
+    _close(t[0], j[0], VEC)      # r over the rings BEFORE the fix
+    _close(t[1], j[1], SUM)
+    _close(t[2], j[2], SUM)
+    # the fixed row: one bf16 ulp of the JAX kernel's, bit for bit the
+    # port's own round(ca*Y[end] + cb*g); the other rows untouched
+    _assert_row_near_jax(Y, j[3])
+    want = (ca * Y0[END].float() + cb * g).to(torch.bfloat16)
+    assert _same_bits(Y[END], want)
+    keep = [i for i in range(M) if i != END]
+    assert _same_bits(Y[keep], Y0[keep])
+    assert _same_bits(S, _t(data["S"], torch.bfloat16))
+
+
 def test_plain_versions_are_counted_and_kernels_are_not_on_cpu(data):
     before = (t_rosen.probe_ref.calls, t_rosen.probe.launches)
     t_rosen.probe(_t(data["xp"]), _t(data["d"]), np.float32(STP))
@@ -291,12 +434,41 @@ def _cuda_close(a, b, rtol):
 @pytest.mark.parametrize("kernel", ["trial", "probe", "combine", "trial_pair_gram",
                                     "owlqn_probe", "owlqn_probe_pg",
                                     "pseudo_gradient_norm", "combine_ow",
-                                    "owlqn_trial_pair_gram"])
+                                    "owlqn_trial_pair_gram", "pair_gram_sd",
+                                    "pair_gram_sd_gp", "combine_fix",
+                                    "trial_pair_gram_gp", "owlqn_trial_pair_gram_gp"])
 def test_kernel_matches_plain_on_card(cuda, data, kernel):
     xp, d, gp, S, Y, cs, cy = _cuda_inputs(data, cuda)
     xp0, pg = _t(data["xp0"]).to(cuda), _t(data["pg"]).to(cuda)
     wp = choose_orthant(Orthantwise(C, LO, HI), xp0, pg)
-    if kernel in ("owlqn_probe", "owlqn_probe_pg"):
+    with_gp = kernel.endswith("_gp")
+    if kernel.startswith("pair_gram_sd"):
+        S0, Y0, S2, Y2 = S.clone(), Y.clone(), S.clone(), Y.clone()
+        k = t_fused.pair_gram_sd(STP, d, xp, gp, S, Y, END, with_gp=with_gp)
+        p = t_fused.pair_gram_sd_ref(STP, d, xp, gp, S2, Y2, END, with_gp=with_gp)
+        _assert_ring_write(S, Y, S0, Y0, STP * d, xp - gp)
+        assert _same_bits(S, S2) and _same_bits(Y, Y2)
+    elif kernel == "combine_fix":
+        Y2 = Y.clone()
+        gamma, ca, cb = (torch.tensor(v, device=cuda) for v in (-0.4, 0.7, -0.2))
+        k = t_fused.combine_fix(gp, S, Y, gamma, cs, cy, END, ca, cb)
+        p = t_fused.combine_fix_ref(gp, S, Y2, gamma, cs, cy, END, ca, cb)
+        assert _same_bits(Y, Y2)
+    elif kernel in ("trial_pair_gram_gp", "owlqn_trial_pair_gram_gp"):
+        S2, Y2, S3, Y3 = S.clone(), Y.clone(), S.clone(), Y.clone()
+        if kernel == "trial_pair_gram_gp":
+            args = (xp, d, gp, STP)
+            fn = t_rosen.trial_pair_gram
+        else:
+            args = (xp0, d, gp, pg, STP, C, LO, HI)
+            fn = t_rosen.owlqn_trial_pair_gram
+        k = fn(*args, S, Y, END, with_gp=True)
+        p = getattr(t_rosen, kernel[:-3] + "_ref")(*args, S2, Y2, END, with_gp=True)
+        base = fn(*args, S3, Y3, END)
+        for a, b in zip(base, k):
+            b = b[:, :3].contiguous() if b.ndim == 2 else b
+            assert _same_bits(a.reshape(-1), b.reshape(-1))
+    elif kernel in ("owlqn_probe", "owlqn_probe_pg"):
         w = wp if kernel == "owlqn_probe" else pg
         k = getattr(t_rosen, kernel)(xp0, d, w, STP, C, LO, HI)
         p = getattr(t_rosen, kernel + "_ref")(xp0, d, w, STP, C, LO, HI)
