@@ -53,10 +53,32 @@ Phases (any failure raises and the script exits nonzero):
  14. K5 route: a Rosenbrock that has the trial and probe kernels but no
      one-pass epilogue, damped, 10 iterations at n = 2^24 (K1 per
      materialized trial, K2, K5 with the . gp column and K6);
- 15. with ``--profile PATH`` only: one run of each main path (plain,
-     OWL-QN, damped, damped OWL-QN) under torch.profiler (device busy time against the unprofiled walls,
-     device items, host launch and copy calls); the operator tables go to
-     PATH.
+ 15. Poisson main path: the L1 Poisson regression at the JAX package's
+     at-scale width (2048 x 2^20, X float32, seed 0), c = 1 on [1, n),
+     m = 6, bf16 history, BacktrackingArmijo, epsilon 0, 100 iterations
+     of ``minimize_jit`` through the composed OWL-QN branch (K11 once, K9
+     per trial point, K10, K12 and K13 per iteration), then the same with
+     ``with_fx_wide()``;
+ 16. Poisson f64: 500 x 21 float64 (the reference's shape), c = 1 on
+     [1, 21), epsilon 1e-4, through ``minimize`` per iteration against
+     the same run on the CPU;
+ 17. f32 floor: the 512 x 64 Poisson pair of runs, float32 and wide,
+     through the step-at-a-time loop, their statuses recorded;
+ 18. wide OWL-QN main path: the OWL-QN main path with ``with_fx_wide()``
+     (K7 once at the start, then K8, K14, K13): 12 iterations against the
+     default run, then the run to epsilon 3e-2;
+ 19. OWL-QN north star: n = 1e8, m = 3, c = 1 on [0, n - 1), epsilon
+     3e-2, within 300 iterations, wide and then default;
+ 20. with ``--profile PATH`` only: one run of each main path (plain,
+     OWL-QN, damped, damped OWL-QN, Poisson) under torch.profiler (device
+     busy time against the unprofiled walls, device items, host launch
+     and copy calls); the operator tables go to PATH.
+
+Phase 3 also holds the OWL-QN kernels K7, K9, K11 and K12 to their plain
+versions (K9's point, K11's pg against K10's, K12's ring rows and K7's
+ft against K8's bit for bit), and a ``wide_kernels`` phase checks the
+wide objective scalar's forms of K1, K2, K4, K7 and K8 against the
+default launches and against a float64 sum on the host.
 
 Prints one JSON line per phase result, the kernel table as one JSON line
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -74,10 +96,10 @@ import time
 import numpy as np
 import torch
 
-from lbfgs_torch import default_evaluate, lbfgs
+from lbfgs_torch import LbfgsError, default_evaluate, lbfgs
 from lbfgs_torch.core import to_host
 from lbfgs_torch.minimize import minimize_jit
-from lbfgs_torch.models import lennard_jones, rosenbrock
+from lbfgs_torch.models import lennard_jones, logistic, rosenbrock
 from lbfgs_torch.ops import _build, fused
 from lbfgs_torch.orthantwise import Orthantwise, choose_orthant
 from lbfgs_torch.params import Lbfgs, LbfgsParams, LineSearchAlgorithm
@@ -111,10 +133,18 @@ KERNELS = {
                      "lbfgs_tpu/ops/fused.py:837"),
     "K6_combine_fix": ("cuda", "lbfgs_torch/csrc/combine.cu",
                        "lbfgs_tpu/ops/fused.py:1216"),
+    "K7_owlqn_trial": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                       "lbfgs_tpu/ops/factory.py:389"),
     "K8_owlqn_probe": ("triton", "lbfgs_torch/ops/_factory_triton.py",
                        "lbfgs_tpu/ops/factory.py:487"),
+    "K9_owlqn_trial_step": ("cuda", "lbfgs_torch/csrc/owlqn.cu",
+                            "lbfgs_tpu/ops/fused.py:481"),
     "K10_pseudo_gradient_norm": ("cuda", "lbfgs_torch/csrc/owlqn.cu",
                                  "lbfgs_tpu/ops/fused.py:619"),
+    "K11_pseudo_gradient": ("cuda", "lbfgs_torch/csrc/owlqn.cu",
+                            "lbfgs_tpu/ops/fused.py:567"),
+    "K12_pair_gram_xg": ("cuda", "lbfgs_torch/csrc/pair_gram.cu",
+                         "lbfgs_tpu/ops/fused.py:1055"),
     "K13_combine_ow": ("cuda", "lbfgs_torch/csrc/combine.cu",
                        "lbfgs_tpu/ops/fused.py:1464"),
     "K14_owlqn_trial_pair_gram": ("triton", "lbfgs_torch/ops/_factory_triton.py",
@@ -130,6 +160,48 @@ OWLQN_PATH = ("K1_trial", "K8_owlqn_probe", "K10_pseudo_gradient_norm",
 DAMPED_PATH = ("K4_trial_pair_gram_gp", "K6_combine_fix")
 DAMPED_OWLQN_PATH = ("K14_owlqn_trial_pair_gram_gp",)
 K5_PATH = ("K5_pair_gram",)
+POISSON_PATH = ("K9_owlqn_trial_step", "K11_pseudo_gradient", "K12_pair_gram_xg")
+WIDE_OWLQN_PATH = ("K7_owlqn_trial",)
+
+
+def cost(name: str, v: int, h: int, m: int) -> tuple:
+    """(bytes, float operations) per element of one call of the kernel as
+    the main paths run it, with v-byte vectors, an h-byte history and ring
+    depth m: each input read once and each output written once (the ring
+    row ``end`` that a pair update overwrites is not read), and the
+    multiply-adds of its sums counted as two operations."""
+    rings = 2 * (m - 1) * h + 2 * h
+    return {
+        "K1_trial": (4 * v, 20),
+        "K2_probe": (2 * v, 16),
+        "K3_combine": (2 * v + 2 * m * h, 4 * m + 6),
+        "K4_trial_pair_gram": (5 * v + rings, 12 * m + 24),
+        "K4_trial_pair_gram_gp": (5 * v + rings, 16 * m + 24),
+        "K5_pair_gram": (3 * v + rings, 16 * m + 4),
+        "K6_combine_fix": (2 * v + 2 * m * h + h, 4 * m + 10),
+        "K7_owlqn_trial": (5 * v, 30),
+        "K8_owlqn_probe": (3 * v, 24),
+        "K9_owlqn_trial_step": (4 * v, 4),
+        "K10_pseudo_gradient_norm": (3 * v, 6),
+        "K11_pseudo_gradient": (3 * v, 4),
+        "K12_pair_gram_xg": (5 * v + rings, 12 * m + 3),
+        "K13_combine_ow": (2 * v + 2 * m * h, 4 * m + 10),
+        "K14_owlqn_trial_pair_gram": (7 * v + rings, 12 * m + 40),
+        "K14_owlqn_trial_pair_gram_gp": (7 * v + rings, 16 * m + 44),
+    }[name]
+
+
+#: the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM3
+#: bytes/s and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+
+
+def bound(name: str, n: int, v: int, h: int, m: int) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for one call at n elements, the larger of its two bounds."""
+    b, f = cost(name, v, h, m)
+    t_bytes, t_ops = n * b / HBM_BYTES_PER_S, n * f / F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 #: the OWL-QN kernels' L1 weight in the kernel checks (not 1: its
 #: rounding to the vectors' dtype is part of what is checked)
 C_L1 = 0.7
@@ -301,6 +373,7 @@ def phase_build() -> None:
                 fused.combine(x, S, S, z[0], z, z)
             # the OWL-QN kernels run at m = M only
             S = torch.zeros((M, n), dtype=hd, device="cuda")
+            rosenbrock.owlqn_trial(x, x, x, 0.0, 1.0, 0, n - 1)
             rosenbrock.owlqn_probe(x, x, x, 0.0, 1.0, 0, n - 1)
             rosenbrock.owlqn_probe_pg(x, x, x, 0.0, 1.0, 0, n - 1)
             rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
@@ -309,6 +382,11 @@ def phase_build() -> None:
             rosenbrock.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1, with_gp=True)
             rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
                                              n - 1, S, S.clone(), 1, with_gp=True)
+    # the OWL-QN north star's ring depth
+    x = torch.ones(4096, device="cuda")
+    S = torch.zeros((3, 4096), dtype=torch.bfloat16, device="cuda")
+    rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0, 4095, S,
+                                     S.clone(), 1)
     torch.cuda.synchronize()
     emit(phase="build", nvcc_s=round(t_nvcc, 3),
          triton_s=round(time.perf_counter() - t1, 3),
@@ -380,6 +458,7 @@ def phase_kernels() -> dict:
             check_k5_k6(errs, a, tag, tv, ts)
             for lo, hi in windows(n):
                 check_owlqn(errs, a, lo, hi, f"{tag} window=[{lo},{hi})", tv, ts)
+                check_composed(errs, a, lo, hi, f"{tag} window=[{lo},{hi})", tv, ts)
             del a
             torch.cuda.empty_cache()
         emit(phase="kernels", n=n, max_abs_err={k: v[0] for k, v in errs.items()},
@@ -388,8 +467,9 @@ def phase_kernels() -> dict:
                   "f32_sum": TOL[(torch.float32, "sum")],
                   "f64_vec": TOL[(torch.float64, "vec")],
                   "f64_sum": TOL[(torch.float64, "sum")],
-                  "k4_k5_k6_k14_ring_row": "bit-exact", "k8_forms": "bit-exact",
-                  "with_gp_columns_0_2": "bit-exact"})
+                  "k4_k5_k6_k12_k14_ring_row": "bit-exact", "k8_forms": "bit-exact",
+                  "with_gp_columns_0_2": "bit-exact", "k9_point": "bit-exact",
+                  "k11_vs_k10_pg": "bit-exact", "k7_ft_vs_k8": "bit-exact"})
 
     # times at the main path's shapes: n = 2^24, f32 vectors, bf16 history
     a = inputs(N_BIG, torch.float32, torch.bfloat16, SEED)
@@ -450,18 +530,41 @@ def phase_kernels() -> dict:
             lambda: rosenbrock.owlqn_trial_pair_gram_ref(xp0, a["d"], a["gp"], pg, STP,
                                                          1.0, 0, hi, S, Y, END)),
     })
+    # the composed OWL-QN kernels in the form the Poisson main path runs
+    # them, and K7 as the wide OWL-QN main path's init
+    wp = choose_orthant(Orthantwise(1.0, 0, hi), xp0, pg)
+    x9 = fused.owlqn_trial_step(xp0, a["d"], wp, STP, 0, hi)
+    cases.update({
+        "K7_owlqn_trial": (
+            lambda: rosenbrock.owlqn_trial(xp0, a["d"], wp, STP, 1.0, 0, hi),
+            lambda: rosenbrock.owlqn_trial_ref(xp0, a["d"], wp, STP, 1.0, 0, hi)),
+        "K9_owlqn_trial_step": (
+            lambda: fused.owlqn_trial_step(xp0, a["d"], wp, STP, 0, hi),
+            lambda: fused.owlqn_trial_step_ref(xp0, a["d"], wp, STP, 0, hi)),
+        "K11_pseudo_gradient": (
+            lambda: fused.pseudo_gradient(xp0, a["gp"], 1.0, 0, hi),
+            lambda: fused.pseudo_gradient_ref(xp0, a["gp"], 1.0, 0, hi)),
+        "K12_pair_gram_xg": (
+            lambda: fused.pair_gram_xg(x9, xp0, pg, a["gp"], a["xp"], S, Y, END),
+            lambda: fused.pair_gram_xg_ref(x9, xp0, pg, a["gp"], a["xp"], S, Y, END)),
+    })
     times, walls = {}, {}
     for name, (kern, plain) in cases.items():
         # plain, kernel, kernel, plain: both sides see the same clocks
         p1, k1, k2, p2 = (device_time(f, 20) for f in (plain, kern, kern, plain))
         times[name] = (min(k1, k2), min(p1, p2))
         walls[name] = (sync_time(kern, 20), sync_time(plain, 20))
+    # each kernel's bound from this run's shapes: n = 2^24, 4-byte vectors,
+    # a 2-byte history, m = M
+    bounds = {name: bound(name, N_BIG, xp0.element_size(), S.element_size(), S.shape[0])
+              for name in KERNELS}
     emit(phase="kernel_times", n=N_BIG, dtype="f32/bf16",
-         device_ms={k: {"kernel": v[0], "plain": v[1]} for k, v in times.items()},
+         device_ms={k: {"kernel": v[0], "plain": v[1], "bound": bounds[k][0]}
+                    for k, v in times.items()},
          event_ms={k: {"kernel": v[0], "plain": v[1]} for k, v in walls.items()})
-    del a, S, Y
+    del a, S, Y, x9
     torch.cuda.empty_cache()
-    return {"errs": errs, "times": times}
+    return {"errs": errs, "times": times, "bounds": bounds}
 
 
 def check_owlqn(errs: dict, a: dict, lo: int, hi: int, tag: str, tv: float,
@@ -519,6 +622,54 @@ def check_owlqn(errs: dict, a: dict, lo: int, hi: int, tag: str, tv: float,
           *(check(f"K14+gp sum{i} {tag}", kg[i], pg_[i], ts) for i in (3, 4, 8, 9)))
 
 
+def check_composed(errs: dict, a: dict, lo: int, hi: int, tag: str, tv: float,
+                   ts: float) -> None:
+    """K9, K11, K12 and K7 against their plain versions on one window, bit
+    for bit where the issue is a rounding rule: K9's projected point
+    (round(xp + round(stp*d)), no fma), K11's pg against K10's, K12's ring
+    rows (the rounded pair of K9's point), K7's point against K9's, and
+    K7's ft and g.d against K8's at the same step and orthant in both
+    objective-scalar modes (the remat contract)."""
+    xp, d, gp, pg = a["xp0"], a["d"], a["gp"], a["pg"]
+    wp = choose_orthant(Orthantwise(C_L1, lo, hi), xp, pg)
+    x = fused.owlqn_trial_step(xp, d, wp, STP, lo, hi)
+    if not same_bits(x, fused.owlqn_trial_step_ref(xp, d, wp, STP, lo, hi)):
+        raise AssertionError(f"K9's point differs from the plain version's {tag}")
+    k = fused.pseudo_gradient(xp, gp, C_L1, lo, hi)
+    if not same_bits(k, fused.pseudo_gradient_norm(xp, gp, C_L1, lo, hi)[0]):
+        raise AssertionError(f"K11's pg differs from K10's {tag}")
+    _fold(errs, "K11_pseudo_gradient",
+          check(f"K11 pg {tag}", k, fused.pseudo_gradient_ref(xp, gp, C_L1, lo, hi), tv))
+    # K12 on K9's point, with the random pg as the new gradient
+    gx = a["pg"]
+    Sk, Yk, Sp, Yp = (a["S"].clone(), a["Y"].clone(), a["S"].clone(), a["Y"].clone())
+    kk = fused.pair_gram_xg(x, xp, gx, gp, k, Sk, Yk, END)
+    p = fused.pair_gram_xg_ref(x, xp, gx, gp, k, Sp, Yp, END)
+    check_ring(f"K12 kernel {tag}", Sk, Yk, a["S"], a["Y"], x - xp, gx - gp)
+    check_ring(f"K12 plain {tag}", Sp, Yp, a["S"], a["Y"], x - xp, gx - gp)
+    _fold(errs, "K12_pair_gram_xg", *(check(f"K12 {tag} {i}", kk[i], p[i], ts) for i in (0, 1)))
+    del Sk, Yk, Sp, Yp
+    for wide in (False, True):
+        with fused.wide_fx(wide):
+            k7 = rosenbrock.owlqn_trial(xp, d, wp, STP, C_L1, lo, hi)
+            k8 = rosenbrock.owlqn_probe(xp, d, wp, STP, C_L1, lo, hi)
+            p = rosenbrock.owlqn_trial_ref(xp, d, wp, STP, C_L1, lo, hi)
+        want = torch.float64 if wide or xp.dtype == torch.float64 else xp.dtype
+        if k7[1].dtype != want or p[1].dtype != want:
+            raise AssertionError(f"K7 ft dtype {k7[1].dtype}, plain {p[1].dtype} {tag}")
+        if not (same_bits(k7[1], k8[0]) and same_bits(k7[3], k8[1])):
+            raise AssertionError(f"K7 and K8 differ at one step (wide={wide}) {tag}: "
+                                 f"{k7[1].item()} {k8[0].item()}")
+        if not same_bits(k7[0], x):
+            raise AssertionError(f"K7's point differs from K9's {tag}")
+        _fold(errs, "K7_owlqn_trial",
+              *(check(f"K7 {name} {tag}", k7[i], p[i], tv) for i, name in ((0, "x"), (2, "g"))),
+              *(check(f"K7 sum{i} {tag}", k7[i], p[i], ts) for i in (1, 3, 4)))
+        if bool(k7[5]) != bool(p[5]):
+            raise AssertionError(f"K7 changed flag differs {tag}")
+    _fold(errs, "K9_owlqn_trial_step", (0.0, 0.0))
+
+
 def check_k5_k6(errs: dict, a: dict, tag: str, tv: float, ts: float) -> None:
     """K5 (3 and 4 columns) and K6 against their plain versions: K5's ring
     write bit for bit (row END the rounded (STP*d, gx - gp), gx here the
@@ -561,16 +712,20 @@ def launches() -> dict:
         "K4_trial_pair_gram_gp": tpg.gp_launches,
         "K5_pair_gram": fused.pair_gram_sd.launches,
         "K6_combine_fix": fused.combine_fix.launches,
+        "K7_owlqn_trial": rosenbrock.owlqn_trial.launches,
         "K8_owlqn_probe": (rosenbrock.owlqn_probe.launches
                            + rosenbrock.owlqn_probe_pg.launches),
+        "K9_owlqn_trial_step": fused.owlqn_trial_step.launches,
         "K10_pseudo_gradient_norm": fused.pseudo_gradient_norm.launches,
+        "K11_pseudo_gradient": fused.pseudo_gradient.launches,
+        "K12_pair_gram_xg": fused.pair_gram_xg.launches,
         "K13_combine_ow": fused.combine_ow.launches,
         "K14_owlqn_trial_pair_gram": ow_tpg.launches - ow_tpg.gp_launches,
         "K14_owlqn_trial_pair_gram_gp": ow_tpg.gp_launches,
     }
 
 
-#: plain versions, and the plain stand-ins of kernels not ported yet
+#: the plain versions
 PLAIN = {
     "K1_trial": rosenbrock.trial_ref,
     "K2_probe": rosenbrock.probe_ref,
@@ -583,8 +738,10 @@ PLAIN = {
     "K14_owlqn_trial_pair_gram": rosenbrock.owlqn_trial_pair_gram_ref,
     "K5_pair_gram": fused.pair_gram_sd_ref,
     "K6_combine_fix": fused.combine_fix_ref,
-    "K9_standin": fused.owlqn_trial_step_ref,
-    "K12_standin": fused.pair_gram_xg_ref,
+    "K7_owlqn_trial": rosenbrock.owlqn_trial_ref,
+    "K9_owlqn_trial_step": fused.owlqn_trial_step_ref,
+    "K11_pseudo_gradient": fused.pseudo_gradient_ref,
+    "K12_pair_gram_xg": fused.pair_gram_xg_ref,
 }
 
 
@@ -597,7 +754,8 @@ def reset_counts() -> None:
                rosenbrock.trial_pair_gram, rosenbrock.owlqn_probe,
                rosenbrock.owlqn_probe_pg, fused.pseudo_gradient_norm,
                fused.combine_ow, rosenbrock.owlqn_trial_pair_gram,
-               fused.pair_gram_sd, fused.combine_fix):
+               fused.pair_gram_sd, fused.combine_fix, rosenbrock.owlqn_trial,
+               fused.owlqn_trial_step, fused.pseudo_gradient, fused.pair_gram_xg):
         fn.launches = 0
     rosenbrock.trial_pair_gram.gp_launches = 0
     rosenbrock.owlqn_trial_pair_gram.gp_launches = 0
@@ -802,33 +960,40 @@ def phase_owlqn_main_path() -> dict:
 
 
 def phase_profile(path: str) -> None:
-    """For each main path (plain, OWL-QN, damped, damped OWL-QN), one run
-    under torch.profiler after three unprofiled ones: device busy time (the
-    summed durations of the kernels and copies the profiler saw on the
-    card) against the walls, the device items by time, and the host's
-    launch and copy calls.  The full operator tables go to ``path``."""
+    """For each main path (plain, OWL-QN, damped, damped OWL-QN, Poisson),
+    one run under torch.profiler after three unprofiled ones: device busy
+    time (the summed durations of the kernels and copies the profiler saw
+    on the card) against the walls, the device items by time, and the
+    host's launch and copy calls.  The full operator tables go to
+    ``path``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         for name, params in (("main_path", MAIN_PARAMS), ("owlqn_main_path", OWLQN_PARAMS),
                              ("damped_main_path", DAMPED_PARAMS),
                              ("damped_owlqn_main_path", DAMPED_OWLQN_PARAMS)):
             _profile_one(name, params, f)
+        X, y = logistic.synthetic(POISSON_NROW, POISSON_NCOL, seed=0, device="cuda")
+        _profile_one("poisson_main_path", poisson_params(False), f,
+                     torch.zeros(POISSON_NCOL, device="cuda"), logistic.make_objective(X, y))
+        del X, y
+        torch.cuda.empty_cache()
 
 
-def _profile_one(name: str, params: LbfgsParams, f) -> None:
+def _profile_one(name: str, params: LbfgsParams, f, x0=None, fn=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
-    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    if x0 is None:
+        x0, fn = rosenbrock.initial_point(N_BIG, torch.float32, "cuda"), default_evaluate()
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = minimize_jit(params, x0, default_evaluate(), return_state=True)
+        st = minimize_jit(params, x0, fn, return_state=True)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st = minimize_jit(params, x0, default_evaluate(), return_state=True)
+        st = minimize_jit(params, x0, fn, return_state=True)
         torch.cuda.synchronize()
         wall_prof = 1e3 * (time.perf_counter() - t0)
     iters = st.k - 1
@@ -841,7 +1006,7 @@ def _profile_one(name: str, params: LbfgsParams, f) -> None:
            if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy"))}
     top = [dict(name=e.key[:70], ms=e.self_device_time_total / 1e3, count=e.count)
            for e in dev[:12]]
-    out = dict(phase="profile", path=name, n=N_BIG, iters=iters, walls_ms=walls,
+    out = dict(phase="profile", path=name, n=x0.shape[0], iters=iters, walls_ms=walls,
                profiled_wall_ms=wall_prof, device_busy_ms=busy,
                device_busy_ms_per_iter=busy / iters,
                busy_share_of_walls=[busy / w for w in walls],
@@ -1121,6 +1286,280 @@ def phase_k5_route() -> dict:
     return lc
 
 
+# ---------------------------------------------------------------------------
+# The wide objective scalar and the Poisson regression
+# ---------------------------------------------------------------------------
+
+
+def _rosen_f64(x: torch.Tensor) -> float:
+    """Extended Rosenbrock of a float32 point, summed in float64 on the host."""
+    x = x.double().cpu()
+    t1 = 1.0 - x[0::2]
+    t2 = 10.0 * (x[1::2] - x[0::2] ** 2)
+    return float((t1 * t1 + t2 * t2).sum())
+
+
+def phase_wide_kernels() -> None:
+    """The wide forms of K1, K2, K4, K7 and K8 at n = 2^24 on a 1e12-sized
+    fx (Rosenbrock at x0 + 10, tests/test_wide_fx.py:47-75): the objective
+    (and K7's and K8's L1) column reduced in float64, every other output
+    bit for bit the default launch's; each form's fx against a float64
+    sum on the host.  With float64 vectors the mode changes nothing, bit
+    for bit."""
+    n, c, lo, hi = N_BIG, 1.0, 0, N_BIG - 1
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    xp = rosenbrock.initial_point(n, torch.float32, "cuda") + 10.0
+    d = 1e-3 * torch.randn(n, generator=g, device="cuda")
+    gp, pg = (torch.randn(n, generator=g, device="cuda") for _ in range(2))
+    S, Y = (torch.randn((M, n), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    wp = choose_orthant(Orthantwise(c, lo, hi), xp, pg)
+    forms = {  # name: (launch, index of fx)
+        "K1_trial": (lambda: rosenbrock.trial(xp, d, STP), 1),
+        "K2_probe": (lambda: rosenbrock.probe(xp, d, STP), 0),
+        "K4_trial_pair_gram": (
+            lambda: rosenbrock.trial_pair_gram(xp, d, gp, STP, S.clone(), Y.clone(), END)
+            + (S, Y), 1),
+        "K7_owlqn_trial": (lambda: rosenbrock.owlqn_trial(xp, d, wp, STP, c, lo, hi), 1),
+        "K8_owlqn_probe": (lambda: rosenbrock.owlqn_probe(xp, d, wp, STP, c, lo, hi), 0),
+        "K8_owlqn_probe_pg": (lambda: rosenbrock.owlqn_probe_pg(xp, d, pg, STP, c, lo, hi), 0),
+    }
+    xt = rosenbrock.trial(xp, d, STP)[0]
+    x7 = rosenbrock.owlqn_trial(xp, d, wp, STP, c, lo, hi)[0]
+    exact = _rosen_f64(xt)
+    exact_ow = _rosen_f64(x7) + c * float(x7[lo:hi].double().abs().sum())
+    rel = {}
+    for name, (launch, fi) in forms.items():
+        base = launch()
+        with fused.wide_fx():
+            wide = launch()
+        if base[fi].dtype != torch.float32 or wide[fi].dtype != torch.float64:
+            raise AssertionError(f"{name}: fx dtypes {base[fi].dtype}, {wide[fi].dtype}")
+        for i, (a, b) in enumerate(zip(base, wide)):
+            if i != fi and not same_bits(a, b):
+                raise AssertionError(f"{name}: output {i} differs under the wide mode")
+        want = exact_ow if name.startswith(("K7", "K8")) else exact
+        rel[name] = dict(f32=abs(float(base[fi]) / want - 1), wide=abs(float(wide[fi]) / want - 1))
+        if not rel[name]["wide"] <= 1e-6:
+            raise AssertionError(f"{name}: wide fx off the float64 sum by {rel[name]['wide']}")
+    x64 = xp.double()
+    base = rosenbrock.trial(x64, d.double(), STP)
+    with fused.wide_fx():
+        wide = rosenbrock.trial(x64, d.double(), STP)
+    if not all(same_bits(a, b) for a, b in zip(base, wide)):
+        raise AssertionError("the wide mode changed a float64 launch")
+    emit(phase="wide_kernels", n=n, fx_f64=exact, fx_owlqn_f64=exact_ow, rel_err=rel,
+         others="bit-exact against the default launch", f64_vectors="unchanged")
+    del xp, d, gp, pg, S, Y, wp, xt, x7
+    torch.cuda.empty_cache()
+
+
+#: the Poisson main path: the JAX package's at-scale configuration
+#: (bench_logistic.py:13-17, 81-129) with X in float32: 2048 x 2^20
+POISSON_NROW, POISSON_NCOL = 1 << 11, 1 << 20
+
+
+def poisson_params(wide: bool, iters: int = 100) -> LbfgsParams:
+    """c = 1 on [1, n) (the intercept outside the L1 window), m = 6, bf16
+    history, BacktrackingArmijo, uncapped step, epsilon 0."""
+    return LbfgsParams(
+        m=M, history_dtype="bfloat16", constrain_step_size=False, epsilon=0.0,
+        max_iterations=iters + 1, fx_wide=wide,
+        orthantwise=Orthantwise(1.0, 1, POISSON_NCOL),
+    ).replace_ls(algorithm=LineSearchAlgorithm.BacktrackingArmijo)
+
+
+def _expect_composed(name: str, st, lc: dict, pc: dict) -> None:
+    """The composed OWL-QN branch's launches: K11 once at the start, K9 per
+    trial point, K10, K12 and K13 per iteration, and nothing else."""
+    iters = st.k - 1
+    _expect(name, lc, pc, K9_owlqn_trial_step=st.prob.neval - 1, K10_pseudo_gradient_norm=iters,
+            K11_pseudo_gradient=1, K12_pair_gram_xg=iters, K13_combine_ow=iters)
+
+
+def phase_poisson_main_path() -> dict:
+    t0 = time.perf_counter()
+    X, y = logistic.synthetic(POISSON_NROW, POISSON_NCOL, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    obj = logistic.make_objective(X, y)
+    x0 = torch.zeros(POISSON_NCOL, device="cuda")
+    n = POISSON_NCOL
+    minimize_jit(poisson_params(False, 2), x0, obj, return_state=True)  # warm
+    out = {}
+    for wide in (False, True):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = minimize_jit(poisson_params(wide), x0, obj, return_state=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        lc, pc, reads = launches(), plain_calls(), to_host.reads
+        name = "Poisson main path" + (" (wide)" if wide else "")
+        _expect_composed(name, st, lc, pc)
+        iters, evals = st.k - 1, st.prob.neval
+        fx = st.prob.fx
+        nnz = int((st.prob.x[1:] != 0).sum())
+        if type(fx) is not (np.float64 if wide else np.float32):
+            raise AssertionError(f"{name}: fx is {type(fx).__name__}")
+        if not (np.isfinite(fx) and 0 < nnz < n - 1):
+            raise AssertionError(f"{name}: fx {fx}, {nnz} nonzero coefficients")
+        out[wide] = dict(status=st.status, iters=iters)
+        if not wide:
+            lc_main = lc
+        emit(phase="poisson_main_path", nrow=POISSON_NROW, ncol=n, x_dtype="float32",
+             fx_wide=wide, iters=iters, evals=evals, status=st.status,
+             status_name=Status(st.status).name, seconds=dt, iters_per_s=iters / dt,
+             evals_per_s=evals / dt, ms_per_eval=1e3 * dt / evals,
+             syncs_per_iter=reads / max(iters, 1), fx=float(fx), fx_dtype=type(fx).__name__,
+             nnz=nnz, data_seconds=t_data, launches=lc, plain_calls=pc,
+             f32_run=out.get(False) if wide else None)
+        del st
+    del X, y, obj
+    torch.cuda.empty_cache()
+    return lc_main
+
+
+def phase_poisson_f64_vs_cpu() -> None:
+    """500 x 21 float64 (the reference's shape, ``synthetic_dataset``), c = 1
+    on [1, 21), epsilon 1e-4, through ``minimize``: per iteration the card
+    against the port on the CPU (fx rel 1e-9), the composed branch's
+    launches on the card."""
+    b = lbfgs().with_orthantwise(1.0, 1, 21).with_epsilon(1e-4)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        X, y = logistic.synthetic_dataset(500, 21, device=dev)
+        reset_counts()
+        runs[dev] = run_traced(b, torch.zeros(21, dtype=torch.float64, device=dev),
+                               logistic.make_objective(X, y))
+        if dev == "cuda":
+            lc, pc = launches(), plain_calls()
+    (tk, rk), (tc, rc) = runs["cuda"], runs["cpu"]
+    tol = dict(fx=1e-9, gnorm=1e-6, step=1e-6)
+    worst = compare_traces("Poisson f64", tk, tc, tol, len(tk))
+    if (rk.niter, rk.status) != (rc.niter, rc.status) or rk.status != Status.CONVERGED:
+        raise AssertionError(f"Poisson f64: card {rk.niter}/{rk.status}, CPU "
+                             f"{rc.niter}/{rc.status}")
+    iters = rk.niter - 1
+    _expect("Poisson f64", lc, pc, K9_owlqn_trial_step=rk.neval - 1,
+            K10_pseudo_gradient_norm=iters, K11_pseudo_gradient=1, K12_pair_gram_xg=iters,
+            K13_combine_ow=iters)
+    emit(phase="poisson_f64_vs_cpu", nrow=500, ncol=21, niter=rk.niter, neval=rk.neval,
+         fx=rk.fx, fx_cpu=rc.fx, max_rel_gap_vs_cpu=worst, tol=tol, launches=lc)
+
+
+def phase_f32_floor() -> None:
+    """The f32 objective floor (tests/test_owlqn_logistic.py:90-143): 512 x 64
+    Poisson data from the port's generator (seed 0 on the CPU, moved to the
+    card), c = 5 on [1, 64), Armijo, epsilon 1e-4, 60 iterations of the
+    step-at-a-time loop, float32 and wide.  The wide run must carry fx
+    in float64; where each run stops is recorded, not held: past the
+    objective floor both live at the f32 vector floor, where the first
+    pair with s.y or y.y exactly 0 ends a run, and which iteration rounds
+    to one depends on the order of the products' sums (PERF.md)."""
+    X, y = logistic.synthetic(512, 64, nnz=8, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    obj = logistic.make_objective(X.cuda(), y.cuda())
+    res = {}
+    for wide in (False, True):
+        b = (lbfgs().with_orthantwise(5.0, 1, 64).with_linesearch_algorithm("BacktrackingArmijo")
+             .with_epsilon(1e-4).with_max_iterations(60).with_fx_wide(wide))
+        st = b.build(torch.zeros(64, device="cuda"), obj)
+        error = None
+        try:
+            while not st.is_converged():
+                st.propagate()
+        except LbfgsError as e:
+            error = str(e)
+        fx = st.state.prob.fx
+        res["wide" if wide else "f32"] = dict(
+            k=st.state.k, status=st.state.status, status_name=Status(st.state.status).name,
+            error=error, fx=float(fx), fx_dtype=type(fx).__name__)
+    if res["wide"]["fx_dtype"] != "float64" or res["f32"]["fx_dtype"] != "float32":
+        raise AssertionError(f"f32 floor: fx dtypes {res}")
+    if not all(np.isfinite(r["fx"]) for r in res.values()):
+        raise AssertionError(f"f32 floor: {res}")
+    emit(phase="f32_floor", nrow=512, ncol=64, runs=res,
+         wide_stops_no_earlier=res["wide"]["k"] >= res["f32"]["k"])
+
+
+def phase_wide_owlqn_main_path() -> dict:
+    """The OWL-QN main path with the wide objective scalar: K7 once at the
+    start, then K8 per probe, K14 and K13 per iteration.  12 iterations at
+    epsilon 0 against the default run (the same iterations, fx rel 1e-3,
+    tests/test_wide_fx.py:121-163), then the run to epsilon 3e-2."""
+    wide = OWLQN_PARAMS.replace(fx_wide=True)
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    short = dict(epsilon=0.0, max_iterations=13)
+    reset_counts()
+    st_w = minimize_jit(wide.replace(**short), x0, default_evaluate(), return_state=True)
+    lc, pc = launches(), plain_calls()
+    st_d = minimize_jit(OWLQN_PARAMS.replace(**short), x0, default_evaluate(),
+                        return_state=True)
+    rel = abs(float(st_w.prob.fx) / float(st_d.prob.fx) - 1)
+    if type(st_w.prob.fx) is not np.float64 or st_w.k != st_d.k or not rel <= 1e-3:
+        raise AssertionError(f"wide OWL-QN after 12: k {st_w.k} vs {st_d.k}, rel fx {rel}, "
+                             f"fx {type(st_w.prob.fx).__name__}")
+    iters = st_w.k - 1
+    _expect("wide OWL-QN, 12 iterations", lc, pc, K7_owlqn_trial=1, K10_pseudo_gradient_norm=1,
+            K8_owlqn_probe=st_w.prob.neval - 1, K13_combine_ow=iters,
+            K14_owlqn_trial_pair_gram=iters)
+    emit(phase="wide_owlqn_vs_default", iters=12, rel_fx=rel, fx_wide=float(st_w.prob.fx),
+         fx_default=float(st_d.prob.fx), neval=(st_w.prob.neval, st_d.prob.neval))
+    del st_w, st_d
+    minimize_jit(wide, x0, default_evaluate(), return_state=True)  # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    st = minimize_jit(wide, x0, default_evaluate(), return_state=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lc, pc, reads = launches(), plain_calls(), to_host.reads
+    iters = st.k - 1
+    _expect("wide OWL-QN main path", lc, pc, K7_owlqn_trial=1, K10_pseudo_gradient_norm=1,
+            K8_owlqn_probe=st.prob.neval - 1, K13_combine_ow=iters,
+            K14_owlqn_trial_pair_gram=iters)
+    if not np.isfinite(st.prob.fx):
+        raise AssertionError(f"wide OWL-QN main path: fx {st.prob.fx}")
+    _report_2e24("wide_owlqn_main_path", st, dt, lc, reads, eps=3e-2,
+                 status_name=Status(st.status).name, fx_dtype=type(st.prob.fx).__name__,
+                 gnorm=float(np.sqrt(st.prob.gnorm2)))
+    del st
+    torch.cuda.empty_cache()
+    return lc
+
+
+def phase_owlqn_north_star() -> None:
+    """OWL-QN at n = 1e8, m = 3, bf16 history, c = 1 on [0, n - 1), epsilon
+    3e-2 within 300 iterations: the configuration the wide objective scalar
+    was built for, wide and then default, with each run's status."""
+    n = 100_000_000
+    params = LbfgsParams(
+        m=3, history_dtype="bfloat16", constrain_step_size=False, epsilon=3e-2,
+        max_iterations=301, orthantwise=Orthantwise(1.0, 0, n - 1),
+    ).replace_ls(algorithm=LineSearchAlgorithm.BacktrackingArmijo)
+    x0 = rosenbrock.initial_point(n, torch.float32, "cuda")
+    for wide in (True, False):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = minimize_jit(params.replace(fx_wide=wide), x0, default_evaluate(),
+                          return_state=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        lc = launches()
+        fx = st.prob.fx
+        if not np.isfinite(fx) or (wide and lc["K7_owlqn_trial"] != 1):
+            raise AssertionError(f"OWL-QN n=1e8 (wide={wide}): fx {fx}, launches {lc}")
+        emit(phase="owlqn_north_star", n=n, m=3, eps=3e-2, fx_wide=wide, status=st.status,
+             status_name=Status(st.status).name, iters=st.k - 1, evals=st.prob.neval,
+             seconds=dt, ms_per_iter=1e3 * dt / max(st.k - 1, 1), fx=float(fx),
+             fx_dtype=type(fx).__name__, gnorm=float(np.sqrt(st.prob.gnorm2)),
+             launches={k: v for k, v in lc.items() if v})
+        del st
+        torch.cuda.empty_cache()
+
+
 def phase_north_star() -> None:
     n = 100_000_000
     params = LbfgsParams(m=3, history_dtype="bfloat16", constrain_step_size=False,
@@ -1164,6 +1603,12 @@ def main() -> None:
     timed(phase_gradient_only_main_path)
     lc_dow = timed(phase_damped_owlqn_main_path)
     lc_k5 = timed(phase_k5_route)
+    timed(phase_wide_kernels)
+    lc_poisson = timed(phase_poisson_main_path)
+    timed(phase_poisson_f64_vs_cpu)
+    timed(phase_f32_floor)
+    lc_wide = timed(phase_wide_owlqn_main_path)
+    timed(phase_owlqn_north_star)
     if args.profile:
         timed(phase_profile, args.profile)
     emit(phase="timing", seconds=seconds)
@@ -1172,12 +1617,16 @@ def main() -> None:
           **{name: lc_ow[name] for name in OWLQN_PATH if name not in PLAIN_PATH},
           **{name: lc_d[name] for name in DAMPED_PATH},
           **{name: lc_dow[name] for name in DAMPED_OWLQN_PATH},
-          **{name: lc_k5[name] for name in K5_PATH}}
+          **{name: lc_k5[name] for name in K5_PATH},
+          **{name: lc_poisson[name] for name in POISSON_PATH},
+          **{name: lc_wide[name] for name in WIDE_OWLQN_PATH}}
+    # no single PyTorch call computes any of these fused functions, so
+    # library_ms is null throughout
     table = [
         dict(name=name, route=route, source=src, replaces=rep, launches=lc[name],
              max_abs_err=k["errs"][name][0], max_normwise_err=k["errs"][name][1],
-             ms=k["times"][name][0],
-             plain_ms=k["times"][name][1])
+             ms=k["times"][name][0], plain_ms=k["times"][name][1],
+             bound_ms=k["bounds"][name][0], bound_by=k["bounds"][name][1], library_ms=None)
         for name, (route, src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": table}), flush=True)

@@ -36,13 +36,27 @@ the gradient-only mode of the chemistry workload::
     report = lbfgs().with_gradient_only().minimize(
         lennard_jones.lj38_positions(device="cuda"), lennard_jones.make_objective())
 
+L1-regularized Poisson regression (the reference's OWL-QN workload), a
+generic objective whose two products with X are ``torch.matmul``, and
+the wide objective scalar, which carries fx in float64 over float32
+vectors where float32 cannot resolve the line search's decrease::
+
+    from lbfgs_torch.models import logistic
+    X, y = logistic.synthetic(2048, 1 << 20, seed=0, device="cuda")
+    report = (lbfgs().with_fx_wide().with_orthantwise(1.0, 1, 1 << 20)
+              .with_linesearch_algorithm("BacktrackingArmijo")
+              .minimize_jit(torch.zeros(1 << 20, device="cuda"),
+                            logistic.make_objective(X, y)))
+
 Ported so far: plain L-BFGS with the More-Thuente and the three
-backtracking searches (Armijo, Wolfe, strong Wolfe), OWL-QN, Powell
-damping and gradient-only mode on every solver branch, the compact
-two-loop, the step-at-a-time (``minimize``, ``LbfgsState``) and whole-run
-(``minimize_jit``) loops.  The scan two-loop, the wide fx mode, the
-speculative search, the adaptive entry step, fp8 and float16 histories,
-and the batched and native runners raise ``NotImplementedError``.
+backtracking searches (Armijo, Wolfe, strong Wolfe), OWL-QN (through the
+one-pass epilogue for factory objectives, through the composed kernels
+for generic ones), Powell damping and gradient-only mode on every solver
+branch, the wide objective scalar, the compact two-loop, the
+step-at-a-time (``minimize``, ``LbfgsState``) and whole-run
+(``minimize_jit``) loops.  The scan two-loop, the speculative search, the
+adaptive entry step, fp8 and float16 histories, and the batched and
+native runners raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@ The reference ``Problem`` (``src/core.rs:10-218``) owns seven mutable
 ``f64`` vectors and an eval closure; here the vectors are tensors on the
 run's device and the scalars the host decides on (fx, the carried norms,
 the step, the counters and the status) are numpy scalars of the vectors'
-dtype on the host.  The line search runs on the host, so keeping its
-inputs there costs no device reads; the few reads the solver needs go
-through ``to_host``, which counts them.
+dtype on the host (fx is float64 over float32 vectors under the wide
+objective scalar, ``params.fx_wide``).  The line search runs on the host,
+so keeping its inputs there costs no device reads; the few reads the
+solver needs go through ``to_host``, which counts them.
 
 The user-objective boundary (``Problem::evaluate``, ``src/core.rs:119-132``)
 supports three shapes:
@@ -34,7 +35,9 @@ class ProblemState(NamedTuple):
     """Optimization vectors (reference ``Problem``, ``src/core.rs:10-52``)."""
 
     x: torch.Tensor        #: current point                      [n]
-    fx: np.floating        #: objective at x (host)
+    #: objective at x (host): the vectors' dtype, or float64 under the
+    #: wide objective scalar (``params.fx_wide``)
+    fx: np.floating
     gx: torch.Tensor       #: gradient at x                      [n]
     #: previous point / gradient.  ``None`` in the LEAN state of the
     #: whole-run loop, where a line-search failure is terminal, so the
@@ -96,14 +99,23 @@ class SolverState(NamedTuple):
     damping_cases: tuple = (0, 0, 0)
 
 
-def to_host(*values: torch.Tensor) -> np.ndarray:
-    """Read 0-d device tensors to the host in ONE transfer, as numpy
-    scalars of the FIRST value's dtype (a bool becomes 0 or 1).
-    ``to_host.reads`` counts the transfers: each is a synchronisation
-    point of the run."""
+def np_type(dtype: torch.dtype) -> type:
+    """The numpy scalar type of a torch dtype (host scalars of a run)."""
+    return np.dtype(str(dtype).removeprefix("torch.")).type
+
+
+def to_host(*values: torch.Tensor) -> tuple:
+    """Read 0-d device tensors to the host in ONE transfer, each as a
+    numpy scalar of its own dtype (under the wide objective scalar fx is
+    float64 beside float32 step scalars).  The transfer carries the
+    widest floating dtype among them, which holds every value exactly (a
+    bool as 0 or 1).  ``to_host.reads`` counts the transfers: each is a
+    synchronisation point of the run."""
     to_host.reads += 1
-    dt = values[0].dtype
-    return torch.stack([v.reshape(()).to(dt) for v in values]).cpu().numpy()
+    floats = {v.dtype for v in values if v.dtype.is_floating_point}
+    dt = max(floats, key=lambda t: t.itemsize) if floats else torch.float64
+    host = torch.stack([v.reshape(()).to(dt) for v in values]).cpu().numpy()
+    return tuple(np_type(v.dtype)(h) for v, h in zip(values, host))
 
 
 to_host.reads = 0
@@ -180,8 +192,14 @@ def normalize_objective(fn: Callable) -> EvalFn:
 def evaluate(pdef: ProblemDef, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One objective evaluation with the OWL-QN L1 term folded into fx
     (``Problem::evaluate``, src/core.rs:119-132, minus the
-    pseudo-gradient, which callers compute only where needed)."""
+    pseudo-gradient, which callers compute only where needed).  Under the
+    wide objective scalar fx comes back float64 (``lbfgs_tpu/core.py:
+    251-272``)."""
+    from .ops import fused
+
     fx, gx = pdef.value_and_grad(x)
+    if isinstance(fx, torch.Tensor):
+        fx = fused.obj_lift(fx, x.dtype)
     if pdef.owlqn is not None:
         fx = fx + ow_ops.x1norm(pdef.owlqn, x)
     return fx, gx
@@ -201,11 +219,16 @@ def pseudo_gradient_and_norm(pdef: ProblemDef, x: torch.Tensor,
 
 
 def pseudo_gradient(pdef: ProblemDef, x: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
-    """pg under OWL-QN, or gx itself otherwise (``src/core.rs:123-126``).
-    The port has no pg-only kernel: K10 gives pg with its norm."""
+    """pg under OWL-QN, or gx itself otherwise (``src/core.rs:123-126``):
+    the objective's ``__lbfgs_pseudo_gradient__`` when it has one, else
+    K11 (``fused.pseudo_gradient``)."""
     if pdef.owlqn is None:
         return gx
-    return pseudo_gradient_and_norm(pdef, x, gx)[0]
+    from .ops import fused
+
+    fn = getattr(pdef.value_and_grad, "__lbfgs_pseudo_gradient__", fused.pseudo_gradient)
+    start, end = pdef.owlqn.start_end(x.shape[0])
+    return fn(x, gx, pdef.owlqn.c, start, end)
 
 
 def gnorm_of(prob: ProblemState) -> np.floating:
@@ -231,6 +254,7 @@ class Progress:
 
     x: torch.Tensor
     gx: torch.Tensor
+    #: float64: exact for the wide objective scalar too
     fx: float
     xnorm: float
     gnorm: float
@@ -245,6 +269,7 @@ class Report:
     """Final optimization outcome (reference ``Report``, ``src/core.rs:273-299``),
     plus ``x``, ``niter``, ``status`` and the damping cases."""
 
+    #: float64: exact for the wide objective scalar too
     fx: float
     xnorm: float
     gnorm: float

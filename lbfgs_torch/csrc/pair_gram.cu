@@ -1,7 +1,7 @@
-// K5: the correction pair and its Gram products, by hand for Hopper
-// (sm_90a).
+// K5 and K12: the correction pair and its Gram products, by hand for
+// Hopper (sm_90a).
 //
-// Replaces lbfgs_tpu/ops/fused.py:_pair_gram_kernel (launched by
+// K5 replaces lbfgs_tpu/ops/fused.py:_pair_gram_kernel (launched by
 // _pair_gram_single).  It runs when the objective has a fused trial but no
 // one-pass epilogue.  For every element i, with the new pair
 //
@@ -20,18 +20,26 @@
 // base columns are the same values, bit for bit, with or without it.
 // Nothing here decides "x not changed": the trial's changed count does.
 //
-// What bounds it on the H100: bytes.  It reads d, gx, gp and the m-1 old
+// K12 (kXg) replaces lbfgs_tpu/ops/fused.py:_pair_gram_xg_kernel
+// (pair_gram_update_xg_pallas), OWL-QN's composed branch for generic
+// objectives: the step is orthant-projected, so the pair is
+//
+//     s_i = x_i - xp_i     y_i = gx_i - gp_i     d0_i = -pg_i
+//
+// and everything else is K5's body.  As in the TPU kernel the products of
+// row `end` use the unrounded pair (lbfgs_tpu/ops/fused.py:1081-1082).
+//
+// What bounds them on the H100: bytes.  K5 reads d, gx, gp and the m-1 old
 // rows of each ring and writes one row of each: with f32 vectors, a bf16
-// history and m = 6 that is 12 + 20 + 4 = 36 bytes per element (40 with
-// the new row's reads that the JAX kernel makes), against 6m (8m)
-// multiply-adds.  So each thread keeps its elements' s, y, d0 and gp in
-// registers and streams the ring rows past them once, coalesced (thread t
-// of a block touches element base + k*256 + t of each row).  The
-// cross-block sums use no atomics: each block writes its partials, one
-// block reduction per ring row, and the caller adds the [blocks, 6m]
-// (and [blocks, 2m]) partials in a fixed order, so runs repeat bit for
-// bit.  Vectorised loads and fewer block reductions are left for later
-// tuning.
+// history and m = 6 that is 12 + 20 + 4 = 36 bytes per element (K12 reads
+// five vectors: 48 bytes), against 6m (8m) multiply-adds.  So each thread
+// keeps its elements' s, y, d0 and gp in registers and streams the ring
+// rows past them once, coalesced (thread t of a block touches element
+// base + k*256 + t of each row).  The cross-block sums use no atomics:
+// each block writes its partials, one block reduction per ring row, and
+// the caller adds the [blocks, 6m] (and [blocks, 2m]) partials in a fixed
+// order, so runs repeat bit for bit.  Vectorised loads and fewer block
+// reductions are left for later tuning.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,11 +101,13 @@ __device__ __forceinline__ void block_sums(const T (&acc)[K], T (*red)[kWarps], 
 }
 
 // partials = [gridDim.x, 6m]: per ring row j, (S_j.y, S_j.s, S_j.d0,
-// Y_j.y, Y_j.s, Y_j.d0); gpartials = [gridDim.x, 2m]: (S_j.gp, Y_j.gp)
-template <typename T, typename H, bool kGp>
+// Y_j.y, Y_j.s, Y_j.d0); gpartials = [gridDim.x, 2m]: (S_j.gp, Y_j.gp).
+// K5: a = d (b and pg unused); K12 (kXg): a = x, b = xp (stp unused)
+template <typename T, typename H, bool kGp, bool kXg>
 __global__ void __launch_bounds__(kThreads)
-pair_gram_kernel(T stp, const T* __restrict__ d, const T* __restrict__ gx,
-                 const T* __restrict__ gp, H* __restrict__ S, H* __restrict__ Y,
+pair_gram_kernel(T stp, const T* __restrict__ a, const T* __restrict__ b,
+                 const T* __restrict__ gx, const T* __restrict__ gp,
+                 const T* __restrict__ pg, H* __restrict__ S, H* __restrict__ Y,
                  T* __restrict__ partials, T* __restrict__ gpartials, long long n, int m,
                  int end) {
   __shared__ T red[6][kWarps];
@@ -107,10 +117,15 @@ pair_gram_kernel(T stp, const T* __restrict__ d, const T* __restrict__ gx,
   for (int k = 0; k < kPerThread; ++k) {
     const long long i = base + k * kThreads + threadIdx.x;
     if (i < n) {
-      s[k] = stp * d[i];
+      if constexpr (kXg) {
+        s[k] = a[i] - b[i];
+        d0[k] = -pg[i];
+      } else {
+        s[k] = stp * a[i];
+        d0[k] = -gx[i];
+      }
       const T gpv = gp[i];
       y[k] = gx[i] - gpv;
-      d0[k] = -gx[i];
       g0[k] = gpv;
       // the new pair into ring row `end`, rounded to the history type
       S[end * n + i] = narrow<H, T>(s[k]);
@@ -148,29 +163,31 @@ pair_gram_kernel(T stp, const T* __restrict__ d, const T* __restrict__ gx,
   }
 }
 
-template <typename T, typename H, bool kGp>
-void launch_pair_gram(double stp, const void* d, const void* gx, const void* gp, void* S,
-                      void* Y, void* partials, void* gpartials, long long n, int m, int end,
-                      void* stream) {
+template <typename T, typename H, bool kGp, bool kXg>
+int launch_pair_gram(double stp, const void* a, const void* b, const void* gx, const void* gp,
+                     const void* pg, void* S, void* Y, void* partials, void* gpartials,
+                     long long n, int m, int end, void* stream) {
+  if (n <= 0 || m < 1 || end < 0 || end >= m) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kBlockElems - 1) / kBlockElems;
-  pair_gram_kernel<T, H, kGp><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<T>(stp), static_cast<const T*>(d), static_cast<const T*>(gx),
-      static_cast<const T*>(gp), static_cast<H*>(S), static_cast<H*>(Y),
-      static_cast<T*>(partials), static_cast<T*>(gpartials), n, m, end);
+  pair_gram_kernel<T, H, kGp, kXg><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                     reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<T>(stp), static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const T*>(gx), static_cast<const T*>(gp), static_cast<const T*>(pg),
+      static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials),
+      static_cast<T*>(gpartials), n, m, end);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename H>
 int pair_gram(double stp, const void* d, const void* gx, const void* gp, void* S, void* Y,
               void* partials, void* gpartials, long long n, int m, int end, int with_gp,
               void* stream) {
-  if (n <= 0 || m < 1 || end < 0 || end >= m) return static_cast<int>(cudaErrorInvalidValue);
   if (with_gp) {
-    launch_pair_gram<T, H, true>(stp, d, gx, gp, S, Y, partials, gpartials, n, m, end, stream);
-  } else {
-    launch_pair_gram<T, H, false>(stp, d, gx, gp, S, Y, partials, gpartials, n, m, end, stream);
+    return launch_pair_gram<T, H, true, false>(stp, d, nullptr, gx, gp, nullptr, S, Y,
+                                               partials, gpartials, n, m, end, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_pair_gram<T, H, false, false>(stp, d, nullptr, gx, gp, nullptr, S, Y,
+                                              partials, gpartials, n, m, end, stream);
 }
 
 }  // namespace
@@ -194,5 +211,20 @@ LBFGS_PAIR_GRAM_ENTRY(f32_f32, float, float)
 LBFGS_PAIR_GRAM_ENTRY(f64_f64, double, double)
 
 #undef LBFGS_PAIR_GRAM_ENTRY
+
+#define LBFGS_PAIR_GRAM_XG_ENTRY(SFX, T, H)                                               \
+  int lbfgs_pair_gram_xg_##SFX(const void* x, const void* xp, const void* gx,            \
+                               const void* gp, const void* pg, void* S, void* Y,         \
+                               void* partials, long long n, int m, int end,              \
+                               void* stream) {                                           \
+    return launch_pair_gram<T, H, false, true>(0.0, x, xp, gx, gp, pg, S, Y, partials,   \
+                                               nullptr, n, m, end, stream);              \
+  }
+
+LBFGS_PAIR_GRAM_XG_ENTRY(f32_bf16, float, __nv_bfloat16)
+LBFGS_PAIR_GRAM_XG_ENTRY(f32_f32, float, float)
+LBFGS_PAIR_GRAM_XG_ENTRY(f64_f64, double, double)
+
+#undef LBFGS_PAIR_GRAM_XG_ENTRY
 
 }  // extern "C"

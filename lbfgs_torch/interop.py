@@ -1,10 +1,12 @@
-"""Solver state carried between this package and ``lbfgs_tpu``.
+"""Solver state and data carried between this package and ``lbfgs_tpu``.
 
 Extended Rosenbrock has no weights, so the solver state is what a run on
 one side must hand the other: ``state_from_jax`` takes a ``lbfgs_tpu``
 ``SolverState`` whose leaves are numpy arrays (``np.asarray`` of each
 leaf) and builds this package's state on a device; ``state_to_numpy`` is
-the reverse.  Neither imports JAX.
+the reverse.  The Poisson regression's "weights" are its data:
+``logistic_objective`` makes the port's objective from numpy (X, y) on a
+device.  None of them imports JAX.
 
 Layouts: the JAX package may store the (s, y) history ring-major,
 ``[m, n/128, 128]`` (``lbfgs_tpu/core.py:113-129``); here it is always
@@ -33,14 +35,16 @@ def _tensor(a, device) -> torch.Tensor:
 def state_from_jax(tree: Any, device) -> SolverState:
     """This package's ``SolverState`` from a JAX ``SolverState`` with
     numpy leaves, the OWL-QN pseudo-gradient included.  Host scalars keep
-    the vectors' dtype; the speculative-probe and wide-fx slots are not
-    carried (unported)."""
+    the vectors' dtype, except fx and the fx ring, which keep their own:
+    float64 in a wide (``fx_wide``) state over float32 vectors.  The
+    speculative-probe slots are not carried (unported)."""
     p, h = tree.prob, tree.hist
     f = np.asarray(p.x).dtype.type
     m = np.asarray(h.s).shape[0]
     vec = lambda a: None if a is None else _tensor(a, device)
+    fx = np.asarray(p.fx)
     prob = ProblemState(
-        x=vec(p.x), fx=f(np.asarray(p.fx)), gx=vec(p.gx),
+        x=vec(p.x), fx=fx.dtype.type(fx), gx=vec(p.gx),
         xp=vec(p.xp), gp=vec(p.gp), pg=vec(p.pg), d=vec(p.d),
         neval=int(np.asarray(p.neval)),
         gnorm2=f(np.asarray(p.gnorm2)), xnorm2=f(np.asarray(p.xnorm2)),
@@ -62,6 +66,15 @@ def state_from_jax(tree: Any, device) -> SolverState:
     )
 
 
+def logistic_objective(X, y, device, prec: float = 0.0):
+    """The port's Poisson-regression objective over numpy (X, y), moved to
+    ``device`` in their own dtype (``models.logistic.make_objective``)."""
+    from .models import logistic
+
+    return logistic.make_objective(torch.from_numpy(np.array(X)).to(device),
+                                   torch.from_numpy(np.array(y)).to(device), prec=prec)
+
+
 def _numpy(t: torch.Tensor | None):
     if t is None:
         return None
@@ -73,7 +86,8 @@ def _numpy(t: torch.Tensor | None):
 def state_to_numpy(st: SolverState) -> dict:
     """The state as nested dicts of numpy arrays and scalars, with the
     field names of both packages' ``SolverState`` and the history as
-    ``[m, n]`` (reshape for a ring-major JAX layout)."""
+    ``[m, n]`` (reshape for a ring-major JAX layout); fx keeps its own
+    dtype (float64 under the wide objective scalar)."""
     p, h = st.prob, st.hist
     return {
         "prob": {

@@ -7,13 +7,21 @@ JAX package's float32 search does), and each trip reads exactly two
 scalars from the device, (ft, g.d), in one transfer (``core.to_host``).
 The vectors never leave the device.
 
+Under the wide objective scalar (``params.fx_wide``) the f-values (finit,
+ft, and More-Thuente's fx, fy) are ``np.float64`` while the step and
+derivative scalars stay in the vectors' dtype, as in the JAX package
+(``lbfgs_tpu/linesearch.py:136-152, 423-439``): numpy promotes a float64
+f-value against a float32 step to float64 where they meet, and the
+results are cast back, the geometry to the vectors' dtype and the
+f-values to their own.
+
 For objectives with the fused protocol (``__lbfgs_trial_probe__``, or
-under OWL-QN ``__lbfgs_owlqn_probe_pg__``) each trip is one probe kernel
-that writes no vector; the accepted point is materialized afterwards,
-either by one trial here (``materialize=True``, plain L-BFGS only) or by
-the solver's one-pass epilogue (``materialize=False``).  Generic
-objectives, and OWL-QN searches that materialize, evaluate (x, f, g) on
-every trip.
+under OWL-QN ``__lbfgs_owlqn_probe_pg__`` / ``__lbfgs_owlqn_probe__``)
+each trip is one probe kernel that writes no vector; the accepted point
+is materialized afterwards, either by one trial here
+(``materialize=True``: K1, or under OWL-QN K7) or by the solver's
+one-pass epilogue (``materialize=False``).  Generic objectives evaluate
+(x, f, g) on every trip, under OWL-QN at the projected point of K9.
 
 Routing (``find``, reference ``src/line.rs:193-223``): More-Thuente only
 when the algorithm selects it AND OWL-QN is off; otherwise backtracking,
@@ -39,7 +47,7 @@ import numpy as np
 import torch
 
 from . import orthantwise as ow_ops
-from .core import ProblemDef, evaluate, to_host
+from .core import ProblemDef, evaluate, np_type, to_host
 from .ops import fused
 from .params import LineSearchAlgorithm, LineSearchParams
 from .status import Status
@@ -127,8 +135,9 @@ def update_trial_interval(x, fx, dx, y, fy, dy, t, ft, dt, tmin, tmax,
     """MCSTEP (reference ``mcstep::update_trial_interval``,
     ``src/line.rs:446-606``): 4-case cubic/quadratic trial selection,
     interval endpoint update, [tmin, tmax] clipping and the 0.66
-    far-endpoint safeguard.  Arguments are numpy scalars of one dtype;
-    the arithmetic stays in it."""
+    far-endpoint safeguard.  Arguments are numpy scalars of the step's
+    dtype and the f-values (fx, fy, ft) of their own; the f-values enter
+    the geometry only through their differences."""
     brackt = bool(brackt)
     with np.errstate(all="ignore"):
         dsign = dt * (dx / np.abs(dx)) < 0.0
@@ -188,10 +197,14 @@ def update_trial_interval(x, fx, dx, y, fy, dy, t, ft, dt, tmin, tmax,
             mq_s = x_new + 0.66 * (y_new - x_new)
             newt = np.minimum(newt, mq_s) if x_new < y_new else np.maximum(newt, mq_s)
 
+    # the geometry back to the step's dtype, the f-values to their own
+    # (float64 under the wide objective scalar; lbfgs_tpu/linesearch.py:
+    # 232-241)
     cast = np.asarray(t).dtype.type
+    fcast = np.result_type(fx, fy, ft).type
     return McstepResult(
-        x=cast(x_new), fx=cast(fx_new), dx=cast(dx_new), y=cast(y_new),
-        fy=cast(fy_new), dy=cast(dy_new), t=cast(newt), brackt=brackt_new,
+        x=cast(x_new), fx=fcast(fx_new), dx=cast(dx_new), y=cast(y_new),
+        fy=fcast(fy_new), dy=cast(dy_new), t=cast(newt), brackt=brackt_new,
         status=err,
     )
 
@@ -226,26 +239,36 @@ def _has_fused_trial(pdef: ProblemDef) -> bool:
             and not pdef.orthantwise)
 
 
+def _has_fused_owlqn_trial(pdef: ProblemDef) -> bool:
+    """The OWL-QN counterpart: the objective has the projected trial K7
+    (``__lbfgs_owlqn_trial__``), so a materializing OWL-QN search probes
+    each trip and materializes once (``lbfgs_tpu/linesearch.py:293-312``)."""
+    return (pdef.orthantwise
+            and getattr(pdef.value_and_grad, "__lbfgs_owlqn_trial__", None) is not None)
+
+
 def _owlqn_args(pdef: ProblemDef, n: int):
     start, end = pdef.owlqn.start_end(n)
     return pdef.owlqn.c, start, end
 
 
-def _probe(pdef: ProblemDef, xp, d, stp, pg=None):
+def _probe(pdef: ProblemDef, xp, d, stp, wp=None, wp_is_pg=False):
     """(ft, dg) of one trial on the host, without materializing the trial
     point or gradient: the objective's probe kernel when it has one.
-    Under OWL-QN the probe (K8) is projected onto the orthant that it
-    rebuilds in registers from (xp, pg)."""
+    Under OWL-QN the probe (K8) is projected onto the orthant ``wp``, or
+    with ``wp_is_pg`` onto the one it rebuilds in registers from (xp,
+    pg)."""
     vag = pdef.value_and_grad
     if pdef.orthantwise:
         c, start, end = _owlqn_args(pdef, xp.shape[0])
-        ft, dg = vag.__lbfgs_owlqn_probe_pg__(xp, d, pg, stp, c, start, end)
+        probe = vag.__lbfgs_owlqn_probe_pg__ if wp_is_pg else vag.__lbfgs_owlqn_probe__
+        ft, dg = probe(xp, d, wp, stp, c, start, end)
     elif getattr(vag, "__lbfgs_trial_probe__", None) is not None:
         ft, dg = vag.__lbfgs_trial_probe__(xp, d, stp)
     else:
         res = vag.__lbfgs_trial__(xp, d, stp)
         ft, dg = res[1], res[3]
-    return tuple(to_host(ft, dg))
+    return to_host(ft, dg)
 
 
 def _trial(pdef: ProblemDef, xp, d, stp, wp=None):
@@ -253,13 +276,17 @@ def _trial(pdef: ProblemDef, xp, d, stp, wp=None):
     device tensors — the objective's fused trial when it has one
     (reference ``take_line_step`` + ``evaluate`` + the dg dot,
     ``src/line.rs:285-290``).  Under OWL-QN the point is projected onto
-    ``wp`` (the plain stand-in of the JAX package's K9) and ft includes
-    the L1 term."""
+    ``wp`` and ft includes the L1 term: K7 gives (xt, ft, gt, g.d, xx,
+    changed) where the objective has it, else the projected point comes
+    from K9 and the objective is evaluated there
+    (``lbfgs_tpu/linesearch.py:272-283, 345-363``)."""
     if _has_fused_trial(pdef):
         return pdef.value_and_grad.__lbfgs_trial__(xp, d, stp)
     if pdef.orthantwise:
-        start, end = pdef.owlqn.start_end(xp.shape[0])
-        xt = fused.owlqn_trial_step_ref(xp, d, wp, stp, start, end)
+        c, start, end = _owlqn_args(pdef, xp.shape[0])
+        if _has_fused_owlqn_trial(pdef):
+            return pdef.value_and_grad.__lbfgs_owlqn_trial__(xp, d, wp, stp, c, start, end)
+        xt = fused.owlqn_trial_step(xp, d, wp, stp, start, end)
     else:
         xt = xp + float(stp) * d
     ft, gt = evaluate(pdef, xt)
@@ -293,8 +320,11 @@ def morethuente(
     counted in ``neval`` since it repeats an evaluation of the loop, or
     left to the caller (``materialize=False``: x/gx/gg/xx/changed None).
     """
-    f = np.dtype(finit.dtype).type
-    finit, dginit = f(finit), f(dginit)
+    # step and derivative scalars in the vectors' dtype, f-values in their
+    # own (float64 under the wide objective scalar)
+    f = np_type(xp.dtype)
+    ff = np.dtype(finit.dtype).type
+    finit, dginit = ff(finit), f(dginit)
     ftol, gtol, xtol = f(ls.ftol), f(ls.gtol), f(ls.xtol)
     min_step, max_step = f(ls.min_step), f(ls.max_step)
     max_ls = ls.max_linesearch
@@ -335,7 +365,7 @@ def morethuente(
             else:
                 xt, ft_t, gt, dg_t = _trial(pdef, xp, d, stp)[:4]
                 ft, dg = to_host(ft_t, dg_t)
-            ft, dg = f(ft), f(dg)
+            ft, dg = ff(ft), f(dg)
             neval += 1
             ftest1 = finit + stp * dgtest
 
@@ -375,7 +405,7 @@ def morethuente(
                 )
                 fx_n, fy_n, dgx_n, dgy_n = mcs.fx, mcs.fy, mcs.dx, mcs.dy
             stx, sty = mcs.x, mcs.y
-            fx, fy, dgx, dgy = f(fx_n), f(fy_n), f(dgx_n), f(dgy_n)
+            fx, fy, dgx, dgy = ff(fx_n), ff(fy_n), f(dgx_n), f(dgy_n)
             stp_n = mcs.t
             brackt = mcs.brackt
             if status == 0 and mcs.status != 0:
@@ -431,6 +461,7 @@ def backtracking(
     neval0: int,
     wp: Optional[torch.Tensor] = None,
     materialize: bool = True,
+    wp_is_pg: bool = False,
 ) -> LineSearchResult:
     """Backtracking search with the Armijo / Wolfe / strong-Wolfe exit
     ladder (reference ``line_search_backtracking``, ``src/line.rs:716-784``):
@@ -440,14 +471,18 @@ def backtracking(
 
     Under OWL-QN every trial point is projected onto the orthant chosen
     before the loop (``src/line.rs:733-736``), and only the Armijo exit
-    applies (``src/line.rs:747-751``).  ``wp`` is that orthant when the
-    trials materialize; in remat mode (``materialize=False``) it is the
-    pseudo-gradient at xp, from which each probe rebuilds the orthant in
-    registers.  A fused plain trial is remat too; see ``morethuente``
-    for ``materialize``.
+    applies (``src/line.rs:747-751``).  ``wp`` is that orthant, or with
+    ``wp_is_pg`` the pseudo-gradient at xp, from which each probe
+    rebuilds the orthant in registers.  A fused trial (K1, or under
+    OWL-QN K7) makes the search remat: each trip probes, and the
+    accepted point is materialized once (``materialize``, see
+    ``morethuente``).  The Armijo test compares the float64 ft with
+    finit + stp*dgtest, the product in the vectors' dtype, under the wide
+    objective scalar (``lbfgs_tpu/linesearch.py:778``).
     """
-    f = np.dtype(finit.dtype).type
-    finit, dginit = f(finit), f(dginit)
+    f = np_type(xp.dtype)
+    ff = np.dtype(finit.dtype).type
+    finit, dginit = ff(finit), f(dginit)
     dec, inc = f(0.5), f(2.1)
     dgtest = f(ls.ftol) * dginit
     gtol = f(ls.gtol)
@@ -456,7 +491,7 @@ def backtracking(
                    or pdef.orthantwise)
     wolfe = ls.algorithm == LineSearchAlgorithm.BacktrackingWolfe
     max_ls = ls.max_linesearch
-    remat = _has_fused_trial(pdef) or (pdef.orthantwise and not materialize)
+    remat = _has_fused_trial(pdef) or _has_fused_owlqn_trial(pdef) or wp_is_pg
 
     stp, stp_eval = f(stp0), f(0.0)
     count, done, result, status = 1, False, max_ls, 0
@@ -467,11 +502,11 @@ def backtracking(
     with np.errstate(all="ignore"):
         while not done and count < max_ls:
             if remat:
-                ft, dg = _probe(pdef, xp, d, stp, wp)
+                ft, dg = _probe(pdef, xp, d, stp, wp, wp_is_pg)
             else:
                 xt, ft_t, gt, dg_t = _trial(pdef, xp, d, stp, wp)[:4]
                 ft, dg = to_host(ft_t, dg_t)
-            ft, dg = f(ft), f(dg)
+            ft, dg = ff(ft), f(dg)
             neval += 1
 
             armijo_fail = ft > finit + stp * dgtest
@@ -516,9 +551,14 @@ def backtracking(
             x=None, fx=ft, gx=None, step=stp, ncall=ncall, neval=neval,
             status=status, step_eval=stp_eval,
         )
-    if remat:
-        # plain L-BFGS only (see _has_fused_trial): one deterministic
-        # re-evaluation, whose fx equals the probe's
+    if remat and pdef.orthantwise:
+        # K7 at the accepted step: its ft equals the probe's bit for bit
+        # (the remat contract), so the host value ft stands; the solver
+        # needs ||pg||^2, not ||g||^2
+        xt, _ft, gt, _dg, xx, changed = _trial(pdef, xp, d, stp_eval, wp)
+        gg = None
+    elif remat:
+        # one deterministic re-evaluation, whose fx equals the probe's
         xt, _ft, gt, _dg, gg, xx, changed = _trial(pdef, xp, d, stp_eval)
     else:
         # under OWL-QN the solver needs ||pg||^2, not ||g||^2
@@ -594,7 +634,8 @@ def find(
         return morethuente(pdef, ls, xp, finit, gp, d, stp0, dginit, neval0,
                            materialize=materialize)
     wp = None
+    wp_is_pg = ow and not materialize
     if ow:
-        wp = pgp if not materialize else ow_ops.choose_orthant(pdef.owlqn, xp, pgp)
+        wp = pgp if wp_is_pg else ow_ops.choose_orthant(pdef.owlqn, xp, pgp)
     return backtracking(pdef, ls, xp, finit, gp, d, stp0, dginit, neval0, wp,
-                        materialize=materialize)
+                        materialize=materialize, wp_is_pg=wp_is_pg)

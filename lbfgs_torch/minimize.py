@@ -19,6 +19,7 @@ from __future__ import annotations
 import logging
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from .core import (
@@ -56,7 +57,7 @@ def _make_pdef(evaluate: Callable, params: LbfgsParams) -> ProblemDef:
 
 def _report(st: SolverState) -> Report:
     return Report(
-        fx=float(st.prob.fx),
+        fx=np.float64(st.prob.fx),
         xnorm=float(xnorm_of(st.prob)),
         gnorm=float(gnorm_of(st.prob)),
         neval=st.prob.neval,
@@ -116,8 +117,9 @@ class LbfgsState:
             if ls_code != 0:
                 # vector revert (reference Problem::revert, src/core.rs:201-210),
                 # the pseudo-gradient with them under OWL-QN (pg is a
-                # function of (x, g): recomputed, as the JAX package does);
-                # the carried scalars were reverted inside propagate
+                # function of (x, g): recomputed by K11, as the JAX package
+                # does, lbfgs_tpu/minimize.py:136-139); the carried scalars
+                # were reverted inside propagate
                 st = self.state
                 prob = st.prob._replace(x=st.prob.xp, gx=st.prob.gp)
                 if self.pdef.orthantwise:
@@ -132,7 +134,7 @@ class LbfgsState:
         return Progress(
             x=st.prob.x,
             gx=st.prob.gx,
-            fx=float(st.prob.fx),
+            fx=np.float64(st.prob.fx),
             xnorm=float(xnorm_of(st.prob)),
             gnorm=float(gnorm_of(st.prob)),
             step=float(st.step_ls),

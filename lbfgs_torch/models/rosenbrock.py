@@ -17,11 +17,12 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import factory
+from ..ops import factory, fused
 
 
 def _plain_value_and_grad(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """fx and the gradient on the pair view [n/2, 2] of x."""
+    """fx and the gradient on the pair view [n/2, 2] of x; fx through
+    ``fused.obj_sum``, so the wide objective scalar sums it in float64."""
     _check_even(x.shape[0])
     pairs = x.view(-1, 2)
     xe, xo = pairs[:, 0], pairs[:, 1]
@@ -29,7 +30,7 @@ def _plain_value_and_grad(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     t2 = 10.0 * (xo - xe * xe)
     go = 20.0 * t2
     ge = -2.0 * (xe * go + t1)
-    fx = torch.sum(t1 * t1 + t2 * t2)
+    fx = fused.obj_sum(t1 * t1 + t2 * t2)
     return fx, torch.stack([ge, go], dim=1).reshape(-1)
 
 
@@ -59,6 +60,8 @@ probe_ref = _k.probe_ref
 trial_pair_gram = _k.trial_pair_gram
 trial_pair_gram_ref = _k.trial_pair_gram_ref
 trial_pair_gram_ok = _k.trial_pair_gram_ok
+owlqn_trial = _k.owlqn_trial
+owlqn_trial_ref = _k.owlqn_trial_ref
 owlqn_probe = _k.owlqn_probe
 owlqn_probe_ref = _k.owlqn_probe_ref
 owlqn_probe_pg = _k.owlqn_probe_pg

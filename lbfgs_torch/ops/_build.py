@@ -33,7 +33,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "lbfgs_combine_block_elems": ([], ctypes.c_int),
     "lbfgs_combine_max_m": ([], ctypes.c_int),
-    "lbfgs_pseudo_grad_norm_block_elems": ([], ctypes.c_int),
+    "lbfgs_owlqn_block_elems": ([], ctypes.c_int),
     "lbfgs_pair_gram_block_elems": ([], ctypes.c_int),
     "lbfgs_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     **{
@@ -58,8 +58,24 @@ _SIGNATURES = {
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{
+        f"lbfgs_pair_gram_xg_{sfx}": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P],
+            ctypes.c_int)
+        for sfx in ("f32_bf16", "f32_f32", "f64_f64")
+    },
+    **{
         f"lbfgs_pseudo_grad_norm_{sfx}": (
             [_P, _P, ctypes.c_double, _LL, _LL, _P, _P, _LL, _P], ctypes.c_int)
+        for sfx in ("f32", "f64")
+    },
+    **{
+        f"lbfgs_pseudo_grad_{sfx}": (
+            [_P, _P, ctypes.c_double, _LL, _LL, _P, _LL, _P], ctypes.c_int)
+        for sfx in ("f32", "f64")
+    },
+    **{
+        f"lbfgs_owlqn_trial_step_{sfx}": (
+            [_P, _P, _P, ctypes.c_double, _LL, _LL, _P, _LL, _P], ctypes.c_int)
         for sfx in ("f32", "f64")
     },
 }

@@ -1,11 +1,11 @@
 """Triton kernels K1 (trial), K2 (probe), K4 (trial + pair + Gram), and
-OWL-QN's K8 (projected probe) and K14 (projected trial + pseudo-gradient
-+ pair + Gram).
+OWL-QN's K7 (projected trial), K8 (projected probe) and K14 (projected
+trial + pseudo-gradient + pair + Gram).
 
 This module imports ``triton`` at the top, so only the launching wrappers
 in ``ops/factory.py`` import it, at their first launch on a CUDA tensor.
 
-All three kernels take the objective's per-block body as the
+Every kernel takes the objective's per-block body as the
 ``tl.constexpr`` parameter ``body``: a ``@triton.jit`` function
 ``body(x, gidx) -> (fx_elem, g)`` over one [ROWS, W] block of the iterate
 (``gidx`` its global element indices; elements couple only inside a row
@@ -42,13 +42,24 @@ nothing that is not a result:
     ``WITH_GP`` (the damped path) it adds the 2m products S_j.gp, Y_j.gp
     into partials of their own: gp already streams, so no byte is added,
     and the other partials are those of the plain launch bit for bit.
-  * K8 ``owlqn_probe_kernel`` (replaces factory.py:_owlqn_probe_body):
+  * K7 ``owlqn_trial_kernel`` (replaces factory.py:_owlqn_trial_kernel):
     the OWL-QN trial point x = pi(xp + stp*d; wp) inside the window
-    [lo, hi), and per program the objective, the window's sum |x| and
-    g.d, writing no vector.  With ``WP_IS_PG`` the third operand is the
-    pseudo-gradient and the orthant wp is rebuilt in registers from
+    [lo, hi), its gradient, and per program the objective, the window's
+    sum |x|, g.d, x.x and the changed count.  It reads xp, d, wp and
+    writes x, g (20 B/elem in f32).  The wide mode's init and the
+    materializing OWL-QN search run it.
+  * K8 ``owlqn_probe_kernel`` (replaces factory.py:_owlqn_probe_body):
+    the same point, and per program the objective, the window's sum |x|
+    and g.d, writing no vector.  With ``WP_IS_PG`` the third operand is
+    the pseudo-gradient and the orthant wp is rebuilt in registers from
     (xp, pg), as ``orthantwise.choose_orthant`` would materialize it, so
     the search needs no orthant pass (12 B/elem in f32 either way).
+    K7 and K8 write their objective, L1 and g.d partials through one
+    function (``_store_ow_probe``) into [programs, 3] arrays, which the
+    wrappers reduce by one code path: at the same step and orthant K7's
+    ft and g.d are K8's bit for bit (the remat contract; K7's x.x and
+    changed go to an array of their own, since a column of a wider
+    partials array would be summed in another order).
   * K14 ``owlqn_trial_pair_gram_kernel`` (replaces
     factory.py:_owlqn_tpg_kernel): the accepted projected point x with wp
     rebuilt from (xp, pg_old), its gradient g and pseudo-gradient pg, the
@@ -102,6 +113,15 @@ def _ow_point(xp, d, stp, wp_sign, in_win):
     # x = pi(xp + stp*d; wp) inside the window
     xr = xp + stp * d
     return tl.where(in_win & (_msign(xr) != wp_sign), 0.0, xr)
+
+
+@triton.jit
+def _store_ow_probe(part_ptr, fe, x, g, d, mask, in_win):
+    # the objective's, the window's |x| and g.d partials of K7 and K8
+    part = part_ptr + tl.program_id(0) * 3
+    tl.store(part + 0, _block_sum(fe, mask))
+    tl.store(part + 1, _block_sum(tl.abs(x), mask & in_win))
+    tl.store(part + 2, _block_sum(g * d, mask))
 
 
 @triton.jit
@@ -197,6 +217,26 @@ def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
 
 
 @triton.jit(do_not_specialize=["lo", "hi"])
+def owlqn_trial_kernel(xp_ptr, d_ptr, wp_ptr, stp_ptr, xt_ptr, g_ptr, ppart_ptr, part_ptr,
+                       n, lo, hi, body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr):
+    offs = _offsets(ROWS, W)
+    mask = offs < n
+    stp = tl.load(stp_ptr)
+    xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+    wp = tl.load(wp_ptr + offs, mask=mask, other=0.0)
+    in_win = (offs >= lo) & (offs < hi)
+    x = _ow_point(xp, d, stp, _msign(wp), in_win)
+    fe, g = body(x, offs)
+    tl.store(xt_ptr + offs, x, mask=mask)
+    tl.store(g_ptr + offs, g, mask=mask)
+    _store_ow_probe(ppart_ptr, fe, x, g, d, mask, in_win)
+    part = part_ptr + tl.program_id(0) * 2
+    tl.store(part + 0, _block_sum(x * x, mask))
+    tl.store(part + 1, _block_sum(tl.where(x != xp, 1.0, 0.0).to(x.dtype), mask))
+
+
+@triton.jit(do_not_specialize=["lo", "hi"])
 def owlqn_probe_kernel(xp_ptr, d_ptr, w_ptr, stp_ptr, part_ptr, n, lo, hi,
                        body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
                        WP_IS_PG: tl.constexpr):
@@ -214,10 +254,7 @@ def owlqn_probe_kernel(xp_ptr, d_ptr, w_ptr, stp_ptr, part_ptr, n, lo, hi,
     in_win = (offs >= lo) & (offs < hi)
     x = _ow_point(xp, d, stp, wp_sign, in_win)
     fe, g = body(x, offs)
-    part = part_ptr + tl.program_id(0) * 3
-    tl.store(part + 0, _block_sum(fe, mask))
-    tl.store(part + 1, _block_sum(tl.abs(x), mask & in_win))
-    tl.store(part + 2, _block_sum(g * d, mask))
+    _store_ow_probe(part_ptr, fe, x, g, d, mask, in_win)
 
 
 @triton.jit(do_not_specialize=["end", "lo", "hi"])

@@ -12,9 +12,13 @@ protocol the solver looks for:
     correction pair written into ring row ``end``, and all 6m Gram
     products in one pass (the iteration's epilogue); ``with_gp=True``
     adds the damped update's . gp column;
+  * ``__lbfgs_owlqn_trial__`` — K7: the OWL-QN trial point pi(xp +
+    stp*d; wp) and its gradient, with fx + c*L1, g.d, x.x and changed from
+    one pass (the wide mode's init, and the OWL-QN search when the
+    solver's epilogue does not materialize);
   * ``__lbfgs_owlqn_probe__`` / ``__lbfgs_owlqn_probe_pg__`` — K8: (fx +
-    c*L1, g.d) at the OWL-QN trial point pi(xp + stp*d; wp), the orthant
-    given, or rebuilt in registers from (xp, pg);
+    c*L1, g.d) at the same point, writing no vector, the orthant given,
+    or rebuilt in registers from (xp, pg);
   * ``__lbfgs_owlqn_trial_pair_gram__(...)`` / ``..._ok__`` — K14: the
     OWL-QN epilogue, the projected point with its gradient and
     pseudo-gradient, the pair (x - xp, g - gp) written into ring row
@@ -24,13 +28,16 @@ protocol the solver looks for:
     ``__lbfgs_combine_ow__`` — the direction combine (K3,
     ``fused.combine``), its form that persists the damped ring row (K6,
     ``fused.combine_fix``) and its OWL-QN form (K13, ``fused.combine_ow``);
-  * ``__lbfgs_pseudo_gradient_norm__`` — OWL-QN's (pg, pg.pg) (K10,
-    ``fused.pseudo_gradient_norm``), which the solver's init runs.
+  * ``__lbfgs_pseudo_gradient_norm__`` / ``__lbfgs_pseudo_gradient__`` —
+    OWL-QN's (pg, pg.pg) (K10, ``fused.pseudo_gradient_norm``), which the
+    solver's init runs, and pg alone (K11, ``fused.pseudo_gradient``),
+    which the revert of a failed search runs.
 
-The OWL-QN trial with materialized outputs (``__lbfgs_owlqn_trial__``,
-K7 in the JAX package) is not ported: objectives here do not carry it,
-so no OWL-QN path can reach a plain trial unseen.  Under OWL-QN the line
-search probes with K8 and the solver materializes with K14.
+Under the wide objective scalar (``fused.wide_fx``, ``params.fx_wide``)
+the objective's column of K1, K2, K4, K7 and K8 and the L1 column of K7
+and K8 are summed in float64 (``fused.obj_reduce``), and K7's and K8's
+fx + c*L1 is formed in float64; every other output is that of the
+default launch, bit for bit.
 
 Each wrapper launches its Triton kernel (``ops/_factory_triton.py``) on a
 CUDA tensor and runs its plain version (``*_ref``, same module) on a CPU
@@ -57,7 +64,8 @@ from types import SimpleNamespace
 import torch
 
 from . import _build, fused
-from ..orthantwise import Orthantwise, choose_orthant, project_window, pseudo_gradient
+from ..orthantwise import (Orthantwise, choose_orthant, project_window, pseudo_gradient,
+                           x1norm)
 
 #: elements per kernel program (a power of two; ``row`` divides it)
 BLOCK = 1024
@@ -84,10 +92,25 @@ def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     return torch.full((1,), float(v), dtype=like.dtype, device=like.device)
 
 
-def _window(n: int, start: int, end: int) -> tuple[int, int]:
-    if not 0 <= start < end <= n:
-        raise ValueError(f"OWL-QN window [{start}, {end}) outside [0, {n})")
-    return int(start), int(end)
+_window = fused._check_window
+
+
+def _fx(part: torch.Tensor, tot: torch.Tensor) -> torch.Tensor:
+    """The objective from column 0 of a kernel's partials: summed in
+    float64 under the wide mode, else the column's fixed-order sum."""
+    return fused.obj_reduce(part[:, 0]) if fused.wide(part.dtype) else tot[0]
+
+
+def _ow_probe_scalars(part: torch.Tensor, c: float) -> tuple:
+    """(fx + c*L1, g.d) from K7's or K8's [programs, 3] (f, L1, g.d)
+    partials, by one code path for both kernels: fx + c*L1 in float64
+    under the wide mode (``lbfgs_tpu/ops/factory.py:440-448``), else in
+    the vectors' dtype."""
+    tot = fused.reduce_partials(part)
+    if fused.wide(part.dtype):
+        fx, l1 = fused.obj_reduce(part[:, :2])
+        return fx + c * l1, tot[2]
+    return tot[0] + tot[1] * c, tot[2]
 
 
 def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
@@ -125,8 +148,8 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         trial_ref.calls += 1
         xt = xp + float(stp) * d
         fx, g = value_and_grad(xt)
-        return (xt, fx, g, torch.dot(g, d), torch.dot(g, g), torch.dot(xt, xt),
-                torch.any(xt != xp))
+        return (xt, fused.obj_lift(fx, xt.dtype), g, torch.dot(g, d), torch.dot(g, g),
+                torch.dot(xt, xt), torch.any(xt != xp))
 
     def trial(xp, d, stp):
         """(xt, fx, g, g.d, g.g, xt.xt, changed) at xt = xp + stp*d; the
@@ -146,7 +169,7 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         )
         trial.launches += 1
         tot = fused.reduce_partials(part)
-        return xt, tot[0], g, tot[1], tot[2], tot[3], tot[4] > 0
+        return xt, _fx(part, tot), g, tot[1], tot[2], tot[3], tot[4] > 0
 
     # ------------------------------------------------------------ K2 probe
 
@@ -154,7 +177,7 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         """Plain version of ``probe``."""
         probe_ref.calls += 1
         fx, g = value_and_grad(xp + float(stp) * d)
-        return fx, torch.dot(g, d)
+        return fused.obj_lift(fx, xp.dtype), torch.dot(g, d)
 
     def probe(xp, d, stp):
         """(fx, g.d) at xp + stp*d, writing no vector."""
@@ -171,7 +194,7 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         )
         probe.launches += 1
         tot = fused.reduce_partials(part)
-        return tot[0], tot[1]
+        return _fx(part, tot), tot[1]
 
     # ------------------------------------------- K4 trial + pair + Gram
 
@@ -183,8 +206,8 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         fx, g = value_and_grad(x)
         SP, YP = fused.pair_products(stp * d, g - gp, -g, S, Y, end,
                                      gp=gp if with_gp else None)
-        out = (fx, torch.dot(g, d), torch.dot(g, g), torch.dot(x, x),
-               torch.any(x != xp))
+        out = (fused.obj_lift(fx, x.dtype), torch.dot(g, d), torch.dot(g, g),
+               torch.dot(x, x), torch.any(x != xp))
         if inplace:
             xp.copy_(x)
             gp.copy_(g)
@@ -224,7 +247,7 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         SP, YP = P[:, :3], P[:, 3:]
         if with_gp:
             SP, YP = fused.append_gp(SP, YP, fused.reduce_partials(gpart))
-        return (x, tot[0], g, tot[1], tot[2], tot[3], tot[4] > 0, SP, YP)
+        return (x, _fx(part, tot), g, tot[1], tot[2], tot[3], tot[4] > 0, SP, YP)
 
     def trial_pair_gram_ok(xp, S) -> bool:
         # shape and dtype only: a size the objective rejects raises inside
@@ -237,7 +260,40 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         """(x, fx + c*L1, g) at the projected trial point."""
         x = project_window(xp + float(stp) * d, wp, start, end)
         fx, g = value_and_grad(x)
-        return x, fx + torch.sum(torch.abs(x[start:end])) * c, g
+        return x, fused.obj_lift(fx, x.dtype) + x1norm(Orthantwise(c, start, end), x), g
+
+    # ------------------------------------------- K7 OWL-QN trial
+
+    def owlqn_trial_ref(xp, d, wp, stp, c, start, end):
+        """Plain version of ``owlqn_trial``
+        (``lbfgs_tpu/ops/factory.py:579-590``)."""
+        owlqn_trial_ref.calls += 1
+        x, ft, g = _ow_eval(xp, d, wp, stp, c, start, end)
+        return x, ft, g, torch.dot(g, d), torch.dot(x, x), torch.any(x != xp)
+
+    def owlqn_trial(xp, d, wp, stp, c, start, end):
+        """(x, fx + c*L1, g, g.d, x.x, changed) at x = pi(xp + stp*d; wp)
+        inside the window [start, end), from one pass.  Its ft equals
+        ``owlqn_probe``'s at the same step and orthant, bit for bit."""
+        _check(xp)
+        if not fused.on_cuda(xp, "owlqn_trial"):
+            return owlqn_trial_ref(xp, d, wp, stp, c, start, end)
+        fused.check_contiguous("owlqn_trial", xp, d, wp)
+        n = xp.shape[0]
+        lo, hi = _window(n, start, end)
+        grid = _grid(n)
+        x = torch.empty_like(xp)
+        g = torch.empty_like(xp)
+        ppart = torch.empty((grid[0], 3), dtype=xp.dtype, device=xp.device)
+        part = torch.empty((grid[0], 2), dtype=xp.dtype, device=xp.device)
+        _kernels().owlqn_trial_kernel[grid](
+            xp, d, wp, _scalar(stp, xp), x, g, ppart, part, n, lo, hi,
+            body=block_fn(), ROWS=rows, W=row, **LAUNCH,
+        )
+        owlqn_trial.launches += 1
+        ft, dg = _ow_probe_scalars(ppart, c)
+        tot = fused.reduce_partials(part)
+        return x, ft, g, dg, tot[0], tot[1] > 0
 
     def owlqn_probe_ref(xp, d, wp, stp, c, start, end):
         """Plain version of ``owlqn_probe``."""
@@ -262,9 +318,7 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
             xp, d, w, _scalar(stp, xp), part, n, lo, hi,
             body=block_fn(), ROWS=rows, W=row, WP_IS_PG=wp_is_pg, **LAUNCH,
         )
-        tot = fused.reduce_partials(part)
-        # fx + c*L1 from the two columns, in the vectors' dtype
-        return tot[0] + tot[1] * c, tot[2]
+        return _ow_probe_scalars(part, c)
 
     def owlqn_probe(xp, d, wp, stp, c, start, end):
         """(fx + c*L1, g.d) at x = pi(xp + stp*d; wp) inside the window
@@ -352,12 +406,12 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         SP, YP = fused.append_gp(P[:, :3], P[:, 3:], G[2:])
         return x, g, pg_new, SP, YP, tot[0], tot[1], tot[2] > 0, G[0], G[1]
 
-    for fn in (trial, probe, trial_pair_gram, owlqn_probe, owlqn_probe_pg,
+    for fn in (trial, probe, trial_pair_gram, owlqn_trial, owlqn_probe, owlqn_probe_pg,
                owlqn_trial_pair_gram):
         fn.launches = 0
     # the . gp (damped) specialisations of K4 and K14, counted apart too
     trial_pair_gram.gp_launches = owlqn_trial_pair_gram.gp_launches = 0
-    for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_probe_ref,
+    for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_trial_ref, owlqn_probe_ref,
                owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref):
         fn.calls = 0
 
@@ -367,6 +421,7 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         trial_pair_gram=trial_pair_gram,
         trial_pair_gram_ref=trial_pair_gram_ref,
         trial_pair_gram_ok=trial_pair_gram_ok,
+        owlqn_trial=owlqn_trial, owlqn_trial_ref=owlqn_trial_ref,
         owlqn_probe=owlqn_probe, owlqn_probe_ref=owlqn_probe_ref,
         owlqn_probe_pg=owlqn_probe_pg, owlqn_probe_pg_ref=owlqn_probe_pg_ref,
         owlqn_trial_pair_gram=owlqn_trial_pair_gram,
@@ -379,26 +434,27 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
     def plain(x):
         return value_and_grad(x)
 
-    _attach(vag, trial, probe, trial_pair_gram, trial_pair_gram_ok,
+    _attach(vag, trial, probe, trial_pair_gram, trial_pair_gram_ok, owlqn_trial,
             owlqn_probe, owlqn_probe_pg, owlqn_trial_pair_gram,
             fused.combine, fused.combine_fix, fused.combine_ow,
-            fused.pseudo_gradient_norm)
+            fused.pseudo_gradient_norm, fused.pseudo_gradient)
     _attach(plain, trial_ref, probe_ref, trial_pair_gram_ref, trial_pair_gram_ok,
-            owlqn_probe_ref, owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref,
+            owlqn_trial_ref, owlqn_probe_ref, owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref,
             fused.combine_ref, fused.combine_fix_ref, fused.combine_ow_ref,
-            fused.pseudo_gradient_norm_ref)
+            fused.pseudo_gradient_norm_ref, fused.pseudo_gradient_ref)
     vag.kernels = plain.kernels = ns
     vag.plain = plain
     return vag
 
 
-def _attach(obj, trial, probe, tpg, tpg_ok, ow_probe, ow_probe_pg, ow_tpg,
-            combine, combine_fix, combine_ow, pg_norm) -> None:
+def _attach(obj, trial, probe, tpg, tpg_ok, ow_trial, ow_probe, ow_probe_pg, ow_tpg,
+            combine, combine_fix, combine_ow, pg_norm, pg) -> None:
     obj.__lbfgs_value_and_grad__ = True
     obj.__lbfgs_trial__ = trial
     obj.__lbfgs_trial_probe__ = probe
     obj.__lbfgs_trial_pair_gram__ = tpg
     obj.__lbfgs_trial_pair_gram_ok__ = tpg_ok
+    obj.__lbfgs_owlqn_trial__ = ow_trial
     obj.__lbfgs_owlqn_probe__ = ow_probe
     obj.__lbfgs_owlqn_probe_pg__ = ow_probe_pg
     obj.__lbfgs_owlqn_trial_pair_gram__ = ow_tpg
@@ -408,3 +464,4 @@ def _attach(obj, trial, probe, tpg, tpg_ok, ow_probe, ow_probe_pg, ow_tpg,
     obj.__lbfgs_combine_fix__ = combine_fix
     obj.__lbfgs_combine_ow__ = combine_ow
     obj.__lbfgs_pseudo_gradient_norm__ = pg_norm
+    obj.__lbfgs_pseudo_gradient__ = pg

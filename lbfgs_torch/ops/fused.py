@@ -1,4 +1,4 @@
-"""The CUDA C++ kernels (K3, K5, K6, K10, K13) and what the fused kernels
+"""The CUDA C++ kernels (K3, K5, K6, K9-K13) and what the fused kernels
 share.
 
   * ``combine`` (K3) — r = gamma*d + coef_s @ S + coef_y @ Y with ||r||^2
@@ -12,8 +12,13 @@ share.
     into ring row ``end`` and all 6m Gram products (8m with the damped
     update's . gp column), for fused-trial objectives that have no
     one-pass epilogue.
-  * ``pseudo_gradient_norm`` (K10) — OWL-QN's pseudo-gradient and its
-    squared norm in one pass.
+  * ``pair_gram_xg`` (K12) — the same for OWL-QN's composed branch
+    (generic objectives): the pair (x - xp, gx - gp) of the projected
+    step and the products against d0 = -pg.
+  * ``owlqn_trial_step`` (K9) — the projected trial point pi(xp + stp*d;
+    wp) inside the window, for the composed OWL-QN search.
+  * ``pseudo_gradient`` (K11) and ``pseudo_gradient_norm`` (K10) —
+    OWL-QN's pseudo-gradient, alone and with its squared norm.
 
   On a CUDA tensor each launches its hand-written kernel
   (``csrc/combine.cu``, ``csrc/pair_gram.cu``, ``csrc/owlqn.cu``); on a
@@ -23,15 +28,14 @@ share.
     kernel of the package uses: each kernel program writes its own
     partial sums, and this adds them, so no float atomics touch the
     trajectory and runs repeat bit for bit.
+  * the wide objective scalar (``wide_fx``, ``params.fx_wide``):
+    ``obj_reduce`` and ``obj_sum`` take the objective's sums in float64
+    over float32 vectors.
   * ``pair_products`` — the 6m (8m) products of the one-pass epilogues'
-    and K5's plain versions, with row ``end`` taken from the unrounded
-    pair as the kernels hold it in registers.
+    and K5's and K12's plain versions, with row ``end`` taken from the
+    unrounded pair as the kernels hold it in registers.
   * ``pair_gram_ref`` — the composed pair update whose products see the
     STORED pair (the damped composed branch, and generic objectives).
-  * ``pair_gram_xg_ref`` and ``owlqn_trial_step_ref`` — the composed
-    OWL-QN pair update and projected trial point for generic objectives.
-    They are plain stand-ins for kernels not ported yet (K12, K9), so
-    each counts its calls: the main paths on the card make none.
   * the predicates ``can_combine`` / ``can_pair_gram`` and the dtype
     rules all kernels follow.
 
@@ -45,7 +49,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..orthantwise import Orthantwise, project_window, pseudo_gradient
+from .. import orthantwise as ow_ops
+from ..orthantwise import Orthantwise, project_window
 
 #: (vector dtype, history dtype) pairs the kernels take
 SUPPORTED = {
@@ -91,6 +96,82 @@ def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
     """Column sums of a [programs, k] partial-sum array, in a fixed order
     (the same shape always reduces the same way; no atomics)."""
     return partials.sum(dim=0)
+
+
+# ---------------------------------------------------------------------------
+# The wide objective scalar (params.fx_wide)
+# ---------------------------------------------------------------------------
+#
+# float32 vectors cap the objective scalar at ~7 digits: at the n = 1e8
+# OWL-QN scale the L1 term holds fx near 4e7, which float32 resolves only
+# to 4, coarser than the Armijo test's decrease can be.  Under ``wide_fx``
+# every vector stays float32, but the objective's per-program float32
+# partials are summed in float64 outside the kernel, and fx and the
+# line search's f-values carry as float64 on the host.  The solver enters
+# ``wide_fx(params.fx_wide)`` around its work; the kernel wrappers and
+# ``obj_sum`` read it.  Float64 vectors carry fx in float64 already, so the
+# mode changes nothing for them, bit for bit.
+
+_WIDE_FX: list = []
+
+
+class wide_fx:
+    """Context manager: objective scalars of float32 runs reduce and carry
+    in float64 inside."""
+
+    def __init__(self, enabled: bool = True):
+        self._enabled = bool(enabled)
+
+    def __enter__(self):
+        _WIDE_FX.append(self._enabled)
+        return self
+
+    def __exit__(self, *exc):
+        _WIDE_FX.pop()
+        return False
+
+
+def wide(vdtype: torch.dtype) -> bool:
+    """Whether objective scalars of ``vdtype`` vectors take the wide form:
+    under ``wide_fx`` with float32 vectors."""
+    return vdtype == torch.float32 and bool(_WIDE_FX and _WIDE_FX[-1])
+
+
+def obj_dtype(vdtype: torch.dtype) -> torch.dtype:
+    """The dtype objective scalars carry in."""
+    return torch.float64 if wide(vdtype) else vdtype
+
+
+def obj_reduce(parts: torch.Tensor) -> torch.Tensor:
+    """Column sums of a [programs, k] array of objective partials (or the
+    sum of a [programs] one) in float64: the wide form of
+    ``reduce_partials`` for the objective's columns."""
+    return parts.to(torch.float64).sum(dim=0)
+
+
+#: elements per float32 partial in ``obj_sum``'s wide form
+OBJ_SUM_BLOCK = 2048
+
+
+def obj_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum of an objective's terms outside the kernels (the plain
+    versions and generic objectives).  Under the wide mode it is two-stage
+    as the kernels are, float32 sums over blocks of ``OBJ_SUM_BLOCK``
+    elements and a float64 total (``lbfgs_tpu/ops/fused.py:299-313``);
+    the kernels' blocks hold 1024 elements, so the two forms differ in the
+    last bits of the blocks' float32 sums.  Otherwise one plain sum."""
+    if not wide(v.dtype):
+        return torch.sum(v)
+    pad = (-v.shape[0]) % OBJ_SUM_BLOCK
+    if pad:
+        v = torch.cat([v, v.new_zeros(pad)])
+    return obj_reduce(v.reshape(-1, OBJ_SUM_BLOCK).sum(dim=1))
+
+
+def obj_lift(fx: torch.Tensor, vdtype: torch.dtype) -> torch.Tensor:
+    """An objective value in the dtype objective scalars carry in (a
+    no-op when the objective's own ``obj_sum`` made it wide already)."""
+    return fx.to(obj_dtype(vdtype))
 
 
 def _check_hist(d: torch.Tensor, S: torch.Tensor, Y: torch.Tensor) -> None:
@@ -265,10 +346,53 @@ combine_ow.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _check_vectors(kernel: str, *vs: torch.Tensor) -> None:
+    check_dtypes(vs[0].dtype)
+    if vs[0].ndim != 1 or any(v.shape != vs[0].shape or v.dtype != vs[0].dtype
+                              for v in vs):
+        raise ValueError(f"{kernel}: expected [n] vectors of one dtype; got "
+                         f"{[(tuple(v.shape), v.dtype) for v in vs]}")
+
+
+def _check_window(n: int, start: int, end: int) -> tuple[int, int]:
+    if not 0 <= start < end <= n:
+        raise ValueError(f"OWL-QN window [{start}, {end}) outside [0, {n})")
+    return int(start), int(end)
+
+
+def _check_pg(x, g, c: float, start: int, end: int) -> tuple[int, int]:
+    _check_vectors("pseudo_gradient", x, g)
+    if c < 0:
+        raise ValueError(f"invalid orthantwise param c: {c}")
+    return _check_window(x.shape[0], start, end)
+
+
+def _launch_pseudo_grad(name: str, x, g, c: float, start: int, end: int, norm: bool):
+    """Launch K10 (``norm``) or K11 from ``csrc/owlqn.cu``; returns pg and
+    the [blocks, 1] partials of pg . pg (None without the norm)."""
+    check_contiguous(name, x, g)
+    lib = _build.load_library()
+    n = x.shape[0]
+    pg = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if norm:
+        blocks = -(-n // lib.lbfgs_owlqn_block_elems())
+        part = torch.empty((blocks, 1), dtype=x.dtype, device=x.device)
+        code = getattr(lib, f"lbfgs_pseudo_grad_norm_{_SUFFIX[x.dtype]}")(
+            x.data_ptr(), g.data_ptr(), float(c), start, end, pg.data_ptr(),
+            part.data_ptr(), n, stream)
+    else:
+        part = None
+        code = getattr(lib, f"lbfgs_pseudo_grad_{_SUFFIX[x.dtype]}")(
+            x.data_ptr(), g.data_ptr(), float(c), start, end, pg.data_ptr(), n, stream)
+    _build.check_launch(code, name)
+    return pg, part
+
+
 def pseudo_gradient_norm_ref(x, g, c: float, start: int, end: int):
     """Plain version of ``pseudo_gradient_norm``."""
     pseudo_gradient_norm_ref.calls += 1
-    pg = pseudo_gradient(Orthantwise(c=c, start=start, end=end), x, g)
+    pg = ow_ops.pseudo_gradient(Orthantwise(c=c, start=start, end=end), x, g)
     return pg, torch.dot(pg, pg)
 
 
@@ -278,31 +402,83 @@ pseudo_gradient_norm_ref.calls = 0
 def pseudo_gradient_norm(x, g, c: float, start: int, end: int):
     """(pg, pg . pg): OWL-QN's pseudo-gradient (Andrew & Gao Eq. 4, L1
     weight ``c`` on the window [start, end)) and its squared norm in one
-    pass."""
-    check_dtypes(x.dtype)
-    if x.ndim != 1 or g.shape != x.shape or g.dtype != x.dtype:
-        raise ValueError(f"expected x, g [n] of one dtype; got {tuple(x.shape)}, "
-                         f"{tuple(g.shape)}")
-    if c < 0:
-        raise ValueError(f"invalid orthantwise param c: {c}")
+    pass (K10)."""
+    start, end = _check_pg(x, g, c, start, end)
     if not on_cuda(x, "pseudo_gradient_norm"):
         return pseudo_gradient_norm_ref(x, g, c, start, end)
-    check_contiguous("pseudo_gradient_norm", x, g)
-    lib = _build.load_library()
-    n = x.shape[0]
-    blocks = -(-n // lib.lbfgs_pseudo_grad_norm_block_elems())
-    pg = torch.empty_like(x)
-    part = torch.empty((blocks, 1), dtype=x.dtype, device=x.device)
-    fn = getattr(lib, f"lbfgs_pseudo_grad_norm_{_SUFFIX[x.dtype]}")
-    code = fn(x.data_ptr(), g.data_ptr(), float(c), int(start), int(end),
-              pg.data_ptr(), part.data_ptr(), n,
-              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch(code, "pseudo_gradient_norm")
+    pg, part = _launch_pseudo_grad("pseudo_gradient_norm", x, g, c, start, end, True)
     pseudo_gradient_norm.launches += 1
     return pg, reduce_partials(part)[0]
 
 
 pseudo_gradient_norm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: OWL-QN pseudo-gradient alone
+# ---------------------------------------------------------------------------
+
+
+def pseudo_gradient_ref(x, g, c: float, start: int, end: int):
+    """Plain version of ``pseudo_gradient``."""
+    pseudo_gradient_ref.calls += 1
+    return ow_ops.pseudo_gradient(Orthantwise(c=c, start=start, end=end), x, g)
+
+
+pseudo_gradient_ref.calls = 0
+
+
+def pseudo_gradient(x, g, c: float, start: int, end: int):
+    """OWL-QN's pseudo-gradient alone (K11, K10's body without the norm):
+    the same pg as ``pseudo_gradient_norm``, bit for bit.  The generic
+    objectives' init and the revert of a failed search use it."""
+    start, end = _check_pg(x, g, c, start, end)
+    if not on_cuda(x, "pseudo_gradient"):
+        return pseudo_gradient_ref(x, g, c, start, end)
+    pg, _ = _launch_pseudo_grad("pseudo_gradient", x, g, c, start, end, False)
+    pseudo_gradient.launches += 1
+    return pg
+
+
+pseudo_gradient.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: OWL-QN projected trial point
+# ---------------------------------------------------------------------------
+
+
+def owlqn_trial_step_ref(xp, d, wp, stp, start: int, end: int):
+    """Plain version of ``owlqn_trial_step``."""
+    owlqn_trial_step_ref.calls += 1
+    return project_window(xp + float(stp) * d, wp, start, end)
+
+
+owlqn_trial_step_ref.calls = 0
+
+
+def owlqn_trial_step(xp, d, wp, stp, start: int, end: int):
+    """The projected trial point x = pi(xp + stp*d; wp) inside the window
+    [start, end) (K9): zero where signum(x) != signum(wp), the step
+    rounded as xp + round(stp*d), so the point is that of the plain
+    version and of K8's and K14's projection bit for bit.  ``stp`` is a
+    host scalar."""
+    _check_vectors("owlqn_trial_step", xp, d, wp)
+    start, end = _check_window(xp.shape[0], start, end)
+    if not on_cuda(xp, "owlqn_trial_step"):
+        return owlqn_trial_step_ref(xp, d, wp, stp, start, end)
+    check_contiguous("owlqn_trial_step", xp, d, wp)
+    lib = _build.load_library()
+    x = torch.empty_like(xp)
+    code = getattr(lib, f"lbfgs_owlqn_trial_step_{_SUFFIX[xp.dtype]}")(
+        xp.data_ptr(), d.data_ptr(), wp.data_ptr(), float(stp), start, end,
+        x.data_ptr(), xp.shape[0], torch.cuda.current_stream(xp.device).cuda_stream)
+    _build.check_launch(code, "owlqn_trial_step")
+    owlqn_trial_step.launches += 1
+    return x
+
+
+owlqn_trial_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -408,25 +584,48 @@ def pair_gram_sd(stp, d, gx, gp, S, Y, end: int, with_gp: bool = False):
 pair_gram_sd.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K12: OWL-QN pair + Gram update of the composed branch
+# ---------------------------------------------------------------------------
+
+
 def pair_gram_xg_ref(x, xp, gx, gp, pg, S, Y, end: int):
-    """OWL-QN pair + Gram update: s = x - xp (the projected step), y = gx -
-    gp and d0 = -pg, the pair written into ring row ``end``; returns (SP,
-    YP).  The plain stand-in for K12
-    (``lbfgs_tpu/ops/fused.py:_pair_gram_xg_kernel``), whose products of
-    row ``end`` use the unrounded pair as here."""
+    """Plain version of ``pair_gram_xg``: ``pair_products`` of s = x - xp,
+    y = gx - gp and d0 = -pg, the products of row ``end`` from the
+    unrounded pair as K12 holds it in registers."""
     pair_gram_xg_ref.calls += 1
+    end = _check_row(S, end)
     return pair_products(x - xp, gx - gp, -pg, S, Y, end)
 
 
 pair_gram_xg_ref.calls = 0
 
 
-def owlqn_trial_step_ref(xp, d, wp, stp, start: int, end: int):
-    """The projected trial point x = pi(xp + stp*d; wp) inside [start,
-    end).  The plain stand-in for K9
-    (``lbfgs_tpu/ops/fused.py:_trial_step_kernel``)."""
-    owlqn_trial_step_ref.calls += 1
-    return project_window(xp + float(stp) * d, wp, start, end)
+def pair_gram_xg(x, xp, gx, gp, pg, S, Y, end: int):
+    """OWL-QN's pair + Gram update for generic objectives (K12): the pair
+    of the PROJECTED step, s = x - xp and y = gx - gp, written into ring
+    row ``end`` of S and Y in place, rounded to the history dtype, and SP
+    = S . [y, s, -pg], YP = Y . [y, s, -pg] ([m, 3]) over the updated
+    rings, the new row's products from the unrounded pair
+    (``lbfgs_tpu/ops/fused.py:_pair_gram_xg_kernel``)."""
+    _check_hist(x, S, Y)
+    _check_vectors("pair_gram_xg", x, xp, gx, gp, pg)
+    end = _check_row(S, end)
+    if not on_cuda(x, "pair_gram_xg"):
+        return pair_gram_xg_ref(x, xp, gx, gp, pg, S, Y, end)
+    m, n = S.shape
+    check_contiguous("pair_gram_xg", x, xp, gx, gp, pg, S, Y)
+    lib = _build.load_library()
+    blocks = -(-n // lib.lbfgs_pair_gram_block_elems())
+    part = torch.empty((blocks, 6 * m), dtype=x.dtype, device=x.device)
+    fn = getattr(lib, f"lbfgs_pair_gram_xg_{_SUFFIX[x.dtype]}_{_SUFFIX[S.dtype]}")
+    code = fn(x.data_ptr(), xp.data_ptr(), gx.data_ptr(), gp.data_ptr(), pg.data_ptr(),
+              S.data_ptr(), Y.data_ptr(), part.data_ptr(), n, m, end,
+              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(code, "pair_gram_xg")
+    pair_gram_xg.launches += 1
+    P = reduce_partials(part).reshape(m, 6)
+    return P[:, :3], P[:, 3:]
 
 
-owlqn_trial_step_ref.calls = 0
+pair_gram_xg.launches = 0

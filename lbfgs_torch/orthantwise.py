@@ -73,8 +73,17 @@ def project(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def x1norm(ow: Orthantwise, x: torch.Tensor) -> torch.Tensor:
     """c * sum_{i in window} |x_i| (``src/orthantwise.rs:70-79``), a 0-d
-    tensor of x's dtype."""
+    tensor of x's dtype.  Under the wide objective scalar
+    (``ops.fused.wide_fx``) with float32 vectors the sum is two-stage,
+    float32 block sums and a float64 total over the masked vector
+    (``fused.obj_sum``, as ``lbfgs_tpu/orthantwise.py:71-83``), and the
+    result is float64."""
+    from .ops import fused
+
     start, end = ow.start_end(x.shape[0])
+    if fused.wide(x.dtype):
+        mask = ow.window_mask(x.shape[0], x.device)
+        return fused.obj_sum(torch.abs(x) * mask) * ow.c
     return torch.sum(torch.abs(x[start:end])) * ow.c
 
 

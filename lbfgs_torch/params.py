@@ -4,9 +4,10 @@ The reference's builder pattern (``LbfgsParam`` ``src/lbfgs.rs:72-177``
 and the 15 ``with_*`` setters ``src/lbfgs.rs:194-383``; ``LineSearch``
 params ``src/line.rs:91-163``), field for field the same as
 ``lbfgs_tpu.params``.  Some fields select features this package does not
-run yet (the scan two-loop; fx_wide; speculation; the adaptive entry
-step); ``solver.init_state`` raises ``NotImplementedError`` naming them.
-Damping, damping_fixed and gradient_only run, plain and under OWL-QN.
+run yet (the scan two-loop; speculation; the adaptive entry step);
+``solver.init_state`` raises ``NotImplementedError`` naming them.
+Damping, damping_fixed, gradient_only and fx_wide run, plain and under
+OWL-QN.
 
 Defaults are the reference defaults, including the documented quirks:
 ``max_linesearch`` defaults to 20 (the reference docstring claims 40,
@@ -238,7 +239,8 @@ class Lbfgs:
         return self._new(self.param.replace(adaptive_entry_step=float(growth)))
 
     def with_fx_wide(self, enabled: bool = True) -> "Lbfgs":
-        """Wide (f64) objective-scalar carry (extension; not ported yet)."""
+        """Wide objective scalar (extension): fx and the line search's
+        f-values carry as float64 over float32 vectors."""
         return self._new(self.param.replace(fx_wide=bool(enabled)))
 
     def with_history_dtype(self, dtype) -> "Lbfgs":

@@ -18,9 +18,15 @@ run's device; the line search and the control decisions run on the host
   4. one device-to-host read of the scalars the host decides on.
 
 An objective without the one-pass epilogue takes the composed branch:
-the search materializes each trial, and under OWL-QN the pseudo-gradient
-(K10) and the pair update (a plain stand-in) follow as separate passes.
-A fused-trial objective without the epilogue takes K5 for the pair.
+the search materializes each trial (under OWL-QN at K9's projected
+point), and under OWL-QN the pseudo-gradient (K10) and the pair update
+(K12) follow as separate passes.  A fused-trial objective without the
+epilogue takes K5 for the pair.
+
+Under the wide objective scalar (``params.fx_wide``) the solver runs
+inside ``fused.wide_fx``: fx and the line search's f-values carry as
+float64 over float32 vectors (``lbfgs_tpu/solver.py:467-473,
+1133-1147``); nothing else changes.
 
 Powell damping (``src/lbfgs.rs:658-691``) runs on every branch the JAX
 package has.  On the fused branches (K4 or K5 with the . gp column, K14
@@ -51,6 +57,8 @@ from .core import (
     SolverState,
     evaluate,
     gnorm_of,
+    np_type,
+    pseudo_gradient,
     pseudo_gradient_and_norm,
     to_host,
     xnorm_of,
@@ -297,13 +305,19 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
     """One optimization iteration: line search, history update, two-loop,
     step size, and under OWL-QN the direction constraint
     (``LbfgsState::propagate``, ``src/lbfgs.rs:503-560``, minus the k == 1
-    bookkeeping, which the callers do).
+    bookkeeping, which the callers do), under the wide objective scalar
+    when ``params.fx_wide``.
 
     A line-search failure is terminal here: ERR_X_NOT_CHANGED is set in
     the same call (the reference errors on the next propagate, after its
     revert, src/line.rs:213-220); the carried scalars revert here and the
     vectors are reverted by the step-at-a-time loop.
     """
+    with fused.wide_fx(params.fx_wide):
+        return _propagate_core(pdef, params, st)
+
+
+def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> SolverState:
     prob = st.prob
     m = params.m
     lean = prob.xp is None
@@ -365,9 +379,8 @@ def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> So
                                          hist.s, hist.y, end)
         elif ow:
             # composed OWL-QN branch: the pair of the projected step,
-            # s = x - xp, with d0 = -pg (the kernel form, K12, is not
-            # ported yet)
-            SP, YP = fused.pair_gram_xg_ref(x, xp, gx, gp, pg, hist.s, hist.y, end)
+            # s = x - xp, with d0 = -pg, in one pass (K12)
+            SP, YP = fused.pair_gram_xg(x, xp, gx, gp, pg, hist.s, hist.y, end)
         elif ls_changed is not None:
             # fused trial but no one-pass epilogue: K5 from s = stp*d
             # (with the . gp column when damped)
@@ -550,7 +563,6 @@ def check_supported(params: LbfgsParams) -> None:
     ls = params.linesearch
     missing = [
         (not params.compact_two_loop, "compact_two_loop=False (scan two-loop)"),
-        (params.fx_wide, "fx_wide (wide objective scalar)"),
         (int(ls.speculative) > 1, "speculative line search"),
         (params.adaptive_entry_step > 0.0, "adaptive_entry_step"),
     ]
@@ -562,16 +574,22 @@ def check_supported(params: LbfgsParams) -> None:
 def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
                lean: bool = False) -> SolverState:
     """Initial evaluation, steepest-descent direction and initial step
-    (``Lbfgs::build``, ``src/lbfgs.rs:443-481``).
+    (``Lbfgs::build``, ``src/lbfgs.rs:443-481``; ``lbfgs_tpu/solver.py:
+    1159-1201``).
 
     With a fused-trial objective the evaluation is its trial at stp = 0
     (K1): x0 + 0*x0 reproduces x0, and fx, g, ||g||^2 and ||x||^2 come
     out of one pass.  Under OWL-QN fx gains c*||x0||_1 over the window (a
     torch reduction, as the JAX package computes it outside any kernel)
-    and K10 gives the pseudo-gradient and its norm; then d = -pg, the
-    step is initial_inverse_hessian / ||pg|| and dginit = -||pg||^2.
-    ``lean=True`` carries no previous-point slots (the whole-run loop;
-    see ``ProblemState``).
+    and K10 gives the pseudo-gradient and its norm.  Under the wide
+    objective scalar an OWL-QN factory objective is evaluated instead by
+    its projected trial (K7) at stp = 0 with wp = x0, which projects
+    nothing, so fx and its L1 term are summed in float64; the default
+    init keeps its pinned numerics.  A generic objective is evaluated
+    once, and under OWL-QN K11 gives pg and a dot its norm.  Then d =
+    -pg (-g), the step is initial_inverse_hessian / ||d|| and dginit =
+    -||d||^2.  ``lean=True`` carries no previous-point slots (the
+    whole-run loop; see ``ProblemState``).
     """
     check_supported(params)
     fused.check_dtypes(x0.dtype)
@@ -581,24 +599,39 @@ def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
     if (x0.dtype, hdtype) not in fused.SUPPORTED:
         raise NotImplementedError(
             f"history dtype {params.history_dtype} with {x0.dtype} vectors")
-    x0 = x0.contiguous()
-    n, m = x0.shape[0], params.m
-    f = np.dtype(str(x0.dtype).removeprefix("torch.")).type
+    with fused.wide_fx(params.fx_wide):
+        return _init_state(pdef, params, x0.contiguous(), hdtype, lean)
 
-    trial = getattr(pdef.value_and_grad, "__lbfgs_trial__", None)
-    if trial is not None:
-        zero = f(0.0)
-        x, fx_t, gx, _dg, gg_t, xx_t, _ch = trial(x0, x0, zero)
+
+def _init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
+                hdtype: torch.dtype, lean: bool) -> SolverState:
+    n, m = x0.shape[0], params.m
+    f = np_type(x0.dtype)
+    vag = pdef.value_and_grad
+    trial = getattr(vag, "__lbfgs_trial__", None)
+    ow_trial = getattr(vag, "__lbfgs_owlqn_trial__", None)
+    pg = None
+    if pdef.orthantwise and ow_trial is not None and fused.wide(x0.dtype):
+        c, lo, hi = pdef.owlqn.c, *pdef.owlqn.start_end(n)
+        x, fx_t, gx, _dg, xx_t, _ch = ow_trial(x0, x0, x0, f(0.0), c, lo, hi)
+        pg, gg_t = pseudo_gradient_and_norm(pdef, x, gx)
+    elif trial is not None:
+        x, fx_t, gx, _dg, gg_t, xx_t, _ch = trial(x0, x0, f(0.0))
         if pdef.orthantwise:
             fx_t = fx_t + ow_ops.x1norm(pdef.owlqn, x)
+            pg, gg_t = pseudo_gradient_and_norm(pdef, x, gx)
     else:
         x = x0.clone()
         fx_t, gx = evaluate(pdef, x)
-        gg_t, xx_t = torch.dot(gx, gx), torch.dot(x, x)
-    pg = None
-    if pdef.orthantwise:
-        pg, gg_t = pseudo_gradient_and_norm(pdef, x, gx)
-    fx, gnorm2, xnorm2 = (f(v) for v in to_host(fx_t, gg_t, xx_t))
+        xx_t = torch.dot(x, x)
+        if pdef.orthantwise:
+            pg = pseudo_gradient(pdef, x, gx)
+        gg_t = torch.dot(gx, gx) if pg is None else torch.dot(pg, pg)
+    # fx in the objective scalar's dtype (float64 under the wide mode), the
+    # norms in the vectors'
+    fx_h, gnorm2, xnorm2 = to_host(fx_t, gg_t, xx_t)
+    fx = np_type(fused.obj_dtype(x0.dtype))(fx_h)
+    gnorm2, xnorm2 = f(gnorm2), f(xnorm2)
     d = -(gx if pg is None else pg)
     # step = initial_inverse_hessian / ||d||, and ||d|| = ||g|| (||pg||)
     step = f(params.initial_inverse_hessian) / np.sqrt(gnorm2 if gnorm2 != 0.0 else f(1.0))
@@ -618,7 +651,7 @@ def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
     )
     if params.fx_delta_enabled and params.past > 0:
         # zero-initialized like the reference's pf, with the k == 0 store
-        pf = np.zeros(params.past, dtype=f)
+        pf = np.zeros(params.past, dtype=type(fx))
         pf[0] = fx
     else:
         pf = None

@@ -109,12 +109,15 @@ def test_progress_cancellation_gives_status_4():
     assert calls == [1] and rep.niter == 1
 
 
-#: OWL-QN, the backtracking searches, damping (damped OWL-QN included) and
-#: gradient_only run; what of them still raises is each with a setting not
-#: ported yet: the wide fx mode, the scan two-loop, the speculative
-#: (K-way) backtracking search
+#: OWL-QN, the backtracking searches, damping (damped OWL-QN included),
+#: gradient_only and the wide objective scalar run; what of them still
+#: raises is each with a setting not ported yet: the scan two-loop, the
+#: speculative (K-way) backtracking search.  ``fx_wide`` raised until it
+#: was ported: its case now checks that it runs, with fx carried as
+#: float64 over float32 vectors
 UNPORTED = {
-    "orthantwise": lambda b: b.with_orthantwise(1.0, 0, 99).with_damping(True).with_fx_wide(),
+    "orthantwise": lambda b: (b.with_orthantwise(1.0, 0, 99).with_damping(True)
+                              .with_fx_wide().with_speculative_linesearch(2)),
     "damping": lambda b: b.with_damping(True).with_compact_two_loop(False),
     "gradient_only": lambda b: b.with_gradient_only().with_speculative_linesearch(2),
     "backtracking": lambda b: (b.with_linesearch_algorithm("BacktrackingWolfe")
@@ -127,10 +130,17 @@ UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("setting", list(UNPORTED.values()), ids=list(UNPORTED))
-def test_unported_settings_raise(setting):
+@pytest.mark.parametrize("name", list(UNPORTED))
+def test_unported_settings_raise(name):
+    b = UNPORTED[name](lbfgs_torch.lbfgs())
+    if name == "fx_wide":
+        x0 = t_rosen.initial_point(100, dtype=torch.float32)
+        for entry in ("minimize", "minimize_jit"):
+            rep = getattr(b, entry)(x0, lbfgs_torch.default_evaluate())
+            assert type(rep.fx) is np.float64 and rep.x.dtype == torch.float32
+            assert rep.fx < 1e-3
+        return
     x0 = t_rosen.initial_point(100)
-    b = setting(lbfgs_torch.lbfgs())
     with pytest.raises(NotImplementedError):
         b.minimize(x0, lbfgs_torch.default_evaluate())
     with pytest.raises(NotImplementedError):
@@ -164,6 +174,7 @@ def test_import_leaves_out_jax_and_triton():
     code = (
         "import sys, lbfgs_torch, lbfgs_torch.minimize, lbfgs_torch.interop, "
         "lbfgs_torch.models.rosenbrock, lbfgs_torch.models.lennard_jones, "
+        "lbfgs_torch.models.logistic, lbfgs_torch.utils.csvio, "
         "lbfgs_torch.ops.fused, "
         "lbfgs_torch.ops.factory, lbfgs_torch.ops._build; "
         "bad = [m for m in ('jax', 'triton') if m in sys.modules]; "
