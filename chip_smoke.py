@@ -69,12 +69,34 @@ Phases (any failure raises and the script exits nonzero):
      default run, then the run to epsilon 3e-2;
  19. OWL-QN north star: n = 1e8, m = 3, c = 1 on [0, n - 1), epsilon
      3e-2, within 300 iterations, wide and then default;
- 20. with ``--profile PATH`` only: one run of each main path (plain,
-     OWL-QN, damped, damped OWL-QN, Poisson) under torch.profiler (device
-     busy time against the unprofiled walls, device items, host launch
-     and copy calls); the operator tables go to PATH.
+ 20. combine_probe main path (``LBFGS_TORCH_KERNELS=combine_probe``): the
+     main path with the combine+probe fusion K15 in place of K3, its
+     launches (K15 and K4 per iteration, K2 per probe the fusion did not
+     carry in, K1 once, K3 none) and its syncs and probes per iteration
+     beside the fusion-off run's; fusion on against off after 8 and 15
+     iterations, and through the plain versions against the kernels;
+ 21. combine_ow_probe main path: the OWL-QN main path with K16 in place of
+     K13, CONVERGED at epsilon 3e-2, with the same checks;
+ 22. adaptive entry: the OWL-QN main path with
+     ``with_adaptive_entry_step(2.0)``, without and with the fusion, each
+     CONVERGED, evaluations beside the literal run's;
+ 23. damped + fusion: the damped main path with the fusion, 30
+     iterations: K15 in place of K6, the row blended before it;
+ 24. launch_overhead: microseconds per back-to-back launch of the
+     calibration kernel (``csrc/calibrate.cu``) and per launch with one
+     synchronising read, and the share of each main path's ms/iter that
+     its launches and reads per iteration explain;
+ 25. with ``--profile PATH`` only: one run of each main path (plain,
+     OWL-QN, damped, damped OWL-QN, the two with the fusion, Poisson)
+     under torch.profiler (device busy time against the unprofiled walls,
+     device items, host launch and copy calls); the operator tables go to
+     PATH.
 
-Phase 3 also holds the OWL-QN kernels K7, K9, K11 and K12 to their plain
+Phase 3 also holds K15, K16 (the combine+probe fusions), K17 (axpy +
+dot) and the calibration kernel to their plain versions (K15's and K16's
+probe scalars bit for bit those of K2 and of K8's pg form at the point
+they form, in both objective-scalar modes; their directions against
+K3's and K13's), and the OWL-QN kernels K7, K9, K11 and K12 to their plain
 versions (K9's point, K11's pg against K10's, K12's ring rows and K7's
 ft against K8's bit for bit), and a ``wide_kernels`` phase checks the
 wide objective scalar's forms of K1, K2, K4, K7 and K8 against the
@@ -87,6 +109,7 @@ before the last, and ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -98,12 +121,14 @@ import torch
 
 from lbfgs_torch import LbfgsError, default_evaluate, lbfgs
 from lbfgs_torch.core import to_host
+from lbfgs_torch.linesearch import carried
 from lbfgs_torch.minimize import minimize_jit
 from lbfgs_torch.models import lennard_jones, logistic, rosenbrock
 from lbfgs_torch.ops import _build, fused
 from lbfgs_torch.orthantwise import Orthantwise, choose_orthant
 from lbfgs_torch.params import Lbfgs, LbfgsParams, LineSearchAlgorithm
 from lbfgs_torch.status import Status
+from lbfgs_torch.utils import profiling
 
 SEED = 20261016
 N_BIG = 1 << 24
@@ -151,6 +176,12 @@ KERNELS = {
                                   "lbfgs_tpu/ops/factory.py:923"),
     "K14_owlqn_trial_pair_gram_gp": ("triton", "lbfgs_torch/ops/_factory_triton.py",
                                      "lbfgs_tpu/ops/factory.py:923 (with_gp)"),
+    "K15_combine_probe": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                          "lbfgs_tpu/ops/factory.py:1195"),
+    "K16_combine_ow_probe": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                             "lbfgs_tpu/ops/factory.py:1345"),
+    "K17_axpy_dot": ("cuda", "lbfgs_torch/csrc/axpy_dot.cu", "lbfgs_tpu/ops/fused.py:743"),
+    "cal_null_launch": ("cuda", "lbfgs_torch/csrc/calibrate.cu", "bench_kernels.py:108"),
 }
 #: the kernels each main path must launch
 PLAIN_PATH = ("K1_trial", "K2_probe", "K3_combine", "K4_trial_pair_gram")
@@ -162,6 +193,13 @@ DAMPED_OWLQN_PATH = ("K14_owlqn_trial_pair_gram_gp",)
 K5_PATH = ("K5_pair_gram",)
 POISSON_PATH = ("K9_owlqn_trial_step", "K11_pseudo_gradient", "K12_pair_gram_xg")
 WIDE_OWLQN_PATH = ("K7_owlqn_trial",)
+FUSION_PATH = ("K15_combine_probe",)
+OWLQN_FUSION_PATH = ("K16_combine_ow_probe",)
+#: stp1 values the fusions are checked at: the literal entry, and two an
+#: adaptive entry can take
+STP1 = (1.0, 0.37, 2.0 ** -3)
+#: elements of the calibration kernel's one block
+N_NULL = profiling.NULL_ELEMS
 
 
 def cost(name: str, v: int, h: int, m: int) -> tuple:
@@ -188,6 +226,12 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
         "K13_combine_ow": (2 * v + 2 * m * h, 4 * m + 10),
         "K14_owlqn_trial_pair_gram": (7 * v + rings, 12 * m + 40),
         "K14_owlqn_trial_pair_gram_gp": (7 * v + rings, 16 * m + 44),
+        # K3's pass with x read and K2's probe added; K13's with K8's
+        "K15_combine_probe": (3 * v + 2 * m * h, 4 * m + 22),
+        "K16_combine_ow_probe": (3 * v + 2 * m * h, 4 * m + 34),
+        "K17_axpy_dot": (4 * v, 4),
+        # reads and writes one float32 per element, at n = N_NULL
+        "cal_null_launch": (8, 1),
     }[name]
 
 
@@ -378,6 +422,10 @@ def phase_build() -> None:
             rosenbrock.owlqn_probe_pg(x, x, x, 0.0, 1.0, 0, n - 1)
             rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
                                              n - 1, S, S.clone(), 1)
+            # the combine+probe fusions (K15, K16)
+            z = torch.zeros(M, dtype=vd, device="cuda")
+            rosenbrock.combine_probe(x, x, S, S, z[0], z, z, 1.0)
+            rosenbrock.combine_ow_probe(x, x, S, S, z[0], z, z, 1.0, 0, n - 1, 1.0)
             # the damped paths' . gp specialisations
             rosenbrock.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1, with_gp=True)
             rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
@@ -400,6 +448,9 @@ def _fold(errs: dict, name: str, *pairs) -> None:
 
 def phase_kernels() -> dict:
     errs = {k: (0.0, 0.0) for k in KERNELS}
+    # whether K15's r (K16's rc) came out bit for bit K3's (K13's): noted,
+    # not required (the kernels may round their sums differently)
+    same_as_k3 = {"K15_r_vs_K3": [], "K16_rc_vs_K13": []}
     for n in (N_BIG, N_RAGGED):
         for vd, hd in DTYPES:
             a = inputs(n, vd, hd, SEED + n)
@@ -456,6 +507,7 @@ def phase_kernels() -> dict:
                   *(check(f"K4+gp sum{i} {tag}", kg[i], pg_[i], ts) for i in (7, 8)))
             del Sk, Yk, Sp, Yp, Sg, Yg, Sq, Yq, k, p, kg, pg_, s
             check_k5_k6(errs, a, tag, tv, ts)
+            check_fusions(errs, a, n, tag, tv, ts, same_as_k3)
             for lo, hi in windows(n):
                 check_owlqn(errs, a, lo, hi, f"{tag} window=[{lo},{hi})", tv, ts)
                 check_composed(errs, a, lo, hi, f"{tag} window=[{lo},{hi})", tv, ts)
@@ -469,7 +521,12 @@ def phase_kernels() -> dict:
                   "f64_sum": TOL[(torch.float64, "sum")],
                   "k4_k5_k6_k12_k14_ring_row": "bit-exact", "k8_forms": "bit-exact",
                   "with_gp_columns_0_2": "bit-exact", "k9_point": "bit-exact",
-                  "k11_vs_k10_pg": "bit-exact", "k7_ft_vs_k8": "bit-exact"})
+                  "k11_vs_k10_pg": "bit-exact", "k7_ft_vs_k8": "bit-exact",
+                  "k15_probe_vs_k2": "bit-exact", "k16_probe_vs_k8_pg": "bit-exact",
+                  "k17_z": "bit-exact", "null_launch": "bit-exact"},
+             direction_bit_exact_vs_combine={k: all(v) for k, v in same_as_k3.items()})
+
+    check_k17_null(errs)
 
     # times at the main path's shapes: n = 2^24, f32 vectors, bf16 history
     a = inputs(N_BIG, torch.float32, torch.bfloat16, SEED)
@@ -548,6 +605,25 @@ def phase_kernels() -> dict:
             lambda: fused.pair_gram_xg(x9, xp0, pg, a["gp"], a["xp"], S, Y, END),
             lambda: fused.pair_gram_xg_ref(x9, xp0, pg, a["gp"], a["xp"], S, Y, END)),
     })
+    # the fusions in the form their main paths run them (stp1 = 1), K17
+    # on three of the inputs' vectors, the calibration kernel on one block
+    xn = torch.zeros(N_NULL, device="cuda")
+    cases.update({
+        "K15_combine_probe": (
+            lambda: rosenbrock.combine_probe(a["gp"], a["xp"], S, Y, a["gamma"], a["cs"],
+                                             a["cy"], 1.0),
+            lambda: rosenbrock.combine_probe_ref(a["gp"], a["xp"], S, Y, a["gamma"], a["cs"],
+                                                 a["cy"], 1.0)),
+        "K16_combine_ow_probe": (
+            lambda: rosenbrock.combine_ow_probe(pg, xp0, S, Y, a["gamma"], a["cs"], a["cy"],
+                                                1.0, 0, hi, 1.0),
+            lambda: rosenbrock.combine_ow_probe_ref(pg, xp0, S, Y, a["gamma"], a["cs"],
+                                                    a["cy"], 1.0, 0, hi, 1.0)),
+        "K17_axpy_dot": (lambda: fused.axpy_dot(a["gp"], a["d"], 0.37, a["xp"]),
+                         lambda: fused.axpy_dot_ref(a["gp"], a["d"], 0.37, a["xp"])),
+        "cal_null_launch": (lambda: profiling.null_launch(xn),
+                            lambda: profiling.null_launch_ref(xn)),
+    })
     times, walls = {}, {}
     for name, (kern, plain) in cases.items():
         # plain, kernel, kernel, plain: both sides see the same clocks
@@ -556,15 +632,86 @@ def phase_kernels() -> dict:
         walls[name] = (sync_time(kern, 20), sync_time(plain, 20))
     # each kernel's bound from this run's shapes: n = 2^24, 4-byte vectors,
     # a 2-byte history, m = M
-    bounds = {name: bound(name, N_BIG, xp0.element_size(), S.element_size(), S.shape[0])
+    bounds = {name: bound(name, N_NULL if name == "cal_null_launch" else N_BIG,
+                          xp0.element_size(), S.element_size(), S.shape[0])
               for name in KERNELS}
+    # what K15 replaces: K3 and one K2, two launches and 40 B/elem
+    k3_k2 = dict(ms=times["K3_combine"][0] + times["K2_probe"][0],
+                 bound_ms=bounds["K3_combine"][0] + bounds["K2_probe"][0])
     emit(phase="kernel_times", n=N_BIG, dtype="f32/bf16",
          device_ms={k: {"kernel": v[0], "plain": v[1], "bound": bounds[k][0]}
                     for k, v in times.items()},
-         event_ms={k: {"kernel": v[0], "plain": v[1]} for k, v in walls.items()})
-    del a, S, Y, x9
+         event_ms={k: {"kernel": v[0], "plain": v[1]} for k, v in walls.items()},
+         k15_replaces_k3_plus_k2=k3_k2)
+    del a, S, Y, x9, xn
     torch.cuda.empty_cache()
     return {"errs": errs, "times": times, "bounds": bounds}
+
+
+def check_fusions(errs: dict, a: dict, n: int, tag: str, tv: float, ts: float,
+                  same_as_k3: dict) -> None:
+    """K15 and K16 against their plain versions at every stp1 of ``STP1``
+    (K16 on both windows); their probe scalars bit for bit those of K2 at
+    (x, r, stp1) and of K8's pg form at (x, rc, pg, stp1), in both
+    objective-scalar modes (the remat contract); their directions against
+    K3's and K13's at the vector tolerance."""
+    xp, gp, pg, S, Y = a["xp"], a["gp"], a["pg"], a["S"], a["Y"]
+    coefs = (a["gamma"], a["cs"], a["cy"])
+    k3 = fused.combine(gp, S, Y, *coefs)
+    for stp1 in STP1:
+        t = f"{tag} stp1={stp1}"
+        k = rosenbrock.combine_probe(gp, xp, S, Y, *coefs, stp1)
+        p = rosenbrock.combine_probe_ref(gp, xp, S, Y, *coefs, stp1)
+        _fold(errs, "K15_combine_probe", check(f"K15 r {t}", k[0], p[0], tv),
+              check(f"K15 r vs K3 {t}", k[0], k3[0], tv),
+              *(check(f"K15 sum{i} {t}", k[i], p[i], ts) for i in (1, 2, 3, 4)))
+        same_as_k3["K15_r_vs_K3"].append(same_bits(k[0], k3[0]))
+        for wide in (False, True):
+            with fused.wide_fx(wide):
+                kw = rosenbrock.combine_probe(gp, xp, S, Y, *coefs, stp1)
+                k2 = rosenbrock.probe(xp, kw[0], stp1)
+            if not (same_bits(kw[3], k2[0]) and same_bits(kw[4], k2[1])):
+                raise AssertionError(f"K15's probe differs from K2's (wide={wide}) {t}: "
+                                     f"{kw[3].item()} {k2[0].item()}")
+    for lo, hi in windows(n):
+        k13 = fused.combine_ow(pg, S, Y, *coefs, lo, hi)
+        for stp1 in STP1:
+            t = f"{tag} window=[{lo},{hi}) stp1={stp1}"
+            k = rosenbrock.combine_ow_probe(pg, a["xp0"], S, Y, *coefs, C_L1, lo, hi, stp1)
+            p = rosenbrock.combine_ow_probe_ref(pg, a["xp0"], S, Y, *coefs, C_L1, lo, hi,
+                                                stp1)
+            _fold(errs, "K16_combine_ow_probe", check(f"K16 rc {t}", k[0], p[0], tv),
+                  check(f"K16 rc vs K13 {t}", k[0], k13[0], tv),
+                  *(check(f"K16 sum{i} {t}", k[i], p[i], ts) for i in (1, 2, 3, 4, 5)))
+            same_as_k3["K16_rc_vs_K13"].append(same_bits(k[0], k13[0]))
+            for wide in (False, True):
+                with fused.wide_fx(wide):
+                    kw = rosenbrock.combine_ow_probe(pg, a["xp0"], S, Y, *coefs, C_L1, lo,
+                                                     hi, stp1)
+                    k8 = rosenbrock.owlqn_probe_pg(a["xp0"], kw[0], pg, stp1, C_L1, lo, hi)
+                if not (same_bits(kw[4], k8[0]) and same_bits(kw[5], k8[1])):
+                    raise AssertionError(f"K16's probe differs from K8's (wide={wide}) {t}: "
+                                         f"{kw[4].item()} {k8[0].item()}")
+
+
+def check_k17_null(errs: dict) -> None:
+    """K17 at n = 2^24 and at N_RAGGED in both vector dtypes (z bit for bit
+    the plain version's: the product and the sum are rounded one by one),
+    and the calibration kernel bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    for n in (N_BIG, N_RAGGED):
+        for vd in (torch.float32, torch.float64):
+            y, x, w = (torch.randn(n, generator=g, device="cuda", dtype=vd) for _ in range(3))
+            k = fused.axpy_dot(y, x, 0.37, w)
+            p = fused.axpy_dot_ref(y, x, 0.37, w)
+            if not same_bits(k[0], p[0]):
+                raise AssertionError(f"K17's z differs from the plain version's n={n} {vd}")
+            _fold(errs, "K17_axpy_dot", check(f"K17 z.w n={n} {vd}", k[1], p[1],
+                                              TOL[(vd, "sum")]))
+    x = torch.randn(N_NULL, generator=g, device="cuda")
+    if not same_bits(profiling.null_launch(x), profiling.null_launch_ref(x)):
+        raise AssertionError("the calibration kernel differs from x + 1")
+    _fold(errs, "cal_null_launch", (0.0, 0.0))
 
 
 def check_owlqn(errs: dict, a: dict, lo: int, hi: int, tag: str, tv: float,
@@ -722,6 +869,10 @@ def launches() -> dict:
         "K13_combine_ow": fused.combine_ow.launches,
         "K14_owlqn_trial_pair_gram": ow_tpg.launches - ow_tpg.gp_launches,
         "K14_owlqn_trial_pair_gram_gp": ow_tpg.gp_launches,
+        "K15_combine_probe": rosenbrock.combine_probe.launches,
+        "K16_combine_ow_probe": rosenbrock.combine_ow_probe.launches,
+        "K17_axpy_dot": fused.axpy_dot.launches,
+        "cal_null_launch": profiling.null_launch.launches,
     }
 
 
@@ -742,6 +893,10 @@ PLAIN = {
     "K9_owlqn_trial_step": fused.owlqn_trial_step_ref,
     "K11_pseudo_gradient": fused.pseudo_gradient_ref,
     "K12_pair_gram_xg": fused.pair_gram_xg_ref,
+    "K15_combine_probe": rosenbrock.combine_probe_ref,
+    "K16_combine_ow_probe": rosenbrock.combine_ow_probe_ref,
+    "K17_axpy_dot": fused.axpy_dot_ref,
+    "cal_null_launch": profiling.null_launch_ref,
 }
 
 
@@ -755,13 +910,16 @@ def reset_counts() -> None:
                rosenbrock.owlqn_probe_pg, fused.pseudo_gradient_norm,
                fused.combine_ow, rosenbrock.owlqn_trial_pair_gram,
                fused.pair_gram_sd, fused.combine_fix, rosenbrock.owlqn_trial,
-               fused.owlqn_trial_step, fused.pseudo_gradient, fused.pair_gram_xg):
+               fused.owlqn_trial_step, fused.pseudo_gradient, fused.pair_gram_xg,
+               rosenbrock.combine_probe, rosenbrock.combine_ow_probe, fused.axpy_dot,
+               profiling.null_launch):
         fn.launches = 0
     rosenbrock.trial_pair_gram.gp_launches = 0
     rosenbrock.owlqn_trial_pair_gram.gp_launches = 0
     for fn in PLAIN.values():
         fn.calls = 0
     to_host.reads = 0
+    carried.used = 0
 
 
 def phase_goldens() -> None:
@@ -861,12 +1019,11 @@ def phase_main_path() -> dict:
                    + (2 * v + 2 * M * h))
     out = dict(phase="main_path", n=N_BIG, iters=iters, status=st.status,
                seconds=dt, iters_per_s=iters / dt, ms_per_iter=1e3 * dt / iters,
-               syncs_per_iter=reads / iters, probes_per_iter=probes,
+               evals=st.prob.neval, syncs_per_iter=reads / iters, probes_per_iter=probes,
                bytes_per_iter_model=bpi, gb_per_s_model=bpi * iters / dt / 1e9,
                gb_per_s_vs_1_44=1.44 * iters / dt, fx0=f0, fx=fx, launches=lc,
                plain_calls=pc)
     emit(**out)
-    syncs = reads / iters
 
     # the same entry point through the plain versions on the card, against
     # the kernels, at two iteration budgets
@@ -887,7 +1044,7 @@ def phase_main_path() -> dict:
         del st_k, st_p
     del st
     torch.cuda.empty_cache()
-    return lc, syncs
+    return lc, out
 
 
 #: the OWL-QN main path (bench_owlqn.py:61-76 at n = 2^24): f32, m = 6,
@@ -929,10 +1086,12 @@ def phase_owlqn_main_path() -> dict:
         raise AssertionError(f"OWL-QN main path launch counts {lc}, expected {want}")
     if max(pc.values()) != 0:
         raise AssertionError(f"OWL-QN main path called plain versions: {pc}")
-    emit(phase="owlqn_main_path", n=N_BIG, iters=iters, status=st.status, eps=3e-2,
-         seconds=dt, iters_per_s=iters / dt, ms_per_iter=1e3 * dt / iters,
-         probes_per_iter=probes / iters, syncs_per_iter=reads / iters, fx0=f0, fx=fx,
-         gnorm=float(np.sqrt(st.prob.gnorm2)), launches=lc, plain_calls=pc)
+    out = dict(phase="owlqn_main_path", n=N_BIG, iters=iters, status=st.status, eps=3e-2,
+               seconds=dt, iters_per_s=iters / dt, ms_per_iter=1e3 * dt / iters,
+               evals=st.prob.neval, probes_per_iter=probes / iters,
+               syncs_per_iter=reads / iters, fx0=f0, fx=fx,
+               gnorm=float(np.sqrt(st.prob.gnorm2)), launches=lc, plain_calls=pc)
+    emit(**out)
 
     # minimize_jit through the plain versions on the card against the
     # kernels: the same evaluations and fx to rel 1e-4 after 8 iterations
@@ -956,12 +1115,13 @@ def phase_owlqn_main_path() -> dict:
         del st_k, st_p
     del st
     torch.cuda.empty_cache()
-    return lc
+    return lc, out
 
 
 def phase_profile(path: str) -> None:
-    """For each main path (plain, OWL-QN, damped, damped OWL-QN, Poisson),
-    one run under torch.profiler after three unprofiled ones: device busy
+    """For each main path (plain, OWL-QN, damped, damped OWL-QN, the plain
+    and OWL-QN ones with the combine+probe fusion, Poisson), one run under
+    torch.profiler after three unprofiled ones: device busy
     time (the summed durations of the kernels and copies the profiler saw
     on the card) against the walls, the device items by time, and the
     host's launch and copy calls.  The full operator tables go to
@@ -970,8 +1130,11 @@ def phase_profile(path: str) -> None:
     with open(path, "w") as f:
         for name, params in (("main_path", MAIN_PARAMS), ("owlqn_main_path", OWLQN_PARAMS),
                              ("damped_main_path", DAMPED_PARAMS),
-                             ("damped_owlqn_main_path", DAMPED_OWLQN_PARAMS)):
-            _profile_one(name, params, f)
+                             ("damped_owlqn_main_path", DAMPED_OWLQN_PARAMS),
+                             ("main_path_fusion", MAIN_PARAMS),
+                             ("owlqn_main_path_fusion", OWLQN_PARAMS)):
+            with fusion(name.endswith("fusion")):
+                _profile_one(name, params, f)
         X, y = logistic.synthetic(POISSON_NROW, POISSON_NCOL, seed=0, device="cuda")
         _profile_one("poisson_main_path", poisson_params(False), f,
                      torch.zeros(POISSON_NCOL, device="cuda"), logistic.make_objective(X, y))
@@ -1576,6 +1739,277 @@ def phase_north_star() -> None:
          ms_per_iter=1e3 * dt / max(st.k - 1, 1), fx=float(st.prob.fx))
 
 
+# ---------------------------------------------------------------------------
+# The combine+probe fusions, the adaptive entry step and the launch overhead
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def fusion(on: bool = True):
+    """``LBFGS_TORCH_KERNELS=combine_probe`` inside (unset with ``on``
+    False), restored after."""
+    old = os.environ.pop("LBFGS_TORCH_KERNELS", None)
+    if on:
+        os.environ["LBFGS_TORCH_KERNELS"] = "combine_probe"
+    try:
+        yield
+    finally:
+        os.environ.pop("LBFGS_TORCH_KERNELS", None)
+        if old is not None:
+            os.environ["LBFGS_TORCH_KERNELS"] = old
+
+
+#: fusion on against off, and the fusion's plain versions against its
+#: kernels: the same iterations (and evaluations) and fx within rel 1e-3
+#: after 8 iterations (tests/test_combine_probe.py:113-116); after 15
+#: printed
+FUSION_TOL_8 = 1e-3
+
+
+def _fusion_trajectories(name: str, params: LbfgsParams) -> None:
+    """After 8 and 15 iterations at epsilon 0: the fusion's run against the
+    fusion-off run, and the fusion's run through the plain versions
+    against the kernels; asserted after 8, printed after 15."""
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    for n_it in (8, 15):
+        p = params.replace(epsilon=0.0, max_iterations=n_it + 1)
+        with fusion():
+            st_on = minimize_jit(p, x0, default_evaluate(), return_state=True)
+            st_pl = minimize_jit(p, x0, default_evaluate().plain, return_state=True)
+        st_off = minimize_jit(p, x0, default_evaluate(), return_state=True)
+        rel_off = abs(float(st_on.prob.fx) / float(st_off.prob.fx) - 1)
+        rel_pl = abs(float(st_on.prob.fx) / float(st_pl.prob.fx) - 1)
+        key = lambda st: (st.k, st.prob.neval)
+        if n_it == 8 and not (key(st_on) == key(st_off) == key(st_pl)
+                              and st_on.k == n_it + 1
+                              and max(rel_off, rel_pl) <= FUSION_TOL_8):
+            raise AssertionError(
+                f"{name} after 8 iterations: k/neval on {key(st_on)}, off {key(st_off)}, "
+                f"plain {key(st_pl)}; rel fx vs off {rel_off:.3e}, vs plain {rel_pl:.3e}")
+        emit(phase=f"{name}_trajectory", iters=n_it, k_neval_on=key(st_on),
+             k_neval_off=key(st_off), k_neval_plain=key(st_pl), rel_fx_vs_off=rel_off,
+             rel_fx_vs_plain=rel_pl, fx_tol=FUSION_TOL_8, asserted=n_it == 8,
+             x_err_vs_off=err(st_on.prob.x, st_off.prob.x))
+        del st_on, st_pl, st_off
+
+
+def _walls(params: LbfgsParams) -> dict:
+    """ms per iteration of ``minimize_jit`` at n = 2^24, fusion off and on
+    in turns (off, on, on, off, off, on): the host's pace drifts within a
+    call, so the two are compared only side by side."""
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    out = {"off": [], "on": []}
+    for on in (False, True, True, False, False, True):
+        with fusion(on):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = minimize_jit(params, x0, default_evaluate(), return_state=True)
+            torch.cuda.synchronize()
+            out["on" if on else "off"].append(1e3 * (time.perf_counter() - t0) / (st.k - 1))
+        del st
+    return out
+
+
+def _fusion_run(name: str, params: LbfgsParams, off: dict, expect, converged: bool):
+    """One timed ``minimize_jit`` of a main path with the fusion: its
+    launches are ``expect(iters, probes, carried)``, no plain version
+    runs, every first trip after the first iteration took the carried
+    probe; printed beside the fusion-off run ``off`` of this call, with
+    ms/iter of both in turns."""
+    with fusion():
+        st, dt, lc, pc, reads = _run_2e24(name, params)
+        used = carried.used
+    iters, probes = st.k - 1, st.prob.neval - 1
+    if converged and st.status != Status.CONVERGED:
+        raise AssertionError(f"{name}: status {st.status} after {iters} iterations")
+    _expect(name, lc, pc, **expect(iters, probes, used))
+    if used != iters - 1:
+        raise AssertionError(f"{name}: {used} carried first trips in {iters} iterations")
+    out = _report_2e24(
+        name.replace(" ", "_"), st, dt, lc, reads, evals=st.prob.neval, carried_probes=used,
+        fusion_off={k: off[k] for k in ("iters", "evals", "ms_per_iter", "syncs_per_iter",
+                                        "probes_per_iter")},
+        ms_per_iter_in_turns=_walls(params))
+    if not out["syncs_per_iter"] <= off["syncs_per_iter"] - 0.5:
+        raise AssertionError(f"{name}: {out['syncs_per_iter']} syncs per iteration against "
+                             f"{off['syncs_per_iter']} without the fusion")
+    del st
+    torch.cuda.empty_cache()
+    return lc, out
+
+
+def phase_combine_probe_main_path(off: dict) -> tuple:
+    """The main path with K15 in place of K3 (``off``: the fusion-off
+    main path of this call)."""
+    lc, out = _fusion_run(
+        "combine_probe main path", MAIN_PARAMS, off,
+        lambda it, pr, used: dict(K1_trial=1, K2_probe=pr - used, K4_trial_pair_gram=it,
+                                  K15_combine_probe=it), converged=False)
+    _fusion_trajectories("combine_probe_main_path", MAIN_PARAMS)
+    return lc, out
+
+
+def _owlqn_fusion_launches(it: int, pr: int, used: int) -> dict:
+    return dict(K1_trial=1, K10_pseudo_gradient_norm=1, K8_owlqn_probe=pr - used,
+                K14_owlqn_trial_pair_gram=it, K16_combine_ow_probe=it)
+
+
+def phase_combine_ow_probe_main_path(off: dict) -> tuple:
+    """The OWL-QN main path with K16 in place of K13, CONVERGED at 3e-2."""
+    lc, out = _fusion_run("combine_ow_probe main path", OWLQN_PARAMS, off,
+                          _owlqn_fusion_launches, converged=True)
+    _fusion_trajectories("combine_ow_probe_main_path", OWLQN_PARAMS)
+    return lc, out
+
+
+def phase_adaptive_entry(off: dict) -> dict:
+    """The OWL-QN main path with ``with_adaptive_entry_step(2.0)``, without
+    and with the fusion: each CONVERGED; evaluations beside the literal
+    run's (``off``).  Then the JAX package's own case at n = 2^14
+    (``tests/test_adaptive_entry.py:93-115``: c = 1 on the whole vector,
+    f32 history, at most 400 iterations), literal and adaptive, to set the
+    main path's count beside the scale the policy was measured at."""
+    params = OWLQN_PARAMS.replace(adaptive_entry_step=2.0)
+    runs = {}
+    for on in (False, True):
+        name = "adaptive entry" + (" + fusion" if on else "")
+        with fusion(on):
+            st, dt, lc, pc, reads = _run_2e24(name, params)
+            used = carried.used
+        iters, probes = st.k - 1, st.prob.neval - 1
+        if st.status != Status.CONVERGED:
+            raise AssertionError(f"{name}: status {st.status} after {iters} iterations")
+        want = _owlqn_fusion_launches(iters, probes, used)
+        if not on:
+            del want["K16_combine_ow_probe"]
+            want["K13_combine_ow"] = iters
+        _expect(name, lc, pc, **want)
+        runs[on] = _report_2e24(
+            "adaptive_entry", st, dt, lc, reads, fusion=on, growth=2.0, eps=3e-2,
+            evals=st.prob.neval, carried_probes=used, literal_evals=off["evals"],
+            literal_iters=off["iters"], literal_ms_per_iter=off["ms_per_iter"],
+            gnorm=float(np.sqrt(st.prob.gnorm2)))
+        del st
+    n = 1 << 14
+    small = LbfgsParams(epsilon=3e-2, max_iterations=400, constrain_step_size=False,
+                        orthantwise=Orthantwise(1.0, 0, None))
+    x0 = rosenbrock.initial_point(n, torch.float32, "cuda")
+    at_2e14 = {}
+    for growth in (0.0, 2.0):
+        st = minimize_jit(small.replace(adaptive_entry_step=growth), x0, default_evaluate(),
+                          return_state=True)
+        if st.status != Status.CONVERGED:
+            raise AssertionError(f"adaptive entry at n = 2^14 (growth {growth}): status "
+                                 f"{st.status}")
+        at_2e14[growth] = dict(iters=st.k - 1, evals=st.prob.neval, fx=float(st.prob.fx))
+    emit(phase="adaptive_entry_2e14", n=n, literal=at_2e14[0.0], adaptive=at_2e14[2.0])
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_damped_fusion() -> dict:
+    """The damped main path with the fusion, 30 iterations: K15 in place of
+    K6 (the damped row blended before it), zero plain calls."""
+    with fusion():
+        st, dt, lc, pc, reads = _run_2e24("damped + fusion",
+                                          DAMPED_PARAMS.replace(max_iterations=31))
+        used = carried.used
+    iters = st.k - 1
+    _expect("damped + fusion", lc, pc, K1_trial=1, K2_probe=st.prob.neval - 1 - used,
+            K4_trial_pair_gram_gp=iters, K15_combine_probe=iters)
+    out = _report_2e24("damped_fusion_main_path", st, dt, lc, reads, carried_probes=used)
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the host's launch and copy calls as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchKernelExC")
+
+
+def _host_us(fn, reps: int) -> float:
+    """Microseconds of host wall per call of fn, back to back, the card
+    drained before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / reps
+
+
+def phase_launch_overhead(paths: dict) -> dict:
+    """Launch and read costs from the calibration kernel, and what they
+    explain of each main path's ms/iter.
+
+    Per call, back to back: the calibration kernel through the port's
+    ctypes wrapper (how K3, K5, K6 and K9-K13, K17 launch), a one-program
+    K2 launched by Triton's own launcher with its operands made before
+    (the launch of K1, K2, K4, K7, K8, K14-K16, without the wrapper's
+    step fill and partial sums, which are torch ops), a torch elementwise
+    op (the two-loop's [m]-sized algebra, the fills and sums), the
+    calibration kernel followed by a one-element copy to the host (the
+    synchronising read, without ``to_host``'s own torch ops), and the same
+    followed by one ``to_host`` read instead (printed; the model below
+    counts ``to_host``'s torch ops among the torch launches).  Then, for each
+    path (name: (params, ms_per_iter, syncs_per_iter) of this call), one
+    15-iteration run under torch.profiler counts the host's launch calls
+    per iteration, split by route from the kernels' own counters, and
+    the modelled host ms/iter = Triton launches x Triton us + ctypes
+    launches x null us + other launches x torch us + reads x read us is
+    printed beside the measured ms/iter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lbfgs_torch.ops import factory
+
+    reset_counts()
+    x = torch.zeros(N_NULL, device="cuda")
+    xp = torch.ones(factory.BLOCK, device="cuda")
+    stp, part = torch.full((1,), 0.5, device="cuda"), torch.empty((1, 2), device="cuda")
+    probe_kernel, body = factory._kernels().probe_kernel, rosenbrock._rosen_block()
+
+    def triton_launch():
+        probe_kernel[(1,)](xp, xp, stp, part, factory.BLOCK, body=body,
+                           ROWS=factory.BLOCK // 2, W=2, **factory.LAUNCH)
+
+    us = dict(
+        null=_host_us(lambda: profiling.null_launch(x), 2000),
+        triton=_host_us(triton_launch, 2000),
+        torch_op=_host_us(lambda: torch.add(x, 1.0), 2000),
+        null_read=_host_us(lambda: profiling.null_launch(x)[:1].cpu(), 500),
+        null_to_host=_host_us(lambda: to_host(profiling.null_launch(x)[0]), 500),
+    )
+    us["read"] = us["null_read"] - us["null"]
+    null_launches = profiling.null_launch.launches
+    triton_k = [k for k, (route, *_r) in KERNELS.items() if route == "triton"]
+    cuda_k = [k for k, (route, *_r) in KERNELS.items() if route == "cuda"]
+    out = {}
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    for name, (params, ms_per_iter, syncs) in paths.items():
+        with fusion(name.endswith("fusion")):
+            reset_counts()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                st = minimize_jit(params.replace(epsilon=0.0, max_iterations=16), x0,
+                                  default_evaluate(), return_state=True)
+                torch.cuda.synchronize()
+        iters, lc = st.k - 1, launches()
+        calls = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+        per = dict(triton=sum(lc[k] for k in triton_k) / iters,
+                   cuda=sum(lc[k] for k in cuda_k) / iters)
+        per["torch_op"] = calls / iters - per["triton"] - per["cuda"]
+        model = 1e-3 * (per["triton"] * us["triton"] + per["cuda"] * us["null"]
+                        + per["torch_op"] * us["torch_op"] + syncs * us["read"])
+        out[name] = dict(launches_per_iter=per, launch_calls_per_iter=calls / iters,
+                         syncs_per_iter=syncs, ms_per_iter=ms_per_iter,
+                         modelled_host_ms_per_iter=model,
+                         share_explained=model / ms_per_iter)
+        del st
+    emit(phase="launch_overhead", us_per_call=us, paths=out)
+    return {"cal_null_launch": null_launches}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -1594,12 +2028,12 @@ def main() -> None:
     k = timed(phase_kernels)
     timed(phase_goldens)
     timed(phase_owlqn_golden)
-    lc, syncs = timed(phase_main_path)
-    lc_ow = timed(phase_owlqn_main_path)
+    lc, main_out = timed(phase_main_path)
+    lc_ow, ow_out = timed(phase_owlqn_main_path)
     timed(phase_north_star)
     timed(phase_damped_n100)
     timed(phase_lj38)
-    lc_d = timed(phase_damped_main_path, syncs)
+    lc_d = timed(phase_damped_main_path, main_out["syncs_per_iter"])
     timed(phase_gradient_only_main_path)
     lc_dow = timed(phase_damped_owlqn_main_path)
     lc_k5 = timed(phase_k5_route)
@@ -1609,6 +2043,16 @@ def main() -> None:
     timed(phase_f32_floor)
     lc_wide = timed(phase_wide_owlqn_main_path)
     timed(phase_owlqn_north_star)
+    lc_cp, cp_out = timed(phase_combine_probe_main_path, main_out)
+    lc_cow, cow_out = timed(phase_combine_ow_probe_main_path, ow_out)
+    timed(phase_adaptive_entry, ow_out)
+    timed(phase_damped_fusion)
+    lc_cal = timed(phase_launch_overhead, {
+        name: (params, out["ms_per_iter"], out["syncs_per_iter"])
+        for name, params, out in (("main_path", MAIN_PARAMS, main_out),
+                                  ("owlqn_main_path", OWLQN_PARAMS, ow_out),
+                                  ("main_path_fusion", MAIN_PARAMS, cp_out),
+                                  ("owlqn_main_path_fusion", OWLQN_PARAMS, cow_out))})
     if args.profile:
         timed(phase_profile, args.profile)
     emit(phase="timing", seconds=seconds)
@@ -1619,7 +2063,11 @@ def main() -> None:
           **{name: lc_dow[name] for name in DAMPED_OWLQN_PATH},
           **{name: lc_k5[name] for name in K5_PATH},
           **{name: lc_poisson[name] for name in POISSON_PATH},
-          **{name: lc_wide[name] for name in WIDE_OWLQN_PATH}}
+          **{name: lc_wide[name] for name in WIDE_OWLQN_PATH},
+          **{name: lc_cp[name] for name in FUSION_PATH},
+          **{name: lc_cow[name] for name in OWLQN_FUSION_PATH},
+          # K17 lies on no solver path
+          "K17_axpy_dot": 0, **lc_cal}
     # no single PyTorch call computes any of these fused functions, so
     # library_ms is null throughout
     table = [

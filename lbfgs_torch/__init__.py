@@ -48,15 +48,27 @@ vectors where float32 cannot resolve the line search's decrease::
               .minimize_jit(torch.zeros(1 << 20, device="cuda"),
                             logistic.make_objective(X, y)))
 
+The adaptive entry step enters each uncapped search near the last
+accepted step, and ``LBFGS_TORCH_KERNELS=combine_probe`` (a comma list,
+or ``all``; it only adds fusions) folds the next search's first probe
+into the direction combine (K15, under OWL-QN K16)::
+
+    report = (lbfgs().with_orthantwise(1.0, 0, 99).with_constrain_step_size(False)
+              .with_adaptive_entry_step(2.0).minimize(x0, default_evaluate()))
+
+The models' data constructors make their tensors on the card unless
+``device`` names another (``initial_point(100, device="cpu")`` runs the
+plain versions on the CPU).
+
 Ported so far: plain L-BFGS with the More-Thuente and the three
 backtracking searches (Armijo, Wolfe, strong Wolfe), OWL-QN (through the
 one-pass epilogue for factory objectives, through the composed kernels
 for generic ones), Powell damping and gradient-only mode on every solver
-branch, the wide objective scalar, the compact two-loop, the
-step-at-a-time (``minimize``, ``LbfgsState``) and whole-run
-(``minimize_jit``) loops.  The scan two-loop, the speculative search, the
-adaptive entry step, fp8 and float16 histories, and the batched and
-native runners raise ``NotImplementedError``.
+branch, the wide objective scalar, the adaptive entry step, the
+combine+probe fusions, the compact two-loop, the step-at-a-time
+(``minimize``, ``LbfgsState``) and whole-run (``minimize_jit``) loops.
+The scan two-loop, the speculative search, fp8 and float16 histories,
+and the batched and native runners raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -97,6 +97,14 @@ class SolverState(NamedTuple):
     #: damped runs: how many iterations took no damping, case 1 and case 2
     #: (counted where the literal reference drops case 2's write-back too)
     damping_cases: tuple = (0, 0, 0)
+    #: the combine+probe fusion's speculative first trial of the next
+    #: search (``LBFGS_TORCH_KERNELS=combine_probe``): (ft, dgt, stp_probe)
+    #: as host numpy scalars, ft in the objective scalar's dtype (float64
+    #: under the wide objective scalar), dgt and the probed step in the
+    #: vectors'.  The search uses it on its first trip iff its entry step
+    #: equals stp_probe exactly.  ``None`` where the fusion does not run;
+    #: the initial slot is dead (stp_probe = -1, which no entry step is)
+    probe1: Optional[tuple] = None
 
 
 def np_type(dtype: torch.dtype) -> type:

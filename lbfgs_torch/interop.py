@@ -36,8 +36,8 @@ def state_from_jax(tree: Any, device) -> SolverState:
     """This package's ``SolverState`` from a JAX ``SolverState`` with
     numpy leaves, the OWL-QN pseudo-gradient included.  Host scalars keep
     the vectors' dtype, except fx and the fx ring, which keep their own:
-    float64 in a wide (``fx_wide``) state over float32 vectors.  The
-    speculative-probe slots are not carried (unported)."""
+    float64 in a wide (``fx_wide``) state over float32 vectors, and so
+    does the combine+probe slot's ft (``probe1``)."""
     p, h = tree.prob, tree.hist
     f = np.asarray(p.x).dtype.type
     m = np.asarray(h.s).shape[0]
@@ -63,7 +63,17 @@ def state_from_jax(tree: Any, device) -> SolverState:
         ls_status=int(np.asarray(tree.ls_status)) if tree.ls_status is not None else 0,
         pf=None if tree.pf is None else np.array(tree.pf),
         dg0=scalar(tree.dg0),
+        probe1=_probe1(getattr(tree, "probe1", None), f),
     )
+
+
+def _probe1(slot, f):
+    """The combine+probe slot (ft, dgt, stp_probe) as host scalars: ft in
+    its own dtype, the others in the vectors' (``f``)."""
+    if slot is None:
+        return None
+    ft, dgt, stp = (np.asarray(v) for v in slot)
+    return ft.dtype.type(ft), f(dgt), f(stp)
 
 
 def logistic_objective(X, y, device, prec: float = 0.0):
@@ -99,5 +109,5 @@ def state_to_numpy(st: SolverState) -> dict:
         "hist": {k: _numpy(getattr(h, k)) for k in History._fields},
         "end": st.end, "step": st.step, "step_ls": st.step_ls, "k": st.k,
         "ncall": st.ncall, "status": st.status, "ls_status": st.ls_status,
-        "pf": st.pf, "dg0": st.dg0,
+        "pf": st.pf, "dg0": st.dg0, "probe1": st.probe1,
     }

@@ -17,8 +17,9 @@ f-values to their own.
 
 For objectives with the fused protocol (``__lbfgs_trial_probe__``, or
 under OWL-QN ``__lbfgs_owlqn_probe_pg__`` / ``__lbfgs_owlqn_probe__``)
-each trip is one probe kernel that writes no vector; the accepted point
-is materialized afterwards, either by one trial here
+each trip is one probe kernel that writes no vector (none and no read on
+a first trip whose (ft, g.d) the combine+probe fusion carried in); the
+accepted point is materialized afterwards, either by one trial here
 (``materialize=True``: K1, or under OWL-QN K7) or by the solver's
 one-pass epilogue (``materialize=False``).  Generic objectives evaluate
 (x, f, g) on every trip, under OWL-QN at the projected point of K9.
@@ -271,6 +272,22 @@ def _probe(pdef: ProblemDef, xp, d, stp, wp=None, wp_is_pg=False):
     return to_host(ft, dg)
 
 
+def carried(probe1: Optional[tuple], count: int, stp) -> Optional[tuple]:
+    """The carried (ft, dg) of the combine+probe fusion
+    (``SolverState.probe1`` = (ft, dgt, stp_probe)) when this trip may use
+    it: the first trip only, at exactly the probed step
+    (``lbfgs_tpu/linesearch.py:513-527, 755-764``); else None.  A use
+    saves one probe launch and its read, not an evaluation: the caller
+    still counts it in ``neval``.  ``carried.used`` counts the uses."""
+    if probe1 is None or count != 1 or stp != probe1[2]:
+        return None
+    carried.used += 1
+    return probe1[0], probe1[1]
+
+
+carried.used = 0
+
+
 def _trial(pdef: ProblemDef, xp, d, stp, wp=None):
     """One materialized trial: (xt, ft, gt, g.d[, gg, xx, changed]) as
     device tensors — the objective's fused trial when it has one
@@ -309,6 +326,7 @@ def morethuente(
     dginit: np.floating,
     neval0: int,
     materialize: bool = True,
+    probe1: Optional[tuple] = None,
 ) -> LineSearchResult:
     """More-Thuente bracketing search (reference ``line_search_morethuente``,
     ``src/line.rs:226-399``): sufficient decrease + curvature via the
@@ -319,6 +337,8 @@ def morethuente(
     accepted point is re-evaluated once at the end (``materialize``), not
     counted in ``neval`` since it repeats an evaluation of the loop, or
     left to the caller (``materialize=False``: x/gx/gg/xx/changed None).
+    In remat mode the first trip takes the carried ``probe1`` where its
+    step, after the clip and the "unusual" test, is the probed one.
     """
     # step and derivative scalars in the vectors' dtype, f-values in their
     # own (float64 under the wide objective scalar)
@@ -361,7 +381,8 @@ def morethuente(
                 stp = stx
 
             if remat:
-                ft, dg = _probe(pdef, xp, d, stp)
+                pre = carried(probe1, count, stp)
+                ft, dg = pre if pre is not None else _probe(pdef, xp, d, stp)
             else:
                 xt, ft_t, gt, dg_t = _trial(pdef, xp, d, stp)[:4]
                 ft, dg = to_host(ft_t, dg_t)
@@ -462,6 +483,7 @@ def backtracking(
     wp: Optional[torch.Tensor] = None,
     materialize: bool = True,
     wp_is_pg: bool = False,
+    probe1: Optional[tuple] = None,
 ) -> LineSearchResult:
     """Backtracking search with the Armijo / Wolfe / strong-Wolfe exit
     ladder (reference ``line_search_backtracking``, ``src/line.rs:716-784``):
@@ -478,7 +500,9 @@ def backtracking(
     accepted point is materialized once (``materialize``, see
     ``morethuente``).  The Armijo test compares the float64 ft with
     finit + stp*dgtest, the product in the vectors' dtype, under the wide
-    objective scalar (``lbfgs_tpu/linesearch.py:778``).
+    objective scalar (``lbfgs_tpu/linesearch.py:778``).  In remat mode
+    the first trip takes the carried ``probe1`` where the entry step is
+    the probed one.
     """
     f = np_type(xp.dtype)
     ff = np.dtype(finit.dtype).type
@@ -502,7 +526,8 @@ def backtracking(
     with np.errstate(all="ignore"):
         while not done and count < max_ls:
             if remat:
-                ft, dg = _probe(pdef, xp, d, stp, wp, wp_is_pg)
+                pre = carried(probe1, count, stp)
+                ft, dg = pre if pre is not None else _probe(pdef, xp, d, stp, wp, wp_is_pg)
             else:
                 xt, ft_t, gt, dg_t = _trial(pdef, xp, d, stp, wp)[:4]
                 ft, dg = to_host(ft_t, dg_t)
@@ -587,6 +612,7 @@ def find(
     dginit: Optional[np.floating] = None,
     materialize: bool = True,
     pgp: Optional[torch.Tensor] = None,
+    probe1: Optional[tuple] = None,
 ) -> LineSearchResult:
     """Line-search entry (reference ``LineSearch::find``,
     ``src/line.rs:193-223``).
@@ -601,7 +627,11 @@ def find(
     (``src/line.rs:208``).  A negative entry
     step is a logic error that leaves find before any evaluation
     (``src/line.rs:197-201``).  On an internal search failure the caller
-    reverts (``src/line.rs:213-220``).
+    reverts (``src/line.rs:213-220``).  ``probe1`` is the combine+probe
+    fusion's carried first trial (``SolverState.probe1``), which a remat
+    search uses on its first trip at exactly the probed step
+    (``lbfgs_tpu/linesearch.py:1087-1092``); under OWL-QN it comes from
+    the OWL-QN fusion, projected as the search's probes are.
     """
     ow = pdef.orthantwise
     has_pg_probe = getattr(pdef.value_and_grad, "__lbfgs_owlqn_probe_pg__",
@@ -632,10 +662,10 @@ def find(
         )
     if use_mt:
         return morethuente(pdef, ls, xp, finit, gp, d, stp0, dginit, neval0,
-                           materialize=materialize)
+                           materialize=materialize, probe1=probe1)
     wp = None
     wp_is_pg = ow and not materialize
     if ow:
         wp = pgp if wp_is_pg else ow_ops.choose_orthant(pdef.owlqn, xp, pgp)
     return backtracking(pdef, ls, xp, finit, gp, d, stp0, dginit, neval0, wp,
-                        materialize=materialize, wp_is_pg=wp_is_pg)
+                        materialize=materialize, wp_is_pg=wp_is_pg, probe1=probe1)

@@ -119,7 +119,9 @@ class LbfgsState:
                 # the pseudo-gradient with them under OWL-QN (pg is a
                 # function of (x, g): recomputed by K11, as the JAX package
                 # does, lbfgs_tpu/minimize.py:136-139); the carried scalars
-                # were reverted inside propagate
+                # were reverted inside propagate.  The combine+probe slot
+                # keeps what that propagate computed, as the JAX package's
+                # revert leaves it: the failure is fatal, no search reads it
                 st = self.state
                 prob = st.prob._replace(x=st.prob.xp, gx=st.prob.gp)
                 if self.pdef.orthantwise:

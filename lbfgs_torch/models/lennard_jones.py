@@ -92,16 +92,17 @@ LJ38_START = np.array([
 ])
 
 
-def lj38_positions(dtype=torch.float64, device=None) -> torch.Tensor:
+def lj38_positions(dtype=torch.float64, device="cuda") -> torch.Tensor:
     """The reference LJ38 example's start geometry (``examples/lj.rs:70-109``)
-    as a flat [114] vector."""
+    as a flat [114] vector, on the card unless ``device`` names another."""
     return torch.tensor(LJ38_START, dtype=dtype, device=device)
 
 
-def lj38_grid_start(dtype=torch.float64, device=None) -> torch.Tensor:
+def lj38_grid_start(dtype=torch.float64, device="cuda") -> torch.Tensor:
     """A synthetic 38-atom start: a 4x4x4 grid of spacing 1.1 around
     (50, 50, 50), its first 38 points perturbed by numpy's RandomState(38)
-    (the JAX package's numbers; a harder start, kept for stress tests)."""
+    (the JAX package's numbers; a harder start, kept for stress tests), on
+    the card unless ``device`` names another."""
     rng = np.random.RandomState(38)
     ijk = np.array([(i, j, k) for i in range(4) for j in range(4) for k in range(4)])
     pts = 50.0 + 1.1 * ijk[:38].astype(np.float64)

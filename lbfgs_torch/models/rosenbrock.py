@@ -68,10 +68,16 @@ owlqn_probe_pg = _k.owlqn_probe_pg
 owlqn_probe_pg_ref = _k.owlqn_probe_pg_ref
 owlqn_trial_pair_gram = _k.owlqn_trial_pair_gram
 owlqn_trial_pair_gram_ref = _k.owlqn_trial_pair_gram_ref
+combine_probe = _k.combine_probe
+combine_probe_ref = _k.combine_probe_ref
+combine_probe_ok = _k.combine_probe_ok
+combine_ow_probe = _k.combine_ow_probe
+combine_ow_probe_ref = _k.combine_ow_probe_ref
 
 
-def initial_point(n: int, dtype=torch.float64, device=None) -> torch.Tensor:
-    """x0 alternating (-1.2, 1.0) (``examples/sample.rs:13-17``)."""
+def initial_point(n: int, dtype=torch.float64, device="cuda") -> torch.Tensor:
+    """x0 alternating (-1.2, 1.0) (``examples/sample.rs:13-17``), on the
+    card unless ``device`` names another."""
     _check_even(n)
     x = torch.empty((n,), dtype=dtype, device=device)
     x[0::2] = -1.2

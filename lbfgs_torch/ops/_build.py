@@ -78,6 +78,14 @@ _SIGNATURES = {
             [_P, _P, _P, ctypes.c_double, _LL, _LL, _P, _LL, _P], ctypes.c_int)
         for sfx in ("f32", "f64")
     },
+    "lbfgs_axpy_dot_block_elems": ([], ctypes.c_int),
+    **{
+        f"lbfgs_axpy_dot_{sfx}": (
+            [_P, _P, ctypes.c_double, _P, _P, _P, _LL, _P], ctypes.c_int)
+        for sfx in ("f32", "f64")
+    },
+    "lbfgs_null_elems": ([], ctypes.c_int),
+    "lbfgs_null_launch": ([_P, _P, _P], ctypes.c_int),
 }
 
 

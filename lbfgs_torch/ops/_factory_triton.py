@@ -72,6 +72,24 @@ nothing that is not a result:
     With ``WITH_GP`` (damped OWL-QN) it adds gp.gp, gp.pg and the 2m
     products S_j.gp, Y_j.gp, in partials of their own, at no byte.
 
+  * K15 ``combine_probe_kernel`` (replaces
+    factory.py:_combine_probe_kernel): the two-loop's direction combine
+    r = gamma*g + sum_j cs_j S_j + sum_j cy_j Y_j (K3's function) with
+    r.r and r.g, and the next search's first probe at x + stp1*r in the
+    same pass.  It reads g, x and the 2m ring rows and writes r (in f32
+    with a bf16 history, m = 6: 3*4 + 2*6*2 = 36 B/elem, against 32 + 8
+    for K3 and a K2).  The probe's point and its (f, g.r) partials are
+    formed by K2's expressions and K2's store into a [programs, 2] array
+    of K2's layout, so the wrapper's (ft, g.r) equal ``probe(x, r, stp1)``
+    bit for bit; the combine's sums go to an array of their own.
+  * K16 ``combine_ow_probe_kernel`` (replaces
+    factory.py:_combine_ow_probe_kernel): K13's function, rc = pi(r; -pg)
+    inside the window with r.r before the constraint, rc.rc and rc.pg,
+    and the OWL-QN probe at pi(x + stp1*rc; wp) with the orthant rebuilt
+    from (x, pg) as K8's ``WP_IS_PG`` form does, its (f, L1, g.rc)
+    partials through ``_store_ow_probe``: equal to
+    ``owlqn_probe_pg(x, rc, pg, stp1)`` bit for bit (36 B/elem).
+
 The orthant tests use ``_msign``, which maps NaN to 0 as the reference's
 signum does; the pseudo-gradient's x != 0 branch uses ``_sign``, which
 keeps NaN, as ``jnp.sign`` does in the JAX kernels.
@@ -125,6 +143,33 @@ def _store_ow_probe(part_ptr, fe, x, g, d, mask, in_win):
 
 
 @triton.jit
+def _store_probe(part_ptr, fe, g, d, mask):
+    # the objective's and g.d partials of K2 and K15
+    part = part_ptr + tl.program_id(0) * 2
+    tl.store(part + 0, _block_sum(fe, mask))
+    tl.store(part + 1, _block_sum(g * d, mask))
+
+
+@triton.jit
+def _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, M: tl.constexpr):
+    # (g, r) with r = gamma*g + sum_j cs_j S_j + sum_j cy_j Y_j: the ring
+    # rows widen in registers; coef = [gamma, cs_0 .. cs_{M-1}, cy_0 ..]
+    g = tl.load(g_ptr + offs, mask=mask, other=0.0)
+    acc_s = tl.zeros_like(g)
+    acc_y = tl.zeros_like(g)
+    s_row = S_ptr + offs
+    y_row = Y_ptr + offs
+    for j in tl.static_range(M):
+        Sj = tl.load(s_row, mask=mask, other=0.0).to(g.dtype)
+        Yj = tl.load(y_row, mask=mask, other=0.0).to(g.dtype)
+        acc_s += tl.load(coef_ptr + 1 + j) * Sj
+        acc_y += tl.load(coef_ptr + 1 + M + j) * Yj
+        s_row += n
+        y_row += n
+    return g, tl.load(coef_ptr) * g + (acc_s + acc_y)
+
+
+@triton.jit
 def trial_kernel(xp_ptr, d_ptr, stp_ptr, xt_ptr, g_ptr, part_ptr, n,
                  body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr):
     offs = _offsets(ROWS, W)
@@ -154,9 +199,50 @@ def probe_kernel(xp_ptr, d_ptr, stp_ptr, part_ptr, n,
     d = tl.load(d_ptr + offs, mask=mask, other=0.0)
     x = xp + stp * d
     fe, g = body(x, offs)
-    part = part_ptr + tl.program_id(0) * 2
-    tl.store(part + 0, _block_sum(fe, mask))
-    tl.store(part + 1, _block_sum(g * d, mask))
+    _store_probe(part_ptr, fe, g, d, mask)
+
+
+@triton.jit
+def combine_probe_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, cpart_ptr,
+                         ppart_ptr, n, body: tl.constexpr, M: tl.constexpr,
+                         ROWS: tl.constexpr, W: tl.constexpr):
+    offs = _offsets(ROWS, W)
+    mask = offs < n
+    g, r = _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, M)
+    tl.store(r_ptr + offs, r, mask=mask)
+    cpart = cpart_ptr + tl.program_id(0) * 2
+    tl.store(cpart + 0, _block_sum(r * r, mask))
+    tl.store(cpart + 1, _block_sum(r * g, mask))
+    # the next search's first probe, as K2 forms it at (x, r, stp1)
+    stp = tl.load(stp_ptr)
+    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
+    xt = x + stp * r
+    fe, gt = body(xt, offs)
+    _store_probe(ppart_ptr, fe, gt, r, mask)
+
+
+@triton.jit(do_not_specialize=["lo", "hi"])
+def combine_ow_probe_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, cpart_ptr,
+                            ppart_ptr, n, lo, hi, body: tl.constexpr, M: tl.constexpr,
+                            ROWS: tl.constexpr, W: tl.constexpr):
+    offs = _offsets(ROWS, W)
+    mask = offs < n
+    pg, r = _combination(pg_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, M)
+    in_win = (offs >= lo) & (offs < hi)
+    # the direction constraint against -pg inside the window (K13's)
+    rc = tl.where(in_win & (_msign(r) != _msign(-pg)), 0.0, r)
+    tl.store(r_ptr + offs, rc, mask=mask)
+    cpart = cpart_ptr + tl.program_id(0) * 3
+    tl.store(cpart + 0, _block_sum(r * r, mask))
+    tl.store(cpart + 1, _block_sum(rc * rc, mask))
+    tl.store(cpart + 2, _block_sum(rc * pg, mask))
+    # the next search's first probe, as K8's WP_IS_PG form at (x, rc, pg, stp1)
+    stp = tl.load(stp_ptr)
+    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
+    wp_sign = tl.where(x == 0.0, _msign(-pg), _msign(x))
+    xt = _ow_point(x, rc, stp, wp_sign, in_win)
+    fe, gt = body(xt, offs)
+    _store_ow_probe(ppart_ptr, fe, xt, gt, rc, mask, in_win)
 
 
 @triton.jit(do_not_specialize=["end"])

@@ -31,7 +31,12 @@ protocol the solver looks for:
   * ``__lbfgs_pseudo_gradient_norm__`` / ``__lbfgs_pseudo_gradient__`` —
     OWL-QN's (pg, pg.pg) (K10, ``fused.pseudo_gradient_norm``), which the
     solver's init runs, and pg alone (K11, ``fused.pseudo_gradient``),
-    which the revert of a failed search runs.
+    which the revert of a failed search runs;
+  * ``__lbfgs_combine_probe__`` / ``__lbfgs_combine_ow_probe__`` (and
+    their ``_ok__`` predicates) — the opt-in combine+probe fusions K15 and
+    K16 (``LBFGS_TORCH_KERNELS=combine_probe``): K3's (K13's) combine with
+    the next search's first probe at x + stp1*r in the same pass, its
+    (ft, g.r) those of K2 (K8's pg form) at that point bit for bit.
 
 Under the wide objective scalar (``fused.wide_fx``, ``params.fx_wide``)
 the objective's column of K1, K2, K4, K7 and K8 and the L1 column of K7
@@ -173,11 +178,14 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
 
     # ------------------------------------------------------------ K2 probe
 
+    def _probe_plain(xp, d, stp):
+        fx, g = value_and_grad(xp + float(stp) * d)
+        return fused.obj_lift(fx, xp.dtype), torch.dot(g, d)
+
     def probe_ref(xp, d, stp):
         """Plain version of ``probe``."""
         probe_ref.calls += 1
-        fx, g = value_and_grad(xp + float(stp) * d)
-        return fused.obj_lift(fx, xp.dtype), torch.dot(g, d)
+        return _probe_plain(xp, d, stp)
 
     def probe(xp, d, stp):
         """(fx, g.d) at xp + stp*d, writing no vector."""
@@ -301,12 +309,15 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         _, ft, g = _ow_eval(xp, d, wp, stp, c, start, end)
         return ft, torch.dot(g, d)
 
-    def owlqn_probe_pg_ref(xp, d, pg, stp, c, start, end):
-        """Plain version of ``owlqn_probe_pg``."""
-        owlqn_probe_pg_ref.calls += 1
+    def _ow_probe_pg_plain(xp, d, pg, stp, c, start, end):
         wp = choose_orthant(Orthantwise(c, start, end), xp, pg)
         _, ft, g = _ow_eval(xp, d, wp, stp, c, start, end)
         return ft, torch.dot(g, d)
+
+    def owlqn_probe_pg_ref(xp, d, pg, stp, c, start, end):
+        """Plain version of ``owlqn_probe_pg``."""
+        owlqn_probe_pg_ref.calls += 1
+        return _ow_probe_pg_plain(xp, d, pg, stp, c, start, end)
 
     def _ow_probe(xp, d, w, stp, c, start, end, wp_is_pg):
         fused.check_contiguous("owlqn_probe", xp, d, w)
@@ -406,13 +417,99 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         SP, YP = fused.append_gp(P[:, :3], P[:, 3:], G[2:])
         return x, g, pg_new, SP, YP, tot[0], tot[1], tot[2] > 0, G[0], G[1]
 
+    # ------------------------- K15 / K16 combine + the next first probe
+
+    def combine_probe_ref(g, x, S, Y, gamma, coef_s, coef_y, stp1):
+        """Plain version of ``combine_probe``: ``fused.combine_ref``'s
+        arithmetic, then ``probe_ref``'s at x + stp1*r
+        (``lbfgs_tpu/ops/factory.py:1291-1296``), neither counted as a
+        call of its own."""
+        combine_probe_ref.calls += 1
+        r, rr, rd = fused.combine_plain(g, S, Y, gamma, coef_s, coef_y)
+        return (r, rr, rd, *_probe_plain(x, r, stp1))
+
+    def _check_combine(kernel, d, x, S, Y):
+        _check(x)
+        fused._check_hist(d, S, Y)
+        if x.shape != d.shape or x.dtype != d.dtype:
+            raise ValueError(f"{kernel}: x {x.dtype} {tuple(x.shape)} against the "
+                             f"direction's {d.dtype} {tuple(d.shape)}")
+
+    def _combine_launch(kernel, d, x, S, Y, coefs, stp1, nparts, *args):
+        """Launch K15 or K16, whose combine and probe partials are both
+        [programs, nparts] arrays (2 columns for K15, 3 for K16); returns
+        (r, column sums of the combine's partials, the probe's partials)."""
+        fused.check_contiguous(kernel, d, x, S, Y)
+        m, n = S.shape
+        grid = _grid(n)
+        r = torch.empty_like(d)
+        cpart = torch.empty((grid[0], nparts), dtype=d.dtype, device=d.device)
+        ppart = torch.empty((grid[0], nparts), dtype=d.dtype, device=d.device)
+        getattr(_kernels(), kernel + "_kernel")[grid](
+            d, x, S, Y, fused.coef_vector(d, *coefs), _scalar(stp1, d), r, cpart, ppart,
+            n, *args, body=block_fn(), M=m, ROWS=rows, W=row, **LAUNCH,
+        )
+        return r, fused.reduce_partials(cpart), ppart
+
+    def combine_probe(g, x, S, Y, gamma, coef_s, coef_y, stp1):
+        """The direction combine r = gamma*g + coef_s @ S + coef_y @ Y with
+        r.r and r.g (``fused.combine``'s function), and the next search's
+        first probe (ft, g(xt).r) at xt = x + stp1*r, from one pass (K15).
+        The probe's scalars equal ``probe(x, r, stp1)``'s bit for bit.
+        ``gamma`` (0-d) and the coefficients ([m]) are tensors on g's
+        device, ``stp1`` a host scalar.  Returns (r, r.r, r.g, ft, g.r)."""
+        _check_combine("combine_probe", g, x, S, Y)
+        if not fused.on_cuda(g, "combine_probe"):
+            return combine_probe_ref(g, x, S, Y, gamma, coef_s, coef_y, stp1)
+        r, ctot, ppart = _combine_launch("combine_probe", g, x, S, Y,
+                                         (gamma, coef_s, coef_y), stp1, 2)
+        combine_probe.launches += 1
+        ptot = fused.reduce_partials(ppart)
+        return r, ctot[0], ctot[1], _fx(ppart, ptot), ptot[1]
+
+    def combine_ow_probe_ref(pg, x, S, Y, gamma, coef_s, coef_y, c, start, end, stp1):
+        """Plain version of ``combine_ow_probe``: ``fused.combine_ow_ref``'s
+        arithmetic, then ``owlqn_probe_pg_ref``'s at (x, rc, pg, stp1)
+        (``lbfgs_tpu/ops/factory.py:1457-1466``), neither counted."""
+        combine_ow_probe_ref.calls += 1
+        rc, rr, rc2, rcd = fused.combine_ow_plain(pg, S, Y, gamma, coef_s, coef_y, start, end)
+        return (rc, rr, rc2, rcd, *_ow_probe_pg_plain(x, rc, pg, stp1, c, start, end))
+
+    def combine_ow_probe(pg, x, S, Y, gamma, coef_s, coef_y, c, start, end, stp1):
+        """OWL-QN's combine with the direction constraint
+        (``fused.combine_ow``'s function: rc = pi(r; -pg) inside [start,
+        end), r.r before the constraint, rc.rc, rc.pg) and the next
+        search's first probe at pi(x + stp1*rc; wp), wp rebuilt from (x,
+        pg), with fx + c*L1 and g.rc, from one pass (K16).  The probe's
+        scalars equal ``owlqn_probe_pg(x, rc, pg, stp1, c, start, end)``'s
+        bit for bit.  Returns (rc, r.r, rc.rc, rc.pg, ft, g.rc)."""
+        _check_combine("combine_ow_probe", pg, x, S, Y)
+        lo, hi = _window(x.shape[0], start, end)
+        if not fused.on_cuda(pg, "combine_ow_probe"):
+            return combine_ow_probe_ref(pg, x, S, Y, gamma, coef_s, coef_y, c, lo, hi, stp1)
+        rc, ctot, ppart = _combine_launch("combine_ow_probe", pg, x, S, Y,
+                                          (gamma, coef_s, coef_y), stp1, 3, lo, hi)
+        combine_ow_probe.launches += 1
+        return (rc, ctot[0], ctot[1], ctot[2], *_ow_probe_scalars(ppart, c))
+
+    def combine_probe_ok(x, S) -> bool:
+        """Whether the solver runs the combine+probe fusions: shapes and
+        dtypes the kernels take, and the fusion named in
+        ``LBFGS_TORCH_KERNELS`` (``lbfgs_tpu/ops/factory.py:1332-1341``)."""
+        try:
+            _check(x)
+        except (TypeError, ValueError):
+            return False
+        return fused.can_combine(x, S) and fused.kernel_enabled("combine_probe")
+
     for fn in (trial, probe, trial_pair_gram, owlqn_trial, owlqn_probe, owlqn_probe_pg,
-               owlqn_trial_pair_gram):
+               owlqn_trial_pair_gram, combine_probe, combine_ow_probe):
         fn.launches = 0
     # the . gp (damped) specialisations of K4 and K14, counted apart too
     trial_pair_gram.gp_launches = owlqn_trial_pair_gram.gp_launches = 0
     for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_trial_ref, owlqn_probe_ref,
-               owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref):
+               owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref, combine_probe_ref,
+               combine_ow_probe_ref):
         fn.calls = 0
 
     ns = SimpleNamespace(
@@ -426,6 +523,9 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         owlqn_probe_pg=owlqn_probe_pg, owlqn_probe_pg_ref=owlqn_probe_pg_ref,
         owlqn_trial_pair_gram=owlqn_trial_pair_gram,
         owlqn_trial_pair_gram_ref=owlqn_trial_pair_gram_ref,
+        combine_probe=combine_probe, combine_probe_ref=combine_probe_ref,
+        combine_probe_ok=combine_probe_ok,
+        combine_ow_probe=combine_ow_probe, combine_ow_probe_ref=combine_ow_probe_ref,
     )
 
     def vag(x):
@@ -437,18 +537,20 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
     _attach(vag, trial, probe, trial_pair_gram, trial_pair_gram_ok, owlqn_trial,
             owlqn_probe, owlqn_probe_pg, owlqn_trial_pair_gram,
             fused.combine, fused.combine_fix, fused.combine_ow,
-            fused.pseudo_gradient_norm, fused.pseudo_gradient)
+            fused.pseudo_gradient_norm, fused.pseudo_gradient,
+            combine_probe, combine_ow_probe, combine_probe_ok)
     _attach(plain, trial_ref, probe_ref, trial_pair_gram_ref, trial_pair_gram_ok,
             owlqn_trial_ref, owlqn_probe_ref, owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref,
             fused.combine_ref, fused.combine_fix_ref, fused.combine_ow_ref,
-            fused.pseudo_gradient_norm_ref, fused.pseudo_gradient_ref)
+            fused.pseudo_gradient_norm_ref, fused.pseudo_gradient_ref,
+            combine_probe_ref, combine_ow_probe_ref, combine_probe_ok)
     vag.kernels = plain.kernels = ns
     vag.plain = plain
     return vag
 
 
 def _attach(obj, trial, probe, tpg, tpg_ok, ow_trial, ow_probe, ow_probe_pg, ow_tpg,
-            combine, combine_fix, combine_ow, pg_norm, pg) -> None:
+            combine, combine_fix, combine_ow, pg_norm, pg, cp, cp_ow, cp_ok) -> None:
     obj.__lbfgs_value_and_grad__ = True
     obj.__lbfgs_trial__ = trial
     obj.__lbfgs_trial_probe__ = probe
@@ -465,3 +567,8 @@ def _attach(obj, trial, probe, tpg, tpg_ok, ow_trial, ow_probe, ow_probe_pg, ow_
     obj.__lbfgs_combine_ow__ = combine_ow
     obj.__lbfgs_pseudo_gradient_norm__ = pg_norm
     obj.__lbfgs_pseudo_gradient__ = pg
+    obj.__lbfgs_combine_probe__ = cp
+    obj.__lbfgs_combine_probe_ok__ = cp_ok
+    obj.__lbfgs_combine_ow_probe__ = cp_ow
+    # K16 takes the same shapes and dtypes as K15
+    obj.__lbfgs_combine_ow_probe_ok__ = cp_ok

@@ -20,9 +20,17 @@ share.
   * ``pseudo_gradient`` (K11) and ``pseudo_gradient_norm`` (K10) —
     OWL-QN's pseudo-gradient, alone and with its squared norm.
 
+  * ``axpy_dot`` (K17) — z = y + c*x and z . w in one pass.  No solver
+    path runs it (the compact two-loop takes its products from the
+    epilogues), as in the JAX package.
+
   On a CUDA tensor each launches its hand-written kernel
-  (``csrc/combine.cu``, ``csrc/pair_gram.cu``, ``csrc/owlqn.cu``); on a
-  CPU tensor it runs its plain version (``*_ref``).
+  (``csrc/combine.cu``, ``csrc/pair_gram.cu``, ``csrc/owlqn.cu``,
+  ``csrc/axpy_dot.cu``); on a CPU tensor it runs its plain version
+  (``*_ref``).
+
+  * ``kernel_enabled`` — the opt-in fusions that ``LBFGS_TORCH_KERNELS``
+    adds to the default kernels (the combine+probe fusions K15 and K16).
 
   * ``reduce_partials`` — the fixed-order cross-block sum that every
     kernel of the package uses: each kernel program writes its own
@@ -46,6 +54,8 @@ accumulate in the vectors' dtype.  Any other combination raises.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from . import _build
@@ -64,6 +74,23 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 #: largest history the combine kernel takes (its coefficients live in
 #: shared memory; ``csrc/combine.cu`` kMaxM)
 MAX_M = 64
+
+#: the fusions that run only when ``LBFGS_TORCH_KERNELS`` names them
+OPT_IN_KERNELS = frozenset({"combine_probe"})
+
+
+def kernel_enabled(name: str) -> bool:
+    """Whether the kernel ``name`` runs (``lbfgs_tpu/ops/fused.py:
+    _kernel_enabled``): every default kernel always; an opt-in fusion
+    (``OPT_IN_KERNELS``) when ``LBFGS_TORCH_KERNELS``, a comma list of
+    names or ``all``, names it.  Unlike the JAX package's variable, this
+    one only adds: it never turns a default kernel off, so no plain
+    version stands in for a kernel on the card."""
+    if name not in OPT_IN_KERNELS:
+        return True
+    sel = os.environ.get("LBFGS_TORCH_KERNELS", "")
+    names = {s.strip() for s in sel.split(",")}
+    return "all" in names or name in names
 
 
 def check_dtypes(vec_dtype: torch.dtype, hist_dtype: torch.dtype | None = None) -> None:
@@ -208,14 +235,28 @@ def _combination(d, S, Y, gamma, coef_s, coef_y):
     return gamma * d + (coef_s @ S.to(d.dtype) + coef_y @ Y.to(d.dtype))
 
 
-def combine_ref(d, S, Y, gamma, coef_s, coef_y):
-    """Plain version of ``combine``: (r, r.r, r.d)."""
-    combine_ref.calls += 1
+def combine_plain(d, S, Y, gamma, coef_s, coef_y):
+    """(r, r.r, r.d) in plain torch, uncounted: the arithmetic of
+    ``combine_ref``, which the combine+probe fusion's plain version
+    (``factory``) shares."""
     r = _combination(d, S, Y, gamma, coef_s, coef_y)
     return r, torch.dot(r, r), torch.dot(r, d)
 
 
+def combine_ref(d, S, Y, gamma, coef_s, coef_y):
+    """Plain version of ``combine``: (r, r.r, r.d)."""
+    combine_ref.calls += 1
+    return combine_plain(d, S, Y, gamma, coef_s, coef_y)
+
+
 combine_ref.calls = 0
+
+
+def coef_vector(d, *coefs) -> torch.Tensor:
+    """The combine kernels' coefficients [gamma, cs_0 .., cy_0 .., ...] as
+    one tensor of d's dtype on its device (no host read)."""
+    return torch.cat([torch.as_tensor(c, dtype=d.dtype, device=d.device).reshape(-1)
+                      for c in coefs])
 
 
 def _launch_combine(name, d, S, Y, coefs, nparts, *args):
@@ -227,8 +268,7 @@ def _launch_combine(name, d, S, Y, coefs, nparts, *args):
         raise ValueError(f"{name}: m = {m} exceeds {MAX_M}")
     check_contiguous(name, d, S, Y)
     lib = _build.load_library()
-    coef = torch.cat([torch.as_tensor(c, dtype=d.dtype, device=d.device).reshape(-1)
-                      for c in coefs])
+    coef = coef_vector(d, *coefs)
     blocks = -(-n // lib.lbfgs_combine_block_elems())
     r = torch.empty_like(d)
     part = torch.empty((blocks, nparts), dtype=d.dtype, device=d.device)
@@ -310,12 +350,19 @@ combine_fix.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def combine_ow_ref(d, S, Y, gamma, coef_s, coef_y, start: int, end: int):
-    """Plain version of ``combine_ow``: (rc, r.r, rc.rc, rc.d)."""
-    combine_ow_ref.calls += 1
+def combine_ow_plain(d, S, Y, gamma, coef_s, coef_y, start: int, end: int):
+    """(rc, r.r, rc.rc, rc.d) in plain torch, uncounted (``combine_ow_ref``'s
+    arithmetic, shared with the OWL-QN combine+probe fusion's plain
+    version)."""
     r = _combination(d, S, Y, gamma, coef_s, coef_y)
     rc = project_window(r, -d, start, end)
     return rc, torch.dot(r, r), torch.dot(rc, rc), torch.dot(rc, d)
+
+
+def combine_ow_ref(d, S, Y, gamma, coef_s, coef_y, start: int, end: int):
+    """Plain version of ``combine_ow``: (rc, r.r, rc.rc, rc.d)."""
+    combine_ow_ref.calls += 1
+    return combine_ow_plain(d, S, Y, gamma, coef_s, coef_y, start, end)
 
 
 combine_ow_ref.calls = 0
@@ -629,3 +676,44 @@ def pair_gram_xg(x, xp, gx, gp, pg, S, Y, end: int):
 
 
 pair_gram_xg.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K17: fused axpy + dot
+# ---------------------------------------------------------------------------
+
+
+def axpy_dot_ref(y, x, c, w):
+    """Plain version of ``axpy_dot``."""
+    axpy_dot_ref.calls += 1
+    z = y + float(c) * x
+    return z, torch.dot(z, w)
+
+
+axpy_dot_ref.calls = 0
+
+
+def axpy_dot(y, x, c, w):
+    """z = y + c*x and z . w from one pass (K17,
+    ``lbfgs_tpu/ops/fused.py:_axpy_dot_kernel``).  ``c`` is a host scalar,
+    rounded to the vectors' dtype; the product and the sum are rounded
+    one by one, so z is the plain version's bit for bit.  No solver path
+    runs it."""
+    _check_vectors("axpy_dot", y, x, w)
+    if not on_cuda(y, "axpy_dot"):
+        return axpy_dot_ref(y, x, c, w)
+    check_contiguous("axpy_dot", y, x, w)
+    lib = _build.load_library()
+    n = y.shape[0]
+    blocks = -(-n // lib.lbfgs_axpy_dot_block_elems())
+    z = torch.empty_like(y)
+    part = torch.empty((blocks, 1), dtype=y.dtype, device=y.device)
+    code = getattr(lib, f"lbfgs_axpy_dot_{_SUFFIX[y.dtype]}")(
+        y.data_ptr(), x.data_ptr(), float(c), w.data_ptr(), z.data_ptr(), part.data_ptr(),
+        n, torch.cuda.current_stream(y.device).cuda_stream)
+    _build.check_launch(code, "axpy_dot")
+    axpy_dot.launches += 1
+    return z, reduce_partials(part)[0]
+
+
+axpy_dot.launches = 0

@@ -37,6 +37,16 @@ ring row is persisted by K6 inside the combine (under OWL-QN by a plain
 row blend before K13).  Generic objectives take the composed
 ``update_pair``.  Stored ys and gamma stay pre-damping everywhere.
 
+With ``LBFGS_TORCH_KERNELS=combine_probe`` the combine of step 3 is the
+combine+probe fusion (K15; under OWL-QN K16): the same pass also probes
+the next search at its predicted entry step, and the scalars come back in
+step 4's read, so a first trip at that step costs no launch and no read
+(``SolverState.probe1``).  The damped plain branch then blends the row
+in plain torch before the combine, as the JAX package does, instead of
+K6.  ``params.adaptive_entry_step`` (the JAX package's extension) enters
+each search at clip(growth*step, 2^-16, 1) of the last accepted step
+instead of 1.0, where the step is not capped.
+
 The literal scan two-loop is not ported yet; ``init_state`` raises
 ``NotImplementedError`` for it.
 """
@@ -95,6 +105,7 @@ def two_loop_compact(
     combine_ow=fused.combine_ow,
     row_fix: Optional[tuple] = None,
     combine_fix=fused.combine_fix,
+    probe_fuse: Optional[tuple] = None,
 ):
     """Byrd-Nocedal-Schnabel compact two-loop.
 
@@ -131,6 +142,13 @@ def two_loop_compact(
     on the stored row and cy[end]*cb added to the combine's gamma, and the
     combine is ``combine_fix`` (K6), which also persists the damped row
     into Y in place (``lbfgs_tpu/solver.py:317-339``).
+
+    ``probe_fuse`` (the combine+probe fusion, ``lbfgs_tpu/solver.py:
+    296-356``) = (fn, x, stp1), under OWL-QN (fn, x, c, stp1): the combine
+    is ``fn`` (K15, K16), which also probes the next search at x + stp1*r,
+    and ``rd`` gains that probe's (ft, g.r).  The OWL-QN form wins first,
+    then ``row_fix`` (which the solver does not pass with the fusion on),
+    then the plain fusion.
     """
     m = hist.s.shape[0]
     if Sd_ring is None:
@@ -165,7 +183,12 @@ def two_loop_compact(
     coef_s[idx] = coefs
     coef_y[idx] = -gamma * alphas
     gamma_eff = -gamma if neg else gamma
-    if ow_window is not None:
+    if ow_window is not None and probe_fuse is not None:
+        fn, x, c, stp1 = probe_fuse
+        r, rr, *rd = fn(d, x, hist.s, hist.y, gamma_eff, coef_s, coef_y, c, *ow_window,
+                        stp1)
+        rd = tuple(rd)
+    elif ow_window is not None:
         r, rr, rc2, rcd = combine_ow(d, hist.s, hist.y, gamma_eff, coef_s, coef_y,
                                      *ow_window)
         rd = (rc2, rcd)
@@ -178,6 +201,12 @@ def two_loop_compact(
         coef_y[fix_end] = cy_end * ca
         r, rr, rd = combine_fix(d, hist.s, hist.y, gamma_eff, coef_s, coef_y,
                                 fix_end, ca, cb)
+    elif probe_fuse is not None:
+        if not neg:
+            raise ValueError("probe_fuse needs the sign-folded two-loop (neg=True)")
+        fn, x, stp1 = probe_fuse
+        r, rr, *rd = fn(d, x, hist.s, hist.y, gamma_eff, coef_s, coef_y, stp1)
+        rd = tuple(rd)
     else:
         r, rr, rd = combine(d, hist.s, hist.y, gamma_eff, coef_s, coef_y)
     alpha_ring = hist.alpha.clone()
@@ -252,6 +281,13 @@ def update_pair(params: LbfgsParams, x, xp, gx, gp, step=None) -> PairUpdate:
     elif yy_h == 0.0:
         status = int(Status.ERR_G_NOT_CHANGED)
     return PairUpdate(s=s, y=y, ys=ys, gamma=gamma, status=status, case=case)
+
+
+def _blend_row(Y: torch.Tensor, end: int, a, b, gx: torch.Tensor) -> None:
+    """Persist the damped ring row in place from the NEW gradient (gp is
+    gone in the lean state): a*y + b*gp = (a - b)*y + b*gx, rounded to
+    the history dtype (``lbfgs_tpu/solver.py:766-769, 818-821``)."""
+    Y[end] = ((a - b) * Y[end].to(gx.dtype) + b * gx).to(Y.dtype)
 
 
 def _damped_gram(params: LbfgsParams, SP, YP, end: int, stp_d, gpgp, gp_d0):
@@ -340,9 +376,30 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     combine_ow = getattr(vag, "__lbfgs_combine_ow__", fused.combine_ow)
 
     ls = ls_find(pdef, params.linesearch, xp, prob.fx, gp, prob.d, st.step,
-                 prob.neval, dginit=st.dg0, materialize=not use_mega, pgp=prob.pg)
+                 prob.neval, dginit=st.dg0, materialize=not use_mega, pgp=prob.pg,
+                 probe1=st.probe1)
     ls_failed = ls.status != 0
     step_ls = st.step if ls_failed else ls.step
+
+    # the next search's entry step, known before the two-loop where the
+    # step is not capped (lbfgs_tpu/solver.py:883-910): 1.0, or under the
+    # adaptive policy clip(growth*step_ls, 2^-16, 1), literal 1.0 while
+    # k <= 2 (the first search's step reflects the init's entry, not the
+    # ladder).  Under the cap the entry comes from ||d|| after the
+    # combine, and the fusion probes at 1.0, used only where the capped
+    # entry is exactly that
+    f = type(st.step)
+    stp_pred = None
+    if params.constrain_step_size:
+        stp1 = f(1.0)
+    elif params.adaptive_entry_step > 0.0 and st.k > 2:
+        stp_pred = stp1 = f(np.clip(f(params.adaptive_entry_step) * step_ls,
+                                    f(2.0 ** -16), f(1.0)))
+    else:
+        stp_pred = stp1 = f(1.0)
+    # the combine+probe fusion (K15, K16) runs where the state carries its
+    # slot (init_state made the decision)
+    fuse = st.probe1 is not None
 
     pg = pgpg = pu = gp_scalars = None
     if use_mega and ow:
@@ -407,15 +464,18 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
             gpgp, gppg = gp_scalars
             u, v, w, Yd_ring, a, b, case = _damped_gram(
                 params, SP, YP, end, step_ls, gpgp, -gppg)
-            # persist the damped row from the NEW gradient (gp is gone in
-            # the lean state): a*y + b*gp = (a - b)*y + b*gx
-            hist.y[end] = ((a - b) * hist.y[end].to(gx.dtype) + b * gx).to(hist.y.dtype)
+            _blend_row(hist.y, end, a, b, gx)
         else:
             gpgp = float(prob.gnorm2)
             u, v, w, Yd_ring, a, b, case = _damped_gram(
                 params, SP, YP, end, ls.step_eval, gpgp, -(YP[end, 3] + gpgp))
-            # the same row, persisted by the combine (K6)
-            row_fix = (end, a - b, b)
+            if not fuse:
+                # the same row, persisted by the combine (K6)
+                row_fix = (end, a - b, b)
+            else:
+                # the combine+probe fusion takes the place of K6: the row
+                # is blended before it (lbfgs_tpu/solver.py:758-769)
+                _blend_row(hist.y, end, a, b, gx)
     sy = hist.sy.clone()
     sy[:, end] = u
     sy[end, :] = w
@@ -436,30 +496,42 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     # sign folded in; under OWL-QN the combine also constrains the
     # direction (src/lbfgs.rs:554)
     bound = min(m, st.k - 1)
+    probe_fuse = None
+    if fuse and ow:
+        probe_fuse = (vag.__lbfgs_combine_ow_probe__, x, pdef.owlqn.c, stp1)
+    elif fuse:
+        probe_fuse = (vag.__lbfgs_combine_probe__, x, stp1)
     d, alpha_ring, dd, rd = two_loop_compact(
         hist, pg if ow else gx, gamma, bound, end, Sd_ring, Yd_ring, neg=True,
         combine=combine, combine_ow=combine_ow,
         ow_window=pdef.owlqn.start_end(xp.shape[0]) if ow else None,
-        row_fix=row_fix, combine_fix=combine_fix,
+        row_fix=row_fix, combine_fix=combine_fix, probe_fuse=probe_fuse,
     )
     hist = hist._replace(alpha=alpha_ring)
 
     # the one read of the iteration: what the host decides on next, the
-    # fused branches' damping case included.  Generic objectives carry
-    # no `changed` count: the reference's s.s == 0 test decides then
-    # (src/lbfgs.rs:646)
+    # fused branches' damping case and the fusion's probe included.
+    # Generic objectives carry no `changed` count: the reference's s.s == 0
+    # test decides then (src/lbfgs.rs:646)
     if ls_changed is None:
         ls_changed = ss_new != 0.0
-    # under OWL-QN the combine's fourth value is (||rc||^2, rc . pg)
-    rc2, rd = rd if ow else (None, rd)
+    # the combine's fourth value is r . g, under OWL-QN (||rc||^2, rc . pg),
+    # and with the fusion the next search's first probe (ft, g.d) follows
+    parts = list(rd) if isinstance(rd, tuple) else [rd]
+    probe = parts[-2:] if fuse else []
+    rc2, rd = parts[:2] if ow else (None, parts[0])
     extra = ([rc2] if ow else []) + ([case] if case is not None else [])
-    scalars = [yy_new, dd, rd, ls_changed] + extra
+    scalars = [yy_new, dd, rd, ls_changed] + extra + probe
     if ls_failed:
         gnorm2, xnorm2 = prob.gnorm2, prob.xnorm2
         yy_h, dd_h, dg0, changed, *extra_h = to_host(*scalars)
     else:
         gnorm2, xnorm2, yy_h, dd_h, dg0, changed, *extra_h = to_host(
             pgpg if ow else ls_gg, ls_xx, *scalars)
+    probe1 = None
+    if probe:
+        *extra_h, p_ft_h, p_dg_h = extra_h
+        probe1 = (p_ft_h, p_dg_h, stp1)
     rc2_h = extra_h[0] if ow else None
     if case is not None:
         case = int(extra_h[-1])
@@ -491,13 +563,12 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
         status = int(Status.ERR_OWLQN_ZERO_DIRECTION)
 
     # next-iteration step size (src/lbfgs.rs:547-551), from the norm
-    # before the OWL-QN constraint
-    f = type(st.step)
+    # before the OWL-QN constraint; uncapped, the entry predicted above
     if params.constrain_step_size:
         dnorm_safe = dnorm if dnorm != 0.0 else f(1.0)
         step_next = np.minimum(f(params.max_step_size), dnorm) / dnorm_safe
     else:
-        step_next = f(1.0)
+        step_next = stp_pred
     if ls.status == Status.ERR_NEGATIVE_STEP:
         # a negative entry step bubbles out of find (src/line.rs:197-201)
         status = int(Status.ERR_NEGATIVE_STEP)
@@ -513,7 +584,7 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     return SolverState(
         prob=prob_new, hist=hist, end=(end + 1) % m, step=f(step_next),
         step_ls=step_ls, k=st.k, ncall=ls.ncall, status=status,
-        ls_status=ls.status, pf=st.pf, dg0=dg0, damping_cases=cases,
+        ls_status=ls.status, pf=st.pf, dg0=dg0, damping_cases=cases, probe1=probe1,
     )
 
 
@@ -564,7 +635,6 @@ def check_supported(params: LbfgsParams) -> None:
     missing = [
         (not params.compact_two_loop, "compact_two_loop=False (scan two-loop)"),
         (int(ls.speculative) > 1, "speculative line search"),
-        (params.adaptive_entry_step > 0.0, "adaptive_entry_step"),
     ]
     for hit, name in missing:
         if hit:
@@ -655,11 +725,18 @@ def _init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
         pf[0] = fx
     else:
         pf = None
+    # the combine+probe slot, iff the fusion will run in propagate
+    # (lbfgs_tpu/solver.py:1237-1258).  Its first value is dead: the probed
+    # step -1 equals no entry step, not even an initial step of exactly
+    # 1.0 (initial_inverse_hessian == ||d||)
+    ok = getattr(vag, "__lbfgs_combine_ow_probe_ok__" if pdef.orthantwise
+                 else "__lbfgs_combine_probe_ok__", None)
+    probe1 = (fx, -gnorm2, f(-1.0)) if ok is not None and ok(x0, hist.s) else None
     return SolverState(
         prob=prob, hist=hist, end=0, step=f(step), step_ls=f(step), k=0,
         ncall=0, status=0, ls_status=0, pf=pf,
         # d = -g (-pg), so dginit = -||g||^2 exactly (IEEE sign symmetry)
-        dg0=-gnorm2,
+        dg0=-gnorm2, probe1=probe1,
     )
 
 

@@ -103,18 +103,19 @@ def test_progress_cancellation_gives_status_4():
         calls.append(p.niter)
         return True
 
-    x0 = t_rosen.initial_point(100)
+    x0 = t_rosen.initial_point(100, device="cpu")
     rep = lbfgs_torch.lbfgs().minimize(x0, lbfgs_torch.default_evaluate(), progress)
     assert rep.status == t_status.Status.CANCELLED == 4
     assert calls == [1] and rep.niter == 1
 
 
 #: OWL-QN, the backtracking searches, damping (damped OWL-QN included),
-#: gradient_only and the wide objective scalar run; what of them still
-#: raises is each with a setting not ported yet: the scan two-loop, the
-#: speculative (K-way) backtracking search.  ``fx_wide`` raised until it
-#: was ported: its case now checks that it runs, with fx carried as
-#: float64 over float32 vectors
+#: gradient_only, the wide objective scalar and the adaptive entry step
+#: run; what of them still raises is each with a setting not ported yet:
+#: the scan two-loop, the speculative (K-way) backtracking search.
+#: ``fx_wide`` and ``adaptive_entry_step`` raised until they were ported:
+#: their cases now check that both entry points run them (fx carried as
+#: float64 over float32 vectors under ``fx_wide``)
 UNPORTED = {
     "orthantwise": lambda b: (b.with_orthantwise(1.0, 0, 99).with_damping(True)
                               .with_fx_wide().with_speculative_linesearch(2)),
@@ -134,13 +135,20 @@ UNPORTED = {
 def test_unported_settings_raise(name):
     b = UNPORTED[name](lbfgs_torch.lbfgs())
     if name == "fx_wide":
-        x0 = t_rosen.initial_point(100, dtype=torch.float32)
+        x0 = t_rosen.initial_point(100, dtype=torch.float32, device="cpu")
         for entry in ("minimize", "minimize_jit"):
             rep = getattr(b, entry)(x0, lbfgs_torch.default_evaluate())
             assert type(rep.fx) is np.float64 and rep.x.dtype == torch.float32
             assert rep.fx < 1e-3
         return
-    x0 = t_rosen.initial_point(100)
+    if name == "adaptive_entry_step":
+        x0 = t_rosen.initial_point(100, device="cpu")
+        for entry in ("minimize", "minimize_jit"):
+            rep = getattr(b.with_constrain_step_size(False), entry)(
+                x0, lbfgs_torch.default_evaluate())
+            assert np.isfinite(rep.fx) and rep.fx < 1e-3
+        return
+    x0 = t_rosen.initial_point(100, device="cpu")
     with pytest.raises(NotImplementedError):
         b.minimize(x0, lbfgs_torch.default_evaluate())
     with pytest.raises(NotImplementedError):
@@ -148,7 +156,7 @@ def test_unported_settings_raise(name):
 
 
 def test_unported_entry_points_raise():
-    x0 = t_rosen.initial_point(100)
+    x0 = t_rosen.initial_point(100, device="cpu")
     b = lbfgs_torch.lbfgs()
     with pytest.raises(NotImplementedError, match="fp8"):
         b.with_history_dtype("float8_e4m3fn")
@@ -163,7 +171,7 @@ def test_gradient_only_with_more_thuente_is_a_value_error():
     from lbfgs_torch.linesearch import find
     from lbfgs_torch.params import LineSearchParams
 
-    x = t_rosen.initial_point(100)
+    x = t_rosen.initial_point(100, device="cpu")
     fx, g = t_rosen._plain_value_and_grad(x)
     with pytest.raises(ValueError, match="incompatible with MoreThuente"):
         find(ProblemDef(t_rosen.value_and_grad), LineSearchParams(gradient_only=True),
@@ -175,6 +183,7 @@ def test_import_leaves_out_jax_and_triton():
         "import sys, lbfgs_torch, lbfgs_torch.minimize, lbfgs_torch.interop, "
         "lbfgs_torch.models.rosenbrock, lbfgs_torch.models.lennard_jones, "
         "lbfgs_torch.models.logistic, lbfgs_torch.utils.csvio, "
+        "lbfgs_torch.utils.profiling, "
         "lbfgs_torch.ops.fused, "
         "lbfgs_torch.ops.factory, lbfgs_torch.ops._build; "
         "bad = [m for m in ('jax', 'triton') if m in sys.modules]; "
@@ -197,6 +206,6 @@ def test_three_objective_shapes(shape):
 
     fn = {"scalar": scalar, "value_and_grad": t_rosen._plain_value_and_grad,
           "closure": closure}[shape]
-    rep = lbfgs_torch.lbfgs().minimize(t_rosen.initial_point(100), fn)
+    rep = lbfgs_torch.lbfgs().minimize(t_rosen.initial_point(100, device="cpu"), fn)
     assert rep.niter == 35
     assert rep.fx < 1e-9

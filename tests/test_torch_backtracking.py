@@ -129,7 +129,7 @@ def test_rosenbrock_search_matches_jax(algorithm, seed):
     trial) against the JAX package's on the same point."""
     rng = np.random.default_rng(seed)
     n = 64
-    x = t_rosen.initial_point(n).numpy() + 0.3 * rng.standard_normal(n)
+    x = t_rosen.initial_point(n, device="cpu").numpy() + 0.3 * rng.standard_normal(n)
     fx, g = t_rosen._plain_value_and_grad(torch.from_numpy(x))
     g = g.numpy()
     d = -g
@@ -209,7 +209,7 @@ def test_ladder_runs_in_lock_step_with_jax(algorithm):
     from lbfgs_tpu import lbfgs as j_lbfgs
 
     st_t = t_lbfgs().with_linesearch_algorithm(algorithm).build(
-        t_rosen.initial_point(100), t_rosen.value_and_grad)
+        t_rosen.initial_point(100, device="cpu"), t_rosen.value_and_grad)
     st_j = j_lbfgs().with_linesearch_algorithm(algorithm).build(
         j_rosen.initial_point(100), j_rosen.value_and_grad)
     for _ in range(30):

@@ -255,7 +255,7 @@ def test_damped_owlqn_50_iterations_match_jax(owlqn_prefix_jax, objective):
     rel 1e-9, gnorm and step rel 1e-6; damping case 1 fires."""
     fn = t_rosen.value_and_grad if objective == "fused" else t_rosen._plain_value_and_grad
     b = lbfgs_torch.lbfgs().with_orthantwise(1.0, 0, 99).with_damping(True).with_max_iterations(50)
-    tt, rep = _trace(b, t_rosen.initial_point(100), fn)
+    tt, rep = _trace(b, t_rosen.initial_point(100, device="cpu"), fn)
     assert len(tt) == len(owlqn_prefix_jax) == 50
     for (kt, ft, gt, st, et), (kj, fj, gj, sj, ej) in zip(tt, owlqn_prefix_jax):
         assert kt == kj and et == ej
@@ -280,7 +280,7 @@ def test_entry_points_agree_and_match_jax(config):
     damped run (bit for bit, all on the fused branch), and it ends where
     the JAX package's does."""
     b = CONFIGS[config](lbfgs_torch.lbfgs()).with_max_iterations(50)
-    x0 = t_rosen.initial_point(100)
+    x0 = t_rosen.initial_point(100, device="cpu")
     reps = [b.minimize(x0, t_rosen.value_and_grad),
             b.minimize_jit(x0, t_rosen.value_and_grad)]
     st = b.build(x0, t_rosen.value_and_grad)
@@ -306,7 +306,7 @@ def test_k5_route_runs_damped_like_the_epilogue():
     version) with the . gp column, then K6: the same run as the K4 route,
     to the rounding of a separate pass."""
     b = lbfgs_torch.lbfgs().with_damping(True).with_damping_fixed().with_max_iterations(20)
-    x0 = t_rosen.initial_point(100)
+    x0 = t_rosen.initial_point(100, device="cpu")
     before = t_fused.pair_gram_sd_ref.calls
     r5 = b.minimize_jit(x0, _trial_only_objective())
     assert t_fused.pair_gram_sd_ref.calls - before == 19
@@ -337,7 +337,7 @@ def test_damped_owlqn_takes_k14_with_gp_and_never_k5(monkeypatch):
     monkeypatch.setattr(t_rosen.value_and_grad, "__lbfgs_owlqn_trial_pair_gram__", spy)
     fix = t_fused.combine_fix_ref.calls
     rep = (lbfgs_torch.lbfgs().with_orthantwise(1.0, 0, 99).with_damping(True)
-           .with_max_iterations(6).minimize(t_rosen.initial_point(100), t_rosen.value_and_grad))
+           .with_max_iterations(6).minimize(t_rosen.initial_point(100, device="cpu"), t_rosen.value_and_grad))
     assert rep.niter == 6
     assert seen and all(seen)
     assert t_fused.combine_fix_ref.calls == fix
@@ -346,7 +346,7 @@ def test_damped_owlqn_takes_k14_with_gp_and_never_k5(monkeypatch):
 def test_gradient_only_with_more_thuente_still_raises():
     b = lbfgs_torch.lbfgs().with_gradient_only().with_linesearch_algorithm("MoreThuente")
     with pytest.raises(ValueError, match="incompatible with MoreThuente"):
-        b.minimize(t_rosen.initial_point(100), t_rosen.value_and_grad)
+        b.minimize(t_rosen.initial_point(100, device="cpu"), t_rosen.value_and_grad)
 
 
 def test_gradient_only_selects_strong_wolfe_and_damping():

@@ -405,7 +405,7 @@ def test_odd_n_raises():
     with pytest.raises(ValueError, match="even n"):
         t_rosen.trial(x, x, 0.0)
     with pytest.raises(ValueError, match="even n"):
-        t_rosen.initial_point(7)
+        t_rosen.initial_point(7, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ E0, E_RELAXED = -116.84147098, -164.2701507
 def test_lj_gradient_matches_autograd():
     """The hand-derived gradient equals torch.autograd's of the energy."""
     lj = t_lj.LennardJones()
-    x = t_lj.lj38_positions().requires_grad_(True)
+    x = t_lj.lj38_positions(device="cpu").requires_grad_(True)
     e, g = lj.value_and_grad(x)
     (g_auto,) = torch.autograd.grad(e, x)
     np.testing.assert_allclose(g.detach().numpy(), g_auto.numpy(), rtol=1e-9)
@@ -29,7 +29,7 @@ def test_lj_gradient_matches_autograd():
 
 @pytest.mark.parametrize("start", ["lj38", "grid"])
 def test_lj_value_and_grad_match_jax(start):
-    t_x = {"lj38": t_lj.lj38_positions, "grid": t_lj.lj38_grid_start}[start]()
+    t_x = {"lj38": t_lj.lj38_positions, "grid": t_lj.lj38_grid_start}[start](device="cpu")
     j_x = {"lj38": j_lj.lj38_positions, "grid": j_lj.lj38_grid_start}[start]()
     np.testing.assert_array_equal(t_x.numpy(), np.asarray(j_x))
     et, gt = t_lj.LennardJones(1.3, 0.9).value_and_grad(t_x)
@@ -52,7 +52,7 @@ def test_lj38_relaxation_default():
     """Default L-BFGS relaxes the reference start into the basin at
     E = -164.27015 (tests/test_lennard_jones.py:38-50)."""
     obj = t_lj.make_objective()
-    x0 = t_lj.lj38_positions()
+    x0 = t_lj.lj38_positions(device="cpu")
     assert float(obj(x0)[0]) == pytest.approx(E0, abs=1e-6)
     rep = lbfgs_torch.lbfgs().with_max_iterations(400).minimize(x0, obj)
     assert rep.fx == pytest.approx(E_RELAXED, abs=1e-4)
@@ -60,7 +60,7 @@ def test_lj38_relaxation_default():
 
 def test_lj38_grid_start_relaxation():
     obj = t_lj.make_objective()
-    x0 = t_lj.lj38_grid_start()
+    x0 = t_lj.lj38_grid_start(device="cpu")
     rep = lbfgs_torch.lbfgs().with_max_iterations(400).minimize(x0, obj)
     assert rep.fx < float(obj(x0)[0]) and rep.fx < -140.0
 
@@ -90,7 +90,7 @@ def test_lj38_gradient_only_matches_jax(gradient_only_jax):
     prefix descends below -150 (:106)."""
     before = t_fused.combine_ref.calls
     tt, rep = _trace(lbfgs_torch.lbfgs().with_gradient_only().with_max_iterations(50),
-                     t_lj.lj38_positions(), t_lj.make_objective())
+                     t_lj.lj38_positions(device="cpu"), t_lj.make_objective())
     assert len(tt) == len(gradient_only_jax) == 50
     for (kt, ft, gt, st, et), (kj, fj, gj, sj, ej) in zip(tt, gradient_only_jax):
         assert kt == kj and et == ej
@@ -106,7 +106,7 @@ def test_lj38_gradient_only_matches_jax(gradient_only_jax):
 
 def test_lj38_gradient_only_minimize_jit_is_the_same_run():
     b = lbfgs_torch.lbfgs().with_gradient_only().with_max_iterations(30)
-    x0 = t_lj.lj38_positions()
+    x0 = t_lj.lj38_positions(device="cpu")
     a = b.minimize(x0, t_lj.make_objective())
     c = b.minimize_jit(x0, t_lj.make_objective())
     assert (a.niter, a.fx, a.gnorm, a.damping_cases) == (c.niter, c.fx, c.gnorm,

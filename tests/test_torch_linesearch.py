@@ -91,7 +91,7 @@ def test_update_trial_interval_matches_jax(seed):
 def test_more_thuente_search_matches_jax(seed, entry):
     rng = np.random.default_rng(seed)
     n = 64
-    x = t_rosen.initial_point(n).numpy() + 0.3 * rng.standard_normal(n)
+    x = t_rosen.initial_point(n, device="cpu").numpy() + 0.3 * rng.standard_normal(n)
     fx, g = t_rosen._plain_value_and_grad(torch.from_numpy(x))
     g = g.numpy()
     d = -g
@@ -112,7 +112,7 @@ def test_more_thuente_search_matches_jax(seed, entry):
 
 
 def test_negative_entry_step_is_fatal_before_any_evaluation():
-    x = t_rosen.initial_point(8)
+    x = t_rosen.initial_point(8, device="cpu")
     fx, g = t_rosen._plain_value_and_grad(x)
     calls = t_rosen.probe_ref.calls
     r = tls.find(TDef(t_rosen.value_and_grad), TLS(), x, F(fx), g, -g, F(-0.0), 3)
@@ -121,7 +121,7 @@ def test_negative_entry_step_is_fatal_before_any_evaluation():
 
 
 def test_float32_search_stays_in_float32():
-    x = t_rosen.initial_point(64, torch.float32)
+    x = t_rosen.initial_point(64, torch.float32, device="cpu")
     fx, g = t_rosen._plain_value_and_grad(x)
     r = tls.find(TDef(t_rosen.value_and_grad), TLS(), x, np.float32(fx), g, -g,
                  np.float32(0.01), 1, materialize=False)

@@ -156,7 +156,7 @@ def test_owlqn_init_state_matches_jax():
                                  owlqn=jow.Orthantwise(1.0, 0, N - 1)),
                             JParams(orthantwise=jow.Orthantwise(1.0, 0, N - 1)),
                             j_rosen.initial_point(N)))
-    t = tsol.init_state(pdef, params, t_rosen.initial_point(N))
+    t = tsol.init_state(pdef, params, t_rosen.initial_point(N, device="cpu"))
     for name in ("x", "gx", "pg", "d", "fx", "gnorm2", "xnorm2"):
         _close(getattr(t.prob, name), getattr(j.prob, name), name)
     _close(t.step, j.step, "step")
@@ -171,7 +171,7 @@ def test_pg_carries_both_ways(jax_states):
     # plain L-BFGS carries no pg
     assert interop.state_to_numpy(
         tsol.init_state(TDef(t_rosen.value_and_grad), TParams(),
-                        t_rosen.initial_point(8)))["prob"]["pg"] is None
+                        t_rosen.initial_point(8, device="cpu")))["prob"]["pg"] is None
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +183,7 @@ def test_pg_carries_both_ways(jax_states):
 def lbfgs_solution():
     """The 2018 L-BFGS solution the recorded OWL-QN run starts from."""
     rep = lbfgs_torch.lbfgs().with_constrain_step_size(False).minimize(
-        t_rosen.initial_point(100), lbfgs_torch.default_evaluate())
+        t_rosen.initial_point(100, device="cpu"), lbfgs_torch.default_evaluate())
     assert rep.niter == 38
     return rep.x
 
@@ -228,9 +228,11 @@ def test_failed_search_reverts_pg_like_jax():
     logging.disable(logging.ERROR)
     try:
         out = []
-        for mod, rosen in ((lbfgs_torch, t_rosen), (__import__("lbfgs_tpu"), j_rosen)):
+        for mod, rosen, x0 in (
+                (lbfgs_torch, t_rosen, t_rosen.initial_point(100, device="cpu")),
+                (__import__("lbfgs_tpu"), j_rosen, j_rosen.initial_point(100))):
             st = (mod.lbfgs().with_orthantwise(1.0, 0, 99).with_linesearch_min_step(0.05)
-                  .build(rosen.initial_point(100), rosen.value_and_grad))
+                  .build(x0, rosen.value_and_grad))
             with pytest.raises(Exception, match="x not changed"):
                 while not st.is_converged():
                     st.propagate()
@@ -259,7 +261,7 @@ def test_owlqn_routes_more_thuente_to_armijo_backtracking(monkeypatch):
     monkeypatch.setattr(tls, "morethuente", None)
     ow = tow.Orthantwise(1.0, 0, 99)
     pdef = TDef(t_rosen.value_and_grad, owlqn=ow)
-    x = t_rosen.initial_point(100)
+    x = t_rosen.initial_point(100, device="cpu")
     fx, g = t_rosen._plain_value_and_grad(x)
     pg = tow.pseudo_gradient(ow, x, g)
     fx = np.float64(fx + tow.x1norm(ow, x))

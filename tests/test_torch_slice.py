@@ -42,7 +42,7 @@ def test_goldens_n100(entry, objective):
     fn = {"fused": lbfgs_torch.default_evaluate,
           "trial_only": _trial_only_objective,
           "generic": lambda: t_rosen._plain_value_and_grad}[objective]()
-    x0 = t_rosen.initial_point(100)
+    x0 = t_rosen.initial_point(100, device="cpu")
     rep = getattr(lbfgs_torch.lbfgs(), entry)(x0, fn)
     assert rep.niter == 35
     rep = getattr(lbfgs_torch.lbfgs().with_constrain_step_size(False), entry)(x0, fn)
@@ -50,7 +50,7 @@ def test_goldens_n100(entry, objective):
     assert rep.gnorm == pytest.approx(GOLDEN_GNORM, rel=1e-6)
     assert rep.niter == 38
     # the caller's x0 is never written
-    assert torch.equal(x0, t_rosen.initial_point(100))
+    assert torch.equal(x0, t_rosen.initial_point(100, device="cpu"))
 
 
 def _run(state_cls, params, x0, vag):
@@ -65,7 +65,7 @@ def test_f32_lock_step_with_jax_kernel_path(monkeypatch):
     Pallas kernels in interpret mode (tests/test_native_parity.py:186-234)."""
     n = 1 << 14
     rep_t = _run(TState, TParams(max_iterations=8, epsilon=0.0),
-                 t_rosen.initial_point(n, torch.float32), t_rosen.value_and_grad)
+                 t_rosen.initial_point(n, torch.float32, device="cpu"), t_rosen.value_and_grad)
     monkeypatch.setenv("LBFGS_TPU_KERNELS_INTERPRET", "1")
     rep_j = _run(JState, JParams(max_iterations=8, epsilon=0.0),
                  j_rosen.initial_point(n, dtype=jnp.float32), j_rosen.value_and_grad)
@@ -77,7 +77,7 @@ def test_f32_lock_step_with_jax_kernel_path(monkeypatch):
 def test_bf16_history_whole_run_matches_step_at_a_time():
     params = TParams(m=6, history_dtype="bfloat16", constrain_step_size=False,
                      epsilon=0.0, max_iterations=21)
-    x0 = t_rosen.initial_point(2048, torch.float32)
+    x0 = t_rosen.initial_point(2048, torch.float32, device="cpu")
     a = lbfgs_torch.minimize.minimize_jit(params, x0, t_rosen.value_and_grad)
     b = _run(TState, params, x0, t_rosen.value_and_grad)
     assert a.niter == b.niter == 21
@@ -91,7 +91,7 @@ def test_failed_search_reverts_like_jax():
     iteration as the JAX package."""
     out = []
     for cls, P, x0, vag in (
-        (TState, TParams, t_rosen.initial_point(100), t_rosen.value_and_grad),
+        (TState, TParams, t_rosen.initial_point(100, device="cpu"), t_rosen.value_and_grad),
         (JState, JParams, j_rosen.initial_point(100), j_rosen.value_and_grad),
     ):
         st = cls.build(P().replace_ls(xtol=10.0), x0, vag)
@@ -110,16 +110,16 @@ def test_failed_search_reverts_like_jax():
 def test_whole_run_raises_on_fatal_status():
     b = lbfgs_torch.lbfgs().with_linesearch_xtol(10.0)
     with pytest.raises(LbfgsError, match="x not changed"):
-        b.minimize_jit(t_rosen.initial_point(100), lbfgs_torch.default_evaluate())
+        b.minimize_jit(t_rosen.initial_point(100, device="cpu"), lbfgs_torch.default_evaluate())
     st = lbfgs_torch.minimize.minimize_jit(
-        b.param, t_rosen.initial_point(100), lbfgs_torch.default_evaluate(),
+        b.param, t_rosen.initial_point(100, device="cpu"), lbfgs_torch.default_evaluate(),
         return_state=True)
     assert st.status == 20 and st.k == 9
 
 
 def test_fx_delta_plateau_test_matches_jax():
     kw = dict(fx_delta_enabled=True, past=3, delta=1e-2)
-    rt = lbfgs_torch.minimize.minimize(TParams(**kw), t_rosen.initial_point(100),
+    rt = lbfgs_torch.minimize.minimize(TParams(**kw), t_rosen.initial_point(100, device="cpu"),
                                        t_rosen.value_and_grad)
     from lbfgs_tpu.minimize import minimize as jmin
 

@@ -76,7 +76,7 @@ def test_init_state_matches_jax():
     x0 = j_rosen.initial_point(N)
     j = _np(jsol.init_state(JDef(value_and_grad=j_rosen.value_and_grad), JParams(), x0))
     t = tsol.init_state(TDef(value_and_grad=t_rosen.value_and_grad), TParams(),
-                        t_rosen.initial_point(N))
+                        t_rosen.initial_point(N, device="cpu"))
     for name in ("x", "gx", "d", "fx", "gnorm2", "xnorm2"):
         _close(getattr(t.prob, name), getattr(j.prob, name), name)
     _close(t.step, j.step, "step")
@@ -146,7 +146,7 @@ def test_update_pair_matches_jax():
 def test_stop_status_order():
     """max_iterations, then max_evaluations, then the scaled gnorm."""
     st = tsol.init_state(TDef(value_and_grad=t_rosen.value_and_grad), TParams(),
-                         t_rosen.initial_point(100))
+                         t_rosen.initial_point(100, device="cpu"))
     st = st._replace(k=5)
     assert tsol.stop_status(TParams(max_iterations=5, max_evaluations=1), st) == 2
     assert tsol.stop_status(TParams(max_evaluations=1), st) == 3

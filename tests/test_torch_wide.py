@@ -111,7 +111,7 @@ def test_wide_against_default_end_to_end(ow):
     """tests/test_wide_fx.py:121-163: whole runs through ``minimize_jit``,
     wide against default: the same iterations, fx rel 1e-3, fx float64 and
     the vectors float32."""
-    x0 = t_rosen.initial_point(N, dtype=torch.float32)
+    x0 = t_rosen.initial_point(N, dtype=torch.float32, device="cpu")
     st_w = t_minimize_jit(_params(TParams, TOW, True, ow), x0, lbfgs_torch.default_evaluate(),
                           return_state=True)
     st_d = t_minimize_jit(_params(TParams, TOW, False, ow), x0, lbfgs_torch.default_evaluate(),
@@ -129,7 +129,7 @@ def test_wide_host_loop_with_a_generic_objective():
     """tests/test_wide_fx.py:166-180: the step-at-a-time loop and a
     generic objective, fx float64 at every iteration."""
     b = lbfgs_torch.lbfgs().with_fx_wide().with_max_iterations(10)
-    st = b.build(t_rosen.initial_point(100, dtype=torch.float32), t_rosen._plain_value_and_grad)
+    st = b.build(t_rosen.initial_point(100, dtype=torch.float32, device="cpu"), t_rosen._plain_value_and_grad)
     assert type(st.state.prob.fx) is np.float64
     while not st.is_converged():
         p = st.propagate()
@@ -140,7 +140,7 @@ def test_wide_host_loop_with_a_generic_objective():
 @pytest.mark.parametrize("entry", ["minimize", "minimize_jit"])
 @pytest.mark.parametrize("ow", [False, True], ids=["plain", "owlqn"])
 def test_wide_changes_nothing_for_float64_vectors(entry, ow):
-    x0 = t_rosen.initial_point(100)
+    x0 = t_rosen.initial_point(100, device="cpu")
     reps = []
     for wide in (False, True):
         b = lbfgs_torch.lbfgs().with_fx_wide(wide).with_max_iterations(40)
@@ -210,7 +210,7 @@ def test_k7_evaluates_the_wide_owlqn_init_only():
     stp = 0 with wp = x0, whose point is x0 itself; the default init stays
     K1 plus the L1 term.  (On the CPU the wrappers run the counted plain
     versions.)"""
-    x0 = t_rosen.initial_point(N, dtype=torch.float32)
+    x0 = t_rosen.initial_point(N, dtype=torch.float32, device="cpu")
     ow = TOW(1.0, 0, N - 1)
     pdef = TDef(t_rosen.value_and_grad, owlqn=ow)
     out = {}
@@ -244,7 +244,7 @@ def test_k7_materializes_the_owlqn_search_without_an_epilogue():
                  "__lbfgs_owlqn_trial__", "__lbfgs_owlqn_probe__"):
         setattr(no_epilogue, name, getattr(vag, name))
     b = lbfgs_torch.lbfgs().with_orthantwise(1.0, 0, 99).with_max_iterations(20)
-    x0 = t_rosen.initial_point(100)
+    x0 = t_rosen.initial_point(100, device="cpu")
     before = (t_rosen.owlqn_trial_ref.calls, t_rosen.owlqn_probe_ref.calls,
               t_fused.pair_gram_xg_ref.calls)
     r = b.minimize_jit(x0, no_epilogue)
