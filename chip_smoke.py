@@ -24,32 +24,37 @@ Phases (any failure raises and the script exits nonzero):
      kernels (the recorded fx 43.50249999999999, x[0] 0.25, x[1] 0.0575);
   6. main path: n = 2^24 Rosenbrock, f32, m = 6, bf16 history,
      More-Thuente, uncapped step, epsilon 0, 100 iterations of
-     ``minimize_jit``, with the kernel launch counts checked; then
-     ``minimize_jit`` through the plain versions on the card against the
-     kernels, after 8 and after 15 iterations;
+     ``minimize_jit``, with the kernel launch counts checked (K1 once, K4
+     and the combine+probe fusion K15 per iteration, K2 per probe that
+     K15 did not carry in); then ``minimize_jit`` through the plain
+     versions on the card against the kernels, after 8 and after 15
+     iterations;
   7. OWL-QN main path: n = 2^24, f32, m = 6, bf16 history, c = 1 on
      [0, n - 1), BacktrackingArmijo, uncapped step, time to epsilon 3e-2
-     within 300 iterations of ``minimize_jit``, with the launch counts
-     checked (no plain version and no plain stand-in runs); then the
-     plain versions against the kernels after 8 and 15 iterations;
+     within 300 iterations of ``minimize_jit`` (K1 and K10 once, K14 and
+     K16 per iteration, K8 per probe not carried in), with the launch
+     counts checked (no plain version and no plain stand-in runs); then
+     the plain versions against the kernels after 8 and 15 iterations;
   8. north star: n = 1e8, m = 3, time to epsilon 3e-2;
   9. damped f64 n = 100: Powell damping, with ``damping_fixed``, and
      damped OWL-QN (c = 1 on [0, 99)), 50 iterations each through
-     ``minimize`` with a progress callback, per iteration against the
-     same runs on the CPU, and against the JAX package's recorded runs
-     (``DAMPED_N100``); damping case 1 and case 2 must fire;
+     ``minimize`` with a progress callback (the capped step: K6, K13),
+     per iteration against the same runs on the CPU, and against the JAX
+     package's recorded runs (``DAMPED_N100``); damping case 1 and case 2
+     must fire;
  10. LJ38: the reference's 38-atom cluster in f64 on the card, default
      L-BFGS to the relaxed energy, and ``with_gradient_only()`` for 50
      iterations per iteration against the CPU (the composed damped
      branch and K3);
  11. damped main path: the plain main path with ``damping=True`` (K1, K2
-     per probe, K4 with its . gp column and K6 per iteration), then
-     through the plain versions against the kernels after 8 and 15
-     iterations;
+     per probe not carried in, K4 with its . gp column and K15's form
+     that persists the damped row per iteration), then through the plain
+     versions against the kernels after 8 and 15 iterations;
  12. gradient-only main path: the same size with
      ``with_gradient_only()``, 50 iterations;
  13. damped OWL-QN main path: the OWL-QN main path with ``damping=True``
-     (K8 per probe, K14 with its . gp columns and K13 per iteration);
+     (K8 per probe not carried in, K14 with its . gp columns and K16 per
+     iteration);
  14. K5 route: a Rosenbrock that has the trial and probe kernels but no
      one-pass epilogue, damped, 10 iterations at n = 2^24 (K1 per
      materialized trial, K2, K5 with the . gp column and K6);
@@ -65,38 +70,39 @@ Phases (any failure raises and the script exits nonzero):
  17. f32 floor: the 512 x 64 Poisson pair of runs, float32 and wide,
      through the step-at-a-time loop, their statuses recorded;
  18. wide OWL-QN main path: the OWL-QN main path with ``with_fx_wide()``
-     (K7 once at the start, then K8, K14, K13): 12 iterations against the
+     (K7 once at the start, then K8, K14, K16): 12 iterations against the
      default run, then the run to epsilon 3e-2;
  19. OWL-QN north star: n = 1e8, m = 3, c = 1 on [0, n - 1), epsilon
      3e-2, within 300 iterations, wide and then default;
- 20. combine_probe main path (``LBFGS_TORCH_KERNELS=combine_probe``): the
-     main path with the combine+probe fusion K15 in place of K3, its
-     launches (K15 and K4 per iteration, K2 per probe the fusion did not
-     carry in, K1 once, K3 none) and its syncs and probes per iteration
-     beside the fusion-off run's; fusion on against off after 8 and 15
-     iterations, and through the plain versions against the kernels;
- 21. combine_ow_probe main path: the OWL-QN main path with K16 in place of
-     K13, CONVERGED at epsilon 3e-2, with the same checks;
+ 20. unfused main path: the main path on an objective without the
+     combine+probe fusion's hooks, so K3 runs in place of K15 and K2 on
+     every probe; its syncs and probes per iteration beside the main
+     path's (the fusion must save at least half a read per iteration);
+     the main path against it and against its plain versions after 8
+     and 15 iterations; ms/iter of both in turns;
+ 21. unfused OWL-QN main path: the same for the OWL-QN main path, K13 in
+     place of K16, CONVERGED at epsilon 3e-2;
  22. adaptive entry: the OWL-QN main path with
-     ``with_adaptive_entry_step(2.0)``, without and with the fusion, each
+     ``with_adaptive_entry_step(2.0)``, with and without the fusion, each
      CONVERGED, evaluations beside the literal run's;
- 23. damped + fusion: the damped main path with the fusion, 30
-     iterations: K15 in place of K6, the row blended before it;
+ 23. unfused damped main path: 30 iterations with K6 in place of K15's
+     damped-row form, and the same trajectory checks;
  24. launch_overhead: microseconds per back-to-back launch of the
      calibration kernel (``csrc/calibrate.cu``) and per launch with one
      synchronising read, and the share of each main path's ms/iter that
      its launches and reads per iteration explain;
  25. with ``--profile PATH`` only: one run of each main path (plain,
-     OWL-QN, damped, damped OWL-QN, the two with the fusion, Poisson)
-     under torch.profiler (device busy time against the unprofiled walls,
-     device items, host launch and copy calls); the operator tables go to
-     PATH.
+     OWL-QN, damped, damped OWL-QN, Poisson, and the first three without
+     the fusion) under torch.profiler (device busy time against the
+     unprofiled walls, device items, host launch and copy calls); the
+     operator tables go to PATH.
 
-Phase 3 also holds K15, K16 (the combine+probe fusions), K17 (axpy +
-dot) and the calibration kernel to their plain versions (K15's and K16's
-probe scalars bit for bit those of K2 and of K8's pg form at the point
-they form, in both objective-scalar modes; their directions against
-K3's and K13's), and the OWL-QN kernels K7, K9, K11 and K12 to their plain
+Phase 3 also holds K15 (with its damped-row form), K16 (the
+combine+probe fusions), K17 (axpy + dot) and the calibration kernel to
+their plain versions (K15's and K16's probe scalars bit for bit those of
+K2 and of K8's pg form at the point they form, in both objective-scalar
+modes; their directions against K3's and K13's; the damped row bit for
+bit K6's), and the OWL-QN kernels K7, K9, K11 and K12 to their plain
 versions (K9's point, K11's pg against K10's, K12's ring rows and K7's
 ft against K8's bit for bit), and a ``wide_kernels`` phase checks the
 wide objective scalar's forms of K1, K2, K4, K7 and K8 against the
@@ -109,7 +115,6 @@ before the last, and ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -178,23 +183,28 @@ KERNELS = {
                                      "lbfgs_tpu/ops/factory.py:923 (with_gp)"),
     "K15_combine_probe": ("triton", "lbfgs_torch/ops/_factory_triton.py",
                           "lbfgs_tpu/ops/factory.py:1195"),
+    "K15_combine_probe_fix": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                              "lbfgs_tpu/ops/factory.py:1195 (with K6's damped row, "
+                              "lbfgs_tpu/ops/fused.py:1216)"),
     "K16_combine_ow_probe": ("triton", "lbfgs_torch/ops/_factory_triton.py",
                              "lbfgs_tpu/ops/factory.py:1345"),
     "K17_axpy_dot": ("cuda", "lbfgs_torch/csrc/axpy_dot.cu", "lbfgs_tpu/ops/fused.py:743"),
     "cal_null_launch": ("cuda", "lbfgs_torch/csrc/calibrate.cu", "bench_kernels.py:108"),
 }
-#: the kernels each main path must launch
-PLAIN_PATH = ("K1_trial", "K2_probe", "K3_combine", "K4_trial_pair_gram")
+#: the kernels each main path must launch, and whose launches the kernel
+#: table shows from that path
+PLAIN_PATH = ("K1_trial", "K2_probe", "K4_trial_pair_gram", "K15_combine_probe")
 OWLQN_PATH = ("K1_trial", "K8_owlqn_probe", "K10_pseudo_gradient_norm",
-              "K13_combine_ow", "K14_owlqn_trial_pair_gram")
-#: the kernel of each damped path whose launches the kernel table shows
-DAMPED_PATH = ("K4_trial_pair_gram_gp", "K6_combine_fix")
+              "K14_owlqn_trial_pair_gram", "K16_combine_ow_probe")
+#: the kernel of each other path whose launches the kernel table shows
+DAMPED_PATH = ("K4_trial_pair_gram_gp", "K15_combine_probe_fix")
 DAMPED_OWLQN_PATH = ("K14_owlqn_trial_pair_gram_gp",)
 K5_PATH = ("K5_pair_gram",)
 POISSON_PATH = ("K9_owlqn_trial_step", "K11_pseudo_gradient", "K12_pair_gram_xg")
 WIDE_OWLQN_PATH = ("K7_owlqn_trial",)
-FUSION_PATH = ("K15_combine_probe",)
-OWLQN_FUSION_PATH = ("K16_combine_ow_probe",)
+UNFUSED_PATH = ("K3_combine",)
+UNFUSED_OWLQN_PATH = ("K13_combine_ow",)
+UNFUSED_DAMPED_PATH = ("K6_combine_fix",)
 #: stp1 values the fusions are checked at: the literal entry, and two an
 #: adaptive entry can take
 STP1 = (1.0, 0.37, 2.0 ** -3)
@@ -228,6 +238,8 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
         "K14_owlqn_trial_pair_gram_gp": (7 * v + rings, 16 * m + 44),
         # K3's pass with x read and K2's probe added; K13's with K8's
         "K15_combine_probe": (3 * v + 2 * m * h, 4 * m + 22),
+        # and K6's damped row: one more row written, its blend
+        "K15_combine_probe_fix": (3 * v + 2 * m * h + h, 4 * m + 26),
         "K16_combine_ow_probe": (3 * v + 2 * m * h, 4 * m + 34),
         "K17_axpy_dot": (4 * v, 4),
         # reads and writes one float32 per element, at n = N_NULL
@@ -310,20 +322,12 @@ def check_extends(name: str, base, ext, cols) -> None:
             raise AssertionError(f"{name}: output {i} differs from the 3-column launch")
 
 
-def sync_time(fn, reps: int) -> float:
-    """Milliseconds per call of fn, by CUDA events over reps calls.  Where
+def wall_ms(fn, reps: int) -> float:
+    """Milliseconds of host wall per call of fn over reps calls back to
+    back, the card drained before and after (``profiling.timed``).  Where
     the host launches slower than the card runs (K1 and K2's wrappers)
     this is the host's launch time, not the card's."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return 1e3 * profiling.timed(lambda: [fn() for _ in range(reps)]) / reps
 
 
 def device_events(prof) -> list:
@@ -336,12 +340,10 @@ def device_events(prof) -> list:
 def device_time(fn, reps: int) -> float:
     """Device milliseconds per call of fn: the summed durations of every
     kernel and copy it puts on the card (kernel, partial sums,
-    allocations' fills), from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+    allocations' fills), from torch.profiler (``profiling.trace``)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiling.trace() as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -415,6 +417,12 @@ def phase_build() -> None:
                 rosenbrock.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1)
                 z = torch.zeros(m, dtype=vd, device="cuda")
                 fused.combine(x, S, S, z[0], z, z)
+                # the combine+probe fusions (K15 with and without its
+                # damped-row form, K16)
+                rosenbrock.combine_probe(x, x, S, S, z[0], z, z, 1.0)
+                rosenbrock.combine_probe(x, x, S, S.clone(), z[0], z, z, 1.0,
+                                         fix=(1, z[0], z[0]))
+                rosenbrock.combine_ow_probe(x, x, S, S, z[0], z, z, 1.0, 0, n - 1, 1.0)
             # the OWL-QN kernels run at m = M only
             S = torch.zeros((M, n), dtype=hd, device="cuda")
             rosenbrock.owlqn_trial(x, x, x, 0.0, 1.0, 0, n - 1)
@@ -422,10 +430,6 @@ def phase_build() -> None:
             rosenbrock.owlqn_probe_pg(x, x, x, 0.0, 1.0, 0, n - 1)
             rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
                                              n - 1, S, S.clone(), 1)
-            # the combine+probe fusions (K15, K16)
-            z = torch.zeros(M, dtype=vd, device="cuda")
-            rosenbrock.combine_probe(x, x, S, S, z[0], z, z, 1.0)
-            rosenbrock.combine_ow_probe(x, x, S, S, z[0], z, z, 1.0, 0, n - 1, 1.0)
             # the damped paths' . gp specialisations
             rosenbrock.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1, with_gp=True)
             rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
@@ -523,6 +527,7 @@ def phase_kernels() -> dict:
                   "with_gp_columns_0_2": "bit-exact", "k9_point": "bit-exact",
                   "k11_vs_k10_pg": "bit-exact", "k7_ft_vs_k8": "bit-exact",
                   "k15_probe_vs_k2": "bit-exact", "k16_probe_vs_k8_pg": "bit-exact",
+                  "k15_fix_row_vs_k6": "bit-exact",
                   "k17_z": "bit-exact", "null_launch": "bit-exact"},
              direction_bit_exact_vs_combine={k: all(v) for k, v in same_as_k3.items()})
 
@@ -605,15 +610,22 @@ def phase_kernels() -> dict:
             lambda: fused.pair_gram_xg(x9, xp0, pg, a["gp"], a["xp"], S, Y, END),
             lambda: fused.pair_gram_xg_ref(x9, xp0, pg, a["gp"], a["xp"], S, Y, END)),
     })
-    # the fusions in the form their main paths run them (stp1 = 1), K17
-    # on three of the inputs' vectors, the calibration kernel on one block
+    # the fusions in the form their main paths run them (stp1 = 1; the
+    # damped-row form on a ring of its own, which it rewrites), K17 on
+    # three of the inputs' vectors, the calibration kernel on one block
     xn = torch.zeros(N_NULL, device="cuda")
+    Yf = Y.clone()
     cases.update({
         "K15_combine_probe": (
             lambda: rosenbrock.combine_probe(a["gp"], a["xp"], S, Y, a["gamma"], a["cs"],
                                              a["cy"], 1.0),
             lambda: rosenbrock.combine_probe_ref(a["gp"], a["xp"], S, Y, a["gamma"], a["cs"],
                                                  a["cy"], 1.0)),
+        "K15_combine_probe_fix": (
+            lambda: rosenbrock.combine_probe(a["gp"], a["xp"], S, Yf, a["gamma"], a["cs"],
+                                             a["cy"], 1.0, fix=(END, ca, cb)),
+            lambda: rosenbrock.combine_probe_ref(a["gp"], a["xp"], S, Yf, a["gamma"], a["cs"],
+                                                 a["cy"], 1.0, fix=(END, ca, cb))),
         "K16_combine_ow_probe": (
             lambda: rosenbrock.combine_ow_probe(pg, xp0, S, Y, a["gamma"], a["cs"], a["cy"],
                                                 1.0, 0, hi, 1.0),
@@ -629,7 +641,11 @@ def phase_kernels() -> dict:
         # plain, kernel, kernel, plain: both sides see the same clocks
         p1, k1, k2, p2 = (device_time(f, 20) for f in (plain, kern, kern, plain))
         times[name] = (min(k1, k2), min(p1, p2))
-        walls[name] = (sync_time(kern, 20), sync_time(plain, 20))
+        walls[name] = (wall_ms(kern, 20), wall_ms(plain, 20))
+    # the one kernel a single PyTorch call computes: the calibration
+    # kernel's o = x + 1 (timed here only, used nowhere in the port)
+    library = {"cal_null_launch": min(device_time(lambda: torch.add(xn, 1.0), 20)
+                                      for _ in range(2))}
     # each kernel's bound from this run's shapes: n = 2^24, 4-byte vectors,
     # a 2-byte history, m = M
     bounds = {name: bound(name, N_NULL if name == "cal_null_launch" else N_BIG,
@@ -642,10 +658,10 @@ def phase_kernels() -> dict:
          device_ms={k: {"kernel": v[0], "plain": v[1], "bound": bounds[k][0]}
                     for k, v in times.items()},
          event_ms={k: {"kernel": v[0], "plain": v[1]} for k, v in walls.items()},
-         k15_replaces_k3_plus_k2=k3_k2)
-    del a, S, Y, x9, xn
+         library_ms=library, k15_replaces_k3_plus_k2=k3_k2)
+    del a, S, Y, Yf, x9, xn
     torch.cuda.empty_cache()
-    return {"errs": errs, "times": times, "bounds": bounds}
+    return {"errs": errs, "times": times, "bounds": bounds, "library": library}
 
 
 def check_fusions(errs: dict, a: dict, n: int, tag: str, tv: float, ts: float,
@@ -673,6 +689,21 @@ def check_fusions(errs: dict, a: dict, n: int, tag: str, tv: float, ts: float,
             if not (same_bits(kw[3], k2[0]) and same_bits(kw[4], k2[1])):
                 raise AssertionError(f"K15's probe differs from K2's (wide={wide}) {t}: "
                                      f"{kw[3].item()} {k2[0].item()}")
+    # K15's damped-row form: the fixed ring bit for bit the plain
+    # version's and K6's, the probe bit for bit K2's at its r
+    ca, cb = (torch.tensor(v, dtype=gp.dtype, device="cuda") for v in (0.7, -0.2))
+    Yk, Yp, Y6 = Y.clone(), Y.clone(), Y.clone()
+    k = rosenbrock.combine_probe(gp, xp, S, Yk, *coefs, 0.37, fix=(END, ca, cb))
+    p = rosenbrock.combine_probe_ref(gp, xp, S, Yp, *coefs, 0.37, fix=(END, ca, cb))
+    fused.combine_fix(gp, S, Y6, *coefs, END, ca, cb)
+    if not (same_bits(Yk, Yp) and same_bits(Yk, Y6)):
+        raise AssertionError(f"K15's damped row differs from the plain version's or K6's {tag}")
+    k2 = rosenbrock.probe(xp, k[0], 0.37)
+    if not (same_bits(k[3], k2[0]) and same_bits(k[4], k2[1])):
+        raise AssertionError(f"K15's damped-row form's probe differs from K2's {tag}")
+    _fold(errs, "K15_combine_probe_fix", check(f"K15 fix r {tag}", k[0], p[0], tv),
+          *(check(f"K15 fix sum{i} {tag}", k[i], p[i], ts) for i in (1, 2, 3, 4)))
+    del Yk, Yp, Y6
     for lo, hi in windows(n):
         k13 = fused.combine_ow(pg, S, Y, *coefs, lo, hi)
         for stp1 in STP1:
@@ -869,7 +900,9 @@ def launches() -> dict:
         "K13_combine_ow": fused.combine_ow.launches,
         "K14_owlqn_trial_pair_gram": ow_tpg.launches - ow_tpg.gp_launches,
         "K14_owlqn_trial_pair_gram_gp": ow_tpg.gp_launches,
-        "K15_combine_probe": rosenbrock.combine_probe.launches,
+        "K15_combine_probe": (rosenbrock.combine_probe.launches
+                              - rosenbrock.combine_probe.fix_launches),
+        "K15_combine_probe_fix": rosenbrock.combine_probe.fix_launches,
         "K16_combine_ow_probe": rosenbrock.combine_ow_probe.launches,
         "K17_axpy_dot": fused.axpy_dot.launches,
         "cal_null_launch": profiling.null_launch.launches,
@@ -916,6 +949,7 @@ def reset_counts() -> None:
         fn.launches = 0
     rosenbrock.trial_pair_gram.gp_launches = 0
     rosenbrock.owlqn_trial_pair_gram.gp_launches = 0
+    rosenbrock.combine_probe.fix_launches = 0
     for fn in PLAIN.values():
         fn.calls = 0
     to_host.reads = 0
@@ -937,8 +971,9 @@ def phase_goldens() -> None:
               and abs(r2.gnorm / 9.486547293218877e-07 - 1) <= 1e-6)
         if not ok:
             raise AssertionError(f"{entry} golden: {r2}")
+        # the capped run takes K3, the uncapped one K15
         lc, pc = launches(), plain_calls()
-        if min(lc[k] for k in PLAIN_PATH) == 0 or max(pc.values()) != 0:
+        if min(lc[k] for k in PLAIN_PATH + UNFUSED_PATH) == 0 or max(pc.values()) != 0:
             raise AssertionError(f"{entry} golden did not run on the kernels: {lc} {pc}")
         emit(phase="golden_f64_n100", entry=entry, niter_default=r.niter,
              niter=r2.niter, fx=r2.fx, gnorm=r2.gnorm, launches=lc)
@@ -993,37 +1028,25 @@ def phase_main_path() -> dict:
     params = MAIN_PARAMS
     x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
     f0 = float(rosenbrock.probe_ref(x0, x0, 0.0)[0])
-    minimize_jit(params, x0, default_evaluate(), return_state=True)  # warm
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    st = minimize_jit(params, x0, default_evaluate(), return_state=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    lc, pc, reads = launches(), plain_calls(), to_host.reads
-    iters = st.k - 1
+    st, dt, lc, pc, reads = _run_2e24("main path", params)
+    used = carried.used
+    iters, probes = st.k - 1, st.prob.neval - 1
     fx = float(st.prob.fx)
     if not (np.isfinite(fx) and fx < f0):
         raise AssertionError(f"main path: fx {fx} (start {f0})")
-    if not (lc["K3_combine"] == lc["K4_trial_pair_gram"] == iters
-            and lc["K2_probe"] >= iters and lc["K1_trial"] == 1):
-        raise AssertionError(f"main path launch counts {lc} for {iters} iterations")
-    if max(pc.values()) != 0:
-        raise AssertionError(f"main path called plain versions: {pc}")
-    probes = lc["K2_probe"] / iters
+    _expect("main path", lc, pc, K1_trial=1, K2_probe=probes - used, K4_trial_pair_gram=iters,
+            K15_combine_probe=iters)
+    _carried_all("main path", used, iters)
     # bytes per iteration from the shapes (f32 vectors, bf16 history):
     # K2 reads xp, d; K4 reads xp, d, gp and m-1 rows of S and Y, writes
-    # x, g and one row of each; K3 reads g and both rings, writes d
+    # x, g and one row of each; K15 reads g, x and both rings, writes d
     v, h = 4, 2
-    bpi = N_BIG * (probes * 2 * v + (5 * v + 2 * (M - 1) * h + 2 * h)
-                   + (2 * v + 2 * M * h))
-    out = dict(phase="main_path", n=N_BIG, iters=iters, status=st.status,
-               seconds=dt, iters_per_s=iters / dt, ms_per_iter=1e3 * dt / iters,
-               evals=st.prob.neval, syncs_per_iter=reads / iters, probes_per_iter=probes,
-               bytes_per_iter_model=bpi, gb_per_s_model=bpi * iters / dt / 1e9,
-               gb_per_s_vs_1_44=1.44 * iters / dt, fx0=f0, fx=fx, launches=lc,
-               plain_calls=pc)
-    emit(**out)
+    bpi = N_BIG * (lc["K2_probe"] / iters * 2 * v + (5 * v + 2 * (M - 1) * h + 2 * h)
+                   + (3 * v + 2 * M * h))
+    out = _report_2e24("main_path", st, dt, lc, reads,
+                       carried_probes=used, k2_per_iter=lc["K2_probe"] / iters,
+                       bytes_per_iter_model=bpi, gb_per_s_model=bpi * iters / dt / 1e9,
+                       gb_per_s_vs_1_44=1.44 * iters / dt, fx0=f0, plain_calls=pc)
 
     # the same entry point through the plain versions on the card, against
     # the kernels, at two iteration budgets
@@ -1063,35 +1086,20 @@ def phase_owlqn_main_path() -> dict:
     params = OWLQN_PARAMS
     x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
     f0 = float(rosenbrock.probe_ref(x0, x0, 0.0)[0]) + float(x0[:-1].abs().sum())
-    minimize_jit(params, x0, default_evaluate(), return_state=True)  # warm
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    st = minimize_jit(params, x0, default_evaluate(), return_state=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    lc, pc, reads = launches(), plain_calls(), to_host.reads
-    iters = st.k - 1
+    st, dt, lc, pc, reads = _run_2e24("OWL-QN main path", params)
+    used = carried.used
+    iters, probes = st.k - 1, st.prob.neval - 1
     fx = float(st.prob.fx)
     if st.status != Status.CONVERGED:
         raise AssertionError(f"OWL-QN main path: status {st.status} after {iters} "
                              f"iterations (fx {fx})")
     if not (np.isfinite(fx) and fx < f0):
         raise AssertionError(f"OWL-QN main path: fx {fx} (start {f0})")
-    probes = st.prob.neval - 1
-    want = dict.fromkeys(KERNELS, 0)
-    want.update({"K1_trial": 1, "K10_pseudo_gradient_norm": 1, "K8_owlqn_probe": probes,
-                 "K13_combine_ow": iters, "K14_owlqn_trial_pair_gram": iters})
-    if lc != want:
-        raise AssertionError(f"OWL-QN main path launch counts {lc}, expected {want}")
-    if max(pc.values()) != 0:
-        raise AssertionError(f"OWL-QN main path called plain versions: {pc}")
-    out = dict(phase="owlqn_main_path", n=N_BIG, iters=iters, status=st.status, eps=3e-2,
-               seconds=dt, iters_per_s=iters / dt, ms_per_iter=1e3 * dt / iters,
-               evals=st.prob.neval, probes_per_iter=probes / iters,
-               syncs_per_iter=reads / iters, fx0=f0, fx=fx,
-               gnorm=float(np.sqrt(st.prob.gnorm2)), launches=lc, plain_calls=pc)
-    emit(**out)
+    _expect("OWL-QN main path", lc, pc, **_owlqn_launches(iters, probes, used))
+    _carried_all("OWL-QN main path", used, iters)
+    out = _report_2e24("owlqn_main_path", st, dt, lc, reads, eps=3e-2,
+                       carried_probes=used, k8_per_iter=lc["K8_owlqn_probe"] / iters,
+                       fx0=f0, gnorm=float(np.sqrt(st.prob.gnorm2)), plain_calls=pc)
 
     # minimize_jit through the plain versions on the card against the
     # kernels: the same evaluations and fx to rel 1e-4 after 8 iterations
@@ -1119,22 +1127,23 @@ def phase_owlqn_main_path() -> dict:
 
 
 def phase_profile(path: str) -> None:
-    """For each main path (plain, OWL-QN, damped, damped OWL-QN, the plain
-    and OWL-QN ones with the combine+probe fusion, Poisson), one run under
-    torch.profiler after three unprofiled ones: device busy
-    time (the summed durations of the kernels and copies the profiler saw
-    on the card) against the walls, the device items by time, and the
-    host's launch and copy calls.  The full operator tables go to
-    ``path``."""
+    """For each main path (plain, OWL-QN, damped, damped OWL-QN, Poisson,
+    and the first three on the objective without the combine+probe
+    fusion's hooks), one run under torch.profiler after three unprofiled
+    ones: device busy time (the summed durations of the kernels and copies
+    the profiler saw on the card) against the walls, the device items by
+    time, and the host's launch and copy calls.  The full operator tables
+    go to ``path``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         for name, params in (("main_path", MAIN_PARAMS), ("owlqn_main_path", OWLQN_PARAMS),
                              ("damped_main_path", DAMPED_PARAMS),
-                             ("damped_owlqn_main_path", DAMPED_OWLQN_PARAMS),
-                             ("main_path_fusion", MAIN_PARAMS),
-                             ("owlqn_main_path_fusion", OWLQN_PARAMS)):
-            with fusion(name.endswith("fusion")):
-                _profile_one(name, params, f)
+                             ("damped_owlqn_main_path", DAMPED_OWLQN_PARAMS)):
+            _profile_one(name, params, f)
+        for name, params in (("main_path_unfused", MAIN_PARAMS),
+                             ("owlqn_main_path_unfused", OWLQN_PARAMS),
+                             ("damped_main_path_unfused", DAMPED_PARAMS)):
+            _profile_one(name, params, f, fn=unfused(default_evaluate()))
         X, y = logistic.synthetic(POISSON_NROW, POISSON_NCOL, seed=0, device="cuda")
         _profile_one("poisson_main_path", poisson_params(False), f,
                      torch.zeros(POISSON_NCOL, device="cuda"), logistic.make_objective(X, y))
@@ -1143,18 +1152,13 @@ def phase_profile(path: str) -> None:
 
 
 def _profile_one(name: str, params: LbfgsParams, f, x0=None, fn=None) -> None:
-    from torch.profiler import ProfilerActivity, profile
-
     if x0 is None:
-        x0, fn = rosenbrock.initial_point(N_BIG, torch.float32, "cuda"), default_evaluate()
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = minimize_jit(params, x0, fn, return_state=True)
-        torch.cuda.synchronize()
-        walls.append(1e3 * (time.perf_counter() - t0))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    fn = fn or default_evaluate()
+    walls = [1e3 * profiling.timed(lambda: minimize_jit(params, x0, fn, return_state=True),
+                                   warmup=0)
+             for _ in range(3)]
+    with profiling.trace() as prof:
         t0 = time.perf_counter()
         st = minimize_jit(params, x0, fn, return_state=True)
         torch.cuda.synchronize()
@@ -1312,17 +1316,18 @@ def phase_lj38() -> None:
 
 
 def _run_2e24(name: str, params: LbfgsParams, fn=None) -> tuple:
-    """One warm and one timed ``minimize_jit`` at n = 2^24; returns (state,
-    seconds, launches, plain calls, host reads)."""
+    """One warm and one timed ``minimize_jit`` at n = 2^24 (the counts
+    reset between them); returns (state, seconds, launches, plain calls,
+    host reads)."""
     fn = fn or default_evaluate()
     x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
     minimize_jit(params, x0, fn, return_state=True)
     torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
-    st = minimize_jit(params, x0, fn, return_state=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    out = []
+    dt = profiling.timed(lambda: out.append(minimize_jit(params, x0, fn, return_state=True)),
+                         warmup=0)
+    st = out[0]
     lc, pc, reads = launches(), plain_calls(), to_host.reads
     if st.status not in (Status.CONVERGED, Status.MAX_ITERATIONS):
         raise AssertionError(f"{name}: status {st.status} after {st.k - 1} iterations")
@@ -1342,12 +1347,38 @@ def _expect(name: str, lc: dict, pc: dict, **counts) -> None:
         raise AssertionError(f"{name} called plain versions: {pc}")
 
 
+def _carried_all(name: str, used: int, iters: int) -> None:
+    """Every search after the first took the combine+probe fusion's carried
+    first trip (the entry step is the probed one by construction)."""
+    if used != iters - 1:
+        raise AssertionError(f"{name}: {used} carried first trips in {iters} iterations")
+
+
+def _owlqn_launches(iters: int, probes: int, used: int) -> dict:
+    """The OWL-QN main path's launches: K1 and K10 once, K14 and K16 per
+    iteration, K8 per probe the fusion did not carry in."""
+    return dict(K1_trial=1, K10_pseudo_gradient_norm=1, K8_owlqn_probe=probes - used,
+                K14_owlqn_trial_pair_gram=iters, K16_combine_ow_probe=iters)
+
+
+def unfused(fn):
+    """The objective ``fn`` without the combine+probe fusion's hooks, as an
+    objective that does not carry them: the solver then runs K3 (K6, K13)
+    and probes every first trip (the fusion-off side of the comparisons)."""
+    def vag(x):
+        return fn(x)
+
+    vag.__dict__.update({k: v for k, v in fn.__dict__.items()
+                         if not k.startswith(("__lbfgs_combine_probe", "__lbfgs_combine_ow_probe"))})
+    return vag
+
+
 def _report_2e24(phase: str, st, dt: float, lc: dict, reads: int, **extra) -> dict:
     iters = st.k - 1
     out = dict(phase=phase, n=N_BIG, iters=iters, status=st.status, seconds=dt,
                iters_per_s=iters / dt, ms_per_iter=1e3 * dt / iters,
-               probes_per_iter=(st.prob.neval - 1) / iters, syncs_per_iter=reads / iters,
-               fx=float(st.prob.fx),
+               evals=st.prob.neval, probes_per_iter=(st.prob.neval - 1) / iters,
+               syncs_per_iter=reads / iters, fx=float(st.prob.fx),
                damping_cases=dict(zip(("none", "case1", "case2"), st.damping_cases)),
                launches=lc, **extra)
     emit(**out)
@@ -1360,56 +1391,42 @@ def _report_2e24(phase: str, st, dt: float, lc: dict, reads: int, **extra) -> di
 DAMPED_PARAMS = MAIN_PARAMS.replace(damping=True)
 #: the damped OWL-QN main path: the OWL-QN main path with damping
 DAMPED_OWLQN_PARAMS = OWLQN_PARAMS.replace(damping=True)
-#: the damped path's plain-vs-kernel bounds (tests/test_damped_fused.py:
-#: 136-139): asserted after 8 iterations, printed after 15
-DAMPED_VS_PLAIN = ((8, 1e-3), (15, 5e-2))
 
 
 def phase_damped_main_path(undamped_syncs: float) -> dict:
     st, dt, lc, pc, reads = _run_2e24("damped main path", DAMPED_PARAMS)
+    used = carried.used
     iters = st.k - 1
-    _expect("damped main path", lc, pc, K1_trial=1, K2_probe=st.prob.neval - 1,
-            K4_trial_pair_gram_gp=iters, K6_combine_fix=iters)
-    _report_2e24("damped_main_path", st, dt, lc, reads,
-                 syncs_per_iter_undamped=undamped_syncs)
-    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
-    for n_it, fx_tol in DAMPED_VS_PLAIN:
-        p = DAMPED_PARAMS.replace(max_iterations=n_it + 1)
-        st_k = minimize_jit(p, x0, default_evaluate(), return_state=True)
-        st_p = minimize_jit(p, x0, default_evaluate().plain, return_state=True)
-        rel = abs(float(st_k.prob.fx) / float(st_p.prob.fx) - 1)
-        same = (st_k.k, st_k.prob.neval) == (st_p.k, st_p.prob.neval)
-        if n_it == 8 and not (same and st_k.k == n_it + 1 and rel <= fx_tol):
-            raise AssertionError(
-                f"damped plain vs kernel after 8 iterations: k/neval {st_k.k}/"
-                f"{st_k.prob.neval} vs {st_p.k}/{st_p.prob.neval}, rel fx {rel:.3e}")
-        emit(phase="damped_main_path_vs_plain", iters=n_it, neval_kernel=st_k.prob.neval,
-             neval_plain=st_p.prob.neval, rel_fx=rel, fx_tol=fx_tol, asserted=n_it == 8,
-             x_err=err(st_k.prob.x, st_p.prob.x))
-        del st_k, st_p
+    _expect("damped main path", lc, pc, K1_trial=1, K2_probe=st.prob.neval - 1 - used,
+            K4_trial_pair_gram_gp=iters, K15_combine_probe_fix=iters)
+    _carried_all("damped main path", used, iters)
+    out = _report_2e24("damped_main_path", st, dt, lc, reads,
+                       carried_probes=used, syncs_per_iter_undamped=undamped_syncs)
     del st
     torch.cuda.empty_cache()
-    return lc
+    return lc, out
 
 
 def phase_gradient_only_main_path() -> None:
     params = Lbfgs(MAIN_PARAMS).with_gradient_only().with_max_iterations(51).param
     st, dt, lc, pc, reads = _run_2e24("gradient-only main path", params)
+    used = carried.used
     iters = st.k - 1
-    _expect("gradient-only main path", lc, pc, K1_trial=1, K2_probe=st.prob.neval - 1,
-            K4_trial_pair_gram_gp=iters, K6_combine_fix=iters)
-    _report_2e24("gradient_only_main_path", st, dt, lc, reads)
+    _expect("gradient-only main path", lc, pc, K1_trial=1, K2_probe=st.prob.neval - 1 - used,
+            K4_trial_pair_gram_gp=iters, K15_combine_probe_fix=iters)
+    _report_2e24("gradient_only_main_path", st, dt, lc, reads, carried_probes=used)
     del st
     torch.cuda.empty_cache()
 
 
 def phase_damped_owlqn_main_path() -> dict:
     st, dt, lc, pc, reads = _run_2e24("damped OWL-QN main path", DAMPED_OWLQN_PARAMS)
-    iters = st.k - 1
-    _expect("damped OWL-QN main path", lc, pc, K1_trial=1, K10_pseudo_gradient_norm=1,
-            K8_owlqn_probe=st.prob.neval - 1, K13_combine_ow=iters,
-            K14_owlqn_trial_pair_gram_gp=iters)
-    _report_2e24("damped_owlqn_main_path", st, dt, lc, reads, eps=3e-2,
+    used = carried.used
+    iters, probes = st.k - 1, st.prob.neval - 1
+    want = _owlqn_launches(iters, probes, used)
+    want["K14_owlqn_trial_pair_gram_gp"] = want.pop("K14_owlqn_trial_pair_gram")
+    _expect("damped OWL-QN main path", lc, pc, **want)
+    _report_2e24("damped_owlqn_main_path", st, dt, lc, reads, eps=3e-2, carried_probes=used,
                  gnorm=float(np.sqrt(st.prob.gnorm2)))
     del st
     torch.cuda.empty_cache()
@@ -1656,40 +1673,35 @@ def phase_wide_owlqn_main_path() -> dict:
     short = dict(epsilon=0.0, max_iterations=13)
     reset_counts()
     st_w = minimize_jit(wide.replace(**short), x0, default_evaluate(), return_state=True)
-    lc, pc = launches(), plain_calls()
+    lc, pc, used = launches(), plain_calls(), carried.used
     st_d = minimize_jit(OWLQN_PARAMS.replace(**short), x0, default_evaluate(),
                         return_state=True)
     rel = abs(float(st_w.prob.fx) / float(st_d.prob.fx) - 1)
     if type(st_w.prob.fx) is not np.float64 or st_w.k != st_d.k or not rel <= 1e-3:
         raise AssertionError(f"wide OWL-QN after 12: k {st_w.k} vs {st_d.k}, rel fx {rel}, "
                              f"fx {type(st_w.prob.fx).__name__}")
-    iters = st_w.k - 1
-    _expect("wide OWL-QN, 12 iterations", lc, pc, K7_owlqn_trial=1, K10_pseudo_gradient_norm=1,
-            K8_owlqn_probe=st_w.prob.neval - 1, K13_combine_ow=iters,
-            K14_owlqn_trial_pair_gram=iters)
+    _expect("wide OWL-QN, 12 iterations", lc, pc,
+            **_wide_owlqn_launches(st_w.k - 1, st_w.prob.neval - 1, used))
     emit(phase="wide_owlqn_vs_default", iters=12, rel_fx=rel, fx_wide=float(st_w.prob.fx),
          fx_default=float(st_d.prob.fx), neval=(st_w.prob.neval, st_d.prob.neval))
     del st_w, st_d
-    minimize_jit(wide, x0, default_evaluate(), return_state=True)  # warm
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    st = minimize_jit(wide, x0, default_evaluate(), return_state=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    lc, pc, reads = launches(), plain_calls(), to_host.reads
-    iters = st.k - 1
-    _expect("wide OWL-QN main path", lc, pc, K7_owlqn_trial=1, K10_pseudo_gradient_norm=1,
-            K8_owlqn_probe=st.prob.neval - 1, K13_combine_ow=iters,
-            K14_owlqn_trial_pair_gram=iters)
-    if not np.isfinite(st.prob.fx):
-        raise AssertionError(f"wide OWL-QN main path: fx {st.prob.fx}")
-    _report_2e24("wide_owlqn_main_path", st, dt, lc, reads, eps=3e-2,
+    st, dt, lc, pc, reads = _run_2e24("wide OWL-QN main path", wide)
+    used = carried.used
+    _expect("wide OWL-QN main path", lc, pc,
+            **_wide_owlqn_launches(st.k - 1, st.prob.neval - 1, used))
+    _report_2e24("wide_owlqn_main_path", st, dt, lc, reads, eps=3e-2, carried_probes=used,
                  status_name=Status(st.status).name, fx_dtype=type(st.prob.fx).__name__,
                  gnorm=float(np.sqrt(st.prob.gnorm2)))
     del st
     torch.cuda.empty_cache()
     return lc
+
+
+def _wide_owlqn_launches(iters: int, probes: int, used: int) -> dict:
+    """The OWL-QN main path's launches with K7 in K1's place at the start."""
+    want = _owlqn_launches(iters, probes, used)
+    want["K7_owlqn_trial"] = want.pop("K1_trial")
+    return want
 
 
 def phase_owlqn_north_star() -> None:
@@ -1740,43 +1752,30 @@ def phase_north_star() -> None:
 
 
 # ---------------------------------------------------------------------------
-# The combine+probe fusions, the adaptive entry step and the launch overhead
+# The combine+probe fusions against the unfused paths, the adaptive entry
+# step and the launch overhead
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def fusion(on: bool = True):
-    """``LBFGS_TORCH_KERNELS=combine_probe`` inside (unset with ``on``
-    False), restored after."""
-    old = os.environ.pop("LBFGS_TORCH_KERNELS", None)
-    if on:
-        os.environ["LBFGS_TORCH_KERNELS"] = "combine_probe"
-    try:
-        yield
-    finally:
-        os.environ.pop("LBFGS_TORCH_KERNELS", None)
-        if old is not None:
-            os.environ["LBFGS_TORCH_KERNELS"] = old
-
-
-#: fusion on against off, and the fusion's plain versions against its
-#: kernels: the same iterations (and evaluations) and fx within rel 1e-3
-#: after 8 iterations (tests/test_combine_probe.py:113-116); after 15
-#: printed
+#: the fused run against the unfused run, and the fused run's plain
+#: versions against its kernels: the same iterations (and evaluations) and
+#: fx within rel 1e-3 after 8 iterations (tests/test_combine_probe.py:
+#: 113-116); after 15 printed
 FUSION_TOL_8 = 1e-3
 
 
 def _fusion_trajectories(name: str, params: LbfgsParams) -> None:
-    """After 8 and 15 iterations at epsilon 0: the fusion's run against the
-    fusion-off run, and the fusion's run through the plain versions
-    against the kernels; asserted after 8, printed after 15."""
+    """After 8 and 15 iterations at epsilon 0: the fused run against the
+    same run on the objective without the fusion's hooks, and the fused
+    run through the plain versions against the kernels; asserted after 8,
+    printed after 15."""
     x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    fn = default_evaluate()
     for n_it in (8, 15):
         p = params.replace(epsilon=0.0, max_iterations=n_it + 1)
-        with fusion():
-            st_on = minimize_jit(p, x0, default_evaluate(), return_state=True)
-            st_pl = minimize_jit(p, x0, default_evaluate().plain, return_state=True)
-        st_off = minimize_jit(p, x0, default_evaluate(), return_state=True)
+        st_on = minimize_jit(p, x0, fn, return_state=True)
+        st_pl = minimize_jit(p, x0, fn.plain, return_state=True)
+        st_off = minimize_jit(p, x0, unfused(fn), return_state=True)
         rel_off = abs(float(st_on.prob.fx) / float(st_off.prob.fx) - 1)
         rel_pl = abs(float(st_on.prob.fx) / float(st_pl.prob.fx) - 1)
         key = lambda st: (st.k, st.prob.neval)
@@ -1784,110 +1783,121 @@ def _fusion_trajectories(name: str, params: LbfgsParams) -> None:
                               and st_on.k == n_it + 1
                               and max(rel_off, rel_pl) <= FUSION_TOL_8):
             raise AssertionError(
-                f"{name} after 8 iterations: k/neval on {key(st_on)}, off {key(st_off)}, "
-                f"plain {key(st_pl)}; rel fx vs off {rel_off:.3e}, vs plain {rel_pl:.3e}")
-        emit(phase=f"{name}_trajectory", iters=n_it, k_neval_on=key(st_on),
-             k_neval_off=key(st_off), k_neval_plain=key(st_pl), rel_fx_vs_off=rel_off,
+                f"{name} after 8 iterations: k/neval fused {key(st_on)}, unfused "
+                f"{key(st_off)}, plain {key(st_pl)}; rel fx vs unfused {rel_off:.3e}, vs "
+                f"plain {rel_pl:.3e}")
+        emit(phase=f"{name}_trajectory", iters=n_it, k_neval_fused=key(st_on),
+             k_neval_unfused=key(st_off), k_neval_plain=key(st_pl), rel_fx_vs_unfused=rel_off,
              rel_fx_vs_plain=rel_pl, fx_tol=FUSION_TOL_8, asserted=n_it == 8,
-             x_err_vs_off=err(st_on.prob.x, st_off.prob.x))
+             x_err_vs_unfused=err(st_on.prob.x, st_off.prob.x))
         del st_on, st_pl, st_off
 
 
 def _walls(params: LbfgsParams) -> dict:
-    """ms per iteration of ``minimize_jit`` at n = 2^24, fusion off and on
-    in turns (off, on, on, off, off, on): the host's pace drifts within a
-    call, so the two are compared only side by side."""
+    """ms per iteration of ``minimize_jit`` at n = 2^24 with the fusion and
+    without it, in turns (off, on, on, off, off, on): the host's pace
+    drifts within a call, so the two are compared only side by side."""
     x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    fn = default_evaluate()
     out = {"off": [], "on": []}
     for on in (False, True, True, False, False, True):
-        with fusion(on):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st = minimize_jit(params, x0, default_evaluate(), return_state=True)
-            torch.cuda.synchronize()
-            out["on" if on else "off"].append(1e3 * (time.perf_counter() - t0) / (st.k - 1))
-        del st
+        runs = []
+        dt = profiling.timed(lambda: runs.append(
+            minimize_jit(params, x0, fn if on else unfused(fn), return_state=True)), warmup=0)
+        out["on" if on else "off"].append(1e3 * dt / (runs[0].k - 1))
+        del runs
     return out
 
 
-def _fusion_run(name: str, params: LbfgsParams, off: dict, expect, converged: bool):
-    """One timed ``minimize_jit`` of a main path with the fusion: its
-    launches are ``expect(iters, probes, carried)``, no plain version
-    runs, every first trip after the first iteration took the carried
-    probe; printed beside the fusion-off run ``off`` of this call, with
-    ms/iter of both in turns."""
-    with fusion():
-        st, dt, lc, pc, reads = _run_2e24(name, params)
-        used = carried.used
+def _unfused_run(name: str, params: LbfgsParams, fused: dict, expect, converged: bool):
+    """One timed ``minimize_jit`` of a main path on the objective without
+    the fusion's hooks: its launches are ``expect(iters, probes)``, no
+    plain version runs and no first trip is carried in; printed beside
+    the fused run ``fused`` of this call, with ms/iter of both in turns.
+    The fusion must save at least half a read per iteration."""
+    st, dt, lc, pc, reads = _run_2e24(name, params, unfused(default_evaluate()))
     iters, probes = st.k - 1, st.prob.neval - 1
     if converged and st.status != Status.CONVERGED:
         raise AssertionError(f"{name}: status {st.status} after {iters} iterations")
-    _expect(name, lc, pc, **expect(iters, probes, used))
-    if used != iters - 1:
-        raise AssertionError(f"{name}: {used} carried first trips in {iters} iterations")
+    _expect(name, lc, pc, **expect(iters, probes))
+    if carried.used:
+        raise AssertionError(f"{name}: {carried.used} carried first trips without the fusion")
     out = _report_2e24(
-        name.replace(" ", "_"), st, dt, lc, reads, evals=st.prob.neval, carried_probes=used,
-        fusion_off={k: off[k] for k in ("iters", "evals", "ms_per_iter", "syncs_per_iter",
-                                        "probes_per_iter")},
+        name.replace(" ", "_"), st, dt, lc, reads,
+        fused={k: fused[k] for k in ("iters", "evals", "ms_per_iter", "syncs_per_iter",
+                                     "probes_per_iter")},
         ms_per_iter_in_turns=_walls(params))
-    if not out["syncs_per_iter"] <= off["syncs_per_iter"] - 0.5:
-        raise AssertionError(f"{name}: {out['syncs_per_iter']} syncs per iteration against "
-                             f"{off['syncs_per_iter']} without the fusion")
+    if not fused["syncs_per_iter"] <= out["syncs_per_iter"] - 0.5:
+        raise AssertionError(f"{name}: {fused['syncs_per_iter']} syncs per iteration with the "
+                             f"fusion against {out['syncs_per_iter']} without")
     del st
     torch.cuda.empty_cache()
     return lc, out
 
 
-def phase_combine_probe_main_path(off: dict) -> tuple:
-    """The main path with K15 in place of K3 (``off``: the fusion-off
-    main path of this call)."""
-    lc, out = _fusion_run(
-        "combine_probe main path", MAIN_PARAMS, off,
-        lambda it, pr, used: dict(K1_trial=1, K2_probe=pr - used, K4_trial_pair_gram=it,
-                                  K15_combine_probe=it), converged=False)
-    _fusion_trajectories("combine_probe_main_path", MAIN_PARAMS)
+def phase_unfused_main_path(fused: dict) -> tuple:
+    """The main path without the fusion: K3 in place of K15, K2 on every
+    probe (``fused``: the main path of this call)."""
+    lc, out = _unfused_run(
+        "unfused main path", MAIN_PARAMS, fused,
+        lambda it, pr: dict(K1_trial=1, K2_probe=pr, K3_combine=it, K4_trial_pair_gram=it),
+        converged=False)
+    _fusion_trajectories("main_path_vs_unfused", MAIN_PARAMS)
     return lc, out
 
 
-def _owlqn_fusion_launches(it: int, pr: int, used: int) -> dict:
-    return dict(K1_trial=1, K10_pseudo_gradient_norm=1, K8_owlqn_probe=pr - used,
-                K14_owlqn_trial_pair_gram=it, K16_combine_ow_probe=it)
-
-
-def phase_combine_ow_probe_main_path(off: dict) -> tuple:
-    """The OWL-QN main path with K16 in place of K13, CONVERGED at 3e-2."""
-    lc, out = _fusion_run("combine_ow_probe main path", OWLQN_PARAMS, off,
-                          _owlqn_fusion_launches, converged=True)
-    _fusion_trajectories("combine_ow_probe_main_path", OWLQN_PARAMS)
+def phase_unfused_owlqn_main_path(fused: dict) -> tuple:
+    """The OWL-QN main path without the fusion: K13 in place of K16,
+    CONVERGED at 3e-2."""
+    lc, out = _unfused_run(
+        "unfused OWL-QN main path", OWLQN_PARAMS, fused,
+        lambda it, pr: dict(K1_trial=1, K10_pseudo_gradient_norm=1, K8_owlqn_probe=pr,
+                            K13_combine_ow=it, K14_owlqn_trial_pair_gram=it),
+        converged=True)
+    _fusion_trajectories("owlqn_main_path_vs_unfused", OWLQN_PARAMS)
     return lc, out
 
 
-def phase_adaptive_entry(off: dict) -> dict:
-    """The OWL-QN main path with ``with_adaptive_entry_step(2.0)``, without
-    and with the fusion: each CONVERGED; evaluations beside the literal
-    run's (``off``).  Then the JAX package's own case at n = 2^14
+def phase_unfused_damped_main_path(fused: dict) -> dict:
+    """The damped main path without the fusion: K6 persists the damped row
+    in place of K15's fix form; then the damped main path against it and
+    against its plain versions after 8 and 15 iterations."""
+    lc, _ = _unfused_run(
+        "unfused damped main path", DAMPED_PARAMS, fused,
+        lambda it, pr: dict(K1_trial=1, K2_probe=pr, K4_trial_pair_gram_gp=it,
+                            K6_combine_fix=it),
+        converged=False)
+    _fusion_trajectories("damped_main_path_vs_unfused", DAMPED_PARAMS)
+    return lc
+
+
+def phase_adaptive_entry(literal: dict) -> dict:
+    """The OWL-QN main path with ``with_adaptive_entry_step(2.0)``, with and
+    without the fusion: each CONVERGED; evaluations beside the literal
+    run's (``literal``).  Then the JAX package's own case at n = 2^14
     (``tests/test_adaptive_entry.py:93-115``: c = 1 on the whole vector,
     f32 history, at most 400 iterations), literal and adaptive, to set the
     main path's count beside the scale the policy was measured at."""
     params = OWLQN_PARAMS.replace(adaptive_entry_step=2.0)
     runs = {}
-    for on in (False, True):
-        name = "adaptive entry" + (" + fusion" if on else "")
-        with fusion(on):
-            st, dt, lc, pc, reads = _run_2e24(name, params)
-            used = carried.used
+    for on in (True, False):
+        name = "adaptive entry" + ("" if on else " unfused")
+        fn = default_evaluate()
+        st, dt, lc, pc, reads = _run_2e24(name, params, fn if on else unfused(fn))
+        used = carried.used
         iters, probes = st.k - 1, st.prob.neval - 1
         if st.status != Status.CONVERGED:
             raise AssertionError(f"{name}: status {st.status} after {iters} iterations")
-        want = _owlqn_fusion_launches(iters, probes, used)
+        want = _owlqn_launches(iters, probes, used)
         if not on:
-            del want["K16_combine_ow_probe"]
-            want["K13_combine_ow"] = iters
+            want["K13_combine_ow"] = want.pop("K16_combine_ow_probe")
         _expect(name, lc, pc, **want)
+        if on:
+            _carried_all(name, used, iters)
         runs[on] = _report_2e24(
             "adaptive_entry", st, dt, lc, reads, fusion=on, growth=2.0, eps=3e-2,
-            evals=st.prob.neval, carried_probes=used, literal_evals=off["evals"],
-            literal_iters=off["iters"], literal_ms_per_iter=off["ms_per_iter"],
+            carried_probes=used, literal_evals=literal["evals"],
+            literal_iters=literal["iters"], literal_ms_per_iter=literal["ms_per_iter"],
             gnorm=float(np.sqrt(st.prob.gnorm2)))
         del st
     n = 1 << 14
@@ -1907,22 +1917,6 @@ def phase_adaptive_entry(off: dict) -> dict:
     return runs
 
 
-def phase_damped_fusion() -> dict:
-    """The damped main path with the fusion, 30 iterations: K15 in place of
-    K6 (the damped row blended before it), zero plain calls."""
-    with fusion():
-        st, dt, lc, pc, reads = _run_2e24("damped + fusion",
-                                          DAMPED_PARAMS.replace(max_iterations=31))
-        used = carried.used
-    iters = st.k - 1
-    _expect("damped + fusion", lc, pc, K1_trial=1, K2_probe=st.prob.neval - 1 - used,
-            K4_trial_pair_gram_gp=iters, K15_combine_probe=iters)
-    out = _report_2e24("damped_fusion_main_path", st, dt, lc, reads, carried_probes=used)
-    del st
-    torch.cuda.empty_cache()
-    return out
-
-
 #: the host's launch and copy calls as torch.profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaLaunchKernelExC")
@@ -1931,13 +1925,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
 def _host_us(fn, reps: int) -> float:
     """Microseconds of host wall per call of fn, back to back, the card
     drained before and after."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return 1e6 * (time.perf_counter() - t0) / reps
+    return 1e3 * wall_ms(fn, reps)
 
 
 def phase_launch_overhead(paths: dict) -> dict:
@@ -1954,14 +1942,13 @@ def phase_launch_overhead(paths: dict) -> dict:
     synchronising read, without ``to_host``'s own torch ops), and the same
     followed by one ``to_host`` read instead (printed; the model below
     counts ``to_host``'s torch ops among the torch launches).  Then, for each
-    path (name: (params, ms_per_iter, syncs_per_iter) of this call), one
+    path (name: (params, fused, ms_per_iter, syncs_per_iter) of this call,
+    ``fused`` False for the objective without the fusion's hooks), one
     15-iteration run under torch.profiler counts the host's launch calls
     per iteration, split by route from the kernels' own counters, and
     the modelled host ms/iter = Triton launches x Triton us + ctypes
     launches x null us + other launches x torch us + reads x read us is
     printed beside the measured ms/iter."""
-    from torch.profiler import ProfilerActivity, profile
-
     from lbfgs_torch.ops import factory
 
     reset_counts()
@@ -1987,13 +1974,13 @@ def phase_launch_overhead(paths: dict) -> dict:
     cuda_k = [k for k, (route, *_r) in KERNELS.items() if route == "cuda"]
     out = {}
     x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
-    for name, (params, ms_per_iter, syncs) in paths.items():
-        with fusion(name.endswith("fusion")):
-            reset_counts()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                st = minimize_jit(params.replace(epsilon=0.0, max_iterations=16), x0,
-                                  default_evaluate(), return_state=True)
-                torch.cuda.synchronize()
+    for name, (params, fused, ms_per_iter, syncs) in paths.items():
+        fn = default_evaluate() if fused else unfused(default_evaluate())
+        reset_counts()
+        with profiling.trace() as prof:
+            st = minimize_jit(params.replace(epsilon=0.0, max_iterations=16), x0, fn,
+                              return_state=True)
+            torch.cuda.synchronize()
         iters, lc = st.k - 1, launches()
         calls = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
         per = dict(triton=sum(lc[k] for k in triton_k) / iters,
@@ -2017,64 +2004,67 @@ def main() -> None:
     args = ap.parse_args()
     seconds = {}
 
-    def timed(fn, *a):
+    def run(fn, *a):
         t0 = time.perf_counter()
         out = fn(*a)
         seconds[fn.__name__.removeprefix("phase_")] = round(time.perf_counter() - t0, 3)
         return out
 
-    timed(phase_device)
-    timed(phase_build)
-    k = timed(phase_kernels)
-    timed(phase_goldens)
-    timed(phase_owlqn_golden)
-    lc, main_out = timed(phase_main_path)
-    lc_ow, ow_out = timed(phase_owlqn_main_path)
-    timed(phase_north_star)
-    timed(phase_damped_n100)
-    timed(phase_lj38)
-    lc_d = timed(phase_damped_main_path, main_out["syncs_per_iter"])
-    timed(phase_gradient_only_main_path)
-    lc_dow = timed(phase_damped_owlqn_main_path)
-    lc_k5 = timed(phase_k5_route)
-    timed(phase_wide_kernels)
-    lc_poisson = timed(phase_poisson_main_path)
-    timed(phase_poisson_f64_vs_cpu)
-    timed(phase_f32_floor)
-    lc_wide = timed(phase_wide_owlqn_main_path)
-    timed(phase_owlqn_north_star)
-    lc_cp, cp_out = timed(phase_combine_probe_main_path, main_out)
-    lc_cow, cow_out = timed(phase_combine_ow_probe_main_path, ow_out)
-    timed(phase_adaptive_entry, ow_out)
-    timed(phase_damped_fusion)
-    lc_cal = timed(phase_launch_overhead, {
-        name: (params, out["ms_per_iter"], out["syncs_per_iter"])
-        for name, params, out in (("main_path", MAIN_PARAMS, main_out),
-                                  ("owlqn_main_path", OWLQN_PARAMS, ow_out),
-                                  ("main_path_fusion", MAIN_PARAMS, cp_out),
-                                  ("owlqn_main_path_fusion", OWLQN_PARAMS, cow_out))})
+    run(phase_device)
+    run(phase_build)
+    k = run(phase_kernels)
+    run(phase_goldens)
+    run(phase_owlqn_golden)
+    lc_main, main_out = run(phase_main_path)
+    lc_ow, ow_out = run(phase_owlqn_main_path)
+    run(phase_north_star)
+    run(phase_damped_n100)
+    run(phase_lj38)
+    lc_d, d_out = run(phase_damped_main_path, main_out["syncs_per_iter"])
+    run(phase_gradient_only_main_path)
+    lc_dow = run(phase_damped_owlqn_main_path)
+    lc_k5 = run(phase_k5_route)
+    run(phase_wide_kernels)
+    lc_poisson = run(phase_poisson_main_path)
+    run(phase_poisson_f64_vs_cpu)
+    run(phase_f32_floor)
+    lc_wide = run(phase_wide_owlqn_main_path)
+    run(phase_owlqn_north_star)
+    lc_un, un_out = run(phase_unfused_main_path, main_out)
+    lc_unow, unow_out = run(phase_unfused_owlqn_main_path, ow_out)
+    run(phase_adaptive_entry, ow_out)
+    lc_und = run(phase_unfused_damped_main_path, d_out)
+    lc_cal = run(phase_launch_overhead, {
+        name: (params, fused, out["ms_per_iter"], out["syncs_per_iter"])
+        for name, params, fused, out in (
+            ("main_path", MAIN_PARAMS, True, main_out),
+            ("owlqn_main_path", OWLQN_PARAMS, True, ow_out),
+            ("main_path_unfused", MAIN_PARAMS, False, un_out),
+            ("owlqn_main_path_unfused", OWLQN_PARAMS, False, unow_out))})
     if args.profile:
-        timed(phase_profile, args.profile)
+        run(phase_profile, args.profile)
     emit(phase="timing", seconds=seconds)
-    # each kernel's launches on its own main path
-    lc = {**{name: lc[name] for name in PLAIN_PATH},
+    # each kernel's launches on its own path; K17 lies on no solver path,
+    # and its count is the main path's run's, which stays 0
+    lc = {**{name: lc_main[name] for name in PLAIN_PATH},
           **{name: lc_ow[name] for name in OWLQN_PATH if name not in PLAIN_PATH},
           **{name: lc_d[name] for name in DAMPED_PATH},
           **{name: lc_dow[name] for name in DAMPED_OWLQN_PATH},
           **{name: lc_k5[name] for name in K5_PATH},
           **{name: lc_poisson[name] for name in POISSON_PATH},
           **{name: lc_wide[name] for name in WIDE_OWLQN_PATH},
-          **{name: lc_cp[name] for name in FUSION_PATH},
-          **{name: lc_cow[name] for name in OWLQN_FUSION_PATH},
-          # K17 lies on no solver path
-          "K17_axpy_dot": 0, **lc_cal}
-    # no single PyTorch call computes any of these fused functions, so
-    # library_ms is null throughout
+          **{name: lc_un[name] for name in UNFUSED_PATH},
+          **{name: lc_unow[name] for name in UNFUSED_OWLQN_PATH},
+          **{name: lc_und[name] for name in UNFUSED_DAMPED_PATH},
+          "K17_axpy_dot": lc_main["K17_axpy_dot"], **lc_cal}
+    # library_ms: one PyTorch call computing the same function, where one
+    # exists (only the calibration kernel's o = x + 1)
     table = [
         dict(name=name, route=route, source=src, replaces=rep, launches=lc[name],
              max_abs_err=k["errs"][name][0], max_normwise_err=k["errs"][name][1],
              ms=k["times"][name][0], plain_ms=k["times"][name][1],
-             bound_ms=k["bounds"][name][0], bound_by=k["bounds"][name][1], library_ms=None)
+             bound_ms=k["bounds"][name][0], bound_by=k["bounds"][name][1],
+             library_ms=k["library"].get(name))
         for name, (route, src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": table}), flush=True)

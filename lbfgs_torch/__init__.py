@@ -48,10 +48,11 @@ vectors where float32 cannot resolve the line search's decrease::
               .minimize_jit(torch.zeros(1 << 20, device="cuda"),
                             logistic.make_objective(X, y)))
 
-The adaptive entry step enters each uncapped search near the last
-accepted step, and ``LBFGS_TORCH_KERNELS=combine_probe`` (a comma list,
-or ``all``; it only adds fusions) folds the next search's first probe
-into the direction combine (K15, under OWL-QN K16)::
+Wherever the step is not capped (``with_constrain_step_size(False)``), a
+factory objective's direction combine also probes the next search at its
+entry step (the combine+probe fusion K15, under OWL-QN K16), so that
+search's first trip costs no launch and no read.  The adaptive entry
+step enters each uncapped search near the last accepted step::
 
     report = (lbfgs().with_orthantwise(1.0, 0, 99).with_constrain_step_size(False)
               .with_adaptive_entry_step(2.0).minimize(x0, default_evaluate()))

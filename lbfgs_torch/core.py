@@ -98,7 +98,7 @@ class SolverState(NamedTuple):
     #: (counted where the literal reference drops case 2's write-back too)
     damping_cases: tuple = (0, 0, 0)
     #: the combine+probe fusion's speculative first trial of the next
-    #: search (``LBFGS_TORCH_KERNELS=combine_probe``): (ft, dgt, stp_probe)
+    #: search (K15, K16; uncapped steps only): (ft, dgt, stp_probe)
     #: as host numpy scalars, ft in the objective scalar's dtype (float64
     #: under the wide objective scalar), dgt and the probed step in the
     #: vectors'.  The search uses it on its first trip iff its entry step

@@ -81,7 +81,10 @@ nothing that is not a result:
     for K3 and a K2).  The probe's point and its (f, g.r) partials are
     formed by K2's expressions and K2's store into a [programs, 2] array
     of K2's layout, so the wrapper's (ft, g.r) equal ``probe(x, r, stp1)``
-    bit for bit; the combine's sums go to an array of their own.
+    bit for bit; the combine's sums go to an array of their own.  With
+    ``FIX`` (the damped path) it also persists the damped ring row as K6
+    does, Y[end] <- round(ca*Y[end] + cb*g) from the row as read, which
+    adds one row's store (2 B/elem with a bf16 history).
   * K16 ``combine_ow_probe_kernel`` (replaces
     factory.py:_combine_ow_probe_kernel): K13's function, rc = pi(r; -pg)
     inside the window with r.r before the constraint, rc.rc and rc.pg,
@@ -151,9 +154,12 @@ def _store_probe(part_ptr, fe, g, d, mask):
 
 
 @triton.jit
-def _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, M: tl.constexpr):
+def _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, fix_end, M: tl.constexpr,
+                 FIX: tl.constexpr):
     # (g, r) with r = gamma*g + sum_j cs_j S_j + sum_j cy_j Y_j: the ring
     # rows widen in registers; coef = [gamma, cs_0 .. cs_{M-1}, cy_0 ..]
+    # and with FIX then (ca, cb): ring row fix_end is rewritten as
+    # round(ca*Y[fix_end] + cb*g) from the row as read (K6's damped row)
     g = tl.load(g_ptr + offs, mask=mask, other=0.0)
     acc_s = tl.zeros_like(g)
     acc_y = tl.zeros_like(g)
@@ -164,6 +170,9 @@ def _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, M: tl.constexpr):
         Yj = tl.load(y_row, mask=mask, other=0.0).to(g.dtype)
         acc_s += tl.load(coef_ptr + 1 + j) * Sj
         acc_y += tl.load(coef_ptr + 1 + M + j) * Yj
+        if FIX:
+            fixed = tl.load(coef_ptr + 1 + 2 * M) * Yj + tl.load(coef_ptr + 2 + 2 * M) * g
+            tl.store(y_row, fixed.to(y_row.dtype.element_ty), mask=mask & (fix_end == j))
         s_row += n
         y_row += n
     return g, tl.load(coef_ptr) * g + (acc_s + acc_y)
@@ -202,13 +211,13 @@ def probe_kernel(xp_ptr, d_ptr, stp_ptr, part_ptr, n,
     _store_probe(part_ptr, fe, g, d, mask)
 
 
-@triton.jit
+@triton.jit(do_not_specialize=["fix_end"])
 def combine_probe_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, cpart_ptr,
-                         ppart_ptr, n, body: tl.constexpr, M: tl.constexpr,
-                         ROWS: tl.constexpr, W: tl.constexpr):
+                         ppart_ptr, n, fix_end, body: tl.constexpr, M: tl.constexpr,
+                         ROWS: tl.constexpr, W: tl.constexpr, FIX: tl.constexpr):
     offs = _offsets(ROWS, W)
     mask = offs < n
-    g, r = _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, M)
+    g, r = _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, fix_end, M, FIX)
     tl.store(r_ptr + offs, r, mask=mask)
     cpart = cpart_ptr + tl.program_id(0) * 2
     tl.store(cpart + 0, _block_sum(r * r, mask))
@@ -227,7 +236,7 @@ def combine_ow_probe_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_pt
                             ROWS: tl.constexpr, W: tl.constexpr):
     offs = _offsets(ROWS, W)
     mask = offs < n
-    pg, r = _combination(pg_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, M)
+    pg, r = _combination(pg_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, 0, M, False)
     in_win = (offs >= lo) & (offs < hi)
     # the direction constraint against -pg inside the window (K13's)
     rc = tl.where(in_win & (_msign(r) != _msign(-pg)), 0.0, r)

@@ -33,10 +33,11 @@ protocol the solver looks for:
     solver's init runs, and pg alone (K11, ``fused.pseudo_gradient``),
     which the revert of a failed search runs;
   * ``__lbfgs_combine_probe__`` / ``__lbfgs_combine_ow_probe__`` (and
-    their ``_ok__`` predicates) — the opt-in combine+probe fusions K15 and
-    K16 (``LBFGS_TORCH_KERNELS=combine_probe``): K3's (K13's) combine with
-    the next search's first probe at x + stp1*r in the same pass, its
-    (ft, g.r) those of K2 (K8's pg form) at that point bit for bit.
+    their ``_ok__`` predicates) — the combine+probe fusions K15 and K16:
+    K3's (K13's) combine with the next search's first probe at x +
+    stp1*r in the same pass, its (ft, g.r) those of K2 (K8's pg form) at
+    that point bit for bit; K15's ``fix`` form also persists K6's damped
+    ring row.  The solver runs them wherever the step is not capped.
 
 Under the wide objective scalar (``fused.wide_fx``, ``params.fx_wide``)
 the objective's column of K1, K2, K4, K7 and K8 and the L1 column of K7
@@ -48,7 +49,8 @@ Each wrapper launches its Triton kernel (``ops/_factory_triton.py``) on a
 CUDA tensor and runs its plain version (``*_ref``, same module) on a CPU
 tensor.  Launches and plain calls are counted on the functions
 (``fn.launches``, ``ref.calls``; K4's and K14's ``.gp_launches`` count
-their ``with_gp`` launches among ``.launches``).  ``objective.plain`` is
+their ``with_gp`` launches among ``.launches``, K15's ``.fix_launches``
+its damped-row launches).  ``objective.plain`` is
 a twin objective whose protocol runs the plain versions on any device:
 the reference that a run through the kernels is compared with on the
 card.
@@ -419,13 +421,16 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
 
     # ------------------------- K15 / K16 combine + the next first probe
 
-    def combine_probe_ref(g, x, S, Y, gamma, coef_s, coef_y, stp1):
+    def combine_probe_ref(g, x, S, Y, gamma, coef_s, coef_y, stp1, fix=None):
         """Plain version of ``combine_probe``: ``fused.combine_ref``'s
-        arithmetic, then ``probe_ref``'s at x + stp1*r
-        (``lbfgs_tpu/ops/factory.py:1291-1296``), neither counted as a
-        call of its own."""
+        arithmetic (with ``fix``, ``fused.combine_fix_ref``'s), then
+        ``probe_ref``'s at x + stp1*r (``lbfgs_tpu/ops/factory.py:
+        1291-1296``), none counted as a call of its own."""
         combine_probe_ref.calls += 1
-        r, rr, rd = fused.combine_plain(g, S, Y, gamma, coef_s, coef_y)
+        if fix is None:
+            r, rr, rd = fused.combine_plain(g, S, Y, gamma, coef_s, coef_y)
+        else:
+            r, rr, rd = fused.combine_fix_plain(g, S, Y, gamma, coef_s, coef_y, *fix)
         return (r, rr, rd, *_probe_plain(x, r, stp1))
 
     def _check_combine(kernel, d, x, S, Y):
@@ -435,7 +440,7 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
             raise ValueError(f"{kernel}: x {x.dtype} {tuple(x.shape)} against the "
                              f"direction's {d.dtype} {tuple(d.shape)}")
 
-    def _combine_launch(kernel, d, x, S, Y, coefs, stp1, nparts, *args):
+    def _combine_launch(kernel, d, x, S, Y, coefs, stp1, nparts, *args, **consts):
         """Launch K15 or K16, whose combine and probe partials are both
         [programs, nparts] arrays (2 columns for K15, 3 for K16); returns
         (r, column sums of the combine's partials, the probe's partials)."""
@@ -447,23 +452,31 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         ppart = torch.empty((grid[0], nparts), dtype=d.dtype, device=d.device)
         getattr(_kernels(), kernel + "_kernel")[grid](
             d, x, S, Y, fused.coef_vector(d, *coefs), _scalar(stp1, d), r, cpart, ppart,
-            n, *args, body=block_fn(), M=m, ROWS=rows, W=row, **LAUNCH,
+            n, *args, body=block_fn(), M=m, ROWS=rows, W=row, **consts, **LAUNCH,
         )
         return r, fused.reduce_partials(cpart), ppart
 
-    def combine_probe(g, x, S, Y, gamma, coef_s, coef_y, stp1):
+    def combine_probe(g, x, S, Y, gamma, coef_s, coef_y, stp1, fix=None):
         """The direction combine r = gamma*g + coef_s @ S + coef_y @ Y with
         r.r and r.g (``fused.combine``'s function), and the next search's
         first probe (ft, g(xt).r) at xt = x + stp1*r, from one pass (K15).
         The probe's scalars equal ``probe(x, r, stp1)``'s bit for bit.
         ``gamma`` (0-d) and the coefficients ([m]) are tensors on g's
-        device, ``stp1`` a host scalar.  Returns (r, r.r, r.g, ft, g.r)."""
+        device, ``stp1`` a host scalar.  ``fix`` = (end, ca, cb), ca and
+        cb 0-d tensors on g's device, adds ``fused.combine_fix``'s damped
+        row: Y[end] <- round(ca*Y[end] + cb*g) in place, after the row is
+        read (counted in ``.fix_launches`` too).  Returns (r, r.r, r.g, ft,
+        g.r)."""
         _check_combine("combine_probe", g, x, S, Y)
+        if fix is not None:
+            fix = (fused._check_row(S, fix[0]), *fix[1:])
         if not fused.on_cuda(g, "combine_probe"):
-            return combine_probe_ref(g, x, S, Y, gamma, coef_s, coef_y, stp1)
-        r, ctot, ppart = _combine_launch("combine_probe", g, x, S, Y,
-                                         (gamma, coef_s, coef_y), stp1, 2)
+            return combine_probe_ref(g, x, S, Y, gamma, coef_s, coef_y, stp1, fix)
+        coefs = (gamma, coef_s, coef_y) + (() if fix is None else fix[1:])
+        r, ctot, ppart = _combine_launch("combine_probe", g, x, S, Y, coefs, stp1, 2,
+                                         0 if fix is None else fix[0], FIX=fix is not None)
         combine_probe.launches += 1
+        combine_probe.fix_launches += fix is not None
         ptot = fused.reduce_partials(ppart)
         return r, ctot[0], ctot[1], _fx(ppart, ptot), ptot[1]
 
@@ -493,20 +506,21 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         return (rc, ctot[0], ctot[1], ctot[2], *_ow_probe_scalars(ppart, c))
 
     def combine_probe_ok(x, S) -> bool:
-        """Whether the solver runs the combine+probe fusions: shapes and
-        dtypes the kernels take, and the fusion named in
-        ``LBFGS_TORCH_KERNELS`` (``lbfgs_tpu/ops/factory.py:1332-1341``)."""
+        """Whether K15 and K16 take these operands: the shapes and dtypes
+        of ``lbfgs_tpu/ops/factory.py:1332-1341``."""
         try:
             _check(x)
         except (TypeError, ValueError):
             return False
-        return fused.can_combine(x, S) and fused.kernel_enabled("combine_probe")
+        return fused.can_combine(x, S)
 
     for fn in (trial, probe, trial_pair_gram, owlqn_trial, owlqn_probe, owlqn_probe_pg,
                owlqn_trial_pair_gram, combine_probe, combine_ow_probe):
         fn.launches = 0
-    # the . gp (damped) specialisations of K4 and K14, counted apart too
+    # the . gp (damped) specialisations of K4 and K14 and K15's damped-row
+    # form, counted apart too
     trial_pair_gram.gp_launches = owlqn_trial_pair_gram.gp_launches = 0
+    combine_probe.fix_launches = 0
     for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_trial_ref, owlqn_probe_ref,
                owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref, combine_probe_ref,
                combine_ow_probe_ref):

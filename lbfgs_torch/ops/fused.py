@@ -29,9 +29,6 @@ share.
   ``csrc/axpy_dot.cu``); on a CPU tensor it runs its plain version
   (``*_ref``).
 
-  * ``kernel_enabled`` — the opt-in fusions that ``LBFGS_TORCH_KERNELS``
-    adds to the default kernels (the combine+probe fusions K15 and K16).
-
   * ``reduce_partials`` — the fixed-order cross-block sum that every
     kernel of the package uses: each kernel program writes its own
     partial sums, and this adds them, so no float atomics touch the
@@ -54,8 +51,6 @@ accumulate in the vectors' dtype.  Any other combination raises.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from . import _build
@@ -74,23 +69,6 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 #: largest history the combine kernel takes (its coefficients live in
 #: shared memory; ``csrc/combine.cu`` kMaxM)
 MAX_M = 64
-
-#: the fusions that run only when ``LBFGS_TORCH_KERNELS`` names them
-OPT_IN_KERNELS = frozenset({"combine_probe"})
-
-
-def kernel_enabled(name: str) -> bool:
-    """Whether the kernel ``name`` runs (``lbfgs_tpu/ops/fused.py:
-    _kernel_enabled``): every default kernel always; an opt-in fusion
-    (``OPT_IN_KERNELS``) when ``LBFGS_TORCH_KERNELS``, a comma list of
-    names or ``all``, names it.  Unlike the JAX package's variable, this
-    one only adds: it never turns a default kernel off, so no plain
-    version stands in for a kernel on the card."""
-    if name not in OPT_IN_KERNELS:
-        return True
-    sel = os.environ.get("LBFGS_TORCH_KERNELS", "")
-    names = {s.strip() for s in sel.split(",")}
-    return "all" in names or name in names
 
 
 def check_dtypes(vec_dtype: torch.dtype, hist_dtype: torch.dtype | None = None) -> None:
@@ -310,14 +288,21 @@ def _check_row(S, end: int) -> int:
     return int(end)
 
 
-def combine_fix_ref(d, S, Y, gamma, coef_s, coef_y, end: int, ca, cb):
-    """Plain version of ``combine_fix``: (r, r.r, r.d), Y[end] fixed in
-    place."""
-    combine_fix_ref.calls += 1
+def combine_fix_plain(d, S, Y, gamma, coef_s, coef_y, end: int, ca, cb):
+    """(r, r.r, r.d) with Y[end] fixed in place, in plain torch, uncounted:
+    the arithmetic of ``combine_fix_ref``, which the damped form of the
+    combine+probe fusion's plain version (``factory``) shares."""
     end = _check_row(S, end)
     r = _combination(d, S, Y, gamma, coef_s, coef_y)
     Y[end] = (ca * Y[end].to(d.dtype) + cb * d).to(Y.dtype)
     return r, torch.dot(r, r), torch.dot(r, d)
+
+
+def combine_fix_ref(d, S, Y, gamma, coef_s, coef_y, end: int, ca, cb):
+    """Plain version of ``combine_fix``: (r, r.r, r.d), Y[end] fixed in
+    place."""
+    combine_fix_ref.calls += 1
+    return combine_fix_plain(d, S, Y, gamma, coef_s, coef_y, end, ca, cb)
 
 
 combine_fix_ref.calls = 0

@@ -33,19 +33,22 @@ package has.  On the fused branches (K4 or K5 with the . gp column, K14
 with it under OWL-QN) the damped pair is y_d = a*y + b*gp with scalars
 (a, b) from global sums only, so every post-damping Gram quantity is
 [m]-scalar algebra on the 4-column basis, on the device, and the damped
-ring row is persisted by K6 inside the combine (under OWL-QN by a plain
-row blend before K13).  Generic objectives take the composed
-``update_pair``.  Stored ys and gamma stay pre-damping everywhere.
+ring row is persisted by K6 (or K15's ``fix`` form) inside the combine
+(under OWL-QN by a plain row blend before K13 or K16).  Generic
+objectives take the composed ``update_pair``.  Stored ys and gamma stay
+pre-damping everywhere.
 
-With ``LBFGS_TORCH_KERNELS=combine_probe`` the combine of step 3 is the
-combine+probe fusion (K15; under OWL-QN K16): the same pass also probes
-the next search at its predicted entry step, and the scalars come back in
-step 4's read, so a first trip at that step costs no launch and no read
-(``SolverState.probe1``).  The damped plain branch then blends the row
-in plain torch before the combine, as the JAX package does, instead of
-K6.  ``params.adaptive_entry_step`` (the JAX package's extension) enters
-each search at clip(growth*step, 2^-16, 1) of the last accepted step
-instead of 1.0, where the step is not capped.
+Where the objective carries the combine+probe fusion (K15; under OWL-QN
+K16) and the step is not capped, the combine of step 3 is that fusion:
+the same pass also probes the next search at its entry step, which is
+known before the combine, and the scalars come back in step 4's read, so
+a first trip at that step costs no launch and no read
+(``SolverState.probe1``).  On the damped plain branch K15's ``fix`` form
+persists the damped row in the same pass, as K6 does.  Under the step
+cap the entry comes from ||d||, after the combine, so the solver keeps
+K3 (K6, K13) there.  ``params.adaptive_entry_step`` (the JAX package's
+extension) enters each search at clip(growth*step, 2^-16, 1) of the last
+accepted step instead of 1.0, where the step is not capped.
 
 The literal scan two-loop is not ported yet; ``init_state`` raises
 ``NotImplementedError`` for it.
@@ -127,7 +130,8 @@ def two_loop_compact(
     input is ``-d``: the sign is folded into the coefficients and the
     combine's gamma (bitwise the same as negating the vector, by IEEE sign
     symmetry), and the combine's r . d is then dginit = d_new . g of the
-    next line search.  Returns (r, alpha_ring, r.r, r.d).
+    next line search.  Returns (r, alpha_ring, r.r, r.d, probe), probe
+    None unless ``probe_fuse`` is given.
 
     Under OWL-QN (``ow_window`` = (start, end), ``d`` the pseudo-gradient)
     the combine is ``combine_ow`` (K13), which applies the direction
@@ -146,9 +150,8 @@ def two_loop_compact(
     ``probe_fuse`` (the combine+probe fusion, ``lbfgs_tpu/solver.py:
     296-356``) = (fn, x, stp1), under OWL-QN (fn, x, c, stp1): the combine
     is ``fn`` (K15, K16), which also probes the next search at x + stp1*r,
-    and ``rd`` gains that probe's (ft, g.r).  The OWL-QN form wins first,
-    then ``row_fix`` (which the solver does not pass with the fusion on),
-    then the plain fusion.
+    and ``probe`` is that probe's (ft, g.r).  With ``row_fix`` too the
+    damped row goes to K15's ``fix`` form in place of K6.
     """
     m = hist.s.shape[0]
     if Sd_ring is None:
@@ -183,35 +186,35 @@ def two_loop_compact(
     coef_s[idx] = coefs
     coef_y[idx] = -gamma * alphas
     gamma_eff = -gamma if neg else gamma
-    if ow_window is not None and probe_fuse is not None:
-        fn, x, c, stp1 = probe_fuse
-        r, rr, *rd = fn(d, x, hist.s, hist.y, gamma_eff, coef_s, coef_y, c, *ow_window,
-                        stp1)
-        rd = tuple(rd)
-    elif ow_window is not None:
-        r, rr, rc2, rcd = combine_ow(d, hist.s, hist.y, gamma_eff, coef_s, coef_y,
-                                     *ow_window)
+    probe = None
+    if ow_window is not None:
+        if probe_fuse is not None:
+            fn, x, c, stp1 = probe_fuse
+            r, rr, rc2, rcd, *probe = fn(d, x, hist.s, hist.y, gamma_eff, coef_s, coef_y, c,
+                                         *ow_window, stp1)
+        else:
+            r, rr, rc2, rcd = combine_ow(d, hist.s, hist.y, gamma_eff, coef_s, coef_y,
+                                         *ow_window)
         rd = (rc2, rcd)
-    elif row_fix is not None:
-        if not neg:
-            raise ValueError("row_fix needs the sign-folded two-loop (neg=True)")
-        fix_end, ca, cb = row_fix
-        cy_end = coef_y[fix_end].clone()
-        gamma_eff = gamma_eff + cy_end * cb
-        coef_y[fix_end] = cy_end * ca
-        r, rr, rd = combine_fix(d, hist.s, hist.y, gamma_eff, coef_s, coef_y,
-                                fix_end, ca, cb)
-    elif probe_fuse is not None:
-        if not neg:
-            raise ValueError("probe_fuse needs the sign-folded two-loop (neg=True)")
-        fn, x, stp1 = probe_fuse
-        r, rr, *rd = fn(d, x, hist.s, hist.y, gamma_eff, coef_s, coef_y, stp1)
-        rd = tuple(rd)
     else:
-        r, rr, rd = combine(d, hist.s, hist.y, gamma_eff, coef_s, coef_y)
+        if (row_fix is not None or probe_fuse is not None) and not neg:
+            raise ValueError("row_fix and probe_fuse need the sign-folded two-loop (neg=True)")
+        if row_fix is not None:
+            fix_end, ca, cb = row_fix
+            cy_end = coef_y[fix_end].clone()
+            gamma_eff = gamma_eff + cy_end * cb
+            coef_y[fix_end] = cy_end * ca
+        args = (hist.s, hist.y, gamma_eff, coef_s, coef_y)
+        if probe_fuse is not None:
+            fn, x, stp1 = probe_fuse
+            r, rr, rd, *probe = fn(d, x, *args, stp1, fix=row_fix)
+        elif row_fix is not None:
+            r, rr, rd = combine_fix(d, *args, *row_fix)
+        else:
+            r, rr, rd = combine(d, *args)
     alpha_ring = hist.alpha.clone()
     alpha_ring[idx] = alphas
-    return r, alpha_ring, rr, rd
+    return r, alpha_ring, rr, rd, probe
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +340,20 @@ def _damped_gram(params: LbfgsParams, SP, YP, end: int, stp_d, gpgp, gp_d0):
 # ---------------------------------------------------------------------------
 
 
+def _fusion(pdef: ProblemDef, params: LbfgsParams, x: torch.Tensor, S: torch.Tensor):
+    """The objective's combine+probe fusion (K15, under OWL-QN K16) where
+    the solver runs it, else None: the objective carries it, it takes
+    these operands, and the next search's entry step is known before the
+    combine, i.e. the step is not capped (under the cap a probe at a
+    guessed step would mostly be wasted)."""
+    if params.constrain_step_size:
+        return None
+    name = "__lbfgs_combine_ow_probe" if pdef.orthantwise else "__lbfgs_combine_probe"
+    fn = getattr(pdef.value_and_grad, name + "__", None)
+    ok = getattr(pdef.value_and_grad, name + "_ok__", None)
+    return fn if fn is not None and ok is not None and ok(x, S) else None
+
+
 def propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> SolverState:
     """One optimization iteration: line search, history update, two-loop,
     step size, and under OWL-QN the direction constraint
@@ -385,21 +402,15 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     # step is not capped (lbfgs_tpu/solver.py:883-910): 1.0, or under the
     # adaptive policy clip(growth*step_ls, 2^-16, 1), literal 1.0 while
     # k <= 2 (the first search's step reflects the init's entry, not the
-    # ladder).  Under the cap the entry comes from ||d|| after the
-    # combine, and the fusion probes at 1.0, used only where the capped
-    # entry is exactly that
+    # ladder).  Under the cap it comes from ||d|| after the combine
     f = type(st.step)
     stp_pred = None
-    if params.constrain_step_size:
-        stp1 = f(1.0)
-    elif params.adaptive_entry_step > 0.0 and st.k > 2:
-        stp_pred = stp1 = f(np.clip(f(params.adaptive_entry_step) * step_ls,
-                                    f(2.0 ** -16), f(1.0)))
-    else:
-        stp_pred = stp1 = f(1.0)
-    # the combine+probe fusion (K15, K16) runs where the state carries its
-    # slot (init_state made the decision)
-    fuse = st.probe1 is not None
+    if not params.constrain_step_size:
+        stp_pred = f(1.0)
+        if params.adaptive_entry_step > 0.0 and st.k > 2:
+            stp_pred = f(np.clip(f(params.adaptive_entry_step) * step_ls, f(2.0 ** -16),
+                                 f(1.0)))
+    fusion = _fusion(pdef, params, xp, hist.s)
 
     pg = pgpg = pu = gp_scalars = None
     if use_mega and ow:
@@ -469,13 +480,10 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
             gpgp = float(prob.gnorm2)
             u, v, w, Yd_ring, a, b, case = _damped_gram(
                 params, SP, YP, end, ls.step_eval, gpgp, -(YP[end, 3] + gpgp))
-            if not fuse:
-                # the same row, persisted by the combine (K6)
-                row_fix = (end, a - b, b)
-            else:
-                # the combine+probe fusion takes the place of K6: the row
-                # is blended before it (lbfgs_tpu/solver.py:758-769)
-                _blend_row(hist.y, end, a, b, gx)
+            # the same row, persisted by the combine (K6, or K15's fix
+            # form; the JAX package blends it before K15,
+            # lbfgs_tpu/solver.py:758-769)
+            row_fix = (end, a - b, b)
     sy = hist.sy.clone()
     sy[:, end] = u
     sy[end, :] = w
@@ -497,11 +505,9 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     # direction (src/lbfgs.rs:554)
     bound = min(m, st.k - 1)
     probe_fuse = None
-    if fuse and ow:
-        probe_fuse = (vag.__lbfgs_combine_ow_probe__, x, pdef.owlqn.c, stp1)
-    elif fuse:
-        probe_fuse = (vag.__lbfgs_combine_probe__, x, stp1)
-    d, alpha_ring, dd, rd = two_loop_compact(
+    if fusion is not None:
+        probe_fuse = (fusion, x) + ((pdef.owlqn.c,) if ow else ()) + (stp_pred,)
+    d, alpha_ring, dd, rd, probe = two_loop_compact(
         hist, pg if ow else gx, gamma, bound, end, Sd_ring, Yd_ring, neg=True,
         combine=combine, combine_ow=combine_ow,
         ow_window=pdef.owlqn.start_end(xp.shape[0]) if ow else None,
@@ -512,16 +518,13 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     # the one read of the iteration: what the host decides on next, the
     # fused branches' damping case and the fusion's probe included.
     # Generic objectives carry no `changed` count: the reference's s.s == 0
-    # test decides then (src/lbfgs.rs:646)
+    # test decides then (src/lbfgs.rs:646).  The combine's fourth value is
+    # r . g, under OWL-QN (||rc||^2, rc . pg)
     if ls_changed is None:
         ls_changed = ss_new != 0.0
-    # the combine's fourth value is r . g, under OWL-QN (||rc||^2, rc . pg),
-    # and with the fusion the next search's first probe (ft, g.d) follows
-    parts = list(rd) if isinstance(rd, tuple) else [rd]
-    probe = parts[-2:] if fuse else []
-    rc2, rd = parts[:2] if ow else (None, parts[0])
+    rc2, rd = rd if ow else (None, rd)
     extra = ([rc2] if ow else []) + ([case] if case is not None else [])
-    scalars = [yy_new, dd, rd, ls_changed] + extra + probe
+    scalars = [yy_new, dd, rd, ls_changed] + extra + (probe or [])
     if ls_failed:
         gnorm2, xnorm2 = prob.gnorm2, prob.xnorm2
         yy_h, dd_h, dg0, changed, *extra_h = to_host(*scalars)
@@ -531,7 +534,7 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     probe1 = None
     if probe:
         *extra_h, p_ft_h, p_dg_h = extra_h
-        probe1 = (p_ft_h, p_dg_h, stp1)
+        probe1 = (p_ft_h, p_dg_h, stp_pred)
     rc2_h = extra_h[0] if ow else None
     if case is not None:
         case = int(extra_h[-1])
@@ -729,9 +732,8 @@ def _init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
     # (lbfgs_tpu/solver.py:1237-1258).  Its first value is dead: the probed
     # step -1 equals no entry step, not even an initial step of exactly
     # 1.0 (initial_inverse_hessian == ||d||)
-    ok = getattr(vag, "__lbfgs_combine_ow_probe_ok__" if pdef.orthantwise
-                 else "__lbfgs_combine_probe_ok__", None)
-    probe1 = (fx, -gnorm2, f(-1.0)) if ok is not None and ok(x0, hist.s) else None
+    fusion = _fusion(pdef, params, x0, hist.s)
+    probe1 = None if fusion is None else (fx, -gnorm2, f(-1.0))
     return SolverState(
         prob=prob, hist=hist, end=0, step=f(step), step_ls=f(step), k=0,
         ncall=0, status=0, ls_status=0, pf=pf,

@@ -28,11 +28,11 @@ from ..ops import _build, fused
 
 
 @contextmanager
-def trace(path: str):
+def trace(path: str | None = None):
     """Record the enclosed block with ``torch.profiler`` (host and, where
-    a card is present, device activity) and write a Chrome trace to
-    ``path``.  Yields the profiler, whose ``key_averages()`` gives the
-    per-operator sums."""
+    a card is present, device activity) and, given ``path``, write a
+    Chrome trace there.  Yields the profiler, whose ``key_averages()``
+    gives the per-operator sums."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -40,7 +40,8 @@ def trace(path: str):
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(path)
+    if path is not None:
+        prof.export_chrome_trace(path)
 
 
 def _sync() -> None:

@@ -8,7 +8,7 @@ cases of ``tests/test_adaptive_entry.py``, with a generic stiff quadratic
 ``separable.quadratic``, which the port does not have; the per-iteration
 entry step against the JAX package's in float64 (rel 1e-12); and, with
 the combine+probe fusion, the speculation at the predicted step and the
-damped run that blends its row before K15 against the JAX package's
+damped run, whose row K15's fix form persists, against the JAX package's
 damped fusion-on run.
 """
 
@@ -154,7 +154,18 @@ def test_adaptive_cuts_owlqn_ladder():
     assert rep_ad.fx == pytest.approx(rep_lit.fx, rel=1e-3)
 
 
-def test_probe_speculation_at_predicted_step(monkeypatch):
+def _unfused(fn):
+    """``fn`` without the combine+probe fusion's hooks (the solver then
+    takes K3, K6, K13)."""
+    def vag(x):
+        return fn(x)
+
+    vag.__dict__.update({k: v for k, v in fn.__dict__.items()
+                         if not k.startswith(("__lbfgs_combine_probe", "__lbfgs_combine_ow_probe"))})
+    return vag
+
+
+def test_probe_speculation_at_predicted_step():
     """With the combine+probe fusion the speculation is at the adaptive
     prediction, which is the next entry step by construction: every first
     trip after the first takes the carried probe, and the run is the
@@ -165,12 +176,9 @@ def test_probe_speculation_at_predicted_step(monkeypatch):
     x0 = t_rosen.initial_point(n, torch.float32, device="cpu")
     reps = {}
     for on in (False, True):
-        if on:
-            monkeypatch.setenv("LBFGS_TORCH_KERNELS", "combine_probe")
-        else:
-            monkeypatch.delenv("LBFGS_TORCH_KERNELS", raising=False)
         calls, carried.used = t_rosen.probe_ref.calls, 0
-        st = TState.build(params, x0, lbfgs_torch.default_evaluate())
+        fn = lbfgs_torch.default_evaluate()
+        st = TState.build(params, x0, fn if on else _unfused(fn))
         entries = []
         while not st.is_converged():
             st.propagate()
@@ -184,19 +192,20 @@ def test_probe_speculation_at_predicted_step(monkeypatch):
 
 
 def test_damped_fusion_skips_k6_and_matches_jax(monkeypatch):
-    """Damped with the fusion: the damped ring row is blended before K15
-    (``lbfgs_tpu/solver.py:758-769``), so K6's plain version never runs,
-    and the run tracks the JAX package's damped fusion-on run (float32,
-    n = MIN_FUSED_N, the Pallas interpreter): the same iterations and
-    evaluations, fx to rel 1e-3."""
-    n, kw = j_fused.MIN_FUSED_N, dict(max_iterations=8, epsilon=0.0, damping=True)
+    """Damped with the fusion: K15's fix form persists the damped ring row
+    (the JAX package blends it before K15, ``lbfgs_tpu/solver.py:
+    758-769``), so K6's plain version never runs, and the run tracks the
+    JAX package's damped fusion-on run (float32, n = MIN_FUSED_N, the
+    Pallas interpreter, the step uncapped as the port fuses only there):
+    the same iterations and evaluations, fx to rel 1e-3."""
+    n = j_fused.MIN_FUSED_N
+    kw = dict(max_iterations=8, epsilon=0.0, damping=True, constrain_step_size=False)
     monkeypatch.setenv("LBFGS_TPU_KERNELS_INTERPRET", "1")
     monkeypatch.setenv("LBFGS_TPU_KERNELS", "all")
     js = JState.build(JParams(**kw), j_rosen.initial_point(n, dtype=jnp.float32),
                       j_rosen.value_and_grad)
     assert js.state.probe1 is not None
     rep_j = _run(js)
-    monkeypatch.setenv("LBFGS_TORCH_KERNELS", "combine_probe")
     calls = t_fused.combine_fix_ref.calls
     ts = TState.build(TParams(**kw), t_rosen.initial_point(n, torch.float32, device="cpu"),
                       lbfgs_torch.default_evaluate())

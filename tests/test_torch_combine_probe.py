@@ -5,11 +5,12 @@ On the CPU each wrapper runs its plain version; here those meet the JAX
 package's plain references in float64 (rel 1e-12: the same arithmetic in
 another summation order) and its Pallas kernels run through the
 interpreter in float32 at the JAX tests' tolerances
-(``tests/test_combine_probe.py:26-70,153-181``).  Then whole runs: with
-``LBFGS_TORCH_KERNELS=combine_probe`` the port's run equals the
-fusion-off run bit for bit (the plain versions compute the same probe),
-with one plain probe fewer for each first trip that took the carried
-(ft, g.d); and it tracks the JAX package's fusion-on run
+(``tests/test_combine_probe.py:26-70,153-181``).  Then whole runs: the
+solver fuses wherever the objective carries the fusion and the step is
+not capped, and such a run equals the run of the same objective without
+the fusion's hooks bit for bit (the plain versions compute the same
+probe), with one plain probe fewer for each first trip that took the
+carried (ft, g.d); it tracks the JAX package's fusion-on run
 (``LBFGS_TPU_KERNELS=all``).  The case marked ``cuda`` holds the
 hand-written kernels to their plain versions on the card.
 """
@@ -74,6 +75,17 @@ def _port_k16(pg, x, S, Y, gamma, cs, cy, c, lo, hi, stp1):
     return t_rosen.combine_ow_probe(_t(pg), _t(x), _t(S), _t(Y),
                                     torch.tensor(gamma, dtype=_t(pg).dtype), _t(cs), _t(cy),
                                     c, lo, hi, stp1)
+
+
+def _unfused(fn):
+    """``fn`` without the combine+probe fusion's hooks: the solver then
+    takes K3 (K6, K13), as for an objective that does not carry them."""
+    def vag(x):
+        return fn(x)
+
+    vag.__dict__.update({k: v for k, v in fn.__dict__.items()
+                         if not k.startswith(("__lbfgs_combine_probe", "__lbfgs_combine_ow_probe"))})
+    return vag
 
 
 def _close(t, j, rtol, atol=0.0):
@@ -211,27 +223,36 @@ def test_fusions_reject_bad_arguments(call):
         call(v, S, z)
 
 
-def test_kernel_enabled_only_adds(monkeypatch):
-    monkeypatch.delenv("LBFGS_TORCH_KERNELS", raising=False)
-    assert t_fused.kernel_enabled("combine") and not t_fused.kernel_enabled("combine_probe")
-    for sel in ("combine_probe", "all", "trial, combine_probe"):
-        monkeypatch.setenv("LBFGS_TORCH_KERNELS", sel)
-        assert t_fused.kernel_enabled("combine_probe")
-    # the variable never turns a default kernel off
-    monkeypatch.setenv("LBFGS_TORCH_KERNELS", "trial")
-    assert t_fused.kernel_enabled("combine") and not t_fused.kernel_enabled("combine_probe")
+@pytest.mark.parametrize("dtypes", [(torch.float64, torch.float64),
+                                    (torch.float32, torch.bfloat16)], ids=["f64", "f32_bf16"])
+def test_k15_fix_form_is_k6_then_the_probe(dtypes):
+    """K15's damped-row form (the plain version on the CPU): r, r.r, r.g
+    and the fixed ring bit for bit those of K6's plain version, and the
+    probe's (ft, g.r) bit for bit K2's plain probe at that r."""
+    vd, hd = dtypes
+    g, x, S, Y, cs, cy = (_t(a) for a in _inputs(1000, 54, np.float64))
+    g, x, cs, cy = (v.to(vd) for v in (g, x, cs, cy))
+    S, Y = S.to(hd), Y.to(hd)
+    gamma, ca, cb = (torch.tensor(v, dtype=vd) for v in (-0.4, 0.7, -0.2))
+    Yk, Yp = Y.clone(), Y.clone()
+    k = t_rosen.combine_probe(g, x, S, Yk, gamma, cs, cy, 0.37, fix=(2, ca, cb))
+    p = t_fused.combine_fix_ref(g, S, Yp, gamma, cs, cy, 2, ca, cb)
+    assert all(torch.equal(a, b) for a, b in zip(k[:3], p))
+    assert torch.equal(Yk, Yp) and not torch.equal(Yk[2], Y[2])
+    assert torch.equal(Yk[[0, 1, 3, 4, 5]], Y[[0, 1, 3, 4, 5]])
+    ft, dg = t_rosen.probe_ref(x, k[0], 0.37)
+    assert (k[3].item(), k[4].item()) == (ft.item(), dg.item())
+    with pytest.raises(ValueError, match="ring row"):
+        t_rosen.combine_probe(g, x, S, Yk, gamma, cs, cy, 0.37, fix=(M, ca, cb))
 
 
-def test_protocol_attached_and_ok(monkeypatch):
+def test_protocol_attached_and_ok():
     vag = t_rosen.value_and_grad
     assert vag.__lbfgs_combine_probe__ is t_rosen.combine_probe
     assert vag.__lbfgs_combine_ow_probe__ is t_rosen.combine_ow_probe
     assert vag.plain.__lbfgs_combine_probe__ is t_rosen.combine_probe_ref
     assert vag.plain.__lbfgs_combine_ow_probe__ is t_rosen.combine_ow_probe_ref
     x, S = torch.zeros(64), torch.zeros(M, 64)
-    monkeypatch.delenv("LBFGS_TORCH_KERNELS", raising=False)
-    assert not vag.__lbfgs_combine_probe_ok__(x, S)
-    monkeypatch.setenv("LBFGS_TORCH_KERNELS", "combine_probe")
     assert vag.__lbfgs_combine_probe_ok__(x, S)
     assert vag.plain.__lbfgs_combine_ow_probe_ok__(x, S)
     assert not vag.__lbfgs_combine_probe_ok__(torch.zeros(63), torch.zeros(M, 63))  # odd n
@@ -255,32 +276,33 @@ FUSION_CASES = {
     "fx_wide": (lambda b: (b.with_constrain_step_size(False).with_fx_wide()
                            .with_history_dtype("bfloat16").with_max_iterations(25)),
                 2048, torch.float32),
+    "damped": (lambda b: (b.with_constrain_step_size(False).with_damping(True)
+                          .with_max_iterations(40)), 100, torch.float64),
     "constrained": (lambda b: b, 100, torch.float64),
     "dead_slot": (lambda b, x0=None: b.with_initial_step_size(
-        _g0_norm(t_rosen.initial_point(100, device="cpu"))), 100, torch.float64),
+        _g0_norm(t_rosen.initial_point(100, device="cpu"))).with_constrain_step_size(False),
+        100, torch.float64),
 }
 
 
-def _steps(builder, x0, monkeypatch, on: bool):
-    """Run to the end through the step-at-a-time loop; returns (report,
-    final state, entry step of every search, plain probe calls, carried
-    first trips)."""
-    if on:
-        monkeypatch.setenv("LBFGS_TORCH_KERNELS", "combine_probe")
-    else:
-        monkeypatch.delenv("LBFGS_TORCH_KERNELS", raising=False)
+def _steps(builder, x0, on: bool, fuses: bool):
+    """Run to the end through the step-at-a-time loop, on the objective
+    with the fusion's hooks (``on``) or without; returns (report, final
+    state, entry step of every search, plain probe calls, carried first
+    trips, plain calls of K6)."""
     probes = (t_rosen.probe_ref, t_rosen.owlqn_probe_pg_ref)
-    before = sum(p.calls for p in probes)
+    before = sum(p.calls for p in probes), t_fused.combine_fix_ref.calls
     carried.used = 0
-    st = builder.build(x0, lbfgs_torch.default_evaluate())
-    assert (st.state.probe1 is not None) == on
+    fn = lbfgs_torch.default_evaluate()
+    st = builder.build(x0, fn if on else _unfused(fn))
+    assert (st.state.probe1 is not None) == (on and fuses)
     entries = []
     while not st.is_converged():
         if st.state.k >= 1:
             entries.append(st.state.step)
         st.propagate()
-    return (st.report(), st.state, entries, sum(p.calls for p in probes) - before,
-            carried.used)
+    return (st.report(), st.state, entries, sum(p.calls for p in probes) - before[0],
+            carried.used, t_fused.combine_fix_ref.calls - before[1])
 
 
 def _same_state(a, b):
@@ -300,33 +322,38 @@ def _same_state(a, b):
 
 
 @pytest.mark.parametrize("case", list(FUSION_CASES))
-def test_fusion_on_equals_off_bit_for_bit(case, monkeypatch):
+def test_fusion_on_equals_off_bit_for_bit(case):
     chain, n, dtype = FUSION_CASES[case]
+    # under the step cap the entry comes from ||d|| after the combine, so
+    # the solver does not fuse there at all
+    fuses = case != "constrained"
     logging.disable(logging.WARNING)
     try:
         x0 = t_rosen.initial_point(n, dtype, device="cpu")
         b = chain(lbfgs_torch.lbfgs())
-        r_off, s_off, e_off, p_off, c_off = _steps(b, x0, monkeypatch, False)
-        r_on, s_on, e_on, p_on, c_on = _steps(b, x0, monkeypatch, True)
+        r_off, s_off, e_off, p_off, c_off, f_off = _steps(b, x0, False, fuses)
+        r_on, s_on, e_on, p_on, c_on, f_on = _steps(b, x0, True, fuses)
     finally:
         logging.disable(logging.NOTSET)
     assert (r_on.niter, r_on.neval, r_on.fx) == (r_off.niter, r_off.neval, r_off.fx)
     _same_state(s_on, s_off)
-    assert c_off == 0 and c_on > 0
+    assert c_off == 0 and (c_on > 0) == fuses
     # one plain probe fewer for each first trip that took the carried one
     assert p_on == p_off - c_on
     # which searches took it: every one after the first whose entry is the
-    # probed step (1.0 under the literal and the capped policies), never
-    # the first, whose slot is dead
+    # probed step (1.0 under the literal policy), never the first, whose
+    # slot is dead
     assert e_on == e_off
-    assert c_on == sum(e == 1.0 for e in e_off[1:])
+    assert c_on == (sum(e == 1.0 for e in e_off[1:]) if fuses else 0)
     if case == "dead_slot":
         assert e_off[0] == 1.0
-    if case == "constrained":
-        assert c_on < len(e_off) - 1
+    # damped, K15's fix form persists the row in K6's place
+    if case == "damped":
+        assert f_off == r_off.niter - 1 and f_on == 0
+        assert sum(r_on.damping_cases[1:]) > 0
 
 
-def test_failed_search_with_fusion_reverts_like_without(monkeypatch):
+def test_failed_search_with_fusion_reverts_like_without():
     """xtol = 10 fails the first bracketing trip (LS_ROUNDING): with the
     fusion the host loop reverts the vectors and raises "x not changed" at
     the same iteration, with the same state, as without; the slot keeps
@@ -334,12 +361,9 @@ def test_failed_search_with_fusion_reverts_like_without(monkeypatch):
     only the vectors)."""
     out = {}
     for on in (False, True):
-        if on:
-            monkeypatch.setenv("LBFGS_TORCH_KERNELS", "combine_probe")
-        else:
-            monkeypatch.delenv("LBFGS_TORCH_KERNELS", raising=False)
-        st = lbfgs_torch.lbfgs().with_linesearch_xtol(10.0).build(
-            t_rosen.initial_point(100, device="cpu"), lbfgs_torch.default_evaluate())
+        fn = lbfgs_torch.default_evaluate()
+        st = lbfgs_torch.lbfgs().with_linesearch_xtol(10.0).with_constrain_step_size(False).build(
+            t_rosen.initial_point(100, device="cpu"), fn if on else _unfused(fn))
         logging.disable(logging.ERROR)
         try:
             with pytest.raises(lbfgs_torch.LbfgsError, match="x not changed"):
@@ -348,7 +372,7 @@ def test_failed_search_with_fusion_reverts_like_without(monkeypatch):
         finally:
             logging.disable(logging.NOTSET)
         out[on] = st.state
-    assert (out[True].k, out[True].ls_status) == (out[False].k, out[False].ls_status) == (9, 10)
+    assert (out[True].k, out[True].ls_status) == (out[False].k, out[False].ls_status) == (8, 10)
     _same_state(out[True], out[False])
     assert out[False].probe1 is None and out[True].probe1[2] == 1.0
 
@@ -376,8 +400,7 @@ def _jax_run(params, monkeypatch, keep_states=False):
     return st.report(), states
 
 
-def _port_run(params, monkeypatch):
-    monkeypatch.setenv("LBFGS_TORCH_KERNELS", "combine_probe")
+def _port_run(params):
     st = TState.build(params, t_rosen.initial_point(N_FUSED, torch.float32, device="cpu"),
                       lbfgs_torch.default_evaluate())
     assert st.state.probe1 is not None
@@ -389,17 +412,19 @@ def _port_run(params, monkeypatch):
 @pytest.fixture(scope="module")
 def jax_fused_plain():
     """The JAX package's fusion-on run, 8 iterations at its test's
-    defaults (capped step), with the state after every iteration."""
+    defaults but with the step uncapped (where the port fuses), with the
+    state after every iteration."""
     mp = pytest.MonkeyPatch()
     try:
-        return _jax_run(JParams(max_iterations=8, epsilon=0.0), mp, keep_states=True)
+        return _jax_run(JParams(max_iterations=8, epsilon=0.0, constrain_step_size=False), mp,
+                        keep_states=True)
     finally:
         mp.undo()
 
 
 def test_port_matches_jax_fusion_on_plain(jax_fused_plain, monkeypatch):
     rep_j, _ = jax_fused_plain
-    rep_t = _port_run(TParams(max_iterations=8, epsilon=0.0), monkeypatch)
+    rep_t = _port_run(TParams(max_iterations=8, epsilon=0.0, constrain_step_size=False))
     assert rep_t.niter == rep_j.niter == 8
     assert rep_t.neval == rep_j.neval
     assert rep_t.fx == pytest.approx(float(rep_j.fx), rel=1e-3)
@@ -410,7 +435,7 @@ def test_port_matches_jax_fusion_on_owlqn(monkeypatch):
     rep_j, _ = _jax_run(JParams(orthantwise=JOW(1.0, 0, N_FUSED - 1), **kw), monkeypatch)
     logging.disable(logging.WARNING)
     try:
-        rep_t = _port_run(TParams(orthantwise=TOW(1.0, 0, N_FUSED - 1), **kw), monkeypatch)
+        rep_t = _port_run(TParams(orthantwise=TOW(1.0, 0, N_FUSED - 1), **kw))
     finally:
         logging.disable(logging.NOTSET)
     assert rep_t.niter == rep_j.niter == 8
@@ -427,7 +452,8 @@ def test_carried_probe_after_one_propagate_from_jax_state(jax_fused_plain, k):
     st = interop.state_from_jax(states[k - 1], "cpu")
     assert st.probe1 is not None and type(st.probe1[0]) is np.float32
     out = tsol.propagate_hot(TDef(value_and_grad=t_rosen.value_and_grad),
-                             TParams(max_iterations=8, epsilon=0.0), st)
+                             TParams(max_iterations=8, epsilon=0.0, constrain_step_size=False),
+                             st)
     want = states[k].probe1
     assert out.probe1[2] == np.float32(np.asarray(want[2]))
     # the slot is the plain probe at the port's own new point and direction
@@ -460,17 +486,23 @@ def _same_bits(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["combine_probe", "combine_ow_probe", "axpy_dot"])
+@pytest.mark.parametrize("kernel", ["combine_probe", "combine_probe_fix", "combine_ow_probe",
+                                    "axpy_dot"])
 def test_kernel_matches_plain_on_card(cuda, kernel):
     n, lo, hi, c = 1 << 16, 3 * 1024 + 5, (1 << 16) - 7 * 1024 - 3, 0.7
     g, x, S, Y, cs, cy = (_t(a).to(cuda) for a in _inputs(n, 70, np.float32))
     gamma = torch.tensor(-0.4, device=cuda)
     S, Y = S.to(torch.bfloat16), Y.to(torch.bfloat16)
-    if kernel == "combine_probe":
-        k = t_rosen.combine_probe(g, x, S, Y, gamma, cs, cy, 0.37)
-        p = t_rosen.combine_probe_ref(g, x, S, Y, gamma, cs, cy, 0.37)
+    if kernel.startswith("combine_probe"):
+        fix = (2, *(torch.tensor(v, device=cuda) for v in (0.7, -0.2)))
+        fix = fix if kernel.endswith("fix") else None
+        Yk, Yp = Y.clone(), Y.clone()
+        k = t_rosen.combine_probe(g, x, S, Yk, gamma, cs, cy, 0.37, fix=fix)
+        p = t_rosen.combine_probe_ref(g, x, S, Yp, gamma, cs, cy, 0.37, fix=fix)
         k2 = t_rosen.probe(x, k[0], 0.37)
         assert _same_bits(k[3], k2[0]) and _same_bits(k[4], k2[1])
+        # K6's ring row, bit for bit
+        assert _same_bits(Yk, Yp) and _same_bits(Yk, Y) == (fix is None)
     elif kernel == "combine_ow_probe":
         k = t_rosen.combine_ow_probe(g, x, S, Y, gamma, cs, cy, c, lo, hi, 0.37)
         p = t_rosen.combine_ow_probe_ref(g, x, S, Y, gamma, cs, cy, c, lo, hi, 0.37)

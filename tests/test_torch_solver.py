@@ -122,9 +122,10 @@ def test_two_loop_compact_matches_jax():
         ys=torch.from_numpy((S * Y).sum(1)), alpha=torch.zeros(m, dtype=torch.float64),
         sy=torch.from_numpy(S @ Y.T), yy=torch.from_numpy(Y @ Y.T),
     )
-    r_t, a_t, rr, rd = tsol.two_loop_compact(
+    r_t, a_t, rr, rd, probe = tsol.two_loop_compact(
         hist_t, torch.from_numpy(g), torch.tensor(0.7, dtype=torch.float64),
         bound, end, neg=True)
+    assert probe is None
     _close(r_t, r_j, "r")
     _close(a_t, a_j, "alpha")
     _close(rr, float(np.dot(r_j, r_j)), "r.r")
