@@ -82,7 +82,9 @@ Phases (any failure raises and the script exits nonzero):
      every probe; its syncs and probes per iteration beside the main
      path's (the fusion must save at least half a read per iteration);
      the main path against it and against its plain versions after 8
-     and 15 iterations; ms/iter of both in turns;
+     and 15 iterations; ms/iter of both in turns; then both stepped side
+     by side, printing for how many iterations they agree bit for bit
+     and in their evaluations;
  21. unfused OWL-QN main path: the same for the OWL-QN main path, K13 in
      place of K16, CONVERGED at epsilon 3e-2;
  22. adaptive entry: the OWL-QN main path with
@@ -104,8 +106,11 @@ Phase 3 also holds K15 (with its damped-row form), K16 (the
 combine+probe fusions), K17 (axpy + dot) and the calibration kernel to
 their plain versions (K15's and K16's probe scalars bit for bit those of
 K2 and of K8's pg form at the point they form, in both objective-scalar
-modes; their directions against K3's and K13's; the damped row bit for
-bit K6's), and the OWL-QN kernels K7, K9, K11 and K12 to their plain
+modes; their directions bit for bit K3's, K6's and K13's, so the step
+cap, which picks one or the other, does not change the trajectory; the
+damped row bit for bit K6's), prints each K4/K14 form's registers,
+spills and 16-byte loads (``epilogue_compiled``: a form that spills
+fails), and holds the OWL-QN kernels K7, K9, K11 and K12 to their plain
 versions (K9's point, K11's pg against K10's, K12's ring rows and K7's
 ft against K8's bit for bit), and a ``wide_kernels`` phase checks the
 wide objective scalar's forms of K1, K2, K4, K7 and K8 against the
@@ -132,7 +137,7 @@ from lbfgs_torch.core import to_host
 from lbfgs_torch.linesearch import carried
 from lbfgs_torch.minimize import minimize_jit
 from lbfgs_torch.models import lennard_jones, logistic, rosenbrock
-from lbfgs_torch.ops import _build, fused
+from lbfgs_torch.ops import _build, factory, fused
 from lbfgs_torch.orthantwise import Orthantwise, choose_orthant
 from lbfgs_torch.params import Lbfgs, LbfgsParams, LineSearchAlgorithm
 from lbfgs_torch.status import Status
@@ -500,9 +505,6 @@ def _fold(errs: dict, name: str, *pairs) -> None:
 
 def phase_kernels() -> dict:
     errs = {k: (0.0, 0.0) for k in KERNELS}
-    # whether K15's r (K16's rc) came out bit for bit K3's (K13's): noted,
-    # not required (the kernels may round their sums differently)
-    same_as_k3 = {"K15_r_vs_K3": [], "K16_rc_vs_K13": []}
     for n in (N_BIG, N_RAGGED):
         for vd, hd in DTYPES:
             a = inputs(n, vd, hd, SEED + n)
@@ -559,7 +561,7 @@ def phase_kernels() -> dict:
                   *(check(f"K4+gp sum{i} {tag}", kg[i], pg_[i], ts) for i in (7, 8)))
             del Sk, Yk, Sp, Yp, Sg, Yg, Sq, Yq, k, p, kg, pg_, s
             check_k5_k6(errs, a, tag, tv, ts)
-            check_fusions(errs, a, n, tag, tv, ts, same_as_k3)
+            check_fusions(errs, a, n, tag, tv, ts)
             for lo, hi in windows(n):
                 check_owlqn(errs, a, lo, hi, f"{tag} window=[{lo},{hi})", tv, ts)
                 check_composed(errs, a, lo, hi, f"{tag} window=[{lo},{hi})", tv, ts)
@@ -575,9 +577,9 @@ def phase_kernels() -> dict:
                   "with_gp_columns_0_2": "bit-exact", "k9_point": "bit-exact",
                   "k11_vs_k10_pg": "bit-exact", "k7_ft_vs_k8": "bit-exact",
                   "k15_probe_vs_k2": "bit-exact", "k16_probe_vs_k8_pg": "bit-exact",
-                  "k15_fix_row_vs_k6": "bit-exact",
-                  "k17_z": "bit-exact", "null_launch": "bit-exact"},
-             direction_bit_exact_vs_combine={k: all(v) for k, v in same_as_k3.items()})
+                  "k15_fix_row_vs_k6": "bit-exact", "k15_r_vs_k3": "bit-exact",
+                  "k15_fix_r_vs_k6": "bit-exact", "k16_rc_vs_k13": "bit-exact",
+                  "k17_z": "bit-exact", "null_launch": "bit-exact"})
 
     check_k17_null(errs)
 
@@ -707,18 +709,46 @@ def phase_kernels() -> dict:
                     for k, v in times.items()},
          event_ms={k: {"kernel": v[0], "plain": v[1]} for k, v in walls.items()},
          library_ms=library, k15_replaces_k3_plus_k2=k3_k2)
+    epilogue_compiled()
     del a, S, Y, Yf, x9, xn
     torch.cuda.empty_cache()
     return {"errs": errs, "times": times, "bounds": bounds, "library": library}
 
 
-def check_fusions(errs: dict, a: dict, n: int, tag: str, tv: float, ts: float,
-                  same_as_k3: dict) -> None:
+def epilogue_compiled() -> None:
+    """Registers and spills of every compiled form of K4 and K14 (the last
+    launch of each: at n = 2^24 for f32/bf16, the ragged n for the other
+    dtype pairs), and the 16- and 8-byte global loads in its PTX; a form
+    that spills fails the phase (the launch in ``factory.EPILOGUE`` is
+    chosen not to)."""
+    forms = []
+    for kern, fn in (("K4", rosenbrock.trial_pair_gram),
+                     ("K14", rosenbrock.owlqn_trial_pair_gram)):
+        for (vd, hd, with_gp), k in sorted(fn.compiled.items(), key=str):
+            k._init_handles()
+            forms.append(dict(form=kern + ("_gp" if with_gp else ""),
+                              vectors=str(vd).removeprefix("torch."),
+                              history=str(hd).removeprefix("torch."), n_regs=k.n_regs,
+                              n_spills=k.n_spills,
+                              ld_global_v4=k.asm["ptx"].count("ld.global.v4"),
+                              ld_global_v2=k.asm["ptx"].count("ld.global.v2")))
+    emit(phase="epilogue_compiled", launch={"/".join(str(t).removeprefix("torch.") for t in k): v
+                                            for k, v in factory.EPILOGUE.items()},
+         programs_max=factory.EPILOGUE_PROGRAMS, forms=forms)
+    spilled = [f for f in forms if f["n_spills"]]
+    if spilled:
+        raise AssertionError(f"K4/K14 forms spill registers: {spilled}")
+
+
+def check_fusions(errs: dict, a: dict, n: int, tag: str, tv: float, ts: float) -> None:
     """K15 and K16 against their plain versions at every stp1 of ``STP1``
     (K16 on both windows); their probe scalars bit for bit those of K2 at
     (x, r, stp1) and of K8's pg form at (x, rc, pg, stp1), in both
-    objective-scalar modes (the remat contract); their directions against
-    K3's and K13's at the vector tolerance."""
+    objective-scalar modes (the remat contract); their directions bit for
+    bit K3's, K6's and K13's (the CUDA combines round as the fusions do, so
+    the step cap, which picks one or the other, does not change the
+    trajectory), their r.r and r.g against those at the sum tolerance
+    (another reduction tree)."""
     xp, gp, pg, S, Y = a["xp"], a["gp"], a["pg"], a["S"], a["Y"]
     coefs = (a["gamma"], a["cs"], a["cy"])
     k3 = fused.combine(gp, S, Y, *coefs)
@@ -726,10 +756,12 @@ def check_fusions(errs: dict, a: dict, n: int, tag: str, tv: float, ts: float,
         t = f"{tag} stp1={stp1}"
         k = rosenbrock.combine_probe(gp, xp, S, Y, *coefs, stp1)
         p = rosenbrock.combine_probe_ref(gp, xp, S, Y, *coefs, stp1)
+        if not same_bits(k[0], k3[0]):
+            raise AssertionError(f"K15's r differs from K3's in "
+                                 f"{int((k[0] != k3[0]).sum())} elements {t}")
         _fold(errs, "K15_combine_probe", check(f"K15 r {t}", k[0], p[0], tv),
-              check(f"K15 r vs K3 {t}", k[0], k3[0], tv),
-              *(check(f"K15 sum{i} {t}", k[i], p[i], ts) for i in (1, 2, 3, 4)))
-        same_as_k3["K15_r_vs_K3"].append(same_bits(k[0], k3[0]))
+              *(check(f"K15 sum{i} {t}", k[i], p[i], ts) for i in (1, 2, 3, 4)),
+              *(check(f"K15 sum{i} vs K3 {t}", k[i], k3[i], ts) for i in (1, 2)))
         for wide in (False, True):
             with fused.wide_fx(wide):
                 kw = rosenbrock.combine_probe(gp, xp, S, Y, *coefs, stp1)
@@ -743,15 +775,19 @@ def check_fusions(errs: dict, a: dict, n: int, tag: str, tv: float, ts: float,
     Yk, Yp, Y6 = Y.clone(), Y.clone(), Y.clone()
     k = rosenbrock.combine_probe(gp, xp, S, Yk, *coefs, 0.37, fix=(END, ca, cb))
     p = rosenbrock.combine_probe_ref(gp, xp, S, Yp, *coefs, 0.37, fix=(END, ca, cb))
-    fused.combine_fix(gp, S, Y6, *coefs, END, ca, cb)
+    k6 = fused.combine_fix(gp, S, Y6, *coefs, END, ca, cb)
     if not (same_bits(Yk, Yp) and same_bits(Yk, Y6)):
         raise AssertionError(f"K15's damped row differs from the plain version's or K6's {tag}")
+    if not same_bits(k[0], k6[0]):
+        raise AssertionError(f"K15's fix form's r differs from K6's in "
+                             f"{int((k[0] != k6[0]).sum())} elements {tag}")
     k2 = rosenbrock.probe(xp, k[0], 0.37)
     if not (same_bits(k[3], k2[0]) and same_bits(k[4], k2[1])):
         raise AssertionError(f"K15's damped-row form's probe differs from K2's {tag}")
     _fold(errs, "K15_combine_probe_fix", check(f"K15 fix r {tag}", k[0], p[0], tv),
-          *(check(f"K15 fix sum{i} {tag}", k[i], p[i], ts) for i in (1, 2, 3, 4)))
-    del Yk, Yp, Y6
+          *(check(f"K15 fix sum{i} {tag}", k[i], p[i], ts) for i in (1, 2, 3, 4)),
+          *(check(f"K15 fix sum{i} vs K6 {tag}", k[i], k6[i], ts) for i in (1, 2)))
+    del Yk, Yp, Y6, k6
     for lo, hi in windows(n):
         k13 = fused.combine_ow(pg, S, Y, *coefs, lo, hi)
         for stp1 in STP1:
@@ -759,10 +795,12 @@ def check_fusions(errs: dict, a: dict, n: int, tag: str, tv: float, ts: float,
             k = rosenbrock.combine_ow_probe(pg, a["xp0"], S, Y, *coefs, C_L1, lo, hi, stp1)
             p = rosenbrock.combine_ow_probe_ref(pg, a["xp0"], S, Y, *coefs, C_L1, lo, hi,
                                                 stp1)
+            if not same_bits(k[0], k13[0]):
+                raise AssertionError(f"K16's rc differs from K13's in "
+                                     f"{int((k[0] != k13[0]).sum())} elements {t}")
             _fold(errs, "K16_combine_ow_probe", check(f"K16 rc {t}", k[0], p[0], tv),
-                  check(f"K16 rc vs K13 {t}", k[0], k13[0], tv),
-                  *(check(f"K16 sum{i} {t}", k[i], p[i], ts) for i in (1, 2, 3, 4, 5)))
-            same_as_k3["K16_rc_vs_K13"].append(same_bits(k[0], k13[0]))
+                  *(check(f"K16 sum{i} {t}", k[i], p[i], ts) for i in (1, 2, 3, 4, 5)),
+                  *(check(f"K16 sum{i} vs K13 {t}", k[i], k13[i], ts) for i in (1, 2, 3)))
             for wide in (False, True):
                 with fused.wide_fx(wide):
                     kw = rosenbrock.combine_ow_probe(pg, a["xp0"], S, Y, *coefs, C_L1, lo,
@@ -1842,6 +1880,43 @@ def _fusion_trajectories(name: str, params: LbfgsParams) -> None:
              rel_fx_vs_plain=rel_pl, fx_tol=FUSION_TOL_8, asserted=n_it == 8,
              x_err_vs_unfused=err(st_on.prob.x, st_off.prob.x))
         del st_on, st_pl, st_off
+    _agreement(name, params)
+
+
+def _agreement(name: str, params: LbfgsParams) -> None:
+    """Step the fused and the unfused run side by side (``LbfgsState``)
+    until either stops or their evaluations part, and print for how many
+    iterations the two agree: bit for bit (iterate and fx), and in their
+    evaluations.  The directions are the same bit for bit (K15 against K3,
+    K16 against K13, K15's fix form against K6), but r.r and r.g come from
+    other reduction trees, so a search that interpolates may step
+    otherwise in the last bits."""
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    b = Lbfgs(params)
+    runs = [b.build(x0, fn) for fn in (default_evaluate(), unfused(default_evaluate()))]
+    bits, evals, rel = 0, 0, 0.0
+
+    def step(run):
+        # a run that ends in an error status (at epsilon 0 the last
+        # iterations may) stops both; its status is printed
+        try:
+            return run.propagate()
+        except LbfgsError:
+            return None
+
+    while not any([r.is_converged() for r in runs]):
+        on, off = (step(r) for r in runs)
+        if on is None or off is None or (on.niter, on.neval) != (off.niter, off.neval):
+            break
+        evals = on.niter
+        rel = max(rel, abs(on.fx / off.fx - 1) if off.fx else abs(on.fx))
+        if bits == on.niter - 1 and on.fx == off.fx and same_bits(on.x, off.x):
+            bits = on.niter
+    emit(phase=f"{name}_agreement", iters_bit_identical=bits, iters_same_evals=evals,
+         max_rel_fx_while_same_evals=rel, stopped_at=[int(r.state.k) for r in runs],
+         statuses=[int(r.state.status) for r in runs])
+    del runs
+    torch.cuda.empty_cache()
 
 
 def _walls(params: LbfgsParams) -> dict:
@@ -2000,8 +2075,6 @@ def phase_launch_overhead(paths: dict) -> dict:
     the modelled host ms/iter = Triton launches x Triton us + ctypes
     launches x null us + other launches x torch us + reads x read us is
     printed beside the measured ms/iter."""
-    from lbfgs_torch.ops import factory
-
     reset_counts()
     x = torch.zeros(N_NULL, device="cuda")
     xp = torch.ones(factory.BLOCK, device="cuda")

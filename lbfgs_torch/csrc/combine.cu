@@ -34,6 +34,16 @@
 // plain version's bit for bit.  It costs one row write (2 bytes per
 // element with a bf16 history) and no read.
 //
+// The combination itself is written with __fmul_rn/__fadd_rn (and the f64
+// forms) in the order acc_s += cs_j*S_j, acc_y += cy_j*Y_j, then
+// gamma*g + (acc_s + acc_y): nvcc would otherwise contract the products
+// into fmas, and r would differ in the last bits from the Triton fusions
+// K15 and K16 (launched without contraction), which compute the same sums
+// in the same order.  So K3's r is K15's bit for bit, K13's rc K16's, and
+// which of the two the solver runs does not change the trajectory.  The
+// partial sums r.r, r.g are reassociated by the block reduction anyway
+// and keep nvcc's default.
+//
 // What bounds it on the H100: bytes.  It reads g and the 2m history rows
 // and writes r, doing 2m+1 multiply-adds per element: with f32 vectors
 // and a bf16 history at m = 6 that is 4 + 24 + 4 = 32 bytes per element
@@ -78,13 +88,17 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// a * b + c * d with every operation rounded on its own (never an fma)
-__device__ __forceinline__ float blend_rn(float a, float b, float c, float d) {
-  return __fadd_rn(__fmul_rn(a, b), __fmul_rn(c, d));
-}
+// products and sums rounded on their own: nvcc never contracts these
+// intrinsics into an fma, whatever --fmad says
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-__device__ __forceinline__ double blend_rn(double a, double b, double c, double d) {
-  return __dadd_rn(__dmul_rn(a, b), __dmul_rn(c, d));
+// a * b + c * d with every operation rounded on its own (never an fma)
+template <typename T>
+__device__ __forceinline__ T blend_rn(T a, T b, T c, T d) {
+  return add_rn(mul_rn(a, b), mul_rn(c, d));
 }
 
 template <typename T>
@@ -126,15 +140,17 @@ combine_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __restrict__
       T acc_s = T(0);
       T acc_y = T(0);
       T y_end = T(0);
+      // the combination rounds as K15, K16 and the plain versions do: each
+      // product and each add on its own, in their order
       for (int j = 0; j < m; ++j) {
-        acc_s += c[1 + j] * widen<T, H>(S[j * n + i]);
+        acc_s = add_rn(acc_s, mul_rn(c[1 + j], widen<T, H>(S[j * n + i])));
         const T yj = widen<T, H>(Y[j * n + i]);
-        acc_y += c[1 + m + j] * yj;
+        acc_y = add_rn(acc_y, mul_rn(c[1 + m + j], yj));
         if constexpr (kFix) {
           if (j == fix_end) y_end = yj;
         }
       }
-      const T rv = c[0] * gv + (acc_s + acc_y);
+      const T rv = add_rn(mul_rn(c[0], gv), add_rn(acc_s, acc_y));
       if constexpr (kFix) {
         Y[fix_end * n + i] = narrow<H, T>(blend_rn(c[1 + 2 * m], y_end, c[2 + 2 * m], gv));
       }

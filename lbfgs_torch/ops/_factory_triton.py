@@ -18,11 +18,13 @@ The wrappers launch them without multiply-add contraction
 stored pairs of K4 and K14 are exactly the rounded pair of the kernel's
 own registers.
 
-Each program handles one block of ROWS*W consecutive elements and writes
-its partial sums into its own row of a [programs, k] array, which
-``fused.reduce_partials`` adds in a fixed order: no float atomics, so runs
-repeat bit for bit.  Every reduction is masked by global index (n need
-not be a multiple of the block).
+Each program of K1, K2, K7, K8, K15 and K16 handles one block of ROWS*W
+consecutive elements and writes its partial sums into its own row of a
+[programs, k] array, which ``fused.reduce_partials`` adds in a fixed
+order: no float atomics, so runs repeat bit for bit.  Every reduction is
+masked by global index (n need not be a multiple of the block).  The
+epilogues K4 and K14 take many more sums per element (6m to 8m products)
+and are laid out otherwise, below.
 
 What bounds them on the H100 is bytes; each kernel reads and writes every
 vector it touches once, computes the objective in registers, and writes
@@ -71,6 +73,29 @@ nothing that is not a result:
     element is loaded before it is stored and no element reads another's.
     With ``WITH_GP`` (damped OWL-QN) it adds gp.gp, gp.pg and the 2m
     products S_j.gp, Y_j.gp, in partials of their own, at no byte.
+
+  How K4 and K14 are laid out.  The JAX kernels keep the [m, 3|4] sums
+  resident across their sequential grid and write only the objective's
+  partial per block.  On Hopper the blocks run in parallel, so a loop
+  inside the program takes that grid's place: each program walks
+  ``tiles`` consecutive tiles of T elements (``factory.epilogue_grid``)
+  and adds every product into per-thread registers.  A tile is addressed
+  as [T // V, V] (``_tile``): each thread holds runs of V consecutive
+  elements of every vector and ring row, so its loads are V wide (V = 4:
+  16 bytes of float32, 8 of bf16), and it folds each product over its V
+  elements in the thread.  The ring rows stream one at a time (row
+  ``end`` is the unrounded new pair, never read) and each fold lands in
+  column j of a [T // V, MP] sum (MP = m rounded up to a power of two;
+  ``_add_col``), so a thread carries 6 (8) x MP sums.  Only after the
+  last tile does the program reduce across its threads: one reduction per
+  product kind for all rows, into one partials row, where the block
+  layout took 6m (8m) per 1024 elements.  The body sees its [T // W, W]
+  view by a reshape.  The objective keeps one partial per tile (K4's fx
+  array, as the JAX kernel's fxp), which the wide mode sums in float64.
+  The six products' folds and reductions are the same code with and
+  without ``WITH_GP``, so columns 0-2 stay those of the 3-column launch
+  bit for bit.  Tensor cores do not apply: the Gram products cost ~2.7
+  flops per byte against float32's ridge of ~20, so bytes bound them.
 
   * K15 ``combine_probe_kernel`` (replaces
     factory.py:_combine_probe_kernel): the two-loop's direction combine
@@ -254,61 +279,157 @@ def combine_ow_probe_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_pt
     _store_ow_probe(ppart_ptr, fe, xt, gt, rc, mask, in_win)
 
 
-@triton.jit(do_not_specialize=["end"])
-def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
-                           S_ptr, Y_ptr, part_ptr, gpart_ptr, n, end,
-                           body: tl.constexpr, M: tl.constexpr,
-                           ROWS: tl.constexpr, W: tl.constexpr,
-                           WITH_GP: tl.constexpr):
-    offs = _offsets(ROWS, W)
-    mask = offs < n
-    stp = tl.load(stp_ptr)
-    xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
-    d = tl.load(d_ptr + offs, mask=mask, other=0.0)
-    gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
-    x = xp + stp * d
-    fe, g = body(x, offs)
-    # the correction pair (s = stp*d exactly on the projection-free path,
-    # src/core.rs:155-164) and the two-loop's steepest direction d0 = -g
-    s = stp * d
-    y = g - gp
-    d0 = -g
-    part = part_ptr + tl.program_id(0) * (5 + 6 * M)
-    tl.store(part + 0, _block_sum(fe, mask))
-    tl.store(part + 1, _block_sum(g * d, mask))
-    tl.store(part + 2, _block_sum(g * g, mask))
-    tl.store(part + 3, _block_sum(x * x, mask))
-    tl.store(part + 4, _block_sum(tl.where(x != xp, 1.0, 0.0).to(x.dtype), mask))
+@triton.jit
+def _tile(tile, T: tl.constexpr, V: tl.constexpr):
+    # the offsets of tile `tile` of T elements as [T // V, V]: each thread
+    # holds runs of V consecutive elements that start at a multiple of V,
+    # so its loads can be V wide
+    r = tl.arange(0, T // V)[:, None]
+    c = tl.arange(0, V)[None, :]
+    return tl.max_contiguous(tl.multiple_of(tile * T + r * V + c, [1, V]), [1, V])
+
+
+@triton.jit
+def _fold(v):
+    # a [T // V, V] product summed over each thread's run of V elements
+    return tl.sum(v, axis=1)
+
+
+@triton.jit
+def _add_col(acc, f, j: tl.constexpr, MP: tl.constexpr):
+    # f ([T // V], each thread's fold of its elements) added into column j
+    # of the per-thread sums acc ([T // V, MP]); the column test is on an
+    # in-thread index, so the compiler keeps one add
+    col = tl.arange(0, MP)[None, :]
+    return tl.where(col == j, acc + f[:, None], acc)
+
+
+@triton.jit
+def _gram_row(Sj, Yj, y, s, d0, a0, a1, a2, a3, a4, a5, j: tl.constexpr,
+              MP: tl.constexpr):
+    # the six products of ring row j against (y, s, d0), each folded in the
+    # thread and added into column j; their order does not depend on WITH_GP
+    a0 = _add_col(a0, _fold(Sj * y), j, MP)
+    a1 = _add_col(a1, _fold(Sj * s), j, MP)
+    a2 = _add_col(a2, _fold(Sj * d0), j, MP)
+    a3 = _add_col(a3, _fold(Yj * y), j, MP)
+    a4 = _add_col(a4, _fold(Yj * s), j, MP)
+    a5 = _add_col(a5, _fold(Yj * d0), j, MP)
+    return a0, a1, a2, a3, a4, a5
+
+
+@triton.jit
+def _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0, gp, a0, a1, a2, a3, a4, a5, b0,
+               b1, M: tl.constexpr, MP: tl.constexpr, WITH_GP: tl.constexpr):
+    # one tile's pass over the rings: the m-1 old rows widen in registers,
+    # row `end` is the new pair, unrounded and never read; the new pair is
+    # then stored into row `end`, rounded to the history dtype
     s_row = S_ptr + offs
     y_row = Y_ptr + offs
     for j in tl.static_range(M):
         is_end = end == j
-        # the old rows widen in registers; row `end` is replaced by the
-        # new pair, unrounded, and never read
-        Sj = tl.load(s_row, mask=mask & (end != j), other=0.0).to(x.dtype)
-        Yj = tl.load(y_row, mask=mask & (end != j), other=0.0).to(x.dtype)
+        Sj = tl.load(s_row, mask=mask & (end != j), other=0.0).to(s.dtype)
+        Yj = tl.load(y_row, mask=mask & (end != j), other=0.0).to(s.dtype)
         Sj = tl.where(is_end, s, Sj)
         Yj = tl.where(is_end, y, Yj)
-        pj = part + 5 + 6 * j
-        tl.store(pj + 0, _block_sum(Sj * y, mask))
-        tl.store(pj + 1, _block_sum(Sj * s, mask))
-        tl.store(pj + 2, _block_sum(Sj * d0, mask))
-        tl.store(pj + 3, _block_sum(Yj * y, mask))
-        tl.store(pj + 4, _block_sum(Yj * s, mask))
-        tl.store(pj + 5, _block_sum(Yj * d0, mask))
+        a0, a1, a2, a3, a4, a5 = _gram_row(Sj, Yj, y, s, d0, a0, a1, a2, a3, a4, a5, j, MP)
         if WITH_GP:
-            # the damped update's basis column, after the six others and
-            # into partials of its own
-            gj = gpart_ptr + tl.program_id(0) * (2 * M) + 2 * j
-            tl.store(gj + 0, _block_sum(Sj * gp, mask))
-            tl.store(gj + 1, _block_sum(Yj * gp, mask))
-        # the new pair into ring row `end`, rounded to the history dtype
-        tl.store(s_row, s.to(s_row.dtype.element_ty), mask=mask & is_end)
-        tl.store(y_row, y.to(y_row.dtype.element_ty), mask=mask & is_end)
+            # the damped update's basis column, in sums of its own
+            b0 = _add_col(b0, _fold(Sj * gp), j, MP)
+            b1 = _add_col(b1, _fold(Yj * gp), j, MP)
         s_row += n
         y_row += n
-    tl.store(x_ptr + offs, x, mask=mask)
-    tl.store(g_ptr + offs, g, mask=mask)
+    row = end.to(tl.int64) * n
+    tl.store(S_ptr + row + offs, s.to(S_ptr.dtype.element_ty), mask=mask)
+    tl.store(Y_ptr + row + offs, y.to(Y_ptr.dtype.element_ty), mask=mask)
+    return a0, a1, a2, a3, a4, a5, b0, b1
+
+
+@triton.jit
+def _store_gram(part, a0, a1, a2, a3, a4, a5, M: tl.constexpr, MP: tl.constexpr):
+    # the program's partials of the 6m products, row j at part + 6j: one
+    # cross-thread reduction per product kind for all rows
+    r = tl.arange(0, MP)
+    keep = r < M
+    pj = part + 6 * r
+    tl.store(pj + 0, tl.sum(a0, axis=0), mask=keep)
+    tl.store(pj + 1, tl.sum(a1, axis=0), mask=keep)
+    tl.store(pj + 2, tl.sum(a2, axis=0), mask=keep)
+    tl.store(pj + 3, tl.sum(a3, axis=0), mask=keep)
+    tl.store(pj + 4, tl.sum(a4, axis=0), mask=keep)
+    tl.store(pj + 5, tl.sum(a5, axis=0), mask=keep)
+
+
+@triton.jit
+def _store_gp(gpart, b0, b1, M: tl.constexpr, MP: tl.constexpr):
+    # the . gp column's partials, (S_j.gp, Y_j.gp) at gpart + 2j
+    r = tl.arange(0, MP)
+    keep = r < M
+    tl.store(gpart + 2 * r, tl.sum(b0, axis=0), mask=keep)
+    tl.store(gpart + 2 * r + 1, tl.sum(b1, axis=0), mask=keep)
+
+
+@triton.jit(do_not_specialize=["end", "tiles"])
+def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
+                           S_ptr, Y_ptr, fx_ptr, part_ptr, gpart_ptr, n, end, tiles,
+                           body: tl.constexpr, M: tl.constexpr, MP: tl.constexpr,
+                           T: tl.constexpr, V: tl.constexpr, W: tl.constexpr,
+                           WITH_GP: tl.constexpr):
+    # program pid takes tiles pid*tiles .. pid*tiles + tiles - 1 of T
+    # elements each; the sums stay in per-thread registers across them
+    pid = tl.program_id(0)
+    dt = xp_ptr.dtype.element_ty
+    stp = tl.load(stp_ptr)
+    R: tl.constexpr = T // V
+    a_gd = tl.zeros([R], dt)
+    a_gg = tl.zeros([R], dt)
+    a_xx = tl.zeros([R], dt)
+    a_ch = tl.zeros([R], dt)
+    a0 = tl.zeros([R, MP], dt)
+    a1 = tl.zeros([R, MP], dt)
+    a2 = tl.zeros([R, MP], dt)
+    a3 = tl.zeros([R, MP], dt)
+    a4 = tl.zeros([R, MP], dt)
+    a5 = tl.zeros([R, MP], dt)
+    b0 = tl.zeros([R, MP], dt)
+    b1 = tl.zeros([R, MP], dt)
+    for t in range(tiles):
+        tile = pid * tiles + t
+        offs = _tile(tile, T, V)
+        mask = offs < n
+        xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+        d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+        gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+        x = xp + stp * d
+        # the body sees the [T // W, W] view of the tile
+        fe, g = body(tl.reshape(x, [T // W, W]), tl.reshape(offs, [T // W, W]))
+        fe = tl.reshape(fe, [R, V])
+        g = tl.reshape(g, [R, V])
+        # the objective: one partial per tile, as the JAX kernel's fxp
+        tl.store(fx_ptr + tile, tl.sum(tl.sum(tl.where(mask, fe, 0.0), axis=1), axis=0))
+        g = tl.where(mask, g, 0.0)
+        # the correction pair (s = stp*d exactly on the projection-free
+        # path, src/core.rs:155-164) and the two-loop's steepest direction
+        s = stp * d
+        y = g - gp
+        d0 = -g
+        a_gd += _fold(g * d)
+        a_gg += _fold(g * g)
+        a_xx += _fold(x * x)
+        a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
+        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y,
+                                                    d0, gp, a0, a1, a2, a3, a4, a5, b0, b1,
+                                                    M, MP, WITH_GP)
+        tl.store(x_ptr + offs, x, mask=mask)
+        tl.store(g_ptr + offs, g, mask=mask)
+    part = part_ptr + pid * (4 + 6 * M)
+    tl.store(part + 0, tl.sum(a_gd, axis=0))
+    tl.store(part + 1, tl.sum(a_gg, axis=0))
+    tl.store(part + 2, tl.sum(a_xx, axis=0))
+    tl.store(part + 3, tl.sum(a_ch, axis=0))
+    _store_gram(part + 4, a0, a1, a2, a3, a4, a5, M, MP)
+    if WITH_GP:
+        _store_gp(gpart_ptr + pid * (2 * M), b0, b1, M, MP)
 
 
 @triton.jit(do_not_specialize=["lo", "hi"])
@@ -352,68 +473,78 @@ def owlqn_probe_kernel(xp_ptr, d_ptr, w_ptr, stp_ptr, part_ptr, n, lo, hi,
     _store_ow_probe(part_ptr, fe, x, g, d, mask, in_win)
 
 
-@triton.jit(do_not_specialize=["end", "lo", "hi"])
+@triton.jit(do_not_specialize=["end", "lo", "hi", "tiles"])
 def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
                                  x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr,
-                                 n, lo, hi, end, body: tl.constexpr, M: tl.constexpr,
-                                 ROWS: tl.constexpr, W: tl.constexpr,
-                                 WITH_GP: tl.constexpr):
-    offs = _offsets(ROWS, W)
-    mask = offs < n
+                                 n, lo, hi, end, tiles, body: tl.constexpr, M: tl.constexpr,
+                                 MP: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
+                                 W: tl.constexpr, WITH_GP: tl.constexpr):
+    pid = tl.program_id(0)
+    dt = xp_ptr.dtype.element_ty
     stp = tl.load(stp_ptr)
     c = tl.load(c_ptr)
-    xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
-    d = tl.load(d_ptr + offs, mask=mask, other=0.0)
-    gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
-    pgo = tl.load(pg_ptr + offs, mask=mask, other=0.0)
-    in_win = (offs >= lo) & (offs < hi)
-    # orthant from the previous point's (x, pg): the search's choose_orthant
-    wp_sign = tl.where(xp == 0.0, _msign(-pgo), _msign(xp))
-    x = _ow_point(xp, d, stp, wp_sign, in_win)
-    fe, g = body(x, offs)
-    # pseudo-gradient at the new point (Andrew & Gao Eq. 4)
-    right = g + c
-    left = g - c
-    at_zero = tl.where(right < 0.0, right, tl.where(left > 0.0, left, 0.0))
-    inside = tl.where(x != 0.0, g + _sign(x) * c, at_zero)
-    pg = tl.where(in_win, inside, g)
-    # the pair of the PROJECTED step and the two-loop's d0 = -pg
-    s = x - xp
-    y = g - gp
-    d0 = -pg
-    part = part_ptr + tl.program_id(0) * (3 + 6 * M)
-    tl.store(part + 0, _block_sum(x * x, mask))
-    tl.store(part + 1, _block_sum(pg * pg, mask))
-    tl.store(part + 2, _block_sum(tl.where(x != xp, 1.0, 0.0).to(x.dtype), mask))
-    gpart = gpart_ptr + tl.program_id(0) * (2 + 2 * M)
-    if WITH_GP:
-        # the damped reconstruction's gp.gp and gp.pg: under OWL-QN the
-        # carried norm is ||pg_prev||^2, and gp is gone after an in-place
-        # pass, so both come from here
-        tl.store(gpart + 0, _block_sum(gp * gp, mask))
-        tl.store(gpart + 1, _block_sum(gp * pg, mask))
-    s_row = S_ptr + offs
-    y_row = Y_ptr + offs
-    for j in tl.static_range(M):
-        is_end = end == j
-        Sj = tl.load(s_row, mask=mask & (end != j), other=0.0).to(x.dtype)
-        Yj = tl.load(y_row, mask=mask & (end != j), other=0.0).to(x.dtype)
-        Sj = tl.where(is_end, s, Sj)
-        Yj = tl.where(is_end, y, Yj)
-        pj = part + 3 + 6 * j
-        tl.store(pj + 0, _block_sum(Sj * y, mask))
-        tl.store(pj + 1, _block_sum(Sj * s, mask))
-        tl.store(pj + 2, _block_sum(Sj * d0, mask))
-        tl.store(pj + 3, _block_sum(Yj * y, mask))
-        tl.store(pj + 4, _block_sum(Yj * s, mask))
-        tl.store(pj + 5, _block_sum(Yj * d0, mask))
+    R: tl.constexpr = T // V
+    a_xx = tl.zeros([R], dt)
+    a_pp = tl.zeros([R], dt)
+    a_ch = tl.zeros([R], dt)
+    a_gg = tl.zeros([R], dt)
+    a_gpg = tl.zeros([R], dt)
+    a0 = tl.zeros([R, MP], dt)
+    a1 = tl.zeros([R, MP], dt)
+    a2 = tl.zeros([R, MP], dt)
+    a3 = tl.zeros([R, MP], dt)
+    a4 = tl.zeros([R, MP], dt)
+    a5 = tl.zeros([R, MP], dt)
+    b0 = tl.zeros([R, MP], dt)
+    b1 = tl.zeros([R, MP], dt)
+    for t in range(tiles):
+        offs = _tile(pid * tiles + t, T, V)
+        mask = offs < n
+        # every element is loaded before it is stored, and no element reads
+        # another's: x, g and pg may alias xp, gp and pg_old
+        xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+        d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+        gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+        pgo = tl.load(pg_ptr + offs, mask=mask, other=0.0)
+        in_win = (offs >= lo) & (offs < hi)
+        # orthant from the previous point's (x, pg): the search's choose_orthant
+        wp_sign = tl.where(xp == 0.0, _msign(-pgo), _msign(xp))
+        x = _ow_point(xp, d, stp, wp_sign, in_win)
+        _, g = body(tl.reshape(x, [T // W, W]), tl.reshape(offs, [T // W, W]))
+        g = tl.reshape(g, [R, V])
+        g = tl.where(mask, g, 0.0)
+        # pseudo-gradient at the new point (Andrew & Gao Eq. 4)
+        right = g + c
+        left = g - c
+        at_zero = tl.where(right < 0.0, right, tl.where(left > 0.0, left, 0.0))
+        inside = tl.where(x != 0.0, g + _sign(x) * c, at_zero)
+        pg = tl.where(in_win, inside, g)
+        # the pair of the PROJECTED step and the two-loop's d0 = -pg
+        s = x - xp
+        y = g - gp
+        d0 = -pg
+        a_xx += _fold(x * x)
+        a_pp += _fold(pg * pg)
+        a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
         if WITH_GP:
-            tl.store(gpart + 2 + 2 * j, _block_sum(Sj * gp, mask))
-            tl.store(gpart + 3 + 2 * j, _block_sum(Yj * gp, mask))
-        tl.store(s_row, s.to(s_row.dtype.element_ty), mask=mask & is_end)
-        tl.store(y_row, y.to(y_row.dtype.element_ty), mask=mask & is_end)
-        s_row += n
-        y_row += n
-    tl.store(x_ptr + offs, x, mask=mask)
-    tl.store(g_ptr + offs, g, mask=mask)
-    tl.store(pgn_ptr + offs, pg, mask=mask)
+            # the damped reconstruction's gp.gp and gp.pg: under OWL-QN the
+            # carried norm is ||pg_prev||^2, and gp is gone after an
+            # in-place pass, so both come from here
+            a_gg += _fold(gp * gp)
+            a_gpg += _fold(gp * pg)
+        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y,
+                                                    d0, gp, a0, a1, a2, a3, a4, a5, b0, b1,
+                                                    M, MP, WITH_GP)
+        tl.store(x_ptr + offs, x, mask=mask)
+        tl.store(g_ptr + offs, g, mask=mask)
+        tl.store(pgn_ptr + offs, pg, mask=mask)
+    part = part_ptr + pid * (3 + 6 * M)
+    tl.store(part + 0, tl.sum(a_xx, axis=0))
+    tl.store(part + 1, tl.sum(a_pp, axis=0))
+    tl.store(part + 2, tl.sum(a_ch, axis=0))
+    _store_gram(part + 3, a0, a1, a2, a3, a4, a5, M, MP)
+    if WITH_GP:
+        gpart = gpart_ptr + pid * (2 + 2 * M)
+        tl.store(gpart + 0, tl.sum(a_gg, axis=0))
+        tl.store(gpart + 1, tl.sum(a_gpg, axis=0))
+        _store_gp(gpart + 2, b0, b1, M, MP)

@@ -85,6 +85,73 @@ NUM_WARPS = 4
 LAUNCH = dict(num_warps=NUM_WARPS, enable_fp_fusion=False)
 
 
+#: the launch of the epilogues K4 and K14 per (vector, history) dtype pair:
+#: tiles of T elements (a power of two) addressed as [T // V, V], so each
+#: thread holds runs of V consecutive elements; each program loops over
+#: ``tiles`` consecutive tiles and keeps its sums in registers across them
+#: (``epilogue_grid``).  Chosen on an NVIDIA H100 80GB HBM3 at its 700 W
+#: limit with ``tools/tune_epilogues.py`` and
+#: ``tools/screen_epilogue_launches.py`` (n = 2^24, m = 6): f32/bf16 at T =
+#: 512, V = 4, 4 warps, 1 stage, 32 programs per SM took K4 0.2805 ms, ·gp
+#: 0.3302, K14 0.3254, ·gp 0.3947 with 124-148 registers and no spill, and
+#: every n = 2^24 path of chip_smoke.py ended as it must.  V = 8 (16-byte
+#: bf16 loads; 168-216 registers) ran 0.2709 / 0.3282 / 0.3339 / 0.3950 at
+#: 32 programs per SM, and 0.2614-0.2708 / 0.2873-0.3059 / 0.3388-0.3393 /
+#: 0.3708-0.3710 at 8, but under every V = 8 launch screened an epsilon-0
+#: path ended in "x not changed" or the damped plain-versions check parted,
+#: as under 4 of the 5 V = 4 launches screened (PERF.md, PR 6).  Float64
+#: sums (0.305 / 0.385 / 0.430 / 0.393) were slower and parted the main
+#: path.  f32/f32 and f64 take the widest V that spills nothing.
+EPILOGUE = {
+    (torch.float32, torch.bfloat16): dict(T=512, V=4, num_warps=4, num_stages=1),
+    (torch.float32, torch.float32): dict(T=512, V=4, num_warps=4, num_stages=1),
+    (torch.float64, torch.float64): dict(T=256, V=2, num_warps=4, num_stages=1),
+}
+#: most programs an epilogue launches: 32 on each of the H100's 132 SMs
+EPILOGUE_PROGRAMS = 32 * 132
+
+
+def epilogue_grid(n: int, vdtype: torch.dtype, hdtype: torch.dtype) -> SimpleNamespace:
+    """The launch of K4 and K14 at n elements of ``vdtype`` vectors with a
+    ``hdtype`` history: the tile T and the run V of consecutive elements a
+    thread holds, the tiles of T elements that cover n, the tiles each
+    program loops over and the program count (at most
+    ``EPILOGUE_PROGRAMS``; fewer, with one tile each, for a small n).  The
+    last program's tiles may run past n: they are masked, and their
+    objective partials are 0."""
+    cfg = EPILOGUE[(vdtype, hdtype)]
+    ntiles = -(-n // cfg["T"])
+    tiles = -(-ntiles // EPILOGUE_PROGRAMS)
+    programs = -(-ntiles // tiles)
+    return SimpleNamespace(**cfg, ntiles=ntiles, tiles=tiles, programs=programs)
+
+
+def epilogue_partials(grid: SimpleNamespace, m: int, owlqn: bool, with_gp: bool) -> dict:
+    """The shapes of an epilogue's partials: the objective's (K4 only), one
+    per tile of every program; the program's sums ([programs, 4 + 6m] for
+    K4: g.d, g.g, x.x, changed, then the six products of each ring row;
+    [programs, 3 + 6m] for K14: x.x, pg.pg, changed, then the products);
+    with ``with_gp`` the . gp column's ([programs, 2m] for K4, [programs,
+    2 + 2m] for K14 with gp.gp, gp.pg first)."""
+    out = {} if owlqn else {"fx": (grid.programs * grid.tiles,)}
+    out["part"] = (grid.programs, (3 if owlqn else 4) + 6 * m)
+    if with_gp:
+        out["gpart"] = (grid.programs, (2 if owlqn else 0) + 2 * m)
+    return out
+
+
+def _epilogue_buffers(x: torch.Tensor, eg: SimpleNamespace, m: int, owlqn: bool,
+                      with_gp: bool) -> dict:
+    """An epilogue's partials on x's device, in the vectors' dtype."""
+    return {k: torch.empty(v, dtype=x.dtype, device=x.device)
+            for k, v in epilogue_partials(eg, m, owlqn, with_gp).items()}
+
+
+def _rows(m: int) -> int:
+    """m rounded up to a power of two: the ring tile's row count."""
+    return 1 << (m - 1).bit_length()
+
+
 def _kernels():
     _build.import_triton()
     from . import _factory_triton
@@ -106,6 +173,18 @@ def _fx(part: torch.Tensor, tot: torch.Tensor) -> torch.Tensor:
     """The objective from column 0 of a kernel's partials: summed in
     float64 under the wide mode, else the column's fixed-order sum."""
     return fused.obj_reduce(part[:, 0]) if fused.wide(part.dtype) else tot[0]
+
+
+def _fx_tiles(fxp: torch.Tensor) -> torch.Tensor:
+    """The objective from an epilogue's per-tile partials: summed in
+    float64 under the wide mode, else their fixed-order sum."""
+    return fused.obj_reduce(fxp) if fused.wide(fxp.dtype) else fused.reduce_partials(fxp)
+
+
+def _epilogue_launch(eg: SimpleNamespace) -> dict:
+    """Launch options of K4 and K14: ``LAUNCH``'s, with the warps and
+    pipeline stages of ``EPILOGUE``."""
+    return dict(LAUNCH, num_warps=eg.num_warps, num_stages=eg.num_stages)
 
 
 def _ow_probe_scalars(part: torch.Tensor, c: float) -> tuple:
@@ -132,8 +211,8 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
       row: width of the rows the body couples elements in.
       validate: optional ``validate(n)`` raising on unsupported sizes.
     """
-    if BLOCK % row:
-        raise ValueError(f"row={row} must divide the block of {BLOCK}")
+    if BLOCK % row or any(cfg["T"] % row for cfg in EPILOGUE.values()):
+        raise ValueError(f"row={row} must divide the block of {BLOCK} and the epilogues' tiles")
     rows = BLOCK // row
 
     def _check(x: torch.Tensor) -> None:
@@ -240,24 +319,25 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
             return trial_pair_gram_ref(xp, d, gp, stp, S, Y, end, inplace, with_gp)
         fused.check_contiguous("trial_pair_gram", xp, d, gp, S, Y)
         m, n = S.shape
-        grid = _grid(n)
+        eg = epilogue_grid(n, xp.dtype, S.dtype)
         x = xp if inplace else torch.empty_like(xp)
         g = gp if inplace else torch.empty_like(gp)
-        part = torch.empty((grid[0], 5 + 6 * m), dtype=xp.dtype, device=xp.device)
-        gpart = torch.empty((grid[0], 2 * m), dtype=xp.dtype, device=xp.device) \
-            if with_gp else part
-        _kernels().trial_pair_gram_kernel[grid](
-            xp, d, gp, _scalar(stp, xp), x, g, S, Y, part, gpart, n, int(end),
-            body=block_fn(), M=m, ROWS=rows, W=row, WITH_GP=bool(with_gp), **LAUNCH,
-        )
+        bufs = _epilogue_buffers(xp, eg, m, False, with_gp)
+        part = bufs["part"]
+        trial_pair_gram.compiled[(xp.dtype, S.dtype, bool(with_gp))] = \
+            _kernels().trial_pair_gram_kernel[(eg.programs,)](
+                xp, d, gp, _scalar(stp, xp), x, g, S, Y, bufs["fx"], part,
+                bufs.get("gpart", part), n, int(end), eg.tiles, body=block_fn(), M=m,
+                MP=_rows(m), T=eg.T, V=eg.V, W=row, WITH_GP=bool(with_gp),
+                **_epilogue_launch(eg))
         trial_pair_gram.launches += 1
         trial_pair_gram.gp_launches += bool(with_gp)
         tot = fused.reduce_partials(part)
-        P = tot[5:].reshape(m, 6)
+        P = tot[4:].reshape(m, 6)
         SP, YP = P[:, :3], P[:, 3:]
         if with_gp:
-            SP, YP = fused.append_gp(SP, YP, fused.reduce_partials(gpart))
-        return (x, _fx(part, tot), g, tot[1], tot[2], tot[3], tot[4] > 0, SP, YP)
+            SP, YP = fused.append_gp(SP, YP, fused.reduce_partials(bufs["gpart"]))
+        return (x, _fx_tiles(bufs["fx"]), g, tot[0], tot[1], tot[2], tot[3] > 0, SP, YP)
 
     def trial_pair_gram_ok(xp, S) -> bool:
         # shape and dtype only: a size the objective rejects raises inside
@@ -397,18 +477,19 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
         fused.check_contiguous("owlqn_trial_pair_gram", xp, d, gp, pg, S, Y)
         m, n = S.shape
         lo, hi = _window(n, start, end_w)
-        grid = _grid(n)
+        eg = epilogue_grid(n, xp.dtype, S.dtype)
         x = xp if inplace else torch.empty_like(xp)
         g = gp if inplace else torch.empty_like(gp)
         pg_new = pg if inplace else torch.empty_like(pg)
-        part = torch.empty((grid[0], 3 + 6 * m), dtype=xp.dtype, device=xp.device)
-        gpart = torch.empty((grid[0], 2 + 2 * m), dtype=xp.dtype, device=xp.device) \
-            if with_gp else part
-        _kernels().owlqn_trial_pair_gram_kernel[grid](
-            xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new, S, Y,
-            part, gpart, n, lo, hi, int(end), body=block_fn(), M=m, ROWS=rows, W=row,
-            WITH_GP=bool(with_gp), **LAUNCH,
-        )
+        bufs = _epilogue_buffers(xp, eg, m, True, with_gp)
+        part = bufs["part"]
+        gpart = bufs.get("gpart", part)
+        owlqn_trial_pair_gram.compiled[(xp.dtype, S.dtype, bool(with_gp))] = \
+            _kernels().owlqn_trial_pair_gram_kernel[(eg.programs,)](
+                xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new, S, Y,
+                part, gpart, n, lo, hi, int(end), eg.tiles, body=block_fn(), M=m,
+                MP=_rows(m), T=eg.T, V=eg.V, W=row, WITH_GP=bool(with_gp),
+                **_epilogue_launch(eg))
         owlqn_trial_pair_gram.launches += 1
         owlqn_trial_pair_gram.gp_launches += bool(with_gp)
         tot = fused.reduce_partials(part)
@@ -520,6 +601,9 @@ def make_fused_objective(block_fn, value_and_grad, *, row: int = 1,
     # the . gp (damped) specialisations of K4 and K14 and K15's damped-row
     # form, counted apart too
     trial_pair_gram.gp_launches = owlqn_trial_pair_gram.gp_launches = 0
+    # the epilogues' last compiled Triton kernel per (vector dtype, history
+    # dtype, with_gp): its registers, spills and PTX
+    trial_pair_gram.compiled, owlqn_trial_pair_gram.compiled = {}, {}
     combine_probe.fix_launches = 0
     for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_trial_ref, owlqn_probe_ref,
                owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref, combine_probe_ref,

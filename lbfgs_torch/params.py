@@ -4,9 +4,9 @@ The reference's builder pattern (``LbfgsParam`` ``src/lbfgs.rs:72-177``
 and the 15 ``with_*`` setters ``src/lbfgs.rs:194-383``; ``LineSearch``
 params ``src/line.rs:91-163``), field for field the same as
 ``lbfgs_tpu.params``.  Some fields select features this package does not
-run yet (the scan two-loop; speculation; the adaptive entry step);
-``solver.init_state`` raises ``NotImplementedError`` naming them.
-Damping, damping_fixed, gradient_only and fx_wide run, plain and under
+run yet (the scan two-loop; speculation); ``solver.init_state`` raises
+``NotImplementedError`` naming them.  Damping, damping_fixed,
+gradient_only, fx_wide and the adaptive entry step run, plain and under
 OWL-QN.
 
 Defaults are the reference defaults, including the documented quirks:

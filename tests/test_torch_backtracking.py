@@ -123,6 +123,30 @@ def test_backtracking_exits_are_the_reference_codes():
 
 
 @pytest.mark.parametrize("algorithm", LADDERS)
+def test_exhaustion_returns_max_linesearch(algorithm):
+    """tests/test_linesearch.py:161-179 for the port, on every ladder: f =
+    sum x^2 searched from x = 1 along the ascent direction d = 1 at the
+    default settings.  No trial passes the Armijo test, so the loop runs
+    max_linesearch - 1 trials and then succeeds with ncall =
+    max_linesearch (src/line.rs:739, :781-783), as the JAX package does."""
+    t_fn = lambda x: (torch.sum(x ** 2), 2.0 * x)
+    j_fn = lambda x: (jnp.sum(x ** 2), 2.0 * x)
+    xp, d = np.ones(1), np.ones(1)
+    fx, g = j_fn(jnp.asarray(xp))
+    ls_t, ls_j = TLS(algorithm=algorithm), JLS(algorithm=algorithm)
+    tr = tls.backtracking(TDef(t_fn), ls_t, torch.from_numpy(xp), F(fx),
+                          torch.from_numpy(np.array(g)), torch.from_numpy(d), F(1.0),
+                          F(np.dot(np.asarray(g), d)), 1)
+    jr = jls.backtracking(JDef(value_and_grad=j_fn), ls_j, jnp.asarray(xp), fx, g,
+                          jnp.asarray(d), jnp.float64(1.0), jnp.dot(g, jnp.asarray(d)),
+                          jnp.int32(1), jnp.asarray(xp))
+    assert tr.status == int(jr.status) == 0
+    assert tr.ncall == int(jr.ncall) == ls_t.max_linesearch
+    assert tr.neval == int(jr.neval) == 1 + ls_t.max_linesearch - 1
+    assert tr.step == float(jr.step) and tr.step_eval == float(jr.step_eval)
+
+
+@pytest.mark.parametrize("algorithm", LADDERS)
 @pytest.mark.parametrize("seed", [0, 1])
 def test_rosenbrock_search_matches_jax(algorithm, seed):
     """Searches through the fused probes (remat, then one materializing

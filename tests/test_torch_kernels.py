@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
 from lbfgs_torch.models import rosenbrock as t_rosen
+from lbfgs_torch.ops import factory as t_factory
 from lbfgs_torch.ops import fused as t_fused
 from lbfgs_torch.orthantwise import Orthantwise, choose_orthant
 from lbfgs_tpu.models import rosenbrock as j_rosen
@@ -506,3 +507,131 @@ def test_kernel_matches_plain_on_card(cuda, data, kernel):
             assert bool(a) == bool(b)
         else:
             _cuda_close(a, b, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The epilogues' launch (K4, K14): programs that loop over tiles
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.bfloat16),
+                                    (torch.float32, torch.float32),
+                                    (torch.float64, torch.float64)], ids=str)
+@pytest.mark.parametrize("n", [100, 3_000_002, 1 << 24])
+def test_epilogue_grid_covers_n_once(n, dtypes):
+    """The tiles of T elements cover n; each program takes ``tiles`` of
+    them, the last program's last tiles may lie past n (masked), and no
+    program is left without one.  A small n takes one tile per program,
+    fewer programs than the card has SMs."""
+    eg = t_factory.epilogue_grid(n, *dtypes)
+    cfg = t_factory.EPILOGUE[dtypes]
+    assert (eg.T, eg.V, eg.num_warps) == (cfg["T"], cfg["V"], cfg["num_warps"])
+    # whole runs of V per thread, rows of the body's W = 2 inside them
+    assert eg.T % (32 * eg.num_warps * eg.V) == 0 and eg.V % 2 == 0
+    assert eg.ntiles == -(-n // eg.T)
+    assert (eg.ntiles - 1) * eg.T < n <= eg.ntiles * eg.T
+    assert (eg.programs - 1) * eg.tiles < eg.ntiles <= eg.programs * eg.tiles
+    assert eg.programs <= t_factory.EPILOGUE_PROGRAMS
+    if n == 100:
+        assert (eg.programs, eg.tiles) == (1, 1) and eg.programs < 132
+    if n == 3_000_002 and dtypes[1] == torch.bfloat16:
+        # several tiles per program, the last real tile partial
+        assert eg.tiles > 1 and n % eg.T
+    if n == 1 << 24 and dtypes[1] == torch.bfloat16:
+        assert eg.programs * eg.tiles == eg.ntiles == n // eg.T
+
+
+@pytest.mark.parametrize("with_gp", [False, True])
+@pytest.mark.parametrize("owlqn", [False, True])
+@pytest.mark.parametrize("n", [100, 3_000_002, 1 << 24])
+def test_epilogue_partials_shapes(n, owlqn, with_gp):
+    """K4: one objective partial per tile of every program, [programs, 4 +
+    6m] sums, [programs, 2m] for the . gp column; K14: [programs, 3 + 6m]
+    and [programs, 2 + 2m] (gp.gp, gp.pg first), no objective column."""
+    eg = t_factory.epilogue_grid(n, torch.float32, torch.bfloat16)
+    shapes = t_factory.epilogue_partials(eg, M, owlqn, with_gp)
+    want = {"part": (eg.programs, (3 if owlqn else 4) + 6 * M)}
+    if not owlqn:
+        want["fx"] = (eg.programs * eg.tiles,)
+    if with_gp:
+        want["gpart"] = (eg.programs, (2 if owlqn else 0) + 2 * M)
+    assert shapes == want
+
+
+def test_ring_rows_round_up_to_a_power_of_two():
+    assert [t_factory._rows(m) for m in (1, 2, 3, 5, 6, 8, 9, 64)] == [1, 2, 4, 8, 8, 8, 16, 64]
+
+
+@pytest.fixture(scope="module")
+def ragged():
+    """Inputs at n = 3,000,002 (several tiles per epilogue program, the
+    last tile partial), made with numpy."""
+    n = 3_000_002
+    rng = np.random.default_rng(11)
+    x0 = np.where(np.arange(n) % 2 == 0, -1.2, 1.0)
+    f32 = lambda a: a.astype(np.float32)
+    return dict(
+        n=n, xp=f32(x0 + 0.1 * rng.standard_normal(n)), d=f32(0.1 * rng.standard_normal(n)),
+        gp=f32(rng.standard_normal(n)), S=f32(rng.standard_normal((M, n))),
+        Y=f32(rng.standard_normal((M, n))),
+        xp0=f32(np.where(np.arange(n) % 17 == 0, 0.0, x0 + 0.1 * rng.standard_normal(n))),
+        pg=f32(rng.standard_normal(n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["trial_pair_gram", "owlqn_trial_pair_gram"])
+def test_epilogue_spanning_tiles_on_card(cuda, ragged, kernel):
+    """K4 and K14, both forms, at a ragged n with several tiles per
+    program: the ring rows bit for bit, the . gp form's outputs bit for
+    bit the 3-column form's, the sums against the plain version."""
+    n = ragged["n"]
+    g = lambda k, dt=torch.float32: _t(ragged[k], dt).to(cuda)
+    S0, Y0 = g("S", torch.bfloat16), g("Y", torch.bfloat16)
+    if kernel == "trial_pair_gram":
+        args = (g("xp"), g("d"), g("gp"), STP)
+    else:
+        args = (g("xp0"), g("d"), g("gp"), g("pg"), STP, C, 3 * 1024 + 5, n - 7 * 1024 - 3)
+    fn, ref = getattr(t_rosen, kernel), getattr(t_rosen, kernel + "_ref")
+    runs = {}
+    for with_gp in (False, True):
+        S, Y, S2, Y2 = S0.clone(), Y0.clone(), S0.clone(), Y0.clone()
+        k = fn(*args, S, Y, END, with_gp=with_gp)
+        p = ref(*args, S2, Y2, END, with_gp=with_gp)
+        if kernel == "trial_pair_gram":
+            s, y = STP * args[1], k[2] - args[2]
+        else:
+            s, y = k[0] - args[0], k[1] - args[2]
+        keep = [j for j in range(M) if j != END]
+        assert _same_bits(S[END], s.to(S.dtype)) and _same_bits(Y[END], y.to(Y.dtype))
+        assert _same_bits(S[keep], S0[keep]) and _same_bits(Y[keep], Y0[keep])
+        for a, b in zip(k, p):
+            if a.dtype == torch.bool:
+                assert bool(a) == bool(b)
+            else:
+                _cuda_close(a, b, 1e-4)
+        runs[with_gp] = (k, S, Y)
+    (base, S3, Y3), (ext, S4, Y4) = runs[False], runs[True]
+    assert _same_bits(S3, S4) and _same_bits(Y3, Y4)
+    for a, b in zip(base, ext):
+        b = b[:, :3].contiguous() if b.ndim == 2 else b
+        assert _same_bits(a.reshape(-1), b.reshape(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [torch.bfloat16, torch.float32])
+def test_fusions_direction_bit_for_bit_the_combines_on_card(cuda, data, hd):
+    """The CUDA combines round as the Triton fusions do: K15's r is K3's,
+    K15's fix form's r and ring row K6's, K16's rc K13's, bit for bit."""
+    xp, d, gp, S, Y, cs, cy = _cuda_inputs(data, cuda, hd)
+    xp0, pg = _t(data["xp0"]).to(cuda), _t(data["pg"]).to(cuda)
+    gamma, ca, cb = (torch.tensor(v, device=cuda) for v in (-0.8, 0.7, -0.2))
+    k15 = t_rosen.combine_probe(gp, xp, S, Y, gamma, cs, cy, 1.0)
+    k3 = t_fused.combine(gp, S, Y, gamma, cs, cy)
+    assert _same_bits(k15[0], k3[0])
+    Y15, Y6 = Y.clone(), Y.clone()
+    k15 = t_rosen.combine_probe(gp, xp, S, Y15, gamma, cs, cy, 1.0, fix=(END, ca, cb))
+    k6 = t_fused.combine_fix(gp, S, Y6, gamma, cs, cy, END, ca, cb)
+    assert _same_bits(k15[0], k6[0]) and _same_bits(Y15, Y6)
+    k16 = t_rosen.combine_ow_probe(pg, xp0, S, Y, gamma, cs, cy, C, LO, HI, 1.0)
+    k13 = t_fused.combine_ow(pg, S, Y, gamma, cs, cy, LO, HI)
+    assert _same_bits(k16[0], k13[0])

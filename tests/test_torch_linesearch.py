@@ -120,6 +120,34 @@ def test_negative_entry_step_is_fatal_before_any_evaluation():
     assert t_rosen.probe_ref.calls == calls
 
 
+@pytest.mark.parametrize("step", [0.0, -0.0], ids=["plus_zero", "minus_zero"])
+def test_zero_step_entry_validation_matches_jax(step):
+    """tests/test_round2_behaviors.py:34-45 for the port: the reference's
+    is_sign_positive() accepts +0.0, so a zero entry step passes the
+    search's entry validation (and the iteration ends otherwise); -0.0 is
+    the negative-step error.  The port's status is the JAX package's."""
+    from lbfgs_torch import LbfgsError as TError
+    from lbfgs_torch import lbfgs as t_lbfgs
+    from lbfgs_tpu import LbfgsError as JError
+    from lbfgs_tpu import lbfgs as j_lbfgs
+
+    codes = []
+    for build, err, x0 in (
+            (t_lbfgs, TError, t_rosen.initial_point(10, device="cpu")),
+            (j_lbfgs, JError, j_rosen.initial_point(10))):
+        st = build().build(x0, (t_rosen if build is t_lbfgs else j_rosen).value_and_grad)
+        st.propagate()  # k = 1 bookkeeping
+        st.state = st.state._replace(step=type(st.state.step)(step) if build is t_lbfgs
+                                     else jnp.asarray(step, st.state.step.dtype))
+        try:
+            st.propagate()
+            codes.append(int(st.state.status))
+        except err as e:
+            codes.append(int(e.status))
+    assert codes[0] == codes[1]
+    assert (codes[0] == 24) == (step == 0.0 and np.signbit(step))
+
+
 def test_float32_search_stays_in_float32():
     x = t_rosen.initial_point(64, torch.float32, device="cpu")
     fx, g = t_rosen._plain_value_and_grad(x)
