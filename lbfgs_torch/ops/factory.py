@@ -99,7 +99,7 @@ LAUNCH = dict(num_warps=NUM_WARPS, enable_fp_fusion=False)
 #: 32 programs per SM, and 0.2614-0.2708 / 0.2873-0.3059 / 0.3388-0.3393 /
 #: 0.3708-0.3710 at 8, but under every V = 8 launch screened an epsilon-0
 #: path ended in "x not changed" or the damped plain-versions check parted,
-#: as under 4 of the 5 V = 4 launches screened (PERF.md, PR 6).  Float64
+#: as under 4 of the 5 V = 4 launches screened (PERF.md, section 6).  Float64
 #: sums (0.305 / 0.385 / 0.430 / 0.393) were slower and parted the main
 #: path.  f32/f32 and f64 take the widest V that spills nothing.
 EPILOGUE = {
