@@ -125,6 +125,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -302,15 +303,15 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
                             b.reshape(-1).contiguous().view(torch.uint8)))
 
 
-def check_ring(name: str, S_out, Y_out, S_in, Y_in, s, y) -> None:
-    """K4's, K5's and K14's ring write, bit for bit: row END holds the pair
-    (s, y) rounded to the history dtype (round to nearest even), every
+def check_ring(name: str, S_out, Y_out, S_in, Y_in, s, y, end: int = END) -> None:
+    """K4's, K5's and K14's ring write, bit for bit: row ``end`` holds the
+    pair (s, y) rounded to the history dtype (round to nearest even), every
     other row is its input unchanged."""
-    keep = [j for j in range(S_in.shape[0]) if j != END]
+    keep = [j for j in range(S_in.shape[0]) if j != end]
     for ring, out, inp, new in (("S", S_out, S_in, s), ("Y", Y_out, Y_in, y)):
         want = new.to(out.dtype)
-        if not same_bits(out[END], want):
-            bad = int((out[END] != want).sum())
+        if not same_bits(out[end], want):
+            bad = int((out[end] != want).sum())
             raise AssertionError(f"{name}: {ring}[end] differs from the rounded "
                                  f"pair in {bad} elements")
         if not same_bits(out[keep], inp[keep]):
@@ -710,6 +711,7 @@ def phase_kernels() -> dict:
          event_ms={k: {"kernel": v[0], "plain": v[1]} for k, v in walls.items()},
          library_ms=library, k15_replaces_k3_plus_k2=k3_k2)
     epilogue_compiled()
+    pair_gram_compiled()
     del a, S, Y, Yf, x9, xn
     torch.cuda.empty_cache()
     return {"errs": errs, "times": times, "bounds": bounds, "library": library}
@@ -738,6 +740,56 @@ def epilogue_compiled() -> None:
     spilled = [f for f in forms if f["n_spills"]]
     if spilled:
         raise AssertionError(f"K4/K14 forms spill registers: {spilled}")
+
+
+#: K5's instantiations in ptxas's mangled names: vector and history type
+#: (f float, d double, 13__nv_bfloat16), ring rows MP, the . gp column
+K5_KERNEL = re.compile(r"pair_gram_sd_kernelI([fd])(13__nv_bfloat16|[fd])Li(\d+)ELb([01])E")
+K5_TYPES = {"f": "float32", "d": "float64", "13__nv_bfloat16": "bfloat16"}
+
+
+def ptxas_kernels(log: str) -> dict:
+    """kernel (mangled name): registers, shared memory and spill bytes, from
+    the ``-Xptxas=-v`` lines of the build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        if m := re.search(r"Used (\d+) registers", line):
+            out[name]["n_regs"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def pair_gram_compiled() -> list:
+    """Registers, shared memory and spills of every K5 instantiation (three
+    dtype pairs, six row counts, with and without the . gp column) from
+    the build log; a form that spills, or a log that does not show all 36,
+    fails the phase."""
+    forms = []
+    for name, info in ptxas_kernels(_build.build_log()).items():
+        m = K5_KERNEL.search(name)
+        if m:
+            forms.append(dict(vectors=K5_TYPES[m.group(1)], history=K5_TYPES[m.group(2)],
+                              rows=int(m.group(3)), with_gp=m.group(4) == "1", **info))
+    forms.sort(key=lambda f: (f["vectors"], f["history"], f["rows"], f["with_gp"]))
+    emit(phase="pair_gram_compiled", launch={"/".join(str(t).removeprefix("torch.") for t in k): v
+                                             for k, v in fused.PAIR_GRAM.items()},
+         blocks_max=fused.PAIR_GRAM_BLOCKS, forms=forms)
+    if len(forms) != 36 or any("n_regs" not in f or "spill_stores" not in f for f in forms):
+        raise AssertionError(f"K5: the build log shows {len(forms)} of 36 instantiations")
+    spilled = [f for f in forms if f["spill_stores"] or f["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"K5 instantiations spill registers: {spilled}")
+    return forms
 
 
 def check_fusions(errs: dict, a: dict, n: int, tag: str, tv: float, ts: float) -> None:
@@ -934,25 +986,41 @@ def check_composed(errs: dict, a: dict, lo: int, hi: int, tag: str, tv: float,
     _fold(errs, "K9_owlqn_trial_step", (0.0, 0.0))
 
 
-def check_k5_k6(errs: dict, a: dict, tag: str, tv: float, ts: float) -> None:
-    """K5 (3 and 4 columns) and K6 against their plain versions: K5's ring
-    write bit for bit (row END the rounded (STP*d, gx - gp), gx here the
-    random pg), its 4-column launch's columns 0-2 and rings bit for bit
-    the 3-column launch's; K6's fixed row round(ca*Y[END] + cb*g) bit for
-    bit the plain version's, the other rows untouched."""
-    d, gx, gp, S, Y = a["d"], a["pg"], a["gp"], a["S"], a["Y"]
+#: K5's ring depths and new rows in the kernel checks: the main path's,
+#: the north star's, and one that takes two groups of ring rows with the
+#: new row in the second
+K5_RINGS = ((M, END), (3, END), (2 * M, END + M))
+
+
+def check_k5(errs: dict, tag: str, ts: float, d, gx, gp, S, Y, end: int) -> None:
+    """K5 (3 and 4 columns) against its plain version: the ring write bit
+    for bit (row ``end`` the rounded (STP*d, gx - gp)), the 4-column
+    launch's columns 0-2 and rings bit for bit the 3-column launch's, the
+    sums at the sum tolerance."""
     S3, Y3, S4, Y4, Sp, Yp = (S.clone(), Y.clone(), S.clone(), Y.clone(), S.clone(),
                               Y.clone())
-    k3 = fused.pair_gram_sd(STP, d, gx, gp, S3, Y3, END)
-    k4 = fused.pair_gram_sd(STP, d, gx, gp, S4, Y4, END, with_gp=True)
-    p4 = fused.pair_gram_sd_ref(STP, d, gx, gp, Sp, Yp, END, with_gp=True)
-    check_ring(f"K5 kernel {tag}", S3, Y3, S, Y, STP * d, gx - gp)
-    check_ring(f"K5 plain {tag}", Sp, Yp, S, Y, STP * d, gx - gp)
+    k3 = fused.pair_gram_sd(STP, d, gx, gp, S3, Y3, end)
+    k4 = fused.pair_gram_sd(STP, d, gx, gp, S4, Y4, end, with_gp=True)
+    p4 = fused.pair_gram_sd_ref(STP, d, gx, gp, Sp, Yp, end, with_gp=True)
+    check_ring(f"K5 kernel {tag}", S3, Y3, S, Y, STP * d, gx - gp, end)
+    check_ring(f"K5 plain {tag}", Sp, Yp, S, Y, STP * d, gx - gp, end)
     check_extends(f"K5 4 columns {tag}", k3, k4, (0, 1))
     if not (same_bits(S4, S3) and same_bits(Y4, Y3)):
         raise AssertionError(f"K5's two forms wrote different rings {tag}")
     _fold(errs, "K5_pair_gram", *(check(f"K5 {tag} {i}", k4[i], p4[i], ts) for i in (0, 1)))
-    del S3, Y3, S4, Y4, Sp, Yp
+
+
+def check_k5_k6(errs: dict, a: dict, tag: str, tv: float, ts: float) -> None:
+    """K5 at each depth of ``K5_RINGS`` (``check_k5``; gx here the random
+    pg) and K6 against their plain versions: K6's fixed row round(ca*Y[END]
+    + cb*g) bit for bit the plain version's, the other rows untouched."""
+    d, gx, gp, S, Y = a["d"], a["pg"], a["gp"], a["S"], a["Y"]
+    for m, end in K5_RINGS:
+        # rings of m rows from the inputs' M
+        Sm = torch.cat([S, Y])[:m] if m > M else S[:m]
+        Ym = torch.cat([Y, S])[:m] if m > M else Y[:m]
+        check_k5(errs, f"{tag} m={m}", ts, d, gx, gp, Sm.contiguous(), Ym.contiguous(), end)
+        del Sm, Ym
     ca, cb = (torch.tensor(v, dtype=d.dtype, device="cuda") for v in (0.7, -0.2))
     Yk, Yq = Y.clone(), Y.clone()
     k = fused.combine_fix(gp, S, Yk, a["gamma"], a["cs"], a["cy"], END, ca, cb)

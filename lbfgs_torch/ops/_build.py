@@ -49,7 +49,7 @@ _SIGNATURES = {
     **{
         f"lbfgs_pair_gram_{sfx}": (
             [ctypes.c_double, _P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, _P], ctypes.c_int)
+             ctypes.c_int, _LL, _LL, _LL, _P], ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{

@@ -51,6 +51,8 @@ accumulate in the vectors' dtype.  Any other combination raises.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from . import _build
@@ -67,7 +69,7 @@ SUPPORTED = {
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 #: largest history the combine kernel takes (its coefficients live in
-#: shared memory; ``csrc/combine.cu`` kMaxM)
+#: shared memory; ``csrc/combine.cu`` kMaxM), and K5 (``csrc/pair_gram.cu``)
 MAX_M = 64
 
 
@@ -568,6 +570,47 @@ def append_gp(SP, YP, G):
     return torch.cat([SP, G[:, :1]], dim=1), torch.cat([YP, G[:, 1:]], dim=1)
 
 
+#: K5's launch (``csrc/pair_gram.cu``): a tile of T elements, 256 threads
+#: each holding V consecutive ones (16 bytes of the vectors' dtype); each
+#: block loops over a run of tiles with its sums in registers
+#: (``pair_gram_grid``).  The tile is compiled into the kernel, which
+#: refuses another.
+PAIR_GRAM = {
+    (torch.float32, torch.bfloat16): dict(T=1024, V=4),
+    (torch.float32, torch.float32): dict(T=1024, V=4),
+    (torch.float64, torch.float64): dict(T=512, V=2),
+}
+#: most blocks K5 launches per group of ring rows: 2 on each of the H100's
+#: 132 SMs, the blocks it holds at once at the main path's shapes (chosen
+#: on an NVIDIA H100 80GB HBM3 at its 700 W limit with
+#: ``tools/tune_pair_gram.py``: 1 to 8 per SM ran the . gp form at n =
+#: 2^24, m = 6 in 0.209-0.258 ms, 2 and 4 fastest; PERF.md, section 6)
+PAIR_GRAM_BLOCKS = 2 * 132
+
+
+def pair_gram_grid(n: int, vdtype: torch.dtype, hdtype: torch.dtype) -> SimpleNamespace:
+    """K5's launch at n elements of ``vdtype`` vectors with a ``hdtype``
+    history: the tile T and the run V a thread holds, the tiles of T
+    elements that cover n, the tiles each block loops over and the block
+    count (at most ``PAIR_GRAM_BLOCKS``; fewer, with one tile each, for a
+    small n).  The last block's run may end early; the last tile's
+    elements past n are masked."""
+    cfg = PAIR_GRAM[(vdtype, hdtype)]
+    ntiles = -(-n // cfg["T"])
+    tiles = -(-ntiles // PAIR_GRAM_BLOCKS)
+    return SimpleNamespace(**cfg, ntiles=ntiles, tiles=tiles, blocks=-(-ntiles // tiles))
+
+
+def pair_gram_partials(grid: SimpleNamespace, m: int, with_gp: bool) -> dict:
+    """The shapes of K5's partials: [blocks, 6m], each block's six products
+    of every ring row, and with ``with_gp`` [blocks, 2m], its (S_j.gp,
+    Y_j.gp)."""
+    out = {"part": (grid.blocks, 6 * m)}
+    if with_gp:
+        out["gpart"] = (grid.blocks, 2 * m)
+    return out
+
+
 def pair_gram_sd_ref(stp, d, gx, gp, S, Y, end: int, with_gp: bool = False):
     """Plain version of ``pair_gram_sd``: ``pair_products`` of s = stp*d,
     y = gx - gp and d0 = -gx, whose products of row ``end`` see the
@@ -590,26 +633,30 @@ def pair_gram_sd(stp, d, gx, gp, S, Y, end: int, with_gp: bool = False):
     new row's products from the unrounded pair.  ``with_gp`` adds the
     damped update's basis column . gp ([m, 4]); columns 0-2 stay those of
     the 3-column launch bit for bit.  ``stp`` is a host scalar.  The
-    trial's ``changed`` count, not this pass, decides "x not changed"."""
+    trial's ``changed`` count, not this pass, decides "x not changed".
+    Takes 1 <= m <= ``MAX_M`` ring rows on either device."""
     end = _check_pair(d, gx, gp, S, Y, end)
+    m, n = S.shape
+    if m > MAX_M:
+        raise ValueError(f"pair_gram_sd: m = {m} exceeds {MAX_M}")
     if not on_cuda(d, "pair_gram_sd"):
         return pair_gram_sd_ref(stp, d, gx, gp, S, Y, end, with_gp)
-    m, n = S.shape
     check_contiguous("pair_gram_sd", d, gx, gp, S, Y)
     lib = _build.load_library()
-    blocks = -(-n // lib.lbfgs_pair_gram_block_elems())
-    part = torch.empty((blocks, 6 * m), dtype=d.dtype, device=d.device)
-    gpart = torch.empty((blocks, 2 * m), dtype=d.dtype, device=d.device) if with_gp \
-        else part
+    grid = pair_gram_grid(n, d.dtype, S.dtype)
+    bufs = {k: torch.empty(v, dtype=d.dtype, device=d.device)
+            for k, v in pair_gram_partials(grid, m, with_gp).items()}
+    part = bufs["part"]
     fn = getattr(lib, f"lbfgs_pair_gram_{_SUFFIX[d.dtype]}_{_SUFFIX[S.dtype]}")
     code = fn(float(stp), d.data_ptr(), gx.data_ptr(), gp.data_ptr(), S.data_ptr(),
-              Y.data_ptr(), part.data_ptr(), gpart.data_ptr(), n, m, end, int(with_gp),
+              Y.data_ptr(), part.data_ptr(), bufs.get("gpart", part).data_ptr(), n, m, end,
+              int(with_gp), grid.T, grid.tiles, grid.blocks,
               torch.cuda.current_stream(d.device).cuda_stream)
     _build.check_launch(code, "pair_gram_sd")
     pair_gram_sd.launches += 1
     P = reduce_partials(part).reshape(m, 6)
     if with_gp:
-        return append_gp(P[:, :3], P[:, 3:], reduce_partials(gpart))
+        return append_gp(P[:, :3], P[:, 3:], reduce_partials(bufs["gpart"]))
     return P[:, :3], P[:, 3:]
 
 

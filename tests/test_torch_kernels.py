@@ -635,3 +635,94 @@ def test_fusions_direction_bit_for_bit_the_combines_on_card(cuda, data, hd):
     k16 = t_rosen.combine_ow_probe(pg, xp0, S, Y, gamma, cs, cy, C, LO, HI, 1.0)
     k13 = t_fused.combine_ow(pg, S, Y, gamma, cs, cy, LO, HI)
     assert _same_bits(k16[0], k13[0])
+
+
+# ---------------------------------------------------------------------------
+# K5's launch: blocks that loop over tiles, sums in registers
+# ---------------------------------------------------------------------------
+
+DTYPE_PAIRS = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+               (torch.float64, torch.float64)]
+
+
+@pytest.mark.parametrize("dtypes", DTYPE_PAIRS, ids=str)
+@pytest.mark.parametrize("n", [100, 3_000_002, 1 << 24])
+def test_pair_gram_grid_covers_n_once(n, dtypes):
+    """K5's tiles cover n once, each block's run of tiles holds at least one
+    real tile, and no more than ``PAIR_GRAM_BLOCKS`` blocks launch; a
+    thread's run is one 16-byte load of the vectors' dtype."""
+    g = t_fused.pair_gram_grid(n, *dtypes)
+    cfg = t_fused.PAIR_GRAM[dtypes]
+    assert (g.T, g.V) == (cfg["T"], cfg["V"])
+    assert g.T == 256 * g.V and g.V * dtypes[0].itemsize == 16
+    assert (g.ntiles - 1) * g.T < n <= g.ntiles * g.T
+    assert (g.blocks - 1) * g.tiles < g.ntiles <= g.blocks * g.tiles
+    assert g.blocks <= t_fused.PAIR_GRAM_BLOCKS
+    if n == 100:
+        assert (g.blocks, g.tiles) == (1, 1)
+    if n == 3_000_002:
+        # several tiles per block, the last tile partial
+        assert g.tiles > 1 and n % g.T
+    if n == 1 << 24:
+        assert g.tiles > 1 and n % g.T == 0
+
+
+@pytest.mark.parametrize("with_gp", [False, True])
+@pytest.mark.parametrize("m", [1, 3, 6, 12, 64])
+def test_pair_gram_partials_shapes(m, with_gp):
+    """[blocks, 6m] partials, and [blocks, 2m] for the . gp column."""
+    g = t_fused.pair_gram_grid(3_000_002, torch.float32, torch.bfloat16)
+    want = {"part": (g.blocks, 6 * m)}
+    if with_gp:
+        want["gpart"] = (g.blocks, 2 * m)
+    assert t_fused.pair_gram_partials(g, m, with_gp) == want
+
+
+@pytest.mark.parametrize("m", [64, 65])
+def test_pair_gram_sd_takes_at_most_max_m_rows(m):
+    """K5 takes 1 <= m <= 64 ring rows (``fused.can_pair_gram``), on the CPU
+    as on the card."""
+    rng = np.random.default_rng(5)
+    d, gx, gp = (torch.from_numpy(rng.standard_normal(300)) for _ in range(3))
+    S = torch.from_numpy(rng.standard_normal((m, 300)))
+    Y = S.clone()
+    if m <= t_fused.MAX_M:
+        SP, YP = t_fused.pair_gram_sd(STP, d, gx, gp, S, Y, m - 1)
+        assert SP.shape == YP.shape == (m, 3)
+    else:
+        with pytest.raises(ValueError, match="exceeds 64"):
+            t_fused.pair_gram_sd(STP, d, gx, gp, S, Y, m - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", DTYPE_PAIRS, ids=str)
+@pytest.mark.parametrize("m,end", [(1, 0), (3, 2), (6, 2), (8, 7), (12, 9)])
+def test_k5_spanning_tiles_on_card(cuda, dtypes, m, end):
+    """K5 at a ragged n with many tiles per block, in both forms: ring rows
+    bit for bit the rounded pair, the . gp form's columns 0-2 and rings bit
+    for bit the 3-column form's, the sums against the plain version (1e-4
+    f32, 1e-10 f64).  m = 12 takes two groups of ring rows, the new row in
+    the second."""
+    vd, hd = dtypes
+    n = 3_000_002
+    assert t_fused.pair_gram_grid(n, vd, hd).tiles > 1
+    rng = np.random.default_rng(13)
+    g = lambda *s, dt=vd: torch.from_numpy(rng.standard_normal(s)).to(dt).to(cuda)
+    d, gx, gp = 0.1 * g(n), g(n), g(n)
+    S0, Y0 = g(m, n, dt=hd), g(m, n, dt=hd)
+    tol = 1e-4 if vd == torch.float32 else 1e-10
+    keep = [j for j in range(m) if j != end]
+    runs = {}
+    for with_gp in (False, True):
+        S, Y, S2, Y2 = S0.clone(), Y0.clone(), S0.clone(), Y0.clone()
+        k = t_fused.pair_gram_sd(STP, d, gx, gp, S, Y, end, with_gp=with_gp)
+        p = t_fused.pair_gram_sd_ref(STP, d, gx, gp, S2, Y2, end, with_gp=with_gp)
+        assert _same_bits(S[end], (STP * d).to(hd)) and _same_bits(Y[end], (gx - gp).to(hd))
+        assert _same_bits(S[keep], S0[keep]) and _same_bits(Y[keep], Y0[keep])
+        for a, b in zip(k, p):
+            _cuda_close(a, b, tol)
+        runs[with_gp] = (k, S, Y)
+    (base, S3, Y3), (ext, S4, Y4) = runs[False], runs[True]
+    assert _same_bits(S3, S4) and _same_bits(Y3, Y4)
+    for a, b in zip(base, ext):
+        assert _same_bits(a, b[:, :3].contiguous())
