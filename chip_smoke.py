@@ -138,9 +138,12 @@ modes; their directions bit for bit K3's, K6's and K13's, so the step
 cap, which picks one or the other, does not change the trajectory; the
 damped row bit for bit K6's), prints each K4/K14 form's registers,
 spills and 16-byte loads (``epilogue_compiled``: a form that spills
-fails), and holds the OWL-QN kernels K7, K9, K11 and K12 to their plain
+fails), holds the OWL-QN kernels K7, K9, K11 and K12 to their plain
 versions (K9's point, K11's pg against K10's, K12's ring rows and K7's
-ft against K8's bit for bit), and a ``wide_kernels`` phase checks the
+ft against K8's bit for bit; K12 also at m = 1, 3, 6 and 12 and on
+misaligned operands), prints ``pair_gram_compiled`` (registers and
+spills of every K5 and K12 instantiation: a spill fails), and a
+``wide_kernels`` phase checks the
 wide objective scalar's forms of K1, K2, K4, K7 and K8 against the
 default launches and against a float64 sum on the host.  Phase 3 also
 holds every factory kernel with the quadratic's two extras (``_ex``
@@ -662,6 +665,7 @@ def phase_kernels() -> dict:
                   *(check(f"K3 sum{i} {tag}", k[i], p[i], ts) for i in (1, 2)))
             del k, p
             check_k5_k6(errs, a, tag, tv, ts)
+            check_k12_depths(errs, a, tag, ts)
             check_fusions(errs, a, n, tag, tv, ts)
             for lo, hi in windows(n):
                 check_owlqn(errs, a, lo, hi, f"{tag} window=[{lo},{hi})", tv, ts)
@@ -970,9 +974,14 @@ def epilogue_compiled() -> None:
         raise AssertionError(f"K4/K14 forms spill registers: {spilled}")
 
 
-#: K5's instantiations in ptxas's mangled names: vector and history type
-#: (f float, d double, 13__nv_bfloat16), ring rows MP, the . gp column
-K5_KERNEL = re.compile(r"pair_gram_sd_kernelI([fd])(13__nv_bfloat16|[fd])Li(\d+)ELb([01])E")
+#: K5's and K12's instantiations in ptxas's mangled names: vector and
+#: history type (f float, d double, 13__nv_bfloat16), ring rows MP, the
+#: . gp column, K12's pair; and how many there are: three dtype pairs,
+#: five row counts (1-4 and a group of 6), with and without . gp, each
+#: kernel's pair
+PAIR_GRAM_KERNEL = re.compile(
+    r"pair_gram_kernelI([fd])(13__nv_bfloat16|[fd])Li(\d+)ELb([01])ELb([01])E")
+PAIR_GRAM_FORMS = 3 * 5 * 2 * 2
 K5_TYPES = {"f": "float32", "d": "float64", "13__nv_bfloat16": "bfloat16"}
 
 
@@ -998,25 +1007,27 @@ def ptxas_kernels(log: str) -> dict:
 
 
 def pair_gram_compiled() -> list:
-    """Registers, shared memory and spills of every K5 instantiation (three
-    dtype pairs, six row counts, with and without the . gp column) from
-    the build log; a form that spills, or a log that does not show all 36,
-    fails the phase."""
+    """Registers, shared memory and spills of every K5 and K12 instantiation
+    (``PAIR_GRAM_FORMS``) from the build log; a form that spills, or a log
+    that does not show them all, fails the phase."""
     forms = []
     for name, info in ptxas_kernels(_build.build_log()).items():
-        m = K5_KERNEL.search(name)
+        m = PAIR_GRAM_KERNEL.search(name)
         if m:
-            forms.append(dict(vectors=K5_TYPES[m.group(1)], history=K5_TYPES[m.group(2)],
+            forms.append(dict(kernel="K12" if m.group(5) == "1" else "K5",
+                              vectors=K5_TYPES[m.group(1)], history=K5_TYPES[m.group(2)],
                               rows=int(m.group(3)), with_gp=m.group(4) == "1", **info))
-    forms.sort(key=lambda f: (f["vectors"], f["history"], f["rows"], f["with_gp"]))
+    forms.sort(key=lambda f: (f["kernel"], f["vectors"], f["history"], f["rows"], f["with_gp"]))
     emit(phase="pair_gram_compiled", launch={"/".join(str(t).removeprefix("torch.") for t in k): v
                                              for k, v in fused.PAIR_GRAM.items()},
          blocks_max=fused.PAIR_GRAM_BLOCKS, forms=forms)
-    if len(forms) != 36 or any("n_regs" not in f or "spill_stores" not in f for f in forms):
-        raise AssertionError(f"K5: the build log shows {len(forms)} of 36 instantiations")
+    if len(forms) != PAIR_GRAM_FORMS or any("n_regs" not in f or "spill_stores" not in f
+                                            for f in forms):
+        raise AssertionError(f"K5/K12: the build log shows {len(forms)} of {PAIR_GRAM_FORMS} "
+                             "instantiations")
     spilled = [f for f in forms if f["spill_stores"] or f["spill_loads"]]
     if spilled:
-        raise AssertionError(f"K5 instantiations spill registers: {spilled}")
+        raise AssertionError(f"K5/K12 instantiations spill registers: {spilled}")
     return forms
 
 
@@ -1189,23 +1200,7 @@ def check_composed(errs: dict, a: dict, lo: int, hi: int, tag: str, tv: float,
     _fold(errs, "K11_pseudo_gradient",
           check(f"K11 pg {tag}", k, fused.pseudo_gradient_ref(xp, gp, C_L1, lo, hi), tv))
     # K12 on K9's point, with the random pg as the new gradient
-    gx = a["pg"]
-    Sk, Yk, Sp, Yp = (a["S"].clone(), a["Y"].clone(), a["S"].clone(), a["Y"].clone())
-    kk = fused.pair_gram_xg(x, xp, gx, gp, k, Sk, Yk, END)
-    p = fused.pair_gram_xg_ref(x, xp, gx, gp, k, Sp, Yp, END)
-    check_ring(f"K12 kernel {tag}", Sk, Yk, a["S"], a["Y"], x - xp, gx - gp)
-    check_ring(f"K12 plain {tag}", Sp, Yp, a["S"], a["Y"], x - xp, gx - gp)
-    _fold(errs, "K12_pair_gram_xg", *(check(f"K12 {tag} {i}", kk[i], p[i], ts) for i in (0, 1)))
-    # its . gp form: the same rings, columns 0-2 those of the 3-column launch
-    Sg, Yg, Sp, Yp = (a["S"].clone(), a["Y"].clone(), a["S"].clone(), a["Y"].clone())
-    kg = fused.pair_gram_xg(x, xp, gx, gp, k, Sg, Yg, END, with_gp=True)
-    p = fused.pair_gram_xg_ref(x, xp, gx, gp, k, Sp, Yp, END, with_gp=True)
-    if not (same_bits(Sg, Sk) and same_bits(Yg, Yk)):
-        raise AssertionError(f"K12 . gp's ring rows differ from the 3-column launch's {tag}")
-    check_extends(f"K12 . gp {tag}", kk, kg, (0, 1))
-    _fold(errs, "K12_pair_gram_xg_gp",
-          *(check(f"K12 . gp {tag} {i}", kg[i], p[i], ts) for i in range(4)))
-    del Sk, Yk, Sp, Yp, Sg, Yg
+    check_k12(errs, tag, ts, x, xp, a["pg"], gp, k, a["S"], a["Y"], END)
     check_k7(errs, rosenbrock, a, wp, x, lo, hi, tag, tv, ts)
     _fold(errs, "K9_owlqn_trial_step", (0.0, 0.0))
 
@@ -1260,6 +1255,59 @@ def check_k5(errs: dict, tag: str, ts: float, d, gx, gp, S, Y, end: int) -> None
     if not (same_bits(S4, S3) and same_bits(Y4, Y3)):
         raise AssertionError(f"K5's two forms wrote different rings {tag}")
     _fold(errs, "K5_pair_gram", *(check(f"K5 {tag} {i}", k4[i], p4[i], ts) for i in (0, 1)))
+
+
+#: K12's ring depths and new rows in the kernel checks: one row, the north
+#: star's 3, the main path's 6, and two groups of ring rows with the new
+#: row in the second (m = 80 in the deep-history phase)
+K12_RINGS = ((1, 0), (3, END), (M, END), (2 * M, END + M))
+
+
+def check_k12(errs: dict, tag: str, ts: float, x, xp, gx, gp, pg, S, Y, end: int) -> None:
+    """K12 (3 columns and . gp) against its plain version: the ring write
+    bit for bit (row ``end`` the rounded (x - xp, gx - gp)), the . gp
+    launch's columns 0-2 and rings bit for bit the 3-column launch's, the
+    sums at the sum tolerance."""
+    Sk, Yk, Sg, Yg, Sp, Yp = (S.clone(), Y.clone(), S.clone(), Y.clone(), S.clone(),
+                              Y.clone())
+    k = fused.pair_gram_xg(x, xp, gx, gp, pg, Sk, Yk, end)
+    p = fused.pair_gram_xg_ref(x, xp, gx, gp, pg, Sp, Yp, end)
+    check_ring(f"K12 kernel {tag}", Sk, Yk, S, Y, x - xp, gx - gp, end)
+    check_ring(f"K12 plain {tag}", Sp, Yp, S, Y, x - xp, gx - gp, end)
+    _fold(errs, "K12_pair_gram_xg", *(check(f"K12 {tag} {i}", k[i], p[i], ts) for i in (0, 1)))
+    Sp.copy_(S)
+    Yp.copy_(Y)
+    kg = fused.pair_gram_xg(x, xp, gx, gp, pg, Sg, Yg, end, with_gp=True)
+    p = fused.pair_gram_xg_ref(x, xp, gx, gp, pg, Sp, Yp, end, with_gp=True)
+    if not (same_bits(Sg, Sk) and same_bits(Yg, Yk)):
+        raise AssertionError(f"K12 . gp's ring rows differ from the 3-column launch's {tag}")
+    check_extends(f"K12 . gp {tag}", k, kg, (0, 1))
+    _fold(errs, "K12_pair_gram_xg_gp",
+          *(check(f"K12 . gp {tag} {i}", kg[i], p[i], ts) for i in range(4)))
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous view one element past an aligned start,
+    which takes the pair + Gram kernels' per-element loads."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def check_k12_depths(errs: dict, a: dict, tag: str, ts: float) -> None:
+    """K12 (``check_k12``) at each depth of ``K12_RINGS`` on K9's point of
+    the window [0, n - 1), and at m = 6 with its five vectors in misaligned
+    views (the rings it writes are aligned copies), which takes the
+    kernel's per-element loads."""
+    xp, d, gp, pg, n = a["xp0"], a["d"], a["gp"], a["pg"], a["xp0"].shape[0]
+    x = fused.owlqn_trial_step(xp, d, torch.sign(xp), STP, 0, n - 1)
+    for m, end in K12_RINGS:
+        Sm = torch.cat([a["S"], a["Y"]])[:m] if m > M else a["S"][:m]
+        Ym = torch.cat([a["Y"], a["S"]])[:m] if m > M else a["Y"][:m]
+        check_k12(errs, f"{tag} m={m}", ts, x, xp, pg, gp, a["xp"], Sm.contiguous(),
+                  Ym.contiguous(), end)
+        del Sm, Ym
+    vectors = [misaligned(t) for t in (x, xp, pg, gp, a["xp"])]
+    check_k12(errs, f"{tag} misaligned", ts, *vectors, a["S"], a["Y"], END)
 
 
 def check_k5_k6(errs: dict, a: dict, tag: str, tv: float, ts: float) -> None:
@@ -2771,20 +2819,7 @@ def check_deep(errs: dict, a: dict, tag: str, tv: float, ts: float) -> None:
     check_k5(check_k5_errs, tag, ts, d, pg, gp, S, Y, end)
     errs["K5_pair_gram"] = check_k5_errs["K5_pair_gram"]
     x = fused.owlqn_trial_step(a["xp0"], d, torch.sign(a["xp0"]), STP, 0, DEEP_N - 1)
-    Sk, Yk, Sp, Yp = S.clone(), Y.clone(), S.clone(), Y.clone()
-    k = fused.pair_gram_xg(x, a["xp0"], pg, gp, a["xp"], Sk, Yk, end)
-    p = fused.pair_gram_xg_ref(x, a["xp0"], pg, gp, a["xp"], Sp, Yp, end)
-    check_ring(f"K12 kernel {tag}", Sk, Yk, S, Y, x - a["xp0"], pg - gp, end)
-    check_ring(f"K12 plain {tag}", Sp, Yp, S, Y, x - a["xp0"], pg - gp, end)
-    _fold(errs, "K12_pair_gram_xg", *(check(f"K12 {tag} {i}", k[i], p[i], ts) for i in (0, 1)))
-    Sg, Yg, Sp, Yp = S.clone(), Y.clone(), S.clone(), Y.clone()
-    kg = fused.pair_gram_xg(x, a["xp0"], pg, gp, a["xp"], Sg, Yg, end, with_gp=True)
-    p = fused.pair_gram_xg_ref(x, a["xp0"], pg, gp, a["xp"], Sp, Yp, end, with_gp=True)
-    if not (same_bits(Sg, Sk) and same_bits(Yg, Yk)):
-        raise AssertionError(f"K12 . gp's ring rows differ from the 3-column launch's {tag}")
-    check_extends(f"K12 . gp {tag}", k, kg, (0, 1))
-    _fold(errs, "K12_pair_gram_xg_gp",
-          *(check(f"K12 . gp {tag} {i}", kg[i], p[i], ts) for i in range(4)))
+    check_k12(errs, tag, ts, x, a["xp0"], pg, gp, a["xp"], S, Y, end)
 
 
 def phase_booth() -> None:

@@ -37,10 +37,12 @@
 // What bounds them on the H100: bytes.  K5 reads d, gx, gp and the m-1 old
 // rows of each ring and writes one row of each: with f32 vectors, a bf16
 // history and m = 6 that is 12 + 20 + 4 = 36 bytes per element (K12 reads
-// five vectors: 48 bytes), against 6m (8m) multiply-adds.
+// five vectors: 20 + 20 + 4 = 44 bytes), against 6m (8m) multiply-adds.
 //
-// K5's design: few cross-thread reductions, wide loads in flight
-// together.  A tile holds kThreads * V elements, V = 16 bytes of the
+// One design, one body (pair_gram_kernel): few cross-thread reductions,
+// wide loads in flight together.  The two kernels differ only in how the
+// pair is formed (PairIn: K5 from stp, d, gx, gp; K12, kXg, from x, xp,
+// gx, gp, pg).  A tile holds kThreads * V elements, V = 16 bytes of the
 // vectors' type (4 floats, 2 doubles), and thread t holds elements
 // [t*V, t*V + V) of each tile: one 16-byte load of each vector, one
 // V-element load of each ring row (8 bytes for bf16), neighbouring threads
@@ -52,20 +54,16 @@
 // tile's products folded over its V elements.  The cross-thread
 // reductions (warp shuffles, then one pass over shared memory) run once
 // per sum per block, after its last tile, and each block writes its
-// [6m] ([2m]) partials; the caller adds the [blocks, 6m] ([blocks, 2m])
+// [6m] ([2m], K12's [2 + 2m]) partials; the caller adds the [blocks, 6m]
 // arrays in a fixed order, so runs repeat bit for bit (no atomics).  The
-// ring rows go in groups of kGroup: block (b, g) takes rows [g*kGroup,
-// g*kGroup + kGroup), so that a group's sums fit the registers.  A
-// history deeper than one group reads the vectors once per group: 3v more
-// bytes per element for each group after the first (v the vectors' bytes;
-// f32 vectors, bf16 history, m = 12: 72 bytes per element against the 60
-// of one pass).  The main path's m = 6 and the north star's m = 3 take one
-// group; any depth takes ceil(m / kGroup) groups (up to 65535 of them, the
-// grid's y limit: m <= 524,280).
-//
-// K12 keeps the first design (one 1024-element tile per block and one
-// block reduction per ring row), its sums bit for bit what they were.  It
-// loops over the ring rows one at a time, so it takes any depth as it is.
+// ring rows go in groups of kGroup: block (g, b) takes rows [g*kGroup,
+// g*kGroup + kGroup) of run b, so that a group's sums fit the registers.
+// A history deeper than one group reads the vectors once per group: 3v
+// (K12: 5v) more bytes per element for each group after the first, v the
+// vectors' bytes.  The group is the grid's fastest index, so the groups
+// of one run are launched side by side and the later ones find the run's
+// vectors in the L2.  The main path's m = 6 and the north star's m = 3
+// take one group; any depth takes ceil(m / kGroup) groups.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,10 +75,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPerThread = 4;
-constexpr int kBlockElems = kThreads * kPerThread;
-// most groups of ring rows on the grid's y axis
-constexpr long long kMaxGroups = 65535;
+// most runs of tiles on the grid's y axis
+constexpr long long kMaxBlocks = 65535;
 
 template <typename T, typename H>
 __device__ __forceinline__ T widen(H v) {
@@ -109,120 +105,26 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Adds acc[0..K) over the block in a fixed order and stores the K sums at
-// out (thread 0).  Ends with a barrier, so red may be reused at once.
-template <typename T, int K>
-__device__ __forceinline__ void block_sums(const T (&acc)[K], T (*red)[kWarps], T* out) {
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int p = 0; p < K; ++p) {
-    const T v = warp_sum(acc[p]);
-    if ((threadIdx.x & 31) == 0) red[p][warp] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int p = 0; p < K; ++p) {
-      T a = T(0);
-      for (int w = 0; w < kWarps; ++w) a += red[p][w];
-      out[p] = a;
-    }
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// K12: one tile per block
-// ---------------------------------------------------------------------------
-
-// partials = [gridDim.x, 6m]: per ring row j, (S_j.y, S_j.s, S_j.d0,
-// Y_j.y, Y_j.s, Y_j.d0); with kGp gpartials = [gridDim.x, 2 + 2m]: gp.gp,
-// gp.pg, then per ring row (S_j.gp, Y_j.gp)
-template <typename T, typename H, bool kGp>
-__global__ void __launch_bounds__(kThreads)
-pair_gram_xg_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                    const T* __restrict__ gx, const T* __restrict__ gp,
-                    const T* __restrict__ pg, H* __restrict__ S, H* __restrict__ Y,
-                    T* __restrict__ partials, T* __restrict__ gpartials, long long n, int m,
-                    int end) {
-  __shared__ T red[6][kWarps];
-  const long long base = static_cast<long long>(blockIdx.x) * kBlockElems;
-  T s[kPerThread], y[kPerThread], d0[kPerThread], g[kPerThread];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const long long i = base + k * kThreads + threadIdx.x;
-    if (i < n) {
-      s[k] = a[i] - b[i];
-      d0[k] = -pg[i];
-      const T gpv = gp[i];
-      g[k] = gpv;
-      y[k] = gx[i] - gpv;
-      // the new pair into ring row `end`, rounded to the history type
-      S[end * n + i] = narrow<H, T>(s[k]);
-      Y[end * n + i] = narrow<H, T>(y[k]);
-    } else {
-      s[k] = y[k] = d0[k] = g[k] = T(0);
-    }
-  }
-  const long long gstride = 2LL + 2LL * m;
-  if constexpr (kGp) {
-    T gacc[2] = {T(0), T(0)};
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      gacc[0] += g[k] * g[k];
-      gacc[1] -= g[k] * d0[k];  // gp.pg, as d0 = -pg
-    }
-    block_sums<T, 2>(gacc, red, gpartials + gstride * blockIdx.x);
-  }
-  for (int j = 0; j < m; ++j) {
-    T acc[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-    T gacc[2] = {T(0), T(0)};
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const long long i = base + k * kThreads + threadIdx.x;
-      if (i < n) {
-        // row `end` is never read: its products use the unrounded pair
-        const T sj = j == end ? s[k] : widen<T, H>(S[j * n + i]);
-        const T yj = j == end ? y[k] : widen<T, H>(Y[j * n + i]);
-        acc[0] += sj * y[k];
-        acc[1] += sj * s[k];
-        acc[2] += sj * d0[k];
-        acc[3] += yj * y[k];
-        acc[4] += yj * s[k];
-        acc[5] += yj * d0[k];
-        if constexpr (kGp) {
-          gacc[0] += sj * g[k];
-          gacc[1] += yj * g[k];
-        }
-      }
-    }
-    block_sums<T, 6>(acc, red, partials + (6LL * m) * blockIdx.x + 6 * j);
-    if constexpr (kGp)
-      block_sums<T, 2>(gacc, red, gpartials + gstride * blockIdx.x + 2 + 2 * j);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K5: blocks that loop over tiles, sums in registers
-// ---------------------------------------------------------------------------
-
 // elements a thread holds per tile: 16 bytes of the vectors' type
 template <typename T>
 constexpr int kV = 16 / static_cast<int>(sizeof(T));
-// ring rows per group: the sums of 8 rows (48, or 64 with . gp) fit a
-// thread's registers beside its tile in either type
-constexpr int kGroup = 8;
+// ring rows per group: a bf16 form's sums of 6 rows (36, or 48 with
+// . gp) and its loads fit 128 registers, so two blocks stay in flight on
+// each SM at every depth (on an H100 80GB HBM3 groups of 8, which need
+// 148-166 registers and so hold one block per SM, ran the . gp forms of
+// K5 and K12 at m = 80 28-31% slower: PERF.md, section 6)
+constexpr int kGroup = 6;
 // blocks of kThreads each SM must hold (__launch_bounds__): 2 keeps a
-// bf16 form of up to 6 rows within 128 registers without a spill, with
-// two blocks in flight on each SM (on an H100 80GB HBM3 that ran the
-// . gp form at m = 6 15% faster than one; left to itself ptxas also fit
-// the 3-column form into 80 registers and spilled).  At 8 rows, or with
-// a 4- or 8-byte history, the loaded rows and the sums need more than 128.
-template <typename H, int MP>
-constexpr int kMinBlocks = sizeof(H) == 2 && MP <= 6 ? 2 : 1;
+// bf16 form within 128 registers without a spill, with two blocks in
+// flight on each SM (on an H100 80GB HBM3 that ran K5's . gp form at
+// m = 6 15% faster than one; left to itself ptxas also fit the 3-column
+// form into 80 registers and spilled).  With a 4- or 8-byte history the
+// loaded rows and the sums need more than 128.
+template <typename H>
+constexpr int kMinBlocks = sizeof(H) == 2 ? 2 : 1;
 
-// Every operation of K5's sums rounds explicitly, so nvcc cannot contract
-// the two instantiations' products differently.
+// Every operation of the sums rounds explicitly, so nvcc cannot contract
+// the instantiations' products differently.
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
@@ -288,8 +190,8 @@ __device__ __forceinline__ T fold(const T (&a)[V], const T (&b)[V]) {
 }
 
 // One ring row's six base products over the thread's run, each added into
-// its sum.  Both K5 launches inline this one function, so the 3-column
-// launch and the . gp launch add the same values in the same order.
+// its sum.  Every launch inlines this one function, so the 3-column launch
+// and the . gp launch add the same values in the same order.
 template <typename T, int V>
 __device__ __forceinline__ void base_products(const T (&sj)[V], const T (&yj)[V],
                                               const T (&s)[V], const T (&y)[V],
@@ -302,25 +204,44 @@ __device__ __forceinline__ void base_products(const T (&sj)[V], const T (&yj)[V]
   acc[5] = add_rn(acc[5], fold(yj, d0));
 }
 
+// The vectors a launch forms its pair from.  K5: s = stp*a (a = d),
+// y = gx - gp, d0 = -gx.  K12 (kXg): s = a - b (a = x, b = xp), y = gx - gp,
+// d0 = -pg.  The pointers a launch does not read are null.
+template <typename T>
+struct PairIn {
+  T stp;
+  const T* a;
+  const T* b;
+  const T* gx;
+  const T* gp;
+  const T* pg;
+};
+
 // One tile's work for the thread's run p[i .. i+V): the loads, the pair,
 // every ring row's products added into the sums, the pair stored into row
 // `end` (where `writes`).  kVec: the run is whole and every array aligned
 // for one load per run (the main path): all the rows' loads are issued
 // before any product, so a tile's loads are in flight together.
-// Otherwise one load per element, 0 past n.
-template <bool kVec, typename T, typename H, int MP, bool kGp>
-__device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ d,
+// Otherwise one load per element, 0 past n.  K12's . gp form also adds
+// gp.gp and gp.pg into gs where `scalars` (the blocks of the first group).
+template <bool kVec, bool kXg, typename T, typename H, int MP, bool kGp>
+__device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ a,
+                                               const T* __restrict__ b,
                                                const T* __restrict__ gx,
-                                               const T* __restrict__ gp, H* __restrict__ S,
+                                               const T* __restrict__ gp,
+                                               const T* __restrict__ pg, H* __restrict__ S,
                                                H* __restrict__ Y, long long i, long long n,
                                                int m, int j0, int end, bool writes,
-                                               T (&acc)[MP][6], T (&gacc)[MP][2]) {
+                                               bool scalars, T (&acc)[MP][6],
+                                               T (&gacc)[MP][2], T (&gs)[2]) {
   constexpr int V = kV<T>;
   using RawH = typename Raw<V * static_cast<int>(sizeof(H))>::type;
-  T dv[V], gxv[V], gpv[V], s[V], y[V], d0[V];
-  load_run(d, i, n, kVec, dv);
+  T av[V], bv[V], gxv[V], gpv[V], pgv[V], s[V], y[V], d0[V];
+  load_run(a, i, n, kVec, av);
+  if constexpr (kXg) load_run(b, i, n, kVec, bv);
   load_run(gx, i, n, kVec, gxv);
   load_run(gp, i, n, kVec, gpv);
+  if constexpr (kXg) load_run(pg, i, n, kVec, pgv);
   RawH sraw[MP], yraw[MP];
   if constexpr (kVec) {
 #pragma unroll
@@ -336,9 +257,20 @@ __device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ d,
   }
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    s[v] = mul_rn(stp, dv[v]);
+    if constexpr (kXg) {
+      s[v] = sub_rn(av[v], bv[v]);
+      d0[v] = -pgv[v];
+    } else {
+      s[v] = mul_rn(stp, av[v]);
+      d0[v] = -gxv[v];
+    }
     y[v] = sub_rn(gxv[v], gpv[v]);
-    d0[v] = -gxv[v];
+  }
+  if constexpr (kXg && kGp) {
+    if (scalars) {
+      gs[0] = add_rn(gs[0], fold(gpv, gpv));
+      gs[1] = add_rn(gs[1], fold(gpv, pgv));
+    }
   }
 #pragma unroll
   for (int r = 0; r < MP; ++r) {
@@ -381,30 +313,36 @@ __device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ d,
   }
 }
 
-// grid (blocks, groups).  Block (b, g) loops over tiles [b*tiles,
-// min((b+1)*tiles, ntiles)) and ring rows [g*kGroup, g*kGroup + MP) inside
-// m (MP: pair_gram_sd_rows).  partials = [blocks, 6m]: per ring row j,
-// (S_j.y, S_j.s, S_j.d0, Y_j.y, Y_j.s, Y_j.d0); gpartials = [blocks, 2m]:
-// (S_j.gp, Y_j.gp).  vec: every array starts on a 16-byte (vectors) or
-// V-element (rings) boundary and n is a multiple of V, so every whole run
-// takes one load per array.
-template <typename T, typename H, int MP, bool kGp>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<H, MP>)
-pair_gram_sd_kernel(T stp, const T* __restrict__ d, const T* __restrict__ gx,
-                    const T* __restrict__ gp, H* __restrict__ S, H* __restrict__ Y,
-                    T* __restrict__ partials, T* __restrict__ gpartials, long long n, int m,
-                    int end, long long tiles, bool vec) {
+// grid (groups, blocks): the group is the fastest index, so the groups of
+// one run of tiles launch side by side.  Block (g, b) loops over tiles
+// [b*tiles, min((b+1)*tiles, ntiles)) and ring rows [g*kGroup, g*kGroup +
+// MP) inside m (MP: pair_gram_rows).  partials = [blocks, 6m]: per ring
+// row j, (S_j.y, S_j.s, S_j.d0, Y_j.y, Y_j.s, Y_j.d0); gpartials =
+// [blocks, 2m]: (S_j.gp, Y_j.gp), after K12's gp.gp and gp.pg ([blocks,
+// 2 + 2m]; only the first group's blocks add those).  vec: every array
+// starts on a 16-byte (vectors) or V-element (rings) boundary and n is a
+// multiple of V, so every whole run takes one load per array.
+template <typename T, typename H, int MP, bool kGp, bool kXg>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<H>)
+pair_gram_kernel(T stp, const T* __restrict__ a, const T* __restrict__ b,
+                 const T* __restrict__ gx, const T* __restrict__ gp, const T* __restrict__ pg,
+                 H* __restrict__ S, H* __restrict__ Y, T* __restrict__ partials,
+                 T* __restrict__ gpartials, long long n, int m, int end, long long tiles,
+                 bool vec) {
   constexpr int V = kV<T>;
   constexpr long long kTile = static_cast<long long>(kThreads) * V;
-  constexpr int kSums = (kGp ? 8 : 6) * MP;
+  constexpr int kScalars = kXg && kGp ? 2 : 0;
+  constexpr int kSums = (kGp ? 8 : 6) * MP + kScalars;
   __shared__ T red[kSums][kWarps];
-  const int j0 = blockIdx.y * kGroup;
+  const long long run = blockIdx.y;
+  const int j0 = blockIdx.x * kGroup;
   // the group that holds row `end` stores the pair
   const bool writes = end >= j0 && end < j0 + MP;
+  const bool scalars = j0 == 0;
   const long long ntiles = (n + kTile - 1) / kTile;
-  const long long t0 = static_cast<long long>(blockIdx.x) * tiles;
+  const long long t0 = run * tiles;
   const long long t1 = t0 + tiles < ntiles ? t0 + tiles : ntiles;
-  T acc[MP][6], gacc[MP][2];
+  T acc[MP][6], gacc[MP][2], gs[2] = {T(0), T(0)};
 #pragma unroll
   for (int r = 0; r < MP; ++r) {
 #pragma unroll
@@ -415,11 +353,11 @@ pair_gram_sd_kernel(T stp, const T* __restrict__ d, const T* __restrict__ gx,
     const long long i = t * kTile + static_cast<long long>(threadIdx.x) * V;
     if (i >= n) break;  // past the ragged end of the last tile
     if (vec && i + V <= n) {
-      pair_gram_tile<true, T, H, MP, kGp>(stp, d, gx, gp, S, Y, i, n, m, j0, end, writes, acc,
-                                          gacc);
+      pair_gram_tile<true, kXg, T, H, MP, kGp>(stp, a, b, gx, gp, pg, S, Y, i, n, m, j0, end,
+                                               writes, scalars, acc, gacc, gs);
     } else {
-      pair_gram_tile<false, T, H, MP, kGp>(stp, d, gx, gp, S, Y, i, n, m, j0, end, writes, acc,
-                                           gacc);
+      pair_gram_tile<false, kXg, T, H, MP, kGp>(stp, a, b, gx, gp, pg, S, Y, i, n, m, j0,
+                                                end, writes, scalars, acc, gacc, gs);
     }
   }
   // one reduction per sum per block: warp shuffles, then one pass over
@@ -441,50 +379,59 @@ pair_gram_sd_kernel(T stp, const T* __restrict__ d, const T* __restrict__ gx,
       }
     }
   }
+#pragma unroll
+  for (int k = 0; k < kScalars; ++k) {
+    const T v = warp_sum(gs[k]);
+    if (lane0) red[8 * MP + k][warp] = v;
+  }
   __syncthreads();
+  // K12's . gp partials hold gp.gp and gp.pg before the rows
+  const long long gstride = 2LL * m + kScalars;
   for (int p = threadIdx.x; p < kSums; p += kThreads) {
-    T a = red[p][0];
-    for (int w = 1; w < kWarps; ++w) a = add_rn(a, red[p][w]);
+    T sum = red[p][0];
+    for (int w = 1; w < kWarps; ++w) sum = add_rn(sum, red[p][w]);
     if (p < 6 * MP) {
       const int j = j0 + p / 6;
-      if (j < m) partials[6LL * m * blockIdx.x + 6 * j + p % 6] = a;
-    } else {
+      if (j < m) partials[6LL * m * run + 6 * j + p % 6] = sum;
+    } else if (p < 8 * MP) {
       const int q = p - 6 * MP;
       const int j = j0 + q / 2;
-      if (j < m) gpartials[2LL * m * blockIdx.x + 2 * j + q % 2] = a;
+      if (j < m) gpartials[gstride * run + kScalars + 2 * j + q % 2] = sum;
+    } else if (scalars) {
+      gpartials[gstride * run + (p - 8 * MP)] = sum;
     }
   }
 }
 
-template <typename T, typename H, int MP, bool kGp>
-int launch_pair_gram_sd(T stp, const T* d, const T* gx, const T* gp, H* S, H* Y, T* partials,
-                        T* gpartials, long long n, int m, int end, long long tiles,
-                        long long blocks, bool vec, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(blocks),
-                  static_cast<unsigned>((m + kGroup - 1) / kGroup));
-  pair_gram_sd_kernel<T, H, MP, kGp><<<grid, kThreads, 0, stream>>>(
-      stp, d, gx, gp, S, Y, partials, gpartials, n, m, end, tiles, vec);
+template <typename T, typename H, int MP, bool kGp, bool kXg>
+int launch_pair_gram(const PairIn<T>& in, H* S, H* Y, T* partials, T* gpartials, long long n,
+                     int m, int end, long long tiles, long long blocks, bool vec,
+                     cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((m + kGroup - 1) / kGroup),
+                  static_cast<unsigned>(blocks));
+  pair_gram_kernel<T, H, MP, kGp, kXg><<<grid, kThreads, 0, stream>>>(
+      in.stp, in.a, in.b, in.gx, in.gp, in.pg, S, Y, partials, gpartials, n, m, end, tiles,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 // MP, the ring rows a block holds: m itself at the depths users run
-// (1-4 and 6: the north star's 3, the main path's 6), 6 for m = 5, and
-// groups of kGroup rows beyond 6.  A padded row costs registers: its sums
-// and its loaded rows are live through the whole loop.
-template <typename T, typename H, bool kGp>
-int pair_gram_sd_rows(T stp, const T* d, const T* gx, const T* gp, H* S, H* Y, T* partials,
-                      T* gpartials, long long n, int m, int end, long long tiles,
-                      long long blocks, bool vec, cudaStream_t stream) {
+// (1-4 and 6: the north star's 3, the main path's 6), and groups of
+// kGroup rows for m = 5 and beyond 6.  A padded row costs registers: its
+// sums and its loaded rows are live through the whole loop.
+template <typename T, typename H, bool kGp, bool kXg>
+int pair_gram_rows(const PairIn<T>& in, H* S, H* Y, T* partials, T* gpartials, long long n,
+                   int m, int end, long long tiles, long long blocks, bool vec,
+                   cudaStream_t stream) {
   const auto launch = [&](auto rows) {
-    return launch_pair_gram_sd<T, H, decltype(rows)::value, kGp>(
-        stp, d, gx, gp, S, Y, partials, gpartials, n, m, end, tiles, blocks, vec, stream);
+    return launch_pair_gram<T, H, decltype(rows)::value, kGp, kXg>(
+        in, S, Y, partials, gpartials, n, m, end, tiles, blocks, vec, stream);
   };
-  switch (m > 6 ? kGroup : m == 5 ? 6 : m) {
+  switch (m < 5 ? m : kGroup) {
     case 1: return launch(std::integral_constant<int, 1>());
     case 2: return launch(std::integral_constant<int, 2>());
     case 3: return launch(std::integral_constant<int, 3>());
     case 4: return launch(std::integral_constant<int, 4>());
-    case 6: return launch(std::integral_constant<int, 6>());
     default: return launch(std::integral_constant<int, kGroup>());
   }
 }
@@ -496,58 +443,41 @@ bool aligned(const void* p, unsigned bytes) {
 // tile, tiles and blocks are the wrapper's launch (fused.pair_gram_grid):
 // refused unless the tile is this instantiation's and the blocks' runs of
 // `tiles` tiles cover n exactly once
-template <typename T, typename H>
-int pair_gram_sd(double stp, const void* d, const void* gx, const void* gp, void* S, void* Y,
-                 void* partials, void* gpartials, long long n, int m, int end, int with_gp,
-                 long long tile, long long tiles, long long blocks, void* stream) {
+template <typename T, typename H, bool kXg>
+int pair_gram(const PairIn<T>& in, void* S, void* Y, void* partials, void* gpartials,
+              long long n, int m, int end, int with_gp, long long tile, long long tiles,
+              long long blocks, void* stream) {
   constexpr long long kTile = static_cast<long long>(kThreads) * kV<T>;
-  if (n <= 0 || m < 1 || end < 0 || end >= m || tile != kTile || tiles < 1 ||
-      (m + kGroup - 1) / kGroup > kMaxGroups)
+  if (n <= 0 || m < 1 || end < 0 || end >= m || tile != kTile || tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long ntiles = (n + kTile - 1) / kTile;
-  if (blocks != (ntiles + tiles - 1) / tiles || blocks > 0x7fffffffLL)
+  if (blocks != (ntiles + tiles - 1) / tiles || blocks > kMaxBlocks)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = aligned(d, 16) && aligned(gx, 16) && aligned(gp, 16) &&
-                   aligned(S, kV<T> * sizeof(H)) && aligned(Y, kV<T> * sizeof(H)) &&
-                   n % kV<T> == 0;
-  const auto run = with_gp ? pair_gram_sd_rows<T, H, true> : pair_gram_sd_rows<T, H, false>;
-  return run(static_cast<T>(stp), static_cast<const T*>(d), static_cast<const T*>(gx),
-             static_cast<const T*>(gp), static_cast<H*>(S), static_cast<H*>(Y),
-             static_cast<T*>(partials), static_cast<T*>(gpartials), n, m, end, tiles, blocks,
-             vec, reinterpret_cast<cudaStream_t>(stream));
-}
-
-template <typename T, typename H>
-int pair_gram_xg(const void* x, const void* xp, const void* gx, const void* gp, const void* pg,
-                 void* S, void* Y, void* partials, void* gpartials, long long n, int m, int end,
-                 int with_gp, void* stream) {
-  if (n <= 0 || m < 1 || end < 0 || end >= m) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + kBlockElems - 1) / kBlockElems;
-  const auto kernel =
-      with_gp ? pair_gram_xg_kernel<T, H, true> : pair_gram_xg_kernel<T, H, false>;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(xp), static_cast<const T*>(gx),
-      static_cast<const T*>(gp), static_cast<const T*>(pg), static_cast<H*>(S),
-      static_cast<H*>(Y), static_cast<T*>(partials), static_cast<T*>(gpartials), n, m, end);
-  return static_cast<int>(cudaGetLastError());
+  bool vec = aligned(in.a, 16) && aligned(in.gx, 16) && aligned(in.gp, 16) &&
+             aligned(S, kV<T> * sizeof(H)) && aligned(Y, kV<T> * sizeof(H)) &&
+             n % kV<T> == 0;
+  if (kXg) vec = vec && aligned(in.b, 16) && aligned(in.pg, 16);
+  const auto run = with_gp ? pair_gram_rows<T, H, true, kXg> : pair_gram_rows<T, H, false, kXg>;
+  return run(in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials),
+             static_cast<T*>(gpartials), n, m, end, tiles, blocks, vec,
+             reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 extern "C" {
 
-// K12's block: kThreads * kPerThread elements
-int lbfgs_pair_gram_block_elems() { return kBlockElems; }
-
-// stp arrives as a double and is rounded to the vectors' type (exact for a
-// step that is already of that type)
+// K5.  stp arrives as a double and is rounded to the vectors' type (exact
+// for a step that is already of that type)
 #define LBFGS_PAIR_GRAM_ENTRY(SFX, T, H)                                                    \
   int lbfgs_pair_gram_##SFX(double stp, const void* d, const void* gx, const void* gp,      \
                             void* S, void* Y, void* partials, void* gpartials,             \
                             long long n, int m, int end, int with_gp, long long tile,      \
                             long long tiles, long long blocks, void* stream) {             \
-    return pair_gram_sd<T, H>(stp, d, gx, gp, S, Y, partials, gpartials, n, m, end,         \
-                              with_gp, tile, tiles, blocks, stream);                       \
+    const PairIn<T> in{static_cast<T>(stp), static_cast<const T*>(d), nullptr,             \
+                       static_cast<const T*>(gx), static_cast<const T*>(gp), nullptr};     \
+    return pair_gram<T, H, false>(in, S, Y, partials, gpartials, n, m, end, with_gp, tile,  \
+                                  tiles, blocks, stream);                                  \
   }
 
 LBFGS_PAIR_GRAM_ENTRY(f32_bf16, float, __nv_bfloat16)
@@ -556,13 +486,18 @@ LBFGS_PAIR_GRAM_ENTRY(f64_f64, double, double)
 
 #undef LBFGS_PAIR_GRAM_ENTRY
 
+// K12
 #define LBFGS_PAIR_GRAM_XG_ENTRY(SFX, T, H)                                               \
   int lbfgs_pair_gram_xg_##SFX(const void* x, const void* xp, const void* gx,            \
                                const void* gp, const void* pg, void* S, void* Y,         \
                                void* partials, void* gpartials, long long n, int m,      \
-                               int end, int with_gp, void* stream) {                     \
-    return pair_gram_xg<T, H>(x, xp, gx, gp, pg, S, Y, partials, gpartials, n, m, end,   \
-                              with_gp, stream);                                          \
+                               int end, int with_gp, long long tile, long long tiles,    \
+                               long long blocks, void* stream) {                         \
+    const PairIn<T> in{T(0), static_cast<const T*>(x), static_cast<const T*>(xp),        \
+                       static_cast<const T*>(gx), static_cast<const T*>(gp),             \
+                       static_cast<const T*>(pg)};                                       \
+    return pair_gram<T, H, true>(in, S, Y, partials, gpartials, n, m, end, with_gp, tile, \
+                                 tiles, blocks, stream);                                 \
   }
 
 LBFGS_PAIR_GRAM_XG_ENTRY(f32_bf16, float, __nv_bfloat16)

@@ -33,7 +33,6 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "lbfgs_combine_block_elems": ([], ctypes.c_int),
     "lbfgs_owlqn_block_elems": ([], ctypes.c_int),
-    "lbfgs_pair_gram_block_elems": ([], ctypes.c_int),
     "lbfgs_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     **{
         f"lbfgs_combine_{sfx}": (
@@ -59,7 +58,7 @@ _SIGNATURES = {
     **{
         f"lbfgs_pair_gram_xg_{sfx}": (
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, _P], ctypes.c_int)
+             ctypes.c_int, _LL, _LL, _LL, _P], ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{

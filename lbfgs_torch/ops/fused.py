@@ -564,9 +564,9 @@ def append_gp(SP, YP, G):
     return torch.cat([SP, G[:, :1]], dim=1), torch.cat([YP, G[:, 1:]], dim=1)
 
 
-#: K5's launch (``csrc/pair_gram.cu``): a tile of T elements, 256 threads
-#: each holding V consecutive ones (16 bytes of the vectors' dtype); each
-#: block loops over a run of tiles with its sums in registers
+#: K5's and K12's launch (``csrc/pair_gram.cu``): a tile of T elements,
+#: 256 threads each holding V consecutive ones (16 bytes of the vectors'
+#: dtype); each block loops over a run of tiles with its sums in registers
 #: (``pair_gram_grid``).  The tile is compiled into the kernel, which
 #: refuses another.
 PAIR_GRAM = {
@@ -574,35 +574,61 @@ PAIR_GRAM = {
     (torch.float32, torch.float32): dict(T=1024, V=4),
     (torch.float64, torch.float64): dict(T=512, V=2),
 }
-#: most blocks K5 launches per group of ring rows: 2 on each of the H100's
-#: 132 SMs, the blocks it holds at once at the main path's shapes (chosen
-#: on an NVIDIA H100 80GB HBM3 at its 700 W limit with
-#: ``tools/tune_pair_gram.py``: 1 to 8 per SM ran the . gp form at n =
+#: most blocks K5 and K12 launch per group of ring rows: 2 on each of the
+#: H100's 132 SMs, the blocks K5 holds at once at the main path's shapes
+#: (chosen on an NVIDIA H100 80GB HBM3 at its 700 W limit with
+#: ``tools/tune_pair_gram.py``: 1 to 8 per SM ran K5's . gp form at n =
 #: 2^24, m = 6 in 0.209-0.258 ms, 2 and 4 fastest; PERF.md, section 6)
 PAIR_GRAM_BLOCKS = 2 * 132
 
 
 def pair_gram_grid(n: int, vdtype: torch.dtype, hdtype: torch.dtype) -> SimpleNamespace:
-    """K5's launch at n elements of ``vdtype`` vectors with a ``hdtype``
-    history: the tile T and the run V a thread holds, the tiles of T
-    elements that cover n, the tiles each block loops over and the block
-    count (at most ``PAIR_GRAM_BLOCKS``; fewer, with one tile each, for a
-    small n).  The last block's run may end early; the last tile's
-    elements past n are masked."""
+    """K5's and K12's launch at n elements of ``vdtype`` vectors with a
+    ``hdtype`` history: the tile T and the run V a thread holds, the tiles
+    of T elements that cover n, the tiles each block loops over and the
+    block count per group of ring rows (at most ``PAIR_GRAM_BLOCKS``;
+    fewer, with one tile each, for a small n).  The last block's run may
+    end early; the last tile's elements past n are masked."""
     cfg = PAIR_GRAM[(vdtype, hdtype)]
     ntiles = -(-n // cfg["T"])
     tiles = -(-ntiles // PAIR_GRAM_BLOCKS)
     return SimpleNamespace(**cfg, ntiles=ntiles, tiles=tiles, blocks=-(-ntiles // tiles))
 
 
-def pair_gram_partials(grid: SimpleNamespace, m: int, with_gp: bool) -> dict:
-    """The shapes of K5's partials: [blocks, 6m], each block's six products
-    of every ring row, and with ``with_gp`` [blocks, 2m], its (S_j.gp,
-    Y_j.gp)."""
+def pair_gram_partials(grid: SimpleNamespace, m: int, with_gp: bool,
+                       xg: bool = False) -> dict:
+    """The shapes of K5's and K12's (``xg``) partials: [blocks, 6m], each
+    block's six products of every ring row, and with ``with_gp`` its
+    (S_j.gp, Y_j.gp): [blocks, 2m] for K5, [blocks, 2 + 2m] for K12, whose
+    first two columns are gp.gp and gp.pg."""
     out = {"part": (grid.blocks, 6 * m)}
     if with_gp:
-        out["gpart"] = (grid.blocks, 2 * m)
+        out["gpart"] = (grid.blocks, 2 * m + 2 * xg)
     return out
+
+
+def _launch_pair_gram(kernel: str, entry: str, lead: tuple, vectors: tuple, S, Y, end: int,
+                      with_gp: bool, xg: bool = False) -> tuple:
+    """Launch K5 or K12 (``xg``) through its C entry point ``entry`` on the
+    grid of ``pair_gram_grid``: ``lead`` the host scalars before the
+    pointers (K5's stp), then the ``vectors``, the rings and the partials.
+    Returns the reduced [m, 6] products and, with ``with_gp``, the . gp
+    partials' column sums (else None)."""
+    v = vectors[0]
+    m, n = S.shape
+    check_contiguous(kernel, *vectors, S, Y)
+    lib = _build.load_library()
+    grid = pair_gram_grid(n, v.dtype, S.dtype)
+    bufs = {k: torch.empty(shape, dtype=v.dtype, device=v.device)
+            for k, shape in pair_gram_partials(grid, m, with_gp, xg).items()}
+    part = bufs["part"]
+    fn = getattr(lib, f"{entry}_{_SUFFIX[v.dtype]}_{_SUFFIX[S.dtype]}")
+    code = fn(*lead, *(t.data_ptr() for t in vectors), S.data_ptr(), Y.data_ptr(),
+              part.data_ptr(), bufs.get("gpart", part).data_ptr(), n, m, end, int(with_gp),
+              grid.T, grid.tiles, grid.blocks, torch.cuda.current_stream(v.device).cuda_stream)
+    _build.check_launch(code, kernel)
+    P = reduce_partials(part).reshape(m, 6)
+    return P, reduce_partials(bufs["gpart"]) if with_gp else None
 
 
 def pair_gram_sd_ref(stp, d, gx, gp, S, Y, end: int, with_gp: bool = False):
@@ -628,28 +654,16 @@ def pair_gram_sd(stp, d, gx, gp, S, Y, end: int, with_gp: bool = False):
     damped update's basis column . gp ([m, 4]); columns 0-2 stay those of
     the 3-column launch bit for bit.  ``stp`` is a host scalar.  The
     trial's ``changed`` count, not this pass, decides "x not changed".
-    Takes any depth m >= 1 on either device (ring rows in groups of 8 on
+    Takes any depth m >= 1 on either device (ring rows in groups of 6 on
     the card)."""
     end = _check_pair(d, gx, gp, S, Y, end)
-    m, n = S.shape
     if not on_cuda(d, "pair_gram_sd"):
         return pair_gram_sd_ref(stp, d, gx, gp, S, Y, end, with_gp)
-    check_contiguous("pair_gram_sd", d, gx, gp, S, Y)
-    lib = _build.load_library()
-    grid = pair_gram_grid(n, d.dtype, S.dtype)
-    bufs = {k: torch.empty(v, dtype=d.dtype, device=d.device)
-            for k, v in pair_gram_partials(grid, m, with_gp).items()}
-    part = bufs["part"]
-    fn = getattr(lib, f"lbfgs_pair_gram_{_SUFFIX[d.dtype]}_{_SUFFIX[S.dtype]}")
-    code = fn(float(stp), d.data_ptr(), gx.data_ptr(), gp.data_ptr(), S.data_ptr(),
-              Y.data_ptr(), part.data_ptr(), bufs.get("gpart", part).data_ptr(), n, m, end,
-              int(with_gp), grid.T, grid.tiles, grid.blocks,
-              torch.cuda.current_stream(d.device).cuda_stream)
-    _build.check_launch(code, "pair_gram_sd")
+    P, G = _launch_pair_gram("pair_gram_sd", "lbfgs_pair_gram", (float(stp),), (d, gx, gp),
+                             S, Y, end, with_gp)
     pair_gram_sd.launches += 1
-    P = reduce_partials(part).reshape(m, 6)
     if with_gp:
-        return append_gp(P[:, :3], P[:, 3:], reduce_partials(bufs["gpart"]))
+        return append_gp(P[:, :3], P[:, 3:], G)
     return P[:, :3], P[:, 3:]
 
 
@@ -691,23 +705,12 @@ def pair_gram_xg(x, xp, gx, gp, pg, S, Y, end: int, with_gp: bool = False):
     end = _check_row(S, end)
     if not on_cuda(x, "pair_gram_xg"):
         return pair_gram_xg_ref(x, xp, gx, gp, pg, S, Y, end, with_gp)
-    m, n = S.shape
-    check_contiguous("pair_gram_xg", x, xp, gx, gp, pg, S, Y)
-    lib = _build.load_library()
-    blocks = -(-n // lib.lbfgs_pair_gram_block_elems())
-    part = torch.empty((blocks, 6 * m), dtype=x.dtype, device=x.device)
-    gpart = torch.empty((blocks, 2 + 2 * m), dtype=x.dtype, device=x.device) if with_gp else part
-    fn = getattr(lib, f"lbfgs_pair_gram_xg_{_SUFFIX[x.dtype]}_{_SUFFIX[S.dtype]}")
-    code = fn(x.data_ptr(), xp.data_ptr(), gx.data_ptr(), gp.data_ptr(), pg.data_ptr(),
-              S.data_ptr(), Y.data_ptr(), part.data_ptr(), gpart.data_ptr(), n, m, end,
-              int(with_gp), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch(code, "pair_gram_xg")
+    P, G = _launch_pair_gram("pair_gram_xg", "lbfgs_pair_gram_xg", (), (x, xp, gx, gp, pg),
+                             S, Y, end, with_gp, xg=True)
     pair_gram_xg.launches += 1
     pair_gram_xg.gp_launches += bool(with_gp)
-    P = reduce_partials(part).reshape(m, 6)
     if not with_gp:
         return P[:, :3], P[:, 3:]
-    G = reduce_partials(gpart)
     return (*append_gp(P[:, :3], P[:, 3:], G[2:]), G[0], G[1])
 
 

@@ -645,12 +645,20 @@ DTYPE_PAIRS = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
                (torch.float64, torch.float64)]
 
 
-@pytest.mark.parametrize("dtypes", DTYPE_PAIRS, ids=str)
-@pytest.mark.parametrize("n", [100, 3_000_002, 1 << 24])
+#: K5's cases (n, dtype pair), and K12's at its paths' sizes: the ragged
+#: n, the Poisson and deep-history paths' 2^20 and the K12 route's 2^24
+GRID_CASES = [pytest.param(n, dt, id=f"{n}-{dt}") for n in (100, 3_000_002, 1 << 24)
+              for dt in DTYPE_PAIRS]
+GRID_CASES += [pytest.param(n, dt, id=f"K12-{n}-{dt}") for n in (3_000_002, 1 << 20, 1 << 24)
+               for dt in DTYPE_PAIRS]
+
+
+@pytest.mark.parametrize("n,dtypes", GRID_CASES)
 def test_pair_gram_grid_covers_n_once(n, dtypes):
-    """K5's tiles cover n once, each block's run of tiles holds at least one
-    real tile, and no more than ``PAIR_GRAM_BLOCKS`` blocks launch; a
-    thread's run is one 16-byte load of the vectors' dtype."""
+    """K5's and K12's tiles cover n once, each block's run of tiles holds
+    at least one real tile, and no more than ``PAIR_GRAM_BLOCKS`` blocks
+    launch per group of ring rows; a thread's run is one 16-byte load of
+    the vectors' dtype."""
     g = t_fused.pair_gram_grid(n, *dtypes)
     cfg = t_fused.PAIR_GRAM[dtypes]
     assert (g.T, g.V) == (cfg["T"], cfg["V"])
@@ -663,19 +671,30 @@ def test_pair_gram_grid_covers_n_once(n, dtypes):
     if n == 3_000_002:
         # several tiles per block, the last tile partial
         assert g.tiles > 1 and n % g.T
-    if n == 1 << 24:
+    if n in (1 << 20, 1 << 24):
         assert g.tiles > 1 and n % g.T == 0
 
 
-@pytest.mark.parametrize("with_gp", [False, True])
-@pytest.mark.parametrize("m", [1, 3, 6, 12, 64])
-def test_pair_gram_partials_shapes(m, with_gp):
-    """[blocks, 6m] partials, and [blocks, 2m] for the . gp column."""
+#: K5's depths, and K12's: one row, the main path's 6, one group, one row
+#: into a second group, and the deep-history path's 80
+PARTIAL_CASES = [pytest.param(m, gp, False, id=f"{m}-{gp}") for m in (1, 3, 6, 12, 64)
+                 for gp in (False, True)]
+PARTIAL_CASES += [pytest.param(m, gp, True, id=f"K12-{m}-{gp}") for m in (1, 6, 8, 9, 80)
+                  for gp in (False, True)]
+
+
+@pytest.mark.parametrize("m,with_gp,xg", PARTIAL_CASES)
+def test_pair_gram_partials_shapes(m, with_gp, xg):
+    """[blocks, 6m] partials, and for the . gp column [blocks, 2m] (K5) or
+    [blocks, 2 + 2m] (K12: gp.gp and gp.pg first)."""
     g = t_fused.pair_gram_grid(3_000_002, torch.float32, torch.bfloat16)
     want = {"part": (g.blocks, 6 * m)}
     if with_gp:
-        want["gpart"] = (g.blocks, 2 * m)
-    assert t_fused.pair_gram_partials(g, m, with_gp) == want
+        want["gpart"] = (g.blocks, 2 * m + (2 if xg else 0))
+    if xg:
+        assert t_fused.pair_gram_partials(g, m, with_gp, xg=True) == want
+    else:
+        assert t_fused.pair_gram_partials(g, m, with_gp) == want
 
 
 @pytest.mark.parametrize("m", [64, 65])
@@ -718,6 +737,56 @@ def test_k5_spanning_tiles_on_card(cuda, dtypes, m, end):
         k = t_fused.pair_gram_sd(STP, d, gx, gp, S, Y, end, with_gp=with_gp)
         p = t_fused.pair_gram_sd_ref(STP, d, gx, gp, S2, Y2, end, with_gp=with_gp)
         assert _same_bits(S[end], (STP * d).to(hd)) and _same_bits(Y[end], (gx - gp).to(hd))
+        assert _same_bits(S[keep], S0[keep]) and _same_bits(Y[keep], Y0[keep])
+        for a, b in zip(k, p):
+            _cuda_close(a, b, tol)
+        runs[with_gp] = (k, S, Y)
+    (base, S3, Y3), (ext, S4, Y4) = runs[False], runs[True]
+    assert _same_bits(S3, S4) and _same_bits(Y3, Y4)
+    for a, b in zip(base, ext):
+        assert _same_bits(a, b[:, :3].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("dtypes", DTYPE_PAIRS, ids=str)
+@pytest.mark.parametrize("m,end", [(3, 2), (6, 2), (12, 9), (80, 77)])
+def test_k12_spanning_tiles_on_card(cuda, dtypes, m, end, misaligned):
+    """K12 at a ragged n with many tiles per block, in both forms: ring rows
+    bit for bit round(x - xp) and round(gx - gp), the other rows untouched,
+    the . gp form's columns 0-2 and rings bit for bit the 3-column form's,
+    the sums against the plain version (1e-4 f32, 1e-10 f64).  m = 12 and
+    80 take two and ten groups of ring rows.  The misaligned case views
+    every operand one element past an aligned start, which takes the
+    kernel's per-element loads."""
+    vd, hd = dtypes
+    n = 3_000_002 if m < 80 else 1 << 20
+    assert t_fused.pair_gram_grid(n, vd, hd).tiles > 1
+    rng = np.random.default_rng(17)
+    off = int(misaligned)
+
+    def g(*s, dt=vd):
+        a = torch.from_numpy(rng.standard_normal(int(np.prod(s)) + off)).to(dt).to(cuda)
+        return a[off:].view(*s)
+
+    x, xp, gx, gp, pg = g(n), g(n), g(n), g(n), g(n)
+    S0, Y0 = g(m, n, dt=hd), g(m, n, dt=hd)
+    if misaligned:
+        assert x.data_ptr() % 16 and S0.data_ptr() % (16 // vd.itemsize * hd.itemsize)
+    tol = 1e-4 if vd == torch.float32 else 1e-10
+    keep = [j for j in range(m) if j != end]
+    runs = {}
+    for with_gp in (False, True):
+        S, Y = torch.empty_like(S0), torch.empty_like(Y0)
+        if misaligned:
+            S = torch.empty(m * n + 1, dtype=hd, device=cuda)[1:].view(m, n)
+            Y = torch.empty(m * n + 1, dtype=hd, device=cuda)[1:].view(m, n)
+        S.copy_(S0)
+        Y.copy_(Y0)
+        S2, Y2 = S0.clone(), Y0.clone()
+        k = t_fused.pair_gram_xg(x, xp, gx, gp, pg, S, Y, end, with_gp=with_gp)
+        p = t_fused.pair_gram_xg_ref(x, xp, gx, gp, pg, S2, Y2, end, with_gp=with_gp)
+        assert _same_bits(S[end], (x - xp).to(hd)) and _same_bits(Y[end], (gx - gp).to(hd))
         assert _same_bits(S[keep], S0[keep]) and _same_bits(Y[keep], Y0[keep])
         for a, b in zip(k, p):
             _cuda_close(a, b, tol)

@@ -12,12 +12,15 @@ both trees run:
     its . gp form, K15 and its damped-row form, K16, at m = 6 and 3, in
     the three dtype pairs, at n = 2^24 and at the ragged n; with the
     compiled epilogues' registers and spills;
-  * the CUDA kernels K3, K6, K13, K5 (both forms) and K12 at the ring
-    depths ``DEPTHS`` (up to 64 rows, where the other tree's caps end), in
-    the three dtype pairs, at the ragged n (and m = 6 at n = 2^24).
+  * the CUDA kernels K3, K6, K13, K5 (both forms) and K12 (both forms) at
+    the ring depths ``DEPTHS``, in the three dtype pairs, at the ragged n
+    (and m = 6 at n = 2^24).
 
-Every output and every ring must be the other tree's bit for bit; the
-first difference raises.  Then K3, K6, K13, K5 . gp, K4 and K15 are timed
+Every output and every ring must be the other tree's bit for bit, except
+K12's sums, which are held to the other tree's within the sum tolerance
+(``chip_smoke.TOL``: K12's summation order is its own since it moved onto
+K5's body); K12's rings stay bit for bit.  The first difference raises.
+Then K3, K6, K13, K5 . gp, K4 and K15 are timed
 at the main path's shapes (n = 2^24, f32 vectors, bf16 history, m = 6) in
 turns, other tree, this, this, other (``chip_smoke.device_time``).
 
@@ -39,8 +42,9 @@ from lbfgs_torch.models import rosenbrock
 from lbfgs_torch.ops import fused
 from tools.tune_epilogues import load_tree
 
-#: ring depths the CUDA kernels are held to the other tree's at
-DEPTHS = (1, 3, 5, 6, 8, 12, 33, 64)
+#: ring depths the CUDA kernels are held to the other tree's at (80: the
+#: deep-history path's)
+DEPTHS = (1, 3, 5, 6, 8, 12, 33, 64, 80)
 
 
 def _rings(a: dict, m: int) -> tuple:
@@ -109,6 +113,8 @@ def cuda_calls(fz, a: dict, S, Y, x9) -> dict:
             cs.STP, a["d"], a["pg"], a["gp"], Sk, Yk, end, with_gp=True), S, Y),
         "K12": lambda: _ring(lambda Sk, Yk: fz.pair_gram_xg(
             x9, a["xp0"], a["pg"], a["gp"], a["xp"], Sk, Yk, end), S, Y),
+        "K12_gp": lambda: _ring(lambda Sk, Yk: fz.pair_gram_xg(
+            x9, a["xp0"], a["pg"], a["gp"], a["xp"], Sk, Yk, end, with_gp=True), S, Y),
     }
 
 
@@ -134,6 +140,20 @@ def same(name: str, mine, theirs) -> None:
     for i, (p, q) in enumerate(zip(a, b)):
         if not cs.same_bits(p, q):
             raise AssertionError(f"{name}: output {i} differs from the other tree's")
+
+
+def agrees(name: str, mine, theirs, tol: float) -> None:
+    """K12 against the other tree's: the rings (the last two outputs) bit
+    for bit, every other output within the normwise tolerance."""
+    a, b = _flat(mine), _flat(theirs)
+    if len(a) != len(b):
+        raise AssertionError(f"{name}: {len(a)} outputs against {len(b)}")
+    for i, (p, q) in enumerate(zip(a, b)):
+        if i >= len(a) - 2:
+            if not cs.same_bits(p, q):
+                raise AssertionError(f"{name}: ring {i} differs from the other tree's")
+        else:
+            cs.check(f"{name}: output {i} against the other tree's", p, q, tol)
 
 
 def compiled(rosen) -> dict:
@@ -171,7 +191,11 @@ def main() -> None:
                 S, Y = _rings(a, m)
                 mine, theirs = (cuda_calls(f, a, S, Y, x9) for f in (fused, pfused))
                 for name in mine:
-                    same(f"{name} m={m} {tag}", mine[name](), theirs[name]())
+                    if name.startswith("K12"):
+                        agrees(f"{name} m={m} {tag}", mine[name](), theirs[name](),
+                               cs.TOL[(vd, "sum")])
+                    else:
+                        same(f"{name} m={m} {tag}", mine[name](), theirs[name]())
                 del S, Y
             cs.emit(check="same_bits", n=n, dtypes=tag, triton_m=[cs.M, 3],
                     cuda_m=list(DEPTHS if n == cs.N_RAGGED else (cs.M,)))
