@@ -70,7 +70,12 @@ Phases (any failure raises and the script exits nonzero):
      m = 6, bf16 history, BacktrackingArmijo, epsilon 0, 100 iterations
      of ``minimize_jit`` through the composed OWL-QN branch (K11 once, K9
      per trial point, K10, K12 and K13 per iteration), then the same with
-     ``with_fx_wide()``;
+     ``with_fx_wide()``, and one profiled run (device ms per iteration and
+     per evaluation); then all of it again with X in bfloat16 (the JAX
+     package's accelerator cell; the float32 X freed first), and its two
+     products (``torch.mm`` with a float32 output) at beta0 and at the
+     final beta against the widened product (normwise 1e-4) and timed
+     beside their bound;
  17. Poisson f64: 500 x 21 float64 (the reference's shape), c = 1 on
      [1, 21), epsilon 1e-4, through ``minimize`` per iteration against
      the same run on the CPU;
@@ -120,11 +125,27 @@ Phases (any failure raises and the script exits nonzero):
      K12 (both forms) and K13 at m = 80 against their plain versions and
      timed;
  30. booth: the reference's two-variable test on the card, to (1, 3);
- 31. launch_overhead: microseconds per back-to-back launch of the
+ 31. scan two-loop: ``with_compact_two_loop(False)``, the recorded n = 100
+     float64 golden uncapped through both entry points (38 iterations),
+     then the main path's widths at epsilon 0 within 100 iterations and
+     against its plain versions after 8 (K1 per accepted point, K2 per
+     probe, nothing that reads the ring);
+ 32. float16 history: the main path's widths with a float16 ring to
+     epsilon 1e-5 within 100 iterations (the composed pair + Gram pass
+     and combine in torch ops, K1 and K2), its plain-call counts printed,
+     and against its plain versions after 8;
+ 33. native: the recorded L-BFGS and OWL-QN goldens through
+     ``backend="native"`` (38 and 172 iterations) and
+     ``minimize_native_rosenbrock`` at n = 2^24 for 10 iterations, its
+     seconds printed;
+ 34. checkpoint: the main path at n = 2^20 through ``LbfgsState``, saved
+     at iteration 10, resumed into a fresh state for 10 more, every field
+     bit for bit the uninterrupted run's;
+ 35. launch_overhead: microseconds per back-to-back launch of the
      calibration kernel (``csrc/calibrate.cu``) and per launch with one
      synchronising read, and the share of each main path's ms/iter that
      its launches and reads per iteration explain;
- 32. with ``--profile PATH`` only: one run of each main path (plain,
+ 36. with ``--profile PATH`` only: one run of each main path (plain,
      OWL-QN, damped, damped OWL-QN, Poisson, and the first three without
      the fusion) under torch.profiler (device busy time against the
      unprofiled walls, device items, host launch and copy calls); the
@@ -171,13 +192,15 @@ import torch
 from lbfgs_torch import LbfgsError, default_evaluate, lbfgs
 from lbfgs_torch.core import to_host
 from lbfgs_torch.linesearch import carried
-from lbfgs_torch.minimize import minimize_jit
+from lbfgs_torch.minimize import LbfgsState, minimize_jit
 from lbfgs_torch.models import booth, lennard_jones, logistic, rosenbrock, separable
+from lbfgs_torch.native import minimize_native_rosenbrock
 from lbfgs_torch.ops import _build, factory, fused
 from lbfgs_torch.orthantwise import Orthantwise, choose_orthant
 from lbfgs_torch.params import Lbfgs, LbfgsParams, LineSearchAlgorithm
 from lbfgs_torch.status import Status
 from lbfgs_torch.utils import profiling
+from lbfgs_torch.utils.checkpoint import fields, load_state, save_state
 
 SEED = 20261016
 N_BIG = 1 << 24
@@ -1542,24 +1565,31 @@ def phase_main_path() -> dict:
 
     # the same entry point through the plain versions on the card, against
     # the kernels, at two iteration budgets
-    for n_it, fx_tol, x_tol in VS_PLAIN:
-        p = params.replace(max_iterations=n_it + 1)
-        st_k = minimize_jit(p, x0, default_evaluate(), return_state=True)
-        st_p = minimize_jit(p, x0, default_evaluate().plain, return_state=True)
-        rel = abs(float(st_k.prob.fx) / float(st_p.prob.fx) - 1)
-        x_err = err(st_k.prob.x, st_p.prob.x)
-        if st_k.k != st_p.k or st_k.k != n_it + 1:
-            raise AssertionError(f"plain run: niter {st_p.k - 1}, kernel {st_k.k - 1}, "
-                                 f"budget {n_it}")
-        if not (rel <= fx_tol and x_err <= x_tol):
-            raise AssertionError(f"plain vs kernel after {n_it} iterations: rel fx "
-                                 f"{rel:.3e} (tol {fx_tol}), x {x_err:.3e} (tol {x_tol})")
-        emit(phase="main_path_vs_plain", iters=n_it, rel_fx=rel, fx_tol=fx_tol,
-             x_err=x_err, x_tol=x_tol)
-        del st_k, st_p
+    for bounds in VS_PLAIN:
+        emit(phase="main_path_vs_plain", **_vs_plain("main path", params, *bounds))
     del st
     torch.cuda.empty_cache()
     return lc, out
+
+
+def _vs_plain(name: str, params: LbfgsParams, n_it: int, fx_tol: float, x_tol: float) -> dict:
+    """``minimize_jit`` from Rosenbrock's start at n = 2^24 through the
+    plain versions on the card against the kernels, ``n_it`` iterations at
+    epsilon 0: the same iterations, fx within ``fx_tol`` relative and x
+    within ``x_tol`` normwise."""
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    p = params.replace(epsilon=0.0, max_iterations=n_it + 1)
+    st_k = minimize_jit(p, x0, default_evaluate(), return_state=True)
+    st_p = minimize_jit(p, x0, default_evaluate().plain, return_state=True)
+    rel = abs(float(st_k.prob.fx) / float(st_p.prob.fx) - 1)
+    x_err = err(st_k.prob.x, st_p.prob.x)
+    if st_k.k != st_p.k or st_k.k != n_it + 1:
+        raise AssertionError(f"{name} plain run: niter {st_p.k - 1}, kernel {st_k.k - 1}, "
+                             f"budget {n_it}")
+    if not (rel <= fx_tol and x_err <= x_tol):
+        raise AssertionError(f"{name} plain vs kernel after {n_it} iterations: rel fx "
+                             f"{rel:.3e} (tol {fx_tol}), x {x_err:.3e} (tol {x_tol})")
+    return dict(iters=n_it, rel_fx=rel, fx_tol=fx_tol, x_err=x_err, x_tol=x_tol)
 
 
 #: the OWL-QN main path (bench_owlqn.py:61-76 at n = 2^24): f32, m = 6,
@@ -2083,9 +2113,34 @@ def _expect_composed(name: str, st, lc: dict, pc: dict) -> None:
             K11_pseudo_gradient=1, K12_pair_gram_xg=iters, K13_combine_ow=iters)
 
 
-def phase_poisson_main_path() -> dict:
+def phase_poisson_main_path() -> tuple:
+    """The Poisson main path with X float32 (see ``_poisson_path``)."""
+    return _poisson_path(torch.float32)
+
+
+def phase_poisson_bf16_main_path(f32_out: dict) -> tuple:
+    """The Poisson main path with X bfloat16 (``bench_logistic.py:160-161``,
+    the JAX package's accelerator cell): the same runs and checks as the
+    float32 X's, evaluations and ms per evaluation printed beside that
+    run's, and both products held to the widened product and timed."""
+    return _poisson_path(torch.bfloat16, f32_out)
+
+
+def _poisson_path(x_dtype: torch.dtype, f32_out: dict | None = None) -> tuple:
+    """The Poisson main path at 2048 x 2^20 with X in ``x_dtype`` (y and the
+    vectors float32; the X of an earlier call is freed, so at most the
+    float32 X it is made from and its bfloat16 copy live together, ~12
+    GiB): a warm run, then 100 iterations of ``minimize_jit``, float32 and
+    wide, each with the composed OWL-QN branch's launches checked, finite
+    fx and 0 < nnz < n - 1; then one profiled float32 run for device ms
+    per iteration and per evaluation.  With a bfloat16 X both products at
+    beta0 and at the final beta against the widened product
+    (``_bf16_products``).  Returns (launches of the float32-vector run,
+    {wide: summary})."""
+    tag = str(x_dtype).removeprefix("torch.")
     t0 = time.perf_counter()
-    X, y = logistic.synthetic(POISSON_NROW, POISSON_NCOL, seed=0, device="cuda")
+    X, y = logistic.synthetic(POISSON_NROW, POISSON_NCOL, seed=0, device="cuda",
+                              x_dtype=x_dtype)
     torch.cuda.synchronize()
     t_data = time.perf_counter() - t0
     obj = logistic.make_objective(X, y)
@@ -2101,7 +2156,7 @@ def phase_poisson_main_path() -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         lc, pc, reads = launches(), plain_calls(), to_host.reads
-        name = "Poisson main path" + (" (wide)" if wide else "")
+        name = f"Poisson main path (X {tag})" + (" (wide)" if wide else "")
         _expect_composed(name, st, lc, pc)
         iters, evals = st.k - 1, st.prob.neval
         fx = st.prob.fx
@@ -2110,20 +2165,73 @@ def phase_poisson_main_path() -> dict:
             raise AssertionError(f"{name}: fx is {type(fx).__name__}")
         if not (np.isfinite(fx) and 0 < nnz < n - 1):
             raise AssertionError(f"{name}: fx {fx}, {nnz} nonzero coefficients")
-        out[wide] = dict(status=st.status, iters=iters)
+        out[wide] = dict(status=st.status, iters=iters, evals=evals,
+                         ms_per_eval=1e3 * dt / evals, fx=float(fx))
         if not wide:
-            lc_main = lc
-        emit(phase="poisson_main_path", nrow=POISSON_NROW, ncol=n, x_dtype="float32",
+            lc_main, beta = lc, st.prob.x.clone()
+        emit(phase="poisson_main_path", nrow=POISSON_NROW, ncol=n, x_dtype=tag,
              fx_wide=wide, iters=iters, evals=evals, status=st.status,
              status_name=Status(st.status).name, seconds=dt, iters_per_s=iters / dt,
              evals_per_s=evals / dt, ms_per_eval=1e3 * dt / evals,
              syncs_per_iter=reads / max(iters, 1), fx=float(fx), fx_dtype=type(fx).__name__,
              nnz=nnz, data_seconds=t_data, launches=lc, plain_calls=pc,
-             f32_run=out.get(False) if wide else None)
+             f32_run=out.get(False) if wide else None,
+             x_float32_run=None if f32_out is None else f32_out[wide])
         del st
-    del X, y, obj
+    prof, st = profiled(lambda: minimize_jit(poisson_params(False), x0, obj, return_state=True))
+    busy = None if prof is None else sum(
+        e.self_device_time_total for e in device_events(prof)) / 1e3
+    emit(phase="poisson_device_time", x_dtype=tag, iters=st.k - 1, evals=st.prob.neval,
+         device_ms_per_iter=None if busy is None else busy / (st.k - 1),
+         device_ms_per_eval=None if busy is None else busy / st.prob.neval)
+    if x_dtype == torch.bfloat16:
+        _bf16_products(X, y, {"beta0": x0, "final": beta})
+    del st, X, y, obj
     torch.cuda.empty_cache()
-    return lc_main
+    return lc_main, out
+
+
+#: rows of X widened at a time for the bfloat16 products' reference (1 GiB)
+WIDEN_ROWS = 256
+
+
+def _bf16_products(X: torch.Tensor, y: torch.Tensor, betas: dict) -> None:
+    """Both products of the bfloat16-X objective (``logistic.bf16_matvec``:
+    X . round_bf16(beta) and X^T . round_bf16(r), r = y - exp(X beta)) at
+    each beta against the widened product on the card (X widened a block
+    of ``WIDEN_ROWS`` rows at a time, never whole), normwise within the
+    f32-sum tolerance 1e-4; then each product's device time at the final
+    beta beside its bound: X read once (4 GiB) plus its vector in and out,
+    over 3.35 TB/s.  This is a library call (``torch.mm`` with
+    ``out_dtype``), not a TPU kernel's counterpart: no row of the kernel
+    table."""
+    tol = TOL[(torch.float32, "sum")]
+    nrow, ncol = X.shape
+    errs = {}
+    for tag, beta in betas.items():
+        xb = logistic.bf16_matvec(X, beta)
+        r = y - torch.exp(xb)
+        xtr = logistic.bf16_matvec(X.T, r)
+        b, rb = beta.bfloat16().float(), r.bfloat16().float()
+        xb_ref = torch.cat([X[i:i + WIDEN_ROWS].float() @ b
+                            for i in range(0, nrow, WIDEN_ROWS)])
+        xtr_ref = torch.zeros(ncol, device=X.device)
+        for i in range(0, nrow, WIDEN_ROWS):
+            xtr_ref += X[i:i + WIDEN_ROWS].float().T @ rb[i:i + WIDEN_ROWS]
+        errs[tag] = dict(xbeta=err(xb, xb_ref), xtr=err(xtr, xtr_ref))
+        if max(errs[tag].values()) > tol:
+            raise AssertionError(f"bf16-X products at {tag}: {errs[tag]} (tol {tol})")
+    beta = betas["final"]
+    r = y - torch.exp(logistic.bf16_matvec(X, beta))
+    times, bounds = {}, {}
+    for name, fn, vin, vout in (("xbeta", lambda: logistic.bf16_matvec(X, beta), ncol, nrow),
+                                ("xtr", lambda: logistic.bf16_matvec(X.T, r), nrow, ncol)):
+        times[name] = device_time(fn, 20)
+        times[name + "_timed_by"] = device_time.source
+        bounds[name] = 1e3 * (X.numel() * 2 + (vin + vout) * 4) / HBM_BYTES_PER_S
+    emit(phase="poisson_bf16_products", route="torch.mm(out_dtype=torch.float32)",
+         nrow=nrow, ncol=ncol, max_normwise_err=errs, tol=tol, ms=times, bound_ms=bounds,
+         share_of_bound={k: bounds[k] / times[k] for k in bounds})
 
 
 def phase_poisson_f64_vs_cpu() -> None:
@@ -2922,6 +3030,160 @@ def phase_launch_overhead(paths: dict) -> dict:
     return {"cal_null_launch": null_launches}
 
 
+#: the main path with the literal scan two-loop
+SCAN_PARAMS = MAIN_PARAMS.replace(compact_two_loop=False)
+#: the main path with a float16 ring; at epsilon 1e-5, which the float32
+#: path reaches: at epsilon 0 a float16 ring may end the run on rounding
+#: near fx = 0 ("x not changed")
+F16_PARAMS = MAIN_PARAMS.replace(history_dtype="float16", epsilon=1e-5)
+
+
+def _expect_materialized(name: str, st, lc: dict, pc: dict) -> None:
+    """The launches of a run that takes no ring kernel (the scan two-loop,
+    or a ring the kernels refuse): K1 at the start and once per iteration
+    (the accepted point), K2 per probe, nothing else, no plain version."""
+    _expect(name, lc, pc, K1_trial=st.k, K2_probe=st.prob.neval - 1)
+
+
+def phase_scan() -> dict:
+    """The literal scan two-loop (``with_compact_two_loop(False)``): the
+    recorded n = 100 float64 golden through the kernels, uncapped, through
+    both entry points (38 iterations, fx rel 1e-3, gnorm rel 1e-6;
+    ``tests/test_native_parity.py:69-80``), then the main path's widths for
+    at most 100 iterations at epsilon 0 and against its plain versions
+    after 8.  K1 and K2 launch, nothing that reads the ring."""
+    x0 = rosenbrock.initial_point(100, torch.float64, "cuda")
+    b = lbfgs().with_compact_two_loop(False).with_constrain_step_size(False)
+    for entry in ("minimize", "minimize_jit"):
+        reset_counts()
+        r = getattr(b, entry)(x0, default_evaluate())
+        lc, pc = launches(), plain_calls()
+        ok = (r.niter == 38 and abs(r.fx / 1.2832127771605377e-15 - 1) <= 1e-3
+              and abs(r.gnorm / 9.486547293218877e-07 - 1) <= 1e-6)
+        if not ok:
+            raise AssertionError(f"scan golden ({entry}): {r}")
+        _expect(f"scan golden ({entry})", lc, pc, K1_trial=r.niter, K2_probe=r.neval - 1)
+        emit(phase="scan_golden_f64_n100", entry=entry, niter=r.niter, fx=r.fx,
+             gnorm=r.gnorm, launches={k: v for k, v in lc.items() if v})
+    st, dt, lc, pc, reads = _run_2e24("scan main path", SCAN_PARAMS)
+    _expect_materialized("scan main path", st, lc, pc)
+    out = _report_2e24("scan_main_path", st, dt, lc, reads, plain_calls=pc)
+    emit(phase="scan_main_path_vs_plain", **_vs_plain("scan main path", SCAN_PARAMS, *VS_PLAIN[0]))
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_float16_history() -> dict:
+    """The main path's widths with a float16 ring (``F16_PARAMS``), at most
+    100 iterations: the ring kernels refuse (float32, float16), so the
+    pair + Gram pass and the combine are the composed torch ops the JAX
+    package runs there with jnp (``fused.pair_gram_ref``,
+    ``fused.combine_plain``); K1 and K2 still launch.  Its plain-call
+    counts are printed; then against its plain versions after 8
+    iterations."""
+    st, dt, lc, pc, reads = _run_2e24("float16-history main path", F16_PARAMS)
+    if st.status != Status.CONVERGED:
+        raise AssertionError(f"float16-history main path: status {st.status}")
+    _expect_materialized("float16-history main path", st, lc, pc)
+    out = _report_2e24("float16_history_main_path", st, dt, lc, reads, eps=F16_PARAMS.epsilon,
+                       plain_calls=pc, ring_dtype=str(st.hist.s.dtype))
+    emit(phase="float16_history_vs_plain",
+         **_vs_plain("float16-history main path", F16_PARAMS, *VS_PLAIN[0]))
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the native core's baseline: its C++ Rosenbrock at the main path's n
+NATIVE_N, NATIVE_ITERS = N_BIG, 10
+
+
+def phase_native() -> None:
+    """``backend="native"``, a host core with no device: the recorded
+    L-BFGS and OWL-QN goldens through the builder (38 iterations, fx rel
+    1e-9 and gnorm rel 1e-9; 172 iterations, fx rel 1e-12, x[0] and x[1]
+    rel 1e-8; ``tests/test_native_parity.py:48-67``), then
+    ``minimize_native_rosenbrock`` at n = 2^24 for 10 iterations, its
+    seconds printed (the denominator of a benchmark's ``vs_baseline``)."""
+    x0 = rosenbrock.initial_point(100, torch.float64, "cpu")
+    b = lbfgs().with_constrain_step_size(False)
+    t0 = time.perf_counter()
+    r1 = b.minimize(x0, default_evaluate(), backend="native")
+    r2 = b.with_orthantwise(1.0, 0, 99).minimize(r1.x, default_evaluate(), backend="native")
+    dt = time.perf_counter() - t0
+    ok1 = (r1.niter == 38 and abs(r1.fx / 1.2832127771605377e-15 - 1) <= 1e-9
+           and abs(r1.gnorm / 9.486547293218877e-07 - 1) <= 1e-9)
+    ok2 = (r2.niter == 172 and abs(r2.fx / OWLQN_GOLDEN["fx"] - 1) <= 1e-12
+           and abs(float(r2.x[0]) / 0.2500000069348678 - 1) <= 1e-8
+           and abs(float(r2.x[1]) / 0.057500004213084016 - 1) <= 1e-8)
+    if not (ok1 and ok2):
+        raise AssertionError(f"native goldens: {r1} {r2}")
+    x0 = torch.tensor([-1.2, 1.0], dtype=torch.float64).repeat(NATIVE_N // 2)
+    params = LbfgsParams(max_iterations=NATIVE_ITERS, epsilon=0.0)
+    t0 = time.perf_counter()
+    r = minimize_native_rosenbrock(params, x0)
+    dt_r = time.perf_counter() - t0
+    if r.niter != NATIVE_ITERS or not np.isfinite(r.fx):
+        raise AssertionError(f"native Rosenbrock: {r.niter} iterations, fx {r.fx}")
+    emit(phase="native", golden_niter=r1.niter, golden_fx=r1.fx, owlqn_niter=r2.niter,
+         owlqn_fx=r2.fx, goldens_seconds=dt, rosenbrock_n=NATIVE_N,
+         rosenbrock_iters=r.niter, rosenbrock_evals=r.neval, rosenbrock_fx=r.fx,
+         rosenbrock_seconds=dt_r, rosenbrock_ms_per_iter=1e3 * dt_r / r.niter)
+
+
+#: the checkpoint phase: the main path's settings at n = 2^20, saved after
+#: 10 iterations and resumed for 10 more
+CKPT_N, CKPT_AT = 1 << 20, 10
+
+
+def _bits(v):
+    """A state value as comparable bits: a tensor's bytes, else itself."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+    if isinstance(v, np.ndarray):
+        return v.tobytes()
+    return v
+
+
+def _state_bits(st) -> dict:
+    return {k: _bits(v) for k, v in fields(st)}
+
+
+def phase_checkpoint() -> None:
+    """The main path at n = 2^20 through ``LbfgsState``: saved at iteration
+    10 (``utils.checkpoint``, to the build directory), loaded into a fresh
+    state, 10 more iterations; every field of the state must equal the
+    uninterrupted run's bit for bit (the kernels' partials reduce in a
+    fixed order)."""
+    params = MAIN_PARAMS.replace(max_iterations=0)
+    x0 = rosenbrock.initial_point(CKPT_N, torch.float32, "cuda")
+    whole = LbfgsState.build(params, x0, default_evaluate())
+    for _ in range(2 * CKPT_AT):
+        whole.propagate()
+    first = LbfgsState.build(params, x0, default_evaluate())
+    for _ in range(CKPT_AT):
+        first.propagate()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = _build.BUILD_DIR / f"checkpoint_{os.getpid()}.npz"
+    try:
+        save_state(str(path), first.state)
+        size = path.stat().st_size
+        resumed = LbfgsState.build(params, x0, default_evaluate())
+        resumed.restore(load_state(str(path), resumed.state))
+    finally:
+        path.unlink(missing_ok=True)
+    on_card = resumed.state.prob.x.device.type == "cuda"
+    for _ in range(CKPT_AT):
+        resumed.propagate()
+    a, b = _state_bits(resumed.state), _state_bits(whole.state)
+    differ = sorted(k for k in a if a[k] != b.get(k)) + sorted(set(b) - set(a))
+    if differ or not on_card:
+        raise AssertionError(f"checkpoint resume: fields {differ} differ (on card {on_card})")
+    emit(phase="checkpoint", n=CKPT_N, saved_at=CKPT_AT, resumed_to=resumed.state.k,
+         fields=len(a), bytes=size, fx=float(resumed.state.prob.fx), bit_for_bit=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -2951,7 +3213,8 @@ def main() -> None:
     lc_k5 = run(phase_k5_route)
     lc_k12 = run(phase_k12_route)
     run(phase_wide_kernels)
-    lc_poisson = run(phase_poisson_main_path)
+    lc_poisson, poisson_out = run(phase_poisson_main_path)
+    run(phase_poisson_bf16_main_path, poisson_out)
     run(phase_poisson_f64_vs_cpu)
     run(phase_f32_floor)
     lc_wide = run(phase_wide_owlqn_main_path)
@@ -2966,6 +3229,10 @@ def main() -> None:
     lc_quartic, _ = run(phase_damped_quartic_main_path)
     lc_deep, deep = run(phase_deep_history)
     run(phase_booth)
+    run(phase_scan)
+    run(phase_float16_history)
+    run(phase_native)
+    run(phase_checkpoint)
     for key in ("errs", "times", "bounds", "timed_by"):
         k[key].update(deep[key])
     lc_cal = run(phase_launch_overhead, {

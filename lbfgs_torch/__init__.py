@@ -66,10 +66,17 @@ backtracking searches (Armijo, Wolfe, strong Wolfe), OWL-QN (through the
 one-pass epilogue for factory objectives, through the composed kernels
 for generic ones), Powell damping and gradient-only mode on every solver
 branch, the wide objective scalar, the adaptive entry step, the
-combine+probe fusions, the compact two-loop, the step-at-a-time
-(``minimize``, ``LbfgsState``) and whole-run (``minimize_jit``) loops.
-The scan two-loop, the speculative search, fp8 and float16 histories,
-and the batched and native runners raise ``NotImplementedError``.
+combine+probe fusions, the compact two-loop and the literal scan
+two-loop (``with_compact_two_loop(False)``), bfloat16, float32 and
+float16 histories (float16 through the composed pair + Gram pass and
+combine, as the JAX package runs it), the step-at-a-time (``minimize``,
+``LbfgsState``) and whole-run (``minimize_jit``) loops, the native C++
+core (``minimize(..., backend="native")``, ``native``), checkpoints
+(``utils.checkpoint``) and the pytree front end (``pytree_api``).  The
+Poisson regression takes a bfloat16 X over float32 vectors.  Their CPU
+tests hold each to ``lbfgs_tpu`` (``tests/test_torch_parity_slice.py``).
+The speculative search, fp8 histories and the batched runner raise
+``NotImplementedError``; sharding is not ported.
 """
 
 from __future__ import annotations

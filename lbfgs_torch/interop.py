@@ -78,11 +78,12 @@ def _probe1(slot, f):
 
 def logistic_objective(X, y, device, prec: float = 0.0):
     """The port's Poisson-regression objective over numpy (X, y), moved to
-    ``device`` in their own dtype (``models.logistic.make_objective``)."""
+    ``device`` in their own dtype (``models.logistic.make_objective``); a
+    bfloat16 X (numpy's ``bfloat16`` extension dtype) is carried over bit
+    for bit."""
     from .models import logistic
 
-    return logistic.make_objective(torch.from_numpy(np.array(X)).to(device),
-                                   torch.from_numpy(np.array(y)).to(device), prec=prec)
+    return logistic.make_objective(_tensor(X, device), _tensor(y, device), prec=prec)
 
 
 def _numpy(t: torch.Tensor | None):

@@ -27,6 +27,7 @@ from .core import (
     Progress,
     Report,
     SolverState,
+    _required_positional,
     gnorm_of,
     normalize_objective,
     pseudo_gradient,
@@ -162,11 +163,15 @@ def minimize(
       loop { if converged break; propagate; if progress(prgr) -> cancel }
 
     The progress callback returning True cancels the optimization.
+
+    ``backend="native"`` routes to the sequential C++ core (``native``), a
+    host core with no device: the choice for small problems, where launch
+    latency dominates, and the reference-parity path.
     """
     if backend == "native":
-        raise NotImplementedError("native backend (backend='native')")
+        return _minimize_native_backend(params, x0, evaluate, progress)
     if backend != "torch":
-        raise ValueError(f"unknown backend: {backend!r} (use 'torch')")
+        raise ValueError(f"unknown backend: {backend!r} (use 'torch' or 'native')")
     state = LbfgsState.build(params, x0, evaluate)
     logger.info("start lbfgs loop...")
     while True:
@@ -178,6 +183,30 @@ def minimize(
             state.state = state.state._replace(status=int(Status.CANCELLED))
             break
     return state.report()
+
+
+def _minimize_native_backend(params: LbfgsParams, x0, evaluate: Callable,
+                             progress: Optional[Callable] = None) -> Report:
+    """Route to the native core (``lbfgs_tpu/minimize.py:208-249``),
+    adapting the objective to its closure over the core's float64 buffers:
+    a reference-style closure ``f(x, g) -> fx`` is passed through, handed
+    CPU float64 tensors over those buffers (this package's closure
+    convention); a one-argument objective is evaluated at such a tensor
+    and its gradient copied back.  x0 is copied, never iterated in place."""
+    from .native import minimize_native
+
+    if _required_positional(evaluate) >= 2:
+        def closure(x, g):
+            return evaluate(torch.from_numpy(x), torch.from_numpy(g))
+    else:
+        vag = normalize_objective(evaluate)
+
+        def closure(x, g):
+            fx, gx = vag(torch.from_numpy(x))
+            torch.from_numpy(g).copy_(gx)
+            return float(fx)
+
+    return minimize_native(params, x0, closure, progress)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,16 @@ per iteration, K11 at the start).  Its two products with X are plain
 matrix products, as the JAX package leaves them to XLA outside any
 Pallas kernel: ``torch.matmul`` in full float32 (the port does not touch
 the TF32 or matmul-precision settings).
+
+X may be stored in bfloat16 over float32 vectors (half the bytes of the
+two passes that set this objective's time), as the JAX package's
+accelerator cell runs it (``bench_logistic.py:160-161``): each product
+takes bfloat16 inputs, beta (then the residual) rounded to bfloat16, and
+gives a float32 output.  On the card that is ``torch.mm(...,
+out_dtype=torch.float32)`` over X and its transposed view, so X is never
+widened; on the CPU it is a float32 product over widened copies, which is
+exact per term (a product of two bfloat16 values fits float32), so only
+the order of the sums differs.
 """
 
 from __future__ import annotations
@@ -30,30 +40,65 @@ def make_objective(X: torch.Tensor, y: torch.Tensor, prec: float = 0.0,
 
     ``precision`` is the JAX package's argument: "highest" and None (the
     backend's default) are both torch's full-precision float32 product
-    here.  X must have the vectors' dtype: a bfloat16 X (the TPU bench's
-    storage) needs a product with a float32 output from bfloat16 inputs,
-    which ``torch.matmul`` does not give, and is not ported."""
+    here.  y (and beta) are the vectors: float32 or float64.  X has
+    their dtype, or is bfloat16 over float32 vectors
+    (``lbfgs_tpu/models/logistic.py:35-36, 43-44``: beta and the residual
+    rounded to bfloat16, float32 outputs; see ``bf16_matvec``)."""
     if precision not in ("highest", None):
         raise ValueError(f"unknown matmul precision {precision!r} (use 'highest' or None)")
-    if X.dtype not in (torch.float32, torch.float64) or y.dtype != X.dtype:
+    if y.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            f"Poisson regression over X {X.dtype}, y {y.dtype}: X and y must share the "
-            "vectors' float32 or float64 dtype (a bfloat16 X is not ported)")
+            f"Poisson regression over y {y.dtype}: y is a vector of the run, float32 "
+            "or float64")
+    if X.dtype == torch.bfloat16:
+        if y.dtype != torch.float32:
+            raise NotImplementedError(
+                f"Poisson regression over a bfloat16 X with {y.dtype} vectors: a "
+                "bfloat16 X takes float32 vectors (y and beta)")
+    elif X.dtype != y.dtype:
+        raise NotImplementedError(
+            f"Poisson regression over X {X.dtype}, y {y.dtype}: X has the vectors' "
+            "dtype, or is bfloat16 over float32 vectors (no float16 or fp8 X)")
     if X.ndim != 2 or y.shape != (X.shape[0],):
         raise ValueError(f"expected X [nrow, ncol] and y [nrow]; got {tuple(X.shape)}, "
                          f"{tuple(y.shape)}")
+    narrow = X.dtype == torch.bfloat16
+    # the CPU's plain version widens X once; the card never does
+    Xw = X.float() if narrow and not fused.on_cuda(X, "bf16_matvec") else None
 
     def vag(beta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        if beta.dtype != X.dtype:
-            raise ValueError(f"beta {beta.dtype} against X {X.dtype}")
-        xbeta = torch.matmul(X, beta)
+        if beta.dtype != y.dtype:
+            raise ValueError(f"beta {beta.dtype} against y {y.dtype}")
+        if narrow:
+            xbeta = bf16_matvec(X, beta, Xw)
+        else:
+            xbeta = torch.matmul(X, beta)
         exp_xbeta = torch.exp(xbeta)
         fx = -fused.obj_sum(y * xbeta - exp_xbeta) + 0.5 * prec * torch.sum(beta * beta)
-        g = -torch.matmul(X.T, y - exp_xbeta) + prec * beta
-        return fx, g
+        r = y - exp_xbeta
+        if narrow:
+            xtr = bf16_matvec(X.T, r, None if Xw is None else Xw.T)
+        else:
+            xtr = torch.matmul(X.T, r)
+        return fx, -xtr + prec * beta
 
     vag.__lbfgs_value_and_grad__ = True
     return vag
+
+
+def bf16_matvec(A: torch.Tensor, v: torch.Tensor, Aw: torch.Tensor | None = None):
+    """A . round_bf16(v) with a float32 output, A bfloat16 [r, c] (X or
+    its transposed view) and v float32 [c]: the JAX package's
+    ``jnp.matmul(A, v.astype(bfloat16), preferred_element_type=float32)``.
+    On the card ``torch.mm`` with ``out_dtype=torch.float32`` (bfloat16
+    inputs, float32 accumulation and output; A is read as it is stored);
+    on the CPU a float32 product over ``Aw``, A widened (made here if not
+    given), and v rounded then widened: each term is exact in float32,
+    only the order of the sums differs from the card's."""
+    b = v.to(torch.bfloat16)
+    if fused.on_cuda(A, "bf16_matvec"):
+        return torch.mm(A, b[:, None], out_dtype=torch.float32)[:, 0]
+    return torch.mv(A.float() if Aw is None else Aw, b.float())
 
 
 def synthetic(nrow: int, ncol: int, seed: int = 0, dtype=torch.float32, x_dtype=None,

@@ -46,7 +46,10 @@ share.
 
 Dtypes: vectors are float32 or float64; the history is bfloat16 or
 float32 with float32 vectors, float64 with float64 vectors.  Partial sums
-accumulate in the vectors' dtype.  Any other combination raises.
+accumulate in the vectors' dtype.  Any other combination raises (the
+solver runs another history dtype, e.g. float16, through
+``pair_gram_ref`` and ``combine_plain`` instead, as the JAX package runs
+it through jnp).
 """
 
 from __future__ import annotations

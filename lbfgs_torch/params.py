@@ -3,11 +3,11 @@
 The reference's builder pattern (``LbfgsParam`` ``src/lbfgs.rs:72-177``
 and the 15 ``with_*`` setters ``src/lbfgs.rs:194-383``; ``LineSearch``
 params ``src/line.rs:91-163``), field for field the same as
-``lbfgs_tpu.params``.  Some fields select features this package does not
-run yet (the scan two-loop; speculation); ``solver.init_state`` raises
-``NotImplementedError`` naming them.  Damping, damping_fixed,
-gradient_only, fx_wide and the adaptive entry step run, plain and under
-OWL-QN.
+``lbfgs_tpu.params``.  One field selects a feature this package does
+not run (speculation); ``solver.init_state`` raises
+``NotImplementedError`` naming it.  Damping, damping_fixed,
+gradient_only, fx_wide, the adaptive entry step, the scan two-loop and
+every history dtype but fp8 run, plain and under OWL-QN.
 
 Defaults are the reference defaults, including the documented quirks:
 ``max_linesearch`` defaults to 20 (the reference docstring claims 40,
@@ -52,7 +52,7 @@ class LineSearchParams:
     max_linesearch: int = 20
     gradient_only: bool = False
     #: speculative K-way backtracking (1 = off, the reference-faithful
-    #: sequential search); values above 1 are not ported yet
+    #: sequential search); values above 1 are not ported
     speculative: int = 1
     #: log the reference's ascent-direction warning (``src/core.rs:78-92``)
     warn_ascent: bool = True
@@ -89,9 +89,9 @@ class LbfgsParams:
     #: the iterate's dtype (reference-faithful default)
     history_dtype: Optional[str] = None
     #: adaptive line-search entry step (0.0 = off, the reference-literal
-    #: policy); not ported yet
+    #: policy)
     adaptive_entry_step: float = 0.0
-    #: wide (f64) objective-scalar carry over f32 vectors; not ported yet
+    #: wide (f64) objective-scalar carry over f32 vectors
     fx_wide: bool = False
 
     def replace(self, **kw) -> "LbfgsParams":
@@ -234,7 +234,7 @@ class Lbfgs:
         return self._new(self.param.replace_ls(speculative=int(k)))
 
     def with_adaptive_entry_step(self, growth: float = 2.0) -> "Lbfgs":
-        """Adaptive line-search entry step (extension; not ported yet)."""
+        """Adaptive line-search entry step (extension)."""
         assert growth >= 0.0, "Invalid adaptive entry-step growth."
         return self._new(self.param.replace(adaptive_entry_step=float(growth)))
 

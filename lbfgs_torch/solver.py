@@ -1,4 +1,4 @@
-"""L-BFGS iteration: line search, history update, compact two-loop.
+"""L-BFGS iteration: line search, history update, two-loop.
 
 The reference optimizer loop (``src/lbfgs.rs:424-693``) as one
 ``propagate`` per iteration.  The vectors and the history stay on the
@@ -50,8 +50,20 @@ K3 (K6, K13) there.  ``params.adaptive_entry_step`` (the JAX package's
 extension) enters each search at clip(growth*step, 2^-16, 1) of the last
 accepted step instead of 1.0, where the step is not capped.
 
-The literal scan two-loop is not ported yet; ``init_state`` raises
-``NotImplementedError`` for it.
+With ``compact_two_loop=False`` an iteration is the reference's literal
+one (``lbfgs_tpu/solver.py:628-653, 726-728``): the search materializes
+the accepted point, ``update_pair`` forms the pair and writes it into the
+ring with no Gram products, and ``two_loop_scan`` walks the ring (Nocedal's
+Algorithm 7.4) in torch ops; under OWL-QN the direction is constrained
+after it.  No one-pass epilogue, pair + Gram kernel or combine runs there.
+
+A history dtype the kernels that read the ring do not take (``(vectors,
+history)`` outside ``fused.SUPPORTED``, e.g. float16) takes the JAX
+package's composed route for it (``lbfgs_tpu/solver.py:475-484``, the
+combine at ``:144``): the pair + Gram pass is ``fused.pair_gram_ref`` and
+the combine ``fused.combine_plain`` (``combine_ow_plain`` under OWL-QN),
+torch ops as they are jnp ops there; the trial and probe kernels still
+run.
 """
 
 from __future__ import annotations
@@ -82,6 +94,42 @@ from .params import LbfgsParams
 from .status import Status
 
 logger = logging.getLogger("lbfgs_torch")
+
+# ---------------------------------------------------------------------------
+# Two-loop recursion, literal scan form
+# ---------------------------------------------------------------------------
+
+
+def two_loop_scan(hist: History, d: torch.Tensor, gamma: torch.Tensor, bound: int, end: int):
+    """Nocedal's Algorithm 7.4 over the circular history
+    (``src/lbfgs.rs:569-604``; ``lbfgs_tpu/solver.py:121-166``).
+
+    ``end`` is the ring slot of the NEWEST pair (already written);
+    ``bound = min(m, k - 1)`` pairs are active, newest to oldest and back,
+    and the inactive slots are left out (the JAX package masks them to
+    the same values).  Each ring row is widened to ``d``'s dtype before
+    its dot and its axpy.  Returns (q, alpha): the new direction and the
+    alphas written back in ring order over ``hist.alpha``."""
+    m = hist.s.shape[0]
+    q = d
+    alphas = []
+    for i in range(bound):
+        j = (end - i) % m
+        a = torch.dot(hist.s[j].to(d.dtype), q) / hist.ys[j]
+        q = q - a * hist.y[j].to(d.dtype)
+        alphas.append(a)
+    q = q * gamma
+    for i in range(bound):
+        p = bound - 1 - i                  # newest-first index, oldest first
+        j = (end - p) % m
+        beta = torch.dot(hist.y[j].to(d.dtype), q) / hist.ys[j]
+        q = q + (alphas[p] - beta) * hist.s[j].to(d.dtype)
+    alpha_ring = hist.alpha.clone()
+    if bound:
+        idx = torch.remainder(end - torch.arange(bound, device=d.device), m)
+        alpha_ring[idx] = torch.stack(alphas)
+    return q, alpha_ring
+
 
 # ---------------------------------------------------------------------------
 # Two-loop recursion, compact form
@@ -345,8 +393,9 @@ def _fusion(pdef: ProblemDef, params: LbfgsParams, x: torch.Tensor, S: torch.Ten
     the solver runs it, else None: the objective carries it, it takes
     these operands, and the next search's entry step is known before the
     combine, i.e. the step is not capped (under the cap a probe at a
-    guessed step would mostly be wasted)."""
-    if params.constrain_step_size:
+    guessed step would mostly be wasted), and the two-loop is the compact
+    one."""
+    if params.constrain_step_size or not params.compact_two_loop:
         return None
     name = "__lbfgs_combine_ow_probe" if pdef.orthantwise else "__lbfgs_combine_probe"
     fn = getattr(pdef.value_and_grad, name + "__", None)
@@ -379,6 +428,7 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     vag = pdef.value_and_grad
     hist = st.hist
     end = st.end
+    scan = not params.compact_two_loop
 
     # save state (src/core.rs:207-210): same buffers, no copy
     xp, gp = prob.x, prob.gx
@@ -387,10 +437,17 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     prefix = "__lbfgs_owlqn_trial_pair_gram" if ow else "__lbfgs_trial_pair_gram"
     mega_fn = getattr(vag, prefix + "__", None)
     mega_ok = getattr(vag, prefix + "_ok__", None)
-    use_mega = mega_fn is not None and mega_ok is not None and mega_ok(xp, hist.s)
-    combine = getattr(vag, "__lbfgs_combine__", fused.combine)
+    use_mega = (not scan and mega_fn is not None and mega_ok is not None
+                and mega_ok(xp, hist.s))
+    # a history the ring kernels refuse (float16): the composed pair +
+    # Gram pass and combine in torch ops (lbfgs_tpu/solver.py:475-484, 144)
+    composed = not fused.can_pair_gram(xp, hist.s)
+    if composed:
+        combine, combine_ow = fused.combine_plain, fused.combine_ow_plain
+    else:
+        combine = getattr(vag, "__lbfgs_combine__", fused.combine)
+        combine_ow = getattr(vag, "__lbfgs_combine_ow__", fused.combine_ow)
     combine_fix = getattr(vag, "__lbfgs_combine_fix__", fused.combine_fix)
-    combine_ow = getattr(vag, "__lbfgs_combine_ow__", fused.combine_ow)
 
     ls = ls_find(pdef, params.linesearch, xp, prob.fx, gp, prob.d, st.step,
                  prob.neval, dginit=st.dg0, materialize=not use_mega, pgp=prob.pg,
@@ -438,12 +495,25 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
         if ow:
             # pseudo-gradient and its norm (K10)
             pg, pgpg = pseudo_gradient_and_norm(pdef, x, gx)
-        if damping and ls_changed is None:
-            # composed damped branch (generic objectives, plain or OWL-QN;
-            # lbfgs_tpu/solver.py:847-869): the damped pair, stored, then
-            # the Gram products of the STORED pair with d0 = -g (-pg)
+        if scan:
+            # the literal iteration (lbfgs_tpu/solver.py:628-637): the
+            # pair (damped if asked), stored, and no Gram products
+            pu = update_pair(params, x, xp, gx, gp, step_ls)
+            hist.s[end] = pu.s.to(hist.s.dtype)
+            hist.y[end] = pu.y.to(hist.y.dtype)
+        elif damping and (ls_changed is None or composed):
+            # composed damped branch (generic objectives, or a history the
+            # ring kernels refuse; plain or OWL-QN; lbfgs_tpu/solver.py:
+            # 628-650): the damped pair, stored, then the Gram products of
+            # the STORED pair with d0 = -g (-pg)
             pu = update_pair(params, x, xp, gx, gp, step_ls)
             SP, YP = fused.pair_gram_ref(pu.s, pu.y, pg if ow else gx,
+                                         hist.s, hist.y, end)
+        elif composed:
+            # the JAX package's jnp pair + Gram pass (lbfgs_tpu/solver.py:
+            # 475-484), whose s.s == 0 test decides "x not changed"
+            ls_changed = None
+            SP, YP = fused.pair_gram_ref(x - xp, gx - gp, pg if ow else gx,
                                          hist.s, hist.y, end)
         elif ow:
             # composed OWL-QN branch: the pair of the projected step,
@@ -461,63 +531,79 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
         else:
             SP, YP = fused.pair_gram_ref(x - xp, gx - gp, gx, hist.s, hist.y, end)
     fx = ls.fx
-
-    u = SP[:, 0]         # S . y_new
-    v = YP[:, 0]         # Y . y_new
-    w = YP[:, 1]         # Y . s_new
-    Sd_ring = SP[:, 2]   # S . d0
-    Yd_ring = YP[:, 2]   # Y . d0
-    ss_new, ys_new, yy_new = SP[end, 1], SP[end, 0], YP[end, 0]
-    row_fix = case = None
-    if damping and pu is None:
-        # the fused reconstructions (lbfgs_tpu/solver.py:704-823): the
-        # plain one with the search's evaluated step and the carried
-        # ||gp||^2, gp.d0 = -(y.gp + gp.gp); the OWL-QN one with the
-        # reported step and K14's own gp.gp and gp.pg_new (the carried
-        # norm is ||pg_prev||^2 there; K12's where K14 did not run),
-        # gp.d0 = -gp.pg_new
-        if ow:
-            gpgp, gppg = gp_scalars
-            u, v, w, Yd_ring, a, b, case = _damped_gram(
-                params, SP, YP, end, step_ls, gpgp, -gppg)
-            _blend_row(hist.y, end, a, b, gx)
-        else:
-            gpgp = float(prob.gnorm2)
-            u, v, w, Yd_ring, a, b, case = _damped_gram(
-                params, SP, YP, end, ls.step_eval, gpgp, -(YP[end, 3] + gpgp))
-            # the same row, persisted by the combine (K6, or K15's fix
-            # form; the JAX package blends it before K15,
-            # lbfgs_tpu/solver.py:758-769)
-            row_fix = (end, a - b, b)
-    sy = hist.sy.clone()
-    sy[:, end] = u
-    sy[end, :] = w
-    yy = hist.yy.clone()
-    yy[:, end] = v
-    yy[end, :] = v
-    if pu is not None:
-        # composed: ys and gamma from update_pair, pre-damping
-        ys_new, gamma = pu.ys, pu.gamma
-    else:
-        # gamma = ys/yy of the new pair, pre-damping (src/lbfgs.rs:653-656)
-        gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
-    ys = hist.ys.clone()
-    ys[end] = ys_new
-    hist = History(s=hist.s, y=hist.y, ys=ys, alpha=hist.alpha, sy=sy, yy=yy)
-
-    # two-loop (src/lbfgs.rs:538-540) on d0 = -g (-pg under OWL-QN), the
-    # sign folded in; under OWL-QN the combine also constrains the
-    # direction (src/lbfgs.rs:554)
     bound = min(m, st.k - 1)
-    probe_fuse = None
-    if fusion is not None:
-        probe_fuse = (fusion, x) + ((pdef.owlqn.c,) if ow else ()) + (stp_pred,)
-    d, alpha_ring, dd, rd, probe = two_loop_compact(
-        hist, pg if ow else gx, gamma, bound, end, Sd_ring, Yd_ring, neg=True,
-        combine=combine, combine_ow=combine_ow,
-        ow_window=pdef.owlqn.start_end(xp.shape[0]) if ow else None,
-        row_fix=row_fix, combine_fix=combine_fix, probe_fuse=probe_fuse,
-    )
+    row_fix = case = probe = None
+    if scan:
+        # the literal two-loop (src/lbfgs.rs:538-540; lbfgs_tpu/solver.py:
+        # 726-728) on d0 = -g (-pg), then under OWL-QN the direction
+        # constraint (src/lbfgs.rs:554), ||d||^2 before it and the next
+        # search's dginit = g . d (pg . d) as dots
+        ys = hist.ys.clone()
+        ys[end] = pu.ys
+        hist = hist._replace(ys=ys)
+        g0 = pg if ow else gx
+        d, alpha_ring = two_loop_scan(hist, -g0, pu.gamma, bound, end)
+        dd = torch.dot(d, d)
+        if ow:
+            d = ow_ops.constrain_direction(pdef.owlqn, d, pg)
+            rd = (torch.dot(d, d), torch.dot(g0, d))
+        else:
+            rd = torch.dot(g0, d)
+    else:
+        u = SP[:, 0]         # S . y_new
+        v = YP[:, 0]         # Y . y_new
+        w = YP[:, 1]         # Y . s_new
+        Sd_ring = SP[:, 2]   # S . d0
+        Yd_ring = YP[:, 2]   # Y . d0
+        ss_new, ys_new, yy_new = SP[end, 1], SP[end, 0], YP[end, 0]
+        if damping and pu is None:
+            # the fused reconstructions (lbfgs_tpu/solver.py:704-823): the
+            # plain one with the search's evaluated step and the carried
+            # ||gp||^2, gp.d0 = -(y.gp + gp.gp); the OWL-QN one with the
+            # reported step and K14's own gp.gp and gp.pg_new (the carried
+            # norm is ||pg_prev||^2 there; K12's where K14 did not run),
+            # gp.d0 = -gp.pg_new
+            if ow:
+                gpgp, gppg = gp_scalars
+                u, v, w, Yd_ring, a, b, case = _damped_gram(
+                    params, SP, YP, end, step_ls, gpgp, -gppg)
+                _blend_row(hist.y, end, a, b, gx)
+            else:
+                gpgp = float(prob.gnorm2)
+                u, v, w, Yd_ring, a, b, case = _damped_gram(
+                    params, SP, YP, end, ls.step_eval, gpgp, -(YP[end, 3] + gpgp))
+                # the same row, persisted by the combine (K6, or K15's fix
+                # form; the JAX package blends it before K15,
+                # lbfgs_tpu/solver.py:758-769)
+                row_fix = (end, a - b, b)
+        sy = hist.sy.clone()
+        sy[:, end] = u
+        sy[end, :] = w
+        yy = hist.yy.clone()
+        yy[:, end] = v
+        yy[end, :] = v
+        if pu is not None:
+            # composed: ys and gamma from update_pair, pre-damping
+            ys_new, gamma = pu.ys, pu.gamma
+        else:
+            # gamma = ys/yy of the new pair, pre-damping (src/lbfgs.rs:653-656)
+            gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
+        ys = hist.ys.clone()
+        ys[end] = ys_new
+        hist = History(s=hist.s, y=hist.y, ys=ys, alpha=hist.alpha, sy=sy, yy=yy)
+
+        # two-loop (src/lbfgs.rs:538-540) on d0 = -g (-pg under OWL-QN), the
+        # sign folded in; under OWL-QN the combine also constrains the
+        # direction (src/lbfgs.rs:554)
+        probe_fuse = None
+        if fusion is not None:
+            probe_fuse = (fusion, x) + ((pdef.owlqn.c,) if ow else ()) + (stp_pred,)
+        d, alpha_ring, dd, rd, probe = two_loop_compact(
+            hist, pg if ow else gx, gamma, bound, end, Sd_ring, Yd_ring, neg=True,
+            combine=combine, combine_ow=combine_ow,
+            ow_window=pdef.owlqn.start_end(xp.shape[0]) if ow else None,
+            row_fix=row_fix, combine_fix=combine_fix, probe_fuse=probe_fuse,
+        )
     hist = hist._replace(alpha=alpha_ring)
 
     # the one read of the iteration: what the host decides on next, the
@@ -525,17 +611,22 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     # Generic objectives carry no `changed` count: the reference's s.s == 0
     # test decides then (src/lbfgs.rs:646).  The combine's fourth value is
     # r . g, under OWL-QN (||rc||^2, rc . pg)
-    if ls_changed is None:
+    # update_pair has read (s.s, y.y) and decided the status itself
+    if pu is None and ls_changed is None:
         ls_changed = ss_new != 0.0
     rc2, rd = rd if ow else (None, rd)
     extra = ([rc2] if ow else []) + ([case] if case is not None else [])
-    scalars = [yy_new, dd, rd, ls_changed] + extra + (probe or [])
+    lead = [dd, rd] if pu is not None else [yy_new, dd, rd, ls_changed]
+    scalars = lead + extra + (probe or [])
     if ls_failed:
         gnorm2, xnorm2 = prob.gnorm2, prob.xnorm2
-        yy_h, dd_h, dg0, changed, *extra_h = to_host(*scalars)
+        vals = to_host(*scalars)
     else:
-        gnorm2, xnorm2, yy_h, dd_h, dg0, changed, *extra_h = to_host(
-            pgpg if ow else ls_gg, ls_xx, *scalars)
+        gnorm2, xnorm2, *vals = to_host(pgpg if ow else ls_gg, ls_xx, *scalars)
+    if pu is not None:
+        dd_h, dg0, *extra_h = vals
+    else:
+        yy_h, dd_h, dg0, changed, *extra_h = vals
     probe1 = None
     if probe:
         *extra_h, p_ft_h, p_dg_h = extra_h
@@ -638,15 +729,9 @@ def start_state(st: SolverState, params: Optional[LbfgsParams] = None) -> Solver
 
 def check_supported(params: LbfgsParams) -> None:
     """Raise ``NotImplementedError`` naming any setting this package does
-    not run yet."""
-    ls = params.linesearch
-    missing = [
-        (not params.compact_two_loop, "compact_two_loop=False (scan two-loop)"),
-        (int(ls.speculative) > 1, "speculative line search"),
-    ]
-    for hit, name in missing:
-        if hit:
-            raise NotImplementedError(name)
+    not run: the speculative (K-way) line search."""
+    if int(params.linesearch.speculative) > 1:
+        raise NotImplementedError("speculative line search")
 
 
 def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
@@ -674,9 +759,6 @@ def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
     if x0.ndim != 1:
         raise ValueError(f"x0 must be 1-D, got shape {tuple(x0.shape)}")
     hdtype = getattr(torch, params.history_dtype) if params.history_dtype else x0.dtype
-    if (x0.dtype, hdtype) not in fused.SUPPORTED:
-        raise NotImplementedError(
-            f"history dtype {params.history_dtype} with {x0.dtype} vectors")
     with fused.wide_fx(params.fx_wide):
         return _init_state(pdef, params, x0.contiguous(), hdtype, lean)
 

@@ -110,12 +110,14 @@ def test_progress_cancellation_gives_status_4():
 
 
 #: OWL-QN, the backtracking searches, damping (damped OWL-QN included),
-#: gradient_only, the wide objective scalar and the adaptive entry step
-#: run; what of them still raises is each with a setting not ported yet:
-#: the scan two-loop, the speculative (K-way) backtracking search.
-#: ``fx_wide`` and ``adaptive_entry_step`` raised until they were ported:
-#: their cases now check that both entry points run them (fx carried as
-#: float64 over float32 vectors under ``fx_wide``)
+#: gradient_only, the wide objective scalar, the adaptive entry step, the
+#: scan two-loop and float16 history run; what of them still raises is
+#: each with the one setting not ported: the speculative (K-way)
+#: backtracking search.  ``fx_wide``, ``adaptive_entry_step``, ``damping``
+#: (here with the scan two-loop), ``scan_two_loop`` and ``float16_history``
+#: raised until they were ported: their cases now check that both entry
+#: points run them (fx carried as float64 over float32 vectors under
+#: ``fx_wide``)
 UNPORTED = {
     "orthantwise": lambda b: (b.with_orthantwise(1.0, 0, 99).with_damping(True)
                               .with_fx_wide().with_speculative_linesearch(2)),
@@ -148,6 +150,17 @@ def test_unported_settings_raise(name):
                 x0, lbfgs_torch.default_evaluate())
             assert np.isfinite(rep.fx) and rep.fx < 1e-3
         return
+    if name in ("damping", "scan_two_loop", "float16_history"):
+        # a float16 ring over float32 vectors ends its searches on rounding
+        # before epsilon 1e-5 at this size: 30 iterations, from fx = 2420
+        f16 = name == "float16_history"
+        x0 = t_rosen.initial_point(100, dtype=torch.float32 if f16 else torch.float64,
+                                   device="cpu")
+        for entry in ("minimize", "minimize_jit"):
+            rep = getattr(b.with_max_iterations(30 if f16 else 60), entry)(
+                x0, lbfgs_torch.default_evaluate())
+            assert np.isfinite(rep.fx) and rep.fx < (1.0 if f16 else 1e-3)
+        return
     x0 = t_rosen.initial_point(100, device="cpu")
     with pytest.raises(NotImplementedError):
         b.minimize(x0, lbfgs_torch.default_evaluate())
@@ -162,8 +175,10 @@ def test_unported_entry_points_raise():
         b.with_history_dtype("float8_e4m3fn")
     with pytest.raises(NotImplementedError, match="batched"):
         b.minimize_batched(x0[None], lbfgs_torch.default_evaluate())
-    with pytest.raises(NotImplementedError, match="native"):
-        b.minimize(x0, lbfgs_torch.default_evaluate(), backend="native")
+    # the native backend raised until it was ported: now it runs the C++
+    # core (the defaults' 35 iterations, tests/test_native_parity.py:83-94)
+    rep = b.minimize(x0, lbfgs_torch.default_evaluate(), backend="native")
+    assert rep.niter == 35 and rep.fx < 1e-9
 
 
 def test_gradient_only_with_more_thuente_is_a_value_error():
@@ -183,7 +198,8 @@ def test_import_leaves_out_jax_and_triton():
         "import sys, lbfgs_torch, lbfgs_torch.minimize, lbfgs_torch.interop, "
         "lbfgs_torch.models.rosenbrock, lbfgs_torch.models.lennard_jones, "
         "lbfgs_torch.models.logistic, lbfgs_torch.utils.csvio, "
-        "lbfgs_torch.utils.profiling, "
+        "lbfgs_torch.utils.profiling, lbfgs_torch.native, "
+        "lbfgs_torch.utils.checkpoint, lbfgs_torch.pytree_api, "
         "lbfgs_torch.ops.fused, "
         "lbfgs_torch.ops.factory, lbfgs_torch.ops._build; "
         "bad = [m for m in ('jax', 'triton') if m in sys.modules]; "

@@ -222,7 +222,7 @@ def cuda():
 
 def _same_bits(a, b):
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        a.reshape(-1).contiguous().view(torch.uint8), b.reshape(-1).contiguous().view(torch.uint8))
 
 
 @pytest.mark.cuda
