@@ -141,11 +141,28 @@ Phases (any failure raises and the script exits nonzero):
  34. checkpoint: the main path at n = 2^20 through ``LbfgsState``, saved
      at iteration 10, resumed into a fresh state for 10 more, every field
      bit for bit the uninterrupted run's;
- 35. launch_overhead: microseconds per back-to-back launch of the
+ 35. batched kernels: the batched runner's K2 b, K4 b and
+     K3 b against their plain versions at B = 1024 instances of n = 2^14,
+     m = 6, f32 vectors, bf16 rings, a third of the instances frozen (the
+     ring rows and the frozen instances bit for bit), instances 0, 511 and
+     1023 against the solo K2, K4 and K3 on that instance alone (x, g, the
+     rings and r bit for bit), and each timed beside its plain version;
+ 36. batched main path: ``minimize_batched`` on bench_batched.py's
+     configuration at B x n = 1024 x 2^14 (2^24 elements, the main path's
+     bytes), m = 6, bf16 ring, More-Thuente, capped step, epsilon 0, 30
+     iterations (K2 b per search trip, K4 b and K3 b per iteration, nothing
+     else), every fx finite, instance-iterations/s, device ms, syncs and
+     host launch calls per iteration beside the solo main path's device ms
+     per iteration; then instances 0-7 solo through ``minimize_jit``
+     against the batch after 8 iterations (same k and evaluations, fx rel
+     1e-3);
+ 37. batched baseline: BASELINE.md's batch regime, B = 10,000 x n = 64,
+     30 iterations at lbfgs()'s defaults, epsilon 0, instance-iterations/s;
+ 38. launch_overhead: microseconds per back-to-back launch of the
      calibration kernel (``csrc/calibrate.cu``) and per launch with one
      synchronising read, and the share of each main path's ms/iter that
      its launches and reads per iteration explain;
- 36. with ``--profile PATH`` only: one run of each main path (plain,
+ 39. with ``--profile PATH`` only: one run of each main path (plain,
      OWL-QN, damped, damped OWL-QN, Poisson, and the first three without
      the fusion) under torch.profiler (device busy time against the
      unprofiled walls, device items, host launch and copy calls); the
@@ -190,6 +207,7 @@ import numpy as np
 import torch
 
 from lbfgs_torch import LbfgsError, default_evaluate, lbfgs
+from lbfgs_torch.batched import minimize_batched
 from lbfgs_torch.core import to_host
 from lbfgs_torch.linesearch import carried
 from lbfgs_torch.minimize import LbfgsState, minimize_jit
@@ -279,6 +297,18 @@ DEEP_KERNELS = ("K3_combine", "K5_pair_gram", "K6_combine_fix", "K12_pair_gram_x
                 "K12_pair_gram_xg_gp", "K13_combine_ow")
 KERNELS.update({f"{name}_m80": (route, src, f"{rep} (m = 80)")
                 for name, (route, src, rep) in list(KERNELS.items()) if name in DEEP_KERNELS})
+#: the batched runner's kernels (the JAX package vmaps the solo kernels,
+#: lbfgs_tpu/batched.py:28-72, adding a batch axis to each grid)
+VMAPPED = " under vmap (lbfgs_tpu/batched.py:28-72)"
+KERNELS.update({
+    "K2b_probe_batched": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                          "lbfgs_tpu/ops/factory.py:280" + VMAPPED),
+    "K4b_trial_pair_gram_batched": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                    "lbfgs_tpu/ops/factory.py:722" + VMAPPED),
+    "K3b_combine_batched": ("cuda", "lbfgs_torch/csrc/combine.cu",
+                            "lbfgs_tpu/ops/fused.py:1359" + VMAPPED),
+})
+BATCHED_PATH = ("K2b_probe_batched", "K4b_trial_pair_gram_batched", "K3b_combine_batched")
 #: the kernels each main path must launch, and whose launches the kernel
 #: table shows from that path
 PLAIN_PATH = ("K1_trial", "K2_probe", "K4_trial_pair_gram", "K15_combine_probe")
@@ -346,6 +376,11 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
         "K15_combine_probe_fix": (3 * v + 2 * m * h + h, 4 * m + 26),
         "K16_combine_ow_probe": (3 * v + 2 * m * h, 4 * m + 34),
         "K17_axpy_dot": (4 * v, 4),
+        # the batched forms: their solo kernel's per element of the batch
+        # (the [B] steps, masks and coefficients are below a byte each)
+        "K2b_probe_batched": (2 * v, 16),
+        "K4b_trial_pair_gram_batched": (5 * v + rings, 12 * m + 24),
+        "K3b_combine_batched": (2 * v + 2 * m * h, 4 * m + 6),
         # reads and writes one float32 per element, at n = N_NULL
         "cal_null_launch": (8, 1),
     }[name]
@@ -1363,10 +1398,11 @@ EXTRAS = {}
 #: the factory's plain versions, by attribute name
 FACTORY_REFS = ("trial_ref", "probe_ref", "trial_pair_gram_ref", "owlqn_trial_ref",
                 "owlqn_probe_ref", "owlqn_probe_pg_ref", "owlqn_trial_pair_gram_ref",
-                "combine_probe_ref", "combine_ow_probe_ref")
+                "combine_probe_ref", "combine_ow_probe_ref", "probe_batched_ref",
+                "trial_pair_gram_batched_ref")
 FACTORY_WRAPPERS = ("trial", "probe", "trial_pair_gram", "owlqn_trial", "owlqn_probe",
                     "owlqn_probe_pg", "owlqn_trial_pair_gram", "combine_probe",
-                    "combine_ow_probe")
+                    "combine_ow_probe", "probe_batched", "trial_pair_gram_batched")
 
 
 def _factory_launches(k, sfx: str) -> dict:
@@ -1405,6 +1441,10 @@ def launches() -> dict:
         "K13_combine_ow": fused.combine_ow.launches,
         "K17_axpy_dot": fused.axpy_dot.launches,
         "cal_null_launch": profiling.null_launch.launches,
+        "K2b_probe_batched": rosenbrock.value_and_grad.kernels.probe_batched.launches,
+        "K4b_trial_pair_gram_batched":
+            rosenbrock.value_and_grad.kernels.trial_pair_gram_batched.launches,
+        "K3b_combine_batched": fused.combine_batched.launches,
     }
     ex = dict.fromkeys(_factory_launches(rosenbrock.value_and_grad.kernels, "_ex"), 0)
     for obj in EXTRAS.values():
@@ -1434,6 +1474,9 @@ PLAIN = {
     "K16_combine_ow_probe": rosenbrock.combine_ow_probe_ref,
     "K17_axpy_dot": fused.axpy_dot_ref,
     "cal_null_launch": profiling.null_launch_ref,
+    "K2b_probe_batched": rosenbrock.value_and_grad.kernels.probe_batched_ref,
+    "K4b_trial_pair_gram_batched": rosenbrock.value_and_grad.kernels.trial_pair_gram_batched_ref,
+    "K3b_combine_batched": fused.combine_batched_ref,
 }
 
 
@@ -1462,7 +1505,7 @@ def reset_counts() -> None:
     for fn in (fused.combine, fused.pseudo_gradient_norm, fused.combine_ow,
                fused.pair_gram_sd, fused.combine_fix, fused.owlqn_trial_step,
                fused.pseudo_gradient, fused.pair_gram_xg, fused.axpy_dot,
-               profiling.null_launch):
+               profiling.null_launch, fused.combine_batched):
         fn.launches = 0
     fused.pair_gram_xg.gp_launches = 0
     for fn in PLAIN.values():
@@ -3184,6 +3227,269 @@ def phase_checkpoint() -> None:
          fields=len(a), bytes=size, fx=float(resumed.state.prob.fx), bit_for_bit=True)
 
 
+# ---------------------------------------------------------------------------
+# the batched runner (minimize_batched): K2 b, K4 b and K3 b
+# ---------------------------------------------------------------------------
+
+#: the batched kernels' and main path's shapes: B instances of n elements,
+#: 2^24 elements in all (the solo main path's bytes), m = M; the kernel
+#: checks write ring row BATCH_END and freeze every third instance from the
+#: third, so that instances 0, 511 and 1023, held to the solo kernels, are live
+BATCH_B, BATCH_N, BATCH_END = 1024, 1 << 14, 3
+BATCH_SOLO = (0, 511, 1023)
+#: the batched main path: bench_batched.py's configuration (lbfgs()'s
+#: defaults, epsilon 0, 30 iterations, x0 = the Rosenbrock start + 0.05 *
+#: N(0, 1) from numpy seed 0; bench_batched.py:47-56) at B x n = 1024 x
+#: 2^14, with the main path's bfloat16 ring
+BATCHED_PARAMS = LbfgsParams(m=M, history_dtype="bfloat16", epsilon=0.0, max_iterations=31)
+#: BASELINE.md's batch regime: 10,000 instances of n = 64, bench_batched.py's
+#: accelerator default, at lbfgs()'s defaults (a float32 ring)
+BASELINE_B, BASELINE_N = 10_000, 64
+BASELINE_PARAMS = LbfgsParams(epsilon=0.0, max_iterations=31)
+#: timed runs of each batched path: host walls spread within one call
+#: (the card's host CPU is shared), so the least of three is reported
+BATCHED_RUNS = 3
+
+
+def batched_x0(B: int, n: int) -> torch.Tensor:
+    """bench_batched.py's starts: the Rosenbrock start plus 0.05 * N(0, 1)
+    from numpy seed 0, float32, on the card."""
+    rng = np.random.RandomState(0)
+    base = rosenbrock.initial_point(n, torch.float32, "cpu").numpy()
+    return torch.from_numpy(base[None, :] + 0.05 * rng.randn(B, n).astype(np.float32)).cuda()
+
+
+def batched_inputs(seed: int) -> dict:
+    """Seeded [B, n] inputs of the batched kernels, f32 vectors and bf16
+    rings, every third instance from the third frozen."""
+    B, n = BATCH_B, BATCH_N
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    live = torch.ones(B, dtype=torch.bool, device="cuda")
+    live[2::3] = False
+    xp = rosenbrock.initial_point(n, torch.float32, "cuda")[None, :] + 0.1 * r(B, n)
+    return dict(xp=xp, d=0.1 * r(B, n), gp=r(B, n), S=r(B, M, n).bfloat16(),
+                Y=r(B, M, n).bfloat16(), stp=0.2 + torch.rand(B, generator=g, device="cuda"),
+                coef=0.5 * r(B, 1 + 2 * M), live=live)
+
+
+def phase_batched_kernels() -> dict:
+    """K2 b, K4 b and K3 b against their plain versions on the card at B =
+    1024, n = 2^14, m = 6, f32 vectors, bf16 rings, end = 3, a third of the
+    instances frozen (normwise 1e-5 on vectors, 1e-4 on sums; K4 b's ring
+    rows bit for bit the rounding of its own pair, the other rows kept;
+    every frozen instance's x, g, ring rows and direction untouched bit for
+    bit); then instances 0, 511 and 1023 against the solo K2, K4 and K3 on
+    that instance alone: x, g, the rings and r bit for bit, K2's sums
+    printed.  Each kernel timed with every instance live, beside its plain
+    version and its bound."""
+    k = rosenbrock.value_and_grad.kernels
+    a = batched_inputs(SEED + 12)
+    live, frozen = a["live"], ~a["live"]
+    tv, ts = TOL[(torch.float32, "vec")], TOL[(torch.float32, "sum")]
+    errs = {}
+    ft, dg = k.probe_batched(a["xp"], a["d"], a["stp"], live)
+    pft, pdg = k.probe_batched_ref(a["xp"], a["d"], a["stp"], live)
+    errs["K2b_probe_batched"] = (
+        check("K2b ft", ft[live], pft[live], ts), check("K2b g.d", dg[live], pdg[live], ts))
+
+    def k4(fn):
+        x, g, S, Y = (a[name].clone() for name in ("xp", "gp", "S", "Y"))
+        return (x, g, S, Y), fn(x, a["d"], g, a["stp"], S, Y, BATCH_END, live)
+
+    (xk, gk, Sk, Yk), outk = k4(k.trial_pair_gram_batched)
+    (xq, gq, Sq, Yq), outp = k4(k.trial_pair_gram_batched_ref)
+    e4 = [check("K4b x", xk[live], xq[live], tv), check("K4b g", gk[live], gq[live], tv)]
+    e4 += [check(f"K4b sum{i}", outk[i][live], outp[i][live], ts) for i in (0, 1, 2, 4, 5)]
+    if not torch.equal(outk[3][live], outp[3][live]):
+        raise AssertionError("K4b: changed differs from the plain version")
+    errs["K4b_trial_pair_gram_batched"] = tuple(e4)
+    # the ring rows: row end of a live instance the rounding of the
+    # kernel's own pair (s, y) = (stp d, g - gp); every other row kept
+    s_new = (a["stp"][:, None] * a["d"]).to(torch.bfloat16)
+    y_new = (gk - a["gp"]).to(torch.bfloat16)
+    keep = [j for j in range(M) if j != BATCH_END]
+    if not (same_bits(Sk[live][:, BATCH_END], s_new[live])
+            and same_bits(Yk[live][:, BATCH_END], y_new[live])
+            and same_bits(Sk[:, keep], a["S"][:, keep])
+            and same_bits(Yk[:, keep], a["Y"][:, keep])):
+        raise AssertionError("K4b: the ring rows are not the rounded pair and the kept rows")
+    rk = torch.zeros_like(a["d"])
+    rq = torch.zeros_like(a["d"])
+    ck = fused.combine_batched(a["gp"], a["S"], a["Y"], a["coef"], live, rk)
+    cq = fused.combine_batched_ref(a["gp"], a["S"], a["Y"], a["coef"], live, rq)
+    errs["K3b_combine_batched"] = (
+        check("K3b r", rk[live], rq[live], tv),
+        *(check(f"K3b sum{i}", ck[i][live], cq[i][live], ts) for i in (0, 1)))
+    # frozen instances: nothing of theirs written
+    untouched = all(same_bits(out[frozen], a[name][frozen])
+                    for out, name in ((xk, "xp"), (gk, "gp"), (Sk, "S"), (Yk, "Y")))
+    if not (untouched and not rk[frozen].any()):
+        raise AssertionError("a batched kernel wrote a frozen instance")
+    # instances 0, 511, 1023 against the solo kernels on that instance alone
+    solo = {}
+    for b in BATCH_SOLO:
+        stp = float(a["stp"][b])
+        sft, sdg = k.probe(a["xp"][b], a["d"][b], stp)
+        Sb, Yb = a["S"][b].clone(), a["Y"][b].clone()
+        x1, _, g1 = k.trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b], stp, Sb, Yb,
+                                      BATCH_END)[:3]
+        c = a["coef"][b]
+        r1 = fused.combine(a["gp"][b], a["S"][b], a["Y"][b], c[0], c[1:1 + M], c[1 + M:])[0]
+        bits = dict(x=same_bits(xk[b], x1), g=same_bits(gk[b], g1), S=same_bits(Sk[b], Sb),
+                    Y=same_bits(Yk[b], Yb), r=same_bits(rk[b], r1))
+        if not all(bits.values()):
+            raise AssertionError(f"instance {b} differs from the solo kernels: {bits}")
+        solo[b] = dict(k2_sums_bit_for_bit=same_bits(ft[b], sft) and same_bits(dg[b], sdg),
+                       k2_ft_rel=abs(float(ft[b]) / float(sft) - 1))
+    del xk, gk, Sk, Yk, xq, gq, Sq, Yq, outk, outp, rq, s_new, y_new
+    torch.cuda.empty_cache()
+    # times with every instance live, on copies the in-place K4 b advances
+    every = torch.ones_like(live)
+    x, g, S, Y = (a[name].clone() for name in ("xp", "gp", "S", "Y"))
+    cases = {
+        "K2b_probe_batched": (lambda: k.probe_batched(x, a["d"], a["stp"], every),
+                              lambda: k.probe_batched_ref(x, a["d"], a["stp"], every)),
+        "K4b_trial_pair_gram_batched": (
+            lambda: k.trial_pair_gram_batched(x, a["d"], g, a["stp"], S, Y, BATCH_END, every),
+            lambda: k.trial_pair_gram_batched_ref(x, a["d"], g, a["stp"], S, Y, BATCH_END,
+                                                  every)),
+        "K3b_combine_batched": (
+            lambda: fused.combine_batched(a["gp"], a["S"], a["Y"], a["coef"], every, rk),
+            lambda: fused.combine_batched_ref(a["gp"], a["S"], a["Y"], a["coef"], every, rk)),
+    }
+    times, timed_by = {}, {}
+    for name, (kern, plain) in cases.items():
+        k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain, 20)
+        times[name], timed_by[name] = (k_ms, p_ms), (k_by, p_by)
+    bounds = {name: bound(name, BATCH_B * BATCH_N, 4, 2, M) for name in cases}
+    errs = {name: (max(e[0] for e in v), max(e[1] for e in v)) for name, v in errs.items()}
+    emit(phase="batched_kernels", B=BATCH_B, n=BATCH_N, m=M, end=BATCH_END,
+         frozen=int(frozen.sum()), max_abs_err={n_: e[0] for n_, e in errs.items()},
+         max_normwise_err={n_: e[1] for n_, e in errs.items()},
+         tol=dict(vec=tv, sum=ts, ring_rows="bit-exact", frozen="bit-exact",
+                  vs_solo_x_g_rings_r="bit-exact"), vs_solo=solo,
+         device_ms={n_: {"kernel": t[0], "plain": t[1], "bound": bounds[n_][0]}
+                    for n_, t in times.items()},
+         timed_by={n_: {"kernel": t[0], "plain": t[1]} for n_, t in timed_by.items()})
+    del a, x, g, S, Y, rk
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
+
+
+def _batched_run(name: str, params: LbfgsParams, B: int, n: int) -> tuple:
+    """One warm and three timed ``minimize_batched`` of B instances of n
+    elements from ``batched_x0``, the counts reset before each; returns
+    (state, the three walls in seconds, launches, plain calls, host reads,
+    loop iterations, the starts), the counts and state of the last run."""
+    x0b = batched_x0(B, n)
+    fn = default_evaluate()
+    minimize_batched(params, x0b, fn)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(BATCHED_RUNS):
+        reset_counts()
+        out = []
+        walls.append(profiling.timed(
+            lambda: out.append(minimize_batched(params, x0b, fn, return_state=True)), warmup=0))
+    st = out[0]
+    lc, pc, reads = launches(), plain_calls(), to_host.reads
+    iters = int(st.k.max()) - 1
+    if not np.isfinite(st.fx).all():
+        raise AssertionError(f"{name}: {int((~np.isfinite(st.fx)).sum())} instances end "
+                             f"with a non-finite fx")
+    if st.x.device.type != "cuda":
+        raise AssertionError(f"{name}: the run left the card")
+    # the loop's epilogues and combines, one each per iteration; the probes
+    # one per search trip; nothing else launched, no plain version
+    if not (1 <= lc["K4b_trial_pair_gram_batched"] == lc["K3b_combine_batched"] <= iters
+            and lc["K2b_probe_batched"] >= lc["K4b_trial_pair_gram_batched"]):
+        raise AssertionError(f"{name}: launches {lc} in {iters} iterations")
+    _expect(name, lc, pc, **{k: lc[k] for k in BATCHED_PATH})
+    return st, walls, lc, pc, reads, iters, x0b
+
+
+def _batched_report(phase: str, st, walls: list, lc: dict, reads: int, iters: int,
+                    **extra) -> dict:
+    """The run's line: instance-iterations/s and wall ms per iteration from
+    the least of the walls (all printed), per-iteration counts."""
+    codes, counts = np.unique(st.status, return_counts=True)
+    inst_iters = int(np.maximum(st.k - 1, 0).sum())
+    dt = min(walls)
+    out = dict(phase=phase, B=int(st.x.shape[0]), n=int(st.x.shape[1]), iters=iters,
+               instance_iters=inst_iters, seconds=dt, seconds_runs=walls,
+               instance_iters_per_s=inst_iters / dt,
+               wall_ms_per_iter=1e3 * dt / iters, syncs_per_iter=reads / iters,
+               probes_per_iter=lc["K2b_probe_batched"] / iters,
+               evals_per_instance=float(st.neval.mean()),
+               status={int(c): int(v) for c, v in zip(codes, counts)},
+               fx_median=float(np.median(st.fx)), fx_max=float(st.fx.max()),
+               launches={k: lc[k] for k in BATCHED_PATH}, **extra)
+    emit(**out)
+    return out
+
+
+def _batched_profile(params: LbfgsParams, x0b: torch.Tensor) -> dict:
+    """Device busy ms and host launch calls per iteration of one profiled
+    batched run (None where every profiler session came back empty)."""
+    prof, st = profiled(lambda: minimize_batched(params, x0b, default_evaluate(),
+                                                 return_state=True))
+    iters = int(st.k.max()) - 1
+    if prof is None:
+        return dict(device_ms_per_iter=None, launch_calls_per_iter=None)
+    busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+    calls = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+    return dict(device_ms_per_iter=busy / iters, launch_calls_per_iter=calls / iters)
+
+
+def phase_batched_main_path() -> dict:
+    """``minimize_batched`` on bench_batched.py's configuration at kernel
+    scale (``BATCHED_PARAMS``, B = 1024 x n = 2^14 from ``batched_x0``):
+    K2 b per search trip, K4 b and K3 b per iteration, nothing else and no
+    plain version; every fx finite.  Prints instance-iterations/s, device
+    ms, syncs and host launch calls per iteration, and the solo main path's
+    device ms per iteration at n = 2^24 beside it.  Then instances 0-7 run
+    solo through ``minimize_jit`` against a batched run of 8 iterations:
+    the same iterations and evaluations, fx rel ``FUSION_TOL_8``."""
+    params = BATCHED_PARAMS
+    st, walls, lc, pc, reads, iters, x0b = _batched_run("batched main path", params, BATCH_B,
+                                                         BATCH_N)
+    prof = _batched_profile(params, x0b)
+    solo = _busy_per_iter(MAIN_PARAMS, rosenbrock.initial_point(N_BIG, torch.float32, "cuda"),
+                          default_evaluate())
+    out = _batched_report("batched_main_path", st, walls, lc, reads, iters, **prof,
+                          solo_main_path_device_ms_per_iter=solo, plain_calls=pc)
+    del st
+    p8 = params.replace(max_iterations=9)
+    st8 = minimize_batched(p8, x0b, default_evaluate(), return_state=True)
+    held = []
+    for b in range(8):
+        so = minimize_jit(p8, x0b[b].clone(), default_evaluate(), return_state=True)
+        rel = abs(float(st8.fx[b]) / float(so.prob.fx) - 1)
+        if (so.k, so.prob.neval) != (int(st8.k[b]), int(st8.neval[b])) or not rel <= FUSION_TOL_8:
+            raise AssertionError(f"batched instance {b} against its solo run after 8 "
+                                 f"iterations: k/neval {(int(st8.k[b]), int(st8.neval[b]))} vs "
+                                 f"{(so.k, so.prob.neval)}, rel fx {rel:.3e}")
+        held.append(dict(k=so.k, neval=so.prob.neval, rel_fx=rel))
+    emit(phase="batched_vs_solo", iters=8, fx_tol=FUSION_TOL_8, instances=held)
+    del st8, x0b
+    torch.cuda.empty_cache()
+    return lc, out
+
+
+def phase_batched_baseline() -> dict:
+    """BASELINE.md's batch regime: B = 10,000 x n = 64 (``BASELINE_PARAMS``,
+    30 iterations, epsilon 0), instance-iterations/s; the same launch
+    checks as the main path, every fx finite."""
+    st, walls, lc, pc, reads, iters, x0b = _batched_run("batched baseline", BASELINE_PARAMS,
+                                                         BASELINE_B, BASELINE_N)
+    out = _batched_report("batched_baseline", st, walls, lc, reads, iters,
+                          **_batched_profile(BASELINE_PARAMS, x0b))
+    del st, x0b
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -3233,8 +3539,12 @@ def main() -> None:
     run(phase_float16_history)
     run(phase_native)
     run(phase_checkpoint)
+    batched = run(phase_batched_kernels)
+    lc_batched, _ = run(phase_batched_main_path)
+    run(phase_batched_baseline)
     for key in ("errs", "times", "bounds", "timed_by"):
         k[key].update(deep[key])
+        k[key].update(batched[key])
     lc_cal = run(phase_launch_overhead, {
         name: (params, fused, out["ms_per_iter"], out["syncs_per_iter"])
         for name, params, fused, out in (
@@ -3262,6 +3572,7 @@ def main() -> None:
           **{name: lc_lasso[name] for name in LASSO_PATH},
           **{name: lc_quartic[name] for name in QUARTIC_PATH},
           **{name: lc_lasso_var[name] for name in LASSO_VARIANTS_PATH}, **lc_deep,
+          **{name: lc_batched[name] for name in BATCHED_PATH},
           "K17_axpy_dot": lc_main["K17_axpy_dot"], **lc_cal}
     # library_ms: one PyTorch call computing the same function, where one
     # exists (only the calibration kernel's o = x + 1)

@@ -75,8 +75,21 @@ core (``minimize(..., backend="native")``, ``native``), checkpoints
 (``utils.checkpoint``) and the pytree front end (``pytree_api``).  The
 Poisson regression takes a bfloat16 X over float32 vectors.  Their CPU
 tests hold each to ``lbfgs_tpu`` (``tests/test_torch_parity_slice.py``).
-The speculative search, fp8 histories and the batched runner raise
-``NotImplementedError``; sharding is not ported.
+The speculative search and fp8 histories raise ``NotImplementedError``;
+sharding is not ported.
+
+Scenario batches (``Lbfgs.minimize_batched``, ``batched``): B independent
+instances of one factory objective as a [B, n] tensor, advanced together
+with one batched launch per pass (K2 b, K4 b, K3 b)::
+
+    out = lbfgs().minimize_batched(x0_batch, rosenbrock.value_and_grad)
+    out["fx"], out["niter"], out["x"]
+
+It runs plain L-BFGS with More-Thuente or the backtracking searches under
+the capped step; OWL-QN, damping, the gradient-only mode, the uncapped
+step, the adaptive entry step, the wide objective scalar, the scan
+two-loop, a float16 history, more than 64 ring rows and generic
+objectives raise ``NotImplementedError`` there.
 """
 
 from __future__ import annotations

@@ -1,0 +1,344 @@
+"""The line searches of ``minimize_batched``, vectorized over instances.
+
+The batched runner advances B independent problems in lockstep, and
+each iteration runs one line search per instance.  ``linesearch`` runs
+its searches as Python loops over numpy scalars, one device read per
+trip.  Here the same searches run as loops over numpy arrays of shape
+[B]: every instance whose search is still going takes its next trip at
+once, which is one batched probe (``probe(stp, live)``, K2 b on the
+card) and one read of the [B] (ft, g.d) pairs.  An instance whose search
+has ended stays out of the later trips (``live``), as the JAX package's
+vmapped while loop freezes it by a select.
+
+Each instance's arithmetic is that of the scalar search in the vectors'
+dtype, operation for operation, so every instance's trials, steps and
+status equal ``linesearch.morethuente`` and ``linesearch.backtracking``
+bit for bit, the reference quirks included (at most ``max_linesearch -
+1`` trials, the curvature-only first convergence test, backtracking's
+unevaluated exhaustion step).  Where the scalar code branches, this code
+computes every branch and selects (``update_trial_interval``, the
+JAX package's branch-free form, ``lbfgs_tpu/linesearch.py:136-241``);
+the branches not taken may divide by zero, so they run under
+``np.errstate`` and their values never pass a select.
+
+Not here (the batched runner refuses them): the wide objective scalar,
+OWL-QN's projected searches and the gradient-only exit.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+
+from .params import LineSearchAlgorithm, LineSearchParams
+from .status import Status
+
+
+class IntervalUpdate(NamedTuple):
+    """``linesearch.McstepResult`` over [B] arrays."""
+
+    x: np.ndarray
+    fx: np.ndarray
+    dx: np.ndarray
+    y: np.ndarray
+    fy: np.ndarray
+    dy: np.ndarray
+    t: np.ndarray
+    brackt: np.ndarray
+    status: np.ndarray
+
+
+def _cubic_minimizer_d(u, dfuv, du, v, dv):
+    d = v - u
+    theta = dfuv * 3.0 / d + du + dv
+    s = np.maximum(np.maximum(np.abs(theta), np.abs(du)), np.abs(dv))
+    a = theta / s
+    gamma = s * np.sqrt(a * a - (du / s) * (dv / s))
+    gamma = np.where(v < u, -gamma, gamma)
+    p = gamma - du + theta
+    q = gamma - du + gamma + dv
+    r = p / q
+    return u + r * d
+
+
+def _cubic_minimizer2_d(u, dfuv, du, v, dv, xmin, xmax):
+    d = v - u
+    theta = dfuv * 3.0 / d + du + dv
+    s = np.maximum(np.maximum(np.abs(theta), np.abs(du)), np.abs(dv))
+    a = theta / s
+    gamma = s * np.sqrt(np.maximum(0.0, a * a - (du / s) * (dv / s)))
+    gamma = np.where(u < v, -gamma, gamma)
+    p = gamma - dv + theta
+    q = gamma - dv + gamma + du
+    r = p / q
+    return np.where((r < 0.0) & (gamma != 0.0), v - r * d, np.where(v > u, xmax, xmin))
+
+
+def _quad_minimizer_d(u, dfuv, du, v):
+    a = v - u
+    return u + du / (dfuv / a + du) / 2.0 * a
+
+
+def _quad_minimizer2(u, du, v, dv):
+    a = u - v
+    return v + dv / (dv - du) * a
+
+
+def update_trial_interval(x, fx, dx, y, fy, dy, t, ft, dt, tmin, tmax,
+                          brackt) -> IntervalUpdate:
+    """``linesearch.update_trial_interval`` (MCSTEP, ``src/line.rs:446-606``)
+    over [B] arrays: all four cases' trial values are computed and one is
+    selected per instance.  Each instance's result equals the scalar
+    function's on its elements bit for bit, NaNs included."""
+    brackt = np.asarray(brackt, dtype=bool)
+    with np.errstate(all="ignore"):
+        dsign = dt * (dx / np.abs(dx)) < 0.0
+
+        # input validation (only when already bracketed), src/line.rs:470-481
+        err = np.where(brackt & ((t <= np.minimum(x, y)) | (np.maximum(x, y) <= t)),
+                       int(Status.LS_OUT_OF_INTERVAL), 0)
+        err = np.where(brackt & (err == 0) & (0.0 <= dx * (t - x)),
+                       int(Status.LS_INCREASE_GRADIENT), err)
+        err = np.where(brackt & (err == 0) & (tmax < tmin), int(Status.LS_INVALID_INTERVAL), err)
+
+        case1 = fx < ft
+        case2 = ~case1 & dsign
+        case3 = ~case1 & ~dsign & (np.abs(dt) < np.abs(dx))
+        d_fx_ft = fx - ft
+
+        mc = _cubic_minimizer_d(x, d_fx_ft, dx, t, dt)
+        mq1 = _quad_minimizer_d(x, d_fx_ft, dx, t)
+        newt1 = np.where(np.abs(mc - x) < np.abs(mq1 - x), mc, mc + 0.5 * (mq1 - mc))
+        mq2 = _quad_minimizer2(x, dx, t, dt)
+        newt2 = np.where(np.abs(mc - t) > np.abs(mq2 - t), mc, mq2)
+        mc3 = _cubic_minimizer2_d(x, d_fx_ft, dx, t, dt, tmin, tmax)
+        newt3 = np.where(brackt,
+                         np.where(np.abs(t - mc3) < np.abs(t - mq2), mc3, mq2),
+                         np.where(np.abs(t - mc3) > np.abs(t - mq2), mc3, mq2))
+        newt4 = np.where(brackt, _cubic_minimizer_d(t, ft - fy, dt, y, dy),
+                         np.where(x < t, tmax, tmin))
+        newt = np.where(case1, newt1, np.where(case2, newt2, np.where(case3, newt3, newt4)))
+        bound = case1 | case3
+        brackt_new = brackt | case1 | case2
+
+        # interval-of-uncertainty update (src/line.rs:555-579)
+        y_new = np.where(case1, t, np.where(dsign, x, y))
+        fy_new = np.where(case1, ft, np.where(dsign, fx, fy))
+        dy_new = np.where(case1, dt, np.where(dsign, dx, dy))
+        x_new = np.where(case1, x, t)
+        fx_new = np.where(case1, fx, ft)
+        dx_new = np.where(case1, dx, dt)
+
+        newt = np.minimum(np.maximum(newt, tmin), tmax)
+
+        # far-endpoint 0.66 safeguard (src/line.rs:591-600)
+        mq_s = x_new + 0.66 * (y_new - x_new)
+        safe = np.where(x_new < y_new, np.minimum(newt, mq_s), np.maximum(newt, mq_s))
+        newt = np.where(brackt_new & bound, safe, newt)
+
+    cast = np.asarray(t).dtype
+    fcast = np.result_type(fx, fy, ft)
+    return IntervalUpdate(
+        x=x_new.astype(cast), fx=fx_new.astype(fcast), dx=dx_new.astype(cast),
+        y=y_new.astype(cast), fy=fy_new.astype(fcast), dy=dy_new.astype(cast),
+        t=newt.astype(cast), brackt=brackt_new, status=err,
+    )
+
+
+class BatchedSearch(NamedTuple):
+    """The [B] outcomes of one batched line search (``linesearch.
+    LineSearchResult``'s host fields).  Instances outside the search keep
+    fx = finit, step = step_eval = their entry step, ncall 0, their
+    evaluation count and status 0."""
+
+    fx: np.ndarray         #: objective at the last trial
+    step: np.ndarray       #: the reported step
+    step_eval: np.ndarray  #: the step that produced the last trial
+    ncall: np.ndarray      #: evaluations the search used (0 on failure)
+    neval: np.ndarray      #: the global evaluation counts
+    status: np.ndarray     #: 0 success; LS_* or ERR_NEGATIVE_STEP
+
+
+#: probe(stp [B], live [B] bool) -> (ft [B], g.d [B]) in the vectors'
+#: dtype: one batched evaluation of the instances in ``live``
+Probe = Callable[[np.ndarray, np.ndarray], tuple]
+
+
+def morethuente(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
+                probe: Probe) -> BatchedSearch:
+    """``linesearch.morethuente`` in probe-only mode over the instances in
+    ``live``, one ``probe`` per trip (``src/line.rs:226-399``)."""
+    f = finit.dtype.type
+    ftol, gtol, xtol = f(ls.ftol), f(ls.gtol), f(ls.xtol)
+    min_step, max_step = f(ls.min_step), f(ls.max_step)
+    max_ls = ls.max_linesearch
+    B = finit.shape[0]
+
+    dgtest = ftol * dginit
+    width = np.full(B, f(max_step - min_step))
+    prev_width = f(2.0) * width
+    stp, stx, sty = stp0.copy(), np.zeros(B, f), np.zeros(B, f)
+    fx, fy, ft = finit.copy(), finit.copy(), finit.copy()
+    dgx, dgy = dginit.copy(), dginit.copy()
+    brackt, stage1 = np.zeros(B, bool), np.ones(B, bool)
+    done = np.zeros(B, bool)
+    result = np.full(B, max_ls)
+    status = np.zeros(B, np.int64)
+    neval = neval0.copy()
+    stp_eval = stp0.copy()
+    stp_eval[live] = f(0.0)
+    count = 1
+
+    with np.errstate(all="ignore"):
+        while count < max_ls:
+            run = live & ~done
+            if not run.any():
+                break
+            # interval of uncertainty (src/line.rs:261-265)
+            stmin = np.where(brackt, np.minimum(stx, sty), stx)
+            stmax = np.where(brackt, np.maximum(stx, sty), stp + f(4.0) * (stp - stx))
+            s = np.minimum(np.maximum(stp, min_step), max_step)
+            # unusual termination -> lowest point so far (src/line.rs:277-281)
+            unusual = brackt & ((s <= stmin) | (stmax <= s) | (max_ls <= count + 1)
+                                | (stmax - stmin <= xtol * stmax))
+            s = np.where(unusual, stx, s)
+
+            ft_t, dg_t = probe(s, run)
+            ftest1 = finit + s * dgtest
+
+            # error exits (src/line.rs:292-313)
+            st = np.where(brackt & ((s <= stmin) | (stmax <= s)), int(Status.LS_ROUNDING), 0)
+            st = np.where((st == 0) & brackt & (stmax - stmin <= xtol * stmax),
+                          int(Status.LS_XTOL), st)
+            st = np.where((st == 0) & (s == max_step) & (ft_t <= ftest1) & (dg_t <= dgtest),
+                          int(Status.LS_MAX_STEP), st)
+            st = np.where((st == 0) & (s == min_step) & ((ftest1 < ft_t) | (dgtest <= dg_t)),
+                          int(Status.LS_MIN_STEP), st)
+            # convergence: the curvature condition alone (src/line.rs:315-321)
+            success = (st == 0) & (np.abs(dg_t) <= gtol * (-dginit))
+            # stage-1 update (src/line.rs:324-326)
+            stage1_t = stage1 & ~((ft_t <= ftest1) & (min(ftol, gtol) * dginit <= dg_t))
+            use_mod = stage1_t & (ftest1 < ft_t) & (ft_t <= fx)
+
+            # one interval update, where use_mod on the modified function
+            # values (src/line.rs:333-340): the update is elementwise, so
+            # selecting its inputs selects its outputs
+            fmod = lambda v, t: np.where(use_mod, v - t * dgtest, v)
+            dmod = lambda v: np.where(use_mod, v - dgtest, v)
+            u = update_trial_interval(stx, fmod(fx, stx), dmod(dgx), sty, fmod(fy, sty),
+                                      dmod(dgy), s, fmod(ft_t, s), dmod(dg_t), stmin, stmax,
+                                      brackt)
+            fx_t = np.where(use_mod, u.fx + u.x * dgtest, u.fx)
+            fy_t = np.where(use_mod, u.fy + u.y * dgtest, u.fy)
+            dgx_t = np.where(use_mod, u.dx + dgtest, u.dx)
+            dgy_t = np.where(use_mod, u.dy + dgtest, u.dy)
+            stx_t, sty_t, stp_n, brackt_t = u.x, u.y, u.t, u.brackt
+            st = np.where((st == 0) & (u.status != 0), u.status, st)
+            fin = (st != 0) | success
+
+            # force sufficient interval shrinkage (src/line.rs:382-391)
+            shrink = brackt_t & (f(0.66) * prev_width <= np.abs(sty_t - stx_t))
+            stp_n = np.where(shrink, stx_t + f(0.5) * (sty_t - stx_t), stp_n)
+            prev_width_t = np.where(brackt_t, width, prev_width)
+            width_t = np.where(brackt_t, np.abs(sty_t - stx_t), width)
+
+            # the trip's carry, for the instances that took it
+            keep = lambda new, old: np.where(run, new, old)
+            ft = keep(ft_t, ft)
+            neval = neval + run
+            stx, sty, fx, fy = keep(stx_t, stx), keep(sty_t, sty), keep(fx_t, fx), keep(fy_t, fy)
+            dgx, dgy = keep(dgx_t, dgx), keep(dgy_t, dgy)
+            brackt, stage1 = keep(brackt_t, brackt), keep(stage1_t, stage1)
+            prev_width, width = keep(prev_width_t, prev_width), keep(width_t, width)
+            status = keep(st, status)
+            stp_eval = keep(s, stp_eval)
+            result = np.where(run & success, count, result)
+            stp = keep(np.where(fin, s, stp_n), stp)
+            done = done | (run & fin)
+            count += 1
+
+    ncall = np.where(live & (status == 0), result, 0)
+    return BatchedSearch(fx=ft, step=stp, step_eval=stp_eval, ncall=ncall, neval=neval,
+                         status=status)
+
+
+def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
+                 probe: Probe) -> BatchedSearch:
+    """``linesearch.backtracking`` in probe-only mode (OWL-QN off, no
+    gradient-only exit) over the instances in ``live``: the Armijo, Wolfe
+    or strong-Wolfe exit ladder (``src/line.rs:716-784``), one ``probe``
+    per trip."""
+    f = finit.dtype.type
+    dec, inc = f(0.5), f(2.1)
+    dgtest = f(ls.ftol) * dginit
+    gtol = f(ls.gtol)
+    min_step, max_step = f(ls.min_step), f(ls.max_step)
+    armijo_only = ls.algorithm == LineSearchAlgorithm.BacktrackingArmijo
+    wolfe = ls.algorithm == LineSearchAlgorithm.BacktrackingWolfe
+    max_ls = ls.max_linesearch
+    B = finit.shape[0]
+
+    stp = stp0.copy()
+    stp_eval = stp0.copy()
+    stp_eval[live] = f(0.0)
+    done = np.zeros(B, bool)
+    result = np.full(B, max_ls)
+    status = np.zeros(B, np.int64)
+    neval = neval0.copy()
+    ft = finit.copy()
+    count = 1
+
+    with np.errstate(all="ignore"):
+        while count < max_ls:
+            run = live & ~done
+            if not run.any():
+                break
+            ft_t, dg_t = probe(stp, run)
+            armijo_fail = ft_t > finit + stp * dgtest
+            if armijo_only:
+                # Armijo-only exit ladder (src/line.rs:745-751)
+                success, width = ~armijo_fail, dec
+            elif wolfe:
+                # regular Wolfe (src/line.rs:754-757)
+                curv_low = dg_t < gtol * dginit
+                success = ~armijo_fail & ~curv_low
+                width = np.where(armijo_fail, dec, inc)
+            else:
+                # strong Wolfe (src/line.rs:759-763)
+                curv_low = dg_t < gtol * dginit
+                curv_high = dg_t > -gtol * dginit
+                success = ~(armijo_fail | curv_low | curv_high)
+                width = np.where(armijo_fail, dec, np.where(curv_low, inc, dec))
+            # validate_step after a failed trial (src/line.rs:776, :166-178)
+            st = np.where(~success & (stp < min_step), int(Status.LS_MIN_STEP),
+                          np.where(~success & (stp > max_step), int(Status.LS_MAX_STEP), 0))
+            fin = success | (st != 0)
+
+            keep = lambda new, old: np.where(run, new, old)
+            ft = keep(ft_t, ft)
+            neval = neval + run
+            status = keep(st, status)
+            stp_eval = keep(stp, stp_eval)
+            result = np.where(run & success, count, result)
+            stp = keep(np.where(fin, stp, stp * width), stp)
+            done = done | (run & fin)
+            count += 1
+
+    ncall = np.where(live & (status == 0), result, 0)
+    return BatchedSearch(fx=ft, step=stp, step_eval=stp_eval, ncall=ncall, neval=neval,
+                         status=status)
+
+
+def find(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
+         probe: Probe) -> BatchedSearch:
+    """``linesearch.find`` over [B] instances, OWL-QN off: More-Thuente
+    when the algorithm selects it, else backtracking.  An instance with a
+    negative entry step leaves before any evaluation with
+    ``ERR_NEGATIVE_STEP`` (``src/line.rs:197-201``)."""
+    neg = live & np.signbit(stp0)
+    search = morethuente if ls.algorithm == LineSearchAlgorithm.MoreThuente else backtracking
+    out = search(ls, live & ~neg, finit, dginit, stp0, neval0, probe)
+    if neg.any():
+        out = out._replace(status=np.where(neg, int(Status.ERR_NEGATIVE_STEP), out.status))
+    return out

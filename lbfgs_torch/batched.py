@@ -1,0 +1,342 @@
+"""Scenario batches: B independent minimizations advanced together.
+
+The port of ``lbfgs_tpu/batched.py``.  The JAX package vmaps its whole
+solver over a [B, n] batch and freezes each instance by a select once it
+stops.  The port's line search runs on the host, so it cannot be vmapped;
+here one host loop drives the whole batch instead:
+
+  * the per-instance scalars the host decides on (fx, the carried norms,
+    the step, the counters and the statuses) are numpy arrays of shape
+    [B]; the vectors are [B, n] tensors and the history [B, m, n] rings
+    on the run's device;
+  * the instances still running advance in lockstep: they share the
+    iteration count, the ring row ``end`` and the number of active pairs;
+  * each iteration's line searches run together (``_batched_search``):
+    one trip is one batched probe (K2 b) over the instances still
+    searching and one read of their [B] (ft, g.d) pairs;
+  * then one epilogue (K4 b) over the instances whose search succeeded,
+    the compact two-loop's [m]-algebra on [B, m] tensors (the loops of
+    ``solver.two_loop_compact`` with one [B] vector per element, so the
+    launches do not grow with B), one combine (K3 b), and one read of the
+    [B] scalars of the stop and status tests.
+
+Every kernel takes the batch's live mask: a stopped instance's vectors,
+ring rows and counters are never written again (the JAX select, done by
+masking instead of copying [B, n]).  An instance whose search fails is
+left out of that iteration's epilogue and combine, so its point and
+gradient stay the previous ones: that is the JAX runner's revert
+(``lbfgs_tpu/batched.py:59-66``) without a copy; its ring, Gram blocks,
+direction and entry step stay those of the iteration before, where the
+JAX runner's state holds the failed iteration's.  The run is on the card
+when the batch lies on it, and on the CPU, through the kernels' plain
+versions, when the caller puts it there.
+
+This slice runs plain L-BFGS on a factory objective
+(``ops.factory.make_fused_objective``) with More-Thuente or any of the
+three backtracking searches under the capped step;
+``check_supported_batched`` raises ``NotImplementedError`` for the other
+settings.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from . import _batched_search
+from .core import History, np_type, to_host_rows
+from .ops import factory, fused
+from .params import LbfgsParams
+from .status import Status
+
+
+class BatchedState(NamedTuple):
+    """The batched run's state: instance b's slice of each field is its
+    solo ``SolverState`` (lean: no previous-point slots).  A failed
+    instance keeps the ring, Gram blocks, direction and entry step of the
+    iteration before its failed search (see the module docstring)."""
+
+    x: torch.Tensor          #: points                          [B, n]
+    gx: torch.Tensor         #: gradients                       [B, n]
+    d: torch.Tensor          #: search directions               [B, n]
+    hist: History            #: s, y [B, m, n]; ys, alpha [B, m]; sy, yy [B, m, m]
+    fx: np.ndarray           #: objective values (host)         [B]
+    gnorm2: np.ndarray       #: carried squared gradient norms  [B]
+    xnorm2: np.ndarray       #: carried squared point norms     [B]
+    neval: np.ndarray        #: evaluations                     [B]
+    k: np.ndarray            #: iteration counters              [B]
+    end: np.ndarray          #: ring slot of each next pair     [B]
+    step: np.ndarray         #: entry step of each next search  [B]
+    step_ls: np.ndarray      #: step of each last search        [B]
+    ncall: np.ndarray        #: evaluations of each last search [B]
+    status: np.ndarray       #: Status codes                    [B]
+    ls_status: np.ndarray    #: status of each last search      [B]
+    dg0: np.ndarray          #: dginit of each next search      [B]
+    #: the past/delta plateau test's fx rings [B, past], when enabled
+    pf: Optional[np.ndarray] = None
+
+
+def check_supported_batched(params: LbfgsParams, evaluate: Callable,
+                            x0_batch: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` naming each setting the batched
+    runner does not run yet: OWL-QN, damping, the gradient-only mode, the
+    uncapped step, the adaptive entry step, the wide objective scalar, the
+    scan two-loop, a history the ring kernels do not take (float16), more
+    than ``factory.MAX_M`` ring rows, the speculative search, and
+    objectives that do not carry the batched kernels (generic ones)."""
+    hdtype = (getattr(torch, params.history_dtype) if params.history_dtype
+              else x0_batch.dtype)
+    unsupported = [
+        (params.orthantwise is not None, "OWL-QN (orthantwise)"),
+        (params.damping, "Powell damping"),
+        (params.linesearch.gradient_only, "the gradient-only mode"),
+        (not params.constrain_step_size, "the uncapped step (constrain_step_size=False)"),
+        (params.adaptive_entry_step > 0.0, "the adaptive entry step"),
+        (params.fx_wide, "the wide objective scalar (fx_wide)"),
+        (not params.compact_two_loop, "the scan two-loop (compact_two_loop=False)"),
+        ((x0_batch.dtype, hdtype) not in fused.SUPPORTED,
+         f"a {hdtype} history with {x0_batch.dtype} vectors"),
+        (params.m > factory.MAX_M, f"m = {params.m} ring rows (at most {factory.MAX_M})"),
+        (int(params.linesearch.speculative) > 1, "the speculative line search"),
+        (getattr(evaluate, "__lbfgs_trial_pair_gram_batched__", None) is None,
+         "objectives without the batched kernels (generic objectives: only "
+         "ops.factory.make_fused_objective's carry them)"),
+    ]
+    for refused, what in unsupported:
+        if refused:
+            raise NotImplementedError(f"minimize_batched: {what}")
+
+
+def _to_device(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
+
+
+def init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) -> BatchedState:
+    """Each instance's initial evaluation, steepest-descent direction and
+    initial step (``solver.init_state``), the batch evaluated at once by
+    ``torch.func.vmap`` over the objective's own evaluation, as the JAX
+    package vmaps its ``init_state`` (``lbfgs_tpu/batched.py:30-33``), and
+    read in one transfer."""
+    B, n = x0_batch.shape
+    m = params.m
+    f = np_type(x0_batch.dtype)
+    x = x0_batch.contiguous().clone()
+
+    def one(xi):
+        fx, g = evaluate(xi)
+        return fx, g, torch.dot(g, g), torch.dot(xi, xi)
+
+    fx_t, g, gg, xx = torch.func.vmap(one)(x)
+    fx, gnorm2, xnorm2 = to_host_rows(fx_t.to(x.dtype), gg, xx)
+    # step = initial_inverse_hessian / ||d||, and ||d|| = ||g||
+    step = f(params.initial_inverse_hessian) / np.sqrt(np.where(gnorm2 != 0.0, gnorm2, f(1.0)))
+    hdtype = getattr(torch, params.history_dtype) if params.history_dtype else x.dtype
+    z = dict(dtype=x.dtype, device=x.device)
+    hist = History(
+        s=torch.zeros((B, m, n), dtype=hdtype, device=x.device),
+        y=torch.zeros((B, m, n), dtype=hdtype, device=x.device),
+        ys=torch.zeros((B, m), **z), alpha=torch.zeros((B, m), **z),
+        sy=torch.zeros((B, m, m), **z), yy=torch.zeros((B, m, m), **z),
+    )
+    pf = None
+    if params.fx_delta_enabled and params.past > 0:
+        pf = np.zeros((B, params.past), dtype=fx.dtype)
+        pf[:, 0] = fx
+    ints = lambda: np.zeros(B, np.int64)
+    return BatchedState(
+        x=x, gx=g.contiguous(), d=(-g).contiguous(), hist=hist, fx=fx, gnorm2=gnorm2,
+        xnorm2=xnorm2, neval=np.ones(B, np.int64), k=ints(), end=ints(), step=step,
+        step_ls=step.copy(), ncall=ints(), status=ints(), ls_status=ints(),
+        # d = -g, so dginit = -||g||^2 exactly (IEEE sign symmetry)
+        dg0=-gnorm2, pf=pf,
+    )
+
+
+def stop_status(params: LbfgsParams, st: BatchedState) -> np.ndarray:
+    """``solver.stop_status`` per instance: a recorded status, then
+    max_iterations, max_evaluations and the scaled gnorm test."""
+    f = st.gnorm2.dtype.type
+    out = np.where(st.status != Status.RUNNING, st.status, int(Status.RUNNING))
+    if params.max_iterations != 0:
+        out = np.where(st.k >= params.max_iterations, int(Status.MAX_ITERATIONS), out)
+    if params.max_evaluations != 0:
+        out = np.where((out == Status.RUNNING) & (st.neval >= params.max_evaluations),
+                       int(Status.MAX_EVALUATIONS), out)
+    with np.errstate(all="ignore"):
+        small = np.sqrt(st.gnorm2) / np.maximum(np.sqrt(st.xnorm2), f(1.0)) <= f(params.epsilon)
+    return np.where((out == Status.RUNNING) & small, int(Status.CONVERGED), out)
+
+
+def fx_delta_step(params: LbfgsParams, st: BatchedState, live: np.ndarray) -> BatchedState:
+    """``solver.fx_delta_step`` for the live instances (the flag-gated
+    past/delta plateau test: compare with the ring slot, then store)."""
+    if not (params.fx_delta_enabled and params.past > 0):
+        return st
+    rows = np.arange(st.fx.shape[0])
+    slot = st.k % params.past
+    with np.errstate(all="ignore"):
+        rate = np.abs(st.pf[rows, slot] - st.fx) / st.fx
+    hit = live & (st.status == Status.RUNNING) & (st.k >= params.past) & (rate < params.delta)
+    pf = st.pf.copy()
+    pf[rows[live], slot[live]] = st.fx[live]
+    return st._replace(pf=pf, status=np.where(hit, int(Status.CONVERGED), st.status))
+
+
+def _two_loop(hist: History, gamma: torch.Tensor, bound: int, end: int, Sd_ring: torch.Tensor,
+              Yd_ring: torch.Tensor) -> tuple:
+    """``solver.two_loop_compact``'s recurrences with the sign folded in
+    (``neg=True``), each element a [B] vector: the combine's coefficient
+    rows [B, 2m + 1] = [-gamma, cs, cy] and the alphas in ring order."""
+    B, m = hist.ys.shape
+    idx = torch.remainder(end - torch.arange(bound, device=gamma.device), m)
+    Sd, Yd, ys = Sd_ring[:, idx], Yd_ring[:, idx], hist.ys[:, idx]
+    SY = hist.sy[:, idx][:, :, idx]
+    YY = hist.yy[:, idx][:, :, idx]
+    alphas = torch.zeros((B, bound), dtype=gamma.dtype, device=gamma.device)
+    for p in range(bound):
+        alphas[:, p] = (Sd[:, p] - (SY[:, p, :p] * alphas[:, :p]).sum(dim=-1)) / ys[:, p]
+    Yq0 = Yd - (YY * alphas[:, None, :]).sum(dim=-1)
+    coefs = torch.zeros_like(alphas)
+    for p in range(bound - 1, -1, -1):
+        beta = (gamma * Yq0[:, p] + (SY[:, p + 1:, p] * coefs[:, p + 1:]).sum(dim=-1)) / ys[:, p]
+        coefs[:, p] = alphas[:, p] - beta
+    coef = torch.zeros((B, 1 + 2 * m), dtype=gamma.dtype, device=gamma.device)
+    coef[:, 0] = -gamma
+    coef[:, 1 + idx] = coefs
+    coef[:, 1 + m + idx] = -gamma[:, None] * alphas
+    alpha_ring = hist.alpha.clone()
+    alpha_ring[:, idx] = alphas
+    return coef, alpha_ring
+
+
+def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
+              live: np.ndarray) -> BatchedState:
+    """One iteration (``solver.propagate_hot``) of every live instance."""
+    k = st.k + live
+    if len(set(k[live].tolist())) != 1 or len(set(st.end[live].tolist())) != 1:
+        raise ValueError("the running instances must share their iteration count and ring row")
+    end = int(st.end[live][0])
+    m = params.m
+    bound = min(m, int(k[live][0]) - 1)
+    f = st.fx.dtype.type
+    x, g, d, hist = st.x, st.gx, st.d, st.hist
+
+    def probe(stp, run):
+        ft, dg = evaluate.__lbfgs_probe_batched__(x, d, _to_device(stp, x), _to_device(run, x))
+        return to_host_rows(ft, dg)
+
+    ls = _batched_search.find(params.linesearch, live, st.fx, st.dg0, st.step, st.neval,
+                              probe)
+    ok = live & (ls.status == 0)
+    status = np.where(live, int(Status.ERR_X_NOT_CHANGED), st.status)
+    gnorm2, xnorm2, dg0, step = st.gnorm2, st.xnorm2, st.dg0, st.step
+    if ok.any():
+        okd = _to_device(ok, x)
+        # the epilogue: x, g and ring row `end` in place, the 6m products
+        _gd, gg, xx, changed, SP, YP = evaluate.__lbfgs_trial_pair_gram_batched__(
+            x, d, g, _to_device(ls.step_eval, x), hist.s, hist.y, end, okd)
+        ys_new, yy_new = SP[:, end, 0], YP[:, end, 0]
+        sy = hist.sy.clone()
+        sy[:, :, end] = SP[:, :, 0]      # S . y_new
+        sy[:, end, :] = YP[:, :, 1]      # Y . s_new
+        yy = hist.yy.clone()
+        yy[:, :, end] = YP[:, :, 0]      # Y . y_new
+        yy[:, end, :] = YP[:, :, 0]
+        ys = hist.ys.clone()
+        ys[:, end] = ys_new
+        # gamma = ys/yy of the new pair (src/lbfgs.rs:653-656)
+        gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
+        new = hist._replace(ys=ys, sy=sy, yy=yy)
+        coef, alpha = _two_loop(new, gamma, bound, end, SP[:, :, 2], YP[:, :, 2])
+        # the combine: the next direction over d, its norm and dginit
+        dd, rd = evaluate.__lbfgs_combine_batched__(g, hist.s, hist.y, coef, okd, d)
+        keep = lambda a, b: torch.where(okd.view(-1, *([1] * (a.ndim - 1))), a, b)
+        hist = History(s=hist.s, y=hist.y, ys=keep(ys, hist.ys), alpha=keep(alpha, hist.alpha),
+                       sy=keep(sy, hist.sy), yy=keep(yy, hist.yy))
+        # the one read of the iteration's epilogue and combine
+        gg_h, xx_h, yy_h, dd_h, rd_h, changed_h = to_host_rows(gg, xx, yy_new, dd, rd,
+                                                               changed)
+        with np.errstate(all="ignore"):
+            dnorm = np.sqrt(dd_h)
+            st_ok = np.where(~changed_h, int(Status.ERR_X_NOT_CHANGED),
+                             np.where(yy_h == 0.0, int(Status.ERR_G_NOT_CHANGED), 0))
+            # dnorm.is_sign_positive() accepts +0.0 (src/lbfgs.rs:544)
+            st_ok = np.where((st_ok == 0) & ~(dnorm >= 0.0), int(Status.ERR_INVALID_DNORM),
+                             st_ok)
+            # the next entry step (src/lbfgs.rs:547-551)
+            step_next = (np.minimum(f(params.max_step_size), dnorm)
+                         / np.where(dnorm != 0.0, dnorm, f(1.0)))
+        status = np.where(ok, st_ok, status)
+        gnorm2, xnorm2 = np.where(ok, gg_h, gnorm2), np.where(ok, xx_h, xnorm2)
+        dg0, step = np.where(ok, rd_h, dg0), np.where(ok, step_next, step)
+    # a negative entry step bubbles out of the search (src/line.rs:197-201)
+    status = np.where(live & (ls.status == Status.ERR_NEGATIVE_STEP),
+                      int(Status.ERR_NEGATIVE_STEP), status)
+    at = lambda new, old: np.where(live, new, old)
+    st = st._replace(
+        hist=hist, fx=at(ls.fx, st.fx), gnorm2=gnorm2, xnorm2=xnorm2, neval=at(ls.neval, st.neval),
+        k=k, end=at((st.end + 1) % m, st.end), step=step,
+        step_ls=at(np.where(ls.status != 0, st.step, ls.step), st.step_ls),
+        ncall=at(ls.ncall, st.ncall), status=status, ls_status=at(ls.status, st.ls_status),
+        dg0=dg0,
+    )
+    return fx_delta_step(params, st, live)
+
+
+def run(params: LbfgsParams, evaluate: Callable, st: BatchedState) -> BatchedState:
+    """while any instance runs: step the running ones
+    (``lbfgs_tpu/batched.py:35-52``), then record the stop status of each
+    instance still RUNNING.  A step of an instance at k == 0 is the k == 1
+    bookkeeping (``src/lbfgs.rs:504-510``: it reports the initial point);
+    the others propagate together, and must share their iteration count
+    and ring row (as every run from ``init_state`` does)."""
+
+    def running(s: BatchedState) -> np.ndarray:
+        return (s.status == Status.RUNNING) & (stop_status(params, s) == Status.RUNNING)
+
+    while (live := running(st)).any():
+        first = live & (st.k == 0)
+        if first.any():
+            st = st._replace(k=st.k + first, step_ls=np.where(first, st.step, st.step_ls))
+            st = fx_delta_step(params, st, first)
+        if (rest := live & ~first).any():
+            st = propagate(params, evaluate, st, rest)
+    return st._replace(status=np.where(st.status == Status.RUNNING, stop_status(params, st),
+                                       st.status))
+
+
+def minimize_batched(params: LbfgsParams, x0_batch: torch.Tensor, evaluate: Callable,
+                     return_state: bool = False):
+    """Minimize a [B, n] batch of independent instances of one objective
+    (``lbfgs_tpu.batched.minimize_batched``).
+
+    ``evaluate`` is the single-instance objective, a factory objective
+    (``ops.factory.make_fused_objective``).  The run takes place on
+    x0_batch's device.  Returns the JAX package's dict of per-instance
+    results, tensors on that device: fx, xnorm, gnorm ([B], the vectors'
+    dtype), neval, niter, status ([B] int32) and x ([B, n]); or with
+    ``return_state`` the final ``BatchedState``.  A fatal status is
+    reported per instance, never raised.
+    """
+    if not isinstance(x0_batch, torch.Tensor) or x0_batch.ndim != 2:
+        raise ValueError("x0_batch must be a [B, n] tensor")
+    fused.check_dtypes(x0_batch.dtype)
+    if not 1 <= x0_batch.shape[0] <= fused.MAX_BATCH:
+        raise ValueError(f"B={x0_batch.shape[0]} outside [1, {fused.MAX_BATCH}]")
+    # the ascent warning is a per-search log line; off, as in the JAX runner
+    if params.linesearch.warn_ascent:
+        params = params.replace_ls(warn_ascent=False)
+    check_supported_batched(params, evaluate, x0_batch)
+    st = run(params, evaluate, init_state(params, evaluate, x0_batch))
+    if return_state:
+        return st
+    on = lambda a, dtype: torch.from_numpy(np.ascontiguousarray(a)).to(
+        device=x0_batch.device, dtype=dtype)
+    vd = x0_batch.dtype
+    return dict(
+        fx=on(st.fx, vd), xnorm=on(np.sqrt(st.xnorm2), vd), gnorm=on(np.sqrt(st.gnorm2), vd),
+        neval=on(st.neval, torch.int32), niter=on(st.k, torch.int32),
+        status=on(st.status, torch.int32), x=st.x,
+    )

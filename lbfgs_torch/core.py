@@ -129,6 +129,17 @@ def to_host(*values: torch.Tensor) -> tuple:
 to_host.reads = 0
 
 
+def to_host_rows(*values: torch.Tensor) -> tuple:
+    """``to_host`` for [B] tensors (the batched runner's per-instance
+    scalars): all of them in ONE transfer, each back as a numpy array of
+    its own dtype (a bool as a bool array), counted in ``to_host.reads``."""
+    to_host.reads += 1
+    floats = {v.dtype for v in values if v.dtype.is_floating_point}
+    dt = max(floats, key=lambda t: t.itemsize) if floats else torch.float64
+    host = torch.stack([v.to(dt) for v in values]).cpu().numpy()
+    return tuple(h.astype(np_type(v.dtype)) for v, h in zip(values, host))
+
+
 # ---------------------------------------------------------------------------
 # Objective normalization
 # ---------------------------------------------------------------------------

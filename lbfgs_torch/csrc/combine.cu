@@ -44,6 +44,9 @@
 // partial sums r.r, r.g are reassociated by the block reduction anyway
 // and keep nvcc's default.
 //
+// K3 b, the batched runner's form (combine_batched_kernel, below), is K3
+// over [B, n] instances with blockIdx.y as the instance.
+//
 // Any history depth: the 2m+1 coefficients (2m+3 for K6) sit in shared
 // memory.  Up to kStaticM ring rows that is a static array, as it always
 // was; a deeper ring runs the same body (kDyn) with the array sized at
@@ -226,6 +229,91 @@ int launch_combine(const void* g, const void* S, void* Y, const void* coef, void
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 b replaces lbfgs_tpu/ops/fused.py:_combine_kernel under the batched
+// runner's vmap: K3 over a batch of B independent instances, [B, n]
+// vectors, [B, m, n] rings and one coefficient row [gamma, cs, cy] per
+// instance.  blockIdx.y is the instance and blockIdx.x its block of
+// kBlockElems elements, laid out and summed as K3 lays out and sums the
+// same n, so an instance's r and partials are solo K3's on that instance
+// bit for bit.  Each block stages its instance's 2m+1 coefficients in
+// shared memory.  A block whose instance is frozen (live[b] == 0) returns
+// before it loads or stores anything.  Bound: bytes, as K3 (32 bytes per
+// element with f32 vectors and a bf16 ring at m = 6).  Up to kStaticM
+// ring rows (the batched runner's depth limit); B at most 65,535 (the
+// grid's y limit).
+template <typename T, typename H>
+__global__ void __launch_bounds__(kThreads)
+combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S,
+                       const H* __restrict__ Y, const T* __restrict__ coef,
+                       const unsigned char* __restrict__ live, T* __restrict__ r,
+                       T* __restrict__ partials, long long n, int m) {
+  const long long b = blockIdx.y;
+  if (!live[b]) return;
+  __shared__ T c[1 + 2 * kStaticM];
+  __shared__ T red[2][kThreads / 32];
+  const int ncoef = 1 + 2 * m;
+  for (int i = threadIdx.x; i < ncoef; i += kThreads) c[i] = coef[b * ncoef + i];
+  __syncthreads();
+  g += b * n;
+  r += b * n;
+  S += b * m * n;
+  Y += b * m * n;
+
+  const long long base = static_cast<long long>(blockIdx.x) * kBlockElems;
+  T acc[2] = {T(0), T(0)};
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const long long i = base + k * kThreads + threadIdx.x;
+    if (i < n) {
+      const T gv = g[i];
+      T acc_s = T(0);
+      T acc_y = T(0);
+      // K3's combination, product by product and add by add
+      for (int j = 0; j < m; ++j) {
+        acc_s = add_rn(acc_s, mul_rn(c[1 + j], widen<T, H>(S[j * n + i])));
+        acc_y = add_rn(acc_y, mul_rn(c[1 + m + j], widen<T, H>(Y[j * n + i])));
+      }
+      const T rv = add_rn(mul_rn(c[0], gv), add_rn(acc_s, acc_y));
+      r[i] = rv;
+      acc[0] += rv * rv;
+      acc[1] += rv * gv;
+    }
+  }
+
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const T v = warp_sum(acc[p]);
+    if ((threadIdx.x & 31) == 0) red[p][warp] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T* const out = partials + 2 * (b * gridDim.x + blockIdx.x);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      T a = T(0);
+      for (int w = 0; w < kThreads / 32; ++w) a += red[p][w];
+      out[p] = a;
+    }
+  }
+}
+
+template <typename T, typename H>
+int launch_combine_batched(const void* g, const void* S, const void* Y, const void* coef,
+                           const void* live, void* r, void* partials, long long n, int m,
+                           int batch, void* stream) {
+  if (n <= 0 || m < 1 || m > kStaticM || batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kBlockElems - 1) / kBlockElems;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
+  combine_batched_kernel<T, H><<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<const H*>(S), static_cast<const H*>(Y),
+      static_cast<const T*>(coef), static_cast<const unsigned char*>(live),
+      static_cast<T*>(r), static_cast<T*>(partials), n, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -253,6 +341,13 @@ const char* lbfgs_cuda_error_string(int code) {
                              long long hi, void* stream) {                                 \
     return launch_combine<T, H, true, false>(g, S, Y, coef, r, partials, n, m, lo, hi, 0,  \
                                              stream);                                      \
+  }                                                                                         \
+  int lbfgs_combine_batched_##SFX(const void* g, const void* S, const void* Y,             \
+                                  const void* coef, const void* live, void* r,             \
+                                  void* partials, long long n, int m, int batch,           \
+                                  void* stream) {                                          \
+    return launch_combine_batched<T, H>(g, S, Y, coef, live, r, partials, n, m, batch,     \
+                                        stream);                                           \
   }
 
 LBFGS_COMBINE_ENTRY(f32_bf16, float, __nv_bfloat16)

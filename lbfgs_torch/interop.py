@@ -4,7 +4,8 @@ Extended Rosenbrock has no weights, so the solver state is what a run on
 one side must hand the other: ``state_from_jax`` takes a ``lbfgs_tpu``
 ``SolverState`` whose leaves are numpy arrays (``np.asarray`` of each
 leaf) and builds this package's state on a device; ``state_to_numpy`` is
-the reverse.  The Poisson regression's "weights" are its data:
+the reverse, and ``batched_state_from_jax`` takes a batched run's state.
+The Poisson regression's "weights" are its data:
 ``logistic_objective`` makes the port's objective from numpy (X, y) on a
 device.  None of them imports JAX.
 
@@ -64,6 +65,35 @@ def state_from_jax(tree: Any, device) -> SolverState:
         pf=None if tree.pf is None else np.array(tree.pf),
         dg0=scalar(tree.dg0),
         probe1=_probe1(getattr(tree, "probe1", None), f),
+    )
+
+
+def batched_state_from_jax(tree: Any, device):
+    """This package's ``batched.BatchedState`` from the JAX package's
+    batched ``SolverState`` (``lbfgs_tpu.batched.minimize_batched(...,
+    return_state=True)``) with numpy leaves, each with a leading instance
+    axis: the vectors, the [B, m, n] rings (from a ring-major [B, m, n/128,
+    128] layout too) and the [B] host scalars, the vectors' dtype kept
+    (fx too: the batched runner has no wide objective scalar).  The JAX
+    state's previous-point slots are dropped: the port's batched state is
+    lean."""
+    from .batched import BatchedState
+
+    p, h = tree.prob, tree.hist
+    B, m = np.asarray(h.s).shape[:2]
+    f = np.asarray(p.x).dtype.type
+    vec = lambda a: _tensor(a, device)
+    host = lambda a, t=f: np.asarray(a).astype(t)
+    return BatchedState(
+        x=vec(p.x), gx=vec(p.gx), d=vec(p.d),
+        hist=History(s=_tensor(np.asarray(h.s).reshape(B, m, -1), device),
+                     y=_tensor(np.asarray(h.y).reshape(B, m, -1), device),
+                     ys=vec(h.ys), alpha=vec(h.alpha), sy=vec(h.sy), yy=vec(h.yy)),
+        fx=host(p.fx), gnorm2=host(p.gnorm2), xnorm2=host(p.xnorm2),
+        neval=host(p.neval, np.int64), k=host(tree.k, np.int64), end=host(tree.end, np.int64),
+        step=host(tree.step), step_ls=host(tree.step_ls), ncall=host(tree.ncall, np.int64),
+        status=host(tree.status, np.int64), ls_status=host(tree.ls_status, np.int64),
+        dg0=host(tree.dg0), pf=None if tree.pf is None else host(tree.pf),
     )
 
 

@@ -126,6 +126,23 @@ float32, to every kernel's count below):
     partials through ``_store_ow_probe``: equal to
     ``owlqn_probe_pg(x, rc, pg, stp1)`` bit for bit (36 B/elem).
 
+The batched runner's forms, K2 b ``probe_batched_kernel`` and K4 b
+``trial_pair_gram_batched_kernel`` (both replace their kernel above under
+the JAX package's vmap, ``lbfgs_tpu/batched.py``), take a [B, n] batch of
+instances with the instance as grid axis 1: program (i, b) is program i
+of the solo kernel at the same n, on instance b, so each instance is
+tiled and summed as the solo kernel tiles and sums it, and its stored x,
+g and ring row, and its partials, equal the solo kernel's on that
+instance alone bit for bit.  The instance's offset b*n (b*m*n in the
+rings) goes to the pointers only: the body sees the instance's own
+element indices, and the extras, which the instances share, load at
+them.  Each instance reads its own step (``stp_ptr + b``), and a frozen
+instance (``live_ptr[b] == 0``) has every load and store masked off, its
+partials included.  They are bound by bytes as their solo kernels, per
+instance: 8 and 44 B/elem at f32 vectors with a bf16 history, m = 6
+(K4 b has no . gp column and writes no objective partial: the runner
+takes fx from the search).
+
 The orthant tests use ``_msign``, which maps NaN to 0 as the reference's
 signum does; the pseudo-gradient's x != 0 branch uses ``_sign``, which
 keeps NaN, as ``jnp.sign`` does in the JAX kernels.
@@ -262,6 +279,26 @@ def probe_kernel(xp_ptr, d_ptr, stp_ptr, part_ptr, n, ex,
     x = xp + stp * d
     fe, g = body(x, offs, *exb)
     _store_probe(part_ptr, fe, g, d, mask)
+
+
+@triton.jit
+def probe_batched_kernel(xp_ptr, d_ptr, stp_ptr, live_ptr, part_ptr, n, ex,
+                         body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr):
+    # program (i, b): K2's block i of instance b
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    offs = _offsets(ROWS, W)
+    mask = (offs < n) & live
+    stp = tl.load(stp_ptr + b)
+    xp = tl.load(xp_ptr + row + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + row + offs, mask=mask, other=0.0)
+    exb = _extras(ex, offs, mask)
+    x = xp + stp * d
+    fe, g = body(x, offs, *exb)
+    part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + tl.program_id(0)) * 2
+    tl.store(part + 0, _block_sum(fe, mask), mask=live)
+    tl.store(part + 1, _block_sum(g * d, mask), mask=live)
 
 
 @triton.jit(do_not_specialize=["fix_end"])
@@ -461,6 +498,80 @@ def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
     _store_gram(part + 4, a0, a1, a2, a3, a4, a5, M, MP)
     if WITH_GP:
         _store_gp(gpart_ptr + pid * (2 * M), b0, b1, M, MP)
+
+
+@triton.jit
+def _store_gram_live(part, live, a0, a1, a2, a3, a4, a5, M: tl.constexpr, MP: tl.constexpr):
+    # ``_store_gram`` for a batched program: nothing for a frozen instance
+    r = tl.arange(0, MP)
+    keep = (r < M) & live
+    pj = part + 6 * r
+    tl.store(pj + 0, tl.sum(a0, axis=0), mask=keep)
+    tl.store(pj + 1, tl.sum(a1, axis=0), mask=keep)
+    tl.store(pj + 2, tl.sum(a2, axis=0), mask=keep)
+    tl.store(pj + 3, tl.sum(a3, axis=0), mask=keep)
+    tl.store(pj + 4, tl.sum(a4, axis=0), mask=keep)
+    tl.store(pj + 5, tl.sum(a5, axis=0), mask=keep)
+
+
+@triton.jit(do_not_specialize=["end", "tiles"])
+def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr, Y_ptr,
+                                   part_ptr, n, end, tiles, ex, body: tl.constexpr,
+                                   M: tl.constexpr, MP: tl.constexpr, T: tl.constexpr,
+                                   V: tl.constexpr, W: tl.constexpr):
+    # program (pid, b): K4's program pid of instance b, in place, without
+    # the . gp column or the objective's partials
+    pid = tl.program_id(0)
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    xp_ptr += row
+    d_ptr += row
+    gp_ptr += row
+    S_ptr += row * M
+    Y_ptr += row * M
+    dt = xp_ptr.dtype.element_ty
+    stp = tl.load(stp_ptr + b)
+    R: tl.constexpr = T // V
+    a_gd = tl.zeros([R], dt)
+    a_gg = tl.zeros([R], dt)
+    a_xx = tl.zeros([R], dt)
+    a_ch = tl.zeros([R], dt)
+    a0 = tl.zeros([R, MP], dt)
+    a1 = tl.zeros([R, MP], dt)
+    a2 = tl.zeros([R, MP], dt)
+    a3 = tl.zeros([R, MP], dt)
+    a4 = tl.zeros([R, MP], dt)
+    a5 = tl.zeros([R, MP], dt)
+    for t in range(tiles):
+        offs = _tile(pid * tiles + t, T, V)
+        mask = (offs < n) & live
+        xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+        d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+        gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+        exb = _view(_extras(ex, offs, mask), T // W, W)
+        x = xp + stp * d
+        _, g = body(tl.reshape(x, [T // W, W]), tl.reshape(offs, [T // W, W]), *exb)
+        g = tl.reshape(g, [R, V])
+        g = tl.where(mask, g, 0.0)
+        s = stp * d
+        y = g - gp
+        d0 = -g
+        a_gd += _fold(g * d)
+        a_gg += _fold(g * g)
+        a_xx += _fold(x * x)
+        a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
+        a0, a1, a2, a3, a4, a5, _, _ = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0,
+                                                  gp, a0, a1, a2, a3, a4, a5, a0, a0, M, MP,
+                                                  False)
+        tl.store(xp_ptr + offs, x, mask=mask)
+        tl.store(gp_ptr + offs, g, mask=mask)
+    part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + pid) * (4 + 6 * M)
+    tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
+    tl.store(part + 1, tl.sum(a_gg, axis=0), mask=live)
+    tl.store(part + 2, tl.sum(a_xx, axis=0), mask=live)
+    tl.store(part + 3, tl.sum(a_ch, axis=0), mask=live)
+    _store_gram_live(part + 4, live, a0, a1, a2, a3, a4, a5, M, MP)
 
 
 @triton.jit(do_not_specialize=["lo", "hi"])

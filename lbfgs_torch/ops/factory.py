@@ -38,6 +38,12 @@ protocol the solver looks for:
     stp1*r in the same pass, its (ft, g.r) those of K2 (K8's pg form) at
     that point bit for bit; K15's ``fix`` form also persists K6's damped
     ring row.  The solver runs them wherever the step is not capped.
+  * ``__lbfgs_probe_batched__`` / ``__lbfgs_trial_pair_gram_batched__`` /
+    ``__lbfgs_combine_batched__`` — the batched runner's K2 b, K4 b and K3
+    b: K2, K4 (without the . gp column) and K3 over a [B, n] batch of
+    instances, one launch for all, with a per-instance step or
+    coefficients and a mask of the live instances, whose rows alone are
+    read and written.
 
 Under the wide objective scalar (``fused.wide_fx``, ``params.fx_wide``)
 the objective's column of K1, K2, K4, K7 and K8 and the L1 column of K7
@@ -268,6 +274,28 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     def _grid(n: int) -> tuple[int]:
         return (-(-n // BLOCK),)
 
+    def _check_batched(kernel: str, xp: torch.Tensor, live: torch.Tensor) -> int:
+        # a [B, n] batch of iterates: each row an iterate of this objective
+        B = fused.check_batch(kernel, xp, live)
+        n = xp.shape[1]
+        if validate is not None:
+            validate(n)
+        if n % row:
+            raise ValueError(f"n={n} is not a multiple of row={row}")
+        for i, e in enumerate(extras):
+            if e.shape != (n,) or e.dtype != xp.dtype or e.device != xp.device:
+                raise ValueError(f"extra {i}: {e.dtype} {tuple(e.shape)} on {e.device} "
+                                 f"against the instances' {xp.dtype} [{n}] on {xp.device}")
+        return B
+
+    def _batched_scalars(kernel: str, xp: torch.Tensor, stp: torch.Tensor, *vs) -> None:
+        if stp.shape != (xp.shape[0],) or stp.dtype != xp.dtype or stp.device != xp.device:
+            raise ValueError(f"{kernel}: stp must be a [B] tensor of the iterates' dtype "
+                             f"on their device")
+        for v in vs:
+            if v.shape != xp.shape or v.dtype != xp.dtype:
+                raise ValueError(f"{kernel}: operands must be [B, n] of one dtype")
+
     # ------------------------------------------------------------ K1 trial
 
     def trial_ref(xp, d, stp):
@@ -325,6 +353,37 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         probe.launches += 1
         tot = fused.reduce_partials(part)
         return _fx(part, tot), tot[1]
+
+    # ------------------------------------------- K2 b: the batched probe
+
+    def probe_batched_ref(xp, d, stp, live):
+        """Plain version of ``probe_batched``."""
+        probe_batched_ref.calls += 1
+        fx, g = torch.func.vmap(value_and_grad)(xp + stp[:, None] * d)
+        return fused.obj_lift(fx, xp.dtype), (g * d).sum(dim=1)
+
+    def probe_batched(xp, d, stp, live):
+        """K2 over B instances (K2 b): (fx [B], g.d [B]) at xp[b] +
+        stp[b]*d[b] for every live instance b, writing no vector; a frozen
+        instance's values are undefined.  ``xp``, ``d`` [B, n]; ``stp`` [B]
+        in their dtype and ``live`` [B] bool, on their device.  On the card
+        an instance's sums equal ``probe``'s on that instance alone bit for
+        bit."""
+        B = _check_batched("probe_batched", xp, live)
+        _batched_scalars("probe_batched", xp, stp, d)
+        if not fused.on_cuda(xp, "probe_batched"):
+            return probe_batched_ref(xp, d, stp, live)
+        fused.check_contiguous("probe_batched", xp, d, stp, live)
+        n = xp.shape[1]
+        grid = (_grid(n)[0], B)
+        part = torch.empty((B, grid[0], 2), dtype=xp.dtype, device=xp.device)
+        _kernels().probe_batched_kernel[grid](
+            xp, d, stp, live.view(torch.uint8), part, n, ex=extras, body=block_fn(), ROWS=rows,
+            W=W, **LAUNCH,
+        )
+        probe_batched.launches += 1
+        tot = part.sum(dim=1)
+        return tot[:, 0], tot[:, 1]
 
     # ------------------------------------------- K4 trial + pair + Gram
 
@@ -384,6 +443,62 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         # shape, dtype and depth only: a size the objective rejects raises
         # inside the wrapper instead of quietly taking the composed path
         return fused.can_pair_gram(xp, S) and S.shape[0] <= MAX_M
+
+    # ------------------------------------- K4 b: the batched epilogue
+
+    def trial_pair_gram_batched_ref(xp, d, gp, stp, S, Y, end, live):
+        """Plain version of ``trial_pair_gram_batched``."""
+        trial_pair_gram_batched_ref.calls += 1
+        s = stp[:, None] * d
+        x = xp + s
+        _, g = torch.func.vmap(value_and_grad)(x)
+        y = g - gp
+        Z = torch.stack([y, s, -g], dim=2)
+        SP = torch.bmm(S.to(x.dtype), Z)
+        YP = torch.bmm(Y.to(x.dtype), Z)
+        dot = lambda a, b: (a * b).sum(dim=1)
+        SP[:, end] = torch.stack([dot(s, y), dot(s, s), dot(s, -g)], dim=1)
+        YP[:, end] = torch.stack([dot(y, y), dot(y, s), dot(y, -g)], dim=1)
+        out = (dot(g, d), dot(g, g), dot(x, x), (x != xp).any(dim=1), SP, YP)
+        S[live, end] = s[live].to(S.dtype)
+        Y[live, end] = y[live].to(Y.dtype)
+        xp[live] = x[live]
+        gp[live] = g[live]
+        return out
+
+    def trial_pair_gram_batched(xp, d, gp, stp, S, Y, end, live):
+        """K4 over B instances (K4 b), in place: for every live instance b
+        the accepted point x = xp[b] + stp[b]*d[b] written over xp[b], its
+        gradient g over gp[b], the pair (s, y) = (stp[b]*d[b], g - gp[b])
+        written into ring row ``end`` of S[b] and Y[b], rounded to the
+        history dtype, and the 6m products SP = S[b].[y, s, -g], YP =
+        Y[b].[y, s, -g] over the updated rings, row ``end`` from the
+        unrounded pair.  ``xp``, ``d``, ``gp`` [B, n]; ``S``, ``Y`` [B, m,
+        n]; ``stp`` [B]; ``live`` [B] bool; ``end`` a host int shared by the
+        live instances.  A frozen instance's vectors and ring rows are
+        never written, and its outputs are undefined.  Returns (g.d, g.g,
+        x.x, changed) as [B] tensors and SP, YP [B, m, 3].  On the card an
+        instance's x, g and ring row equal ``trial_pair_gram``'s on that
+        instance alone bit for bit."""
+        B = _check_batched("trial_pair_gram_batched", xp, live)
+        _batched_scalars("trial_pair_gram_batched", xp, stp, d, gp)
+        fused._check_hist_batched("trial_pair_gram_batched", xp, S, Y)
+        m, n = S.shape[1], S.shape[2]
+        if m > MAX_M:
+            raise ValueError(f"trial_pair_gram_batched: m={m} above {MAX_M} ring rows")
+        end = fused._check_row(S[0], end)
+        if not fused.on_cuda(xp, "trial_pair_gram_batched"):
+            return trial_pair_gram_batched_ref(xp, d, gp, stp, S, Y, end, live)
+        fused.check_contiguous("trial_pair_gram_batched", xp, d, gp, stp, live, S, Y)
+        eg = epilogue_grid(n, xp.dtype, S.dtype)
+        part = torch.empty((B, eg.programs, 4 + 6 * m), dtype=xp.dtype, device=xp.device)
+        _kernels().trial_pair_gram_batched_kernel[(eg.programs, B)](
+            xp, d, gp, stp, live.view(torch.uint8), S, Y, part, n, int(end), eg.tiles, ex=extras,
+            body=block_fn(), M=m, MP=_rows(m), T=eg.T, V=eg.V, W=W, **_epilogue_launch(eg))
+        trial_pair_gram_batched.launches += 1
+        tot = part.sum(dim=1)
+        P = tot[:, 4:].reshape(B, m, 6)
+        return tot[:, 0], tot[:, 1], tot[:, 2], tot[:, 3] > 0, P[:, :, :3], P[:, :, 3:]
 
     # ------------------------------------------- K8 OWL-QN probe
 
@@ -642,7 +757,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         return fused.can_combine(x, S) and S.shape[0] <= MAX_M and x.shape[0] % W == 0
 
     for fn in (trial, probe, trial_pair_gram, owlqn_trial, owlqn_probe, owlqn_probe_pg,
-               owlqn_trial_pair_gram, combine_probe, combine_ow_probe):
+               owlqn_trial_pair_gram, combine_probe, combine_ow_probe, probe_batched,
+               trial_pair_gram_batched):
         fn.launches = 0
     # the . gp (damped) specialisations of K4 and K14 and K15's damped-row
     # form, counted apart too
@@ -653,7 +769,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     combine_probe.fix_launches = 0
     for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_trial_ref, owlqn_probe_ref,
                owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref, combine_probe_ref,
-               combine_ow_probe_ref):
+               combine_ow_probe_ref, probe_batched_ref, trial_pair_gram_batched_ref):
         fn.calls = 0
 
     ns = SimpleNamespace(
@@ -671,6 +787,9 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         combine_probe=combine_probe, combine_probe_ref=combine_probe_ref,
         combine_probe_ok=combine_probe_ok,
         combine_ow_probe=combine_ow_probe, combine_ow_probe_ref=combine_ow_probe_ref,
+        probe_batched=probe_batched, probe_batched_ref=probe_batched_ref,
+        trial_pair_gram_batched=trial_pair_gram_batched,
+        trial_pair_gram_batched_ref=trial_pair_gram_batched_ref,
     )
 
     def vag(x):
@@ -684,11 +803,14 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             fused.combine, fused.combine_fix, fused.combine_ow,
             fused.pseudo_gradient_norm, fused.pseudo_gradient,
             combine_probe, combine_ow_probe, combine_probe_ok)
+    _attach_batched(vag, probe_batched, trial_pair_gram_batched, fused.combine_batched)
     _attach(plain, trial_ref, probe_ref, trial_pair_gram_ref, trial_pair_gram_ok,
             owlqn_trial_ref, owlqn_probe_ref, owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref,
             fused.combine_ref, fused.combine_fix_ref, fused.combine_ow_ref,
             fused.pseudo_gradient_norm_ref, fused.pseudo_gradient_ref,
             combine_probe_ref, combine_ow_probe_ref, combine_probe_ok)
+    _attach_batched(plain, probe_batched_ref, trial_pair_gram_batched_ref,
+                    fused.combine_batched_ref)
     vag.kernels = plain.kernels = ns
     vag.plain = plain
     return vag
@@ -731,3 +853,11 @@ def _attach(obj, trial, probe, tpg, tpg_ok, ow_trial, ow_probe, ow_probe_pg, ow_
     obj.__lbfgs_combine_ow_probe__ = cp_ow
     # K16 takes the same shapes and dtypes as K15
     obj.__lbfgs_combine_ow_probe_ok__ = cp_ok
+
+
+def _attach_batched(obj, probe, tpg, combine) -> None:
+    """The batched runner's protocol (``batched.minimize_batched``): K2 b,
+    K4 b and K3 b."""
+    obj.__lbfgs_probe_batched__ = probe
+    obj.__lbfgs_trial_pair_gram_batched__ = tpg
+    obj.__lbfgs_combine_batched__ = combine

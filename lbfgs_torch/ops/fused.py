@@ -20,6 +20,9 @@ share.
   * ``pseudo_gradient`` (K11) and ``pseudo_gradient_norm`` (K10) —
     OWL-QN's pseudo-gradient, alone and with its squared norm.
 
+  * ``combine_batched`` (K3 b) — K3 over a [B, n] batch of instances, one
+    coefficient row each, the batched runner's combine.
+
   * ``axpy_dot`` (K17) — z = y + c*x and z . w in one pass.  No solver
     path runs it (the compact two-loop takes its products from the
     epilogues), as in the JAX package.
@@ -274,6 +277,88 @@ def combine(d, S, Y, gamma, coef_s, coef_y):
 
 
 combine.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 b: the batched runner's combine
+# ---------------------------------------------------------------------------
+
+#: most instances a batched kernel takes: the grid's second axis (CUDA's
+#: gridDim.y and Triton's axis 1) holds the instance
+MAX_BATCH = 65535
+
+
+def check_batch(kernel: str, x: torch.Tensor, live: torch.Tensor) -> int:
+    """Check a batched kernel's [B, n] vectors and its [B] mask of live
+    instances; returns B."""
+    check_dtypes(x.dtype)
+    if x.ndim != 2:
+        raise ValueError(f"{kernel}: expected [B, n] vectors, got shape {tuple(x.shape)}")
+    B = x.shape[0]
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"{kernel}: B={B} outside [1, {MAX_BATCH}]")
+    if live.shape != (B,) or live.dtype != torch.bool or live.device != x.device:
+        raise ValueError(f"{kernel}: live must be a [{B}] bool tensor on {x.device}, got "
+                         f"{live.dtype} {tuple(live.shape)} on {live.device}")
+    return B
+
+
+def _check_hist_batched(kernel: str, g, S, Y) -> None:
+    check_dtypes(g.dtype, S.dtype)
+    B, n = g.shape
+    if S.ndim != 3 or S.shape[0] != B or S.shape[2] != n or S.shape != Y.shape:
+        raise ValueError(f"{kernel}: expected [B, n] vectors and [B, m, n] rings; got "
+                         f"{tuple(g.shape)}, {tuple(S.shape)}, {tuple(Y.shape)}")
+    if Y.dtype != S.dtype:
+        raise TypeError("S and Y must share a dtype")
+
+
+def combine_batched_ref(g, S, Y, coef, live, out):
+    """Plain version of ``combine_batched``."""
+    combine_batched_ref.calls += 1
+    m = S.shape[1]
+    Sw, Yw = S.to(g.dtype), Y.to(g.dtype)
+    gamma, cs, cy = coef[:, :1], coef[:, None, 1:1 + m], coef[:, None, 1 + m:]
+    r = gamma * g + (torch.bmm(cs, Sw)[:, 0] + torch.bmm(cy, Yw)[:, 0])
+    out[live] = r[live]
+    return (r * r).sum(dim=1), (r * g).sum(dim=1)
+
+
+combine_batched_ref.calls = 0
+
+
+def combine_batched(g, S, Y, coef, live, out):
+    """K3 over B instances (K3 b): for each live instance b, out[b] =
+    coef[b, 0]*g[b] + coef[b, 1:m+1] @ S[b] + coef[b, m+1:] @ Y[b], and
+    the [B] sums r.r and r.g.  ``g``, ``out`` [B, n]; ``S``, ``Y`` [B, m,
+    n]; ``coef`` [B, 2m + 1] in g's dtype; ``live`` [B] bool, all on one
+    device.  A frozen instance's row of ``out`` is never written, and its
+    sums are undefined.  On the card an instance's r equals ``combine``'s
+    on that instance alone bit for bit.  Returns (r.r, r.g)."""
+    check_batch("combine_batched", g, live)
+    _check_hist_batched("combine_batched", g, S, Y)
+    B, m, n = S.shape
+    if coef.shape != (B, 1 + 2 * m) or coef.dtype != g.dtype or out.shape != g.shape \
+            or out.dtype != g.dtype:
+        raise ValueError("combine_batched: coef must be [B, 2m + 1] and out [B, n], in g's "
+                         "dtype")
+    if not on_cuda(g, "combine_batched"):
+        return combine_batched_ref(g, S, Y, coef, live, out)
+    check_contiguous("combine_batched", g, S, Y, coef, live, out)
+    lib = _build.load_library()
+    blocks = -(-n // lib.lbfgs_combine_block_elems())
+    part = torch.empty((B, blocks, 2), dtype=g.dtype, device=g.device)
+    fn = getattr(lib, f"lbfgs_combine_batched_{_SUFFIX[g.dtype]}_{_SUFFIX[S.dtype]}")
+    code = fn(g.data_ptr(), S.data_ptr(), Y.data_ptr(), coef.data_ptr(), live.data_ptr(),
+              out.data_ptr(), part.data_ptr(), n, m, B,
+              torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check_launch(code, "combine_batched")
+    combine_batched.launches += 1
+    tot = part.sum(dim=1)
+    return tot[:, 0], tot[:, 1]
+
+
+combine_batched.launches = 0
 
 
 # ---------------------------------------------------------------------------

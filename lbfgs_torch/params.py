@@ -267,7 +267,9 @@ class Lbfgs:
         return _minimize_jit(self.param, x0, evaluate, **kw)
 
     def minimize_batched(self, x0_batch, evaluate, **kw):
-        raise NotImplementedError("batched runs (minimize_batched)")
+        from .batched import minimize_batched as _minimize_batched
+
+        return _minimize_batched(self.param, x0_batch, evaluate, **kw)
 
     def build(self, x0, evaluate):
         from .minimize import LbfgsState

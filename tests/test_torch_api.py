@@ -173,8 +173,14 @@ def test_unported_entry_points_raise():
     b = lbfgs_torch.lbfgs()
     with pytest.raises(NotImplementedError, match="fp8"):
         b.with_history_dtype("float8_e4m3fn")
+    # the batched runner raised until it was ported: now a batch of one
+    # runs the defaults' 35 iterations, and the settings it does not run
+    # yet still raise
+    out = b.minimize_batched(x0[None], lbfgs_torch.default_evaluate())
+    assert int(out["niter"][0]) == 35 and float(out["fx"][0]) < 1e-9
     with pytest.raises(NotImplementedError, match="batched"):
-        b.minimize_batched(x0[None], lbfgs_torch.default_evaluate())
+        b.with_orthantwise(1.0, 0, None).minimize_batched(
+            x0[None], lbfgs_torch.default_evaluate())
     # the native backend raised until it was ported: now it runs the C++
     # core (the defaults' 35 iterations, tests/test_native_parity.py:83-94)
     rep = b.minimize(x0, lbfgs_torch.default_evaluate(), backend="native")
