@@ -158,11 +158,30 @@ Phases (any failure raises and the script exits nonzero):
      1e-3);
  37. batched baseline: BASELINE.md's batch regime, B = 10,000 x n = 64,
      30 iterations at lbfgs()'s defaults, epsilon 0, instance-iterations/s;
- 38. launch_overhead: microseconds per back-to-back launch of the
+ 38. sharded world size 1: an NCCL group of one rank in this process
+     (``lbfgs_torch.parallel``), the main path and the OWL-QN main path at
+     n = 2^24 under ``kernels_on_mesh``, each against the same run with no
+     mesh: iterations, evaluations, fx and x bit for bit, the same
+     launches, no plain version; collectives and ms per iteration of both
+     (eight runs in turns), the all-reduce ms per iteration, and where
+     one all-reduce of a launch's scalars spends its time (timed pieces
+     and torch.profiler traces);
+ 39. sharded two ranks: two spawned gloo ranks sharing cuda:0 (this script
+     with ``--sharded-rank``), n = 2^24 in all, the main, OWL-QN and damped
+     main paths: both ranks bit for bit alike (iterations, evaluations,
+     fx, the gathered x), K1, K2 (K8), K4 (K14) and K15 (K16) launched on
+     the card and no plain version, no vector gathered inside a run; on
+     each rank every mesh form those paths launch (and the quadratic's
+     whole extras, a body reading the global index) held to the
+     single-process launch, vectors and ring rows bit for bit; the main
+     path's iterations and every path's fx against the solo phases, the
+     first 8 iterations in float64 the solo run's steps; collectives, ms
+     and all-reduce ms per iteration;
+ 40. launch_overhead: microseconds per back-to-back launch of the
      calibration kernel (``csrc/calibrate.cu``) and per launch with one
      synchronising read, and the share of each main path's ms/iter that
      its launches and reads per iteration explain;
- 39. with ``--profile PATH`` only: one run of each main path (plain,
+ 41. with ``--profile PATH`` only: one run of each main path (plain,
      OWL-QN, damped, damped OWL-QN, Poisson, and the first three without
      the fusion) under torch.profiler (device busy time against the
      unprofiled walls, device items, host launch and copy calls); the
@@ -196,15 +215,18 @@ before the last, and ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lbfgs_torch import LbfgsError, default_evaluate, lbfgs
 from lbfgs_torch.batched import minimize_batched
@@ -215,6 +237,8 @@ from lbfgs_torch.models import booth, lennard_jones, logistic, rosenbrock, separ
 from lbfgs_torch.native import minimize_native_rosenbrock
 from lbfgs_torch.ops import _build, factory, fused
 from lbfgs_torch.orthantwise import Orthantwise, choose_orthant
+from lbfgs_torch.parallel import (gather_vector, init_distributed, kernels_on_mesh, make_mesh,
+                                  shard_vector)
 from lbfgs_torch.params import Lbfgs, LbfgsParams, LineSearchAlgorithm
 from lbfgs_torch.status import Status
 from lbfgs_torch.utils import profiling
@@ -3025,7 +3049,7 @@ def phase_launch_overhead(paths: dict) -> dict:
     probe_kernel, body = factory._kernels().probe_kernel, rosenbrock._rosen_block()
 
     def triton_launch():
-        probe_kernel[(1,)](xp, xp, stp, part, factory.BLOCK, ex=(), body=body,
+        probe_kernel[(1,)](xp, xp, stp, part, factory.BLOCK, 0, ex=(), SHARD=False, body=body,
                            ROWS=factory.BLOCK // 2, W=2, **factory.LAUNCH)
 
     us = dict(
@@ -3490,11 +3514,516 @@ def phase_batched_baseline() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# sharding (parallel): the main paths on a mesh
+# ---------------------------------------------------------------------------
+
+#: the sharded phases' paths: the main path, the OWL-QN main path and
+#: the damped main path (n = 2^24 in all), and the kernels each must
+#: launch on the card
+SHARDED_PATHS = {
+    "main_path": (MAIN_PARAMS, PLAIN_PATH),
+    "owlqn_main_path": (OWLQN_PARAMS, ("K1_trial", "K8_owlqn_probe",
+                                       "K10_pseudo_gradient_norm",
+                                       "K14_owlqn_trial_pair_gram", "K16_combine_ow_probe")),
+    "damped_main_path": (DAMPED_PARAMS, ("K1_trial", "K2_probe") + DAMPED_PATH),
+}
+#: seconds a two-rank job may take before its ranks are killed
+SHARDED_TIMEOUT = 300
+#: sharded_world1's timed runs of each path: solo (s) and mesh (m) in turns
+WORLD1_TURNS = "smmssmms"
+#: the mesh forms' scalars against the single-process launch's
+#: (tests/test_kernels_mesh.py's bounds): rel on objective values and
+#: squared norms, rel with abs on directional products, rtol with atol on
+#: the Gram products, and equality on ``changed``
+MESH_NORM, MESH_DOT, MESH_GRAM, MESH_EQUAL = (1e-5, 0.0), (1e-4, 1e-2), (2e-4, 1e-2), (0.0, 0.0)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _sharded_run(mesh, params: LbfgsParams, x0: torch.Tensor) -> tuple:
+    """One ``minimize_jit`` of this rank's shard of x0 under
+    ``kernels_on_mesh``, after which the counts are read: (state, seconds,
+    launches, plain calls, host reads, collectives)."""
+    xs = shard_vector(x0, mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    mesh.reset_counts()
+    out = []
+    with kernels_on_mesh(mesh):
+        dt = profiling.timed(lambda: out.append(
+            minimize_jit(params, xs, default_evaluate(), return_state=True)), warmup=0)
+    if mesh.gathers:
+        raise AssertionError(f"{mesh.gathers} vector gathers inside a sharded run")
+    return out[0], dt, launches(), plain_calls(), to_host.reads, mesh.collectives
+
+
+def _allreduce_ms(mesh, params: LbfgsParams, x0: torch.Tensor) -> float:
+    """All-reduce ms per iteration of one more run, each of the mesh's
+    collectives timed between two synchronisations of the card (a wrapper
+    around ``mesh.all_reduce`` for this run only)."""
+    xs = shard_vector(x0, mesh)
+    spent, reduce = [], mesh.all_reduce
+
+    def timed_reduce(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(t)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return t
+
+    mesh.all_reduce = timed_reduce
+    try:
+        with kernels_on_mesh(mesh):
+            st = minimize_jit(params, xs, default_evaluate(), return_state=True)
+    finally:
+        del mesh.all_reduce
+    return 1e3 * sum(spent) / (st.k - 1)
+
+
+def _median(v: list) -> float:
+    return float(np.median(v))
+
+
+def _collective_probe(mesh) -> dict:
+    """Where one all-reduce of a launch's few scalars spends its time, in
+    microseconds per call (medians of 200): two synchronisations of the
+    card with nothing between them; ``dist.all_reduce`` of 5 float32
+    values between two synchronisations; the same call's host time alone
+    (its enqueue); ``mesh_sum`` of five 0-d scalars (pack, one
+    all-reduce, unpack) between two synchronisations; and torch.profiler
+    traces of 20 ``dist.all_reduce`` and of 20 ``mesh_sum`` calls: host
+    and device microseconds per call of their operators and kernels."""
+    t = torch.zeros(5, device="cuda")
+    vals = [torch.zeros((), device="cuda") for _ in range(5)]
+
+    def per_call(fn, sync: bool, reps: int = 200) -> float:
+        got = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            if sync:
+                torch.cuda.synchronize()
+            got.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return 1e6 * _median(got)
+
+    out = dict(
+        sync_pair_us=per_call(lambda: None, True),
+        all_reduce_us=per_call(lambda: dist.all_reduce(t, group=mesh.group), True),
+        all_reduce_enqueue_us=per_call(lambda: dist.all_reduce(t, group=mesh.group), False))
+    with kernels_on_mesh(mesh):
+        out["mesh_sum_us"] = per_call(lambda: fused.mesh_sum(*vals), True)
+    with profiling.trace() as prof:
+        for _ in range(20):
+            dist.all_reduce(t, group=mesh.group)
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -(e.cpu_time_total + e.device_time_total))
+    out["all_reduce_profile_per_call"] = [
+        dict(name=e.key[:60], count=e.count, host_us=e.cpu_time_total / 20,
+             device_us=e.device_time_total / 20) for e in rows[:8]]
+    with kernels_on_mesh(mesh), profiling.trace() as prof:
+        for _ in range(20):
+            fused.mesh_sum(*vals)
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -(e.cpu_time_total + e.device_time_total))
+    out["mesh_sum_profile_per_call"] = [
+        dict(name=e.key[:60], count=e.count, host_us=e.cpu_time_total / 20,
+             device_us=e.device_time_total / 20) for e in rows[:10]]
+    return out
+
+
+def _expect_on_card(name: str, lc: dict, pc: dict, kernels: tuple) -> None:
+    if min(lc[k] for k in kernels) == 0 or max(pc.values()) != 0:
+        raise AssertionError(f"{name} did not run on the kernels: {lc} {pc}")
+
+
+#: the early runs of each sharded path: its first 8 iterations at epsilon
+#: 0 in float32 (its own settings) and in float64 (float64 vectors and
+#: ring), the latter held to the solo run at the f64 tests' rel 1e-9
+EARLY_DTYPES = {"f32": torch.float32, "f64": torch.float64}
+EARLY_F64_REL = 1e-9
+
+
+def _early(params: LbfgsParams, dtype: torch.dtype) -> LbfgsParams:
+    """A path's first 8 iterations at epsilon 0 (the horizon over which
+    another summation order keeps the same steps in float32,
+    ``FUSION_TOL_8``), with a float64 ring for float64 vectors."""
+    p = params.replace(epsilon=0.0, max_iterations=9)
+    return p if dtype == torch.float32 else p.replace(history_dtype=None)
+
+
+def _early_runs(params: LbfgsParams, mesh=None) -> dict:
+    """k, evaluations and fx of ``_early`` in each of ``EARLY_DTYPES`` from
+    Rosenbrock's start at n = 2^24, solo or (given ``mesh``) sharded."""
+    out = {}
+    for key, dt in EARLY_DTYPES.items():
+        x0 = rosenbrock.initial_point(N_BIG, dt, "cuda")
+        p = _early(params, dt)
+        st = (minimize_jit(p, x0, default_evaluate(), return_state=True) if mesh is None
+              else _sharded_run(mesh, p, x0)[0])
+        out[key] = dict(k=st.k, neval=st.prob.neval, fx=float(st.prob.fx))
+        del st, x0
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_world1() -> dict:
+    """The main path and the OWL-QN main path at n = 2^24 under
+    ``kernels_on_mesh`` of an NCCL group of world size 1 in this process
+    (a TCP store on a free port), each against the same run with no mesh:
+    iterations, evaluations, fx and x bit for bit, the same launches.
+    Prints the collectives per iteration and the ms per iteration of both
+    (runs in turns, ``WORLD1_TURNS``: their medians, their spreads, and
+    whether the mesh's overhead exceeds both spreads), the all-reduce ms,
+    and where one all-reduce spends its time (``_collective_probe``)."""
+    init_distributed(init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = make_mesh()
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"world-size-1 mesh on {dist.get_backend()}, not NCCL")
+        # NCCL makes its communicator at the first collective: not in a timed run
+        mesh.all_reduce(torch.zeros(1, device="cuda"))
+        for name in ("main_path", "owlqn_main_path"):
+            params, kernels = SHARDED_PATHS[name]
+            x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+            solo, mesh_runs = [], []
+            for turn in WORLD1_TURNS:
+                if turn == "s":
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    got = []
+                    dt = profiling.timed(lambda: got.append(minimize_jit(
+                        params, x0, default_evaluate(), return_state=True)), warmup=0)
+                    solo.append((got[0], dt, launches()))
+                else:
+                    mesh_runs.append(_sharded_run(mesh, params, x0))
+            st_s, _, lc_s = solo[0]
+            st_m, _, lc_m, pc_m, reads, coll = mesh_runs[0]
+            same = (st_s.k == st_m.k and st_s.prob.neval == st_m.prob.neval
+                    and _bits(np.asarray(st_s.prob.fx)) == _bits(np.asarray(st_m.prob.fx))
+                    and _bits(st_s.prob.x) == _bits(st_m.prob.x))
+            if not same or lc_s != lc_m:
+                raise AssertionError(
+                    f"sharded_world1 {name}: k/neval/fx {st_m.k}/{st_m.prob.neval}/"
+                    f"{st_m.prob.fx} against {st_s.k}/{st_s.prob.neval}/{st_s.prob.fx}, "
+                    f"x bits {_bits(st_s.prob.x) == _bits(st_m.prob.x)}, launches "
+                    f"{lc_m} against {lc_s}")
+            _expect_on_card(f"sharded_world1 {name}", lc_m, pc_m, kernels)
+            iters = st_m.k - 1
+            ms_solo = [1e3 * dt / iters for _, dt, _ in solo]
+            ms_mesh = [1e3 * r[1] / iters for r in mesh_runs]
+            overhead = _median(ms_mesh) - _median(ms_solo)
+            spread = max(max(ms_solo) - min(ms_solo), max(ms_mesh) - min(ms_mesh))
+            out[name] = dict(
+                iters=iters, evals=st_m.prob.neval, fx=float(st_m.prob.fx), bit_for_bit=True,
+                collectives_per_iter=coll / iters, syncs_per_iter=reads / iters,
+                turns=WORLD1_TURNS, ms_per_iter_solo=ms_solo, ms_per_iter_mesh=ms_mesh,
+                overhead_ms_per_iter=overhead, spread_ms_per_iter=spread,
+                overhead_resolved=abs(overhead) > spread,
+                allreduce_ms_per_iter=_allreduce_ms(mesh, params, x0),
+                launches={k: lc_m[k] for k in kernels})
+            emit(phase="sharded_world1", path=name, n=N_BIG, world=1, backend="nccl",
+                 **out[name])
+            del solo, mesh_runs, st_s, st_m
+            torch.cuda.empty_cache()
+        out["collective_probe"] = _collective_probe(mesh)
+        emit(phase="sharded_world1_collective", world=1, backend="nccl",
+             **out["collective_probe"])
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_sharded_two_rank(solo: dict) -> dict:
+    """Two spawned ranks of a gloo group, both on cuda:0, n = 2^24 in all
+    (2^23 each): the main, OWL-QN and damped main paths.  Each rank's runs
+    must agree bit for bit with the other's (iterations, evaluations, fx,
+    the gathered x), launch K1, K2 (K8 under OWL-QN), K4 (K14) and K15
+    (K16) on the card and no plain version, and hold every mesh form it
+    launched to the single-process launch (``_mesh_kernel_checks``).
+    Against the solo runs (``solo``: path -> its report): the main path
+    ends at the same iteration, every path's fx within rel 1e-3
+    (tests/test_multiprocess.py:166); every path's first 8 iterations in
+    float64 take the same steps to fx within ``EARLY_F64_REL``.  Where
+    float32 parts a run (its ends, its first 8 iterations against
+    ``FUSION_TOL_8``), the difference is printed.
+    Prints each rank's launches, the collectives and all-reduce ms per
+    iteration."""
+    port = _free_port()
+    outdir = _build.BUILD_DIR / f"sharded_{os.getpid()}"
+    outdir.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                               str(r), str(port), str(outdir)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SHARDED_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"sharded_two_rank: rank {r} exited {p.returncode}:\n"
+                                 f"{log[-6000:]}")
+    ranks = [json.loads((outdir / f"rank{r}.json").read_text()) for r in range(2)]
+    for r, rk in enumerate(ranks):
+        emit(phase="sharded_two_rank_kernels", rank=r, offset=rk["kernel_checks"]["offset"],
+             worst_rel_scalar=rk["kernel_checks"]["cases"])
+    out = {}
+    for name, (params, kernels) in SHARDED_PATHS.items():
+        a, b = (rk[name] for rk in ranks)
+        keys = ("k", "neval", "status", "fx_hex", "x_sha")
+        if any(a[k] != b[k] for k in keys) or a["early"] != b["early"]:
+            raise AssertionError(f"sharded_two_rank {name}: the ranks part: "
+                                 f"{[{k: rk[name][k] for k in (*keys, 'early')} for rk in ranks]}")
+        for r, rk in enumerate(ranks):
+            _expect_on_card(f"sharded_two_rank {name} rank {r}", rk[name]["launches"],
+                            rk[name]["plain_calls"], kernels)
+        ref = solo[name]
+        iters = a["k"] - 1
+        rel = abs(a["fx"] - ref["fx"]) / (abs(ref["fx"]) or 1.0)
+        early_solo = _early_runs(params)
+        early = {}
+        for key, e in a["early"].items():
+            e_s = early_solo[key]
+            early[key] = dict(
+                k_neval=[e["k"], e["neval"]], k_neval_solo=[e_s["k"], e_s["neval"]],
+                rel_fx=abs(e["fx"] / e_s["fx"] - 1),
+                same_steps=(e["k"], e["neval"]) == (e_s["k"], e_s["neval"]))
+        e64 = early["f64"]
+        if not (e64["same_steps"] and e64["rel_fx"] <= EARLY_F64_REL):
+            raise AssertionError(f"sharded_two_rank {name}: float64, after 8 iterations "
+                                 f"{a['early']['f64']} against the solo run's "
+                                 f"{early_solo['f64']}")
+        if not rel <= 1e-3 or (name == "main_path" and iters != ref["iters"]):
+            raise AssertionError(f"sharded_two_rank {name}: {iters} iterations to fx {a['fx']} "
+                                 f"against the solo run's {ref['iters']} to {ref['fx']}")
+        out[name] = dict(
+            iters=iters, iters_solo=ref["iters"], evals=a["neval"], evals_solo=ref["evals"],
+            fx=a["fx"], fx_solo=ref["fx"], rel_fx_vs_solo=rel,
+            iters_minus_solo=iters - ref["iters"], early=early,
+            early_f32_within_fusion_tol=early["f32"]["same_steps"]
+            and early["f32"]["rel_fx"] <= FUSION_TOL_8,
+            status=a["status"], ranks_bit_for_bit=True,
+            collectives_per_iter=a["collectives"] / iters,
+            ms_per_iter=[rk[name]["ms_per_iter"] for rk in ranks],
+            allreduce_ms_per_iter=[rk[name]["allreduce_ms_per_iter"] for rk in ranks],
+            launches=[{k: v for k, v in rk[name]["launches"].items() if v} for rk in ranks])
+        emit(phase="sharded_two_rank", path=name, n=N_BIG, world=2, backend="gloo",
+             device="cuda:0 (both ranks)", **out[name])
+    for f in outdir.iterdir():
+        f.unlink()
+    outdir.rmdir()
+    return out
+
+
+def _gidx_block(x, gidx):
+    """(w x^2 / 2, w x) with w = 1 + (gidx mod 7) / 10: a body that reads
+    the global index beyond its parity (Rosenbrock's reads only that).
+    Both the Triton body (``_gidx_body``) and its torch twin."""
+    w = 1.0 + 0.1 * (gidx % 7).to(x.dtype)
+    return 0.5 * (w * (x * x)), w * x
+
+
+_GIDX_BODY = []
+
+
+def _gidx_body():
+    if not _GIDX_BODY:
+        import triton
+
+        _GIDX_BODY.append(triton.jit(_gidx_block))
+    return _GIDX_BODY[0]
+
+
+def _mesh_kernel_checks(mesh) -> dict:
+    """Every mesh form the sharded paths launch (K1, K2, K4 +-gp, K8 in
+    both forms, K10, K14 +-gp, K15 +-fix, K16), the quadratic's K1 and K4
+    with its extras passed whole (each rank narrows them to its shard) and
+    a body that reads the global index beyond its parity (K1, K2), each
+    called under the mesh on this rank's shard of seeded inputs at n =
+    2^24 and held to the single-process launch on the whole inputs: the
+    vectors and ring rows it writes bit for bit on the shard's elements,
+    its scalars within ``MESH_*``; each mesh call must launch its kernel
+    once and call no plain version.  The OWL-QN forms run on a window
+    that starts and ends in different shards and on one inside rank 1's
+    shard only.  Raises on any mismatch; returns the offset and each
+    case's largest relative scalar difference."""
+    n = N_BIG
+    n_loc = n // mesh.size
+    off = mesh.rank * n_loc
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * s
+
+    x0 = rosenbrock.initial_point(n, torch.float32, "cuda")
+    a = dict(xp=x0 + r(n, s=0.1), d=r(n, s=0.1), gp=r(n), gx=r(n), pg=r(n), x=x0 + r(n, s=0.1),
+             wp=torch.sign(r(n)), S=r(M, n, s=0.1).bfloat16(), Y=r(M, n, s=0.1).bfloat16(),
+             cs=r(M), cy=r(M))
+    a["xz"] = a["xp"].clone()
+    a["xz"][::5] = 0.0
+    k = rosenbrock.value_and_grad.kernels
+    quad = separable.quadratic(0.5 + r(n).abs(), r(n))
+    gobj = factory.make_fused_objective(_gidx_body, block_ref=_gidx_block)
+    gamma = torch.tensor(0.7, device="cuda")
+    fix = (4, torch.tensor(0.8, device="cuda"), torch.tensor(-0.15, device="cuda"))
+    c = 0.8
+    windows = {"cross": (130, n - 7), "rank1": (n_loc + 1000, n_loc + 5000)}
+    trial_b = {1: MESH_NORM, 3: MESH_DOT, 4: MESH_NORM, 5: MESH_NORM, 6: MESH_EQUAL}
+    epi_b = {**trial_b, 7: MESH_GRAM, 8: MESH_GRAM}
+    ow_epi_b = {3: MESH_GRAM, 4: MESH_GRAM, 5: MESH_NORM, 6: MESH_NORM, 7: MESH_EQUAL}
+    probe_b = {0: MESH_NORM, 1: MESH_DOT}
+    # (name, the wrapper whose launches count, the call on whole or shard
+    # inputs, its vector outputs, its scalar outputs' bounds, writes rings)
+    cases = [
+        ("K1_trial", k.trial, lambda v: k.trial(v.xp, v.d, 0.2), (0, 2), trial_b, False),
+        ("K2_probe", k.probe, lambda v: k.probe(v.xp, v.d, 0.2), (), probe_b, False),
+        *[(f"K4_trial_pair_gram{'_gp' if gp else ''}", k.trial_pair_gram, lambda v, gp=gp:
+           k.trial_pair_gram(v.xp, v.d, v.gp, 0.6, v.S, v.Y, 4, with_gp=gp), (0, 2), epi_b,
+           True) for gp in (False, True)],
+        ("K15_combine_probe", k.combine_probe, lambda v: k.combine_probe(
+            v.gp, v.x, v.S, v.Y, gamma, v.cs, v.cy, 0.3), (0,),
+         {1: MESH_NORM, 2: MESH_DOT, 3: MESH_NORM, 4: MESH_DOT}, True),
+        ("K15_combine_probe_fix", k.combine_probe, lambda v: k.combine_probe(
+            v.gp, v.x, v.S, v.Y, gamma, v.cs, v.cy, 0.3, fix=fix), (0,),
+         {1: MESH_NORM, 2: MESH_DOT, 3: MESH_NORM, 4: MESH_DOT}, True),
+        ("quadratic_K1_extras_whole", quad.kernels.trial,
+         lambda v: quad.kernels.trial(v.xp, v.d, 0.37), (0, 2), trial_b, False),
+        ("quadratic_K4_extras_whole", quad.kernels.trial_pair_gram,
+         lambda v: quad.kernels.trial_pair_gram(v.xp, v.d, v.gp, 0.3, v.S, v.Y, 1), (0, 2),
+         epi_b, True),
+        ("gidx_K1", gobj.kernels.trial, lambda v: gobj.kernels.trial(v.xp, v.d, 0.4), (0, 2),
+         {1: MESH_NORM, 3: MESH_DOT, 4: MESH_NORM, 5: MESH_NORM}, False),
+        ("gidx_K2", gobj.kernels.probe, lambda v: gobj.kernels.probe(v.xp, v.d, 0.4), (),
+         probe_b, False),
+    ]
+    for w, (lo, hi) in windows.items():
+        cases += [
+            (f"K8_owlqn_probe_{w}", k.owlqn_probe, lambda v, lo=lo, hi=hi: k.owlqn_probe(
+                v.xz, v.d, v.wp, 0.37, c, lo, hi), (), probe_b, False),
+            (f"K8_owlqn_probe_pg_{w}", k.owlqn_probe_pg, lambda v, lo=lo, hi=hi:
+             k.owlqn_probe_pg(v.xz, v.d, v.pg, 0.37, c, lo, hi), (), probe_b, False),
+            (f"K10_pseudo_gradient_norm_{w}", fused.pseudo_gradient_norm,
+             lambda v, lo=lo, hi=hi: fused.pseudo_gradient_norm(v.xz, v.gx, c, lo, hi), (0,),
+             {1: MESH_NORM}, False),
+            (f"K16_combine_ow_probe_{w}", k.combine_ow_probe, lambda v, lo=lo, hi=hi:
+             k.combine_ow_probe(v.pg, v.xz, v.S, v.Y, -gamma, v.cs, v.cy, c, lo, hi, 0.3),
+             (0,), {1: MESH_NORM, 2: MESH_NORM, 3: MESH_DOT, 4: MESH_NORM, 5: MESH_DOT}, False)]
+        for gp in (False, True):
+            cases.append((f"K14_owlqn_trial_pair_gram{'_gp' if gp else ''}_{w}",
+                          k.owlqn_trial_pair_gram, lambda v, lo=lo, hi=hi, gp=gp:
+                          k.owlqn_trial_pair_gram(v.xz, v.d, v.gp, v.pg, 0.37, c, lo, hi,
+                                                  v.S, v.Y, 2, with_gp=gp), (0, 1, 2),
+                          {**ow_epi_b, **({8: MESH_NORM, 9: MESH_DOT} if gp else {})}, True))
+
+    def plain_total() -> int:
+        return (sum(plain_calls().values())
+                + sum(getattr(o.kernels, ref).calls for o in (quad, gobj) for ref in FACTORY_REFS))
+
+    res = {}
+    for name, wrapper, fn, vecs, bounds, rings in cases:
+        whole = SimpleNamespace(**{key: (t.clone() if key in ("S", "Y") else t)
+                                   for key, t in a.items()})
+        single = fn(whole)
+        part = SimpleNamespace(**{key: (t if key in ("cs", "cy") else shard_vector(t, mesh))
+                                  for key, t in a.items()})
+        launched, plain = wrapper.launches, plain_total()
+        with kernels_on_mesh(mesh):
+            got = fn(part)
+        torch.cuda.synchronize()
+        if wrapper.launches != launched + 1 or plain_total() != plain:
+            raise AssertionError(f"mesh check {name}: {wrapper.launches - launched} launches, "
+                                 f"{plain_total() - plain} plain calls")
+        shard = lambda t: t.narrow(-1, off, n_loc)
+        bad = [f"out{i}" for i in vecs if not same_bits(got[i], shard(single[i]))]
+        if rings:
+            bad += [ring for ring in ("S", "Y")
+                    if not same_bits(getattr(part, ring), shard(getattr(whole, ring)))]
+        worst = 0.0
+        for i, (rel, ab) in bounds.items():
+            g_, s_ = (np.asarray(torch.as_tensor(v).double().cpu()) for v in (got[i], single[i]))
+            if not np.all(np.abs(g_ - s_) <= ab + rel * np.abs(s_)):
+                bad.append(f"out{i}: {g_.ravel()[:4]} against {s_.ravel()[:4]}")
+            worst = max(worst, float(np.max(np.abs(g_ - s_) / np.maximum(np.abs(s_), 1e-30))))
+        if bad:
+            raise AssertionError(f"mesh check {name} on rank {mesh.rank} (offset {off}): "
+                                 f"{bad}")
+        res[name] = worst
+        del whole, part, single, got
+    # the index body's single-process launch against its plain version
+    xt, _, g, *_ = gobj.kernels.trial(a["xp"], a["d"], 0.4)
+    _, _, g_ref, *_ = gobj.kernels.trial_ref(a["xp"], a["d"], 0.4)
+    res["gidx_K1_vs_plain"] = check("gidx K1 g vs plain", g, g_ref,
+                                    TOL[(torch.float32, "vec")])[1]
+    torch.cuda.empty_cache()
+    return dict(offset=off, cases=res)
+
+
+def sharded_rank(rank: int, port: int, outdir: str) -> None:
+    """One rank of ``phase_sharded_two_rank``: joins the gloo group on
+    cuda:0, runs each sharded path three times (the launch counts and the
+    check, the wall, the timed collectives) and its early runs
+    (``_early_runs``), then holds the mesh forms to the single-process launches
+    (``_mesh_kernel_checks``), and writes its results."""
+    import hashlib
+
+    if not torch.cuda.is_available():
+        raise SystemExit("sharded rank: no CUDA device")
+    init_distributed(backend="gloo", device="cuda:0", init_method=f"tcp://localhost:{port}",
+                     world_size=2, rank=rank, timeout=datetime.timedelta(seconds=240))
+    res = {}
+    try:
+        mesh = make_mesh()
+        for name, (params, _) in SHARDED_PATHS.items():
+            x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+            st, _, lc, pc, reads, coll = _sharded_run(mesh, params, x0)
+            dt = _sharded_run(mesh, params, x0)[1]
+            iters = st.k - 1
+            x = gather_vector(st.prob.x, mesh)
+            res[name] = dict(
+                k=st.k, neval=st.prob.neval, status=st.status, fx=float(st.prob.fx),
+                fx_hex=float(st.prob.fx).hex(),
+                x_sha=hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest(),
+                launches=lc, plain_calls=pc, collectives=coll, syncs=reads,
+                ms_per_iter=1e3 * dt / iters,
+                allreduce_ms_per_iter=_allreduce_ms(mesh, params, x0),
+                early=_early_runs(params, mesh))
+            del st, x, x0
+            torch.cuda.empty_cache()
+        res["kernel_checks"] = _mesh_kernel_checks(mesh)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
                     help="also profile one run of each main path; operator tables to PATH")
+    ap.add_argument("--sharded-rank", nargs=3, metavar=("RANK", "PORT", "OUTDIR"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sharded_rank:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rank, port, outdir = args.sharded_rank
+        sharded_rank(int(rank), int(port), outdir)
+        return
     seconds = {}
 
     def run(fn, *a):
@@ -3542,6 +4071,9 @@ def main() -> None:
     batched = run(phase_batched_kernels)
     lc_batched, _ = run(phase_batched_main_path)
     run(phase_batched_baseline)
+    run(phase_sharded_world1)
+    run(phase_sharded_two_rank, {"main_path": main_out, "owlqn_main_path": ow_out,
+                                 "damped_main_path": d_out})
     for key in ("errs", "times", "bounds", "timed_by"):
         k[key].update(deep[key])
         k[key].update(batched[key])

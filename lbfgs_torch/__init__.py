@@ -75,8 +75,27 @@ core (``minimize(..., backend="native")``, ``native``), checkpoints
 (``utils.checkpoint``) and the pytree front end (``pytree_api``).  The
 Poisson regression takes a bfloat16 X over float32 vectors.  Their CPU
 tests hold each to ``lbfgs_tpu`` (``tests/test_torch_parity_slice.py``).
-The speculative search and fp8 histories raise ``NotImplementedError``;
-sharding is not ported.
+The speculative search and fp8 histories raise ``NotImplementedError``.
+
+Giant vectors shard over ``torch.distributed`` (``parallel``): one process
+per GPU, each holding a contiguous slice of every [n] vector and of the
+history rings, every kernel run on its slice with one all-reduce per
+launch for its scalars::
+
+    # torchrun --nproc_per_node=4 run.py
+    from lbfgs_torch.parallel import (init_distributed, kernels_on_mesh, make_mesh,
+                                      shard_vector)
+    init_distributed()                  # NCCL on GPUs (gloo on the CPU)
+    mesh = make_mesh()
+    with kernels_on_mesh(mesh):
+        report = lbfgs().minimize_jit(shard_vector(initial_point(1 << 26), mesh),
+                                      default_evaluate())
+    # report.x is this rank's slice; fx, the norms and the counts are global
+
+The objectives built by ``ops.factory.make_fused_objective`` run sharded
+(Rosenbrock and the separable models); on a mesh a generic objective, the
+native backend, the batched runner and checkpoints raise
+``NotImplementedError``.
 
 Scenario batches (``Lbfgs.minimize_batched``, ``batched``): B independent
 instances of one factory objective as a [B, n] tensor, advanced together

@@ -84,11 +84,13 @@ def check_supported_batched(params: LbfgsParams, evaluate: Callable,
     runner does not run yet: OWL-QN, damping, the gradient-only mode, the
     uncapped step, the adaptive entry step, the wide objective scalar, the
     scan two-loop, a history the ring kernels do not take (float16), more
-    than ``factory.MAX_M`` ring rows, the speculative search, and
-    objectives that do not carry the batched kernels (generic ones)."""
+    than ``factory.MAX_M`` ring rows, the speculative search, objectives
+    that do not carry the batched kernels (generic ones), and a mesh
+    (``parallel``: batches are not sharded)."""
     hdtype = (getattr(torch, params.history_dtype) if params.history_dtype
               else x0_batch.dtype)
     unsupported = [
+        (fused.active_mesh() is not None, "a mesh (sharded batches are not ported)"),
         (params.orthantwise is not None, "OWL-QN (orthantwise)"),
         (params.damping, "Powell damping"),
         (params.linesearch.gradient_only, "the gradient-only mode"),

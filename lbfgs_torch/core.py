@@ -252,12 +252,14 @@ def pseudo_gradient(pdef: ProblemDef, x: torch.Tensor, gx: torch.Tensor) -> torc
 
 def gnorm_of(prob: ProblemState) -> np.floating:
     """||pg|| under OWL-QN, else ||gx||, from the carried squared norm
-    (``src/core.rs:183-189``): the solver carries ||pg||^2 under OWL-QN."""
+    (``src/core.rs:183-189``): the solver carries ||pg||^2 under OWL-QN.
+    On a mesh the carried norms are the whole vector's (the kernels' sums
+    arrive added over the ranks), so this reads no shard."""
     return np.sqrt(prob.gnorm2)
 
 
 def xnorm_of(prob: ProblemState) -> np.floating:
-    """||x|| from the carried squared norm."""
+    """||x|| from the carried squared norm (the whole vector's on a mesh)."""
     return np.sqrt(prob.xnorm2)
 
 

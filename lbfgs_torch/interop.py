@@ -13,7 +13,9 @@ Layouts: the JAX package may store the (s, y) history ring-major,
 ``[m, n/128, 128]`` (``lbfgs_tpu/core.py:113-129``); here it is always
 ``[m, n]``.  A bfloat16 history arrives as numpy's ``bfloat16`` extension
 dtype and is carried over bit for bit; ``state_to_numpy`` widens it to
-float32, which is exact.
+float32, which is exact.  With a ``mesh`` (``parallel``) ``state_from_jax``
+hands this rank its shard of the JAX state: the weights carried across
+into a sharded run.
 """
 
 from __future__ import annotations
@@ -33,12 +35,18 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def state_from_jax(tree: Any, device) -> SolverState:
+def state_from_jax(tree: Any, device, mesh=None) -> SolverState:
     """This package's ``SolverState`` from a JAX ``SolverState`` with
     numpy leaves, the OWL-QN pseudo-gradient included.  Host scalars keep
     the vectors' dtype, except fx and the fx ring, which keep their own:
     float64 in a wide (``fx_wide``) state over float32 vectors, and so
-    does the combine+probe slot's ft (``probe1``)."""
+    does the combine+probe slot's ft (``probe1``).  With a ``mesh``
+    (``parallel.make_mesh``) the state is this rank's shard
+    (``parallel.shard_state``), on the mesh's device."""
+    if mesh is not None:
+        from .parallel import shard_state
+
+        return shard_state(state_from_jax(tree, "cpu"), mesh)
     p, h = tree.prob, tree.hist
     f = np.asarray(p.x).dtype.type
     m = np.asarray(h.s).shape[0]

@@ -50,6 +50,7 @@ import torch
 from . import orthantwise as ow_ops
 from .core import ProblemDef, evaluate, np_type, to_host
 from .ops import fused
+from .ops import vecmath as vm
 from .params import LineSearchAlgorithm, LineSearchParams
 from .status import Status
 
@@ -307,7 +308,7 @@ def _trial(pdef: ProblemDef, xp, d, stp, wp=None):
     else:
         xt = xp + float(stp) * d
     ft, gt = evaluate(pdef, xt)
-    return xt, ft, gt, torch.dot(gt, d)
+    return xt, ft, gt, vm.dot(gt, d)
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +459,8 @@ def morethuente(
         # its fx equals the probe's, so the host value ft stands)
         xt, _ft, gt, _dg, gg, xx, changed = _trial(pdef, xp, d, stp_eval)
     else:
-        gg, xx, changed = torch.dot(gt, gt), torch.dot(xt, xt), None
+        gg, xx = vm.dots((gt, gt), (xt, xt))
+        changed = None
     return LineSearchResult(
         x=xt, fx=ft, gx=gt, step=stp, ncall=ncall, neval=neval, status=status,
         gg=gg, xx=xx, changed=changed, step_eval=stp_eval,
@@ -587,8 +589,11 @@ def backtracking(
         xt, _ft, gt, _dg, gg, xx, changed = _trial(pdef, xp, d, stp_eval)
     else:
         # under OWL-QN the solver needs ||pg||^2, not ||g||^2
-        gg = None if pdef.orthantwise else torch.dot(gt, gt)
-        xx, changed = torch.dot(xt, xt), None
+        if pdef.orthantwise:
+            gg, xx = None, vm.dot(xt, xt)
+        else:
+            gg, xx = vm.dots((gt, gt), (xt, xt))
+        changed = None
     return LineSearchResult(
         x=xt, fx=ft, gx=gt, step=stp, ncall=ncall, neval=neval, status=status,
         gg=gg, xx=xx, changed=changed, step_eval=stp_eval,
@@ -648,7 +653,7 @@ def find(
         )
     if dginit is None:
         # pg.d under OWL-QN, else g.d (src/core.rs:78-92)
-        (dginit,) = to_host(torch.dot(pgp if ow else gp, d))
+        (dginit,) = to_host(vm.dot(pgp if ow else gp, d))
     if not ow and ls.warn_ascent and dginit > 0.0:
         # ascent-direction warning (reference Problem::dginit, src/core.rs:78-92)
         logger.warning(

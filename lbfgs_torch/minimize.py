@@ -10,6 +10,13 @@
     accepted point over the last one, and a line-search failure ends the
     run.  The name is the JAX package's, so the API reads the same.
 
+Inside ``parallel.kernels_on_mesh(mesh)`` each entry point takes this
+rank's shard of x0 (``parallel.shard_vector``) and returns the shard of
+x, as the JAX package's ``with kernels_on_mesh(mesh): minimize_jit(...)``
+does; every other value of a state or report is the whole run's, the
+same on every rank.  The native backend raises there, as do generic
+objectives (``solver.check_supported``).
+
 Fatal statuses raise ``LbfgsError``, mirroring the reference's ``anyhow``
 error propagation out of ``propagate``.
 """
@@ -33,6 +40,7 @@ from .core import (
     pseudo_gradient,
     xnorm_of,
 )
+from .ops.collective import active_mesh
 from .params import LbfgsParams
 from .solver import init_state, propagate_hot, start_state, stop_status
 from .status import LS_ERROR_MESSAGES, LbfgsError, Status, is_fatal, is_ls_error
@@ -169,6 +177,8 @@ def minimize(
     latency dominates, and the reference-parity path.
     """
     if backend == "native":
+        if active_mesh() is not None:
+            raise NotImplementedError("the native backend on a mesh (it is one host core)")
         return _minimize_native_backend(params, x0, evaluate, progress)
     if backend != "torch":
         raise ValueError(f"unknown backend: {backend!r} (use 'torch' or 'native')")

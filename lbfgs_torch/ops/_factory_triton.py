@@ -143,6 +143,15 @@ instance: 8 and 44 B/elem at f32 vectors with a bf16 history, m = 6
 (K4 b has no . gp column and writes no objective partial: the runner
 takes fx from the search).
 
+On a mesh each kernel runs on one rank's shard of the vectors: ``off``,
+the shard's global offset, is added to the local offsets only where the
+body sees them (its ``gidx``, ``lbfgs_tpu/ops/factory.py:174``;
+``_gidx``); the pointers, the masks and the OWL-QN window (translated by
+the wrappers) stay in the shard's own indices.  The add is compiled in
+only where the offset is not 0 (``SHARD``), so a launch with no offset
+is the single-process kernel, code and all.  The batched kernels are not
+sharded and take no offset.
+
 The orthant tests use ``_msign``, which maps NaN to 0 as the reference's
 signum does; the pseudo-gradient's x != 0 branch uses ``_sign``, which
 keeps NaN, as ``jnp.sign`` does in the JAX kernels.
@@ -165,6 +174,15 @@ def _offsets(ROWS: tl.constexpr, W: tl.constexpr):
     rows = tl.arange(0, ROWS)[:, None]
     cols = tl.arange(0, W)[None, :]
     return pid * (ROWS * W) + rows * W + cols
+
+
+@triton.jit
+def _gidx(offs, off, SHARD: tl.constexpr):
+    # the global element indices the body sees: a shard's offset added only
+    # where it is not 0, so the single-process kernels compile unchanged
+    if SHARD:
+        offs = offs + off
+    return offs
 
 
 @triton.jit
@@ -247,8 +265,9 @@ def _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, fix_end, M: tl.co
 
 
 @triton.jit
-def trial_kernel(xp_ptr, d_ptr, stp_ptr, xt_ptr, g_ptr, part_ptr, n, ex,
-                 body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr):
+def trial_kernel(xp_ptr, d_ptr, stp_ptr, xt_ptr, g_ptr, part_ptr, n, off, ex,
+                 body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+                 SHARD: tl.constexpr):
     offs = _offsets(ROWS, W)
     mask = offs < n
     stp = tl.load(stp_ptr)
@@ -256,7 +275,7 @@ def trial_kernel(xp_ptr, d_ptr, stp_ptr, xt_ptr, g_ptr, part_ptr, n, ex,
     d = tl.load(d_ptr + offs, mask=mask, other=0.0)
     exb = _extras(ex, offs, mask)
     x = xp + stp * d
-    fe, g = body(x, offs, *exb)
+    fe, g = body(x, _gidx(offs, off, SHARD), *exb)
     tl.store(xt_ptr + offs, x, mask=mask)
     tl.store(g_ptr + offs, g, mask=mask)
     part = part_ptr + tl.program_id(0) * 5
@@ -268,8 +287,9 @@ def trial_kernel(xp_ptr, d_ptr, stp_ptr, xt_ptr, g_ptr, part_ptr, n, ex,
 
 
 @triton.jit
-def probe_kernel(xp_ptr, d_ptr, stp_ptr, part_ptr, n, ex,
-                 body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr):
+def probe_kernel(xp_ptr, d_ptr, stp_ptr, part_ptr, n, off, ex,
+                 body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+                 SHARD: tl.constexpr):
     offs = _offsets(ROWS, W)
     mask = offs < n
     stp = tl.load(stp_ptr)
@@ -277,7 +297,7 @@ def probe_kernel(xp_ptr, d_ptr, stp_ptr, part_ptr, n, ex,
     d = tl.load(d_ptr + offs, mask=mask, other=0.0)
     exb = _extras(ex, offs, mask)
     x = xp + stp * d
-    fe, g = body(x, offs, *exb)
+    fe, g = body(x, _gidx(offs, off, SHARD), *exb)
     _store_probe(part_ptr, fe, g, d, mask)
 
 
@@ -303,8 +323,9 @@ def probe_batched_kernel(xp_ptr, d_ptr, stp_ptr, live_ptr, part_ptr, n, ex,
 
 @triton.jit(do_not_specialize=["fix_end"])
 def combine_probe_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, cpart_ptr,
-                         ppart_ptr, n, fix_end, ex, body: tl.constexpr, M: tl.constexpr,
-                         ROWS: tl.constexpr, W: tl.constexpr, FIX: tl.constexpr):
+                         ppart_ptr, n, fix_end, off, ex, body: tl.constexpr, M: tl.constexpr,
+                         ROWS: tl.constexpr, W: tl.constexpr, FIX: tl.constexpr,
+                         SHARD: tl.constexpr):
     offs = _offsets(ROWS, W)
     mask = offs < n
     g, r = _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, fix_end, M, FIX)
@@ -317,14 +338,14 @@ def combine_probe_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, c
     x = tl.load(x_ptr + offs, mask=mask, other=0.0)
     exb = _extras(ex, offs, mask)
     xt = x + stp * r
-    fe, gt = body(xt, offs, *exb)
+    fe, gt = body(xt, _gidx(offs, off, SHARD), *exb)
     _store_probe(ppart_ptr, fe, gt, r, mask)
 
 
 @triton.jit(do_not_specialize=["lo", "hi"])
 def combine_ow_probe_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, cpart_ptr,
-                            ppart_ptr, n, lo, hi, ex, body: tl.constexpr, M: tl.constexpr,
-                            ROWS: tl.constexpr, W: tl.constexpr):
+                            ppart_ptr, n, lo, hi, off, ex, body: tl.constexpr, M: tl.constexpr,
+                            ROWS: tl.constexpr, W: tl.constexpr, SHARD: tl.constexpr):
     offs = _offsets(ROWS, W)
     mask = offs < n
     pg, r = _combination(pg_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, 0, M, False)
@@ -342,7 +363,7 @@ def combine_ow_probe_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_pt
     exb = _extras(ex, offs, mask)
     wp_sign = tl.where(x == 0.0, _msign(-pg), _msign(x))
     xt = _ow_point(x, rc, stp, wp_sign, in_win)
-    fe, gt = body(xt, offs, *exb)
+    fe, gt = body(xt, _gidx(offs, off, SHARD), *exb)
     _store_ow_probe(ppart_ptr, fe, xt, gt, rc, mask, in_win)
 
 
@@ -438,10 +459,10 @@ def _store_gp(gpart, b0, b1, M: tl.constexpr, MP: tl.constexpr):
 
 @triton.jit(do_not_specialize=["end", "tiles"])
 def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
-                           S_ptr, Y_ptr, fx_ptr, part_ptr, gpart_ptr, n, end, tiles, ex,
+                           S_ptr, Y_ptr, fx_ptr, part_ptr, gpart_ptr, n, end, tiles, off, ex,
                            body: tl.constexpr, M: tl.constexpr, MP: tl.constexpr,
                            T: tl.constexpr, V: tl.constexpr, W: tl.constexpr,
-                           WITH_GP: tl.constexpr):
+                           WITH_GP: tl.constexpr, SHARD: tl.constexpr):
     # program pid takes tiles pid*tiles .. pid*tiles + tiles - 1 of T
     # elements each; the sums stay in per-thread registers across them
     pid = tl.program_id(0)
@@ -470,7 +491,8 @@ def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
         exb = _view(_extras(ex, offs, mask), T // W, W)
         x = xp + stp * d
         # the body sees the [T // W, W] view of the tile
-        fe, g = body(tl.reshape(x, [T // W, W]), tl.reshape(offs, [T // W, W]), *exb)
+        gidx = tl.reshape(_gidx(offs, off, SHARD), [T // W, W])
+        fe, g = body(tl.reshape(x, [T // W, W]), gidx, *exb)
         fe = tl.reshape(fe, [R, V])
         g = tl.reshape(g, [R, V])
         # the objective: one partial per tile, as the JAX kernel's fxp
@@ -576,8 +598,8 @@ def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_p
 
 @triton.jit(do_not_specialize=["lo", "hi"])
 def owlqn_trial_kernel(xp_ptr, d_ptr, wp_ptr, stp_ptr, xt_ptr, g_ptr, ppart_ptr, part_ptr,
-                       n, lo, hi, ex, body: tl.constexpr, ROWS: tl.constexpr,
-                       W: tl.constexpr):
+                       n, lo, hi, off, ex, body: tl.constexpr, ROWS: tl.constexpr,
+                       W: tl.constexpr, SHARD: tl.constexpr):
     offs = _offsets(ROWS, W)
     mask = offs < n
     stp = tl.load(stp_ptr)
@@ -587,7 +609,7 @@ def owlqn_trial_kernel(xp_ptr, d_ptr, wp_ptr, stp_ptr, xt_ptr, g_ptr, ppart_ptr,
     exb = _extras(ex, offs, mask)
     in_win = (offs >= lo) & (offs < hi)
     x = _ow_point(xp, d, stp, _msign(wp), in_win)
-    fe, g = body(x, offs, *exb)
+    fe, g = body(x, _gidx(offs, off, SHARD), *exb)
     tl.store(xt_ptr + offs, x, mask=mask)
     tl.store(g_ptr + offs, g, mask=mask)
     _store_ow_probe(ppart_ptr, fe, x, g, d, mask, in_win)
@@ -597,9 +619,9 @@ def owlqn_trial_kernel(xp_ptr, d_ptr, wp_ptr, stp_ptr, xt_ptr, g_ptr, ppart_ptr,
 
 
 @triton.jit(do_not_specialize=["lo", "hi"])
-def owlqn_probe_kernel(xp_ptr, d_ptr, w_ptr, stp_ptr, part_ptr, n, lo, hi, ex,
+def owlqn_probe_kernel(xp_ptr, d_ptr, w_ptr, stp_ptr, part_ptr, n, lo, hi, off, ex,
                        body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
-                       WP_IS_PG: tl.constexpr):
+                       WP_IS_PG: tl.constexpr, SHARD: tl.constexpr):
     offs = _offsets(ROWS, W)
     mask = offs < n
     stp = tl.load(stp_ptr)
@@ -614,17 +636,18 @@ def owlqn_probe_kernel(xp_ptr, d_ptr, w_ptr, stp_ptr, part_ptr, n, lo, hi, ex,
         wp_sign = _msign(w)
     in_win = (offs >= lo) & (offs < hi)
     x = _ow_point(xp, d, stp, wp_sign, in_win)
-    fe, g = body(x, offs, *exb)
+    fe, g = body(x, _gidx(offs, off, SHARD), *exb)
     _store_ow_probe(part_ptr, fe, x, g, d, mask, in_win)
 
 
 @triton.jit(do_not_specialize=["end", "lo", "hi", "tiles"])
 def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
                                  x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr,
-                                 n, lo, hi, end, tiles, ex, body: tl.constexpr,
+                                 n, lo, hi, end, tiles, off, ex, body: tl.constexpr,
                                  M: tl.constexpr,
                                  MP: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
-                                 W: tl.constexpr, WITH_GP: tl.constexpr):
+                                 W: tl.constexpr, WITH_GP: tl.constexpr,
+                                 SHARD: tl.constexpr):
     pid = tl.program_id(0)
     dt = xp_ptr.dtype.element_ty
     stp = tl.load(stp_ptr)
@@ -657,7 +680,8 @@ def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
         # orthant from the previous point's (x, pg): the search's choose_orthant
         wp_sign = tl.where(xp == 0.0, _msign(-pgo), _msign(xp))
         x = _ow_point(xp, d, stp, wp_sign, in_win)
-        _, g = body(tl.reshape(x, [T // W, W]), tl.reshape(offs, [T // W, W]), *exb)
+        gidx = tl.reshape(_gidx(offs, off, SHARD), [T // W, W])
+        _, g = body(tl.reshape(x, [T // W, W]), gidx, *exb)
         g = tl.reshape(g, [R, V])
         g = tl.where(mask, g, 0.0)
         # pseudo-gradient at the new point (Andrew & Gao Eq. 4)

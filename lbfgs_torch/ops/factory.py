@@ -80,6 +80,21 @@ tensors bound at factory time, contiguous, of the iterate's dtype and on
 its device.  Every kernel streams them beside the iterate (each adds its
 element's bytes to every kernel's traffic), and the plain versions see
 them through ``value_and_grad``.
+
+On a mesh (``fused.kernels_on_mesh``) every wrapper takes this rank's
+shard of the iterate (``lbfgs_tpu/ops/factory.py:252-270``): the kernel
+runs on it with the shard's global offset ``off`` (the body sees the
+global indices ``off + local``), the extras sliced to the shard (an extra
+of the whole vector's length is narrowed, one of the shard's is taken as
+it is), the OWL-QN window translated into the shard's indices, and the
+launch's scalars are added over the ranks in one all-reduce
+(``collective.mesh_sum``; K1's, K4's and K14's ``changed`` is "on any
+rank").  A shard the kernels cannot take (not a multiple of ``row``)
+raises ``ValueError`` naming the split.  The plain versions evaluate the
+shard through ``block_ref`` at its global indices and the extras' shards
+(an objective without ``block_ref`` through ``value_and_grad`` of the
+shard, which then must have no extras).  The batched kernels are not
+sharded.
 """
 
 from __future__ import annotations
@@ -89,8 +104,7 @@ from types import SimpleNamespace
 import torch
 
 from . import _build, fused
-from ..orthantwise import (Orthantwise, choose_orthant, project_window, pseudo_gradient,
-                           x1norm)
+from ..orthantwise import Orthantwise, choose_orthant, project_window, pseudo_gradient, x1sum
 
 #: elements per kernel program (a power of two; ``row`` divides it)
 BLOCK = 1024
@@ -189,7 +203,7 @@ def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     return torch.full((1,), float(v), dtype=like.dtype, device=like.device)
 
 
-_window = fused._check_window
+_window = fused.kernel_window
 
 
 def _fx(part: torch.Tensor, tot: torch.Tensor) -> torch.Tensor:
@@ -210,16 +224,19 @@ def _epilogue_launch(eg: SimpleNamespace) -> dict:
     return dict(LAUNCH, num_warps=eg.num_warps, num_stages=eg.num_stages)
 
 
-def _ow_probe_scalars(part: torch.Tensor, c: float) -> tuple:
-    """(fx + c*L1, g.d) from K7's or K8's [programs, 3] (f, L1, g.d)
-    partials, by one code path for both kernels: fx + c*L1 in float64
-    under the wide mode (``lbfgs_tpu/ops/factory.py:440-448``), else in
-    the vectors' dtype."""
+def _ow_probe_scalars(part: torch.Tensor, c: float, *more: torch.Tensor) -> tuple:
+    """(fx + c*L1, g.d, *more) from K7's, K8's or K16's [programs, 3] (f,
+    L1, g.d) partials, by one code path for all three kernels: fx + c*L1 in
+    float64 under the wide mode (``lbfgs_tpu/ops/factory.py:440-448``),
+    else in the vectors' dtype.  On a mesh the three sums and the launch's
+    other sums ``more`` are added over the ranks in one collective first."""
     tot = fused.reduce_partials(part)
     if fused.wide(part.dtype):
         fx, l1 = fused.obj_reduce(part[:, :2])
-        return fx + c * l1, tot[2]
-    return tot[0] + tot[1] * c, tot[2]
+        fx, l1, dg, *more = fused.mesh_sum(fx, l1, tot[2], *more)
+        return (fx + c * l1, dg, *more)
+    fx, l1, dg, *more = fused.mesh_sum(tot[0], tot[1], tot[2], *more)
+    return (fx + l1 * c, dg, *more)
 
 
 def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int = 1,
@@ -255,21 +272,49 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             raise ValueError("make_fused_objective needs value_and_grad or block_ref")
         value_and_grad = _synthesized(block_ref, extras, row)
 
-    def _check(x: torch.Tensor) -> None:
+    def _check(x: torch.Tensor) -> tuple[int, tuple]:
+        """Check an iterate (on a mesh, this rank's shard of it); returns the
+        shard's global offset (0 with no mesh) and the extras at its
+        elements (``_mesh_splits``, ``lbfgs_tpu/ops/factory.py:123-130``)."""
         fused.check_dtypes(x.dtype)
         if x.ndim != 1:
             raise ValueError(f"expected a 1-D iterate, got shape {tuple(x.shape)}")
+        n = x.shape[0]
+        whole = fused.global_length(n)
         if validate is not None:
-            validate(x.shape[0])
-        if x.shape[0] % row:
-            raise ValueError(f"n={x.shape[0]} is not a multiple of row={row}")
+            validate(whole)
+        if n % row:
+            if whole == n:
+                raise ValueError(f"n={n} is not a multiple of row={row}")
+            raise ValueError(f"a shard of {n} elements (n={whole} over {whole // n} ranks) "
+                             f"is not a multiple of row={row}: the kernels cannot take "
+                             f"that split")
+        off = fused.shard_offset(n)
+        ex = []
         for i, e in enumerate(extras):
+            if whole != n and e.ndim == 1 and e.shape[0] == whole:
+                e = e.narrow(0, off, n)
             if e.shape != x.shape or e.dtype != x.dtype or e.device != x.device:
                 raise ValueError(f"extra {i}: {e.dtype} {tuple(e.shape)} on {e.device} "
                                  f"against the iterate's {x.dtype} {tuple(x.shape)} on "
                                  f"{x.device}")
             if not e.is_contiguous():
                 raise ValueError(f"extra {i} must be contiguous")
+            ex.append(e)
+        return off, tuple(ex)
+
+    def _evaluate(x: torch.Tensor):
+        """The plain evaluation (fx, g) at x: ``value_and_grad``, or on a
+        mesh that of the shard x at its global indices with the extras'
+        shards (its fx the shard's terms only)."""
+        if fused.active_mesh() is None:
+            return value_and_grad(x)
+        if block_ref is not None:
+            return _block_eval(block_ref, x, *_check(x), row)
+        if extras:
+            raise NotImplementedError("the plain evaluation of an objective with extras on a "
+                                      "mesh needs its block_ref")
+        return value_and_grad(x)
 
     def _grid(n: int) -> tuple[int]:
         return (-(-n // BLOCK),)
@@ -302,14 +347,16 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         """Plain version of ``trial``."""
         trial_ref.calls += 1
         xt = xp + float(stp) * d
-        fx, g = value_and_grad(xt)
-        return (xt, fused.obj_lift(fx, xt.dtype), g, torch.dot(g, d), torch.dot(g, g),
-                torch.dot(xt, xt), torch.any(xt != xp))
+        fx, g = _evaluate(xt)
+        fx, dg, gg, xx, changed = fused.mesh_sum(
+            fused.obj_lift(fx, xt.dtype), torch.dot(g, d), torch.dot(g, g), torch.dot(xt, xt),
+            torch.any(xt != xp))
+        return xt, fx, g, dg, gg, xx, changed
 
     def trial(xp, d, stp):
         """(xt, fx, g, g.d, g.g, xt.xt, changed) at xt = xp + stp*d; the
         scalars are 0-d tensors on xp's device."""
-        _check(xp)
+        off, ex = _check(xp)
         if not fused.on_cuda(xp, "trial"):
             return trial_ref(xp, d, stp)
         fused.check_contiguous("trial", xp, d)
@@ -319,27 +366,30 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         g = torch.empty_like(xp)
         part = torch.empty((grid[0], 5), dtype=xp.dtype, device=xp.device)
         _kernels().trial_kernel[grid](
-            xp, d, _scalar(stp, xp), xt, g, part, n, ex=extras,
+            xp, d, _scalar(stp, xp), xt, g, part, n, off, ex=ex, SHARD=off != 0,
             body=block_fn(), ROWS=rows, W=W, **LAUNCH,
         )
         trial.launches += 1
         tot = fused.reduce_partials(part)
-        return xt, _fx(part, tot), g, tot[1], tot[2], tot[3], tot[4] > 0
+        fx, dg, gg, xx, changed = fused.mesh_sum(_fx(part, tot), tot[1], tot[2], tot[3],
+                                                 tot[4] > 0)
+        return xt, fx, g, dg, gg, xx, changed
 
     # ------------------------------------------------------------ K2 probe
 
     def _probe_plain(xp, d, stp):
-        fx, g = value_and_grad(xp + float(stp) * d)
+        # the shard's (fx, g.d), not summed over the mesh
+        fx, g = _evaluate(xp + float(stp) * d)
         return fused.obj_lift(fx, xp.dtype), torch.dot(g, d)
 
     def probe_ref(xp, d, stp):
         """Plain version of ``probe``."""
         probe_ref.calls += 1
-        return _probe_plain(xp, d, stp)
+        return fused.mesh_sum(*_probe_plain(xp, d, stp))
 
     def probe(xp, d, stp):
         """(fx, g.d) at xp + stp*d, writing no vector."""
-        _check(xp)
+        off, ex = _check(xp)
         if not fused.on_cuda(xp, "probe"):
             return probe_ref(xp, d, stp)
         fused.check_contiguous("probe", xp, d)
@@ -347,12 +397,12 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         grid = _grid(n)
         part = torch.empty((grid[0], 2), dtype=xp.dtype, device=xp.device)
         _kernels().probe_kernel[grid](
-            xp, d, _scalar(stp, xp), part, n, ex=extras,
+            xp, d, _scalar(stp, xp), part, n, off, ex=ex, SHARD=off != 0,
             body=block_fn(), ROWS=rows, W=W, **LAUNCH,
         )
         probe.launches += 1
         tot = fused.reduce_partials(part)
-        return _fx(part, tot), tot[1]
+        return fused.mesh_sum(_fx(part, tot), tot[1])
 
     # ------------------------------------------- K2 b: the batched probe
 
@@ -392,11 +442,12 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         trial_pair_gram_ref.calls += 1
         stp = float(stp)
         x = xp + stp * d
-        fx, g = value_and_grad(x)
+        fx, g = _evaluate(x)
         SP, YP = fused.pair_products(stp * d, g - gp, -g, S, Y, end,
                                      gp=gp if with_gp else None)
-        out = (fused.obj_lift(fx, x.dtype), torch.dot(g, d), torch.dot(g, g),
-               torch.dot(x, x), torch.any(x != xp))
+        *out, SP, YP = fused.mesh_sum(fused.obj_lift(fx, x.dtype), torch.dot(g, d),
+                                      torch.dot(g, g), torch.dot(x, x), torch.any(x != xp),
+                                      SP, YP)
         if inplace:
             xp.copy_(x)
             gp.copy_(g)
@@ -413,7 +464,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         ``with_gp=True`` appends the damped update's basis column S.gp,
         Y.gp ([m, 4]); every other output is that of the plain launch bit
         for bit."""
-        _check(xp)
+        off, ex = _check(xp)
         fused._check_hist(xp, S, Y)
         if not fused.on_cuda(xp, "trial_pair_gram"):
             return trial_pair_gram_ref(xp, d, gp, stp, S, Y, end, inplace, with_gp)
@@ -427,17 +478,21 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         trial_pair_gram.compiled[(xp.dtype, S.dtype, bool(with_gp))] = \
             _kernels().trial_pair_gram_kernel[(eg.programs,)](
                 xp, d, gp, _scalar(stp, xp), x, g, S, Y, bufs["fx"], part,
-                bufs.get("gpart", part), n, int(end), eg.tiles, ex=extras, body=block_fn(), M=m,
-                MP=_rows(m), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp),
+                bufs.get("gpart", part), n, int(end), eg.tiles, off, ex=ex, SHARD=off != 0,
+                body=block_fn(), M=m, MP=_rows(m), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp),
                 **_epilogue_launch(eg))
         trial_pair_gram.launches += 1
         trial_pair_gram.gp_launches += bool(with_gp)
         tot = fused.reduce_partials(part)
-        P = tot[4:].reshape(m, 6)
+        sums = (_fx_tiles(bufs["fx"]), tot[0], tot[1], tot[2], tot[3] > 0, tot[4:])
+        if with_gp:
+            sums += (fused.reduce_partials(bufs["gpart"]),)
+        fx, dg, gg, xx, changed, P, *G = fused.mesh_sum(*sums)
+        P = P.reshape(m, 6)
         SP, YP = P[:, :3], P[:, 3:]
         if with_gp:
-            SP, YP = fused.append_gp(SP, YP, fused.reduce_partials(bufs["gpart"]))
-        return (x, _fx_tiles(bufs["fx"]), g, tot[0], tot[1], tot[2], tot[3] > 0, SP, YP)
+            SP, YP = fused.append_gp(SP, YP, G[0])
+        return (x, fx, g, dg, gg, xx, changed, SP, YP)
 
     def trial_pair_gram_ok(xp, S) -> bool:
         # shape, dtype and depth only: a size the objective rejects raises
@@ -503,10 +558,11 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     # ------------------------------------------- K8 OWL-QN probe
 
     def _ow_eval(xp, d, wp, stp, c, start, end):
-        """(x, fx + c*L1, g) at the projected trial point."""
+        """(x, fx, L1, g) at the projected trial point, fx and the window's
+        sum |x| the shard's (not summed over the mesh)."""
         x = project_window(xp + float(stp) * d, wp, start, end)
-        fx, g = value_and_grad(x)
-        return x, fused.obj_lift(fx, x.dtype) + x1norm(Orthantwise(c, start, end), x), g
+        fx, g = _evaluate(x)
+        return x, fused.obj_lift(fx, x.dtype), x1sum(Orthantwise(c, start, end), x), g
 
     # ------------------------------------------- K7 OWL-QN trial
 
@@ -514,14 +570,16 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         """Plain version of ``owlqn_trial``
         (``lbfgs_tpu/ops/factory.py:579-590``)."""
         owlqn_trial_ref.calls += 1
-        x, ft, g = _ow_eval(xp, d, wp, stp, c, start, end)
-        return x, ft, g, torch.dot(g, d), torch.dot(x, x), torch.any(x != xp)
+        x, fx, l1, g = _ow_eval(xp, d, wp, stp, c, start, end)
+        fx, l1, dg, xx, changed = fused.mesh_sum(fx, l1, torch.dot(g, d), torch.dot(x, x),
+                                                 torch.any(x != xp))
+        return x, fx + l1 * c, g, dg, xx, changed
 
     def owlqn_trial(xp, d, wp, stp, c, start, end):
         """(x, fx + c*L1, g, g.d, x.x, changed) at x = pi(xp + stp*d; wp)
         inside the window [start, end), from one pass.  Its ft equals
         ``owlqn_probe``'s at the same step and orthant, bit for bit."""
-        _check(xp)
+        off, ex = _check(xp)
         if not fused.on_cuda(xp, "owlqn_trial"):
             return owlqn_trial_ref(xp, d, wp, stp, c, start, end)
         fused.check_contiguous("owlqn_trial", xp, d, wp)
@@ -533,38 +591,41 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         ppart = torch.empty((grid[0], 3), dtype=xp.dtype, device=xp.device)
         part = torch.empty((grid[0], 2), dtype=xp.dtype, device=xp.device)
         _kernels().owlqn_trial_kernel[grid](
-            xp, d, wp, _scalar(stp, xp), x, g, ppart, part, n, lo, hi, ex=extras,
+            xp, d, wp, _scalar(stp, xp), x, g, ppart, part, n, lo, hi, off, ex=ex, SHARD=off != 0,
             body=block_fn(), ROWS=rows, W=W, **LAUNCH,
         )
         owlqn_trial.launches += 1
-        ft, dg = _ow_probe_scalars(ppart, c)
         tot = fused.reduce_partials(part)
-        return x, ft, g, dg, tot[0], tot[1] > 0
+        ft, dg, xx, changed = _ow_probe_scalars(ppart, c, tot[0], tot[1] > 0)
+        return x, ft, g, dg, xx, changed
 
     def owlqn_probe_ref(xp, d, wp, stp, c, start, end):
         """Plain version of ``owlqn_probe``."""
         owlqn_probe_ref.calls += 1
-        _, ft, g = _ow_eval(xp, d, wp, stp, c, start, end)
-        return ft, torch.dot(g, d)
+        _, fx, l1, g = _ow_eval(xp, d, wp, stp, c, start, end)
+        fx, l1, dg = fused.mesh_sum(fx, l1, torch.dot(g, d))
+        return fx + l1 * c, dg
 
     def _ow_probe_pg_plain(xp, d, pg, stp, c, start, end):
+        # the shard's (fx, L1, g.d), not summed over the mesh
         wp = choose_orthant(Orthantwise(c, start, end), xp, pg)
-        _, ft, g = _ow_eval(xp, d, wp, stp, c, start, end)
-        return ft, torch.dot(g, d)
+        _, fx, l1, g = _ow_eval(xp, d, wp, stp, c, start, end)
+        return fx, l1, torch.dot(g, d)
 
     def owlqn_probe_pg_ref(xp, d, pg, stp, c, start, end):
         """Plain version of ``owlqn_probe_pg``."""
         owlqn_probe_pg_ref.calls += 1
-        return _ow_probe_pg_plain(xp, d, pg, stp, c, start, end)
+        fx, l1, dg = fused.mesh_sum(*_ow_probe_pg_plain(xp, d, pg, stp, c, start, end))
+        return fx + l1 * c, dg
 
-    def _ow_probe(xp, d, w, stp, c, start, end, wp_is_pg):
+    def _ow_probe(xp, d, w, stp, c, start, end, wp_is_pg, off, ex):
         fused.check_contiguous("owlqn_probe", xp, d, w)
         n = xp.shape[0]
         lo, hi = _window(n, start, end)
         grid = _grid(n)
         part = torch.empty((grid[0], 3), dtype=xp.dtype, device=xp.device)
         _kernels().owlqn_probe_kernel[grid](
-            xp, d, w, _scalar(stp, xp), part, n, lo, hi, ex=extras,
+            xp, d, w, _scalar(stp, xp), part, n, lo, hi, off, ex=ex, SHARD=off != 0,
             body=block_fn(), ROWS=rows, W=W, WP_IS_PG=wp_is_pg, **LAUNCH,
         )
         return _ow_probe_scalars(part, c)
@@ -572,10 +633,10 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     def owlqn_probe(xp, d, wp, stp, c, start, end):
         """(fx + c*L1, g.d) at x = pi(xp + stp*d; wp) inside the window
         [start, end), writing no vector."""
-        _check(xp)
+        off, ex = _check(xp)
         if not fused.on_cuda(xp, "owlqn_probe"):
             return owlqn_probe_ref(xp, d, wp, stp, c, start, end)
-        out = _ow_probe(xp, d, wp, stp, c, start, end, False)
+        out = _ow_probe(xp, d, wp, stp, c, start, end, False, off, ex)
         owlqn_probe.launches += 1
         return out
 
@@ -583,10 +644,10 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         """``owlqn_probe`` with the orthant rebuilt in registers from
         (xp, pg) by ``choose_orthant``'s formula: the same scalars, bit
         for bit, without the orthant vector."""
-        _check(xp)
+        off, ex = _check(xp)
         if not fused.on_cuda(xp, "owlqn_probe_pg"):
             return owlqn_probe_pg_ref(xp, d, pg, stp, c, start, end)
-        out = _ow_probe(xp, d, pg, stp, c, start, end, True)
+        out = _ow_probe(xp, d, pg, stp, c, start, end, True, off, ex)
         owlqn_probe_pg.launches += 1
         return out
 
@@ -597,13 +658,14 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         """Plain version of ``owlqn_trial_pair_gram``."""
         owlqn_trial_pair_gram_ref.calls += 1
         ow = Orthantwise(c, start, end_w)
-        x, _, g = _ow_eval(xp, d, choose_orthant(ow, xp, pg), stp, c, start, end_w)
+        x, _, _, g = _ow_eval(xp, d, choose_orthant(ow, xp, pg), stp, c, start, end_w)
         pg_new = pseudo_gradient(ow, x, g)
         SP, YP = fused.pair_products(x - xp, g - gp, -pg_new, S, Y, end,
                                      gp=gp if with_gp else None)
         out = (torch.dot(x, x), torch.dot(pg_new, pg_new), torch.any(x != xp))
         if with_gp:
             out += (torch.dot(gp, gp), torch.dot(gp, pg_new))
+        SP, YP, *out = fused.mesh_sum(SP, YP, *out)
         if inplace:
             xp.copy_(x)
             gp.copy_(g)
@@ -625,7 +687,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         YP ([m, 4]) and gp.gp, gp.pg_new to the returns, taken before g
         overwrites gp; every other output is that of the plain launch bit
         for bit."""
-        _check(xp)
+        off, ex = _check(xp)
         fused._check_hist(xp, S, Y)
         if not fused.on_cuda(xp, "owlqn_trial_pair_gram"):
             return owlqn_trial_pair_gram_ref(xp, d, gp, pg, stp, c, start, end_w,
@@ -643,18 +705,22 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         owlqn_trial_pair_gram.compiled[(xp.dtype, S.dtype, bool(with_gp))] = \
             _kernels().owlqn_trial_pair_gram_kernel[(eg.programs,)](
                 xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new, S, Y,
-                part, gpart, n, lo, hi, int(end), eg.tiles, ex=extras, body=block_fn(), M=m,
-                MP=_rows(m), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp),
+                part, gpart, n, lo, hi, int(end), eg.tiles, off, ex=ex, SHARD=off != 0,
+                body=block_fn(), M=m, MP=_rows(m), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp),
                 **_epilogue_launch(eg))
         owlqn_trial_pair_gram.launches += 1
         owlqn_trial_pair_gram.gp_launches += bool(with_gp)
         tot = fused.reduce_partials(part)
-        P = tot[3:].reshape(m, 6)
+        sums = (tot[0], tot[1], tot[2] > 0, tot[3:])
+        if with_gp:
+            sums += (fused.reduce_partials(gpart),)
+        xx, pp, changed, P, *G = fused.mesh_sum(*sums)
+        P = P.reshape(m, 6)
         if not with_gp:
-            return x, g, pg_new, P[:, :3], P[:, 3:], tot[0], tot[1], tot[2] > 0
-        G = fused.reduce_partials(gpart)
+            return x, g, pg_new, P[:, :3], P[:, 3:], xx, pp, changed
+        G = G[0]
         SP, YP = fused.append_gp(P[:, :3], P[:, 3:], G[2:])
-        return x, g, pg_new, SP, YP, tot[0], tot[1], tot[2] > 0, G[0], G[1]
+        return x, g, pg_new, SP, YP, xx, pp, changed, G[0], G[1]
 
     # ------------------------- K15 / K16 combine + the next first probe
 
@@ -668,28 +734,32 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             r, rr, rd = fused.combine_plain(g, S, Y, gamma, coef_s, coef_y)
         else:
             r, rr, rd = fused.combine_fix_plain(g, S, Y, gamma, coef_s, coef_y, *fix)
-        return (r, rr, rd, *_probe_plain(x, r, stp1))
+        return (r, *fused.mesh_sum(rr, rd, *_probe_plain(x, r, stp1)))
 
     def _check_combine(kernel, d, x, S, Y):
-        _check(x)
+        shard = _check(x)
         fused._check_hist(d, S, Y)
         if x.shape != d.shape or x.dtype != d.dtype:
             raise ValueError(f"{kernel}: x {x.dtype} {tuple(x.shape)} against the "
                              f"direction's {d.dtype} {tuple(d.shape)}")
+        return shard
 
-    def _combine_launch(kernel, d, x, S, Y, coefs, stp1, nparts, *args, **consts):
+    def _combine_launch(kernel, d, x, S, Y, coefs, stp1, nparts, shard, *args, **consts):
         """Launch K15 or K16, whose combine and probe partials are both
-        [programs, nparts] arrays (2 columns for K15, 3 for K16); returns
-        (r, column sums of the combine's partials, the probe's partials)."""
+        [programs, nparts] arrays (2 columns for K15, 3 for K16), on the
+        shard (``shard`` = (off, extras), ``_check``); returns (r, column
+        sums of the combine's partials, the probe's partials)."""
         fused.check_contiguous(kernel, d, x, S, Y)
         m, n = S.shape
+        off, ex = shard
         grid = _grid(n)
         r = torch.empty_like(d)
         cpart = torch.empty((grid[0], nparts), dtype=d.dtype, device=d.device)
         ppart = torch.empty((grid[0], nparts), dtype=d.dtype, device=d.device)
         getattr(_kernels(), kernel + "_kernel")[grid](
             d, x, S, Y, fused.coef_vector(d, *coefs), _scalar(stp1, d), r, cpart, ppart,
-            n, *args, ex=extras, body=block_fn(), M=m, ROWS=rows, W=W, **consts, **LAUNCH,
+            n, *args, off, ex=ex, SHARD=off != 0, body=block_fn(), M=m, ROWS=rows, W=W,
+            **consts, **LAUNCH,
         )
         return r, fused.reduce_partials(cpart), ppart
 
@@ -704,18 +774,18 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         row: Y[end] <- round(ca*Y[end] + cb*g) in place, after the row is
         read (counted in ``.fix_launches`` too).  Returns (r, r.r, r.g, ft,
         g.r)."""
-        _check_combine("combine_probe", g, x, S, Y)
+        shard = _check_combine("combine_probe", g, x, S, Y)
         if fix is not None:
             fix = (fused._check_row(S, fix[0]), *fix[1:])
         if not fused.on_cuda(g, "combine_probe"):
             return combine_probe_ref(g, x, S, Y, gamma, coef_s, coef_y, stp1, fix)
         coefs = (gamma, coef_s, coef_y) + (() if fix is None else fix[1:])
-        r, ctot, ppart = _combine_launch("combine_probe", g, x, S, Y, coefs, stp1, 2,
+        r, ctot, ppart = _combine_launch("combine_probe", g, x, S, Y, coefs, stp1, 2, shard,
                                          0 if fix is None else fix[0], FIX=fix is not None)
         combine_probe.launches += 1
         combine_probe.fix_launches += fix is not None
         ptot = fused.reduce_partials(ppart)
-        return r, ctot[0], ctot[1], _fx(ppart, ptot), ptot[1]
+        return (r, *fused.mesh_sum(ctot[0], ctot[1], _fx(ppart, ptot), ptot[1]))
 
     def combine_ow_probe_ref(pg, x, S, Y, gamma, coef_s, coef_y, c, start, end, stp1):
         """Plain version of ``combine_ow_probe``: ``fused.combine_ow_ref``'s
@@ -723,7 +793,9 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         (``lbfgs_tpu/ops/factory.py:1457-1466``), neither counted."""
         combine_ow_probe_ref.calls += 1
         rc, rr, rc2, rcd = fused.combine_ow_plain(pg, S, Y, gamma, coef_s, coef_y, start, end)
-        return (rc, rr, rc2, rcd, *_ow_probe_pg_plain(x, rc, pg, stp1, c, start, end))
+        rr, rc2, rcd, fx, l1, dg = fused.mesh_sum(
+            rr, rc2, rcd, *_ow_probe_pg_plain(x, rc, pg, stp1, c, start, end))
+        return rc, rr, rc2, rcd, fx + l1 * c, dg
 
     def combine_ow_probe(pg, x, S, Y, gamma, coef_s, coef_y, c, start, end, stp1):
         """OWL-QN's combine with the direction constraint
@@ -733,14 +805,16 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         pg), with fx + c*L1 and g.rc, from one pass (K16).  The probe's
         scalars equal ``owlqn_probe_pg(x, rc, pg, stp1, c, start, end)``'s
         bit for bit.  Returns (rc, r.r, rc.rc, rc.pg, ft, g.rc)."""
-        _check_combine("combine_ow_probe", pg, x, S, Y)
-        lo, hi = _window(x.shape[0], start, end)
+        shard = _check_combine("combine_ow_probe", pg, x, S, Y)
+        start, end = fused._check_window(x.shape[0], start, end)
         if not fused.on_cuda(pg, "combine_ow_probe"):
-            return combine_ow_probe_ref(pg, x, S, Y, gamma, coef_s, coef_y, c, lo, hi, stp1)
+            return combine_ow_probe_ref(pg, x, S, Y, gamma, coef_s, coef_y, c, start, end, stp1)
         rc, ctot, ppart = _combine_launch("combine_ow_probe", pg, x, S, Y,
-                                          (gamma, coef_s, coef_y), stp1, 3, lo, hi)
+                                          (gamma, coef_s, coef_y), stp1, 3, shard,
+                                          *fused.local_window(start, end, x.shape[0]))
         combine_ow_probe.launches += 1
-        return (rc, ctot[0], ctot[1], ctot[2], *_ow_probe_scalars(ppart, c))
+        ft, dg, rr, rc2, rcd = _ow_probe_scalars(ppart, c, ctot[0], ctot[1], ctot[2])
+        return rc, rr, rc2, rcd, ft, dg
 
     def combine_probe_ok(x, S) -> bool:
         """Whether K15 and K16 take these operands: the shapes and dtypes
@@ -793,10 +867,15 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     )
 
     def vag(x):
-        return value_and_grad(x)
+        """(fx, g) at x; on a mesh x is this rank's shard, g the shard's
+        gradient and fx the whole objective (one collective)."""
+        if fused.active_mesh() is None:
+            return value_and_grad(x)
+        fx, g = _evaluate(x)
+        return (*fused.mesh_sum(fx), g)
 
     def plain(x):
-        return value_and_grad(x)
+        return vag(x)
 
     _attach(vag, trial, probe, trial_pair_gram, trial_pair_gram_ok, owlqn_trial,
             owlqn_probe, owlqn_probe_pg, owlqn_trial_pair_gram,
@@ -817,17 +896,21 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
 
 
 def _synthesized(block_ref, extras: tuple, row: int):
-    """The plain evaluation built from the body's torch twin: one call on
-    the [n // row, row] views of x, its global indices and the extras, the
-    objective's terms summed by ``fused.obj_sum``
-    (``lbfgs_tpu/ops/factory.py:85-105``)."""
+    """The plain evaluation built from the body's torch twin over the whole
+    vector (``lbfgs_tpu/ops/factory.py:85-105``)."""
     def value_and_grad(x):
-        n = x.shape[0]
-        gidx = torch.arange(n, device=x.device).view(-1, row)
-        fe, g = block_ref(x.view(-1, row), gidx, *(e.view(-1, row) for e in extras))
-        return fused.obj_sum(fe.reshape(-1)), g.reshape(-1)
+        return _block_eval(block_ref, x, 0, extras, row)
 
     return value_and_grad
+
+
+def _block_eval(block_ref, x: torch.Tensor, off: int, extras: tuple, row: int):
+    """The body's torch twin in one call on the [n // row, row] views of x,
+    its global indices (``off`` + the local ones) and the extras, the
+    objective's terms summed by ``fused.obj_sum``."""
+    gidx = (torch.arange(x.shape[0], device=x.device) + off).view(-1, row)
+    fe, g = block_ref(x.view(-1, row), gidx, *(e.view(-1, row) for e in extras))
+    return fused.obj_sum(fe.reshape(-1)), g.reshape(-1)
 
 
 def _attach(obj, trial, probe, tpg, tpg_ok, ow_trial, ow_probe, ow_probe_pg, ow_tpg,

@@ -47,6 +47,17 @@ share.
   * the predicates ``can_combine`` / ``can_pair_gram`` and the dtype
     rules all kernels follow.
 
+On a mesh (``kernels_on_mesh``, ``collective``) every wrapper here and in
+``factory`` runs its kernel, or its plain version, on this rank's shard:
+the vectors and ring rows it writes are those of the single-process
+launch on the same elements, bit for bit, and its scalars are the
+shards' fixed-order sums added across the ranks by one all-reduce per
+launch (``collective.mesh_sum``), as the JAX dispatchers psum them under
+``shard_map``.  The OWL-QN window is always the global one: a kernel
+launch takes it translated into the shard's indices
+(``kernel_window``), and the plain versions index by global position
+(``orthantwise.project_window``, ``Orthantwise.window_mask``).
+
 Dtypes: vectors are float32 or float64; the history is bfloat16 or
 float32 with float32 vectors, float64 with float64 vectors.  Partial sums
 accumulate in the vectors' dtype.  Any other combination raises (the
@@ -62,6 +73,8 @@ from types import SimpleNamespace
 import torch
 
 from . import _build
+from .collective import (active_mesh, global_length, kernels_on_mesh, local_window,
+                         mesh_sum, shard_offset)
 from .. import orthantwise as ow_ops
 from ..orthantwise import Orthantwise, project_window
 
@@ -228,7 +241,13 @@ def combine_plain(d, S, Y, gamma, coef_s, coef_y):
 def combine_ref(d, S, Y, gamma, coef_s, coef_y):
     """Plain version of ``combine``: (r, r.r, r.d)."""
     combine_ref.calls += 1
-    return combine_plain(d, S, Y, gamma, coef_s, coef_y)
+    return summed(combine_plain(d, S, Y, gamma, coef_s, coef_y))
+
+
+def summed(out: tuple) -> tuple:
+    """A plain form's (vector, *sums) with the sums added over the mesh in
+    one collective (as they are with no mesh)."""
+    return (out[0], *mesh_sum(*out[1:]))
 
 
 combine_ref.calls = 0
@@ -273,7 +292,7 @@ def combine(d, S, Y, gamma, coef_s, coef_y):
         return combine_ref(d, S, Y, gamma, coef_s, coef_y)
     r, tot = _launch_combine("combine", d, S, Y, (gamma, coef_s, coef_y), 2)
     combine.launches += 1
-    return r, tot[0], tot[1]
+    return (r, *mesh_sum(tot[0], tot[1]))
 
 
 combine.launches = 0
@@ -386,7 +405,7 @@ def combine_fix_ref(d, S, Y, gamma, coef_s, coef_y, end: int, ca, cb):
     """Plain version of ``combine_fix``: (r, r.r, r.d), Y[end] fixed in
     place."""
     combine_fix_ref.calls += 1
-    return combine_fix_plain(d, S, Y, gamma, coef_s, coef_y, end, ca, cb)
+    return summed(combine_fix_plain(d, S, Y, gamma, coef_s, coef_y, end, ca, cb))
 
 
 combine_fix_ref.calls = 0
@@ -408,7 +427,7 @@ def combine_fix(d, S, Y, gamma, coef_s, coef_y, end: int, ca, cb):
     r, tot = _launch_combine("combine_fix", d, S, Y, (gamma, coef_s, coef_y, ca, cb),
                              2, end)
     combine_fix.launches += 1
-    return r, tot[0], tot[1]
+    return (r, *mesh_sum(tot[0], tot[1]))
 
 
 combine_fix.launches = 0
@@ -422,7 +441,7 @@ combine_fix.launches = 0
 def combine_ow_plain(d, S, Y, gamma, coef_s, coef_y, start: int, end: int):
     """(rc, r.r, rc.rc, rc.d) in plain torch, uncounted (``combine_ow_ref``'s
     arithmetic, shared with the OWL-QN combine+probe fusion's plain
-    version)."""
+    version); the sums are the shard's."""
     r = _combination(d, S, Y, gamma, coef_s, coef_y)
     rc = project_window(r, -d, start, end)
     return rc, torch.dot(r, r), torch.dot(rc, rc), torch.dot(rc, d)
@@ -431,7 +450,7 @@ def combine_ow_plain(d, S, Y, gamma, coef_s, coef_y, start: int, end: int):
 def combine_ow_ref(d, S, Y, gamma, coef_s, coef_y, start: int, end: int):
     """Plain version of ``combine_ow``: (rc, r.r, rc.rc, rc.d)."""
     combine_ow_ref.calls += 1
-    return combine_ow_plain(d, S, Y, gamma, coef_s, coef_y, start, end)
+    return summed(combine_ow_plain(d, S, Y, gamma, coef_s, coef_y, start, end))
 
 
 combine_ow_ref.calls = 0
@@ -449,9 +468,9 @@ def combine_ow(d, S, Y, gamma, coef_s, coef_y, start: int, end: int):
     if not on_cuda(d, "combine_ow"):
         return combine_ow_ref(d, S, Y, gamma, coef_s, coef_y, start, end)
     r, tot = _launch_combine("combine_ow", d, S, Y, (gamma, coef_s, coef_y), 3,
-                             int(start), int(end))
+                             *local_window(int(start), int(end), d.shape[0]))
     combine_ow.launches += 1
-    return r, tot[0], tot[1], tot[2]
+    return (r, *mesh_sum(tot[0], tot[1], tot[2]))
 
 
 combine_ow.launches = 0
@@ -471,9 +490,19 @@ def _check_vectors(kernel: str, *vs: torch.Tensor) -> None:
 
 
 def _check_window(n: int, start: int, end: int) -> tuple[int, int]:
-    if not 0 <= start < end <= n:
-        raise ValueError(f"OWL-QN window [{start}, {end}) outside [0, {n})")
+    """The global OWL-QN window, checked against the whole vector (of which
+    ``n`` elements are this rank's shard under a mesh)."""
+    whole = global_length(n)
+    if not 0 <= start < end <= whole:
+        raise ValueError(f"OWL-QN window [{start}, {end}) outside [0, {whole})")
     return int(start), int(end)
+
+
+def kernel_window(n: int, start: int, end: int) -> tuple[int, int]:
+    """The checked global window in a kernel's own indices: the window
+    itself, or on a mesh its part in the shard of ``n`` elements, in the
+    shard's indices (possibly empty)."""
+    return local_window(*_check_window(n, start, end), n)
 
 
 def _check_pg(x, g, c: float, start: int, end: int) -> tuple[int, int]:
@@ -489,6 +518,7 @@ def _launch_pseudo_grad(name: str, x, g, c: float, start: int, end: int, norm: b
     check_contiguous(name, x, g)
     lib = _build.load_library()
     n = x.shape[0]
+    start, end = local_window(start, end, n)
     pg = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if norm:
@@ -509,7 +539,7 @@ def pseudo_gradient_norm_ref(x, g, c: float, start: int, end: int):
     """Plain version of ``pseudo_gradient_norm``."""
     pseudo_gradient_norm_ref.calls += 1
     pg = ow_ops.pseudo_gradient(Orthantwise(c=c, start=start, end=end), x, g)
-    return pg, torch.dot(pg, pg)
+    return summed((pg, torch.dot(pg, pg)))
 
 
 pseudo_gradient_norm_ref.calls = 0
@@ -524,7 +554,7 @@ def pseudo_gradient_norm(x, g, c: float, start: int, end: int):
         return pseudo_gradient_norm_ref(x, g, c, start, end)
     pg, part = _launch_pseudo_grad("pseudo_gradient_norm", x, g, c, start, end, True)
     pseudo_gradient_norm.launches += 1
-    return pg, reduce_partials(part)[0]
+    return (pg, *mesh_sum(reduce_partials(part)[0]))
 
 
 pseudo_gradient_norm.launches = 0
@@ -586,8 +616,9 @@ def owlqn_trial_step(xp, d, wp, stp, start: int, end: int):
     check_contiguous("owlqn_trial_step", xp, d, wp)
     lib = _build.load_library()
     x = torch.empty_like(xp)
+    lo, hi = local_window(start, end, xp.shape[0])
     code = getattr(lib, f"lbfgs_owlqn_trial_step_{_SUFFIX[xp.dtype]}")(
-        xp.data_ptr(), d.data_ptr(), wp.data_ptr(), float(stp), start, end,
+        xp.data_ptr(), d.data_ptr(), wp.data_ptr(), float(stp), lo, hi,
         x.data_ptr(), xp.shape[0], torch.cuda.current_stream(xp.device).cuda_stream)
     _build.check_launch(code, "owlqn_trial_step")
     owlqn_trial_step.launches += 1
@@ -607,11 +638,12 @@ def pair_gram_ref(s, y, g, S, Y, end: int):
     of S and Y (in place, rounded to the history dtype), then SP = S . Z
     and YP = Y . Z with Z = [y, s, -g] ([m, 3] each, in the vectors'
     dtype).  The products of row ``end`` see the STORED (rounded) pair,
-    as the JAX package's composed path does."""
+    as the JAX package's composed path does; on a mesh they are summed
+    over the ranks in one collective."""
     S[end] = s.to(S.dtype)
     Y[end] = y.to(Y.dtype)
     Z = torch.stack([y, s, -g], dim=1)
-    return S.to(s.dtype) @ Z, Y.to(s.dtype) @ Z
+    return mesh_sum(S.to(s.dtype) @ Z, Y.to(s.dtype) @ Z)
 
 
 def pair_products(s, y, d0, S, Y, end: int, gp=None):
@@ -620,7 +652,8 @@ def pair_products(s, y, d0, S, Y, end: int, gp=None):
     it in registers), then the pair stored into ring row ``end``, rounded
     to the history dtype.  With ``gp`` a fourth column S . gp, Y . gp
     ([m, 4]), taken apart so that columns 0-2 are those of the 3-column
-    form bit for bit.  Shared by the plain versions of K4, K5 and K14."""
+    form bit for bit.  Shared by the plain versions of K4, K5 and K14;
+    the products are the shard's."""
     Sw, Yw = S.to(s.dtype), Y.to(s.dtype)
     Z = torch.stack([y, s, d0], dim=1)
     SP = Sw @ Z
@@ -726,8 +759,8 @@ def pair_gram_sd_ref(stp, d, gx, gp, S, Y, end: int, with_gp: bool = False):
     holds it in registers."""
     pair_gram_sd_ref.calls += 1
     end = _check_pair(d, gx, gp, S, Y, end)
-    return pair_products(float(stp) * d, gx - gp, -gx, S, Y, end,
-                         gp=gp if with_gp else None)
+    return mesh_sum(*pair_products(float(stp) * d, gx - gp, -gx, S, Y, end,
+                                   gp=gp if with_gp else None))
 
 
 pair_gram_sd_ref.calls = 0
@@ -751,7 +784,9 @@ def pair_gram_sd(stp, d, gx, gp, S, Y, end: int, with_gp: bool = False):
                              S, Y, end, with_gp)
     pair_gram_sd.launches += 1
     if with_gp:
+        P, G = mesh_sum(P, G)
         return append_gp(P[:, :3], P[:, 3:], G)
+    (P,) = mesh_sum(P)
     return P[:, :3], P[:, 3:]
 
 
@@ -771,8 +806,8 @@ def pair_gram_xg_ref(x, xp, gx, gp, pg, S, Y, end: int, with_gp: bool = False):
     end = _check_row(S, end)
     SP, YP = pair_products(x - xp, gx - gp, -pg, S, Y, end, gp=gp if with_gp else None)
     if not with_gp:
-        return SP, YP
-    return SP, YP, torch.dot(gp, gp), torch.dot(gp, pg)
+        return mesh_sum(SP, YP)
+    return mesh_sum(SP, YP, torch.dot(gp, gp), torch.dot(gp, pg))
 
 
 pair_gram_xg_ref.calls = 0
@@ -798,7 +833,9 @@ def pair_gram_xg(x, xp, gx, gp, pg, S, Y, end: int, with_gp: bool = False):
     pair_gram_xg.launches += 1
     pair_gram_xg.gp_launches += bool(with_gp)
     if not with_gp:
+        (P,) = mesh_sum(P)
         return P[:, :3], P[:, 3:]
+    P, G = mesh_sum(P, G)
     return (*append_gp(P[:, :3], P[:, 3:], G[2:]), G[0], G[1])
 
 
@@ -827,8 +864,10 @@ def axpy_dot(y, x, c, w):
     ``lbfgs_tpu/ops/fused.py:_axpy_dot_kernel``).  ``c`` is a host scalar,
     rounded to the vectors' dtype; the product and the sum are rounded
     one by one, so z is the plain version's bit for bit.  No solver path
-    runs it."""
+    runs it, and as in the JAX package it has no mesh form."""
     _check_vectors("axpy_dot", y, x, w)
+    if active_mesh() is not None:
+        raise NotImplementedError("axpy_dot (K17) has no mesh form")
     if not on_cuda(y, "axpy_dot"):
         return axpy_dot_ref(y, x, c, w)
     check_contiguous("axpy_dot", y, x, w)

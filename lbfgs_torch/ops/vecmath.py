@@ -3,12 +3,19 @@
 The reference implements 8 sequential scalar ops over ``[f64]`` slices;
 here each is one torch expression on the tensors' device.  The solver's
 hot path does not call them (the fused kernels compute what it needs);
-they serve the composed and generic-objective paths.
+they serve the composed and generic-objective paths.  On a mesh
+(``collective.kernels_on_mesh``) the vectors are this rank's shards, and
+``dot`` (with ``norm2`` and ``norm2inv``) adds the shards' products over
+the ranks in one collective, as GSPMD partitions the JAX package's
+reductions (``tests/test_sharding.py::test_sharded_dot_reduction``);
+``dots`` takes several products in one.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .collective import mesh_sum
 
 
 def axpy(y: torch.Tensor, x: torch.Tensor, c) -> torch.Tensor:
@@ -18,7 +25,13 @@ def axpy(y: torch.Tensor, x: torch.Tensor, c) -> torch.Tensor:
 
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x . y  (reference ``vecdot``, src/math.rs:40-42)."""
-    return torch.dot(x, y)
+    return mesh_sum(torch.dot(x, y))[0]
+
+
+def dots(*pairs: tuple) -> tuple:
+    """The dot products of the (x, y) ``pairs``, summed over the mesh in one
+    collective."""
+    return mesh_sum(*(torch.dot(x, y) for x, y in pairs))
 
 
 def scale(y: torch.Tensor, c) -> torch.Tensor:

@@ -16,6 +16,11 @@ Semantics parity notes (as ``lbfgs_tpu.orthantwise``):
     the subgradient selection at x_i == 0 (``src/orthantwise.rs:82-112``).
   * ``project`` zeroes entries whose sign disagrees with the orthant
     indicator (``src/orthantwise.rs:165-171``).
+
+The window is global.  On a mesh (``ops.collective.kernels_on_mesh``)
+each vector here is this rank's shard: the window clamps against the
+whole vector's length, the masks index by global position, and the L1
+term is the shards' sums added over the ranks.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from .ops.collective import global_length, local_window, mesh_sum, shard_offset
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +46,10 @@ class Orthantwise:
     end: Optional[int] = None
 
     def start_end(self, n: int) -> tuple[int, int]:
-        """Clamp the window to the vector length (``src/orthantwise.rs:59-67``)."""
+        """Clamp the window to the vector length (``src/orthantwise.rs:59-67``):
+        the whole vector's, of which ``n`` elements are this rank's shard on
+        a mesh."""
+        n = global_length(n)
         end = n if self.end is None else min(self.end, n)
         if not self.start < end:
             raise ValueError(
@@ -48,9 +58,10 @@ class Orthantwise:
         return self.start, end
 
     def window_mask(self, n: int, device=None) -> torch.Tensor:
-        """Boolean mask selecting the regularized index window."""
+        """Boolean mask selecting the regularized index window (of the
+        shard's ``n`` elements, by global position, on a mesh)."""
         start, end = self.start_end(n)
-        idx = torch.arange(n, device=device)
+        idx = torch.arange(n, device=device) + shard_offset(n)
         return (idx >= start) & (idx < end)
 
 
@@ -77,14 +88,22 @@ def x1norm(ow: Orthantwise, x: torch.Tensor) -> torch.Tensor:
     (``ops.fused.wide_fx``) with float32 vectors the sum is two-stage,
     float32 block sums and a float64 total over the masked vector
     (``fused.obj_sum``, as ``lbfgs_tpu/orthantwise.py:71-83``), and the
-    result is float64."""
+    result is float64.  On a mesh the shards' sums ``x1sum`` are added
+    over the ranks (one collective) before the product with c."""
+    (l1,) = mesh_sum(x1sum(ow, x))
+    return l1 * ow.c
+
+
+def x1sum(ow: Orthantwise, x: torch.Tensor) -> torch.Tensor:
+    """sum_{i in window} |x_i| over this shard alone (the whole vector with
+    no mesh), in ``x1norm``'s dtype and summation order."""
     from .ops import fused
 
-    start, end = ow.start_end(x.shape[0])
+    n = x.shape[0]
     if fused.wide(x.dtype):
-        mask = ow.window_mask(x.shape[0], x.device)
-        return fused.obj_sum(torch.abs(x) * mask) * ow.c
-    return torch.sum(torch.abs(x[start:end])) * ow.c
+        return fused.obj_sum(torch.abs(x) * ow.window_mask(n, x.device))
+    start, end = local_window(*ow.start_end(n), n)
+    return torch.sum(torch.abs(x[start:end]))
 
 
 def pseudo_gradient(ow: Orthantwise, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -106,8 +125,10 @@ def pseudo_gradient(ow: Orthantwise, x: torch.Tensor, g: torch.Tensor) -> torch.
 
 
 def project_window(v: torch.Tensor, w: torch.Tensor, start: int, end: int) -> torch.Tensor:
-    """pi(v; w) inside the window [start, end) only, the window given as
-    indices as the kernels take it."""
+    """pi(v; w) inside the global window [start, end) only, the window
+    given as indices (on a mesh, of the whole vector, of which v is the
+    shard)."""
+    start, end = local_window(start, end, v.shape[0])
     idx = torch.arange(v.shape[0], device=v.device)
     kill = (idx >= start) & (idx < end) & (signum(v) != signum(w))
     return torch.where(kill, torch.zeros_like(v), v)

@@ -64,6 +64,14 @@ combine at ``:144``): the pair + Gram pass is ``fused.pair_gram_ref`` and
 the combine ``fused.combine_plain`` (``combine_ow_plain`` under OWL-QN),
 torch ops as they are jnp ops there; the trial and probe kernels still
 run.
+
+On a mesh (``parallel``: x and every [n] vector this rank's shard, the
+rings [m, n_local]) each kernel's scalars arrive summed over the ranks
+(``ops.collective``), and every reduction the solver takes outside a
+kernel goes through ``ops.vecmath`` or ``collective.mesh_sum``, one
+collective for the products of one pass; the [m]-sized algebra and the
+host's decisions then run on every rank alike.  A generic objective
+raises there (``check_supported``).
 """
 
 from __future__ import annotations
@@ -90,6 +98,8 @@ from .core import (
 )
 from .linesearch import find as ls_find
 from .ops import fused
+from .ops import vecmath as vm
+from .ops.collective import active_mesh, mesh_sum
 from .params import LbfgsParams
 from .status import Status
 
@@ -115,14 +125,14 @@ def two_loop_scan(hist: History, d: torch.Tensor, gamma: torch.Tensor, bound: in
     alphas = []
     for i in range(bound):
         j = (end - i) % m
-        a = torch.dot(hist.s[j].to(d.dtype), q) / hist.ys[j]
+        a = vm.dot(hist.s[j].to(d.dtype), q) / hist.ys[j]
         q = q - a * hist.y[j].to(d.dtype)
         alphas.append(a)
     q = q * gamma
     for i in range(bound):
         p = bound - 1 - i                  # newest-first index, oldest first
         j = (end - p) % m
-        beta = torch.dot(hist.y[j].to(d.dtype), q) / hist.ys[j]
+        beta = vm.dot(hist.y[j].to(d.dtype), q) / hist.ys[j]
         q = q + (alphas[p] - beta) * hist.s[j].to(d.dtype)
     alpha_ring = hist.alpha.clone()
     if bound:
@@ -203,8 +213,7 @@ def two_loop_compact(
     """
     m = hist.s.shape[0]
     if Sd_ring is None:
-        Sd_ring = hist.s.to(d.dtype) @ d
-        Yd_ring = hist.y.to(d.dtype) @ d
+        Sd_ring, Yd_ring = mesh_sum(hist.s.to(d.dtype) @ d, hist.y.to(d.dtype) @ d)
         if neg:
             Sd_ring, Yd_ring = -Sd_ring, -Yd_ring
     # ring slot of newest-first position p (made on the device: a host
@@ -302,15 +311,19 @@ def update_pair(params: LbfgsParams, x, xp, gx, gp, step=None) -> PairUpdate:
     host in one transfer, for the reference's two fatal checks."""
     s = x - xp
     y = gx - gp
-    ys, ss, yy = torch.dot(y, s), torch.dot(s, s), torch.dot(y, y)
-    # gamma = ys / yy from the PRE-damping pair (src/lbfgs.rs:653-656)
-    gamma = ys / torch.where(yy == 0.0, torch.ones_like(yy), yy)
-    case = 0
+    pairs = [(y, s), (s, s), (y, y)]
     if params.damping:
         if step is None:
             raise ValueError("the damped update needs the step")
         bs = -float(step) * gp
-        sbs = torch.dot(s, bs)
+        pairs.append((s, bs))
+    # one collective for the pass's products on a mesh
+    ys, ss, yy, *sbs = vm.dots(*pairs)
+    # gamma = ys / yy from the PRE-damping pair (src/lbfgs.rs:653-656)
+    gamma = ys / torch.where(yy == 0.0, torch.ones_like(yy), yy)
+    case = 0
+    if params.damping:
+        sbs = sbs[0]
         case1 = ys < (1.0 - SIGMA2) * sbs
         case2 = ~case1 & (ys > (1.0 + SIGMA3) * sbs)
         ss_h, yy_h, case = to_host(
@@ -443,7 +456,11 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     # Gram pass and combine in torch ops (lbfgs_tpu/solver.py:475-484, 144)
     composed = not fused.can_pair_gram(xp, hist.s)
     if composed:
-        combine, combine_ow = fused.combine_plain, fused.combine_ow_plain
+        def combine(*a):
+            return fused.summed(fused.combine_plain(*a))
+
+        def combine_ow(*a):
+            return fused.summed(fused.combine_ow_plain(*a))
     else:
         combine = getattr(vag, "__lbfgs_combine__", fused.combine)
         combine_ow = getattr(vag, "__lbfgs_combine_ow__", fused.combine_ow)
@@ -543,12 +560,12 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
         hist = hist._replace(ys=ys)
         g0 = pg if ow else gx
         d, alpha_ring = two_loop_scan(hist, -g0, pu.gamma, bound, end)
-        dd = torch.dot(d, d)
         if ow:
+            dd = torch.dot(d, d)
             d = ow_ops.constrain_direction(pdef.owlqn, d, pg)
-            rd = (torch.dot(d, d), torch.dot(g0, d))
+            dd, *rd = mesh_sum(dd, torch.dot(d, d), torch.dot(g0, d))
         else:
-            rd = torch.dot(g0, d)
+            dd, rd = vm.dots((d, d), (g0, d))
     else:
         u = SP[:, 0]         # S . y_new
         v = YP[:, 0]         # Y . y_new
@@ -727,11 +744,19 @@ def start_state(st: SolverState, params: Optional[LbfgsParams] = None) -> Solver
 # ---------------------------------------------------------------------------
 
 
-def check_supported(params: LbfgsParams) -> None:
+def check_supported(params: LbfgsParams, pdef: Optional[ProblemDef] = None) -> None:
     """Raise ``NotImplementedError`` naming any setting this package does
-    not run: the speculative (K-way) line search."""
+    not run: the speculative (K-way) line search, and on a mesh a generic
+    objective (one not built by ``ops.factory.make_fused_objective``, whose
+    evaluation of a shard has no contract yet)."""
     if int(params.linesearch.speculative) > 1:
         raise NotImplementedError("speculative line search")
+    if pdef is not None and active_mesh() is not None and getattr(
+            pdef.value_and_grad, "__lbfgs_trial__", None) is None:
+        name = getattr(pdef.value_and_grad, "__qualname__", repr(pdef.value_and_grad))
+        raise NotImplementedError(
+            f"a generic objective ({name}) on a mesh: only objectives built by "
+            f"make_fused_objective run sharded")
 
 
 def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
@@ -754,7 +779,7 @@ def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
     -||d||^2.  ``lean=True`` carries no previous-point slots (the
     whole-run loop; see ``ProblemState``).
     """
-    check_supported(params)
+    check_supported(params, pdef)
     fused.check_dtypes(x0.dtype)
     if x0.ndim != 1:
         raise ValueError(f"x0 must be 1-D, got shape {tuple(x0.shape)}")
@@ -783,10 +808,9 @@ def _init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
     else:
         x = x0.clone()
         fx_t, gx = evaluate(pdef, x)
-        xx_t = torch.dot(x, x)
         if pdef.orthantwise:
             pg = pseudo_gradient(pdef, x, gx)
-        gg_t = torch.dot(gx, gx) if pg is None else torch.dot(pg, pg)
+        xx_t, gg_t = vm.dots((x, x), (gx, gx) if pg is None else (pg, pg))
     # fx in the objective scalar's dtype (float64 under the wide mode), the
     # norms in the vectors'
     fx_h, gnorm2, xnorm2 = to_host(fx_t, gg_t, xx_t)

@@ -9,6 +9,9 @@ slots (``xp``/``gp`` of the full state, ``pg`` under OWL-QN, ``pf``,
 ``hist.s``, ``probe1.0``, ...) rather than its position, and a slot that
 is ``None`` is not stored.  A bfloat16 or float16 tensor is bit-cast to
 ``uint16``, with its dtype name stored beside it under ``dtype/<path>``.
+A sharded checkpoint is not ported: on a mesh both functions raise
+``NotImplementedError`` (``parallel.gather_state`` gives the whole state,
+which saves outside the mesh).
 """
 
 from __future__ import annotations
@@ -17,8 +20,15 @@ import numpy as np
 import torch
 
 from ..core import SolverState
+from ..ops.collective import active_mesh
 
 _NARROW = (torch.bfloat16, torch.float16)
+
+
+def _refuse_mesh() -> None:
+    if active_mesh() is not None:
+        raise NotImplementedError("a checkpoint on a mesh (sharded checkpoints are not "
+                                  "ported; save parallel.gather_state's whole state)")
 
 
 def fields(obj, path: str = ""):
@@ -36,6 +46,7 @@ def fields(obj, path: str = ""):
 
 def save_state(path: str, state: SolverState) -> None:
     """Write ``state`` to ``path`` (``.npz``)."""
+    _refuse_mesh()
     payload = {}
     for key, v in fields(state):
         if v is None:
@@ -92,5 +103,6 @@ def load_state(path: str, like: SolverState) -> SolverState:
     slot whose element count differs from the template's (m or n
     changed), or that one side has and the other does not, raises
     ``ValueError``."""
+    _refuse_mesh()
     with np.load(path) as data:
         return _restore(like, "", data)

@@ -1,0 +1,430 @@
+"""The rank side of the port's sharded tests, and the launcher that runs it.
+
+Gloo needs a process per rank, so each test file runs ONE job per world
+size (``launch``): W copies of this script, each a rank of a gloo group
+over its own free localhost port, run every case of the job on the
+plain versions (the CPU) and write their results as JSON; the tests
+assert one case each from them.  Every job has its own timeout: the
+group's (``init_process_group(timeout=...)``) and the launcher's
+(``communicate(timeout=...)``, after which every rank is killed), so a
+hang fails its tests and never runs on.
+
+    python tests/_torch_mesh_ranks.py JOB WORLD RANK PORT OUT_DIR
+
+reads OUT_DIR/args.json and writes OUT_DIR/rank<RANK>.json.  This module
+imports torch and ``lbfgs_torch`` only (never JAX), so a rank starts in
+about a second.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import json
+import os
+import socket
+import subprocess
+import sys
+import types
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# ---------------------------------------------------------------------------
+# Launcher (the pytest side)
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch(job: str, world: int, out_dir, args: dict, timeout: float = 240.0) -> list:
+    """Run ``job`` on ``world`` gloo ranks; returns each rank's results in
+    rank order.  A rank that fails, or a job past ``timeout`` seconds,
+    raises with the ranks' output (every rank killed first)."""
+    out_dir = str(out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "args.json"), "w") as f:
+        json.dump(dict(args, timeout=timeout), f)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), job, str(world), str(r), str(port), out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        raise AssertionError(f"{job} on {world} ranks ran past {timeout} s") from None
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"{job}: rank {r} of {world} failed:\n{out[-4000:]}"
+    results = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+@contextlib.contextmanager
+def local_mesh():
+    """A world-size-1 gloo mesh in this process (an in-memory store), torn
+    down after."""
+    import torch.distributed as dist
+
+    from lbfgs_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Rank side
+# ---------------------------------------------------------------------------
+
+
+def _bits(a, b) -> bool:
+    """a and b hold the same bits (shape, dtype and every element)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return bool(torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def _val(t):
+    """A scalar or small tensor as JSON (floats hold float32 exactly)."""
+    import torch
+
+    if isinstance(t, torch.Tensor):
+        return t.double().tolist() if t.dtype != torch.bool else t.tolist()
+    return float(t)
+
+
+class _Case:
+    """One dispatcher case: the single-process call on the whole inputs and
+    the mesh call on this rank's shard, its vectors and ring rows compared
+    bit for bit, its scalars recorded side by side."""
+
+    def __init__(self, mesh):
+        self.mesh, self.bits, self.scalars = mesh, {}, {}
+
+    def shard(self, t):
+        from lbfgs_torch.parallel import shard_vector
+
+        return shard_vector(t, self.mesh)
+
+    def vec(self, name, mesh_out, single_out):
+        self.bits[name] = _bits(mesh_out, self.shard(single_out))
+
+    def scal(self, name, mesh_out, single_out):
+        self.scalars[name] = [_val(mesh_out), _val(single_out)]
+
+
+def _inputs(n: int, m: int):
+    import numpy as np
+    import torch
+
+    def r(shape, seed, scale=1.0):
+        a = np.random.RandomState(seed).randn(*np.atleast_1d(shape)) * scale
+        return torch.from_numpy(a.astype(np.float32))
+
+    return types.SimpleNamespace(
+        xp=r(n, 1), d=r(n, 2) * 0.1, gp=r(n, 3), gx=r(n, 4), pg=r(n, 5), x=r(n, 6),
+        wp=torch.sign(r(n, 7)), xz=r(n, 8).index_fill_(0, torch.arange(0, n, 5), 0.0),
+        S=r((m, n), 9, 0.1).to(torch.bfloat16), Y=r((m, n), 10, 0.1).to(torch.bfloat16),
+        cs=r(m, 11), cy=r(m, 12), w=0.5 + r(n, 13).abs(), t=r(n, 14))
+
+
+def job_kernels(mesh, args: dict) -> dict:
+    """Every dispatcher's mesh form against its single-process form on the
+    same seeded inputs (f32 vectors, a bf16 ring), the OWL-QN ones on
+    each window of ``args["windows"]``, the factory's extras given whole
+    and as shards, a body that reads the global index, and a split the
+    kernels cannot take."""
+    import torch
+
+    from lbfgs_torch.models import rosenbrock, separable
+    from lbfgs_torch.ops import factory, fused
+    from lbfgs_torch.ops import vecmath as vm
+    from lbfgs_torch.parallel import kernels_on_mesh
+
+    n, m = args["n"], args["m"]
+    a = _inputs(n, m)
+    k = rosenbrock.value_and_grad.kernels
+    gamma, ca, cb, c = torch.tensor(0.7), torch.tensor(0.8), torch.tensor(-0.15), 0.8
+    out = {}
+    ctx_shard = _Case(mesh).shard
+
+    def case(name, fn, vecs=(), scal=(), rings=False):
+        # fn(ctx) -> outputs on the inputs the context gives (whole or shard)
+        ctx = _Case(mesh)
+        S1, Y1 = a.S.clone(), a.Y.clone()
+        whole = types.SimpleNamespace(**vars(a), S_=S1, Y_=Y1, sh=lambda t: t)
+        single = fn(whole)
+        S2, Y2 = ctx.shard(a.S), ctx.shard(a.Y)
+        part = types.SimpleNamespace(**{key: ctx.shard(v) if key not in ("cs", "cy") else v
+                                        for key, v in vars(a).items()},
+                                     S_=S2, Y_=Y2, sh=ctx.shard)
+        with kernels_on_mesh(mesh):
+            got = fn(part)
+        for i in vecs:
+            ctx.vec(f"out{i}", got[i], single[i])
+        for i in scal:
+            ctx.scal(f"out{i}", got[i], single[i])
+        if rings:
+            ctx.bits["S"] = _bits(S2, ctx.shard(S1))
+            ctx.bits["Y"] = _bits(Y2, ctx.shard(Y1))
+        out[name] = dict(bits=ctx.bits, scalars=ctx.scalars)
+
+    case("K1_trial", lambda v: k.trial(v.xp, v.d, 0.2), (0, 2), (1, 3, 4, 5, 6))
+    case("K2_probe", lambda v: k.probe(v.xp, v.d, 0.2), (), (0, 1))
+    case("K3_combine", lambda v: fused.combine(v.d, v.S_, v.Y_, gamma, v.cs, v.cy), (0,),
+         (1, 2))
+    for gp in (False, True):
+        sfx = "_gp" if gp else ""
+        case("K4_trial_pair_gram" + sfx, lambda v: k.trial_pair_gram(
+            v.xp, v.d, v.gp, 0.6, v.S_, v.Y_, 4, with_gp=gp), (0, 2), (1, 3, 4, 5, 6, 7, 8),
+             rings=True)
+        case("K5_pair_gram" + sfx, lambda v: fused.pair_gram_sd(
+            0.4, v.d, v.gx, v.gp, v.S_, v.Y_, 2, with_gp=gp), (), (0, 1), rings=True)
+        case("K12_pair_gram_xg" + sfx, lambda v: fused.pair_gram_xg(
+            v.x, v.xp, v.gx, v.gp, v.pg, v.S_, v.Y_, 2, with_gp=gp), (),
+             (0, 1, 2, 3) if gp else (0, 1), rings=True)
+    case("K6_combine_fix", lambda v: fused.combine_fix(
+        v.d, v.S_, v.Y_, gamma, v.cs, v.cy, 4, ca, cb), (0,), (1, 2), rings=True)
+    for fix in (None, (4, ca, cb)):
+        case("K15_combine_probe" + ("_fix" if fix else ""), lambda v: k.combine_probe(
+            v.gp, v.x, v.S_, v.Y_, gamma, v.cs, v.cy, 0.3, fix=fix), (0,), (1, 2, 3, 4),
+             rings=True)
+    # K17 lies on no solver path and has no mesh form: refused
+    with kernels_on_mesh(mesh):
+        try:
+            fused.axpy_dot(ctx_shard(a.xp), ctx_shard(a.d), 0.3, ctx_shard(a.gp))
+            out["K17_on_mesh"] = None
+        except NotImplementedError as exc:
+            out["K17_on_mesh"] = str(exc)
+    case("vecmath", lambda v: (vm.dot(v.xp, v.d), vm.norm2(v.gp),
+                               *vm.dots((v.x, v.x), (v.x, v.gp))), (), (0, 1, 2, 3))
+    for wname, (lo, hi) in args["windows"].items():
+        sfx = "_" + wname
+        case("K7_owlqn_trial" + sfx, lambda v: k.owlqn_trial(
+            v.xz, v.d, v.wp, 0.37, c, lo, hi), (0, 2), (1, 3, 4, 5))
+        case("K8_owlqn_probe" + sfx, lambda v: k.owlqn_probe(
+            v.xz, v.d, v.wp, 0.37, c, lo, hi), (), (0, 1))
+        case("K8_owlqn_probe_pg" + sfx, lambda v: k.owlqn_probe_pg(
+            v.xz, v.d, v.pg, 0.37, c, lo, hi), (), (0, 1))
+        case("K9_owlqn_trial_step" + sfx, lambda v: (fused.owlqn_trial_step(
+            v.xp, v.d, v.wp, 0.3, lo, hi),), (0,))
+        case("K10_pseudo_gradient_norm" + sfx, lambda v: fused.pseudo_gradient_norm(
+            v.xz, v.gx, c, lo, hi), (0,), (1,))
+        case("K11_pseudo_gradient" + sfx, lambda v: (fused.pseudo_gradient(
+            v.xz, v.gx, c, lo, hi),), (0,))
+        case("K13_combine_ow" + sfx, lambda v: fused.combine_ow(
+            v.pg, v.S_, v.Y_, -gamma, v.cs, v.cy, lo, hi), (0,), (1, 2, 3))
+        for gp in (False, True):
+            case("K14_owlqn_trial_pair_gram" + ("_gp" if gp else "") + sfx,
+                 lambda v: k.owlqn_trial_pair_gram(v.xz, v.d, v.gp, v.pg, 0.37, c, lo, hi,
+                                                   v.S_, v.Y_, 2, with_gp=gp),
+                 (0, 1, 2), (3, 4, 5, 6, 7) + ((8, 9) if gp else ()), rings=True)
+        case("K16_combine_ow_probe" + sfx, lambda v: k.combine_ow_probe(
+            v.pg, v.xz, v.S_, v.Y_, -gamma, v.cs, v.cy, c, lo, hi, 0.3), (0,),
+             (1, 2, 3, 4, 5))
+
+    # the quadratic's two extras: given whole (each rank narrows them to
+    # its shard) and as the shards themselves
+    quad = separable.quadratic(a.w, a.t)
+    case("quadratic_extras", lambda v: quad.kernels.trial(v.xp, v.d, 0.37), (0, 2),
+         (1, 3, 4, 5, 6))
+    sharded = separable.quadratic(_Case(mesh).shard(a.w), _Case(mesh).shard(a.t))
+    case("quadratic_extras_shards", lambda v: (quad if v.sh(a.w) is a.w else sharded)
+         .kernels.trial(v.xp, v.d, 0.37), (0, 2), (1, 3, 4, 5, 6))
+    case("quadratic_epilogue", lambda v: quad.kernels.trial_pair_gram(
+        v.xp, v.d, v.gp, 0.3, v.S_, v.Y_, 1), (0, 2), (1, 3, 4, 5, 6, 7, 8), rings=True)
+
+    # a body that reads the global element index
+    def gidx_ref(x, gidx):
+        w = 1.0 + 0.1 * (gidx % 7).to(x.dtype)
+        return 0.5 * (w * (x * x)), w * x
+
+    def no_triton():
+        raise AssertionError("the CPU runs the plain versions")
+
+    gobj = factory.make_fused_objective(no_triton, block_ref=gidx_ref)
+    case("gidx_body", lambda v: gobj.kernels.trial(v.xp, v.d, 0.4), (0, 2), (1, 3, 4, 5))
+    ctx = _Case(mesh)
+    xt = ctx.shard(a.xp + 0.4 * a.d)
+    _, g_no_off = factory._block_eval(gidx_ref, xt, 0, (), 1)
+    _, g_whole = factory._block_eval(gidx_ref, a.xp + 0.4 * a.d, 0, (), 1)
+    out["gidx_body"]["without_offset_matches"] = _bits(g_no_off, ctx.shard(g_whole))
+
+    # a shard the kernels cannot take: odd, against Rosenbrock's rows of 2
+    bad = torch.zeros(args["n_bad"] // mesh.size)
+    with kernels_on_mesh(mesh):
+        try:
+            k.trial(bad, bad, 0.1)
+            out["bad_split"] = None
+        except ValueError as exc:
+            out["bad_split"] = str(exc)
+    return out
+
+
+def _params(cfg: dict):
+    from lbfgs_torch.orthantwise import Orthantwise
+    from lbfgs_torch.params import LbfgsParams
+
+    p = LbfgsParams(**{key: v for key, v in cfg.items()
+                       if key not in ("orthantwise", "algorithm")})
+    if "orthantwise" in cfg:
+        p = p.replace(orthantwise=Orthantwise(*cfg["orthantwise"]))
+    if "algorithm" in cfg:
+        p = p.replace_ls(algorithm=cfg["algorithm"])
+    return p
+
+
+def fx_trace(run):
+    """``run()`` with fx recorded after every iteration: (its result, the
+    list of fx)."""
+    from lbfgs_torch import minimize
+
+    trace, hot = [], minimize.propagate_hot
+
+    def step(*a):
+        st = hot(*a)
+        trace.append(float(st.prob.fx))
+        return st
+
+    minimize.propagate_hot = step
+    try:
+        return run(), trace
+    finally:
+        minimize.propagate_hot = hot
+
+
+def _run(mesh, params, x0):
+    """One sharded ``minimize_jit`` from x0 (whole, on the CPU): its state,
+    x gathered after the run, the mesh's counts of that run split into
+    the init's and the iterations', and fx after each iteration."""
+    from lbfgs_torch import solver
+    from lbfgs_torch.core import ProblemDef
+    from lbfgs_torch.linesearch import carried
+    from lbfgs_torch.minimize import _run_while
+    from lbfgs_torch.models import rosenbrock
+    from lbfgs_torch.parallel import gather_vector, kernels_on_mesh, shard_vector
+
+    pdef = ProblemDef(value_and_grad=rosenbrock.value_and_grad, owlqn=params.orthantwise)
+    xs = shard_vector(x0, mesh)
+    mesh.reset_counts()
+    carried.used = 0
+    with kernels_on_mesh(mesh):
+        st = solver.init_state(pdef, params, xs, lean=True)
+        init = mesh.collectives
+        st, trace = fx_trace(lambda: _run_while(pdef, params, st))
+    counts = dict(init=init, iterations=mesh.collectives - init, gathers=mesh.gathers,
+                  bytes=mesh.collective_bytes, carried=carried.used)
+    return st, gather_vector(st.prob.x, mesh), counts, trace
+
+
+def _summary(st, x) -> dict:
+    import hashlib
+
+    import numpy as np
+
+    return dict(k=int(st.k), neval=int(st.prob.neval), status=int(st.status),
+                fx=float(st.prob.fx), fx_hex=float(st.prob.fx).hex(),
+                x_sha=hashlib.sha256(np.ascontiguousarray(x.numpy()).tobytes()).hexdigest())
+
+
+def job_runs(mesh, args: dict) -> dict:
+    """Whole sharded ``minimize_jit`` runs of Rosenbrock from its start,
+    one per path of ``args["paths"]`` (LbfgsParams fields), at the dtype
+    of ``args["dtype"]``: each run's iterations, evaluations, fx, x
+    (rank 0 writes it to OUT_DIR/<path>.npy) and its collectives; at world
+    size 1 also the run with no mesh.  With
+    ``args["resume"]`` (a pickled JAX state with numpy leaves and its
+    path), the run resumed from this rank's shard of it through
+    ``LbfgsState``, and whether ``gather_state`` of ``shard_state`` gives
+    that state back bit for bit."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from lbfgs_torch.core import ProblemDef
+    from lbfgs_torch.interop import state_from_jax
+    from lbfgs_torch.minimize import LbfgsState, minimize_jit
+    from lbfgs_torch.models import rosenbrock
+    from lbfgs_torch.parallel import gather_state, gather_vector, kernels_on_mesh, shard_state
+    from lbfgs_torch.utils.checkpoint import fields
+
+    dtype = getattr(torch, args["dtype"])
+    x0 = rosenbrock.initial_point(args["n"], dtype, device="cpu")
+    out = {}
+    for name, cfg in args["paths"].items():
+        params = _params(cfg)
+        st, x, counts, trace = _run(mesh, params, x0)
+        res = dict(_summary(st, x), collectives=counts, fx_trace=trace)
+        if mesh.rank == 0:
+            np.save(os.path.join(args["out_dir"], f"{name}.npy"), x.numpy())
+        if mesh.size == 1:
+            solo = minimize_jit(params, x0.clone(), rosenbrock.value_and_grad, return_state=True)
+            res["solo"] = _summary(solo, solo.prob.x)
+        out[name] = res
+    if args.get("resume"):
+        with open(args["resume"]["state"], "rb") as f:
+            tree = pickle.load(f)
+        params = _params(args["resume"]["params"])
+        pdef = ProblemDef(value_and_grad=rosenbrock.value_and_grad, owlqn=params.orthantwise)
+        whole = state_from_jax(tree, "cpu")
+        back = gather_state(shard_state(whole, mesh), mesh)
+        out["state_round_trip"] = all(
+            (_bits(a, b) if isinstance(a, torch.Tensor) else a == b)
+            for (_, a), (_, b) in zip(fields(whole), fields(back)))
+        state = LbfgsState(pdef, params, state_from_jax(tree, "cpu", mesh=mesh))
+        with kernels_on_mesh(mesh):
+            while not state.is_converged():
+                state.propagate()
+        st = state.state
+        x = gather_vector(st.prob.x, mesh)
+        if mesh.rank == 0:
+            np.save(os.path.join(args["out_dir"], "resume.npy"), x.numpy())
+        out["resume"] = _summary(st, x)
+    return out
+
+
+JOBS = {"kernels": job_kernels, "runs": job_runs}
+
+
+def main() -> None:
+    job, world, rank, port, out_dir = sys.argv[1], *map(int, sys.argv[2:5]), sys.argv[5]
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+
+    from lbfgs_torch.parallel import init_distributed, make_mesh
+
+    with open(os.path.join(out_dir, "args.json")) as f:
+        args = dict(json.load(f), out_dir=out_dir)
+    init_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                     world_size=world, rank=rank,
+                     timeout=datetime.timedelta(seconds=args["timeout"]))
+    try:
+        res = JOBS[job](make_mesh(), args)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

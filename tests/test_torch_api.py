@@ -185,6 +185,19 @@ def test_unported_entry_points_raise():
     # core (the defaults' 35 iterations, tests/test_native_parity.py:83-94)
     rep = b.minimize(x0, lbfgs_torch.default_evaluate(), backend="native")
     assert rep.niter == 35 and rep.fx < 1e-9
+    # sharding raised until it was ported: now a world-size-1 gloo mesh
+    # runs the defaults' 35 iterations, bit for bit the run with no mesh,
+    # and a setting it does not run on a mesh raises naming it
+    import _torch_mesh_ranks as ranks
+    from lbfgs_torch.parallel import kernels_on_mesh, shard_vector
+
+    with ranks.local_mesh() as mesh, kernels_on_mesh(mesh):
+        sharded = b.minimize_jit(shard_vector(x0, mesh), lbfgs_torch.default_evaluate())
+        with pytest.raises(NotImplementedError, match="native backend"):
+            b.minimize(x0, lbfgs_torch.default_evaluate(), backend="native")
+    solo = b.minimize_jit(x0, lbfgs_torch.default_evaluate())
+    assert sharded.niter == solo.niter == 35 and sharded.fx == solo.fx
+    assert torch.equal(sharded.x, solo.x)
 
 
 def test_gradient_only_with_more_thuente_is_a_value_error():

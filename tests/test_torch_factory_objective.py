@@ -13,8 +13,9 @@ scalars) on the products and sums (another summation order); the
 solver's outcomes within the JAX test's kernel-against-jnp bounds
 (iterations within 2, fx rel 1e-2 or abs 1e-4), and the minimizers
 against their oracles (x = t at rtol and atol 1e-3; the soft threshold
-at rtol 1e-2, atol 2e-3).  The JAX package's mesh tests (``:279-347``)
-wait for the port's sharding.
+at rtol 1e-2, atol 2e-3).  The counterparts of the JAX package's mesh
+tests (``:279-347``), the quadratic's extras and a body that reads the
+global index on a mesh, are in ``tests/test_torch_kernels_mesh.py``.
 
 The cases marked ``cuda`` hold every factory kernel with 0, 1, 2 and 3
 extras to its plain version on the card and skip without one.

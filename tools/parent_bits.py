@@ -20,9 +20,9 @@ Every output and every ring must be the other tree's bit for bit, except
 K12's sums, which are held to the other tree's within the sum tolerance
 (``chip_smoke.TOL``: K12's summation order is its own since it moved onto
 K5's body); K12's rings stay bit for bit.  The first difference raises.
-Then K3, K6, K13, K5 . gp, K4 and K15 are timed
-at the main path's shapes (n = 2^24, f32 vectors, bf16 history, m = 6) in
-turns, other tree, this, this, other (``chip_smoke.device_time``).
+Then K3, K6, K13, K5 . gp, K4, K15, K1, K2, K8 (pg form), K14 and K16 are
+timed at the main path's shapes (n = 2^24, f32 vectors, bf16 history,
+m = 6) in turns, other tree, this, this, other (``chip_smoke.device_time``).
 
 Prints one JSON line per check group and per timed kernel; the card's
 nvidia-smi name and power limit first.
@@ -214,6 +214,14 @@ def main() -> None:
         "K4": lambda f, r: lambda: r.trial_pair_gram(a["xp"], a["d"], a["gp"], cs.STP, S, Y,
                                                      cs.END),
         "K15": lambda f, r: lambda: r.combine_probe(a["gp"], a["xp"], S, Y, *coefs, 1.0),
+        "K1": lambda f, r: lambda: r.trial(a["xp"], a["d"], cs.STP),
+        "K2": lambda f, r: lambda: r.probe(a["xp"], a["d"], cs.STP),
+        "K8_pg": lambda f, r: lambda: r.owlqn_probe_pg(a["xp0"], a["d"], a["pg"], cs.STP,
+                                                       cs.C_L1, 0, cs.N_BIG - 1),
+        "K14": lambda f, r: lambda: r.owlqn_trial_pair_gram(
+            a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, cs.C_L1, 0, cs.N_BIG - 1, S, Y, cs.END),
+        "K16": lambda f, r: lambda: r.combine_ow_probe(a["pg"], a["xp0"], S, Y, *coefs,
+                                                       cs.C_L1, 0, cs.N_BIG - 1, 1.0),
     }
     for name, make in timed.items():
         mk, tk = make(fused, rosenbrock), make(pfused, prosen)
