@@ -158,7 +158,22 @@ Phases (any failure raises and the script exits nonzero):
      1e-3);
  37. batched baseline: BASELINE.md's batch regime, B = 10,000 x n = 64,
      30 iterations at lbfgs()'s defaults, epsilon 0, instance-iterations/s;
- 38. sharded world size 1: an NCCL group of one rank in this process
+ 38. batched OWL-QN kernels: K8 b (the pg form), K14 b, K13 b and
+     K10 b against their plain versions at the batched kernels' shapes
+     (B = 1024 x n = 2^14, m = 6, f32 vectors, bf16 rings, a third of the
+     instances frozen) on the window [0, n - 1) and one off every tile
+     edge (ring rows and frozen instances bit for bit), instances 0, 511
+     and 1023 against the solo K8, K14, K13 and K10 on that instance alone
+     (x, g, pg, the rings, rc and K10's pg bit for bit), each timed beside
+     its plain version;
+ 39. batched OWL-QN main path: ``minimize_batched`` at the batched main
+     path's widths and starts with c = 1 on [0, n - 1), BacktrackingArmijo,
+     capped step, epsilon 0, 30 iterations (K10 b once, K8 b per search
+     trip, K14 b and K13 b per iteration, nothing else), every fx finite,
+     its instance-iterations/s, device ms, syncs and host launch calls per
+     iteration beside the batched main path's; then instances 0-7 solo
+     through ``minimize_jit`` against the batch after 8 iterations;
+ 40. sharded world size 1: an NCCL group of one rank in this process
      (``lbfgs_torch.parallel``), the main path and the OWL-QN main path at
      n = 2^24 under ``kernels_on_mesh``, each against the same run with no
      mesh: iterations, evaluations, fx and x bit for bit, the same
@@ -166,7 +181,7 @@ Phases (any failure raises and the script exits nonzero):
      (eight runs in turns), the all-reduce ms per iteration, and where
      one all-reduce of a launch's scalars spends its time (timed pieces
      and torch.profiler traces);
- 39. sharded two ranks: two spawned gloo ranks sharing cuda:0 (this script
+ 41. sharded two ranks: two spawned gloo ranks sharing cuda:0 (this script
      with ``--sharded-rank``), n = 2^24 in all, the main, OWL-QN and damped
      main paths: both ranks bit for bit alike (iterations, evaluations,
      fx, the gathered x), K1, K2 (K8), K4 (K14) and K15 (K16) launched on
@@ -177,11 +192,11 @@ Phases (any failure raises and the script exits nonzero):
      path's iterations and every path's fx against the solo phases, the
      first 8 iterations in float64 the solo run's steps; collectives, ms
      and all-reduce ms per iteration;
- 40. launch_overhead: microseconds per back-to-back launch of the
+ 42. launch_overhead: microseconds per back-to-back launch of the
      calibration kernel (``csrc/calibrate.cu``) and per launch with one
      synchronising read, and the share of each main path's ms/iter that
      its launches and reads per iteration explain;
- 41. with ``--profile PATH`` only: one run of each main path (plain,
+ 43. with ``--profile PATH`` only: one run of each main path (plain,
      OWL-QN, damped, damped OWL-QN, Poisson, and the first three without
      the fusion) under torch.profiler (device busy time against the
      unprofiled walls, device items, host launch and copy calls); the
@@ -333,6 +348,22 @@ KERNELS.update({
                             "lbfgs_tpu/ops/fused.py:1359" + VMAPPED),
 })
 BATCHED_PATH = ("K2b_probe_batched", "K4b_trial_pair_gram_batched", "K3b_combine_batched")
+#: the batched runner's OWL-QN kernels: each search trip's
+#: projected probe, each iteration's epilogue and combine, and the init's
+#: pseudo-gradient
+KERNELS.update({
+    "K8b_owlqn_probe_batched": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                "lbfgs_tpu/ops/factory.py:487" + VMAPPED),
+    "K14b_owlqn_trial_pair_gram_batched": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                           "lbfgs_tpu/ops/factory.py:923" + VMAPPED),
+    "K13b_combine_ow_batched": ("cuda", "lbfgs_torch/csrc/combine.cu",
+                                "lbfgs_tpu/ops/fused.py:1464" + VMAPPED),
+    "K10b_pseudo_gradient_norm_batched": ("cuda", "lbfgs_torch/csrc/owlqn.cu",
+                                          "lbfgs_tpu/ops/fused.py:619" + VMAPPED),
+})
+BATCHED_OWLQN_PATH = ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched",
+                      "K13b_combine_ow_batched")
+BATCHED_OWLQN_INIT = ("K10b_pseudo_gradient_norm_batched",)
 #: the kernels each main path must launch, and whose launches the kernel
 #: table shows from that path
 PLAIN_PATH = ("K1_trial", "K2_probe", "K4_trial_pair_gram", "K15_combine_probe")
@@ -405,6 +436,10 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
         "K2b_probe_batched": (2 * v, 16),
         "K4b_trial_pair_gram_batched": (5 * v + rings, 12 * m + 24),
         "K3b_combine_batched": (2 * v + 2 * m * h, 4 * m + 6),
+        "K8b_owlqn_probe_batched": (3 * v, 24),
+        "K14b_owlqn_trial_pair_gram_batched": (7 * v + rings, 12 * m + 40),
+        "K13b_combine_ow_batched": (2 * v + 2 * m * h, 4 * m + 10),
+        "K10b_pseudo_gradient_norm_batched": (3 * v, 6),
         # reads and writes one float32 per element, at n = N_NULL
         "cal_null_launch": (8, 1),
     }[name]
@@ -1423,10 +1458,12 @@ EXTRAS = {}
 FACTORY_REFS = ("trial_ref", "probe_ref", "trial_pair_gram_ref", "owlqn_trial_ref",
                 "owlqn_probe_ref", "owlqn_probe_pg_ref", "owlqn_trial_pair_gram_ref",
                 "combine_probe_ref", "combine_ow_probe_ref", "probe_batched_ref",
-                "trial_pair_gram_batched_ref")
+                "trial_pair_gram_batched_ref", "owlqn_probe_pg_batched_ref",
+                "owlqn_trial_pair_gram_batched_ref")
 FACTORY_WRAPPERS = ("trial", "probe", "trial_pair_gram", "owlqn_trial", "owlqn_probe",
                     "owlqn_probe_pg", "owlqn_trial_pair_gram", "combine_probe",
-                    "combine_ow_probe", "probe_batched", "trial_pair_gram_batched")
+                    "combine_ow_probe", "probe_batched", "trial_pair_gram_batched",
+                    "owlqn_probe_pg_batched", "owlqn_trial_pair_gram_batched")
 
 
 def _factory_launches(k, sfx: str) -> dict:
@@ -1469,6 +1506,12 @@ def launches() -> dict:
         "K4b_trial_pair_gram_batched":
             rosenbrock.value_and_grad.kernels.trial_pair_gram_batched.launches,
         "K3b_combine_batched": fused.combine_batched.launches,
+        "K8b_owlqn_probe_batched":
+            rosenbrock.value_and_grad.kernels.owlqn_probe_pg_batched.launches,
+        "K14b_owlqn_trial_pair_gram_batched":
+            rosenbrock.value_and_grad.kernels.owlqn_trial_pair_gram_batched.launches,
+        "K13b_combine_ow_batched": fused.combine_ow_batched.launches,
+        "K10b_pseudo_gradient_norm_batched": fused.pseudo_gradient_norm_batched.launches,
     }
     ex = dict.fromkeys(_factory_launches(rosenbrock.value_and_grad.kernels, "_ex"), 0)
     for obj in EXTRAS.values():
@@ -1501,6 +1544,11 @@ PLAIN = {
     "K2b_probe_batched": rosenbrock.value_and_grad.kernels.probe_batched_ref,
     "K4b_trial_pair_gram_batched": rosenbrock.value_and_grad.kernels.trial_pair_gram_batched_ref,
     "K3b_combine_batched": fused.combine_batched_ref,
+    "K8b_owlqn_probe_batched": rosenbrock.value_and_grad.kernels.owlqn_probe_pg_batched_ref,
+    "K14b_owlqn_trial_pair_gram_batched":
+        rosenbrock.value_and_grad.kernels.owlqn_trial_pair_gram_batched_ref,
+    "K13b_combine_ow_batched": fused.combine_ow_batched_ref,
+    "K10b_pseudo_gradient_norm_batched": fused.pseudo_gradient_norm_batched_ref,
 }
 
 
@@ -1529,7 +1577,8 @@ def reset_counts() -> None:
     for fn in (fused.combine, fused.pseudo_gradient_norm, fused.combine_ow,
                fused.pair_gram_sd, fused.combine_fix, fused.owlqn_trial_step,
                fused.pseudo_gradient, fused.pair_gram_xg, fused.axpy_dot,
-               profiling.null_launch, fused.combine_batched):
+               profiling.null_launch, fused.combine_batched, fused.combine_ow_batched,
+               fused.pseudo_gradient_norm_batched):
         fn.launches = 0
     fused.pair_gram_xg.gp_launches = 0
     for fn in PLAIN.values():
@@ -3401,11 +3450,14 @@ def phase_batched_kernels() -> dict:
     return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
 
 
-def _batched_run(name: str, params: LbfgsParams, B: int, n: int) -> tuple:
+def _batched_run(name: str, params: LbfgsParams, B: int, n: int, path=BATCHED_PATH,
+                 init=()) -> tuple:
     """One warm and three timed ``minimize_batched`` of B instances of n
     elements from ``batched_x0``, the counts reset before each; returns
     (state, the three walls in seconds, launches, plain calls, host reads,
-    loop iterations, the starts), the counts and state of the last run."""
+    loop iterations, the starts), the counts and state of the last run.
+    ``path`` names the run's probe, epilogue and combine kernels, ``init``
+    the kernels its init launches once."""
     x0b = batched_x0(B, n)
     fn = default_evaluate()
     minimize_batched(params, x0b, fn)
@@ -3425,16 +3477,17 @@ def _batched_run(name: str, params: LbfgsParams, B: int, n: int) -> tuple:
     if st.x.device.type != "cuda":
         raise AssertionError(f"{name}: the run left the card")
     # the loop's epilogues and combines, one each per iteration; the probes
-    # one per search trip; nothing else launched, no plain version
-    if not (1 <= lc["K4b_trial_pair_gram_batched"] == lc["K3b_combine_batched"] <= iters
-            and lc["K2b_probe_batched"] >= lc["K4b_trial_pair_gram_batched"]):
+    # one per search trip; the init's kernels once; nothing else launched,
+    # no plain version
+    probe, epilogue, combine = path
+    if not (1 <= lc[epilogue] == lc[combine] <= iters and lc[probe] >= lc[epilogue]):
         raise AssertionError(f"{name}: launches {lc} in {iters} iterations")
-    _expect(name, lc, pc, **{k: lc[k] for k in BATCHED_PATH})
+    _expect(name, lc, pc, **{k: lc[k] for k in path}, **dict.fromkeys(init, 1))
     return st, walls, lc, pc, reads, iters, x0b
 
 
 def _batched_report(phase: str, st, walls: list, lc: dict, reads: int, iters: int,
-                    **extra) -> dict:
+                    path=BATCHED_PATH, **extra) -> dict:
     """The run's line: instance-iterations/s and wall ms per iteration from
     the least of the walls (all printed), per-iteration counts."""
     codes, counts = np.unique(st.status, return_counts=True)
@@ -3444,11 +3497,11 @@ def _batched_report(phase: str, st, walls: list, lc: dict, reads: int, iters: in
                instance_iters=inst_iters, seconds=dt, seconds_runs=walls,
                instance_iters_per_s=inst_iters / dt,
                wall_ms_per_iter=1e3 * dt / iters, syncs_per_iter=reads / iters,
-               probes_per_iter=lc["K2b_probe_batched"] / iters,
+               probes_per_iter=lc[path[0]] / iters,
                evals_per_instance=float(st.neval.mean()),
                status={int(c): int(v) for c, v in zip(codes, counts)},
                fx_median=float(np.median(st.fx)), fx_max=float(st.fx.max()),
-               launches={k: lc[k] for k in BATCHED_PATH}, **extra)
+               launches={k: lc[k] for k in path}, **extra)
     emit(**out)
     return out
 
@@ -3512,6 +3565,218 @@ def phase_batched_baseline() -> dict:
     del st, x0b
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the batched runner under OWL-QN: K8 b, K14 b, K13 b and K10 b
+# ---------------------------------------------------------------------------
+
+#: the batched OWL-QN main path: the batched main path's widths and starts
+#: (1024 x 2^14, bf16 ring, m = 6, epsilon 0, 30 iterations, capped step)
+#: with c = 1 on [0, n - 1) and BacktrackingArmijo
+BATCHED_OWLQN_PARAMS = BATCHED_PARAMS.replace(
+    orthantwise=Orthantwise(1.0, 0, BATCH_N - 1),
+).replace_ls(algorithm=LineSearchAlgorithm.BacktrackingArmijo)
+
+
+def batched_owlqn_inputs(seed: int) -> dict:
+    """``batched_inputs`` with a random pseudo-gradient pg and xp zero at
+    every 17th element (the orthant's at-zero choice)."""
+    a = batched_inputs(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    a["pg"] = torch.randn(BATCH_B, BATCH_N, generator=g, device="cuda")
+    a["xp"][:, ::17] = 0.0
+    return a
+
+
+def phase_batched_owlqn_kernels() -> dict:
+    """K8 b, K14 b, K13 b and K10 b against their plain versions on the
+    card at B = 1024, n = 2^14, m = 6, f32 vectors, bf16 rings, end = 3, a
+    third of the instances frozen, L1 weight ``C_L1``, on the windows [0,
+    n - 1) and one whose ends fall inside every kernel's tiles (normwise
+    1e-5 on vectors, 1e-4 on sums; K14 b's ring rows bit for bit the
+    rounding of its own pair, the other rows kept; every frozen instance's
+    x, g, pg, ring rows and outputs untouched bit for bit); then instances
+    0, 511 and 1023 against the solo K8 (pg form), K14, K13 and K10 on that
+    instance alone: x, g, pg, the rings, rc and K10's pg bit for bit, K8's
+    sums printed.  Each kernel timed on the first window with every
+    instance live, beside its plain version and its bound."""
+    k = rosenbrock.value_and_grad.kernels
+    a = batched_owlqn_inputs(SEED + 14)
+    live, frozen = a["live"], ~a["live"]
+    tv, ts = TOL[(torch.float32, "vec")], TOL[(torch.float32, "sum")]
+    c, end = C_L1, BATCH_END
+    errs = {name: [] for name in BATCHED_OWLQN_PATH + BATCHED_OWLQN_INIT}
+    solo = {}
+    for wi, (lo, hi) in enumerate(windows(BATCH_N)):
+        tag = f"w{wi}"
+        ft, dg = k.owlqn_probe_pg_batched(a["xp"], a["d"], a["pg"], a["stp"], c, lo, hi, live)
+        pft, pdg = k.owlqn_probe_pg_batched_ref(a["xp"], a["d"], a["pg"], a["stp"], c, lo, hi,
+                                                live)
+        errs["K8b_owlqn_probe_batched"] += [check(f"K8b ft {tag}", ft[live], pft[live], ts),
+                                            check(f"K8b g.d {tag}", dg[live], pdg[live], ts)]
+
+        def k14(fn):
+            t = {name: a[name].clone() for name in ("xp", "gp", "pg", "S", "Y")}
+            out = fn(t["xp"], a["d"], t["gp"], t["pg"], a["stp"], c, lo, hi, t["S"], t["Y"],
+                     end, live)
+            return t, out
+
+        tk, outk = k14(k.owlqn_trial_pair_gram_batched)
+        tq, outq = k14(k.owlqn_trial_pair_gram_batched_ref)
+        e14 = [check(f"K14b {name} {tag}", tk[name][live], tq[name][live], tv)
+               for name in ("xp", "gp", "pg")]
+        e14 += [check(f"K14b sum{i} {tag}", outk[i][live], outq[i][live], ts)
+                for i in (0, 1, 3, 4)]
+        if not torch.equal(outk[2][live], outq[2][live]):
+            raise AssertionError(f"K14b {tag}: changed differs from the plain version")
+        errs["K14b_owlqn_trial_pair_gram_batched"] += e14
+        # row end of a live instance the rounding of the kernel's own pair
+        # (x - xp, g - gp); every other row kept
+        s_new = (tk["xp"] - a["xp"]).to(torch.bfloat16)
+        y_new = (tk["gp"] - a["gp"]).to(torch.bfloat16)
+        keep = [j for j in range(M) if j != end]
+        if not (same_bits(tk["S"][live][:, end], s_new[live])
+                and same_bits(tk["Y"][live][:, end], y_new[live])
+                and same_bits(tk["S"][:, keep], a["S"][:, keep])
+                and same_bits(tk["Y"][:, keep], a["Y"][:, keep])):
+            raise AssertionError(f"K14b {tag}: the ring rows are not the rounded pair and the "
+                                 f"kept rows")
+        rk, rq = torch.zeros_like(a["d"]), torch.zeros_like(a["d"])
+        ck = fused.combine_ow_batched(a["pg"], a["S"], a["Y"], a["coef"], live, rk, lo, hi)
+        cq = fused.combine_ow_batched_ref(a["pg"], a["S"], a["Y"], a["coef"], live, rq, lo, hi)
+        errs["K13b_combine_ow_batched"] += [
+            check(f"K13b rc {tag}", rk[live], rq[live], tv),
+            *(check(f"K13b sum{i} {tag}", ck[i][live], cq[i][live], ts) for i in range(3))]
+        pk, pq = torch.zeros_like(a["d"]), torch.zeros_like(a["d"])
+        nk = fused.pseudo_gradient_norm_batched(a["xp"], a["gp"], c, lo, hi, live, pk)
+        nq = fused.pseudo_gradient_norm_batched_ref(a["xp"], a["gp"], c, lo, hi, live, pq)
+        errs["K10b_pseudo_gradient_norm_batched"] += [
+            check(f"K10b pg {tag}", pk[live], pq[live], tv),
+            check(f"K10b pg.pg {tag}", nk[live], nq[live], ts)]
+        untouched = all(same_bits(tk[name][frozen], a[name][frozen])
+                        for name in ("xp", "gp", "pg", "S", "Y"))
+        if not (untouched and not rk[frozen].any() and not pk[frozen].any()):
+            raise AssertionError(f"{tag}: a batched OWL-QN kernel wrote a frozen instance")
+        # instances 0, 511, 1023 against the solo kernels on that instance alone
+        for b in BATCH_SOLO:
+            stp = float(a["stp"][b])
+            sft, sdg = k.owlqn_probe_pg(a["xp"][b], a["d"][b], a["pg"][b], stp, c, lo, hi)
+            Sb, Yb = a["S"][b].clone(), a["Y"][b].clone()
+            x1, g1, pg1 = k.owlqn_trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b],
+                                                  a["pg"][b], stp, c, lo, hi, Sb, Yb, end)[:3]
+            cf = a["coef"][b]
+            r1 = fused.combine_ow(a["pg"][b], a["S"][b], a["Y"][b], cf[0], cf[1:1 + M],
+                                  cf[1 + M:], lo, hi)[0]
+            p1 = fused.pseudo_gradient_norm(a["xp"][b], a["gp"][b], c, lo, hi)[0]
+            bits = dict(x=same_bits(tk["xp"][b], x1), g=same_bits(tk["gp"][b], g1),
+                        pg=same_bits(tk["pg"][b], pg1), S=same_bits(tk["S"][b], Sb),
+                        Y=same_bits(tk["Y"][b], Yb), rc=same_bits(rk[b], r1),
+                        pg_k10=same_bits(pk[b], p1))
+            if not all(bits.values()):
+                raise AssertionError(f"{tag} instance {b} differs from the solo kernels: "
+                                     f"{bits}")
+            solo[f"{tag}_{b}"] = dict(
+                k8_sums_bit_for_bit=same_bits(ft[b], sft) and same_bits(dg[b], sdg),
+                k8_ft_rel=abs(float(ft[b]) / float(sft) - 1))
+        del tk, tq, outk, outq, rk, rq, pk, pq, s_new, y_new
+        torch.cuda.empty_cache()
+    # times on the first window with every instance live, on copies the
+    # in-place K14 b advances
+    lo, hi = windows(BATCH_N)[0]
+    every = torch.ones_like(live)
+    x, g, pg, S, Y = (a[name].clone() for name in ("xp", "gp", "pg", "S", "Y"))
+    out = torch.zeros_like(a["d"])
+    cases = {
+        "K8b_owlqn_probe_batched": (
+            lambda: k.owlqn_probe_pg_batched(x, a["d"], pg, a["stp"], c, lo, hi, every),
+            lambda: k.owlqn_probe_pg_batched_ref(x, a["d"], pg, a["stp"], c, lo, hi, every)),
+        "K14b_owlqn_trial_pair_gram_batched": (
+            lambda: k.owlqn_trial_pair_gram_batched(x, a["d"], g, pg, a["stp"], c, lo, hi, S,
+                                                    Y, end, every),
+            lambda: k.owlqn_trial_pair_gram_batched_ref(x, a["d"], g, pg, a["stp"], c, lo, hi,
+                                                        S, Y, end, every)),
+        "K13b_combine_ow_batched": (
+            lambda: fused.combine_ow_batched(a["pg"], a["S"], a["Y"], a["coef"], every, out,
+                                             lo, hi),
+            lambda: fused.combine_ow_batched_ref(a["pg"], a["S"], a["Y"], a["coef"], every,
+                                                 out, lo, hi)),
+        "K10b_pseudo_gradient_norm_batched": (
+            lambda: fused.pseudo_gradient_norm_batched(a["xp"], a["gp"], c, lo, hi, every,
+                                                       out),
+            lambda: fused.pseudo_gradient_norm_batched_ref(a["xp"], a["gp"], c, lo, hi, every,
+                                                           out)),
+    }
+    times, timed_by = {}, {}
+    for name, (kern, plain) in cases.items():
+        k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain, 20)
+        times[name], timed_by[name] = (k_ms, p_ms), (k_by, p_by)
+    bounds = {name: bound(name, BATCH_B * BATCH_N, 4, 2, M) for name in cases}
+    errs = {name: (max(e[0] for e in v), max(e[1] for e in v)) for name, v in errs.items()}
+    # registers and spills: K14 b's Triton form at these dtypes, and every
+    # instantiation of the CUDA K3 b/K13 b and K10/K10 b/K11 bodies
+    compiled = {}
+    for (vd, hd), kc in k.owlqn_trial_pair_gram_batched.compiled.items():
+        kc._init_handles()
+        compiled[f"K14b {vd} {hd}"] = dict(n_regs=kc.n_regs, n_spills=kc.n_spills)
+    for name, v in ptxas_kernels(_build.build_log()).items():
+        if m := re.search(r"(combine_batched_kernel|pseudo_grad_kernel)I(\w+?)EEv", name):
+            compiled[f"{m.group(1)}<{m.group(2)}>"] = v
+    spilled = {n_: v for n_, v in compiled.items()
+               if v.get("n_spills") or v.get("spill_stores") or v.get("spill_loads")}
+    if spilled:
+        raise AssertionError(f"batched OWL-QN forms spill registers: {spilled}")
+    emit(phase="batched_owlqn_kernels", compiled=compiled, B=BATCH_B, n=BATCH_N, m=M, end=end, c=c,
+         windows=windows(BATCH_N), frozen=int(frozen.sum()),
+         max_abs_err={n_: e[0] for n_, e in errs.items()},
+         max_normwise_err={n_: e[1] for n_, e in errs.items()},
+         tol=dict(vec=tv, sum=ts, ring_rows="bit-exact", frozen="bit-exact",
+                  vs_solo_x_g_pg_rings_rc_pg="bit-exact"), vs_solo=solo,
+         device_ms={n_: {"kernel": t[0], "plain": t[1], "bound": bounds[n_][0]}
+                    for n_, t in times.items()},
+         timed_by={n_: {"kernel": t[0], "plain": t[1]} for n_, t in timed_by.items()})
+    del a, x, g, pg, S, Y, out
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
+
+
+def phase_batched_owlqn_main_path(plain: dict) -> dict:
+    """``minimize_batched`` under OWL-QN at the batched main path's widths
+    (``BATCHED_OWLQN_PARAMS``, B = 1024 x n = 2^14 from ``batched_x0``):
+    K10 b once, K8 b per search trip, K14 b and K13 b per iteration,
+    nothing else and no plain version; every fx finite.  Prints
+    instance-iterations/s, device ms, syncs and host launch calls per
+    iteration beside the plain batched main path's (``plain``).  Then
+    instances 0-7 run solo through ``minimize_jit`` against a batched run
+    of 8 iterations: the same iterations and evaluations, fx rel
+    ``FUSION_TOL_8``."""
+    params = BATCHED_OWLQN_PARAMS
+    st, walls, lc, pc, reads, iters, x0b = _batched_run(
+        "batched OWL-QN main path", params, BATCH_B, BATCH_N, BATCHED_OWLQN_PATH,
+        BATCHED_OWLQN_INIT)
+    prof = _batched_profile(params, x0b)
+    beside = {key: plain.get(key) for key in (
+        "instance_iters_per_s", "wall_ms_per_iter", "device_ms_per_iter", "syncs_per_iter",
+        "launch_calls_per_iter", "probes_per_iter")}
+    out = _batched_report("batched_owlqn_main_path", st, walls, lc, reads, iters,
+                          BATCHED_OWLQN_PATH, **prof, plain_batched_main_path=beside,
+                          init_launches={k: lc[k] for k in BATCHED_OWLQN_INIT}, plain_calls=pc)
+    del st
+    p8 = params.replace(max_iterations=9)
+    st8 = minimize_batched(p8, x0b, default_evaluate(), return_state=True)
+    held = []
+    for b in range(8):
+        so = minimize_jit(p8, x0b[b].clone(), default_evaluate(), return_state=True)
+        rel = abs(float(st8.fx[b]) / float(so.prob.fx) - 1)
+        if (so.k, so.prob.neval) != (int(st8.k[b]), int(st8.neval[b])) or not rel <= FUSION_TOL_8:
+            raise AssertionError(f"batched OWL-QN instance {b} against its solo run after 8 "
+                                 f"iterations: k/neval {(int(st8.k[b]), int(st8.neval[b]))} vs "
+                                 f"{(so.k, so.prob.neval)}, rel fx {rel:.3e}")
+        held.append(dict(k=so.k, neval=so.prob.neval, rel_fx=rel))
+    emit(phase="batched_owlqn_vs_solo", iters=8, fx_tol=FUSION_TOL_8, instances=held)
+    del st8, x0b
+    torch.cuda.empty_cache()
+    return lc, out
 
 
 # ---------------------------------------------------------------------------
@@ -4069,14 +4334,17 @@ def main() -> None:
     run(phase_native)
     run(phase_checkpoint)
     batched = run(phase_batched_kernels)
-    lc_batched, _ = run(phase_batched_main_path)
+    lc_batched, batched_out = run(phase_batched_main_path)
     run(phase_batched_baseline)
+    batched_ow = run(phase_batched_owlqn_kernels)
+    lc_batched_ow, _ = run(phase_batched_owlqn_main_path, batched_out)
     run(phase_sharded_world1)
     run(phase_sharded_two_rank, {"main_path": main_out, "owlqn_main_path": ow_out,
                                  "damped_main_path": d_out})
     for key in ("errs", "times", "bounds", "timed_by"):
         k[key].update(deep[key])
         k[key].update(batched[key])
+        k[key].update(batched_ow[key])
     lc_cal = run(phase_launch_overhead, {
         name: (params, fused, out["ms_per_iter"], out["syncs_per_iter"])
         for name, params, fused, out in (
@@ -4105,6 +4373,7 @@ def main() -> None:
           **{name: lc_quartic[name] for name in QUARTIC_PATH},
           **{name: lc_lasso_var[name] for name in LASSO_VARIANTS_PATH}, **lc_deep,
           **{name: lc_batched[name] for name in BATCHED_PATH},
+          **{name: lc_batched_ow[name] for name in BATCHED_OWLQN_PATH + BATCHED_OWLQN_INIT},
           "K17_axpy_dot": lc_main["K17_axpy_dot"], **lc_cal}
     # library_ms: one PyTorch call computing the same function, where one
     # exists (only the calibration kernel's o = x + 1)

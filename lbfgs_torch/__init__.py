@@ -99,16 +99,19 @@ native backend, the batched runner and checkpoints raise
 
 Scenario batches (``Lbfgs.minimize_batched``, ``batched``): B independent
 instances of one factory objective as a [B, n] tensor, advanced together
-with one batched launch per pass (K2 b, K4 b, K3 b)::
+with one batched launch per pass (K2 b, K4 b, K3 b; under OWL-QN K8 b,
+K14 b, K13 b and K10 b at the init)::
 
     out = lbfgs().minimize_batched(x0_batch, rosenbrock.value_and_grad)
     out["fx"], out["niter"], out["x"]
+    out = lbfgs().with_orthantwise(1.0, 0, None).minimize_batched(x0_batch, fn)
 
-It runs plain L-BFGS with More-Thuente or the backtracking searches under
-the capped step; OWL-QN, damping, the gradient-only mode, the uncapped
-step, the adaptive entry step, the wide objective scalar, the scan
-two-loop, a float16 history, more than 64 ring rows and generic
-objectives raise ``NotImplementedError`` there.
+It runs plain L-BFGS with More-Thuente or the backtracking searches, and
+OWL-QN with backtracking (More-Thuente routed to it), under the capped
+step; damping, the gradient-only mode, the uncapped step, the adaptive
+entry step, the wide objective scalar, the scan two-loop, a float16
+history, more than 64 ring rows and generic objectives raise
+``NotImplementedError`` there, with OWL-QN and without.
 """
 
 from __future__ import annotations

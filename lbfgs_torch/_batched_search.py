@@ -21,8 +21,13 @@ JAX package's branch-free form, ``lbfgs_tpu/linesearch.py:136-241``);
 the branches not taken may divide by zero, so they run under
 ``np.errstate`` and their values never pass a select.
 
-Not here (the batched runner refuses them): the wide objective scalar,
-OWL-QN's projected searches and the gradient-only exit.
+Under OWL-QN (``ow``) the searches are those of the solo OWL-QN path:
+backtracking with the Armijo exit only (More-Thuente routed to it, as
+``linesearch.find`` routes it), its probe the projected one (K8 b on the
+card), whose point the caller rebuilds from each instance's orthant.
+
+Not here (the batched runner refuses them): the wide objective scalar and
+the gradient-only exit.
 """
 
 from __future__ import annotations
@@ -264,17 +269,18 @@ def morethuente(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
 
 
 def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
-                 probe: Probe) -> BatchedSearch:
-    """``linesearch.backtracking`` in probe-only mode (OWL-QN off, no
-    gradient-only exit) over the instances in ``live``: the Armijo, Wolfe
-    or strong-Wolfe exit ladder (``src/line.rs:716-784``), one ``probe``
-    per trip."""
+                 probe: Probe, ow: bool = False) -> BatchedSearch:
+    """``linesearch.backtracking`` in probe-only mode (no gradient-only
+    exit) over the instances in ``live``: the Armijo, Wolfe or strong-Wolfe
+    exit ladder (``src/line.rs:716-784``), one ``probe`` per trip.  Under
+    OWL-QN (``ow``) only the Armijo exit applies (``src/line.rs:747-751``),
+    whatever the ladder."""
     f = finit.dtype.type
     dec, inc = f(0.5), f(2.1)
     dgtest = f(ls.ftol) * dginit
     gtol = f(ls.gtol)
     min_step, max_step = f(ls.min_step), f(ls.max_step)
-    armijo_only = ls.algorithm == LineSearchAlgorithm.BacktrackingArmijo
+    armijo_only = ls.algorithm == LineSearchAlgorithm.BacktrackingArmijo or ow
     wolfe = ls.algorithm == LineSearchAlgorithm.BacktrackingWolfe
     max_ls = ls.max_linesearch
     B = finit.shape[0]
@@ -331,14 +337,16 @@ def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
 
 
 def find(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
-         probe: Probe) -> BatchedSearch:
-    """``linesearch.find`` over [B] instances, OWL-QN off: More-Thuente
-    when the algorithm selects it, else backtracking.  An instance with a
-    negative entry step leaves before any evaluation with
-    ``ERR_NEGATIVE_STEP`` (``src/line.rs:197-201``)."""
+         probe: Probe, ow: bool = False) -> BatchedSearch:
+    """``linesearch.find`` over [B] instances: More-Thuente when the
+    algorithm selects it and OWL-QN (``ow``) is off, else backtracking.
+    An instance with a negative entry step leaves before any evaluation
+    with ``ERR_NEGATIVE_STEP`` (``src/line.rs:197-201``)."""
     neg = live & np.signbit(stp0)
-    search = morethuente if ls.algorithm == LineSearchAlgorithm.MoreThuente else backtracking
-    out = search(ls, live & ~neg, finit, dginit, stp0, neval0, probe)
+    if ls.algorithm == LineSearchAlgorithm.MoreThuente and not ow:
+        out = morethuente(ls, live & ~neg, finit, dginit, stp0, neval0, probe)
+    else:
+        out = backtracking(ls, live & ~neg, finit, dginit, stp0, neval0, probe, ow)
     if neg.any():
         out = out._replace(status=np.where(neg, int(Status.ERR_NEGATIVE_STEP), out.status))
     return out

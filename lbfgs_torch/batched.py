@@ -31,9 +31,21 @@ JAX runner's state holds the failed iteration's.  The run is on the card
 when the batch lies on it, and on the CPU, through the kernels' plain
 versions, when the caller puts it there.
 
-This slice runs plain L-BFGS on a factory objective
-(``ops.factory.make_fused_objective``) with More-Thuente or any of the
-three backtracking searches under the capped step;
+Under OWL-QN the iteration is the solo OWL-QN path's at the capped step:
+each trip one projected probe (K8 b, the orthant rebuilt from each
+instance's (x, pg)), then one OWL-QN epilogue (K14 b: the point, its
+gradient and pseudo-gradient, the pair and the 6m products against
+-pg), the two-loop's algebra on d0 = -pg and one combine with the
+direction constraint (K13 b); the init adds each instance's L1 term in
+torch and takes pg and ||pg||^2 from one K10 b.  An instance whose search
+fails keeps its pg too, so it ends with the JAX runner's values without
+the JAX runner's closing pseudo-gradient pass
+(``lbfgs_tpu/batched.py:55-68``).
+
+This slice runs plain L-BFGS and OWL-QN on a factory objective
+(``ops.factory.make_fused_objective``) with More-Thuente (routed to
+backtracking under OWL-QN, as ``linesearch.find`` routes it) or any of
+the three backtracking searches under the capped step;
 ``check_supported_batched`` raises ``NotImplementedError`` for the other
 settings.
 """
@@ -76,22 +88,27 @@ class BatchedState(NamedTuple):
     dg0: np.ndarray          #: dginit of each next search      [B]
     #: the past/delta plateau test's fx rings [B, past], when enabled
     pf: Optional[np.ndarray] = None
+    #: OWL-QN's pseudo-gradients [B, n] (None without OWL-QN); gnorm2 then
+    #: carries ||pg||^2
+    pg: Optional[torch.Tensor] = None
 
 
 def check_supported_batched(params: LbfgsParams, evaluate: Callable,
                             x0_batch: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` naming each setting the batched
-    runner does not run yet: OWL-QN, damping, the gradient-only mode, the
-    uncapped step, the adaptive entry step, the wide objective scalar, the
-    scan two-loop, a history the ring kernels do not take (float16), more
-    than ``factory.MAX_M`` ring rows, the speculative search, objectives
-    that do not carry the batched kernels (generic ones), and a mesh
-    (``parallel``: batches are not sharded)."""
+    runner does not run yet, with plain L-BFGS and with OWL-QN alike:
+    damping, the gradient-only mode, the uncapped step, the adaptive entry
+    step, the wide objective scalar, the scan two-loop, a history the ring
+    kernels do not take (float16), more than ``factory.MAX_M`` ring rows,
+    the speculative search, objectives that do not carry the batched
+    kernels (generic ones), and a mesh (``parallel``: batches are not
+    sharded)."""
     hdtype = (getattr(torch, params.history_dtype) if params.history_dtype
               else x0_batch.dtype)
+    epilogue = ("__lbfgs_owlqn_trial_pair_gram_batched__" if params.orthantwise is not None
+                else "__lbfgs_trial_pair_gram_batched__")
     unsupported = [
         (fused.active_mesh() is not None, "a mesh (sharded batches are not ported)"),
-        (params.orthantwise is not None, "OWL-QN (orthantwise)"),
         (params.damping, "Powell damping"),
         (params.linesearch.gradient_only, "the gradient-only mode"),
         (not params.constrain_step_size, "the uncapped step (constrain_step_size=False)"),
@@ -102,7 +119,7 @@ def check_supported_batched(params: LbfgsParams, evaluate: Callable,
          f"a {hdtype} history with {x0_batch.dtype} vectors"),
         (params.m > factory.MAX_M, f"m = {params.m} ring rows (at most {factory.MAX_M})"),
         (int(params.linesearch.speculative) > 1, "the speculative line search"),
-        (getattr(evaluate, "__lbfgs_trial_pair_gram_batched__", None) is None,
+        (getattr(evaluate, epilogue, None) is None,
          "objectives without the batched kernels (generic objectives: only "
          "ops.factory.make_fused_objective's carry them)"),
     ]
@@ -131,8 +148,19 @@ def init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) 
         return fx, g, torch.dot(g, g), torch.dot(xi, xi)
 
     fx_t, g, gg, xx = torch.func.vmap(one)(x)
-    fx, gnorm2, xnorm2 = to_host_rows(fx_t.to(x.dtype), gg, xx)
-    # step = initial_inverse_hessian / ||d||, and ||d|| = ||g||
+    fx_t = fx_t.to(x.dtype)
+    pg = None
+    if params.orthantwise is not None:
+        # fx gains c*||x||_1 over the window (a torch reduction, as the
+        # solo init adds it), and K10 b gives pg and ||pg||^2
+        ow = params.orthantwise
+        lo, hi = ow.start_end(n)
+        fx_t = fx_t + torch.abs(x[:, lo:hi]).sum(dim=1) * ow.c
+        pg = torch.empty_like(x)
+        gg = evaluate.__lbfgs_pseudo_gradient_norm_batched__(
+            x, g, ow.c, lo, hi, torch.ones(B, dtype=torch.bool, device=x.device), pg)
+    fx, gnorm2, xnorm2 = to_host_rows(fx_t, gg, xx)
+    # step = initial_inverse_hessian / ||d||, and ||d|| = ||g|| (||pg||)
     step = f(params.initial_inverse_hessian) / np.sqrt(np.where(gnorm2 != 0.0, gnorm2, f(1.0)))
     hdtype = getattr(torch, params.history_dtype) if params.history_dtype else x.dtype
     z = dict(dtype=x.dtype, device=x.device)
@@ -148,11 +176,11 @@ def init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) 
         pf[:, 0] = fx
     ints = lambda: np.zeros(B, np.int64)
     return BatchedState(
-        x=x, gx=g.contiguous(), d=(-g).contiguous(), hist=hist, fx=fx, gnorm2=gnorm2,
-        xnorm2=xnorm2, neval=np.ones(B, np.int64), k=ints(), end=ints(), step=step,
-        step_ls=step.copy(), ncall=ints(), status=ints(), ls_status=ints(),
-        # d = -g, so dginit = -||g||^2 exactly (IEEE sign symmetry)
-        dg0=-gnorm2, pf=pf,
+        x=x, gx=g.contiguous(), d=(-(g if pg is None else pg)).contiguous(), hist=hist, fx=fx,
+        gnorm2=gnorm2, xnorm2=xnorm2, neval=np.ones(B, np.int64), k=ints(), end=ints(),
+        step=step, step_ls=step.copy(), ncall=ints(), status=ints(), ls_status=ints(),
+        # d = -g (-pg), so dginit = -||g||^2 exactly (IEEE sign symmetry)
+        dg0=-gnorm2, pf=pf, pg=pg,
     )
 
 
@@ -223,22 +251,35 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
     m = params.m
     bound = min(m, int(k[live][0]) - 1)
     f = st.fx.dtype.type
-    x, g, d, hist = st.x, st.gx, st.d, st.hist
+    x, g, d, hist, pg = st.x, st.gx, st.d, st.hist, st.pg
+    ow = params.orthantwise
+    if ow is not None:
+        c, (lo, hi) = ow.c, ow.start_end(x.shape[1])
 
     def probe(stp, run):
-        ft, dg = evaluate.__lbfgs_probe_batched__(x, d, _to_device(stp, x), _to_device(run, x))
-        return to_host_rows(ft, dg)
+        stp, run = _to_device(stp, x), _to_device(run, x)
+        if ow is None:
+            return to_host_rows(*evaluate.__lbfgs_probe_batched__(x, d, stp, run))
+        # the projected probe, its orthant rebuilt from (x, pg)
+        return to_host_rows(*evaluate.__lbfgs_owlqn_probe_pg_batched__(x, d, pg, stp, c, lo,
+                                                                      hi, run))
 
     ls = _batched_search.find(params.linesearch, live, st.fx, st.dg0, st.step, st.neval,
-                              probe)
+                              probe, ow=ow is not None)
     ok = live & (ls.status == 0)
     status = np.where(live, int(Status.ERR_X_NOT_CHANGED), st.status)
     gnorm2, xnorm2, dg0, step = st.gnorm2, st.xnorm2, st.dg0, st.step
     if ok.any():
         okd = _to_device(ok, x)
-        # the epilogue: x, g and ring row `end` in place, the 6m products
-        _gd, gg, xx, changed, SP, YP = evaluate.__lbfgs_trial_pair_gram_batched__(
-            x, d, g, _to_device(ls.step_eval, x), hist.s, hist.y, end, okd)
+        stp = _to_device(ls.step_eval, x)
+        # the epilogue: x, g (and pg) and ring row `end` in place, the 6m
+        # products against d0 = -g (-pg)
+        if ow is None:
+            _gd, gg, xx, changed, SP, YP = evaluate.__lbfgs_trial_pair_gram_batched__(
+                x, d, g, stp, hist.s, hist.y, end, okd)
+        else:
+            xx, gg, changed, SP, YP = evaluate.__lbfgs_owlqn_trial_pair_gram_batched__(
+                x, d, g, pg, stp, c, lo, hi, hist.s, hist.y, end, okd)
         ys_new, yy_new = SP[:, end, 0], YP[:, end, 0]
         sy = hist.sy.clone()
         sy[:, :, end] = SP[:, :, 0]      # S . y_new
@@ -252,14 +293,22 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
         gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
         new = hist._replace(ys=ys, sy=sy, yy=yy)
         coef, alpha = _two_loop(new, gamma, bound, end, SP[:, :, 2], YP[:, :, 2])
-        # the combine: the next direction over d, its norm and dginit
-        dd, rd = evaluate.__lbfgs_combine_batched__(g, hist.s, hist.y, coef, okd, d)
+        # the combine: the next direction over d, its norm and dginit;
+        # under OWL-QN over pg, constrained to its orthant (src/lbfgs.rs:554),
+        # its norm before the constraint, ||rc||^2 and dginit = rc . pg
+        if ow is None:
+            dd, rd = evaluate.__lbfgs_combine_batched__(g, hist.s, hist.y, coef, okd, d)
+            extra = ()
+        else:
+            dd, rc2, rd = evaluate.__lbfgs_combine_ow_batched__(pg, hist.s, hist.y, coef, okd,
+                                                               d, lo, hi)
+            extra = (rc2,)
         keep = lambda a, b: torch.where(okd.view(-1, *([1] * (a.ndim - 1))), a, b)
         hist = History(s=hist.s, y=hist.y, ys=keep(ys, hist.ys), alpha=keep(alpha, hist.alpha),
                        sy=keep(sy, hist.sy), yy=keep(yy, hist.yy))
         # the one read of the iteration's epilogue and combine
-        gg_h, xx_h, yy_h, dd_h, rd_h, changed_h = to_host_rows(gg, xx, yy_new, dd, rd,
-                                                               changed)
+        gg_h, xx_h, yy_h, dd_h, rd_h, changed_h, *rc2_h = to_host_rows(
+            gg, xx, yy_new, dd, rd, changed, *extra)
         with np.errstate(all="ignore"):
             dnorm = np.sqrt(dd_h)
             st_ok = np.where(~changed_h, int(Status.ERR_X_NOT_CHANGED),
@@ -267,7 +316,13 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
             # dnorm.is_sign_positive() accepts +0.0 (src/lbfgs.rs:544)
             st_ok = np.where((st_ok == 0) & ~(dnorm >= 0.0), int(Status.ERR_INVALID_DNORM),
                              st_ok)
-            # the next entry step (src/lbfgs.rs:547-551)
+            if ow is not None:
+                # the constrained direction must not vanish (the reference's
+                # assertion in constrain_search_direction, src/orthantwise.rs:140-161)
+                st_ok = np.where((st_ok == 0) & (rc2_h[0] == 0.0),
+                                 int(Status.ERR_OWLQN_ZERO_DIRECTION), st_ok)
+            # the next entry step (src/lbfgs.rs:547-551), from the norm before
+            # the OWL-QN constraint
             step_next = (np.minimum(f(params.max_step_size), dnorm)
                          / np.where(dnorm != 0.0, dnorm, f(1.0)))
         status = np.where(ok, st_ok, status)
@@ -318,7 +373,8 @@ def minimize_batched(params: LbfgsParams, x0_batch: torch.Tensor, evaluate: Call
     (``ops.factory.make_fused_objective``).  The run takes place on
     x0_batch's device.  Returns the JAX package's dict of per-instance
     results, tensors on that device: fx, xnorm, gnorm ([B], the vectors'
-    dtype), neval, niter, status ([B] int32) and x ([B, n]); or with
+    dtype; gnorm is ||pg|| under OWL-QN, as the JAX package's ``gnorm_of``),
+    neval, niter, status ([B] int32) and x ([B, n]); or with
     ``return_state`` the final ``BatchedState``.  A fatal status is
     reported per instance, never raised.
     """

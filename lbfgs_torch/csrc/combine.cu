@@ -44,8 +44,9 @@
 // partial sums r.r, r.g are reassociated by the block reduction anyway
 // and keep nvcc's default.
 //
-// K3 b, the batched runner's form (combine_batched_kernel, below), is K3
-// over [B, n] instances with blockIdx.y as the instance.
+// K3 b and K13 b, the batched runner's forms (combine_batched_kernel,
+// below), are K3 and K13 over [B, n] instances with blockIdx.y as the
+// instance.
 //
 // Any history depth: the 2m+1 coefficients (2m+3 for K6) sit in shared
 // memory.  Up to kStaticM ring rows that is a static array, as it always
@@ -241,16 +242,24 @@ int launch_combine(const void* g, const void* S, void* Y, const void* coef, void
 // element with f32 vectors and a bf16 ring at m = 6).  Up to kStaticM
 // ring rows (the batched runner's depth limit); B at most 65,535 (the
 // grid's y limit).
-template <typename T, typename H>
+//
+// K13 b (kOw = true) replaces lbfgs_tpu/ops/fused.py:_combine_ow_kernel
+// under the same vmap: K13's body per instance, g holding the instance's
+// pseudo-gradient, the window [lo, hi) the same for every instance in its
+// own indices, and K13's three partials (r.r before the constraint,
+// rc.rc, rc.pg), so an instance's rc is solo K13's bit for bit.
+template <typename T, typename H, bool kOw>
 __global__ void __launch_bounds__(kThreads)
 combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S,
                        const H* __restrict__ Y, const T* __restrict__ coef,
                        const unsigned char* __restrict__ live, T* __restrict__ r,
-                       T* __restrict__ partials, long long n, int m) {
+                       T* __restrict__ partials, long long n, int m, long long lo,
+                       long long hi) {
+  constexpr int kParts = kOw ? 3 : 2;
   const long long b = blockIdx.y;
   if (!live[b]) return;
   __shared__ T c[1 + 2 * kStaticM];
-  __shared__ T red[2][kThreads / 32];
+  __shared__ T red[kParts][kThreads / 32];
   const int ncoef = 1 + 2 * m;
   for (int i = threadIdx.x; i < ncoef; i += kThreads) c[i] = coef[b * ncoef + i];
   __syncthreads();
@@ -260,7 +269,9 @@ combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S,
   Y += b * m * n;
 
   const long long base = static_cast<long long>(blockIdx.x) * kBlockElems;
-  T acc[2] = {T(0), T(0)};
+  T acc[kParts];
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) acc[p] = T(0);
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     const long long i = base + k * kThreads + threadIdx.x;
@@ -274,23 +285,32 @@ combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S,
         acc_y = add_rn(acc_y, mul_rn(c[1 + m + j], widen<T, H>(Y[j * n + i])));
       }
       const T rv = add_rn(mul_rn(c[0], gv), add_rn(acc_s, acc_y));
-      r[i] = rv;
       acc[0] += rv * rv;
-      acc[1] += rv * gv;
+      if constexpr (kOw) {
+        // K13's constraint against -pg inside the window
+        const bool kill = i >= lo && i < hi && msign(rv) != -msign(gv);
+        const T rc = kill ? T(0) : rv;
+        r[i] = rc;
+        acc[1] += rc * rc;
+        acc[2] += rc * gv;
+      } else {
+        r[i] = rv;
+        acc[1] += rv * gv;
+      }
     }
   }
 
   const int warp = threadIdx.x / 32;
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
+  for (int p = 0; p < kParts; ++p) {
     const T v = warp_sum(acc[p]);
     if ((threadIdx.x & 31) == 0) red[p][warp] = v;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    T* const out = partials + 2 * (b * gridDim.x + blockIdx.x);
+    T* const out = partials + kParts * (b * gridDim.x + blockIdx.x);
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
+    for (int p = 0; p < kParts; ++p) {
       T a = T(0);
       for (int w = 0; w < kThreads / 32; ++w) a += red[p][w];
       out[p] = a;
@@ -298,19 +318,20 @@ combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S,
   }
 }
 
-template <typename T, typename H>
+template <typename T, typename H, bool kOw>
 int launch_combine_batched(const void* g, const void* S, const void* Y, const void* coef,
                            const void* live, void* r, void* partials, long long n, int m,
-                           int batch, void* stream) {
+                           long long lo, long long hi, int batch, void* stream) {
   if (n <= 0 || m < 1 || m > kStaticM || batch < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kBlockElems - 1) / kBlockElems;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
-  combine_batched_kernel<T, H><<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(g), static_cast<const H*>(S), static_cast<const H*>(Y),
-      static_cast<const T*>(coef), static_cast<const unsigned char*>(live),
-      static_cast<T*>(r), static_cast<T*>(partials), n, m);
+  combine_batched_kernel<T, H, kOw>
+      <<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(g), static_cast<const H*>(S), static_cast<const H*>(Y),
+          static_cast<const T*>(coef), static_cast<const unsigned char*>(live),
+          static_cast<T*>(r), static_cast<T*>(partials), n, m, lo, hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -346,8 +367,15 @@ const char* lbfgs_cuda_error_string(int code) {
                                   const void* coef, const void* live, void* r,             \
                                   void* partials, long long n, int m, int batch,           \
                                   void* stream) {                                          \
-    return launch_combine_batched<T, H>(g, S, Y, coef, live, r, partials, n, m, batch,     \
-                                        stream);                                           \
+    return launch_combine_batched<T, H, false>(g, S, Y, coef, live, r, partials, n, m, 0,  \
+                                               0, batch, stream);                          \
+  }                                                                                         \
+  int lbfgs_combine_ow_batched_##SFX(const void* g, const void* S, const void* Y,          \
+                                     const void* coef, const void* live, void* r,          \
+                                     void* partials, long long n, int m, long long lo,     \
+                                     long long hi, int batch, void* stream) {              \
+    return launch_combine_batched<T, H, true>(g, S, Y, coef, live, r, partials, n, m, lo,  \
+                                              hi, batch, stream);                          \
   }
 
 LBFGS_COMBINE_ENTRY(f32_bf16, float, __nv_bfloat16)

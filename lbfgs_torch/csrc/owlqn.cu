@@ -1,8 +1,9 @@
 // OWL-QN's elementwise kernels, by hand for Hopper (sm_90a):
 //
-//   K10  pseudo_grad_kernel<T, true>   pg and per-block partials of pg.pg
-//   K11  pseudo_grad_kernel<T, false>  pg alone
-//   K9   trial_step_kernel<T>          the projected trial point
+//   K10    pseudo_grad_kernel<T, true, false>  pg and per-block partials of pg.pg
+//   K11    pseudo_grad_kernel<T, false, false> pg alone
+//   K10 b  pseudo_grad_kernel<T, true, true>   K10 per instance of a batch
+//   K9     trial_step_kernel<T>                the projected trial point
 //
 // K10 and K11 replace lbfgs_tpu/ops/fused.py:_pseudo_grad_norm_kernel and
 // :_pseudo_grad_kernel (owlqn_pseudo_gradient_norm_pallas and
@@ -19,6 +20,14 @@
 // sign() here is the plain sign, NaN for NaN, as the JAX kernel's
 // jnp.sign: a NaN iterate gives a NaN pg.  K11 is K10's body with the norm
 // compiled out (kNorm), so the two give the same pg bit for bit.
+//
+// K10 b (kBatched) replaces _pseudo_grad_norm_kernel under the batched
+// runner's vmap (lbfgs_tpu/batched.py:28-33, the init): K10 over [B, n]
+// instances, blockIdx.y the instance and blockIdx.x its block, laid out
+// and summed as K10 lays out the same n, so an instance's pg and partials
+// are solo K10's bit for bit.  The window is the same for every instance,
+// in its own indices.  A block whose instance is frozen (live[b] == 0)
+// returns before it loads or stores anything.  Bound: bytes, as K10.
 //
 // K9 replaces lbfgs_tpu/ops/fused.py:_trial_step_kernel
 // (owlqn_trial_step_pallas): x = xp + stp*d, then zero inside [lo, hi)
@@ -67,11 +76,21 @@ __device__ __forceinline__ T msign(T v) {
   return v > T(0) ? T(1) : (v < T(0) ? T(-1) : T(0));
 }
 
-template <typename T, bool kNorm>
+template <typename T, bool kNorm, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 pseudo_grad_kernel(const T* __restrict__ x, const T* __restrict__ g, T c, long long lo,
-                   long long hi, T* __restrict__ pg, T* __restrict__ partials, long long n) {
+                   long long hi, T* __restrict__ pg, T* __restrict__ partials, long long n,
+                   const unsigned char* __restrict__ live) {
   __shared__ T red[kThreads / 32];
+  if constexpr (kBatched) {
+    // instance b's rows, and its row of [B, gridDim.x] partials
+    const long long b = blockIdx.y;
+    if (!live[b]) return;
+    x += b * n;
+    g += b * n;
+    pg += b * n;
+    partials += b * gridDim.x;
+  }
   const long long base = static_cast<long long>(blockIdx.x) * kBlockElems;
   T acc = T(0);
 #pragma unroll
@@ -131,9 +150,24 @@ template <typename T, bool kNorm>
 int launch_pseudo_grad(const void* x, const void* g, double c, long long lo, long long hi,
                        void* pg, void* partials, long long n, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  pseudo_grad_kernel<T, kNorm><<<grid(n), kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T>(c), lo, hi,
-      static_cast<T*>(pg), static_cast<T*>(partials), n);
+  pseudo_grad_kernel<T, kNorm, false>
+      <<<grid(n), kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T>(c), lo, hi,
+          static_cast<T*>(pg), static_cast<T*>(partials), n, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_pseudo_grad_norm_batched(const void* x, const void* g, double c, long long lo,
+                                    long long hi, const void* live, void* pg, void* partials,
+                                    long long n, int batch, void* stream) {
+  if (n <= 0 || batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 blocks(grid(n), static_cast<unsigned>(batch));
+  pseudo_grad_kernel<T, true, true>
+      <<<blocks, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T>(c), lo, hi,
+          static_cast<T*>(pg), static_cast<T*>(partials), n,
+          static_cast<const unsigned char*>(live));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -165,6 +199,21 @@ int lbfgs_pseudo_grad_norm_f64(const void* x, const void* g, double c, long long
                                long long hi, void* pg, void* partials, long long n,
                                void* stream) {
   return launch_pseudo_grad<double, true>(x, g, c, lo, hi, pg, partials, n, stream);
+}
+
+// K10 b: x, g, pg [batch, n]; live [batch]; partials [batch, blocks]
+int lbfgs_pseudo_grad_norm_batched_f32(const void* x, const void* g, double c, long long lo,
+                                       long long hi, const void* live, void* pg,
+                                       void* partials, long long n, int batch, void* stream) {
+  return launch_pseudo_grad_norm_batched<float>(x, g, c, lo, hi, live, pg, partials, n, batch,
+                                                stream);
+}
+
+int lbfgs_pseudo_grad_norm_batched_f64(const void* x, const void* g, double c, long long lo,
+                                       long long hi, const void* live, void* pg,
+                                       void* partials, long long n, int batch, void* stream) {
+  return launch_pseudo_grad_norm_batched<double>(x, g, c, lo, hi, live, pg, partials, n,
+                                                 batch, stream);
 }
 
 int lbfgs_pseudo_grad_f32(const void* x, const void* g, double c, long long lo, long long hi,

@@ -84,7 +84,7 @@ def batched_state_from_jax(tree: Any, device):
     128] layout too) and the [B] host scalars, the vectors' dtype kept
     (fx too: the batched runner has no wide objective scalar).  The JAX
     state's previous-point slots are dropped: the port's batched state is
-    lean."""
+    lean.  Under OWL-QN the pseudo-gradients ``pg`` come along."""
     from .batched import BatchedState
 
     p, h = tree.prob, tree.hist
@@ -102,6 +102,7 @@ def batched_state_from_jax(tree: Any, device):
         step=host(tree.step), step_ls=host(tree.step_ls), ncall=host(tree.ncall, np.int64),
         status=host(tree.status, np.int64), ls_status=host(tree.ls_status, np.int64),
         dg0=host(tree.dg0), pf=None if tree.pf is None else host(tree.pf),
+        pg=None if p.pg is None else vec(p.pg),
     )
 
 

@@ -141,7 +141,12 @@ instance (``live_ptr[b] == 0``) has every load and store masked off, its
 partials included.  They are bound by bytes as their solo kernels, per
 instance: 8 and 44 B/elem at f32 vectors with a bf16 history, m = 6
 (K4 b has no . gp column and writes no objective partial: the runner
-takes fx from the search).
+takes fx from the search).  OWL-QN's forms are laid out the same way:
+K8 b ``owlqn_probe_batched_kernel`` is K8's ``WP_IS_PG`` form per
+instance (12 B/elem), and K14 b ``owlqn_trial_pair_gram_batched_kernel``
+K14 without the . gp column, in place (52 B/elem); the window [lo, hi)
+and the L1 weight are the same for every instance, the window in each
+instance's own indices.
 
 On a mesh each kernel runs on one rank's shard of the vectors: ``off``,
 the shard's global offset, is added to the local offsets only where the
@@ -319,6 +324,31 @@ def probe_batched_kernel(xp_ptr, d_ptr, stp_ptr, live_ptr, part_ptr, n, ex,
     part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + tl.program_id(0)) * 2
     tl.store(part + 0, _block_sum(fe, mask), mask=live)
     tl.store(part + 1, _block_sum(g * d, mask), mask=live)
+
+
+@triton.jit(do_not_specialize=["lo", "hi"])
+def owlqn_probe_batched_kernel(xp_ptr, d_ptr, pg_ptr, stp_ptr, live_ptr, part_ptr, n, lo, hi,
+                               ex, body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr):
+    # program (i, b): K8's block i of instance b, the orthant rebuilt from
+    # (xp, pg) as K8's WP_IS_PG form does
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    offs = _offsets(ROWS, W)
+    mask = (offs < n) & live
+    stp = tl.load(stp_ptr + b)
+    xp = tl.load(xp_ptr + row + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + row + offs, mask=mask, other=0.0)
+    pg = tl.load(pg_ptr + row + offs, mask=mask, other=0.0)
+    exb = _extras(ex, offs, mask)
+    wp_sign = tl.where(xp == 0.0, _msign(-pg), _msign(xp))
+    in_win = (offs >= lo) & (offs < hi)
+    x = _ow_point(xp, d, stp, wp_sign, in_win)
+    fe, g = body(x, offs, *exb)
+    part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + tl.program_id(0)) * 3
+    tl.store(part + 0, _block_sum(fe, mask), mask=live)
+    tl.store(part + 1, _block_sum(tl.abs(x), mask & in_win), mask=live)
+    tl.store(part + 2, _block_sum(g * d, mask), mask=live)
 
 
 @triton.jit(do_not_specialize=["fix_end"])
@@ -719,3 +749,73 @@ def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
         tl.store(gpart + 0, tl.sum(a_gg, axis=0))
         tl.store(gpart + 1, tl.sum(a_gpg, axis=0))
         _store_gp(gpart + 2, b0, b1, M, MP)
+
+
+@triton.jit(do_not_specialize=["end", "lo", "hi", "tiles"])
+def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
+                                         live_ptr, S_ptr, Y_ptr, part_ptr, n, lo, hi, end,
+                                         tiles, ex, body: tl.constexpr, M: tl.constexpr,
+                                         MP: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
+                                         W: tl.constexpr):
+    # program (pid, b): K14's program pid of instance b, in place (x, g and
+    # pg over xp, gp and pg_old), without the . gp column
+    pid = tl.program_id(0)
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    xp_ptr += row
+    d_ptr += row
+    gp_ptr += row
+    pg_ptr += row
+    S_ptr += row * M
+    Y_ptr += row * M
+    dt = xp_ptr.dtype.element_ty
+    stp = tl.load(stp_ptr + b)
+    c = tl.load(c_ptr)
+    R: tl.constexpr = T // V
+    a_xx = tl.zeros([R], dt)
+    a_pp = tl.zeros([R], dt)
+    a_ch = tl.zeros([R], dt)
+    a0 = tl.zeros([R, MP], dt)
+    a1 = tl.zeros([R, MP], dt)
+    a2 = tl.zeros([R, MP], dt)
+    a3 = tl.zeros([R, MP], dt)
+    a4 = tl.zeros([R, MP], dt)
+    a5 = tl.zeros([R, MP], dt)
+    for t in range(tiles):
+        offs = _tile(pid * tiles + t, T, V)
+        mask = (offs < n) & live
+        xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+        d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+        gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+        pgo = tl.load(pg_ptr + offs, mask=mask, other=0.0)
+        exb = _view(_extras(ex, offs, mask), T // W, W)
+        in_win = (offs >= lo) & (offs < hi)
+        wp_sign = tl.where(xp == 0.0, _msign(-pgo), _msign(xp))
+        x = _ow_point(xp, d, stp, wp_sign, in_win)
+        _, g = body(tl.reshape(x, [T // W, W]), tl.reshape(offs, [T // W, W]), *exb)
+        g = tl.reshape(g, [R, V])
+        g = tl.where(mask, g, 0.0)
+        # K14's pseudo-gradient, pair and d0 = -pg
+        right = g + c
+        left = g - c
+        at_zero = tl.where(right < 0.0, right, tl.where(left > 0.0, left, 0.0))
+        inside = tl.where(x != 0.0, g + _sign(x) * c, at_zero)
+        pg = tl.where(in_win, inside, g)
+        s = x - xp
+        y = g - gp
+        d0 = -pg
+        a_xx += _fold(x * x)
+        a_pp += _fold(pg * pg)
+        a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
+        a0, a1, a2, a3, a4, a5, _, _ = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0,
+                                                  gp, a0, a1, a2, a3, a4, a5, a0, a0, M, MP,
+                                                  False)
+        tl.store(xp_ptr + offs, x, mask=mask)
+        tl.store(gp_ptr + offs, g, mask=mask)
+        tl.store(pg_ptr + offs, pg, mask=mask)
+    part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + pid) * (3 + 6 * M)
+    tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
+    tl.store(part + 1, tl.sum(a_pp, axis=0), mask=live)
+    tl.store(part + 2, tl.sum(a_ch, axis=0), mask=live)
+    _store_gram_live(part + 3, live, a0, a1, a2, a3, a4, a5, M, MP)

@@ -43,7 +43,11 @@ protocol the solver looks for:
     b: K2, K4 (without the . gp column) and K3 over a [B, n] batch of
     instances, one launch for all, with a per-instance step or
     coefficients and a mask of the live instances, whose rows alone are
-    read and written.
+    read and written; under OWL-QN ``__lbfgs_owlqn_probe_pg_batched__``,
+    ``__lbfgs_owlqn_trial_pair_gram_batched__``,
+    ``__lbfgs_combine_ow_batched__`` and
+    ``__lbfgs_pseudo_gradient_norm_batched__``: K8 b (the pg form), K14 b
+    (without the . gp column), K13 b and K10 b.
 
 Under the wide objective scalar (``fused.wide_fx``, ``params.fx_wide``)
 the objective's column of K1, K2, K4, K7 and K8 and the L1 column of K7
@@ -508,17 +512,9 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         x = xp + s
         _, g = torch.func.vmap(value_and_grad)(x)
         y = g - gp
-        Z = torch.stack([y, s, -g], dim=2)
-        SP = torch.bmm(S.to(x.dtype), Z)
-        YP = torch.bmm(Y.to(x.dtype), Z)
-        dot = lambda a, b: (a * b).sum(dim=1)
-        SP[:, end] = torch.stack([dot(s, y), dot(s, s), dot(s, -g)], dim=1)
-        YP[:, end] = torch.stack([dot(y, y), dot(y, s), dot(y, -g)], dim=1)
-        out = (dot(g, d), dot(g, g), dot(x, x), (x != xp).any(dim=1), SP, YP)
-        S[live, end] = s[live].to(S.dtype)
-        Y[live, end] = y[live].to(Y.dtype)
-        xp[live] = x[live]
-        gp[live] = g[live]
+        SP, YP = _pair_products_batched(s, y, -g, S, Y, end, live)
+        out = (_dot(g, d), _dot(g, g), _dot(x, x), (x != xp).any(dim=1), SP, YP)
+        _write_live(live, (xp, x), (gp, g))
         return out
 
     def trial_pair_gram_batched(xp, d, gp, stp, S, Y, end, live):
@@ -554,6 +550,47 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         tot = part.sum(dim=1)
         P = tot[:, 4:].reshape(B, m, 6)
         return tot[:, 0], tot[:, 1], tot[:, 2], tot[:, 3] > 0, P[:, :, :3], P[:, :, 3:]
+
+    # ----------------------------------- K8 b: the batched OWL-QN probe
+
+    def _ow_point_batched(xp, d, pg, stp, c, start, end):
+        # the instances' projected points, the orthant from (xp, pg)
+        wp = choose_orthant(Orthantwise(c, start, end), xp, pg)
+        return project_window(xp + stp[:, None] * d, wp, start, end)
+
+    def owlqn_probe_pg_batched_ref(xp, d, pg, stp, c, start, end, live):
+        """Plain version of ``owlqn_probe_pg_batched``."""
+        owlqn_probe_pg_batched_ref.calls += 1
+        x = _ow_point_batched(xp, d, pg, stp, c, start, end)
+        fx, g = torch.func.vmap(value_and_grad)(x)
+        l1 = torch.abs(x[:, start:end]).sum(dim=1)
+        return fused.obj_lift(fx, xp.dtype) + l1 * c, _dot(g, d)
+
+    def owlqn_probe_pg_batched(xp, d, pg, stp, c, start, end, live):
+        """K8's pg form over B instances (K8 b): (fx + c*L1 [B], g.d [B]) at
+        x = pi(xp[b] + stp[b]*d[b]; wp) for every live instance b, wp
+        rebuilt in registers from (xp[b], pg[b]), L1 weight ``c`` on the
+        window [start, end) of each instance, writing no vector; a frozen
+        instance's values are undefined.  ``xp``, ``d``, ``pg`` [B, n];
+        ``stp`` [B] in their dtype and ``live`` [B] bool, on their device.
+        On the card an instance's point is ``owlqn_probe_pg``'s on that
+        instance alone bit for bit."""
+        B = _check_batched("owlqn_probe_pg_batched", xp, live)
+        _batched_scalars("owlqn_probe_pg_batched", xp, stp, d, pg)
+        start, end = fused._check_window(xp.shape[1], start, end)
+        if not fused.on_cuda(xp, "owlqn_probe_pg_batched"):
+            return owlqn_probe_pg_batched_ref(xp, d, pg, stp, c, start, end, live)
+        fused.check_contiguous("owlqn_probe_pg_batched", xp, d, pg, stp, live)
+        n = xp.shape[1]
+        grid = (_grid(n)[0], B)
+        part = torch.empty((B, grid[0], 3), dtype=xp.dtype, device=xp.device)
+        _kernels().owlqn_probe_batched_kernel[grid](
+            xp, d, pg, stp, live.view(torch.uint8), part, n, start, end, ex=extras,
+            body=block_fn(), ROWS=rows, W=W, **LAUNCH,
+        )
+        owlqn_probe_pg_batched.launches += 1
+        tot = part.sum(dim=1)
+        return tot[:, 0] + tot[:, 1] * c, tot[:, 2]
 
     # ------------------------------------------- K8 OWL-QN probe
 
@@ -722,6 +759,59 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         SP, YP = fused.append_gp(P[:, :3], P[:, 3:], G[2:])
         return x, g, pg_new, SP, YP, xx, pp, changed, G[0], G[1]
 
+    # --------------------------- K14 b: the batched OWL-QN epilogue
+
+    def owlqn_trial_pair_gram_batched_ref(xp, d, gp, pg, stp, c, start, end_w, S, Y, end,
+                                          live):
+        """Plain version of ``owlqn_trial_pair_gram_batched``."""
+        owlqn_trial_pair_gram_batched_ref.calls += 1
+        x = _ow_point_batched(xp, d, pg, stp, c, start, end_w)
+        _, g = torch.func.vmap(value_and_grad)(x)
+        pg_new = pseudo_gradient(Orthantwise(c, start, end_w), x, g)
+        SP, YP = _pair_products_batched(x - xp, g - gp, -pg_new, S, Y, end, live)
+        out = (_dot(x, x), _dot(pg_new, pg_new), (x != xp).any(dim=1), SP, YP)
+        _write_live(live, (xp, x), (gp, g), (pg, pg_new))
+        return out
+
+    def owlqn_trial_pair_gram_batched(xp, d, gp, pg, stp, c, start, end_w, S, Y, end, live):
+        """K14 over B instances (K14 b), in place: for every live instance
+        b the accepted point x = pi(xp[b] + stp[b]*d[b]; wp), wp rebuilt
+        from (xp[b], pg[b]), written over xp[b], its gradient g over gp[b]
+        and its pseudo-gradient pg_new (L1 weight ``c`` on the window
+        [start, end_w) of each instance) over pg[b], the pair (x - xp, g -
+        gp) written into ring row ``end`` of S[b] and Y[b], rounded to the
+        history dtype, and the 6m products SP = S[b].[y, s, -pg_new], YP =
+        Y[b].[y, s, -pg_new] over the updated rings, row ``end`` from the
+        unrounded pair.  Operands as ``trial_pair_gram_batched``'s, with
+        ``pg`` [B, n].  A frozen instance's vectors and ring rows are never
+        written, and its outputs are undefined.  Returns (x.x, pg_new.pg_new,
+        changed) as [B] tensors and SP, YP [B, m, 3].  On the card an
+        instance's x, g, pg and ring row equal ``owlqn_trial_pair_gram``'s
+        on that instance alone bit for bit."""
+        B = _check_batched("owlqn_trial_pair_gram_batched", xp, live)
+        _batched_scalars("owlqn_trial_pair_gram_batched", xp, stp, d, gp, pg)
+        fused._check_hist_batched("owlqn_trial_pair_gram_batched", xp, S, Y)
+        m, n = S.shape[1], S.shape[2]
+        if m > MAX_M:
+            raise ValueError(f"owlqn_trial_pair_gram_batched: m={m} above {MAX_M} ring rows")
+        end = fused._check_row(S[0], end)
+        start, end_w = fused._check_window(n, start, end_w)
+        if not fused.on_cuda(xp, "owlqn_trial_pair_gram_batched"):
+            return owlqn_trial_pair_gram_batched_ref(xp, d, gp, pg, stp, c, start, end_w, S, Y,
+                                                     end, live)
+        fused.check_contiguous("owlqn_trial_pair_gram_batched", xp, d, gp, pg, stp, live, S, Y)
+        eg = epilogue_grid(n, xp.dtype, S.dtype)
+        part = torch.empty((B, eg.programs, 3 + 6 * m), dtype=xp.dtype, device=xp.device)
+        owlqn_trial_pair_gram_batched.compiled[(xp.dtype, S.dtype)] = \
+            _kernels().owlqn_trial_pair_gram_batched_kernel[(eg.programs, B)](
+            xp, d, gp, pg, stp, _scalar(c, xp), live.view(torch.uint8), S, Y, part, n, start,
+            end_w, int(end), eg.tiles, ex=extras, body=block_fn(), M=m, MP=_rows(m), T=eg.T,
+            V=eg.V, W=W, **_epilogue_launch(eg))
+        owlqn_trial_pair_gram_batched.launches += 1
+        tot = part.sum(dim=1)
+        P = tot[:, 3:].reshape(B, m, 6)
+        return tot[:, 0], tot[:, 1], tot[:, 2] > 0, P[:, :, :3], P[:, :, 3:]
+
     # ------------------------- K15 / K16 combine + the next first probe
 
     def combine_probe_ref(g, x, S, Y, gamma, coef_s, coef_y, stp1, fix=None):
@@ -832,18 +922,21 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
 
     for fn in (trial, probe, trial_pair_gram, owlqn_trial, owlqn_probe, owlqn_probe_pg,
                owlqn_trial_pair_gram, combine_probe, combine_ow_probe, probe_batched,
-               trial_pair_gram_batched):
+               trial_pair_gram_batched, owlqn_probe_pg_batched, owlqn_trial_pair_gram_batched):
         fn.launches = 0
     # the . gp (damped) specialisations of K4 and K14 and K15's damped-row
     # form, counted apart too
     trial_pair_gram.gp_launches = owlqn_trial_pair_gram.gp_launches = 0
     # the epilogues' last compiled Triton kernel per (vector dtype, history
-    # dtype, with_gp): its registers, spills and PTX
+    # dtype, with_gp), K14 b's per (vector dtype, history dtype): its
+    # registers, spills and PTX
     trial_pair_gram.compiled, owlqn_trial_pair_gram.compiled = {}, {}
+    owlqn_trial_pair_gram_batched.compiled = {}
     combine_probe.fix_launches = 0
     for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_trial_ref, owlqn_probe_ref,
                owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref, combine_probe_ref,
-               combine_ow_probe_ref, probe_batched_ref, trial_pair_gram_batched_ref):
+               combine_ow_probe_ref, probe_batched_ref, trial_pair_gram_batched_ref,
+               owlqn_probe_pg_batched_ref, owlqn_trial_pair_gram_batched_ref):
         fn.calls = 0
 
     ns = SimpleNamespace(
@@ -864,6 +957,10 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         probe_batched=probe_batched, probe_batched_ref=probe_batched_ref,
         trial_pair_gram_batched=trial_pair_gram_batched,
         trial_pair_gram_batched_ref=trial_pair_gram_batched_ref,
+        owlqn_probe_pg_batched=owlqn_probe_pg_batched,
+        owlqn_probe_pg_batched_ref=owlqn_probe_pg_batched_ref,
+        owlqn_trial_pair_gram_batched=owlqn_trial_pair_gram_batched,
+        owlqn_trial_pair_gram_batched_ref=owlqn_trial_pair_gram_batched_ref,
     )
 
     def vag(x):
@@ -882,14 +979,18 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             fused.combine, fused.combine_fix, fused.combine_ow,
             fused.pseudo_gradient_norm, fused.pseudo_gradient,
             combine_probe, combine_ow_probe, combine_probe_ok)
-    _attach_batched(vag, probe_batched, trial_pair_gram_batched, fused.combine_batched)
+    _attach_batched(vag, probe_batched, trial_pair_gram_batched, fused.combine_batched,
+                    owlqn_probe_pg_batched, owlqn_trial_pair_gram_batched,
+                    fused.combine_ow_batched, fused.pseudo_gradient_norm_batched)
     _attach(plain, trial_ref, probe_ref, trial_pair_gram_ref, trial_pair_gram_ok,
             owlqn_trial_ref, owlqn_probe_ref, owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref,
             fused.combine_ref, fused.combine_fix_ref, fused.combine_ow_ref,
             fused.pseudo_gradient_norm_ref, fused.pseudo_gradient_ref,
             combine_probe_ref, combine_ow_probe_ref, combine_probe_ok)
     _attach_batched(plain, probe_batched_ref, trial_pair_gram_batched_ref,
-                    fused.combine_batched_ref)
+                    fused.combine_batched_ref, owlqn_probe_pg_batched_ref,
+                    owlqn_trial_pair_gram_batched_ref, fused.combine_ow_batched_ref,
+                    fused.pseudo_gradient_norm_batched_ref)
     vag.kernels = plain.kernels = ns
     vag.plain = plain
     return vag
@@ -938,9 +1039,40 @@ def _attach(obj, trial, probe, tpg, tpg_ok, ow_trial, ow_probe, ow_probe_pg, ow_
     obj.__lbfgs_combine_ow_probe_ok__ = cp_ok
 
 
-def _attach_batched(obj, probe, tpg, combine) -> None:
+def _attach_batched(obj, probe, tpg, combine, ow_probe_pg, ow_tpg, combine_ow,
+                    pg_norm) -> None:
     """The batched runner's protocol (``batched.minimize_batched``): K2 b,
-    K4 b and K3 b."""
+    K4 b and K3 b, and under OWL-QN K8 b, K14 b, K13 b and K10 b."""
     obj.__lbfgs_probe_batched__ = probe
     obj.__lbfgs_trial_pair_gram_batched__ = tpg
     obj.__lbfgs_combine_batched__ = combine
+    obj.__lbfgs_owlqn_probe_pg_batched__ = ow_probe_pg
+    obj.__lbfgs_owlqn_trial_pair_gram_batched__ = ow_tpg
+    obj.__lbfgs_combine_ow_batched__ = combine_ow
+    obj.__lbfgs_pseudo_gradient_norm_batched__ = pg_norm
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The [B] row products of two [B, n] batches."""
+    return (a * b).sum(dim=1)
+
+
+def _pair_products_batched(s, y, d0, S, Y, end: int, live) -> tuple:
+    """``fused.pair_products`` over a batch: SP = S[b].[y, s, d0], YP =
+    Y[b].[y, s, d0] ([B, m, 3]) with ring row ``end`` replaced by the new
+    pair UNROUNDED, then the pair stored into row ``end`` of the live
+    instances' rings, rounded to the history dtype."""
+    Z = torch.stack([y, s, d0], dim=2)
+    SP = torch.bmm(S.to(s.dtype), Z)
+    YP = torch.bmm(Y.to(s.dtype), Z)
+    SP[:, end] = torch.stack([_dot(s, y), _dot(s, s), _dot(s, d0)], dim=1)
+    YP[:, end] = torch.stack([_dot(y, y), _dot(y, s), _dot(y, d0)], dim=1)
+    S[live, end] = s[live].to(S.dtype)
+    Y[live, end] = y[live].to(Y.dtype)
+    return SP, YP
+
+
+def _write_live(live, *pairs) -> None:
+    """Each (dst, src) pair: the live instances' rows of src over dst's."""
+    for dst, src in pairs:
+        dst[live] = src[live]

@@ -20,8 +20,10 @@ share.
   * ``pseudo_gradient`` (K11) and ``pseudo_gradient_norm`` (K10) —
     OWL-QN's pseudo-gradient, alone and with its squared norm.
 
-  * ``combine_batched`` (K3 b) — K3 over a [B, n] batch of instances, one
-    coefficient row each, the batched runner's combine.
+  * ``combine_batched`` (K3 b), ``combine_ow_batched`` (K13 b) and
+    ``pseudo_gradient_norm_batched`` (K10 b) — K3, K13 and K10 over a
+    [B, n] batch of instances (one coefficient row each), the batched
+    runner's combines and its OWL-QN init.
 
   * ``axpy_dot`` (K17) — z = y + c*x and z . w in one pass.  No solver
     path runs it (the compact two-loop takes its products from the
@@ -332,18 +334,48 @@ def _check_hist_batched(kernel: str, g, S, Y) -> None:
         raise TypeError("S and Y must share a dtype")
 
 
+def _combination_batched(g, S, Y, coef):
+    m = S.shape[1]
+    gamma, cs, cy = coef[:, :1], coef[:, None, 1:1 + m], coef[:, None, 1 + m:]
+    return gamma * g + (torch.bmm(cs, S.to(g.dtype))[:, 0] + torch.bmm(cy, Y.to(g.dtype))[:, 0])
+
+
 def combine_batched_ref(g, S, Y, coef, live, out):
     """Plain version of ``combine_batched``."""
     combine_batched_ref.calls += 1
-    m = S.shape[1]
-    Sw, Yw = S.to(g.dtype), Y.to(g.dtype)
-    gamma, cs, cy = coef[:, :1], coef[:, None, 1:1 + m], coef[:, None, 1 + m:]
-    r = gamma * g + (torch.bmm(cs, Sw)[:, 0] + torch.bmm(cy, Yw)[:, 0])
+    r = _combination_batched(g, S, Y, coef)
     out[live] = r[live]
     return (r * r).sum(dim=1), (r * g).sum(dim=1)
 
 
 combine_batched_ref.calls = 0
+
+
+def _check_combine_batched(kernel: str, g, S, Y, coef, live, out) -> None:
+    check_batch(kernel, g, live)
+    _check_hist_batched(kernel, g, S, Y)
+    B, m, n = S.shape
+    if coef.shape != (B, 1 + 2 * m) or coef.dtype != g.dtype or out.shape != g.shape \
+            or out.dtype != g.dtype:
+        raise ValueError(f"{kernel}: coef must be [B, 2m + 1] and out [B, n], in g's dtype")
+
+
+def _launch_combine_batched(name: str, g, S, Y, coef, live, out, nparts: int, *window):
+    """Launch K3 b (``name`` "combine_batched") or K13 b ("combine_ow_batched",
+    with the window (lo, hi)); returns the [B, nparts] column sums of its
+    [B, blocks, nparts] partials, each instance's in the order its solo
+    launch's would be added."""
+    check_contiguous(name, g, S, Y, coef, live, out)
+    B, m, n = S.shape
+    lib = _build.load_library()
+    blocks = -(-n // lib.lbfgs_combine_block_elems())
+    part = torch.empty((B, blocks, nparts), dtype=g.dtype, device=g.device)
+    fn = getattr(lib, f"lbfgs_{name}_{_SUFFIX[g.dtype]}_{_SUFFIX[S.dtype]}")
+    code = fn(g.data_ptr(), S.data_ptr(), Y.data_ptr(), coef.data_ptr(), live.data_ptr(),
+              out.data_ptr(), part.data_ptr(), n, m, *window, B,
+              torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check_launch(code, name)
+    return part.sum(dim=1)
 
 
 def combine_batched(g, S, Y, coef, live, out):
@@ -354,30 +386,55 @@ def combine_batched(g, S, Y, coef, live, out):
     device.  A frozen instance's row of ``out`` is never written, and its
     sums are undefined.  On the card an instance's r equals ``combine``'s
     on that instance alone bit for bit.  Returns (r.r, r.g)."""
-    check_batch("combine_batched", g, live)
-    _check_hist_batched("combine_batched", g, S, Y)
-    B, m, n = S.shape
-    if coef.shape != (B, 1 + 2 * m) or coef.dtype != g.dtype or out.shape != g.shape \
-            or out.dtype != g.dtype:
-        raise ValueError("combine_batched: coef must be [B, 2m + 1] and out [B, n], in g's "
-                         "dtype")
+    _check_combine_batched("combine_batched", g, S, Y, coef, live, out)
     if not on_cuda(g, "combine_batched"):
         return combine_batched_ref(g, S, Y, coef, live, out)
-    check_contiguous("combine_batched", g, S, Y, coef, live, out)
-    lib = _build.load_library()
-    blocks = -(-n // lib.lbfgs_combine_block_elems())
-    part = torch.empty((B, blocks, 2), dtype=g.dtype, device=g.device)
-    fn = getattr(lib, f"lbfgs_combine_batched_{_SUFFIX[g.dtype]}_{_SUFFIX[S.dtype]}")
-    code = fn(g.data_ptr(), S.data_ptr(), Y.data_ptr(), coef.data_ptr(), live.data_ptr(),
-              out.data_ptr(), part.data_ptr(), n, m, B,
-              torch.cuda.current_stream(g.device).cuda_stream)
-    _build.check_launch(code, "combine_batched")
+    tot = _launch_combine_batched("combine_batched", g, S, Y, coef, live, out, 2)
     combine_batched.launches += 1
-    tot = part.sum(dim=1)
     return tot[:, 0], tot[:, 1]
 
 
 combine_batched.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13 b: the batched runner's OWL-QN combine
+# ---------------------------------------------------------------------------
+
+
+def combine_ow_batched_ref(pg, S, Y, coef, live, out, start: int, end: int):
+    """Plain version of ``combine_ow_batched``."""
+    combine_ow_batched_ref.calls += 1
+    r = _combination_batched(pg, S, Y, coef)
+    rc = project_window(r, -pg, start, end)
+    out[live] = rc[live]
+    return (r * r).sum(dim=1), (rc * rc).sum(dim=1), (rc * pg).sum(dim=1)
+
+
+combine_ow_batched_ref.calls = 0
+
+
+def combine_ow_batched(pg, S, Y, coef, live, out, start: int, end: int):
+    """K13 over B instances (K13 b): for each live instance b, r =
+    coef[b, 0]*pg[b] + coef[b, 1:m+1] @ S[b] + coef[b, m+1:] @ Y[b],
+    constrained to the orthant of -pg[b] inside the window [start, end)
+    (the same for every instance, in its own indices) and written to
+    out[b], with the [B] sums ||r||^2 before the constraint, ||rc||^2 and
+    rc . pg.  Operands as ``combine_batched``'s, ``pg`` in g's place.  A
+    frozen instance's row of ``out`` is never written, and its sums are
+    undefined.  On the card an instance's rc equals ``combine_ow``'s on
+    that instance alone bit for bit.  Returns (r.r, rc.rc, rc.pg)."""
+    _check_combine_batched("combine_ow_batched", pg, S, Y, coef, live, out)
+    start, end = _check_window(pg.shape[1], start, end)
+    if not on_cuda(pg, "combine_ow_batched"):
+        return combine_ow_batched_ref(pg, S, Y, coef, live, out, start, end)
+    tot = _launch_combine_batched("combine_ow_batched", pg, S, Y, coef, live, out, 3, start,
+                                  end)
+    combine_ow_batched.launches += 1
+    return tot[:, 0], tot[:, 1], tot[:, 2]
+
+
+combine_ow_batched.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -558,6 +615,56 @@ def pseudo_gradient_norm(x, g, c: float, start: int, end: int):
 
 
 pseudo_gradient_norm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10 b: the batched runner's pseudo-gradient and norm
+# ---------------------------------------------------------------------------
+
+
+def pseudo_gradient_norm_batched_ref(x, g, c: float, start: int, end: int, live, out):
+    """Plain version of ``pseudo_gradient_norm_batched``."""
+    pseudo_gradient_norm_batched_ref.calls += 1
+    pg = ow_ops.pseudo_gradient(Orthantwise(c=c, start=start, end=end), x, g)
+    out[live] = pg[live]
+    return (pg * pg).sum(dim=1)
+
+
+pseudo_gradient_norm_batched_ref.calls = 0
+
+
+def pseudo_gradient_norm_batched(x, g, c: float, start: int, end: int, live, out):
+    """K10 over B instances (K10 b): for each live instance b, OWL-QN's
+    pseudo-gradient of (x[b], g[b]) written to out[b] (L1 weight ``c`` on
+    the window [start, end), the same for every instance, in its own
+    indices), and the [B] sums pg.pg.  ``x``, ``g``, ``out`` [B, n] of
+    one dtype; ``live`` [B] bool.  A frozen instance's row of ``out`` is
+    never written, and its sum is undefined.  On the card an instance's
+    pg equals ``pseudo_gradient_norm``'s on that instance alone bit for
+    bit.  Returns pg.pg [B]."""
+    B = check_batch("pseudo_gradient_norm_batched", x, live)
+    if g.shape != x.shape or out.shape != x.shape or not x.dtype == g.dtype == out.dtype:
+        raise ValueError("pseudo_gradient_norm_batched: x, g and out must be [B, n] of one "
+                         "dtype")
+    if c < 0:
+        raise ValueError(f"invalid orthantwise param c: {c}")
+    start, end = _check_window(x.shape[1], start, end)
+    if not on_cuda(x, "pseudo_gradient_norm_batched"):
+        return pseudo_gradient_norm_batched_ref(x, g, c, start, end, live, out)
+    check_contiguous("pseudo_gradient_norm_batched", x, g, live, out)
+    lib = _build.load_library()
+    n = x.shape[1]
+    part = torch.empty((B, -(-n // lib.lbfgs_owlqn_block_elems())), dtype=x.dtype,
+                       device=x.device)
+    code = getattr(lib, f"lbfgs_pseudo_grad_norm_batched_{_SUFFIX[x.dtype]}")(
+        x.data_ptr(), g.data_ptr(), float(c), start, end, live.data_ptr(), out.data_ptr(),
+        part.data_ptr(), n, B, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(code, "pseudo_gradient_norm_batched")
+    pseudo_gradient_norm_batched.launches += 1
+    return part.sum(dim=1)
+
+
+pseudo_gradient_norm_batched.launches = 0
 
 
 # ---------------------------------------------------------------------------

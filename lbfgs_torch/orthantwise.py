@@ -17,6 +17,9 @@ Semantics parity notes (as ``lbfgs_tpu.orthantwise``):
   * ``project`` zeroes entries whose sign disagrees with the orthant
     indicator (``src/orthantwise.rs:165-171``).
 
+The elementwise operators take a [B, n] batch of vectors too (the batched
+runner's plain versions), the window along the last axis.
+
 The window is global.  On a mesh (``ops.collective.kernels_on_mesh``)
 each vector here is this rank's shard: the window clamps against the
 whole vector's length, the masks index by global position, and the L1
@@ -121,15 +124,15 @@ def pseudo_gradient(ow: Orthantwise, x: torch.Tensor, g: torch.Tensor) -> torch.
     zero = torch.zeros_like(g)
     at_zero = torch.where(right < 0.0, right, torch.where(left > 0.0, left, zero))
     inside = torch.where(x != 0.0, g + sign(x) * c, at_zero)
-    return torch.where(ow.window_mask(x.shape[0], x.device), inside, g)
+    return torch.where(ow.window_mask(x.shape[-1], x.device), inside, g)
 
 
 def project_window(v: torch.Tensor, w: torch.Tensor, start: int, end: int) -> torch.Tensor:
     """pi(v; w) inside the global window [start, end) only, the window
     given as indices (on a mesh, of the whole vector, of which v is the
     shard)."""
-    start, end = local_window(start, end, v.shape[0])
-    idx = torch.arange(v.shape[0], device=v.device)
+    start, end = local_window(start, end, v.shape[-1])
+    idx = torch.arange(v.shape[-1], device=v.device)
     kill = (idx >= start) & (idx < end) & (signum(v) != signum(w))
     return torch.where(kill, torch.zeros_like(v), v)
 

@@ -440,7 +440,9 @@ def test_return_state():
 
 
 UNSUPPORTED = {
-    "owlqn": lambda b: b.with_orthantwise(1.0, 0, None),
+    # OWL-QN runs batched at the capped step, undamped
+    "owlqn_uncapped": lambda b: b.with_orthantwise(1.0, 0, None).with_constrain_step_size(False),
+    "owlqn_damped": lambda b: b.with_orthantwise(1.0, 0, None).with_damping(True),
     "damping": lambda b: b.with_damping(True),
     "gradient_only": lambda b: b.with_gradient_only(),
     "uncapped": lambda b: b.with_constrain_step_size(False),
