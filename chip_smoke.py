@@ -119,11 +119,29 @@ Phases (any failure raises and the script exits nonzero):
      extra) to fx < 1e-8 and max |x| < 1e-3, and against the plain twin
      after 8 iterations;
  29. deep history: m = 80 ring rows at n = 2^20 on Rosenbrock, plain,
-     damped, OWL-QN and damped OWL-QN (K1, K5 or K12, K3, K6 or K13: the
-     Triton epilogues and fusions take at most ``factory.MAX_M`` rows),
-     each against its plain versions after 8 iterations; then K3, K5, K6,
-     K12 (both forms) and K13 at m = 80 against their plain versions and
-     timed;
+     damped, OWL-QN and damped OWL-QN, each through the deep forms of the
+     Triton epilogues and fusions (above ``factory.MAX_M`` rows: K1 once,
+     K4 and K15, K14 and K16 under OWL-QN, per iteration, the . gp forms
+     and K15-fix when damped) and through the any-depth route (an
+     objective without their hooks: K1, K5 or K12, K3, K6 or K13), with
+     the launches checked, device and wall ms and syncs per iteration in
+     turns, and each against its plain versions after 8 iterations; then
+     the deep forms of K4, K14 (each with and without the . gp column),
+     K15 (and its damped row) and K16 at m = 65, 80 and 130 and K3, K5,
+     K6, K12 (both forms) and K13 at m = 80 against their plain versions
+     in the three dtype pairs (ring rows bit for bit; the deep epilogues'
+     x, g, pg, objective and changed bit for bit the static launch's at
+     m = 6, the . gp columns 0-2 the 3-column launch's, an in-place launch
+     the launch into fresh vectors; K15's r and probe K3's and K2's,
+     K15-fix's r and row K6's, K16's rc and probe K13's and K8's), the
+     deep epilogues bit for bit the static ones at m = 19, every deep
+     form's registers and spills (``deep_compiled``: a spill fails), and
+     each ``_m80`` kernel timed;
+ 29b. deep main path: the main path's settings at m = 80 (n = 2^24, two
+     bf16 rings of 2.7 GB), epsilon 0, 40 iterations, through the deep
+     forms (K1 once, K4 and K15 per iteration, K2 per probe K15 did not
+     carry in) and through the any-depth route, reported as phase 29's
+     runs;
  30. booth: the reference's two-variable test on the card, to (1, 3);
  31. scan two-loop: ``with_compact_two_loop(False)``, the recorded n = 100
      float64 golden uncapped through both entry points (38 iterations),
@@ -221,7 +239,8 @@ default launches and against a float64 sum on the host.  Phase 3 also
 holds every factory kernel with the quadratic's two extras (``_ex``
 rows) to its plain version at both sizes with the same bitwise checks,
 times each, and prints the registers of every K4/K14 form with 0, 1 and
-2 extras; the deep-history phase adds the ``_m80`` rows.
+2 extras; the deep-history phase adds the ``_m80`` rows (the deep forms
+and the any-depth kernels at m = 80).
 
 Prints one JSON line per phase result, the kernel table as one JSON line
 before the last, and ``{"ok": true, "device": {...}}`` as the last line.
@@ -334,6 +353,13 @@ KERNELS.update({
     for name, (route, src, rep) in list(KERNELS.items()) if name in EX_REPLACES})
 DEEP_KERNELS = ("K3_combine", "K5_pair_gram", "K6_combine_fix", "K12_pair_gram_xg",
                 "K12_pair_gram_xg_gp", "K13_combine_ow")
+#: the deep forms of the Triton epilogues and fusions (above
+#: ``factory.MAX_M`` ring rows), whose launches are counted apart
+#: (``_factory_launches``)
+DEEP_FORMS = ("K4_trial_pair_gram", "K4_trial_pair_gram_gp", "K14_owlqn_trial_pair_gram",
+              "K14_owlqn_trial_pair_gram_gp", "K15_combine_probe", "K15_combine_probe_fix",
+              "K16_combine_ow_probe")
+DEEP_KERNELS += DEEP_FORMS
 KERNELS.update({f"{name}_m80": (route, src, f"{rep} (m = 80)")
                 for name, (route, src, rep) in list(KERNELS.items()) if name in DEEP_KERNELS})
 #: the batched runner's kernels (the JAX package vmaps the solo kernels,
@@ -1470,19 +1496,30 @@ def _factory_launches(k, sfx: str) -> dict:
     """The launches of one factory objective's kernels ``k`` under the
     table's names, each with the suffix ``sfx``."""
     tpg, ow_tpg, cp = k.trial_pair_gram, k.owlqn_trial_pair_gram, k.combine_probe
-    return {
+    cp_ow = k.combine_ow_probe
+    out = {
         "K1_trial" + sfx: k.trial.launches,
         "K2_probe" + sfx: k.probe.launches,
-        "K4_trial_pair_gram" + sfx: tpg.launches - tpg.gp_launches,
-        "K4_trial_pair_gram_gp" + sfx: tpg.gp_launches,
         "K7_owlqn_trial" + sfx: k.owlqn_trial.launches,
         "K8_owlqn_probe" + sfx: k.owlqn_probe.launches + k.owlqn_probe_pg.launches,
-        "K14_owlqn_trial_pair_gram" + sfx: ow_tpg.launches - ow_tpg.gp_launches,
-        "K14_owlqn_trial_pair_gram_gp" + sfx: ow_tpg.gp_launches,
-        "K15_combine_probe" + sfx: cp.launches - cp.fix_launches,
-        "K15_combine_probe_fix" + sfx: cp.fix_launches,
-        "K16_combine_ow_probe" + sfx: k.combine_ow_probe.launches,
     }
+    # the static forms (at most factory.MAX_M ring rows) of K4, K14, K15 and
+    # K16, each with its flagged form, and their deep forms (the ``_m80``
+    # rows, Rosenbrock's only: no path runs an objective with extras that
+    # deep)
+    for name, fn, flag in (("K4_trial_pair_gram", tpg, "gp"),
+                           ("K14_owlqn_trial_pair_gram", ow_tpg, "gp"),
+                           ("K15_combine_probe", cp, "fix"), ("K16_combine_ow_probe", cp_ow, None)):
+        flagged = getattr(fn, flag + "_launches") if flag else 0
+        deep_flagged = getattr(fn, f"deep_{flag}_launches") if flag else 0
+        out[name + sfx] = fn.launches - flagged - (fn.deep_launches - deep_flagged)
+        if flag:
+            out[f"{name}_{flag}{sfx}"] = flagged - deep_flagged
+        if not sfx:
+            out[name + "_m80"] = fn.deep_launches - deep_flagged
+            if flag:
+                out[f"{name}_{flag}_m80"] = deep_flagged
+    return out
 
 
 def launches() -> dict:
@@ -1564,8 +1601,11 @@ def plain_calls() -> dict:
 def _reset_factory(k) -> None:
     for name in FACTORY_WRAPPERS:
         getattr(k, name).launches = 0
-    k.trial_pair_gram.gp_launches = k.owlqn_trial_pair_gram.gp_launches = 0
-    k.combine_probe.fix_launches = 0
+    for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram):
+        fn.gp_launches = fn.deep_gp_launches = 0
+    for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.combine_probe, k.combine_ow_probe):
+        fn.deep_launches = 0
+    k.combine_probe.fix_launches = k.combine_probe.deep_fix_launches = 0
     for name in FACTORY_REFS:
         getattr(k, name).calls = 0
 
@@ -2077,9 +2117,10 @@ def phase_damped_owlqn_main_path() -> dict:
 
 def trial_only_objective():
     """Rosenbrock with its trial (K1; K7 under OWL-QN) and probe (K2; K8)
-    kernels but no one-pass epilogue, so that the damped solver takes K5
-    and K6 (the K5 route), and under OWL-QN K12 with its . gp column and
-    K13 (the K12 route)."""
+    kernels but no one-pass epilogue and no combine+probe fusion, so that
+    the damped solver takes K5 and K6 (the K5 route), under OWL-QN K12
+    with its . gp column and K13 (the K12 route), and above 64 ring rows
+    the any-depth route; its plain twin is Rosenbrock's."""
     def vag(x):
         return rosenbrock.value_and_grad(x)
 
@@ -2089,6 +2130,7 @@ def trial_only_objective():
     vag.__lbfgs_owlqn_trial__ = rosenbrock.owlqn_trial
     vag.__lbfgs_owlqn_probe__ = rosenbrock.owlqn_probe
     vag.__lbfgs_owlqn_probe_pg__ = rosenbrock.owlqn_probe_pg
+    vag.plain = rosenbrock.value_and_grad.plain
     return vag
 
 
@@ -2893,11 +2935,14 @@ def phase_damped_quartic_main_path() -> dict:
     return lc, out
 
 
-#: the deep-history path: Rosenbrock at n = 2^20 (2^24 at m = 80 would hold
-#: 2 x 2.5 GiB of bf16 ring and take the time limit's share of several
-#: main paths) with m = 80 ring rows, f32 vectors, bf16 history, 30
-#: iterations at epsilon 0: above ``factory.MAX_M`` the solver takes K1,
-#: K5 (K12 under OWL-QN) and K3, K6 or K13
+#: the deep-history path: Rosenbrock at n = 2^20 (at 2^24 the two bf16
+#: rings of m = 80 rows hold 5.4 GB, and eight runs would take the time
+#: limit's share of several main paths: ``phase_deep_main_path`` runs one
+#: configuration at that width) with m = 80 ring rows, f32 vectors, bf16
+#: history, 30 iterations at epsilon 0.  Above ``factory.MAX_M`` the solver
+#: takes the deep forms of K4 and K15 (K14 and K16 under OWL-QN); an
+#: objective without their hooks (``trial_only_objective``) takes the
+#: any-depth route, K1, K5 (K12 under OWL-QN) and K3, K6 or K13
 DEEP_N, DEEP_M = 1 << 20, 80
 DEEP_CONFIGS = {
     "plain": MAIN_PARAMS.replace(m=DEEP_M, max_iterations=31),
@@ -2907,69 +2952,156 @@ DEEP_CONFIGS = {
     "damped_owlqn": DAMPED_OWLQN_PARAMS.replace(m=DEEP_M, epsilon=0.0, max_iterations=31,
                                                 orthantwise=Orthantwise(1.0, 0, DEEP_N - 1)),
 }
+#: the two routes above 64 ring rows: the deep forms of the one-pass
+#: epilogue and the combine+probe fusion, and the any-depth kernels
+DEEP_ROUTES = {"epilogue": default_evaluate, "any_depth": trial_only_objective}
+#: the depths the deep forms are checked at: one row past the static
+#: forms, the deep-history path's, and past two groups of 64
+DEEP_DEPTHS = (65, DEEP_M, 130)
+#: a depth both forms of the epilogues take (several groups, the last one
+#: partial), where the deep forms are held to the static ones
+DEEP_VS_STATIC_M = 19
+#: the deep forms' compiled kernels: K4 and K14, each with and without
+#: the . gp column, K15 with and without its damped row, and K16, in the
+#: three dtype pairs
+DEEP_FORMS_COMPILED = 7 * len(DTYPES)
 
 
-def _deep_launches(name: str, iters: int, evals: int) -> dict:
-    """The deep-history runs' launches: K1 at the start and at each
-    accepted point, K2 per probe, K5 and K3 (damped: K6) per iteration;
-    under OWL-QN K1 once, K7 per accepted point, K8 per probe, K10 at the
-    start and per iteration, K12 (damped: its . gp form) and K13 per
-    iteration."""
-    if name in ("owlqn", "damped_owlqn"):
-        k12 = "K12_pair_gram_xg_gp" if name == "damped_owlqn" else "K12_pair_gram_xg"
+def _deep_launches(name: str, iters: int, evals: int, used: int, route: str) -> dict:
+    """The deep-history runs' launches.  Through the deep forms (route
+    "epilogue") those of the m = 6 path of the same name, with the deep
+    forms' ``_m80`` counts: K1 once, K4 and K15 per iteration (damped: K4
+    with the . gp column and K15-fix), K2 per probe the fusion did not carry
+    in; under OWL-QN K1 and K10 once, K14 (damped: its . gp form) and K16
+    per iteration, K8 per probe not carried in.  Through the any-depth
+    route ("any_depth"): K1 at the start and at each accepted point, K2 per
+    probe, K5 and K3 (damped: K6) per iteration; under OWL-QN K1 once, K7
+    per accepted point, K8 per probe, K10 at the start and per iteration,
+    K12 (damped: its . gp form) and K13 per iteration."""
+    owlqn, damped = name in ("owlqn", "damped_owlqn"), name.startswith("damped")
+    if route == "epilogue":
+        if owlqn:
+            want = _owlqn_launches(iters, evals - 1, used)
+            del want["K14_owlqn_trial_pair_gram"], want["K16_combine_ow_probe"]
+            want["K14_owlqn_trial_pair_gram" + ("_gp" if damped else "") + "_m80"] = iters
+            want["K16_combine_ow_probe_m80"] = iters
+            return want
+        return {"K1_trial": 1, "K2_probe": evals - 1 - used,
+                "K4_trial_pair_gram" + ("_gp" if damped else "") + "_m80": iters,
+                "K15_combine_probe" + ("_fix" if damped else "") + "_m80": iters}
+    if owlqn:
+        k12 = "K12_pair_gram_xg_gp" if damped else "K12_pair_gram_xg"
         return {"K1_trial": 1, "K7_owlqn_trial": iters, "K8_owlqn_probe": evals - 1,
                 "K10_pseudo_gradient_norm": 1 + iters, k12: iters, "K13_combine_ow": iters}
-    combine = "K6_combine_fix" if name == "damped" else "K3_combine"
+    combine = "K6_combine_fix" if damped else "K3_combine"
     return {"K1_trial": 1 + iters, "K2_probe": evals - 1, "K5_pair_gram": iters,
             combine: iters}
 
 
-def phase_deep_history() -> tuple:
-    """m = 80 through the any-depth kernels: plain, damped, OWL-QN and
-    damped OWL-QN on Rosenbrock at n = 2^20 (``DEEP_CONFIGS``), each with
-    its launches and against its plain versions after 8 iterations; then
-    K3, K5 (. gp form, the damped route's), K6, K12 (both forms) and K13 at
-    m = 80 against their plain
-    versions (ring rows and K6's row bit for bit, the other outputs at the
-    normwise tolerances) in the three dtype pairs, and their times in
-    f32/bf16 beside their bounds at (n, m) = (2^20, 80)."""
-    x0 = rosenbrock.initial_point(DEEP_N, torch.float32, "cuda")
+def _deep_run(label: str, name: str, params: LbfgsParams, x0, route: str) -> tuple:
+    """One ``minimize_jit`` of a deep-history configuration through a route
+    (``DEEP_ROUTES``), after a 3-iteration warm-up, its launches checked
+    (``_deep_launches``); returns (state, seconds, launches, host reads,
+    carried first trips)."""
+    fn = DEEP_ROUTES[route]()
+    minimize_jit(params.replace(max_iterations=3), x0, fn, return_state=True)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = minimize_jit(params, x0, fn, return_state=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lc, pc, reads, used = launches(), plain_calls(), to_host.reads, carried.used
+    fx = float(st.prob.fx)
+    if not np.isfinite(fx) or st.status not in (Status.CONVERGED, Status.MAX_ITERATIONS):
+        raise AssertionError(f"{label} {name} ({route}): status {st.status}, fx {fx}")
+    _expect(f"{label} {name} ({route})", lc, pc,
+            **_deep_launches(name, st.k - 1, st.prob.neval, used, route))
+    return st, dt, lc, reads, used
+
+
+def _deep_routes(label: str, name: str, params: LbfgsParams, x0) -> tuple:
+    """A deep-history configuration through both routes: each one counted
+    run, then ms per iteration in turns (epilogue, any-depth, any-depth,
+    epilogue), device busy ms per iteration of one profiled run, and each
+    route against the plain versions after 8 iterations (``_vs_twin``);
+    returns (the summed launches of the counted runs, the report)."""
+    out, lc_all = {}, {}
     f0 = float(rosenbrock.probe_ref(x0, x0, 0.0)[0])
-    lc_all = {}
-    for name, params in DEEP_CONFIGS.items():
-        minimize_jit(params.replace(max_iterations=3), x0, default_evaluate(),
-                     return_state=True)
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = minimize_jit(params, x0, default_evaluate(), return_state=True)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        lc, pc = launches(), plain_calls()
+    for route in DEEP_ROUTES:
+        st, dt, lc, reads, used = _deep_run(label, name, params, x0, route)
         iters, fx = st.k - 1, float(st.prob.fx)
-        if not (np.isfinite(fx) and fx < f0) or st.status not in (Status.CONVERGED,
-                                                                  Status.MAX_ITERATIONS):
-            raise AssertionError(f"deep history {name}: status {st.status}, fx {fx}")
-        _expect(f"deep history {name}", lc, pc, **_deep_launches(name, iters, st.prob.neval))
-        emit(phase="deep_history", config=name, n=DEEP_N, m=DEEP_M, iters=iters,
-             evals=st.prob.neval, status=st.status, fx=fx, fx0=f0, seconds=dt,
-             ms_per_iter=1e3 * dt / iters, launches={k: v for k, v in lc.items() if v},
-             vs_plain=_vs_twin(f"deep history {name}", params, x0, default_evaluate()))
+        if not fx < f0:
+            raise AssertionError(f"{label} {name} ({route}): fx {fx} from {f0}")
+        out[route] = dict(iters=iters, evals=st.prob.neval, status=st.status, fx=fx,
+                          seconds=dt, syncs_per_iter=reads / iters, carried_probes=used,
+                          launches={k: v for k, v in lc.items() if v})
         for k, v in lc.items():
             lc_all[k] = lc_all.get(k, 0) + v
         del st
+    for route in ("epilogue", "any_depth", "any_depth", "epilogue"):
+        fn, runs = DEEP_ROUTES[route](), []
+        dt = profiling.timed(lambda: runs.append(minimize_jit(params, x0, fn, return_state=True)),
+                             warmup=0)
+        out[route].setdefault("wall_ms_per_iter", []).append(1e3 * dt / (runs[0].k - 1))
+        del runs
+    for route in DEEP_ROUTES:
+        out[route]["device_ms_per_iter"] = _busy_per_iter(params, x0, DEEP_ROUTES[route]())
+        out[route]["vs_plain"] = _vs_twin(f"{label} {name} ({route})", params, x0,
+                                          DEEP_ROUTES[route]())
+    torch.cuda.empty_cache()
+    return lc_all, out
+
+
+def phase_deep_history() -> tuple:
+    """m = 80 at n = 2^20: plain, damped, OWL-QN and damped OWL-QN on
+    Rosenbrock (``DEEP_CONFIGS``) through the deep forms and through the
+    any-depth route (``_deep_routes``); then the deep forms of K4, K14, K15
+    and K16 at the depths ``DEEP_DEPTHS`` and K3, K5 (. gp form, the damped
+    route's), K6, K12 (both forms) and K13 at m = 80 against their plain
+    versions in the three dtype pairs (``check_deep_forms``,
+    ``check_deep``), the deep epilogues against the static ones at a
+    depth both take (``DEEP_VS_STATIC_M``, f32/bf16), the deep forms'
+    registers and spills (``deep_compiled``), and every ``_m80`` kernel's
+    time in f32/bf16 beside its bound at (n, m) = (2^20, 80)."""
+    x0 = rosenbrock.initial_point(DEEP_N, torch.float32, "cuda")
+    lc_all = {}
+    for name, params in DEEP_CONFIGS.items():
+        lc, out = _deep_routes("deep history", name, params, x0)
+        emit(phase="deep_history", config=name, n=DEEP_N, m=DEEP_M, **out)
+        for k, v in lc.items():
+            lc_all[k] = lc_all.get(k, 0) + v
     errs = {name: (0.0, 0.0) for name in DEEP_KERNELS}
     for vd, hd in DTYPES:
         tv, ts = TOL[(vd, "vec")], TOL[(vd, "sum")]
         a = deep_inputs(vd, hd)
         check_deep(errs, a, f"m={DEEP_M} {vd} {hd}", tv, ts)
         del a
+        for m in DEEP_DEPTHS:
+            a = deep_inputs(vd, hd, m)
+            bits = check_deep_forms(errs, a, f"m={m} {vd} {hd}", tv, ts)
+            emit(phase="deep_forms_checked", m=m, dtypes=f"{vd}/{hd}".replace("torch.", ""),
+                 scalar_sums_bit_for_bit_vs_m6=bits)
+            del a
         torch.cuda.empty_cache()
+    # the deep epilogues against the static ones where both run (the other
+    # dtype pairs: tests/test_torch_deep_fusions.py on the card)
+    a = deep_inputs(torch.float32, torch.bfloat16, DEEP_VS_STATIC_M)
+    with static_forms_up_to(M):
+        deep = epilogue_outputs(a)
+    bits = forms_agree(deep, epilogue_outputs(a), f"m={DEEP_VS_STATIC_M} f32/bf16",
+                       TOL[(torch.float32, "sum")])
+    emit(phase="deep_vs_static", m=DEEP_VS_STATIC_M, dtypes="float32/bfloat16",
+         products_bit_for_bit=bits)
+    del a, deep
+    deep_compiled()
     a = deep_inputs(torch.float32, torch.bfloat16)
     S, Y, xp0, pg = a["S"], a["Y"], a["xp0"], a["pg"]
     coefs = (a["gamma"], a["cs"], a["cy"])
     ca, cb = (torch.tensor(v, device="cuda") for v in (0.7, -0.2))
-    x9 = fused.owlqn_trial_step(xp0, a["d"], torch.sign(xp0), STP, 0, DEEP_N - 1)
+    hi = DEEP_N - 1
+    x9 = fused.owlqn_trial_step(xp0, a["d"], torch.sign(xp0), STP, 0, hi)
+    Yf = Y.clone()
     cases = {
         "K3_combine": (lambda: fused.combine(a["gp"], S, Y, *coefs),
                        lambda: fused.combine_ref(a["gp"], S, Y, *coefs)),
@@ -2985,9 +3117,36 @@ def phase_deep_history() -> tuple:
             lambda: fused.pair_gram_xg(x9, xp0, pg, a["gp"], a["xp"], S, Y, END, with_gp=True),
             lambda: fused.pair_gram_xg_ref(x9, xp0, pg, a["gp"], a["xp"], S, Y, END,
                                            with_gp=True)),
-        "K13_combine_ow": (lambda: fused.combine_ow(pg, S, Y, *coefs, 0, DEEP_N - 1),
-                           lambda: fused.combine_ow_ref(pg, S, Y, *coefs, 0, DEEP_N - 1)),
+        "K13_combine_ow": (lambda: fused.combine_ow(pg, S, Y, *coefs, 0, hi),
+                           lambda: fused.combine_ow_ref(pg, S, Y, *coefs, 0, hi)),
     }
+    # the deep forms in the forms their paths run them (K14 and K16 with
+    # c = 1 on [0, n - 1), K15's damped row on a ring of its own)
+    for gp_form in (False, True):
+        sfx = "_gp" if gp_form else ""
+        cases["K4_trial_pair_gram" + sfx] = (
+            lambda w=gp_form: rosenbrock.trial_pair_gram(a["xp"], a["d"], a["gp"], STP, S, Y,
+                                                         END, with_gp=w),
+            lambda w=gp_form: rosenbrock.trial_pair_gram_ref(a["xp"], a["d"], a["gp"], STP, S,
+                                                             Y, END, with_gp=w))
+        cases["K14_owlqn_trial_pair_gram" + sfx] = (
+            lambda w=gp_form: rosenbrock.owlqn_trial_pair_gram(xp0, a["d"], a["gp"], pg, STP,
+                                                               1.0, 0, hi, S, Y, END, with_gp=w),
+            lambda w=gp_form: rosenbrock.owlqn_trial_pair_gram_ref(
+                xp0, a["d"], a["gp"], pg, STP, 1.0, 0, hi, S, Y, END, with_gp=w))
+    cases.update({
+        "K15_combine_probe": (
+            lambda: rosenbrock.combine_probe(a["gp"], a["xp"], S, Y, *coefs, 1.0),
+            lambda: rosenbrock.combine_probe_ref(a["gp"], a["xp"], S, Y, *coefs, 1.0)),
+        "K15_combine_probe_fix": (
+            lambda: rosenbrock.combine_probe(a["gp"], a["xp"], S, Yf, *coefs, 1.0,
+                                             fix=(END, ca, cb)),
+            lambda: rosenbrock.combine_probe_ref(a["gp"], a["xp"], S, Yf, *coefs, 1.0,
+                                                 fix=(END, ca, cb))),
+        "K16_combine_ow_probe": (
+            lambda: rosenbrock.combine_ow_probe(pg, xp0, S, Y, *coefs, 1.0, 0, hi, 1.0),
+            lambda: rosenbrock.combine_ow_probe_ref(pg, xp0, S, Y, *coefs, 1.0, 0, hi, 1.0)),
+    })
     times, bounds, timed_by = {}, {}, {}
     for name, (kern, plain) in cases.items():
         k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain, 10)
@@ -2999,20 +3158,79 @@ def phase_deep_history() -> tuple:
          timed_by={k: {"kernel": v[0], "plain": v[1]} for k, v in timed_by.items()},
          max_abs_err={k + "_m80": v[0] for k, v in errs.items()},
          max_normwise_err={k + "_m80": v[1] for k, v in errs.items()})
-    del a, S, Y, x9
+    del a, S, Y, Yf, x9
     torch.cuda.empty_cache()
-    return ({name + "_m80": lc_all[name] for name in DEEP_KERNELS},
+    # each _m80 row's launches on its route: the deep forms' own counts
+    # through the deep forms, the any-depth kernels' through the any-depth
+    # route (which alone launches them)
+    return ({name + "_m80": lc_all[name + "_m80" if name in DEEP_FORMS else name]
+             for name in DEEP_KERNELS},
             {"errs": {k + "_m80": v for k, v in errs.items()}, "times": times,
              "bounds": bounds, "timed_by": timed_by})
 
 
-def deep_inputs(vd, hd) -> dict:
-    """``inputs`` at n = 2^20 with rings and coefficients of m = 80 rows."""
+#: the main path's settings (n = 2^24, f32 vectors, bf16 history,
+#: More-Thuente, uncapped step) at m = 80, epsilon 0, at most 40
+#: iterations: the deep forms at full width (two bf16 rings of 2.7 GB)
+DEEP_MAIN_PARAMS = MAIN_PARAMS.replace(m=DEEP_M, max_iterations=41)
+
+
+def phase_deep_main_path() -> dict:
+    """``DEEP_MAIN_PARAMS`` through the deep forms (K1 once, K4 and K15 per
+    iteration, K2 per probe K15 did not carry in) and through the any-depth
+    route, as ``_deep_routes``: launches, device and wall ms and syncs per
+    iteration in turns, each against its plain versions after 8
+    iterations; then each route's pair + Gram pass and combine (deep K4
+    and K15, K5 and K3) timed at this width beside their bounds."""
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    _, out = _deep_routes("deep main path", "plain", DEEP_MAIN_PARAMS, x0)
+    ep = out["epilogue"]
+    _carried_all("deep main path", ep["carried_probes"], ep["iters"])
+    # each route's kernels at this width: the deep K4 and K15 (programs of
+    # several tiles, factory.epilogue_grid) and K5 and K3
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    xp, d, gp = x0 + 0.1 * r(N_BIG), 0.1 * r(N_BIG), r(N_BIG)
+    S, Y = r(DEEP_M, N_BIG).to(torch.bfloat16), r(DEEP_M, N_BIG).to(torch.bfloat16)
+    coefs = (torch.tensor(0.8, device="cuda"), r(DEEP_M), r(DEEP_M))
+    cases = {
+        "K4_trial_pair_gram": lambda: rosenbrock.trial_pair_gram(xp, d, gp, STP, S, Y, END),
+        "K15_combine_probe": lambda: rosenbrock.combine_probe(gp, xp, S, Y, *coefs, 1.0),
+        "K5_pair_gram": lambda: fused.pair_gram_sd(STP, d, xp, gp, S, Y, END),
+        "K3_combine": lambda: fused.combine(gp, S, Y, *coefs),
+    }
+    times = {}
+    for name, fn in cases.items():
+        fn()
+        times[name] = dict(ms=min(device_time(fn, 5) for _ in range(2)),
+                           timed_by=device_time.source,
+                           bound=bound(name, N_BIG, 4, 2, DEEP_M)[0])
+    emit(phase="deep_main_path", n=N_BIG, m=DEEP_M, kernel_ms=times, **out)
+    del xp, d, gp, S, Y
+    torch.cuda.empty_cache()
+    return out
+
+
+class static_forms_up_to:
+    """Inside, ``factory.MAX_M`` is ``m``: the deep forms take every ring
+    deeper than m (to hold them to the static forms at a depth both take)."""
+
+    def __init__(self, m: int):
+        self.m = m
+
+    def __enter__(self):
+        self.saved, factory.MAX_M = factory.MAX_M, self.m
+
+    def __exit__(self, *exc):
+        factory.MAX_M = self.saved
+
+
+def deep_inputs(vd, hd, m: int = DEEP_M) -> dict:
+    """``inputs`` at n = 2^20 with rings and coefficients of m rows."""
     a = inputs(DEEP_N, vd, hd, SEED + DEEP_M)
-    g = torch.Generator(device="cuda").manual_seed(SEED + DEEP_M + 1)
+    g = torch.Generator(device="cuda").manual_seed(SEED + m + 1)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=torch.float64)
-    a.update(S=r(DEEP_M, DEEP_N).to(hd), Y=r(DEEP_M, DEEP_N).to(hd),
-             cs=r(DEEP_M).to(vd), cy=r(DEEP_M).to(vd))
+    a.update(S=r(m, DEEP_N).to(hd), Y=r(m, DEEP_N).to(hd), cs=r(m).to(vd), cy=r(m).to(vd))
     return a
 
 
@@ -3044,6 +3262,212 @@ def check_deep(errs: dict, a: dict, tag: str, tv: float, ts: float) -> None:
     errs["K5_pair_gram"] = check_k5_errs["K5_pair_gram"]
     x = fused.owlqn_trial_step(a["xp0"], d, torch.sign(a["xp0"]), STP, 0, DEEP_N - 1)
     check_k12(errs, tag, ts, x, a["xp0"], pg, gp, a["xp"], S, Y, end)
+
+
+def _same(name: str, got: tuple, want: tuple, idx) -> None:
+    """Outputs ``idx`` of one launch bit for bit another's."""
+    for i in idx:
+        if not same_bits(got[i], want[i]):
+            raise AssertionError(f"{name}: output {i} differs")
+
+
+def check_deep_forms(errs: dict, a: dict, tag: str, tv: float, ts: float) -> dict:
+    """The deep forms of K4 and K14 (each with and without the . gp column),
+    K15 (and its damped row) and K16 at the inputs' ring depth against
+    their plain versions and the kernels whose function they share: ring
+    rows bit for bit the plain versions'; K4's and K14's x, g and pg, K4's
+    objective and both changed flags bit for bit the static launch's at m
+    = 6 on the same vectors, their scalar sums against it at the sum
+    tolerance (torch's column sums of the partials split the programs by
+    the array's width: ``forms_agree`` holds them bit for bit at a depth
+    both forms take); the . gp launch's columns 0-2, other outputs and ring
+    bit for bit the 3-column launch's; an in-place launch bit for bit the
+    launch into fresh vectors; K15's r bit for bit K3's and its probe
+    K2's, K15-fix's r and ring K6's, K16's rc K13's and its probe K8's pg
+    form's; the other outputs against the plain versions at the normwise
+    tolerances.  Rows of ``errs`` by the kernels' names (the deep-history
+    phase reports them as their ``_m80`` rows).  Returns, for each
+    epilogue form, whether its scalar sums came out bit for bit the static
+    launch's all the same."""
+    xp, xp0, d, gp, pg, S, Y = (a[k] for k in ("xp", "xp0", "d", "gp", "pg", "S", "Y"))
+    m, n = S.shape
+    end, lo, hi = m - 3, 5, n - 9
+    coefs = (a["gamma"], a["cs"], a["cy"])
+    ring = lambda: (S.clone(), Y.clone())
+    S6, Y6 = S[:M].clone(), Y[:M].clone()
+    # K4: x, fx, g and changed those of the static launch at m = 6
+    st = rosenbrock.trial_pair_gram(xp, d, gp, STP, S6, Y6, END)
+    base, sums_bits = None, {}
+    for wg in (False, True):
+        name, t = "K4_trial_pair_gram" + ("_gp" if wg else ""), f"K4 deep gp={wg} {tag}"
+        Sk, Yk = ring()
+        k = rosenbrock.trial_pair_gram(xp, d, gp, STP, Sk, Yk, end, with_gp=wg)
+        Sp, Yp = ring()
+        p = rosenbrock.trial_pair_gram_ref(xp, d, gp, STP, Sp, Yp, end, with_gp=wg)
+        check_ring(f"{t} kernel", Sk, Yk, S, Y, STP * d, k[2] - gp, end)
+        check_ring(f"{t} plain", Sp, Yp, S, Y, STP * d, p[2] - gp, end)
+        _same(f"{t} against the static launch", k, st, (0, 1, 2, 6))
+        if bool(k[6]) != bool(p[6]):
+            raise AssertionError(f"{t}: changed flag differs")
+        _fold(errs, name, check(f"{t} x", k[0], p[0], tv), check(f"{t} g", k[2], p[2], tv),
+              *(check(f"{t} sum{i}", k[i], p[i], ts) for i in (1, 3, 4, 5, 7, 8)),
+              *(check(f"{t} sum{i} vs static", k[i], st[i], ts) for i in (3, 4, 5)))
+        sums_bits[name] = all(same_bits(k[i], st[i]) for i in (3, 4, 5))
+        if wg:
+            check_extends(t, base[0], k, (7, 8))
+            if not (same_bits(Sk, base[1]) and same_bits(Yk, base[2])):
+                raise AssertionError(f"{t}: ring differs from the 3-column launch")
+        xi, gi = xp.clone(), gp.clone()
+        Si, Yi = ring()
+        ki = rosenbrock.trial_pair_gram(xi, d, gi, STP, Si, Yi, end, inplace=True, with_gp=wg)
+        _same(f"{t} in place", ki, k, range(9))
+        if not (same_bits(Si, Sk) and same_bits(Yi, Yk)):
+            raise AssertionError(f"{t} in place: ring differs")
+        base = (k, Sk, Yk)
+        del Sp, Yp, Si, Yi, xi, gi
+    # K14: x, g, pg and changed those of the static launch at m = 6
+    S6, Y6 = S[:M].clone(), Y[:M].clone()
+    st = rosenbrock.owlqn_trial_pair_gram(xp0, d, gp, pg, STP, C_L1, lo, hi, S6, Y6, END,
+                                          with_gp=True)
+    for wg in (False, True):
+        name = "K14_owlqn_trial_pair_gram" + ("_gp" if wg else "")
+        t = f"K14 deep gp={wg} {tag}"
+        Sk, Yk = ring()
+        k = rosenbrock.owlqn_trial_pair_gram(xp0, d, gp, pg, STP, C_L1, lo, hi, Sk, Yk, end,
+                                             with_gp=wg)
+        Sp, Yp = ring()
+        p = rosenbrock.owlqn_trial_pair_gram_ref(xp0, d, gp, pg, STP, C_L1, lo, hi, Sp, Yp, end,
+                                                 with_gp=wg)
+        check_ring(f"{t} kernel", Sk, Yk, S, Y, k[0] - xp0, k[1] - gp, end)
+        check_ring(f"{t} plain", Sp, Yp, S, Y, p[0] - xp0, p[1] - gp, end)
+        _same(f"{t} against the static launch", k, st, (0, 1, 2, 7))
+        if bool(k[7]) != bool(p[7]):
+            raise AssertionError(f"{t}: changed flag differs")
+        sums = (3, 4, 5, 6, 8, 9) if wg else (3, 4, 5, 6)
+        _fold(errs, name, *(check(f"{t} {v}", k[i], p[i], tv)
+                            for i, v in ((0, "x"), (1, "g"), (2, "pg"))),
+              *(check(f"{t} sum{i}", k[i], p[i], ts) for i in sums),
+              *(check(f"{t} sum{i} vs static", k[i], st[i], ts)
+                for i in ((5, 6, 8, 9) if wg else (5, 6))))
+        sums_bits[name] = all(same_bits(k[i], st[i]) for i in ((5, 6, 8, 9) if wg else (5, 6)))
+        if wg:
+            check_extends(t, base[0], k[:8], (3, 4))
+            if not (same_bits(Sk, base[1]) and same_bits(Yk, base[2])):
+                raise AssertionError(f"{t}: ring differs from the 3-column launch")
+        xi, gi, pgi = xp0.clone(), gp.clone(), pg.clone()
+        Si, Yi = ring()
+        ki = rosenbrock.owlqn_trial_pair_gram(xi, d, gi, pgi, STP, C_L1, lo, hi, Si, Yi, end,
+                                              inplace=True, with_gp=wg)
+        _same(f"{t} in place", ki, k, range(len(k)))
+        if not (same_bits(Si, Sk) and same_bits(Yi, Yk)):
+            raise AssertionError(f"{t} in place: ring differs")
+        base = (k, Sk, Yk)
+        del Sp, Yp, Si, Yi, xi, gi, pgi
+    del base, S6, Y6, st
+    # K15 and its damped row against K3, K6 and K2
+    k3 = fused.combine(gp, S, Y, *coefs)
+    for stp1 in (1.0, 0.37):
+        t = f"K15 deep stp1={stp1} {tag}"
+        k = rosenbrock.combine_probe(gp, xp, S, Y, *coefs, stp1)
+        p = rosenbrock.combine_probe_ref(gp, xp, S, Y, *coefs, stp1)
+        _same(f"{t} r against K3's", k, k3, (0,))
+        _same(f"{t} probe against K2's", k[3:], rosenbrock.probe(xp, k[0], stp1), (0, 1))
+        _fold(errs, "K15_combine_probe", check(f"{t} r", k[0], p[0], tv),
+              *(check(f"{t} sum{i}", k[i], p[i], ts) for i in (1, 2, 3, 4)))
+    ca, cb = (torch.tensor(v, dtype=gp.dtype, device="cuda") for v in (0.7, -0.2))
+    Yk, Yp, Y6 = Y.clone(), Y.clone(), Y.clone()
+    t = f"K15-fix deep {tag}"
+    k = rosenbrock.combine_probe(gp, xp, S, Yk, *coefs, 0.37, fix=(end, ca, cb))
+    p = rosenbrock.combine_probe_ref(gp, xp, S, Yp, *coefs, 0.37, fix=(end, ca, cb))
+    k6 = fused.combine_fix(gp, S, Y6, *coefs, end, ca, cb)
+    if not (same_bits(Yk, Yp) and same_bits(Yk, Y6)):
+        raise AssertionError(f"{t}: the damped row differs from the plain version's or K6's")
+    _same(f"{t} r against K6's", k, k6, (0,))
+    _same(f"{t} probe against K2's", k[3:], rosenbrock.probe(xp, k[0], 0.37), (0, 1))
+    _fold(errs, "K15_combine_probe_fix", check(f"{t} r", k[0], p[0], tv),
+          *(check(f"{t} sum{i}", k[i], p[i], ts) for i in (1, 2, 3, 4)))
+    del Yk, Yp, Y6, k6
+    # K16 against K13 and K8's pg form
+    k13 = fused.combine_ow(pg, S, Y, *coefs, lo, hi)
+    t = f"K16 deep {tag}"
+    k = rosenbrock.combine_ow_probe(pg, xp0, S, Y, *coefs, C_L1, lo, hi, 1.0)
+    p = rosenbrock.combine_ow_probe_ref(pg, xp0, S, Y, *coefs, C_L1, lo, hi, 1.0)
+    _same(f"{t} rc against K13's", k, k13, (0,))
+    _same(f"{t} probe against K8's", k[4:],
+          rosenbrock.owlqn_probe_pg(xp0, k[0], pg, 1.0, C_L1, lo, hi), (0, 1))
+    _fold(errs, "K16_combine_ow_probe", check(f"{t} rc", k[0], p[0], tv),
+          *(check(f"{t} sum{i}", k[i], p[i], ts) for i in (1, 2, 3, 4, 5)))
+    return sums_bits
+
+
+def epilogue_outputs(a: dict) -> dict:
+    """Every output (and the written rings) of K4 and K14, each with and
+    without the . gp column, on the inputs, in whichever form
+    ``factory.MAX_M`` picks at their depth."""
+    xp, xp0, d, gp, pg, S, Y = (a[k] for k in ("xp", "xp0", "d", "gp", "pg", "S", "Y"))
+    n = S.shape[1]
+    out = {}
+    for wg in (False, True):
+        Sk, Yk = S.clone(), Y.clone()
+        out[f"K4 gp={wg}"] = (*rosenbrock.trial_pair_gram(xp, d, gp, STP, Sk, Yk, END,
+                                                          with_gp=wg), Sk, Yk)
+        Sk, Yk = S.clone(), Y.clone()
+        out[f"K14 gp={wg}"] = (*rosenbrock.owlqn_trial_pair_gram(
+            xp0, d, gp, pg, STP, C_L1, 5, n - 9, Sk, Yk, END, with_gp=wg), Sk, Yk)
+    return out
+
+
+#: the products in ``epilogue_outputs``: K4's SP and YP, K14's
+PRODUCTS = {"K4 gp=False": (7, 8), "K4 gp=True": (7, 8), "K14 gp=False": (3, 4),
+            "K14 gp=True": (3, 4)}
+
+
+def forms_agree(deep: dict, static: dict, tag: str, ts: float) -> bool:
+    """The deep epilogues' outputs bit for bit the static ones' at a depth
+    both take (the same partials' shapes, so torch sums their columns
+    alike): x, g, pg, the rings and every scalar sum; the products, which
+    each form sums over its own row layout, at the sum tolerance.  Returns
+    whether the products agreed bit for bit too."""
+    bits = True
+    for key, got in deep.items():
+        want = static[key]
+        for i, (g, w) in enumerate(zip(got, want)):
+            if i in PRODUCTS.get(key, ()):
+                check(f"{key} output {i} deep vs static {tag}", g, w, ts)
+                bits = bits and same_bits(g, w)
+            elif not same_bits(g, w):
+                raise AssertionError(f"{key} output {i}: the deep form differs from the static "
+                                     f"form's {tag}")
+    return bits
+
+
+def _compiled_info(k) -> dict:
+    k._init_handles()
+    return dict(n_regs=k.n_regs, n_spills=k.n_spills)
+
+
+def deep_compiled() -> list:
+    """Registers and spills of every compiled deep form (K4 and K14 with and
+    without the . gp column, K15 with and without its damped row, K16; one
+    compile each for every depth, in the three dtype pairs); a form that
+    spills, or a form missing, fails the phase."""
+    forms = []
+    k = rosenbrock.value_and_grad.kernels
+    for form, fn in (("K4", k.trial_pair_gram), ("K14", k.owlqn_trial_pair_gram),
+                     ("K15", k.combine_probe), ("K16", k.combine_ow_probe)):
+        for (vd, hd, flag), ck in sorted(fn.deep_compiled.items(), key=str):
+            forms.append(dict(form=form + ({"K15": "_fix"}.get(form, "_gp") if flag else ""),
+                              vectors=str(vd).removeprefix("torch."),
+                              history=str(hd).removeprefix("torch."), **_compiled_info(ck)))
+    emit(phase="deep_compiled", forms=forms,
+         group={"/".join(str(t).removeprefix("torch.") for t in k): v
+                for k, v in factory.DEEP_GROUP.items()})
+    if len(forms) != DEEP_FORMS_COMPILED:
+        raise AssertionError(f"{len(forms)} deep forms compiled, {DEEP_FORMS_COMPILED} expected")
+    spilled = [f for f in forms if f["n_spills"]]
+    if spilled:
+        raise AssertionError(f"deep forms spill registers: {spilled}")
+    return forms
 
 
 def phase_booth() -> None:
@@ -3110,7 +3534,8 @@ def phase_launch_overhead(paths: dict) -> dict:
     )
     us["read"] = us["null_read"] - us["null"]
     null_launches = profiling.null_launch.launches
-    # the counted kernels by route (the _m80 rows are K3-K13's own counts)
+    # the counted kernels by route (the deep forms' _m80 rows count apart;
+    # the any-depth kernels' _m80 rows are K3-K13's own counts)
     triton_k = [k for k in launches() if KERNELS[k][0] == "triton"]
     cuda_k = [k for k in launches() if KERNELS[k][0] == "cuda"]
     out = {}
@@ -4328,6 +4753,7 @@ def main() -> None:
     lc_lasso_var = run(phase_lasso_variants)
     lc_quartic, _ = run(phase_damped_quartic_main_path)
     lc_deep, deep = run(phase_deep_history)
+    run(phase_deep_main_path)
     run(phase_booth)
     run(phase_scan)
     run(phase_float16_history)

@@ -110,7 +110,9 @@ It runs plain L-BFGS with More-Thuente or the backtracking searches, and
 OWL-QN with backtracking (More-Thuente routed to it), under the capped
 step; damping, the gradient-only mode, the uncapped step, the adaptive
 entry step, the wide objective scalar, the scan two-loop, a float16
-history, more than 64 ring rows and generic objectives raise
+history, more than 64 ring rows (the batched forms K4 b and K14 b stop
+there; the solo epilogues and fusions take any depth, their deep forms
+above ``ops.factory.MAX_M``) and generic objectives raise
 ``NotImplementedError`` there, with OWL-QN and without.
 """
 

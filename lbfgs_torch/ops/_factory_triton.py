@@ -105,6 +105,22 @@ float32, to every kernel's count below):
   bit for bit.  Tensor cores do not apply: the Gram products cost ~2.7
   flops per byte against float32's ridge of ~20, so bytes bound them.
 
+  Above ``factory.MAX_M`` ring rows the sums of every row would not fit a
+  thread, so the deep forms ``trial_pair_gram_deep_kernel`` and
+  ``owlqn_trial_pair_gram_deep_kernel`` (the same functions at any m, one
+  compile for every m) take the ring rows in groups of G
+  (``factory.DEEP_GROUP``, by dtype pair): each program keeps the static
+  form's tiles and passes over them once per group, recomputing the
+  point, the body and the pair, with [T // V, G] sums per product kind
+  reduced once per group.  The ring rows stream once; the vectors of a
+  program's tiles (a few tens of KB) are read again each pass, from L2
+  while they stay there.  Only the last pass stores x, g (pg)
+  and folds the point's sums, in the static form's order, so they equal
+  the static launch's bit for bit, and x, g and pg may still alias xp,
+  gp and pg_old: no other program reads these tiles, and the passes
+  before have read them.  The group that holds row ``end`` stores the
+  new pair there.
+
   * K15 ``combine_probe_kernel`` (replaces
     factory.py:_combine_probe_kernel): the two-loop's direction combine
     r = gamma*g + sum_j cs_j S_j + sum_j cy_j Y_j (K3's function) with
@@ -125,6 +141,11 @@ float32, to every kernel's count below):
     from (x, pg) as K8's ``WP_IS_PG`` form does, its (f, L1, g.rc)
     partials through ``_store_ow_probe``: equal to
     ``owlqn_probe_pg(x, rc, pg, stp1)`` bit for bit (36 B/elem).
+
+  K15 and K16 unroll their loop over the ring rows up to
+  ``factory.MAX_M`` rows; above it the same kernels loop at run time (M =
+  0, the deep forms), adding the rows in the same order, so r and the
+  probe do not depend on the form.
 
 The batched runner's forms, K2 b ``probe_batched_kernel`` and K4 b
 ``trial_pair_gram_batched_kernel`` (both replace their kernel above under
@@ -221,6 +242,17 @@ def _sign(v):
 
 
 @triton.jit
+def _pseudo_grad(g, x, c, in_win):
+    # K14's pseudo-gradient at the new point inside the window (Andrew &
+    # Gao Eq. 4), g outside it
+    right = g + c
+    left = g - c
+    at_zero = tl.where(right < 0.0, right, tl.where(left > 0.0, left, 0.0))
+    inside = tl.where(x != 0.0, g + _sign(x) * c, at_zero)
+    return tl.where(in_win, inside, g)
+
+
+@triton.jit
 def _ow_point(xp, d, stp, wp_sign, in_win):
     # x = pi(xp + stp*d; wp) inside the window
     xr = xp + stp * d
@@ -245,27 +277,47 @@ def _store_probe(part_ptr, fe, g, d, mask):
 
 
 @triton.jit
-def _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, fix_end, M: tl.constexpr,
+def _combine_row(g, acc_s, acc_y, s_row, y_row, coef_ptr, mask, fix_end, j, m, FIX: tl.constexpr):
+    # ring row j's terms of the combination, in K3's order (cs_j*S_j into
+    # acc_s, then cy_j*Y_j into acc_y), the row widened in registers; with
+    # FIX row fix_end is rewritten as round(ca*Y[fix_end] + cb*g) from the
+    # row as read (K6's damped row)
+    Sj = tl.load(s_row, mask=mask, other=0.0).to(g.dtype)
+    Yj = tl.load(y_row, mask=mask, other=0.0).to(g.dtype)
+    acc_s += tl.load(coef_ptr + 1 + j) * Sj
+    acc_y += tl.load(coef_ptr + 1 + m + j) * Yj
+    if FIX:
+        fixed = tl.load(coef_ptr + 1 + 2 * m) * Yj + tl.load(coef_ptr + 2 + 2 * m) * g
+        tl.store(y_row, fixed.to(y_row.dtype.element_ty), mask=mask & (fix_end == j))
+    return acc_s, acc_y
+
+
+@triton.jit
+def _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, m, fix_end, M: tl.constexpr,
                  FIX: tl.constexpr):
-    # (g, r) with r = gamma*g + sum_j cs_j S_j + sum_j cy_j Y_j: the ring
-    # rows widen in registers; coef = [gamma, cs_0 .. cs_{M-1}, cy_0 ..]
-    # and with FIX then (ca, cb): ring row fix_end is rewritten as
-    # round(ca*Y[fix_end] + cb*g) from the row as read (K6's damped row)
+    # (g, r) with r = gamma*g + sum_j cs_j S_j + sum_j cy_j Y_j over the m
+    # ring rows; coef = [gamma, cs_0 .. cs_{m-1}, cy_0 ..] and with FIX then
+    # (ca, cb).  M > 0 unrolls the M = m rows (the static forms, m <=
+    # factory.MAX_M); M = 0 loops over the m rows at run time (the deep
+    # forms: one compile for every m).  Both add the rows in the same order
+    # and round the same, so r does not depend on the form
     g = tl.load(g_ptr + offs, mask=mask, other=0.0)
     acc_s = tl.zeros_like(g)
     acc_y = tl.zeros_like(g)
     s_row = S_ptr + offs
     y_row = Y_ptr + offs
-    for j in tl.static_range(M):
-        Sj = tl.load(s_row, mask=mask, other=0.0).to(g.dtype)
-        Yj = tl.load(y_row, mask=mask, other=0.0).to(g.dtype)
-        acc_s += tl.load(coef_ptr + 1 + j) * Sj
-        acc_y += tl.load(coef_ptr + 1 + M + j) * Yj
-        if FIX:
-            fixed = tl.load(coef_ptr + 1 + 2 * M) * Yj + tl.load(coef_ptr + 2 + 2 * M) * g
-            tl.store(y_row, fixed.to(y_row.dtype.element_ty), mask=mask & (fix_end == j))
-        s_row += n
-        y_row += n
+    if M > 0:
+        for j in tl.static_range(M):
+            acc_s, acc_y = _combine_row(g, acc_s, acc_y, s_row, y_row, coef_ptr, mask, fix_end,
+                                        j, M, FIX)
+            s_row += n
+            y_row += n
+    else:
+        for j in range(m):
+            acc_s, acc_y = _combine_row(g, acc_s, acc_y, s_row, y_row, coef_ptr, mask, fix_end,
+                                        j, m, FIX)
+            s_row += n
+            y_row += n
     return g, tl.load(coef_ptr) * g + (acc_s + acc_y)
 
 
@@ -351,14 +403,15 @@ def owlqn_probe_batched_kernel(xp_ptr, d_ptr, pg_ptr, stp_ptr, live_ptr, part_pt
     tl.store(part + 2, _block_sum(g * d, mask), mask=live)
 
 
-@triton.jit(do_not_specialize=["fix_end"])
+@triton.jit(do_not_specialize=["m", "fix_end"])
 def combine_probe_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, cpart_ptr,
-                         ppart_ptr, n, fix_end, off, ex, body: tl.constexpr, M: tl.constexpr,
+                         ppart_ptr, n, m, fix_end, off, ex, body: tl.constexpr, M: tl.constexpr,
                          ROWS: tl.constexpr, W: tl.constexpr, FIX: tl.constexpr,
                          SHARD: tl.constexpr):
+    # M = m: the static form; M = 0: the deep form (``_combination``)
     offs = _offsets(ROWS, W)
     mask = offs < n
-    g, r = _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, fix_end, M, FIX)
+    g, r = _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, m, fix_end, M, FIX)
     tl.store(r_ptr + offs, r, mask=mask)
     cpart = cpart_ptr + tl.program_id(0) * 2
     tl.store(cpart + 0, _block_sum(r * r, mask))
@@ -372,13 +425,15 @@ def combine_probe_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, c
     _store_probe(ppart_ptr, fe, gt, r, mask)
 
 
-@triton.jit(do_not_specialize=["lo", "hi"])
+@triton.jit(do_not_specialize=["m", "lo", "hi"])
 def combine_ow_probe_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, cpart_ptr,
-                            ppart_ptr, n, lo, hi, off, ex, body: tl.constexpr, M: tl.constexpr,
-                            ROWS: tl.constexpr, W: tl.constexpr, SHARD: tl.constexpr):
+                            ppart_ptr, n, m, lo, hi, off, ex, body: tl.constexpr,
+                            M: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+                            SHARD: tl.constexpr):
+    # M = m: the static form; M = 0: the deep form (``_combination``)
     offs = _offsets(ROWS, W)
     mask = offs < n
-    pg, r = _combination(pg_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, 0, M, False)
+    pg, r = _combination(pg_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, m, 0, M, False)
     in_win = (offs >= lo) & (offs < hi)
     # the direction constraint against -pg inside the window (K13's)
     rc = tl.where(in_win & (_msign(r) != _msign(-pg)), 0.0, r)
@@ -464,11 +519,41 @@ def _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0, gp, a0, a1, a2, a3, a
 
 
 @triton.jit
-def _store_gram(part, a0, a1, a2, a3, a4, a5, M: tl.constexpr, MP: tl.constexpr):
-    # the program's partials of the 6m products, row j at part + 6j: one
-    # cross-thread reduction per product kind for all rows
-    r = tl.arange(0, MP)
-    keep = r < M
+def _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end, j0, s, y, d0, gp, a0, a1, a2, a3, a4, a5,
+                b0, b1, G: tl.constexpr, WITH_GP: tl.constexpr):
+    # ``_ring_pass`` over ring rows j0 .. j0 + G - 1 alone (those below m),
+    # row j0 + c into column c of the [T // V, G] sums; the group that holds
+    # row `end` stores the new pair there
+    s_row = S_ptr + j0.to(tl.int64) * n + offs
+    y_row = Y_ptr + j0.to(tl.int64) * n + offs
+    for c in tl.static_range(G):
+        j = j0 + c
+        is_end = end == j
+        live = mask & (end != j) & (j < m)
+        Sj = tl.load(s_row, mask=live, other=0.0).to(s.dtype)
+        Yj = tl.load(y_row, mask=live, other=0.0).to(s.dtype)
+        Sj = tl.where(is_end, s, Sj)
+        Yj = tl.where(is_end, y, Yj)
+        a0, a1, a2, a3, a4, a5 = _gram_row(Sj, Yj, y, s, d0, a0, a1, a2, a3, a4, a5, c, G)
+        if WITH_GP:
+            b0 = _add_col(b0, _fold(Sj * gp), c, G)
+            b1 = _add_col(b1, _fold(Yj * gp), c, G)
+        s_row += n
+        y_row += n
+    holds_end = (end >= j0) & (end < j0 + G)
+    row = end.to(tl.int64) * n
+    tl.store(S_ptr + row + offs, s.to(S_ptr.dtype.element_ty), mask=mask & holds_end)
+    tl.store(Y_ptr + row + offs, y.to(Y_ptr.dtype.element_ty), mask=mask & holds_end)
+    return a0, a1, a2, a3, a4, a5, b0, b1
+
+
+@triton.jit
+def _store_gram(part, j0, m, a0, a1, a2, a3, a4, a5, MP: tl.constexpr):
+    # the program's partials of the products of ring rows j0 .. j0 + MP - 1
+    # (those below m; column c of the sums is row j0 + c), row j at part +
+    # 6j: one cross-thread reduction per product kind for all MP rows
+    r = j0 + tl.arange(0, MP)
+    keep = r < m
     pj = part + 6 * r
     tl.store(pj + 0, tl.sum(a0, axis=0), mask=keep)
     tl.store(pj + 1, tl.sum(a1, axis=0), mask=keep)
@@ -479,10 +564,11 @@ def _store_gram(part, a0, a1, a2, a3, a4, a5, M: tl.constexpr, MP: tl.constexpr)
 
 
 @triton.jit
-def _store_gp(gpart, b0, b1, M: tl.constexpr, MP: tl.constexpr):
-    # the . gp column's partials, (S_j.gp, Y_j.gp) at gpart + 2j
-    r = tl.arange(0, MP)
-    keep = r < M
+def _store_gp(gpart, j0, m, b0, b1, MP: tl.constexpr):
+    # the . gp column's partials, (S_j.gp, Y_j.gp) at gpart + 2j, for the
+    # rows of ``_store_gram``
+    r = j0 + tl.arange(0, MP)
+    keep = r < m
     tl.store(gpart + 2 * r, tl.sum(b0, axis=0), mask=keep)
     tl.store(gpart + 2 * r + 1, tl.sum(b1, axis=0), mask=keep)
 
@@ -547,9 +633,85 @@ def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
     tl.store(part + 1, tl.sum(a_gg, axis=0))
     tl.store(part + 2, tl.sum(a_xx, axis=0))
     tl.store(part + 3, tl.sum(a_ch, axis=0))
-    _store_gram(part + 4, a0, a1, a2, a3, a4, a5, M, MP)
+    _store_gram(part + 4, 0, M, a0, a1, a2, a3, a4, a5, MP)
     if WITH_GP:
-        _store_gp(gpart_ptr + pid * (2 * M), b0, b1, M, MP)
+        _store_gp(gpart_ptr + pid * (2 * M), 0, M, b0, b1, MP)
+
+
+@triton.jit(do_not_specialize=["m", "end", "tiles"])
+def trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
+                                S_ptr, Y_ptr, fx_ptr, part_ptr, gpart_ptr, n, end, tiles, off,
+                                ex, m, body: tl.constexpr, G: tl.constexpr, T: tl.constexpr,
+                                V: tl.constexpr, W: tl.constexpr, WITH_GP: tl.constexpr,
+                                SHARD: tl.constexpr):
+    # K4 at any depth: program pid takes the static form's tiles
+    # (``factory.epilogue_grid``) and passes over them once per group of G
+    # ring rows, recomputing the point, the body and the pair each pass and
+    # holding that group's sums in registers; the point's outputs and sums
+    # come from the last pass alone.  x and g may alias xp and gp (the lean
+    # state's in-place call): only this program reads its tiles, and every
+    # earlier pass has read them before the last one stores over them.  The
+    # last pass forms and folds the point's sums as the static form does,
+    # tile by tile in the same order, so x, g, the objective's partials and
+    # the scalar partials are the static launch's bit for bit
+    pid = tl.program_id(0)
+    dt = xp_ptr.dtype.element_ty
+    stp = tl.load(stp_ptr)
+    R: tl.constexpr = T // V
+    a_gd = tl.zeros([R], dt)
+    a_gg = tl.zeros([R], dt)
+    a_xx = tl.zeros([R], dt)
+    a_ch = tl.zeros([R], dt)
+    part = part_ptr + pid * (4 + 6 * m)
+    groups = tl.cdiv(m, G)
+    for grp in range(groups):
+        j0 = grp * G
+        last = grp == groups - 1
+        a0 = tl.zeros([R, G], dt)
+        a1 = tl.zeros([R, G], dt)
+        a2 = tl.zeros([R, G], dt)
+        a3 = tl.zeros([R, G], dt)
+        a4 = tl.zeros([R, G], dt)
+        a5 = tl.zeros([R, G], dt)
+        b0 = tl.zeros([R, G], dt)
+        b1 = tl.zeros([R, G], dt)
+        for t in range(tiles):
+            tile = pid * tiles + t
+            offs = _tile(tile, T, V)
+            mask = offs < n
+            xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+            d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+            gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+            exb = _view(_extras(ex, offs, mask), T // W, W)
+            x = xp + stp * d
+            gidx = tl.reshape(_gidx(offs, off, SHARD), [T // W, W])
+            fe, g = body(tl.reshape(x, [T // W, W]), gidx, *exb)
+            fe = tl.reshape(fe, [R, V])
+            g = tl.reshape(g, [R, V])
+            g = tl.where(mask, g, 0.0)
+            if last:
+                # the point's work before the ring rows: only s, y, d0 and
+                # gp stay live through them
+                tl.store(fx_ptr + tile, tl.sum(tl.sum(tl.where(mask, fe, 0.0), axis=1), axis=0))
+                a_gd += _fold(g * d)
+                a_gg += _fold(g * g)
+                a_xx += _fold(x * x)
+                a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
+                tl.store(x_ptr + offs, x, mask=mask)
+                tl.store(g_ptr + offs, g, mask=mask)
+            s = stp * d
+            y = g - gp
+            d0 = -g
+            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end,
+                                                         j0, s, y, d0, gp, a0, a1, a2, a3, a4,
+                                                         a5, b0, b1, G, WITH_GP)
+        _store_gram(part + 4, j0, m, a0, a1, a2, a3, a4, a5, G)
+        if WITH_GP:
+            _store_gp(gpart_ptr + pid * (2 * m), j0, m, b0, b1, G)
+    tl.store(part + 0, tl.sum(a_gd, axis=0))
+    tl.store(part + 1, tl.sum(a_gg, axis=0))
+    tl.store(part + 2, tl.sum(a_xx, axis=0))
+    tl.store(part + 3, tl.sum(a_ch, axis=0))
 
 
 @triton.jit
@@ -714,12 +876,7 @@ def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
         _, g = body(tl.reshape(x, [T // W, W]), gidx, *exb)
         g = tl.reshape(g, [R, V])
         g = tl.where(mask, g, 0.0)
-        # pseudo-gradient at the new point (Andrew & Gao Eq. 4)
-        right = g + c
-        left = g - c
-        at_zero = tl.where(right < 0.0, right, tl.where(left > 0.0, left, 0.0))
-        inside = tl.where(x != 0.0, g + _sign(x) * c, at_zero)
-        pg = tl.where(in_win, inside, g)
+        pg = _pseudo_grad(g, x, c, in_win)
         # the pair of the PROJECTED step and the two-loop's d0 = -pg
         s = x - xp
         y = g - gp
@@ -743,12 +900,91 @@ def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
     tl.store(part + 0, tl.sum(a_xx, axis=0))
     tl.store(part + 1, tl.sum(a_pp, axis=0))
     tl.store(part + 2, tl.sum(a_ch, axis=0))
-    _store_gram(part + 3, a0, a1, a2, a3, a4, a5, M, MP)
+    _store_gram(part + 3, 0, M, a0, a1, a2, a3, a4, a5, MP)
     if WITH_GP:
         gpart = gpart_ptr + pid * (2 + 2 * M)
         tl.store(gpart + 0, tl.sum(a_gg, axis=0))
         tl.store(gpart + 1, tl.sum(a_gpg, axis=0))
-        _store_gp(gpart + 2, b0, b1, M, MP)
+        _store_gp(gpart + 2, 0, M, b0, b1, MP)
+
+
+@triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles"])
+def owlqn_trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
+                                      x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr,
+                                      n, lo, hi, end, tiles, off, ex, m, body: tl.constexpr,
+                                      G: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
+                                      W: tl.constexpr, WITH_GP: tl.constexpr,
+                                      SHARD: tl.constexpr):
+    # K14 at any depth, laid out as ``trial_pair_gram_deep_kernel``: a pass
+    # over the program's tiles per group of G ring rows, the point's
+    # outputs and sums (x, g, pg, x.x, pg.pg, changed, and gp.gp, gp.pg
+    # with WITH_GP) from the last pass alone, so x, g and pg may alias xp,
+    # gp and pg_old, and each is the static launch's bit for bit
+    pid = tl.program_id(0)
+    dt = xp_ptr.dtype.element_ty
+    stp = tl.load(stp_ptr)
+    c = tl.load(c_ptr)
+    R: tl.constexpr = T // V
+    a_xx = tl.zeros([R], dt)
+    a_pp = tl.zeros([R], dt)
+    a_ch = tl.zeros([R], dt)
+    a_gg = tl.zeros([R], dt)
+    a_gpg = tl.zeros([R], dt)
+    part = part_ptr + pid * (3 + 6 * m)
+    gpart = gpart_ptr + pid * (2 + 2 * m)
+    groups = tl.cdiv(m, G)
+    for grp in range(groups):
+        j0 = grp * G
+        last = grp == groups - 1
+        a0 = tl.zeros([R, G], dt)
+        a1 = tl.zeros([R, G], dt)
+        a2 = tl.zeros([R, G], dt)
+        a3 = tl.zeros([R, G], dt)
+        a4 = tl.zeros([R, G], dt)
+        a5 = tl.zeros([R, G], dt)
+        b0 = tl.zeros([R, G], dt)
+        b1 = tl.zeros([R, G], dt)
+        for t in range(tiles):
+            offs = _tile(pid * tiles + t, T, V)
+            mask = offs < n
+            xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+            d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+            gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+            pgo = tl.load(pg_ptr + offs, mask=mask, other=0.0)
+            exb = _view(_extras(ex, offs, mask), T // W, W)
+            in_win = (offs >= lo) & (offs < hi)
+            wp_sign = tl.where(xp == 0.0, _msign(-pgo), _msign(xp))
+            x = _ow_point(xp, d, stp, wp_sign, in_win)
+            gidx = tl.reshape(_gidx(offs, off, SHARD), [T // W, W])
+            _, g = body(tl.reshape(x, [T // W, W]), gidx, *exb)
+            g = tl.reshape(g, [R, V])
+            g = tl.where(mask, g, 0.0)
+            pg = _pseudo_grad(g, x, c, in_win)
+            if last:
+                a_xx += _fold(x * x)
+                a_pp += _fold(pg * pg)
+                a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
+                if WITH_GP:
+                    a_gg += _fold(gp * gp)
+                    a_gpg += _fold(gp * pg)
+                tl.store(x_ptr + offs, x, mask=mask)
+                tl.store(g_ptr + offs, g, mask=mask)
+                tl.store(pgn_ptr + offs, pg, mask=mask)
+            s = x - xp
+            y = g - gp
+            d0 = -pg
+            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end,
+                                                         j0, s, y, d0, gp, a0, a1, a2, a3, a4,
+                                                         a5, b0, b1, G, WITH_GP)
+        _store_gram(part + 3, j0, m, a0, a1, a2, a3, a4, a5, G)
+        if WITH_GP:
+            _store_gp(gpart + 2, j0, m, b0, b1, G)
+    tl.store(part + 0, tl.sum(a_xx, axis=0))
+    tl.store(part + 1, tl.sum(a_pp, axis=0))
+    tl.store(part + 2, tl.sum(a_ch, axis=0))
+    if WITH_GP:
+        tl.store(gpart + 0, tl.sum(a_gg, axis=0))
+        tl.store(gpart + 1, tl.sum(a_gpg, axis=0))
 
 
 @triton.jit(do_not_specialize=["end", "lo", "hi", "tiles"])
@@ -796,12 +1032,7 @@ def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr,
         _, g = body(tl.reshape(x, [T // W, W]), tl.reshape(offs, [T // W, W]), *exb)
         g = tl.reshape(g, [R, V])
         g = tl.where(mask, g, 0.0)
-        # K14's pseudo-gradient, pair and d0 = -pg
-        right = g + c
-        left = g - c
-        at_zero = tl.where(right < 0.0, right, tl.where(left > 0.0, left, 0.0))
-        inside = tl.where(x != 0.0, g + _sign(x) * c, at_zero)
-        pg = tl.where(in_win, inside, g)
+        pg = _pseudo_grad(g, x, c, in_win)
         s = x - xp
         y = g - gp
         d0 = -pg

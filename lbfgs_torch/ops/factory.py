@@ -145,11 +145,23 @@ EPILOGUE = {
 }
 #: most programs an epilogue launches: 32 on each of the H100's 132 SMs
 EPILOGUE_PROGRAMS = 32 * 132
-#: deepest history the Triton kernels K4, K14, K15 and K16 take: the
-#: epilogues hold per-thread [T // V, MP] sums (MP = m rounded up to a power
-#: of two) and the fusions unroll their loop over the ring rows, so a deeper
-#: history goes to K1 (K7), K5 (K12) and K3, K6 or K13, which take any depth
+#: deepest history of the static forms of K4, K14, K15 and K16: the
+#: epilogues hold per-thread [T // V, MP] sums (MP = m rounded up to a
+#: power of two) and the fusions unroll their loop over the ring rows, both
+#: compiled per m.  A deeper history takes their deep forms, which pass
+#: over the ring rows in groups (``DEEP_GROUP``, the epilogues) or loop
+#: over them at run time (the fusions), one compile for every m
 MAX_M = 64
+#: ring rows per pass of the deep epilogues per (vector, history) dtype
+#: pair: their per-thread sums are [T // V, G] per product kind.  The
+#: largest G (a power of two) at which no form spills on an NVIDIA H100
+#: with n divisible by 16 and not: 8 with float32 vectors (148-214
+#: registers), 2 with float64 (106-124; at 4 and 8 K4's . gp form spills)
+DEEP_GROUP = {
+    (torch.float32, torch.bfloat16): 8,
+    (torch.float32, torch.float32): 8,
+    (torch.float64, torch.float64): 2,
+}
 
 
 def epilogue_grid(n: int, vdtype: torch.dtype, hdtype: torch.dtype) -> SimpleNamespace:
@@ -191,6 +203,31 @@ def _epilogue_buffers(x: torch.Tensor, eg: SimpleNamespace, m: int, owlqn: bool,
 def _rows(m: int) -> int:
     """m rounded up to a power of two: the ring tile's row count."""
     return 1 << (m - 1).bit_length()
+
+
+def _epilogue_form(fn, S: torch.Tensor, vdtype: torch.dtype) -> tuple:
+    """(kernel name, the wrapper's dict of compiled kernels, the depth's
+    constants) of the form of K4 or K14 (``fn``, its wrapper) that takes
+    the ring S: the static form up to ``MAX_M`` rows, the deep form
+    above."""
+    m = S.shape[0]
+    if m <= MAX_M:
+        return fn.__name__ + "_kernel", fn.compiled, dict(M=m, MP=_rows(m))
+    return (fn.__name__ + "_deep_kernel", fn.deep_compiled,
+            dict(m=m, G=DEEP_GROUP[(vdtype, S.dtype)]))
+
+
+def _count(fn, deep: bool, **forms: bool) -> None:
+    """One launch of a wrapper's kernel: ``fn.launches``, and
+    ``fn.deep_launches`` for a deep form (above ``MAX_M`` rows); each of
+    ``forms`` that is on (K4's and K14's ``gp``, K15's ``fix``) counts in
+    ``fn.<form>_launches`` too, and for a deep form in
+    ``fn.deep_<form>_launches``."""
+    fn.launches += 1
+    fn.deep_launches += deep
+    for form, on in forms.items():
+        setattr(fn, form + "_launches", getattr(fn, form + "_launches") + on)
+        setattr(fn, f"deep_{form}_launches", getattr(fn, f"deep_{form}_launches") + (on and deep))
 
 
 def _kernels():
@@ -467,7 +504,9 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         whole-run state, which never reads the previous point again).
         ``with_gp=True`` appends the damped update's basis column S.gp,
         Y.gp ([m, 4]); every other output is that of the plain launch bit
-        for bit."""
+        for bit.  Above ``MAX_M`` ring rows the deep form runs: x, g, the
+        ring row and every sum but the products are the static form's
+        bit for bit."""
         off, ex = _check(xp)
         fused._check_hist(xp, S, Y)
         if not fused.on_cuda(xp, "trial_pair_gram"):
@@ -479,14 +518,13 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         g = gp if inplace else torch.empty_like(gp)
         bufs = _epilogue_buffers(xp, eg, m, False, with_gp)
         part = bufs["part"]
-        trial_pair_gram.compiled[(xp.dtype, S.dtype, bool(with_gp))] = \
-            _kernels().trial_pair_gram_kernel[(eg.programs,)](
-                xp, d, gp, _scalar(stp, xp), x, g, S, Y, bufs["fx"], part,
-                bufs.get("gpart", part), n, int(end), eg.tiles, off, ex=ex, SHARD=off != 0,
-                body=block_fn(), M=m, MP=_rows(m), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp),
-                **_epilogue_launch(eg))
-        trial_pair_gram.launches += 1
-        trial_pair_gram.gp_launches += bool(with_gp)
+        kern, compiled, depth = _epilogue_form(trial_pair_gram, S, xp.dtype)
+        compiled[(xp.dtype, S.dtype, bool(with_gp))] = getattr(_kernels(), kern)[(eg.programs,)](
+            xp, d, gp, _scalar(stp, xp), x, g, S, Y, bufs["fx"], part,
+            bufs.get("gpart", part), n, int(end), eg.tiles, off, ex=ex, SHARD=off != 0,
+            body=block_fn(), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp), **depth,
+            **_epilogue_launch(eg))
+        _count(trial_pair_gram, m > MAX_M, gp=bool(with_gp))
         tot = fused.reduce_partials(part)
         sums = (_fx_tiles(bufs["fx"]), tot[0], tot[1], tot[2], tot[3] > 0, tot[4:])
         if with_gp:
@@ -499,9 +537,10 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         return (x, fx, g, dg, gg, xx, changed, SP, YP)
 
     def trial_pair_gram_ok(xp, S) -> bool:
-        # shape, dtype and depth only: a size the objective rejects raises
-        # inside the wrapper instead of quietly taking the composed path
-        return fused.can_pair_gram(xp, S) and S.shape[0] <= MAX_M
+        # shape and dtype only, at any depth (the deep forms above MAX_M): a
+        # size the objective rejects raises inside the wrapper instead of
+        # quietly taking the composed path
+        return fused.can_pair_gram(xp, S)
 
     # ------------------------------------- K4 b: the batched epilogue
 
@@ -723,7 +762,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         ``with_gp=True`` (damped OWL-QN) appends the . gp column to SP and
         YP ([m, 4]) and gp.gp, gp.pg_new to the returns, taken before g
         overwrites gp; every other output is that of the plain launch bit
-        for bit."""
+        for bit.  Above ``MAX_M`` ring rows the deep form runs, as
+        ``trial_pair_gram``'s."""
         off, ex = _check(xp)
         fused._check_hist(xp, S, Y)
         if not fused.on_cuda(xp, "owlqn_trial_pair_gram"):
@@ -739,14 +779,13 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         bufs = _epilogue_buffers(xp, eg, m, True, with_gp)
         part = bufs["part"]
         gpart = bufs.get("gpart", part)
-        owlqn_trial_pair_gram.compiled[(xp.dtype, S.dtype, bool(with_gp))] = \
-            _kernels().owlqn_trial_pair_gram_kernel[(eg.programs,)](
-                xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new, S, Y,
-                part, gpart, n, lo, hi, int(end), eg.tiles, off, ex=ex, SHARD=off != 0,
-                body=block_fn(), M=m, MP=_rows(m), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp),
-                **_epilogue_launch(eg))
-        owlqn_trial_pair_gram.launches += 1
-        owlqn_trial_pair_gram.gp_launches += bool(with_gp)
+        kern, compiled, depth = _epilogue_form(owlqn_trial_pair_gram, S, xp.dtype)
+        compiled[(xp.dtype, S.dtype, bool(with_gp))] = getattr(_kernels(), kern)[(eg.programs,)](
+            xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new, S, Y,
+            part, gpart, n, lo, hi, int(end), eg.tiles, off, ex=ex, SHARD=off != 0,
+            body=block_fn(), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp), **depth,
+            **_epilogue_launch(eg))
+        _count(owlqn_trial_pair_gram, m > MAX_M, gp=bool(with_gp))
         tot = fused.reduce_partials(part)
         sums = (tot[0], tot[1], tot[2] > 0, tot[3:])
         if with_gp:
@@ -834,11 +873,14 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
                              f"direction's {d.dtype} {tuple(d.shape)}")
         return shard
 
-    def _combine_launch(kernel, d, x, S, Y, coefs, stp1, nparts, shard, *args, **consts):
-        """Launch K15 or K16, whose combine and probe partials are both
-        [programs, nparts] arrays (2 columns for K15, 3 for K16), on the
-        shard (``shard`` = (off, extras), ``_check``); returns (r, column
-        sums of the combine's partials, the probe's partials)."""
+    def _combine_launch(fn, d, x, S, Y, coefs, stp1, nparts, shard, *args, **consts):
+        """Launch K15 or K16 (``fn``, its wrapper), whose combine and probe
+        partials are both [programs, nparts] arrays (2 columns for K15, 3
+        for K16), on the shard (``shard`` = (off, extras), ``_check``), and
+        count the launch (``_count``; K15's ``fix`` form by the constant
+        ``FIX``); returns (r, column sums of the combine's partials, the
+        probe's partials)."""
+        kernel = fn.__name__
         fused.check_contiguous(kernel, d, x, S, Y)
         m, n = S.shape
         off, ex = shard
@@ -846,11 +888,18 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         r = torch.empty_like(d)
         cpart = torch.empty((grid[0], nparts), dtype=d.dtype, device=d.device)
         ppart = torch.empty((grid[0], nparts), dtype=d.dtype, device=d.device)
-        getattr(_kernels(), kernel + "_kernel")[grid](
+        # M = m unrolls the rows (the static form), M = 0 loops over them
+        # at run time (the deep form, above MAX_M rows)
+        deep = m > MAX_M
+        compiled = getattr(_kernels(), kernel + "_kernel")[grid](
             d, x, S, Y, fused.coef_vector(d, *coefs), _scalar(stp1, d), r, cpart, ppart,
-            n, *args, off, ex=ex, SHARD=off != 0, body=block_fn(), M=m, ROWS=rows, W=W,
-            **consts, **LAUNCH,
+            n, m, *args, off, ex=ex, SHARD=off != 0, body=block_fn(), M=0 if deep else m,
+            ROWS=rows, W=W, **consts, **LAUNCH,
         )
+        flags = {k.lower(): v for k, v in consts.items()}
+        if deep:
+            fn.deep_compiled[(d.dtype, S.dtype, bool(consts.get("FIX")))] = compiled
+        _count(fn, deep, **flags)
         return r, fused.reduce_partials(cpart), ppart
 
     def combine_probe(g, x, S, Y, gamma, coef_s, coef_y, stp1, fix=None):
@@ -863,17 +912,16 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         cb 0-d tensors on g's device, adds ``fused.combine_fix``'s damped
         row: Y[end] <- round(ca*Y[end] + cb*g) in place, after the row is
         read (counted in ``.fix_launches`` too).  Returns (r, r.r, r.g, ft,
-        g.r)."""
+        g.r).  Above ``MAX_M`` ring rows the deep form runs, with the same
+        r and probe, bit for bit."""
         shard = _check_combine("combine_probe", g, x, S, Y)
         if fix is not None:
             fix = (fused._check_row(S, fix[0]), *fix[1:])
         if not fused.on_cuda(g, "combine_probe"):
             return combine_probe_ref(g, x, S, Y, gamma, coef_s, coef_y, stp1, fix)
         coefs = (gamma, coef_s, coef_y) + (() if fix is None else fix[1:])
-        r, ctot, ppart = _combine_launch("combine_probe", g, x, S, Y, coefs, stp1, 2, shard,
+        r, ctot, ppart = _combine_launch(combine_probe, g, x, S, Y, coefs, stp1, 2, shard,
                                          0 if fix is None else fix[0], FIX=fix is not None)
-        combine_probe.launches += 1
-        combine_probe.fix_launches += fix is not None
         ptot = fused.reduce_partials(ppart)
         return (r, *fused.mesh_sum(ctot[0], ctot[1], _fx(ppart, ptot), ptot[1]))
 
@@ -899,40 +947,47 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         start, end = fused._check_window(x.shape[0], start, end)
         if not fused.on_cuda(pg, "combine_ow_probe"):
             return combine_ow_probe_ref(pg, x, S, Y, gamma, coef_s, coef_y, c, start, end, stp1)
-        rc, ctot, ppart = _combine_launch("combine_ow_probe", pg, x, S, Y,
+        rc, ctot, ppart = _combine_launch(combine_ow_probe, pg, x, S, Y,
                                           (gamma, coef_s, coef_y), stp1, 3, shard,
                                           *fused.local_window(start, end, x.shape[0]))
-        combine_ow_probe.launches += 1
         ft, dg, rr, rc2, rcd = _ow_probe_scalars(ppart, c, ctot[0], ctot[1], ctot[2])
         return rc, rr, rc2, rcd, ft, dg
 
     def combine_probe_ok(x, S) -> bool:
         """Whether K15 and K16 take these operands: the shapes and dtypes
-        of ``lbfgs_tpu/ops/factory.py:1332-1341``, at most ``MAX_M`` ring
-        rows, and n a multiple of W (else the ring rows after the first
-        lose the vectors' alignment, their loads narrow, and the probe's
-        sums would not be K2's and K8's bit for bit; the unfused path
-        takes such an n, as the JAX package's kernels take no n off its
-        128 lanes)."""
+        of ``lbfgs_tpu/ops/factory.py:1332-1341`` at any depth (the deep
+        forms above ``MAX_M`` rows), and n a multiple of W (else the ring
+        rows after the first lose the vectors' alignment, their loads
+        narrow, and the probe's sums would not be K2's and K8's bit for
+        bit; the unfused path takes such an n, as the JAX package's kernels
+        take no n off its 128 lanes)."""
         try:
             _check(x)
         except (TypeError, ValueError):
             return False
-        return fused.can_combine(x, S) and S.shape[0] <= MAX_M and x.shape[0] % W == 0
+        return fused.can_combine(x, S) and x.shape[0] % W == 0
 
     for fn in (trial, probe, trial_pair_gram, owlqn_trial, owlqn_probe, owlqn_probe_pg,
                owlqn_trial_pair_gram, combine_probe, combine_ow_probe, probe_batched,
                trial_pair_gram_batched, owlqn_probe_pg_batched, owlqn_trial_pair_gram_batched):
         fn.launches = 0
-    # the . gp (damped) specialisations of K4 and K14 and K15's damped-row
-    # form, counted apart too
-    trial_pair_gram.gp_launches = owlqn_trial_pair_gram.gp_launches = 0
+    # the deep forms of K4, K14, K15 and K16, the . gp (damped)
+    # specialisations of K4 and K14 and K15's damped-row form, counted apart
+    # too (``_count``)
+    for fn in (trial_pair_gram, owlqn_trial_pair_gram, combine_probe, combine_ow_probe):
+        fn.deep_launches = 0
+    for fn in (trial_pair_gram, owlqn_trial_pair_gram):
+        fn.gp_launches = fn.deep_gp_launches = 0
+    combine_probe.fix_launches = combine_probe.deep_fix_launches = 0
     # the epilogues' last compiled Triton kernel per (vector dtype, history
-    # dtype, with_gp), K14 b's per (vector dtype, history dtype): its
-    # registers, spills and PTX
+    # dtype, with_gp), the static forms' and the deep forms' apart, and
+    # K14 b's per (vector dtype, history dtype): its registers, spills and
+    # PTX
     trial_pair_gram.compiled, owlqn_trial_pair_gram.compiled = {}, {}
+    trial_pair_gram.deep_compiled, owlqn_trial_pair_gram.deep_compiled = {}, {}
+    # the fusions' deep forms per (vector dtype, history dtype, fix)
+    combine_probe.deep_compiled, combine_ow_probe.deep_compiled = {}, {}
     owlqn_trial_pair_gram_batched.compiled = {}
-    combine_probe.fix_launches = 0
     for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_trial_ref, owlqn_probe_ref,
                owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref, combine_probe_ref,
                combine_ow_probe_ref, probe_batched_ref, trial_pair_gram_batched_ref,

@@ -1,10 +1,13 @@
 """Histories deeper than 64 rows in the PyTorch port against ``lbfgs_tpu``.
 
-The Triton kernels K4, K14, K15 and K16 take at most ``factory.MAX_M``
-ring rows; above that the solver takes K1 (K7 under OWL-QN), then K5
-(K12) and K3, K6 or K13, each of which takes any depth (on the CPU their
-plain versions run).  The JAX package runs its kernels at every depth
-too (``lbfgs_tpu/ops/fused.py:1010-1021, 1604-1614``).
+Above ``factory.MAX_M`` ring rows the Triton kernels K4, K14, K15 and K16
+run their deep forms, so the solver takes the one-pass epilogue (K4, K14
+under OWL-QN) and the combine+probe fusion (K15, K16) at any depth, as
+the JAX package runs its kernels at every depth
+(``lbfgs_tpu/ops/fused.py:1010-1021, 1604-1614``); on the CPU their plain
+versions run.  An objective without the epilogue's and the fusion's hooks
+takes K1 (K7 under OWL-QN), then K5 (K12) and K3, K6 or K13, each of
+which takes any depth too.
 
 Whole runs at m = 65 and 80, n = 100, float64, each held to the JAX
 package's run with the same settings: the same iterations and status,
@@ -14,11 +17,13 @@ with the uncapped step, the damped runs with the default, capped step
 uncapped.  Uncapped, the plain damped run ends at fx ~2.5e-14, where the
 two packages' damped reconstructions part by rounding alone (1.7e-19
 apart, rel 6.7e-6): that case is held to the same iterations and status
-and fx within 1e-18 absolute.  Damped OWL-QN above 64 rows takes K12
-with its . gp column and K14's damped reconstruction, as the JAX package
-runs K14 at every depth.  Then one port step per iteration from the JAX
-package's own state over the first 15 iterations at m = 65, rel 1e-9 (as
-``tests/test_torch_solver.py``).
+and fx within 1e-18 absolute.  Damped OWL-QN takes K14 with its . gp
+column, and without the epilogue K12 with its . gp column and K14's
+damped reconstruction, as the JAX package runs K14 at every depth.  Then
+one port step per iteration from the JAX package's own state over the
+first 15 iterations at m = 65, rel 1e-9 (as ``tests/test_torch_solver.py``).
+The deep forms themselves are held to the JAX package's kernels in
+``tests/test_torch_deep_fusions.py``.
 """
 
 import numpy as np
@@ -60,10 +65,29 @@ CASES = {
 }
 
 
-def _run(case: str, m: int, which: str):
+#: the hooks of the one-pass epilogue (K4, K14) and of the combine+probe
+#: fusion (K15, K16)
+EPILOGUE_AND_FUSION = ("__lbfgs_trial_pair_gram", "__lbfgs_owlqn_trial_pair_gram",
+                       "__lbfgs_combine_probe", "__lbfgs_combine_ow_probe")
+
+
+def _objective(drop=(), **hooks):
+    """Rosenbrock's fused objective without the hooks whose names start with
+    one of ``drop``, and with ``hooks`` in place of its own."""
+    vag = t_rosen.value_and_grad
+
+    def fn(x):
+        return vag(x)
+
+    fn.__dict__.update({k: v for k, v in vag.__dict__.items() if not k.startswith(drop)})
+    fn.__dict__.update(hooks)
+    return fn
+
+
+def _run(case: str, m: int, which: str, fn=None):
     if which == "port":
         b = TLbfgs(TParams(m=m))
-        x0, fn = t_rosen.initial_point(N, device="cpu"), t_evaluate()
+        x0, fn = t_rosen.initial_point(N, device="cpu"), fn or t_evaluate()
     else:
         b = JLbfgs(JParams(m=m))
         x0, fn = j_rosen.initial_point(N), j_evaluate()
@@ -82,9 +106,9 @@ def test_deep_history_run_matches_jax(m, case):
 
 @pytest.mark.parametrize("m", [65, 80])
 def test_deep_history_uncapped_damped_run_matches_jax(m):
-    """The plain damped run with the uncapped step (K15's fix form has no
-    say above 64 rows: K5 with . gp and K6): the same iterations and status
-    as the JAX package, fx within ``FX_ABS_UNCAPPED_DAMPED``."""
+    """The plain damped run with the uncapped step (K4 with . gp and K15's
+    fix form): the same iterations and status as the JAX package, fx
+    within ``FX_ABS_UNCAPPED_DAMPED``."""
     uncapped = lambda b: b.with_damping(True).with_constrain_step_size(False)
     t = uncapped(TLbfgs(TParams(m=m)).with_max_iterations(200)).minimize(
         t_rosen.initial_point(N, device="cpu"), t_evaluate())
@@ -96,55 +120,74 @@ def test_deep_history_uncapped_damped_run_matches_jax(m):
 
 
 def test_deep_history_damped_owlqn_routes_through_k12_with_gp(monkeypatch):
-    """Damped OWL-QN at m = 65: no K14; each iteration's pair goes through
-    K12 with its . gp column (its plain version on the CPU), never through
-    the composed ``update_pair``."""
-    forms = []
+    """Damped OWL-QN at m = 65: each iteration's pair goes through K14 with
+    its . gp column (its plain version on the CPU), never K12; through an
+    objective without the epilogue's and the fusion's hooks, through K12
+    with its . gp column.  Neither takes the composed ``update_pair``."""
+    vag = t_rosen.value_and_grad
+    k14_forms, k12_forms = [], []
+
+    def k14_spy(*a, with_gp=False, **kw):
+        k14_forms.append(with_gp)
+        return vag.__lbfgs_owlqn_trial_pair_gram__(*a, with_gp=with_gp, **kw)
+
     ref = t_fused.pair_gram_xg_ref
 
-    def spy(x, xp, gx, gp, pg, S, Y, end, with_gp=False):
-        forms.append(with_gp)
+    def k12_spy(x, xp, gx, gp, pg, S, Y, end, with_gp=False):
+        k12_forms.append(with_gp)
         return ref(x, xp, gx, gp, pg, S, Y, end, with_gp)
 
-    spy.calls = 0  # the plain version counts its calls on the module's name
+    k12_spy.calls = 0  # the plain version counts its calls on the module's name
     def no_update_pair(*a, **kw):
         raise AssertionError("the composed damped branch ran")
 
-    monkeypatch.setattr(t_fused, "pair_gram_xg_ref", spy)
+    monkeypatch.setattr(t_fused, "pair_gram_xg_ref", k12_spy)
     monkeypatch.setattr(tsol, "update_pair", no_update_pair)
-    k = t_rosen.value_and_grad.kernels
+    r = _run("damped_owlqn", 65, "port",
+             _objective(__lbfgs_owlqn_trial_pair_gram__=k14_spy))
+    assert int(r.status) == 1
+    assert k14_forms == [True] * (r.niter - 1) and k12_forms == []
+    k = vag.kernels
     before = k.owlqn_trial_pair_gram_ref.calls
-    r = _run("damped_owlqn", 65, "port")
+    r = _run("damped_owlqn", 65, "port", _objective(EPILOGUE_AND_FUSION))
     assert int(r.status) == 1
     assert k.owlqn_trial_pair_gram_ref.calls == before
-    assert forms == [True] * (r.niter - 1)
+    assert k12_forms == [True] * (r.niter - 1)
 
 
 def test_deep_history_routes_through_the_any_depth_kernels():
-    """At m = 65 the Triton kernels' predicates refuse the ring and the
-    run takes K1, K5 and K3 (their plain versions on the CPU); at m = 64
-    the one-pass epilogue and the fusion take it."""
+    """At m = 65 the predicates take the ring and the run takes K4 and K15
+    (their plain versions on the CPU) once per iteration, and no K5 or K3;
+    an objective without the epilogue's and the fusion's hooks takes K1,
+    K5 and K3 instead."""
     x = t_rosen.initial_point(N, device="cpu")
     S = torch.zeros((65, N), dtype=torch.float64)
     vag = t_rosen.value_and_grad
     assert t_factory.MAX_M == 64
     assert t_fused.can_pair_gram(x, S) and t_fused.can_combine(x, S)
-    assert not vag.__lbfgs_trial_pair_gram_ok__(x, S)
-    assert not vag.__lbfgs_combine_probe_ok__(x, S)
-    assert vag.__lbfgs_trial_pair_gram_ok__(x, S[:64])
-    assert vag.__lbfgs_combine_probe_ok__(x, S[:64])
+    assert vag.__lbfgs_trial_pair_gram_ok__(x, S)
+    assert vag.__lbfgs_combine_probe_ok__(x, S)
     k = vag.kernels
-    before = dict(trial=k.trial_ref.calls, tpg=k.trial_pair_gram_ref.calls,
-                  k5=t_fused.pair_gram_sd_ref.calls, k3=t_fused.combine_ref.calls,
-                  cp=k.combine_probe_ref.calls)
+
+    def calls():
+        return dict(trial=k.trial_ref.calls, tpg=k.trial_pair_gram_ref.calls,
+                    k5=t_fused.pair_gram_sd_ref.calls, k3=t_fused.combine_ref.calls,
+                    cp=k.combine_probe_ref.calls)
+
+    before = calls()
     r = _run("plain", 65, "port")
     # one pair update and one combine per iteration after the first
-    iters = r.niter - 1
-    assert k.trial_pair_gram_ref.calls == before["tpg"]
-    assert k.combine_probe_ref.calls == before["cp"]
-    assert t_fused.pair_gram_sd_ref.calls - before["k5"] == iters
-    assert t_fused.combine_ref.calls - before["k3"] == iters
-    assert k.trial_ref.calls - before["trial"] >= iters
+    iters, after = r.niter - 1, calls()
+    assert after["tpg"] - before["tpg"] == iters
+    assert after["cp"] - before["cp"] == iters
+    assert (after["k5"], after["k3"]) == (before["k5"], before["k3"])
+    before = after
+    r = _run("plain", 65, "port", _objective(EPILOGUE_AND_FUSION))
+    iters, after = r.niter - 1, calls()
+    assert (after["tpg"], after["cp"]) == (before["tpg"], before["cp"])
+    assert after["k5"] - before["k5"] == iters
+    assert after["k3"] - before["k3"] == iters
+    assert after["trial"] - before["trial"] >= iters
 
 
 @pytest.fixture(scope="module")
@@ -169,8 +212,8 @@ def _close(t, j, what):
 
 @pytest.mark.parametrize("k", range(1, ITERS + 1))
 def test_deep_history_step_matches_jax(jax_states, k):
-    """One port step at m = 65 (K1, K5 and K3's plain versions) from the
-    JAX package's state of iteration k - 1, against its next state."""
+    """One port step at m = 65 (K4 and K15's plain versions) from the JAX
+    package's state of iteration k - 1, against its next state."""
     pdef = TDef(value_and_grad=t_rosen.value_and_grad)
     st = interop.state_from_jax(jax_states[k - 1], "cpu")
     out = tsol.propagate_hot(pdef, TParams(m=65, constrain_step_size=False), st)

@@ -700,14 +700,15 @@ def test_pair_gram_partials_shapes(m, with_gp, xg):
 @pytest.mark.parametrize("m", [64, 65])
 def test_pair_gram_sd_takes_at_most_max_m_rows(m):
     """K5 takes any depth m >= 1 (``fused.can_pair_gram``), on the CPU as on
-    the card; only the Triton epilogues stop at ``factory.MAX_M`` = 64
-    rows, so at 65 the solver routes the pair update here."""
+    the card; the Triton epilogues take any depth too (their deep forms
+    above ``factory.MAX_M`` = 64 rows), so K5 runs only for an objective
+    without them."""
     rng = np.random.default_rng(5)
     d, gx, gp = (torch.from_numpy(rng.standard_normal(300)) for _ in range(3))
     S = torch.from_numpy(rng.standard_normal((m, 300)))
     Y = S.clone()
     assert t_fused.can_pair_gram(d, S)
-    assert t_rosen.trial_pair_gram_ok(d[:300], S) == (m <= t_factory.MAX_M)
+    assert t_factory.MAX_M == 64 and t_rosen.trial_pair_gram_ok(d[:300], S)
     SP, YP = t_fused.pair_gram_sd(STP, d, gx, gp, S, Y, m - 1)
     assert SP.shape == YP.shape == (m, 3)
     assert torch.equal(S[m - 1], STP * d) and torch.equal(Y[m - 1], gx - gp)

@@ -21,6 +21,10 @@ The OWL-QN dispatchers run on a window that starts and ends inside
 different shards and on one that lies inside one shard and misses the
 others; the factory's extras run given whole and given as shards, and a
 body that reads the global index shows the shard's offset at work.
+
+A second job holds every case at m = 65 ring rows on two ranks, past
+``factory.MAX_M``, where the card runs the deep forms of K4, K14, K15 and
+K16 (their plain versions here), to the same bounds.
 """
 
 import numpy as np
@@ -31,6 +35,8 @@ pytest.importorskip("torch")
 import _torch_mesh_ranks as ranks
 
 W, N, M = 4, 4096, 6
+#: the deep job: two ranks, a ring deeper than the static forms take
+W_DEEP, M_DEEP = 2, 65
 #: windows: from inside shard 0 to inside shard 3, and one inside shard 1
 WINDOWS = {"cross": (130, N - 7), "one_shard": (1100, 2000)}
 #: a Rosenbrock iterate whose shards hold an odd number of elements
@@ -95,8 +101,13 @@ def job(tmp_path_factory):
                         dict(n=N, m=M, n_bad=N_BAD, windows=WINDOWS), timeout=180)
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_dispatcher_on_mesh_matches_single_process(job, name):
+@pytest.fixture(scope="module")
+def job_deep(tmp_path_factory):
+    return ranks.launch("kernels", W_DEEP, tmp_path_factory.mktemp("kernels_mesh_deep"),
+                        dict(n=N, m=M_DEEP, n_bad=W_DEEP * 1023, windows=WINDOWS), timeout=180)
+
+
+def _check_case(job, name):
     bounds = CASES[name]
     for r, res in enumerate(job):
         case = res[name]
@@ -111,6 +122,18 @@ def test_dispatcher_on_mesh_matches_single_process(job, name):
                 assert got == want, (r, out)
             else:
                 np.testing.assert_allclose(got, want, **tol, err_msg=f"rank {r} {out}")
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_dispatcher_on_mesh_matches_single_process(job, name):
+    _check_case(job, name)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_deep_dispatcher_on_mesh_matches_single_process(job_deep, name):
+    """Every case at m = 65 on two ranks: vectors and ring rows bit for bit
+    the single-process form's, scalars within the same bounds."""
+    _check_case(job_deep, name)
 
 
 def test_gidx_body_needs_the_offset(job):

@@ -1,0 +1,98 @@
+"""Registers, spills and times of the epilogues' static and deep forms
+below ``factory.MAX_M`` ring rows, and the deep forms' registers at other
+group sizes, on one CUDA card.
+
+    PYTHONPATH=. python3 tools/deep_crossover.py [--depths 16 32 64] [--reps N]
+                                                 [--groups 8 4 2]
+
+For each depth m (f32 vectors, a bf16 history, at the deep-history path's
+n = 2^20, ``chip_smoke.deep_inputs``): K4 and K14 (without the . gp
+column) in their static form, as the solver runs them up to
+``factory.MAX_M`` rows, and in their deep form (forced by
+``chip_smoke.static_forms_up_to``), each form's registers and spills from
+its compiled Triton kernel, and the device time of both in turns, static,
+deep, deep, static (``chip_smoke.device_time``).  The static forms compile
+per m and unroll every ring row, so at 32 rows and more their compiles take
+minutes: this runs apart from ``chip_smoke.py``.
+
+With ``--groups``, for each group size G in turn (``factory.DEEP_GROUP``
+set to G for every dtype pair), the registers and spills of the deep K4
+and K14, each with and without the . gp column, in the three dtype pairs,
+compiled at m = 80 and at an n divisible by 16 and one that is not (Triton
+specialises on that): what ``factory.DEEP_GROUP`` is chosen from.
+
+Prints one JSON line per depth and form; the card's nvidia-smi name and
+power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+import chip_smoke as cs
+from lbfgs_torch.models import rosenbrock
+from lbfgs_torch.ops import factory
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--depths", type=int, nargs="*", default=[16, 32, 64])
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--groups", type=int, nargs="*", default=[])
+    args = ap.parse_args()
+    cs.phase_device()
+    k = rosenbrock.value_and_grad.kernels
+    chosen = dict(factory.DEEP_GROUP)
+    for G in args.groups:
+        factory.DEEP_GROUP = dict.fromkeys(chosen, G)
+        for n in (4096, 4098):
+            forms = []
+            for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram):
+                fn.deep_compiled.clear()
+            for vd, hd in cs.DTYPES:
+                x = torch.ones(n, dtype=vd, device="cuda")
+                S = torch.zeros((cs.DEEP_M, n), dtype=hd, device="cuda")
+                for gp in (False, True):
+                    k.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1, with_gp=gp)
+                    k.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0, n - 1, S,
+                                            S.clone(), 1, with_gp=gp)
+            for name, fn in (("K4", k.trial_pair_gram), ("K14", k.owlqn_trial_pair_gram)):
+                for (vd, hd, gp), c in sorted(fn.deep_compiled.items(), key=str):
+                    forms.append(dict(form=name + ("_gp" if gp else ""),
+                                      dtypes=f"{vd}/{hd}".replace("torch.", ""),
+                                      **cs._compiled_info(c)))
+            cs.emit(group=G, m=cs.DEEP_M, n=n, forms=forms)
+    factory.DEEP_GROUP = chosen
+    for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram):
+        fn.deep_compiled.clear()
+    key = (torch.float32, torch.bfloat16, False)
+    hi = cs.DEEP_N - 1
+    for m in args.depths:
+        if m > factory.MAX_M:
+            raise ValueError(f"m={m}: the static forms take at most {factory.MAX_M} rows")
+        a = cs.deep_inputs(torch.float32, torch.bfloat16, m)
+        S, Y = a["S"], a["Y"]
+        forms = {
+            "K4": (k.trial_pair_gram, lambda: k.trial_pair_gram(
+                a["xp"], a["d"], a["gp"], cs.STP, S, Y, cs.END)),
+            "K14": (k.owlqn_trial_pair_gram, lambda: k.owlqn_trial_pair_gram(
+                a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, 1.0, 0, hi, S, Y, cs.END)),
+        }
+        for name, (fn, call) in forms.items():
+            ms = {"static": [], "deep": []}
+            for form in ("static", "deep", "deep", "static"):
+                with cs.static_forms_up_to(cs.M if form == "deep" else factory.MAX_M):
+                    call()
+                    ms[form].append(cs.device_time(call, args.reps))
+            regs = {form: cs._compiled_info(c[key])
+                    for form, c in (("static", fn.compiled), ("deep", fn.deep_compiled))}
+            cs.emit(form=name, m=m, n=cs.DEEP_N, dtypes="float32/bfloat16", ms=ms,
+                    timed_by=cs.device_time.source, registers=regs)
+        del a, S, Y
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()
