@@ -191,7 +191,30 @@ Phases (any failure raises and the script exits nonzero):
      its instance-iterations/s, device ms, syncs and host launch calls per
      iteration beside the batched main path's; then instances 0-7 solo
      through ``minimize_jit`` against the batch after 8 iterations;
- 40. sharded world size 1: an NCCL group of one rank in this process
+ 40. batched fusion kernels: K15 b and K16 b (the batched combine+probe
+     fusions) at m = 6 and their M = 0 forms at m = 80, and the deep K4 b
+     and K14 b at m = 80, against their plain versions at B = 1024 x n =
+     2^14 (f32 vectors, bf16 rings, a third of the instances frozen, the
+     OWL-QN forms on a window off every block edge; ring rows and frozen
+     instances bit for bit), instances 0, 511 and 1023 against the solo
+     K15, K16 (r, rc, the sums and the probes bit for bit) and the solo
+     deep K4 and K14 (x, g, pg and the rings bit for bit), each timed beside its
+     plain version, and every compiled batched form's registers (a spill
+     fails);
+ 41. batched uncapped main paths: the batched main path with the step
+     uncapped, literal and with the adaptive entry step (growth 2), and the
+     batched OWL-QN main path uncapped (K2 b / K8 b per probe not carried
+     in, K4 b / K14 b and K15 b / K16 b per iteration), each in turns with
+     the same run on the objective without the fusions' hooks (K3 b / K13
+     b, a probe every trip): every search after an instance's first
+     carries its first trip, the fused run makes at least 0.5 fewer syncs
+     per iteration, every fx finite; instance-iterations/s, device ms,
+     syncs and host launch calls per iteration of both; then instances 0-7
+     solo against the batch after 8 iterations;
+ 42. batched deep: the batched uncapped paths at m = 80 (plain and
+     OWL-QN; two bf16 rings of 2.7 GB), 30 iterations: the deep K4 b (K14
+     b) and the M = 0 K15 b (K16 b) per iteration;
+ 43. sharded world size 1: an NCCL group of one rank in this process
      (``lbfgs_torch.parallel``), the main path and the OWL-QN main path at
      n = 2^24 under ``kernels_on_mesh``, each against the same run with no
      mesh: iterations, evaluations, fx and x bit for bit, the same
@@ -199,7 +222,7 @@ Phases (any failure raises and the script exits nonzero):
      (eight runs in turns), the all-reduce ms per iteration, and where
      one all-reduce of a launch's scalars spends its time (timed pieces
      and torch.profiler traces);
- 41. sharded two ranks: two spawned gloo ranks sharing cuda:0 (this script
+ 44. sharded two ranks: two spawned gloo ranks sharing cuda:0 (this script
      with ``--sharded-rank``), n = 2^24 in all, the main, OWL-QN and damped
      main paths: both ranks bit for bit alike (iterations, evaluations,
      fx, the gathered x), K1, K2 (K8), K4 (K14) and K15 (K16) launched on
@@ -209,12 +232,13 @@ Phases (any failure raises and the script exits nonzero):
      single-process launch, vectors and ring rows bit for bit; the main
      path's iterations and every path's fx against the solo phases, the
      first 8 iterations in float64 the solo run's steps; collectives, ms
-     and all-reduce ms per iteration;
- 42. launch_overhead: microseconds per back-to-back launch of the
+     and all-reduce ms per iteration; the mesh forms' checks also at m = 80
+     (the deep K4, K14, K15 and K16, n = 2^20);
+ 45. launch_overhead: microseconds per back-to-back launch of the
      calibration kernel (``csrc/calibrate.cu``) and per launch with one
      synchronising read, and the share of each main path's ms/iter that
      its launches and reads per iteration explain;
- 43. with ``--profile PATH`` only: one run of each main path (plain,
+ 46. with ``--profile PATH`` only: one run of each main path (plain,
      OWL-QN, damped, damped OWL-QN, Poisson, and the first three without
      the fusion) under torch.profiler (device busy time against the
      unprofiled walls, device items, host launch and copy calls); the
@@ -390,6 +414,28 @@ KERNELS.update({
 BATCHED_OWLQN_PATH = ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched",
                       "K13b_combine_ow_batched")
 BATCHED_OWLQN_INIT = ("K10b_pseudo_gradient_norm_batched",)
+#: the batched runner's combine+probe fusions (the uncapped step), and the
+#: deep forms of its epilogues and fusions (above factory.MAX_M ring rows:
+#: the ``_m80`` rows, at m = 80)
+KERNELS.update({
+    "K15b_combine_probe_batched": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                   "lbfgs_tpu/ops/factory.py:1195" + VMAPPED),
+    "K16b_combine_ow_probe_batched": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                      "lbfgs_tpu/ops/factory.py:1345" + VMAPPED),
+})
+BATCHED_DEEP_FORMS = ("K4b_trial_pair_gram_batched", "K14b_owlqn_trial_pair_gram_batched",
+                      "K15b_combine_probe_batched", "K16b_combine_ow_probe_batched")
+KERNELS.update({f"{name}_m80": (route, src, f"{rep} (m = 80)")
+                for name, (route, src, rep) in list(KERNELS.items())
+                if name in BATCHED_DEEP_FORMS})
+BATCHED_UNCAPPED_PATH = ("K2b_probe_batched", "K4b_trial_pair_gram_batched",
+                         "K15b_combine_probe_batched")
+BATCHED_OWLQN_UNCAPPED_PATH = ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched",
+                               "K16b_combine_ow_probe_batched")
+BATCHED_DEEP_PATH = ("K2b_probe_batched", "K4b_trial_pair_gram_batched_m80",
+                     "K15b_combine_probe_batched_m80")
+BATCHED_OWLQN_DEEP_PATH = ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched_m80",
+                           "K16b_combine_ow_probe_batched_m80")
 #: the kernels each main path must launch, and whose launches the kernel
 #: table shows from that path
 PLAIN_PATH = ("K1_trial", "K2_probe", "K4_trial_pair_gram", "K15_combine_probe")
@@ -466,6 +512,8 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
         "K14b_owlqn_trial_pair_gram_batched": (7 * v + rings, 12 * m + 40),
         "K13b_combine_ow_batched": (2 * v + 2 * m * h, 4 * m + 10),
         "K10b_pseudo_gradient_norm_batched": (3 * v, 6),
+        "K15b_combine_probe_batched": (3 * v + 2 * m * h, 4 * m + 22),
+        "K16b_combine_ow_probe_batched": (3 * v + 2 * m * h, 4 * m + 34),
         # reads and writes one float32 per element, at n = N_NULL
         "cal_null_launch": (8, 1),
     }[name]
@@ -1485,11 +1533,13 @@ FACTORY_REFS = ("trial_ref", "probe_ref", "trial_pair_gram_ref", "owlqn_trial_re
                 "owlqn_probe_ref", "owlqn_probe_pg_ref", "owlqn_trial_pair_gram_ref",
                 "combine_probe_ref", "combine_ow_probe_ref", "probe_batched_ref",
                 "trial_pair_gram_batched_ref", "owlqn_probe_pg_batched_ref",
-                "owlqn_trial_pair_gram_batched_ref")
+                "owlqn_trial_pair_gram_batched_ref", "combine_probe_batched_ref",
+                "combine_ow_probe_batched_ref")
 FACTORY_WRAPPERS = ("trial", "probe", "trial_pair_gram", "owlqn_trial", "owlqn_probe",
                     "owlqn_probe_pg", "owlqn_trial_pair_gram", "combine_probe",
                     "combine_ow_probe", "probe_batched", "trial_pair_gram_batched",
-                    "owlqn_probe_pg_batched", "owlqn_trial_pair_gram_batched")
+                    "owlqn_probe_pg_batched", "owlqn_trial_pair_gram_batched",
+                    "combine_probe_batched", "combine_ow_probe_batched")
 
 
 def _factory_launches(k, sfx: str) -> dict:
@@ -1522,6 +1572,20 @@ def _factory_launches(k, sfx: str) -> dict:
     return out
 
 
+def _batched_forms(k) -> dict:
+    """The launches of the batched epilogues and fusions ``k`` under the
+    table's names: the static forms (at most factory.MAX_M ring rows) and
+    the deep forms (``_m80``) apart."""
+    out = {}
+    for name, fn in (("K4b_trial_pair_gram_batched", k.trial_pair_gram_batched),
+                     ("K14b_owlqn_trial_pair_gram_batched", k.owlqn_trial_pair_gram_batched),
+                     ("K15b_combine_probe_batched", k.combine_probe_batched),
+                     ("K16b_combine_ow_probe_batched", k.combine_ow_probe_batched)):
+        out[name] = fn.launches - fn.deep_launches
+        out[name + "_m80"] = fn.deep_launches
+    return out
+
+
 def launches() -> dict:
     """Every counted kernel's launches since the last ``reset_counts``: the
     Rosenbrock objective's factory kernels, the CUDA kernels, and the
@@ -1540,15 +1604,12 @@ def launches() -> dict:
         "K17_axpy_dot": fused.axpy_dot.launches,
         "cal_null_launch": profiling.null_launch.launches,
         "K2b_probe_batched": rosenbrock.value_and_grad.kernels.probe_batched.launches,
-        "K4b_trial_pair_gram_batched":
-            rosenbrock.value_and_grad.kernels.trial_pair_gram_batched.launches,
         "K3b_combine_batched": fused.combine_batched.launches,
         "K8b_owlqn_probe_batched":
             rosenbrock.value_and_grad.kernels.owlqn_probe_pg_batched.launches,
-        "K14b_owlqn_trial_pair_gram_batched":
-            rosenbrock.value_and_grad.kernels.owlqn_trial_pair_gram_batched.launches,
         "K13b_combine_ow_batched": fused.combine_ow_batched.launches,
         "K10b_pseudo_gradient_norm_batched": fused.pseudo_gradient_norm_batched.launches,
+        **_batched_forms(rosenbrock.value_and_grad.kernels),
     }
     ex = dict.fromkeys(_factory_launches(rosenbrock.value_and_grad.kernels, "_ex"), 0)
     for obj in EXTRAS.values():
@@ -1586,6 +1647,9 @@ PLAIN = {
         rosenbrock.value_and_grad.kernels.owlqn_trial_pair_gram_batched_ref,
     "K13b_combine_ow_batched": fused.combine_ow_batched_ref,
     "K10b_pseudo_gradient_norm_batched": fused.pseudo_gradient_norm_batched_ref,
+    "K15b_combine_probe_batched": rosenbrock.value_and_grad.kernels.combine_probe_batched_ref,
+    "K16b_combine_ow_probe_batched":
+        rosenbrock.value_and_grad.kernels.combine_ow_probe_batched_ref,
 }
 
 
@@ -1603,7 +1667,9 @@ def _reset_factory(k) -> None:
         getattr(k, name).launches = 0
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram):
         fn.gp_launches = fn.deep_gp_launches = 0
-    for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.combine_probe, k.combine_ow_probe):
+    for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.combine_probe, k.combine_ow_probe,
+               k.trial_pair_gram_batched, k.owlqn_trial_pair_gram_batched,
+               k.combine_probe_batched, k.combine_ow_probe_batched):
         fn.deep_launches = 0
     k.combine_probe.fix_launches = k.combine_probe.deep_fix_launches = 0
     for name in FACTORY_REFS:
@@ -3905,7 +3971,8 @@ def _batched_run(name: str, params: LbfgsParams, B: int, n: int, path=BATCHED_PA
     # one per search trip; the init's kernels once; nothing else launched,
     # no plain version
     probe, epilogue, combine = path
-    if not (1 <= lc[epilogue] == lc[combine] <= iters and lc[probe] >= lc[epilogue]):
+    if not (1 <= lc[epilogue] == lc[combine] <= iters
+            and (carried.used or lc[probe] >= lc[epilogue])):
         raise AssertionError(f"{name}: launches {lc} in {iters} iterations")
     _expect(name, lc, pc, **{k: lc[k] for k in path}, **dict.fromkeys(init, 1))
     return st, walls, lc, pc, reads, iters, x0b
@@ -3931,11 +3998,12 @@ def _batched_report(phase: str, st, walls: list, lc: dict, reads: int, iters: in
     return out
 
 
-def _batched_profile(params: LbfgsParams, x0b: torch.Tensor) -> dict:
+def _batched_profile(params: LbfgsParams, x0b: torch.Tensor, fn=None) -> dict:
     """Device busy ms and host launch calls per iteration of one profiled
-    batched run (None where every profiler session came back empty)."""
-    prof, st = profiled(lambda: minimize_batched(params, x0b, default_evaluate(),
-                                                 return_state=True))
+    batched run on the objective ``fn`` (Rosenbrock's by default; None
+    where every profiler session came back empty)."""
+    fn = fn or default_evaluate()
+    prof, st = profiled(lambda: minimize_batched(params, x0b, fn, return_state=True))
     iters = int(st.k.max()) - 1
     if prof is None:
         return dict(device_ms_per_iter=None, launch_calls_per_iter=None)
@@ -3962,19 +4030,9 @@ def phase_batched_main_path() -> dict:
     out = _batched_report("batched_main_path", st, walls, lc, reads, iters, **prof,
                           solo_main_path_device_ms_per_iter=solo, plain_calls=pc)
     del st
-    p8 = params.replace(max_iterations=9)
-    st8 = minimize_batched(p8, x0b, default_evaluate(), return_state=True)
-    held = []
-    for b in range(8):
-        so = minimize_jit(p8, x0b[b].clone(), default_evaluate(), return_state=True)
-        rel = abs(float(st8.fx[b]) / float(so.prob.fx) - 1)
-        if (so.k, so.prob.neval) != (int(st8.k[b]), int(st8.neval[b])) or not rel <= FUSION_TOL_8:
-            raise AssertionError(f"batched instance {b} against its solo run after 8 "
-                                 f"iterations: k/neval {(int(st8.k[b]), int(st8.neval[b]))} vs "
-                                 f"{(so.k, so.prob.neval)}, rel fx {rel:.3e}")
-        held.append(dict(k=so.k, neval=so.prob.neval, rel_fx=rel))
-    emit(phase="batched_vs_solo", iters=8, fx_tol=FUSION_TOL_8, instances=held)
-    del st8, x0b
+    emit(phase="batched_vs_solo", iters=8, fx_tol=FUSION_TOL_8,
+         instances=_vs_solo_8("batched", params, x0b))
+    del x0b
     torch.cuda.empty_cache()
     return lc, out
 
@@ -4187,6 +4245,300 @@ def phase_batched_owlqn_main_path(plain: dict) -> dict:
                           BATCHED_OWLQN_PATH, **prof, plain_batched_main_path=beside,
                           init_launches={k: lc[k] for k in BATCHED_OWLQN_INIT}, plain_calls=pc)
     del st
+    emit(phase="batched_owlqn_vs_solo", iters=8, fx_tol=FUSION_TOL_8,
+         instances=_vs_solo_8("batched OWL-QN", params, x0b))
+    del x0b
+    torch.cuda.empty_cache()
+    return lc, out
+
+
+# ---------------------------------------------------------------------------
+# the batched runner at the uncapped step and at any depth: K15 b, K16 b and
+# the deep forms of K4 b, K14 b, K15 b and K16 b
+# ---------------------------------------------------------------------------
+
+#: the batched uncapped main paths: the batched main path (More-Thuente)
+#: and the batched OWL-QN main path (c = 1 on [0, n - 1), Armijo) with the
+#: step uncapped, the plain one also with the adaptive entry step (growth
+#: 2; the solo adaptive phase's setting)
+BATCHED_UNCAPPED_PARAMS = BATCHED_PARAMS.replace(constrain_step_size=False)
+BATCHED_ADAPTIVE_PARAMS = BATCHED_UNCAPPED_PARAMS.replace(adaptive_entry_step=2.0)
+BATCHED_OWLQN_UNCAPPED_PARAMS = BATCHED_OWLQN_PARAMS.replace(constrain_step_size=False)
+#: the batched deep phase: both at m = 80 (two bf16 rings of 2.7 GB)
+BATCHED_DEEP_PARAMS = {
+    "plain": (BATCHED_UNCAPPED_PARAMS.replace(m=DEEP_M), BATCHED_DEEP_PATH, ()),
+    "owlqn": (BATCHED_OWLQN_UNCAPPED_PARAMS.replace(m=DEEP_M), BATCHED_OWLQN_DEEP_PATH,
+              BATCHED_OWLQN_INIT),
+}
+
+
+def batched_fusion_inputs(seed: int, m: int) -> dict:
+    """Seeded inputs of the batched fusions and deep epilogues at B x n =
+    1024 x 2^14 with rings of depth m (bf16), a pseudo-gradient, xp zero
+    at every 17th element and every third instance from the third
+    frozen."""
+    B, n = BATCH_B, BATCH_N
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    live = torch.ones(B, dtype=torch.bool, device="cuda")
+    live[2::3] = False
+    xp = rosenbrock.initial_point(n, torch.float32, "cuda")[None, :] + 0.1 * r(B, n)
+    xp[:, ::17] = 0.0
+    return dict(xp=xp, d=0.1 * r(B, n), gp=r(B, n), pg=r(B, n),
+                S=(0.1 * r(B, m, n)).bfloat16(), Y=(0.1 * r(B, m, n)).bfloat16(),
+                stp=0.2 + torch.rand(B, generator=g, device="cuda"),
+                coef=(0.5 / m ** 0.5) * r(B, 1 + 2 * m), live=live)
+
+
+def _check_batched_fusions(k, a: dict, m: int, sfx: str, errs: dict, solo: dict,
+                           cases: dict) -> None:
+    """K15 b and K16 b at ring depth m against their plain versions and, on
+    instances ``BATCH_SOLO``, against the solo K15 and K16 (r and rc, the
+    combine's sums and the probe's (ft, g.r) bit for bit); adds each
+    form's timing case to ``cases``."""
+    tv, ts = TOL[(torch.float32, "vec")], TOL[(torch.float32, "sum")]
+    live, frozen = a["live"], ~a["live"]
+    lo, hi = windows(BATCH_N)[1]
+    c = C_L1
+    forms = {
+        "K15b_combine_probe_batched": (
+            k.combine_probe_batched, k.combine_probe_batched_ref,
+            lambda f, out, lv: f(a["gp"], a["xp"], a["S"], a["Y"], a["coef"], a["stp"], lv, out),
+            lambda b, cf, stp: k.combine_probe(a["gp"][b], a["xp"][b], a["S"][b], a["Y"][b],
+                                               cf[0], cf[1:1 + m], cf[1 + m:], stp)),
+        "K16b_combine_ow_probe_batched": (
+            k.combine_ow_probe_batched, k.combine_ow_probe_batched_ref,
+            lambda f, out, lv: f(a["pg"], a["xp"], a["S"], a["Y"], a["coef"], c, lo, hi,
+                                 a["stp"], lv, out),
+            lambda b, cf, stp: k.combine_ow_probe(a["pg"][b], a["xp"][b], a["S"][b], a["Y"][b],
+                                                  cf[0], cf[1:1 + m], cf[1 + m:], c, lo, hi,
+                                                  stp)),
+    }
+    every = torch.ones_like(live)
+    for name, (kern, ref, call, one) in forms.items():
+        rk, rq = torch.zeros_like(a["d"]), torch.zeros_like(a["d"])
+        sk, sq = call(kern, rk, live), call(ref, rq, live)
+        errs[name + sfx] = (check(f"{name}{sfx} r", rk[live], rq[live], tv),
+                            *(check(f"{name}{sfx} sum{i}", sk[i][live], sq[i][live], ts)
+                              for i in range(len(sk))))
+        if rk[frozen].any():
+            raise AssertionError(f"{name}{sfx} wrote a frozen instance")
+        for b in BATCH_SOLO:
+            cf = a["coef"][b]
+            want = one(b, cf, float(a["stp"][b]))
+            if not same_bits(rk[b], want[0]):
+                raise AssertionError(f"{name}{sfx} instance {b}: r differs from the solo kernel")
+            bits = [same_bits(u[b], v) for u, v in zip(sk, want[1:])]
+            if not all(bits):
+                raise AssertionError(f"{name}{sfx} instance {b}: the sums (combine's, then the "
+                                     f"probe's) against the solo kernel's bit for bit: {bits}")
+            solo[f"{name}{sfx}_{b}"] = "bit-exact"
+        out = torch.zeros_like(a["d"])
+        cases[name + sfx] = (lambda call=call, kern=kern, out=out: call(kern, out, every),
+                             lambda call=call, ref=ref, out=out: call(ref, out, every), m)
+
+
+def _check_batched_deep_epilogues(k, a: dict, m: int, errs: dict, solo: dict,
+                                  cases: dict) -> None:
+    """The deep K4 b and K14 b at ring depth m against their plain versions
+    (vectors and sums normwise, ring row ``end`` bit for bit the rounding
+    of the kernel's own pair, the other rows kept, frozen instances
+    untouched) and, on instances ``BATCH_SOLO``, against the solo deep K4
+    and K14 (x, g, pg and the rings bit for bit); adds their timing cases
+    (in place, on copies) to ``cases``."""
+    tv, ts = TOL[(torch.float32, "vec")], TOL[(torch.float32, "sum")]
+    live, frozen = a["live"], ~a["live"]
+    lo, hi = windows(BATCH_N)[1]
+    c, end = C_L1, m - 3
+    names = ("xp", "gp", "pg", "S", "Y")
+
+    def tpg(fn, t, lv):
+        return fn(t["xp"], a["d"], t["gp"], a["stp"], t["S"], t["Y"], end, lv)
+
+    def ow_tpg(fn, t, lv):
+        return fn(t["xp"], a["d"], t["gp"], t["pg"], a["stp"], c, lo, hi, t["S"], t["Y"], end,
+                  lv)
+
+    forms = {
+        "K4b_trial_pair_gram_batched_m80": (k.trial_pair_gram_batched,
+                                            k.trial_pair_gram_batched_ref, tpg, False),
+        "K14b_owlqn_trial_pair_gram_batched_m80": (k.owlqn_trial_pair_gram_batched,
+                                                   k.owlqn_trial_pair_gram_batched_ref, ow_tpg,
+                                                   True),
+    }
+    for name, (kern, ref, call, ow) in forms.items():
+        tk = {n_: a[n_].clone() for n_ in names}
+        deep = kern.deep_launches
+        outk = call(kern, tk, live)
+        if kern.deep_launches != deep + 1:
+            raise AssertionError(f"{name}: the deep form did not launch")
+        tq = {n_: a[n_].clone() for n_ in ("xp", "gp", "pg")}
+        tq["S"], tq["Y"] = a["S"].clone(), a["Y"].clone()
+        outq = call(ref, tq, live)
+        vecs = ("xp", "gp", "pg") if ow else ("xp", "gp")
+        e = [check(f"{name} {n_}", tk[n_][live], tq[n_][live], tv) for n_ in vecs]
+        e += [check(f"{name} sum{i}", u[live], v[live], ts)
+              for i, (u, v) in enumerate(zip(outk, outq)) if u.dtype != torch.bool]
+        if not all(torch.equal(u[live], v[live])
+                   for u, v in zip(outk, outq) if u.dtype == torch.bool):
+            raise AssertionError(f"{name}: changed differs from the plain version")
+        errs[name] = tuple(e)
+        s_new = ((tk["xp"] - a["xp"]) if ow else a["stp"][:, None] * a["d"]).to(torch.bfloat16)
+        y_new = (tk["gp"] - a["gp"]).to(torch.bfloat16)
+        keep = [j for j in range(m) if j != end]
+        if not (same_bits(tk["S"][live][:, end], s_new[live])
+                and same_bits(tk["Y"][live][:, end], y_new[live])
+                and same_bits(tk["S"][:, keep], a["S"][:, keep])
+                and same_bits(tk["Y"][:, keep], a["Y"][:, keep])):
+            raise AssertionError(f"{name}: the ring rows are not the rounded pair and the kept "
+                                 f"rows")
+        if not all(same_bits(tk[n_][frozen], a[n_][frozen]) for n_ in names):
+            raise AssertionError(f"{name} wrote a frozen instance")
+        del tq, outq, s_new, y_new
+        torch.cuda.empty_cache()
+        for b in BATCH_SOLO:
+            Sb, Yb = a["S"][b].clone(), a["Y"][b].clone()
+            stp = float(a["stp"][b])
+            if ow:
+                x1, g1, pg1 = k.owlqn_trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b],
+                                                      a["pg"][b], stp, c, lo, hi, Sb, Yb,
+                                                      end)[:3]
+            else:
+                x1, _, g1 = k.trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b], stp, Sb, Yb,
+                                              end)[:3]
+                pg1 = tk["pg"][b]
+            bits = dict(x=same_bits(tk["xp"][b], x1), g=same_bits(tk["gp"][b], g1),
+                        pg=same_bits(tk["pg"][b], pg1), S=same_bits(tk["S"][b], Sb),
+                        Y=same_bits(tk["Y"][b], Yb))
+            if not all(bits.values()):
+                raise AssertionError(f"{name} instance {b} differs from the solo deep form: "
+                                     f"{bits}")
+            solo[f"{name}_{b}"] = bits
+        del tk, outk
+        torch.cuda.empty_cache()
+        t = {n_: a[n_].clone() for n_ in names}
+        every = torch.ones_like(live)
+        cases[name] = (lambda call=call, kern=kern, t=t: call(kern, t, every),
+                       lambda call=call, ref=ref, t=t: call(ref, t, every), m)
+
+
+def batched_compiled() -> list:
+    """Registers and spills of every compiled batched epilogue and fusion
+    (K4 b, K14 b, their deep forms, K15 b and K16 b with M = m and M = 0);
+    a form that spills fails the phase."""
+    k = rosenbrock.value_and_grad.kernels
+    forms = []
+    for form, fn in (("K4b", k.trial_pair_gram_batched),
+                     ("K14b", k.owlqn_trial_pair_gram_batched)):
+        for deep, compiled in ((False, fn.compiled), (True, fn.deep_compiled)):
+            for (vd, hd), ck in sorted(compiled.items(), key=str):
+                forms.append(dict(form=form + (" deep" if deep else ""), vectors=str(vd),
+                                  history=str(hd), **_compiled_info(ck)))
+    for form, fn in (("K15b", k.combine_probe_batched), ("K16b", k.combine_ow_probe_batched)):
+        for (vd, hd, deep), ck in sorted(fn.compiled.items(), key=str):
+            forms.append(dict(form=form + (" M=0" if deep else ""), vectors=str(vd),
+                              history=str(hd), **_compiled_info(ck)))
+    emit(phase="batched_compiled", forms=forms)
+    spilled = [f for f in forms if f["n_spills"]]
+    if spilled:
+        raise AssertionError(f"batched forms spill registers: {spilled}")
+    return forms
+
+
+def phase_batched_fusion_kernels() -> dict:
+    """K15 b and K16 b at m = 6 and their M = 0 forms at m = 80, and the
+    deep K4 b and K14 b at m = 80, against their plain versions on the card
+    at B = 1024, n = 2^14, f32 vectors, bf16 rings, a third of the
+    instances frozen, the OWL-QN forms on a window whose ends fall inside
+    the kernels' blocks (normwise 1e-5 on vectors, 1e-4 on sums; the ring
+    rows and the frozen instances bit for bit); instances 0, 511 and 1023
+    against the solo K15, K16 (r and rc, the sums and the probes bit for
+    bit) and the solo deep K4 and K14 (x, g, pg and the rings bit for
+    bit).  Each timed with every instance live beside its plain version
+    and its bound (5 launches a sample at m = 80, 20 at m = 6); every
+    compiled form's registers and spills (``batched_compiled``)."""
+    k = rosenbrock.value_and_grad.kernels
+    errs, solo, cases = {}, {}, {}
+    times, timed_by, bounds = {}, {}, {}
+    for m, sfx in ((M, ""), (DEEP_M, "_m80")):
+        a = batched_fusion_inputs(SEED + 16, m)
+        _check_batched_fusions(k, a, m, sfx, errs, solo, cases)
+        if m == DEEP_M:
+            _check_batched_deep_epilogues(k, a, m, errs, solo, cases)
+        for name, (kern, plain, depth) in cases.items():
+            k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain, 20 if m == M else 5)
+            times[name], timed_by[name] = (k_ms, p_ms), (k_by, p_by)
+            bounds[name] = bound(name, BATCH_B * BATCH_N, 4, 2, depth)
+        cases.clear()
+        del a
+        torch.cuda.empty_cache()
+    compiled = batched_compiled()
+    errs = {name: (max(e[0] for e in v), max(e[1] for e in v)) for name, v in errs.items()}
+    emit(phase="batched_fusion_kernels", B=BATCH_B, n=BATCH_N, m=[M, DEEP_M],
+         window=windows(BATCH_N)[1], frozen=len(range(2, BATCH_B, 3)), max_abs_err={n_: e[0] for n_, e in errs.items()},
+         max_normwise_err={n_: e[1] for n_, e in errs.items()},
+         tol=dict(vec=TOL[(torch.float32, "vec")], sum=TOL[(torch.float32, "sum")],
+                  ring_rows="bit-exact", frozen="bit-exact",
+                  vs_solo_r_rc_sums_probes_x_g_pg_rings="bit-exact"),
+         vs_solo=solo, compiled=len(compiled),
+         device_ms={n_: {"kernel": t[0], "plain": t[1], "bound": bounds[n_][0]}
+                    for n_, t in times.items()},
+         timed_by={n_: {"kernel": t[0], "plain": t[1]} for n_, t in timed_by.items()})
+    return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
+
+
+def _batched_turns(name: str, params: LbfgsParams, path: tuple, unfused_path: tuple,
+                   init: tuple = ()) -> dict:
+    """The fused batched run (the objective's K15 b or K16 b) and, in turns
+    with it, the same run on the objective without the fusions' hooks
+    (``unfused``: K3 b or K13 b, a probe on every trip) from ``batched_x0``
+    at B x n = 1024 x 2^14: one warm run of each, then ``BATCHED_RUNS``
+    timed runs of each in turns, the counts reset before each.  Each
+    side's last run must launch its path and its init and nothing else,
+    call no plain version, end with every fx finite, and launch its
+    epilogue and its combine once per iteration; the fused side's searches
+    after each instance's first take their first trip carried, the
+    unfused side's none.  Returns, per side, (state, walls, launches,
+    reads, carried first trips, iterations) and the starts."""
+    x0b = batched_x0(BATCH_B, BATCH_N)
+    fns = {"fused": default_evaluate(), "unfused": unfused(default_evaluate())}
+    for fn in fns.values():
+        minimize_batched(params, x0b, fn)
+    torch.cuda.synchronize()
+    runs = {side: dict(walls=[]) for side in fns}
+    for _ in range(BATCHED_RUNS):
+        for side, fn in fns.items():
+            reset_counts()
+            out = []
+            runs[side]["walls"].append(profiling.timed(
+                lambda: out.append(minimize_batched(params, x0b, fn, return_state=True)),
+                warmup=0))
+            runs[side].update(st=out[0], lc=launches(), pc=plain_calls(), reads=to_host.reads,
+                              used=carried.used)
+    for side, r in runs.items():
+        st, lc = r["st"], r["lc"]
+        p = path if side == "fused" else unfused_path
+        iters = int(st.k.max()) - 1
+        r["iters"] = iters
+        if not np.isfinite(st.fx).all() or st.x.device.type != "cuda":
+            raise AssertionError(f"{name} ({side}): non-finite fx or the run left the card")
+        if not 1 <= lc[p[1]] == lc[p[2]] <= iters:
+            raise AssertionError(f"{name} ({side}): launches {lc} in {iters} iterations")
+        _expect(f"{name} ({side})", lc, r["pc"], **{k: lc[k] for k in p},
+                **dict.fromkeys(init, 1))
+        # every search after an instance's first carries its first trip
+        want = int(np.maximum(st.k - 2, 0).sum()) if side == "fused" else 0
+        if r["used"] != want:
+            raise AssertionError(f"{name} ({side}): {r['used']} carried first trips, {want} "
+                                 f"expected")
+    runs["x0b"] = x0b
+    return runs
+
+
+def _vs_solo_8(name: str, params: LbfgsParams, x0b: torch.Tensor) -> list:
+    """Instances 0-7 solo through ``minimize_jit`` against a batched run of
+    8 iterations: the same iterations and evaluations, fx rel
+    ``FUSION_TOL_8``."""
     p8 = params.replace(max_iterations=9)
     st8 = minimize_batched(p8, x0b, default_evaluate(), return_state=True)
     held = []
@@ -4194,14 +4546,91 @@ def phase_batched_owlqn_main_path(plain: dict) -> dict:
         so = minimize_jit(p8, x0b[b].clone(), default_evaluate(), return_state=True)
         rel = abs(float(st8.fx[b]) / float(so.prob.fx) - 1)
         if (so.k, so.prob.neval) != (int(st8.k[b]), int(st8.neval[b])) or not rel <= FUSION_TOL_8:
-            raise AssertionError(f"batched OWL-QN instance {b} against its solo run after 8 "
+            raise AssertionError(f"{name} instance {b} against its solo run after 8 "
                                  f"iterations: k/neval {(int(st8.k[b]), int(st8.neval[b]))} vs "
                                  f"{(so.k, so.prob.neval)}, rel fx {rel:.3e}")
         held.append(dict(k=so.k, neval=so.prob.neval, rel_fx=rel))
-    emit(phase="batched_owlqn_vs_solo", iters=8, fx_tol=FUSION_TOL_8, instances=held)
-    del st8, x0b
+    return held
+
+
+def _uncapped_phase(phase: str, params: LbfgsParams, path: tuple, unfused_path: tuple,
+                    init: tuple, beside: dict) -> tuple:
+    """One batched uncapped path, fused and unfused in turns
+    (``_batched_turns``), each side's line (``_batched_report``, with its
+    device ms and host launch calls per iteration from a profiled run),
+    the fused side at least 0.5 syncs per iteration below the unfused, and
+    instances 0-7 against their solo runs."""
+    runs = _batched_turns(phase, params, path, unfused_path, init)
+    x0b = runs.pop("x0b")
+    out = {}
+    for side, r in runs.items():
+        fn = default_evaluate() if side == "fused" else unfused(default_evaluate())
+        out[side] = _batched_report(
+            f"{phase}_{side}" if side == "unfused" else phase, r["st"], r["walls"], r["lc"],
+            r["reads"], r["iters"], path if side == "fused" else unfused_path,
+            **_batched_profile(params, x0b, fn), carried_first_trips=r["used"],
+            **({"capped_batched_main_path": beside} if side == "fused" else {}))
+    gain = out["unfused"]["syncs_per_iter"] - out["fused"]["syncs_per_iter"]
+    if not gain >= 0.5:
+        raise AssertionError(f"{phase}: the fusion saves {gain:.3f} syncs per iteration, "
+                             f"0.5 at least expected")
+    a, b = runs["fused"]["st"], runs["unfused"]["st"]
+    same = (a.k == b.k) & (a.neval == b.neval) & (a.fx == b.fx)
+    emit(phase=f"{phase}_vs_solo", iters=8, fx_tol=FUSION_TOL_8,
+         instances=_vs_solo_8(phase, params, x0b), syncs_saved_per_iter=gain,
+         fused_unfused_same_k_neval_fx=int(same.sum()))
+    del runs, a, b, x0b
     torch.cuda.empty_cache()
-    return lc, out
+    return out["fused"]["launches"], out
+
+
+def phase_batched_uncapped_main_path(capped: dict) -> tuple:
+    """``minimize_batched`` at the batched main path's configuration with
+    the step uncapped (``BATCHED_UNCAPPED_PARAMS``), literal and with the
+    adaptive entry step (``BATCHED_ADAPTIVE_PARAMS``): K2 b per probe not
+    carried in, K4 b and K15 b per iteration; each in turns with the same
+    run without the fusion (K3 b, a probe every trip).  Returns the literal
+    run's launches and both fused lines."""
+    beside = {key: capped.get(key) for key in (
+        "instance_iters_per_s", "wall_ms_per_iter", "device_ms_per_iter", "syncs_per_iter",
+        "launch_calls_per_iter")}
+    lc, literal = _uncapped_phase("batched_uncapped_main_path", BATCHED_UNCAPPED_PARAMS,
+                                  BATCHED_UNCAPPED_PATH, BATCHED_PATH, (), beside)
+    _, adaptive = _uncapped_phase("batched_adaptive_main_path", BATCHED_ADAPTIVE_PARAMS,
+                                  BATCHED_UNCAPPED_PATH, BATCHED_PATH, (), beside)
+    return lc, dict(literal=literal, adaptive=adaptive)
+
+
+def phase_batched_owlqn_uncapped_main_path(capped: dict) -> tuple:
+    """The batched OWL-QN main path with the step uncapped
+    (``BATCHED_OWLQN_UNCAPPED_PARAMS``): K10 b once, K8 b per probe not
+    carried in, K14 b and K16 b per iteration, in turns with the same run
+    without the fusion (K13 b)."""
+    beside = {key: capped.get(key) for key in (
+        "instance_iters_per_s", "wall_ms_per_iter", "device_ms_per_iter", "syncs_per_iter",
+        "launch_calls_per_iter")}
+    return _uncapped_phase("batched_owlqn_uncapped_main_path", BATCHED_OWLQN_UNCAPPED_PARAMS,
+                           BATCHED_OWLQN_UNCAPPED_PATH, BATCHED_OWLQN_PATH, BATCHED_OWLQN_INIT,
+                           beside)
+
+
+def phase_batched_deep() -> dict:
+    """``minimize_batched`` at m = 80 ring rows (``BATCHED_DEEP_PARAMS``),
+    1024 x 2^14, f32 vectors, bf16 rings, uncapped, epsilon 0, 30
+    iterations, plain and OWL-QN: the deep K4 b and K15 b's M = 0 form per
+    iteration (K14 b deep and K16 b under OWL-QN), K2 b (K8 b) per probe
+    not carried in, nothing else, every fx finite; instance-iterations/s,
+    device ms and syncs per iteration.  Returns the launches of both."""
+    lc = {}
+    for label, (params, path, init) in BATCHED_DEEP_PARAMS.items():
+        st, walls, lc_run, pc, reads, iters, x0b = _batched_run(
+            f"batched deep {label}", params, BATCH_B, BATCH_N, path, init)
+        _batched_report(f"batched_deep_{label}", st, walls, lc_run, reads, iters, path,
+                        **_batched_profile(params, x0b), m=params.m, plain_calls=pc)
+        lc.update({name: lc_run[name] for name in path[1:]})
+        del st, x0b
+        torch.cuda.empty_cache()
+    return lc
 
 
 # ---------------------------------------------------------------------------
@@ -4552,21 +4981,28 @@ def _mesh_kernel_checks(mesh) -> dict:
     once and call no plain version.  The OWL-QN forms run on a window
     that starts and ends in different shards and on one inside rank 1's
     shard only.  Raises on any mismatch; returns the offset and each
-    case's largest relative scalar difference."""
-    n = N_BIG
-    n_loc = n // mesh.size
-    off = mesh.rank * n_loc
+    case's largest relative scalar difference.  The deep forms of K4, K14,
+    K15 and K16 (``_m80``: m = 80 ring rows, at n = 2^20) take the same
+    checks, each launching its deep form, rank 1's with the shard's
+    offset compiled in (``SHARD``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
 
     def r(*shape, s=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * s
 
-    x0 = rosenbrock.initial_point(n, torch.float32, "cuda")
-    a = dict(xp=x0 + r(n, s=0.1), d=r(n, s=0.1), gp=r(n), gx=r(n), pg=r(n), x=x0 + r(n, s=0.1),
-             wp=torch.sign(r(n)), S=r(M, n, s=0.1).bfloat16(), Y=r(M, n, s=0.1).bfloat16(),
-             cs=r(M), cy=r(M))
-    a["xz"] = a["xp"].clone()
-    a["xz"][::5] = 0.0
+    def data(n: int, m: int) -> dict:
+        x0 = rosenbrock.initial_point(n, torch.float32, "cuda")
+        a = dict(xp=x0 + r(n, s=0.1), d=r(n, s=0.1), gp=r(n), gx=r(n), pg=r(n),
+                 x=x0 + r(n, s=0.1), wp=torch.sign(r(n)), S=r(m, n, s=0.1).bfloat16(),
+                 Y=r(m, n, s=0.1).bfloat16(), cs=r(m), cy=r(m))
+        a["xz"] = a["xp"].clone()
+        a["xz"][::5] = 0.0
+        return a
+
+    n = N_BIG
+    n_loc = n // mesh.size
+    off = mesh.rank * n_loc
+    a = data(n, M)
     k = rosenbrock.value_and_grad.kernels
     quad = separable.quadratic(0.5 + r(n).abs(), r(n))
     gobj = factory.make_fused_objective(_gidx_body, block_ref=_gidx_block)
@@ -4625,6 +5061,46 @@ def _mesh_kernel_checks(mesh) -> dict:
         return (sum(plain_calls().values())
                 + sum(getattr(o.kernels, ref).calls for o in (quad, gobj) for ref in FACTORY_REFS))
 
+    # the deep forms at m = 80 (n = 2^20): K4 and K14 with and without the
+    # . gp column, K15 with and without its damped row and K16, the OWL-QN
+    # forms on a window that starts and ends in different shards
+    n_deep = 1 << 20
+    lo_d, hi_d = 130, n_deep - 7
+    deep_cases = [
+        *[(f"K4_trial_pair_gram{'_gp' if gp else ''}_m80", k.trial_pair_gram, lambda v, gp=gp:
+           k.trial_pair_gram(v.xp, v.d, v.gp, 0.6, v.S, v.Y, 4, with_gp=gp), (0, 2), epi_b,
+           True) for gp in (False, True)],
+        *[(f"K14_owlqn_trial_pair_gram{'_gp' if gp else ''}_m80", k.owlqn_trial_pair_gram,
+           lambda v, gp=gp: k.owlqn_trial_pair_gram(v.xz, v.d, v.gp, v.pg, 0.37, c, lo_d, hi_d,
+                                                    v.S, v.Y, 2, with_gp=gp), (0, 1, 2),
+           {**ow_epi_b, **({8: MESH_NORM, 9: MESH_DOT} if gp else {})}, True)
+          for gp in (False, True)],
+        *[(f"K15_combine_probe{'_fix' if fx else ''}_m80", k.combine_probe, lambda v, fx=fx:
+           k.combine_probe(v.gp, v.x, v.S, v.Y, gamma, v.cs, v.cy, 0.3,
+                           fix=fix if fx else None), (0,),
+           {1: MESH_NORM, 2: MESH_DOT, 3: MESH_NORM, 4: MESH_DOT}, True) for fx in (False, True)],
+        ("K16_combine_ow_probe_m80", k.combine_ow_probe, lambda v: k.combine_ow_probe(
+            v.pg, v.xz, v.S, v.Y, -gamma, v.cs, v.cy, c, lo_d, hi_d, 0.3), (0,),
+         {1: MESH_NORM, 2: MESH_NORM, 3: MESH_DOT, 4: MESH_NORM, 5: MESH_DOT}, False),
+    ]
+
+    res = _mesh_cases(mesh, a, cases, off, n_loc, plain_total)
+    n_loc_d = n_deep // mesh.size
+    res.update(_mesh_cases(mesh, data(n_deep, DEEP_M), deep_cases, mesh.rank * n_loc_d, n_loc_d,
+                           plain_total))
+    # the index body's single-process launch against its plain version
+    xt, _, g, *_ = gobj.kernels.trial(a["xp"], a["d"], 0.4)
+    _, _, g_ref, *_ = gobj.kernels.trial_ref(a["xp"], a["d"], 0.4)
+    res["gidx_K1_vs_plain"] = check("gidx K1 g vs plain", g, g_ref,
+                                    TOL[(torch.float32, "vec")])[1]
+    torch.cuda.empty_cache()
+    return dict(offset=off, cases=res)
+
+
+def _mesh_cases(mesh, a: dict, cases: list, off: int, n_loc: int, plain_total) -> dict:
+    """``_mesh_kernel_checks``'s cases on the inputs ``a``, this rank's
+    shard the elements [off, off + n_loc); a case named ``_m80`` must
+    launch its wrapper's deep form."""
     res = {}
     for name, wrapper, fn, vecs, bounds, rings in cases:
         whole = SimpleNamespace(**{key: (t.clone() if key in ("S", "Y") else t)
@@ -4633,12 +5109,15 @@ def _mesh_kernel_checks(mesh) -> dict:
         part = SimpleNamespace(**{key: (t if key in ("cs", "cy") else shard_vector(t, mesh))
                                   for key, t in a.items()})
         launched, plain = wrapper.launches, plain_total()
+        deep = getattr(wrapper, "deep_launches", 0)
         with kernels_on_mesh(mesh):
             got = fn(part)
         torch.cuda.synchronize()
         if wrapper.launches != launched + 1 or plain_total() != plain:
             raise AssertionError(f"mesh check {name}: {wrapper.launches - launched} launches, "
                                  f"{plain_total() - plain} plain calls")
+        if name.endswith("_m80") and wrapper.deep_launches != deep + 1:
+            raise AssertionError(f"mesh check {name}: the deep form did not launch")
         shard = lambda t: t.narrow(-1, off, n_loc)
         bad = [f"out{i}" for i in vecs if not same_bits(got[i], shard(single[i]))]
         if rings:
@@ -4655,13 +5134,7 @@ def _mesh_kernel_checks(mesh) -> dict:
                                  f"{bad}")
         res[name] = worst
         del whole, part, single, got
-    # the index body's single-process launch against its plain version
-    xt, _, g, *_ = gobj.kernels.trial(a["xp"], a["d"], 0.4)
-    _, _, g_ref, *_ = gobj.kernels.trial_ref(a["xp"], a["d"], 0.4)
-    res["gidx_K1_vs_plain"] = check("gidx K1 g vs plain", g, g_ref,
-                                    TOL[(torch.float32, "vec")])[1]
-    torch.cuda.empty_cache()
-    return dict(offset=off, cases=res)
+    return res
 
 
 def sharded_rank(rank: int, port: int, outdir: str) -> None:
@@ -4763,7 +5236,11 @@ def main() -> None:
     lc_batched, batched_out = run(phase_batched_main_path)
     run(phase_batched_baseline)
     batched_ow = run(phase_batched_owlqn_kernels)
-    lc_batched_ow, _ = run(phase_batched_owlqn_main_path, batched_out)
+    lc_batched_ow, batched_ow_out = run(phase_batched_owlqn_main_path, batched_out)
+    batched_fu = run(phase_batched_fusion_kernels)
+    lc_bu, _ = run(phase_batched_uncapped_main_path, batched_out)
+    lc_bowu, _ = run(phase_batched_owlqn_uncapped_main_path, batched_ow_out)
+    lc_bdeep = run(phase_batched_deep)
     run(phase_sharded_world1)
     run(phase_sharded_two_rank, {"main_path": main_out, "owlqn_main_path": ow_out,
                                  "damped_main_path": d_out})
@@ -4771,6 +5248,7 @@ def main() -> None:
         k[key].update(deep[key])
         k[key].update(batched[key])
         k[key].update(batched_ow[key])
+        k[key].update(batched_fu[key])
     lc_cal = run(phase_launch_overhead, {
         name: (params, fused, out["ms_per_iter"], out["syncs_per_iter"])
         for name, params, fused, out in (
@@ -4800,6 +5278,9 @@ def main() -> None:
           **{name: lc_lasso_var[name] for name in LASSO_VARIANTS_PATH}, **lc_deep,
           **{name: lc_batched[name] for name in BATCHED_PATH},
           **{name: lc_batched_ow[name] for name in BATCHED_OWLQN_PATH + BATCHED_OWLQN_INIT},
+          "K15b_combine_probe_batched": lc_bu["K15b_combine_probe_batched"],
+          "K16b_combine_ow_probe_batched": lc_bowu["K16b_combine_ow_probe_batched"],
+          **lc_bdeep,
           "K17_axpy_dot": lc_main["K17_axpy_dot"], **lc_cal}
     # library_ms: one PyTorch call computing the same function, where one
     # exists (only the calibration kernel's o = x + 1)

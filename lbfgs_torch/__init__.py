@@ -100,20 +100,22 @@ native backend, the batched runner and checkpoints raise
 Scenario batches (``Lbfgs.minimize_batched``, ``batched``): B independent
 instances of one factory objective as a [B, n] tensor, advanced together
 with one batched launch per pass (K2 b, K4 b, K3 b; under OWL-QN K8 b,
-K14 b, K13 b and K10 b at the init)::
+K14 b, K13 b and K10 b at the init; with the step uncapped the
+combine+probe fusions K15 b and K16 b in place of K3 b and K13 b)::
 
     out = lbfgs().minimize_batched(x0_batch, rosenbrock.value_and_grad)
     out["fx"], out["niter"], out["x"]
     out = lbfgs().with_orthantwise(1.0, 0, None).minimize_batched(x0_batch, fn)
+    out = lbfgs().with_constrain_step_size(False).with_adaptive_entry_step(2.0) \
+        .minimize_batched(x0_batch, fn)
 
 It runs plain L-BFGS with More-Thuente or the backtracking searches, and
-OWL-QN with backtracking (More-Thuente routed to it), under the capped
-step; damping, the gradient-only mode, the uncapped step, the adaptive
-entry step, the wide objective scalar, the scan two-loop, a float16
-history, more than 64 ring rows (the batched forms K4 b and K14 b stop
-there; the solo epilogues and fusions take any depth, their deep forms
-above ``ops.factory.MAX_M``) and generic objectives raise
-``NotImplementedError`` there, with OWL-QN and without.
+OWL-QN with backtracking (More-Thuente routed to it), the step capped or
+not, with the literal or the adaptive entry step, at any history depth
+(above ``ops.factory.MAX_M`` ring rows the deep forms of K4 b, K14 b,
+K15 b and K16 b); damping, the gradient-only mode, the wide objective
+scalar, the scan two-loop, a float16 history and generic objectives
+raise ``NotImplementedError`` there, with OWL-QN and without.
 """
 
 from __future__ import annotations

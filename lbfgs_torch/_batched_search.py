@@ -26,16 +26,24 @@ backtracking with the Armijo exit only (More-Thuente routed to it, as
 ``linesearch.find`` routes it), its probe the projected one (K8 b on the
 card), whose point the caller rebuilds from each instance's orthant.
 
+With the combine+probe fusion (K15 b, K16 b) each instance carries the
+first probe of its next search, ``probe1`` = (ft [B], g.d [B], stp [B]):
+on the first trip an instance whose step is its probed one takes the
+carried (ft, g.d), as ``linesearch.carried`` does for one search, and is
+left out of that trip's probe; it still counts the evaluation.  A trip
+on which every instance carried makes no probe and no read.
+
 Not here (the batched runner refuses them): the wide objective scalar and
 the gradient-only exit.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 
+from .linesearch import carried
 from .params import LineSearchAlgorithm, LineSearchParams
 from .status import Status
 
@@ -170,10 +178,27 @@ class BatchedSearch(NamedTuple):
 Probe = Callable[[np.ndarray, np.ndarray], tuple]
 
 
+def _trip(probe: Probe, stp, run, probe1: Optional[tuple], count: int) -> tuple:
+    """One trip's (ft, g.d) for the instances in ``run``: on the first trip
+    the carried ``probe1`` of each instance whose step is its probed one
+    (``linesearch.carried``; each use counted in ``carried.used``), one
+    probe over the others, and none when every instance carried."""
+    carry = np.zeros_like(run)
+    if probe1 is not None and count == 1:
+        carry = run & (stp == probe1[2])
+    go = run & ~carry
+    if not carry.any():
+        return probe(stp, go)
+    carried.used += int(carry.sum())
+    ft, dg = probe(stp, go) if go.any() else (probe1[0], probe1[1])
+    return np.where(carry, probe1[0], ft), np.where(carry, probe1[1], dg)
+
+
 def morethuente(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
-                probe: Probe) -> BatchedSearch:
+                probe: Probe, probe1: Optional[tuple] = None) -> BatchedSearch:
     """``linesearch.morethuente`` in probe-only mode over the instances in
-    ``live``, one ``probe`` per trip (``src/line.rs:226-399``)."""
+    ``live``, one ``probe`` per trip (``src/line.rs:226-399``), the first
+    trip carried in from ``probe1`` where its step is the probed one."""
     f = finit.dtype.type
     ftol, gtol, xtol = f(ls.ftol), f(ls.gtol), f(ls.xtol)
     min_step, max_step = f(ls.min_step), f(ls.max_step)
@@ -209,7 +234,7 @@ def morethuente(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
                                 | (stmax - stmin <= xtol * stmax))
             s = np.where(unusual, stx, s)
 
-            ft_t, dg_t = probe(s, run)
+            ft_t, dg_t = _trip(probe, s, run, probe1, count)
             ftest1 = finit + s * dgtest
 
             # error exits (src/line.rs:292-313)
@@ -269,12 +294,14 @@ def morethuente(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
 
 
 def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
-                 probe: Probe, ow: bool = False) -> BatchedSearch:
+                 probe: Probe, ow: bool = False,
+                 probe1: Optional[tuple] = None) -> BatchedSearch:
     """``linesearch.backtracking`` in probe-only mode (no gradient-only
     exit) over the instances in ``live``: the Armijo, Wolfe or strong-Wolfe
-    exit ladder (``src/line.rs:716-784``), one ``probe`` per trip.  Under
-    OWL-QN (``ow``) only the Armijo exit applies (``src/line.rs:747-751``),
-    whatever the ladder."""
+    exit ladder (``src/line.rs:716-784``), one ``probe`` per trip, the
+    first trip carried in from ``probe1`` where its step is the probed
+    one.  Under OWL-QN (``ow``) only the Armijo exit applies
+    (``src/line.rs:747-751``), whatever the ladder."""
     f = finit.dtype.type
     dec, inc = f(0.5), f(2.1)
     dgtest = f(ls.ftol) * dginit
@@ -300,7 +327,7 @@ def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
             run = live & ~done
             if not run.any():
                 break
-            ft_t, dg_t = probe(stp, run)
+            ft_t, dg_t = _trip(probe, stp, run, probe1, count)
             armijo_fail = ft_t > finit + stp * dgtest
             if armijo_only:
                 # Armijo-only exit ladder (src/line.rs:745-751)
@@ -337,16 +364,18 @@ def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
 
 
 def find(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
-         probe: Probe, ow: bool = False) -> BatchedSearch:
+         probe: Probe, ow: bool = False, probe1: Optional[tuple] = None) -> BatchedSearch:
     """``linesearch.find`` over [B] instances: More-Thuente when the
-    algorithm selects it and OWL-QN (``ow``) is off, else backtracking.
-    An instance with a negative entry step leaves before any evaluation
-    with ``ERR_NEGATIVE_STEP`` (``src/line.rs:197-201``)."""
+    algorithm selects it and OWL-QN (``ow``) is off, else backtracking,
+    each with the combine+probe fusion's carried first trips ``probe1``
+    (ft, g.d, stp_probe; [B] each) when given.  An instance with a
+    negative entry step leaves before any evaluation with
+    ``ERR_NEGATIVE_STEP`` (``src/line.rs:197-201``)."""
     neg = live & np.signbit(stp0)
     if ls.algorithm == LineSearchAlgorithm.MoreThuente and not ow:
-        out = morethuente(ls, live & ~neg, finit, dginit, stp0, neval0, probe)
+        out = morethuente(ls, live & ~neg, finit, dginit, stp0, neval0, probe, probe1)
     else:
-        out = backtracking(ls, live & ~neg, finit, dginit, stp0, neval0, probe, ow)
+        out = backtracking(ls, live & ~neg, finit, dginit, stp0, neval0, probe, ow, probe1)
     if neg.any():
         out = out._replace(status=np.where(neg, int(Status.ERR_NEGATIVE_STEP), out.status))
     return out

@@ -42,12 +42,25 @@ fails keeps its pg too, so it ends with the JAX runner's values without
 the JAX runner's closing pseudo-gradient pass
 (``lbfgs_tpu/batched.py:55-68``).
 
+With the step uncapped (``constrain_step_size=False``) each instance's
+next entry step is known before the combine: 1.0, or under the adaptive
+entry step clip(growth * step_ls, 2^-16, 1) of its own last search,
+literal 1.0 while k <= 2 (``solver.propagate_core``'s rule per
+instance).  The combine is then the combine+probe fusion (K15 b, under
+OWL-QN K16 b), which also probes each instance's next search at its
+entry step; the [B] probe values are read in the iteration's one read
+and carried (``BatchedState.probe1``) into the next search's first trip,
+which then makes no launch for the instances that carried.  An objective
+without the fusion's hooks runs the uncapped step unfused: K3 b (K13 b)
+and a probe on every trip.
+
 This slice runs plain L-BFGS and OWL-QN on a factory objective
 (``ops.factory.make_fused_objective``) with More-Thuente (routed to
 backtracking under OWL-QN, as ``linesearch.find`` routes it) or any of
-the three backtracking searches under the capped step;
-``check_supported_batched`` raises ``NotImplementedError`` for the other
-settings.
+the three backtracking searches, the step capped or not, at any history
+depth (above ``factory.MAX_M`` ring rows the deep forms of K4 b, K14 b,
+K15 b and K16 b); ``check_supported_batched`` raises
+``NotImplementedError`` for the other settings.
 """
 
 from __future__ import annotations
@@ -91,18 +104,20 @@ class BatchedState(NamedTuple):
     #: OWL-QN's pseudo-gradients [B, n] (None without OWL-QN); gnorm2 then
     #: carries ||pg||^2
     pg: Optional[torch.Tensor] = None
+    #: the combine+probe fusion's carried first probes (ft, g.d, stp_probe),
+    #: [B] each, where the fusion runs (``solver.SolverState.probe1`` per
+    #: instance; seeded dead, stp_probe = -1), else None
+    probe1: Optional[tuple] = None
 
 
 def check_supported_batched(params: LbfgsParams, evaluate: Callable,
                             x0_batch: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` naming each setting the batched
     runner does not run yet, with plain L-BFGS and with OWL-QN alike:
-    damping, the gradient-only mode, the uncapped step, the adaptive entry
-    step, the wide objective scalar, the scan two-loop, a history the ring
-    kernels do not take (float16), more than ``factory.MAX_M`` ring rows,
-    the speculative search, objectives that do not carry the batched
-    kernels (generic ones), and a mesh (``parallel``: batches are not
-    sharded)."""
+    damping, the gradient-only mode, the wide objective scalar, the scan
+    two-loop, a history the ring kernels do not take (float16), the
+    speculative search, objectives that do not carry the batched kernels
+    (generic ones), and a mesh (``parallel``: batches are not sharded)."""
     hdtype = (getattr(torch, params.history_dtype) if params.history_dtype
               else x0_batch.dtype)
     epilogue = ("__lbfgs_owlqn_trial_pair_gram_batched__" if params.orthantwise is not None
@@ -111,13 +126,10 @@ def check_supported_batched(params: LbfgsParams, evaluate: Callable,
         (fused.active_mesh() is not None, "a mesh (sharded batches are not ported)"),
         (params.damping, "Powell damping"),
         (params.linesearch.gradient_only, "the gradient-only mode"),
-        (not params.constrain_step_size, "the uncapped step (constrain_step_size=False)"),
-        (params.adaptive_entry_step > 0.0, "the adaptive entry step"),
         (params.fx_wide, "the wide objective scalar (fx_wide)"),
         (not params.compact_two_loop, "the scan two-loop (compact_two_loop=False)"),
         ((x0_batch.dtype, hdtype) not in fused.SUPPORTED,
          f"a {hdtype} history with {x0_batch.dtype} vectors"),
-        (params.m > factory.MAX_M, f"m = {params.m} ring rows (at most {factory.MAX_M})"),
         (int(params.linesearch.speculative) > 1, "the speculative line search"),
         (getattr(evaluate, epilogue, None) is None,
          "objectives without the batched kernels (generic objectives: only "
@@ -130,6 +142,20 @@ def check_supported_batched(params: LbfgsParams, evaluate: Callable,
 
 def _to_device(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
+
+
+def _fusion(params: LbfgsParams, evaluate: Callable, x: torch.Tensor, S: torch.Tensor):
+    """The objective's batched combine+probe fusion (K15 b, under OWL-QN
+    K16 b) where the runner runs it, else None: as ``solver._fusion``
+    decides it for one instance (the step uncapped, the compact two-loop,
+    the hooks present and their ``_ok__`` test passed)."""
+    if params.constrain_step_size or not params.compact_two_loop:
+        return None
+    name = ("__lbfgs_combine_ow_probe_batched" if params.orthantwise is not None
+            else "__lbfgs_combine_probe_batched")
+    fn = getattr(evaluate, name + "__", None)
+    ok = getattr(evaluate, name + "_ok__", None)
+    return fn if fn is not None and ok is not None and ok(x, S) else None
 
 
 def init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) -> BatchedState:
@@ -175,12 +201,18 @@ def init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) 
         pf = np.zeros((B, params.past), dtype=fx.dtype)
         pf[:, 0] = fx
     ints = lambda: np.zeros(B, np.int64)
+    # the combine+probe slots, iff the fusion will run in propagate
+    # (lbfgs_tpu/solver.py:1237-1258), seeded dead: the probed step -1
+    # equals no entry step
+    probe1 = None
+    if _fusion(params, evaluate, x, hist.s) is not None:
+        probe1 = (fx.copy(), -gnorm2, np.full(B, f(-1.0)))
     return BatchedState(
         x=x, gx=g.contiguous(), d=(-(g if pg is None else pg)).contiguous(), hist=hist, fx=fx,
         gnorm2=gnorm2, xnorm2=xnorm2, neval=np.ones(B, np.int64), k=ints(), end=ints(),
         step=step, step_ls=step.copy(), ncall=ints(), status=ints(), ls_status=ints(),
         # d = -g (-pg), so dginit = -||g||^2 exactly (IEEE sign symmetry)
-        dg0=-gnorm2, pf=pf, pg=pg,
+        dg0=-gnorm2, pf=pf, pg=pg, probe1=probe1,
     )
 
 
@@ -248,8 +280,9 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
     if len(set(k[live].tolist())) != 1 or len(set(st.end[live].tolist())) != 1:
         raise ValueError("the running instances must share their iteration count and ring row")
     end = int(st.end[live][0])
+    kk = int(k[live][0])
     m = params.m
-    bound = min(m, int(k[live][0]) - 1)
+    bound = min(m, kk - 1)
     f = st.fx.dtype.type
     x, g, d, hist, pg = st.x, st.gx, st.d, st.hist, st.pg
     ow = params.orthantwise
@@ -265,10 +298,22 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
                                                                       hi, run))
 
     ls = _batched_search.find(params.linesearch, live, st.fx, st.dg0, st.step, st.neval,
-                              probe, ow=ow is not None)
+                              probe, ow=ow is not None, probe1=st.probe1)
     ok = live & (ls.status == 0)
     status = np.where(live, int(Status.ERR_X_NOT_CHANGED), st.status)
     gnorm2, xnorm2, dg0, step = st.gnorm2, st.xnorm2, st.dg0, st.step
+    step_ls = np.where(ls.status != 0, st.step, ls.step)
+    # each instance's next entry step, known before the combine where the
+    # step is not capped (solver.propagate_core's rule, in the vectors'
+    # dtype): 1.0, or under the adaptive policy clip(growth*step_ls, 2^-16,
+    # 1), literal 1.0 while k <= 2
+    stp_pred = None
+    if not params.constrain_step_size:
+        stp_pred = np.full(st.step.shape, f(1.0))
+        if params.adaptive_entry_step > 0.0 and kk > 2:
+            stp_pred = np.clip(f(params.adaptive_entry_step) * step_ls, f(2.0 ** -16), f(1.0))
+    fusion = _fusion(params, evaluate, x, hist.s)
+    probe1 = None if fusion is None else st.probe1
     if ok.any():
         okd = _to_device(ok, x)
         stp = _to_device(ls.step_eval, x)
@@ -295,20 +340,36 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
         coef, alpha = _two_loop(new, gamma, bound, end, SP[:, :, 2], YP[:, :, 2])
         # the combine: the next direction over d, its norm and dginit;
         # under OWL-QN over pg, constrained to its orthant (src/lbfgs.rs:554),
-        # its norm before the constraint, ||rc||^2 and dginit = rc . pg
-        if ow is None:
-            dd, rd = evaluate.__lbfgs_combine_batched__(g, hist.s, hist.y, coef, okd, d)
-            extra = ()
+        # its norm before the constraint, ||rc||^2 and dginit = rc . pg.
+        # Fused, it also probes each instance's next search at x + stp_pred*d
+        if fusion is None:
+            fused_out = ()
+            if ow is None:
+                dd, rd = evaluate.__lbfgs_combine_batched__(g, hist.s, hist.y, coef, okd, d)
+            else:
+                dd, rc2, rd = evaluate.__lbfgs_combine_ow_batched__(pg, hist.s, hist.y, coef,
+                                                                   okd, d, lo, hi)
         else:
-            dd, rc2, rd = evaluate.__lbfgs_combine_ow_batched__(pg, hist.s, hist.y, coef, okd,
-                                                               d, lo, hi)
-            extra = (rc2,)
+            stp1 = _to_device(stp_pred, x)
+            if ow is None:
+                dd, rd, *fused_out = fusion(g, x, hist.s, hist.y, coef, stp1, okd, d)
+            else:
+                dd, rc2, rd, *fused_out = fusion(pg, x, hist.s, hist.y, coef, c, lo, hi, stp1,
+                                                 okd, d)
+        extra = () if ow is None else (rc2,)
         keep = lambda a, b: torch.where(okd.view(-1, *([1] * (a.ndim - 1))), a, b)
         hist = History(s=hist.s, y=hist.y, ys=keep(ys, hist.ys), alpha=keep(alpha, hist.alpha),
                        sy=keep(sy, hist.sy), yy=keep(yy, hist.yy))
-        # the one read of the iteration's epilogue and combine
-        gg_h, xx_h, yy_h, dd_h, rd_h, changed_h, *rc2_h = to_host_rows(
-            gg, xx, yy_new, dd, rd, changed, *extra)
+        # the one read of the iteration's epilogue and combine, the
+        # fusion's probe included
+        gg_h, xx_h, yy_h, dd_h, rd_h, changed_h, *rest = to_host_rows(
+            gg, xx, yy_new, dd, rd, changed, *extra, *fused_out)
+        rc2_h = rest[:len(extra)]
+        if fusion is not None:
+            old = st.probe1 or (st.fx, -st.gnorm2, np.full(st.step.shape, f(-1.0)))
+            p_ft, p_dg = rest[len(extra):]
+            probe1 = (np.where(ok, p_ft, old[0]), np.where(ok, p_dg, old[1]),
+                      np.where(ok, stp_pred, old[2]))
         with np.errstate(all="ignore"):
             dnorm = np.sqrt(dd_h)
             st_ok = np.where(~changed_h, int(Status.ERR_X_NOT_CHANGED),
@@ -322,9 +383,12 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
                 st_ok = np.where((st_ok == 0) & (rc2_h[0] == 0.0),
                                  int(Status.ERR_OWLQN_ZERO_DIRECTION), st_ok)
             # the next entry step (src/lbfgs.rs:547-551), from the norm before
-            # the OWL-QN constraint
-            step_next = (np.minimum(f(params.max_step_size), dnorm)
-                         / np.where(dnorm != 0.0, dnorm, f(1.0)))
+            # the OWL-QN constraint; uncapped, the entry predicted above
+            if params.constrain_step_size:
+                step_next = (np.minimum(f(params.max_step_size), dnorm)
+                             / np.where(dnorm != 0.0, dnorm, f(1.0)))
+            else:
+                step_next = stp_pred
         status = np.where(ok, st_ok, status)
         gnorm2, xnorm2 = np.where(ok, gg_h, gnorm2), np.where(ok, xx_h, xnorm2)
         dg0, step = np.where(ok, rd_h, dg0), np.where(ok, step_next, step)
@@ -334,10 +398,9 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
     at = lambda new, old: np.where(live, new, old)
     st = st._replace(
         hist=hist, fx=at(ls.fx, st.fx), gnorm2=gnorm2, xnorm2=xnorm2, neval=at(ls.neval, st.neval),
-        k=k, end=at((st.end + 1) % m, st.end), step=step,
-        step_ls=at(np.where(ls.status != 0, st.step, ls.step), st.step_ls),
+        k=k, end=at((st.end + 1) % m, st.end), step=step, step_ls=at(step_ls, st.step_ls),
         ncall=at(ls.ncall, st.ncall), status=status, ls_status=at(ls.status, st.ls_status),
-        dg0=dg0,
+        dg0=dg0, probe1=probe1,
     )
     return fx_delta_step(params, st, live)
 

@@ -84,7 +84,9 @@ def batched_state_from_jax(tree: Any, device):
     128] layout too) and the [B] host scalars, the vectors' dtype kept
     (fx too: the batched runner has no wide objective scalar).  The JAX
     state's previous-point slots are dropped: the port's batched state is
-    lean.  Under OWL-QN the pseudo-gradients ``pg`` come along."""
+    lean.  Under OWL-QN the pseudo-gradients ``pg`` come along, and where
+    the JAX state carries the combine+probe slot its [B] (ft, dgt,
+    stp_probe)."""
     from .batched import BatchedState
 
     p, h = tree.prob, tree.hist
@@ -103,12 +105,14 @@ def batched_state_from_jax(tree: Any, device):
         status=host(tree.status, np.int64), ls_status=host(tree.ls_status, np.int64),
         dg0=host(tree.dg0), pf=None if tree.pf is None else host(tree.pf),
         pg=None if p.pg is None else vec(p.pg),
+        probe1=_probe1(getattr(tree, "probe1", None), f),
     )
 
 
 def _probe1(slot, f):
-    """The combine+probe slot (ft, dgt, stp_probe) as host scalars: ft in
-    its own dtype, the others in the vectors' (``f``)."""
+    """The combine+probe slot (ft, dgt, stp_probe) on the host, scalars (or
+    the batched state's [B] arrays): ft in its own dtype, the others in the
+    vectors' (``f``)."""
     if slot is None:
         return None
     ft, dgt, stp = (np.asarray(v) for v in slot)

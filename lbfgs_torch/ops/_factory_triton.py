@@ -167,7 +167,18 @@ K8 b ``owlqn_probe_batched_kernel`` is K8's ``WP_IS_PG`` form per
 instance (12 B/elem), and K14 b ``owlqn_trial_pair_gram_batched_kernel``
 K14 without the . gp column, in place (52 B/elem); the window [lo, hi)
 and the L1 weight are the same for every instance, the window in each
-instance's own indices.
+instance's own indices.  With the step uncapped the batched runner's
+combine is K15 b ``combine_probe_batched_kernel`` or, under OWL-QN, K16 b
+``combine_ow_probe_batched_kernel``: K15's and K16's block per instance,
+with the instance's coefficient row and its own entry step stp1 (36
+B/elem each, as their solo kernels), M = m up to ``factory.MAX_M`` rows
+and M = 0 above.  Above ``factory.MAX_M`` rows the epilogues are
+``trial_pair_gram_deep_batched_kernel`` and
+``owlqn_trial_pair_gram_deep_batched_kernel``: the deep K4's and K14's
+program per instance, their group passes and their last-pass stores (x,
+g and pg over xp, gp and pg_old) unchanged.  Each batched form's r, x, g,
+pg, ring rows and partials are its solo kernel's on that instance alone
+bit for bit.
 
 On a mesh each kernel runs on one rank's shard of the vectors: ``off``,
 the shard's global offset, is added to the local offsets only where the
@@ -453,6 +464,74 @@ def combine_ow_probe_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_pt
 
 
 @triton.jit
+def _batched_part(part_ptr, b, k: tl.constexpr):
+    # program (i, b)'s row of a batched launch's [B, programs, k] partials
+    return part_ptr + (b.to(tl.int64) * tl.num_programs(0) + tl.program_id(0)) * k
+
+
+@triton.jit(do_not_specialize=["m"])
+def combine_probe_batched_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, live_ptr, r_ptr,
+                                 cpart_ptr, ppart_ptr, n, m, ex, body: tl.constexpr,
+                                 M: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr):
+    # program (i, b): K15's block i of instance b, its coefficient row and
+    # its own stp1; M = m the static form, M = 0 the deep form
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    offs = _offsets(ROWS, W)
+    mask = (offs < n) & live
+    g, r = _combination(g_ptr + row, S_ptr + row * m, Y_ptr + row * m,
+                        coef_ptr + b.to(tl.int64) * (1 + 2 * m), offs, mask, n, m, 0, M, False)
+    tl.store(r_ptr + row + offs, r, mask=mask)
+    cpart = _batched_part(cpart_ptr, b, 2)
+    tl.store(cpart + 0, _block_sum(r * r, mask), mask=live)
+    tl.store(cpart + 1, _block_sum(r * g, mask), mask=live)
+    # the instance's next first probe, as K2 b forms it at (x, r, stp1)
+    stp = tl.load(stp_ptr + b)
+    x = tl.load(x_ptr + row + offs, mask=mask, other=0.0)
+    exb = _extras(ex, offs, mask)
+    xt = x + stp * r
+    fe, gt = body(xt, offs, *exb)
+    ppart = _batched_part(ppart_ptr, b, 2)
+    tl.store(ppart + 0, _block_sum(fe, mask), mask=live)
+    tl.store(ppart + 1, _block_sum(gt * r, mask), mask=live)
+
+
+@triton.jit(do_not_specialize=["m", "lo", "hi"])
+def combine_ow_probe_batched_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, live_ptr,
+                                    r_ptr, cpart_ptr, ppart_ptr, n, m, lo, hi, ex,
+                                    body: tl.constexpr, M: tl.constexpr, ROWS: tl.constexpr,
+                                    W: tl.constexpr):
+    # program (i, b): K16's block i of instance b, the window in the
+    # instance's own indices
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    offs = _offsets(ROWS, W)
+    mask = (offs < n) & live
+    pg, r = _combination(pg_ptr + row, S_ptr + row * m, Y_ptr + row * m,
+                         coef_ptr + b.to(tl.int64) * (1 + 2 * m), offs, mask, n, m, 0, M, False)
+    in_win = (offs >= lo) & (offs < hi)
+    rc = tl.where(in_win & (_msign(r) != _msign(-pg)), 0.0, r)
+    tl.store(r_ptr + row + offs, rc, mask=mask)
+    cpart = _batched_part(cpart_ptr, b, 3)
+    tl.store(cpart + 0, _block_sum(r * r, mask), mask=live)
+    tl.store(cpart + 1, _block_sum(rc * rc, mask), mask=live)
+    tl.store(cpart + 2, _block_sum(rc * pg, mask), mask=live)
+    # the projected probe, as K8 b forms it at (x, rc, pg, stp1)
+    stp = tl.load(stp_ptr + b)
+    x = tl.load(x_ptr + row + offs, mask=mask, other=0.0)
+    exb = _extras(ex, offs, mask)
+    wp_sign = tl.where(x == 0.0, _msign(-pg), _msign(x))
+    xt = _ow_point(x, rc, stp, wp_sign, in_win)
+    fe, gt = body(xt, offs, *exb)
+    ppart = _batched_part(ppart_ptr, b, 3)
+    tl.store(ppart + 0, _block_sum(fe, mask), mask=live)
+    tl.store(ppart + 1, _block_sum(tl.abs(xt), mask & in_win), mask=live)
+    tl.store(ppart + 2, _block_sum(gt * rc, mask), mask=live)
+
+
+@triton.jit
 def _tile(tile, T: tl.constexpr, V: tl.constexpr):
     # the offsets of tile `tile` of T elements as [T // V, V]: each thread
     # holds runs of V consecutive elements that start at a multiple of V,
@@ -715,10 +794,10 @@ def trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
 
 
 @triton.jit
-def _store_gram_live(part, live, a0, a1, a2, a3, a4, a5, M: tl.constexpr, MP: tl.constexpr):
+def _store_gram_live(part, live, j0, m, a0, a1, a2, a3, a4, a5, MP: tl.constexpr):
     # ``_store_gram`` for a batched program: nothing for a frozen instance
-    r = tl.arange(0, MP)
-    keep = (r < M) & live
+    r = j0 + tl.arange(0, MP)
+    keep = (r < m) & live
     pj = part + 6 * r
     tl.store(pj + 0, tl.sum(a0, axis=0), mask=keep)
     tl.store(pj + 1, tl.sum(a1, axis=0), mask=keep)
@@ -785,7 +864,73 @@ def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_p
     tl.store(part + 1, tl.sum(a_gg, axis=0), mask=live)
     tl.store(part + 2, tl.sum(a_xx, axis=0), mask=live)
     tl.store(part + 3, tl.sum(a_ch, axis=0), mask=live)
-    _store_gram_live(part + 4, live, a0, a1, a2, a3, a4, a5, M, MP)
+    _store_gram_live(part + 4, live, 0, M, a0, a1, a2, a3, a4, a5, MP)
+
+
+@triton.jit(do_not_specialize=["m", "end", "tiles"])
+def trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr, Y_ptr,
+                                        part_ptr, n, end, tiles, ex, m, body: tl.constexpr,
+                                        G: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
+                                        W: tl.constexpr):
+    # program (pid, b): the deep K4's program pid of instance b, in place,
+    # without the . gp column or the objective's partials; x and g go over
+    # xp and gp on the last pass alone, as the deep K4 stores them
+    pid = tl.program_id(0)
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    xp_ptr += row
+    d_ptr += row
+    gp_ptr += row
+    S_ptr += row * m
+    Y_ptr += row * m
+    dt = xp_ptr.dtype.element_ty
+    stp = tl.load(stp_ptr + b)
+    R: tl.constexpr = T // V
+    a_gd = tl.zeros([R], dt)
+    a_gg = tl.zeros([R], dt)
+    a_xx = tl.zeros([R], dt)
+    a_ch = tl.zeros([R], dt)
+    part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + pid) * (4 + 6 * m)
+    groups = tl.cdiv(m, G)
+    for grp in range(groups):
+        j0 = grp * G
+        last = grp == groups - 1
+        a0 = tl.zeros([R, G], dt)
+        a1 = tl.zeros([R, G], dt)
+        a2 = tl.zeros([R, G], dt)
+        a3 = tl.zeros([R, G], dt)
+        a4 = tl.zeros([R, G], dt)
+        a5 = tl.zeros([R, G], dt)
+        for t in range(tiles):
+            offs = _tile(pid * tiles + t, T, V)
+            mask = (offs < n) & live
+            xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+            d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+            gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+            exb = _view(_extras(ex, offs, mask), T // W, W)
+            x = xp + stp * d
+            _, g = body(tl.reshape(x, [T // W, W]), tl.reshape(offs, [T // W, W]), *exb)
+            g = tl.reshape(g, [R, V])
+            g = tl.where(mask, g, 0.0)
+            if last:
+                a_gd += _fold(g * d)
+                a_gg += _fold(g * g)
+                a_xx += _fold(x * x)
+                a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
+                tl.store(xp_ptr + offs, x, mask=mask)
+                tl.store(gp_ptr + offs, g, mask=mask)
+            s = stp * d
+            y = g - gp
+            d0 = -g
+            a0, a1, a2, a3, a4, a5, _, _ = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end, j0,
+                                                       s, y, d0, gp, a0, a1, a2, a3, a4, a5, a0,
+                                                       a0, G, False)
+        _store_gram_live(part + 4, live, j0, m, a0, a1, a2, a3, a4, a5, G)
+    tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
+    tl.store(part + 1, tl.sum(a_gg, axis=0), mask=live)
+    tl.store(part + 2, tl.sum(a_xx, axis=0), mask=live)
+    tl.store(part + 3, tl.sum(a_ch, axis=0), mask=live)
 
 
 @triton.jit(do_not_specialize=["lo", "hi"])
@@ -1049,4 +1194,74 @@ def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr,
     tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
     tl.store(part + 1, tl.sum(a_pp, axis=0), mask=live)
     tl.store(part + 2, tl.sum(a_ch, axis=0), mask=live)
-    _store_gram_live(part + 3, live, a0, a1, a2, a3, a4, a5, M, MP)
+    _store_gram_live(part + 3, live, 0, M, a0, a1, a2, a3, a4, a5, MP)
+
+
+@triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles"])
+def owlqn_trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
+                                              live_ptr, S_ptr, Y_ptr, part_ptr, n, lo, hi, end,
+                                              tiles, ex, m, body: tl.constexpr, G: tl.constexpr,
+                                              T: tl.constexpr, V: tl.constexpr, W: tl.constexpr):
+    # program (pid, b): the deep K14's program pid of instance b, in place,
+    # without the . gp column; x, g and pg go over xp, gp and pg_old on the
+    # last pass alone
+    pid = tl.program_id(0)
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    xp_ptr += row
+    d_ptr += row
+    gp_ptr += row
+    pg_ptr += row
+    S_ptr += row * m
+    Y_ptr += row * m
+    dt = xp_ptr.dtype.element_ty
+    stp = tl.load(stp_ptr + b)
+    c = tl.load(c_ptr)
+    R: tl.constexpr = T // V
+    a_xx = tl.zeros([R], dt)
+    a_pp = tl.zeros([R], dt)
+    a_ch = tl.zeros([R], dt)
+    part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + pid) * (3 + 6 * m)
+    groups = tl.cdiv(m, G)
+    for grp in range(groups):
+        j0 = grp * G
+        last = grp == groups - 1
+        a0 = tl.zeros([R, G], dt)
+        a1 = tl.zeros([R, G], dt)
+        a2 = tl.zeros([R, G], dt)
+        a3 = tl.zeros([R, G], dt)
+        a4 = tl.zeros([R, G], dt)
+        a5 = tl.zeros([R, G], dt)
+        for t in range(tiles):
+            offs = _tile(pid * tiles + t, T, V)
+            mask = (offs < n) & live
+            xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+            d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+            gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+            pgo = tl.load(pg_ptr + offs, mask=mask, other=0.0)
+            exb = _view(_extras(ex, offs, mask), T // W, W)
+            in_win = (offs >= lo) & (offs < hi)
+            wp_sign = tl.where(xp == 0.0, _msign(-pgo), _msign(xp))
+            x = _ow_point(xp, d, stp, wp_sign, in_win)
+            _, g = body(tl.reshape(x, [T // W, W]), tl.reshape(offs, [T // W, W]), *exb)
+            g = tl.reshape(g, [R, V])
+            g = tl.where(mask, g, 0.0)
+            pg = _pseudo_grad(g, x, c, in_win)
+            if last:
+                a_xx += _fold(x * x)
+                a_pp += _fold(pg * pg)
+                a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
+                tl.store(xp_ptr + offs, x, mask=mask)
+                tl.store(gp_ptr + offs, g, mask=mask)
+                tl.store(pg_ptr + offs, pg, mask=mask)
+            s = x - xp
+            y = g - gp
+            d0 = -pg
+            a0, a1, a2, a3, a4, a5, _, _ = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end, j0,
+                                                       s, y, d0, gp, a0, a1, a2, a3, a4, a5, a0,
+                                                       a0, G, False)
+        _store_gram_live(part + 3, live, j0, m, a0, a1, a2, a3, a4, a5, G)
+    tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
+    tl.store(part + 1, tl.sum(a_pp, axis=0), mask=live)
+    tl.store(part + 2, tl.sum(a_ch, axis=0), mask=live)

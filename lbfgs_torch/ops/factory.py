@@ -47,7 +47,12 @@ protocol the solver looks for:
     ``__lbfgs_owlqn_trial_pair_gram_batched__``,
     ``__lbfgs_combine_ow_batched__`` and
     ``__lbfgs_pseudo_gradient_norm_batched__``: K8 b (the pg form), K14 b
-    (without the . gp column), K13 b and K10 b.
+    (without the . gp column), K13 b and K10 b; with the step uncapped
+    ``__lbfgs_combine_probe_batched__`` / ``__lbfgs_combine_ow_probe_batched__``
+    (and their ``_ok__`` predicates): K15 b and K16 b, each instance's
+    combine and its next first probe at its own entry step.  At every
+    depth: above ``MAX_M`` ring rows K4 b, K14 b, K15 b and K16 b take
+    their solo kernels' deep forms.
 
 Under the wide objective scalar (``fused.wide_fx``, ``params.fx_wide``)
 the objective's column of K1, K2, K4, K7 and K8 and the L1 column of K7
@@ -205,16 +210,18 @@ def _rows(m: int) -> int:
     return 1 << (m - 1).bit_length()
 
 
-def _epilogue_form(fn, S: torch.Tensor, vdtype: torch.dtype) -> tuple:
+def _epilogue_form(fn, m: int, vdtype: torch.dtype, hdtype: torch.dtype) -> tuple:
     """(kernel name, the wrapper's dict of compiled kernels, the depth's
-    constants) of the form of K4 or K14 (``fn``, its wrapper) that takes
-    the ring S: the static form up to ``MAX_M`` rows, the deep form
-    above."""
-    m = S.shape[0]
+    constants) of the form of K4, K14, K4 b or K14 b (``fn``, its wrapper)
+    that takes m ring rows of ``hdtype``: the static form up to ``MAX_M``
+    rows, the deep form above (``<name>_deep_kernel``, the batched ones
+    ``<name>_deep_batched_kernel``)."""
+    name = fn.__name__
     if m <= MAX_M:
-        return fn.__name__ + "_kernel", fn.compiled, dict(M=m, MP=_rows(m))
-    return (fn.__name__ + "_deep_kernel", fn.deep_compiled,
-            dict(m=m, G=DEEP_GROUP[(vdtype, S.dtype)]))
+        return name + "_kernel", fn.compiled, dict(M=m, MP=_rows(m))
+    base = name.removesuffix("_batched")
+    return (base + "_deep" + name[len(base):] + "_kernel", fn.deep_compiled,
+            dict(m=m, G=DEEP_GROUP[(vdtype, hdtype)]))
 
 
 def _count(fn, deep: bool, **forms: bool) -> None:
@@ -447,11 +454,14 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
 
     # ------------------------------------------- K2 b: the batched probe
 
+    def _probe_batched_plain(xp, d, stp):
+        fx, g = torch.func.vmap(value_and_grad)(xp + stp[:, None] * d)
+        return fused.obj_lift(fx, xp.dtype), _dot(g, d)
+
     def probe_batched_ref(xp, d, stp, live):
         """Plain version of ``probe_batched``."""
         probe_batched_ref.calls += 1
-        fx, g = torch.func.vmap(value_and_grad)(xp + stp[:, None] * d)
-        return fused.obj_lift(fx, xp.dtype), (g * d).sum(dim=1)
+        return _probe_batched_plain(xp, d, stp)
 
     def probe_batched(xp, d, stp, live):
         """K2 over B instances (K2 b): (fx [B], g.d [B]) at xp[b] +
@@ -518,7 +528,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         g = gp if inplace else torch.empty_like(gp)
         bufs = _epilogue_buffers(xp, eg, m, False, with_gp)
         part = bufs["part"]
-        kern, compiled, depth = _epilogue_form(trial_pair_gram, S, xp.dtype)
+        kern, compiled, depth = _epilogue_form(trial_pair_gram, m, xp.dtype, S.dtype)
         compiled[(xp.dtype, S.dtype, bool(with_gp))] = getattr(_kernels(), kern)[(eg.programs,)](
             xp, d, gp, _scalar(stp, xp), x, g, S, Y, bufs["fx"], part,
             bufs.get("gpart", part), n, int(end), eg.tiles, off, ex=ex, SHARD=off != 0,
@@ -569,23 +579,23 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         never written, and its outputs are undefined.  Returns (g.d, g.g,
         x.x, changed) as [B] tensors and SP, YP [B, m, 3].  On the card an
         instance's x, g and ring row equal ``trial_pair_gram``'s on that
-        instance alone bit for bit."""
+        instance alone bit for bit.  Above ``MAX_M`` ring rows the deep
+        form runs (``trial_pair_gram``'s, per instance)."""
         B = _check_batched("trial_pair_gram_batched", xp, live)
         _batched_scalars("trial_pair_gram_batched", xp, stp, d, gp)
         fused._check_hist_batched("trial_pair_gram_batched", xp, S, Y)
         m, n = S.shape[1], S.shape[2]
-        if m > MAX_M:
-            raise ValueError(f"trial_pair_gram_batched: m={m} above {MAX_M} ring rows")
         end = fused._check_row(S[0], end)
         if not fused.on_cuda(xp, "trial_pair_gram_batched"):
             return trial_pair_gram_batched_ref(xp, d, gp, stp, S, Y, end, live)
         fused.check_contiguous("trial_pair_gram_batched", xp, d, gp, stp, live, S, Y)
         eg = epilogue_grid(n, xp.dtype, S.dtype)
         part = torch.empty((B, eg.programs, 4 + 6 * m), dtype=xp.dtype, device=xp.device)
-        _kernels().trial_pair_gram_batched_kernel[(eg.programs, B)](
+        kern, compiled, depth = _epilogue_form(trial_pair_gram_batched, m, xp.dtype, S.dtype)
+        compiled[(xp.dtype, S.dtype)] = getattr(_kernels(), kern)[(eg.programs, B)](
             xp, d, gp, stp, live.view(torch.uint8), S, Y, part, n, int(end), eg.tiles, ex=extras,
-            body=block_fn(), M=m, MP=_rows(m), T=eg.T, V=eg.V, W=W, **_epilogue_launch(eg))
-        trial_pair_gram_batched.launches += 1
+            body=block_fn(), T=eg.T, V=eg.V, W=W, **depth, **_epilogue_launch(eg))
+        _count(trial_pair_gram_batched, m > MAX_M)
         tot = part.sum(dim=1)
         P = tot[:, 4:].reshape(B, m, 6)
         return tot[:, 0], tot[:, 1], tot[:, 2], tot[:, 3] > 0, P[:, :, :3], P[:, :, 3:]
@@ -597,13 +607,16 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         wp = choose_orthant(Orthantwise(c, start, end), xp, pg)
         return project_window(xp + stp[:, None] * d, wp, start, end)
 
-    def owlqn_probe_pg_batched_ref(xp, d, pg, stp, c, start, end, live):
-        """Plain version of ``owlqn_probe_pg_batched``."""
-        owlqn_probe_pg_batched_ref.calls += 1
+    def _ow_probe_batched_plain(xp, d, pg, stp, c, start, end):
         x = _ow_point_batched(xp, d, pg, stp, c, start, end)
         fx, g = torch.func.vmap(value_and_grad)(x)
         l1 = torch.abs(x[:, start:end]).sum(dim=1)
         return fused.obj_lift(fx, xp.dtype) + l1 * c, _dot(g, d)
+
+    def owlqn_probe_pg_batched_ref(xp, d, pg, stp, c, start, end, live):
+        """Plain version of ``owlqn_probe_pg_batched``."""
+        owlqn_probe_pg_batched_ref.calls += 1
+        return _ow_probe_batched_plain(xp, d, pg, stp, c, start, end)
 
     def owlqn_probe_pg_batched(xp, d, pg, stp, c, start, end, live):
         """K8's pg form over B instances (K8 b): (fx + c*L1 [B], g.d [B]) at
@@ -779,7 +792,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         bufs = _epilogue_buffers(xp, eg, m, True, with_gp)
         part = bufs["part"]
         gpart = bufs.get("gpart", part)
-        kern, compiled, depth = _epilogue_form(owlqn_trial_pair_gram, S, xp.dtype)
+        kern, compiled, depth = _epilogue_form(owlqn_trial_pair_gram, m, xp.dtype, S.dtype)
         compiled[(xp.dtype, S.dtype, bool(with_gp))] = getattr(_kernels(), kern)[(eg.programs,)](
             xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new, S, Y,
             part, gpart, n, lo, hi, int(end), eg.tiles, off, ex=ex, SHARD=off != 0,
@@ -826,13 +839,12 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         written, and its outputs are undefined.  Returns (x.x, pg_new.pg_new,
         changed) as [B] tensors and SP, YP [B, m, 3].  On the card an
         instance's x, g, pg and ring row equal ``owlqn_trial_pair_gram``'s
-        on that instance alone bit for bit."""
+        on that instance alone bit for bit.  Above ``MAX_M`` ring rows the
+        deep form runs."""
         B = _check_batched("owlqn_trial_pair_gram_batched", xp, live)
         _batched_scalars("owlqn_trial_pair_gram_batched", xp, stp, d, gp, pg)
         fused._check_hist_batched("owlqn_trial_pair_gram_batched", xp, S, Y)
         m, n = S.shape[1], S.shape[2]
-        if m > MAX_M:
-            raise ValueError(f"owlqn_trial_pair_gram_batched: m={m} above {MAX_M} ring rows")
         end = fused._check_row(S[0], end)
         start, end_w = fused._check_window(n, start, end_w)
         if not fused.on_cuda(xp, "owlqn_trial_pair_gram_batched"):
@@ -841,12 +853,13 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         fused.check_contiguous("owlqn_trial_pair_gram_batched", xp, d, gp, pg, stp, live, S, Y)
         eg = epilogue_grid(n, xp.dtype, S.dtype)
         part = torch.empty((B, eg.programs, 3 + 6 * m), dtype=xp.dtype, device=xp.device)
-        owlqn_trial_pair_gram_batched.compiled[(xp.dtype, S.dtype)] = \
-            _kernels().owlqn_trial_pair_gram_batched_kernel[(eg.programs, B)](
+        kern, compiled, depth = _epilogue_form(owlqn_trial_pair_gram_batched, m, xp.dtype,
+                                               S.dtype)
+        compiled[(xp.dtype, S.dtype)] = getattr(_kernels(), kern)[(eg.programs, B)](
             xp, d, gp, pg, stp, _scalar(c, xp), live.view(torch.uint8), S, Y, part, n, start,
-            end_w, int(end), eg.tiles, ex=extras, body=block_fn(), M=m, MP=_rows(m), T=eg.T,
-            V=eg.V, W=W, **_epilogue_launch(eg))
-        owlqn_trial_pair_gram_batched.launches += 1
+            end_w, int(end), eg.tiles, ex=extras, body=block_fn(), T=eg.T, V=eg.V, W=W,
+            **depth, **_epilogue_launch(eg))
+        _count(owlqn_trial_pair_gram_batched, m > MAX_M)
         tot = part.sum(dim=1)
         P = tot[:, 3:].reshape(B, m, 6)
         return tot[:, 0], tot[:, 1], tot[:, 2] > 0, P[:, :, :3], P[:, :, 3:]
@@ -967,31 +980,127 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             return False
         return fused.can_combine(x, S) and x.shape[0] % W == 0
 
+    # --------------------- K15 b / K16 b: the batched combine + probe
+
+    def combine_probe_batched_ok(x, S) -> bool:
+        """``combine_probe_ok`` for a batch: its test on instance 0 of x
+        [B, n] and the rings S [B, m, n] (the instances share n and m)."""
+        return x.ndim == 2 and S.ndim == 3 and combine_probe_ok(x[0], S[0])
+
+    def _check_combine_batched(kernel, d, x, S, Y, coef, stp1, live, out):
+        _check_batched(kernel, x, live)
+        fused._check_combine_batched(kernel, d, S, Y, coef, live, out)
+        _batched_scalars(kernel, x, stp1, d)
+
+    def _combine_batched_launch(fn, d, x, S, Y, coef, stp1, live, out, nparts, *args):
+        """Launch K15 b or K16 b (``fn``, its wrapper), M = m up to
+        ``MAX_M`` rows and M = 0 (the deep form) above, and count the launch
+        (``_count``); returns the [B, nparts] column sums of the combine's
+        and of the probe's [B, programs, nparts] partials."""
+        kernel = fn.__name__
+        fused.check_contiguous(kernel, d, x, S, Y, coef, stp1, live, out)
+        B, m, n = S.shape
+        grid = (_grid(n)[0], B)
+        cpart = torch.empty((B, grid[0], nparts), dtype=d.dtype, device=d.device)
+        ppart = torch.empty((B, grid[0], nparts), dtype=d.dtype, device=d.device)
+        deep = m > MAX_M
+        fn.compiled[(d.dtype, S.dtype, deep)] = getattr(_kernels(), kernel + "_kernel")[grid](
+            d, x, S, Y, coef, stp1, live.view(torch.uint8), out, cpart, ppart, n, m, *args,
+            ex=extras, body=block_fn(), M=0 if deep else m, ROWS=rows, W=W, **LAUNCH)
+        _count(fn, deep)
+        return cpart.sum(dim=1), ppart.sum(dim=1)
+
+    def combine_probe_batched_ref(g, x, S, Y, coef, stp1, live, out):
+        """Plain version of ``combine_probe_batched``: K3 b's plain
+        arithmetic, then K2 b's at x + stp1*r, so that a fused run on the
+        CPU is its unfused run bit for bit."""
+        combine_probe_batched_ref.calls += 1
+        r = fused._combination_batched(g, S, Y, coef)
+        out[live] = r[live]
+        return (_dot(r, r), _dot(r, g), *_probe_batched_plain(x, r, stp1))
+
+    def combine_probe_batched(g, x, S, Y, coef, stp1, live, out):
+        """K15 over B instances (K15 b): for each live instance b, K3 b's
+        r = coef[b, 0]*g[b] + coef[b, 1:m+1] @ S[b] + coef[b, m+1:] @ Y[b]
+        written to out[b], with r.r and r.g, and the instance's next first
+        probe (ft, g(xt).r) at xt = x[b] + stp1[b]*r, from one pass.
+        ``g``, ``x``, ``out`` [B, n]; ``S``, ``Y`` [B, m, n]; ``coef`` [B,
+        2m + 1] and ``stp1`` [B] in g's dtype; ``live`` [B] bool.  A frozen
+        instance's row of ``out`` is never written, and its sums are
+        undefined.  Returns (r.r, r.g, ft, g.r) as [B] tensors.  On the card
+        an instance's r equals ``combine_probe``'s (and ``fused.combine``'s)
+        on that instance alone bit for bit, and so does its probe's (ft,
+        g.r) ``probe(x[b], r, stp1[b])``'s.  Above ``MAX_M`` ring rows the
+        deep form runs (M = 0), with the same r and probe."""
+        _check_combine_batched("combine_probe_batched", g, x, S, Y, coef, stp1, live, out)
+        if not fused.on_cuda(g, "combine_probe_batched"):
+            return combine_probe_batched_ref(g, x, S, Y, coef, stp1, live, out)
+        ctot, ptot = _combine_batched_launch(combine_probe_batched, g, x, S, Y, coef, stp1, live,
+                                             out, 2)
+        return ctot[:, 0], ctot[:, 1], ptot[:, 0], ptot[:, 1]
+
+    def combine_ow_probe_batched_ref(pg, x, S, Y, coef, c, start, end, stp1, live, out):
+        """Plain version of ``combine_ow_probe_batched``: K13 b's plain
+        arithmetic, then K8 b's at (x, rc, pg, stp1)."""
+        combine_ow_probe_batched_ref.calls += 1
+        r = fused._combination_batched(pg, S, Y, coef)
+        rc = project_window(r, -pg, start, end)
+        out[live] = rc[live]
+        return (_dot(r, r), _dot(rc, rc), _dot(rc, pg),
+                *_ow_probe_batched_plain(x, rc, pg, stp1, c, start, end))
+
+    def combine_ow_probe_batched(pg, x, S, Y, coef, c, start, end, stp1, live, out):
+        """K16 over B instances (K16 b): for each live instance b, K13 b's
+        rc (r over pg[b] constrained to the orthant of -pg[b] inside the
+        window [start, end) of each instance) written to out[b], with r.r,
+        rc.rc and rc.pg, and the instance's next first probe at pi(x[b] +
+        stp1[b]*rc; wp), wp rebuilt from (x[b], pg[b]), with fx + c*L1 and
+        g.rc, from one pass.  Operands as ``combine_probe_batched``'s, pg
+        in g's place.  Returns (r.r, rc.rc, rc.pg, ft, g.rc) as [B]
+        tensors.  On the card an instance's rc equals ``combine_ow_probe``'s
+        (and ``fused.combine_ow``'s) on that instance alone bit for bit, and
+        so does its probe's ``owlqn_probe_pg``'s."""
+        _check_combine_batched("combine_ow_probe_batched", pg, x, S, Y, coef, stp1, live, out)
+        start, end = fused._check_window(x.shape[1], start, end)
+        if not fused.on_cuda(pg, "combine_ow_probe_batched"):
+            return combine_ow_probe_batched_ref(pg, x, S, Y, coef, c, start, end, stp1, live,
+                                                out)
+        ctot, ptot = _combine_batched_launch(combine_ow_probe_batched, pg, x, S, Y, coef, stp1,
+                                             live, out, 3, start, end)
+        return (ctot[:, 0], ctot[:, 1], ctot[:, 2], ptot[:, 0] + ptot[:, 1] * c, ptot[:, 2])
+
+    batched_fusions = (combine_probe_batched, combine_ow_probe_batched)
     for fn in (trial, probe, trial_pair_gram, owlqn_trial, owlqn_probe, owlqn_probe_pg,
                owlqn_trial_pair_gram, combine_probe, combine_ow_probe, probe_batched,
-               trial_pair_gram_batched, owlqn_probe_pg_batched, owlqn_trial_pair_gram_batched):
+               trial_pair_gram_batched, owlqn_probe_pg_batched, owlqn_trial_pair_gram_batched,
+               *batched_fusions):
         fn.launches = 0
-    # the deep forms of K4, K14, K15 and K16, the . gp (damped)
-    # specialisations of K4 and K14 and K15's damped-row form, counted apart
-    # too (``_count``)
-    for fn in (trial_pair_gram, owlqn_trial_pair_gram, combine_probe, combine_ow_probe):
+    # the deep forms of K4, K14, K15 and K16 and of their batched forms,
+    # the . gp (damped) specialisations of K4 and K14 and K15's damped-row
+    # form, counted apart too (``_count``)
+    for fn in (trial_pair_gram, owlqn_trial_pair_gram, combine_probe, combine_ow_probe,
+               trial_pair_gram_batched, owlqn_trial_pair_gram_batched, *batched_fusions):
         fn.deep_launches = 0
     for fn in (trial_pair_gram, owlqn_trial_pair_gram):
         fn.gp_launches = fn.deep_gp_launches = 0
     combine_probe.fix_launches = combine_probe.deep_fix_launches = 0
     # the epilogues' last compiled Triton kernel per (vector dtype, history
-    # dtype, with_gp), the static forms' and the deep forms' apart, and
-    # K14 b's per (vector dtype, history dtype): its registers, spills and
-    # PTX
-    trial_pair_gram.compiled, owlqn_trial_pair_gram.compiled = {}, {}
-    trial_pair_gram.deep_compiled, owlqn_trial_pair_gram.deep_compiled = {}, {}
-    # the fusions' deep forms per (vector dtype, history dtype, fix)
+    # dtype, with_gp), the static forms' and the deep forms' apart, and the
+    # batched epilogues' per (vector dtype, history dtype): their
+    # registers, spills and PTX
+    for fn in (trial_pair_gram, owlqn_trial_pair_gram, trial_pair_gram_batched,
+               owlqn_trial_pair_gram_batched):
+        fn.compiled, fn.deep_compiled = {}, {}
+    # the fusions' deep forms per (vector dtype, history dtype, fix), and
+    # the batched fusions' forms per (vector dtype, history dtype, deep)
     combine_probe.deep_compiled, combine_ow_probe.deep_compiled = {}, {}
-    owlqn_trial_pair_gram_batched.compiled = {}
+    for fn in batched_fusions:
+        fn.compiled = {}
     for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_trial_ref, owlqn_probe_ref,
                owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref, combine_probe_ref,
                combine_ow_probe_ref, probe_batched_ref, trial_pair_gram_batched_ref,
-               owlqn_probe_pg_batched_ref, owlqn_trial_pair_gram_batched_ref):
+               owlqn_probe_pg_batched_ref, owlqn_trial_pair_gram_batched_ref,
+               combine_probe_batched_ref, combine_ow_probe_batched_ref):
         fn.calls = 0
 
     ns = SimpleNamespace(
@@ -1016,6 +1125,11 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         owlqn_probe_pg_batched_ref=owlqn_probe_pg_batched_ref,
         owlqn_trial_pair_gram_batched=owlqn_trial_pair_gram_batched,
         owlqn_trial_pair_gram_batched_ref=owlqn_trial_pair_gram_batched_ref,
+        combine_probe_batched=combine_probe_batched,
+        combine_probe_batched_ref=combine_probe_batched_ref,
+        combine_probe_batched_ok=combine_probe_batched_ok,
+        combine_ow_probe_batched=combine_ow_probe_batched,
+        combine_ow_probe_batched_ref=combine_ow_probe_batched_ref,
     )
 
     def vag(x):
@@ -1036,7 +1150,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             combine_probe, combine_ow_probe, combine_probe_ok)
     _attach_batched(vag, probe_batched, trial_pair_gram_batched, fused.combine_batched,
                     owlqn_probe_pg_batched, owlqn_trial_pair_gram_batched,
-                    fused.combine_ow_batched, fused.pseudo_gradient_norm_batched)
+                    fused.combine_ow_batched, fused.pseudo_gradient_norm_batched,
+                    combine_probe_batched, combine_ow_probe_batched, combine_probe_batched_ok)
     _attach(plain, trial_ref, probe_ref, trial_pair_gram_ref, trial_pair_gram_ok,
             owlqn_trial_ref, owlqn_probe_ref, owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref,
             fused.combine_ref, fused.combine_fix_ref, fused.combine_ow_ref,
@@ -1045,7 +1160,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     _attach_batched(plain, probe_batched_ref, trial_pair_gram_batched_ref,
                     fused.combine_batched_ref, owlqn_probe_pg_batched_ref,
                     owlqn_trial_pair_gram_batched_ref, fused.combine_ow_batched_ref,
-                    fused.pseudo_gradient_norm_batched_ref)
+                    fused.pseudo_gradient_norm_batched_ref, combine_probe_batched_ref,
+                    combine_ow_probe_batched_ref, combine_probe_batched_ok)
     vag.kernels = plain.kernels = ns
     vag.plain = plain
     return vag
@@ -1095,9 +1211,10 @@ def _attach(obj, trial, probe, tpg, tpg_ok, ow_trial, ow_probe, ow_probe_pg, ow_
 
 
 def _attach_batched(obj, probe, tpg, combine, ow_probe_pg, ow_tpg, combine_ow,
-                    pg_norm) -> None:
+                    pg_norm, cp, cp_ow, cp_ok) -> None:
     """The batched runner's protocol (``batched.minimize_batched``): K2 b,
-    K4 b and K3 b, and under OWL-QN K8 b, K14 b, K13 b and K10 b."""
+    K4 b and K3 b, and under OWL-QN K8 b, K14 b, K13 b and K10 b; with the
+    step uncapped the fusions K15 b and K16 b."""
     obj.__lbfgs_probe_batched__ = probe
     obj.__lbfgs_trial_pair_gram_batched__ = tpg
     obj.__lbfgs_combine_batched__ = combine
@@ -1105,6 +1222,11 @@ def _attach_batched(obj, probe, tpg, combine, ow_probe_pg, ow_tpg, combine_ow,
     obj.__lbfgs_owlqn_trial_pair_gram_batched__ = ow_tpg
     obj.__lbfgs_combine_ow_batched__ = combine_ow
     obj.__lbfgs_pseudo_gradient_norm_batched__ = pg_norm
+    obj.__lbfgs_combine_probe_batched__ = cp
+    obj.__lbfgs_combine_probe_batched_ok__ = cp_ok
+    obj.__lbfgs_combine_ow_probe_batched__ = cp_ow
+    # K16 b takes the same shapes and dtypes as K15 b
+    obj.__lbfgs_combine_ow_probe_batched_ok__ = cp_ok
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -178,16 +178,17 @@ def test_unported_entry_points_raise():
     # yet still raise
     out = b.minimize_batched(x0[None], lbfgs_torch.default_evaluate())
     assert int(out["niter"][0]) == 35 and float(out["fx"][0]) < 1e-9
-    # batched OWL-QN raised until it was ported at the capped step: now a
-    # batch of one takes the solo run's iterations, and the uncapped step
-    # still raises
+    # batched OWL-QN raised until it was ported, at the capped step and
+    # then at the uncapped one: now a batch of one takes the solo run's
+    # iterations either way, and damping still raises
     ow = b.with_orthantwise(1.0, 0, None)
-    out = ow.minimize_batched(x0[None], lbfgs_torch.default_evaluate())
-    solo = ow.minimize_jit(x0, lbfgs_torch.default_evaluate())
-    assert int(out["niter"][0]) == solo.niter and int(out["status"][0]) == solo.status
-    assert float(out["fx"][0]) == pytest.approx(float(solo.fx), rel=1e-9)
+    for opt in (ow, ow.with_constrain_step_size(False)):
+        out = opt.minimize_batched(x0[None], lbfgs_torch.default_evaluate())
+        solo = opt.minimize_jit(x0, lbfgs_torch.default_evaluate())
+        assert int(out["niter"][0]) == solo.niter and int(out["status"][0]) == solo.status
+        assert float(out["fx"][0]) == pytest.approx(float(solo.fx), rel=1e-9)
     with pytest.raises(NotImplementedError, match="batched"):
-        ow.with_constrain_step_size(False).minimize_batched(
+        ow.with_constrain_step_size(False).with_damping(True).minimize_batched(
             x0[None], lbfgs_torch.default_evaluate())
     # the native backend raised until it was ported: now it runs the C++
     # core (the defaults' 35 iterations, tests/test_native_parity.py:83-94)

@@ -21,7 +21,7 @@ solo runs, on the CPU, where K2 b, K4 b and K3 b run their plain versions.
     resumed from the JAX package's batched state, batched runs against
     the port's solo ``minimize_jit`` (float64, and float32 with a bfloat16
     ring under the fused-vs-unfused rule), an objective with extras, the
-    returned state, and every setting this slice refuses.
+    returned state, and every setting the batched runner refuses.
 
 The cases marked ``cuda`` hold K2 b, K4 b and K3 b to their plain
 versions and to the solo kernels on the card, and skip without one.
@@ -440,17 +440,20 @@ def test_return_state():
 
 
 UNSUPPORTED = {
-    # OWL-QN runs batched at the capped step, undamped
-    "owlqn_uncapped": lambda b: b.with_orthantwise(1.0, 0, None).with_constrain_step_size(False),
+    # OWL-QN runs batched undamped; the uncapped step, the adaptive entry
+    # step and any depth run (tests/test_torch_batched_uncapped.py), and
+    # the settings below still raise with them too
     "owlqn_damped": lambda b: b.with_orthantwise(1.0, 0, None).with_damping(True),
     "damping": lambda b: b.with_damping(True),
     "gradient_only": lambda b: b.with_gradient_only(),
-    "uncapped": lambda b: b.with_constrain_step_size(False),
-    "adaptive_entry": lambda b: b.with_adaptive_entry_step(2.0),
+    "damped_uncapped": lambda b: b.with_damping(True).with_constrain_step_size(False),
+    "damped_owlqn_uncapped": lambda b: b.with_orthantwise(1.0, 0, None).with_damping(True)
+    .with_constrain_step_size(False),
+    "gradient_only_uncapped": lambda b: b.with_gradient_only().with_constrain_step_size(False),
     "fx_wide": lambda b: b.with_fx_wide(),
     "scan_two_loop": lambda b: b.with_compact_two_loop(False),
     "float16_history": lambda b: b.with_history_dtype("float16"),
-    "deep_history": lambda b: b._new(b.param.replace(m=65)),
+    "float16_deep_history": lambda b: b._new(b.param.replace(m=80)).with_history_dtype("float16"),
     "speculative": lambda b: b.with_speculative_linesearch(4),
     "generic_objective": None,
 }
