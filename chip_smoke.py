@@ -214,6 +214,25 @@ Phases (any failure raises and the script exits nonzero):
  42. batched deep: the batched uncapped paths at m = 80 (plain and
      OWL-QN; two bf16 rings of 2.7 GB), 30 iterations: the deep K4 b (K14
      b) and the M = 0 K15 b (K16 b) per iteration;
+ 42b. batched damped kernels: K4 b and K14 b with their . gp columns, K6 b
+     (the capped combine with the damped row) and K15 b's fix form at m = 6
+     and in their deep forms at m = 80 (K15 b fix with M = 0), and K3 b and
+     K13 b at m = 80, against their plain versions at 1024 x 2^14 (f32, bf16
+     rings, a third of the instances frozen; ring rows, damped rows and
+     frozen instances bit for bit, the . gp launches' columns 0-2 the
+     3-column launches'), instances 0, 511 and 1023 against the solo
+     kernels bit for bit (x, g, pg, rings, r, rc, damped rows; K15 b fix's
+     sums and probe), each timed beside its plain version, every compiled
+     batched form's registers (a spill fails);
+ 42c. batched damped main paths: ``minimize_batched`` at 1024 x 2^14, 30
+     iterations, damped capped (K6 b) and uncapped (K15 b fix), gradient-only
+     and damped OWL-QN capped (K13 b and the row blend) and uncapped (K16 b),
+     each epilogue with its . gp column: the launches, no plain version,
+     reads per iteration outside the searches no more than the undamped
+     path's; then instances 0-7 solo against the batch after 8 iterations;
+ 42d. batched m = 80: the capped batched plain and OWL-QN runs at m = 80
+     (K3 b and K13 b with their coefficients sized at launch) and the
+     damped capped, uncapped and OWL-QN runs there, 10 iterations each;
  43. sharded world size 1: an NCCL group of one rank in this process
      (``lbfgs_torch.parallel``), the main path and the OWL-QN main path at
      n = 2^24 under ``kernels_on_mesh``, each against the same run with no
@@ -428,6 +447,29 @@ BATCHED_DEEP_FORMS = ("K4b_trial_pair_gram_batched", "K14b_owlqn_trial_pair_gram
 KERNELS.update({f"{name}_m80": (route, src, f"{rep} (m = 80)")
                 for name, (route, src, rep) in list(KERNELS.items())
                 if name in BATCHED_DEEP_FORMS})
+#: the batched runner's damped forms (damping and the gradient-only mode):
+#: the epilogues' . gp columns (K4 b's, K14 b's with gp.gp and gp.pg), the
+#: capped combine with the damped row (K6 b) and K15 b's fix form, each at
+#: m = 6 and in its deep form at m = 80 (``_m80``); and the capped combines
+#: K3 b and K13 b at m = 80 (their coefficients sized at launch)
+KERNELS.update({
+    "K4b_trial_pair_gram_batched_gp": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                       "lbfgs_tpu/ops/factory.py:722 (with_gp)" + VMAPPED),
+    "K14b_owlqn_trial_pair_gram_batched_gp": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                              "lbfgs_tpu/ops/factory.py:923 (with_gp)"
+                                              + VMAPPED),
+    "K6b_combine_fix_batched": ("cuda", "lbfgs_torch/csrc/combine.cu",
+                                "lbfgs_tpu/ops/fused.py:1216" + VMAPPED),
+    "K15b_combine_probe_batched_fix": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                       "lbfgs_tpu/ops/factory.py:1195 (with K6's damped row, "
+                                       "lbfgs_tpu/ops/fused.py:1216)" + VMAPPED),
+})
+BATCHED_DAMPED_FORMS = ("K4b_trial_pair_gram_batched_gp", "K14b_owlqn_trial_pair_gram_batched_gp",
+                        "K6b_combine_fix_batched", "K15b_combine_probe_batched_fix",
+                        "K3b_combine_batched", "K13b_combine_ow_batched")
+KERNELS.update({f"{name}_m80": (route, src, f"{rep} (m = 80)")
+                for name, (route, src, rep) in list(KERNELS.items())
+                if name in BATCHED_DAMPED_FORMS})
 BATCHED_UNCAPPED_PATH = ("K2b_probe_batched", "K4b_trial_pair_gram_batched",
                          "K15b_combine_probe_batched")
 BATCHED_OWLQN_UNCAPPED_PATH = ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched",
@@ -514,6 +556,11 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
         "K10b_pseudo_gradient_norm_batched": (3 * v, 6),
         "K15b_combine_probe_batched": (3 * v + 2 * m * h, 4 * m + 22),
         "K16b_combine_ow_probe_batched": (3 * v + 2 * m * h, 4 * m + 34),
+        # the damped forms: their solo forms' per element
+        "K4b_trial_pair_gram_batched_gp": (5 * v + rings, 16 * m + 24),
+        "K14b_owlqn_trial_pair_gram_batched_gp": (7 * v + rings, 16 * m + 44),
+        "K6b_combine_fix_batched": (2 * v + 2 * m * h + h, 4 * m + 10),
+        "K15b_combine_probe_batched_fix": (3 * v + 2 * m * h + h, 4 * m + 26),
         # reads and writes one float32 per element, at n = N_NULL
         "cal_null_launch": (8, 1),
     }[name]
@@ -1575,14 +1622,21 @@ def _factory_launches(k, sfx: str) -> dict:
 def _batched_forms(k) -> dict:
     """The launches of the batched epilogues and fusions ``k`` under the
     table's names: the static forms (at most factory.MAX_M ring rows) and
-    the deep forms (``_m80``) apart."""
+    the deep forms (``_m80``) apart, each with its flagged form (the
+    epilogues' . gp, K15 b's fix) apart."""
     out = {}
-    for name, fn in (("K4b_trial_pair_gram_batched", k.trial_pair_gram_batched),
-                     ("K14b_owlqn_trial_pair_gram_batched", k.owlqn_trial_pair_gram_batched),
-                     ("K15b_combine_probe_batched", k.combine_probe_batched),
-                     ("K16b_combine_ow_probe_batched", k.combine_ow_probe_batched)):
-        out[name] = fn.launches - fn.deep_launches
-        out[name + "_m80"] = fn.deep_launches
+    for name, fn, flag in (("K4b_trial_pair_gram_batched", k.trial_pair_gram_batched, "gp"),
+                           ("K14b_owlqn_trial_pair_gram_batched",
+                            k.owlqn_trial_pair_gram_batched, "gp"),
+                           ("K15b_combine_probe_batched", k.combine_probe_batched, "fix"),
+                           ("K16b_combine_ow_probe_batched", k.combine_ow_probe_batched, None)):
+        flagged = getattr(fn, flag + "_launches") if flag else 0
+        deep_flagged = getattr(fn, f"deep_{flag}_launches") if flag else 0
+        out[name] = fn.launches - flagged - (fn.deep_launches - deep_flagged)
+        out[name + "_m80"] = fn.deep_launches - deep_flagged
+        if flag:
+            out[f"{name}_{flag}"] = flagged - deep_flagged
+            out[f"{name}_{flag}_m80"] = deep_flagged
     return out
 
 
@@ -1605,6 +1659,7 @@ def launches() -> dict:
         "cal_null_launch": profiling.null_launch.launches,
         "K2b_probe_batched": rosenbrock.value_and_grad.kernels.probe_batched.launches,
         "K3b_combine_batched": fused.combine_batched.launches,
+        "K6b_combine_fix_batched": fused.combine_fix_batched.launches,
         "K8b_owlqn_probe_batched":
             rosenbrock.value_and_grad.kernels.owlqn_probe_pg_batched.launches,
         "K13b_combine_ow_batched": fused.combine_ow_batched.launches,
@@ -1642,6 +1697,7 @@ PLAIN = {
     "K2b_probe_batched": rosenbrock.value_and_grad.kernels.probe_batched_ref,
     "K4b_trial_pair_gram_batched": rosenbrock.value_and_grad.kernels.trial_pair_gram_batched_ref,
     "K3b_combine_batched": fused.combine_batched_ref,
+    "K6b_combine_fix_batched": fused.combine_fix_batched_ref,
     "K8b_owlqn_probe_batched": rosenbrock.value_and_grad.kernels.owlqn_probe_pg_batched_ref,
     "K14b_owlqn_trial_pair_gram_batched":
         rosenbrock.value_and_grad.kernels.owlqn_trial_pair_gram_batched_ref,
@@ -1665,13 +1721,15 @@ def plain_calls() -> dict:
 def _reset_factory(k) -> None:
     for name in FACTORY_WRAPPERS:
         getattr(k, name).launches = 0
-    for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram):
+    for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.trial_pair_gram_batched,
+               k.owlqn_trial_pair_gram_batched):
         fn.gp_launches = fn.deep_gp_launches = 0
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.combine_probe, k.combine_ow_probe,
                k.trial_pair_gram_batched, k.owlqn_trial_pair_gram_batched,
                k.combine_probe_batched, k.combine_ow_probe_batched):
         fn.deep_launches = 0
-    k.combine_probe.fix_launches = k.combine_probe.deep_fix_launches = 0
+    for fn in (k.combine_probe, k.combine_probe_batched):
+        fn.fix_launches = fn.deep_fix_launches = 0
     for name in FACTORY_REFS:
         getattr(k, name).calls = 0
 
@@ -1684,7 +1742,7 @@ def reset_counts() -> None:
                fused.pair_gram_sd, fused.combine_fix, fused.owlqn_trial_step,
                fused.pseudo_gradient, fused.pair_gram_xg, fused.axpy_dot,
                profiling.null_launch, fused.combine_batched, fused.combine_ow_batched,
-               fused.pseudo_gradient_norm_batched):
+               fused.pseudo_gradient_norm_batched, fused.combine_fix_batched):
         fn.launches = 0
     fused.pair_gram_xg.gp_launches = 0
     for fn in PLAIN.values():
@@ -3942,11 +4000,11 @@ def phase_batched_kernels() -> dict:
 
 
 def _batched_run(name: str, params: LbfgsParams, B: int, n: int, path=BATCHED_PATH,
-                 init=()) -> tuple:
-    """One warm and three timed ``minimize_batched`` of B instances of n
+                 init=(), runs: int = BATCHED_RUNS) -> tuple:
+    """One warm and ``runs`` timed ``minimize_batched`` of B instances of n
     elements from ``batched_x0``, the counts reset before each; returns
-    (state, the three walls in seconds, launches, plain calls, host reads,
-    loop iterations, the starts), the counts and state of the last run.
+    (state, the walls in seconds, launches, plain calls, host reads, loop
+    iterations, the starts), the counts and state of the last run.
     ``path`` names the run's probe, epilogue and combine kernels, ``init``
     the kernels its init launches once."""
     x0b = batched_x0(B, n)
@@ -3954,7 +4012,7 @@ def _batched_run(name: str, params: LbfgsParams, B: int, n: int, path=BATCHED_PA
     minimize_batched(params, x0b, fn)
     torch.cuda.synchronize()
     walls = []
-    for _ in range(BATCHED_RUNS):
+    for _ in range(runs):
         reset_counts()
         out = []
         walls.append(profiling.timed(
@@ -4199,9 +4257,10 @@ def phase_batched_owlqn_kernels() -> dict:
     # registers and spills: K14 b's Triton form at these dtypes, and every
     # instantiation of the CUDA K3 b/K13 b and K10/K10 b/K11 bodies
     compiled = {}
-    for (vd, hd), kc in k.owlqn_trial_pair_gram_batched.compiled.items():
+    for (vd, hd, gp), kc in k.owlqn_trial_pair_gram_batched.compiled.items():
         kc._init_handles()
-        compiled[f"K14b {vd} {hd}"] = dict(n_regs=kc.n_regs, n_spills=kc.n_spills)
+        compiled[f"K14b{' gp' if gp else ''} {vd} {hd}"] = dict(n_regs=kc.n_regs,
+                                                               n_spills=kc.n_spills)
     for name, v in ptxas_kernels(_build.build_log()).items():
         if m := re.search(r"(combine_batched_kernel|pseudo_grad_kernel)I(\w+?)EEv", name):
             compiled[f"{m.group(1)}<{m.group(2)}>"] = v
@@ -4424,20 +4483,21 @@ def _check_batched_deep_epilogues(k, a: dict, m: int, errs: dict, solo: dict,
 
 def batched_compiled() -> list:
     """Registers and spills of every compiled batched epilogue and fusion
-    (K4 b, K14 b, their deep forms, K15 b and K16 b with M = m and M = 0);
+    (K4 b, K14 b, their deep forms, each with and without the . gp column,
+    K15 b (with and without its fix form) and K16 b with M = m and M = 0);
     a form that spills fails the phase."""
     k = rosenbrock.value_and_grad.kernels
     forms = []
     for form, fn in (("K4b", k.trial_pair_gram_batched),
                      ("K14b", k.owlqn_trial_pair_gram_batched)):
         for deep, compiled in ((False, fn.compiled), (True, fn.deep_compiled)):
-            for (vd, hd), ck in sorted(compiled.items(), key=str):
-                forms.append(dict(form=form + (" deep" if deep else ""), vectors=str(vd),
-                                  history=str(hd), **_compiled_info(ck)))
+            for (vd, hd, gp), ck in sorted(compiled.items(), key=str):
+                forms.append(dict(form=form + (" gp" if gp else "") + (" deep" if deep else ""),
+                                  vectors=str(vd), history=str(hd), **_compiled_info(ck)))
     for form, fn in (("K15b", k.combine_probe_batched), ("K16b", k.combine_ow_probe_batched)):
-        for (vd, hd, deep), ck in sorted(fn.compiled.items(), key=str):
-            forms.append(dict(form=form + (" M=0" if deep else ""), vectors=str(vd),
-                              history=str(hd), **_compiled_info(ck)))
+        for (vd, hd, deep, *fix), ck in sorted(fn.compiled.items(), key=str):
+            forms.append(dict(form=form + (" fix" if any(fix) else "") + (" M=0" if deep else ""),
+                              vectors=str(vd), history=str(hd), **_compiled_info(ck)))
     emit(phase="batched_compiled", forms=forms)
     spilled = [f for f in forms if f["n_spills"]]
     if spilled:
@@ -4631,6 +4691,409 @@ def phase_batched_deep() -> dict:
         del st, x0b
         torch.cuda.empty_cache()
     return lc
+
+
+# ---------------------------------------------------------------------------
+# the batched runner under damping and the gradient-only mode: K4 b ·gp,
+# K14 b ·gp, K6 b and K15 b's fix form; K3 b and K13 b above 64 ring rows
+# ---------------------------------------------------------------------------
+
+_BD_PLAIN = ("K2b_probe_batched", "K4b_trial_pair_gram_batched_gp")
+_BD_OWLQN = ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched_gp")
+#: the batched damped main paths, 30 iterations at 1024 x 2^14 from
+#: ``batched_x0``: the batched main path (More-Thuente) and the batched
+#: OWL-QN main path (c = 1 on [0, n - 1), Armijo) damped, capped and
+#: uncapped, and ``with_gradient_only()`` (damping, strong-Wolfe
+#: backtracking with the literal exit) at the cap; (params, the path's
+#: probe, epilogue and combine, the init's kernels, the undamped path whose
+#: reads it is held to)
+BATCHED_DAMPED_PATHS = {
+    "damped": (BATCHED_PARAMS.replace(damping=True), _BD_PLAIN + ("K6b_combine_fix_batched",),
+               (), "capped"),
+    "damped_uncapped": (BATCHED_UNCAPPED_PARAMS.replace(damping=True),
+                        _BD_PLAIN + ("K15b_combine_probe_batched_fix",), (), "uncapped"),
+    "gradient_only": (Lbfgs(BATCHED_PARAMS).with_gradient_only().param,
+                      _BD_PLAIN + ("K6b_combine_fix_batched",), (), "capped"),
+    "owlqn_damped": (BATCHED_OWLQN_PARAMS.replace(damping=True),
+                     _BD_OWLQN + ("K13b_combine_ow_batched",), BATCHED_OWLQN_INIT,
+                     "owlqn_capped"),
+    "owlqn_damped_uncapped": (BATCHED_OWLQN_UNCAPPED_PARAMS.replace(damping=True),
+                              _BD_OWLQN + ("K16b_combine_ow_probe_batched",),
+                              BATCHED_OWLQN_INIT, "owlqn_uncapped"),
+}
+#: the batched runner at m = 80 ring rows (two bf16 rings of 2.7 GB), 10
+#: iterations: capped, plain and OWL-QN (K3 b and K13 b with their
+#: coefficients sized at launch), and damped capped, uncapped and OWL-QN
+#: (the deep . gp epilogues, K6 b and K15 b fix with M = 0)
+_B80 = dict(m=DEEP_M, max_iterations=11)
+BATCHED_M80_PATHS = {
+    "capped": (BATCHED_PARAMS.replace(**_B80),
+               ("K2b_probe_batched", "K4b_trial_pair_gram_batched_m80", "K3b_combine_batched"),
+               ()),
+    "owlqn_capped": (BATCHED_OWLQN_PARAMS.replace(**_B80),
+                     ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched_m80",
+                      "K13b_combine_ow_batched"), BATCHED_OWLQN_INIT),
+    "damped": (BATCHED_PARAMS.replace(damping=True, **_B80),
+               ("K2b_probe_batched", "K4b_trial_pair_gram_batched_gp_m80",
+                "K6b_combine_fix_batched"), ()),
+    "damped_uncapped": (BATCHED_UNCAPPED_PARAMS.replace(damping=True, **_B80),
+                        ("K2b_probe_batched", "K4b_trial_pair_gram_batched_gp_m80",
+                         "K15b_combine_probe_batched_fix_m80"), ()),
+    "owlqn_damped": (BATCHED_OWLQN_PARAMS.replace(damping=True, **_B80),
+                     ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched_gp_m80",
+                      "K13b_combine_ow_batched"), BATCHED_OWLQN_INIT),
+}
+#: the CUDA batched combines' instantiations (K3 b, K13 b, K6 b, each with
+#: the static and the launch-sized coefficient array, in the three dtype
+#: pairs) in the build log
+COMBINE_BATCHED_KERNEL = re.compile(
+    r"combine_batched_kernelI([fd])(13__nv_bfloat16|[fd])Lb([01])ELb([01])ELb([01])E")
+COMBINE_BATCHED_FORMS = 3 * 3 * 2
+
+
+def batched_damped_inputs(seed: int, m: int) -> dict:
+    """``batched_fusion_inputs`` with each instance's damped-row
+    coefficients (ca, cb) appended to its coefficient row (``coef_fix``, [B,
+    2m + 3]): ca in [0.5, 1) and cb in (-0.3, 0], as a case-1 blend gives
+    them, so that repeated timing launches keep the row bounded."""
+    a = batched_fusion_inputs(seed, m)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    u = torch.rand(BATCH_B, 2, generator=g, device="cuda")
+    a["coef_fix"] = torch.cat([a["coef"], 0.5 + 0.5 * u[:, :1], -0.3 * u[:, 1:]],
+                              dim=1).contiguous()
+    return a
+
+
+def _check_gp_epilogues(k, a: dict, m: int, sfx: str, errs: dict, solo: dict,
+                        cases: dict) -> None:
+    """K4 b and K14 b with the . gp column (``with_gp=True``; the deep forms
+    above ``factory.MAX_M`` rows) against their plain versions (vectors and
+    sums normwise, ring row ``end`` bit for bit the rounding of the
+    kernel's own pair, the other rows kept, frozen instances untouched),
+    every output but the new column bit for bit the 3-column launch's, and
+    on instances ``BATCH_SOLO`` against the solo K4 and K14 with_gp (x, g,
+    pg and the rings bit for bit; whether the products are too, and the .
+    gp column's normwise gap, printed); adds the timing cases (in place,
+    on copies) to ``cases``."""
+    tv, ts = TOL[(torch.float32, "vec")], TOL[(torch.float32, "sum")]
+    live, frozen = a["live"], ~a["live"]
+    lo, hi = windows(BATCH_N)[1]
+    c, end = C_L1, (BATCH_END if m == M else m - 3)
+    names = ("xp", "gp", "pg", "S", "Y")
+
+    def tpg(fn, t, lv, **kw):
+        return fn(t["xp"], a["d"], t["gp"], a["stp"], t["S"], t["Y"], end, lv, **kw)
+
+    def ow_tpg(fn, t, lv, **kw):
+        return fn(t["xp"], a["d"], t["gp"], t["pg"], a["stp"], c, lo, hi, t["S"], t["Y"], end,
+                  lv, **kw)
+
+    forms = {
+        "K4b_trial_pair_gram_batched_gp": (k.trial_pair_gram_batched,
+                                           k.trial_pair_gram_batched_ref, tpg, False),
+        "K14b_owlqn_trial_pair_gram_batched_gp": (k.owlqn_trial_pair_gram_batched,
+                                                  k.owlqn_trial_pair_gram_batched_ref, ow_tpg,
+                                                  True),
+    }
+    clone = lambda: {n_: a[n_].clone() for n_ in names}
+    for base, (kern, ref, call, ow) in forms.items():
+        name = base + sfx
+        tk = clone()
+        gp_launches = kern.gp_launches
+        outk = call(kern, tk, live, with_gp=True)
+        if kern.gp_launches != gp_launches + 1:
+            raise AssertionError(f"{name}: the . gp form did not launch")
+        t3 = clone()
+        out3 = call(kern, t3, live)
+        # (a frozen instance's sums are undefined: never written)
+        if not (all(same_bits(tk[n_], t3[n_]) for n_ in names)
+                and all(same_bits((u[..., :3] if u.ndim == 3 else u)[live], v[live])
+                        for u, v in zip(outk, out3))):
+            raise AssertionError(f"{name}: columns 0-2 or another output differ from the "
+                                 f"3-column launch's")
+        del t3, out3
+        tq = clone()
+        outq = call(ref, tq, live, with_gp=True)
+        vecs = ("xp", "gp", "pg") if ow else ("xp", "gp")
+        e = [check(f"{name} {n_}", tk[n_][live], tq[n_][live], tv) for n_ in vecs]
+        e += [check(f"{name} sum{i}", u[live], v[live], ts)
+              for i, (u, v) in enumerate(zip(outk, outq)) if u.dtype != torch.bool]
+        if not all(torch.equal(u[live], v[live])
+                   for u, v in zip(outk, outq) if u.dtype == torch.bool):
+            raise AssertionError(f"{name}: changed differs from the plain version")
+        errs[name] = tuple(e)
+        s_new = ((tk["xp"] - a["xp"]) if ow else a["stp"][:, None] * a["d"]).to(torch.bfloat16)
+        y_new = (tk["gp"] - a["gp"]).to(torch.bfloat16)
+        keep = [j for j in range(m) if j != end]
+        if not (same_bits(tk["S"][live][:, end], s_new[live])
+                and same_bits(tk["Y"][live][:, end], y_new[live])
+                and same_bits(tk["S"][:, keep], a["S"][:, keep])
+                and same_bits(tk["Y"][:, keep], a["Y"][:, keep])):
+            raise AssertionError(f"{name}: the ring rows are not the rounded pair and the kept "
+                                 f"rows")
+        if not all(same_bits(tk[n_][frozen], a[n_][frozen]) for n_ in names):
+            raise AssertionError(f"{name} wrote a frozen instance")
+        del tq, outq, s_new, y_new
+        torch.cuda.empty_cache()
+        SP, YP = outk[3:5] if ow else outk[4:6]
+        for b in BATCH_SOLO:
+            Sb, Yb = a["S"][b].clone(), a["Y"][b].clone()
+            stp = float(a["stp"][b])
+            if ow:
+                x1, g1, pg1, SP1, YP1 = k.owlqn_trial_pair_gram(
+                    a["xp"][b], a["d"][b], a["gp"][b], a["pg"][b], stp, c, lo, hi, Sb, Yb, end,
+                    with_gp=True)[:5]
+            else:
+                x1, _, g1, *_, SP1, YP1 = k.trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b],
+                                                             stp, Sb, Yb, end, with_gp=True)
+                pg1 = tk["pg"][b]
+            bits = dict(x=same_bits(tk["xp"][b], x1), g=same_bits(tk["gp"][b], g1),
+                        pg=same_bits(tk["pg"][b], pg1), S=same_bits(tk["S"][b], Sb),
+                        Y=same_bits(tk["Y"][b], Yb))
+            if not all(bits.values()):
+                raise AssertionError(f"{name} instance {b} differs from the solo kernel: {bits}")
+            solo[f"{name}_{b}"] = dict(
+                bits, products_bit_for_bit=same_bits(SP[b], SP1) and same_bits(YP[b], YP1),
+                gp_column_normwise=max(err(SP[b][:, 3], SP1[:, 3]),
+                                       err(YP[b][:, 3], YP1[:, 3])))
+        del tk, outk, SP, YP
+        torch.cuda.empty_cache()
+        t = clone()
+        every = torch.ones_like(live)
+        cases[name] = (lambda call=call, kern=kern, t=t: call(kern, t, every, with_gp=True),
+                       lambda call=call, ref=ref, t=t: call(ref, t, every, with_gp=True), m)
+
+
+def _check_fix_combines(k, a: dict, m: int, sfx: str, errs: dict, solo: dict,
+                        cases: dict) -> None:
+    """K6 b and K15 b's fix form (M = m up to ``factory.MAX_M`` rows, M = 0
+    above) against their plain versions (r and the sums normwise, the
+    damped rows bit for bit, frozen instances untouched), K15 b fix's rows
+    bit for bit K6 b's, and on instances ``BATCH_SOLO`` against the solo K6
+    and K15 fix (r and the damped row bit for bit, and K15 b's sums and
+    probe too); adds the timing cases to ``cases``."""
+    tv, ts = TOL[(torch.float32, "vec")], TOL[(torch.float32, "sum")]
+    live, frozen = a["live"], ~a["live"]
+    end, cf = (BATCH_END if m == M else m - 3), a["coef_fix"]
+
+    def k6(fn, Y, out, lv):
+        return fn(a["gp"], a["S"], Y, cf, lv, out, end)
+
+    def k15(fn, Y, out, lv):
+        return fn(a["gp"], a["xp"], a["S"], Y, cf, a["stp"], lv, out, fix=end)
+
+    forms = {
+        "K6b_combine_fix_batched": (fused.combine_fix_batched, fused.combine_fix_batched_ref,
+                                    k6),
+        "K15b_combine_probe_batched_fix": (k.combine_probe_batched,
+                                           k.combine_probe_batched_ref, k15),
+    }
+    rows = {}
+    for base, (kern, ref, call) in forms.items():
+        name = base + sfx
+        Yk, rk = a["Y"].clone(), torch.zeros_like(a["d"])
+        sk = call(kern, Yk, rk, live)
+        Yq, rq = a["Y"].clone(), torch.zeros_like(a["d"])
+        sq = call(ref, Yq, rq, live)
+        errs[name] = (check(f"{name} r", rk[live], rq[live], tv),
+                      *(check(f"{name} sum{i}", u[live], v[live], ts)
+                        for i, (u, v) in enumerate(zip(sk, sq))))
+        if not same_bits(Yk, Yq):
+            raise AssertionError(f"{name}: the damped rows differ from the plain version's")
+        if rk[frozen].any() or not same_bits(Yk[frozen], a["Y"][frozen]):
+            raise AssertionError(f"{name} wrote a frozen instance")
+        rows[base] = Yk[:, end].clone()
+        del Yq, rq
+        for b in BATCH_SOLO:
+            c1 = cf[b]
+            args = (c1[0], c1[1:1 + m], c1[1 + m:1 + 2 * m])
+            Yb = a["Y"][b].clone()
+            if call is k6:
+                want = fused.combine_fix(a["gp"][b], a["S"][b], Yb, *args, end, c1[1 + 2 * m],
+                                         c1[2 + 2 * m])
+                sums = True
+            else:
+                want = k.combine_probe(a["gp"][b], a["xp"][b], a["S"][b], Yb, *args,
+                                       float(a["stp"][b]), fix=(end, c1[1 + 2 * m],
+                                                                c1[2 + 2 * m]))
+                sums = all(same_bits(u[b], v) for u, v in zip(sk, want[1:]))
+            bits = dict(r=same_bits(rk[b], want[0]), Y=same_bits(Yk[b], Yb), sums=sums)
+            if not all(bits.values()):
+                raise AssertionError(f"{name} instance {b} differs from the solo kernel: {bits}")
+            solo[f"{name}_{b}"] = "bit-exact"
+        del Yk, rk
+        Yt, out = a["Y"].clone(), torch.zeros_like(a["d"])
+        every = torch.ones_like(live)
+        cases[name] = (lambda call=call, kern=kern, Yt=Yt, out=out: call(kern, Yt, out, every),
+                       lambda call=call, ref=ref, Yt=Yt, out=out: call(ref, Yt, out, every), m)
+    if not same_bits(rows["K6b_combine_fix_batched"], rows["K15b_combine_probe_batched_fix"]):
+        raise AssertionError(f"K15b fix{sfx}: the damped rows differ from K6 b's")
+
+
+def _check_deep_capped_combines(a: dict, m: int, errs: dict, solo: dict, cases: dict) -> None:
+    """K3 b and K13 b above ``factory.MAX_M`` rows (the coefficients in
+    shared memory sized at launch) against their plain versions, and r and
+    rc on instances ``BATCH_SOLO`` bit for bit the solo K3 and K13 (their
+    own launch-sized form); adds the timing cases to ``cases``."""
+    tv, ts = TOL[(torch.float32, "vec")], TOL[(torch.float32, "sum")]
+    live, frozen = a["live"], ~a["live"]
+    lo, hi = windows(BATCH_N)[1]
+    coef = a["coef"]
+    forms = {
+        "K3b_combine_batched_m80": (
+            fused.combine_batched, fused.combine_batched_ref,
+            lambda f, out, lv: f(a["gp"], a["S"], a["Y"], coef, lv, out),
+            lambda b, *cs: fused.combine(a["gp"][b], a["S"][b], a["Y"][b], *cs)),
+        "K13b_combine_ow_batched_m80": (
+            fused.combine_ow_batched, fused.combine_ow_batched_ref,
+            lambda f, out, lv: f(a["pg"], a["S"], a["Y"], coef, lv, out, lo, hi),
+            lambda b, *cs: fused.combine_ow(a["pg"][b], a["S"][b], a["Y"][b], *cs, lo, hi)),
+    }
+    every = torch.ones_like(live)
+    for name, (kern, ref, call, one) in forms.items():
+        rk, rq = torch.zeros_like(a["d"]), torch.zeros_like(a["d"])
+        sk, sq = call(kern, rk, live), call(ref, rq, live)
+        errs[name] = (check(f"{name} r", rk[live], rq[live], tv),
+                      *(check(f"{name} sum{i}", u[live], v[live], ts)
+                        for i, (u, v) in enumerate(zip(sk, sq))))
+        if rk[frozen].any():
+            raise AssertionError(f"{name} wrote a frozen instance")
+        for b in BATCH_SOLO:
+            if not same_bits(rk[b], one(b, coef[b, 0], coef[b, 1:1 + m], coef[b, 1 + m:])[0]):
+                raise AssertionError(f"{name} instance {b}: r differs from the solo kernel")
+            solo[f"{name}_{b}"] = "bit-exact"
+        out = torch.zeros_like(a["d"])
+        cases[name] = (lambda call=call, kern=kern, out=out: call(kern, out, every),
+                       lambda call=call, ref=ref, out=out: call(ref, out, every), m)
+
+
+def combine_batched_compiled() -> list:
+    """Registers, shared memory and spills of every instantiation of the
+    CUDA batched combines (``COMBINE_BATCHED_FORMS``) from the build log; a
+    form that spills, or a log that does not show them all, fails."""
+    forms = []
+    for name, info in ptxas_kernels(_build.build_log()).items():
+        if m := COMBINE_BATCHED_KERNEL.search(name):
+            kind = "K13b" if m.group(3) == "1" else ("K6b" if m.group(4) == "1" else "K3b")
+            forms.append(dict(kernel=kind, vectors=K5_TYPES[m.group(1)],
+                              history=K5_TYPES[m.group(2)], dyn=m.group(5) == "1", **info))
+    forms.sort(key=lambda f: (f["kernel"], f["vectors"], f["history"], f["dyn"]))
+    if len(forms) != COMBINE_BATCHED_FORMS or any("n_regs" not in f for f in forms):
+        raise AssertionError(f"the build log shows {len(forms)} of {COMBINE_BATCHED_FORMS} "
+                             f"batched combine instantiations")
+    spilled = [f for f in forms if f.get("spill_stores") or f.get("spill_loads")]
+    if spilled:
+        raise AssertionError(f"batched combines spill registers: {spilled}")
+    return forms
+
+
+def phase_batched_damped_kernels() -> dict:
+    """K4 b ·gp and K14 b ·gp, K6 b and K15 b's fix form at m = 6 and in
+    their deep forms at m = 80 (K15 b fix with M = 0), and K3 b and K13 b
+    at m = 80, against their plain versions on the card at B = 1024, n =
+    2^14, f32 vectors, bf16 rings, a third of the instances frozen, the
+    OWL-QN forms on a window whose ends fall inside the kernels' blocks
+    (normwise 1e-5 on vectors, 1e-4 on sums; ring rows, damped rows and
+    frozen instances bit for bit); instances 0, 511 and 1023 against the
+    solo kernels bit for bit (``_check_gp_epilogues``,
+    ``_check_fix_combines``, ``_check_deep_capped_combines``).  Each timed
+    with every instance live beside its plain version and its bound (5
+    launches a sample at m = 80, 20 at m = 6); the registers and spills of
+    every compiled batched Triton form (``batched_compiled``) and CUDA
+    combine (``combine_batched_compiled``): a spill fails."""
+    k = rosenbrock.value_and_grad.kernels
+    errs, solo, cases = {}, {}, {}
+    times, timed_by, bounds = {}, {}, {}
+    for m, sfx in ((M, ""), (DEEP_M, "_m80")):
+        a = batched_damped_inputs(SEED + 17, m)
+        _check_gp_epilogues(k, a, m, sfx, errs, solo, cases)
+        _check_fix_combines(k, a, m, sfx, errs, solo, cases)
+        if m == DEEP_M:
+            _check_deep_capped_combines(a, m, errs, solo, cases)
+        for name, (kern, plain, depth) in cases.items():
+            k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain, 20 if m == M else 5)
+            times[name], timed_by[name] = (k_ms, p_ms), (k_by, p_by)
+            bounds[name] = bound(name, BATCH_B * BATCH_N, 4, 2, depth)
+        cases.clear()
+        del a
+        torch.cuda.empty_cache()
+    compiled = batched_compiled() + combine_batched_compiled()
+    errs = {name: (max(e[0] for e in v), max(e[1] for e in v)) for name, v in errs.items()}
+    emit(phase="batched_damped_kernels", B=BATCH_B, n=BATCH_N, m=[M, DEEP_M],
+         window=windows(BATCH_N)[1], frozen=len(range(2, BATCH_B, 3)),
+         max_abs_err={n_: e[0] for n_, e in errs.items()},
+         max_normwise_err={n_: e[1] for n_, e in errs.items()},
+         tol=dict(vec=TOL[(torch.float32, "vec")], sum=TOL[(torch.float32, "sum")],
+                  ring_rows_damped_rows="bit-exact", frozen="bit-exact",
+                  gp_columns_0_2_vs_3_column="bit-exact",
+                  vs_solo_x_g_pg_rings_r_rows="bit-exact"),
+         vs_solo=solo, compiled=compiled,
+         device_ms={n_: {"kernel": t[0], "plain": t[1], "bound": bounds[n_][0]}
+                    for n_, t in times.items()},
+         timed_by={n_: {"kernel": t[0], "plain": t[1]} for n_, t in timed_by.items()})
+    return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
+
+
+def _outside_search(line: dict) -> float:
+    """A batched path's host reads per iteration outside its searches: its
+    syncs less its probe launches (one read each) and the init's read."""
+    return line["syncs_per_iter"] - line["probes_per_iter"] - 1 / line["iters"]
+
+
+def phase_batched_damped_main_path(undamped: dict) -> dict:
+    """``minimize_batched`` on the damped batched paths
+    (``BATCHED_DAMPED_PATHS``, 1024 x 2^14, 30 iterations): each launches
+    its probe per trip (not carried in), its . gp epilogue and its combine
+    per iteration, its init's kernels once and nothing else, calls no plain
+    version, ends with every fx finite, and reads the host per iteration
+    outside its searches no more often than its undamped path
+    (``undamped``, by ``_outside_search``; its syncs and probes per
+    iteration printed beside).  Instance-iterations/s, device ms, syncs and
+    host launch calls per iteration; then instances 0-7 solo against the
+    batch after 8 iterations.  Returns each path's launches."""
+    lc_all = {}
+    for label, (params, path, init, base) in BATCHED_DAMPED_PATHS.items():
+        st, walls, lc, pc, reads, iters, x0b = _batched_run(
+            f"batched {label} main path", params, BATCH_B, BATCH_N, path, init)
+        beside = undamped[base]
+        outside, outside_undamped = (reads - lc[path[0]] - 1) / iters, _outside_search(beside)
+        _batched_report(
+            f"batched_{label}_main_path", st, walls, lc, reads, iters, path,
+            **_batched_profile(params, x0b), plain_calls=pc,
+            init_launches={k: lc[k] for k in init}, reads_outside_search_per_iter=outside,
+            undamped={key: beside[key] for key in ("syncs_per_iter", "probes_per_iter",
+                                                   "instance_iters_per_s",
+                                                   "device_ms_per_iter")}
+            | dict(path=base, reads_outside_search_per_iter=outside_undamped))
+        if not outside <= outside_undamped + 1e-9:
+            raise AssertionError(f"batched {label}: {outside} reads per iteration outside the "
+                                 f"searches, the undamped path {outside_undamped}")
+        del st
+        emit(phase=f"batched_{label}_vs_solo", iters=8, fx_tol=FUSION_TOL_8,
+             instances=_vs_solo_8(f"batched {label}", params, x0b))
+        lc_all[label] = lc
+        del x0b
+        torch.cuda.empty_cache()
+    return lc_all
+
+
+def phase_batched_m80() -> dict:
+    """``minimize_batched`` at m = 80 ring rows (``BATCHED_M80_PATHS``,
+    1024 x 2^14, 10 iterations; one warm and one timed run each): capped
+    plain and OWL-QN through K3 b and K13 b, damped capped, uncapped and
+    OWL-QN through the deep . gp epilogues, K6 b and K15 b fix (M = 0);
+    each path's kernels and nothing else, no plain version, every fx
+    finite.  Returns each path's launches."""
+    lc_all = {}
+    for label, (params, path, init) in BATCHED_M80_PATHS.items():
+        st, walls, lc, pc, reads, iters, x0b = _batched_run(
+            f"batched m80 {label}", params, BATCH_B, BATCH_N, path, init, runs=1)
+        _batched_report(f"batched_m80_{label}", st, walls, lc, reads, iters, path, m=params.m,
+                        plain_calls=pc)
+        lc_all[label] = lc
+        del st, x0b
+        torch.cuda.empty_cache()
+    return lc_all
 
 
 # ---------------------------------------------------------------------------
@@ -5238,9 +5701,14 @@ def main() -> None:
     batched_ow = run(phase_batched_owlqn_kernels)
     lc_batched_ow, batched_ow_out = run(phase_batched_owlqn_main_path, batched_out)
     batched_fu = run(phase_batched_fusion_kernels)
-    lc_bu, _ = run(phase_batched_uncapped_main_path, batched_out)
-    lc_bowu, _ = run(phase_batched_owlqn_uncapped_main_path, batched_ow_out)
+    lc_bu, bu_out = run(phase_batched_uncapped_main_path, batched_out)
+    lc_bowu, bowu_out = run(phase_batched_owlqn_uncapped_main_path, batched_ow_out)
     lc_bdeep = run(phase_batched_deep)
+    batched_dm = run(phase_batched_damped_kernels)
+    lc_bd = run(phase_batched_damped_main_path, {
+        "capped": batched_out, "owlqn_capped": batched_ow_out,
+        "uncapped": bu_out["literal"]["fused"], "owlqn_uncapped": bowu_out["fused"]})
+    lc_b80 = run(phase_batched_m80)
     run(phase_sharded_world1)
     run(phase_sharded_two_rank, {"main_path": main_out, "owlqn_main_path": ow_out,
                                  "damped_main_path": d_out})
@@ -5249,6 +5717,7 @@ def main() -> None:
         k[key].update(batched[key])
         k[key].update(batched_ow[key])
         k[key].update(batched_fu[key])
+        k[key].update(batched_dm[key])
     lc_cal = run(phase_launch_overhead, {
         name: (params, fused, out["ms_per_iter"], out["syncs_per_iter"])
         for name, params, fused, out in (
@@ -5281,6 +5750,18 @@ def main() -> None:
           "K15b_combine_probe_batched": lc_bu["K15b_combine_probe_batched"],
           "K16b_combine_ow_probe_batched": lc_bowu["K16b_combine_ow_probe_batched"],
           **lc_bdeep,
+          # the damped batched forms from the damped main paths (m = 6) and
+          # the m = 80 runs, K3 b and K13 b at m = 80 from the capped ones
+          **{name: lc_bd[label][name] for label, name in (
+              ("damped", "K4b_trial_pair_gram_batched_gp"), ("damped", "K6b_combine_fix_batched"),
+              ("damped_uncapped", "K15b_combine_probe_batched_fix"),
+              ("owlqn_damped", "K14b_owlqn_trial_pair_gram_batched_gp"))},
+          **{name + "_m80": lc_b80[label][name + m80] for label, name, m80 in (
+              ("capped", "K3b_combine_batched", ""), ("owlqn_capped", "K13b_combine_ow_batched", ""),
+              ("damped", "K4b_trial_pair_gram_batched_gp", "_m80"),
+              ("damped", "K6b_combine_fix_batched", ""),
+              ("damped_uncapped", "K15b_combine_probe_batched_fix", "_m80"),
+              ("owlqn_damped", "K14b_owlqn_trial_pair_gram_batched_gp", "_m80"))},
           "K17_axpy_dot": lc_main["K17_axpy_dot"], **lc_cal}
     # library_ms: one PyTorch call computing the same function, where one
     # exists (only the calibration kernel's o = x + 1)

@@ -101,21 +101,24 @@ Scenario batches (``Lbfgs.minimize_batched``, ``batched``): B independent
 instances of one factory objective as a [B, n] tensor, advanced together
 with one batched launch per pass (K2 b, K4 b, K3 b; under OWL-QN K8 b,
 K14 b, K13 b and K10 b at the init; with the step uncapped the
-combine+probe fusions K15 b and K16 b in place of K3 b and K13 b)::
+combine+probe fusions K15 b and K16 b in place of K3 b and K13 b; damped,
+K4 b and K14 b with their . gp columns and K6 b or K15 b's fix form)::
 
     out = lbfgs().minimize_batched(x0_batch, rosenbrock.value_and_grad)
     out["fx"], out["niter"], out["x"]
     out = lbfgs().with_orthantwise(1.0, 0, None).minimize_batched(x0_batch, fn)
     out = lbfgs().with_constrain_step_size(False).with_adaptive_entry_step(2.0) \
         .minimize_batched(x0_batch, fn)
+    out = lbfgs().with_gradient_only().minimize_batched(x0_batch, fn)
 
 It runs plain L-BFGS with More-Thuente or the backtracking searches, and
 OWL-QN with backtracking (More-Thuente routed to it), the step capped or
 not, with the literal or the adaptive entry step, at any history depth
 (above ``ops.factory.MAX_M`` ring rows the deep forms of K4 b, K14 b,
-K15 b and K16 b); damping, the gradient-only mode, the wide objective
-scalar, the scan two-loop, a float16 history and generic objectives
-raise ``NotImplementedError`` there, with OWL-QN and without.
+K15 b and K16 b), with Powell damping (``damping_fixed`` too) and in the
+gradient-only mode; the wide objective scalar, the scan two-loop, a
+float16 history, the speculative search and generic objectives raise
+``NotImplementedError`` there, with OWL-QN and without, damped or not.
 """
 
 from __future__ import annotations

@@ -33,8 +33,11 @@ carried (ft, g.d), as ``linesearch.carried`` does for one search, and is
 left out of that trip's probe; it still counts the evaluation.  A trip
 on which every instance carried makes no probe and no read.
 
-Not here (the batched runner refuses them): the wide objective scalar and
-the gradient-only exit.
+The gradient-only mode (``LineSearchParams.gradient_only``) adds the
+scalar backtracking's literal exit, |g.d| <= -gtol*|dginit|, which holds
+only where dginit == 0, per instance; with More-Thuente it raises the
+scalar ``find``'s ``ValueError``.  Not here (the batched runner refuses
+it): the wide objective scalar.
 """
 
 from __future__ import annotations
@@ -296,12 +299,13 @@ def morethuente(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
 def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
                  probe: Probe, ow: bool = False,
                  probe1: Optional[tuple] = None) -> BatchedSearch:
-    """``linesearch.backtracking`` in probe-only mode (no gradient-only
-    exit) over the instances in ``live``: the Armijo, Wolfe or strong-Wolfe
-    exit ladder (``src/line.rs:716-784``), one ``probe`` per trip, the
-    first trip carried in from ``probe1`` where its step is the probed
-    one.  Under OWL-QN (``ow``) only the Armijo exit applies
-    (``src/line.rs:747-751``), whatever the ladder."""
+    """``linesearch.backtracking`` in probe-only mode over the instances in
+    ``live``: the Armijo, Wolfe or strong-Wolfe exit ladder
+    (``src/line.rs:716-784``), then in the gradient-only mode its literal
+    exit, one ``probe`` per trip, the first trip carried in from
+    ``probe1`` where its step is the probed one.  Under OWL-QN (``ow``)
+    only the Armijo exit applies (``src/line.rs:747-751``), whatever the
+    ladder."""
     f = finit.dtype.type
     dec, inc = f(0.5), f(2.1)
     dgtest = f(ls.ftol) * dginit
@@ -343,6 +347,10 @@ def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
                 curv_high = dg_t > -gtol * dginit
                 success = ~(armijo_fail | curv_low | curv_high)
                 width = np.where(armijo_fail, dec, np.where(curv_low, inc, dec))
+            if ls.gradient_only:
+                # literal quirk: |dg| <= -gtol*|dginit| holds only where
+                # dginit == 0 (src/line.rs:768-774)
+                success = success | (np.abs(dg_t) <= -gtol * np.abs(dginit))
             # validate_step after a failed trial (src/line.rs:776, :166-178)
             st = np.where(~success & (stp < min_step), int(Status.LS_MIN_STEP),
                           np.where(~success & (stp > max_step), int(Status.LS_MAX_STEP), 0))
@@ -368,11 +376,16 @@ def find(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
     """``linesearch.find`` over [B] instances: More-Thuente when the
     algorithm selects it and OWL-QN (``ow``) is off, else backtracking,
     each with the combine+probe fusion's carried first trips ``probe1``
-    (ft, g.d, stp_probe; [B] each) when given.  An instance with a
-    negative entry step leaves before any evaluation with
-    ``ERR_NEGATIVE_STEP`` (``src/line.rs:197-201``)."""
+    (ft, g.d, stp_probe; [B] each) when given.  The gradient-only mode
+    with More-Thuente is the reference's hard error (``src/line.rs:208``).
+    An instance with a negative entry step leaves before any evaluation
+    with ``ERR_NEGATIVE_STEP`` (``src/line.rs:197-201``)."""
+    use_mt = ls.algorithm == LineSearchAlgorithm.MoreThuente and not ow
+    if use_mt and ls.gradient_only:
+        raise ValueError(
+            "Gradient only optimization is incompatible with MoreThuente line search.")
     neg = live & np.signbit(stp0)
-    if ls.algorithm == LineSearchAlgorithm.MoreThuente and not ow:
+    if use_mt:
         out = morethuente(ls, live & ~neg, finit, dginit, stp0, neval0, probe, probe1)
     else:
         out = backtracking(ls, live & ~neg, finit, dginit, stp0, neval0, probe, ow, probe1)

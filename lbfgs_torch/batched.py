@@ -54,23 +54,40 @@ which then makes no launch for the instances that carried.  An objective
 without the fusion's hooks runs the uncapped step unfused: K3 b (K13 b)
 and a probe on every trip.
 
+Under Powell damping (``damping``, ``damping_fixed``; the gradient-only
+mode implies it) the iteration is the solo fused branches'
+(``solver.propagate_core``) per instance: the epilogue adds its . gp
+column (K4 b, K14 b with gp.gp and gp.pg_new), the damped pair's Gram
+quantities come from ``solver._damped_gram`` over [B, m] on the device,
+and the damped ring row y_d = (a - b)*y + b*g is persisted by the combine
+on the plain branch, its coefficient split as ``solver.two_loop_compact``
+splits it (K6 b at the cap, K15 b's fix form uncapped), and blended in
+torch before the combine under OWL-QN (``solver._blend_row`` per
+instance).  Only the instances whose search succeeded have their row
+damped; the [B] damping cases ride in the iteration's one read (for the
+reference's debug traces), and no per-instance count of them is kept, as
+the JAX batched state keeps none.  The gradient-only mode's literal exit
+runs in ``_batched_search``.
+
 This slice runs plain L-BFGS and OWL-QN on a factory objective
 (``ops.factory.make_fused_objective``) with More-Thuente (routed to
 backtracking under OWL-QN, as ``linesearch.find`` routes it) or any of
-the three backtracking searches, the step capped or not, at any history
-depth (above ``factory.MAX_M`` ring rows the deep forms of K4 b, K14 b,
-K15 b and K16 b); ``check_supported_batched`` raises
+the three backtracking searches, the step capped or not, damped or not,
+at any history depth (above ``factory.MAX_M`` ring rows the deep forms
+of K4 b, K14 b, K15 b and K16 b, and K3 b, K13 b and K6 b with their
+coefficients sized at launch); ``check_supported_batched`` raises
 ``NotImplementedError`` for the other settings.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from . import _batched_search
+from . import _batched_search, solver
 from .core import History, np_type, to_host_rows
 from .ops import factory, fused
 from .params import LbfgsParams
@@ -113,19 +130,17 @@ class BatchedState(NamedTuple):
 def check_supported_batched(params: LbfgsParams, evaluate: Callable,
                             x0_batch: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` naming each setting the batched
-    runner does not run yet, with plain L-BFGS and with OWL-QN alike:
-    damping, the gradient-only mode, the wide objective scalar, the scan
-    two-loop, a history the ring kernels do not take (float16), the
-    speculative search, objectives that do not carry the batched kernels
-    (generic ones), and a mesh (``parallel``: batches are not sharded)."""
+    runner does not run yet, with plain L-BFGS and with OWL-QN, damped or
+    not: the wide objective scalar, the scan two-loop, a history the ring
+    kernels do not take (float16), the speculative search, objectives that
+    do not carry the batched kernels (generic ones), and a mesh
+    (``parallel``: batches are not sharded)."""
     hdtype = (getattr(torch, params.history_dtype) if params.history_dtype
               else x0_batch.dtype)
     epilogue = ("__lbfgs_owlqn_trial_pair_gram_batched__" if params.orthantwise is not None
                 else "__lbfgs_trial_pair_gram_batched__")
     unsupported = [
         (fused.active_mesh() is not None, "a mesh (sharded batches are not ported)"),
-        (params.damping, "Powell damping"),
-        (params.linesearch.gradient_only, "the gradient-only mode"),
         (params.fx_wide, "the wide objective scalar (fx_wide)"),
         (not params.compact_two_loop, "the scan two-loop (compact_two_loop=False)"),
         ((x0_batch.dtype, hdtype) not in fused.SUPPORTED,
@@ -246,6 +261,14 @@ def fx_delta_step(params: LbfgsParams, st: BatchedState, live: np.ndarray) -> Ba
     return st._replace(pf=pf, status=np.where(hit, int(Status.CONVERGED), st.status))
 
 
+def _log_damping(case: np.ndarray, ok: np.ndarray) -> None:
+    """The reference's damping traces (``solver._log_damping``) of each
+    accepted instance that damped its pair."""
+    if solver.logger.isEnabledFor(logging.DEBUG):
+        for c in case[ok & (case != 0)]:
+            solver._log_damping(int(c))
+
+
 def _two_loop(hist: History, gamma: torch.Tensor, bound: int, end: int, Sd_ring: torch.Tensor,
               Yd_ring: torch.Tensor) -> tuple:
     """``solver.two_loop_compact``'s recurrences with the sign folded in
@@ -286,6 +309,7 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
     f = st.fx.dtype.type
     x, g, d, hist, pg = st.x, st.gx, st.d, st.hist, st.pg
     ow = params.orthantwise
+    damped = params.damping
     if ow is not None:
         c, (lo, hi) = ow.c, ow.start_end(x.shape[1])
 
@@ -318,53 +342,96 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
         okd = _to_device(ok, x)
         stp = _to_device(ls.step_eval, x)
         # the epilogue: x, g (and pg) and ring row `end` in place, the 6m
-        # products against d0 = -g (-pg)
+        # products against d0 = -g (-pg); damped, the 8m with the . gp
+        # column (under OWL-QN also gp.gp and gp.pg_new)
         if ow is None:
             _gd, gg, xx, changed, SP, YP = evaluate.__lbfgs_trial_pair_gram_batched__(
-                x, d, g, stp, hist.s, hist.y, end, okd)
+                x, d, g, stp, hist.s, hist.y, end, okd, with_gp=damped)
         else:
-            xx, gg, changed, SP, YP = evaluate.__lbfgs_owlqn_trial_pair_gram_batched__(
-                x, d, g, pg, stp, c, lo, hi, hist.s, hist.y, end, okd)
+            xx, gg, changed, SP, YP, *gp_scalars = \
+                evaluate.__lbfgs_owlqn_trial_pair_gram_batched__(
+                    x, d, g, pg, stp, c, lo, hi, hist.s, hist.y, end, okd, with_gp=damped)
         ys_new, yy_new = SP[:, end, 0], YP[:, end, 0]
+        # S . y_new, Y . y_new, Y . s_new and Y . d0
+        u, v, w, Yd_ring = SP[:, :, 0], YP[:, :, 0], YP[:, :, 1], YP[:, :, 2]
+        case = row_fix = None
+        if damped:
+            # the damped pair's Gram quantities per instance
+            # (solver.propagate_core's reconstructions): the plain one with
+            # the search's evaluated step and the carried ||gp||^2, gp.d0 =
+            # -(y.gp + gp.gp); the OWL-QN one with the reported step and
+            # K14 b's own gp.gp and gp.pg_new, gp.d0 = -gp.pg_new
+            if ow is None:
+                gpgp = _to_device(st.gnorm2, x)
+                u, v, w, Yd_ring, a, b, case = solver._damped_gram(
+                    params, SP, YP, end, stp, gpgp, -(YP[:, end, 3] + gpgp))
+                # the damped row, persisted by the combine (K6 b, or K15 b's
+                # fix form) from its (ca, cb)
+                row_fix = (a - b, b)
+            else:
+                gpgp, gppg = gp_scalars
+                u, v, w, Yd_ring, a, b, case = solver._damped_gram(
+                    params, SP, YP, end, _to_device(step_ls, x), gpgp, -gppg)
+                # the damped row from the new gradient, blended in torch
+                # (solver._blend_row per instance), of the accepted instances
+                y_end = hist.y[:, end]
+                blend = ((a - b)[:, None] * y_end.to(x.dtype) + b[:, None] * g).to(y_end.dtype)
+                hist.y[:, end] = torch.where(okd[:, None], blend, y_end)
         sy = hist.sy.clone()
-        sy[:, :, end] = SP[:, :, 0]      # S . y_new
-        sy[:, end, :] = YP[:, :, 1]      # Y . s_new
+        sy[:, :, end] = u
+        sy[:, end, :] = w
         yy = hist.yy.clone()
-        yy[:, :, end] = YP[:, :, 0]      # Y . y_new
-        yy[:, end, :] = YP[:, :, 0]
+        yy[:, :, end] = v
+        yy[:, end, :] = v
         ys = hist.ys.clone()
         ys[:, end] = ys_new
-        # gamma = ys/yy of the new pair (src/lbfgs.rs:653-656)
+        # gamma = ys/yy of the new pair, pre-damping (src/lbfgs.rs:653-656)
         gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
         new = hist._replace(ys=ys, sy=sy, yy=yy)
-        coef, alpha = _two_loop(new, gamma, bound, end, SP[:, :, 2], YP[:, :, 2])
+        coef, alpha = _two_loop(new, gamma, bound, end, SP[:, :, 2], Yd_ring)
+        if row_fix is not None:
+            # ring row `end` still holds the pre-damping y: its coefficient
+            # splits into cy[end]*ca on the row and cy[end]*cb on g
+            # (solver.two_loop_compact's row_fix), and (ca, cb) follow
+            ca, cb = row_fix
+            cy_end = coef[:, 1 + m + end].clone()
+            coef[:, 0] = coef[:, 0] + cy_end * cb
+            coef[:, 1 + m + end] = cy_end * ca
+            coef = torch.cat([coef, ca[:, None], cb[:, None]], dim=1)
         # the combine: the next direction over d, its norm and dginit;
         # under OWL-QN over pg, constrained to its orthant (src/lbfgs.rs:554),
         # its norm before the constraint, ||rc||^2 and dginit = rc . pg.
-        # Fused, it also probes each instance's next search at x + stp_pred*d
+        # Fused, it also probes each instance's next search at x + stp_pred*d.
+        # Damped plain, it also persists the damped row
         if fusion is None:
             fused_out = ()
-            if ow is None:
-                dd, rd = evaluate.__lbfgs_combine_batched__(g, hist.s, hist.y, coef, okd, d)
-            else:
+            if ow is not None:
                 dd, rc2, rd = evaluate.__lbfgs_combine_ow_batched__(pg, hist.s, hist.y, coef,
                                                                    okd, d, lo, hi)
+            elif row_fix is not None:
+                dd, rd = evaluate.__lbfgs_combine_fix_batched__(g, hist.s, hist.y, coef, okd, d,
+                                                               end)
+            else:
+                dd, rd = evaluate.__lbfgs_combine_batched__(g, hist.s, hist.y, coef, okd, d)
         else:
             stp1 = _to_device(stp_pred, x)
             if ow is None:
-                dd, rd, *fused_out = fusion(g, x, hist.s, hist.y, coef, stp1, okd, d)
+                dd, rd, *fused_out = fusion(g, x, hist.s, hist.y, coef, stp1, okd, d,
+                                            fix=None if row_fix is None else end)
             else:
                 dd, rc2, rd, *fused_out = fusion(pg, x, hist.s, hist.y, coef, c, lo, hi, stp1,
                                                  okd, d)
-        extra = () if ow is None else (rc2,)
+        extra = (() if ow is None else (rc2,)) + (() if case is None else (case,))
         keep = lambda a, b: torch.where(okd.view(-1, *([1] * (a.ndim - 1))), a, b)
         hist = History(s=hist.s, y=hist.y, ys=keep(ys, hist.ys), alpha=keep(alpha, hist.alpha),
                        sy=keep(sy, hist.sy), yy=keep(yy, hist.yy))
         # the one read of the iteration's epilogue and combine, the
-        # fusion's probe included
+        # fusion's probe and the damping cases included
         gg_h, xx_h, yy_h, dd_h, rd_h, changed_h, *rest = to_host_rows(
             gg, xx, yy_new, dd, rd, changed, *extra, *fused_out)
-        rc2_h = rest[:len(extra)]
+        rc2_h = rest[:1] if ow is not None else ()
+        if case is not None:
+            _log_damping(rest[len(extra) - 1], ok)
         if fusion is not None:
             old = st.probe1 or (st.fx, -st.gnorm2, np.full(st.step.shape, f(-1.0)))
             p_ft, p_dg = rest[len(extra):]

@@ -44,9 +44,9 @@
 // partial sums r.r, r.g are reassociated by the block reduction anyway
 // and keep nvcc's default.
 //
-// K3 b and K13 b, the batched runner's forms (combine_batched_kernel,
-// below), are K3 and K13 over [B, n] instances with blockIdx.y as the
-// instance.
+// K3 b, K13 b and K6 b, the batched runner's forms (combine_batched_kernel,
+// below), are K3, K13 and K6 over [B, n] instances with blockIdx.y as the
+// instance, at any depth as the solo forms.
 //
 // Any history depth: the 2m+1 coefficients (2m+3 for K6) sit in shared
 // memory.  Up to kStaticM ring rows that is a static array, as it always
@@ -236,31 +236,40 @@ int launch_combine(const void* g, const void* S, void* Y, const void* coef, void
 // instance.  blockIdx.y is the instance and blockIdx.x its block of
 // kBlockElems elements, laid out and summed as K3 lays out and sums the
 // same n, so an instance's r and partials are solo K3's on that instance
-// bit for bit.  Each block stages its instance's 2m+1 coefficients in
-// shared memory.  A block whose instance is frozen (live[b] == 0) returns
-// before it loads or stores anything.  Bound: bytes, as K3 (32 bytes per
-// element with f32 vectors and a bf16 ring at m = 6).  Up to kStaticM
-// ring rows (the batched runner's depth limit); B at most 65,535 (the
-// grid's y limit).
+// bit for bit.  Each block stages its instance's coefficients in shared
+// memory: the static array up to kStaticM ring rows, above it (kDyn) the
+// array sized at launch, as the solo kernel does, so any depth runs.  A
+// block whose instance is frozen (live[b] == 0) returns before it loads or
+// stores anything.  Bound: bytes, as K3 (32 bytes per element with f32
+// vectors and a bf16 ring at m = 6).  B at most 65,535 (the grid's y
+// limit).
 //
 // K13 b (kOw = true) replaces lbfgs_tpu/ops/fused.py:_combine_ow_kernel
 // under the same vmap: K13's body per instance, g holding the instance's
 // pseudo-gradient, the window [lo, hi) the same for every instance in its
 // own indices, and K13's three partials (r.r before the constraint,
 // rc.rc, rc.pg), so an instance's rc is solo K13's bit for bit.
-template <typename T, typename H, bool kOw>
+//
+// K6 b (kFix = true) replaces lbfgs_tpu/ops/fused.py:_combine_fix_kernel
+// under the vmap: K6's body per instance, the coefficient row [gamma, cs,
+// cy, ca, cb], and ring row fix_end (shared by the instances, which run
+// in lockstep) of each live instance rewritten as round(ca * Y[fix_end] +
+// cb * g) from the row as read, by K6's arithmetic, so an instance's r and
+// damped row are solo K6's bit for bit (34 bytes per element at m = 6).
+template <typename T, typename H, bool kOw, bool kFix, bool kDyn>
 __global__ void __launch_bounds__(kThreads)
-combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S,
-                       const H* __restrict__ Y, const T* __restrict__ coef,
-                       const unsigned char* __restrict__ live, T* __restrict__ r,
-                       T* __restrict__ partials, long long n, int m, long long lo,
-                       long long hi) {
+combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __restrict__ Y,
+                       const T* __restrict__ coef, const unsigned char* __restrict__ live,
+                       T* __restrict__ r, T* __restrict__ partials, long long n, int m,
+                       long long lo, long long hi, int fix_end) {
   constexpr int kParts = kOw ? 3 : 2;
   const long long b = blockIdx.y;
   if (!live[b]) return;
-  __shared__ T c[1 + 2 * kStaticM];
+  __shared__ T c_static[kDyn ? 1 : (kFix ? 3 : 1) + 2 * kStaticM];
+  extern __shared__ __align__(16) unsigned char c_dyn[];
+  T* const c = kDyn ? reinterpret_cast<T*>(c_dyn) : c_static;
   __shared__ T red[kParts][kThreads / 32];
-  const int ncoef = 1 + 2 * m;
+  const int ncoef = kFix ? 3 + 2 * m : 1 + 2 * m;
   for (int i = threadIdx.x; i < ncoef; i += kThreads) c[i] = coef[b * ncoef + i];
   __syncthreads();
   g += b * n;
@@ -279,12 +288,21 @@ combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S,
       const T gv = g[i];
       T acc_s = T(0);
       T acc_y = T(0);
+      T y_end = T(0);
       // K3's combination, product by product and add by add
       for (int j = 0; j < m; ++j) {
         acc_s = add_rn(acc_s, mul_rn(c[1 + j], widen<T, H>(S[j * n + i])));
-        acc_y = add_rn(acc_y, mul_rn(c[1 + m + j], widen<T, H>(Y[j * n + i])));
+        const T yj = widen<T, H>(Y[j * n + i]);
+        acc_y = add_rn(acc_y, mul_rn(c[1 + m + j], yj));
+        if constexpr (kFix) {
+          if (j == fix_end) y_end = yj;
+        }
       }
       const T rv = add_rn(mul_rn(c[0], gv), add_rn(acc_s, acc_y));
+      if constexpr (kFix) {
+        // K6's damped row, from the row as read
+        Y[fix_end * n + i] = narrow<H, T>(blend_rn(c[1 + 2 * m], y_end, c[2 + 2 * m], gv));
+      }
       acc[0] += rv * rv;
       if constexpr (kOw) {
         // K13's constraint against -pg inside the window
@@ -318,20 +336,33 @@ combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S,
   }
 }
 
-template <typename T, typename H, bool kOw>
-int launch_combine_batched(const void* g, const void* S, const void* Y, const void* coef,
+template <typename T, typename H, bool kOw, bool kFix>
+int launch_combine_batched(const void* g, const void* S, void* Y, const void* coef,
                            const void* live, void* r, void* partials, long long n, int m,
-                           long long lo, long long hi, int batch, void* stream) {
-  if (n <= 0 || m < 1 || m > kStaticM || batch < 1 || batch > 65535)
+                           long long lo, long long hi, int fix_end, int batch, void* stream) {
+  if (n <= 0 || m < 1 || batch < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (kFix && (fix_end < 0 || fix_end >= m)) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kBlockElems - 1) / kBlockElems;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // the coefficients in the static array up to kStaticM rows, else in one
+  // sized at launch (the solo launch's rule)
+  const bool dyn = m > kStaticM;
+  const long long smem =
+      dyn ? ((kFix ? 3LL : 1LL) + 2LL * m) * static_cast<long long>(sizeof(T)) : 0;
+  const auto kernel = dyn ? combine_batched_kernel<T, H, kOw, kFix, true>
+                          : combine_batched_kernel<T, H, kOw, kFix, false>;
+  if (smem > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
-  combine_batched_kernel<T, H, kOw>
-      <<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(g), static_cast<const H*>(S), static_cast<const H*>(Y),
-          static_cast<const T*>(coef), static_cast<const unsigned char*>(live),
-          static_cast<T*>(r), static_cast<T*>(partials), n, m, lo, hi);
+  kernel<<<grid, kThreads, static_cast<size_t>(smem), reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<const H*>(S), static_cast<H*>(Y),
+      static_cast<const T*>(coef), static_cast<const unsigned char*>(live),
+      static_cast<T*>(r), static_cast<T*>(partials), n, m, lo, hi, fix_end);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -363,19 +394,25 @@ const char* lbfgs_cuda_error_string(int code) {
     return launch_combine<T, H, true, false>(g, S, Y, coef, r, partials, n, m, lo, hi, 0,  \
                                              stream);                                      \
   }                                                                                         \
-  int lbfgs_combine_batched_##SFX(const void* g, const void* S, const void* Y,             \
-                                  const void* coef, const void* live, void* r,             \
-                                  void* partials, long long n, int m, int batch,           \
-                                  void* stream) {                                          \
-    return launch_combine_batched<T, H, false>(g, S, Y, coef, live, r, partials, n, m, 0,  \
-                                               0, batch, stream);                          \
+  int lbfgs_combine_batched_##SFX(const void* g, const void* S, void* Y, const void* coef,   \
+                                  const void* live, void* r, void* partials, long long n,  \
+                                  int m, int batch, void* stream) {                        \
+    return launch_combine_batched<T, H, false, false>(g, S, Y, coef, live, r, partials, n, \
+                                                      m, 0, 0, 0, batch, stream);          \
   }                                                                                         \
-  int lbfgs_combine_ow_batched_##SFX(const void* g, const void* S, const void* Y,          \
+  int lbfgs_combine_fix_batched_##SFX(const void* g, const void* S, void* Y,               \
+                                      const void* coef, const void* live, void* r,         \
+                                      void* partials, long long n, int m, int end,         \
+                                      int batch, void* stream) {                           \
+    return launch_combine_batched<T, H, false, true>(g, S, Y, coef, live, r, partials, n,  \
+                                                     m, 0, 0, end, batch, stream);         \
+  }                                                                                         \
+  int lbfgs_combine_ow_batched_##SFX(const void* g, const void* S, void* Y,                \
                                      const void* coef, const void* live, void* r,          \
                                      void* partials, long long n, int m, long long lo,     \
                                      long long hi, int batch, void* stream) {              \
-    return launch_combine_batched<T, H, true>(g, S, Y, coef, live, r, partials, n, m, lo,  \
-                                              hi, batch, stream);                          \
+    return launch_combine_batched<T, H, true, false>(g, S, Y, coef, live, r, partials, n,  \
+                                                     m, lo, hi, 0, batch, stream);         \
   }
 
 LBFGS_COMBINE_ENTRY(f32_bf16, float, __nv_bfloat16)

@@ -50,6 +50,12 @@ _SIGNATURES = {
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{
+        f"lbfgs_combine_fix_batched_{sfx}": (
+            [_P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+            ctypes.c_int)
+        for sfx in ("f32_bf16", "f32_f32", "f64_f64")
+    },
+    **{
         f"lbfgs_combine_ow_batched_{sfx}": (
             [_P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, _LL, _LL, ctypes.c_int, _P],
             ctypes.c_int)

@@ -161,18 +161,22 @@ them.  Each instance reads its own step (``stp_ptr + b``), and a frozen
 instance (``live_ptr[b] == 0``) has every load and store masked off, its
 partials included.  They are bound by bytes as their solo kernels, per
 instance: 8 and 44 B/elem at f32 vectors with a bf16 history, m = 6
-(K4 b has no . gp column and writes no objective partial: the runner
-takes fx from the search).  OWL-QN's forms are laid out the same way:
+(K4 b writes no objective partial: the runner takes fx from the search;
+with ``WITH_GP``, the damped runs, it adds the . gp column as K4 does, at
+no byte).  OWL-QN's forms are laid out the same way:
 K8 b ``owlqn_probe_batched_kernel`` is K8's ``WP_IS_PG`` form per
 instance (12 B/elem), and K14 b ``owlqn_trial_pair_gram_batched_kernel``
-K14 without the . gp column, in place (52 B/elem); the window [lo, hi)
+K14 in place (52 B/elem), with ``WITH_GP`` (damped OWL-QN) its gp.gp,
+gp.pg and . gp column; the window [lo, hi)
 and the L1 weight are the same for every instance, the window in each
 instance's own indices.  With the step uncapped the batched runner's
 combine is K15 b ``combine_probe_batched_kernel`` or, under OWL-QN, K16 b
 ``combine_ow_probe_batched_kernel``: K15's and K16's block per instance,
 with the instance's coefficient row and its own entry step stp1 (36
 B/elem each, as their solo kernels), M = m up to ``factory.MAX_M`` rows
-and M = 0 above.  Above ``factory.MAX_M`` rows the epilogues are
+and M = 0 above; K15 b's ``FIX`` form (the damped runs) persists the
+damped row of the ring row the instances share, as K15's does (38
+B/elem).  Above ``factory.MAX_M`` rows the epilogues are
 ``trial_pair_gram_deep_batched_kernel`` and
 ``owlqn_trial_pair_gram_deep_batched_kernel``: the deep K4's and K14's
 program per instance, their group passes and their last-pass stores (x,
@@ -469,19 +473,25 @@ def _batched_part(part_ptr, b, k: tl.constexpr):
     return part_ptr + (b.to(tl.int64) * tl.num_programs(0) + tl.program_id(0)) * k
 
 
-@triton.jit(do_not_specialize=["m"])
+@triton.jit(do_not_specialize=["m", "fix_end"])
 def combine_probe_batched_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, live_ptr, r_ptr,
-                                 cpart_ptr, ppart_ptr, n, m, ex, body: tl.constexpr,
-                                 M: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr):
+                                 cpart_ptr, ppart_ptr, n, m, fix_end, ex, body: tl.constexpr,
+                                 M: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+                                 FIX: tl.constexpr):
     # program (i, b): K15's block i of instance b, its coefficient row and
-    # its own stp1; M = m the static form, M = 0 the deep form
+    # its own stp1; M = m the static form, M = 0 the deep form.  With FIX
+    # the row ends in (ca, cb) and ring row fix_end of the instance is
+    # rewritten as K15's fix form rewrites it
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
     row = b.to(tl.int64) * n
     offs = _offsets(ROWS, W)
     mask = (offs < n) & live
+    ncoef = 1 + 2 * m
+    if FIX:
+        ncoef += 2
     g, r = _combination(g_ptr + row, S_ptr + row * m, Y_ptr + row * m,
-                        coef_ptr + b.to(tl.int64) * (1 + 2 * m), offs, mask, n, m, 0, M, False)
+                        coef_ptr + b.to(tl.int64) * ncoef, offs, mask, n, m, fix_end, M, FIX)
     tl.store(r_ptr + row + offs, r, mask=mask)
     cpart = _batched_part(cpart_ptr, b, 2)
     tl.store(cpart + 0, _block_sum(r * r, mask), mask=live)
@@ -807,13 +817,23 @@ def _store_gram_live(part, live, j0, m, a0, a1, a2, a3, a4, a5, MP: tl.constexpr
     tl.store(pj + 5, tl.sum(a5, axis=0), mask=keep)
 
 
+@triton.jit
+def _store_gp_live(gpart, live, j0, m, b0, b1, MP: tl.constexpr):
+    # ``_store_gp`` for a batched program: nothing for a frozen instance
+    r = j0 + tl.arange(0, MP)
+    keep = (r < m) & live
+    tl.store(gpart + 2 * r, tl.sum(b0, axis=0), mask=keep)
+    tl.store(gpart + 2 * r + 1, tl.sum(b1, axis=0), mask=keep)
+
+
 @triton.jit(do_not_specialize=["end", "tiles"])
 def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr, Y_ptr,
-                                   part_ptr, n, end, tiles, ex, body: tl.constexpr,
+                                   part_ptr, gpart_ptr, n, end, tiles, ex, body: tl.constexpr,
                                    M: tl.constexpr, MP: tl.constexpr, T: tl.constexpr,
-                                   V: tl.constexpr, W: tl.constexpr):
+                                   V: tl.constexpr, W: tl.constexpr, WITH_GP: tl.constexpr):
     # program (pid, b): K4's program pid of instance b, in place, without
-    # the . gp column or the objective's partials
+    # the objective's partials; with WITH_GP the . gp column into partials
+    # of its own, [B, programs, 2m], as K4's WITH_GP form adds it
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -836,6 +856,8 @@ def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_p
     a3 = tl.zeros([R, MP], dt)
     a4 = tl.zeros([R, MP], dt)
     a5 = tl.zeros([R, MP], dt)
+    b0 = tl.zeros([R, MP], dt)
+    b1 = tl.zeros([R, MP], dt)
     for t in range(tiles):
         offs = _tile(pid * tiles + t, T, V)
         mask = (offs < n) & live
@@ -854,27 +876,32 @@ def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_p
         a_gg += _fold(g * g)
         a_xx += _fold(x * x)
         a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
-        a0, a1, a2, a3, a4, a5, _, _ = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0,
-                                                  gp, a0, a1, a2, a3, a4, a5, a0, a0, M, MP,
-                                                  False)
+        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0,
+                                                    gp, a0, a1, a2, a3, a4, a5, b0, b1, M, MP,
+                                                    WITH_GP)
         tl.store(xp_ptr + offs, x, mask=mask)
         tl.store(gp_ptr + offs, g, mask=mask)
-    part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + pid) * (4 + 6 * M)
+    prog = b.to(tl.int64) * tl.num_programs(0) + pid
+    part = part_ptr + prog * (4 + 6 * M)
     tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
     tl.store(part + 1, tl.sum(a_gg, axis=0), mask=live)
     tl.store(part + 2, tl.sum(a_xx, axis=0), mask=live)
     tl.store(part + 3, tl.sum(a_ch, axis=0), mask=live)
     _store_gram_live(part + 4, live, 0, M, a0, a1, a2, a3, a4, a5, MP)
+    if WITH_GP:
+        _store_gp_live(gpart_ptr + prog * (2 * M), live, 0, M, b0, b1, MP)
 
 
 @triton.jit(do_not_specialize=["m", "end", "tiles"])
 def trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr, Y_ptr,
-                                        part_ptr, n, end, tiles, ex, m, body: tl.constexpr,
-                                        G: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
-                                        W: tl.constexpr):
+                                        part_ptr, gpart_ptr, n, end, tiles, ex, m,
+                                        body: tl.constexpr, G: tl.constexpr, T: tl.constexpr,
+                                        V: tl.constexpr, W: tl.constexpr,
+                                        WITH_GP: tl.constexpr):
     # program (pid, b): the deep K4's program pid of instance b, in place,
-    # without the . gp column or the objective's partials; x and g go over
-    # xp and gp on the last pass alone, as the deep K4 stores them
+    # without the objective's partials (with WITH_GP the . gp column, per
+    # group, as the deep K4's WITH_GP form); x and g go over xp and gp on
+    # the last pass alone, as the deep K4 stores them
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -891,7 +918,8 @@ def trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr
     a_gg = tl.zeros([R], dt)
     a_xx = tl.zeros([R], dt)
     a_ch = tl.zeros([R], dt)
-    part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + pid) * (4 + 6 * m)
+    prog = b.to(tl.int64) * tl.num_programs(0) + pid
+    part = part_ptr + prog * (4 + 6 * m)
     groups = tl.cdiv(m, G)
     for grp in range(groups):
         j0 = grp * G
@@ -902,6 +930,8 @@ def trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr
         a3 = tl.zeros([R, G], dt)
         a4 = tl.zeros([R, G], dt)
         a5 = tl.zeros([R, G], dt)
+        b0 = tl.zeros([R, G], dt)
+        b1 = tl.zeros([R, G], dt)
         for t in range(tiles):
             offs = _tile(pid * tiles + t, T, V)
             mask = (offs < n) & live
@@ -923,10 +953,12 @@ def trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr
             s = stp * d
             y = g - gp
             d0 = -g
-            a0, a1, a2, a3, a4, a5, _, _ = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end, j0,
-                                                       s, y, d0, gp, a0, a1, a2, a3, a4, a5, a0,
-                                                       a0, G, False)
+            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end,
+                                                         j0, s, y, d0, gp, a0, a1, a2, a3, a4,
+                                                         a5, b0, b1, G, WITH_GP)
         _store_gram_live(part + 4, live, j0, m, a0, a1, a2, a3, a4, a5, G)
+        if WITH_GP:
+            _store_gp_live(gpart_ptr + prog * (2 * m), live, j0, m, b0, b1, G)
     tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
     tl.store(part + 1, tl.sum(a_gg, axis=0), mask=live)
     tl.store(part + 2, tl.sum(a_xx, axis=0), mask=live)
@@ -1134,12 +1166,14 @@ def owlqn_trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_
 
 @triton.jit(do_not_specialize=["end", "lo", "hi", "tiles"])
 def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
-                                         live_ptr, S_ptr, Y_ptr, part_ptr, n, lo, hi, end,
-                                         tiles, ex, body: tl.constexpr, M: tl.constexpr,
+                                         live_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo, hi,
+                                         end, tiles, ex, body: tl.constexpr, M: tl.constexpr,
                                          MP: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
-                                         W: tl.constexpr):
+                                         W: tl.constexpr, WITH_GP: tl.constexpr):
     # program (pid, b): K14's program pid of instance b, in place (x, g and
-    # pg over xp, gp and pg_old), without the . gp column
+    # pg over xp, gp and pg_old); with WITH_GP gp.gp, gp.pg and the . gp
+    # column into partials of their own, [B, programs, 2 + 2m], taken
+    # before g overwrites gp, as K14's WITH_GP form takes them
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -1157,12 +1191,16 @@ def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr,
     a_xx = tl.zeros([R], dt)
     a_pp = tl.zeros([R], dt)
     a_ch = tl.zeros([R], dt)
+    a_gg = tl.zeros([R], dt)
+    a_gpg = tl.zeros([R], dt)
     a0 = tl.zeros([R, MP], dt)
     a1 = tl.zeros([R, MP], dt)
     a2 = tl.zeros([R, MP], dt)
     a3 = tl.zeros([R, MP], dt)
     a4 = tl.zeros([R, MP], dt)
     a5 = tl.zeros([R, MP], dt)
+    b0 = tl.zeros([R, MP], dt)
+    b1 = tl.zeros([R, MP], dt)
     for t in range(tiles):
         offs = _tile(pid * tiles + t, T, V)
         mask = (offs < n) & live
@@ -1184,27 +1222,38 @@ def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr,
         a_xx += _fold(x * x)
         a_pp += _fold(pg * pg)
         a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
-        a0, a1, a2, a3, a4, a5, _, _ = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0,
-                                                  gp, a0, a1, a2, a3, a4, a5, a0, a0, M, MP,
-                                                  False)
+        if WITH_GP:
+            a_gg += _fold(gp * gp)
+            a_gpg += _fold(gp * pg)
+        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0,
+                                                    gp, a0, a1, a2, a3, a4, a5, b0, b1, M, MP,
+                                                    WITH_GP)
         tl.store(xp_ptr + offs, x, mask=mask)
         tl.store(gp_ptr + offs, g, mask=mask)
         tl.store(pg_ptr + offs, pg, mask=mask)
-    part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + pid) * (3 + 6 * M)
+    prog = b.to(tl.int64) * tl.num_programs(0) + pid
+    part = part_ptr + prog * (3 + 6 * M)
     tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
     tl.store(part + 1, tl.sum(a_pp, axis=0), mask=live)
     tl.store(part + 2, tl.sum(a_ch, axis=0), mask=live)
     _store_gram_live(part + 3, live, 0, M, a0, a1, a2, a3, a4, a5, MP)
+    if WITH_GP:
+        gpart = gpart_ptr + prog * (2 + 2 * M)
+        tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=live)
+        tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=live)
+        _store_gp_live(gpart + 2, live, 0, M, b0, b1, MP)
 
 
 @triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles"])
 def owlqn_trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
-                                              live_ptr, S_ptr, Y_ptr, part_ptr, n, lo, hi, end,
-                                              tiles, ex, m, body: tl.constexpr, G: tl.constexpr,
-                                              T: tl.constexpr, V: tl.constexpr, W: tl.constexpr):
-    # program (pid, b): the deep K14's program pid of instance b, in place,
-    # without the . gp column; x, g and pg go over xp, gp and pg_old on the
-    # last pass alone
+                                              live_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo,
+                                              hi, end, tiles, ex, m, body: tl.constexpr,
+                                              G: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
+                                              W: tl.constexpr, WITH_GP: tl.constexpr):
+    # program (pid, b): the deep K14's program pid of instance b, in place
+    # (with WITH_GP gp.gp and gp.pg from the last pass and the . gp column
+    # per group, as the deep K14's WITH_GP form); x, g and pg go over xp,
+    # gp and pg_old on the last pass alone
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -1222,7 +1271,11 @@ def owlqn_trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp
     a_xx = tl.zeros([R], dt)
     a_pp = tl.zeros([R], dt)
     a_ch = tl.zeros([R], dt)
-    part = part_ptr + (b.to(tl.int64) * tl.num_programs(0) + pid) * (3 + 6 * m)
+    a_gg = tl.zeros([R], dt)
+    a_gpg = tl.zeros([R], dt)
+    prog = b.to(tl.int64) * tl.num_programs(0) + pid
+    part = part_ptr + prog * (3 + 6 * m)
+    gpart = gpart_ptr + prog * (2 + 2 * m)
     groups = tl.cdiv(m, G)
     for grp in range(groups):
         j0 = grp * G
@@ -1233,6 +1286,8 @@ def owlqn_trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp
         a3 = tl.zeros([R, G], dt)
         a4 = tl.zeros([R, G], dt)
         a5 = tl.zeros([R, G], dt)
+        b0 = tl.zeros([R, G], dt)
+        b1 = tl.zeros([R, G], dt)
         for t in range(tiles):
             offs = _tile(pid * tiles + t, T, V)
             mask = (offs < n) & live
@@ -1252,16 +1307,24 @@ def owlqn_trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp
                 a_xx += _fold(x * x)
                 a_pp += _fold(pg * pg)
                 a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
+                if WITH_GP:
+                    a_gg += _fold(gp * gp)
+                    a_gpg += _fold(gp * pg)
                 tl.store(xp_ptr + offs, x, mask=mask)
                 tl.store(gp_ptr + offs, g, mask=mask)
                 tl.store(pg_ptr + offs, pg, mask=mask)
             s = x - xp
             y = g - gp
             d0 = -pg
-            a0, a1, a2, a3, a4, a5, _, _ = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end, j0,
-                                                       s, y, d0, gp, a0, a1, a2, a3, a4, a5, a0,
-                                                       a0, G, False)
+            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end,
+                                                         j0, s, y, d0, gp, a0, a1, a2, a3, a4,
+                                                         a5, b0, b1, G, WITH_GP)
         _store_gram_live(part + 3, live, j0, m, a0, a1, a2, a3, a4, a5, G)
+        if WITH_GP:
+            _store_gp_live(gpart + 2, live, j0, m, b0, b1, G)
     tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
     tl.store(part + 1, tl.sum(a_pp, axis=0), mask=live)
     tl.store(part + 2, tl.sum(a_ch, axis=0), mask=live)
+    if WITH_GP:
+        tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=live)
+        tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=live)

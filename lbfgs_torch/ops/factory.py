@@ -39,20 +39,22 @@ protocol the solver looks for:
     that point bit for bit; K15's ``fix`` form also persists K6's damped
     ring row.  The solver runs them wherever the step is not capped.
   * ``__lbfgs_probe_batched__`` / ``__lbfgs_trial_pair_gram_batched__`` /
-    ``__lbfgs_combine_batched__`` — the batched runner's K2 b, K4 b and K3
-    b: K2, K4 (without the . gp column) and K3 over a [B, n] batch of
-    instances, one launch for all, with a per-instance step or
-    coefficients and a mask of the live instances, whose rows alone are
-    read and written; under OWL-QN ``__lbfgs_owlqn_probe_pg_batched__``,
+    ``__lbfgs_combine_batched__`` / ``__lbfgs_combine_fix_batched__`` — the
+    batched runner's K2 b, K4 b, K3 b and K6 b: K2, K4 (with the . gp
+    column when damped), K3 and K6 over a [B, n] batch of instances, one
+    launch for all, with a per-instance step or coefficients and a mask
+    of the live instances, whose rows alone are read and written; under
+    OWL-QN ``__lbfgs_owlqn_probe_pg_batched__``,
     ``__lbfgs_owlqn_trial_pair_gram_batched__``,
     ``__lbfgs_combine_ow_batched__`` and
     ``__lbfgs_pseudo_gradient_norm_batched__``: K8 b (the pg form), K14 b
-    (without the . gp column), K13 b and K10 b; with the step uncapped
-    ``__lbfgs_combine_probe_batched__`` / ``__lbfgs_combine_ow_probe_batched__``
-    (and their ``_ok__`` predicates): K15 b and K16 b, each instance's
-    combine and its next first probe at its own entry step.  At every
-    depth: above ``MAX_M`` ring rows K4 b, K14 b, K15 b and K16 b take
-    their solo kernels' deep forms.
+    (with the . gp column and scalars when damped), K13 b and K10 b; with
+    the step uncapped ``__lbfgs_combine_probe_batched__`` /
+    ``__lbfgs_combine_ow_probe_batched__`` (and their ``_ok__``
+    predicates): K15 b (with K6 b's damped row in its ``fix`` form) and
+    K16 b, each instance's combine and its next first probe at its own
+    entry step.  At every depth: above ``MAX_M`` ring rows K4 b, K14 b,
+    K15 b and K16 b take their solo kernels' deep forms.
 
 Under the wide objective scalar (``fused.wide_fx``, ``params.fx_wide``)
 the objective's column of K1, K2, K4, K7 and K8 and the L1 column of K7
@@ -554,19 +556,19 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
 
     # ------------------------------------- K4 b: the batched epilogue
 
-    def trial_pair_gram_batched_ref(xp, d, gp, stp, S, Y, end, live):
+    def trial_pair_gram_batched_ref(xp, d, gp, stp, S, Y, end, live, with_gp=False):
         """Plain version of ``trial_pair_gram_batched``."""
         trial_pair_gram_batched_ref.calls += 1
         s = stp[:, None] * d
         x = xp + s
         _, g = torch.func.vmap(value_and_grad)(x)
         y = g - gp
-        SP, YP = _pair_products_batched(s, y, -g, S, Y, end, live)
+        SP, YP = _pair_products_batched(s, y, -g, S, Y, end, live, gp if with_gp else None)
         out = (_dot(g, d), _dot(g, g), _dot(x, x), (x != xp).any(dim=1), SP, YP)
         _write_live(live, (xp, x), (gp, g))
         return out
 
-    def trial_pair_gram_batched(xp, d, gp, stp, S, Y, end, live):
+    def trial_pair_gram_batched(xp, d, gp, stp, S, Y, end, live, with_gp=False):
         """K4 over B instances (K4 b), in place: for every live instance b
         the accepted point x = xp[b] + stp[b]*d[b] written over xp[b], its
         gradient g over gp[b], the pair (s, y) = (stp[b]*d[b], g - gp[b])
@@ -577,28 +579,39 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         n]; ``stp`` [B]; ``live`` [B] bool; ``end`` a host int shared by the
         live instances.  A frozen instance's vectors and ring rows are
         never written, and its outputs are undefined.  Returns (g.d, g.g,
-        x.x, changed) as [B] tensors and SP, YP [B, m, 3].  On the card an
-        instance's x, g and ring row equal ``trial_pair_gram``'s on that
-        instance alone bit for bit.  Above ``MAX_M`` ring rows the deep
-        form runs (``trial_pair_gram``'s, per instance)."""
+        x.x, changed) as [B] tensors and SP, YP [B, m, 3].  ``with_gp=True``
+        (the damped runs) appends the . gp column S[b].gp[b], Y[b].gp[b]
+        (SP, YP [B, m, 4]), counted in ``.gp_launches`` too; every other
+        output is that of the 3-column launch bit for bit.  On the card an
+        instance's x, g, ring row and . gp column's rows equal
+        ``trial_pair_gram``'s on that instance alone bit for bit.  Above
+        ``MAX_M`` ring rows the deep form runs (``trial_pair_gram``'s, per
+        instance)."""
         B = _check_batched("trial_pair_gram_batched", xp, live)
         _batched_scalars("trial_pair_gram_batched", xp, stp, d, gp)
         fused._check_hist_batched("trial_pair_gram_batched", xp, S, Y)
         m, n = S.shape[1], S.shape[2]
         end = fused._check_row(S[0], end)
         if not fused.on_cuda(xp, "trial_pair_gram_batched"):
-            return trial_pair_gram_batched_ref(xp, d, gp, stp, S, Y, end, live)
+            return trial_pair_gram_batched_ref(xp, d, gp, stp, S, Y, end, live, with_gp)
         fused.check_contiguous("trial_pair_gram_batched", xp, d, gp, stp, live, S, Y)
         eg = epilogue_grid(n, xp.dtype, S.dtype)
         part = torch.empty((B, eg.programs, 4 + 6 * m), dtype=xp.dtype, device=xp.device)
+        gpart = (torch.empty((B, eg.programs, 2 * m), dtype=xp.dtype, device=xp.device)
+                 if with_gp else part)
         kern, compiled, depth = _epilogue_form(trial_pair_gram_batched, m, xp.dtype, S.dtype)
-        compiled[(xp.dtype, S.dtype)] = getattr(_kernels(), kern)[(eg.programs, B)](
-            xp, d, gp, stp, live.view(torch.uint8), S, Y, part, n, int(end), eg.tiles, ex=extras,
-            body=block_fn(), T=eg.T, V=eg.V, W=W, **depth, **_epilogue_launch(eg))
-        _count(trial_pair_gram_batched, m > MAX_M)
+        compiled[(xp.dtype, S.dtype, bool(with_gp))] = getattr(_kernels(), kern)[
+            (eg.programs, B)](
+            xp, d, gp, stp, live.view(torch.uint8), S, Y, part, gpart, n, int(end), eg.tiles,
+            ex=extras, body=block_fn(), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp), **depth,
+            **_epilogue_launch(eg))
+        _count(trial_pair_gram_batched, m > MAX_M, gp=bool(with_gp))
         tot = part.sum(dim=1)
         P = tot[:, 4:].reshape(B, m, 6)
-        return tot[:, 0], tot[:, 1], tot[:, 2], tot[:, 3] > 0, P[:, :, :3], P[:, :, 3:]
+        SP, YP = P[:, :, :3], P[:, :, 3:]
+        if with_gp:
+            SP, YP = fused.append_gp(SP, YP, gpart.sum(dim=1))
+        return tot[:, 0], tot[:, 1], tot[:, 2], tot[:, 3] > 0, SP, YP
 
     # ----------------------------------- K8 b: the batched OWL-QN probe
 
@@ -814,18 +827,22 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     # --------------------------- K14 b: the batched OWL-QN epilogue
 
     def owlqn_trial_pair_gram_batched_ref(xp, d, gp, pg, stp, c, start, end_w, S, Y, end,
-                                          live):
+                                          live, with_gp=False):
         """Plain version of ``owlqn_trial_pair_gram_batched``."""
         owlqn_trial_pair_gram_batched_ref.calls += 1
         x = _ow_point_batched(xp, d, pg, stp, c, start, end_w)
         _, g = torch.func.vmap(value_and_grad)(x)
         pg_new = pseudo_gradient(Orthantwise(c, start, end_w), x, g)
-        SP, YP = _pair_products_batched(x - xp, g - gp, -pg_new, S, Y, end, live)
+        SP, YP = _pair_products_batched(x - xp, g - gp, -pg_new, S, Y, end, live,
+                                        gp if with_gp else None)
         out = (_dot(x, x), _dot(pg_new, pg_new), (x != xp).any(dim=1), SP, YP)
+        if with_gp:
+            out += (_dot(gp, gp), _dot(gp, pg_new))
         _write_live(live, (xp, x), (gp, g), (pg, pg_new))
         return out
 
-    def owlqn_trial_pair_gram_batched(xp, d, gp, pg, stp, c, start, end_w, S, Y, end, live):
+    def owlqn_trial_pair_gram_batched(xp, d, gp, pg, stp, c, start, end_w, S, Y, end, live,
+                                      with_gp=False):
         """K14 over B instances (K14 b), in place: for every live instance
         b the accepted point x = pi(xp[b] + stp[b]*d[b]; wp), wp rebuilt
         from (xp[b], pg[b]), written over xp[b], its gradient g over gp[b]
@@ -837,10 +854,14 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         unrounded pair.  Operands as ``trial_pair_gram_batched``'s, with
         ``pg`` [B, n].  A frozen instance's vectors and ring rows are never
         written, and its outputs are undefined.  Returns (x.x, pg_new.pg_new,
-        changed) as [B] tensors and SP, YP [B, m, 3].  On the card an
-        instance's x, g, pg and ring row equal ``owlqn_trial_pair_gram``'s
-        on that instance alone bit for bit.  Above ``MAX_M`` ring rows the
-        deep form runs."""
+        changed) as [B] tensors and SP, YP [B, m, 3].  ``with_gp=True``
+        (damped OWL-QN) appends the . gp column (SP, YP [B, m, 4]) and the
+        [B] gp.gp and gp.pg_new to the returns, taken before g overwrites
+        gp, as ``owlqn_trial_pair_gram``'s ``with_gp``; every other output
+        is that of the plain launch bit for bit.  On the card an instance's
+        x, g, pg and ring row equal ``owlqn_trial_pair_gram``'s on that
+        instance alone bit for bit.  Above ``MAX_M`` ring rows the deep form
+        runs."""
         B = _check_batched("owlqn_trial_pair_gram_batched", xp, live)
         _batched_scalars("owlqn_trial_pair_gram_batched", xp, stp, d, gp, pg)
         fused._check_hist_batched("owlqn_trial_pair_gram_batched", xp, S, Y)
@@ -849,20 +870,28 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         start, end_w = fused._check_window(n, start, end_w)
         if not fused.on_cuda(xp, "owlqn_trial_pair_gram_batched"):
             return owlqn_trial_pair_gram_batched_ref(xp, d, gp, pg, stp, c, start, end_w, S, Y,
-                                                     end, live)
+                                                     end, live, with_gp)
         fused.check_contiguous("owlqn_trial_pair_gram_batched", xp, d, gp, pg, stp, live, S, Y)
         eg = epilogue_grid(n, xp.dtype, S.dtype)
         part = torch.empty((B, eg.programs, 3 + 6 * m), dtype=xp.dtype, device=xp.device)
+        gpart = (torch.empty((B, eg.programs, 2 + 2 * m), dtype=xp.dtype, device=xp.device)
+                 if with_gp else part)
         kern, compiled, depth = _epilogue_form(owlqn_trial_pair_gram_batched, m, xp.dtype,
                                                S.dtype)
-        compiled[(xp.dtype, S.dtype)] = getattr(_kernels(), kern)[(eg.programs, B)](
-            xp, d, gp, pg, stp, _scalar(c, xp), live.view(torch.uint8), S, Y, part, n, start,
-            end_w, int(end), eg.tiles, ex=extras, body=block_fn(), T=eg.T, V=eg.V, W=W,
-            **depth, **_epilogue_launch(eg))
-        _count(owlqn_trial_pair_gram_batched, m > MAX_M)
+        compiled[(xp.dtype, S.dtype, bool(with_gp))] = getattr(_kernels(), kern)[
+            (eg.programs, B)](
+            xp, d, gp, pg, stp, _scalar(c, xp), live.view(torch.uint8), S, Y, part, gpart, n,
+            start, end_w, int(end), eg.tiles, ex=extras, body=block_fn(), T=eg.T, V=eg.V, W=W,
+            WITH_GP=bool(with_gp), **depth, **_epilogue_launch(eg))
+        _count(owlqn_trial_pair_gram_batched, m > MAX_M, gp=bool(with_gp))
         tot = part.sum(dim=1)
         P = tot[:, 3:].reshape(B, m, 6)
-        return tot[:, 0], tot[:, 1], tot[:, 2] > 0, P[:, :, :3], P[:, :, 3:]
+        out = (tot[:, 0], tot[:, 1], tot[:, 2] > 0, P[:, :, :3], P[:, :, 3:])
+        if not with_gp:
+            return out
+        G = gpart.sum(dim=1)
+        SP, YP = fused.append_gp(out[3], out[4], G[:, 2:])
+        return (*out[:3], SP, YP, G[:, 0], G[:, 1])
 
     # ------------------------- K15 / K16 combine + the next first probe
 
@@ -987,16 +1016,18 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         [B, n] and the rings S [B, m, n] (the instances share n and m)."""
         return x.ndim == 2 and S.ndim == 3 and combine_probe_ok(x[0], S[0])
 
-    def _check_combine_batched(kernel, d, x, S, Y, coef, stp1, live, out):
+    def _check_combine_batched(kernel, d, x, S, Y, coef, stp1, live, out, fix=False):
         _check_batched(kernel, x, live)
-        fused._check_combine_batched(kernel, d, S, Y, coef, live, out)
+        fused._check_combine_batched(kernel, d, S, Y, coef, live, out, fix)
         _batched_scalars(kernel, x, stp1, d)
 
-    def _combine_batched_launch(fn, d, x, S, Y, coef, stp1, live, out, nparts, *args):
+    def _combine_batched_launch(fn, d, x, S, Y, coef, stp1, live, out, nparts, *args,
+                                **consts):
         """Launch K15 b or K16 b (``fn``, its wrapper), M = m up to
         ``MAX_M`` rows and M = 0 (the deep form) above, and count the launch
-        (``_count``); returns the [B, nparts] column sums of the combine's
-        and of the probe's [B, programs, nparts] partials."""
+        (``_count``; K15 b's ``fix`` form by the constant ``FIX``); returns
+        the [B, nparts] column sums of the combine's and of the probe's [B,
+        programs, nparts] partials."""
         kernel = fn.__name__
         fused.check_contiguous(kernel, d, x, S, Y, coef, stp1, live, out)
         B, m, n = S.shape
@@ -1004,22 +1035,26 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         cpart = torch.empty((B, grid[0], nparts), dtype=d.dtype, device=d.device)
         ppart = torch.empty((B, grid[0], nparts), dtype=d.dtype, device=d.device)
         deep = m > MAX_M
-        fn.compiled[(d.dtype, S.dtype, deep)] = getattr(_kernels(), kernel + "_kernel")[grid](
+        key = (d.dtype, S.dtype, deep, *consts.values())
+        fn.compiled[key] = getattr(_kernels(), kernel + "_kernel")[grid](
             d, x, S, Y, coef, stp1, live.view(torch.uint8), out, cpart, ppart, n, m, *args,
-            ex=extras, body=block_fn(), M=0 if deep else m, ROWS=rows, W=W, **LAUNCH)
-        _count(fn, deep)
+            ex=extras, body=block_fn(), M=0 if deep else m, ROWS=rows, W=W, **consts, **LAUNCH)
+        _count(fn, deep, **{k.lower(): v for k, v in consts.items()})
         return cpart.sum(dim=1), ppart.sum(dim=1)
 
-    def combine_probe_batched_ref(g, x, S, Y, coef, stp1, live, out):
+    def combine_probe_batched_ref(g, x, S, Y, coef, stp1, live, out, fix=None):
         """Plain version of ``combine_probe_batched``: K3 b's plain
-        arithmetic, then K2 b's at x + stp1*r, so that a fused run on the
-        CPU is its unfused run bit for bit."""
+        arithmetic (with ``fix``, K6 b's), then K2 b's at x + stp1*r, so
+        that a fused run on the CPU is its unfused run bit for bit."""
         combine_probe_batched_ref.calls += 1
-        r = fused._combination_batched(g, S, Y, coef)
+        m = S.shape[1]
+        r = fused._combination_batched(g, S, Y, coef[:, :1 + 2 * m])
+        if fix is not None:
+            fused.fix_row_batched(g, Y, coef, fix, live)
         out[live] = r[live]
         return (_dot(r, r), _dot(r, g), *_probe_batched_plain(x, r, stp1))
 
-    def combine_probe_batched(g, x, S, Y, coef, stp1, live, out):
+    def combine_probe_batched(g, x, S, Y, coef, stp1, live, out, fix=None):
         """K15 over B instances (K15 b): for each live instance b, K3 b's
         r = coef[b, 0]*g[b] + coef[b, 1:m+1] @ S[b] + coef[b, m+1:] @ Y[b]
         written to out[b], with r.r and r.g, and the instance's next first
@@ -1031,12 +1066,22 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         an instance's r equals ``combine_probe``'s (and ``fused.combine``'s)
         on that instance alone bit for bit, and so does its probe's (ft,
         g.r) ``probe(x[b], r, stp1[b])``'s.  Above ``MAX_M`` ring rows the
-        deep form runs (M = 0), with the same r and probe."""
-        _check_combine_batched("combine_probe_batched", g, x, S, Y, coef, stp1, live, out)
+        deep form runs (M = 0), with the same r and probe.  ``fix`` = end,
+        the ring row the live instances share, with ``coef`` [B, 2m + 3]
+        ending in (ca, cb), adds ``fused.combine_fix_batched``'s damped
+        row: Y[b, end] <- round(ca*Y[b, end] + cb*g[b]) in place, after
+        the row is read (counted in ``.fix_launches`` too); an instance's
+        row equals the solo fix form's (and ``fused.combine_fix``'s) bit for
+        bit."""
+        _check_combine_batched("combine_probe_batched", g, x, S, Y, coef, stp1, live, out,
+                               fix is not None)
+        if fix is not None:
+            fix = fused._check_row(S[0], fix)
         if not fused.on_cuda(g, "combine_probe_batched"):
-            return combine_probe_batched_ref(g, x, S, Y, coef, stp1, live, out)
+            return combine_probe_batched_ref(g, x, S, Y, coef, stp1, live, out, fix)
         ctot, ptot = _combine_batched_launch(combine_probe_batched, g, x, S, Y, coef, stp1, live,
-                                             out, 2)
+                                             out, 2, 0 if fix is None else fix,
+                                             FIX=fix is not None)
         return ctot[:, 0], ctot[:, 1], ptot[:, 0], ptot[:, 1]
 
     def combine_ow_probe_batched_ref(pg, x, S, Y, coef, c, start, end, stp1, live, out):
@@ -1077,22 +1122,25 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         fn.launches = 0
     # the deep forms of K4, K14, K15 and K16 and of their batched forms,
     # the . gp (damped) specialisations of K4 and K14 and K15's damped-row
-    # form, counted apart too (``_count``)
+    # form, and theirs of K4 b, K14 b and K15 b, counted apart too
+    # (``_count``)
     for fn in (trial_pair_gram, owlqn_trial_pair_gram, combine_probe, combine_ow_probe,
                trial_pair_gram_batched, owlqn_trial_pair_gram_batched, *batched_fusions):
         fn.deep_launches = 0
-    for fn in (trial_pair_gram, owlqn_trial_pair_gram):
+    for fn in (trial_pair_gram, owlqn_trial_pair_gram, trial_pair_gram_batched,
+               owlqn_trial_pair_gram_batched):
         fn.gp_launches = fn.deep_gp_launches = 0
-    combine_probe.fix_launches = combine_probe.deep_fix_launches = 0
+    for fn in (combine_probe, combine_probe_batched):
+        fn.fix_launches = fn.deep_fix_launches = 0
     # the epilogues' last compiled Triton kernel per (vector dtype, history
-    # dtype, with_gp), the static forms' and the deep forms' apart, and the
-    # batched epilogues' per (vector dtype, history dtype): their
-    # registers, spills and PTX
+    # dtype, with_gp), the static forms' and the deep forms' apart, the
+    # batched epilogues' too: their registers, spills and PTX
     for fn in (trial_pair_gram, owlqn_trial_pair_gram, trial_pair_gram_batched,
                owlqn_trial_pair_gram_batched):
         fn.compiled, fn.deep_compiled = {}, {}
     # the fusions' deep forms per (vector dtype, history dtype, fix), and
-    # the batched fusions' forms per (vector dtype, history dtype, deep)
+    # the batched fusions' forms per (vector dtype, history dtype, deep,
+    # and for K15 b fix)
     combine_probe.deep_compiled, combine_ow_probe.deep_compiled = {}, {}
     for fn in batched_fusions:
         fn.compiled = {}
@@ -1149,19 +1197,21 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             fused.pseudo_gradient_norm, fused.pseudo_gradient,
             combine_probe, combine_ow_probe, combine_probe_ok)
     _attach_batched(vag, probe_batched, trial_pair_gram_batched, fused.combine_batched,
-                    owlqn_probe_pg_batched, owlqn_trial_pair_gram_batched,
-                    fused.combine_ow_batched, fused.pseudo_gradient_norm_batched,
-                    combine_probe_batched, combine_ow_probe_batched, combine_probe_batched_ok)
+                    fused.combine_fix_batched, owlqn_probe_pg_batched,
+                    owlqn_trial_pair_gram_batched, fused.combine_ow_batched,
+                    fused.pseudo_gradient_norm_batched, combine_probe_batched,
+                    combine_ow_probe_batched, combine_probe_batched_ok)
     _attach(plain, trial_ref, probe_ref, trial_pair_gram_ref, trial_pair_gram_ok,
             owlqn_trial_ref, owlqn_probe_ref, owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref,
             fused.combine_ref, fused.combine_fix_ref, fused.combine_ow_ref,
             fused.pseudo_gradient_norm_ref, fused.pseudo_gradient_ref,
             combine_probe_ref, combine_ow_probe_ref, combine_probe_ok)
     _attach_batched(plain, probe_batched_ref, trial_pair_gram_batched_ref,
-                    fused.combine_batched_ref, owlqn_probe_pg_batched_ref,
-                    owlqn_trial_pair_gram_batched_ref, fused.combine_ow_batched_ref,
-                    fused.pseudo_gradient_norm_batched_ref, combine_probe_batched_ref,
-                    combine_ow_probe_batched_ref, combine_probe_batched_ok)
+                    fused.combine_batched_ref, fused.combine_fix_batched_ref,
+                    owlqn_probe_pg_batched_ref, owlqn_trial_pair_gram_batched_ref,
+                    fused.combine_ow_batched_ref, fused.pseudo_gradient_norm_batched_ref,
+                    combine_probe_batched_ref, combine_ow_probe_batched_ref,
+                    combine_probe_batched_ok)
     vag.kernels = plain.kernels = ns
     vag.plain = plain
     return vag
@@ -1210,14 +1260,15 @@ def _attach(obj, trial, probe, tpg, tpg_ok, ow_trial, ow_probe, ow_probe_pg, ow_
     obj.__lbfgs_combine_ow_probe_ok__ = cp_ok
 
 
-def _attach_batched(obj, probe, tpg, combine, ow_probe_pg, ow_tpg, combine_ow,
+def _attach_batched(obj, probe, tpg, combine, combine_fix, ow_probe_pg, ow_tpg, combine_ow,
                     pg_norm, cp, cp_ow, cp_ok) -> None:
     """The batched runner's protocol (``batched.minimize_batched``): K2 b,
-    K4 b and K3 b, and under OWL-QN K8 b, K14 b, K13 b and K10 b; with the
-    step uncapped the fusions K15 b and K16 b."""
+    K4 b and K3 b (K6 b damped), and under OWL-QN K8 b, K14 b, K13 b and
+    K10 b; with the step uncapped the fusions K15 b and K16 b."""
     obj.__lbfgs_probe_batched__ = probe
     obj.__lbfgs_trial_pair_gram_batched__ = tpg
     obj.__lbfgs_combine_batched__ = combine
+    obj.__lbfgs_combine_fix_batched__ = combine_fix
     obj.__lbfgs_owlqn_probe_pg_batched__ = ow_probe_pg
     obj.__lbfgs_owlqn_trial_pair_gram_batched__ = ow_tpg
     obj.__lbfgs_combine_ow_batched__ = combine_ow
@@ -1234,16 +1285,23 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum(dim=1)
 
 
-def _pair_products_batched(s, y, d0, S, Y, end: int, live) -> tuple:
+def _pair_products_batched(s, y, d0, S, Y, end: int, live, gp=None) -> tuple:
     """``fused.pair_products`` over a batch: SP = S[b].[y, s, d0], YP =
     Y[b].[y, s, d0] ([B, m, 3]) with ring row ``end`` replaced by the new
     pair UNROUNDED, then the pair stored into row ``end`` of the live
-    instances' rings, rounded to the history dtype."""
+    instances' rings, rounded to the history dtype.  With ``gp`` a fourth
+    column S[b].gp[b], Y[b].gp[b] ([B, m, 4]), taken apart so that columns
+    0-2 are those of the 3-column form bit for bit."""
+    Sw, Yw = S.to(s.dtype), Y.to(s.dtype)
     Z = torch.stack([y, s, d0], dim=2)
-    SP = torch.bmm(S.to(s.dtype), Z)
-    YP = torch.bmm(Y.to(s.dtype), Z)
+    SP = torch.bmm(Sw, Z)
+    YP = torch.bmm(Yw, Z)
     SP[:, end] = torch.stack([_dot(s, y), _dot(s, s), _dot(s, d0)], dim=1)
     YP[:, end] = torch.stack([_dot(y, y), _dot(y, s), _dot(y, d0)], dim=1)
+    if gp is not None:
+        Sg, Yg = torch.bmm(Sw, gp[:, :, None]), torch.bmm(Yw, gp[:, :, None])
+        Sg[:, end, 0], Yg[:, end, 0] = _dot(s, gp), _dot(y, gp)
+        SP, YP = torch.cat([SP, Sg], dim=2), torch.cat([YP, Yg], dim=2)
     S[live, end] = s[live].to(S.dtype)
     Y[live, end] = y[live].to(Y.dtype)
     return SP, YP

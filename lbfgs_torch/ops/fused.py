@@ -20,10 +20,11 @@ share.
   * ``pseudo_gradient`` (K11) and ``pseudo_gradient_norm`` (K10) —
     OWL-QN's pseudo-gradient, alone and with its squared norm.
 
-  * ``combine_batched`` (K3 b), ``combine_ow_batched`` (K13 b) and
-    ``pseudo_gradient_norm_batched`` (K10 b) — K3, K13 and K10 over a
-    [B, n] batch of instances (one coefficient row each), the batched
-    runner's combines and its OWL-QN init.
+  * ``combine_batched`` (K3 b), ``combine_ow_batched`` (K13 b),
+    ``combine_fix_batched`` (K6 b) and ``pseudo_gradient_norm_batched``
+    (K10 b) — K3, K13, K6 and K10 over a [B, n] batch of instances (one
+    coefficient row each), the batched runner's combines and its OWL-QN
+    init.
 
   * ``axpy_dot`` (K17) — z = y + c*x and z . w in one pass.  No solver
     path runs it (the compact two-loop takes its products from the
@@ -351,20 +352,25 @@ def combine_batched_ref(g, S, Y, coef, live, out):
 combine_batched_ref.calls = 0
 
 
-def _check_combine_batched(kernel: str, g, S, Y, coef, live, out) -> None:
+def _check_combine_batched(kernel: str, g, S, Y, coef, live, out, fix: bool = False) -> None:
+    """Check a batched combine's operands: ``coef`` [B, 2m + 1], or with
+    ``fix`` (the damped row's (ca, cb) appended) [B, 2m + 3]."""
     check_batch(kernel, g, live)
     _check_hist_batched(kernel, g, S, Y)
     B, m, n = S.shape
-    if coef.shape != (B, 1 + 2 * m) or coef.dtype != g.dtype or out.shape != g.shape \
+    ncoef = 2 * m + (3 if fix else 1)
+    if coef.shape != (B, ncoef) or coef.dtype != g.dtype or out.shape != g.shape \
             or out.dtype != g.dtype:
-        raise ValueError(f"{kernel}: coef must be [B, 2m + 1] and out [B, n], in g's dtype")
+        raise ValueError(f"{kernel}: coef must be [B, {ncoef - 2 * m} + 2m] and out [B, n], "
+                         f"in g's dtype")
 
 
-def _launch_combine_batched(name: str, g, S, Y, coef, live, out, nparts: int, *window):
-    """Launch K3 b (``name`` "combine_batched") or K13 b ("combine_ow_batched",
-    with the window (lo, hi)); returns the [B, nparts] column sums of its
-    [B, blocks, nparts] partials, each instance's in the order its solo
-    launch's would be added."""
+def _launch_combine_batched(name: str, g, S, Y, coef, live, out, nparts: int, *args):
+    """Launch K3 b (``name`` "combine_batched"), K13 b ("combine_ow_batched",
+    with the window (lo, hi)) or K6 b ("combine_fix_batched", with the ring
+    row end); returns the [B, nparts] column sums of its [B, blocks,
+    nparts] partials, each instance's in the order its solo launch's
+    would be added."""
     check_contiguous(name, g, S, Y, coef, live, out)
     B, m, n = S.shape
     lib = _build.load_library()
@@ -372,7 +378,7 @@ def _launch_combine_batched(name: str, g, S, Y, coef, live, out, nparts: int, *w
     part = torch.empty((B, blocks, nparts), dtype=g.dtype, device=g.device)
     fn = getattr(lib, f"lbfgs_{name}_{_SUFFIX[g.dtype]}_{_SUFFIX[S.dtype]}")
     code = fn(g.data_ptr(), S.data_ptr(), Y.data_ptr(), coef.data_ptr(), live.data_ptr(),
-              out.data_ptr(), part.data_ptr(), n, m, *window, B,
+              out.data_ptr(), part.data_ptr(), n, m, *args, B,
               torch.cuda.current_stream(g.device).cuda_stream)
     _build.check_launch(code, name)
     return part.sum(dim=1)
@@ -488,6 +494,57 @@ def combine_fix(d, S, Y, gamma, coef_s, coef_y, end: int, ca, cb):
 
 
 combine_fix.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 b: the batched runner's combine + damped ring-row persist
+# ---------------------------------------------------------------------------
+
+
+def fix_row_batched(g, Y, coef, end: int, live) -> None:
+    """The damped ring row of ``combine_fix_batched``'s plain version (and
+    of the fused batched combine's fix form): Y[b, end] <- round(ca*Y[b,
+    end] + cb*g[b]) for each live instance, (ca, cb) the last two columns
+    of its coefficient row, by ``combine_fix_plain``'s arithmetic."""
+    ca, cb = coef[:, -2:-1], coef[:, -1:]
+    fixed = (ca * Y[:, end].to(g.dtype) + cb * g).to(Y.dtype)
+    Y[live, end] = fixed[live]
+
+
+def combine_fix_batched_ref(g, S, Y, coef, live, out, end: int):
+    """Plain version of ``combine_fix_batched``."""
+    combine_fix_batched_ref.calls += 1
+    m = S.shape[1]
+    r = _combination_batched(g, S, Y, coef[:, :1 + 2 * m])
+    fix_row_batched(g, Y, coef, end, live)
+    out[live] = r[live]
+    return (r * r).sum(dim=1), (r * g).sum(dim=1)
+
+
+combine_fix_batched_ref.calls = 0
+
+
+def combine_fix_batched(g, S, Y, coef, live, out, end: int):
+    """K6 over B instances (K6 b): ``combine_batched``'s r over the rings
+    as they stand, then for each live instance b the damped ring row
+    persisted in place, Y[b, end] <- round(ca*Y[b, end] + cb*g[b]) to the
+    history dtype, (ca, cb) = coef[b, 2m + 1:] (``coef`` [B, 2m + 3]:
+    [gamma, cs, cy, ca, cb], the damping folded into gamma and cy[end] as
+    for ``combine_fix``).  ``end`` is a host int shared by the live
+    instances.  A frozen instance's row of ``out`` and its ring are never
+    written.  On the card an instance's r and damped row equal
+    ``combine_fix``'s on that instance alone bit for bit.  Returns (r.r,
+    r.g)."""
+    _check_combine_batched("combine_fix_batched", g, S, Y, coef, live, out, fix=True)
+    end = _check_row(S[0], end)
+    if not on_cuda(g, "combine_fix_batched"):
+        return combine_fix_batched_ref(g, S, Y, coef, live, out, end)
+    tot = _launch_combine_batched("combine_fix_batched", g, S, Y, coef, live, out, 2, end)
+    combine_fix_batched.launches += 1
+    return tot[:, 0], tot[:, 1]
+
+
+combine_fix_batched.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -787,9 +844,10 @@ def _check_pair(d, gx, gp, S, Y, end: int) -> int:
 
 def append_gp(SP, YP, G):
     """SP, YP ([m, 3]) with the . gp column appended from ``G``, the [2m]
-    sums (S_0.gp, Y_0.gp, S_1.gp, ...) of a kernel's . gp partials."""
-    G = G.reshape(-1, 2)
-    return torch.cat([SP, G[:, :1]], dim=1), torch.cat([YP, G[:, 1:]], dim=1)
+    sums (S_0.gp, Y_0.gp, S_1.gp, ...) of a kernel's . gp partials; or
+    per instance, SP, YP [B, m, 3] and G [B, 2m]."""
+    G = G.reshape(*SP.shape[:-1], 2)
+    return torch.cat([SP, G[..., :1]], dim=-1), torch.cat([YP, G[..., 1:]], dim=-1)
 
 
 #: K5's and K12's launch (``csrc/pair_gram.cu``): a tile of T elements,

@@ -362,11 +362,16 @@ def _damped_gram(params: LbfgsParams, SP, YP, end: int, stp_d, gpgp, gp_d0):
     s.(-stp_d*gp) alone, so every product with y_d is linear in the basis
     except y_d.y_d = a^2 yy + 2ab y.gp + b^2 gp.gp.  ``gpgp`` is gp.gp and
     ``gp_d0`` gp.d0.  [m]-scalar torch ops on the device: no host read.
-    Returns (u, v, w, Yd_ring, a, b, case), case a 0-d tensor (0, 1, 2)."""
-    m = SP.shape[0]
-    stp_d = float(stp_d)
-    ys_raw, yy_raw = SP[end, 0], YP[end, 0]
-    sgp, ygp = SP[end, 3], YP[end, 3]
+    Returns (u, v, w, Yd_ring, a, b, case), case (0, 1, 2) in SP's dtype.
+
+    The batched runner takes the same algebra over instances: SP, YP [B,
+    m, 4] and stp_d, gpgp, gp_d0 [B] tensors give u, v, w, Yd_ring [B, m]
+    and a, b, case [B], each instance's those of its solo call."""
+    m = SP.shape[-2]
+    if not torch.is_tensor(stp_d):
+        stp_d = float(stp_d)
+    ys_raw, yy_raw = SP[..., end, 0], YP[..., end, 0]
+    sgp, ygp = SP[..., end, 3], YP[..., end, 3]
     sbs = -stp_d * sgp
     case1 = ys_raw < (1.0 - SIGMA2) * sbs
     case2 = ~case1 & (ys_raw > (1.0 + SIGMA3) * sbs)
@@ -383,15 +388,17 @@ def _damped_gram(params: LbfgsParams, SP, YP, end: int, stp_d, gpgp, gp_d0):
         apply = case1
     a = torch.where(apply, theta, 1.0)
     b = torch.where(apply, -(1.0 - theta) * stp_d, 0.0)
-    ridx = torch.arange(m, device=SP.device)
+    # each instance's scalar against its [m] rows
+    col = lambda v: v[..., None]
+    is_end = torch.arange(m, device=SP.device) == end
     # S . y_d (row end is s . y_d, the same linear form)
-    u = a * SP[:, 0] + b * SP[:, 3]
+    u = col(a) * SP[..., 0] + col(b) * SP[..., 3]
     # Y . s: the old rows are damped already; row end is y_d . s = s . y_d
-    w = torch.where(ridx == end, u[end], YP[:, 1])
+    w = torch.where(is_end, u[..., end, None], YP[..., 1])
     # Y . y_d: linear for the old rows; row end the quadratic form
     ydyd = a * a * yy_raw + 2.0 * a * b * ygp + b * b * gpgp
-    v = torch.where(ridx == end, ydyd, a * YP[:, 0] + b * YP[:, 3])
-    Yd_ring = torch.where(ridx == end, a * YP[end, 2] + b * gp_d0, YP[:, 2])
+    v = torch.where(is_end, col(ydyd), col(a) * YP[..., 0] + col(b) * YP[..., 3])
+    Yd_ring = torch.where(is_end, col(a * YP[..., end, 2] + b * gp_d0), YP[..., 2])
     case = torch.where(case1, 1.0, torch.where(case2, 2.0, 0.0)).to(SP.dtype)
     return u, v, w, Yd_ring, a, b, case
 

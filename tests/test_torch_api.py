@@ -179,17 +179,18 @@ def test_unported_entry_points_raise():
     out = b.minimize_batched(x0[None], lbfgs_torch.default_evaluate())
     assert int(out["niter"][0]) == 35 and float(out["fx"][0]) < 1e-9
     # batched OWL-QN raised until it was ported, at the capped step and
-    # then at the uncapped one: now a batch of one takes the solo run's
-    # iterations either way, and damping still raises
+    # then at the uncapped one, and damped until damping was: now a batch
+    # of one takes the solo run's iterations each way, and a setting the
+    # batched runner does not run yet still raises, damped too
     ow = b.with_orthantwise(1.0, 0, None)
-    for opt in (ow, ow.with_constrain_step_size(False)):
+    damped = ow.with_constrain_step_size(False).with_damping(True)
+    for opt in (ow, ow.with_constrain_step_size(False), damped):
         out = opt.minimize_batched(x0[None], lbfgs_torch.default_evaluate())
         solo = opt.minimize_jit(x0, lbfgs_torch.default_evaluate())
         assert int(out["niter"][0]) == solo.niter and int(out["status"][0]) == solo.status
         assert float(out["fx"][0]) == pytest.approx(float(solo.fx), rel=1e-9)
     with pytest.raises(NotImplementedError, match="batched"):
-        ow.with_constrain_step_size(False).with_damping(True).minimize_batched(
-            x0[None], lbfgs_torch.default_evaluate())
+        damped.with_fx_wide().minimize_batched(x0[None], lbfgs_torch.default_evaluate())
     # the native backend raised until it was ported: now it runs the C++
     # core (the defaults' 35 iterations, tests/test_native_parity.py:83-94)
     rep = b.minimize(x0, lbfgs_torch.default_evaluate(), backend="native")

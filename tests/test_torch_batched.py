@@ -440,33 +440,32 @@ def test_return_state():
 
 
 UNSUPPORTED = {
-    # OWL-QN runs batched undamped; the uncapped step, the adaptive entry
-    # step and any depth run (tests/test_torch_batched_uncapped.py), and
-    # the settings below still raise with them too
-    "owlqn_damped": lambda b: b.with_orthantwise(1.0, 0, None).with_damping(True),
-    "damping": lambda b: b.with_damping(True),
-    "gradient_only": lambda b: b.with_gradient_only(),
-    "damped_uncapped": lambda b: b.with_damping(True).with_constrain_step_size(False),
-    "damped_owlqn_uncapped": lambda b: b.with_orthantwise(1.0, 0, None).with_damping(True)
-    .with_constrain_step_size(False),
-    "gradient_only_uncapped": lambda b: b.with_gradient_only().with_constrain_step_size(False),
+    # OWL-QN, the uncapped step, the adaptive entry step, any depth
+    # (tests/test_torch_batched_uncapped.py), damping and the gradient-only
+    # mode (tests/test_torch_batched_damped.py) run batched; the settings
+    # below still raise, with damping too
+    "damped_fx_wide": lambda b: b.with_damping(True).with_fx_wide(),
+    "damped_scan_two_loop": lambda b: b.with_damping(True).with_compact_two_loop(False),
+    "damped_float16_history": lambda b: b.with_damping(True).with_history_dtype("float16"),
+    "gradient_only_speculative": lambda b: b.with_gradient_only().with_speculative_linesearch(4),
+    "damped_generic_objective": lambda b: b.with_damping(True),
+    "damped_owlqn_float16_history": lambda b: b.with_orthantwise(1.0, 0, None)
+    .with_damping(True).with_history_dtype("float16"),
     "fx_wide": lambda b: b.with_fx_wide(),
     "scan_two_loop": lambda b: b.with_compact_two_loop(False),
     "float16_history": lambda b: b.with_history_dtype("float16"),
     "float16_deep_history": lambda b: b._new(b.param.replace(m=80)).with_history_dtype("float16"),
     "speculative": lambda b: b.with_speculative_linesearch(4),
-    "generic_objective": None,
+    "generic_objective": lambda b: b,
 }
 
 
 @pytest.mark.parametrize("setting", list(UNSUPPORTED))
 def test_unsupported_settings_raise(setting):
     x0b = _t(CASES["early_finisher"])
-    opt, fn = t_lbfgs(), t_rosen.value_and_grad
-    if setting == "generic_objective":
+    opt, fn = UNSUPPORTED[setting](t_lbfgs()), t_rosen.value_and_grad
+    if setting.endswith("generic_objective"):
         fn = t_rosen._plain_value_and_grad
-    else:
-        opt = UNSUPPORTED[setting](opt)
     with pytest.raises(NotImplementedError, match="minimize_batched"):
         opt.minimize_batched(x0b, fn)
 
