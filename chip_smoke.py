@@ -76,6 +76,14 @@ Phases (any failure raises and the script exits nonzero):
      products (``torch.mm`` with a float32 output) at beta0 and at the
      final beta against the widened product (normwise 1e-4) and timed
      beside their bound;
+ 16b. batched Poisson (with the float32 X of phase 16, freed after it):
+     ``minimize_batched`` on the Poisson regression at that width, B = 16
+     (beta0 = 0 and 15 seeded N(0, 1e-3) offsets), phase 16's settings, 20
+     iterations through the generic batched route (K11 b once, K9 b per
+     trip, K10 b, K12 b and K13 b per iteration; the products with X one
+     GEMM each under the vmap): device and wall ms per iteration,
+     evaluations per iteration, instance-iterations/s; instance 0 against
+     the solo run after 8 iterations;
  17. Poisson f64: 500 x 21 float64 (the reference's shape), c = 1 on
      [1, 21), epsilon 1e-4, through ``minimize`` per iteration against
      the same run on the CPU;
@@ -233,6 +241,19 @@ Phases (any failure raises and the script exits nonzero):
  42d. batched m = 80: the capped batched plain and OWL-QN runs at m = 80
      (K3 b and K13 b with their coefficients sized at launch) and the
      damped capped, uncapped and OWL-QN runs there, 10 iterations each;
+ 42e. batched generic kernels: K9 b, K11 b and K12 b (m = 6 and 80) in the
+     three dtype pairs at 1024 x 2^14 (m = 80 with float64 at 512 x 2^14)
+     against their plain versions, the points, pg and ring rows of
+     instances 0, B/2 - 1 and B - 1 bit for bit the solo K9's, K11's and
+     K12's (K12 b's sums within the sum tolerance), K12 b's registers (a
+     spill fails), each timed at f32/bf16 beside its plain version;
+ 42f. batched generic main paths: ``minimize_batched`` on a hook-free
+     Rosenbrock at 1024 x 2^14, f32, bf16 ring, 20 iterations, capped,
+     uncapped and damped capped (More-Thuente: K3 b per iteration and no
+     other kernel) and under OWL-QN (c = 1 on [0, n - 1), Armijo: K11 b
+     once, K9 b per trip, K10 b, K12 b undamped and K13 b per iteration;
+     and 5 iterations at m = 80); instances 0-7 solo against each batch
+     after 8 iterations;
  43. sharded world size 1: an NCCL group of one rank in this process
      (``lbfgs_torch.parallel``), the main path and the OWL-QN main path at
      n = 2^24 under ``kernels_on_mesh``, each against the same run with no
@@ -470,6 +491,24 @@ BATCHED_DAMPED_FORMS = ("K4b_trial_pair_gram_batched_gp", "K14b_owlqn_trial_pair
 KERNELS.update({f"{name}_m80": (route, src, f"{rep} (m = 80)")
                 for name, (route, src, rep) in list(KERNELS.items())
                 if name in BATCHED_DAMPED_FORMS})
+#: the batched runner's OWL-QN kernels for generic objectives: each trial
+#: point (K9 b), the init's pseudo-gradient (K11 b) and each undamped
+#: iteration's pair update (K12 b; ``_m80`` at m = 80)
+KERNELS.update({
+    "K9b_owlqn_trial_step_batched": ("cuda", "lbfgs_torch/csrc/owlqn.cu",
+                                     "lbfgs_tpu/ops/fused.py:481" + VMAPPED),
+    "K11b_pseudo_gradient_batched": ("cuda", "lbfgs_torch/csrc/owlqn.cu",
+                                     "lbfgs_tpu/ops/fused.py:567" + VMAPPED),
+    "K12b_pair_gram_xg_batched": ("cuda", "lbfgs_torch/csrc/pair_gram.cu",
+                                  "lbfgs_tpu/ops/fused.py:1055" + VMAPPED),
+})
+KERNELS["K12b_pair_gram_xg_batched_m80"] = (
+    "cuda", "lbfgs_torch/csrc/pair_gram.cu", "lbfgs_tpu/ops/fused.py:1055 (m = 80)" + VMAPPED)
+#: a generic objective's batched OWL-QN path: K9 b per search trip, K10 b,
+#: K12 b (undamped) and K13 b per iteration, K11 b once at the init
+BATCHED_GENERIC_OWLQN_PATH = ("K9b_owlqn_trial_step_batched", "K10b_pseudo_gradient_norm_batched",
+                              "K12b_pair_gram_xg_batched", "K13b_combine_ow_batched")
+BATCHED_GENERIC_INIT = ("K11b_pseudo_gradient_batched",)
 BATCHED_UNCAPPED_PATH = ("K2b_probe_batched", "K4b_trial_pair_gram_batched",
                          "K15b_combine_probe_batched")
 BATCHED_OWLQN_UNCAPPED_PATH = ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched",
@@ -561,6 +600,11 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
         "K14b_owlqn_trial_pair_gram_batched_gp": (7 * v + rings, 16 * m + 44),
         "K6b_combine_fix_batched": (2 * v + 2 * m * h + h, 4 * m + 10),
         "K15b_combine_probe_batched_fix": (3 * v + 2 * m * h + h, 4 * m + 26),
+        # the generic objectives' forms: their solo kernels' per element (K9
+        # b reads pg in the orthant's place)
+        "K9b_owlqn_trial_step_batched": (4 * v, 4),
+        "K11b_pseudo_gradient_batched": (3 * v, 4),
+        "K12b_pair_gram_xg_batched": (5 * v + rings, 12 * m + 3),
         # reads and writes one float32 per element, at n = N_NULL
         "cal_null_launch": (8, 1),
     }[name]
@@ -1216,10 +1260,10 @@ def epilogue_compiled() -> None:
 #: history type (f float, d double, 13__nv_bfloat16), ring rows MP, the
 #: . gp column, K12's pair; and how many there are: three dtype pairs,
 #: five row counts (1-4 and a group of 6), with and without . gp, each
-#: kernel's pair
+#: kernel's pair; and K12 b's five row counts (no . gp)
 PAIR_GRAM_KERNEL = re.compile(
-    r"pair_gram_kernelI([fd])(13__nv_bfloat16|[fd])Li(\d+)ELb([01])ELb([01])E")
-PAIR_GRAM_FORMS = 3 * 5 * 2 * 2
+    r"pair_gram_kernelI([fd])(13__nv_bfloat16|[fd])Li(\d+)ELb([01])ELb([01])ELb([01])E")
+PAIR_GRAM_FORMS = 3 * 5 * 2 * 2 + 3 * 5
 K5_TYPES = {"f": "float32", "d": "float64", "13__nv_bfloat16": "bfloat16"}
 
 
@@ -1244,18 +1288,26 @@ def ptxas_kernels(log: str) -> dict:
     return out
 
 
-def pair_gram_compiled() -> list:
-    """Registers, shared memory and spills of every K5 and K12 instantiation
-    (``PAIR_GRAM_FORMS``) from the build log; a form that spills, or a log
-    that does not show them all, fails the phase."""
+def pair_gram_forms() -> list:
+    """Registers, shared memory and spills of every K5, K12 and K12 b
+    instantiation in the build log."""
     forms = []
     for name, info in ptxas_kernels(_build.build_log()).items():
         m = PAIR_GRAM_KERNEL.search(name)
         if m:
-            forms.append(dict(kernel="K12" if m.group(5) == "1" else "K5",
-                              vectors=K5_TYPES[m.group(1)], history=K5_TYPES[m.group(2)],
-                              rows=int(m.group(3)), with_gp=m.group(4) == "1", **info))
+            kernel = "K12b" if m.group(6) == "1" else ("K12" if m.group(5) == "1" else "K5")
+            forms.append(dict(kernel=kernel, vectors=K5_TYPES[m.group(1)],
+                              history=K5_TYPES[m.group(2)], rows=int(m.group(3)),
+                              with_gp=m.group(4) == "1", **info))
     forms.sort(key=lambda f: (f["kernel"], f["vectors"], f["history"], f["rows"], f["with_gp"]))
+    return forms
+
+
+def pair_gram_compiled() -> list:
+    """Registers, shared memory and spills of every K5, K12 and K12 b
+    instantiation (``PAIR_GRAM_FORMS``) from the build log; a form that
+    spills, or a log that does not show them all, fails the phase."""
+    forms = pair_gram_forms()
     emit(phase="pair_gram_compiled", launch={"/".join(str(t).removeprefix("torch.") for t in k): v
                                              for k, v in fused.PAIR_GRAM.items()},
          blocks_max=fused.PAIR_GRAM_BLOCKS, forms=forms)
@@ -1664,6 +1716,9 @@ def launches() -> dict:
             rosenbrock.value_and_grad.kernels.owlqn_probe_pg_batched.launches,
         "K13b_combine_ow_batched": fused.combine_ow_batched.launches,
         "K10b_pseudo_gradient_norm_batched": fused.pseudo_gradient_norm_batched.launches,
+        "K9b_owlqn_trial_step_batched": fused.owlqn_trial_step_batched.launches,
+        "K11b_pseudo_gradient_batched": fused.pseudo_gradient_batched.launches,
+        "K12b_pair_gram_xg_batched": fused.pair_gram_xg_batched.launches,
         **_batched_forms(rosenbrock.value_and_grad.kernels),
     }
     ex = dict.fromkeys(_factory_launches(rosenbrock.value_and_grad.kernels, "_ex"), 0)
@@ -1706,6 +1761,9 @@ PLAIN = {
     "K15b_combine_probe_batched": rosenbrock.value_and_grad.kernels.combine_probe_batched_ref,
     "K16b_combine_ow_probe_batched":
         rosenbrock.value_and_grad.kernels.combine_ow_probe_batched_ref,
+    "K9b_owlqn_trial_step_batched": fused.owlqn_trial_step_batched_ref,
+    "K11b_pseudo_gradient_batched": fused.pseudo_gradient_batched_ref,
+    "K12b_pair_gram_xg_batched": fused.pair_gram_xg_batched_ref,
 }
 
 
@@ -1742,7 +1800,9 @@ def reset_counts() -> None:
                fused.pair_gram_sd, fused.combine_fix, fused.owlqn_trial_step,
                fused.pseudo_gradient, fused.pair_gram_xg, fused.axpy_dot,
                profiling.null_launch, fused.combine_batched, fused.combine_ow_batched,
-               fused.pseudo_gradient_norm_batched, fused.combine_fix_batched):
+               fused.pseudo_gradient_norm_batched, fused.combine_fix_batched,
+               fused.owlqn_trial_step_batched, fused.pseudo_gradient_batched,
+               fused.pair_gram_xg_batched):
         fn.launches = 0
     fused.pair_gram_xg.gp_launches = 0
     for fn in PLAIN.values():
@@ -2396,8 +2456,9 @@ def _expect_composed(name: str, st, lc: dict, pc: dict) -> None:
 
 
 def phase_poisson_main_path() -> tuple:
-    """The Poisson main path with X float32 (see ``_poisson_path``)."""
-    return _poisson_path(torch.float32)
+    """The Poisson main path with X float32 (see ``_poisson_path``); its X,
+    y and objective are kept for ``phase_batched_poisson``."""
+    return _poisson_path(torch.float32, keep=True)
 
 
 def phase_poisson_bf16_main_path(f32_out: dict) -> tuple:
@@ -2408,7 +2469,8 @@ def phase_poisson_bf16_main_path(f32_out: dict) -> tuple:
     return _poisson_path(torch.bfloat16, f32_out)
 
 
-def _poisson_path(x_dtype: torch.dtype, f32_out: dict | None = None) -> tuple:
+def _poisson_path(x_dtype: torch.dtype, f32_out: dict | None = None,
+                  keep: bool = False) -> tuple:
     """The Poisson main path at 2048 x 2^20 with X in ``x_dtype`` (y and the
     vectors float32; the X of an earlier call is freed, so at most the
     float32 X it is made from and its bfloat16 copy live together, ~12
@@ -2418,7 +2480,8 @@ def _poisson_path(x_dtype: torch.dtype, f32_out: dict | None = None) -> tuple:
     per iteration and per evaluation.  With a bfloat16 X both products at
     beta0 and at the final beta against the widened product
     (``_bf16_products``).  Returns (launches of the float32-vector run,
-    {wide: summary})."""
+    {wide: summary}), with ``keep`` also {"X", "y", "obj"}, which then stay
+    allocated for the caller."""
     tag = str(x_dtype).removeprefix("torch.")
     t0 = time.perf_counter()
     X, y = logistic.synthetic(POISSON_NROW, POISSON_NCOL, seed=0, device="cuda",
@@ -2468,7 +2531,10 @@ def _poisson_path(x_dtype: torch.dtype, f32_out: dict | None = None) -> tuple:
          device_ms_per_eval=None if busy is None else busy / st.prob.neval)
     if x_dtype == torch.bfloat16:
         _bf16_products(X, y, {"beta0": x0, "final": beta})
-    del st, X, y, obj
+    del st
+    if keep:
+        return lc_main, out, {"X": X, "y": y, "obj": obj}
+    del X, y, obj
     torch.cuda.empty_cache()
     return lc_main, out
 
@@ -4047,7 +4113,7 @@ def _batched_report(phase: str, st, walls: list, lc: dict, reads: int, iters: in
                instance_iters=inst_iters, seconds=dt, seconds_runs=walls,
                instance_iters_per_s=inst_iters / dt,
                wall_ms_per_iter=1e3 * dt / iters, syncs_per_iter=reads / iters,
-               probes_per_iter=lc[path[0]] / iters,
+               probes_per_iter=extra.pop("probes_per_iter", lc[path[0]] / iters),
                evals_per_instance=float(st.neval.mean()),
                status={int(c): int(v) for c, v in zip(codes, counts)},
                fx_median=float(np.median(st.fx)), fx_max=float(st.fx.max()),
@@ -4056,18 +4122,27 @@ def _batched_report(phase: str, st, walls: list, lc: dict, reads: int, iters: in
     return out
 
 
-def _batched_profile(params: LbfgsParams, x0b: torch.Tensor, fn=None) -> dict:
+def _batched_profile(params: LbfgsParams, x0b: torch.Tensor, fn=None, top: int = 0) -> dict:
     """Device busy ms and host launch calls per iteration of one profiled
     batched run on the objective ``fn`` (Rosenbrock's by default; None
-    where every profiler session came back empty)."""
+    where every profiler session came back empty); with ``top`` also the
+    ``top`` device items by time, each with its ms and calls per
+    iteration."""
     fn = fn or default_evaluate()
     prof, st = profiled(lambda: minimize_batched(params, x0b, fn, return_state=True))
     iters = int(st.k.max()) - 1
     if prof is None:
         return dict(device_ms_per_iter=None, launch_calls_per_iter=None)
-    busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+    events = device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
     calls = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
-    return dict(device_ms_per_iter=busy / iters, launch_calls_per_iter=calls / iters)
+    out = dict(device_ms_per_iter=busy / iters, launch_calls_per_iter=calls / iters)
+    if top:
+        events.sort(key=lambda e: -e.self_device_time_total)
+        out["top_device_items_per_iter"] = [
+            dict(name=e.key[:80], ms=e.self_device_time_total / 1e3 / iters,
+                 calls=e.count / iters) for e in events[:top]]
+    return out
 
 
 def phase_batched_main_path() -> dict:
@@ -4595,15 +4670,16 @@ def _batched_turns(name: str, params: LbfgsParams, path: tuple, unfused_path: tu
     return runs
 
 
-def _vs_solo_8(name: str, params: LbfgsParams, x0b: torch.Tensor) -> list:
+def _vs_solo_8(name: str, params: LbfgsParams, x0b: torch.Tensor, fn=None) -> list:
     """Instances 0-7 solo through ``minimize_jit`` against a batched run of
-    8 iterations: the same iterations and evaluations, fx rel
-    ``FUSION_TOL_8``."""
+    8 iterations on the objective ``fn`` (Rosenbrock's by default): the
+    same iterations and evaluations, fx rel ``FUSION_TOL_8``."""
+    fn = fn or default_evaluate()
     p8 = params.replace(max_iterations=9)
-    st8 = minimize_batched(p8, x0b, default_evaluate(), return_state=True)
+    st8 = minimize_batched(p8, x0b, fn, return_state=True)
     held = []
     for b in range(8):
-        so = minimize_jit(p8, x0b[b].clone(), default_evaluate(), return_state=True)
+        so = minimize_jit(p8, x0b[b].clone(), fn, return_state=True)
         rel = abs(float(st8.fx[b]) / float(so.prob.fx) - 1)
         if (so.k, so.prob.neval) != (int(st8.k[b]), int(st8.neval[b])) or not rel <= FUSION_TOL_8:
             raise AssertionError(f"{name} instance {b} against its solo run after 8 "
@@ -5094,6 +5170,378 @@ def phase_batched_m80() -> dict:
         del st, x0b
         torch.cuda.empty_cache()
     return lc_all
+
+
+# ---------------------------------------------------------------------------
+# the batched runner on generic objectives: K9 b, K11 b and K12 b
+# ---------------------------------------------------------------------------
+
+#: the generic kernels' ring depths, and the batch each dtype pair is
+#: checked at with m = 80: the timed shape for f32/bf16, fewer instances for
+#: the wider rings (a float64 ring of 1024 x 80 x 2^14 is 10.7 GB, and the
+#: checks hold three of each)
+GENERIC_DEPTHS = (M, DEEP_M)
+GENERIC_M80_B = {(torch.float32, torch.bfloat16): BATCH_B, (torch.float32, torch.float32): 512,
+                 (torch.float64, torch.float64): 256}
+#: K12 b's instantiations: five row counts in each dtype pair
+K12B_FORMS = 3 * 5
+
+
+def batched_generic_inputs(seed: int, vd, hd, m: int, B: int) -> dict:
+    """Seeded [B, n] inputs of K9 b, K11 b and K12 b: the points xp and x
+    near the Rosenbrock start with exact zeros (every 17th, 13th element),
+    a direction, gradients, a pseudo-gradient, [B, m, n] rings and [B]
+    steps; every third instance from the third frozen."""
+    n = BATCH_N
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=vd)
+    live = torch.ones(B, dtype=torch.bool, device="cuda")
+    live[2::3] = False
+    xp = rosenbrock.initial_point(n, vd, "cuda")[None, :] + 0.1 * r(B, n)
+    xp[:, ::17] = 0.0
+    x = xp + 0.1 * r(B, n)
+    x[:, ::13] = 0.0
+    return dict(xp=xp, x=x, d=0.1 * r(B, n), gx=r(B, n), gp=r(B, n), pg=r(B, n),
+                S=(0.1 * r(B, m, n)).to(hd), Y=(0.1 * r(B, m, n)).to(hd),
+                stp=0.2 + torch.rand(B, generator=g, device="cuda", dtype=vd), live=live)
+
+
+def _generic_solo(B: int) -> tuple:
+    """The instances held to the solo kernels: 0, 511 and 1023 at B = 1024."""
+    return (0, B // 2 - 1, B - 1)
+
+
+def _check_k9b_k11b(a: dict, vd, errs: dict, solo: dict) -> None:
+    """K9 b and K11 b on both windows against their plain versions and, on
+    the solo instances, the solo K9 (with the search's orthant) and K11
+    bit for bit; a frozen instance's row untouched."""
+    live, frozen = a["live"], ~a["live"]
+    tv = TOL[(vd, "vec")]
+    B = live.shape[0]
+    tag = str(vd).removeprefix("torch.")
+    for lo, hi in windows(BATCH_N):
+        cases = (
+            ("K9b_owlqn_trial_step_batched", fused.owlqn_trial_step_batched,
+             fused.owlqn_trial_step_batched_ref,
+             (a["xp"], a["d"], a["pg"], a["stp"], lo, hi, live),
+             lambda b: fused.owlqn_trial_step(
+                 a["xp"][b], a["d"][b],
+                 choose_orthant(Orthantwise(1.0, lo, hi), a["xp"][b], a["pg"][b]),
+                 float(a["stp"][b]), lo, hi)),
+            ("K11b_pseudo_gradient_batched", fused.pseudo_gradient_batched,
+             fused.pseudo_gradient_batched_ref, (a["x"], a["gx"], C_L1, lo, hi, live),
+             lambda b: fused.pseudo_gradient(a["x"][b], a["gx"][b], C_L1, lo, hi)),
+        )
+        for name, kern, plain, args, one in cases:
+            out_k, out_p = torch.zeros_like(a["d"]), torch.zeros_like(a["d"])
+            kern(*args, out_k)
+            plain(*args, out_p)
+            errs.setdefault(name, []).append(check(f"{name} {tag}", out_k[live], out_p[live], tv))
+            if out_k[frozen].any():
+                raise AssertionError(f"{name} {tag}: a frozen instance's row was written")
+            for b in _generic_solo(B):
+                if not same_bits(out_k[b], one(b)):
+                    raise AssertionError(f"{name} {tag}: instance {b} differs from the solo "
+                                         f"kernel")
+            solo.setdefault(name, {})[tag] = dict(
+                vs_plain_bit_for_bit=same_bits(out_k[live], out_p[live]),
+                vs_solo_bit_for_bit=list(_generic_solo(B)))
+
+
+def _check_k12b(a: dict, vd, m: int, errs: dict, solo: dict) -> None:
+    """K12 b against its plain version (sums at the sum tolerance, the rings
+    bit for bit) and, on the solo instances, the solo K12: ring rows bit for
+    bit, the sums within the sum tolerance, each printed with whether it is
+    bit for bit (an instance's partials are the solo kernel's; torch adds
+    the [B, blocks, 6m] partials in an order that depends on B); a frozen
+    instance's rings untouched."""
+    live, frozen = a["live"], ~a["live"]
+    ts = TOL[(vd, "sum")]
+    B, end = live.shape[0], m - 3
+    tag = f"{str(vd).removeprefix('torch.')}/{str(a['S'].dtype).removeprefix('torch.')} m={m}"
+    name = "K12b_pair_gram_xg_batched" + ("_m80" if m == DEEP_M else "")
+    vecs = tuple(a[k] for k in ("x", "xp", "gx", "gp", "pg"))
+    Sk, Yk = a["S"].clone(), a["Y"].clone()
+    SPk, YPk = fused.pair_gram_xg_batched(*vecs, Sk, Yk, end, live)
+    Sp, Yp = a["S"].clone(), a["Y"].clone()
+    SPp, YPp = fused.pair_gram_xg_batched_ref(*vecs, Sp, Yp, end, live)
+    errs.setdefault(name, []).extend([check(f"{name} SP {tag}", SPk[live], SPp[live], ts),
+                                      check(f"{name} YP {tag}", YPk[live], YPp[live], ts)])
+    if not (same_bits(Sk, Sp) and same_bits(Yk, Yp)):
+        raise AssertionError(f"{name} {tag}: the rings differ from the plain version's")
+    del Sp, Yp
+    if not (same_bits(Sk[frozen], a["S"][frozen]) and same_bits(Yk[frozen], a["Y"][frozen])):
+        raise AssertionError(f"{name} {tag}: a frozen instance's rings were written")
+    sums = {}
+    for b in _generic_solo(B):
+        Sb, Yb = a["S"][b].clone(), a["Y"][b].clone()
+        SP1, YP1 = fused.pair_gram_xg(*(v[b] for v in vecs), Sb, Yb, end)
+        if not (same_bits(Sk[b], Sb) and same_bits(Yk[b], Yb)):
+            raise AssertionError(f"{name} {tag}: instance {b}'s rings differ from the solo K12's")
+        e = max(check(f"{name} SP {tag} vs solo {b}", SPk[b], SP1, ts)[1],
+                check(f"{name} YP {tag} vs solo {b}", YPk[b], YP1, ts)[1])
+        sums[b] = dict(normwise=e, bit_for_bit=same_bits(SPk[b], SP1) and same_bits(YPk[b], YP1))
+    solo.setdefault(name, {})[tag] = dict(rings_bit_for_bit=list(_generic_solo(B)), sums=sums)
+
+
+def _time_generic(a: dict, m: int, times: dict, timed_by: dict, bounds: dict) -> None:
+    """Time K12 b (and at m = 6 K9 b and K11 b) on the f32/bf16 inputs ``a``
+    with every instance live, each beside its plain version and its
+    bound (``kernel_vs_plain``); the rings' row m - 3 is rewritten with the
+    same pair on every launch (the checks are done with ``a``)."""
+    every = torch.ones(BATCH_B, dtype=torch.bool, device="cuda")
+    lo, hi = windows(BATCH_N)[0]
+    out = torch.empty_like(a["d"])
+    vecs = tuple(a[k] for k in ("x", "xp", "gx", "gp", "pg"))
+    S, Y = a["S"], a["Y"]
+    cases = {"K12b_pair_gram_xg_batched" + ("_m80" if m == DEEP_M else ""): (
+        lambda: fused.pair_gram_xg_batched(*vecs, S, Y, m - 3, every),
+        lambda: fused.pair_gram_xg_batched_ref(*vecs, S, Y, m - 3, every))}
+    if m == M:
+        step = (a["xp"], a["d"], a["pg"], a["stp"], lo, hi, every, out)
+        pg = (a["x"], a["gx"], C_L1, lo, hi, every, out)
+        cases.update({
+            "K9b_owlqn_trial_step_batched": (
+                lambda: fused.owlqn_trial_step_batched(*step),
+                lambda: fused.owlqn_trial_step_batched_ref(*step)),
+            "K11b_pseudo_gradient_batched": (lambda: fused.pseudo_gradient_batched(*pg),
+                                             lambda: fused.pseudo_gradient_batched_ref(*pg)),
+        })
+    for name, (kern, plain) in cases.items():
+        k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain, 20)
+        times[name], timed_by[name] = (k_ms, p_ms), (k_by, p_by)
+        bounds[name] = bound(name, BATCH_B * BATCH_N, 4, 2, m)
+
+
+def phase_batched_generic_kernels() -> dict:
+    """K9 b, K11 b and K12 b (m = 6 and 80) in the three dtype pairs at B =
+    1024 x n = 2^14 (m = 80 at ``GENERIC_M80_B``), a third of the instances
+    frozen, against their plain versions at the kernel tolerances
+    (``TOL``) and, on instances 0, B/2 - 1 and B - 1, against the solo K9,
+    K11 and K12: the points, pg and ring rows bit for bit, K12 b's sums
+    within the sum tolerance; the registers of every K12 b instantiation
+    (a spill fails).  Each form timed at f32/bf16 with every instance live,
+    beside its plain version and its bound (``_time_generic``)."""
+    errs, solo = {}, {}
+    times, timed_by, bounds = {}, {}, {}
+    for vd, hd in DTYPES:
+        a = batched_generic_inputs(SEED + 18, vd, hd, M, BATCH_B)
+        _check_k9b_k11b(a, vd, errs, solo)
+        _check_k12b(a, vd, M, errs, solo)
+        if hd == torch.bfloat16:
+            _time_generic(a, M, times, timed_by, bounds)
+        del a
+        torch.cuda.empty_cache()
+        a = batched_generic_inputs(SEED + 19, vd, hd, DEEP_M, GENERIC_M80_B[(vd, hd)])
+        _check_k12b(a, vd, DEEP_M, errs, solo)
+        if hd == torch.bfloat16:
+            _time_generic(a, DEEP_M, times, timed_by, bounds)
+        del a
+        torch.cuda.empty_cache()
+    forms = [f for f in pair_gram_forms() if f["kernel"] == "K12b"]
+    emit(phase="batched_generic_compiled", forms=forms)
+    if len(forms) != K12B_FORMS or any("n_regs" not in f or "spill_stores" not in f
+                                       for f in forms):
+        raise AssertionError(f"the build log shows {len(forms)} of {K12B_FORMS} K12 b "
+                             f"instantiations")
+    if any(f["spill_stores"] or f["spill_loads"] for f in forms):
+        raise AssertionError(f"K12 b instantiations spill registers: {forms}")
+    errs = {name: (max(e[0] for e in v), max(e[1] for e in v)) for name, v in errs.items()}
+    emit(phase="batched_generic_kernels", B=BATCH_B, n=BATCH_N, m=list(GENERIC_DEPTHS),
+         m80_B={"/".join(str(t).removeprefix("torch.") for t in k): v
+                for k, v in GENERIC_M80_B.items()},
+         max_abs_err={n_: e[0] for n_, e in errs.items()},
+         max_normwise_err={n_: e[1] for n_, e in errs.items()},
+         tol=dict(TOL={f"{str(k[0]).removeprefix('torch.')} {k[1]}": v for k, v in TOL.items()},
+                  rings="bit-exact", frozen="bit-exact",
+                  vs_solo_points_pg_rings="bit-exact", vs_solo_sums="sum tolerance"),
+         vs_solo=solo,
+         device_ms={n_: {"kernel": t[0], "plain": t[1], "bound": bounds[n_][0]}
+                    for n_, t in times.items()},
+         timed_by={n_: {"kernel": t[0], "plain": t[1]} for n_, t in timed_by.items()})
+    return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
+
+
+#: the batched generic main paths: a hook-free Rosenbrock (the plain
+#: evaluation of ``rosenbrock``, vmapped) at the batched main path's
+#: widths and starts (1024 x 2^14, f32, m = 6, bf16 ring), More-Thuente,
+#: epsilon 0, 20 iterations; capped, uncapped and damped capped
+BATCHED_GENERIC_PARAMS = BATCHED_PARAMS.replace(max_iterations=21)
+BATCHED_GENERIC_RUNS = {
+    "capped": BATCHED_GENERIC_PARAMS,
+    "uncapped": BATCHED_GENERIC_PARAMS.replace(constrain_step_size=False),
+    "damped": BATCHED_GENERIC_PARAMS.replace(damping=True),
+}
+#: and under OWL-QN (c = 1 on [0, n - 1), Armijo); ``m80`` (5 iterations)
+#: gives K12 b's launches at m = 80
+BATCHED_GENERIC_OWLQN_PARAMS = BATCHED_GENERIC_PARAMS.replace(
+    orthantwise=Orthantwise(1.0, 0, BATCH_N - 1),
+).replace_ls(algorithm=LineSearchAlgorithm.BacktrackingArmijo)
+BATCHED_GENERIC_OWLQN_RUNS = {
+    "capped": BATCHED_GENERIC_OWLQN_PARAMS,
+    "uncapped": BATCHED_GENERIC_OWLQN_PARAMS.replace(constrain_step_size=False),
+    "damped": BATCHED_GENERIC_OWLQN_PARAMS.replace(damping=True),
+    "m80": BATCHED_GENERIC_OWLQN_PARAMS.replace(m=DEEP_M, max_iterations=6),
+}
+
+
+def generic_objective():
+    """The Rosenbrock objective without any kernel hook: its plain torch
+    evaluation, which the batched runner vmaps (a generic objective)."""
+    return rosenbrock._plain_value_and_grad
+
+
+def _generic_run(name: str, params: LbfgsParams, x0b: torch.Tensor, fn, runs: int) -> tuple:
+    """One warm and ``runs`` timed ``minimize_batched`` on the generic
+    objective ``fn``, the counts reset before each; returns (state, walls
+    in seconds, launches, plain calls, host reads, loop iterations, search
+    trips) of the last run.  Every fx finite, the run on the card."""
+    minimize_batched(params, x0b, fn)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(runs):
+        reset_counts()
+        out = []
+        walls.append(profiling.timed(
+            lambda: out.append(minimize_batched(params, x0b, fn, return_state=True)), warmup=0))
+    st = out[0]
+    lc, pc, reads = launches(), plain_calls(), to_host.reads
+    iters = int(st.k.max()) - 1
+    if not np.isfinite(st.fx).all():
+        raise AssertionError(f"{name}: {int((~np.isfinite(st.fx)).sum())} instances end "
+                             f"with a non-finite fx")
+    if st.x.device.type != "cuda":
+        raise AssertionError(f"{name}: the run left the card")
+    # the init's read, one per search trip, one per iteration
+    return st, walls, lc, pc, reads, iters, reads - 1 - iters
+
+
+def _generic_phase(phase: str, runs: dict, expect) -> dict:
+    """Each of ``runs`` through ``_generic_run`` from ``batched_x0`` (two
+    timed runs, one where the label is m80), its launches held to
+    ``expect(label, iters, trips)`` and nothing else launched, no plain
+    version; its line (``_batched_report``; the capped run's with device ms
+    per iteration and its top device items), then instances 0-7 against
+    their solo generic runs after 8 iterations.  Returns each run's
+    launches."""
+    fn = generic_objective()
+    x0b = batched_x0(BATCH_B, BATCH_N)
+    lc_all = {}
+    for label, params in runs.items():
+        name = f"{phase}_{label}"
+        st, walls, lc, pc, reads, iters, trips = _generic_run(
+            name, params, x0b, fn, 1 if label == "m80" else 2)
+        _expect(name, lc, pc, **expect(label, iters, trips))
+        prof = _batched_profile(params, x0b, fn, top=6) if label == "capped" else {}
+        _batched_report(name, st, walls, lc, reads, iters, ("K3b_combine_batched",)
+                        if params.orthantwise is None else BATCHED_GENERIC_OWLQN_PATH,
+                        m=params.m, probes_per_iter=trips / iters, **prof)
+        lc_all[label] = lc
+        del st
+        if label != "m80":
+            emit(phase=f"{name}_vs_solo", iters=8, fx_tol=FUSION_TOL_8,
+                 instances=_vs_solo_8(name, params, x0b, fn))
+        torch.cuda.empty_cache()
+    del x0b
+    torch.cuda.empty_cache()
+    return lc_all
+
+
+def phase_batched_generic_main_path() -> dict:
+    """``minimize_batched`` on the hook-free Rosenbrock
+    (``BATCHED_GENERIC_RUNS``): every trip materializes the trials in torch
+    and evaluates the batch with torch.func.vmap, so the run launches K3 b
+    once per iteration and no other kernel of the table, no probe kernel
+    and no plain version; capped, uncapped (K3 b there too: a generic
+    objective has no fusion) and damped capped (the composed damped pair,
+    then K3 b).  Instances 0-7 against their solo generic runs after 8
+    iterations.  Returns each run's launches."""
+    return _generic_phase("batched_generic_main_path", BATCHED_GENERIC_RUNS,
+                          lambda label, iters, trips: dict(K3b_combine_batched=iters))
+
+
+def phase_batched_generic_owlqn_main_path() -> dict:
+    """The hook-free Rosenbrock under OWL-QN (``BATCHED_GENERIC_OWLQN_RUNS``):
+    K11 b once at the init, K9 b per search trip, K10 b and K13 b per
+    iteration, K12 b per iteration undamped and never damped, nothing else
+    and no plain version; capped, uncapped, damped capped, and m = 80 for
+    K12 b's launches at that depth.  Instances 0-7 against their solo
+    generic runs.  Returns each run's launches."""
+    def expect(label, iters, trips):
+        out = dict(K11b_pseudo_gradient_batched=1, K9b_owlqn_trial_step_batched=trips,
+                   K10b_pseudo_gradient_norm_batched=iters, K13b_combine_ow_batched=iters)
+        if label != "damped":
+            out["K12b_pair_gram_xg_batched"] = iters
+        return out
+
+    return _generic_phase("batched_generic_owlqn_main_path", BATCHED_GENERIC_OWLQN_RUNS, expect)
+
+
+#: the batched Poisson regression: instances of the Poisson main path's
+#: fit over one 2048 x 2^20 float32 X, instance 0 from beta0 = 0 and the
+#: others from seeded N(0, 1e-3) offsets, 20 iterations
+BATCHED_POISSON_B = 16
+BATCHED_POISSON_ITERS = 20
+
+
+def phase_batched_poisson(data: dict) -> dict:
+    """The full-width path: the L1 Poisson regression batched at
+    ``bench_logistic.py``'s at-scale width (2048 x 2^20, X float32, the X
+    of the Poisson main path, freed here), c = 1 on [1, n), m = 6, bf16
+    ring, Armijo, epsilon 0, the step uncapped as the solo Poisson main
+    path runs it (``poisson_params``), B = 16, 20 iterations: K11 b once,
+    K9 b per trip, K10 b, K12 b and K13 b per iteration, nothing else and
+    no plain version (the objective's two products with X are torch
+    GEMMs under the vmap); every fx finite and 0 < nnz < n - 1 per
+    instance.  Prints device and wall ms per iteration, evaluations per
+    iteration and instance-iterations/s.  Then instance 0 against the solo
+    Poisson run after 8 iterations: the same iterations and evaluations, fx
+    rel ``FUSION_TOL_8``.  Returns the run's launches."""
+    X, y, obj = data.pop("X"), data.pop("y"), data.pop("obj")
+    n = POISSON_NCOL
+    rng = np.random.RandomState(0)
+    x0b = torch.zeros(BATCHED_POISSON_B, n, device="cuda")
+    x0b[1:] = torch.from_numpy(1e-3 * rng.randn(BATCHED_POISSON_B - 1, n).astype(np.float32))
+    params = poisson_params(False, BATCHED_POISSON_ITERS)
+    minimize_batched(poisson_params(False, 2), x0b, obj)  # warm
+    reset_counts()
+    out = []
+    dt = profiling.timed(lambda: out.append(minimize_batched(params, x0b, obj,
+                                                             return_state=True)), warmup=0)
+    st = out[0]
+    lc, pc, reads = launches(), plain_calls(), to_host.reads
+    iters = int(st.k.max()) - 1
+    trips = reads - 1 - iters
+    _expect("batched Poisson", lc, pc, K11b_pseudo_gradient_batched=1,
+            K9b_owlqn_trial_step_batched=trips, K10b_pseudo_gradient_norm_batched=iters,
+            K12b_pair_gram_xg_batched=iters, K13b_combine_ow_batched=iters)
+    nnz = (st.x[:, 1:] != 0).sum(dim=1).cpu().numpy()
+    if not (np.isfinite(st.fx).all() and np.all((0 < nnz) & (nnz < n - 1))):
+        raise AssertionError(f"batched Poisson: fx {st.fx}, nonzero coefficients {nnz}")
+    prof = _batched_profile(params, x0b, obj, top=6)
+    inst_iters = int((st.k - 1).sum())
+    evals = st.neval - 1
+    # instance 0 against the solo Poisson run
+    p8 = poisson_params(False, 8)
+    st8 = minimize_batched(p8, x0b, obj, return_state=True)
+    so = minimize_jit(p8, x0b[0].clone(), obj, return_state=True)
+    rel = abs(float(st8.fx[0]) / float(so.prob.fx) - 1)
+    if (so.k, so.prob.neval) != (int(st8.k[0]), int(st8.neval[0])) or not rel <= FUSION_TOL_8:
+        raise AssertionError(f"batched Poisson instance 0 against its solo run after 8 "
+                             f"iterations: k/neval {(int(st8.k[0]), int(st8.neval[0]))} vs "
+                             f"{(so.k, so.prob.neval)}, rel fx {rel:.3e}")
+    emit(phase="batched_poisson", B=BATCHED_POISSON_B, nrow=POISSON_NROW, ncol=n, iters=iters,
+         instance_iters=inst_iters, seconds=dt, instance_iters_per_s=inst_iters / dt,
+         wall_ms_per_iter=1e3 * dt / iters, **prof, syncs_per_iter=reads / iters,
+         trips_per_iter=trips / iters, evals_per_iter=float(evals.mean()) / iters,
+         evals_per_instance=evals.tolist(), status={int(c): int(v) for c, v in zip(
+             *np.unique(st.status, return_counts=True))},
+         fx=st.fx.tolist(), nnz=nnz.tolist(), launches=lc,
+         vs_solo=dict(iters=8, k=so.k, neval=so.prob.neval, rel_fx=rel, fx_tol=FUSION_TOL_8))
+    del st, st8, so, x0b, X, y, obj
+    torch.cuda.empty_cache()
+    return lc
+
 
 
 # ---------------------------------------------------------------------------
@@ -5674,7 +6122,8 @@ def main() -> None:
     lc_k5 = run(phase_k5_route)
     lc_k12 = run(phase_k12_route)
     run(phase_wide_kernels)
-    lc_poisson, poisson_out = run(phase_poisson_main_path)
+    lc_poisson, poisson_out, poisson_data = run(phase_poisson_main_path)
+    run(phase_batched_poisson, poisson_data)
     run(phase_poisson_bf16_main_path, poisson_out)
     run(phase_poisson_f64_vs_cpu)
     run(phase_f32_floor)
@@ -5709,6 +6158,9 @@ def main() -> None:
         "capped": batched_out, "owlqn_capped": batched_ow_out,
         "uncapped": bu_out["literal"]["fused"], "owlqn_uncapped": bowu_out["fused"]})
     lc_b80 = run(phase_batched_m80)
+    batched_gen = run(phase_batched_generic_kernels)
+    run(phase_batched_generic_main_path)
+    lc_bgow = run(phase_batched_generic_owlqn_main_path)
     run(phase_sharded_world1)
     run(phase_sharded_two_rank, {"main_path": main_out, "owlqn_main_path": ow_out,
                                  "damped_main_path": d_out})
@@ -5718,6 +6170,7 @@ def main() -> None:
         k[key].update(batched_ow[key])
         k[key].update(batched_fu[key])
         k[key].update(batched_dm[key])
+        k[key].update(batched_gen[key])
     lc_cal = run(phase_launch_overhead, {
         name: (params, fused, out["ms_per_iter"], out["syncs_per_iter"])
         for name, params, fused, out in (
@@ -5762,6 +6215,12 @@ def main() -> None:
               ("damped", "K6b_combine_fix_batched", ""),
               ("damped_uncapped", "K15b_combine_probe_batched_fix", "_m80"),
               ("owlqn_damped", "K14b_owlqn_trial_pair_gram_batched_gp", "_m80"))},
+          # the generic objectives' forms from the batched generic OWL-QN
+          # main path (capped), K12 b at m = 80 from its m80 run
+          **{name: lc_bgow["capped"][name] for name in (
+              "K9b_owlqn_trial_step_batched", "K11b_pseudo_gradient_batched",
+              "K12b_pair_gram_xg_batched")},
+          "K12b_pair_gram_xg_batched_m80": lc_bgow["m80"]["K12b_pair_gram_xg_batched"],
           "K17_axpy_dot": lc_main["K17_axpy_dot"], **lc_cal}
     # library_ms: one PyTorch call computing the same function, where one
     # exists (only the calibration kernel's o = x + 1)

@@ -98,7 +98,7 @@ native backend, the batched runner and checkpoints raise
 ``NotImplementedError``.
 
 Scenario batches (``Lbfgs.minimize_batched``, ``batched``): B independent
-instances of one factory objective as a [B, n] tensor, advanced together
+instances of one objective as a [B, n] tensor, advanced together
 with one batched launch per pass (K2 b, K4 b, K3 b; under OWL-QN K8 b,
 K14 b, K13 b and K10 b at the init; with the step uncapped the
 combine+probe fusions K15 b and K16 b in place of K3 b and K13 b; damped,
@@ -116,9 +116,21 @@ OWL-QN with backtracking (More-Thuente routed to it), the step capped or
 not, with the literal or the adaptive entry step, at any history depth
 (above ``ops.factory.MAX_M`` ring rows the deep forms of K4 b, K14 b,
 K15 b and K16 b), with Powell damping (``damping_fixed`` too) and in the
-gradient-only mode; the wide objective scalar, the scan two-loop, a
-float16 history, the speculative search and generic objectives raise
-``NotImplementedError`` there, with OWL-QN and without, damped or not.
+gradient-only mode, on factory objectives and on generic ones.  A
+generic objective (value-and-grad or scalar, e.g. the Poisson
+regression) is evaluated over the batch by ``torch.func.vmap``: each
+trip materializes the trial points (K9 b under OWL-QN), each iteration
+takes K12 b (under OWL-QN) or a torch pass for the pair and K3 b or K13 b
+for the combine, and the OWL-QN init K11 b::
+
+    out = lbfgs().with_orthantwise(1.0, 1, ncol).minimize_batched(
+        torch.zeros(16, ncol, device="cuda"), logistic.make_objective(X, y))
+
+A mutating closure ``f(x, g)`` and an objective ``torch.func.vmap``
+cannot trace raise ``ValueError``, as the JAX package's vmap refuses
+them.  The wide objective scalar, the scan two-loop, a float16 history
+and the speculative search raise ``NotImplementedError`` there, with
+OWL-QN and without, damped or not.
 """
 
 from __future__ import annotations

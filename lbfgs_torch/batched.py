@@ -69,14 +69,36 @@ reference's debug traces), and no per-instance count of them is kept, as
 the JAX batched state keeps none.  The gradient-only mode's literal exit
 runs in ``_batched_search``.
 
-This slice runs plain L-BFGS and OWL-QN on a factory objective
-(``ops.factory.make_fused_objective``) with More-Thuente (routed to
-backtracking under OWL-QN, as ``linesearch.find`` routes it) or any of
-the three backtracking searches, the step capped or not, damped or not,
-at any history depth (above ``factory.MAX_M`` ring rows the deep forms
-of K4 b, K14 b, K15 b and K16 b, and K3 b, K13 b and K6 b with their
-coefficients sized at launch); ``check_supported_batched`` raises
-``NotImplementedError`` for the other settings.
+A generic objective (one without the batched epilogue's hook, e.g. the
+Poisson regression of ``models.logistic``, or any user function) runs the
+JAX package's generic branch under its vmap instead: each trip
+materializes every running instance's trial point, xp + stp*d in torch
+(under OWL-QN K9 b, the orthant rebuilt from each instance's (xp, pg)),
+evaluates the batch with ``torch.func.vmap`` over the objective and reads
+the [B] (f + c*||x||_1, g.d); the trials stay in [B, n] buffers, and an
+accepted instance takes its last trial as its point and gradient.  Then
+the pair + Gram pass: K12 b under OWL-QN (after K10 b's new pg and
+||pg||^2), the torch pass over the stored pair on the plain branch
+(``fused.pair_gram_stored_batched``), and damped, plain or OWL-QN, the
+batched ``solver.update_pair_batched`` and that torch pass over the
+stored damped pair, as the JAX package composes it; "x not changed" is
+s.s == 0 per instance.  The combine is K3 b (K13 b) at the capped and
+the uncapped step alike (a generic objective carries no fusion), and the
+OWL-QN init takes pg from K11 b.  A value-and-grad objective and a scalar
+one (its gradient from ``torch.func.grad_and_value``) run; a mutating
+closure f(x, g) and an objective ``torch.func.vmap`` cannot trace raise
+``ValueError``, as the JAX runner cannot vmap their host callbacks
+(``batched_objective``).
+
+This slice runs plain L-BFGS and OWL-QN, on factory objectives
+(``ops.factory.make_fused_objective``) and generic ones, with More-Thuente
+(routed to backtracking under OWL-QN, as ``linesearch.find`` routes it)
+or any of the three backtracking searches, the step capped or not, damped
+or not, at any history depth (above ``factory.MAX_M`` ring rows the deep
+forms of K4 b, K14 b, K15 b and K16 b, and K3 b, K13 b and K6 b with their
+coefficients sized at launch; K12 b takes any depth);
+``check_supported_batched`` raises ``NotImplementedError`` for the other
+settings.
 """
 
 from __future__ import annotations
@@ -88,7 +110,7 @@ import numpy as np
 import torch
 
 from . import _batched_search, solver
-from .core import History, np_type, to_host_rows
+from .core import History, _required_positional, np_type, to_host_rows
 from .ops import factory, fused
 from .params import LbfgsParams
 from .status import Status
@@ -127,18 +149,68 @@ class BatchedState(NamedTuple):
     probe1: Optional[tuple] = None
 
 
+def generic(params: LbfgsParams, evaluate: Callable) -> bool:
+    """Whether the runner takes the generic branch for ``evaluate``: it
+    lacks the batched one-pass epilogue (K4 b, under OWL-QN K14 b) that
+    ``ops.factory.make_fused_objective`` attaches."""
+    epilogue = ("__lbfgs_owlqn_trial_pair_gram_batched__" if params.orthantwise is not None
+                else "__lbfgs_trial_pair_gram_batched__")
+    return getattr(evaluate, epilogue, None) is None
+
+
+def batched_objective(evaluate: Callable, x0_batch: torch.Tensor) -> Callable:
+    """The single-instance objective ``x -> (fx, g)`` that the runner
+    evaluates a batch with, under ``torch.func.vmap``: ``evaluate`` itself
+    when it is a value-and-grad objective, else its
+    ``torch.func.grad_and_value``.  As the JAX runner decides by the
+    objective's shape (``lbfgs_tpu/core.py:216-248``) and then vmaps it:
+
+      * a factory or marked objective (``__lbfgs_value_and_grad__``) is
+        taken as it is;
+      * a mutating closure ``f(x, g)`` raises ``ValueError``: the JAX
+        package bridges it with an ordered host callback, which its vmap
+        refuses;
+      * a one-argument objective is traced once over ``x0_batch[:1]``: a
+        tuple makes it value-and-grad, a scalar makes it scalar; if
+        ``torch.func.vmap`` cannot trace it (a host function: the JAX
+        package's host-callback fallback, which its vmap refuses), it
+        raises ``ValueError`` too."""
+    if getattr(evaluate, "__lbfgs_value_and_grad__", False):
+        return evaluate
+    name = getattr(evaluate, "__qualname__", repr(evaluate))
+    if _required_positional(evaluate) >= 2:
+        raise ValueError(
+            f"minimize_batched: the mutating closure f(x, g) {name} cannot run batched (the "
+            f"JAX package bridges it with an ordered io_callback, which jax.vmap refuses); "
+            f"pass a value-and-grad or a scalar objective")
+    try:
+        out = torch.func.vmap(evaluate)(x0_batch[:1])
+    except Exception as e:
+        raise ValueError(
+            f"minimize_batched: the objective {name} cannot be traced by torch.func.vmap (a "
+            f"host objective: the JAX package bridges it with an ordered io_callback, which "
+            f"jax.vmap refuses)") from e
+    if isinstance(out, (tuple, list)):
+        return evaluate
+
+    def value_and_grad(x):
+        g, fx = torch.func.grad_and_value(evaluate)(x)
+        return fx, g
+
+    value_and_grad.__lbfgs_value_and_grad__ = True
+    return value_and_grad
+
+
 def check_supported_batched(params: LbfgsParams, evaluate: Callable,
                             x0_batch: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` naming each setting the batched
     runner does not run yet, with plain L-BFGS and with OWL-QN, damped or
-    not: the wide objective scalar, the scan two-loop, a history the ring
-    kernels do not take (float16), the speculative search, objectives that
-    do not carry the batched kernels (generic ones), and a mesh
-    (``parallel``: batches are not sharded)."""
+    not, on factory and generic objectives: the wide objective scalar, the
+    scan two-loop, a history the ring kernels do not take (float16), the
+    speculative search, and a mesh (``parallel``: batches are not
+    sharded)."""
     hdtype = (getattr(torch, params.history_dtype) if params.history_dtype
               else x0_batch.dtype)
-    epilogue = ("__lbfgs_owlqn_trial_pair_gram_batched__" if params.orthantwise is not None
-                else "__lbfgs_trial_pair_gram_batched__")
     unsupported = [
         (fused.active_mesh() is not None, "a mesh (sharded batches are not ported)"),
         (params.fx_wide, "the wide objective scalar (fx_wide)"),
@@ -146,9 +218,6 @@ def check_supported_batched(params: LbfgsParams, evaluate: Callable,
         ((x0_batch.dtype, hdtype) not in fused.SUPPORTED,
          f"a {hdtype} history with {x0_batch.dtype} vectors"),
         (int(params.linesearch.speculative) > 1, "the speculative line search"),
-        (getattr(evaluate, epilogue, None) is None,
-         "objectives without the batched kernels (generic objectives: only "
-         "ops.factory.make_fused_objective's carry them)"),
     ]
     for refused, what in unsupported:
         if refused:
@@ -178,7 +247,10 @@ def init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) 
     initial step (``solver.init_state``), the batch evaluated at once by
     ``torch.func.vmap`` over the objective's own evaluation, as the JAX
     package vmaps its ``init_state`` (``lbfgs_tpu/batched.py:30-33``), and
-    read in one transfer."""
+    read in one transfer.  ``evaluate`` is a value-and-grad objective
+    (``batched_objective``).  Under OWL-QN a factory objective's pg and
+    ||pg||^2 come from K10 b, a generic one's pg from K11 b and ||pg||^2
+    from a row product (the solo generic init's K11 and dot)."""
     B, n = x0_batch.shape
     m = params.m
     f = np_type(x0_batch.dtype)
@@ -189,6 +261,9 @@ def init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) 
         return fx, g, torch.dot(g, g), torch.dot(xi, xi)
 
     fx_t, g, gg, xx = torch.func.vmap(one)(x)
+    # the kernels take contiguous rows (a vmapped product may hand back a
+    # transposed layout)
+    g = g.contiguous()
     fx_t = fx_t.to(x.dtype)
     pg = None
     if params.orthantwise is not None:
@@ -198,8 +273,12 @@ def init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) 
         lo, hi = ow.start_end(n)
         fx_t = fx_t + torch.abs(x[:, lo:hi]).sum(dim=1) * ow.c
         pg = torch.empty_like(x)
-        gg = evaluate.__lbfgs_pseudo_gradient_norm_batched__(
-            x, g, ow.c, lo, hi, torch.ones(B, dtype=torch.bool, device=x.device), pg)
+        every = torch.ones(B, dtype=torch.bool, device=x.device)
+        if generic(params, evaluate):
+            fused.pseudo_gradient_batched(x, g, ow.c, lo, hi, every, pg)
+            gg = fused.row_dot(pg, pg)
+        else:
+            gg = evaluate.__lbfgs_pseudo_gradient_norm_batched__(x, g, ow.c, lo, hi, every, pg)
     fx, gnorm2, xnorm2 = to_host_rows(fx_t, gg, xx)
     # step = initial_inverse_hessian / ||d||, and ||d|| = ||g|| (||pg||)
     step = f(params.initial_inverse_hessian) / np.sqrt(np.where(gnorm2 != 0.0, gnorm2, f(1.0)))
@@ -223,7 +302,7 @@ def init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) 
     if _fusion(params, evaluate, x, hist.s) is not None:
         probe1 = (fx.copy(), -gnorm2, np.full(B, f(-1.0)))
     return BatchedState(
-        x=x, gx=g.contiguous(), d=(-(g if pg is None else pg)).contiguous(), hist=hist, fx=fx,
+        x=x, gx=g, d=(-(g if pg is None else pg)).contiguous(), hist=hist, fx=fx,
         gnorm2=gnorm2, xnorm2=xnorm2, neval=np.ones(B, np.int64), k=ints(), end=ints(),
         step=step, step_ls=step.copy(), ncall=ints(), status=ints(), ls_status=ints(),
         # d = -g (-pg), so dginit = -||g||^2 exactly (IEEE sign symmetry)
@@ -298,7 +377,9 @@ def _two_loop(hist: History, gamma: torch.Tensor, bound: int, end: int, Sd_ring:
 
 def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
               live: np.ndarray) -> BatchedState:
-    """One iteration (``solver.propagate_hot``) of every live instance."""
+    """One iteration (``solver.propagate_hot``) of every live instance:
+    through the objective's batched kernels, or on the generic branch (see
+    the module docstring) when it has none."""
     k = st.k + live
     if len(set(k[live].tolist())) != 1 or len(set(st.end[live].tolist())) != 1:
         raise ValueError("the running instances must share their iteration count and ring row")
@@ -310,16 +391,37 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
     x, g, d, hist, pg = st.x, st.gx, st.d, st.hist, st.pg
     ow = params.orthantwise
     damped = params.damping
+    gen = generic(params, evaluate)
     if ow is not None:
         c, (lo, hi) = ow.c, ow.start_end(x.shape[1])
 
-    def probe(stp, run):
-        stp, run = _to_device(stp, x), _to_device(run, x)
-        if ow is None:
-            return to_host_rows(*evaluate.__lbfgs_probe_batched__(x, d, stp, run))
-        # the projected probe, its orthant rebuilt from (x, pg)
-        return to_host_rows(*evaluate.__lbfgs_owlqn_probe_pg_batched__(x, d, pg, stp, c, lo,
-                                                                      hi, run))
+    if gen:
+        # the trial buffers: each instance's last evaluated trial point and
+        # gradient, written by the trips it runs (the others keep theirs)
+        xt, gt = x.clone(), g.clone()
+
+        def probe(stp, run):
+            stp, run = _to_device(stp, x), _to_device(run, x)
+            if ow is None:
+                xt.copy_(torch.where(run[:, None], x + stp[:, None] * d, xt))
+            else:
+                # K9 b: the projected points, the orthant from (x, pg)
+                fused.owlqn_trial_step_batched(x, d, pg, stp, lo, hi, run, xt)
+            # the whole batch evaluated at once; only the running rows kept
+            ft, g_all = torch.func.vmap(evaluate)(xt)
+            gt.copy_(torch.where(run[:, None], g_all, gt))
+            ft = ft.to(x.dtype)
+            if ow is not None:
+                ft = ft + torch.abs(xt[:, lo:hi]).sum(dim=1) * c
+            return to_host_rows(ft, fused.row_dot(g_all, d))
+    else:
+        def probe(stp, run):
+            stp, run = _to_device(stp, x), _to_device(run, x)
+            if ow is None:
+                return to_host_rows(*evaluate.__lbfgs_probe_batched__(x, d, stp, run))
+            # the projected probe, its orthant rebuilt from (x, pg)
+            return to_host_rows(*evaluate.__lbfgs_owlqn_probe_pg_batched__(x, d, pg, stp, c, lo,
+                                                                          hi, run))
 
     ls = _batched_search.find(params.linesearch, live, st.fx, st.dg0, st.step, st.neval,
                               probe, ow=ow is not None, probe1=st.probe1)
@@ -340,43 +442,87 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
     probe1 = None if fusion is None else st.probe1
     if ok.any():
         okd = _to_device(ok, x)
-        stp = _to_device(ls.step_eval, x)
-        # the epilogue: x, g (and pg) and ring row `end` in place, the 6m
-        # products against d0 = -g (-pg); damped, the 8m with the . gp
-        # column (under OWL-QN also gp.gp and gp.pg_new)
-        if ow is None:
-            _gd, gg, xx, changed, SP, YP = evaluate.__lbfgs_trial_pair_gram_batched__(
-                x, d, g, stp, hist.s, hist.y, end, okd, with_gp=damped)
-        else:
-            xx, gg, changed, SP, YP, *gp_scalars = \
-                evaluate.__lbfgs_owlqn_trial_pair_gram_batched__(
-                    x, d, g, pg, stp, c, lo, hi, hist.s, hist.y, end, okd, with_gp=damped)
-        ys_new, yy_new = SP[:, end, 0], YP[:, end, 0]
-        # S . y_new, Y . y_new, Y . s_new and Y . d0
-        u, v, w, Yd_ring = SP[:, :, 0], YP[:, :, 0], YP[:, :, 1], YP[:, :, 2]
-        case = row_fix = None
-        if damped:
-            # the damped pair's Gram quantities per instance
-            # (solver.propagate_core's reconstructions): the plain one with
-            # the search's evaluated step and the carried ||gp||^2, gp.d0 =
-            # -(y.gp + gp.gp); the OWL-QN one with the reported step and
-            # K14 b's own gp.gp and gp.pg_new, gp.d0 = -gp.pg_new
+        case = row_fix = changed = None
+        if gen:
+            # the accepted instances' last trials; a failed or frozen
+            # instance keeps its point and gradient, and xp, gp stay for the
+            # pair
+            xp, gp = x, g
+            x = torch.where(okd[:, None], xt, xp)
+            g = torch.where(okd[:, None], gt, gp)
+            del xt, gt
+            xx = fused.row_dot(x, x)
             if ow is None:
-                gpgp = _to_device(st.gnorm2, x)
-                u, v, w, Yd_ring, a, b, case = solver._damped_gram(
-                    params, SP, YP, end, stp, gpgp, -(YP[:, end, 3] + gpgp))
-                # the damped row, persisted by the combine (K6 b, or K15 b's
-                # fix form) from its (ca, cb)
-                row_fix = (a - b, b)
+                gg = fused.row_dot(g, g)
             else:
-                gpgp, gppg = gp_scalars
-                u, v, w, Yd_ring, a, b, case = solver._damped_gram(
-                    params, SP, YP, end, _to_device(step_ls, x), gpgp, -gppg)
-                # the damped row from the new gradient, blended in torch
-                # (solver._blend_row per instance), of the accepted instances
-                y_end = hist.y[:, end]
-                blend = ((a - b)[:, None] * y_end.to(x.dtype) + b[:, None] * g).to(y_end.dtype)
-                hist.y[:, end] = torch.where(okd[:, None], blend, y_end)
+                # K10 b: the new pg (over the old, of the accepted only) and
+                # ||pg||^2
+                gg = fused.pseudo_gradient_norm_batched(x, g, c, lo, hi, okd, pg)
+            g0 = g if ow is None else pg
+            if damped:
+                # the composed damped pair (solver.update_pair per instance)
+                # with the reported step, stored, then the products of the
+                # STORED pair; ys and gamma pre-damping, "x/g not changed"
+                # from its own s.s and y.y
+                pu = solver.update_pair_batched(params, x, xp, g, gp, _to_device(step_ls, x))
+                SP, YP = fused.pair_gram_stored_batched(pu.s, pu.y, g0, hist.s, hist.y, end,
+                                                        okd)
+                ys_new, yy_new, case, ss = pu.ys, pu.yy, pu.case, pu.ss
+            else:
+                if ow is None:
+                    # the JAX package's jnp pass over the stored pair
+                    SP, YP = fused.pair_gram_stored_batched(x - xp, g - gp, g, hist.s, hist.y,
+                                                            end, okd)
+                else:
+                    # K12 b: the pair of the projected step, against -pg
+                    SP, YP = fused.pair_gram_xg_batched(x, xp, g, gp, pg, hist.s, hist.y, end,
+                                                        okd)
+                ys_new, yy_new, ss = SP[:, end, 0], YP[:, end, 0], SP[:, end, 1]
+            # the reference's s == 0 test (src/lbfgs.rs:646), per instance
+            changed = ss != 0.0
+            gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
+            u, v, w, Yd_ring = SP[:, :, 0], YP[:, :, 0], YP[:, :, 1], YP[:, :, 2]
+        else:
+            stp = _to_device(ls.step_eval, x)
+            # the epilogue: x, g (and pg) and ring row `end` in place, the 6m
+            # products against d0 = -g (-pg); damped, the 8m with the . gp
+            # column (under OWL-QN also gp.gp and gp.pg_new)
+            if ow is None:
+                _gd, gg, xx, changed, SP, YP = evaluate.__lbfgs_trial_pair_gram_batched__(
+                    x, d, g, stp, hist.s, hist.y, end, okd, with_gp=damped)
+            else:
+                xx, gg, changed, SP, YP, *gp_scalars = \
+                    evaluate.__lbfgs_owlqn_trial_pair_gram_batched__(
+                        x, d, g, pg, stp, c, lo, hi, hist.s, hist.y, end, okd, with_gp=damped)
+            ys_new, yy_new = SP[:, end, 0], YP[:, end, 0]
+            # gamma = ys/yy of the new pair, pre-damping (src/lbfgs.rs:653-656)
+            gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
+            # S . y_new, Y . y_new, Y . s_new and Y . d0
+            u, v, w, Yd_ring = SP[:, :, 0], YP[:, :, 0], YP[:, :, 1], YP[:, :, 2]
+            if damped:
+                # the damped pair's Gram quantities per instance
+                # (solver.propagate_core's reconstructions): the plain one
+                # with the search's evaluated step and the carried ||gp||^2,
+                # gp.d0 = -(y.gp + gp.gp); the OWL-QN one with the reported
+                # step and K14 b's own gp.gp and gp.pg_new, gp.d0 = -gp.pg_new
+                if ow is None:
+                    gpgp = _to_device(st.gnorm2, x)
+                    u, v, w, Yd_ring, a, b, case = solver._damped_gram(
+                        params, SP, YP, end, stp, gpgp, -(YP[:, end, 3] + gpgp))
+                    # the damped row, persisted by the combine (K6 b, or K15
+                    # b's fix form) from its (ca, cb)
+                    row_fix = (a - b, b)
+                else:
+                    gpgp, gppg = gp_scalars
+                    u, v, w, Yd_ring, a, b, case = solver._damped_gram(
+                        params, SP, YP, end, _to_device(step_ls, x), gpgp, -gppg)
+                    # the damped row from the new gradient, blended in torch
+                    # (solver._blend_row per instance), of the accepted
+                    # instances
+                    y_end = hist.y[:, end]
+                    blend = ((a - b)[:, None] * y_end.to(x.dtype) + b[:, None] * g).to(
+                        y_end.dtype)
+                    hist.y[:, end] = torch.where(okd[:, None], blend, y_end)
         sy = hist.sy.clone()
         sy[:, :, end] = u
         sy[:, end, :] = w
@@ -385,8 +531,6 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
         yy[:, end, :] = v
         ys = hist.ys.clone()
         ys[:, end] = ys_new
-        # gamma = ys/yy of the new pair, pre-damping (src/lbfgs.rs:653-656)
-        gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
         new = hist._replace(ys=ys, sy=sy, yy=yy)
         coef, alpha = _two_loop(new, gamma, bound, end, SP[:, :, 2], Yd_ring)
         if row_fix is not None:
@@ -406,13 +550,15 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
         if fusion is None:
             fused_out = ()
             if ow is not None:
-                dd, rc2, rd = evaluate.__lbfgs_combine_ow_batched__(pg, hist.s, hist.y, coef,
-                                                                   okd, d, lo, hi)
+                dd, rc2, rd = getattr(evaluate, "__lbfgs_combine_ow_batched__",
+                                      fused.combine_ow_batched)(pg, hist.s, hist.y, coef, okd,
+                                                                d, lo, hi)
             elif row_fix is not None:
                 dd, rd = evaluate.__lbfgs_combine_fix_batched__(g, hist.s, hist.y, coef, okd, d,
                                                                end)
             else:
-                dd, rd = evaluate.__lbfgs_combine_batched__(g, hist.s, hist.y, coef, okd, d)
+                dd, rd = getattr(evaluate, "__lbfgs_combine_batched__",
+                                 fused.combine_batched)(g, hist.s, hist.y, coef, okd, d)
         else:
             stp1 = _to_device(stp_pred, x)
             if ow is None:
@@ -425,8 +571,8 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
         keep = lambda a, b: torch.where(okd.view(-1, *([1] * (a.ndim - 1))), a, b)
         hist = History(s=hist.s, y=hist.y, ys=keep(ys, hist.ys), alpha=keep(alpha, hist.alpha),
                        sy=keep(sy, hist.sy), yy=keep(yy, hist.yy))
-        # the one read of the iteration's epilogue and combine, the
-        # fusion's probe and the damping cases included
+        # the one read of the iteration's epilogue (or pair update) and
+        # combine, the fusion's probe and the damping cases included
         gg_h, xx_h, yy_h, dd_h, rd_h, changed_h, *rest = to_host_rows(
             gg, xx, yy_new, dd, rd, changed, *extra, *fused_out)
         rc2_h = rest[:1] if ow is not None else ()
@@ -464,10 +610,10 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
                       int(Status.ERR_NEGATIVE_STEP), status)
     at = lambda new, old: np.where(live, new, old)
     st = st._replace(
-        hist=hist, fx=at(ls.fx, st.fx), gnorm2=gnorm2, xnorm2=xnorm2, neval=at(ls.neval, st.neval),
-        k=k, end=at((st.end + 1) % m, st.end), step=step, step_ls=at(step_ls, st.step_ls),
-        ncall=at(ls.ncall, st.ncall), status=status, ls_status=at(ls.status, st.ls_status),
-        dg0=dg0, probe1=probe1,
+        x=x, gx=g, hist=hist, fx=at(ls.fx, st.fx), gnorm2=gnorm2, xnorm2=xnorm2,
+        neval=at(ls.neval, st.neval), k=k, end=at((st.end + 1) % m, st.end), step=step,
+        step_ls=at(step_ls, st.step_ls), ncall=at(ls.ncall, st.ncall), status=status,
+        ls_status=at(ls.status, st.ls_status), dg0=dg0, probe1=probe1,
     )
     return fx_delta_step(params, st, live)
 
@@ -478,7 +624,9 @@ def run(params: LbfgsParams, evaluate: Callable, st: BatchedState) -> BatchedSta
     instance still RUNNING.  A step of an instance at k == 0 is the k == 1
     bookkeeping (``src/lbfgs.rs:504-510``: it reports the initial point);
     the others propagate together, and must share their iteration count
-    and ring row (as every run from ``init_state`` does)."""
+    and ring row (as every run from ``init_state`` does).
+    ``evaluate`` is a value-and-grad objective (``batched_objective``).
+    """
 
     def running(s: BatchedState) -> np.ndarray:
         return (s.status == Status.RUNNING) & (stop_status(params, s) == Status.RUNNING)
@@ -499,9 +647,11 @@ def minimize_batched(params: LbfgsParams, x0_batch: torch.Tensor, evaluate: Call
     """Minimize a [B, n] batch of independent instances of one objective
     (``lbfgs_tpu.batched.minimize_batched``).
 
-    ``evaluate`` is the single-instance objective, a factory objective
-    (``ops.factory.make_fused_objective``).  The run takes place on
-    x0_batch's device.  Returns the JAX package's dict of per-instance
+    ``evaluate`` is the single-instance objective: a factory objective
+    (``ops.factory.make_fused_objective``), whose batched kernels the run
+    takes, or a generic one, value-and-grad or scalar, vmapped
+    (``batched_objective``; a mutating closure raises ``ValueError``).
+    The run takes place on x0_batch's device.  Returns the JAX package's dict of per-instance
     results, tensors on that device: fx, xnorm, gnorm ([B], the vectors'
     dtype; gnorm is ||pg|| under OWL-QN, as the JAX package's ``gnorm_of``),
     neval, niter, status ([B] int32) and x ([B, n]); or with
@@ -517,6 +667,7 @@ def minimize_batched(params: LbfgsParams, x0_batch: torch.Tensor, evaluate: Call
     if params.linesearch.warn_ascent:
         params = params.replace_ls(warn_ascent=False)
     check_supported_batched(params, evaluate, x0_batch)
+    evaluate = batched_objective(evaluate, x0_batch)
     st = run(params, evaluate, init_state(params, evaluate, x0_batch))
     if return_state:
         return st

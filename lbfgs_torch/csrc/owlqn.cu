@@ -3,7 +3,9 @@
 //   K10    pseudo_grad_kernel<T, true, false>  pg and per-block partials of pg.pg
 //   K11    pseudo_grad_kernel<T, false, false> pg alone
 //   K10 b  pseudo_grad_kernel<T, true, true>   K10 per instance of a batch
+//   K11 b  pseudo_grad_kernel<T, false, true>  K11 per instance of a batch
 //   K9     trial_step_kernel<T>                the projected trial point
+//   K9 b   trial_step_batched_kernel<T>        K9 per instance of a batch
 //
 // K10 and K11 replace lbfgs_tpu/ops/fused.py:_pseudo_grad_norm_kernel and
 // :_pseudo_grad_kernel (owlqn_pseudo_gradient_norm_pallas and
@@ -28,6 +30,10 @@
 // are solo K10's bit for bit.  The window is the same for every instance,
 // in its own indices.  A block whose instance is frozen (live[b] == 0)
 // returns before it loads or stores anything.  Bound: bytes, as K10.
+// K11 b is K10 b with the norm compiled out: it replaces
+// _pseudo_grad_kernel under the vmap (the generic objectives' init,
+// lbfgs_tpu/solver.py:1196-1197, and the runner's finalize,
+// lbfgs_tpu/batched.py:64-69), and an instance's pg is solo K11's.
 //
 // K9 replaces lbfgs_tpu/ops/fused.py:_trial_step_kernel
 // (owlqn_trial_step_pallas): x = xp + stp*d, then zero inside [lo, hi)
@@ -37,10 +43,21 @@
 // point is the plain version's bit for bit, and the one that the Triton
 // kernels K7, K8 and K14 (launched without contraction) project.
 //
+// K9 b replaces _trial_step_kernel under the vmap (each trial point of a
+// generic objective's batched OWL-QN search, lbfgs_tpu/linesearch.py:282):
+// K9 over [B, n] instances, blockIdx.y the instance, each with its own
+// step from a [B] array of the vectors' type.  It takes no orthant array:
+// as K8 b's pg form does, it rebuilds the search's orthant in registers
+// from (xp, pg), wp = signum(-pg) where xp == 0, else signum(xp)
+// (choose_orthant), which is what the solo search hands K9, so an
+// instance's point is solo K9's bit for bit, and the [B, n] orthant is
+// never written or read.  A frozen instance's block returns before it
+// loads or stores anything.
+//
 // What bounds them on the H100: bytes.  K10 and K11 read x and g and
 // write pg (12 bytes per element in f32), K9 reads xp, d and wp and writes
-// x (16 bytes), for a handful of compares and adds.  So each streams its
-// operands once, coalesced (thread t of a block touches element
+// x (16 bytes; K9 b reads pg in wp's place), for a handful of compares
+// and adds.  So each streams its operands once, coalesced (thread t of a block touches element
 // base + k*256 + t), and K10 takes the norm in the same pass instead of
 // re-reading pg.  The cross-block sum uses no atomics: each block writes
 // its partial and the caller adds the [blocks] partials in a fixed order,
@@ -89,7 +106,7 @@ pseudo_grad_kernel(const T* __restrict__ x, const T* __restrict__ g, T c, long l
     x += b * n;
     g += b * n;
     pg += b * n;
-    partials += b * gridDim.x;
+    if constexpr (kNorm) partials += b * gridDim.x;
   }
   const long long base = static_cast<long long>(blockIdx.x) * kBlockElems;
   T acc = T(0);
@@ -144,6 +161,37 @@ trial_step_kernel(const T* __restrict__ xp, const T* __restrict__ d, const T* __
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+trial_step_batched_kernel(const T* __restrict__ xp, const T* __restrict__ d,
+                          const T* __restrict__ pg, const T* __restrict__ stp, long long lo,
+                          long long hi, T* __restrict__ out, long long n,
+                          const unsigned char* __restrict__ live) {
+  // instance b's rows and its step
+  const long long b = blockIdx.y;
+  if (!live[b]) return;
+  const T s = stp[b];
+  xp += b * n;
+  d += b * n;
+  pg += b * n;
+  out += b * n;
+  const long long base = static_cast<long long>(blockIdx.x) * kBlockElems;
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const long long i = base + k * kThreads + threadIdx.x;
+    if (i < n) {
+      const T xpv = xp[i];
+      T xv = step_rn(xpv, s, d[i]);
+      if (i >= lo && i < hi) {
+        // the orthant of the search (choose_orthant), then K9's test
+        const T w = xpv == T(0) ? msign(-pg[i]) : msign(xpv);
+        if (msign(xv) != w) xv = T(0);
+      }
+      out[i] = xv;
+    }
+  }
+}
+
 unsigned grid(long long n) { return static_cast<unsigned>((n + kBlockElems - 1) / kBlockElems); }
 
 template <typename T, bool kNorm>
@@ -157,13 +205,13 @@ int launch_pseudo_grad(const void* x, const void* g, double c, long long lo, lon
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_pseudo_grad_norm_batched(const void* x, const void* g, double c, long long lo,
-                                    long long hi, const void* live, void* pg, void* partials,
-                                    long long n, int batch, void* stream) {
+template <typename T, bool kNorm>
+int launch_pseudo_grad_batched(const void* x, const void* g, double c, long long lo,
+                               long long hi, const void* live, void* pg, void* partials,
+                               long long n, int batch, void* stream) {
   if (n <= 0 || batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 blocks(grid(n), static_cast<unsigned>(batch));
-  pseudo_grad_kernel<T, true, true>
+  pseudo_grad_kernel<T, kNorm, true>
       <<<blocks, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T>(c), lo, hi,
           static_cast<T*>(pg), static_cast<T*>(partials), n,
@@ -178,6 +226,19 @@ int launch_trial_step(const void* xp, const void* d, const void* wp, double stp,
   trial_step_kernel<T><<<grid(n), kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(xp), static_cast<const T*>(d), static_cast<const T*>(wp),
       static_cast<T>(stp), lo, hi, static_cast<T*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_trial_step_batched(const void* xp, const void* d, const void* pg, const void* stp,
+                              long long lo, long long hi, const void* live, void* out,
+                              long long n, int batch, void* stream) {
+  if (n <= 0 || batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 blocks(grid(n), static_cast<unsigned>(batch));
+  trial_step_batched_kernel<T><<<blocks, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(xp), static_cast<const T*>(d), static_cast<const T*>(pg),
+      static_cast<const T*>(stp), lo, hi, static_cast<T*>(out), n,
+      static_cast<const unsigned char*>(live));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -205,15 +266,30 @@ int lbfgs_pseudo_grad_norm_f64(const void* x, const void* g, double c, long long
 int lbfgs_pseudo_grad_norm_batched_f32(const void* x, const void* g, double c, long long lo,
                                        long long hi, const void* live, void* pg,
                                        void* partials, long long n, int batch, void* stream) {
-  return launch_pseudo_grad_norm_batched<float>(x, g, c, lo, hi, live, pg, partials, n, batch,
-                                                stream);
+  return launch_pseudo_grad_batched<float, true>(x, g, c, lo, hi, live, pg, partials, n, batch,
+                                                 stream);
 }
 
 int lbfgs_pseudo_grad_norm_batched_f64(const void* x, const void* g, double c, long long lo,
                                        long long hi, const void* live, void* pg,
                                        void* partials, long long n, int batch, void* stream) {
-  return launch_pseudo_grad_norm_batched<double>(x, g, c, lo, hi, live, pg, partials, n,
-                                                 batch, stream);
+  return launch_pseudo_grad_batched<double, true>(x, g, c, lo, hi, live, pg, partials, n,
+                                                  batch, stream);
+}
+
+// K11 b: x, g, pg [batch, n]; live [batch]
+int lbfgs_pseudo_grad_batched_f32(const void* x, const void* g, double c, long long lo,
+                                  long long hi, const void* live, void* pg, long long n,
+                                  int batch, void* stream) {
+  return launch_pseudo_grad_batched<float, false>(x, g, c, lo, hi, live, pg, nullptr, n, batch,
+                                                  stream);
+}
+
+int lbfgs_pseudo_grad_batched_f64(const void* x, const void* g, double c, long long lo,
+                                  long long hi, const void* live, void* pg, long long n,
+                                  int batch, void* stream) {
+  return launch_pseudo_grad_batched<double, false>(x, g, c, lo, hi, live, pg, nullptr, n,
+                                                   batch, stream);
 }
 
 int lbfgs_pseudo_grad_f32(const void* x, const void* g, double c, long long lo, long long hi,
@@ -236,6 +312,22 @@ int lbfgs_owlqn_trial_step_f64(const void* xp, const void* d, const void* wp, do
                                long long lo, long long hi, void* out, long long n,
                                void* stream) {
   return launch_trial_step<double>(xp, d, wp, stp, lo, hi, out, n, stream);
+}
+
+// K9 b: xp, d, pg, out [batch, n]; stp [batch] of the vectors' type; live [batch]
+int lbfgs_owlqn_trial_step_batched_f32(const void* xp, const void* d, const void* pg,
+                                       const void* stp, long long lo, long long hi,
+                                       const void* live, void* out, long long n, int batch,
+                                       void* stream) {
+  return launch_trial_step_batched<float>(xp, d, pg, stp, lo, hi, live, out, n, batch, stream);
+}
+
+int lbfgs_owlqn_trial_step_batched_f64(const void* xp, const void* d, const void* pg,
+                                       const void* stp, long long lo, long long hi,
+                                       const void* live, void* out, long long n, int batch,
+                                       void* stream) {
+  return launch_trial_step_batched<double>(xp, d, pg, stp, lo, hi, live, out, n, batch,
+                                           stream);
 }
 
 }  // extern "C"

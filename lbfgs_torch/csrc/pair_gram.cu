@@ -34,6 +34,18 @@
 // partials array of their own: the six base products are the same code
 // as without it.
 //
+// K12 b (kBatched) replaces _pair_gram_xg_kernel under the batched
+// runner's vmap (lbfgs_tpu/batched.py:28-70: OWL-QN's undamped pair
+// update for generic objectives, lbfgs_tpu/solver.py:661-692): K12 over
+// [B, n] instances with [B, m, n] rings, the instance the grid's third
+// index.  Each instance's blocks are laid out as the solo launch lays out
+// the same n, and write its own [blocks, 6m] partials, so its ring row and
+// partials are solo K12's bit for bit.  The ring row `end` is the one the
+// lockstep batch shares.  A block whose instance is frozen (live[b] == 0)
+// returns before it loads or stores anything.  It has no . gp form: the
+// damped generic branch composes its pair in torch, as the JAX package's
+// does.
+//
 // What bounds them on the H100: bytes.  K5 reads d, gx, gp and the m-1 old
 // rows of each ring and writes one row of each: with f32 vectors, a bf16
 // history and m = 6 that is 12 + 20 + 4 = 36 bytes per element (K12 reads
@@ -322,13 +334,31 @@ __device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ a,
 // 2 + 2m]; only the first group's blocks add those).  vec: every array
 // starts on a 16-byte (vectors) or V-element (rings) boundary and n is a
 // multiple of V, so every whole run takes one load per array.
-template <typename T, typename H, int MP, bool kGp, bool kXg>
+//
+// kBatched (K12 b): the grid's third index is the instance; its vectors,
+// rings and [blocks, 6m] partials are at offsets of its index times n, m*n
+// and blocks*6m, and a frozen instance's blocks return at once.
+template <typename T, typename H, int MP, bool kGp, bool kXg, bool kBatched>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<H>)
 pair_gram_kernel(T stp, const T* __restrict__ a, const T* __restrict__ b,
                  const T* __restrict__ gx, const T* __restrict__ gp, const T* __restrict__ pg,
                  H* __restrict__ S, H* __restrict__ Y, T* __restrict__ partials,
                  T* __restrict__ gpartials, long long n, int m, int end, long long tiles,
-                 bool vec) {
+                 bool vec, const unsigned char* __restrict__ live) {
+  static_assert(!kBatched || (kXg && !kGp), "K12 b: the OWL-QN pair, no . gp column");
+  if constexpr (kBatched) {
+    const long long inst = blockIdx.z;
+    if (!live[inst]) return;
+    const long long off = inst * n;
+    a += off;
+    b += off;
+    gx += off;
+    gp += off;
+    pg += off;
+    S += inst * m * n;
+    Y += inst * m * n;
+    partials += inst * gridDim.y * 6LL * m;
+  }
   constexpr int V = kV<T>;
   constexpr long long kTile = static_cast<long long>(kThreads) * V;
   constexpr int kScalars = kXg && kGp ? 2 : 0;
@@ -403,15 +433,15 @@ pair_gram_kernel(T stp, const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-template <typename T, typename H, int MP, bool kGp, bool kXg>
+template <typename T, typename H, int MP, bool kGp, bool kXg, bool kBatched>
 int launch_pair_gram(const PairIn<T>& in, H* S, H* Y, T* partials, T* gpartials, long long n,
                      int m, int end, long long tiles, long long blocks, bool vec,
-                     cudaStream_t stream) {
+                     const unsigned char* live, int batch, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((m + kGroup - 1) / kGroup),
-                  static_cast<unsigned>(blocks));
-  pair_gram_kernel<T, H, MP, kGp, kXg><<<grid, kThreads, 0, stream>>>(
+                  static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
+  pair_gram_kernel<T, H, MP, kGp, kXg, kBatched><<<grid, kThreads, 0, stream>>>(
       in.stp, in.a, in.b, in.gx, in.gp, in.pg, S, Y, partials, gpartials, n, m, end, tiles,
-      vec);
+      vec, live);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,13 +449,13 @@ int launch_pair_gram(const PairIn<T>& in, H* S, H* Y, T* partials, T* gpartials,
 // (1-4 and 6: the north star's 3, the main path's 6), and groups of
 // kGroup rows for m = 5 and beyond 6.  A padded row costs registers: its
 // sums and its loaded rows are live through the whole loop.
-template <typename T, typename H, bool kGp, bool kXg>
+template <typename T, typename H, bool kGp, bool kXg, bool kBatched = false>
 int pair_gram_rows(const PairIn<T>& in, H* S, H* Y, T* partials, T* gpartials, long long n,
                    int m, int end, long long tiles, long long blocks, bool vec,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const unsigned char* live, int batch) {
   const auto launch = [&](auto rows) {
-    return launch_pair_gram<T, H, decltype(rows)::value, kGp, kXg>(
-        in, S, Y, partials, gpartials, n, m, end, tiles, blocks, vec, stream);
+    return launch_pair_gram<T, H, decltype(rows)::value, kGp, kXg, kBatched>(
+        in, S, Y, partials, gpartials, n, m, end, tiles, blocks, vec, live, batch, stream);
   };
   switch (m < 5 ? m : kGroup) {
     case 1: return launch(std::integral_constant<int, 1>());
@@ -443,24 +473,51 @@ bool aligned(const void* p, unsigned bytes) {
 // tile, tiles and blocks are the wrapper's launch (fused.pair_gram_grid):
 // refused unless the tile is this instantiation's and the blocks' runs of
 // `tiles` tiles cover n exactly once
-template <typename T, typename H, bool kXg>
-int pair_gram(const PairIn<T>& in, void* S, void* Y, void* partials, void* gpartials,
-              long long n, int m, int end, int with_gp, long long tile, long long tiles,
-              long long blocks, void* stream) {
+template <typename T>
+bool launch_ok(long long n, int m, int end, long long tile, long long tiles, long long blocks) {
   constexpr long long kTile = static_cast<long long>(kThreads) * kV<T>;
-  if (n <= 0 || m < 1 || end < 0 || end >= m || tile != kTile || tiles < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || m < 1 || end < 0 || end >= m || tile != kTile || tiles < 1) return false;
   const long long ntiles = (n + kTile - 1) / kTile;
-  if (blocks != (ntiles + tiles - 1) / tiles || blocks > kMaxBlocks)
-    return static_cast<int>(cudaErrorInvalidValue);
+  return blocks == (ntiles + tiles - 1) / tiles && blocks <= kMaxBlocks;
+}
+
+// whether every whole run takes one load per array: each array on a
+// 16-byte (vectors) or V-element (rings) boundary and n a multiple of V,
+// which keeps every instance's rows of a batch so aligned too
+template <typename T, typename H, bool kXg>
+bool vec_ok(const PairIn<T>& in, const void* S, const void* Y, long long n) {
   bool vec = aligned(in.a, 16) && aligned(in.gx, 16) && aligned(in.gp, 16) &&
              aligned(S, kV<T> * sizeof(H)) && aligned(Y, kV<T> * sizeof(H)) &&
              n % kV<T> == 0;
   if (kXg) vec = vec && aligned(in.b, 16) && aligned(in.pg, 16);
+  return vec;
+}
+
+template <typename T, typename H, bool kXg>
+int pair_gram(const PairIn<T>& in, void* S, void* Y, void* partials, void* gpartials,
+              long long n, int m, int end, int with_gp, long long tile, long long tiles,
+              long long blocks, void* stream) {
+  if (!launch_ok<T>(n, m, end, tile, tiles, blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = vec_ok<T, H, kXg>(in, S, Y, n);
   const auto run = with_gp ? pair_gram_rows<T, H, true, kXg> : pair_gram_rows<T, H, false, kXg>;
   return run(in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials),
              static_cast<T*>(gpartials), n, m, end, tiles, blocks, vec,
-             reinterpret_cast<cudaStream_t>(stream));
+             reinterpret_cast<cudaStream_t>(stream), nullptr, 1);
+}
+
+// K12 b: the vectors [batch, n], the rings [batch, m, n], partials
+// [batch, blocks, 6m]; the launch of each instance is the solo one's
+template <typename T, typename H>
+int pair_gram_xg_batched(const PairIn<T>& in, void* S, void* Y, const void* live,
+                         void* partials, long long n, int m, int end, long long tile,
+                         long long tiles, long long blocks, int batch, void* stream) {
+  if (!launch_ok<T>(n, m, end, tile, tiles, blocks) || batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return pair_gram_rows<T, H, false, true, true>(
+      in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials), nullptr, n, m,
+      end, tiles, blocks, vec_ok<T, H, true>(in, S, Y, n),
+      reinterpret_cast<cudaStream_t>(stream), static_cast<const unsigned char*>(live), batch);
 }
 
 }  // namespace
@@ -505,5 +562,25 @@ LBFGS_PAIR_GRAM_XG_ENTRY(f32_f32, float, float)
 LBFGS_PAIR_GRAM_XG_ENTRY(f64_f64, double, double)
 
 #undef LBFGS_PAIR_GRAM_XG_ENTRY
+
+// K12 b
+#define LBFGS_PAIR_GRAM_XG_BATCHED_ENTRY(SFX, T, H)                                          \
+  int lbfgs_pair_gram_xg_batched_##SFX(const void* x, const void* xp, const void* gx,       \
+                                       const void* gp, const void* pg, void* S, void* Y,    \
+                                       const void* live, void* partials, long long n,       \
+                                       int m, int end, long long tile, long long tiles,     \
+                                       long long blocks, int batch, void* stream) {         \
+    const PairIn<T> in{T(0), static_cast<const T*>(x), static_cast<const T*>(xp),           \
+                       static_cast<const T*>(gx), static_cast<const T*>(gp),                \
+                       static_cast<const T*>(pg)};                                          \
+    return pair_gram_xg_batched<T, H>(in, S, Y, live, partials, n, m, end, tile, tiles,      \
+                                      blocks, batch, stream);                               \
+  }
+
+LBFGS_PAIR_GRAM_XG_BATCHED_ENTRY(f32_bf16, float, __nv_bfloat16)
+LBFGS_PAIR_GRAM_XG_BATCHED_ENTRY(f32_f32, float, float)
+LBFGS_PAIR_GRAM_XG_BATCHED_ENTRY(f64_f64, double, double)
+
+#undef LBFGS_PAIR_GRAM_XG_BATCHED_ENTRY
 
 }  // extern "C"

@@ -90,6 +90,22 @@ _SIGNATURES = {
         for sfx in ("f32", "f64")
     },
     **{
+        f"lbfgs_pair_gram_xg_batched_{sfx}": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _LL, _LL, _LL,
+             ctypes.c_int, _P], ctypes.c_int)
+        for sfx in ("f32_bf16", "f32_f32", "f64_f64")
+    },
+    **{
+        f"lbfgs_pseudo_grad_batched_{sfx}": (
+            [_P, _P, ctypes.c_double, _LL, _LL, _P, _P, _LL, ctypes.c_int, _P], ctypes.c_int)
+        for sfx in ("f32", "f64")
+    },
+    **{
+        f"lbfgs_owlqn_trial_step_batched_{sfx}": (
+            [_P, _P, _P, _P, _LL, _LL, _P, _P, _LL, ctypes.c_int, _P], ctypes.c_int)
+        for sfx in ("f32", "f64")
+    },
+    **{
         f"lbfgs_pseudo_grad_{sfx}": (
             [_P, _P, ctypes.c_double, _LL, _LL, _P, _LL, _P], ctypes.c_int)
         for sfx in ("f32", "f64")

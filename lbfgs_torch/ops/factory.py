@@ -563,7 +563,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         x = xp + s
         _, g = torch.func.vmap(value_and_grad)(x)
         y = g - gp
-        SP, YP = _pair_products_batched(s, y, -g, S, Y, end, live, gp if with_gp else None)
+        SP, YP = fused.pair_products_batched(s, y, -g, S, Y, end, live, gp if with_gp else None)
         out = (_dot(g, d), _dot(g, g), _dot(x, x), (x != xp).any(dim=1), SP, YP)
         _write_live(live, (xp, x), (gp, g))
         return out
@@ -833,7 +833,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         x = _ow_point_batched(xp, d, pg, stp, c, start, end_w)
         _, g = torch.func.vmap(value_and_grad)(x)
         pg_new = pseudo_gradient(Orthantwise(c, start, end_w), x, g)
-        SP, YP = _pair_products_batched(x - xp, g - gp, -pg_new, S, Y, end, live,
+        SP, YP = fused.pair_products_batched(x - xp, g - gp, -pg_new, S, Y, end, live,
                                         gp if with_gp else None)
         out = (_dot(x, x), _dot(pg_new, pg_new), (x != xp).any(dim=1), SP, YP)
         if with_gp:
@@ -1280,31 +1280,8 @@ def _attach_batched(obj, probe, tpg, combine, combine_fix, ow_probe_pg, ow_tpg, 
     obj.__lbfgs_combine_ow_probe_batched_ok__ = cp_ok
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The [B] row products of two [B, n] batches."""
-    return (a * b).sum(dim=1)
-
-
-def _pair_products_batched(s, y, d0, S, Y, end: int, live, gp=None) -> tuple:
-    """``fused.pair_products`` over a batch: SP = S[b].[y, s, d0], YP =
-    Y[b].[y, s, d0] ([B, m, 3]) with ring row ``end`` replaced by the new
-    pair UNROUNDED, then the pair stored into row ``end`` of the live
-    instances' rings, rounded to the history dtype.  With ``gp`` a fourth
-    column S[b].gp[b], Y[b].gp[b] ([B, m, 4]), taken apart so that columns
-    0-2 are those of the 3-column form bit for bit."""
-    Sw, Yw = S.to(s.dtype), Y.to(s.dtype)
-    Z = torch.stack([y, s, d0], dim=2)
-    SP = torch.bmm(Sw, Z)
-    YP = torch.bmm(Yw, Z)
-    SP[:, end] = torch.stack([_dot(s, y), _dot(s, s), _dot(s, d0)], dim=1)
-    YP[:, end] = torch.stack([_dot(y, y), _dot(y, s), _dot(y, d0)], dim=1)
-    if gp is not None:
-        Sg, Yg = torch.bmm(Sw, gp[:, :, None]), torch.bmm(Yw, gp[:, :, None])
-        Sg[:, end, 0], Yg[:, end, 0] = _dot(s, gp), _dot(y, gp)
-        SP, YP = torch.cat([SP, Sg], dim=2), torch.cat([YP, Yg], dim=2)
-    S[live, end] = s[live].to(S.dtype)
-    Y[live, end] = y[live].to(Y.dtype)
-    return SP, YP
+#: the [B] row products of two [B, n] batches
+_dot = fused.row_dot
 
 
 def _write_live(live, *pairs) -> None:

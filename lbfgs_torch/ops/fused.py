@@ -25,6 +25,11 @@ share.
     (K10 b) — K3, K13, K6 and K10 over a [B, n] batch of instances (one
     coefficient row each), the batched runner's combines and its OWL-QN
     init.
+  * ``pseudo_gradient_batched`` (K11 b), ``owlqn_trial_step_batched``
+    (K9 b) and ``pair_gram_xg_batched`` (K12 b) — K11, K9 and K12 over a
+    batch: the batched runner's OWL-QN kernels for generic objectives (the
+    init's pseudo-gradient, each trial point, each iteration's pair
+    update).
 
   * ``axpy_dot`` (K17) — z = y + c*x and z . w in one pass.  No solver
     path runs it (the compact two-loop takes its products from the
@@ -46,7 +51,10 @@ share.
     and K5's and K12's plain versions, with row ``end`` taken from the
     unrounded pair as the kernels hold it in registers.
   * ``pair_gram_ref`` — the composed pair update whose products see the
-    STORED pair (the damped composed branch, and generic objectives).
+    STORED pair (the damped composed branch, and generic objectives);
+    ``pair_gram_stored_batched`` the same over a batch.
+  * ``pair_products_batched`` — ``pair_products`` over a batch, shared by
+    the batched epilogues' and K12 b's plain versions.
   * the predicates ``can_combine`` / ``can_pair_gram`` and the dtype
     rules all kernels follow.
 
@@ -699,13 +707,8 @@ def pseudo_gradient_norm_batched(x, g, c: float, start: int, end: int, live, out
     never written, and its sum is undefined.  On the card an instance's
     pg equals ``pseudo_gradient_norm``'s on that instance alone bit for
     bit.  Returns pg.pg [B]."""
-    B = check_batch("pseudo_gradient_norm_batched", x, live)
-    if g.shape != x.shape or out.shape != x.shape or not x.dtype == g.dtype == out.dtype:
-        raise ValueError("pseudo_gradient_norm_batched: x, g and out must be [B, n] of one "
-                         "dtype")
-    if c < 0:
-        raise ValueError(f"invalid orthantwise param c: {c}")
-    start, end = _check_window(x.shape[1], start, end)
+    B, (start, end) = _check_pg_batched("pseudo_gradient_norm_batched", x, g, c, start, end,
+                                        live, out)
     if not on_cuda(x, "pseudo_gradient_norm_batched"):
         return pseudo_gradient_norm_batched_ref(x, g, c, start, end, live, out)
     check_contiguous("pseudo_gradient_norm_batched", x, g, live, out)
@@ -722,6 +725,56 @@ def pseudo_gradient_norm_batched(x, g, c: float, start: int, end: int, live, out
 
 
 pseudo_gradient_norm_batched.launches = 0
+
+
+def _check_pg_batched(kernel: str, x, g, c: float, start: int, end: int, live, out) -> tuple:
+    """Check a batched pseudo-gradient's [B, n] operands; returns (B, the
+    checked window)."""
+    B = check_batch(kernel, x, live)
+    if g.shape != x.shape or out.shape != x.shape or not x.dtype == g.dtype == out.dtype:
+        raise ValueError(f"{kernel}: x, g and out must be [B, n] of one dtype")
+    if c < 0:
+        raise ValueError(f"invalid orthantwise param c: {c}")
+    return B, _check_window(x.shape[1], start, end)
+
+
+# ---------------------------------------------------------------------------
+# K11 b: the batched runner's pseudo-gradient alone
+# ---------------------------------------------------------------------------
+
+
+def pseudo_gradient_batched_ref(x, g, c: float, start: int, end: int, live, out):
+    """Plain version of ``pseudo_gradient_batched``."""
+    pseudo_gradient_batched_ref.calls += 1
+    pg = ow_ops.pseudo_gradient(Orthantwise(c=c, start=start, end=end), x, g)
+    out[live] = pg[live]
+    return out
+
+
+pseudo_gradient_batched_ref.calls = 0
+
+
+def pseudo_gradient_batched(x, g, c: float, start: int, end: int, live, out):
+    """K11 over B instances (K11 b): for each live instance b, OWL-QN's
+    pseudo-gradient of (x[b], g[b]) written to out[b], as
+    ``pseudo_gradient_norm_batched`` writes it, without the norm.
+    Operands as there.  A frozen instance's row of ``out`` is never
+    written.  On the card an instance's pg equals ``pseudo_gradient``'s on
+    that instance alone bit for bit.  Returns ``out``."""
+    B, (start, end) = _check_pg_batched("pseudo_gradient_batched", x, g, c, start, end, live,
+                                        out)
+    if not on_cuda(x, "pseudo_gradient_batched"):
+        return pseudo_gradient_batched_ref(x, g, c, start, end, live, out)
+    check_contiguous("pseudo_gradient_batched", x, g, live, out)
+    code = getattr(_build.load_library(), f"lbfgs_pseudo_grad_batched_{_SUFFIX[x.dtype]}")(
+        x.data_ptr(), g.data_ptr(), float(c), start, end, live.data_ptr(), out.data_ptr(),
+        x.shape[1], B, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(code, "pseudo_gradient_batched")
+    pseudo_gradient_batched.launches += 1
+    return out
+
+
+pseudo_gradient_batched.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -793,6 +846,53 @@ owlqn_trial_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K9 b: the batched runner's projected trial points
+# ---------------------------------------------------------------------------
+
+
+def owlqn_trial_step_batched_ref(xp, d, pg, stp, start: int, end: int, live, out):
+    """Plain version of ``owlqn_trial_step_batched``."""
+    owlqn_trial_step_batched_ref.calls += 1
+    wp = ow_ops.choose_orthant(Orthantwise(1.0, start, end), xp, pg)
+    x = project_window(xp + stp[:, None] * d, wp, start, end)
+    out[live] = x[live]
+    return out
+
+
+owlqn_trial_step_batched_ref.calls = 0
+
+
+def owlqn_trial_step_batched(xp, d, pg, stp, start: int, end: int, live, out):
+    """K9 over B instances (K9 b): for each live instance b the projected
+    trial point pi(xp[b] + stp[b]*d[b]; wp) inside the window [start, end)
+    written to out[b], wp the orthant the search chose from (xp[b], pg[b])
+    (``orthantwise.choose_orthant``), rebuilt in registers.  ``xp``, ``d``,
+    ``pg``, ``out`` [B, n] of one dtype; ``stp`` [B] of that dtype;
+    ``live`` [B] bool.  A frozen instance's row of ``out`` is never
+    written.  On the card an instance's point equals ``owlqn_trial_step``'s
+    with that wp bit for bit.  Returns ``out``."""
+    B = check_batch("owlqn_trial_step_batched", xp, live)
+    if any(t.shape != xp.shape or t.dtype != xp.dtype for t in (d, pg, out)):
+        raise ValueError("owlqn_trial_step_batched: xp, d, pg and out must be [B, n] of one "
+                         "dtype")
+    if stp.shape != (B,) or stp.dtype != xp.dtype or stp.device != xp.device:
+        raise ValueError(f"owlqn_trial_step_batched: stp must be [{B}] of the vectors' dtype")
+    start, end = _check_window(xp.shape[1], start, end)
+    if not on_cuda(xp, "owlqn_trial_step_batched"):
+        return owlqn_trial_step_batched_ref(xp, d, pg, stp, start, end, live, out)
+    check_contiguous("owlqn_trial_step_batched", xp, d, pg, stp, live, out)
+    code = getattr(_build.load_library(), f"lbfgs_owlqn_trial_step_batched_{_SUFFIX[xp.dtype]}")(
+        xp.data_ptr(), d.data_ptr(), pg.data_ptr(), stp.data_ptr(), start, end, live.data_ptr(),
+        out.data_ptr(), xp.shape[1], B, torch.cuda.current_stream(xp.device).cuda_stream)
+    _build.check_launch(code, "owlqn_trial_step_batched")
+    owlqn_trial_step_batched.launches += 1
+    return out
+
+
+owlqn_trial_step_batched.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Pair + Gram updates: K5 and the composed forms
 # ---------------------------------------------------------------------------
 
@@ -832,6 +932,48 @@ def pair_products(s, y, d0, S, Y, end: int, gp=None):
     S[end] = s.to(S.dtype)
     Y[end] = y.to(Y.dtype)
     return SP, YP
+
+
+def row_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The [B] row products of two [B, n] batches."""
+    return (a * b).sum(dim=1)
+
+
+def pair_products_batched(s, y, d0, S, Y, end: int, live, gp=None) -> tuple:
+    """``pair_products`` over a batch: SP = S[b].[y, s, d0], YP =
+    Y[b].[y, s, d0] ([B, m, 3]) with ring row ``end`` replaced by the new
+    pair UNROUNDED, then the pair stored into row ``end`` of the live
+    instances' rings, rounded to the history dtype.  With ``gp`` a fourth
+    column S[b].gp[b], Y[b].gp[b] ([B, m, 4]), taken apart so that columns
+    0-2 are those of the 3-column form bit for bit."""
+    Sw, Yw = S.to(s.dtype), Y.to(s.dtype)
+    Z = torch.stack([y, s, d0], dim=2)
+    SP = torch.bmm(Sw, Z)
+    YP = torch.bmm(Yw, Z)
+    SP[:, end] = torch.stack([row_dot(s, y), row_dot(s, s), row_dot(s, d0)], dim=1)
+    YP[:, end] = torch.stack([row_dot(y, y), row_dot(y, s), row_dot(y, d0)], dim=1)
+    if gp is not None:
+        Sg, Yg = torch.bmm(Sw, gp[:, :, None]), torch.bmm(Yw, gp[:, :, None])
+        Sg[:, end, 0], Yg[:, end, 0] = row_dot(s, gp), row_dot(y, gp)
+        SP, YP = torch.cat([SP, Sg], dim=2), torch.cat([YP, Yg], dim=2)
+    S[live, end] = s[live].to(S.dtype)
+    Y[live, end] = y[live].to(Y.dtype)
+    return SP, YP
+
+
+def pair_gram_stored_batched(s, y, g, S, Y, end: int, live) -> tuple:
+    """``pair_gram_ref`` over a batch: the pair written into ring row
+    ``end`` of the live instances' rings (rounded to the history dtype;
+    ``live`` a [B] bool tensor, no host read), then SP = S[b].[y, s, -g],
+    YP = Y[b].[y, s, -g] ([B, m, 3]) over the rings as stored.  The
+    batched runner's composed pair + Gram pass for generic objectives
+    (plain L-BFGS, and the damped pair), the JAX package's jnp pass
+    (``lbfgs_tpu/solver.py:693-704``) under its vmap."""
+    keep = live[:, None]
+    S[:, end] = torch.where(keep, s.to(S.dtype), S[:, end])
+    Y[:, end] = torch.where(keep, y.to(Y.dtype), Y[:, end])
+    Z = torch.stack([y, s, -g], dim=2)
+    return torch.bmm(S.to(s.dtype), Z), torch.bmm(Y.to(s.dtype), Z)
 
 
 def _check_pair(d, gx, gp, S, Y, end: int) -> int:
@@ -1007,6 +1149,61 @@ def pair_gram_xg(x, xp, gx, gp, pg, S, Y, end: int, with_gp: bool = False):
 pair_gram_xg.launches = 0
 #: the launches with the . gp column, counted among ``launches`` too
 pair_gram_xg.gp_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K12 b: the batched runner's OWL-QN pair + Gram update (generic objectives)
+# ---------------------------------------------------------------------------
+
+
+def pair_gram_xg_batched_ref(x, xp, gx, gp, pg, S, Y, end: int, live):
+    """Plain version of ``pair_gram_xg_batched``: ``pair_products_batched``
+    of s = x - xp, y = gx - gp and d0 = -pg, row ``end``'s products from
+    the unrounded pair, as ``pair_gram_xg_ref`` per instance."""
+    pair_gram_xg_batched_ref.calls += 1
+    return pair_products_batched(x - xp, gx - gp, -pg, S, Y, end, live)
+
+
+pair_gram_xg_batched_ref.calls = 0
+
+
+def pair_gram_xg_batched(x, xp, gx, gp, pg, S, Y, end: int, live):
+    """K12 over B instances (K12 b): for each live instance b the pair
+    (x[b] - xp[b], gx[b] - gp[b]) written into ring row ``end`` of S[b] and
+    Y[b] in place, rounded to the history dtype, and SP = S[b].[y, s,
+    -pg[b]], YP = Y[b].[y, s, -pg[b]] over the updated rings, the new row's
+    products from the unrounded pair.  ``x``, ``xp``, ``gx``, ``gp``, ``pg``
+    [B, n]; ``S``, ``Y`` [B, m, n], any m >= 1; ``end`` a host int shared by
+    the live instances; ``live`` [B] bool.  A frozen instance's ring rows
+    are never written, and its products are undefined.  On the card an
+    instance's ring rows equal ``pair_gram_xg``'s on that instance alone
+    bit for bit, and so do its partials (its blocks are the solo launch's);
+    torch adds the [B, blocks, 6m] partials in an order that may depend on
+    B.  Returns SP, YP [B, m, 3]."""
+    B = check_batch("pair_gram_xg_batched", x, live)
+    _check_hist_batched("pair_gram_xg_batched", x, S, Y)
+    if any(t.shape != x.shape or t.dtype != x.dtype for t in (xp, gx, gp, pg)):
+        raise ValueError("pair_gram_xg_batched: x, xp, gx, gp and pg must be [B, n] of one "
+                         "dtype")
+    end = _check_row(S[0], end)
+    if not on_cuda(x, "pair_gram_xg_batched"):
+        return pair_gram_xg_batched_ref(x, xp, gx, gp, pg, S, Y, end, live)
+    check_contiguous("pair_gram_xg_batched", x, xp, gx, gp, pg, S, Y, live)
+    _, m, n = S.shape
+    grid = pair_gram_grid(n, x.dtype, S.dtype)
+    part = torch.empty((B, grid.blocks, 6 * m), dtype=x.dtype, device=x.device)
+    fn = getattr(_build.load_library(),
+                 f"lbfgs_pair_gram_xg_batched_{_SUFFIX[x.dtype]}_{_SUFFIX[S.dtype]}")
+    code = fn(x.data_ptr(), xp.data_ptr(), gx.data_ptr(), gp.data_ptr(), pg.data_ptr(),
+              S.data_ptr(), Y.data_ptr(), live.data_ptr(), part.data_ptr(), n, m, end, grid.T,
+              grid.tiles, grid.blocks, B, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch(code, "pair_gram_xg_batched")
+    pair_gram_xg_batched.launches += 1
+    P = part.sum(dim=1).reshape(B, m, 6)
+    return P[..., :3], P[..., 3:]
+
+
+pair_gram_xg_batched.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -323,20 +323,10 @@ def update_pair(params: LbfgsParams, x, xp, gx, gp, step=None) -> PairUpdate:
     gamma = ys / torch.where(yy == 0.0, torch.ones_like(yy), yy)
     case = 0
     if params.damping:
-        sbs = sbs[0]
-        case1 = ys < (1.0 - SIGMA2) * sbs
-        case2 = ~case1 & (ys > (1.0 + SIGMA3) * sbs)
-        ss_h, yy_h, case = to_host(
-            ss, yy, torch.where(case1, 1.0, torch.where(case2, 2.0, 0.0)))
+        y, case = _damp_pair(params, y, bs, ys, sbs[0])
+        ss_h, yy_h, case = to_host(ss, yy, case)
         case = int(case)
         _log_damping(case)
-        if case == 1:
-            # no guard on the denominator here, as in the JAX package
-            theta = SIGMA2 * sbs / (sbs - ys)
-            y = (1.0 - theta) * bs + theta * y
-        elif case == 2 and params.damping_fixed:
-            theta = SIGMA3 * sbs / (ys - sbs)
-            y = (1.0 - theta) * bs + theta * y
     else:
         ss_h, yy_h = to_host(ss, yy)
     status = 0
@@ -345,6 +335,61 @@ def update_pair(params: LbfgsParams, x, xp, gx, gp, step=None) -> PairUpdate:
     elif yy_h == 0.0:
         status = int(Status.ERR_G_NOT_CHANGED)
     return PairUpdate(s=s, y=y, ys=ys, gamma=gamma, status=status, case=case)
+
+
+def _damp_pair(params: LbfgsParams, y, bs, ys, sbs) -> tuple:
+    """The damped y of ``update_pair`` and its case (0, 1, 2 in ys's dtype):
+    case 1 (ys < (1 - sigma2) sbs) blends y toward bs, case 2 (ys > (1 +
+    sigma3) sbs) only under ``damping_fixed``, each blend (1 - theta)*bs +
+    theta*y.  One pair (y, bs [n]; ys, sbs 0-d) or, over a batch, each
+    instance's (y, bs [B, n]; ys, sbs [B]): the blends are selected per
+    instance, so an instance's y is its solo call's bit for bit for the
+    same products.  No guard on the denominators, as in the JAX package:
+    a blend not selected may divide by zero and is dropped."""
+    col = lambda v: v.unsqueeze(-1)
+    case1 = ys < (1.0 - SIGMA2) * sbs
+    case2 = ~case1 & (ys > (1.0 + SIGMA3) * sbs)
+    theta, apply = SIGMA2 * sbs / (sbs - ys), case1
+    if params.damping_fixed:
+        theta = torch.where(case1, theta, SIGMA3 * sbs / (ys - sbs))
+        apply = case1 | case2
+    y = torch.where(col(apply), (1.0 - col(theta)) * bs + col(theta) * y, y)
+    return y, torch.where(case1, 1.0, torch.where(case2, 2.0, 0.0)).to(ys.dtype)
+
+
+class PairUpdateBatched(NamedTuple):
+    """``update_pair_batched``'s [B, n] pair and [B] scalars, on the device."""
+
+    s: torch.Tensor
+    y: torch.Tensor
+    ys: torch.Tensor
+    gamma: torch.Tensor
+    #: s.s and y.y, for the caller's "x / g not changed" tests
+    ss: torch.Tensor
+    yy: torch.Tensor
+    #: damping case per instance (0, 1, 2 in ys's dtype), None undamped
+    case: Optional[torch.Tensor] = None
+
+
+def update_pair_batched(params: LbfgsParams, x, xp, gx, gp, step=None) -> PairUpdateBatched:
+    """``update_pair`` over B instances ([B, n] vectors; ``step`` the [B]
+    reported steps on the device, needed under damping only), the batched
+    runner's composed damped branch: each instance's products are [B] row
+    products, its case and its damped y ``_damp_pair``'s.  Nothing is read
+    to the host: ss, yy and the case ride the caller's one read."""
+    s = x - xp
+    y = gx - gp
+    dot = fused.row_dot
+    ys, ss, yy = dot(y, s), dot(s, s), dot(y, y)
+    # gamma = ys / yy from the PRE-damping pair (src/lbfgs.rs:653-656)
+    gamma = ys / torch.where(yy == 0.0, torch.ones_like(yy), yy)
+    case = None
+    if params.damping:
+        if step is None:
+            raise ValueError("the damped update needs the step")
+        bs = -step[:, None] * gp
+        y, case = _damp_pair(params, y, bs, ys, dot(s, bs))
+    return PairUpdateBatched(s=s, y=y, ys=ys, gamma=gamma, ss=ss, yy=yy, case=case)
 
 
 def _blend_row(Y: torch.Tensor, end: int, a, b, gx: torch.Tensor) -> None:

@@ -442,13 +442,14 @@ def test_return_state():
 UNSUPPORTED = {
     # OWL-QN, the uncapped step, the adaptive entry step, any depth
     # (tests/test_torch_batched_uncapped.py), damping and the gradient-only
-    # mode (tests/test_torch_batched_damped.py) run batched; the settings
-    # below still raise, with damping too
+    # mode (tests/test_torch_batched_damped.py) and generic objectives
+    # (tests/test_torch_batched_generic.py) run batched; the settings below
+    # still raise, with damping and on generic objectives too
     "damped_fx_wide": lambda b: b.with_damping(True).with_fx_wide(),
     "damped_scan_two_loop": lambda b: b.with_damping(True).with_compact_two_loop(False),
     "damped_float16_history": lambda b: b.with_damping(True).with_history_dtype("float16"),
     "gradient_only_speculative": lambda b: b.with_gradient_only().with_speculative_linesearch(4),
-    "damped_generic_objective": lambda b: b.with_damping(True),
+    "generic_damped_fx_wide": lambda b: b.with_damping(True).with_fx_wide(),
     "damped_owlqn_float16_history": lambda b: b.with_orthantwise(1.0, 0, None)
     .with_damping(True).with_history_dtype("float16"),
     "fx_wide": lambda b: b.with_fx_wide(),
@@ -456,7 +457,7 @@ UNSUPPORTED = {
     "float16_history": lambda b: b.with_history_dtype("float16"),
     "float16_deep_history": lambda b: b._new(b.param.replace(m=80)).with_history_dtype("float16"),
     "speculative": lambda b: b.with_speculative_linesearch(4),
-    "generic_objective": lambda b: b,
+    "generic_float16_history": lambda b: b.with_history_dtype("float16"),
 }
 
 
@@ -464,7 +465,7 @@ UNSUPPORTED = {
 def test_unsupported_settings_raise(setting):
     x0b = _t(CASES["early_finisher"])
     opt, fn = UNSUPPORTED[setting](t_lbfgs()), t_rosen.value_and_grad
-    if setting.endswith("generic_objective"):
+    if setting.startswith("generic"):
         fn = t_rosen._plain_value_and_grad
     with pytest.raises(NotImplementedError, match="minimize_batched"):
         opt.minimize_batched(x0b, fn)
