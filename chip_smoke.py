@@ -254,6 +254,22 @@ Phases (any failure raises and the script exits nonzero):
      once, K9 b per trip, K10 b, K12 b undamped and K13 b per iteration;
      and 5 iterations at m = 80); instances 0-7 solo against each batch
      after 8 iterations;
+ 42g. batched trial kernels: K1 b, K7 b and K5 b (with and without its
+     . gp column) in f32/bf16 and f64 at 1024 x 2^14 against their plain
+     versions (K1 b and K7 b in both modes of the objective scalar), the
+     points, gradients and ring rows of instances 0, 511 and 1023 bit for
+     bit the solo K1's, K7's and K5's, K1 b's and K7 b's (f, g.d) bit for
+     bit K2 b's and K8 b's, K5 b's . gp columns 0-2 its 3-column launch's;
+     K1 b and K7 b with the quadratic's two extras at n = 2^14 + 2; their
+     registers (a spill fails), each timed at f32/bf16;
+ 42h. batched settings: ``minimize_batched`` at 1024 x 2^14, 20
+     iterations, under the wide scalar (plain capped and uncapped, OWL-QN,
+     damped: fx float64, the init one K1 b, under OWL-QN K7 b and K10 b),
+     with the scan two-loop and over a float16 ring (plain and OWL-QN: one
+     K1 b or K7 b per iteration and no ring kernel), and on the trial-only
+     objective (plain: K1 b, K5 b, K3 b; damped: K5 b's . gp form, K6 b;
+     OWL-QN: K7 b, K10 b, K12 b, K13 b; damped OWL-QN without K12 b);
+     instances 0-7 solo against each batch after 8 iterations;
  43. sharded world size 1: an NCCL group of one rank in this process
      (``lbfgs_torch.parallel``), the main path and the OWL-QN main path at
      n = 2^24 under ``kernels_on_mesh``, each against the same run with no
@@ -504,11 +520,20 @@ KERNELS.update({
 })
 KERNELS["K12b_pair_gram_xg_batched_m80"] = (
     "cuda", "lbfgs_torch/csrc/pair_gram.cu", "lbfgs_tpu/ops/fused.py:1055 (m = 80)" + VMAPPED)
-#: a generic objective's batched OWL-QN path: K9 b per search trip, K10 b,
-#: K12 b (undamped) and K13 b per iteration, K11 b once at the init
-BATCHED_GENERIC_OWLQN_PATH = ("K9b_owlqn_trial_step_batched", "K10b_pseudo_gradient_norm_batched",
-                              "K12b_pair_gram_xg_batched", "K13b_combine_ow_batched")
-BATCHED_GENERIC_INIT = ("K11b_pseudo_gradient_batched",)
+#: the batched runner's materializations and its pair + Gram pass where no
+#: batched epilogue runs (the wide init, the scan two-loop, a float16 ring,
+#: an objective with a fused trial and no epilogue): K1 b, K7 b, K5 b (with
+#: the . gp column damped)
+KERNELS.update({
+    "K1b_trial_batched": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                          "lbfgs_tpu/ops/factory.py:161" + VMAPPED),
+    "K7b_owlqn_trial_batched": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                "lbfgs_tpu/ops/factory.py:389" + VMAPPED),
+    "K5b_pair_gram_batched": ("cuda", "lbfgs_torch/csrc/pair_gram.cu",
+                              "lbfgs_tpu/ops/fused.py:837" + VMAPPED),
+    "K5b_pair_gram_batched_gp": ("cuda", "lbfgs_torch/csrc/pair_gram.cu",
+                                 "lbfgs_tpu/ops/fused.py:837 (with_gp)" + VMAPPED),
+})
 BATCHED_UNCAPPED_PATH = ("K2b_probe_batched", "K4b_trial_pair_gram_batched",
                          "K15b_combine_probe_batched")
 BATCHED_OWLQN_UNCAPPED_PATH = ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched",
@@ -605,6 +630,12 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
         "K9b_owlqn_trial_step_batched": (4 * v, 4),
         "K11b_pseudo_gradient_batched": (3 * v, 4),
         "K12b_pair_gram_xg_batched": (5 * v + rings, 12 * m + 3),
+        # the materializations and K5 b: their solo kernels' per element
+        # (K7 b reads pg in the orthant's place; K5 b 3-column and . gp)
+        "K1b_trial_batched": (4 * v, 20),
+        "K7b_owlqn_trial_batched": (5 * v, 30),
+        "K5b_pair_gram_batched": (3 * v + rings, 12 * m + 4),
+        "K5b_pair_gram_batched_gp": (3 * v + rings, 16 * m + 4),
         # reads and writes one float32 per element, at n = N_NULL
         "cal_null_launch": (8, 1),
     }[name]
@@ -693,11 +724,21 @@ def wall_ms(fn, reps: int) -> float:
     return 1e3 * profiling.timed(lambda: [fn() for _ in range(reps)]) / reps
 
 
+def averages(prof):
+    """``prof.key_averages()``, summed once per profiler session and kept on
+    it: the sums over a session of thousands of launches take seconds, and
+    every reader of a session shares them."""
+    ka = getattr(prof, "_averages", None)
+    if ka is None:
+        ka = prof._averages = prof.key_averages()
+    return ka
+
+
 def device_events(prof) -> list:
     """The kernels and copies a torch.profiler run saw on the card."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [e for e in averages(prof) if e.device_type == DeviceType.CUDA]
 
 
 #: profiler sessions that saw nothing, or part of the work, on the card and
@@ -1260,10 +1301,11 @@ def epilogue_compiled() -> None:
 #: history type (f float, d double, 13__nv_bfloat16), ring rows MP, the
 #: . gp column, K12's pair; and how many there are: three dtype pairs,
 #: five row counts (1-4 and a group of 6), with and without . gp, each
-#: kernel's pair; and K12 b's five row counts (no . gp)
+#: kernel's pair; K12 b's five row counts (no . gp); K5 b's, with and
+#: without . gp
 PAIR_GRAM_KERNEL = re.compile(
     r"pair_gram_kernelI([fd])(13__nv_bfloat16|[fd])Li(\d+)ELb([01])ELb([01])ELb([01])E")
-PAIR_GRAM_FORMS = 3 * 5 * 2 * 2 + 3 * 5
+PAIR_GRAM_FORMS = 3 * 5 * 2 * 2 + 3 * 5 + 3 * 5 * 2
 K5_TYPES = {"f": "float32", "d": "float64", "13__nv_bfloat16": "bfloat16"}
 
 
@@ -1289,13 +1331,13 @@ def ptxas_kernels(log: str) -> dict:
 
 
 def pair_gram_forms() -> list:
-    """Registers, shared memory and spills of every K5, K12 and K12 b
+    """Registers, shared memory and spills of every K5, K12, K12 b and K5 b
     instantiation in the build log."""
     forms = []
     for name, info in ptxas_kernels(_build.build_log()).items():
         m = PAIR_GRAM_KERNEL.search(name)
         if m:
-            kernel = "K12b" if m.group(6) == "1" else ("K12" if m.group(5) == "1" else "K5")
+            kernel = ("K12" if m.group(5) == "1" else "K5") + ("b" if m.group(6) == "1" else "")
             forms.append(dict(kernel=kernel, vectors=K5_TYPES[m.group(1)],
                               history=K5_TYPES[m.group(2)], rows=int(m.group(3)),
                               with_gp=m.group(4) == "1", **info))
@@ -1304,7 +1346,7 @@ def pair_gram_forms() -> list:
 
 
 def pair_gram_compiled() -> list:
-    """Registers, shared memory and spills of every K5, K12 and K12 b
+    """Registers, shared memory and spills of every K5, K12, K12 b and K5 b
     instantiation (``PAIR_GRAM_FORMS``) from the build log; a form that
     spills, or a log that does not show them all, fails the phase."""
     forms = pair_gram_forms()
@@ -1633,12 +1675,13 @@ FACTORY_REFS = ("trial_ref", "probe_ref", "trial_pair_gram_ref", "owlqn_trial_re
                 "combine_probe_ref", "combine_ow_probe_ref", "probe_batched_ref",
                 "trial_pair_gram_batched_ref", "owlqn_probe_pg_batched_ref",
                 "owlqn_trial_pair_gram_batched_ref", "combine_probe_batched_ref",
-                "combine_ow_probe_batched_ref")
+                "combine_ow_probe_batched_ref", "trial_batched_ref", "owlqn_trial_batched_ref")
 FACTORY_WRAPPERS = ("trial", "probe", "trial_pair_gram", "owlqn_trial", "owlqn_probe",
                     "owlqn_probe_pg", "owlqn_trial_pair_gram", "combine_probe",
                     "combine_ow_probe", "probe_batched", "trial_pair_gram_batched",
                     "owlqn_probe_pg_batched", "owlqn_trial_pair_gram_batched",
-                    "combine_probe_batched", "combine_ow_probe_batched")
+                    "combine_probe_batched", "combine_ow_probe_batched", "trial_batched",
+                    "owlqn_trial_batched")
 
 
 def _factory_launches(k, sfx: str) -> dict:
@@ -1719,6 +1762,11 @@ def launches() -> dict:
         "K9b_owlqn_trial_step_batched": fused.owlqn_trial_step_batched.launches,
         "K11b_pseudo_gradient_batched": fused.pseudo_gradient_batched.launches,
         "K12b_pair_gram_xg_batched": fused.pair_gram_xg_batched.launches,
+        "K1b_trial_batched": rosenbrock.value_and_grad.kernels.trial_batched.launches,
+        "K7b_owlqn_trial_batched": rosenbrock.value_and_grad.kernels.owlqn_trial_batched.launches,
+        "K5b_pair_gram_batched": (fused.pair_gram_sd_batched.launches
+                                  - fused.pair_gram_sd_batched.gp_launches),
+        "K5b_pair_gram_batched_gp": fused.pair_gram_sd_batched.gp_launches,
         **_batched_forms(rosenbrock.value_and_grad.kernels),
     }
     ex = dict.fromkeys(_factory_launches(rosenbrock.value_and_grad.kernels, "_ex"), 0)
@@ -1764,6 +1812,9 @@ PLAIN = {
     "K9b_owlqn_trial_step_batched": fused.owlqn_trial_step_batched_ref,
     "K11b_pseudo_gradient_batched": fused.pseudo_gradient_batched_ref,
     "K12b_pair_gram_xg_batched": fused.pair_gram_xg_batched_ref,
+    "K1b_trial_batched": rosenbrock.value_and_grad.kernels.trial_batched_ref,
+    "K7b_owlqn_trial_batched": rosenbrock.value_and_grad.kernels.owlqn_trial_batched_ref,
+    "K5b_pair_gram_batched": fused.pair_gram_sd_batched_ref,
 }
 
 
@@ -1802,9 +1853,9 @@ def reset_counts() -> None:
                profiling.null_launch, fused.combine_batched, fused.combine_ow_batched,
                fused.pseudo_gradient_norm_batched, fused.combine_fix_batched,
                fused.owlqn_trial_step_batched, fused.pseudo_gradient_batched,
-               fused.pair_gram_xg_batched):
+               fused.pair_gram_xg_batched, fused.pair_gram_sd_batched):
         fn.launches = 0
-    fused.pair_gram_xg.gp_launches = 0
+    fused.pair_gram_xg.gp_launches = fused.pair_gram_sd_batched.gp_launches = 0
     for fn in PLAIN.values():
         fn.calls = 0
     to_host.reads = 0
@@ -2031,7 +2082,7 @@ def _profile_one(name: str, params: LbfgsParams, f, x0=None, fn=None) -> None:
     if prof is None:
         raise AssertionError(f"{name}: the profiler recorded no device time")
     iters = st.k - 1
-    ka = prof.key_averages()
+    ka = averages(prof)
     dev = sorted(device_events(prof), key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in dev) / 1e3
     api = {e.key: e.count for e in ka
@@ -2304,16 +2355,24 @@ def trial_only_objective():
     kernels but no one-pass epilogue and no combine+probe fusion, so that
     the damped solver takes K5 and K6 (the K5 route), under OWL-QN K12
     with its . gp column and K13 (the K12 route), and above 64 ring rows
-    the any-depth route; its plain twin is Rosenbrock's."""
+    the any-depth route; its plain twin is Rosenbrock's.  With the batched
+    trials and probes too (K1 b, K7 b, K2 b, K8 b), so that the batched
+    runner takes its trial route: K5 b (its . gp form and K6 b damped) and
+    K3 b, under OWL-QN K7 b, K10 b, K12 b and K13 b."""
     def vag(x):
         return rosenbrock.value_and_grad(x)
 
+    k = rosenbrock.value_and_grad.kernels
     vag.__lbfgs_value_and_grad__ = True
     vag.__lbfgs_trial__ = rosenbrock.trial
     vag.__lbfgs_trial_probe__ = rosenbrock.probe
     vag.__lbfgs_owlqn_trial__ = rosenbrock.owlqn_trial
     vag.__lbfgs_owlqn_probe__ = rosenbrock.owlqn_probe
     vag.__lbfgs_owlqn_probe_pg__ = rosenbrock.owlqn_probe_pg
+    vag.__lbfgs_trial_batched__ = k.trial_batched
+    vag.__lbfgs_owlqn_trial_batched__ = k.owlqn_trial_batched
+    vag.__lbfgs_probe_batched__ = k.probe_batched
+    vag.__lbfgs_owlqn_probe_pg_batched__ = k.owlqn_probe_pg_batched
     vag.plain = rosenbrock.value_and_grad.plain
     return vag
 
@@ -3748,7 +3807,7 @@ def phase_launch_overhead(paths: dict) -> dict:
                              syncs_per_iter=syncs, ms_per_iter=ms_per_iter,
                              modelled_host_ms_per_iter=None, share_explained=None)
             continue
-        calls = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+        calls = sum(e.count for e in averages(prof) if e.key in LAUNCH_CALLS)
         per["torch_op"] = calls / iters - per["triton"] - per["cuda"]
         model = 1e-3 * (per["triton"] * us["triton"] + per["cuda"] * us["null"]
                         + per["torch_op"] * us["torch_op"] + syncs * us["read"])
@@ -3941,10 +4000,20 @@ BATCHED_RUNS = 3
 
 def batched_x0(B: int, n: int) -> torch.Tensor:
     """bench_batched.py's starts: the Rosenbrock start plus 0.05 * N(0, 1)
-    from numpy seed 0, float32, on the card."""
-    rng = np.random.RandomState(0)
-    base = rosenbrock.initial_point(n, torch.float32, "cpu").numpy()
-    return torch.from_numpy(base[None, :] + 0.05 * rng.randn(B, n).astype(np.float32)).cuda()
+    from numpy seed 0, float32, on the card; made once per shape (numpy's
+    16.7 million normals of the main path's batch take most of a second)
+    and handed out as a copy."""
+    key = (B, n)
+    if key not in _BATCHED_X0:
+        rng = np.random.RandomState(0)
+        base = rosenbrock.initial_point(n, torch.float32, "cpu").numpy()
+        _BATCHED_X0[key] = torch.from_numpy(
+            base[None, :] + 0.05 * rng.randn(B, n).astype(np.float32)).cuda()
+    return _BATCHED_X0[key].clone()
+
+
+#: ``batched_x0``'s starts by (B, n)
+_BATCHED_X0 = {}
 
 
 def batched_inputs(seed: int) -> dict:
@@ -4135,7 +4204,7 @@ def _batched_profile(params: LbfgsParams, x0b: torch.Tensor, fn=None, top: int =
         return dict(device_ms_per_iter=None, launch_calls_per_iter=None)
     events = device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    calls = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+    calls = sum(e.count for e in averages(prof) if e.key in LAUNCH_CALLS)
     out = dict(device_ms_per_iter=busy / iters, launch_calls_per_iter=calls / iters)
     if top:
         events.sort(key=lambda e: -e.self_device_time_total)
@@ -5187,12 +5256,12 @@ GENERIC_M80_B = {(torch.float32, torch.bfloat16): BATCH_B, (torch.float32, torch
 K12B_FORMS = 3 * 5
 
 
-def batched_generic_inputs(seed: int, vd, hd, m: int, B: int) -> dict:
-    """Seeded [B, n] inputs of K9 b, K11 b and K12 b: the points xp and x
-    near the Rosenbrock start with exact zeros (every 17th, 13th element),
-    a direction, gradients, a pseudo-gradient, [B, m, n] rings and [B]
-    steps; every third instance from the third frozen."""
-    n = BATCH_N
+def batched_generic_inputs(seed: int, vd, hd, m: int, B: int, n: int = BATCH_N) -> dict:
+    """Seeded [B, n] inputs of K9 b, K11 b and K12 b (and of K1 b, K7 b and
+    K5 b): the points xp and x near the Rosenbrock start with exact zeros
+    (every 17th, 13th element), a direction, gradients, a pseudo-gradient,
+    [B, m, n] rings and [B] steps; every third instance from the third
+    frozen."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=vd)
     live = torch.ones(B, dtype=torch.bool, device="cuda")
@@ -5416,26 +5485,30 @@ def _generic_run(name: str, params: LbfgsParams, x0b: torch.Tensor, fn, runs: in
     return st, walls, lc, pc, reads, iters, reads - 1 - iters
 
 
-def _generic_phase(phase: str, runs: dict, expect) -> dict:
-    """Each of ``runs`` through ``_generic_run`` from ``batched_x0`` (two
-    timed runs, one where the label is m80), its launches held to
-    ``expect(label, iters, trips)`` and nothing else launched, no plain
-    version; its line (``_batched_report``; the capped run's with device ms
-    per iteration and its top device items), then instances 0-7 against
-    their solo generic runs after 8 iterations.  Returns each run's
-    launches."""
-    fn = generic_objective()
+def _runs_phase(phase: str, runs: dict, expect, fn, timed: int = 2) -> dict:
+    """Each of ``runs`` on the objective ``fn`` through ``_generic_run`` from
+    ``batched_x0`` (``timed`` timed runs, one where the label is m80), its
+    launches held to ``expect(label, iters, trips)`` and nothing else
+    launched, no plain version, fx float64 exactly where the wide scalar
+    runs over float32 vectors; its line (``_batched_report``; the first
+    run's with device ms per iteration and its top device items), then, but
+    at m80, instances 0-7 against their solo runs after 8 iterations (the
+    same iterations and evaluations, fx rel ``FUSION_TOL_8``).  Returns each
+    run's launches."""
     x0b = batched_x0(BATCH_B, BATCH_N)
     lc_all = {}
-    for label, params in runs.items():
+    for i, (label, params) in enumerate(runs.items()):
         name = f"{phase}_{label}"
         st, walls, lc, pc, reads, iters, trips = _generic_run(
-            name, params, x0b, fn, 1 if label == "m80" else 2)
-        _expect(name, lc, pc, **expect(label, iters, trips))
-        prof = _batched_profile(params, x0b, fn, top=6) if label == "capped" else {}
-        _batched_report(name, st, walls, lc, reads, iters, ("K3b_combine_batched",)
-                        if params.orthantwise is None else BATCHED_GENERIC_OWLQN_PATH,
-                        m=params.m, probes_per_iter=trips / iters, **prof)
+            name, params, x0b, fn, 1 if label == "m80" else timed)
+        want = expect(label, iters, trips)
+        _expect(name, lc, pc, **want)
+        if (st.fx.dtype == np.float64) != (params.fx_wide and x0b.dtype == torch.float32):
+            raise AssertionError(f"{name}: fx is {st.fx.dtype}")
+        prof = _batched_profile(params, x0b, fn, top=6) if i == 0 else {}
+        _batched_report(name, st, walls, lc, reads, iters, tuple(want), m=params.m,
+                        probes_per_iter=trips / iters, fx_dtype=str(st.fx.dtype),
+                        history=str(st.hist.s.dtype), **prof)
         lc_all[label] = lc
         del st
         if label != "m80":
@@ -5456,8 +5529,9 @@ def phase_batched_generic_main_path() -> dict:
     objective has no fusion) and damped capped (the composed damped pair,
     then K3 b).  Instances 0-7 against their solo generic runs after 8
     iterations.  Returns each run's launches."""
-    return _generic_phase("batched_generic_main_path", BATCHED_GENERIC_RUNS,
-                          lambda label, iters, trips: dict(K3b_combine_batched=iters))
+    return _runs_phase("batched_generic_main_path", BATCHED_GENERIC_RUNS,
+                       lambda label, iters, trips: dict(K3b_combine_batched=iters),
+                       generic_objective())
 
 
 def phase_batched_generic_owlqn_main_path() -> dict:
@@ -5474,7 +5548,320 @@ def phase_batched_generic_owlqn_main_path() -> dict:
             out["K12b_pair_gram_xg_batched"] = iters
         return out
 
-    return _generic_phase("batched_generic_owlqn_main_path", BATCHED_GENERIC_OWLQN_RUNS, expect)
+    return _runs_phase("batched_generic_owlqn_main_path", BATCHED_GENERIC_OWLQN_RUNS, expect,
+                       generic_objective())
+
+
+# ---------------------------------------------------------------------------
+# the batched runner where no batched epilogue runs: K1 b, K7 b and K5 b
+# ---------------------------------------------------------------------------
+
+#: K5 b's instantiations: five row counts in each dtype pair, with and
+#: without the . gp column
+K5B_FORMS = 3 * 5 * 2
+#: the extras case of K1 b and K7 b: the quadratic's two extras at an n off
+#: 16, a few instances
+TRIAL_EX_B, TRIAL_EX_N = 64, (1 << 14) + 2
+
+
+def _check_trials_batched(k, a: dict, vd, errs: dict, solo: dict, tag: str) -> None:
+    """K1 b and K7 b (on both windows) of the factory kernels ``k`` against
+    their plain versions at the kernel tolerances, in both modes of the
+    objective scalar; a frozen instance's rows unwritten; their (f, g.d)
+    bit for bit K2 b's and K8 b's at the same step (the remat contract;
+    float64 under the wide mode); on the solo instances the point and
+    gradient bit for bit the solo K1's and K7's (with the search's
+    orthant)."""
+    live, frozen = a["live"], ~a["live"]
+    tv, ts = TOL[(vd, "vec")], TOL[(vd, "sum")]
+    n = a["xp"].shape[1]
+    rows = _generic_solo(live.shape[0])
+    cases = [("K1b_trial_batched", k.trial_batched, k.trial_batched_ref, k.probe_batched,
+              (a["xp"], a["d"], a["stp"], live),
+              lambda b: k.trial(a["xp"][b], a["d"][b], float(a["stp"][b])))]
+    for lo, hi in windows(n):
+        cases.append((
+            "K7b_owlqn_trial_batched", k.owlqn_trial_batched, k.owlqn_trial_batched_ref,
+            k.owlqn_probe_pg_batched, (a["xp"], a["d"], a["pg"], a["stp"], C_L1, lo, hi, live),
+            lambda b, lo=lo, hi=hi: k.owlqn_trial(
+                a["xp"][b], a["d"][b],
+                choose_orthant(Orthantwise(1.0, lo, hi), a["xp"][b], a["pg"][b]),
+                float(a["stp"][b]), C_L1, lo, hi)))
+    for wide in (False, True):
+        with fused.wide_fx(wide):
+            for name, kern, plain, probe, args, one in cases:
+                t = f"{name} {tag}{' wide' if wide else ''}"
+                xk, gk, xq, gq = (torch.zeros_like(a["xp"]) for _ in range(4))
+                sk, sq = kern(*args, xk, gk), plain(*args, xq, gq)
+                e = [check(f"{t} x", xk[live], xq[live], tv),
+                     check(f"{t} g", gk[live], gq[live], tv)]
+                e += [check(f"{t} sum{i}", sk[i][live], sq[i][live], ts)
+                      for i in range(len(sk) - 1)]
+                errs.setdefault(name, []).extend(e)
+                if not torch.equal(sk[-1][live], sq[-1][live]):
+                    raise AssertionError(f"{t}: changed differs from the plain version")
+                if xk[frozen].any() or gk[frozen].any():
+                    raise AssertionError(f"{t}: a frozen instance's rows were written")
+                if wide and vd == torch.float32 and sk[0].dtype != torch.float64:
+                    raise AssertionError(f"{t}: fx is {sk[0].dtype} under the wide mode")
+                pf, pd = probe(*args)
+                remat = same_bits(sk[0][live], pf[live]) and same_bits(sk[1][live], pd[live])
+                if not remat:
+                    raise AssertionError(f"{t}: (f, g.d) differ from the batched probe's")
+                for b in rows:
+                    so = one(b)
+                    if not (same_bits(xk[b], so[0]) and same_bits(gk[b], so[2])):
+                        raise AssertionError(f"{t}: instance {b} differs from the solo kernel")
+                solo.setdefault(name, {})[t] = dict(
+                    vs_solo_x_g_bit_for_bit=list(rows), probe_sums_bit_for_bit=remat)
+
+
+def _check_k5b(a: dict, vd, errs: dict, solo: dict) -> None:
+    """K5 b with and without its . gp column against its plain version
+    (sums at the sum tolerance, the rings bit for bit), the . gp launch's
+    columns 0-2 and rings bit for bit the 3-column launch's; on the solo
+    instances the solo K5's rings bit for bit and sums within the sum
+    tolerance; a frozen instance's rings untouched."""
+    live, frozen = a["live"], ~a["live"]
+    ts = TOL[(vd, "sum")]
+    end = M - 3
+    tag = f"{str(vd).removeprefix('torch.')}/{str(a['S'].dtype).removeprefix('torch.')}"
+    vecs = (a["stp"], a["d"], a["gx"], a["gp"])
+    out = {}
+    for with_gp in (False, True):
+        name = "K5b_pair_gram_batched" + ("_gp" if with_gp else "")
+        Sk, Yk, Sp, Yp = (a[r].clone() for r in ("S", "Y", "S", "Y"))
+        SPk, YPk = fused.pair_gram_sd_batched(*vecs, Sk, Yk, end, live, with_gp=with_gp)
+        SPp, YPp = fused.pair_gram_sd_batched_ref(*vecs, Sp, Yp, end, live, with_gp=with_gp)
+        errs.setdefault(name, []).extend([check(f"{name} SP {tag}", SPk[live], SPp[live], ts),
+                                          check(f"{name} YP {tag}", YPk[live], YPp[live], ts)])
+        if not (same_bits(Sk, Sp) and same_bits(Yk, Yp)):
+            raise AssertionError(f"{name} {tag}: the rings differ from the plain version's")
+        if not (same_bits(Sk[frozen], a["S"][frozen]) and same_bits(Yk[frozen], a["Y"][frozen])):
+            raise AssertionError(f"{name} {tag}: a frozen instance's rings were written")
+        sums = {}
+        for b in _generic_solo(live.shape[0]):
+            Sb, Yb = a["S"][b].clone(), a["Y"][b].clone()
+            SP1, YP1 = fused.pair_gram_sd(float(a["stp"][b]), *(v[b] for v in vecs[1:]), Sb, Yb,
+                                          end, with_gp=with_gp)
+            if not (same_bits(Sk[b], Sb) and same_bits(Yk[b], Yb)):
+                raise AssertionError(f"{name} {tag}: instance {b}'s rings differ from the solo "
+                                     f"K5's")
+            e = max(check(f"{name} SP {tag} vs solo {b}", SPk[b], SP1, ts)[1],
+                    check(f"{name} YP {tag} vs solo {b}", YPk[b], YP1, ts)[1])
+            sums[b] = dict(normwise=e, bit_for_bit=same_bits(SPk[b], SP1)
+                           and same_bits(YPk[b], YP1))
+        solo.setdefault(name, {})[tag] = dict(rings_bit_for_bit=True, sums=sums)
+        out[with_gp] = (SPk, YPk, Sk, Yk)
+        del Sp, Yp, SPp, YPp
+    (SP3, YP3, S3, Y3), (SPg, YPg, Sg, Yg) = out[False], out[True]
+    if not (same_bits(SPg[live][..., :3], SP3[live]) and same_bits(YPg[live][..., :3], YP3[live])
+            and same_bits(S3, Sg) and same_bits(Y3, Yg)):
+        raise AssertionError(f"K5b {tag}: the . gp launch's columns 0-2 or rings differ from "
+                             f"the 3-column launch's")
+
+
+def _time_trials(a: dict, times: dict, timed_by: dict, bounds: dict) -> None:
+    """Time K1 b, K7 b (the main path's window) and K5 b with and without
+    its . gp column on the f32/bf16 inputs ``a`` with every instance live,
+    each beside its plain version and its bound."""
+    k = rosenbrock.value_and_grad.kernels
+    every = torch.ones(BATCH_B, dtype=torch.bool, device="cuda")
+    lo, hi = windows(BATCH_N)[0]
+    xt, g = torch.empty_like(a["xp"]), torch.empty_like(a["xp"])
+    t1 = (a["xp"], a["d"], a["stp"], every, xt, g)
+    t7 = (a["xp"], a["d"], a["pg"], a["stp"], C_L1, lo, hi, every, xt, g)
+    pair = (a["stp"], a["d"], a["gx"], a["gp"], a["S"], a["Y"], M - 3, every)
+    cases = {
+        "K1b_trial_batched": (lambda: k.trial_batched(*t1), lambda: k.trial_batched_ref(*t1)),
+        "K7b_owlqn_trial_batched": (lambda: k.owlqn_trial_batched(*t7),
+                                    lambda: k.owlqn_trial_batched_ref(*t7)),
+        "K5b_pair_gram_batched": (lambda: fused.pair_gram_sd_batched(*pair),
+                                  lambda: fused.pair_gram_sd_batched_ref(*pair)),
+        "K5b_pair_gram_batched_gp": (
+            lambda: fused.pair_gram_sd_batched(*pair, with_gp=True),
+            lambda: fused.pair_gram_sd_batched_ref(*pair, with_gp=True)),
+    }
+    for name, (kern, plain) in cases.items():
+        k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain, 20)
+        times[name], timed_by[name] = (k_ms, p_ms), (k_by, p_by)
+        bounds[name] = bound(name, BATCH_B * BATCH_N, 4, 2, M)
+
+
+def phase_batched_trial_kernels() -> dict:
+    """K1 b, K7 b and K5 b (with and without its . gp column) in f32/bf16
+    and f64/f64 at B = 1024 x n = 2^14, m = 6, a third of the instances
+    frozen, against their plain versions at the kernel tolerances
+    (``TOL``; both modes of the objective scalar for K1 b and K7 b) and, on
+    instances 0, 511 and 1023, against the solo K1, K7 and K5: points,
+    gradients and ring rows bit for bit, K5 b's sums within the sum
+    tolerance; K1 b's and K7 b's (f, g.d) bit for bit K2 b's and K8 b's
+    (the remat contract); K5 b's . gp columns 0-2 bit for bit its 3-column
+    launch's.  Then K1 b and K7 b with the quadratic's two extras at n =
+    2^14 + 2 (``TRIAL_EX_N``, off 16) the same way.  The registers and
+    spills of every K1 b, K7 b and K5 b form (a spill fails).  Each form
+    timed at f32/bf16 with every instance live, beside its plain version
+    and its bound."""
+    k = rosenbrock.value_and_grad.kernels
+    errs, solo = {}, {}
+    times, timed_by, bounds = {}, {}, {}
+    for vd, hd in (DTYPES[0], DTYPES[2]):
+        a = batched_generic_inputs(SEED + 20, vd, hd, M, BATCH_B)
+        tag = str(vd).removeprefix("torch.")
+        _check_trials_batched(k, a, vd, errs, solo, tag)
+        _check_k5b(a, vd, errs, solo)
+        if hd == torch.bfloat16:
+            _time_trials(a, times, timed_by, bounds)
+        del a
+        torch.cuda.empty_cache()
+    # the extras: the quadratic's weights and targets, n off 16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    w = 0.5 + torch.rand(TRIAL_EX_N, generator=g, device="cuda")
+    t = torch.randn(TRIAL_EX_N, generator=g, device="cuda")
+    q = separable.quadratic(w, t).kernels
+    a = batched_generic_inputs(SEED + 22, torch.float32, torch.bfloat16, M, TRIAL_EX_B,
+                               TRIAL_EX_N)
+    ex_errs = {}
+    _check_trials_batched(q, a, torch.float32, ex_errs, solo, f"float32 extras n={TRIAL_EX_N}")
+    for name, v in ex_errs.items():
+        errs[name].extend(v)
+    del a
+    compiled = []
+    for label, fn in (("K1b", k.trial_batched), ("K7b", k.owlqn_trial_batched),
+                      ("K1b extras", q.trial_batched), ("K7b extras", q.owlqn_trial_batched)):
+        for vd, ck in fn.compiled.items():
+            compiled.append(dict(kernel=label, vectors=str(vd), **_compiled_info(ck)))
+    k5b = [f for f in pair_gram_forms() if f["kernel"] == "K5b"]
+    emit(phase="batched_trial_compiled", triton=compiled, k5b=k5b)
+    if len(compiled) != 6 or any(c["n_spills"] for c in compiled):
+        raise AssertionError(f"K1 b / K7 b forms: {compiled}")
+    if len(k5b) != K5B_FORMS or any("n_regs" not in f or f["spill_stores"] or f["spill_loads"]
+                                    for f in k5b):
+        raise AssertionError(f"K5 b instantiations ({len(k5b)} of {K5B_FORMS}): {k5b}")
+    errs = {name: (max(e[0] for e in v), max(e[1] for e in v)) for name, v in errs.items()}
+    emit(phase="batched_trial_kernels", B=BATCH_B, n=BATCH_N, m=M,
+         extras=dict(B=TRIAL_EX_B, n=TRIAL_EX_N),
+         max_abs_err={n_: e[0] for n_, e in errs.items()},
+         max_normwise_err={n_: e[1] for n_, e in errs.items()},
+         tol=dict(TOL={f"{str(k_[0]).removeprefix('torch.')} {k_[1]}": v
+                       for k_, v in TOL.items()},
+                  rings="bit-exact", frozen="bit-exact", vs_solo_points_rings="bit-exact",
+                  probe_sums="bit-exact", vs_solo_sums="sum tolerance"),
+         vs_solo=solo,
+         device_ms={n_: {"kernel": t_[0], "plain": t_[1], "bound": bounds[n_][0]}
+                    for n_, t_ in times.items()},
+         timed_by={n_: {"kernel": t_[0], "plain": t_[1]} for n_, t_ in timed_by.items()})
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
+
+
+#: the batched settings' main paths: the batched main path's widths and
+#: starts (1024 x 2^14, f32, m = 6, bf16 ring unless a float16 one), 20
+#: iterations at epsilon 0; More-Thuente, and under OWL-QN c = 1 on
+#: [0, n - 1) with Armijo
+BATCHED_SETTINGS_PARAMS = BATCHED_PARAMS.replace(max_iterations=21)
+BATCHED_SETTINGS_OWLQN_PARAMS = BATCHED_OWLQN_PARAMS.replace(max_iterations=21)
+#: the wide scalar (``fx_wide``): plain capped and uncapped, OWL-QN capped,
+#: damped capped
+BATCHED_WIDE_RUNS = {
+    "capped": BATCHED_SETTINGS_PARAMS.replace(fx_wide=True),
+    "uncapped": BATCHED_SETTINGS_PARAMS.replace(fx_wide=True, constrain_step_size=False),
+    "owlqn": BATCHED_SETTINGS_OWLQN_PARAMS.replace(fx_wide=True),
+    "damped": BATCHED_SETTINGS_PARAMS.replace(fx_wide=True, damping=True),
+}
+#: the scan two-loop and a float16 ring, plain and OWL-QN
+BATCHED_SCAN_RUNS = {
+    "plain": BATCHED_SETTINGS_PARAMS.replace(compact_two_loop=False),
+    "owlqn": BATCHED_SETTINGS_OWLQN_PARAMS.replace(compact_two_loop=False),
+}
+BATCHED_F16_RUNS = {
+    "plain": BATCHED_SETTINGS_PARAMS.replace(history_dtype="float16"),
+    "owlqn": BATCHED_SETTINGS_OWLQN_PARAMS.replace(history_dtype="float16"),
+}
+#: the trial-only objective (``trial_only_objective``): plain, damped,
+#: OWL-QN and damped OWL-QN, capped
+BATCHED_TRIAL_RUNS = {
+    "plain": BATCHED_SETTINGS_PARAMS,
+    "damped": BATCHED_SETTINGS_PARAMS.replace(damping=True),
+    "owlqn": BATCHED_SETTINGS_OWLQN_PARAMS,
+    "owlqn_damped": BATCHED_SETTINGS_OWLQN_PARAMS.replace(damping=True),
+}
+
+
+def phase_batched_wide_main_path() -> dict:
+    """The batched runner under the wide objective scalar
+    (``BATCHED_WIDE_RUNS``): fx float64 [B]; the init one K1 b at stp = 0
+    (under OWL-QN one K7 b with the identity projection and one K10 b),
+    then the epilogue route per iteration (K2 b or K8 b per trip, K4 b and
+    K3 b; uncapped K15 b; OWL-QN K14 b and K13 b; damped K4 b's . gp form
+    and K6 b), each summing its objective column in float64 per
+    instance."""
+    def expect(label, iters, trips):
+        if label == "owlqn":
+            return dict(K7b_owlqn_trial_batched=1, K10b_pseudo_gradient_norm_batched=1,
+                        K8b_owlqn_probe_batched=trips,
+                        K14b_owlqn_trial_pair_gram_batched=iters, K13b_combine_ow_batched=iters)
+        out = dict(K1b_trial_batched=1, K2b_probe_batched=trips)
+        out.update({"capped": dict(K4b_trial_pair_gram_batched=iters, K3b_combine_batched=iters),
+                    "uncapped": dict(K4b_trial_pair_gram_batched=iters,
+                                     K15b_combine_probe_batched=iters),
+                    "damped": dict(K4b_trial_pair_gram_batched_gp=iters,
+                                   K6b_combine_fix_batched=iters)}[label])
+        return out
+
+    return _runs_phase("batched_wide_main_path", BATCHED_WIDE_RUNS, expect, default_evaluate(), 1)
+
+
+def _materialized(label: str, iters: int, trips: int) -> dict:
+    """The scan's and the float16 ring's launches: per trip K2 b (K8 b), per
+    iteration one K1 b (K7 b and K10 b), the default OWL-QN init's K10 b,
+    and no ring kernel: the recursion, the pair + Gram pass and the combine
+    run in torch ops."""
+    if label == "owlqn":
+        return dict(K8b_owlqn_probe_batched=trips, K7b_owlqn_trial_batched=iters,
+                    K10b_pseudo_gradient_norm_batched=1 + iters)
+    return dict(K2b_probe_batched=trips, K1b_trial_batched=iters)
+
+
+def phase_batched_scan_main_path() -> dict:
+    """The batched runner with the scan two-loop (``BATCHED_SCAN_RUNS``):
+    each iteration materializes the accepted points with one K1 b (K7 b),
+    writes the composed pair into the ring and runs the literal recursion
+    in torch ops (``solver.two_loop_scan_batched``), no ring kernel."""
+    return _runs_phase("batched_scan_main_path", BATCHED_SCAN_RUNS, _materialized,
+                       default_evaluate(), 1)
+
+
+def phase_batched_float16_main_path() -> dict:
+    """The batched runner over a float16 ring (``BATCHED_F16_RUNS``): one K1
+    b (K7 b) per iteration, then the composed pair + Gram pass and combine
+    in torch ops, as the JAX package runs jnp there."""
+    return _runs_phase("batched_float16_main_path", BATCHED_F16_RUNS, _materialized,
+                       default_evaluate(), 1)
+
+
+def phase_batched_trial_route_main_path() -> dict:
+    """The batched runner on the trial-only objective (``BATCHED_TRIAL_RUNS``,
+    ``trial_only_objective``): per trip K2 b (K8 b), per iteration one K1 b
+    and K5 b and K3 b, damped K5 b's . gp form and K6 b; under OWL-QN K11 b
+    at the init, per iteration K7 b, K10 b, K12 b (the composed pair
+    damped) and K13 b; never K4 b or K14 b."""
+    def expect(label, iters, trips):
+        if label.startswith("owlqn"):
+            out = dict(K11b_pseudo_gradient_batched=1, K8b_owlqn_probe_batched=trips,
+                       K7b_owlqn_trial_batched=iters, K10b_pseudo_gradient_norm_batched=iters,
+                       K13b_combine_ow_batched=iters)
+            if label == "owlqn":
+                out["K12b_pair_gram_xg_batched"] = iters
+            return out
+        if label == "damped":
+            return dict(K2b_probe_batched=trips, K1b_trial_batched=iters,
+                        K5b_pair_gram_batched_gp=iters, K6b_combine_fix_batched=iters)
+        return dict(K2b_probe_batched=trips, K1b_trial_batched=iters,
+                    K5b_pair_gram_batched=iters, K3b_combine_batched=iters)
+
+    return _runs_phase("batched_trial_route_main_path", BATCHED_TRIAL_RUNS, expect,
+                       trial_only_objective(), 1)
 
 
 #: the batched Poisson regression: instances of the Poisson main path's
@@ -5656,7 +6043,7 @@ def _collective_probe(mesh) -> dict:
         for _ in range(20):
             dist.all_reduce(t, group=mesh.group)
         torch.cuda.synchronize()
-    rows = sorted(prof.key_averages(), key=lambda e: -(e.cpu_time_total + e.device_time_total))
+    rows = sorted(averages(prof), key=lambda e: -(e.cpu_time_total + e.device_time_total))
     out["all_reduce_profile_per_call"] = [
         dict(name=e.key[:60], count=e.count, host_us=e.cpu_time_total / 20,
              device_us=e.device_time_total / 20) for e in rows[:8]]
@@ -5664,7 +6051,7 @@ def _collective_probe(mesh) -> dict:
         for _ in range(20):
             fused.mesh_sum(*vals)
         torch.cuda.synchronize()
-    rows = sorted(prof.key_averages(), key=lambda e: -(e.cpu_time_total + e.device_time_total))
+    rows = sorted(averages(prof), key=lambda e: -(e.cpu_time_total + e.device_time_total))
     out["mesh_sum_profile_per_call"] = [
         dict(name=e.key[:60], count=e.count, host_us=e.cpu_time_total / 20,
              device_us=e.device_time_total / 20) for e in rows[:10]]
@@ -6103,7 +6490,10 @@ def main() -> None:
     def run(fn, *a):
         t0 = time.perf_counter()
         out = fn(*a)
-        seconds[fn.__name__.removeprefix("phase_")] = round(time.perf_counter() - t0, 3)
+        name = fn.__name__.removeprefix("phase_")
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        # each phase's seconds as it ends (the timing line comes at the end)
+        print(f"phase {name}: {seconds[name]} s", file=sys.stderr, flush=True)
         return out
 
     run(phase_device)
@@ -6161,6 +6551,11 @@ def main() -> None:
     batched_gen = run(phase_batched_generic_kernels)
     run(phase_batched_generic_main_path)
     lc_bgow = run(phase_batched_generic_owlqn_main_path)
+    batched_tr = run(phase_batched_trial_kernels)
+    run(phase_batched_wide_main_path)
+    lc_bscan = run(phase_batched_scan_main_path)
+    run(phase_batched_float16_main_path)
+    lc_btrial = run(phase_batched_trial_route_main_path)
     run(phase_sharded_world1)
     run(phase_sharded_two_rank, {"main_path": main_out, "owlqn_main_path": ow_out,
                                  "damped_main_path": d_out})
@@ -6171,6 +6566,7 @@ def main() -> None:
         k[key].update(batched_fu[key])
         k[key].update(batched_dm[key])
         k[key].update(batched_gen[key])
+        k[key].update(batched_tr[key])
     lc_cal = run(phase_launch_overhead, {
         name: (params, fused, out["ms_per_iter"], out["syncs_per_iter"])
         for name, params, fused, out in (
@@ -6221,6 +6617,12 @@ def main() -> None:
               "K9b_owlqn_trial_step_batched", "K11b_pseudo_gradient_batched",
               "K12b_pair_gram_xg_batched")},
           "K12b_pair_gram_xg_batched_m80": lc_bgow["m80"]["K12b_pair_gram_xg_batched"],
+          # the materializations from the batched scan paths, K5 b from the
+          # trial-only objective's plain and damped runs
+          "K1b_trial_batched": lc_bscan["plain"]["K1b_trial_batched"],
+          "K7b_owlqn_trial_batched": lc_bscan["owlqn"]["K7b_owlqn_trial_batched"],
+          "K5b_pair_gram_batched": lc_btrial["plain"]["K5b_pair_gram_batched"],
+          "K5b_pair_gram_batched_gp": lc_btrial["damped"]["K5b_pair_gram_batched_gp"],
           "K17_axpy_dot": lc_main["K17_axpy_dot"], **lc_cal}
     # library_ms: one PyTorch call computing the same function, where one
     # exists (only the calibration kernel's o = x + 1)

@@ -128,9 +128,15 @@ for the combine, and the OWL-QN init K11 b::
 
 A mutating closure ``f(x, g)`` and an objective ``torch.func.vmap``
 cannot trace raise ``ValueError``, as the JAX package's vmap refuses
-them.  The wide objective scalar, the scan two-loop, a float16 history
-and the speculative search raise ``NotImplementedError`` there, with
-OWL-QN and without, damped or not.
+them.  The wide objective scalar (fx float64 [B]; the init one K1 b, under
+OWL-QN K7 b), the scan two-loop and a float16 history run batched too,
+with OWL-QN and without, damped or not: where no batched epilogue runs
+(the scan, a float16 ring, an objective with a fused trial but no
+epilogue) each iteration materializes the accepted points with one K1 b
+(K7 b), then the scan's torch recursion, the composed torch pair + Gram
+pass and combine of a float16 ring, or K5 b (K12 b under OWL-QN) and the
+combine kernels.  Only the speculative search and a mesh raise
+``NotImplementedError`` there.
 """
 
 from __future__ import annotations

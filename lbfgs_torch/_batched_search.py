@@ -10,8 +10,8 @@ card) and one read of the [B] (ft, g.d) pairs.  An instance whose search
 has ended stays out of the later trips (``live``), as the JAX package's
 vmapped while loop freezes it by a select.
 
-Each instance's arithmetic is that of the scalar search in the vectors'
-dtype, operation for operation, so every instance's trials, steps and
+Each instance's arithmetic is that of the scalar search, operation for
+operation and in the same dtypes, so every instance's trials, steps and
 status equal ``linesearch.morethuente`` and ``linesearch.backtracking``
 bit for bit, the reference quirks included (at most ``max_linesearch -
 1`` trials, the curvature-only first convergence test, backtracking's
@@ -20,6 +20,13 @@ computes every branch and selects (``update_trial_interval``, the
 JAX package's branch-free form, ``lbfgs_tpu/linesearch.py:136-241``);
 the branches not taken may divide by zero, so they run under
 ``np.errstate`` and their values never pass a select.
+
+The step and derivative scalars are of the vectors' dtype (``stp0``'s),
+the f-values (finit, ft and More-Thuente's fx, fy) of their own
+(``finit``'s): float64 under the wide objective scalar, where numpy
+promotes a float64 f-value against a float32 step to float64 where they
+meet and the results are cast back, as the scalar searches do
+(``linesearch``'s docstring; ``lbfgs_tpu/linesearch.py:136-152``).
 
 Under OWL-QN (``ow``) the searches are those of the solo OWL-QN path:
 backtracking with the Armijo exit only (More-Thuente routed to it, as
@@ -36,8 +43,7 @@ on which every instance carried makes no probe and no read.
 The gradient-only mode (``LineSearchParams.gradient_only``) adds the
 scalar backtracking's literal exit, |g.d| <= -gtol*|dginit|, which holds
 only where dginit == 0, per instance; with More-Thuente it raises the
-scalar ``find``'s ``ValueError``.  Not here (the batched runner refuses
-it): the wide objective scalar.
+scalar ``find``'s ``ValueError``.
 """
 
 from __future__ import annotations
@@ -79,6 +85,9 @@ def _cubic_minimizer_d(u, dfuv, du, v, dv):
 
 
 def _cubic_minimizer2_d(u, dfuv, du, v, dv, xmin, xmax):
+    """The clamped cubic minimizer and where it is the clamp (xmax or xmin,
+    of the step's dtype where the scalar code returns them: with float64
+    f-values the interpolated value is float64)."""
     d = v - u
     theta = dfuv * 3.0 / d + du + dv
     s = np.maximum(np.maximum(np.abs(theta), np.abs(du)), np.abs(dv))
@@ -88,7 +97,8 @@ def _cubic_minimizer2_d(u, dfuv, du, v, dv, xmin, xmax):
     p = gamma - dv + theta
     q = gamma - dv + gamma + du
     r = p / q
-    return np.where((r < 0.0) & (gamma != 0.0), v - r * d, np.where(v > u, xmax, xmin))
+    clamp = ~((r < 0.0) & (gamma != 0.0))
+    return np.where(clamp, np.where(v > u, xmax, xmin), v - r * d), clamp
 
 
 def _quad_minimizer_d(u, dfuv, du, v):
@@ -128,10 +138,13 @@ def update_trial_interval(x, fx, dx, y, fy, dy, t, ft, dt, tmin, tmax,
         newt1 = np.where(np.abs(mc - x) < np.abs(mq1 - x), mc, mc + 0.5 * (mq1 - mc))
         mq2 = _quad_minimizer2(x, dx, t, dt)
         newt2 = np.where(np.abs(mc - t) > np.abs(mq2 - t), mc, mq2)
-        mc3 = _cubic_minimizer2_d(x, d_fx_ft, dx, t, dt, tmin, tmax)
+        mc3, clamp = _cubic_minimizer2_d(x, d_fx_ft, dx, t, dt, tmin, tmax)
+        # |t - mc3| as the scalar code takes it: in the step's dtype where
+        # mc3 is the clamp, else in mc3's (float64 under the wide scalar)
+        dist3 = np.where(clamp, np.abs(t - mc3.astype(np.asarray(t).dtype)), np.abs(t - mc3))
         newt3 = np.where(brackt,
-                         np.where(np.abs(t - mc3) < np.abs(t - mq2), mc3, mq2),
-                         np.where(np.abs(t - mc3) > np.abs(t - mq2), mc3, mq2))
+                         np.where(dist3 < np.abs(t - mq2), mc3, mq2),
+                         np.where(dist3 > np.abs(t - mq2), mc3, mq2))
         newt4 = np.where(brackt, _cubic_minimizer_d(t, ft - fy, dt, y, dy),
                          np.where(x < t, tmax, tmin))
         newt = np.where(case1, newt1, np.where(case2, newt2, np.where(case3, newt3, newt4)))
@@ -176,13 +189,15 @@ class BatchedSearch(NamedTuple):
     status: np.ndarray     #: 0 success; LS_* or ERR_NEGATIVE_STEP
 
 
-#: probe(stp [B], live [B] bool) -> (ft [B], g.d [B]) in the vectors'
-#: dtype: one batched evaluation of the instances in ``live``
+#: probe(stp [B], live [B] bool) -> (ft [B], g.d [B]), ft in the
+#: f-values' dtype and g.d in the vectors': one batched evaluation of the
+#: instances in ``live``
 Probe = Callable[[np.ndarray, np.ndarray], tuple]
 
 
-def _trip(probe: Probe, stp, run, probe1: Optional[tuple], count: int) -> tuple:
-    """One trip's (ft, g.d) for the instances in ``run``: on the first trip
+def _trip(probe: Probe, stp, run, probe1: Optional[tuple], count: int, ff, f) -> tuple:
+    """One trip's (ft, g.d) for the instances in ``run``, ft of the
+    f-values' dtype ``ff`` and g.d of the vectors' ``f``: on the first trip
     the carried ``probe1`` of each instance whose step is its probed one
     (``linesearch.carried``; each use counted in ``carried.used``), one
     probe over the others, and none when every instance carried."""
@@ -191,10 +206,12 @@ def _trip(probe: Probe, stp, run, probe1: Optional[tuple], count: int) -> tuple:
         carry = run & (stp == probe1[2])
     go = run & ~carry
     if not carry.any():
-        return probe(stp, go)
-    carried.used += int(carry.sum())
-    ft, dg = probe(stp, go) if go.any() else (probe1[0], probe1[1])
-    return np.where(carry, probe1[0], ft), np.where(carry, probe1[1], dg)
+        ft, dg = probe(stp, go)
+    else:
+        carried.used += int(carry.sum())
+        ft, dg = probe(stp, go) if go.any() else (probe1[0], probe1[1])
+        ft, dg = np.where(carry, probe1[0], ft), np.where(carry, probe1[1], dg)
+    return np.asarray(ft).astype(ff), np.asarray(dg).astype(f)
 
 
 def morethuente(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
@@ -202,7 +219,8 @@ def morethuente(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
     """``linesearch.morethuente`` in probe-only mode over the instances in
     ``live``, one ``probe`` per trip (``src/line.rs:226-399``), the first
     trip carried in from ``probe1`` where its step is the probed one."""
-    f = finit.dtype.type
+    # step and derivative scalars in the vectors' dtype, f-values in their own
+    f, ff = stp0.dtype.type, finit.dtype.type
     ftol, gtol, xtol = f(ls.ftol), f(ls.gtol), f(ls.xtol)
     min_step, max_step = f(ls.min_step), f(ls.max_step)
     max_ls = ls.max_linesearch
@@ -237,7 +255,7 @@ def morethuente(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
                                 | (stmax - stmin <= xtol * stmax))
             s = np.where(unusual, stx, s)
 
-            ft_t, dg_t = _trip(probe, s, run, probe1, count)
+            ft_t, dg_t = _trip(probe, s, run, probe1, count, ff, f)
             ftest1 = finit + s * dgtest
 
             # error exits (src/line.rs:292-313)
@@ -306,7 +324,7 @@ def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
     ``probe1`` where its step is the probed one.  Under OWL-QN (``ow``)
     only the Armijo exit applies (``src/line.rs:747-751``), whatever the
     ladder."""
-    f = finit.dtype.type
+    f, ff = stp0.dtype.type, finit.dtype.type
     dec, inc = f(0.5), f(2.1)
     dgtest = f(ls.ftol) * dginit
     gtol = f(ls.gtol)
@@ -331,7 +349,7 @@ def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
             run = live & ~done
             if not run.any():
                 break
-            ft_t, dg_t = _trip(probe, stp, run, probe1, count)
+            ft_t, dg_t = _trip(probe, stp, run, probe1, count, ff, f)
             armijo_fail = ft_t > finit + stp * dgtest
             if armijo_only:
                 # Armijo-only exit ladder (src/line.rs:745-751)

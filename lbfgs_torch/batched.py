@@ -69,8 +69,9 @@ reference's debug traces), and no per-instance count of them is kept, as
 the JAX batched state keeps none.  The gradient-only mode's literal exit
 runs in ``_batched_search``.
 
-A generic objective (one without the batched epilogue's hook, e.g. the
-Poisson regression of ``models.logistic``, or any user function) runs the
+A generic objective (one without the batched probe and trial that
+``ops.factory.make_fused_objective`` attaches, e.g. the Poisson
+regression of ``models.logistic``, or any user function) runs the
 JAX package's generic branch under its vmap instead: each trip
 materializes every running instance's trial point, xp + stp*d in torch
 (under OWL-QN K9 b, the orthant rebuilt from each instance's (xp, pg)),
@@ -90,15 +91,50 @@ closure f(x, g) and an objective ``torch.func.vmap`` cannot trace raise
 ``ValueError``, as the JAX runner cannot vmap their host callbacks
 (``batched_objective``).
 
-This slice runs plain L-BFGS and OWL-QN, on factory objectives
-(``ops.factory.make_fused_objective``) and generic ones, with More-Thuente
-(routed to backtracking under OWL-QN, as ``linesearch.find`` routes it)
-or any of the three backtracking searches, the step capped or not, damped
-or not, at any history depth (above ``factory.MAX_M`` ring rows the deep
-forms of K4 b, K14 b, K15 b and K16 b, and K3 b, K13 b and K6 b with their
-coefficients sized at launch; K12 b takes any depth);
-``check_supported_batched`` raises ``NotImplementedError`` for the other
-settings.
+Where the objective carries the batched probe and trial but the batched
+epilogue does not run (``route``'s ``TRIAL``: an objective with a fused
+trial and no epilogue, the scan two-loop, a float16 ring) each trip is
+the batched probe as above, and the accepted instances' points are
+materialized by one batched trial (K1 b; under OWL-QN K7 b, its orthant
+rebuilt from (xp, pg)) at the search's evaluated step, the JAX package's
+remat materialization under its vmap (``lbfgs_tpu/linesearch.py:
+285-361``); under OWL-QN K10 b follows.  Then, as the solo solver runs
+each setting per instance:
+
+  * the compact two-loop over a ring the kernels take: K5 b (with its
+    . gp column and ``solver._damped_gram`` damped, then K6 b) and K3 b;
+    under OWL-QN K12 b and K13 b, damped the composed pair;
+  * the scan two-loop (``compact_two_loop=False``): the composed pair
+    (``solver.update_pair_batched``) written into ring row ``end``, then
+    ``solver.two_loop_scan_batched`` (2m row products and axpys in torch
+    ops, no ring kernel) and under OWL-QN the direction constraint;
+  * a float16 ring: the JAX package's jnp route in torch, the pair + Gram
+    pass over the stored pair (``fused.pair_gram_stored_batched``, damped
+    after ``update_pair_batched``) and the combine
+    (``fused.combine_plain_batched``, ``combine_ow_plain_batched``).
+
+A generic objective takes the same three settings on its own branch (the
+scan and the float16 ring in torch ops as above).
+
+Under the wide objective scalar (``params.fx_wide``, float32 vectors) the
+runner works inside ``fused.wide_fx``: fx, the searches' f-values and the
+past/delta ring are float64 [B] arrays, every objective sum of the batched
+kernels is taken in float64 per instance, and the init of an objective
+with the batched trial is one K1 b at stp = 0 (under OWL-QN one K7 b with
+the identity projection, then K10 b); nothing else changes, and float64
+vectors run as without it.
+
+The runner runs plain L-BFGS and OWL-QN, on factory objectives
+(``ops.factory.make_fused_objective``), objectives with only a fused trial,
+and generic ones, with More-Thuente (routed to backtracking under OWL-QN,
+as ``linesearch.find`` routes it) or any of the three backtracking
+searches, the step capped or not, damped or not, at any history depth
+(above ``factory.MAX_M`` ring rows the deep forms of K4 b, K14 b, K15 b
+and K16 b, and K3 b, K13 b and K6 b with their coefficients sized at
+launch; K5 b and K12 b take any depth), under either objective scalar,
+with either two-loop and any history dtype; ``check_supported_batched``
+raises ``NotImplementedError`` for the speculative search and a mesh,
+which the JAX runner does not take either.
 """
 
 from __future__ import annotations
@@ -111,7 +147,8 @@ import torch
 
 from . import _batched_search, solver
 from .core import History, _required_positional, np_type, to_host_rows
-from .ops import factory, fused
+from .ops import fused
+from .orthantwise import project_window
 from .params import LbfgsParams
 from .status import Status
 
@@ -149,13 +186,34 @@ class BatchedState(NamedTuple):
     probe1: Optional[tuple] = None
 
 
-def generic(params: LbfgsParams, evaluate: Callable) -> bool:
-    """Whether the runner takes the generic branch for ``evaluate``: it
-    lacks the batched one-pass epilogue (K4 b, under OWL-QN K14 b) that
-    ``ops.factory.make_fused_objective`` attaches."""
-    epilogue = ("__lbfgs_owlqn_trial_pair_gram_batched__" if params.orthantwise is not None
-                else "__lbfgs_trial_pair_gram_batched__")
-    return getattr(evaluate, epilogue, None) is None
+#: the batched runner's three routes (``route``)
+EPILOGUE, TRIAL, GENERIC = "epilogue", "trial", "generic"
+
+
+def route(params: LbfgsParams, evaluate: Callable, x: torch.Tensor, S: torch.Tensor) -> str:
+    """How the runner takes ``evaluate`` over the [B, n] points ``x`` and the
+    [B, m, n] ring ``S`` (under OWL-QN through its OWL-QN hooks):
+
+      * ``EPILOGUE``: each trip one batched probe (K2 b; K8 b) and each
+        iteration the batched one-pass epilogue (K4 b; K14 b), which
+        ``ops.factory.make_fused_objective`` attaches: with the compact
+        two-loop over a ring the kernels take;
+      * ``TRIAL``: each trip one batched probe, and the accepted points
+        materialized by one batched trial (K1 b; K7 b), where the objective
+        carries them but the epilogue does not run (an objective with a
+        fused trial and no epilogue, the scan two-loop, a float16 ring);
+      * ``GENERIC``: each trip the trials materialized and evaluated with
+        ``torch.func.vmap``, for an objective without the batched probe and
+        trial (the JAX package's generic branch)."""
+    pre = "__lbfgs_owlqn_" if params.orthantwise is not None else "__lbfgs_"
+    probe = "__lbfgs_owlqn_probe_pg_batched__" if pre != "__lbfgs_" else "__lbfgs_probe_batched__"
+    has = lambda name: getattr(evaluate, name, None) is not None
+    if not has(probe):
+        return GENERIC
+    if (has(pre + "trial_pair_gram_batched__") and params.compact_two_loop
+            and (x.dtype, S.dtype) in fused.SUPPORTED):
+        return EPILOGUE
+    return TRIAL if has(pre + "trial_batched__") else GENERIC
 
 
 def batched_objective(evaluate: Callable, x0_batch: torch.Tensor) -> Callable:
@@ -203,20 +261,11 @@ def batched_objective(evaluate: Callable, x0_batch: torch.Tensor) -> Callable:
 
 def check_supported_batched(params: LbfgsParams, evaluate: Callable,
                             x0_batch: torch.Tensor) -> None:
-    """Raise ``NotImplementedError`` naming each setting the batched
-    runner does not run yet, with plain L-BFGS and with OWL-QN, damped or
-    not, on factory and generic objectives: the wide objective scalar, the
-    scan two-loop, a history the ring kernels do not take (float16), the
-    speculative search, and a mesh (``parallel``: batches are not
-    sharded)."""
-    hdtype = (getattr(torch, params.history_dtype) if params.history_dtype
-              else x0_batch.dtype)
+    """Raise ``NotImplementedError`` naming each setting the batched runner
+    does not run: the speculative search (the JAX runner's K-way search
+    is left out) and a mesh (``parallel``: the JAX runner takes none)."""
     unsupported = [
         (fused.active_mesh() is not None, "a mesh (sharded batches are not ported)"),
-        (params.fx_wide, "the wide objective scalar (fx_wide)"),
-        (not params.compact_two_loop, "the scan two-loop (compact_two_loop=False)"),
-        ((x0_batch.dtype, hdtype) not in fused.SUPPORTED,
-         f"a {hdtype} history with {x0_batch.dtype} vectors"),
         (int(params.linesearch.speculative) > 1, "the speculative line search"),
     ]
     for refused, what in unsupported:
@@ -249,36 +298,62 @@ def init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) 
     package vmaps its ``init_state`` (``lbfgs_tpu/batched.py:30-33``), and
     read in one transfer.  ``evaluate`` is a value-and-grad objective
     (``batched_objective``).  Under OWL-QN a factory objective's pg and
-    ||pg||^2 come from K10 b, a generic one's pg from K11 b and ||pg||^2
-    from a row product (the solo generic init's K11 and dot)."""
+    ||pg||^2 come from K10 b, another's pg from K11 b and ||pg||^2 from a
+    row product (the solo generic init's K11 and dot).  Under the wide
+    objective scalar (float32 vectors) an objective with the batched trial
+    is evaluated instead by one K1 b at stp = 0, under OWL-QN one K7 b with
+    the identity projection followed by K10 b, so that fx and its L1 term
+    are summed in float64 (``lbfgs_tpu/solver.py:1159-1192``); fx is then
+    float64 [B]."""
+    with fused.wide_fx(params.fx_wide):
+        return _init_state(params, evaluate, x0_batch)
+
+
+def _init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor) -> BatchedState:
     B, n = x0_batch.shape
     m = params.m
     f = np_type(x0_batch.dtype)
     x = x0_batch.contiguous().clone()
-
-    def one(xi):
-        fx, g = evaluate(xi)
-        return fx, g, torch.dot(g, g), torch.dot(xi, xi)
-
-    fx_t, g, gg, xx = torch.func.vmap(one)(x)
-    # the kernels take contiguous rows (a vmapped product may hand back a
-    # transposed layout)
-    g = g.contiguous()
-    fx_t = fx_t.to(x.dtype)
+    ow = params.orthantwise
+    every = torch.ones(B, dtype=torch.bool, device=x.device)
+    pre = "__lbfgs_owlqn_" if ow is not None else "__lbfgs_"
+    trial = getattr(evaluate, pre + "trial_batched__", None)
     pg = None
-    if params.orthantwise is not None:
-        # fx gains c*||x||_1 over the window (a torch reduction, as the
-        # solo init adds it), and K10 b gives pg and ||pg||^2
-        ow = params.orthantwise
+    if ow is not None:
         lo, hi = ow.start_end(n)
-        fx_t = fx_t + torch.abs(x[:, lo:hi]).sum(dim=1) * ow.c
-        pg = torch.empty_like(x)
-        every = torch.ones(B, dtype=torch.bool, device=x.device)
-        if generic(params, evaluate):
-            fused.pseudo_gradient_batched(x, g, ow.c, lo, hi, every, pg)
-            gg = fused.row_dot(pg, pg)
+        pg_norm = getattr(evaluate, "__lbfgs_pseudo_gradient_norm_batched__", None)
+    if trial is not None and fused.wide(x.dtype):
+        # the wide init: x0 + 0*x0 is x0, and with pg = x0 K7 b's orthant is
+        # each element's own sign, so nothing is projected
+        zero = torch.zeros(B, dtype=x.dtype, device=x.device)
+        xt, g = torch.empty_like(x), torch.empty_like(x)
+        if ow is None:
+            fx_t, _dg, gg, xx, _ch = trial(x, x, zero, every, xt, g)
         else:
-            gg = evaluate.__lbfgs_pseudo_gradient_norm_batched__(x, g, ow.c, lo, hi, every, pg)
+            fx_t, _dg, xx, _ch = trial(x, x, x, zero, ow.c, lo, hi, every, xt, g)
+            pg = torch.empty_like(x)
+            gg = (pg_norm or fused.pseudo_gradient_norm_batched)(xt, g, ow.c, lo, hi, every, pg)
+        x = xt
+    else:
+        def one(xi):
+            fx, g = evaluate(xi)
+            return fx, g, torch.dot(g, g), torch.dot(xi, xi)
+
+        fx_t, g, gg, xx = torch.func.vmap(one)(x)
+        # the kernels take contiguous rows (a vmapped product may hand back a
+        # transposed layout)
+        g = g.contiguous()
+        fx_t = fused.obj_lift(fx_t, x.dtype)
+        if ow is not None:
+            # fx gains c*||x||_1 over the window (a torch reduction, as the
+            # solo init adds it), and K10 b gives pg and ||pg||^2
+            fx_t = fx_t + fused.l1_batched(x, lo, hi) * ow.c
+            pg = torch.empty_like(x)
+            if pg_norm is None:
+                fused.pseudo_gradient_batched(x, g, ow.c, lo, hi, every, pg)
+                gg = fused.row_dot(pg, pg)
+            else:
+                gg = pg_norm(x, g, ow.c, lo, hi, every, pg)
     fx, gnorm2, xnorm2 = to_host_rows(fx_t, gg, xx)
     # step = initial_inverse_hessian / ||d||, and ||d|| = ||g|| (||pg||)
     step = f(params.initial_inverse_hessian) / np.sqrt(np.where(gnorm2 != 0.0, gnorm2, f(1.0)))
@@ -377,9 +452,15 @@ def _two_loop(hist: History, gamma: torch.Tensor, bound: int, end: int, Sd_ring:
 
 def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
               live: np.ndarray) -> BatchedState:
-    """One iteration (``solver.propagate_hot``) of every live instance:
-    through the objective's batched kernels, or on the generic branch (see
-    the module docstring) when it has none."""
+    """One iteration (``solver.propagate_hot``) of every live instance,
+    on the objective's route (``route``; see the module docstring), under
+    the wide objective scalar when ``params.fx_wide``."""
+    with fused.wide_fx(params.fx_wide):
+        return _propagate(params, evaluate, st, live)
+
+
+def _propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
+               live: np.ndarray) -> BatchedState:
     k = st.k + live
     if len(set(k[live].tolist())) != 1 or len(set(st.end[live].tolist())) != 1:
         raise ValueError("the running instances must share their iteration count and ring row")
@@ -387,15 +468,21 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
     kk = int(k[live][0])
     m = params.m
     bound = min(m, kk - 1)
-    f = st.fx.dtype.type
+    # the step and derivative scalars' dtype (fx may be float64: the wide
+    # objective scalar)
+    f = np_type(st.x.dtype)
     x, g, d, hist, pg = st.x, st.gx, st.d, st.hist, st.pg
     ow = params.orthantwise
     damped = params.damping
-    gen = generic(params, evaluate)
+    scan = not params.compact_two_loop
+    # a ring the kernels do not take (float16): the composed pair + Gram
+    # pass and combine in torch ops, as the JAX package runs jnp there
+    composed = (x.dtype, hist.s.dtype) not in fused.SUPPORTED
+    way = route(params, evaluate, x, hist.s)
     if ow is not None:
         c, (lo, hi) = ow.c, ow.start_end(x.shape[1])
 
-    if gen:
+    if way == GENERIC:
         # the trial buffers: each instance's last evaluated trial point and
         # gradient, written by the trips it runs (the others keep theirs)
         xt, gt = x.clone(), g.clone()
@@ -410,9 +497,9 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
             # the whole batch evaluated at once; only the running rows kept
             ft, g_all = torch.func.vmap(evaluate)(xt)
             gt.copy_(torch.where(run[:, None], g_all, gt))
-            ft = ft.to(x.dtype)
+            ft = fused.obj_lift(ft, x.dtype)
             if ow is not None:
-                ft = ft + torch.abs(xt[:, lo:hi]).sum(dim=1) * c
+                ft = ft + fused.l1_batched(xt, lo, hi) * c
             return to_host_rows(ft, fused.row_dot(g_all, d))
     else:
         def probe(stp, run):
@@ -442,47 +529,8 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
     probe1 = None if fusion is None else st.probe1
     if ok.any():
         okd = _to_device(ok, x)
-        case = row_fix = changed = None
-        if gen:
-            # the accepted instances' last trials; a failed or frozen
-            # instance keeps its point and gradient, and xp, gp stay for the
-            # pair
-            xp, gp = x, g
-            x = torch.where(okd[:, None], xt, xp)
-            g = torch.where(okd[:, None], gt, gp)
-            del xt, gt
-            xx = fused.row_dot(x, x)
-            if ow is None:
-                gg = fused.row_dot(g, g)
-            else:
-                # K10 b: the new pg (over the old, of the accepted only) and
-                # ||pg||^2
-                gg = fused.pseudo_gradient_norm_batched(x, g, c, lo, hi, okd, pg)
-            g0 = g if ow is None else pg
-            if damped:
-                # the composed damped pair (solver.update_pair per instance)
-                # with the reported step, stored, then the products of the
-                # STORED pair; ys and gamma pre-damping, "x/g not changed"
-                # from its own s.s and y.y
-                pu = solver.update_pair_batched(params, x, xp, g, gp, _to_device(step_ls, x))
-                SP, YP = fused.pair_gram_stored_batched(pu.s, pu.y, g0, hist.s, hist.y, end,
-                                                        okd)
-                ys_new, yy_new, case, ss = pu.ys, pu.yy, pu.case, pu.ss
-            else:
-                if ow is None:
-                    # the JAX package's jnp pass over the stored pair
-                    SP, YP = fused.pair_gram_stored_batched(x - xp, g - gp, g, hist.s, hist.y,
-                                                            end, okd)
-                else:
-                    # K12 b: the pair of the projected step, against -pg
-                    SP, YP = fused.pair_gram_xg_batched(x, xp, g, gp, pg, hist.s, hist.y, end,
-                                                        okd)
-                ys_new, yy_new, ss = SP[:, end, 0], YP[:, end, 0], SP[:, end, 1]
-            # the reference's s == 0 test (src/lbfgs.rs:646), per instance
-            changed = ss != 0.0
-            gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
-            u, v, w, Yd_ring = SP[:, :, 0], YP[:, :, 0], YP[:, :, 1], YP[:, :, 2]
-        else:
+        case = row_fix = changed = pu = None
+        if way == EPILOGUE:
             stp = _to_device(ls.step_eval, x)
             # the epilogue: x, g (and pg) and ring row `end` in place, the 6m
             # products against d0 = -g (-pg); damped, the 8m with the . gp
@@ -523,50 +571,147 @@ def propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
                     blend = ((a - b)[:, None] * y_end.to(x.dtype) + b[:, None] * g).to(
                         y_end.dtype)
                     hist.y[:, end] = torch.where(okd[:, None], blend, y_end)
-        sy = hist.sy.clone()
-        sy[:, :, end] = u
-        sy[:, end, :] = w
-        yy = hist.yy.clone()
-        yy[:, :, end] = v
-        yy[:, end, :] = v
+        else:
+            # the accepted instances' points and gradients: a failed or
+            # frozen instance keeps its own, and xp, gp stay for the pair
+            xp, gp = x, g
+            if way == GENERIC:
+                # their last trials
+                x = torch.where(okd[:, None], xt, xp)
+                g = torch.where(okd[:, None], gt, gp)
+                del xt, gt
+                xx = fused.row_dot(x, x)
+                if ow is None:
+                    gg = fused.row_dot(g, g)
+            else:
+                # one batched trial at each accepted instance's evaluated
+                # step (K1 b; K7 b, its orthant from (xp, pg)): the point of
+                # the search's last probe, written over copies of xp, gp
+                stp = _to_device(ls.step_eval, x)
+                x, g = xp.clone(), gp.clone()
+                if ow is None:
+                    _ft, _gd, gg, xx, changed = evaluate.__lbfgs_trial_batched__(
+                        xp, d, stp, okd, x, g)
+                else:
+                    _ft, _gd, xx, changed = evaluate.__lbfgs_owlqn_trial_batched__(
+                        xp, d, pg, stp, c, lo, hi, okd, x, g)
+            if ow is not None:
+                # K10 b: the new pg (over the old, of the accepted only) and
+                # ||pg||^2
+                gg = getattr(evaluate, "__lbfgs_pseudo_gradient_norm_batched__",
+                             fused.pseudo_gradient_norm_batched)(x, g, c, lo, hi, okd, pg)
+            g0 = g if ow is None else pg
+            if scan or (damped and (way == GENERIC or composed or ow is not None)):
+                # the composed pair (solver.update_pair per instance; damped
+                # if asked) with the reported step, its ys and gamma
+                # pre-damping.  Scan: stored into ring row `end`, with no
+                # Gram products (lbfgs_tpu/solver.py:628-637); else the
+                # products of the STORED pair (generic objectives, a float16
+                # ring, and OWL-QN without K14 b damped, as the JAX package
+                # composes them)
+                pu = solver.update_pair_batched(params, x, xp, g, gp, _to_device(step_ls, x))
+                if scan:
+                    keep_row = okd[:, None]
+                    hist.s[:, end] = torch.where(keep_row, pu.s.to(hist.s.dtype), hist.s[:, end])
+                    hist.y[:, end] = torch.where(keep_row, pu.y.to(hist.y.dtype), hist.y[:, end])
+                else:
+                    SP, YP = fused.pair_gram_stored_batched(pu.s, pu.y, g0, hist.s, hist.y, end,
+                                                            okd)
+                ys_new, yy_new, case, ss = pu.ys, pu.yy, pu.case, pu.ss
+            elif composed or (way == GENERIC and ow is None):
+                # the JAX package's jnp pass over the stored pair
+                SP, YP = fused.pair_gram_stored_batched(x - xp, g - gp, g0, hist.s, hist.y, end,
+                                                        okd)
+                ys_new, yy_new, ss = SP[:, end, 0], YP[:, end, 0], SP[:, end, 1]
+            elif ow is not None:
+                # K12 b: the pair of the projected step, against -pg
+                SP, YP = fused.pair_gram_xg_batched(x, xp, g, gp, pg, hist.s, hist.y, end, okd)
+                ys_new, yy_new, ss = SP[:, end, 0], YP[:, end, 0], SP[:, end, 1]
+            else:
+                # K5 b: the pair from s = stp*d (with the . gp column damped)
+                SP, YP = fused.pair_gram_sd_batched(stp, d, g, gp, hist.s, hist.y, end, okd,
+                                                    with_gp=damped)
+                ys_new, yy_new, ss = SP[:, end, 0], YP[:, end, 0], SP[:, end, 1]
+            if changed is None or pu is not None or composed:
+                # the reference's s == 0 test (src/lbfgs.rs:646), per
+                # instance, where no trial's changed count decides it
+                changed = ss != 0.0
+            gamma = ys_new / torch.where(yy_new == 0.0, torch.ones_like(yy_new), yy_new)
+            if not scan:
+                u, v, w, Yd_ring = SP[:, :, 0], YP[:, :, 0], YP[:, :, 1], YP[:, :, 2]
+                if damped and pu is None:
+                    # K5 b's . gp column: the epilogue's plain reconstruction
+                    gpgp = _to_device(st.gnorm2, x)
+                    u, v, w, Yd_ring, a, b, case = solver._damped_gram(
+                        params, SP, YP, end, stp, gpgp, -(YP[:, end, 3] + gpgp))
+                    row_fix = (a - b, b)
         ys = hist.ys.clone()
         ys[:, end] = ys_new
-        new = hist._replace(ys=ys, sy=sy, yy=yy)
-        coef, alpha = _two_loop(new, gamma, bound, end, SP[:, :, 2], Yd_ring)
-        if row_fix is not None:
-            # ring row `end` still holds the pre-damping y: its coefficient
-            # splits into cy[end]*ca on the row and cy[end]*cb on g
-            # (solver.two_loop_compact's row_fix), and (ca, cb) follow
-            ca, cb = row_fix
-            cy_end = coef[:, 1 + m + end].clone()
-            coef[:, 0] = coef[:, 0] + cy_end * cb
-            coef[:, 1 + m + end] = cy_end * ca
-            coef = torch.cat([coef, ca[:, None], cb[:, None]], dim=1)
-        # the combine: the next direction over d, its norm and dginit;
-        # under OWL-QN over pg, constrained to its orthant (src/lbfgs.rs:554),
-        # its norm before the constraint, ||rc||^2 and dginit = rc . pg.
-        # Fused, it also probes each instance's next search at x + stp_pred*d.
-        # Damped plain, it also persists the damped row
-        if fusion is None:
-            fused_out = ()
+        fused_out = ()
+        if scan:
+            # the literal two-loop per instance (solver.two_loop_scan, the
+            # recursion over [B] vectors) on d0 = -g (-pg), then under
+            # OWL-QN the direction constraint (src/lbfgs.rs:554), ||d||^2
+            # before it and dginit = g . d (pg . d) as row products
+            sy, yy = hist.sy, hist.yy
+            dnew, alpha = solver.two_loop_scan_batched(hist._replace(ys=ys), -g0, gamma, bound,
+                                                       end)
+            dd = fused.row_dot(dnew, dnew)
             if ow is not None:
-                dd, rc2, rd = getattr(evaluate, "__lbfgs_combine_ow_batched__",
-                                      fused.combine_ow_batched)(pg, hist.s, hist.y, coef, okd,
-                                                                d, lo, hi)
-            elif row_fix is not None:
-                dd, rd = evaluate.__lbfgs_combine_fix_batched__(g, hist.s, hist.y, coef, okd, d,
-                                                               end)
-            else:
-                dd, rd = getattr(evaluate, "__lbfgs_combine_batched__",
-                                 fused.combine_batched)(g, hist.s, hist.y, coef, okd, d)
+                dnew = project_window(dnew, -pg, lo, hi)
+                rc2 = fused.row_dot(dnew, dnew)
+            rd = fused.row_dot(g0, dnew)
+            d.copy_(torch.where(okd[:, None], dnew, d))
         else:
-            stp1 = _to_device(stp_pred, x)
-            if ow is None:
-                dd, rd, *fused_out = fusion(g, x, hist.s, hist.y, coef, stp1, okd, d,
-                                            fix=None if row_fix is None else end)
+            sy = hist.sy.clone()
+            sy[:, :, end] = u
+            sy[:, end, :] = w
+            yy = hist.yy.clone()
+            yy[:, :, end] = v
+            yy[:, end, :] = v
+            new = hist._replace(ys=ys, sy=sy, yy=yy)
+            coef, alpha = _two_loop(new, gamma, bound, end, SP[:, :, 2], Yd_ring)
+            if row_fix is not None:
+                # ring row `end` still holds the pre-damping y: its
+                # coefficient splits into cy[end]*ca on the row and
+                # cy[end]*cb on g (solver.two_loop_compact's row_fix), and
+                # (ca, cb) follow
+                ca, cb = row_fix
+                cy_end = coef[:, 1 + m + end].clone()
+                coef[:, 0] = coef[:, 0] + cy_end * cb
+                coef[:, 1 + m + end] = cy_end * ca
+                coef = torch.cat([coef, ca[:, None], cb[:, None]], dim=1)
+            # the combine: the next direction over d, its norm and dginit;
+            # under OWL-QN over pg, constrained to its orthant
+            # (src/lbfgs.rs:554), its norm before the constraint, ||rc||^2
+            # and dginit = rc . pg.  Fused, it also probes each instance's
+            # next search at x + stp_pred*d.  Damped plain, it also persists
+            # the damped row.  Over a float16 ring, torch ops
+            if fusion is None:
+                if composed and ow is not None:
+                    dd, rc2, rd = fused.combine_ow_plain_batched(pg, hist.s, hist.y, coef, okd, d,
+                                                                 lo, hi)
+                elif composed:
+                    dd, rd = fused.combine_plain_batched(g, hist.s, hist.y, coef, okd, d)
+                elif ow is not None:
+                    dd, rc2, rd = getattr(evaluate, "__lbfgs_combine_ow_batched__",
+                                          fused.combine_ow_batched)(pg, hist.s, hist.y, coef, okd,
+                                                                    d, lo, hi)
+                elif row_fix is not None:
+                    dd, rd = getattr(evaluate, "__lbfgs_combine_fix_batched__",
+                                     fused.combine_fix_batched)(g, hist.s, hist.y, coef, okd, d,
+                                                                end)
+                else:
+                    dd, rd = getattr(evaluate, "__lbfgs_combine_batched__",
+                                     fused.combine_batched)(g, hist.s, hist.y, coef, okd, d)
             else:
-                dd, rc2, rd, *fused_out = fusion(pg, x, hist.s, hist.y, coef, c, lo, hi, stp1,
-                                                 okd, d)
+                stp1 = _to_device(stp_pred, x)
+                if ow is None:
+                    dd, rd, *fused_out = fusion(g, x, hist.s, hist.y, coef, stp1, okd, d,
+                                                fix=None if row_fix is None else end)
+                else:
+                    dd, rc2, rd, *fused_out = fusion(pg, x, hist.s, hist.y, coef, c, lo, hi,
+                                                     stp1, okd, d)
         extra = (() if ow is None else (rc2,)) + (() if case is None else (case,))
         keep = lambda a, b: torch.where(okd.view(-1, *([1] * (a.ndim - 1))), a, b)
         hist = History(s=hist.s, y=hist.y, ys=keep(ys, hist.ys), alpha=keep(alpha, hist.alpha),
@@ -652,9 +797,10 @@ def minimize_batched(params: LbfgsParams, x0_batch: torch.Tensor, evaluate: Call
     takes, or a generic one, value-and-grad or scalar, vmapped
     (``batched_objective``; a mutating closure raises ``ValueError``).
     The run takes place on x0_batch's device.  Returns the JAX package's dict of per-instance
-    results, tensors on that device: fx, xnorm, gnorm ([B], the vectors'
-    dtype; gnorm is ||pg|| under OWL-QN, as the JAX package's ``gnorm_of``),
-    neval, niter, status ([B] int32) and x ([B, n]); or with
+    results, tensors on that device: fx ([B], the objective scalar's dtype:
+    float64 under the wide scalar, else the vectors'), xnorm, gnorm ([B],
+    the vectors' dtype; gnorm is ||pg|| under OWL-QN, as the JAX package's
+    ``gnorm_of``), neval, niter, status ([B] int32) and x ([B, n]); or with
     ``return_state`` the final ``BatchedState``.  A fatal status is
     reported per instance, never raised.
     """
@@ -675,7 +821,7 @@ def minimize_batched(params: LbfgsParams, x0_batch: torch.Tensor, evaluate: Call
         device=x0_batch.device, dtype=dtype)
     vd = x0_batch.dtype
     return dict(
-        fx=on(st.fx, vd), xnorm=on(np.sqrt(st.xnorm2), vd), gnorm=on(np.sqrt(st.gnorm2), vd),
+        fx=on(st.fx, torch.from_numpy(st.fx).dtype), xnorm=on(np.sqrt(st.xnorm2), vd), gnorm=on(np.sqrt(st.gnorm2), vd),
         neval=on(st.neval, torch.int32), niter=on(st.k, torch.int32),
         status=on(st.status, torch.int32), x=st.x,
     )

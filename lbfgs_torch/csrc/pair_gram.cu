@@ -46,6 +46,15 @@
 // damped generic branch composes its pair in torch, as the JAX package's
 // does.
 //
+// K5 b (kBatched, not kXg) replaces _pair_gram_kernel under the same vmap
+// (the pair + Gram pass of an objective with a fused trial but no one-pass
+// epilogue, lbfgs_tpu/solver.py:640-674): K5 over [B, n] instances, each
+// with its own step (stps[b]), laid out and masked as K12 b, with and
+// without the . gp column (kGp, its [blocks, 2m] partials per instance
+// beside the [blocks, 6m] ones).  An instance's ring row and partials
+// are solo K5's bit for bit, and its . gp launch's six base columns the
+// 3-column launch's.
+//
 // What bounds them on the H100: bytes.  K5 reads d, gx, gp and the m-1 old
 // rows of each ring and writes one row of each: with f32 vectors, a bf16
 // history and m = 6 that is 12 + 20 + 4 = 36 bytes per element (K12 reads
@@ -218,7 +227,8 @@ __device__ __forceinline__ void base_products(const T (&sj)[V], const T (&yj)[V]
 
 // The vectors a launch forms its pair from.  K5: s = stp*a (a = d),
 // y = gx - gp, d0 = -gx.  K12 (kXg): s = a - b (a = x, b = xp), y = gx - gp,
-// d0 = -pg.  The pointers a launch does not read are null.
+// d0 = -pg.  K5 b takes each instance's step from stps.  The pointers a
+// launch does not read are null.
 template <typename T>
 struct PairIn {
   T stp;
@@ -227,6 +237,7 @@ struct PairIn {
   const T* gx;
   const T* gp;
   const T* pg;
+  const T* stps = nullptr;
 };
 
 // One tile's work for the thread's run p[i .. i+V): the loads, the pair,
@@ -335,33 +346,40 @@ __device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ a,
 // starts on a 16-byte (vectors) or V-element (rings) boundary and n is a
 // multiple of V, so every whole run takes one load per array.
 //
-// kBatched (K12 b): the grid's third index is the instance; its vectors,
-// rings and [blocks, 6m] partials are at offsets of its index times n, m*n
-// and blocks*6m, and a frozen instance's blocks return at once.
+// kBatched (K12 b, K5 b): the grid's third index is the instance; its
+// vectors, rings and [blocks, 6m] (. gp: [blocks, 2m]) partials are at
+// offsets of its index times n, m*n and blocks*6m (blocks*2m), K5 b's step
+// is stps[instance], and a frozen instance's blocks return at once.
 template <typename T, typename H, int MP, bool kGp, bool kXg, bool kBatched>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<H>)
 pair_gram_kernel(T stp, const T* __restrict__ a, const T* __restrict__ b,
                  const T* __restrict__ gx, const T* __restrict__ gp, const T* __restrict__ pg,
                  H* __restrict__ S, H* __restrict__ Y, T* __restrict__ partials,
                  T* __restrict__ gpartials, long long n, int m, int end, long long tiles,
-                 bool vec, const unsigned char* __restrict__ live) {
-  static_assert(!kBatched || (kXg && !kGp), "K12 b: the OWL-QN pair, no . gp column");
+                 bool vec, const unsigned char* __restrict__ live,
+                 const T* __restrict__ stps) {
+  static_assert(!kBatched || !(kXg && kGp), "K12 b has no . gp column");
+  constexpr int kScalars = kXg && kGp ? 2 : 0;
   if constexpr (kBatched) {
     const long long inst = blockIdx.z;
     if (!live[inst]) return;
     const long long off = inst * n;
+    if constexpr (kXg) {
+      b += off;
+      pg += off;
+    } else {
+      stp = stps[inst];
+    }
     a += off;
-    b += off;
     gx += off;
     gp += off;
-    pg += off;
     S += inst * m * n;
     Y += inst * m * n;
     partials += inst * gridDim.y * 6LL * m;
+    if constexpr (kGp) gpartials += inst * gridDim.y * (2LL * m + kScalars);
   }
   constexpr int V = kV<T>;
   constexpr long long kTile = static_cast<long long>(kThreads) * V;
-  constexpr int kScalars = kXg && kGp ? 2 : 0;
   constexpr int kSums = (kGp ? 8 : 6) * MP + kScalars;
   __shared__ T red[kSums][kWarps];
   const long long run = blockIdx.y;
@@ -441,7 +459,7 @@ int launch_pair_gram(const PairIn<T>& in, H* S, H* Y, T* partials, T* gpartials,
                   static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
   pair_gram_kernel<T, H, MP, kGp, kXg, kBatched><<<grid, kThreads, 0, stream>>>(
       in.stp, in.a, in.b, in.gx, in.gp, in.pg, S, Y, partials, gpartials, n, m, end, tiles,
-      vec, live);
+      vec, live, in.stps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -520,6 +538,28 @@ int pair_gram_xg_batched(const PairIn<T>& in, void* S, void* Y, const void* live
       reinterpret_cast<cudaStream_t>(stream), static_cast<const unsigned char*>(live), batch);
 }
 
+// K5 b: the vectors [batch, n], the steps [batch], the rings [batch, m,
+// n], partials [batch, blocks, 6m] (. gp: [batch, blocks, 2m]); the launch
+// of each instance is the solo one's
+template <typename T, typename H>
+int pair_gram_sd_batched(const PairIn<T>& in, void* S, void* Y, const void* live,
+                         void* partials, void* gpartials, long long n, int m, int end,
+                         int with_gp, long long tile, long long tiles, long long blocks, int batch,
+                         void* stream) {
+  if (!launch_ok<T>(n, m, end, tile, tiles, blocks) || batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = vec_ok<T, H, false>(in, S, Y, n);
+  const auto* lv = static_cast<const unsigned char*>(live);
+  const auto cs = reinterpret_cast<cudaStream_t>(stream);
+  if (with_gp)
+    return pair_gram_rows<T, H, true, false, true>(
+        in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials),
+        static_cast<T*>(gpartials), n, m, end, tiles, blocks, vec, cs, lv, batch);
+  return pair_gram_rows<T, H, false, false, true>(
+      in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials), nullptr, n, m,
+      end, tiles, blocks, vec, cs, lv, batch);
+}
+
 }  // namespace
 
 extern "C" {
@@ -582,5 +622,25 @@ LBFGS_PAIR_GRAM_XG_BATCHED_ENTRY(f32_f32, float, float)
 LBFGS_PAIR_GRAM_XG_BATCHED_ENTRY(f64_f64, double, double)
 
 #undef LBFGS_PAIR_GRAM_XG_BATCHED_ENTRY
+
+// K5 b
+#define LBFGS_PAIR_GRAM_BATCHED_ENTRY(SFX, T, H)                                             \
+  int lbfgs_pair_gram_batched_##SFX(const void* stp, const void* d, const void* gx,         \
+                                    const void* gp, void* S, void* Y, const void* live,     \
+                                    void* partials, void* gpartials, long long n, int m,    \
+                                    int end, int with_gp, long long tile, long long tiles,  \
+                                    long long blocks, int batch, void* stream) {            \
+    const PairIn<T> in{T(0),    static_cast<const T*>(d),  nullptr,                         \
+                       static_cast<const T*>(gx), static_cast<const T*>(gp), nullptr,       \
+                       static_cast<const T*>(stp)};                                         \
+    return pair_gram_sd_batched<T, H>(in, S, Y, live, partials, gpartials, n, m, end,       \
+                                      with_gp, tile, tiles, blocks, batch, stream);         \
+  }
+
+LBFGS_PAIR_GRAM_BATCHED_ENTRY(f32_bf16, float, __nv_bfloat16)
+LBFGS_PAIR_GRAM_BATCHED_ENTRY(f32_f32, float, float)
+LBFGS_PAIR_GRAM_BATCHED_ENTRY(f64_f64, double, double)
+
+#undef LBFGS_PAIR_GRAM_BATCHED_ENTRY
 
 }  // extern "C"

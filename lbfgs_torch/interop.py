@@ -81,8 +81,9 @@ def batched_state_from_jax(tree: Any, device):
     batched ``SolverState`` (``lbfgs_tpu.batched.minimize_batched(...,
     return_state=True)``) with numpy leaves, each with a leading instance
     axis: the vectors, the [B, m, n] rings (from a ring-major [B, m, n/128,
-    128] layout too) and the [B] host scalars, the vectors' dtype kept
-    (fx too: the batched runner has no wide objective scalar).  The JAX
+    128] layout too) and the [B] host scalars, the vectors' dtype kept;
+    fx, the past/delta ring pf and the carried probe's ft keep their own
+    (float64 in a wide, ``fx_wide``, state over float32 vectors).  The JAX
     state's previous-point slots are dropped: the port's batched state is
     lean.  Under OWL-QN the pseudo-gradients ``pg`` come along, and where
     the JAX state carries the combine+probe slot its [B] (ft, dgt,
@@ -99,11 +100,11 @@ def batched_state_from_jax(tree: Any, device):
         hist=History(s=_tensor(np.asarray(h.s).reshape(B, m, -1), device),
                      y=_tensor(np.asarray(h.y).reshape(B, m, -1), device),
                      ys=vec(h.ys), alpha=vec(h.alpha), sy=vec(h.sy), yy=vec(h.yy)),
-        fx=host(p.fx), gnorm2=host(p.gnorm2), xnorm2=host(p.xnorm2),
+        fx=np.array(p.fx), gnorm2=host(p.gnorm2), xnorm2=host(p.xnorm2),
         neval=host(p.neval, np.int64), k=host(tree.k, np.int64), end=host(tree.end, np.int64),
         step=host(tree.step), step_ls=host(tree.step_ls), ncall=host(tree.ncall, np.int64),
         status=host(tree.status, np.int64), ls_status=host(tree.ls_status, np.int64),
-        dg0=host(tree.dg0), pf=None if tree.pf is None else host(tree.pf),
+        dg0=host(tree.dg0), pf=None if tree.pf is None else np.array(tree.pf),
         pg=None if p.pg is None else vec(p.pg),
         probe1=_probe1(getattr(tree, "probe1", None), f),
     )

@@ -96,6 +96,12 @@ _SIGNATURES = {
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{
+        f"lbfgs_pair_gram_batched_{sfx}": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             _LL, _LL, _LL, ctypes.c_int, _P], ctypes.c_int)
+        for sfx in ("f32_bf16", "f32_f32", "f64_f64")
+    },
+    **{
         f"lbfgs_pseudo_grad_batched_{sfx}": (
             [_P, _P, ctypes.c_double, _LL, _LL, _P, _P, _LL, ctypes.c_int, _P], ctypes.c_int)
         for sfx in ("f32", "f64")

@@ -176,7 +176,15 @@ with the instance's coefficient row and its own entry step stp1 (36
 B/elem each, as their solo kernels), M = m up to ``factory.MAX_M`` rows
 and M = 0 above; K15 b's ``FIX`` form (the damped runs) persists the
 damped row of the ring row the instances share, as K15's does (38
-B/elem).  Above ``factory.MAX_M`` rows the epilogues are
+B/elem).  Where no batched epilogue runs (the wide init, the scan
+two-loop, a float16 ring, an objective without the epilogue) the accepted
+points are materialized by K1 b ``trial_batched_kernel`` and, under
+OWL-QN, K7 b ``owlqn_trial_batched_kernel`` (with the orthant rebuilt
+from (xp, pg) as K8 b rebuilds it): K1's and K7's block per instance (16
+and 20 B/elem), their (f, g.d) and (f, L1, g.d) partials written by K2
+b's and K8 b's expressions into arrays of K2 b's and K8 b's layout, so
+that at the same step their scalars are K2 b's and K8 b's bit for bit
+(the remat contract).  Above ``factory.MAX_M`` rows the epilogues are
 ``trial_pair_gram_deep_batched_kernel`` and
 ``owlqn_trial_pair_gram_deep_batched_kernel``: the deep K4's and K14's
 program per instance, their group passes and their last-pass stores (x,
@@ -416,6 +424,68 @@ def owlqn_probe_batched_kernel(xp_ptr, d_ptr, pg_ptr, stp_ptr, live_ptr, part_pt
     tl.store(part + 0, _block_sum(fe, mask), mask=live)
     tl.store(part + 1, _block_sum(tl.abs(x), mask & in_win), mask=live)
     tl.store(part + 2, _block_sum(g * d, mask), mask=live)
+
+
+@triton.jit
+def trial_batched_kernel(xp_ptr, d_ptr, stp_ptr, live_ptr, xt_ptr, g_ptr, ppart_ptr, part_ptr,
+                         n, ex, body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr):
+    # program (i, b): K1's block i of instance b.  The objective's and g.d
+    # partials go to a [B, programs, 2] array through K2 b's expressions, so
+    # the wrapper sums them as it sums K2 b's (the remat contract); g.g, x.x
+    # and the changed count to a [B, programs, 3] array of their own
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    offs = _offsets(ROWS, W)
+    mask = (offs < n) & live
+    stp = tl.load(stp_ptr + b)
+    xp = tl.load(xp_ptr + row + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + row + offs, mask=mask, other=0.0)
+    exb = _extras(ex, offs, mask)
+    x = xp + stp * d
+    fe, g = body(x, offs, *exb)
+    tl.store(xt_ptr + row + offs, x, mask=mask)
+    tl.store(g_ptr + row + offs, g, mask=mask)
+    ppart = _batched_part(ppart_ptr, b, 2)
+    tl.store(ppart + 0, _block_sum(fe, mask), mask=live)
+    tl.store(ppart + 1, _block_sum(g * d, mask), mask=live)
+    part = _batched_part(part_ptr, b, 3)
+    tl.store(part + 0, _block_sum(g * g, mask), mask=live)
+    tl.store(part + 1, _block_sum(x * x, mask), mask=live)
+    tl.store(part + 2, _block_sum(tl.where(x != xp, 1.0, 0.0).to(x.dtype), mask), mask=live)
+
+
+@triton.jit(do_not_specialize=["lo", "hi"])
+def owlqn_trial_batched_kernel(xp_ptr, d_ptr, pg_ptr, stp_ptr, live_ptr, xt_ptr, g_ptr,
+                               ppart_ptr, part_ptr, n, lo, hi, ex, body: tl.constexpr,
+                               ROWS: tl.constexpr, W: tl.constexpr):
+    # program (i, b): K7's block i of instance b, the orthant rebuilt from
+    # (xp, pg) as K8 b rebuilds it; the (f, L1, g.d) partials through K8 b's
+    # expressions into a [B, programs, 3] array, x.x and the changed count
+    # into a [B, programs, 2] array of their own
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    offs = _offsets(ROWS, W)
+    mask = (offs < n) & live
+    stp = tl.load(stp_ptr + b)
+    xp = tl.load(xp_ptr + row + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + row + offs, mask=mask, other=0.0)
+    pg = tl.load(pg_ptr + row + offs, mask=mask, other=0.0)
+    exb = _extras(ex, offs, mask)
+    wp_sign = tl.where(xp == 0.0, _msign(-pg), _msign(xp))
+    in_win = (offs >= lo) & (offs < hi)
+    x = _ow_point(xp, d, stp, wp_sign, in_win)
+    fe, g = body(x, offs, *exb)
+    tl.store(xt_ptr + row + offs, x, mask=mask)
+    tl.store(g_ptr + row + offs, g, mask=mask)
+    ppart = _batched_part(ppart_ptr, b, 3)
+    tl.store(ppart + 0, _block_sum(fe, mask), mask=live)
+    tl.store(ppart + 1, _block_sum(tl.abs(x), mask & in_win), mask=live)
+    tl.store(ppart + 2, _block_sum(g * d, mask), mask=live)
+    part = _batched_part(part_ptr, b, 2)
+    tl.store(part + 0, _block_sum(x * x, mask), mask=live)
+    tl.store(part + 1, _block_sum(tl.where(x != xp, 1.0, 0.0).to(x.dtype), mask), mask=live)
 
 
 @triton.jit(do_not_specialize=["m", "fix_end"])

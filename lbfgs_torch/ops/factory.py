@@ -55,12 +55,17 @@ protocol the solver looks for:
     K16 b, each instance's combine and its next first probe at its own
     entry step.  At every depth: above ``MAX_M`` ring rows K4 b, K14 b,
     K15 b and K16 b take their solo kernels' deep forms.
+    ``__lbfgs_trial_batched__`` / ``__lbfgs_owlqn_trial_batched__``: K1 b
+    and K7 b, K1 and K7 over a batch, which materialize the accepted
+    points where no batched epilogue runs (the scan two-loop, a float16
+    ring, an objective without the epilogue) and evaluate the wide init.
 
 Under the wide objective scalar (``fused.wide_fx``, ``params.fx_wide``)
-the objective's column of K1, K2, K4, K7 and K8 and the L1 column of K7
-and K8 are summed in float64 (``fused.obj_reduce``), and K7's and K8's
-fx + c*L1 is formed in float64; every other output is that of the
-default launch, bit for bit.
+the objective's column of K1, K2, K4, K7, K8, K15 and K16 and of their
+batched forms, and the L1 column of K7, K8, K16 and theirs, are summed in
+float64 (``fused.obj_reduce``; per instance over its programs in the
+batched forms), and fx + c*L1 is formed in float64; every other output
+is that of the default launch, bit for bit.
 
 Each wrapper launches its Triton kernel (``ops/_factory_triton.py``) on a
 CUDA tensor and runs its plain version (``*_ref``, same module) on a CPU
@@ -289,6 +294,26 @@ def _ow_probe_scalars(part: torch.Tensor, c: float, *more: torch.Tensor) -> tupl
     return (fx + l1 * c, dg, *more)
 
 
+def _fx_batched(part: torch.Tensor, tot: torch.Tensor) -> torch.Tensor:
+    """The [B] objective from column 0 of a batched kernel's [B, programs,
+    k] partials: summed per instance in float64 under the wide mode, else
+    the column's sum ``tot[:, 0]``."""
+    return fused.obj_reduce(part[:, :, 0], dim=1) if fused.wide(part.dtype) else tot[:, 0]
+
+
+def _ow_scalars_batched(part: torch.Tensor, c: float) -> tuple:
+    """[B] (fx + c*L1, g.d) from K7 b's, K8 b's or K16 b's [B, programs, 3]
+    (f, L1, g.d) partials, by one code path for the three: under the wide
+    mode the f and L1 columns summed in float64 and fx + c*L1 formed there
+    (``_ow_probe_scalars``' wide form per instance), else in the vectors'
+    dtype."""
+    tot = part.sum(dim=1)
+    if fused.wide(part.dtype):
+        fl = fused.obj_reduce(part[:, :, :2], dim=1)
+        return fl[:, 0] + c * fl[:, 1], tot[:, 2]
+    return tot[:, 0] + tot[:, 1] * c, tot[:, 2]
+
+
 def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int = 1,
                          validate=None, block_ref=None):
     """Build a fused objective from a per-block body.
@@ -486,7 +511,50 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         )
         probe_batched.launches += 1
         tot = part.sum(dim=1)
-        return tot[:, 0], tot[:, 1]
+        return _fx_batched(part, tot), tot[:, 1]
+
+    # ----------------------------------------- K1 b: the batched trial
+
+    def trial_batched_ref(xp, d, stp, live, xt, g):
+        """Plain version of ``trial_batched``: ``probe_batched_ref``'s
+        point and evaluation, so that its (fx, g.d) are K2 b's plain ones."""
+        trial_batched_ref.calls += 1
+        x = xp + stp[:, None] * d
+        fx, gt = torch.func.vmap(value_and_grad)(x)
+        out = (fused.obj_lift(fx, xp.dtype), _dot(gt, d), _dot(gt, gt), _dot(x, x),
+               (x != xp).any(dim=1))
+        _write_live(live, (xt, x), (g, gt))
+        return out
+
+    def trial_batched(xp, d, stp, live, xt, g):
+        """K1 over B instances (K1 b): for every live instance b the trial
+        point xp[b] + stp[b]*d[b] written to xt[b] and its gradient to g[b],
+        and the [B] sums fx, g.d, g.g, x.x and changed (any x != xp).
+        ``xp``, ``d``, ``xt``, ``g`` [B, n]; ``stp`` [B] in their dtype and
+        ``live`` [B] bool, on their device.  A frozen instance's rows of xt
+        and g are never written, and its sums are undefined.  xt and g may
+        be xp and d's own buffers only where the caller no longer needs
+        them (each element is read before it is written).  On the card an
+        instance's point and gradient equal ``trial``'s on that instance
+        alone bit for bit, and its (fx, g.d) ``probe_batched``'s at the same
+        step (the remat contract; both modes of the objective scalar).
+        Returns (fx, g.d, g.g, x.x, changed)."""
+        B = _check_batched("trial_batched", xp, live)
+        _batched_scalars("trial_batched", xp, stp, d, xt, g)
+        if not fused.on_cuda(xp, "trial_batched"):
+            return trial_batched_ref(xp, d, stp, live, xt, g)
+        fused.check_contiguous("trial_batched", xp, d, stp, live, xt, g)
+        n = xp.shape[1]
+        grid = (_grid(n)[0], B)
+        ppart = torch.empty((B, grid[0], 2), dtype=xp.dtype, device=xp.device)
+        part = torch.empty((B, grid[0], 3), dtype=xp.dtype, device=xp.device)
+        trial_batched.compiled[xp.dtype] = _kernels().trial_batched_kernel[grid](
+            xp, d, stp, live.view(torch.uint8), xt, g, ppart, part, n, ex=extras,
+            body=block_fn(), ROWS=rows, W=W, **LAUNCH,
+        )
+        trial_batched.launches += 1
+        ptot, tot = ppart.sum(dim=1), part.sum(dim=1)
+        return _fx_batched(ppart, ptot), ptot[:, 1], tot[:, 0], tot[:, 1], tot[:, 2] > 0
 
     # ------------------------------------------- K4 trial + pair + Gram
 
@@ -620,11 +688,16 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         wp = choose_orthant(Orthantwise(c, start, end), xp, pg)
         return project_window(xp + stp[:, None] * d, wp, start, end)
 
-    def _ow_probe_batched_plain(xp, d, pg, stp, c, start, end):
+    def _ow_eval_batched(xp, d, pg, stp, c, start, end):
+        # the instances' projected points, their gradients and fx + c*L1
+        # (the L1 sum two-stage under the wide mode, ``fused.l1_batched``)
         x = _ow_point_batched(xp, d, pg, stp, c, start, end)
         fx, g = torch.func.vmap(value_and_grad)(x)
-        l1 = torch.abs(x[:, start:end]).sum(dim=1)
-        return fused.obj_lift(fx, xp.dtype) + l1 * c, _dot(g, d)
+        return x, fused.obj_lift(fx, xp.dtype) + fused.l1_batched(x, start, end) * c, g
+
+    def _ow_probe_batched_plain(xp, d, pg, stp, c, start, end):
+        _, ft, g = _ow_eval_batched(xp, d, pg, stp, c, start, end)
+        return ft, _dot(g, d)
 
     def owlqn_probe_pg_batched_ref(xp, d, pg, stp, c, start, end, live):
         """Plain version of ``owlqn_probe_pg_batched``."""
@@ -654,8 +727,51 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             body=block_fn(), ROWS=rows, W=W, **LAUNCH,
         )
         owlqn_probe_pg_batched.launches += 1
+        return _ow_scalars_batched(part, c)
+
+    # ---------------------------------- K7 b: the batched OWL-QN trial
+
+    def owlqn_trial_batched_ref(xp, d, pg, stp, c, start, end, live, xt, g):
+        """Plain version of ``owlqn_trial_batched``: ``owlqn_probe_pg_batched_ref``'s
+        point and evaluation."""
+        owlqn_trial_batched_ref.calls += 1
+        x, ft, gt = _ow_eval_batched(xp, d, pg, stp, c, start, end)
+        out = (ft, _dot(gt, d), _dot(x, x), (x != xp).any(dim=1))
+        _write_live(live, (xt, x), (g, gt))
+        return out
+
+    def owlqn_trial_batched(xp, d, pg, stp, c, start, end, live, xt, g):
+        """K7 over B instances (K7 b): for every live instance b the
+        projected trial point x = pi(xp[b] + stp[b]*d[b]; wp), wp rebuilt
+        from (xp[b], pg[b]) as ``owlqn_probe_pg_batched`` rebuilds it,
+        written to xt[b] and its gradient to g[b], with the [B] sums fx +
+        c*L1 (L1 weight ``c`` on the window [start, end) of each
+        instance), g.d, x.x and changed.  Operands as
+        ``trial_batched``'s, with ``pg`` [B, n].  With stp = 0 and pg = xp
+        the projection is the identity (the wide init's evaluation of x0).
+        A frozen instance's rows are never written, and its sums are
+        undefined.  On the card an instance's point and gradient equal
+        ``owlqn_trial``'s with wp = ``choose_orthant(xp[b], pg[b])`` on
+        that instance alone bit for bit, and its (ft, g.d)
+        ``owlqn_probe_pg_batched``'s at the same step (both modes of the
+        objective scalar).  Returns (ft, g.d, x.x, changed)."""
+        B = _check_batched("owlqn_trial_batched", xp, live)
+        _batched_scalars("owlqn_trial_batched", xp, stp, d, pg, xt, g)
+        start, end = fused._check_window(xp.shape[1], start, end)
+        if not fused.on_cuda(xp, "owlqn_trial_batched"):
+            return owlqn_trial_batched_ref(xp, d, pg, stp, c, start, end, live, xt, g)
+        fused.check_contiguous("owlqn_trial_batched", xp, d, pg, stp, live, xt, g)
+        n = xp.shape[1]
+        grid = (_grid(n)[0], B)
+        ppart = torch.empty((B, grid[0], 3), dtype=xp.dtype, device=xp.device)
+        part = torch.empty((B, grid[0], 2), dtype=xp.dtype, device=xp.device)
+        owlqn_trial_batched.compiled[xp.dtype] = _kernels().owlqn_trial_batched_kernel[grid](
+            xp, d, pg, stp, live.view(torch.uint8), xt, g, ppart, part, n, start, end,
+            ex=extras, body=block_fn(), ROWS=rows, W=W, **LAUNCH,
+        )
+        owlqn_trial_batched.launches += 1
         tot = part.sum(dim=1)
-        return tot[:, 0] + tot[:, 1] * c, tot[:, 2]
+        return (*_ow_scalars_batched(ppart, c), tot[:, 0], tot[:, 1] > 0)
 
     # ------------------------------------------- K8 OWL-QN probe
 
@@ -1026,8 +1142,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         """Launch K15 b or K16 b (``fn``, its wrapper), M = m up to
         ``MAX_M`` rows and M = 0 (the deep form) above, and count the launch
         (``_count``; K15 b's ``fix`` form by the constant ``FIX``); returns
-        the [B, nparts] column sums of the combine's and of the probe's [B,
-        programs, nparts] partials."""
+        the [B, nparts] column sums of the combine's [B, programs, nparts]
+        partials and the probe's partials themselves."""
         kernel = fn.__name__
         fused.check_contiguous(kernel, d, x, S, Y, coef, stp1, live, out)
         B, m, n = S.shape
@@ -1040,7 +1156,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             d, x, S, Y, coef, stp1, live.view(torch.uint8), out, cpart, ppart, n, m, *args,
             ex=extras, body=block_fn(), M=0 if deep else m, ROWS=rows, W=W, **consts, **LAUNCH)
         _count(fn, deep, **{k.lower(): v for k, v in consts.items()})
-        return cpart.sum(dim=1), ppart.sum(dim=1)
+        return cpart.sum(dim=1), ppart
 
     def combine_probe_batched_ref(g, x, S, Y, coef, stp1, live, out, fix=None):
         """Plain version of ``combine_probe_batched``: K3 b's plain
@@ -1079,10 +1195,11 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             fix = fused._check_row(S[0], fix)
         if not fused.on_cuda(g, "combine_probe_batched"):
             return combine_probe_batched_ref(g, x, S, Y, coef, stp1, live, out, fix)
-        ctot, ptot = _combine_batched_launch(combine_probe_batched, g, x, S, Y, coef, stp1, live,
-                                             out, 2, 0 if fix is None else fix,
-                                             FIX=fix is not None)
-        return ctot[:, 0], ctot[:, 1], ptot[:, 0], ptot[:, 1]
+        ctot, ppart = _combine_batched_launch(combine_probe_batched, g, x, S, Y, coef, stp1, live,
+                                              out, 2, 0 if fix is None else fix,
+                                              FIX=fix is not None)
+        ptot = ppart.sum(dim=1)
+        return ctot[:, 0], ctot[:, 1], _fx_batched(ppart, ptot), ptot[:, 1]
 
     def combine_ow_probe_batched_ref(pg, x, S, Y, coef, c, start, end, stp1, live, out):
         """Plain version of ``combine_ow_probe_batched``: K13 b's plain
@@ -1110,15 +1227,15 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         if not fused.on_cuda(pg, "combine_ow_probe_batched"):
             return combine_ow_probe_batched_ref(pg, x, S, Y, coef, c, start, end, stp1, live,
                                                 out)
-        ctot, ptot = _combine_batched_launch(combine_ow_probe_batched, pg, x, S, Y, coef, stp1,
-                                             live, out, 3, start, end)
-        return (ctot[:, 0], ctot[:, 1], ctot[:, 2], ptot[:, 0] + ptot[:, 1] * c, ptot[:, 2])
+        ctot, ppart = _combine_batched_launch(combine_ow_probe_batched, pg, x, S, Y, coef, stp1,
+                                              live, out, 3, start, end)
+        return (ctot[:, 0], ctot[:, 1], ctot[:, 2], *_ow_scalars_batched(ppart, c))
 
     batched_fusions = (combine_probe_batched, combine_ow_probe_batched)
     for fn in (trial, probe, trial_pair_gram, owlqn_trial, owlqn_probe, owlqn_probe_pg,
                owlqn_trial_pair_gram, combine_probe, combine_ow_probe, probe_batched,
                trial_pair_gram_batched, owlqn_probe_pg_batched, owlqn_trial_pair_gram_batched,
-               *batched_fusions):
+               trial_batched, owlqn_trial_batched, *batched_fusions):
         fn.launches = 0
     # the deep forms of K4, K14, K15 and K16 and of their batched forms,
     # the . gp (damped) specialisations of K4 and K14 and K15's damped-row
@@ -1144,11 +1261,14 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     combine_probe.deep_compiled, combine_ow_probe.deep_compiled = {}, {}
     for fn in batched_fusions:
         fn.compiled = {}
+    # K1 b's and K7 b's compiled kernels per vector dtype
+    trial_batched.compiled, owlqn_trial_batched.compiled = {}, {}
     for fn in (trial_ref, probe_ref, trial_pair_gram_ref, owlqn_trial_ref, owlqn_probe_ref,
                owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref, combine_probe_ref,
                combine_ow_probe_ref, probe_batched_ref, trial_pair_gram_batched_ref,
                owlqn_probe_pg_batched_ref, owlqn_trial_pair_gram_batched_ref,
-               combine_probe_batched_ref, combine_ow_probe_batched_ref):
+               combine_probe_batched_ref, combine_ow_probe_batched_ref, trial_batched_ref,
+               owlqn_trial_batched_ref):
         fn.calls = 0
 
     ns = SimpleNamespace(
@@ -1178,6 +1298,9 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         combine_probe_batched_ok=combine_probe_batched_ok,
         combine_ow_probe_batched=combine_ow_probe_batched,
         combine_ow_probe_batched_ref=combine_ow_probe_batched_ref,
+        trial_batched=trial_batched, trial_batched_ref=trial_batched_ref,
+        owlqn_trial_batched=owlqn_trial_batched,
+        owlqn_trial_batched_ref=owlqn_trial_batched_ref,
     )
 
     def vag(x):
@@ -1200,7 +1323,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
                     fused.combine_fix_batched, owlqn_probe_pg_batched,
                     owlqn_trial_pair_gram_batched, fused.combine_ow_batched,
                     fused.pseudo_gradient_norm_batched, combine_probe_batched,
-                    combine_ow_probe_batched, combine_probe_batched_ok)
+                    combine_ow_probe_batched, combine_probe_batched_ok, trial_batched,
+                    owlqn_trial_batched)
     _attach(plain, trial_ref, probe_ref, trial_pair_gram_ref, trial_pair_gram_ok,
             owlqn_trial_ref, owlqn_probe_ref, owlqn_probe_pg_ref, owlqn_trial_pair_gram_ref,
             fused.combine_ref, fused.combine_fix_ref, fused.combine_ow_ref,
@@ -1211,7 +1335,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
                     owlqn_probe_pg_batched_ref, owlqn_trial_pair_gram_batched_ref,
                     fused.combine_ow_batched_ref, fused.pseudo_gradient_norm_batched_ref,
                     combine_probe_batched_ref, combine_ow_probe_batched_ref,
-                    combine_probe_batched_ok)
+                    combine_probe_batched_ok, trial_batched_ref, owlqn_trial_batched_ref)
     vag.kernels = plain.kernels = ns
     vag.plain = plain
     return vag
@@ -1261,10 +1385,14 @@ def _attach(obj, trial, probe, tpg, tpg_ok, ow_trial, ow_probe, ow_probe_pg, ow_
 
 
 def _attach_batched(obj, probe, tpg, combine, combine_fix, ow_probe_pg, ow_tpg, combine_ow,
-                    pg_norm, cp, cp_ow, cp_ok) -> None:
+                    pg_norm, cp, cp_ow, cp_ok, trial, ow_trial) -> None:
     """The batched runner's protocol (``batched.minimize_batched``): K2 b,
     K4 b and K3 b (K6 b damped), and under OWL-QN K8 b, K14 b, K13 b and
-    K10 b; with the step uncapped the fusions K15 b and K16 b."""
+    K10 b; with the step uncapped the fusions K15 b and K16 b; the trials
+    K1 b and K7 b, which materialize the accepted points where no batched
+    epilogue runs and evaluate the wide init."""
+    obj.__lbfgs_trial_batched__ = trial
+    obj.__lbfgs_owlqn_trial_batched__ = ow_trial
     obj.__lbfgs_probe_batched__ = probe
     obj.__lbfgs_trial_pair_gram_batched__ = tpg
     obj.__lbfgs_combine_batched__ = combine

@@ -29,7 +29,11 @@ share.
     (K9 b) and ``pair_gram_xg_batched`` (K12 b) — K11, K9 and K12 over a
     batch: the batched runner's OWL-QN kernels for generic objectives (the
     init's pseudo-gradient, each trial point, each iteration's pair
-    update).
+    update); K12 b also runs for an OWL-QN objective with a fused trial
+    but no one-pass epilogue.
+  * ``pair_gram_sd_batched`` (K5 b) — K5 over a batch (with the . gp
+    column when damped): the pair + Gram pass of a plain objective with a
+    fused trial but no one-pass epilogue.
 
   * ``axpy_dot`` (K17) — z = y + c*x and z . w in one pass.  No solver
     path runs it (the compact two-loop takes its products from the
@@ -174,11 +178,13 @@ def obj_dtype(vdtype: torch.dtype) -> torch.dtype:
     return torch.float64 if wide(vdtype) else vdtype
 
 
-def obj_reduce(parts: torch.Tensor) -> torch.Tensor:
+def obj_reduce(parts: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Column sums of a [programs, k] array of objective partials (or the
     sum of a [programs] one) in float64: the wide form of
-    ``reduce_partials`` for the objective's columns."""
-    return parts.to(torch.float64).sum(dim=0)
+    ``reduce_partials`` for the objective's columns.  A batched kernel's
+    [B, programs, k] (or [B, programs]) partials are summed per instance
+    over their programs, ``dim=1``."""
+    return parts.to(torch.float64).sum(dim=dim)
 
 
 #: elements per float32 partial in ``obj_sum``'s wide form
@@ -198,6 +204,17 @@ def obj_sum(v: torch.Tensor) -> torch.Tensor:
     if pad:
         v = torch.cat([v, v.new_zeros(pad)])
     return obj_reduce(v.reshape(-1, OBJ_SUM_BLOCK).sum(dim=1))
+
+
+def l1_batched(x: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    """Each instance's sum |x| over the OWL-QN window [start, end) of a
+    [B, n] batch: under the wide mode ``orthantwise.x1sum``'s two-stage
+    float64 sum per instance (the solo sum of each row), else one sum per
+    row in the vectors' dtype."""
+    if wide(x.dtype):
+        ow = Orthantwise(1.0, start, end)
+        return torch.func.vmap(lambda v: ow_ops.x1sum(ow, v))(x)
+    return torch.abs(x[:, start:end]).sum(dim=1)
 
 
 def obj_lift(fx: torch.Tensor, vdtype: torch.dtype) -> torch.Tensor:
@@ -349,12 +366,20 @@ def _combination_batched(g, S, Y, coef):
     return gamma * g + (torch.bmm(cs, S.to(g.dtype))[:, 0] + torch.bmm(cy, Y.to(g.dtype))[:, 0])
 
 
-def combine_batched_ref(g, S, Y, coef, live, out):
-    """Plain version of ``combine_batched``."""
-    combine_batched_ref.calls += 1
+def combine_plain_batched(g, S, Y, coef, live, out):
+    """``combine_batched``'s function in plain torch, uncounted: the
+    arithmetic of its plain version, and the batched runner's composed
+    combine over a ring the kernels do not take (float16), as the JAX
+    package runs jnp there."""
     r = _combination_batched(g, S, Y, coef)
     out[live] = r[live]
     return (r * r).sum(dim=1), (r * g).sum(dim=1)
+
+
+def combine_batched_ref(g, S, Y, coef, live, out):
+    """Plain version of ``combine_batched``."""
+    combine_batched_ref.calls += 1
+    return combine_plain_batched(g, S, Y, coef, live, out)
 
 
 combine_batched_ref.calls = 0
@@ -416,13 +441,19 @@ combine_batched.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def combine_ow_batched_ref(pg, S, Y, coef, live, out, start: int, end: int):
-    """Plain version of ``combine_ow_batched``."""
-    combine_ow_batched_ref.calls += 1
+def combine_ow_plain_batched(pg, S, Y, coef, live, out, start: int, end: int):
+    """``combine_ow_batched``'s function in plain torch, uncounted (its plain
+    version's arithmetic; the composed OWL-QN combine of a float16 ring)."""
     r = _combination_batched(pg, S, Y, coef)
     rc = project_window(r, -pg, start, end)
     out[live] = rc[live]
     return (r * r).sum(dim=1), (rc * rc).sum(dim=1), (rc * pg).sum(dim=1)
+
+
+def combine_ow_batched_ref(pg, S, Y, coef, live, out, start: int, end: int):
+    """Plain version of ``combine_ow_batched``."""
+    combine_ow_batched_ref.calls += 1
+    return combine_ow_plain_batched(pg, S, Y, coef, live, out, start, end)
 
 
 combine_ow_batched_ref.calls = 0
@@ -1098,6 +1129,75 @@ def pair_gram_sd(stp, d, gx, gp, S, Y, end: int, with_gp: bool = False):
 
 
 pair_gram_sd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 b: the batched runner's pair + Gram update (a fused trial, no epilogue)
+# ---------------------------------------------------------------------------
+
+
+def pair_gram_sd_batched_ref(stp, d, gx, gp, S, Y, end: int, live, with_gp: bool = False):
+    """Plain version of ``pair_gram_sd_batched``: ``pair_products_batched``
+    of s = stp*d, y = gx - gp and d0 = -gx, row ``end``'s products from the
+    unrounded pair, as ``pair_gram_sd_ref`` per instance."""
+    pair_gram_sd_batched_ref.calls += 1
+    return pair_products_batched(stp[:, None] * d, gx - gp, -gx, S, Y, end, live,
+                                 gp if with_gp else None)
+
+
+pair_gram_sd_batched_ref.calls = 0
+
+
+def pair_gram_sd_batched(stp, d, gx, gp, S, Y, end: int, live, with_gp: bool = False):
+    """K5 over B instances (K5 b): for each live instance b the pair (s, y)
+    = (stp[b]*d[b], gx[b] - gp[b]) written into ring row ``end`` of S[b]
+    and Y[b] in place, rounded to the history dtype, and SP = S[b].[y, s,
+    -gx[b]], YP = Y[b].[y, s, -gx[b]] over the updated rings ([B, m, 3]),
+    the new row's products from the unrounded pair.  ``with_gp`` (the
+    damped runs) appends the . gp column S[b].gp[b], Y[b].gp[b] ([B, m,
+    4]); columns 0-2 stay those of the 3-column launch bit for bit.  ``d``,
+    ``gx``, ``gp`` [B, n]; ``S``, ``Y`` [B, m, n], any m >= 1; ``stp`` [B]
+    in the vectors' dtype; ``end`` a host int shared by the live instances;
+    ``live`` [B] bool.  A frozen instance's ring rows are never written,
+    and its products are undefined.  On the card an instance's ring rows
+    equal ``pair_gram_sd``'s on that instance alone bit for bit, and so do
+    its partials (its blocks are the solo launch's); torch adds the [B,
+    blocks, 6m] partials in an order that may depend on B.  The trial's
+    ``changed`` count, not this pass, decides "x not changed"."""
+    B = check_batch("pair_gram_sd_batched", d, live)
+    _check_hist_batched("pair_gram_sd_batched", d, S, Y)
+    if any(t.shape != d.shape or t.dtype != d.dtype for t in (gx, gp)):
+        raise ValueError("pair_gram_sd_batched: d, gx and gp must be [B, n] of one dtype")
+    if stp.shape != (B,) or stp.dtype != d.dtype or stp.device != d.device:
+        raise ValueError(f"pair_gram_sd_batched: stp must be [{B}] of the vectors' dtype")
+    end = _check_row(S[0], end)
+    if not on_cuda(d, "pair_gram_sd_batched"):
+        return pair_gram_sd_batched_ref(stp, d, gx, gp, S, Y, end, live, with_gp)
+    check_contiguous("pair_gram_sd_batched", stp, d, gx, gp, S, Y, live)
+    _, m, n = S.shape
+    grid = pair_gram_grid(n, d.dtype, S.dtype)
+    part = torch.empty((B, grid.blocks, 6 * m), dtype=d.dtype, device=d.device)
+    gpart = (torch.empty((B, grid.blocks, 2 * m), dtype=d.dtype, device=d.device)
+             if with_gp else part)
+    fn = getattr(_build.load_library(),
+                 f"lbfgs_pair_gram_batched_{_SUFFIX[d.dtype]}_{_SUFFIX[S.dtype]}")
+    code = fn(stp.data_ptr(), d.data_ptr(), gx.data_ptr(), gp.data_ptr(), S.data_ptr(),
+              Y.data_ptr(), live.data_ptr(), part.data_ptr(), gpart.data_ptr(), n, m, end,
+              int(with_gp), grid.T, grid.tiles, grid.blocks, B,
+              torch.cuda.current_stream(d.device).cuda_stream)
+    _build.check_launch(code, "pair_gram_sd_batched")
+    pair_gram_sd_batched.launches += 1
+    pair_gram_sd_batched.gp_launches += bool(with_gp)
+    P = part.sum(dim=1).reshape(B, m, 6)
+    SP, YP = P[..., :3], P[..., 3:]
+    if with_gp:
+        SP, YP = append_gp(SP, YP, gpart.sum(dim=1))
+    return SP, YP
+
+
+pair_gram_sd_batched.launches = 0
+#: the launches with the . gp column, counted among ``launches`` too
+pair_gram_sd_batched.gp_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -141,6 +141,37 @@ def two_loop_scan(hist: History, d: torch.Tensor, gamma: torch.Tensor, bound: in
     return q, alpha_ring
 
 
+def two_loop_scan_batched(hist: History, d: torch.Tensor, gamma: torch.Tensor, bound: int,
+                          end: int):
+    """``two_loop_scan`` over B instances (the batched runner's scan
+    two-loop): ``d`` [B, n], ``gamma`` [B], the rings [B, m, n] and ys,
+    alpha [B, m]; ``bound`` and ``end`` are shared by the instances, which
+    advance in lockstep.  Each element of the recursion is a [B] vector:
+    2*bound row products and axpys over [B, n] in torch ops (no ring
+    kernel, as in the solo scan), each instance's arithmetic the solo
+    recursion's with its dots taken as row sums.  Returns (q [B, n], alpha
+    [B, m])."""
+    m = hist.s.shape[1]
+    q = d
+    alphas = []
+    for i in range(bound):
+        j = (end - i) % m
+        a = fused.row_dot(hist.s[:, j].to(d.dtype), q) / hist.ys[:, j]
+        q = q - a[:, None] * hist.y[:, j].to(d.dtype)
+        alphas.append(a)
+    q = q * gamma[:, None]
+    for i in range(bound):
+        p = bound - 1 - i                  # newest-first index, oldest first
+        j = (end - p) % m
+        beta = fused.row_dot(hist.y[:, j].to(d.dtype), q) / hist.ys[:, j]
+        q = q + (alphas[p] - beta)[:, None] * hist.s[:, j].to(d.dtype)
+    alpha_ring = hist.alpha.clone()
+    if bound:
+        idx = torch.remainder(end - torch.arange(bound, device=d.device), m)
+        alpha_ring[:, idx] = torch.stack(alphas, dim=1)
+    return q, alpha_ring
+
+
 # ---------------------------------------------------------------------------
 # Two-loop recursion, compact form
 # ---------------------------------------------------------------------------

@@ -184,13 +184,18 @@ def test_unported_entry_points_raise():
     # batched runner does not run yet still raises, damped too
     ow = b.with_orthantwise(1.0, 0, None)
     damped = ow.with_constrain_step_size(False).with_damping(True)
-    for opt in (ow, ow.with_constrain_step_size(False), damped):
+    # and the wide objective scalar, the scan two-loop and a float16
+    # history until they were: now each runs as its solo run, and the
+    # speculative search still raises, damped too
+    for opt in (ow, ow.with_constrain_step_size(False), damped, damped.with_fx_wide(),
+                damped.with_compact_two_loop(False), damped.with_history_dtype("float16")):
         out = opt.minimize_batched(x0[None], lbfgs_torch.default_evaluate())
         solo = opt.minimize_jit(x0, lbfgs_torch.default_evaluate())
         assert int(out["niter"][0]) == solo.niter and int(out["status"][0]) == solo.status
         assert float(out["fx"][0]) == pytest.approx(float(solo.fx), rel=1e-9)
     with pytest.raises(NotImplementedError, match="batched"):
-        damped.with_fx_wide().minimize_batched(x0[None], lbfgs_torch.default_evaluate())
+        damped.with_speculative_linesearch(4).minimize_batched(
+            x0[None], lbfgs_torch.default_evaluate())
     # the native backend raised until it was ported: now it runs the C++
     # core (the defaults' 35 iterations, tests/test_native_parity.py:83-94)
     rep = b.minimize(x0, lbfgs_torch.default_evaluate(), backend="native")

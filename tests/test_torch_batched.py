@@ -440,11 +440,14 @@ def test_return_state():
 
 
 UNSUPPORTED = {
-    # OWL-QN, the uncapped step, the adaptive entry step, any depth
+    # the settings the batched runner refused until it took them: OWL-QN,
+    # the uncapped step, the adaptive entry step, any depth
     # (tests/test_torch_batched_uncapped.py), damping and the gradient-only
-    # mode (tests/test_torch_batched_damped.py) and generic objectives
-    # (tests/test_torch_batched_generic.py) run batched; the settings below
-    # still raise, with damping and on generic objectives too
+    # mode (tests/test_torch_batched_damped.py), generic objectives
+    # (tests/test_torch_batched_generic.py), and the wide objective scalar,
+    # the scan two-loop and a float16 history
+    # (tests/test_torch_batched_settings.py) run batched now; the
+    # speculative search still raises, with the gradient-only mode too
     "damped_fx_wide": lambda b: b.with_damping(True).with_fx_wide(),
     "damped_scan_two_loop": lambda b: b.with_damping(True).with_compact_two_loop(False),
     "damped_float16_history": lambda b: b.with_damping(True).with_history_dtype("float16"),
@@ -459,16 +462,35 @@ UNSUPPORTED = {
     "speculative": lambda b: b.with_speculative_linesearch(4),
     "generic_float16_history": lambda b: b.with_history_dtype("float16"),
 }
+#: the settings of ``UNSUPPORTED`` the batched runner still refuses
+STILL_REFUSED = ("gradient_only_speculative", "speculative")
 
 
 @pytest.mark.parametrize("setting", list(UNSUPPORTED))
 def test_unsupported_settings_raise(setting):
+    """The speculative search raises ``NotImplementedError`` naming the
+    runner, as it did; each setting the runner refused until it took it
+    now runs, every instance of the early-finisher batch as its solo run
+    (the whole-run loop): the same iterations, evaluations and status, fx
+    rel 1e-9 (1e-5 over a float16 ring, whose 11-bit pairs carry the
+    batched row sums' and the solo dots' last bits into the trajectory:
+    3e-7 after 20 iterations)."""
     x0b = _t(CASES["early_finisher"])
     opt, fn = UNSUPPORTED[setting](t_lbfgs()), t_rosen.value_and_grad
     if setting.startswith("generic"):
         fn = t_rosen._plain_value_and_grad
-    with pytest.raises(NotImplementedError, match="minimize_batched"):
-        opt.minimize_batched(x0b, fn)
+    if setting in STILL_REFUSED:
+        with pytest.raises(NotImplementedError, match="minimize_batched"):
+            opt.minimize_batched(x0b, fn)
+        return
+    opt = opt.with_max_iterations(20)
+    out = opt.minimize_batched(x0b, fn)
+    for b in range(len(x0b)):
+        solo = opt.minimize_jit(x0b[b].clone(), fn)
+        assert (int(out["niter"][b]), int(out["neval"][b]), int(out["status"][b])) == (
+            solo.niter, solo.neval, solo.status), (setting, b)
+        rel = 1e-5 if "float16" in setting else 1e-9
+        assert float(out["fx"][b]) == pytest.approx(float(solo.fx), rel=rel, abs=1e-300)
 
 
 # ---------------------------------------------------------------------------
