@@ -200,13 +200,15 @@ Phases (any failure raises and the script exits nonzero):
      iteration beside the batched main path's; then instances 0-7 solo
      through ``minimize_jit`` against the batch after 8 iterations;
  40. batched fusion kernels: K15 b and K16 b (the batched combine+probe
-     fusions) at m = 6 and their M = 0 forms at m = 80, and the deep K4 b
-     and K14 b at m = 80, against their plain versions at B = 1024 x n =
-     2^14 (f32 vectors, bf16 rings, a third of the instances frozen, the
-     OWL-QN forms on a window off every block edge; ring rows and frozen
-     instances bit for bit), instances 0, 511 and 1023 against the solo
-     K15, K16 (r, rc, the sums and the probes bit for bit) and the solo
-     deep K4 and K14 (x, g, pg and the rings bit for bit), each timed beside its
+     fusions) at m = 6 and their M = 0 forms at m = 80, and K4 b and K14 b
+     at m = 6, 19 and 80 (the static form at 6, the tensor-core form at 19
+     and 80; each launch's form, geometry and registers printed), against
+     their plain versions at B = 1024 x n = 2^14 (f32 vectors, bf16 rings,
+     a third of the instances frozen, the OWL-QN forms on a window off
+     every block edge; ring rows and frozen instances bit for bit),
+     instances 0, 511 and 1023 against the solo K15, K16 (r, rc, the sums
+     and the probes bit for bit) and the solo K4 and K14 (x, g, pg and the
+     rings bit for bit; the products' gap printed), each timed beside its
      plain version, and every compiled batched form's registers (a spill
      fails);
  41. batched uncapped main paths: the batched main path with the step
@@ -220,11 +222,12 @@ Phases (any failure raises and the script exits nonzero):
      syncs and host launch calls per iteration of both; then instances 0-7
      solo against the batch after 8 iterations;
  42. batched deep: the batched uncapped paths at m = 80 (plain and
-     OWL-QN; two bf16 rings of 2.7 GB), 30 iterations: the deep K4 b (K14
-     b) and the M = 0 K15 b (K16 b) per iteration;
- 42b. batched damped kernels: K4 b and K14 b with their . gp columns, K6 b
-     (the capped combine with the damped row) and K15 b's fix form at m = 6
-     and in their deep forms at m = 80 (K15 b fix with M = 0), and K3 b and
+     OWL-QN; two bf16 rings of 2.7 GB), 30 iterations: K4 b (K14 b) in its
+     tensor-core form and the M = 0 K15 b (K16 b) per iteration;
+ 42b. batched damped kernels: K4 b and K14 b with their . gp columns at m =
+     6, 19 and 80, K6 b (the capped combine with the damped row) and K15 b's
+     fix form at m = 6 and in their deep forms at m = 80 (K15 b fix with M =
+     0), and K3 b and
      K13 b at m = 80, against their plain versions at 1024 x 2^14 (f32, bf16
      rings, a third of the instances frozen; ring rows, damped rows and
      frozen instances bit for bit, the . gp launches' columns 0-2 the
@@ -578,12 +581,13 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
     multiply-adds of its sums counted as two operations.  An ``_ex`` row
     reads the quadratic's two extras too (2v bytes); its operations are
     counted as Rosenbrock's body's, which does more per element than the
-    quadratic's (5); ``_m80`` rows are their kernel's at ring depth m."""
+    quadratic's (5); ``_m80`` (``_m19``) rows are their kernel's at ring
+    depth m."""
     if name.endswith("_ex"):
         b, f = cost(name[:-3], v, h, m)
         return b + 2 * v, f
     rings = 2 * (m - 1) * h + 2 * h
-    name = name.removesuffix("_m80")
+    name = re.sub(r"_m\d+$", "", name)
     return {
         "K1_trial": (4 * v, 20),
         "K2_probe": (2 * v, 16),
@@ -4401,10 +4405,10 @@ def phase_batched_owlqn_kernels() -> dict:
     # registers and spills: K14 b's Triton form at these dtypes, and every
     # instantiation of the CUDA K3 b/K13 b and K10/K10 b/K11 bodies
     compiled = {}
-    for (vd, hd, gp), kc in k.owlqn_trial_pair_gram_batched.compiled.items():
-        kc._init_handles()
-        compiled[f"K14b{' gp' if gp else ''} {vd} {hd}"] = dict(n_regs=kc.n_regs,
-                                                               n_spills=kc.n_spills)
+    fn = k.owlqn_trial_pair_gram_batched
+    for kind, forms in (("", fn.compiled), (" mma", fn.mma_compiled)):
+        for (vd, hd, gp), kc in forms.items():
+            compiled[f"K14b{' gp' if gp else ''}{kind} {vd} {hd}"] = _compiled_info(kc)
     for name, v in ptxas_kernels(_build.build_log()).items():
         if m := re.search(r"(combine_batched_kernel|pseudo_grad_kernel)I(\w+?)EEv", name):
             compiled[f"{m.group(1)}<{m.group(2)}>"] = v
@@ -4475,6 +4479,26 @@ BATCHED_DEEP_PARAMS = {
 }
 
 
+#: the ring depths the batched epilogues K4 b and K14 b are checked at
+#: (``factory.batched_epilogue_grid`` picks the form at each); m = 19 is
+#: ``DEEP_VS_STATIC_M``, whose solo static forms the deep-history phase
+#: has compiled
+BATCHED_EPILOGUE_DEPTHS = ((M, ""), (DEEP_VS_STATIC_M, "_m19"), (DEEP_M, "_m80"))
+
+
+def batched_form(fn, with_gp: bool) -> dict:
+    """The form and launch geometry of a batched epilogue's last launch
+    (``fn.last_form``, ``factory.batched_epilogue_grid``) and its compiled
+    kernel's registers and spills."""
+    f = fn.last_form
+    compiled = {"mma": fn.mma_compiled, "static": fn.compiled, "deep": fn.deep_compiled}[f.form]
+    ck = compiled[(torch.float32, torch.bfloat16, with_gp)]
+    return dict(kernel=f.kernel, form=f.form, programs_per_instance=f.programs,
+                tiles_per_program=f.tiles, tile=f.T, programs=f.total,
+                **{key: v for key, v in f.consts.items() if key != "m"}, **f.launch,
+                **_compiled_info(ck))
+
+
 def batched_fusion_inputs(seed: int, m: int) -> dict:
     """Seeded inputs of the batched fusions and deep epilogues at B x n =
     1024 x 2^14 with rings of depth m (bf16), a pseudo-gradient, xp zero
@@ -4541,14 +4565,18 @@ def _check_batched_fusions(k, a: dict, m: int, sfx: str, errs: dict, solo: dict,
                              lambda call=call, ref=ref, out=out: call(ref, out, every), m)
 
 
-def _check_batched_deep_epilogues(k, a: dict, m: int, errs: dict, solo: dict,
-                                  cases: dict) -> None:
-    """The deep K4 b and K14 b at ring depth m against their plain versions
-    (vectors and sums normwise, ring row ``end`` bit for bit the rounding
-    of the kernel's own pair, the other rows kept, frozen instances
-    untouched) and, on instances ``BATCH_SOLO``, against the solo deep K4
-    and K14 (x, g, pg and the rings bit for bit); adds their timing cases
-    (in place, on copies) to ``cases``."""
+def _check_batched_deep_epilogues(k, a: dict, m: int, sfx: str, errs: dict, solo: dict,
+                                  cases: dict, forms: dict) -> None:
+    """K4 b and K14 b at ring depth m (the tensor-core form with f32
+    vectors over a bf16 ring up to ``factory.MMA_MAX_M`` rows; the deep
+    form's launches counted in ``.deep_launches`` above ``factory.MAX_M``)
+    against their plain versions (vectors and sums normwise, ring row
+    ``end`` bit for bit the rounding of the kernel's own pair, the other
+    rows kept, frozen instances untouched) and, on instances
+    ``BATCH_SOLO``, against the solo K4 and K14 (x, g, pg and the rings bit
+    for bit; the products' normwise gap to the solo kernel's fold
+    printed); adds their timing cases (in place, on copies) to
+    ``cases`` and each launch's form and geometry to ``forms``."""
     tv, ts = TOL[(torch.float32, "vec")], TOL[(torch.float32, "sum")]
     live, frozen = a["live"], ~a["live"]
     lo, hi = windows(BATCH_N)[1]
@@ -4562,19 +4590,20 @@ def _check_batched_deep_epilogues(k, a: dict, m: int, errs: dict, solo: dict,
         return fn(t["xp"], a["d"], t["gp"], t["pg"], a["stp"], c, lo, hi, t["S"], t["Y"], end,
                   lv)
 
-    forms = {
-        "K4b_trial_pair_gram_batched_m80": (k.trial_pair_gram_batched,
-                                            k.trial_pair_gram_batched_ref, tpg, False),
-        "K14b_owlqn_trial_pair_gram_batched_m80": (k.owlqn_trial_pair_gram_batched,
-                                                   k.owlqn_trial_pair_gram_batched_ref, ow_tpg,
-                                                   True),
+    epilogues = {
+        "K4b_trial_pair_gram_batched": (k.trial_pair_gram_batched,
+                                        k.trial_pair_gram_batched_ref, tpg, False),
+        "K14b_owlqn_trial_pair_gram_batched": (k.owlqn_trial_pair_gram_batched,
+                                               k.owlqn_trial_pair_gram_batched_ref, ow_tpg, True),
     }
-    for name, (kern, ref, call, ow) in forms.items():
+    for base, (kern, ref, call, ow) in epilogues.items():
+        name = base + sfx
         tk = {n_: a[n_].clone() for n_ in names}
         deep = kern.deep_launches
         outk = call(kern, tk, live)
-        if kern.deep_launches != deep + 1:
-            raise AssertionError(f"{name}: the deep form did not launch")
+        if kern.deep_launches != deep + (m > factory.MAX_M):
+            raise AssertionError(f"{name}: the deep count does not follow the depth")
+        forms[name] = batched_form(kern, False)
         tq = {n_: a[n_].clone() for n_ in ("xp", "gp", "pg")}
         tq["S"], tq["Y"] = a["S"].clone(), a["Y"].clone()
         outq = call(ref, tq, live)
@@ -4599,25 +4628,27 @@ def _check_batched_deep_epilogues(k, a: dict, m: int, errs: dict, solo: dict,
             raise AssertionError(f"{name} wrote a frozen instance")
         del tq, outq, s_new, y_new
         torch.cuda.empty_cache()
+        SP, YP = outk[3:5] if ow else outk[4:6]
         for b in BATCH_SOLO:
             Sb, Yb = a["S"][b].clone(), a["Y"][b].clone()
             stp = float(a["stp"][b])
             if ow:
-                x1, g1, pg1 = k.owlqn_trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b],
-                                                      a["pg"][b], stp, c, lo, hi, Sb, Yb,
-                                                      end)[:3]
+                x1, g1, pg1, SP1, YP1 = k.owlqn_trial_pair_gram(
+                    a["xp"][b], a["d"][b], a["gp"][b], a["pg"][b], stp, c, lo, hi, Sb, Yb,
+                    end)[:5]
             else:
-                x1, _, g1 = k.trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b], stp, Sb, Yb,
-                                              end)[:3]
+                x1, _, g1, *_, SP1, YP1 = k.trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b],
+                                                             stp, Sb, Yb, end)
                 pg1 = tk["pg"][b]
             bits = dict(x=same_bits(tk["xp"][b], x1), g=same_bits(tk["gp"][b], g1),
                         pg=same_bits(tk["pg"][b], pg1), S=same_bits(tk["S"][b], Sb),
                         Y=same_bits(tk["Y"][b], Yb))
             if not all(bits.values()):
-                raise AssertionError(f"{name} instance {b} differs from the solo deep form: "
+                raise AssertionError(f"{name} instance {b} differs from the solo kernel: "
                                      f"{bits}")
-            solo[f"{name}_{b}"] = bits
-        del tk, outk
+            solo[f"{name}_{b}"] = dict(bits, products_normwise=max(err(SP[b], SP1),
+                                                                   err(YP[b], YP1)))
+        del tk, outk, SP, YP
         torch.cuda.empty_cache()
         t = {n_: a[n_].clone() for n_ in names}
         every = torch.ones_like(live)
@@ -4627,16 +4658,17 @@ def _check_batched_deep_epilogues(k, a: dict, m: int, errs: dict, solo: dict,
 
 def batched_compiled() -> list:
     """Registers and spills of every compiled batched epilogue and fusion
-    (K4 b, K14 b, their deep forms, each with and without the . gp column,
-    K15 b (with and without its fix form) and K16 b with M = m and M = 0);
-    a form that spills fails the phase."""
+    (K4 b, K14 b, their tensor-core and deep forms, each with and without
+    the . gp column, K15 b (with and without its fix form) and K16 b with M
+    = m and M = 0); a form that spills fails the phase."""
     k = rosenbrock.value_and_grad.kernels
     forms = []
     for form, fn in (("K4b", k.trial_pair_gram_batched),
                      ("K14b", k.owlqn_trial_pair_gram_batched)):
-        for deep, compiled in ((False, fn.compiled), (True, fn.deep_compiled)):
+        for kind, compiled in (("", fn.compiled), (" mma", fn.mma_compiled),
+                               (" deep", fn.deep_compiled)):
             for (vd, hd, gp), ck in sorted(compiled.items(), key=str):
-                forms.append(dict(form=form + (" gp" if gp else "") + (" deep" if deep else ""),
+                forms.append(dict(form=form + (" gp" if gp else "") + kind,
                                   vectors=str(vd), history=str(hd), **_compiled_info(ck)))
     for form, fn in (("K15b", k.combine_probe_batched), ("K16b", k.combine_ow_probe_batched)):
         for (vd, hd, deep, *fix), ck in sorted(fn.compiled.items(), key=str):
@@ -4650,27 +4682,29 @@ def batched_compiled() -> list:
 
 
 def phase_batched_fusion_kernels() -> dict:
-    """K15 b and K16 b at m = 6 and their M = 0 forms at m = 80, and the
-    deep K4 b and K14 b at m = 80, against their plain versions on the card
-    at B = 1024, n = 2^14, f32 vectors, bf16 rings, a third of the
+    """K15 b and K16 b at m = 6 and their M = 0 forms at m = 80, and K4 b
+    and K14 b at m = 6, 19 and 80 (``BATCHED_EPILOGUE_DEPTHS``; each
+    launch's form and geometry printed), against their plain versions on
+    the card at B = 1024, n = 2^14, f32 vectors, bf16 rings, a third of the
     instances frozen, the OWL-QN forms on a window whose ends fall inside
     the kernels' blocks (normwise 1e-5 on vectors, 1e-4 on sums; the ring
     rows and the frozen instances bit for bit); instances 0, 511 and 1023
     against the solo K15, K16 (r and rc, the sums and the probes bit for
-    bit) and the solo deep K4 and K14 (x, g, pg and the rings bit for
-    bit).  Each timed with every instance live beside its plain version
-    and its bound (5 launches a sample at m = 80, 20 at m = 6); every
-    compiled form's registers and spills (``batched_compiled``)."""
+    bit) and the solo K4 and K14 (x, g, pg and the rings bit for bit).
+    Each timed with every instance live beside its plain version and its
+    bound (5 launches a sample at m = 80, 20 below); every compiled form's
+    registers and spills (``batched_compiled``)."""
     k = rosenbrock.value_and_grad.kernels
-    errs, solo, cases = {}, {}, {}
+    errs, solo, cases, forms = {}, {}, {}, {}
     times, timed_by, bounds = {}, {}, {}
-    for m, sfx in ((M, ""), (DEEP_M, "_m80")):
+    for m, sfx in BATCHED_EPILOGUE_DEPTHS:
         a = batched_fusion_inputs(SEED + 16, m)
-        _check_batched_fusions(k, a, m, sfx, errs, solo, cases)
-        if m == DEEP_M:
-            _check_batched_deep_epilogues(k, a, m, errs, solo, cases)
+        if m in (M, DEEP_M):
+            _check_batched_fusions(k, a, m, sfx, errs, solo, cases)
+        _check_batched_deep_epilogues(k, a, m, sfx, errs, solo, cases, forms)
         for name, (kern, plain, depth) in cases.items():
-            k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain, 20 if m == M else 5)
+            k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain,
+                                                     20 if m <= factory.MAX_M else 5)
             times[name], timed_by[name] = (k_ms, p_ms), (k_by, p_by)
             bounds[name] = bound(name, BATCH_B * BATCH_N, 4, 2, depth)
         cases.clear()
@@ -4678,14 +4712,16 @@ def phase_batched_fusion_kernels() -> dict:
         torch.cuda.empty_cache()
     compiled = batched_compiled()
     errs = {name: (max(e[0] for e in v), max(e[1] for e in v)) for name, v in errs.items()}
-    emit(phase="batched_fusion_kernels", B=BATCH_B, n=BATCH_N, m=[M, DEEP_M],
+    emit(phase="batched_fusion_kernels", B=BATCH_B, n=BATCH_N,
+         m=[m for m, _ in BATCHED_EPILOGUE_DEPTHS],
          window=windows(BATCH_N)[1], frozen=len(range(2, BATCH_B, 3)), max_abs_err={n_: e[0] for n_, e in errs.items()},
          max_normwise_err={n_: e[1] for n_, e in errs.items()},
          tol=dict(vec=TOL[(torch.float32, "vec")], sum=TOL[(torch.float32, "sum")],
                   ring_rows="bit-exact", frozen="bit-exact",
                   vs_solo_r_rc_sums_probes_x_g_pg_rings="bit-exact"),
-         vs_solo=solo, compiled=len(compiled),
-         device_ms={n_: {"kernel": t[0], "plain": t[1], "bound": bounds[n_][0]}
+         vs_solo=solo, compiled=len(compiled), epilogue_forms=forms,
+         device_ms={n_: {"kernel": t[0], "plain": t[1], "bound": bounds[n_][0],
+                         **({"n_regs": forms[n_]["n_regs"]} if n_ in forms else {})}
                     for n_, t in times.items()},
          timed_by={n_: {"kernel": t[0], "plain": t[1]} for n_, t in timed_by.items()})
     return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
@@ -4822,8 +4858,9 @@ def phase_batched_owlqn_uncapped_main_path(capped: dict) -> tuple:
 def phase_batched_deep() -> dict:
     """``minimize_batched`` at m = 80 ring rows (``BATCHED_DEEP_PARAMS``),
     1024 x 2^14, f32 vectors, bf16 rings, uncapped, epsilon 0, 30
-    iterations, plain and OWL-QN: the deep K4 b and K15 b's M = 0 form per
-    iteration (K14 b deep and K16 b under OWL-QN), K2 b (K8 b) per probe
+    iterations, plain and OWL-QN: K4 b (its tensor-core form; counted in
+    the ``_m80`` row) and K15 b's M = 0 form per iteration (K14 b and K16 b
+    under OWL-QN), K2 b (K8 b) per probe
     not carried in, nothing else, every fx finite; instance-iterations/s,
     device ms and syncs per iteration.  Returns the launches of both."""
     lc = {}
@@ -4910,16 +4947,17 @@ def batched_damped_inputs(seed: int, m: int) -> dict:
 
 
 def _check_gp_epilogues(k, a: dict, m: int, sfx: str, errs: dict, solo: dict,
-                        cases: dict) -> None:
-    """K4 b and K14 b with the . gp column (``with_gp=True``; the deep forms
-    above ``factory.MAX_M`` rows) against their plain versions (vectors and
-    sums normwise, ring row ``end`` bit for bit the rounding of the
-    kernel's own pair, the other rows kept, frozen instances untouched),
-    every output but the new column bit for bit the 3-column launch's, and
-    on instances ``BATCH_SOLO`` against the solo K4 and K14 with_gp (x, g,
-    pg and the rings bit for bit; whether the products are too, and the .
-    gp column's normwise gap, printed); adds the timing cases (in place,
-    on copies) to ``cases``."""
+                        cases: dict, forms: dict) -> None:
+    """K4 b and K14 b with the . gp column (``with_gp=True``; the form
+    ``factory.batched_epilogue_grid`` picks, recorded in ``forms``) against
+    their plain versions (vectors and sums normwise, ring row ``end`` bit
+    for bit the rounding of the kernel's own pair, the other rows kept,
+    frozen instances untouched), every output but the new column bit for
+    bit the 3-column launch's, and on instances ``BATCH_SOLO`` against the
+    solo K4 and K14 with_gp (x, g, pg and the
+    rings bit for bit; whether the products are too, their normwise gap and
+    the . gp column's, printed); adds the timing cases (in place, on
+    copies) to ``cases``."""
     tv, ts = TOL[(torch.float32, "vec")], TOL[(torch.float32, "sum")]
     live, frozen = a["live"], ~a["live"]
     lo, hi = windows(BATCH_N)[1]
@@ -4933,7 +4971,7 @@ def _check_gp_epilogues(k, a: dict, m: int, sfx: str, errs: dict, solo: dict,
         return fn(t["xp"], a["d"], t["gp"], t["pg"], a["stp"], c, lo, hi, t["S"], t["Y"], end,
                   lv, **kw)
 
-    forms = {
+    epilogues = {
         "K4b_trial_pair_gram_batched_gp": (k.trial_pair_gram_batched,
                                            k.trial_pair_gram_batched_ref, tpg, False),
         "K14b_owlqn_trial_pair_gram_batched_gp": (k.owlqn_trial_pair_gram_batched,
@@ -4941,13 +4979,14 @@ def _check_gp_epilogues(k, a: dict, m: int, sfx: str, errs: dict, solo: dict,
                                                   True),
     }
     clone = lambda: {n_: a[n_].clone() for n_ in names}
-    for base, (kern, ref, call, ow) in forms.items():
+    for base, (kern, ref, call, ow) in epilogues.items():
         name = base + sfx
         tk = clone()
         gp_launches = kern.gp_launches
         outk = call(kern, tk, live, with_gp=True)
         if kern.gp_launches != gp_launches + 1:
             raise AssertionError(f"{name}: the . gp form did not launch")
+        forms[name] = batched_form(kern, True)
         t3 = clone()
         out3 = call(kern, t3, live)
         # (a frozen instance's sums are undefined: never written)
@@ -4999,6 +5038,7 @@ def _check_gp_epilogues(k, a: dict, m: int, sfx: str, errs: dict, solo: dict,
                 raise AssertionError(f"{name} instance {b} differs from the solo kernel: {bits}")
             solo[f"{name}_{b}"] = dict(
                 bits, products_bit_for_bit=same_bits(SP[b], SP1) and same_bits(YP[b], YP1),
+                products_normwise=max(err(SP[b], SP1), err(YP[b], YP1)),
                 gp_column_normwise=max(err(SP[b][:, 3], SP1[:, 3]),
                                        err(YP[b][:, 3], YP1[:, 3])))
         del tk, outk, SP, YP
@@ -5133,30 +5173,33 @@ def combine_batched_compiled() -> list:
 
 
 def phase_batched_damped_kernels() -> dict:
-    """K4 b ·gp and K14 b ·gp, K6 b and K15 b's fix form at m = 6 and in
-    their deep forms at m = 80 (K15 b fix with M = 0), and K3 b and K13 b
-    at m = 80, against their plain versions on the card at B = 1024, n =
-    2^14, f32 vectors, bf16 rings, a third of the instances frozen, the
-    OWL-QN forms on a window whose ends fall inside the kernels' blocks
-    (normwise 1e-5 on vectors, 1e-4 on sums; ring rows, damped rows and
-    frozen instances bit for bit); instances 0, 511 and 1023 against the
-    solo kernels bit for bit (``_check_gp_epilogues``,
-    ``_check_fix_combines``, ``_check_deep_capped_combines``).  Each timed
-    with every instance live beside its plain version and its bound (5
-    launches a sample at m = 80, 20 at m = 6); the registers and spills of
+    """K4 b ·gp and K14 b ·gp at m = 6, 19 and 80 (``BATCHED_EPILOGUE_DEPTHS``,
+    each launch's form and geometry printed), K6 b and K15 b's fix form at
+    m = 6 and in their deep forms at m = 80 (K15 b fix with M = 0), and K3 b
+    and K13 b at m = 80, against their plain versions on the card at B =
+    1024, n = 2^14, f32 vectors, bf16 rings, a third of the instances
+    frozen, the OWL-QN forms on a window whose ends fall inside the
+    kernels' blocks (normwise 1e-5 on vectors, 1e-4 on sums; ring rows,
+    damped rows and frozen instances bit for bit); instances 0, 511 and
+    1023 against the solo kernels bit for bit (``_check_gp_epilogues``, ``_check_fix_combines``,
+    ``_check_deep_capped_combines``).  Each timed with every instance live
+    beside its plain version and its bound (5 launches a sample at m = 80,
+    20 below); the registers and spills of
     every compiled batched Triton form (``batched_compiled``) and CUDA
     combine (``combine_batched_compiled``): a spill fails."""
     k = rosenbrock.value_and_grad.kernels
-    errs, solo, cases = {}, {}, {}
+    errs, solo, cases, forms = {}, {}, {}, {}
     times, timed_by, bounds = {}, {}, {}
-    for m, sfx in ((M, ""), (DEEP_M, "_m80")):
+    for m, sfx in BATCHED_EPILOGUE_DEPTHS:
         a = batched_damped_inputs(SEED + 17, m)
-        _check_gp_epilogues(k, a, m, sfx, errs, solo, cases)
-        _check_fix_combines(k, a, m, sfx, errs, solo, cases)
+        _check_gp_epilogues(k, a, m, sfx, errs, solo, cases, forms)
+        if m in (M, DEEP_M):
+            _check_fix_combines(k, a, m, sfx, errs, solo, cases)
         if m == DEEP_M:
             _check_deep_capped_combines(a, m, errs, solo, cases)
         for name, (kern, plain, depth) in cases.items():
-            k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain, 20 if m == M else 5)
+            k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain,
+                                                     20 if m <= factory.MAX_M else 5)
             times[name], timed_by[name] = (k_ms, p_ms), (k_by, p_by)
             bounds[name] = bound(name, BATCH_B * BATCH_N, 4, 2, depth)
         cases.clear()
@@ -5164,7 +5207,8 @@ def phase_batched_damped_kernels() -> dict:
         torch.cuda.empty_cache()
     compiled = batched_compiled() + combine_batched_compiled()
     errs = {name: (max(e[0] for e in v), max(e[1] for e in v)) for name, v in errs.items()}
-    emit(phase="batched_damped_kernels", B=BATCH_B, n=BATCH_N, m=[M, DEEP_M],
+    emit(phase="batched_damped_kernels", B=BATCH_B, n=BATCH_N,
+         m=[m for m, _ in BATCHED_EPILOGUE_DEPTHS], epilogue_forms=forms,
          window=windows(BATCH_N)[1], frozen=len(range(2, BATCH_B, 3)),
          max_abs_err={n_: e[0] for n_, e in errs.items()},
          max_normwise_err={n_: e[1] for n_, e in errs.items()},
@@ -5173,7 +5217,8 @@ def phase_batched_damped_kernels() -> dict:
                   gp_columns_0_2_vs_3_column="bit-exact",
                   vs_solo_x_g_pg_rings_r_rows="bit-exact"),
          vs_solo=solo, compiled=compiled,
-         device_ms={n_: {"kernel": t[0], "plain": t[1], "bound": bounds[n_][0]}
+         device_ms={n_: {"kernel": t[0], "plain": t[1], "bound": bounds[n_][0],
+                         **({"n_regs": forms[n_]["n_regs"]} if n_ in forms else {})}
                     for n_, t in times.items()},
          timed_by={n_: {"kernel": t[0], "plain": t[1]} for n_, t in timed_by.items()})
     return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}

@@ -102,8 +102,9 @@ float32, to every kernel's count below):
   array, as the JAX kernel's fxp), which the wide mode sums in float64.
   The six products' folds and reductions are the same code with and
   without ``WITH_GP``, so columns 0-2 stay those of the 3-column launch
-  bit for bit.  Tensor cores do not apply: the Gram products cost ~2.7
-  flops per byte against float32's ridge of ~20, so bytes bound them.
+  bit for bit.  Bytes bound them: the Gram products cost ~2.7 flops per
+  byte against float32's ridge of ~20 (the batched forms below put them on
+  the tensor cores all the same, to take their sums out of the registers).
 
   Above ``factory.MAX_M`` ring rows the sums of every row would not fit a
   thread, so the deep forms ``trial_pair_gram_deep_kernel`` and
@@ -184,13 +185,42 @@ from (xp, pg) as K8 b rebuilds it): K1's and K7's block per instance (16
 and 20 B/elem), their (f, g.d) and (f, L1, g.d) partials written by K2
 b's and K8 b's expressions into arrays of K2 b's and K8 b's layout, so
 that at the same step their scalars are K2 b's and K8 b's bit for bit
-(the remat contract).  Above ``factory.MAX_M`` rows the epilogues are
-``trial_pair_gram_deep_batched_kernel`` and
-``owlqn_trial_pair_gram_deep_batched_kernel``: the deep K4's and K14's
-program per instance, their group passes and their last-pass stores (x,
-g and pg over xp, gp and pg_old) unchanged.  Each batched form's r, x, g,
-pg, ring rows and partials are its solo kernel's on that instance alone
-bit for bit.
+(the remat contract).  Each batched form's r, x, g, pg and ring rows are
+its solo kernel's on that instance alone bit for bit, and so are its
+partials, but K4 b's and K14 b's.
+
+  How K4 b and K14 b are laid out.  Their launch is sized over the whole
+  batch (``factory.batched_epilogue_grid``), not per instance: each
+  instance is cut into a few programs of several consecutive tiles (at
+  1024 x 2^14, 4 programs of 8 tiles of 512 elements an instance, the
+  solo kernel's shape at n = 2^24), so the launch stays near
+  ``factory.EPILOGUE_PROGRAMS`` programs and each program's cross-thread
+  reductions cover thousands of elements, not one tile.  A program never
+  straddles two instances.  x, g, pg and the ring row are formed element
+  by element as the solo kernels form them, so they stay those kernels'
+  bit for bit; the sums and products are taken in another order, within
+  the sum tolerance.  The static and deep forms
+  (``trial_pair_gram_batched_kernel``, ``..._deep_batched_kernel`` and
+  K14 b's) keep the solo kernels' per-thread folds and group passes on
+  that grid.  With f32 vectors over a bf16 ring, from
+  ``factory.MMA_MIN_M`` to ``factory.MMA_MAX_M`` rows, the Gram products
+  go to the tensor cores instead (``trial_pair_gram_mma_batched_kernel``,
+  ``owlqn_trial_pair_gram_mma_batched_kernel``): per chunk of K elements
+  the ring rows are one ``tl.dot`` operand ([RP, K] bf16, exact), the
+  pair's vectors y, s, d0 and gp, each split into three bf16 parts that
+  carry float32's 24 bits, the other ([K, 16]), and the [RP, 16] float32
+  sums stay in the MMA's registers across the program's chunks; each
+  product is (p1 + p2) + p3 at the end.  That takes the 6 (8) per-thread
+  [T // V, MP] sums out of the registers, so no depth up to MMA_MAX_M
+  needs a group pass: xp, d, gp (pg) are read and the body runs once per
+  element.  Row ``end`` (the new pair, unrounded, never read) is masked
+  out of the operand and its products are folded in float32 from the
+  pair in registers.  The . gp column rides in the same operand, so the
+  3-column launch and the . gp launch run one binary (``with_gp`` a
+  run-time flag that only stores the column).  The bound stays bytes: at
+  m = 80 the products are 8192 operations per element (RP = 128 rows, 16
+  columns, two rings), 0.14 ms of the tensor cores' bf16 rate against a
+  1.70 ms byte bound at 1024 x 2^14.
 
 On a mesh each kernel runs on one rank's shard of the vectors: ``off``,
 the shard's global offset, is added to the local offsets only where the
@@ -1398,3 +1428,243 @@ def owlqn_trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp
     if WITH_GP:
         tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=live)
         tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=live)
+
+
+@triton.jit
+def _chunk(tile, K: tl.constexpr):
+    # the offsets of chunk `tile` of K consecutive elements
+    return tl.max_contiguous(tl.multiple_of(tile * K + tl.arange(0, K), K), K)
+
+
+@triton.jit
+def _split_operand(y, s, d0, gp):
+    # the pair's vectors ([K] float32) as the products' [K, 16] bf16 operand:
+    # column 4v + p holds part p of vector v (y, s, d0, gp), each split into
+    # b1 = bf16(b), b2 = bf16(b - b1), b3 = bf16(b - b1 - b2), which carry
+    # float32's 24 bits (each difference is exact); column 4v + 3 is zero.
+    # A non-finite b gives b - b1 = NaN, so its products stay non-finite.
+    # tl.join(a, b) stacks on a new last axis: the [K, 2, 2] below is (y,
+    # s, d0, gp) in row-major order, and the [K, 4, 2, 2] (b1, b2, b3, 0)
+    K: tl.constexpr = y.shape[0]
+    b = tl.reshape(tl.join(tl.join(y, d0), tl.join(s, gp)), [K, 4])
+    b1 = b.to(tl.bfloat16)
+    r1 = b - b1.to(tl.float32)
+    b2 = r1.to(tl.bfloat16)
+    b3 = (r1 - b2.to(tl.float32)).to(tl.bfloat16)
+    return tl.reshape(tl.join(tl.join(b1, b3), tl.join(b2, tl.zeros_like(b1))), [K, 16])
+
+
+@triton.jit
+def _column(acc, v: tl.constexpr):
+    # the [RP] products of the ring rows with vector v: its three parts'
+    # sums, each picked out of acc ([RP, 16]) exactly, added as (p1 + p2)
+    # + p3
+    col = tl.arange(0, 16)[None, :]
+    p1 = tl.sum(tl.where(col == 4 * v, acc, 0.0), axis=1)
+    p2 = tl.sum(tl.where(col == 4 * v + 1, acc, 0.0), axis=1)
+    p3 = tl.sum(tl.where(col == 4 * v + 2, acc, 0.0), axis=1)
+    return (p1 + p2) + p3
+
+
+@triton.jit
+def _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s, acc_y,
+                RP: tl.constexpr):
+    # one chunk's pass over the rings: the old rows (j < m, j != end) as
+    # the first operand ([RP, K] bf16: a bf16 value is exact there), row
+    # `end` masked to zero (its products are the f32 folds of the
+    # unrounded pair), the split vectors as the second, summed into acc_s
+    # and acc_y ([RP, 16] float32) by the tensor cores; then the new pair
+    # stored into row `end`, rounded to bf16
+    op = _split_operand(y, s, d0, gp)
+    rows = tl.arange(0, RP)
+    rmask = ((rows < m) & (rows != end))[:, None] & mask[None, :]
+    roffs = rows.to(tl.int64)[:, None] * n + offs[None, :]
+    acc_s = tl.dot(tl.load(S_ptr + roffs, mask=rmask, other=0.0), op, acc_s)
+    acc_y = tl.dot(tl.load(Y_ptr + roffs, mask=rmask, other=0.0), op, acc_y)
+    row = end.to(tl.int64) * n
+    tl.store(S_ptr + row + offs, s.to(S_ptr.dtype.element_ty), mask=mask)
+    tl.store(Y_ptr + row + offs, y.to(Y_ptr.dtype.element_ty), mask=mask)
+    return acc_s, acc_y
+
+
+@triton.jit
+def _store_gram_mma(part, gpart, live, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd, e_sg,
+                    e_yy, e_yd, e_yg, RP: tl.constexpr):
+    # the program's partials of the 6m products (row j at part + 6j, in
+    # ``_store_gram``'s order) and with with_gp the . gp column's (S_j.gp,
+    # Y_j.gp at gpart + 2j): each row's from the tensor cores, row `end`'s
+    # from the folds of the unrounded pair; nothing for a frozen instance
+    r = tl.arange(0, RP)
+    keep = (r < m) & live
+    at_end = r == end
+    sy = tl.sum(e_sy, axis=0)
+    pj = part + 6 * r
+    tl.store(pj + 0, tl.where(at_end, sy, _column(acc_s, 0)), mask=keep)
+    tl.store(pj + 1, tl.where(at_end, tl.sum(e_ss, axis=0), _column(acc_s, 1)), mask=keep)
+    tl.store(pj + 2, tl.where(at_end, tl.sum(e_sd, axis=0), _column(acc_s, 2)), mask=keep)
+    tl.store(pj + 3, tl.where(at_end, tl.sum(e_yy, axis=0), _column(acc_y, 0)), mask=keep)
+    tl.store(pj + 4, tl.where(at_end, sy, _column(acc_y, 1)), mask=keep)
+    tl.store(pj + 5, tl.where(at_end, tl.sum(e_yd, axis=0), _column(acc_y, 2)), mask=keep)
+    keep = keep & (with_gp != 0)
+    tl.store(gpart + 2 * r, tl.where(at_end, tl.sum(e_sg, axis=0), _column(acc_s, 3)),
+             mask=keep)
+    tl.store(gpart + 2 * r + 1, tl.where(at_end, tl.sum(e_yg, axis=0), _column(acc_y, 3)),
+             mask=keep)
+
+
+@triton.jit(do_not_specialize=["m", "end", "tiles", "with_gp"])
+def trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr, Y_ptr,
+                                       part_ptr, gpart_ptr, n, end, tiles, with_gp, ex, m,
+                                       body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr,
+                                       W: tl.constexpr):
+    # K4 b with the Gram products on the tensor cores (f32 vectors, a bf16
+    # ring of at most RP rows): program (pid, b) takes chunks pid*tiles ..
+    # pid*tiles + tiles - 1 of K elements of instance b, in place.  Per
+    # chunk the point, the body and the pair as K4 b forms them, the
+    # scalar sums and row end's products folded into per-element float32
+    # sums, and the ring rows' products with the split vectors summed by
+    # ``tl.dot`` across the program's chunks.  The . gp column rides in the
+    # same operand: the . gp launch and the 3-column one run this one
+    # binary, and with_gp (a run-time flag) only stores the column
+    pid = tl.program_id(0)
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    xp_ptr += row
+    d_ptr += row
+    gp_ptr += row
+    S_ptr += row * m
+    Y_ptr += row * m
+    stp = tl.load(stp_ptr + b)
+    a_gd = tl.zeros([K], tl.float32)
+    a_gg = tl.zeros([K], tl.float32)
+    a_xx = tl.zeros([K], tl.float32)
+    a_ch = tl.zeros([K], tl.float32)
+    e_sy = tl.zeros([K], tl.float32)
+    e_ss = tl.zeros([K], tl.float32)
+    e_sd = tl.zeros([K], tl.float32)
+    e_sg = tl.zeros([K], tl.float32)
+    e_yy = tl.zeros([K], tl.float32)
+    e_yd = tl.zeros([K], tl.float32)
+    e_yg = tl.zeros([K], tl.float32)
+    acc_s = tl.zeros([RP, 16], tl.float32)
+    acc_y = tl.zeros([RP, 16], tl.float32)
+    for t in range(tiles):
+        offs = _chunk(pid * tiles + t, K)
+        mask = (offs < n) & live
+        xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+        d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+        gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+        exb = _view(_extras(ex, offs, mask), K // W, W)
+        x = xp + stp * d
+        _, g = body(tl.reshape(x, [K // W, W]), tl.reshape(offs, [K // W, W]), *exb)
+        g = tl.where(mask, tl.reshape(g, [K]), 0.0)
+        s = stp * d
+        y = g - gp
+        d0 = -g
+        a_gd += g * d
+        a_gg += g * g
+        a_xx += x * x
+        a_ch += tl.where(x != xp, 1.0, 0.0)
+        e_sy += s * y
+        e_ss += s * s
+        e_sd += s * d0
+        e_sg += s * gp
+        e_yy += y * y
+        e_yd += y * d0
+        e_yg += y * gp
+        acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s,
+                                   acc_y, RP)
+        tl.store(xp_ptr + offs, x, mask=mask)
+        tl.store(gp_ptr + offs, g, mask=mask)
+    prog = b.to(tl.int64) * tl.num_programs(0) + pid
+    part = part_ptr + prog * (4 + 6 * m)
+    tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
+    tl.store(part + 1, tl.sum(a_gg, axis=0), mask=live)
+    tl.store(part + 2, tl.sum(a_xx, axis=0), mask=live)
+    tl.store(part + 3, tl.sum(a_ch, axis=0), mask=live)
+    _store_gram_mma(part + 4, gpart_ptr + prog * (2 * m), live, m, end, with_gp, acc_s, acc_y,
+                    e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, RP)
+
+
+@triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles", "with_gp"])
+def owlqn_trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
+                                             live_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo,
+                                             hi, end, tiles, with_gp, ex, m, body: tl.constexpr,
+                                             RP: tl.constexpr, K: tl.constexpr,
+                                             W: tl.constexpr):
+    # K14 b laid out as ``trial_pair_gram_mma_batched_kernel``, in place (x,
+    # g and pg over xp, gp and pg_old): the projected point with the
+    # orthant from (xp, pg_old), its gradient and pseudo-gradient, the pair
+    # (x - xp, g - gp) and d0 = -pg; gp.gp and gp.pg are summed in both
+    # launches and stored with with_gp
+    pid = tl.program_id(0)
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    xp_ptr += row
+    d_ptr += row
+    gp_ptr += row
+    pg_ptr += row
+    S_ptr += row * m
+    Y_ptr += row * m
+    stp = tl.load(stp_ptr + b)
+    c = tl.load(c_ptr)
+    a_xx = tl.zeros([K], tl.float32)
+    a_pp = tl.zeros([K], tl.float32)
+    a_ch = tl.zeros([K], tl.float32)
+    a_gg = tl.zeros([K], tl.float32)
+    a_gpg = tl.zeros([K], tl.float32)
+    e_sy = tl.zeros([K], tl.float32)
+    e_ss = tl.zeros([K], tl.float32)
+    e_sd = tl.zeros([K], tl.float32)
+    e_sg = tl.zeros([K], tl.float32)
+    e_yy = tl.zeros([K], tl.float32)
+    e_yd = tl.zeros([K], tl.float32)
+    e_yg = tl.zeros([K], tl.float32)
+    acc_s = tl.zeros([RP, 16], tl.float32)
+    acc_y = tl.zeros([RP, 16], tl.float32)
+    for t in range(tiles):
+        offs = _chunk(pid * tiles + t, K)
+        mask = (offs < n) & live
+        xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+        d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+        gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+        pgo = tl.load(pg_ptr + offs, mask=mask, other=0.0)
+        exb = _view(_extras(ex, offs, mask), K // W, W)
+        in_win = (offs >= lo) & (offs < hi)
+        wp_sign = tl.where(xp == 0.0, _msign(-pgo), _msign(xp))
+        x = _ow_point(xp, d, stp, wp_sign, in_win)
+        _, g = body(tl.reshape(x, [K // W, W]), tl.reshape(offs, [K // W, W]), *exb)
+        g = tl.where(mask, tl.reshape(g, [K]), 0.0)
+        pg = _pseudo_grad(g, x, c, in_win)
+        s = x - xp
+        y = g - gp
+        d0 = -pg
+        a_xx += x * x
+        a_pp += pg * pg
+        a_ch += tl.where(x != xp, 1.0, 0.0)
+        a_gg += gp * gp
+        a_gpg += gp * pg
+        e_sy += s * y
+        e_ss += s * s
+        e_sd += s * d0
+        e_sg += s * gp
+        e_yy += y * y
+        e_yd += y * d0
+        e_yg += y * gp
+        acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s,
+                                   acc_y, RP)
+        tl.store(xp_ptr + offs, x, mask=mask)
+        tl.store(gp_ptr + offs, g, mask=mask)
+        tl.store(pg_ptr + offs, pg, mask=mask)
+    prog = b.to(tl.int64) * tl.num_programs(0) + pid
+    part = part_ptr + prog * (3 + 6 * m)
+    tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
+    tl.store(part + 1, tl.sum(a_pp, axis=0), mask=live)
+    tl.store(part + 2, tl.sum(a_ch, axis=0), mask=live)
+    gpart = gpart_ptr + prog * (2 + 2 * m)
+    tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=live & (with_gp != 0))
+    tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=live & (with_gp != 0))
+    _store_gram_mma(part + 3, gpart + 2, live, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
+                    e_sg, e_yy, e_yd, e_yg, RP)

@@ -53,8 +53,11 @@ protocol the solver looks for:
     ``__lbfgs_combine_ow_probe_batched__`` (and their ``_ok__``
     predicates): K15 b (with K6 b's damped row in its ``fix`` form) and
     K16 b, each instance's combine and its next first probe at its own
-    entry step.  At every depth: above ``MAX_M`` ring rows K4 b, K14 b,
-    K15 b and K16 b take their solo kernels' deep forms.
+    entry step.  At every depth: above ``MAX_M`` ring rows K15 b and K16 b
+    take their solo kernels' deep forms; K4 b and K14 b take the form and
+    the batch-wide launch of ``batched_epilogue_grid`` (with f32 vectors
+    over a bf16 ring their Gram products on the tensor cores from
+    ``MMA_MIN_M`` to ``MMA_MAX_M`` rows).
     ``__lbfgs_trial_batched__`` / ``__lbfgs_owlqn_trial_batched__``: K1 b
     and K7 b, K1 and K7 over a batch, which materialize the accepted
     points where no batched epilogue runs (the scan two-loop, a float16
@@ -191,6 +194,95 @@ def epilogue_grid(n: int, vdtype: torch.dtype, hdtype: torch.dtype) -> SimpleNam
     return SimpleNamespace(**cfg, ntiles=ntiles, tiles=tiles, programs=programs)
 
 
+#: the batched epilogues' Gram products on the tensor cores (f32 vectors
+#: over a bf16 ring, ``MMA_MIN_M`` to ``MMA_MAX_M`` ring rows): each program
+#: walks chunks of K elements of one instance; the ring rows of a chunk are
+#: one operand ([RP, K] bf16, RP = m rounded up to a power of two, at least
+#: 16), the pair's vectors split into three bf16 parts the other ([K, 16]),
+#: and ``tl.dot`` sums [RP, 16] in float32 over all of the program's chunks
+#: (``_factory_triton.trial_pair_gram_mma_batched_kernel``).  Per RP: the
+#: chunk K, warps and pipeline stages, the fastest launch that spills
+#: nothing in ``tools/tune_batched_epilogues.py``'s sweep (K 64-256, 4 or 8
+#: warps, 1-3 stages; K4 b ·gp and K14 b ·gp at 1024 x 2^14 and m = 6, 19,
+#: 48, 80, 200) on an NVIDIA H100 80GB HBM3 at its 700 W limit
+MMA_EPILOGUE = {
+    16: dict(K=128, num_warps=4, num_stages=3),
+    32: dict(K=128, num_warps=4, num_stages=3),
+    64: dict(K=256, num_warps=4, num_stages=3),
+    128: dict(K=128, num_warps=8, num_stages=3),
+    256: dict(K=64, num_warps=8, num_stages=3),
+}
+#: the depths the tensor-core form takes.  Up to 8 rows the static form's
+#: per-thread sums are [T // V, 8] and it is the faster (the same tool's
+#: crossover, at m = 6 and 8); from 9 rows they are [T // V, 16] and the
+#: tensor-core form is ahead from m = 12 on.  Above MMA_MAX_M the deep form
+#: runs
+MMA_MIN_M, MMA_MAX_M = 9, max(MMA_EPILOGUE)
+#: the one dtype pair whose ring values are exact as a bf16 operand
+MMA_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def batched_epilogue_grid(B: int, n: int, m: int, vdtype: torch.dtype,
+                          hdtype: torch.dtype) -> SimpleNamespace:
+    """The form and launch of K4 b and K14 b (the ·gp launch and the
+    3-column one alike) on B instances of n elements with m ring rows: the
+    tensor-core form (``form="mma"``) for f32 vectors over a bf16 ring from
+    ``MMA_MIN_M`` to ``MMA_MAX_M`` rows, else the static form up to
+    ``MAX_M`` rows and the deep form above, both on ``EPILOGUE``'s tiles.  The launch is sized over
+    the whole batch: each instance's n elements are cut into ``ntiles``
+    tiles of T elements (the tensor-core form's chunks of K), and each of
+    its ``programs`` programs takes ``tiles`` consecutive ones, so that
+    B * programs stays at or under ``EPILOGUE_PROGRAMS`` wherever B does
+    (one program an instance above it).  A program never straddles two
+    instances; the last one's tiles may run past n, masked.  ``consts`` are
+    the form's compile-time constants, ``launch`` its warps and stages."""
+    if (vdtype, hdtype) == MMA_DTYPES and MMA_MIN_M <= m <= MMA_MAX_M:
+        rp = max(16, _rows(m))
+        cfg = MMA_EPILOGUE[rp]
+        form, T = "mma", cfg["K"]
+        consts = dict(m=m, RP=rp, K=T)
+    else:
+        cfg = EPILOGUE[(vdtype, hdtype)]
+        T = cfg["T"]
+        if m <= MAX_M:
+            form, consts = "static", dict(M=m, MP=_rows(m), T=T, V=cfg["V"])
+        else:
+            form, consts = "deep", dict(m=m, G=DEEP_GROUP[(vdtype, hdtype)], T=T, V=cfg["V"])
+    ntiles = -(-n // T)
+    per = max(1, EPILOGUE_PROGRAMS // B)
+    tiles = -(-ntiles // per)
+    programs = -(-ntiles // tiles)
+    return SimpleNamespace(form=form, T=T, ntiles=ntiles, tiles=tiles, programs=programs,
+                           total=B * programs, consts=consts,
+                           launch=dict(num_warps=cfg["num_warps"],
+                                       num_stages=cfg["num_stages"]))
+
+
+def batched_epilogue_partials(grid: SimpleNamespace, B: int, m: int, owlqn: bool,
+                              with_gp: bool) -> dict:
+    """The shapes of K4 b's and K14 b's partials on ``grid``
+    (``batched_epilogue_grid``): [B, programs, 4 + 6m] (K4 b) or [B,
+    programs, 3 + 6m] (K14 b), ``epilogue_partials``' columns per program,
+    and with ``with_gp`` the . gp column's [B, programs, 2m] ([B, programs,
+    2 + 2m] for K14 b)."""
+    out = {"part": (B, grid.programs, (3 if owlqn else 4) + 6 * m)}
+    if with_gp:
+        out["gpart"] = (B, grid.programs, (2 if owlqn else 0) + 2 * m)
+    return out
+
+
+def bf16_split_ref(v: torch.Tensor) -> tuple:
+    """The tensor-core form's split of a float32 vector into three bf16
+    parts (``_factory_triton._split_operand``), in torch: b1 = bf16(v), b2 =
+    bf16(v - b1), b3 = bf16(v - b1 - b2).  For a finite v below bf16's
+    largest value b1 + b2 + b3 == v exactly; an inf or NaN leaves NaN in
+    b2 and b3."""
+    b1 = v.to(torch.bfloat16)
+    r1 = v - b1.float()
+    b2 = r1.to(torch.bfloat16)
+    return b1, b2, (r1 - b2.float()).to(torch.bfloat16)
+
+
 def epilogue_partials(grid: SimpleNamespace, m: int, owlqn: bool, with_gp: bool) -> dict:
     """The shapes of an epilogue's partials: the objective's (K4 only), one
     per tile of every program; the program's sums ([programs, 4 + 6m] for
@@ -212,6 +304,15 @@ def _epilogue_buffers(x: torch.Tensor, eg: SimpleNamespace, m: int, owlqn: bool,
             for k, v in epilogue_partials(eg, m, owlqn, with_gp).items()}
 
 
+def _batched_buffers(xp: torch.Tensor, grid: SimpleNamespace, m: int, owlqn: bool,
+                     with_gp: bool) -> tuple:
+    """K4 b's or K14 b's (part, gpart) on ``grid`` and xp's device ([B, n]
+    iterates), gpart the part array itself without ``with_gp``."""
+    bufs = {k: torch.empty(v, dtype=xp.dtype, device=xp.device)
+            for k, v in batched_epilogue_partials(grid, xp.shape[0], m, owlqn, with_gp).items()}
+    return bufs["part"], bufs.get("gpart", bufs["part"])
+
+
 def _rows(m: int) -> int:
     """m rounded up to a power of two: the ring tile's row count."""
     return 1 << (m - 1).bit_length()
@@ -219,16 +320,35 @@ def _rows(m: int) -> int:
 
 def _epilogue_form(fn, m: int, vdtype: torch.dtype, hdtype: torch.dtype) -> tuple:
     """(kernel name, the wrapper's dict of compiled kernels, the depth's
-    constants) of the form of K4, K14, K4 b or K14 b (``fn``, its wrapper)
-    that takes m ring rows of ``hdtype``: the static form up to ``MAX_M``
-    rows, the deep form above (``<name>_deep_kernel``, the batched ones
-    ``<name>_deep_batched_kernel``)."""
+    constants) of the form of K4 or K14 (``fn``, its wrapper) that takes m
+    ring rows of ``hdtype``: the static form up to ``MAX_M`` rows, the deep
+    form above (``<name>_deep_kernel``).  The batched forms choose theirs in
+    ``batched_epilogue_grid``."""
     name = fn.__name__
     if m <= MAX_M:
         return name + "_kernel", fn.compiled, dict(M=m, MP=_rows(m))
-    base = name.removesuffix("_batched")
-    return (base + "_deep" + name[len(base):] + "_kernel", fn.deep_compiled,
-            dict(m=m, G=DEEP_GROUP[(vdtype, hdtype)]))
+    return name + "_deep_kernel", fn.deep_compiled, dict(m=m, G=DEEP_GROUP[(vdtype, hdtype)])
+
+
+def _batched_epilogue_launch(fn, eg: SimpleNamespace, B: int, m: int, vdtype: torch.dtype,
+                             hdtype: torch.dtype, with_gp: bool, *args, **kw) -> None:
+    """Launch K4 b or K14 b (``fn``, its wrapper) in the form and over the
+    grid ``eg`` (``batched_epilogue_grid``), keep the compiled kernel in the
+    form's dict (``fn.mma_compiled``, ``fn.compiled``, ``fn.deep_compiled``)
+    and the geometry in ``fn.last_form``, and count the launch (``_count``;
+    ``fn.mma_launches`` for the tensor-core form)."""
+    base = fn.__name__.removesuffix("_batched")
+    name = base + {"mma": "_mma", "static": "", "deep": "_deep"}[eg.form] + "_batched_kernel"
+    compiled = {"mma": fn.mma_compiled, "static": fn.compiled,
+                "deep": fn.deep_compiled}[eg.form]
+    # the tensor-core form's . gp column is a run-time flag (one binary for
+    # both launches); the fold forms' a compile-time one
+    flag = dict(with_gp=int(with_gp)) if eg.form == "mma" else dict(WITH_GP=bool(with_gp))
+    compiled[(vdtype, hdtype, bool(with_gp))] = getattr(_kernels(), name)[(eg.programs, B)](
+        *args, eg.tiles, **flag, **kw, **eg.consts, **dict(LAUNCH, **eg.launch))
+    fn.last_form = SimpleNamespace(kernel=name, **vars(eg))
+    fn.mma_launches += eg.form == "mma"
+    _count(fn, m > MAX_M, gp=bool(with_gp))
 
 
 def _count(fn, deep: bool, **forms: bool) -> None:
@@ -331,7 +451,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
       block_ref: the body's plain torch twin ``(x, gidx, *ex) -> (fx_elem,
         g)``; needed when ``value_and_grad`` is None.
     """
-    if BLOCK % row or any(cfg["T"] % row for cfg in EPILOGUE.values()):
+    tiles = [cfg["T"] for cfg in EPILOGUE.values()] + [cfg["K"] for cfg in MMA_EPILOGUE.values()]
+    if BLOCK % row or any(t % row for t in tiles):
         raise ValueError(f"row={row} must divide the block of {BLOCK} and the epilogues' tiles")
     # the kernels lay a block out as rows of W elements, at least two: with
     # rows of one element (an elementwise body) a 16-byte bf16 ring load
@@ -651,10 +772,11 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         (the damped runs) appends the . gp column S[b].gp[b], Y[b].gp[b]
         (SP, YP [B, m, 4]), counted in ``.gp_launches`` too; every other
         output is that of the 3-column launch bit for bit.  On the card an
-        instance's x, g, ring row and . gp column's rows equal
-        ``trial_pair_gram``'s on that instance alone bit for bit.  Above
-        ``MAX_M`` ring rows the deep form runs (``trial_pair_gram``'s, per
-        instance)."""
+        instance's x, g and ring row equal ``trial_pair_gram``'s on that
+        instance alone bit for bit, its sums within the sum tolerance (the
+        launch is sized over the batch and sums in its own order).  The
+        form (static, tensor-core or deep) and the grid are
+        ``batched_epilogue_grid``'s."""
         B = _check_batched("trial_pair_gram_batched", xp, live)
         _batched_scalars("trial_pair_gram_batched", xp, stp, d, gp)
         fused._check_hist_batched("trial_pair_gram_batched", xp, S, Y)
@@ -663,17 +785,12 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         if not fused.on_cuda(xp, "trial_pair_gram_batched"):
             return trial_pair_gram_batched_ref(xp, d, gp, stp, S, Y, end, live, with_gp)
         fused.check_contiguous("trial_pair_gram_batched", xp, d, gp, stp, live, S, Y)
-        eg = epilogue_grid(n, xp.dtype, S.dtype)
-        part = torch.empty((B, eg.programs, 4 + 6 * m), dtype=xp.dtype, device=xp.device)
-        gpart = (torch.empty((B, eg.programs, 2 * m), dtype=xp.dtype, device=xp.device)
-                 if with_gp else part)
-        kern, compiled, depth = _epilogue_form(trial_pair_gram_batched, m, xp.dtype, S.dtype)
-        compiled[(xp.dtype, S.dtype, bool(with_gp))] = getattr(_kernels(), kern)[
-            (eg.programs, B)](
-            xp, d, gp, stp, live.view(torch.uint8), S, Y, part, gpart, n, int(end), eg.tiles,
-            ex=extras, body=block_fn(), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp), **depth,
-            **_epilogue_launch(eg))
-        _count(trial_pair_gram_batched, m > MAX_M, gp=bool(with_gp))
+        eg = batched_epilogue_grid(B, n, m, xp.dtype, S.dtype)
+        part, gpart = _batched_buffers(xp, eg, m, False, with_gp)
+        _batched_epilogue_launch(
+            trial_pair_gram_batched, eg, B, m, xp.dtype, S.dtype, with_gp,
+            xp, d, gp, stp, live.view(torch.uint8), S, Y, part, gpart, n, int(end),
+            ex=extras, body=block_fn(), W=W)
         tot = part.sum(dim=1)
         P = tot[:, 4:].reshape(B, m, 6)
         SP, YP = P[:, :, :3], P[:, :, 3:]
@@ -976,8 +1093,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         gp, as ``owlqn_trial_pair_gram``'s ``with_gp``; every other output
         is that of the plain launch bit for bit.  On the card an instance's
         x, g, pg and ring row equal ``owlqn_trial_pair_gram``'s on that
-        instance alone bit for bit.  Above ``MAX_M`` ring rows the deep form
-        runs."""
+        instance alone bit for bit, its sums within the sum tolerance; the
+        form and the grid are ``batched_epilogue_grid``'s."""
         B = _check_batched("owlqn_trial_pair_gram_batched", xp, live)
         _batched_scalars("owlqn_trial_pair_gram_batched", xp, stp, d, gp, pg)
         fused._check_hist_batched("owlqn_trial_pair_gram_batched", xp, S, Y)
@@ -988,18 +1105,12 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             return owlqn_trial_pair_gram_batched_ref(xp, d, gp, pg, stp, c, start, end_w, S, Y,
                                                      end, live, with_gp)
         fused.check_contiguous("owlqn_trial_pair_gram_batched", xp, d, gp, pg, stp, live, S, Y)
-        eg = epilogue_grid(n, xp.dtype, S.dtype)
-        part = torch.empty((B, eg.programs, 3 + 6 * m), dtype=xp.dtype, device=xp.device)
-        gpart = (torch.empty((B, eg.programs, 2 + 2 * m), dtype=xp.dtype, device=xp.device)
-                 if with_gp else part)
-        kern, compiled, depth = _epilogue_form(owlqn_trial_pair_gram_batched, m, xp.dtype,
-                                               S.dtype)
-        compiled[(xp.dtype, S.dtype, bool(with_gp))] = getattr(_kernels(), kern)[
-            (eg.programs, B)](
+        eg = batched_epilogue_grid(B, n, m, xp.dtype, S.dtype)
+        part, gpart = _batched_buffers(xp, eg, m, True, with_gp)
+        _batched_epilogue_launch(
+            owlqn_trial_pair_gram_batched, eg, B, m, xp.dtype, S.dtype, with_gp,
             xp, d, gp, pg, stp, _scalar(c, xp), live.view(torch.uint8), S, Y, part, gpart, n,
-            start, end_w, int(end), eg.tiles, ex=extras, body=block_fn(), T=eg.T, V=eg.V, W=W,
-            WITH_GP=bool(with_gp), **depth, **_epilogue_launch(eg))
-        _count(owlqn_trial_pair_gram_batched, m > MAX_M, gp=bool(with_gp))
+            start, end_w, int(end), ex=extras, body=block_fn(), W=W)
         tot = part.sum(dim=1)
         P = tot[:, 3:].reshape(B, m, 6)
         out = (tot[:, 0], tot[:, 1], tot[:, 2] > 0, P[:, :, :3], P[:, :, 3:])
@@ -1255,6 +1366,10 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     for fn in (trial_pair_gram, owlqn_trial_pair_gram, trial_pair_gram_batched,
                owlqn_trial_pair_gram_batched):
         fn.compiled, fn.deep_compiled = {}, {}
+    # the batched epilogues' tensor-core forms: their launches, compiled
+    # kernels, and each launch's form and geometry (``batched_epilogue_grid``)
+    for fn in (trial_pair_gram_batched, owlqn_trial_pair_gram_batched):
+        fn.mma_launches, fn.mma_compiled, fn.last_form = 0, {}, None
     # the fusions' deep forms per (vector dtype, history dtype, fix), and
     # the batched fusions' forms per (vector dtype, history dtype, deep,
     # and for K15 b fix)

@@ -1,19 +1,28 @@
-"""Hold this tree's static batched epilogues to another tree's, bit for bit,
-and time both in turns, on one CUDA card.
+"""Hold this tree's batched epilogues K4 b and K14 b to another tree's and
+time both in turns, on one CUDA card.
 
     PYTHONPATH=. python3 tools/parent_batched.py --parent DIR [--reps N]
+        [--depths 6 19 80] [--forms K4b K4b_gp K14b K14b_gp] [--ragged]
 
 DIR is the root of another tree of this repository (e.g. a ``git archive``
 of the parent commit unpacked under ``build/``), whose ``lbfgs_torch`` is
-imported beside this one.  K4 b (``trial_pair_gram_batched``) and K14 b
-(``owlqn_trial_pair_gram_batched``) run at the batched main path's shapes
-(B x n = 1024 x 2^14, f32 vectors, bf16 rings, m = 6, end = 3, on
-``chip_smoke.batched_owlqn_inputs``, a third of the instances frozen, K14
-b on the window [0, n - 1)) in both trees: the points, gradients,
-pseudo-gradients, rings and every output must be the other tree's bit for
-bit.  Then each is timed with every instance live, other tree, this,
-this, other (``chip_smoke.device_time``).  Prints one JSON line per
-kernel, the card's nvidia-smi name and power limit first.
+imported beside this one.  Each form (K4 b ``trial_pair_gram_batched``
+and K14 b ``owlqn_trial_pair_gram_batched``, each with and without the .
+gp column) runs at each ring depth m at the batched main path's shapes
+(B x n = 1024 x 2^14, f32 vectors, bf16 rings, end = m - 3, a third of the
+instances frozen, K14 b on a window whose ends fall inside the kernels'
+tiles), and with ``--ragged`` at n = 2^14 + 2 too, in both trees: the
+points, gradients, pseudo-gradients and rings must be the other tree's bit
+for bit (a frozen instance's untouched), the sums and products within the
+sum tolerance of ``chip_smoke.TOL`` (normwise; the products' gap
+printed), and a . gp launch's other outputs this tree's 3-column launch's
+bit for bit.  Then, at n = 2^14 with every instance live, each form is
+timed other tree, this, this, other (``chip_smoke.device_time``).  Prints
+one JSON line per form and depth, with this tree's form and launch
+geometry (``factory.batched_epilogue_grid``), the card's nvidia-smi name
+and power limit first (``--out`` writes the lines to a file too).  With
+``--fold`` this tree runs its fold forms alone, on the batch-wide grid
+(``factory.MMA_MAX_M`` = 0): the launch sizing without the tensor cores.
 """
 
 from __future__ import annotations
@@ -27,61 +36,142 @@ import torch
 
 import chip_smoke as cs
 from lbfgs_torch.models import rosenbrock
+from lbfgs_torch.ops import factory
 from tools.tune_epilogues import load_tree
 
+FORMS = ("K4b", "K4b_gp", "K14b", "K14b_gp")
+NAMES = ("xp", "gp", "pg", "S", "Y")
 
-def calls(k, a: dict, live, fresh: bool = True) -> dict:
-    """name: a call of the batched epilogue, in place on copies of the
-    inputs (new ones each call with ``fresh``, else made once, as a timed
-    loop advances them), returning (the vectors and rings it wrote, its
-    outputs)."""
-    lo, hi = 0, cs.BATCH_N - 1
-    once = {n: a[n].clone() for n in ("xp", "gp", "pg", "S", "Y")}
 
-    def copies():
-        return {n: a[n].clone() for n in once} if fresh else once
+def inputs(seed: int, m: int, n: int) -> dict:
+    """Seeded inputs of the batched epilogues at B = ``cs.BATCH_B``, n
+    elements and m bf16 ring rows; xp zero at every 17th element, every
+    third instance from the third frozen."""
+    B = cs.BATCH_B
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    live = torch.ones(B, dtype=torch.bool, device="cuda")
+    live[2::3] = False
+    xp = rosenbrock.initial_point(n, torch.float32, "cuda")[None, :] + 0.1 * r(B, n)
+    xp[:, ::17] = 0.0
+    return dict(xp=xp, d=0.1 * r(B, n), gp=r(B, n), pg=r(B, n),
+                S=(0.1 * r(B, m, n)).bfloat16(), Y=(0.1 * r(B, m, n)).bfloat16(),
+                stp=0.2 + torch.rand(B, generator=g, device="cuda"), live=live, m=m, n=n)
 
-    def k4():
-        t = copies()
-        out = k.trial_pair_gram_batched(t["xp"], a["d"], t["gp"], a["stp"], t["S"], t["Y"],
-                                        cs.BATCH_END, live)
-        return t, out
 
-    def k14():
-        t = copies()
-        out = k.owlqn_trial_pair_gram_batched(t["xp"], a["d"], t["gp"], t["pg"], a["stp"], 1.0,
-                                              lo, hi, t["S"], t["Y"], cs.BATCH_END, live)
-        return t, out
+def call(k, form: str, a: dict, t: dict, live, with_gp=None):
+    """One launch of ``form`` through the objective's kernels ``k``, in
+    place on the vectors and rings ``t``; ``with_gp`` overrides the form's
+    column count."""
+    gp = form.endswith("_gp") if with_gp is None else with_gp
+    end = a["m"] - 3
+    if form.startswith("K14b"):
+        lo, hi = cs.windows(a["n"])[1]
+        return k.owlqn_trial_pair_gram_batched(t["xp"], a["d"], t["gp"], t["pg"], a["stp"],
+                                               cs.C_L1, lo, hi, t["S"], t["Y"], end, live,
+                                               with_gp=gp)
+    return k.trial_pair_gram_batched(t["xp"], a["d"], t["gp"], a["stp"], t["S"], t["Y"], end,
+                                     live, with_gp=gp)
 
-    return {"K4b": k4, "K14b": k14}
+
+def fresh(a: dict) -> dict:
+    return {n_: a[n_].clone() for n_ in NAMES}
+
+
+def compare(this, other, form: str, a: dict) -> dict:
+    """Both trees' launches of ``form`` on ``a``: the vectors and rings bit
+    for bit, the sums within the sum tolerance, the . gp launch's other
+    outputs this tree's 3-column launch's; returns the largest normwise
+    gaps of the sums and of the products."""
+    live = a["live"]
+    tv, ov = fresh(a), fresh(a)
+    out_t, out_o = call(this, form, a, tv, live), call(other, form, a, ov, live)
+    bits = {n_: cs.same_bits(tv[n_], ov[n_]) for n_ in NAMES}
+    bits["frozen"] = all(cs.same_bits(tv[n_][~live], a[n_][~live]) for n_ in NAMES)
+    if not all(bits.values()):
+        raise AssertionError(f"{form} m={a['m']} n={a['n']}: vectors or rings differ from the "
+                             f"other tree's: {bits}")
+    ts = cs.TOL[(torch.float32, "sum")]
+    prod = (3, 4) if form.startswith("K14b") else (4, 5)
+    gaps = {}
+    for i, (u, v) in enumerate(zip(out_t, out_o)):
+        if u.dtype == torch.bool:
+            if not torch.equal(u[live], v[live]):
+                raise AssertionError(f"{form} m={a['m']}: changed differs from the other tree's")
+            continue
+        gaps[i] = cs.err(u[live], v[live])
+    worst = max(gaps.values())
+    if worst > ts:
+        raise AssertionError(f"{form} m={a['m']} n={a['n']}: sums {gaps} beyond {ts}")
+    if form.endswith("_gp"):
+        t3 = fresh(a)
+        out3 = call(this, form, a, t3, live, with_gp=False)
+        same = all(cs.same_bits(t3[n_], tv[n_]) for n_ in NAMES) and all(
+            cs.same_bits((u[..., :3] if u.ndim == 3 else u)[live], v[live])
+            for u, v in zip(out_t, out3))
+        if not same:
+            raise AssertionError(f"{form} m={a['m']}: columns 0-2 or another output differ "
+                                 f"from the 3-column launch's")
+    return dict(sums=max(g for i, g in gaps.items() if i not in prod),
+                products=max(gaps[i] for i in prod))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--depths", type=int, nargs="+", default=[6, 19, 80])
+    ap.add_argument("--forms", nargs="+", default=list(FORMS), choices=FORMS)
+    ap.add_argument("--ragged", action="store_true")
+    ap.add_argument("--fold", action="store_true",
+                    help="this tree's fold forms alone (no tensor-core form), on the "
+                         "batch-wide grid")
+    ap.add_argument("--out")
     args = ap.parse_args()
+    if args.fold:
+        factory.MMA_MAX_M = 0
+    out = open(args.out, "w") if args.out else None
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip(),
           flush=True)
     other = load_tree(args.parent.resolve(), "lbfgs_torch_other").value_and_grad.kernels
     this = rosenbrock.value_and_grad.kernels
-    a = cs.batched_owlqn_inputs(cs.SEED + 14)
-    live = a["live"]
-    mine, theirs = calls(this, a, live), calls(other, a, live)
-    every = torch.ones_like(live)
-    timed_mine, timed_theirs = calls(this, a, every, False), calls(other, a, every, False)
-    for name in mine:
-        (tv, ov), (tw, ow) = mine[name](), theirs[name]()
-        same = all(cs.same_bits(tv[n], tw[n]) for n in tv) and all(
-            cs.same_bits(u, v) for u, v in zip(ov, ow))
-        if not same:
-            raise AssertionError(f"{name}: this tree's outputs differ from the other tree's")
-        o1, t1, t2, o2 = (cs.device_time(f, args.reps)
-                          for f in (timed_theirs[name], timed_mine[name], timed_mine[name],
-                                    timed_theirs[name]))
-        print(json.dumps(dict(kernel=name, bit_for_bit=True, other_ms=[o1, o2], this_ms=[t1, t2],
-                              change=min(t1, t2) / min(o1, o2) - 1)), flush=True)
+    for m in args.depths:
+        sizes = [cs.BATCH_N] + ([cs.BATCH_N + 2] if args.ragged else [])
+        for form in args.forms:
+            gaps = {}
+            for n in sizes:
+                a = inputs(cs.SEED + 20 + m, m, n)
+                gaps[n] = compare(this, other, form, a)
+                del a
+                torch.cuda.empty_cache()
+            a = inputs(cs.SEED + 20 + m, m, cs.BATCH_N)
+            every = torch.ones_like(a["live"])
+            tv, ov = fresh(a), fresh(a)
+            mine = lambda: call(this, form, a, tv, every)
+            theirs = lambda: call(other, form, a, ov, every)
+            reps = args.reps if m <= factory.MAX_M else max(5, args.reps // 4)
+            o1, t1, t2, o2 = (cs.device_time(f, reps) for f in (theirs, mine, mine, theirs))
+            fn = this.owlqn_trial_pair_gram_batched if form.startswith("K14b") else \
+                this.trial_pair_gram_batched
+            geo = fn.last_form
+            name = ("K14b_owlqn_trial_pair_gram_batched" if form.startswith("K14b")
+                    else "K4b_trial_pair_gram_batched") + ("_gp" if form.endswith("_gp") else "")
+            bound_ms = cs.bound(name, cs.BATCH_B * cs.BATCH_N, 4, 2, m)[0]
+            line = json.dumps(dict(
+                kernel=form, m=m, vectors_rings_bit_for_bit=True,
+                normwise_gap={str(n): g for n, g in gaps.items()}, other_ms=[o1, o2],
+                this_ms=[t1, t2], change=min(t1, t2) / min(o1, o2) - 1, bound_ms=bound_ms,
+                share_of_bound=bound_ms / min(t1, t2),
+                form=dict(kernel=geo.kernel, programs=geo.programs, tiles=geo.tiles,
+                          tile=geo.T, total=geo.total,
+                          **{k: v for k, v in geo.consts.items() if k != "m"}, **geo.launch)))
+            print(line, flush=True)
+            if out:
+                out.write(line + "\n")
+                out.flush()
+            del a, tv, ov
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
