@@ -6,8 +6,11 @@ Phases (any failure raises and the script exits nonzero):
 
   1. device: requires CUDA and prints the card's name and power limit;
   2. build: compiles the CUDA C++ kernels (nvcc, one process per source)
-     and every Triton specialisation the later phases launch, and prints
-     the seconds;
+     and, in ``WARM_WORKERS`` processes beside it, every Triton
+     specialisation the later phases launch (``warm_steps``: the static
+     forms, and the deep and tensor-core forms of the deep-history
+     phases), then launches each from the shared cache, and prints the
+     seconds;
   3. kernels: K1-K4 and OWL-QN's K8 (both forms), K10, K13 and K14
      against their plain torch versions on the card at n = 2^24 and at a
      ragged even n, for f32 vectors with a bf16 and an f32 history and for
@@ -339,6 +342,7 @@ import re
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 from types import SimpleNamespace
 
 import numpy as np
@@ -445,6 +449,18 @@ DEEP_FORMS = ("K4_trial_pair_gram", "K4_trial_pair_gram_gp", "K14_owlqn_trial_pa
 DEEP_KERNELS += DEEP_FORMS
 KERNELS.update({f"{name}_m80": (route, src, f"{rep} (m = 80)")
                 for name, (route, src, rep) in list(KERNELS.items()) if name in DEEP_KERNELS})
+#: the fold forms the solo K4 and K14 keep above 64 ring rows, where the
+#: tensor-core form (f32 vectors over a bf16 ring, ``factory.MMA_MIN_M``
+#: to ``factory.MMA_MAX_M`` rows) does not run: f32 and f64 rings at m =
+#: 80 and a bf16 ring at m = 260, n = 2^20 (``phase_deep_fold_paths``)
+FOLD_ROWS = {"_f32_m80": (torch.float32, torch.float32, 80),
+             "_f64_m80": (torch.float64, torch.float64, 80),
+             "_m260": (torch.float32, torch.bfloat16, 260)}
+KERNELS.update({
+    f"{name}{sfx}": (route, src, f"{rep} (m = {m}, {str(vd)[6:]}/{str(hd)[6:]}, deep form)")
+    for name, (route, src, rep) in list(KERNELS.items())
+    if name in ("K4_trial_pair_gram", "K14_owlqn_trial_pair_gram")
+    for sfx, (vd, hd, m) in FOLD_ROWS.items()})
 #: the batched runner's kernels (the JAX package vmaps the solo kernels,
 #: lbfgs_tpu/batched.py:28-72, adding a batch axis to each grid)
 VMAPPED = " under vmap (lbfgs_tpu/batched.py:28-72)"
@@ -581,13 +597,14 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
     multiply-adds of its sums counted as two operations.  An ``_ex`` row
     reads the quadratic's two extras too (2v bytes); its operations are
     counted as Rosenbrock's body's, which does more per element than the
-    quadratic's (5); ``_m80`` (``_m19``) rows are their kernel's at ring
+    quadratic's (5); ``_m80`` (``_m19``, ``_m260``; ``_f32_m80`` and
+    ``_f64_m80`` over f32 and f64 rings) rows are their kernel's at ring
     depth m."""
     if name.endswith("_ex"):
         b, f = cost(name[:-3], v, h, m)
         return b + 2 * v, f
     rings = 2 * (m - 1) * h + 2 * h
-    name = re.sub(r"_m\d+$", "", name)
+    name = re.sub(r"(_f32|_f64)?_m\d+$", "", name)
     return {
         "K1_trial": (4 * v, 20),
         "K2_probe": (2 * v, 16),
@@ -886,84 +903,169 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
-    t0 = time.perf_counter()
-    _build.load_library()
-    t_nvcc = time.perf_counter() - t0
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip(), flush=True)
-    # one launch per Triton specialisation the later phases use: the
-    # dtype pair, n divisible by 16 or not, and the ring depth m
-    t1 = time.perf_counter()
-    for vd, hd in DTYPES:
-        for n in (4096, 4098):
-            for m in (M, 3):
-                x = torch.ones(n, dtype=vd, device="cuda")
-                S = torch.zeros((m, n), dtype=hd, device="cuda")
-                rosenbrock.trial(x, x, 0.0)
-                rosenbrock.probe(x, x, 0.0)
-                rosenbrock.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1)
-                z = torch.zeros(m, dtype=vd, device="cuda")
+#: worker processes that compile the Triton specialisations of
+#: ``warm_steps`` into the shared on-disk cache while nvcc builds the CUDA
+#: library (Triton compiles on the host, one kernel at a time a process)
+WARM_WORKERS = 6
+
+
+def warm_steps() -> list:
+    """The build phase's launches, one step per group: each step takes
+    ``lib`` (whether it may launch the CUDA library's kernels, which only
+    the main process builds) and launches, at small sizes, every Triton
+    specialisation of its group that the later phases use (the dtype pair,
+    n divisible by 16 or not, the ring depth: the static forms at m = 6
+    and 3, the deep and tensor-core forms the deep-history phases run, the
+    forced fold forms of their checks)."""
+    steps = []
+
+    def group(vd, hd, n, m):
+        def step(lib):
+            x = torch.ones(n, dtype=vd, device="cuda")
+            S = torch.zeros((m, n), dtype=hd, device="cuda")
+            rosenbrock.trial(x, x, 0.0)
+            rosenbrock.probe(x, x, 0.0)
+            rosenbrock.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1)
+            z = torch.zeros(m, dtype=vd, device="cuda")
+            if lib:
                 fused.combine(x, S, S, z[0], z, z)
-                # the combine+probe fusions (K15 with and without its
-                # damped-row form, K16)
-                rosenbrock.combine_probe(x, x, S, S, z[0], z, z, 1.0)
-                rosenbrock.combine_probe(x, x, S, S.clone(), z[0], z, z, 1.0,
-                                         fix=(1, z[0], z[0]))
-                rosenbrock.combine_ow_probe(x, x, S, S, z[0], z, z, 1.0, 0, n - 1, 1.0)
-            # the OWL-QN kernels run at m = M only
+            # the combine+probe fusions (K15 with and without its damped-row
+            # form, K16)
+            rosenbrock.combine_probe(x, x, S, S, z[0], z, z, 1.0)
+            rosenbrock.combine_probe(x, x, S, S.clone(), z[0], z, z, 1.0, fix=(1, z[0], z[0]))
+            rosenbrock.combine_ow_probe(x, x, S, S, z[0], z, z, 1.0, 0, n - 1, 1.0)
+        return step
+
+    def owlqn(vd, hd, n):
+        # the OWL-QN kernels run at m = M only, and the damped paths' . gp forms
+        def step(lib):
+            x = torch.ones(n, dtype=vd, device="cuda")
             S = torch.zeros((M, n), dtype=hd, device="cuda")
             rosenbrock.owlqn_trial(x, x, x, 0.0, 1.0, 0, n - 1)
             rosenbrock.owlqn_probe(x, x, x, 0.0, 1.0, 0, n - 1)
             rosenbrock.owlqn_probe_pg(x, x, x, 0.0, 1.0, 0, n - 1)
             rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
                                              n - 1, S, S.clone(), 1)
-            # the damped paths' . gp specialisations
             rosenbrock.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1, with_gp=True)
             rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
                                              n - 1, S, S.clone(), 1, with_gp=True)
-    # the OWL-QN north star's ring depth
-    x = torch.ones(4096, device="cuda")
-    S = torch.zeros((3, 4096), dtype=torch.bfloat16, device="cuda")
-    rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0, 4095, S,
-                                     S.clone(), 1)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    # the factory kernels with extras: every form with the quadratic's two
-    # (f32 vectors, bf16 history, n divisible by 16 or not), and the damped
-    # path's forms with the quartic's one
-    for n in (4096, 4098):
-        x = torch.ones(n, device="cuda")
-        S = torch.zeros((M, n), dtype=torch.bfloat16, device="cuda")
+        return step
+
+    def deep(vd, hd, m, force=None):
+        # K4 and K14 (each with and without the . gp column) in the form m
+        # takes, or the fold form ``static_forms_up_to(force)`` picks, and
+        # above MAX_M the fusions' deep forms
+        def step(lib):
+            n = 4096
+            x = torch.ones(n, dtype=vd, device="cuda")
+            S = torch.zeros((m, n), dtype=hd, device="cuda")
+            z = torch.zeros(m, dtype=vd, device="cuda")
+            with static_forms_up_to(force) if force is not None else nullcontext():
+                for gp in (False, True):
+                    rosenbrock.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1,
+                                               with_gp=gp)
+                    rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0,
+                                                     n - 1, S, S.clone(), 1, with_gp=gp)
+                if m > factory.MAX_M and force is None:
+                    rosenbrock.combine_probe(x, x, S, S, z[0], z, z, 1.0)
+                    rosenbrock.combine_probe(x, x, S, S.clone(), z[0], z, z, 1.0,
+                                             fix=(1, z[0], z[0]))
+                    rosenbrock.combine_ow_probe(x, x, S, S, z[0], z, z, 1.0, 0, n - 1, 1.0)
+        return step
+
+    def extras(n):
+        # the factory kernels with extras: every form with the quadratic's
+        # two (f32 vectors, bf16 history, n divisible by 16 or not)
+        def step(lib):
+            x = torch.ones(n, device="cuda")
+            S = torch.zeros((M, n), dtype=torch.bfloat16, device="cuda")
+            z = torch.zeros(M, device="cuda")
+            q = separable.quadratic(x.clone(), x.clone()).kernels
+            q.trial(x, x, 0.0)
+            q.probe(x, x, 0.0)
+            q.owlqn_trial(x, x, x, 0.0, 1.0, 0, n - 1)
+            q.owlqn_probe(x, x, x, 0.0, 1.0, 0, n - 1)
+            q.owlqn_probe_pg(x, x, x, 0.0, 1.0, 0, n - 1)
+            for with_gp in (False, True):
+                q.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1, with_gp=with_gp)
+                q.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0, n - 1, S,
+                                        S.clone(), 1, with_gp=with_gp)
+            q.combine_probe(x, x, S, S, z[0], z, z, 1.0)
+            q.combine_probe(x, x, S, S.clone(), z[0], z, z, 1.0, fix=(1, z[0], z[0]))
+            q.combine_ow_probe(x, x, S, S, z[0], z, z, 1.0, 0, n - 1, 1.0)
+            WARM[f"quadratic n={n}"] = q
+        return step
+
+    def quartic(lib):
+        # the damped path's forms with the quartic's one extra
+        x = torch.ones(4096, device="cuda")
+        S = torch.zeros((M, 4096), dtype=torch.bfloat16, device="cuda")
         z = torch.zeros(M, device="cuda")
-        q = separable.quadratic(x.clone(), x.clone()).kernels
+        q = separable.scaled_quartic(x.clone()).kernels
         q.trial(x, x, 0.0)
         q.probe(x, x, 0.0)
-        q.owlqn_trial(x, x, x, 0.0, 1.0, 0, n - 1)
-        q.owlqn_probe(x, x, x, 0.0, 1.0, 0, n - 1)
-        q.owlqn_probe_pg(x, x, x, 0.0, 1.0, 0, n - 1)
-        for with_gp in (False, True):
-            q.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1, with_gp=with_gp)
-            q.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0, n - 1, S,
-                                    S.clone(), 1, with_gp=with_gp)
-        q.combine_probe(x, x, S, S, z[0], z, z, 1.0)
+        q.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1, with_gp=True)
         q.combine_probe(x, x, S, S.clone(), z[0], z, z, 1.0, fix=(1, z[0], z[0]))
-        q.combine_ow_probe(x, x, S, S, z[0], z, z, 1.0, 0, n - 1, 1.0)
-        WARM[f"quadratic n={n}"] = q
-    x = torch.ones(4096, device="cuda")
-    S = torch.zeros((M, 4096), dtype=torch.bfloat16, device="cuda")
-    z = torch.zeros(M, device="cuda")
-    q = separable.scaled_quartic(x.clone()).kernels
-    q.trial(x, x, 0.0)
-    q.probe(x, x, 0.0)
-    q.trial_pair_gram(x, x, x.clone(), 0.0, S, S.clone(), 1, with_gp=True)
-    q.combine_probe(x, x, S, S.clone(), z[0], z, z, 1.0, fix=(1, z[0], z[0]))
-    WARM["quartic"] = q
+        WARM["quartic"] = q
+
+    def north_star(lib):
+        # the OWL-QN north star's ring depth
+        x = torch.ones(4096, device="cuda")
+        S = torch.zeros((3, 4096), dtype=torch.bfloat16, device="cuda")
+        rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0, 4095, S,
+                                         S.clone(), 1)
+
+    for vd, hd in DTYPES:
+        for n in (4096, 4098):
+            steps += [group(vd, hd, n, m) for m in (M, 3)] + [owlqn(vd, hd, n)]
+        steps.append(deep(vd, hd, DEEP_M))
+    bf16 = (torch.float32, torch.bfloat16)
+    steps += [deep(*bf16, m) for m in (DEEP_VS_STATIC_M, 130)]
+    steps += [deep(*bf16, DEEP_VS_STATIC_M, force=M),
+              deep(*bf16, DEEP_VS_STATIC_M, force=DEEP_VS_STATIC_M)]
+    steps += [north_star, extras(4096), extras(4098), quartic]
+    return steps
+
+
+def warm_part(part: int, parts: int) -> None:
+    """``warm_steps``' steps part, part + parts, ... without the CUDA
+    library (a build worker)."""
+    _build.import_triton()
+    for i, step in enumerate(warm_steps()):
+        if i % parts == part:
+            step(False)
     torch.cuda.synchronize()
-    emit(phase="build", nvcc_s=round(t_nvcc, 3),
-         triton_s=round(time.perf_counter() - t1, 3),
-         triton_extras_s=round(time.perf_counter() - t2, 3),
+
+
+def phase_build() -> None:
+    """The CUDA library (nvcc, one process per source) and every Triton
+    specialisation of ``warm_steps``: ``WARM_WORKERS`` processes compile
+    the steps into the shared cache while nvcc runs, then this process
+    launches every step (the cache's binaries) with the library."""
+    t0 = time.perf_counter()
+    _build.import_triton()
+    workers = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--warm",
+                                 str(i), str(WARM_WORKERS)])
+               for i in range(WARM_WORKERS)]
+    try:
+        _build.load_library()
+        t_nvcc = time.perf_counter() - t0
+        for line in _build.build_log().splitlines():
+            if "registers" in line or "spill" in line:
+                print("ptxas:", line.strip(), flush=True)
+        rcs = [w.wait(timeout=900) for w in workers]
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+    if any(rcs):
+        raise AssertionError(f"build workers exited {rcs}")
+    t1 = time.perf_counter()
+    for step in warm_steps():
+        step(True)
+    torch.cuda.synchronize()
+    emit(phase="build", nvcc_s=round(t_nvcc, 3), workers=WARM_WORKERS,
+         workers_s=round(t1 - t0, 3), triton_from_cache_s=round(time.perf_counter() - t1, 3),
          triton=_build.import_triton().__version__)
 
 
@@ -1836,7 +1938,7 @@ def _reset_factory(k) -> None:
         getattr(k, name).launches = 0
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.trial_pair_gram_batched,
                k.owlqn_trial_pair_gram_batched):
-        fn.gp_launches = fn.deep_gp_launches = 0
+        fn.gp_launches = fn.deep_gp_launches = fn.mma_launches = 0
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.combine_probe, k.combine_ow_probe,
                k.trial_pair_gram_batched, k.owlqn_trial_pair_gram_batched,
                k.combine_probe_batched, k.combine_ow_probe_batched):
@@ -1947,6 +2049,7 @@ def phase_main_path() -> dict:
     _expect("main path", lc, pc, K1_trial=1, K2_probe=probes - used, K4_trial_pair_gram=iters,
             K15_combine_probe=iters)
     _carried_all("main path", used, iters)
+    _expect_mma("main path", 0)
     # bytes per iteration from the shapes (f32 vectors, bf16 history):
     # K2 reads xp, d; K4 reads xp, d, gp and m-1 rows of S and Y, writes
     # x, g and one row of each; K15 reads g, x and both rings, writes d
@@ -2266,6 +2369,15 @@ def _expect(name: str, lc: dict, pc: dict, **counts) -> None:
         raise AssertionError(f"{name} launch counts {lc}, expected {want}")
     if max(pc.values()) != 0:
         raise AssertionError(f"{name} called plain versions: {pc}")
+
+
+def _expect_mma(name: str, iters: int, owlqn: bool = False) -> None:
+    """The solo epilogue (K4, or K14 under OWL-QN) ran in its tensor-core
+    form ``iters`` times since the last ``reset_counts`` (0: never)."""
+    k = rosenbrock.value_and_grad.kernels
+    got = (k.owlqn_trial_pair_gram if owlqn else k.trial_pair_gram).mma_launches
+    if got != iters:
+        raise AssertionError(f"{name}: {got} tensor-core epilogue launches, {iters} expected")
 
 
 def _carried_all(name: str, used: int, iters: int) -> None:
@@ -3251,11 +3363,13 @@ def _deep_launches(name: str, iters: int, evals: int, used: int, route: str) -> 
             combine: iters}
 
 
-def _deep_run(label: str, name: str, params: LbfgsParams, x0, route: str) -> tuple:
+def _deep_run(label: str, name: str, params: LbfgsParams, x0, route: str,
+              mma: bool = True) -> tuple:
     """One ``minimize_jit`` of a deep-history configuration through a route
     (``DEEP_ROUTES``), after a 3-iteration warm-up, its launches checked
-    (``_deep_launches``); returns (state, seconds, launches, host reads,
-    carried first trips)."""
+    (``_deep_launches``; through the epilogue route every K4 or K14 in the
+    tensor-core form, or with ``mma`` off in none); returns (state,
+    seconds, launches, host reads, carried first trips)."""
     fn = DEEP_ROUTES[route]()
     minimize_jit(params.replace(max_iterations=3), x0, fn, return_state=True)
     reset_counts()
@@ -3270,6 +3384,10 @@ def _deep_run(label: str, name: str, params: LbfgsParams, x0, route: str) -> tup
         raise AssertionError(f"{label} {name} ({route}): status {st.status}, fx {fx}")
     _expect(f"{label} {name} ({route})", lc, pc,
             **_deep_launches(name, st.k - 1, st.prob.neval, used, route))
+    # f32 vectors over a bf16 ring of 80 rows: K4 and K14 in the tensor-core
+    # form, every launch; the any-depth route launches neither
+    _expect_mma(f"{label} {name} ({route})", (st.k - 1) * (route == "epilogue" and mma),
+                name in ("owlqn", "damped_owlqn"))
     return st, dt, lc, reads, used
 
 
@@ -3338,15 +3456,25 @@ def phase_deep_history() -> tuple:
             del a
         torch.cuda.empty_cache()
     # the deep epilogues against the static ones where both run (the other
-    # dtype pairs: tests/test_torch_deep_fusions.py on the card)
+    # dtype pairs: tests/test_torch_deep_fusions.py on the card), and the
+    # tensor-core form, which f32 vectors over a bf16 ring take there,
+    # against both
     a = deep_inputs(torch.float32, torch.bfloat16, DEEP_VS_STATIC_M)
+    ts = TOL[(torch.float32, "sum")]
     with static_forms_up_to(M):
         deep = epilogue_outputs(a)
-    bits = forms_agree(deep, epilogue_outputs(a), f"m={DEEP_VS_STATIC_M} f32/bf16",
-                       TOL[(torch.float32, "sum")])
+    with static_forms_up_to(DEEP_VS_STATIC_M):
+        static = epilogue_outputs(a)
+    tag = f"m={DEEP_VS_STATIC_M} f32/bf16"
+    bits = forms_agree(deep, static, f"deep vs static {tag}", ts)
+    mma = epilogue_outputs(a)
+    if rosenbrock.trial_pair_gram.last_form.form != "mma":
+        raise AssertionError(f"the solo epilogues at {tag} did not take the tensor-core form")
+    forms_agree(mma, static, f"tensor cores vs static {tag}", ts, sums=True)
+    forms_agree(mma, deep, f"tensor cores vs deep {tag}", ts, sums=True)
     emit(phase="deep_vs_static", m=DEEP_VS_STATIC_M, dtypes="float32/bfloat16",
-         products_bit_for_bit=bits)
-    del a, deep
+         products_bit_for_bit=bits, mma_vectors_and_rings_bit_for_bit=True)
+    del a, deep, static, mma
     deep_compiled()
     a = deep_inputs(torch.float32, torch.bfloat16)
     S, Y, xp0, pg = a["S"], a["Y"], a["xp0"], a["pg"]
@@ -3400,26 +3528,71 @@ def phase_deep_history() -> tuple:
             lambda: rosenbrock.combine_ow_probe(pg, xp0, S, Y, *coefs, 1.0, 0, hi, 1.0),
             lambda: rosenbrock.combine_ow_probe_ref(pg, xp0, S, Y, *coefs, 1.0, 0, hi, 1.0)),
     })
-    times, bounds, timed_by = {}, {}, {}
+    times, bounds, timed_by, forms = {}, {}, {}, {}
+    epilogues = {"K4": rosenbrock.trial_pair_gram, "K14": rosenbrock.owlqn_trial_pair_gram}
     for name, (kern, plain) in cases.items():
         k_ms, p_ms, k_by, p_by = kernel_vs_plain(kern, plain, 10)
         times[name + "_m80"], timed_by[name + "_m80"] = (k_ms, p_ms), (k_by, p_by)
         bounds[name + "_m80"] = bound(name, DEEP_N, 4, 2, DEEP_M)
-    emit(phase="deep_kernel_times", n=DEEP_N, m=DEEP_M, dtype="f32/bf16",
+        if name.split("_")[0] in epilogues:
+            forms[name + "_m80"] = epilogues[name.split("_")[0]].last_form.kernel
+    del a, S, Y, Yf, x9
+    torch.cuda.empty_cache()
+    # the fold forms K4 and K14 keep above 64 rows (FOLD_ROWS), each held to
+    # its plain version (vectors, sums and products normwise, the ring rows
+    # bit for bit) and timed beside it and its bound
+    fold_errs = {}
+    for sfx, (vd, hd, m) in FOLD_ROWS.items():
+        a = deep_inputs(vd, hd, m)
+        tv, ts = TOL[(vd, "vec")], TOL[(vd, "sum")]
+        hi = DEEP_N - 1
+        fold = {
+            "K4_trial_pair_gram": (
+                lambda S, Y: rosenbrock.trial_pair_gram(a["xp"], a["d"], a["gp"], STP, S, Y, END),
+                lambda S, Y: rosenbrock.trial_pair_gram_ref(a["xp"], a["d"], a["gp"], STP, S, Y,
+                                                            END), (0, 2), (1, 3, 4, 5, 7, 8)),
+            "K14_owlqn_trial_pair_gram": (
+                lambda S, Y: rosenbrock.owlqn_trial_pair_gram(a["xp0"], a["d"], a["gp"], a["pg"],
+                                                              STP, 1.0, 0, hi, S, Y, END),
+                lambda S, Y: rosenbrock.owlqn_trial_pair_gram_ref(
+                    a["xp0"], a["d"], a["gp"], a["pg"], STP, 1.0, 0, hi, S, Y, END),
+                (0, 1, 2), (3, 4, 5, 6)),
+        }
+        for name, (kern, plain, vecs, sums) in fold.items():
+            row = name + sfx
+            Sk, Yk, Sp, Yp = (a[r].clone() for r in ("S", "Y", "S", "Y"))
+            k_out, p_out = kern(Sk, Yk), plain(Sp, Yp)
+            f = epilogues[name.split("_")[0]].last_form
+            if f.form != "deep":
+                raise AssertionError(f"{row}: the {f.form} form ran")
+            if not (same_bits(Sk, Sp) and same_bits(Yk, Yp)):
+                raise AssertionError(f"{row}: the rings differ from the plain version's")
+            fold_errs[row] = (0.0, 0.0)
+            _fold(fold_errs, row, *(check(f"{row} out{i}", k_out[i], p_out[i], tv) for i in vecs),
+                  *(check(f"{row} out{i}", k_out[i], p_out[i], ts) for i in sums))
+            del Sk, Yk, Sp, Yp, k_out, p_out
+            k_ms, p_ms, k_by, p_by = kernel_vs_plain(lambda: kern(a["S"], a["Y"]),
+                                                     lambda: plain(a["S"], a["Y"]), 10)
+            times[row], timed_by[row], forms[row] = (k_ms, p_ms), (k_by, p_by), f.kernel
+            bounds[row] = bound(row, DEEP_N, vd.itemsize, hd.itemsize, m)
+        del a
+        torch.cuda.empty_cache()
+    emit(phase="deep_kernel_times", n=DEEP_N, m=DEEP_M, dtype="f32/bf16 (and FOLD_ROWS)",
+         forms=forms,
          device_ms={k: {"kernel": v[0], "plain": v[1], "bound": bounds[k][0]}
                     for k, v in times.items()},
          timed_by={k: {"kernel": v[0], "plain": v[1]} for k, v in timed_by.items()},
-         max_abs_err={k + "_m80": v[0] for k, v in errs.items()},
-         max_normwise_err={k + "_m80": v[1] for k, v in errs.items()})
-    del a, S, Y, Yf, x9
-    torch.cuda.empty_cache()
+         max_abs_err={**{k + "_m80": v[0] for k, v in errs.items()},
+                      **{k: v[0] for k, v in fold_errs.items()}},
+         max_normwise_err={**{k + "_m80": v[1] for k, v in errs.items()},
+                           **{k: v[1] for k, v in fold_errs.items()}})
     # each _m80 row's launches on its route: the deep forms' own counts
     # through the deep forms, the any-depth kernels' through the any-depth
     # route (which alone launches them)
     return ({name + "_m80": lc_all[name + "_m80" if name in DEEP_FORMS else name]
              for name in DEEP_KERNELS},
-            {"errs": {k + "_m80": v for k, v in errs.items()}, "times": times,
-             "bounds": bounds, "timed_by": timed_by})
+            {"errs": {**{k + "_m80": v for k, v in errs.items()}, **fold_errs},
+             "times": times, "bounds": bounds, "timed_by": timed_by})
 
 
 #: the main path's settings (n = 2^24, f32 vectors, bf16 history,
@@ -3440,7 +3613,7 @@ def phase_deep_main_path() -> dict:
     ep = out["epilogue"]
     _carried_all("deep main path", ep["carried_probes"], ep["iters"])
     # each route's kernels at this width: the deep K4 and K15 (programs of
-    # several tiles, factory.epilogue_grid) and K5 and K3
+    # several tiles, factory.solo_epilogue_grid) and K5 and K3
     g = torch.Generator(device="cuda").manual_seed(SEED + 24)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")
     xp, d, gp = x0 + 0.1 * r(N_BIG), 0.1 * r(N_BIG), r(N_BIG)
@@ -3458,6 +3631,7 @@ def phase_deep_main_path() -> dict:
         times[name] = dict(ms=min(device_time(fn, 5) for _ in range(2)),
                            timed_by=device_time.source,
                            bound=bound(name, N_BIG, 4, 2, DEEP_M)[0])
+    times["K4_trial_pair_gram"]["form"] = solo_form(rosenbrock.trial_pair_gram, N_BIG)["kernel"]
     emit(phase="deep_main_path", n=N_BIG, m=DEEP_M, kernel_ms=times, **out)
     del xp, d, gp, S, Y
     torch.cuda.empty_cache()
@@ -3465,25 +3639,31 @@ def phase_deep_main_path() -> dict:
 
 
 class static_forms_up_to:
-    """Inside, ``factory.MAX_M`` is ``m``: the deep forms take every ring
-    deeper than m (to hold them to the static forms at a depth both take)."""
+    """Inside, the fold forms alone run: the static K4, K14, K15 and K16
+    take rings of at most ``m`` rows (``factory.EPILOGUE_MAX_M`` of every
+    dtype pair and ``factory.MAX_M`` are m), the deep forms every deeper
+    ring, and the tensor-core form none (``factory.MMA_MAX_M`` is 0): to
+    hold the forms to each other at a depth several take."""
 
     def __init__(self, m: int):
         self.m = m
 
     def __enter__(self):
-        self.saved, factory.MAX_M = factory.MAX_M, self.m
+        self.saved = (factory.MAX_M, factory.EPILOGUE_MAX_M, factory.MMA_MAX_M)
+        factory.MAX_M, factory.MMA_MAX_M = self.m, 0
+        factory.EPILOGUE_MAX_M = dict.fromkeys(factory.EPILOGUE_MAX_M, self.m)
 
     def __exit__(self, *exc):
-        factory.MAX_M = self.saved
+        factory.MAX_M, factory.EPILOGUE_MAX_M, factory.MMA_MAX_M = self.saved
 
 
-def deep_inputs(vd, hd, m: int = DEEP_M) -> dict:
-    """``inputs`` at n = 2^20 with rings and coefficients of m rows."""
-    a = inputs(DEEP_N, vd, hd, SEED + DEEP_M)
+def deep_inputs(vd, hd, m: int = DEEP_M, n: int = DEEP_N) -> dict:
+    """``inputs`` at n elements (2^20 by default) with rings and
+    coefficients of m rows."""
+    a = inputs(n, vd, hd, SEED + DEEP_M)
     g = torch.Generator(device="cuda").manual_seed(SEED + m + 1)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=torch.float64)
-    a.update(S=r(m, DEEP_N).to(hd), Y=r(m, DEEP_N).to(hd), cs=r(m).to(vd), cy=r(m).to(vd))
+    a.update(S=r(m, n).to(hd), Y=r(m, n).to(hd), cs=r(m).to(vd), cy=r(m).to(vd))
     return a
 
 
@@ -3555,16 +3735,19 @@ def check_deep_forms(errs: dict, a: dict, tag: str, tv: float, ts: float) -> dic
         name, t = "K4_trial_pair_gram" + ("_gp" if wg else ""), f"K4 deep gp={wg} {tag}"
         Sk, Yk = ring()
         k = rosenbrock.trial_pair_gram(xp, d, gp, STP, Sk, Yk, end, with_gp=wg)
+        # the tensor-core form sums the objective per chunk of its own, the
+        # fold forms per tile of the static launch's
+        fx_bits = () if solo_form(rosenbrock.trial_pair_gram, n)["form"] == "mma" else (1,)
         Sp, Yp = ring()
         p = rosenbrock.trial_pair_gram_ref(xp, d, gp, STP, Sp, Yp, end, with_gp=wg)
         check_ring(f"{t} kernel", Sk, Yk, S, Y, STP * d, k[2] - gp, end)
         check_ring(f"{t} plain", Sp, Yp, S, Y, STP * d, p[2] - gp, end)
-        _same(f"{t} against the static launch", k, st, (0, 1, 2, 6))
+        _same(f"{t} against the static launch", k, st, (0, 2, 6) + fx_bits)
         if bool(k[6]) != bool(p[6]):
             raise AssertionError(f"{t}: changed flag differs")
         _fold(errs, name, check(f"{t} x", k[0], p[0], tv), check(f"{t} g", k[2], p[2], tv),
               *(check(f"{t} sum{i}", k[i], p[i], ts) for i in (1, 3, 4, 5, 7, 8)),
-              *(check(f"{t} sum{i} vs static", k[i], st[i], ts) for i in (3, 4, 5)))
+              *(check(f"{t} sum{i} vs static", k[i], st[i], ts) for i in (1, 3, 4, 5)))
         sums_bits[name] = all(same_bits(k[i], st[i]) for i in (3, 4, 5))
         if wg:
             check_extends(t, base[0], k, (7, 8))
@@ -3588,6 +3771,7 @@ def check_deep_forms(errs: dict, a: dict, tag: str, tv: float, ts: float) -> dic
         Sk, Yk = ring()
         k = rosenbrock.owlqn_trial_pair_gram(xp0, d, gp, pg, STP, C_L1, lo, hi, Sk, Yk, end,
                                              with_gp=wg)
+        solo_form(rosenbrock.owlqn_trial_pair_gram, n)
         Sp, Yp = ring()
         p = rosenbrock.owlqn_trial_pair_gram_ref(xp0, d, gp, pg, STP, C_L1, lo, hi, Sp, Yp, end,
                                                  with_gp=wg)
@@ -3656,7 +3840,7 @@ def check_deep_forms(errs: dict, a: dict, tag: str, tv: float, ts: float) -> dic
 def epilogue_outputs(a: dict) -> dict:
     """Every output (and the written rings) of K4 and K14, each with and
     without the . gp column, on the inputs, in whichever form
-    ``factory.MAX_M`` picks at their depth."""
+    ``factory.solo_epilogue_grid`` picks at their depth."""
     xp, xp0, d, gp, pg, S, Y = (a[k] for k in ("xp", "xp0", "d", "gp", "pg", "S", "Y"))
     n = S.shape[1]
     out = {}
@@ -3673,24 +3857,30 @@ def epilogue_outputs(a: dict) -> dict:
 #: the products in ``epilogue_outputs``: K4's SP and YP, K14's
 PRODUCTS = {"K4 gp=False": (7, 8), "K4 gp=True": (7, 8), "K14 gp=False": (3, 4),
             "K14 gp=True": (3, 4)}
+#: and their scalar sums: K4's fx, g.d, g.g, x.x; K14's x.x, pg.pg (with
+#: the . gp column gp.gp, gp.pg)
+SUMS = {"K4 gp=False": (1, 3, 4, 5), "K4 gp=True": (1, 3, 4, 5), "K14 gp=False": (5, 6),
+        "K14 gp=True": (5, 6, 8, 9)}
 
 
-def forms_agree(deep: dict, static: dict, tag: str, ts: float) -> bool:
-    """The deep epilogues' outputs bit for bit the static ones' at a depth
-    both take (the same partials' shapes, so torch sums their columns
-    alike): x, g, pg, the rings and every scalar sum; the products, which
-    each form sums over its own row layout, at the sum tolerance.  Returns
-    whether the products agreed bit for bit too."""
+def forms_agree(got: dict, want: dict, tag: str, ts: float, sums: bool = False) -> bool:
+    """One form's epilogue outputs (``epilogue_outputs``) against another's
+    at a depth both take: x, g, pg, the rings and the changed flags bit for
+    bit; the products, which each form sums over its own layout, at the
+    sum tolerance, and with ``sums`` the scalar sums too (the tensor-core
+    form's partials are per chunk, not per tile); the deep and static
+    forms' scalar sums bit for bit (the same partials' shapes, so torch
+    sums their columns alike).  Returns whether the products agreed bit
+    for bit too."""
     bits = True
-    for key, got in deep.items():
-        want = static[key]
-        for i, (g, w) in enumerate(zip(got, want)):
-            if i in PRODUCTS.get(key, ()):
-                check(f"{key} output {i} deep vs static {tag}", g, w, ts)
-                bits = bits and same_bits(g, w)
+    for key, outs in got.items():
+        near = PRODUCTS.get(key, ()) + (SUMS.get(key, ()) if sums else ())
+        for i, (g, w) in enumerate(zip(outs, want[key])):
+            if i in near:
+                check(f"{key} output {i} {tag}", g, w, ts)
+                bits = bits and (i not in PRODUCTS[key] or same_bits(g, w))
             elif not same_bits(g, w):
-                raise AssertionError(f"{key} output {i}: the deep form differs from the static "
-                                     f"form's {tag}")
+                raise AssertionError(f"{key} output {i} differs {tag}")
     return bits
 
 
@@ -3721,6 +3911,172 @@ def deep_compiled() -> list:
     if spilled:
         raise AssertionError(f"deep forms spill registers: {spilled}")
     return forms
+
+
+#: the solo tensor-core form's products against the float64 product of
+#: the same operands: its depths (RP 32, 128, 256), the chunks per program
+#: forced at n = 2^20 and 2^24 (``factory.SOLO_MMA_PROGRAMS`` and
+#: ``factory.MMA_MAX_CHUNKS``), and the
+#: widths below one chunk and off a whole chunk, which take the chosen
+#: grid (off the 16-element alignment, 100 and 2^14 + 2, the fold form)
+NUMERICS_DEPTHS = (DEEP_VS_STATIC_M, DEEP_M, 200)
+NUMERICS_CHUNKS = (2, 32, 64, 256)
+NUMERICS_SMALL_N = (64, 96, 100, (1 << 14) + 16, (1 << 14) + 2)
+#: every solo tensor-core launch's form and compiled kernel that a check
+#: held (``solo_form``), by kernel, RP and whether n is a multiple of 16
+SOLO_FORMS = {}
+
+
+def solo_form(fn, n: int) -> dict:
+    """The form and geometry of a solo epilogue's last launch
+    (``fn.last_form``, ``factory.solo_epilogue_grid``) and, for the
+    tensor-core form, its compiled kernel's registers and spills, kept in
+    ``SOLO_FORMS``."""
+    f = fn.last_form
+    out = dict(kernel=f.kernel, form=f.form, programs=f.programs, tiles_per_program=f.tiles,
+               tile=f.T, **{key: v for key, v in f.consts.items() if key != "m"}, **f.launch)
+    if f.form == "mma":
+        out.update(_compiled_info(f.compiled))
+        SOLO_FORMS[(f.kernel, f.consts["RP"], n % 16 == 0)] = out
+    return out
+
+
+def numerics_inputs(n: int, m: int, seed: int) -> dict:
+    """Seeded f32 vectors (xp0: xp with zeros at every 17th element, and a
+    pseudo-gradient pg) and bf16 rings of m rows at n elements, the rings
+    made 16 rows at a time (at 2^24 x 200 a float32 draw of a whole ring
+    would take 13 GB)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    a = dict(xp=rosenbrock.initial_point(n, torch.float32, "cuda") + 0.1 * r(n),
+             d=0.1 * r(n), gp=r(n), pg=r(n))
+    a["xp0"] = a["xp"].clone()
+    a["xp0"][::17] = 0.0
+    for ring in ("S", "Y"):
+        a[ring] = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        for j in range(0, m, 16):
+            a[ring][j:j + 16] = r(min(16, m - j), n)
+    return a
+
+
+def products_f64(S, Y, s, y, d0, gp, end: int) -> tuple:
+    """SP and YP ([m, 4]: against y, s, d0 and gp) in float64 from the
+    tensor-core form's own operands: the ring rows as stored, widened, row
+    ``end`` the unrounded pair, and the float32 vectors widened."""
+    V = torch.stack([y, s, d0, gp], dim=1).double()
+    out = []
+    for R, new in ((S, s), (Y, y)):
+        P = torch.cat([R[j:j + 16].double() @ V for j in range(0, R.shape[0], 16)])
+        P[end] = new.double() @ V
+        out.append(P)
+    return tuple(out)
+
+
+def solo_mma_numerics() -> list:
+    """The solo tensor-core K4's SP and YP with the . gp column against
+    ``products_f64`` at ``NUMERICS_DEPTHS``: at n = 2^20 and 2^24 with
+    ``NUMERICS_CHUNKS`` chunks per program (the program cap and the chunk
+    bound forced) and at ``NUMERICS_SMALL_N`` on the chosen grid (the fold
+    form where n is not a multiple of 16), each normwise gap within the
+    sum tolerance and printed beside its form and chunk count; at n = 2^20
+    the deep fold form's gap beside them."""
+    ts = TOL[(torch.float32, "sum")]
+    k = rosenbrock.value_and_grad.kernels
+    rows = []
+    for m in NUMERICS_DEPTHS:
+        end = m - 3
+        for n in (DEEP_N, N_BIG) + NUMERICS_SMALL_N:
+            a = numerics_inputs(n, m, SEED + 90 + m)
+            ntiles = factory.solo_epilogue_grid(n, m, torch.float32, torch.bfloat16).ntiles
+            s = torch.full((1,), STP, dtype=torch.float32, device="cuda") * a["d"]
+            forced = [-(-ntiles // c) for c in NUMERICS_CHUNKS] if n >= DEEP_N else [None]
+            for cap in forced:
+                saved = factory.SOLO_MMA_PROGRAMS, factory.MMA_MAX_CHUNKS
+                if cap:
+                    factory.SOLO_MMA_PROGRAMS, factory.MMA_MAX_CHUNKS = cap, ntiles
+                try:
+                    out = k.trial_pair_gram(a["xp"], a["d"], a["gp"], STP, a["S"], a["Y"], end,
+                                            with_gp=True)
+                finally:
+                    factory.SOLO_MMA_PROGRAMS, factory.MMA_MAX_CHUNKS = saved
+                form = solo_form(k.trial_pair_gram, n)
+                want_form = "mma" if n % factory.MMA_ALIGN == 0 else "deep"
+                if form["form"] != want_form:
+                    raise AssertionError(f"numerics m={m} n={n}: the {form['form']} form ran")
+                g = out[2]
+                want = products_f64(a["S"], a["Y"], s, g - a["gp"], -g, a["gp"], end)
+                tag = f"solo K4 {form['form']} m={m} n={n} chunks={form['tiles_per_program']}"
+                row = dict(m=m, n=n, form=form["form"], RP=form.get("RP"),
+                           programs=form["programs"],
+                           chunks_per_program=form["tiles_per_program"],
+                           sp_gap=check(f"{tag} SP vs float64", out[7], want[0], ts)[1],
+                           yp_gap=check(f"{tag} YP vs float64", out[8], want[1], ts)[1])
+                if n == DEEP_N and cap == forced[0]:
+                    with static_forms_up_to(M):
+                        fold = k.trial_pair_gram(a["xp"], a["d"], a["gp"], STP, a["S"],
+                                                 a["Y"], end, with_gp=True)
+                    row.update(fold_sp_gap=err(fold[7], want[0]), fold_yp_gap=err(fold[8], want[1]))
+                    del fold
+                rows.append(row)
+                del out, want, g
+            del a, s
+            torch.cuda.empty_cache()
+    emit(phase="solo_mma_numerics", rows=rows)
+    return rows
+
+
+def solo_mma_compiled() -> list:
+    """Registers and spills of every solo tensor-core kernel the checks
+    launched (``SOLO_FORMS``: K4 and K14 by RP, n a multiple of 16 or
+    not); a form that spills, or none at all, fails the phase."""
+    forms = [dict(f, n_multiple_of_16=div16) for (_, _, div16), f in
+             sorted(SOLO_FORMS.items(), key=str)]
+    emit(phase="solo_mma_compiled", programs_max=factory.SOLO_MMA_PROGRAMS,
+         chunks_max=factory.MMA_MAX_CHUNKS, forms=forms)
+    if not forms:
+        raise AssertionError("no solo tensor-core form was launched")
+    spilled = [f for f in forms if f["n_spills"]]
+    if spilled:
+        raise AssertionError(f"solo tensor-core forms spill registers: {spilled}")
+    return forms
+
+
+def phase_solo_mma_kernels() -> None:
+    """The solo tensor-core epilogues' products against the float64 product
+    (``solo_mma_numerics``), then the registers and spills of every solo
+    tensor-core kernel launched so far (``solo_mma_compiled``)."""
+    solo_mma_numerics()
+    solo_mma_compiled()
+
+
+#: the iterations of each fold path (``phase_deep_fold_paths``)
+DEEP_FOLD_ITERS = 11
+
+
+def phase_deep_fold_paths() -> dict:
+    """The fold forms the solo K4 and K14 keep above 64 rows
+    (``FOLD_ROWS``: f32 and f64 rings at m = 80, a bf16 ring at m = 260,
+    n = 2^20), each through the deep-history path's plain and OWL-QN
+    settings (``DEEP_CONFIGS``), 10 iterations of ``minimize_jit``: the
+    launches checked (``_deep_run``; no tensor-core launch), fx finite;
+    returns each fold row's launches."""
+    lc_rows = {}
+    for sfx, (vd, hd, m) in FOLD_ROWS.items():
+        x0 = rosenbrock.initial_point(DEEP_N, vd, "cuda")
+        for name, kern in (("plain", "K4_trial_pair_gram"),
+                           ("owlqn", "K14_owlqn_trial_pair_gram")):
+            params = DEEP_CONFIGS[name].replace(m=m, history_dtype=str(hd)[6:],
+                                                max_iterations=DEEP_FOLD_ITERS)
+            st, dt, lc, reads, _ = _deep_run("deep fold path", name, params, x0, "epilogue",
+                                             mma=False)
+            lc_rows[kern + sfx] = lc[kern + "_m80"]
+            emit(phase="deep_fold_path", config=name, row=kern + sfx, n=DEEP_N, m=m,
+                 iters=st.k - 1, evals=st.prob.neval, status=st.status, fx=float(st.prob.fx),
+                 seconds=dt, syncs_per_iter=reads / (st.k - 1))
+            del st
+        del x0
+        torch.cuda.empty_cache()
+    return lc_rows
 
 
 def phase_booth() -> None:
@@ -6324,10 +6680,10 @@ def _mesh_kernel_checks(mesh) -> dict:
     once and call no plain version.  The OWL-QN forms run on a window
     that starts and ends in different shards and on one inside rank 1's
     shard only.  Raises on any mismatch; returns the offset and each
-    case's largest relative scalar difference.  The deep forms of K4, K14,
-    K15 and K16 (``_m80``: m = 80 ring rows, at n = 2^20) take the same
-    checks, each launching its deep form, rank 1's with the shard's
-    offset compiled in (``SHARD``)."""
+    case's largest relative scalar difference.  At m = 80 ring rows (n =
+    2^20; ``_m80``) K4 and K14 (the tensor-core form) and the deep K15 and
+    K16 take the same checks, rank 1's kernels with the shard's offset
+    compiled in (``SHARD``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
 
     def r(*shape, s=1.0):
@@ -6443,7 +6799,8 @@ def _mesh_kernel_checks(mesh) -> dict:
 def _mesh_cases(mesh, a: dict, cases: list, off: int, n_loc: int, plain_total) -> dict:
     """``_mesh_kernel_checks``'s cases on the inputs ``a``, this rank's
     shard the elements [off, off + n_loc); a case named ``_m80`` must
-    launch its wrapper's deep form."""
+    launch above ``factory.MAX_M`` rows (``.deep_launches``), K4 and K14 in
+    their tensor-core form."""
     res = {}
     for name, wrapper, fn, vecs, bounds, rings in cases:
         whole = SimpleNamespace(**{key: (t.clone() if key in ("S", "Y") else t)
@@ -6453,6 +6810,7 @@ def _mesh_cases(mesh, a: dict, cases: list, off: int, n_loc: int, plain_total) -
                                   for key, t in a.items()})
         launched, plain = wrapper.launches, plain_total()
         deep = getattr(wrapper, "deep_launches", 0)
+        mma = getattr(wrapper, "mma_launches", 0)
         with kernels_on_mesh(mesh):
             got = fn(part)
         torch.cuda.synchronize()
@@ -6461,6 +6819,13 @@ def _mesh_cases(mesh, a: dict, cases: list, off: int, n_loc: int, plain_total) -
                                  f"{plain_total() - plain} plain calls")
         if name.endswith("_m80") and wrapper.deep_launches != deep + 1:
             raise AssertionError(f"mesh check {name}: the deep form did not launch")
+        # K4 and K14 at 80 rows of bf16: the tensor-core form, spilling nothing
+        # (rank 1's with the shard's offset compiled in)
+        if name.endswith("_m80") and hasattr(wrapper, "mma_launches"):
+            info = _compiled_info(wrapper.last_form.compiled)
+            if wrapper.mma_launches != mma + 1 or info["n_spills"]:
+                raise AssertionError(f"mesh check {name}: {wrapper.mma_launches - mma} "
+                                     f"tensor-core launches, {info}")
         shard = lambda t: t.narrow(-1, off, n_loc)
         bad = [f"out{i}" for i in vecs if not same_bits(got[i], shard(single[i]))]
         if rings:
@@ -6524,7 +6889,12 @@ def main() -> None:
                     help="also profile one run of each main path; operator tables to PATH")
     ap.add_argument("--sharded-rank", nargs=3, metavar=("RANK", "PORT", "OUTDIR"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--warm", nargs=2, type=int, metavar=("PART", "PARTS"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.warm:
+        warm_part(*args.warm)
+        return
     if args.sharded_rank:
         torch.backends.cuda.matmul.allow_tf32 = False
         rank, port, outdir = args.sharded_rank
@@ -6574,6 +6944,8 @@ def main() -> None:
     lc_quartic, _ = run(phase_damped_quartic_main_path)
     lc_deep, deep = run(phase_deep_history)
     run(phase_deep_main_path)
+    run(phase_solo_mma_kernels)
+    lc_fold = run(phase_deep_fold_paths)
     run(phase_booth)
     run(phase_scan)
     run(phase_float16_history)
@@ -6638,7 +7010,7 @@ def main() -> None:
           **{name: lc_quad[name] for name in QUADRATIC_PATH},
           **{name: lc_lasso[name] for name in LASSO_PATH},
           **{name: lc_quartic[name] for name in QUARTIC_PATH},
-          **{name: lc_lasso_var[name] for name in LASSO_VARIANTS_PATH}, **lc_deep,
+          **{name: lc_lasso_var[name] for name in LASSO_VARIANTS_PATH}, **lc_deep, **lc_fold,
           **{name: lc_batched[name] for name in BATCHED_PATH},
           **{name: lc_batched_ow[name] for name in BATCHED_OWLQN_PATH + BATCHED_OWLQN_INIT},
           "K15b_combine_probe_batched": lc_bu["K15b_combine_probe_batched"],

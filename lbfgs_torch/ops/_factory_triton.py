@@ -86,7 +86,7 @@ float32, to every kernel's count below):
   resident across their sequential grid and write only the objective's
   partial per block.  On Hopper the blocks run in parallel, so a loop
   inside the program takes that grid's place: each program walks
-  ``tiles`` consecutive tiles of T elements (``factory.epilogue_grid``)
+  ``tiles`` consecutive tiles of T elements (``factory.solo_epilogue_grid``)
   and adds every product into per-thread registers.  A tile is addressed
   as [T // V, V] (``_tile``): each thread holds runs of V consecutive
   elements of every vector and ring row, so its loads are V wide (V = 4:
@@ -106,8 +106,10 @@ float32, to every kernel's count below):
   byte against float32's ridge of ~20 (the batched forms below put them on
   the tensor cores all the same, to take their sums out of the registers).
 
-  Above ``factory.MAX_M`` ring rows the sums of every row would not fit a
-  thread, so the deep forms ``trial_pair_gram_deep_kernel`` and
+  Above ``factory.EPILOGUE_MAX_M`` ring rows (per dtype pair: the
+  deepest history whose static form spills nothing and is no slower) the
+  sums of every row would not fit a thread, so the deep forms
+  ``trial_pair_gram_deep_kernel`` and
   ``owlqn_trial_pair_gram_deep_kernel`` (the same functions at any m, one
   compile for every m) take the ring rows in groups of G
   (``factory.DEEP_GROUP``, by dtype pair): each program keeps the static
@@ -221,6 +223,25 @@ partials, but K4 b's and K14 b's.
   m = 80 the products are 8192 operations per element (RP = 128 rows, 16
   columns, two rings), 0.14 ms of the tensor cores' bf16 rate against a
   1.70 ms byte bound at 1024 x 2^14.
+
+  The solo K4 and K14 take the same tensor-core form on one instance
+  (``trial_pair_gram_mma_kernel``, ``owlqn_trial_pair_gram_mma_kernel``;
+  ``factory.solo_epilogue_grid``): one chunk body per kernel
+  (``_k4_chunk``, ``_k14_chunk``) serves the solo and the batched form,
+  so a batched instance's x, g, pg and ring row are the solo launch's bit
+  for bit.  The solo forms add what the batch lacks: x, g and pg may alias
+  xp, gp and pg_old (the lean state's in-place call; only the program
+  that owns a chunk reads and writes it), the objective's partial per
+  chunk, and the body's global indices on a shard (``_gidx``); they have
+  no live mask.  One instance gives far fewer chunks than a batch (8192
+  of 128 elements at n = 2^20), so the launch caps its programs
+  (``factory.SOLO_MMA_PROGRAMS``) to spread each program's closing
+  reductions over more chunks; and since the MMA's own accumulation does
+  not round to nearest, the solo forms add each chunk's products to their
+  running sums by float32 adds (``_ring_chunk``'s ``CARRY_RN``; the
+  batched forms keep their sums as they were), so their products stay
+  within ~1e-7 normwise of the float64 product at any chunk count.  An n
+  off a multiple of 16 takes the fold forms (``factory.MMA_ALIGN``).
 
 On a mesh each kernel runs on one rank's shard of the vectors: ``off``,
 the shard's global offset, is added to the local offsets only where the
@@ -834,7 +855,7 @@ def trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
                                 V: tl.constexpr, W: tl.constexpr, WITH_GP: tl.constexpr,
                                 SHARD: tl.constexpr):
     # K4 at any depth: program pid takes the static form's tiles
-    # (``factory.epilogue_grid``) and passes over them once per group of G
+    # (``factory.solo_epilogue_grid``) and passes over them once per group of G
     # ring rows, recomputing the point, the body and the pair each pass and
     # holding that group's sums in registers; the point's outputs and sums
     # come from the last pass alone.  x and g may alias xp and gp (the lean
@@ -1468,19 +1489,29 @@ def _column(acc, v: tl.constexpr):
 
 @triton.jit
 def _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s, acc_y,
-                RP: tl.constexpr):
+                RP: tl.constexpr, CARRY_RN: tl.constexpr):
     # one chunk's pass over the rings: the old rows (j < m, j != end) as
     # the first operand ([RP, K] bf16: a bf16 value is exact there), row
     # `end` masked to zero (its products are the f32 folds of the
     # unrounded pair), the split vectors as the second, summed into acc_s
     # and acc_y ([RP, 16] float32) by the tensor cores; then the new pair
-    # stored into row `end`, rounded to bf16
+    # stored into row `end`, rounded to bf16.  The MMA's own accumulation
+    # does not round to nearest: carried through it across chunks, the
+    # products drift from the float64 product about linearly in the chunk
+    # count.  With CARRY_RN each chunk's products start from zero and are
+    # added to the running sums by float32 adds, which round to nearest.
+    # The zero is the sums times 0, not a constant: the compiler folds an
+    # add of a dot from a constant zero back into the MMA's accumulator
     op = _split_operand(y, s, d0, gp)
     rows = tl.arange(0, RP)
     rmask = ((rows < m) & (rows != end))[:, None] & mask[None, :]
     roffs = rows.to(tl.int64)[:, None] * n + offs[None, :]
-    acc_s = tl.dot(tl.load(S_ptr + roffs, mask=rmask, other=0.0), op, acc_s)
-    acc_y = tl.dot(tl.load(Y_ptr + roffs, mask=rmask, other=0.0), op, acc_y)
+    if CARRY_RN:
+        acc_s += tl.dot(tl.load(S_ptr + roffs, mask=rmask, other=0.0), op, acc_s * 0.0)
+        acc_y += tl.dot(tl.load(Y_ptr + roffs, mask=rmask, other=0.0), op, acc_y * 0.0)
+    else:
+        acc_s = tl.dot(tl.load(S_ptr + roffs, mask=rmask, other=0.0), op, acc_s)
+        acc_y = tl.dot(tl.load(Y_ptr + roffs, mask=rmask, other=0.0), op, acc_y)
     row = end.to(tl.int64) * n
     tl.store(S_ptr + row + offs, s.to(S_ptr.dtype.element_ty), mask=mask)
     tl.store(Y_ptr + row + offs, y.to(Y_ptr.dtype.element_ty), mask=mask)
@@ -1510,6 +1541,92 @@ def _store_gram_mma(part, gpart, live, m, end, with_gp, acc_s, acc_y, e_sy, e_ss
              mask=keep)
     tl.store(gpart + 2 * r + 1, tl.where(at_end, tl.sum(e_yg, axis=0), _column(acc_y, 3)),
              mask=keep)
+
+
+@triton.jit
+def _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs, gidx, mask, n, m, end,
+              stp, ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
+              acc_y, body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
+              CARRY_RN: tl.constexpr):
+    # one chunk of K4's tensor-core forms (the solo kernel and K4 b's): the
+    # point, the body (at the indices gidx) and the pair as K4 forms them,
+    # the scalar sums and row end's products folded into per-element
+    # float32 sums, the ring rows' products with the split vectors into
+    # acc_s and acc_y (``_ring_chunk``), x and g stored.  x_ptr and g_ptr
+    # may be xp_ptr and gp_ptr: each element is loaded before it is stored
+    # and no element reads another's.  Returns the body's objective terms
+    # ([K], zero off the mask) and the sums
+    xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+    gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+    exb = _view(_extras(ex, offs, mask), K // W, W)
+    x = xp + stp * d
+    fe, g = body(tl.reshape(x, [K // W, W]), tl.reshape(gidx, [K // W, W]), *exb)
+    g = tl.where(mask, tl.reshape(g, [K]), 0.0)
+    s = stp * d
+    y = g - gp
+    d0 = -g
+    a_gd += g * d
+    a_gg += g * g
+    a_xx += x * x
+    a_ch += tl.where(x != xp, 1.0, 0.0)
+    e_sy += s * y
+    e_ss += s * s
+    e_sd += s * d0
+    e_sg += s * gp
+    e_yy += y * y
+    e_yd += y * d0
+    e_yg += y * gp
+    acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s, acc_y,
+                               RP, CARRY_RN)
+    tl.store(x_ptr + offs, x, mask=mask)
+    tl.store(g_ptr + offs, g, mask=mask)
+    fe = tl.where(mask, tl.reshape(fe, [K]), 0.0)
+    return fe, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y
+
+
+@triton.jit
+def _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, offs, gidx,
+               mask, n, m, lo, hi, end, stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss,
+               e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body: tl.constexpr,
+               RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr, CARRY_RN: tl.constexpr):
+    # one chunk of K14's tensor-core forms, as ``_k4_chunk``: the projected
+    # point with the orthant from (xp, pg_old) (the window [lo, hi) in the
+    # kernel's own indices offs), its gradient and pseudo-gradient, the
+    # pair (x - xp, g - gp) and d0 = -pg; gp.gp and gp.pg summed in every
+    # launch; x, g and pg stored (they may alias xp, gp and pg_old)
+    xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+    gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
+    pgo = tl.load(pg_ptr + offs, mask=mask, other=0.0)
+    exb = _view(_extras(ex, offs, mask), K // W, W)
+    in_win = (offs >= lo) & (offs < hi)
+    wp_sign = tl.where(xp == 0.0, _msign(-pgo), _msign(xp))
+    x = _ow_point(xp, d, stp, wp_sign, in_win)
+    _, g = body(tl.reshape(x, [K // W, W]), tl.reshape(gidx, [K // W, W]), *exb)
+    g = tl.where(mask, tl.reshape(g, [K]), 0.0)
+    pg = _pseudo_grad(g, x, c, in_win)
+    s = x - xp
+    y = g - gp
+    d0 = -pg
+    a_xx += x * x
+    a_pp += pg * pg
+    a_ch += tl.where(x != xp, 1.0, 0.0)
+    a_gg += gp * gp
+    a_gpg += gp * pg
+    e_sy += s * y
+    e_ss += s * s
+    e_sd += s * d0
+    e_sg += s * gp
+    e_yy += y * y
+    e_yd += y * d0
+    e_yg += y * gp
+    acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s, acc_y,
+                               RP, CARRY_RN)
+    tl.store(x_ptr + offs, x, mask=mask)
+    tl.store(g_ptr + offs, g, mask=mask)
+    tl.store(pgn_ptr + offs, pg, mask=mask)
+    return a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y
 
 
 @triton.jit(do_not_specialize=["m", "end", "tiles", "with_gp"])
@@ -1551,32 +1668,10 @@ def trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr,
     acc_y = tl.zeros([RP, 16], tl.float32)
     for t in range(tiles):
         offs = _chunk(pid * tiles + t, K)
-        mask = (offs < n) & live
-        xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
-        d = tl.load(d_ptr + offs, mask=mask, other=0.0)
-        gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
-        exb = _view(_extras(ex, offs, mask), K // W, W)
-        x = xp + stp * d
-        _, g = body(tl.reshape(x, [K // W, W]), tl.reshape(offs, [K // W, W]), *exb)
-        g = tl.where(mask, tl.reshape(g, [K]), 0.0)
-        s = stp * d
-        y = g - gp
-        d0 = -g
-        a_gd += g * d
-        a_gg += g * g
-        a_xx += x * x
-        a_ch += tl.where(x != xp, 1.0, 0.0)
-        e_sy += s * y
-        e_ss += s * s
-        e_sd += s * d0
-        e_sg += s * gp
-        e_yy += y * y
-        e_yd += y * d0
-        e_yg += y * gp
-        acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s,
-                                   acc_y, RP)
-        tl.store(xp_ptr + offs, x, mask=mask)
-        tl.store(gp_ptr + offs, g, mask=mask)
+        _, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y = \
+            _k4_chunk(xp_ptr, d_ptr, gp_ptr, xp_ptr, gp_ptr, S_ptr, Y_ptr, offs, offs,
+                      (offs < n) & live, n, m, end, stp, ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss,
+                      e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W, False)
     prog = b.to(tl.int64) * tl.num_programs(0) + pid
     part = part_ptr + prog * (4 + 6 * m)
     tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
@@ -1626,38 +1721,11 @@ def owlqn_trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_
     acc_y = tl.zeros([RP, 16], tl.float32)
     for t in range(tiles):
         offs = _chunk(pid * tiles + t, K)
-        mask = (offs < n) & live
-        xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
-        d = tl.load(d_ptr + offs, mask=mask, other=0.0)
-        gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
-        pgo = tl.load(pg_ptr + offs, mask=mask, other=0.0)
-        exb = _view(_extras(ex, offs, mask), K // W, W)
-        in_win = (offs >= lo) & (offs < hi)
-        wp_sign = tl.where(xp == 0.0, _msign(-pgo), _msign(xp))
-        x = _ow_point(xp, d, stp, wp_sign, in_win)
-        _, g = body(tl.reshape(x, [K // W, W]), tl.reshape(offs, [K // W, W]), *exb)
-        g = tl.where(mask, tl.reshape(g, [K]), 0.0)
-        pg = _pseudo_grad(g, x, c, in_win)
-        s = x - xp
-        y = g - gp
-        d0 = -pg
-        a_xx += x * x
-        a_pp += pg * pg
-        a_ch += tl.where(x != xp, 1.0, 0.0)
-        a_gg += gp * gp
-        a_gpg += gp * pg
-        e_sy += s * y
-        e_ss += s * s
-        e_sd += s * d0
-        e_sg += s * gp
-        e_yy += y * y
-        e_yd += y * d0
-        e_yg += y * gp
-        acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s,
-                                   acc_y, RP)
-        tl.store(xp_ptr + offs, x, mask=mask)
-        tl.store(gp_ptr + offs, g, mask=mask)
-        tl.store(pg_ptr + offs, pg, mask=mask)
+        (a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
+         acc_y) = _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, xp_ptr, gp_ptr, pg_ptr, S_ptr, Y_ptr,
+                             offs, offs, (offs < n) & live, n, m, lo, hi, end, stp, c, ex, a_xx,
+                             a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg,
+                             acc_s, acc_y, body, RP, K, W, False)
     prog = b.to(tl.int64) * tl.num_programs(0) + pid
     part = part_ptr + prog * (3 + 6 * m)
     tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
@@ -1667,4 +1735,96 @@ def owlqn_trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_
     tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=live & (with_gp != 0))
     tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=live & (with_gp != 0))
     _store_gram_mma(part + 3, gpart + 2, live, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
+                    e_sg, e_yy, e_yd, e_yg, RP)
+
+
+@triton.jit(do_not_specialize=["m", "end", "tiles", "with_gp"])
+def trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr,
+                               fx_ptr, part_ptr, gpart_ptr, n, end, tiles, with_gp, off, ex, m,
+                               body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr,
+                               W: tl.constexpr, SHARD: tl.constexpr):
+    # the solo K4 with the Gram products on the tensor cores (f32 vectors,
+    # a bf16 ring of at most RP rows): program pid takes chunks pid*tiles ..
+    # pid*tiles + tiles - 1 of K elements (``factory.solo_epilogue_grid``),
+    # each through K4 b's chunk body (``_k4_chunk``), the body at the
+    # global indices (``_gidx``: a shard's offset with SHARD), and writes
+    # the objective's partial per chunk; x and g may alias xp and gp.  The
+    # . gp column rides in the operand, so the . gp launch and the 3-column
+    # one run this one binary and with_gp only stores the column
+    pid = tl.program_id(0)
+    stp = tl.load(stp_ptr)
+    a_gd = tl.zeros([K], tl.float32)
+    a_gg = tl.zeros([K], tl.float32)
+    a_xx = tl.zeros([K], tl.float32)
+    a_ch = tl.zeros([K], tl.float32)
+    e_sy = tl.zeros([K], tl.float32)
+    e_ss = tl.zeros([K], tl.float32)
+    e_sd = tl.zeros([K], tl.float32)
+    e_sg = tl.zeros([K], tl.float32)
+    e_yy = tl.zeros([K], tl.float32)
+    e_yd = tl.zeros([K], tl.float32)
+    e_yg = tl.zeros([K], tl.float32)
+    acc_s = tl.zeros([RP, 16], tl.float32)
+    acc_y = tl.zeros([RP, 16], tl.float32)
+    for t in range(tiles):
+        chunk = pid * tiles + t
+        offs = _chunk(chunk, K)
+        fe, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y = \
+            _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs,
+                      _gidx(offs, off, SHARD), offs < n, n, m, end, stp, ex, a_gd, a_gg, a_xx,
+                      a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K,
+                      W, True)
+        tl.store(fx_ptr + chunk, tl.sum(fe, axis=0))
+    part = part_ptr + pid * (4 + 6 * m)
+    tl.store(part + 0, tl.sum(a_gd, axis=0))
+    tl.store(part + 1, tl.sum(a_gg, axis=0))
+    tl.store(part + 2, tl.sum(a_xx, axis=0))
+    tl.store(part + 3, tl.sum(a_ch, axis=0))
+    _store_gram_mma(part + 4, gpart_ptr + pid * (2 * m), True, m, end, with_gp, acc_s, acc_y,
+                    e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, RP)
+
+
+@triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles", "with_gp"])
+def owlqn_trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr, x_ptr, g_ptr,
+                                     pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo, hi, end,
+                                     tiles, with_gp, off, ex, m, body: tl.constexpr,
+                                     RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
+                                     SHARD: tl.constexpr):
+    # the solo K14 laid out as ``trial_pair_gram_mma_kernel``, through K14
+    # b's chunk body (``_k14_chunk``): x, g and pg may alias xp, gp and
+    # pg_old; the window [lo, hi) in the shard's own indices (the wrapper
+    # translates it), the body at the global ones; gp.gp and gp.pg summed in
+    # both launches and stored with with_gp
+    pid = tl.program_id(0)
+    stp = tl.load(stp_ptr)
+    c = tl.load(c_ptr)
+    a_xx = tl.zeros([K], tl.float32)
+    a_pp = tl.zeros([K], tl.float32)
+    a_ch = tl.zeros([K], tl.float32)
+    a_gg = tl.zeros([K], tl.float32)
+    a_gpg = tl.zeros([K], tl.float32)
+    e_sy = tl.zeros([K], tl.float32)
+    e_ss = tl.zeros([K], tl.float32)
+    e_sd = tl.zeros([K], tl.float32)
+    e_sg = tl.zeros([K], tl.float32)
+    e_yy = tl.zeros([K], tl.float32)
+    e_yd = tl.zeros([K], tl.float32)
+    e_yg = tl.zeros([K], tl.float32)
+    acc_s = tl.zeros([RP, 16], tl.float32)
+    acc_y = tl.zeros([RP, 16], tl.float32)
+    for t in range(tiles):
+        offs = _chunk(pid * tiles + t, K)
+        (a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
+         acc_y) = _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr,
+                             offs, _gidx(offs, off, SHARD), offs < n, n, m, lo, hi, end, stp, c,
+                             ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy,
+                             e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True)
+    part = part_ptr + pid * (3 + 6 * m)
+    tl.store(part + 0, tl.sum(a_xx, axis=0))
+    tl.store(part + 1, tl.sum(a_pp, axis=0))
+    tl.store(part + 2, tl.sum(a_ch, axis=0))
+    gpart = gpart_ptr + pid * (2 + 2 * m)
+    tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=with_gp != 0)
+    tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=with_gp != 0)
+    _store_gram_mma(part + 3, gpart + 2, True, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
                     e_sg, e_yy, e_yd, e_yg, RP)

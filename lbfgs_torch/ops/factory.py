@@ -57,7 +57,8 @@ protocol the solver looks for:
     take their solo kernels' deep forms; K4 b and K14 b take the form and
     the batch-wide launch of ``batched_epilogue_grid`` (with f32 vectors
     over a bf16 ring their Gram products on the tensor cores from
-    ``MMA_MIN_M`` to ``MMA_MAX_M`` rows).
+    ``MMA_MIN_M`` to ``MMA_MAX_M`` rows), as K4 and K14 take theirs on one
+    instance (``solo_epilogue_grid``).
     ``__lbfgs_trial_batched__`` / ``__lbfgs_owlqn_trial_batched__``: K1 b
     and K7 b, K1 and K7 over a batch, which materialize the accepted
     points where no batched epilogue runs (the scan two-loop, a float16
@@ -140,7 +141,7 @@ LAUNCH = dict(num_warps=NUM_WARPS, enable_fp_fusion=False)
 #: tiles of T elements (a power of two) addressed as [T // V, V], so each
 #: thread holds runs of V consecutive elements; each program loops over
 #: ``tiles`` consecutive tiles and keeps its sums in registers across them
-#: (``epilogue_grid``).  Chosen on an NVIDIA H100 80GB HBM3 at its 700 W
+#: (``solo_epilogue_grid``).  Chosen on an NVIDIA H100 80GB HBM3 at its 700 W
 #: limit with ``tools/tune_epilogues.py`` and
 #: ``tools/screen_epilogue_launches.py`` (n = 2^24, m = 6): f32/bf16 at T =
 #: 512, V = 4, 4 warps, 1 stage, 32 programs per SM took K4 0.2805 ms, ·gp
@@ -160,13 +161,32 @@ EPILOGUE = {
 }
 #: most programs an epilogue launches: 32 on each of the H100's 132 SMs
 EPILOGUE_PROGRAMS = 32 * 132
-#: deepest history of the static forms of K4, K14, K15 and K16: the
-#: epilogues hold per-thread [T // V, MP] sums (MP = m rounded up to a
-#: power of two) and the fusions unroll their loop over the ring rows, both
-#: compiled per m.  A deeper history takes their deep forms, which pass
-#: over the ring rows in groups (``DEEP_GROUP``, the epilogues) or loop
-#: over them at run time (the fusions), one compile for every m
+#: deepest history of the static forms of K15 and K16 (and of the bound
+#: above which every K4 and K14 launch counts in ``.deep_launches``): the
+#: fusions unroll their loop over the ring rows, compiled per m.  A deeper
+#: history takes their deep forms, which loop over the rows at run time,
+#: one compile for every m
 MAX_M = 64
+#: deepest history of the static fold forms of K4 and K14 (solo and
+#: batched) per (vector, history) dtype pair: they hold per-thread [T // V,
+#: MP] sums per product kind (MP = m rounded up to a power of two), which
+#: spill as MP grows.  The deepest m at which the static K4 and K14, each
+#: with and without the . gp column, spill nothing and are no slower than
+#: the deep form, from ``tools/deep_crossover.py`` at n = 2^20 on an NVIDIA
+#: H100 80GB HBM3 at its 700 W limit: at m = 16 K14 ·gp spills over a bf16
+#: ring (38 spills), every form over an f32 ring (10-58) and over f64
+#: (118-1624); at m = 8 every form spills nothing over f32 rings and runs
+#: 6-33% under the deep form (K4 ·gp over an f32 ring ties it, 0.0903
+#: against 0.0899 ms); over f64 at m = 8 K14 ·gp spills and K4 loses to
+#: the deep form, at m = 7 all four are spill-free and 2-17% ahead.  A
+#: deeper history takes the deep form (``DEEP_GROUP`` rows a pass), one
+#: compile for every m.  With f32 vectors over a bf16 ring the tensor-core
+#: form takes ``MMA_MIN_M`` to ``MMA_MAX_M`` rows first
+EPILOGUE_MAX_M = {
+    (torch.float32, torch.bfloat16): 8,
+    (torch.float32, torch.float32): 8,
+    (torch.float64, torch.float64): 7,
+}
 #: ring rows per pass of the deep epilogues per (vector, history) dtype
 #: pair: their per-thread sums are [T // V, G] per product kind.  The
 #: largest G (a power of two) at which no form spills on an NVIDIA H100
@@ -177,21 +197,6 @@ DEEP_GROUP = {
     (torch.float32, torch.float32): 8,
     (torch.float64, torch.float64): 2,
 }
-
-
-def epilogue_grid(n: int, vdtype: torch.dtype, hdtype: torch.dtype) -> SimpleNamespace:
-    """The launch of K4 and K14 at n elements of ``vdtype`` vectors with a
-    ``hdtype`` history: the tile T and the run V of consecutive elements a
-    thread holds, the tiles of T elements that cover n, the tiles each
-    program loops over and the program count (at most
-    ``EPILOGUE_PROGRAMS``; fewer, with one tile each, for a small n).  The
-    last program's tiles may run past n: they are masked, and their
-    objective partials are 0."""
-    cfg = EPILOGUE[(vdtype, hdtype)]
-    ntiles = -(-n // cfg["T"])
-    tiles = -(-ntiles // EPILOGUE_PROGRAMS)
-    programs = -(-ntiles // tiles)
-    return SimpleNamespace(**cfg, ntiles=ntiles, tiles=tiles, programs=programs)
 
 
 #: the batched epilogues' Gram products on the tensor cores (f32 vectors
@@ -212,50 +217,114 @@ MMA_EPILOGUE = {
     128: dict(K=128, num_warps=8, num_stages=3),
     256: dict(K=64, num_warps=8, num_stages=3),
 }
-#: the depths the tensor-core form takes.  Up to 8 rows the static form's
-#: per-thread sums are [T // V, 8] and it is the faster (the same tool's
-#: crossover, at m = 6 and 8); from 9 rows they are [T // V, 16] and the
-#: tensor-core form is ahead from m = 12 on.  Above MMA_MAX_M the deep form
-#: runs
+#: the depths the tensor-core form takes, solo and batched.  Up to 8 rows
+#: the static form's per-thread sums are [T // V, 8] and it is the faster
+#: (the same tool's crossover, at m = 6 and 8); from 9 rows they are
+#: [T // V, 16] and the tensor-core form is ahead from m = 12 on.  One
+#: instance (``--solo``) crosses at the same depths: at m = 9 the static
+#: form leads at n = 2^24 and trails at 2^20, from m = 12 the tensor-core
+#: form leads at both widths.  Above MMA_MAX_M the deep form runs
 MMA_MIN_M, MMA_MAX_M = 9, max(MMA_EPILOGUE)
 #: the one dtype pair whose ring values are exact as a bf16 operand
 MMA_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def batched_epilogue_grid(B: int, n: int, m: int, vdtype: torch.dtype,
-                          hdtype: torch.dtype) -> SimpleNamespace:
-    """The form and launch of K4 b and K14 b (the ·gp launch and the
-    3-column one alike) on B instances of n elements with m ring rows: the
-    tensor-core form (``form="mma"``) for f32 vectors over a bf16 ring from
-    ``MMA_MIN_M`` to ``MMA_MAX_M`` rows, else the static form up to
-    ``MAX_M`` rows and the deep form above, both on ``EPILOGUE``'s tiles.  The launch is sized over
-    the whole batch: each instance's n elements are cut into ``ntiles``
-    tiles of T elements (the tensor-core form's chunks of K), and each of
-    its ``programs`` programs takes ``tiles`` consecutive ones, so that
-    B * programs stays at or under ``EPILOGUE_PROGRAMS`` wherever B does
-    (one program an instance above it).  A program never straddles two
-    instances; the last one's tiles may run past n, masked.  ``consts`` are
-    the form's compile-time constants, ``launch`` its warps and stages."""
-    if (vdtype, hdtype) == MMA_DTYPES and MMA_MIN_M <= m <= MMA_MAX_M:
+#: the most programs a solo tensor-core launch takes (each walks ``tiles``
+#: consecutive chunks of ``MMA_EPILOGUE``'s K, with its warps and stages):
+#: the cap that summed the least time relative to each launch's fastest in
+#: ``tools/tune_batched_epilogues.py --solo``'s sweep (132 x 2-32 programs;
+#: K4 and K14 ±·gp at n = 2^20 and 2^24, m = 16, 19, 80 and 200) on an
+#: NVIDIA H100 80GB HBM3 at its 700 W limit, at every RP.  One instance at
+#: n = 2^20 gives 8192 chunks of 128; each program's closing reductions
+#: are paid once, so fewer, longer programs win there (m = 80: 256
+#: programs 0.149 ms, 4096 programs 0.256), and at 2^24 the cap hardly
+#: matters (1.945-2.000 ms)
+SOLO_MMA_PROGRAMS = 2 * 132
+#: the most chunks a solo tensor-core program sums: a launch takes more
+#: programs rather than more chunks a program.  At n = 2^24 the cap alone
+#: gives 264 programs of 497 chunks; 2048 of 64 run as fast on an H100
+#: (K4 at m = 80: 1.9603 ms against 1.9586), and with them every n = 2^24
+#: path of ``chip_smoke.py`` ends as it must, where with 497 the deep main
+#: path at epsilon 0 (m = 80, f32) stopped on a search direction that
+#: increases the objective (its sums add in another order; both within
+#: the sum tolerance of the float64 product)
+MMA_MAX_CHUNKS = 64
+#: the solo tensor-core form takes n a multiple of MMA_ALIGN: then every
+#: ring row starts on a 32-byte boundary and a chunk's [RP, K] ring tile
+#: loads as 16-byte vectors.  At another n the loads go scalar, and on an
+#: H100 the kernels spill from RP = 64 (96-248 spills at 1-3 pipeline
+#: stages) and run 1.4-3x slower than at the aligned n (m = 80: 0.43-0.51
+#: ms at n = 2^20 + 2, 0.15-0.17 at 2^20), so the fold forms take such an n
+MMA_ALIGN = 16
+
+
+def _epilogue_form(m: int, vdtype: torch.dtype, hdtype: torch.dtype,
+                   mma: bool = True) -> tuple:
+    """(form, its launch table's entry, its tile or chunk T, its
+    compile-time constants) of K4 and K14, solo and batched alike, at m
+    ring rows: the tensor-core form (``"mma"``; with ``mma`` on) for f32
+    vectors over a bf16 ring from ``MMA_MIN_M`` to ``MMA_MAX_M`` rows, else
+    the static fold form up to ``EPILOGUE_MAX_M`` rows and the deep fold
+    form above, both on ``EPILOGUE``'s tiles."""
+    pair = (vdtype, hdtype)
+    if mma and pair == MMA_DTYPES and MMA_MIN_M <= m <= MMA_MAX_M:
         rp = max(16, _rows(m))
         cfg = MMA_EPILOGUE[rp]
-        form, T = "mma", cfg["K"]
-        consts = dict(m=m, RP=rp, K=T)
-    else:
-        cfg = EPILOGUE[(vdtype, hdtype)]
-        T = cfg["T"]
-        if m <= MAX_M:
-            form, consts = "static", dict(M=m, MP=_rows(m), T=T, V=cfg["V"])
-        else:
-            form, consts = "deep", dict(m=m, G=DEEP_GROUP[(vdtype, hdtype)], T=T, V=cfg["V"])
-    ntiles = -(-n // T)
-    per = max(1, EPILOGUE_PROGRAMS // B)
-    tiles = -(-ntiles // per)
+        return "mma", cfg, cfg["K"], dict(m=m, RP=rp, K=cfg["K"])
+    cfg = EPILOGUE[pair]
+    if m <= EPILOGUE_MAX_M[pair]:
+        return "static", cfg, cfg["T"], dict(M=m, MP=_rows(m), T=cfg["T"], V=cfg["V"])
+    return "deep", cfg, cfg["T"], dict(m=m, G=DEEP_GROUP[pair], T=cfg["T"], V=cfg["V"])
+
+
+def _form_grid(form: str, cfg: dict, T: int, consts: dict, ntiles: int, per: int,
+               B: int, most: int) -> SimpleNamespace:
+    """A form's launch over ``ntiles`` tiles (chunks) an instance, at most
+    ``per`` programs each, as few tiles a program as that allows, and at
+    most ``most`` tiles a program."""
+    tiles = min(-(-ntiles // per), most)
     programs = -(-ntiles // tiles)
     return SimpleNamespace(form=form, T=T, ntiles=ntiles, tiles=tiles, programs=programs,
                            total=B * programs, consts=consts,
                            launch=dict(num_warps=cfg["num_warps"],
                                        num_stages=cfg["num_stages"]))
+
+
+def solo_epilogue_grid(n: int, m: int, vdtype: torch.dtype,
+                       hdtype: torch.dtype) -> SimpleNamespace:
+    """The form and launch of the solo K4 and K14 (the ·gp launch and the
+    3-column one alike) at n elements and m ring rows (``_epilogue_form``):
+    the fold forms on ``EPILOGUE``'s tiles of T elements, the tiles each
+    program loops over and the program count (at most
+    ``EPILOGUE_PROGRAMS``; fewer, with one tile each, for a small n); the
+    tensor-core form, where n is a multiple of ``MMA_ALIGN``, on chunks of
+    K, at most ``SOLO_MMA_PROGRAMS`` programs (more where a program would
+    sum more than ``MMA_MAX_CHUNKS`` chunks), each taking ``tiles``
+    consecutive chunks.  The last program's tiles may run past n, masked.
+    Fields as ``batched_epilogue_grid``'s at B = 1."""
+    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=n % MMA_ALIGN == 0)
+    ntiles = -(-n // T)
+    if form == "mma":
+        return _form_grid(form, cfg, T, consts, ntiles, SOLO_MMA_PROGRAMS, 1, MMA_MAX_CHUNKS)
+    return _form_grid(form, cfg, T, consts, ntiles, EPILOGUE_PROGRAMS, 1, ntiles)
+
+
+def batched_epilogue_grid(B: int, n: int, m: int, vdtype: torch.dtype,
+                          hdtype: torch.dtype) -> SimpleNamespace:
+    """The form and launch of K4 b and K14 b (the ·gp launch and the
+    3-column one alike) on B instances of n elements with m ring rows, the
+    form as the solo kernels' (``_epilogue_form``).  The launch is sized
+    over the whole batch: each instance's n elements are cut into
+    ``ntiles`` tiles of T elements (the tensor-core form's chunks of K),
+    and each of its ``programs`` programs takes ``tiles`` consecutive ones,
+    so that B * programs stays at or under ``EPILOGUE_PROGRAMS`` wherever B
+    does (one program an instance above it).  A program never straddles
+    two instances; the last one's tiles may run past n, masked.  ``consts``
+    are the form's compile-time constants, ``launch`` its warps and
+    stages."""
+    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype)
+    ntiles = -(-n // T)
+    return _form_grid(form, cfg, T, consts, ntiles, max(1, EPILOGUE_PROGRAMS // B), B, ntiles)
 
 
 def batched_epilogue_partials(grid: SimpleNamespace, B: int, m: int, owlqn: bool,
@@ -318,35 +387,30 @@ def _rows(m: int) -> int:
     return 1 << (m - 1).bit_length()
 
 
-def _epilogue_form(fn, m: int, vdtype: torch.dtype, hdtype: torch.dtype) -> tuple:
-    """(kernel name, the wrapper's dict of compiled kernels, the depth's
-    constants) of the form of K4 or K14 (``fn``, its wrapper) that takes m
-    ring rows of ``hdtype``: the static form up to ``MAX_M`` rows, the deep
-    form above (``<name>_deep_kernel``).  The batched forms choose theirs in
-    ``batched_epilogue_grid``."""
-    name = fn.__name__
-    if m <= MAX_M:
-        return name + "_kernel", fn.compiled, dict(M=m, MP=_rows(m))
-    return name + "_deep_kernel", fn.deep_compiled, dict(m=m, G=DEEP_GROUP[(vdtype, hdtype)])
-
-
-def _batched_epilogue_launch(fn, eg: SimpleNamespace, B: int, m: int, vdtype: torch.dtype,
-                             hdtype: torch.dtype, with_gp: bool, *args, **kw) -> None:
-    """Launch K4 b or K14 b (``fn``, its wrapper) in the form and over the
-    grid ``eg`` (``batched_epilogue_grid``), keep the compiled kernel in the
-    form's dict (``fn.mma_compiled``, ``fn.compiled``, ``fn.deep_compiled``)
-    and the geometry in ``fn.last_form``, and count the launch (``_count``;
-    ``fn.mma_launches`` for the tensor-core form)."""
-    base = fn.__name__.removesuffix("_batched")
-    name = base + {"mma": "_mma", "static": "", "deep": "_deep"}[eg.form] + "_batched_kernel"
+def _launch_epilogue(fn, eg: SimpleNamespace, m: int, vdtype: torch.dtype,
+                     hdtype: torch.dtype, with_gp: bool, *args, **kw) -> None:
+    """Launch K4 or K14 (``fn``, the solo or batched wrapper) in the form
+    and over the grid ``eg`` (``solo_epilogue_grid``,
+    ``batched_epilogue_grid``: the batched grid's axis 1 is the instance),
+    keep the compiled kernel in the form's dict (``fn.mma_compiled``,
+    ``fn.compiled``, ``fn.deep_compiled``) and, with the geometry, in
+    ``fn.last_form``, and count the launch (``_count``; ``fn.mma_launches``
+    for the tensor-core form).  ``args`` run up to the tiles argument,
+    ``kw`` names the rest."""
+    batched = fn.__name__.endswith("_batched")
+    name = fn.__name__.removesuffix("_batched")
+    name += {"mma": "_mma", "static": "", "deep": "_deep"}[eg.form]
+    name += "_batched_kernel" if batched else "_kernel"
+    grid = (eg.programs, eg.total // eg.programs) if batched else (eg.programs,)
     compiled = {"mma": fn.mma_compiled, "static": fn.compiled,
                 "deep": fn.deep_compiled}[eg.form]
     # the tensor-core form's . gp column is a run-time flag (one binary for
     # both launches); the fold forms' a compile-time one
     flag = dict(with_gp=int(with_gp)) if eg.form == "mma" else dict(WITH_GP=bool(with_gp))
-    compiled[(vdtype, hdtype, bool(with_gp))] = getattr(_kernels(), name)[(eg.programs, B)](
-        *args, eg.tiles, **flag, **kw, **eg.consts, **dict(LAUNCH, **eg.launch))
-    fn.last_form = SimpleNamespace(kernel=name, **vars(eg))
+    ck = getattr(_kernels(), name)[grid](*args, eg.tiles, **flag, **kw, **eg.consts,
+                                         **dict(LAUNCH, **eg.launch))
+    compiled[(vdtype, hdtype, bool(with_gp))] = ck
+    fn.last_form = SimpleNamespace(kernel=name, compiled=ck, **vars(eg))
     fn.mma_launches += eg.form == "mma"
     _count(fn, m > MAX_M, gp=bool(with_gp))
 
@@ -391,12 +455,6 @@ def _fx_tiles(fxp: torch.Tensor) -> torch.Tensor:
     """The objective from an epilogue's per-tile partials: summed in
     float64 under the wide mode, else their fixed-order sum."""
     return fused.obj_reduce(fxp) if fused.wide(fxp.dtype) else fused.reduce_partials(fxp)
-
-
-def _epilogue_launch(eg: SimpleNamespace) -> dict:
-    """Launch options of K4 and K14: ``LAUNCH``'s, with the warps and
-    pipeline stages of ``EPILOGUE``."""
-    return dict(LAUNCH, num_warps=eg.num_warps, num_stages=eg.num_stages)
 
 
 def _ow_probe_scalars(part: torch.Tensor, c: float, *more: torch.Tensor) -> tuple:
@@ -705,27 +763,28 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         whole-run state, which never reads the previous point again).
         ``with_gp=True`` appends the damped update's basis column S.gp,
         Y.gp ([m, 4]); every other output is that of the plain launch bit
-        for bit.  Above ``MAX_M`` ring rows the deep form runs: x, g, the
-        ring row and every sum but the products are the static form's
-        bit for bit."""
+        for bit.  The form is ``solo_epilogue_grid``'s: the static fold up
+        to ``EPILOGUE_MAX_M`` ring rows, the deep fold above (x, g, the ring
+        row and every sum but the products the static form's bit for bit),
+        and with f32 vectors over a bf16 ring the tensor-core form from
+        ``MMA_MIN_M`` to ``MMA_MAX_M`` rows (x, g and the ring row the fold
+        forms' bit for bit, the sums and the objective in its own order,
+        counted in ``.mma_launches``)."""
         off, ex = _check(xp)
         fused._check_hist(xp, S, Y)
         if not fused.on_cuda(xp, "trial_pair_gram"):
             return trial_pair_gram_ref(xp, d, gp, stp, S, Y, end, inplace, with_gp)
         fused.check_contiguous("trial_pair_gram", xp, d, gp, S, Y)
         m, n = S.shape
-        eg = epilogue_grid(n, xp.dtype, S.dtype)
+        eg = solo_epilogue_grid(n, m, xp.dtype, S.dtype)
         x = xp if inplace else torch.empty_like(xp)
         g = gp if inplace else torch.empty_like(gp)
         bufs = _epilogue_buffers(xp, eg, m, False, with_gp)
         part = bufs["part"]
-        kern, compiled, depth = _epilogue_form(trial_pair_gram, m, xp.dtype, S.dtype)
-        compiled[(xp.dtype, S.dtype, bool(with_gp))] = getattr(_kernels(), kern)[(eg.programs,)](
-            xp, d, gp, _scalar(stp, xp), x, g, S, Y, bufs["fx"], part,
-            bufs.get("gpart", part), n, int(end), eg.tiles, off, ex=ex, SHARD=off != 0,
-            body=block_fn(), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp), **depth,
-            **_epilogue_launch(eg))
-        _count(trial_pair_gram, m > MAX_M, gp=bool(with_gp))
+        _launch_epilogue(trial_pair_gram, eg, m, xp.dtype, S.dtype, with_gp,
+                         xp, d, gp, _scalar(stp, xp), x, g, S, Y, bufs["fx"], part,
+                         bufs.get("gpart", part), n, int(end), off=off, ex=ex,
+                         SHARD=off != 0, body=block_fn(), W=W)
         tot = fused.reduce_partials(part)
         sums = (_fx_tiles(bufs["fx"]), tot[0], tot[1], tot[2], tot[3] > 0, tot[4:])
         if with_gp:
@@ -787,8 +846,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         fused.check_contiguous("trial_pair_gram_batched", xp, d, gp, stp, live, S, Y)
         eg = batched_epilogue_grid(B, n, m, xp.dtype, S.dtype)
         part, gpart = _batched_buffers(xp, eg, m, False, with_gp)
-        _batched_epilogue_launch(
-            trial_pair_gram_batched, eg, B, m, xp.dtype, S.dtype, with_gp,
+        _launch_epilogue(
+            trial_pair_gram_batched, eg, m, xp.dtype, S.dtype, with_gp,
             xp, d, gp, stp, live.view(torch.uint8), S, Y, part, gpart, n, int(end),
             ex=extras, body=block_fn(), W=W)
         tot = part.sum(dim=1)
@@ -1021,7 +1080,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         ``with_gp=True`` (damped OWL-QN) appends the . gp column to SP and
         YP ([m, 4]) and gp.gp, gp.pg_new to the returns, taken before g
         overwrites gp; every other output is that of the plain launch bit
-        for bit.  Above ``MAX_M`` ring rows the deep form runs, as
+        for bit.  The form is ``solo_epilogue_grid``'s, as
         ``trial_pair_gram``'s."""
         off, ex = _check(xp)
         fused._check_hist(xp, S, Y)
@@ -1031,20 +1090,17 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         fused.check_contiguous("owlqn_trial_pair_gram", xp, d, gp, pg, S, Y)
         m, n = S.shape
         lo, hi = _window(n, start, end_w)
-        eg = epilogue_grid(n, xp.dtype, S.dtype)
+        eg = solo_epilogue_grid(n, m, xp.dtype, S.dtype)
         x = xp if inplace else torch.empty_like(xp)
         g = gp if inplace else torch.empty_like(gp)
         pg_new = pg if inplace else torch.empty_like(pg)
         bufs = _epilogue_buffers(xp, eg, m, True, with_gp)
         part = bufs["part"]
         gpart = bufs.get("gpart", part)
-        kern, compiled, depth = _epilogue_form(owlqn_trial_pair_gram, m, xp.dtype, S.dtype)
-        compiled[(xp.dtype, S.dtype, bool(with_gp))] = getattr(_kernels(), kern)[(eg.programs,)](
-            xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new, S, Y,
-            part, gpart, n, lo, hi, int(end), eg.tiles, off, ex=ex, SHARD=off != 0,
-            body=block_fn(), T=eg.T, V=eg.V, W=W, WITH_GP=bool(with_gp), **depth,
-            **_epilogue_launch(eg))
-        _count(owlqn_trial_pair_gram, m > MAX_M, gp=bool(with_gp))
+        _launch_epilogue(owlqn_trial_pair_gram, eg, m, xp.dtype, S.dtype,
+                         with_gp, xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new,
+                         S, Y, part, gpart, n, lo, hi, int(end), off=off, ex=ex,
+                         SHARD=off != 0, body=block_fn(), W=W)
         tot = fused.reduce_partials(part)
         sums = (tot[0], tot[1], tot[2] > 0, tot[3:])
         if with_gp:
@@ -1107,8 +1163,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         fused.check_contiguous("owlqn_trial_pair_gram_batched", xp, d, gp, pg, stp, live, S, Y)
         eg = batched_epilogue_grid(B, n, m, xp.dtype, S.dtype)
         part, gpart = _batched_buffers(xp, eg, m, True, with_gp)
-        _batched_epilogue_launch(
-            owlqn_trial_pair_gram_batched, eg, B, m, xp.dtype, S.dtype, with_gp,
+        _launch_epilogue(
+            owlqn_trial_pair_gram_batched, eg, m, xp.dtype, S.dtype, with_gp,
             xp, d, gp, pg, stp, _scalar(c, xp), live.view(torch.uint8), S, Y, part, gpart, n,
             start, end_w, int(end), ex=extras, body=block_fn(), W=W)
         tot = part.sum(dim=1)
@@ -1366,9 +1422,11 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     for fn in (trial_pair_gram, owlqn_trial_pair_gram, trial_pair_gram_batched,
                owlqn_trial_pair_gram_batched):
         fn.compiled, fn.deep_compiled = {}, {}
-    # the batched epilogues' tensor-core forms: their launches, compiled
-    # kernels, and each launch's form and geometry (``batched_epilogue_grid``)
-    for fn in (trial_pair_gram_batched, owlqn_trial_pair_gram_batched):
+    # the epilogues' tensor-core forms: their launches, compiled kernels,
+    # and each launch's form and geometry (``solo_epilogue_grid``,
+    # ``batched_epilogue_grid``)
+    for fn in (trial_pair_gram, owlqn_trial_pair_gram, trial_pair_gram_batched,
+               owlqn_trial_pair_gram_batched):
         fn.mma_launches, fn.mma_compiled, fn.last_form = 0, {}, None
     # the fusions' deep forms per (vector dtype, history dtype, fix), and
     # the batched fusions' forms per (vector dtype, history dtype, deep,

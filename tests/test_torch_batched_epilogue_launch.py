@@ -58,7 +58,7 @@ def test_form_by_dtype_pair_and_depth(pair, m):
         assert g.consts["RP"] >= max(16, m) and g.consts["RP"] & (g.consts["RP"] - 1) == 0
         assert g.T == g.consts["K"]
     else:
-        assert g.form == ("static" if m <= factory.MAX_M and (
+        assert g.form == ("static" if m <= factory.EPILOGUE_MAX_M[pair] and (
             pair != (F32, BF16) or m < factory.MMA_MIN_M) else "deep")
         assert g.T == factory.EPILOGUE[pair]["T"]
     # the static form's per-thread sums stay [T // V, 8] below the tensor
@@ -98,7 +98,7 @@ def test_main_path_shape_takes_the_solo_2e24_shape():
     4096 in all: the solo kernel's shape at n = 2^24."""
     g = factory.batched_epilogue_grid(1024, 1 << 14, 6, F32, F32)
     assert (g.programs, g.tiles, g.total) == (4, 8, 4096)
-    solo = factory.epilogue_grid(1 << 24, F32, F32)
+    solo = factory.solo_epilogue_grid(1 << 24, 6, F32, F32)
     assert (g.tiles, g.total) == (solo.tiles, solo.programs)
     assert factory.batched_epilogue_grid(1024, 1 << 14, 80, F32, BF16).programs == 4
 
@@ -383,7 +383,8 @@ def test_fold_forms_on_the_batch_grid_on_card(cuda, pair, m, ow):
     and the solo kernels."""
     vtol, stol = (1e-5, 1e-4) if pair[0] == F32 else (1e-12, 1e-10)
     a = _card_batch(cuda, m, (1 << 12) + 2, vd=pair[0], hd=pair[1])
-    assert _held(a, ow, vtol=vtol, stol=stol) == ("static" if m <= factory.MAX_M else "deep")
+    assert _held(a, ow, vtol=vtol, stol=stol) == ("static" if m <= factory.EPILOGUE_MAX_M[pair]
+                                                  else "deep")
 
 
 @pytest.mark.cuda

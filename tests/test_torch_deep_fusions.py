@@ -275,7 +275,7 @@ def _card_inputs(n, m, vd, hd):
 
 
 #: (n, m, dtypes): every depth in the three dtype pairs at a ragged n, and
-#: programs of two tiles each (``factory.epilogue_grid``) at m = 65
+#: programs of two tiles each (``factory.solo_epilogue_grid``) at m = 65
 CARD_CASES = [(100_006, m, dt) for m in (65, 80, 130)
               for dt in ((torch.float32, torch.bfloat16), (torch.float32, torch.float32),
                          (torch.float64, torch.float64))]
@@ -284,8 +284,10 @@ CARD_CASES.append((2_500_002, 65, (torch.float32, torch.bfloat16)))
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,dtypes", CARD_CASES, ids=str)
-def test_deep_forms_on_card(cuda, n, m, dtypes):
-    """The deep forms against their plain versions: ring rows bit for bit;
+def test_deep_forms_on_card(cuda, n, m, dtypes, monkeypatch):
+    """The deep forms (the tensor-core form off: with f32 vectors over a
+    bf16 ring it takes these depths, ``tests/test_torch_solo_epilogue_launch.py``)
+    against their plain versions: ring rows bit for bit;
     K4's and K14's x, g, pg, objective and changed bit for bit the static
     launch's at m = 6 on the same vectors and their scalar sums at the sum
     tolerance (torch sums the partials' columns by the array's width); the
@@ -297,6 +299,7 @@ def test_deep_forms_on_card(cuda, n, m, dtypes):
     1e-10 in float64; no deep form spills registers."""
     vd, hd = dtypes
     tv, ts = (1e-5, 1e-4) if vd == torch.float32 else (1e-12, 1e-10)
+    monkeypatch.setattr(t_factory, "MMA_MAX_M", 0)
     a = _card_inputs(n, m, vd, hd)
     xp, xp0, d, gp, pg, S, Y = (a[k] for k in ("xp", "xp0", "d", "gp", "pg", "S", "Y"))
     end, lo, hi = m - 3, 5, n - 9
@@ -394,11 +397,11 @@ def test_deep_forms_on_card(cuda, n, m, dtypes):
                                     (torch.float32, torch.float32),
                                     (torch.float64, torch.float64)], ids=str)
 def test_deep_epilogues_are_the_static_ones_where_both_run(cuda, dtypes, monkeypatch):
-    """At m = 19, which both forms take (several groups of rows, the last
-    partial), the deep epilogues' outputs are the static forms' bit for
-    bit: x, g, pg, the rings and every scalar sum (the partials have the
-    same shape, so torch sums their columns alike); the products at the
-    sum tolerance."""
+    """At m = 19, which both fold forms take with their caps raised (several
+    groups of rows, the last partial; the tensor-core form off), the deep
+    epilogues' outputs are the static forms' bit for bit: x, g, pg, the
+    rings and every scalar sum (the partials have the same shape, so torch
+    sums their columns alike); the products at the sum tolerance."""
     vd, hd = dtypes
     ts = 1e-4 if vd == torch.float32 else 1e-10
     n, m = 100_006, 19
@@ -417,9 +420,13 @@ def test_deep_epilogues_are_the_static_ones_where_both_run(cuda, dtypes, monkeyp
                 with_gp=with_gp), Sk, Yk)
         return out
 
+    monkeypatch.setattr(t_factory, "MMA_MAX_M", 0)
+    monkeypatch.setattr(t_factory, "EPILOGUE_MAX_M",
+                        dict.fromkeys(t_factory.EPILOGUE_MAX_M, t_factory.MAX_M))
     static = run()
     before = k.trial_pair_gram.deep_launches
     monkeypatch.setattr(t_factory, "MAX_M", 6)
+    monkeypatch.setattr(t_factory, "EPILOGUE_MAX_M", dict.fromkeys(t_factory.EPILOGUE_MAX_M, 6))
     deep = run()
     assert k.trial_pair_gram.deep_launches == before + 2
     for key, outs in deep.items():

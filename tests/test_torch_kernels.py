@@ -523,11 +523,12 @@ def test_epilogue_grid_covers_n_once(n, dtypes):
     them, the last program's last tiles may lie past n (masked), and no
     program is left without one.  A small n takes one tile per program,
     fewer programs than the card has SMs."""
-    eg = t_factory.epilogue_grid(n, *dtypes)
+    eg = t_factory.solo_epilogue_grid(n, M, *dtypes)
     cfg = t_factory.EPILOGUE[dtypes]
-    assert (eg.T, eg.V, eg.num_warps) == (cfg["T"], cfg["V"], cfg["num_warps"])
+    V, num_warps = eg.consts["V"], eg.launch["num_warps"]
+    assert eg.form == "static" and (eg.T, V, num_warps) == (cfg["T"], cfg["V"], cfg["num_warps"])
     # whole runs of V per thread, rows of the body's W = 2 inside them
-    assert eg.T % (32 * eg.num_warps * eg.V) == 0 and eg.V % 2 == 0
+    assert eg.T % (32 * num_warps * V) == 0 and V % 2 == 0
     assert eg.ntiles == -(-n // eg.T)
     assert (eg.ntiles - 1) * eg.T < n <= eg.ntiles * eg.T
     assert (eg.programs - 1) * eg.tiles < eg.ntiles <= eg.programs * eg.tiles
@@ -548,7 +549,7 @@ def test_epilogue_partials_shapes(n, owlqn, with_gp):
     """K4: one objective partial per tile of every program, [programs, 4 +
     6m] sums, [programs, 2m] for the . gp column; K14: [programs, 3 + 6m]
     and [programs, 2 + 2m] (gp.gp, gp.pg first), no objective column."""
-    eg = t_factory.epilogue_grid(n, torch.float32, torch.bfloat16)
+    eg = t_factory.solo_epilogue_grid(n, M, torch.float32, torch.bfloat16)
     shapes = t_factory.epilogue_partials(eg, M, owlqn, with_gp)
     want = {"part": (eg.programs, (3 if owlqn else 4) + 6 * M)}
     if not owlqn:

@@ -23,8 +23,9 @@ others; the factory's extras run given whole and given as shards, and a
 body that reads the global index shows the shard's offset at work.
 
 A second job holds every case at m = 65 ring rows on two ranks, past
-``factory.MAX_M``, where the card runs the deep forms of K4, K14, K15 and
-K16 (their plain versions here), to the same bounds.
+``factory.MAX_M``, where the card runs the deep forms of K15 and K16 and
+of K4 and K14 (the tensor-core form with f32 vectors over a bf16 ring;
+their plain versions here), to the same bounds.
 """
 
 import numpy as np

@@ -1,19 +1,21 @@
-"""Registers, spills and times of the epilogues' static and deep forms
-below ``factory.MAX_M`` ring rows, and the deep forms' registers at other
-group sizes, on one CUDA card.
+"""Registers, spills and times of the epilogues' static and deep fold
+forms at a few ring depths, and the deep forms' registers at other group
+sizes, on one CUDA card: what ``factory.EPILOGUE_MAX_M`` is chosen from.
 
-    PYTHONPATH=. python3 tools/deep_crossover.py [--depths 16 32 64] [--reps N]
-                                                 [--groups 8 4 2]
+    PYTHONPATH=. python3 tools/deep_crossover.py [--depths 8 16 32] [--reps N]
+        [--pairs bf16 f32 f64] [--groups 8 4 2]
 
-For each depth m (f32 vectors, a bf16 history, at the deep-history path's
-n = 2^20, ``chip_smoke.deep_inputs``): K4 and K14 (without the . gp
-column) in their static form, as the solver runs them up to
-``factory.MAX_M`` rows, and in their deep form (forced by
-``chip_smoke.static_forms_up_to``), each form's registers and spills from
-its compiled Triton kernel, and the device time of both in turns, static,
-deep, deep, static (``chip_smoke.device_time``).  The static forms compile
-per m and unroll every ring row, so at 32 rows and more their compiles take
-minutes: this runs apart from ``chip_smoke.py``.
+For each dtype pair of ``--pairs`` (f32 vectors over a bf16 or an f32
+history, f64 over f64) and depth m, at the deep-history path's n = 2^20
+(``chip_smoke.deep_inputs``): K4 and K14, each with and without the . gp
+column, in their static form and in their deep form (each forced by
+``chip_smoke.static_forms_up_to``: m rows static, 0 rows static; the
+tensor-core form off), each form's
+registers and spills from its compiled Triton kernel, and the device time
+of both in turns, static, deep, deep, static (``chip_smoke.device_time``).
+The static forms compile per m and unroll every ring row, so at 32 rows
+and more their compiles take minutes: this runs apart from
+``chip_smoke.py``.
 
 With ``--groups``, for each group size G in turn (``factory.DEEP_GROUP``
 set to G for every dtype pair), the registers and spills of the deep K4
@@ -38,7 +40,9 @@ from lbfgs_torch.ops import factory
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--depths", type=int, nargs="*", default=[16, 32, 64])
+    ap.add_argument("--depths", type=int, nargs="*", default=[8, 16, 32])
+    ap.add_argument("--pairs", nargs="*", default=["bf16", "f32", "f64"],
+                    choices=["bf16", "f32", "f64"])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--groups", type=int, nargs="*", default=[])
     args = ap.parse_args()
@@ -67,31 +71,40 @@ def main() -> None:
     factory.DEEP_GROUP = chosen
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram):
         fn.deep_compiled.clear()
-    key = (torch.float32, torch.bfloat16, False)
+    pairs = {"bf16": (torch.float32, torch.bfloat16), "f32": (torch.float32, torch.float32),
+             "f64": (torch.float64, torch.float64)}
     hi = cs.DEEP_N - 1
-    for m in args.depths:
-        if m > factory.MAX_M:
-            raise ValueError(f"m={m}: the static forms take at most {factory.MAX_M} rows")
-        a = cs.deep_inputs(torch.float32, torch.bfloat16, m)
-        S, Y = a["S"], a["Y"]
-        forms = {
-            "K4": (k.trial_pair_gram, lambda: k.trial_pair_gram(
-                a["xp"], a["d"], a["gp"], cs.STP, S, Y, cs.END)),
-            "K14": (k.owlqn_trial_pair_gram, lambda: k.owlqn_trial_pair_gram(
-                a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, 1.0, 0, hi, S, Y, cs.END)),
-        }
-        for name, (fn, call) in forms.items():
-            ms = {"static": [], "deep": []}
-            for form in ("static", "deep", "deep", "static"):
-                with cs.static_forms_up_to(cs.M if form == "deep" else factory.MAX_M):
-                    call()
-                    ms[form].append(cs.device_time(call, args.reps))
-            regs = {form: cs._compiled_info(c[key])
-                    for form, c in (("static", fn.compiled), ("deep", fn.deep_compiled))}
-            cs.emit(form=name, m=m, n=cs.DEEP_N, dtypes="float32/bfloat16", ms=ms,
-                    timed_by=cs.device_time.source, registers=regs)
-        del a, S, Y
-        torch.cuda.empty_cache()
+    for pair in args.pairs:
+        vd, hd = pairs[pair]
+        for m in args.depths:
+            a = cs.deep_inputs(vd, hd, m)
+            S, Y = a["S"], a["Y"]
+            for gp in (False, True):
+                forms = {
+                    "K4": (k.trial_pair_gram, lambda gp=gp: k.trial_pair_gram(
+                        a["xp"], a["d"], a["gp"], cs.STP, S, Y, cs.END, with_gp=gp)),
+                    "K14": (k.owlqn_trial_pair_gram, lambda gp=gp: k.owlqn_trial_pair_gram(
+                        a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, 1.0, 0, hi, S, Y, cs.END,
+                        with_gp=gp)),
+                }
+                for name, (fn, call) in forms.items():
+                    ms, regs = {"static": [], "deep": []}, {}
+                    for form in ("static", "deep", "deep", "static"):
+                        with cs.static_forms_up_to(m if form == "static" else 0):
+                            call()
+                            regs[form] = dict(kernel=fn.last_form.kernel,
+                                              **cs._compiled_info(fn.last_form.compiled))
+                            ms[form].append(cs.device_time(call, args.reps))
+                    cs.emit(form=name + ("_gp" if gp else ""), m=m, n=cs.DEEP_N,
+                            dtypes=f"{vd}/{hd}".replace("torch.", ""), ms=ms,
+                            bound_ms=cs.bound(("K4_trial_pair_gram" if name == "K4" else
+                                               "K14_owlqn_trial_pair_gram")
+                                              + ("_gp" if gp else ""), cs.DEEP_N, vd.itemsize,
+                                              hd.itemsize, m)[0],
+                            timed_by=cs.device_time.source, registers=regs,
+                            chosen=factory.solo_epilogue_grid(cs.DEEP_N, m, vd, hd).form)
+            del a, S, Y
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Hold this tree's kernels to another tree's, bit for bit, on one CUDA card.
 
     PYTHONPATH=. python3 tools/parent_bits.py --parent DIR [--reps N]
+        [--epilogue-depths 16 19 80 [--epilogue-n 1048576 16777216]]
 
 DIR is the root of another tree of this repository (e.g. a ``git archive``
 of the parent commit unpacked under ``build/``), whose ``lbfgs_torch`` is
@@ -23,6 +24,15 @@ K5's body); K12's rings stay bit for bit.  The first difference raises.
 Then K3, K6, K13, K5 . gp, K4, K15, K1, K2, K8 (pg form), K14 and K16 are
 timed at the main path's shapes (n = 2^24, f32 vectors, bf16 history,
 m = 6) in turns, other tree, this, this, other (``chip_smoke.device_time``).
+
+With ``--epilogue-depths`` it runs only the solo epilogues K4 and K14,
+each with and without the . gp column, at those ring depths and the
+widths of ``--epilogue-n`` (f32 vectors over bf16 rings,
+``chip_smoke.numerics_inputs``, K14 on the window [5, n - 9)): x, g, pg
+and both rings must be the other tree's bit for bit (whatever form each
+tree picks), the sums and products within the sum tolerance (normwise,
+the gap printed), then each is timed other tree, this, this, other, with
+the form each tree ran.
 
 Prints one JSON line per check group and per timed kernel; the card's
 nvidia-smi name and power limit first.
@@ -166,15 +176,77 @@ def compiled(rosen) -> dict:
     return out
 
 
+def epilogue_depths(prosen, depths: list, widths: list, reps: int) -> None:
+    """``--epilogue-depths``: the solo K4 and K14 (±·gp) of both trees."""
+    tol = cs.TOL[(torch.float32, "sum")]
+    for n in widths:
+        for m in depths:
+            a = cs.numerics_inputs(n, m, cs.SEED + 40 + m)
+
+            def calls(rosen, S, Y):
+                return {
+                    "K4": lambda: rosen.trial_pair_gram(a["xp"], a["d"], a["gp"], cs.STP, S, Y,
+                                                        cs.END),
+                    "K4_gp": lambda: rosen.trial_pair_gram(a["xp"], a["d"], a["gp"], cs.STP, S,
+                                                           Y, cs.END, with_gp=True),
+                    "K14": lambda: rosen.owlqn_trial_pair_gram(
+                        a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, cs.C_L1, 5, n - 9, S, Y,
+                        cs.END),
+                    "K14_gp": lambda: rosen.owlqn_trial_pair_gram(
+                        a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, cs.C_L1, 5, n - 9, S, Y,
+                        cs.END, with_gp=True),
+                }
+
+            for name in ("K4", "K4_gp", "K14", "K14_gp"):
+                outs = {}
+                for label, rosen in (("this", rosenbrock), ("other", prosen)):
+                    S, Y = a["S"].clone(), a["Y"].clone()
+                    out = calls(rosen, S, Y)[name]()
+                    outs[label] = (out, S, Y)
+                (mine, S1, Y1), (theirs, S2, Y2) = outs["this"], outs["other"]
+                if not (cs.same_bits(S1, S2) and cs.same_bits(Y1, Y2)):
+                    raise AssertionError(f"{name} m={m} n={n}: the rings differ")
+                vec = (0, 1, 2) if name.startswith("K14") else (0, 2)
+                gaps = []
+                for i, (u, v) in enumerate(zip(mine, theirs)):
+                    if i in vec or u.dtype == torch.bool:
+                        if not cs.same_bits(u, v):
+                            raise AssertionError(f"{name} m={m} n={n}: output {i} differs")
+                    else:
+                        gaps.append(cs.check(f"{name} m={m} n={n} output {i}", u, v, tol)[1])
+                del outs, mine, theirs, S1, Y1, S2, Y2
+                fn = (rosenbrock.owlqn_trial_pair_gram if name.startswith("K14")
+                      else rosenbrock.trial_pair_gram)
+                mk, tk = calls(rosenbrock, a["S"], a["Y"])[name], calls(prosen, a["S"],
+                                                                         a["Y"])[name]
+                p1, k1, k2, p2 = (cs.device_time(f, reps) for f in (tk, mk, mk, tk))
+                cs.emit(compare="other_tree", kernel=name, m=m, n=n, other_ms=min(p1, p2),
+                        ms=min(k1, k2), runs=[p1, k1, k2, p2], timed_by=cs.device_time.source,
+                        form=fn.last_form.kernel, programs=fn.last_form.programs,
+                        chunks_per_program=fn.last_form.tiles,
+                        bound_ms=cs.bound(("K4_trial_pair_gram" if name.startswith("K4")
+                                           else "K14_owlqn_trial_pair_gram")
+                                          + ("_gp" if name.endswith("_gp") else ""),
+                                          n, 4, 2, m)[0],
+                        vectors_and_rings="bit for bit", sum_gap=max(gaps))
+            del a
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--epilogue-depths", type=int, nargs="*")
+    ap.add_argument("--epilogue-n", type=int, nargs="*", default=[1 << 20])
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
     prosen = load_tree(args.parent.resolve(), "parent_lbfgs_torch")
+    if args.epilogue_depths:
+        epilogue_depths(prosen, args.epilogue_depths, args.epilogue_n, args.reps)
+        return
     pfused = sys.modules["parent_lbfgs_torch.ops.fused"]
     for n in (cs.N_RAGGED, cs.N_BIG):
         for vd, hd in cs.DTYPES:

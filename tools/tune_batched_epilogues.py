@@ -1,8 +1,11 @@
 """Tune the batched epilogues' tensor-core launch and find the depths it
-should take, on one CUDA card.
+should take, on one CUDA card; with ``--solo``, the same for the solo
+epilogues K4 and K14.
 
     PYTHONPATH=. python3 tools/tune_batched_epilogues.py [--depths 6 19 48 80 200]
         [--crossover 6 8 12 16 19 32] [--reps N] [--out PATH]
+    PYTHONPATH=. python3 tools/tune_batched_epilogues.py --solo [--depths 16 19 80 200]
+        [--crossover 8 9 12 16] [--widths 1048576 16777216] [--reps N] [--out PATH]
 
 At the batched main path's shapes (B x n = 1024 x 2^14, f32 vectors, bf16
 rings, a third of the instances frozen in the checks, every instance live
@@ -21,6 +24,24 @@ in the timings; ``tools/parent_batched.inputs``):
     ``factory.MMA_EPILOGUE``'s launch) are timed in turns, static,
     tensor-core, tensor-core, static, for K4 b and K14 b with and without
     the . gp column (the tensor-core form runs one binary for both).
+
+With ``--solo`` (one instance, f32 vectors over a bf16 ring,
+``chip_smoke.numerics_inputs``; K14 on the window [5, n - 9)):
+
+  * the sweep: at each ring depth of ``--depths`` and width of
+    ``--widths`` (n = 2^20 and 2^24),
+    the solo tensor-core form of K4 and K14, each with and without the .
+    gp column, at every program cap of ``SOLO_CAPS`` (132 x 1-32; the
+    chunk, warps and stages of ``factory.MMA_EPILOGUE``), timed, with its
+    registers and spills and, at 2^20, its gaps to the plain version; per
+    RP the cap whose launches spill nothing and sum the least time
+    relative to the fastest launch of each (depth, n, form) is printed
+    beside ``factory.SOLO_MMA_PROGRAMS`` (each program at most
+    ``factory.MMA_MAX_CHUNKS`` chunks, as the grid keeps it);
+  * the crossover: at each depth of ``--crossover`` and each width,
+    the static fold form and the tensor-core form in turns, static,
+    tensor-core, tensor-core, static, for K4 and K14 with and without the
+    . gp column, with both forms' registers.
 
 Prints one JSON line per launch and depth, the card's nvidia-smi name and
 power limit first; ``--out`` writes the same lines to a file.
@@ -41,6 +62,12 @@ from tools import parent_batched as pb
 
 K = rosenbrock.value_and_grad.kernels
 GRID = [(k, w, s) for k in (64, 128, 256) for w in (4, 8) for s in (1, 2, 3)]
+#: the solo sweep's program caps and widths
+SOLO_CAPS = [132 * k for k in (1, 2, 4, 8, 16, 32)]
+SOLO_N = (1 << 20, 1 << 24)
+#: the solo forms' rows in ``chip_smoke.cost``
+SOLO_NAMES = {"K4": "K4_trial_pair_gram", "K4_gp": "K4_trial_pair_gram_gp",
+              "K14": "K14_owlqn_trial_pair_gram", "K14_gp": "K14_owlqn_trial_pair_gram_gp"}
 
 
 class Plain:
@@ -140,13 +167,124 @@ def crossover(m: int, reps: int, emit) -> None:
         factory.MMA_MIN_M = lo
 
 
+def solo_calls(a: dict) -> dict:
+    """form: (the solo wrapper, its kernel call, its plain call), the ·gp
+    forms with ``_gp``; each writes ring row ``cs.END`` of the inputs'
+    rings (the same row every call)."""
+    n = a["xp"].shape[0]
+    out = {}
+    for gp in (False, True):
+        sfx = "_gp" if gp else ""
+        for name, fn, args in (
+                ("K4", "trial_pair_gram", (a["xp"], a["d"], a["gp"], cs.STP)),
+                ("K14", "owlqn_trial_pair_gram",
+                 (a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, cs.C_L1, 5, n - 9))):
+            out[name + sfx] = (getattr(K, fn), lambda f=getattr(K, fn), args=args, gp=gp: f(
+                *args, a["S"], a["Y"], cs.END, with_gp=gp), lambda f=getattr(K, fn + "_ref"),
+                args=args, gp=gp: f(*args, a["S"], a["Y"], cs.END, with_gp=gp))
+    return out
+
+
+def solo_sweep(m: int, widths: list, reps: int, emit) -> list:
+    """The solo tensor-core form at depth m over ``widths`` and
+    ``SOLO_CAPS``; returns the rows."""
+    rp = max(16, 1 << (m - 1).bit_length())
+    keep = factory.SOLO_MMA_PROGRAMS
+    rows = []
+    try:
+        for n in widths:
+            a = cs.numerics_inputs(n, m, cs.SEED + 70 + m)
+            calls = solo_calls(a)
+            want = {}
+            if n <= 1 << 20:
+                for form, (_, _, plain) in calls.items():
+                    want[form] = plain()
+            for cap in SOLO_CAPS:
+                factory.SOLO_MMA_PROGRAMS = cap
+                for form, (fn, call, _) in calls.items():
+                    out = call()
+                    f = fn.last_form
+                    row = dict(solo_sweep=form, m=m, n=n, RP=rp, cap=cap, programs=f.programs,
+                               chunks_per_program=f.tiles, K=f.T, kernel=f.kernel,
+                               ms=cs.device_time(call, reps), timed_by=cs.device_time.source,
+                               bound_ms=cs.bound(SOLO_NAMES[form], n, 4, 2, m)[0],
+                               **cs._compiled_info(f.compiled))
+                    if form in want:
+                        row["sum_gap"] = max(cs.err(u, v) for u, v in zip(out, want[form])
+                                             if u.dtype != torch.bool and u.ndim <= 2
+                                             and u.numel() < n)
+                    emit(row)
+                    rows.append(row)
+                    del out
+            del a, calls, want
+            torch.cuda.empty_cache()
+    finally:
+        factory.SOLO_MMA_PROGRAMS = keep
+    return rows
+
+
+def solo_best(rows: list, emit) -> None:
+    """Per RP, the cap whose launches spill nothing and sum the least time
+    relative to the fastest launch of each (depth, n, form)."""
+    fastest = {}
+    for r in rows:
+        key = (r["m"], r["n"], r["solo_sweep"])
+        fastest[key] = min(fastest.get(key, r["ms"]), r["ms"])
+    for rp in sorted({r["RP"] for r in rows}):
+        score = {}
+        for r in rows:
+            if r["RP"] == rp:
+                rel = r["ms"] / fastest[(r["m"], r["n"], r["solo_sweep"])]
+                score[r["cap"]] = score.get(r["cap"], 0.0) + (rel if r["n_spills"] == 0
+                                                              else float("inf"))
+        emit(dict(solo_best=rp, chosen=factory.SOLO_MMA_PROGRAMS,
+                  fastest=min(score, key=score.get), relative_time_sums=score))
+
+
+def solo_crossover(m: int, widths: list, reps: int, emit) -> None:
+    """The static fold form against the tensor-core form at depth m, in
+    turns, at ``widths``."""
+    lo = factory.MMA_MIN_M
+    try:
+        for n in widths:
+            factory.MMA_MIN_M = lo
+            chosen = factory.solo_epilogue_grid(n, m, torch.float32, torch.bfloat16).form
+            a = cs.numerics_inputs(n, m, cs.SEED + 80 + m)
+            for form, (fn, call, _) in solo_calls(a).items():
+                def run(label):
+                    factory.MMA_MIN_M = m + 1 if label == "static" else 1
+                    return cs.device_time(call, reps)
+
+                info = {}
+                for label in ("static", "mma"):
+                    factory.MMA_MIN_M = m + 1 if label == "static" else 1
+                    call()
+                    info[label] = dict(kernel=fn.last_form.kernel,
+                                       **cs._compiled_info(fn.last_form.compiled))
+                s1, t1, t2, s2 = (run(label) for label in ("static", "mma", "mma", "static"))
+                emit(dict(solo_crossover=form, m=m, n=n, static_ms=[s1, s2], mma_ms=[t1, t2],
+                          bound_ms=cs.bound(SOLO_NAMES[form], n, 4, 2, m)[0], chosen=chosen,
+                          **info))
+            del a
+            torch.cuda.empty_cache()
+    finally:
+        factory.MMA_MIN_M = lo
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--depths", type=int, nargs="*", default=[6, 19, 48, 80, 200])
-    ap.add_argument("--crossover", type=int, nargs="*", default=[6, 8, 12, 16, 19, 32])
+    ap.add_argument("--depths", type=int, nargs="*")
+    ap.add_argument("--crossover", type=int, nargs="*")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out")
+    ap.add_argument("--widths", type=int, nargs="*", default=list(SOLO_N))
+    ap.add_argument("--solo", action="store_true",
+                    help="the solo K4 and K14 at one instance instead of the batched forms")
     args = ap.parse_args()
+    if args.depths is None:
+        args.depths = [16, 19, 80, 200] if args.solo else [6, 19, 48, 80, 200]
+    if args.crossover is None:
+        args.crossover = [8, 9, 12, 16] if args.solo else [6, 8, 12, 16, 19, 32]
     out = open(args.out, "w") if args.out else None
 
     def emit(row):
@@ -159,6 +297,14 @@ def main() -> None:
     emit(dict(card=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                    "--format=csv,noheader"], capture_output=True,
                                   text=True).stdout.strip()))
+    if args.solo:
+        rows = []
+        for m in args.depths:
+            rows += solo_sweep(m, args.widths, args.reps, emit)
+        solo_best(rows, emit)
+        for m in args.crossover:
+            solo_crossover(m, args.widths, args.reps, emit)
+        return
     for m in args.depths:
         sweep(m, args.reps if m <= factory.MAX_M else max(3, args.reps // 2), emit)
         torch.cuda.empty_cache()
