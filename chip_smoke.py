@@ -276,6 +276,12 @@ Phases (any failure raises and the script exits nonzero):
      objective (plain: K1 b, K5 b, K3 b; damped: K5 b's . gp form, K6 b;
      OWL-QN: K7 b, K10 b, K12 b, K13 b; damped OWL-QN without K12 b);
      instances 0-7 solo against each batch after 8 iterations;
+ 42i. batched tensor-core rules (``batched_mma_rules``, after the batched
+     fusion kernels): K4 b and K14 b with their . gp columns at m = 19 and
+     80, at 1024 x 2^14, 1024 x (2^14 + 2) and 4 x 2^24: the tensor-core
+     form at an n that is a multiple of 16 (at most 64 chunks a program,
+     the products within 3e-7 normwise of the float64 product of their own
+     operands), the deep fold form at 2^14 + 2, no spill;
  43. sharded world size 1: an NCCL group of one rank in this process
      (``lbfgs_torch.parallel``), the main path and the OWL-QN main path at
      n = 2^24 under ``kernels_on_mesh``, each against the same run with no
@@ -283,7 +289,11 @@ Phases (any failure raises and the script exits nonzero):
      launches, no plain version; collectives and ms per iteration of both
      (eight runs in turns), the all-reduce ms per iteration, and where
      one all-reduce of a launch's scalars spends its time (timed pieces
-     and torch.profiler traces);
+     and torch.profiler traces); then the generic objectives under the
+     local contract (the generic Rosenbrock at 2^24 capped, 40 iterations,
+     and damped, 20; the Poisson regression at 2048 x 2^20 under OWL-QN, 20
+     iterations), each bit for bit its run with no mesh, the collectives
+     the CPU tests' formula;
  44. sharded two ranks: two spawned gloo ranks sharing cuda:0 (this script
      with ``--sharded-rank``), n = 2^24 in all, the main, OWL-QN and damped
      main paths: both ranks bit for bit alike (iterations, evaluations,
@@ -295,7 +305,18 @@ Phases (any failure raises and the script exits nonzero):
      path's iterations and every path's fx against the solo phases, the
      first 8 iterations in float64 the solo run's steps; collectives, ms
      and all-reduce ms per iteration; the mesh forms' checks also at m = 80
-     (the deep K4, K14, K15 and K16, n = 2^20);
+     (the deep K4, K14, K15 and K16, n = 2^20); the mesh forms of K3, K6,
+     K9, K11, K12 (+-gp, also at m = 80) and K13; the generic objectives
+     (the Poisson regression on each rank's 2048 x 2^19 column block), the
+     ranks alike, fx against the world-size-1 phase's solo runs, the first
+     8 iterations in float64 the solo run's steps; and a checkpoint of the
+     main path at n = 2^22 saved by both ranks at iteration 10 and resumed
+     here with no mesh, from the sharded files and from the gathered state,
+     bit for bit alike and ending as the solo run;
+ 44b. examples: the port's six example scripts on the card at their
+     default sizes (``examples/*_torch.py``; the sharded one in a
+     subprocess at world size 1 over NCCL), each launching its kernels,
+     calling no plain version and ending as its JAX script says;
  45. launch_overhead: microseconds per back-to-back launch of the
      calibration kernel (``csrc/calibrate.cu``) and per launch with one
      synchronising read, and the share of each main path's ms/iter that
@@ -335,10 +356,14 @@ before the last, and ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
+import importlib
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -358,8 +383,8 @@ from lbfgs_torch.models import booth, lennard_jones, logistic, rosenbrock, separ
 from lbfgs_torch.native import minimize_native_rosenbrock
 from lbfgs_torch.ops import _build, factory, fused
 from lbfgs_torch.orthantwise import Orthantwise, choose_orthant
-from lbfgs_torch.parallel import (gather_vector, init_distributed, kernels_on_mesh, make_mesh,
-                                  shard_vector)
+from lbfgs_torch.parallel import (gather_state, gather_vector, init_distributed,
+                                  kernels_on_mesh, make_mesh, shard_vector)
 from lbfgs_torch.params import Lbfgs, LbfgsParams, LineSearchAlgorithm
 from lbfgs_torch.status import Status
 from lbfgs_torch.utils import profiling
@@ -916,7 +941,8 @@ def warm_steps() -> list:
     specialisation of its group that the later phases use (the dtype pair,
     n divisible by 16 or not, the ring depth: the static forms at m = 6
     and 3, the deep and tensor-core forms the deep-history phases run, the
-    forced fold forms of their checks)."""
+    forced fold forms of their checks, and the batched runner's forms at
+    m = 6, 19 and 80)."""
     steps = []
 
     def group(vd, hd, n, m):
@@ -1015,6 +1041,52 @@ def warm_steps() -> list:
         rosenbrock.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0, 4095, S,
                                          S.clone(), 1)
 
+    def batched(m):
+        # the batched runner's Triton forms at m ring rows (f32 vectors, bf16
+        # rings, n a multiple of 16): K2 b, K8 b, K1 b and K7 b (at m = M),
+        # K4 b and K14 b (with and without the . gp column: the static form's
+        # flag is compiled in, the tensor-core form's is not), and K15 b (with
+        # and without its fix form) and K16 b
+        def step(lib):
+            k = rosenbrock.value_and_grad.kernels
+            n = 4096
+            x = torch.ones((2, n), device="cuda")
+            S = torch.zeros((2, m, n), dtype=torch.bfloat16, device="cuda")
+            stp = torch.zeros(2, device="cuda")
+            live = torch.ones(2, dtype=torch.bool, device="cuda")
+            if m == M:
+                k.probe_batched(x, x, stp, live)
+                k.owlqn_probe_pg_batched(x, x, x, stp, 1.0, 0, n - 1, live)
+                k.trial_batched(x, x, stp, live, x.clone(), x.clone())
+                k.owlqn_trial_batched(x, x, x, stp, 1.0, 0, n - 1, live, x.clone(), x.clone())
+            for gp in (False, True):
+                k.trial_pair_gram_batched(x.clone(), x, x.clone(), stp, S, S.clone(), 1, live,
+                                          with_gp=gp)
+                k.owlqn_trial_pair_gram_batched(x.clone(), x, x.clone(), x.clone(), stp, 1.0, 0,
+                                                n - 1, S, S.clone(), 1, live, with_gp=gp)
+            if m != DEEP_VS_STATIC_M:
+                coef = torch.zeros((2, 2 * m + 1), device="cuda")
+                coef_fix = torch.zeros((2, 2 * m + 3), device="cuda")
+                k.combine_probe_batched(x, x, S, S, coef, stp, live, x.clone())
+                k.combine_probe_batched(x, x, S, S.clone(), coef_fix, stp, live, x.clone(), fix=1)
+                k.combine_ow_probe_batched(x, x, S, S, coef, 1.0, 0, n - 1, stp, live, x.clone())
+        return step
+
+    def batched_rules(lib):
+        # K4 b and K14 b (each with and without the . gp column) in the deep
+        # fold form that an n off a multiple of 16 takes (``batched_mma_rules``)
+        k = rosenbrock.value_and_grad.kernels
+        n = 4098
+        x = torch.ones((2, n), device="cuda")
+        S = torch.zeros((2, DEEP_VS_STATIC_M, n), dtype=torch.bfloat16, device="cuda")
+        stp = torch.zeros(2, device="cuda")
+        live = torch.ones(2, dtype=torch.bool, device="cuda")
+        for gp in (False, True):
+            k.trial_pair_gram_batched(x.clone(), x, x.clone(), stp, S, S.clone(), 1, live,
+                                      with_gp=gp)
+            k.owlqn_trial_pair_gram_batched(x.clone(), x, x.clone(), x.clone(), stp, 1.0, 0,
+                                            n - 1, S, S.clone(), 1, live, with_gp=gp)
+
     for vd, hd in DTYPES:
         for n in (4096, 4098):
             steps += [group(vd, hd, n, m) for m in (M, 3)] + [owlqn(vd, hd, n)]
@@ -1023,7 +1095,8 @@ def warm_steps() -> list:
     steps += [deep(*bf16, m) for m in (DEEP_VS_STATIC_M, 130)]
     steps += [deep(*bf16, DEEP_VS_STATIC_M, force=M),
               deep(*bf16, DEEP_VS_STATIC_M, force=DEEP_VS_STATIC_M)]
-    steps += [north_star, extras(4096), extras(4098), quartic]
+    steps += [north_star, extras(4096), extras(4098), quartic, batched_rules]
+    steps += [batched(m) for m in (M, DEEP_VS_STATIC_M, DEEP_M)]
     return steps
 
 
@@ -5083,6 +5156,108 @@ def phase_batched_fusion_kernels() -> dict:
     return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
 
 
+#: the batched tensor-core form under the solo form's rules (n a multiple of
+#: ``factory.MMA_ALIGN``, at most ``factory.MMA_MAX_CHUNKS`` chunks a
+#: program, the chunks' products carried in float32 adds): the depths, the
+#: (B, n) shapes (the batched main path's, its n off 16, and four
+#: instances at n = 2^24) and the gap to the float64 product it must keep
+#: (the solo forms' level)
+RULES_DEPTHS = (DEEP_VS_STATIC_M, DEEP_M)
+RULES_SHAPES = ((BATCH_B, BATCH_N), (BATCH_B, BATCH_N + 2), (4, N_BIG))
+RULES_GAP = 3e-7
+
+
+def rules_inputs(B: int, n: int, m: int, seed: int) -> dict:
+    """Seeded inputs of the batched epilogues at B x n with m bf16 ring rows
+    (made 16 rows of one instance at a time: at 4 x 2^24 x 80 a float32
+    draw of a whole ring would take 21 GB), every instance live, xp zero at
+    every 17th element."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    xp = rosenbrock.initial_point(n, torch.float32, "cuda")[None, :] + 0.1 * r(B, n)
+    xp[:, ::17] = 0.0
+    a = dict(xp=xp, d=0.1 * r(B, n), gp=r(B, n), pg=r(B, n),
+             stp=0.2 + torch.rand(B, generator=g, device="cuda"),
+             live=torch.ones(B, dtype=torch.bool, device="cuda"))
+    for ring in ("S", "Y"):
+        a[ring] = torch.empty((B, m, n), dtype=torch.bfloat16, device="cuda")
+        for b in range(B):
+            for j in range(0, m, 16):
+                a[ring][b, j:j + 16] = 0.1 * r(min(16, m - j), n)
+    return a
+
+
+def phase_batched_mma_rules() -> list:
+    """K4 b and K14 b with their . gp columns under the solo form's rules,
+    at ``RULES_DEPTHS`` and ``RULES_SHAPES``: the form the grid picks (the
+    tensor-core form at an n that is a multiple of 16, the deep fold form
+    at 2^14 + 2, as the solo launch picks at that n), its compiled
+    registers (a spill fails), and for the tensor-core form the chunks a
+    program sums (at most ``factory.MMA_MAX_CHUNKS``) and each instance's
+    SP and YP against the float64 product of its own operands
+    (``products_f64``; instances 0, B/2 and B - 1), normwise within
+    ``RULES_GAP``; then every compiled batched form's registers
+    (``batched_compiled``)."""
+    k = rosenbrock.value_and_grad.kernels
+    rows = []
+    for m in RULES_DEPTHS:
+        end = m - 3
+        for B, n in RULES_SHAPES:
+            a = rules_inputs(B, n, m, SEED + 22 + m)
+            x0, g0, pg0 = a["xp"].clone(), a["gp"].clone(), a["pg"].clone()
+            lo, hi = 5, n - 7
+            for ow in (False, True):
+                kern = k.owlqn_trial_pair_gram_batched if ow else k.trial_pair_gram_batched
+                if ow:
+                    a["xp"].copy_(x0)
+                    a["gp"].copy_(g0)
+                    a["pg"].copy_(pg0)
+                    out = kern(a["xp"], a["d"], a["gp"], a["pg"], a["stp"], 0.7, lo, hi,
+                               a["S"], a["Y"], end, a["live"], with_gp=True)
+                    SP, YP = out[3:5]
+                else:
+                    out = kern(a["xp"], a["d"], a["gp"], a["stp"], a["S"], a["Y"], end,
+                               a["live"], with_gp=True)
+                    SP, YP = out[4:6]
+                torch.cuda.synchronize()
+                f = kern.last_form
+                info = _compiled_info(f.compiled)
+                grid = factory.batched_epilogue_grid(B, n, m, torch.float32, torch.bfloat16)
+                want = "mma" if n % factory.MMA_ALIGN == 0 else "deep"
+                tag = f"{'K14b' if ow else 'K4b'} gp m={m} B={B} n={n}"
+                if f.form != want or grid.form != want or info["n_spills"]:
+                    raise AssertionError(f"{tag}: the {f.form} form ran ({want} wanted), {info}")
+                row = dict(kernel=f.kernel, m=m, B=B, n=n, form=f.form,
+                           programs_per_instance=f.programs, chunks_per_program=f.tiles,
+                           tile=f.T, **info)
+                if f.form == "mma":
+                    if f.tiles > factory.MMA_MAX_CHUNKS:
+                        raise AssertionError(f"{tag}: {f.tiles} chunks a program")
+                    gaps = []
+                    for b in sorted({0, B // 2, B - 1}):
+                        g = a["gp"][b]
+                        s = a["xp"][b] - x0[b] if ow else a["stp"][b] * a["d"][b]
+                        d0 = -a["pg"][b] if ow else -g
+                        want_p = products_f64(a["S"][b], a["Y"][b], s, g - g0[b], d0, g0[b], end)
+                        gaps.append((check(f"{tag} instance {b} SP vs float64", SP[b],
+                                           want_p[0], RULES_GAP)[1],
+                                     check(f"{tag} instance {b} YP vs float64", YP[b],
+                                           want_p[1], RULES_GAP)[1]))
+                        del want_p
+                    row.update(sp_gap=max(p for p, _ in gaps), yp_gap=max(q for _, q in gaps))
+                rows.append(row)
+                # the next launch starts from the same point and rings
+                a["xp"].copy_(x0)
+                a["gp"].copy_(g0)
+                del out, SP, YP
+            del a, x0, g0, pg0
+            torch.cuda.empty_cache()
+    emit(phase="batched_mma_rules", tol=RULES_GAP, chunks_max=factory.MMA_MAX_CHUNKS,
+         align=factory.MMA_ALIGN, rows=rows)
+    batched_compiled()
+    return rows
+
+
 def _batched_turns(name: str, params: LbfgsParams, path: tuple, unfused_path: tuple,
                    init: tuple = ()) -> dict:
     """The fused batched run (the objective's K15 b or K16 b) and, in turns
@@ -6494,6 +6669,133 @@ def _early_runs(params: LbfgsParams, mesh=None) -> dict:
     return out
 
 
+#: the generic objectives' sharded paths, under the local contract
+#: (``parallel.local_objective``: the objective gets the rank's shard and
+#: returns the whole fx and the shard's gradient): the generic Rosenbrock
+#: at n = 2^24 (f32, bf16 ring, More-Thuente, the step capped, 40
+#: iterations: K3 per iteration), the same damped for 20 (the composed
+#: damped branch: ``update_pair``, then K3) and the Poisson regression at
+#: its at-scale width (2048 x 2^20, X float32 from seed 0, c = 1 on [1, n),
+#: Armijo, m = 6, bf16 ring, 20 iterations: K11 once, K9 per trip, K10, K12
+#: and K13 per iteration); name -> (params, model, the kernels it launches)
+GENERIC_SHARDED = {
+    "generic_rosenbrock": (MAIN_PARAMS.replace(constrain_step_size=True, max_iterations=41),
+                           "rosenbrock", ("K3_combine",)),
+    "generic_rosenbrock_damped": (MAIN_PARAMS.replace(constrain_step_size=True, damping=True,
+                                                      max_iterations=21),
+                                  "rosenbrock", ("K3_combine",)),
+    "generic_poisson": (poisson_params(False, 20), "poisson",
+                        ("K9_owlqn_trial_step", "K10_pseudo_gradient_norm",
+                         "K11_pseudo_gradient", "K12_pair_gram_xg", "K13_combine_ow")),
+}
+
+
+def generic_collectives(params: LbfgsParams, k: int, neval: int) -> int:
+    """The collectives of a generic objective's run, as
+    ``tests/test_torch_sharded_generic.py`` pins them: two at the init
+    (three under OWL-QN), per search trip the objective's all-reduce and
+    g.d (and under OWL-QN the L1 term), per iteration the point's norms,
+    the pair + Gram pass and the combine (and under OWL-QN K10, damped
+    ``update_pair``'s products).  A run whose last search failed may take
+    another count at its end."""
+    ow, damped = params.orthantwise is not None, bool(params.damping)
+    return 2 + ow + (2 + ow) * (neval - 1) + (3 + ow + damped) * (k - 1)
+
+
+def generic_problem(model: str, dtype: torch.dtype, mesh=None) -> tuple:
+    """(objective, whole x0) of a generic sharded path in ``dtype``: the
+    generic Rosenbrock at n = 2^24, or the Poisson regression over X made
+    on the card in float32 from seed 0, on a mesh cut to this rank's column
+    block (``shard_vector``; the whole X freed) and then widened to
+    ``dtype``."""
+    if model == "rosenbrock":
+        return rosenbrock.generic_value_and_grad, rosenbrock.initial_point(N_BIG, dtype, "cuda")
+    X, y = logistic.synthetic(POISSON_NROW, POISSON_NCOL, seed=0, device="cuda")
+    if mesh is not None:
+        Xb = shard_vector(X, mesh)
+        del X
+        torch.cuda.empty_cache()
+        X = Xb
+    obj = logistic.make_objective(X.to(dtype), y.to(dtype))
+    del X
+    torch.cuda.empty_cache()
+    return obj, torch.zeros(POISSON_NCOL, dtype=dtype, device="cuda")
+
+
+def _generic_sharded_run(params: LbfgsParams, obj, x0: torch.Tensor, mesh=None) -> tuple:
+    """One ``minimize_jit`` of a generic objective, solo or (given ``mesh``)
+    on this rank's shard of x0: (state, seconds, launches, plain calls,
+    collectives past the init, gathers)."""
+    xs = x0 if mesh is None else shard_vector(x0, mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    out = []
+    with nullcontext() if mesh is None else kernels_on_mesh(mesh):
+        if mesh is not None:
+            mesh.reset_counts()
+        dt = profiling.timed(lambda: out.append(minimize_jit(params, xs, obj,
+                                                             return_state=True)), warmup=0)
+    coll = gathers = 0
+    if mesh is not None:
+        coll, gathers = mesh.collectives, mesh.gathers
+        if gathers:
+            raise AssertionError(f"{gathers} vector gathers inside a sharded run")
+    return out[0], dt, launches(), plain_calls(), coll, gathers
+
+
+def _early_generic(params: LbfgsParams, model: str, mesh=None) -> dict:
+    """k, evaluations and fx of a generic path's first 8 iterations at
+    epsilon 0 in float64 (float64 vectors and ring), solo or sharded."""
+    obj, x0 = generic_problem(model, torch.float64, mesh)
+    st = _generic_sharded_run(_early(params, torch.float64), obj, x0, mesh)[0]
+    out = dict(k=st.k, neval=st.prob.neval, fx=float(st.prob.fx))
+    del obj, x0, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _generic_world1(mesh) -> dict:
+    """``GENERIC_SHARDED`` on the world-size-1 mesh, each path once solo and
+    once sharded from the same x0 and data: k, evaluations, fx and x bit for
+    bit, the same launches, no plain version, the kernels launched, and the
+    collectives per iteration the formula's (``generic_collectives``).
+    Returns each path's solo run (iterations, evaluations, fx)."""
+    out = {}
+    for name, (params, model, kernels) in GENERIC_SHARDED.items():
+        obj, x0 = generic_problem(model, torch.float32)
+        st_s, dt_s, lc_s, pc_s, _, _ = _generic_sharded_run(params, obj, x0)
+        if model == "poisson":
+            del obj
+            torch.cuda.empty_cache()
+            obj, _ = generic_problem(model, torch.float32, mesh)
+        st_m, dt_m, lc_m, pc_m, coll, _ = _generic_sharded_run(params, obj, x0, mesh)
+        same = (st_s.k == st_m.k and st_s.prob.neval == st_m.prob.neval
+                and _bits(np.asarray(st_s.prob.fx)) == _bits(np.asarray(st_m.prob.fx))
+                and _bits(st_s.prob.x) == _bits(st_m.prob.x))
+        if not same or lc_s != lc_m:
+            raise AssertionError(
+                f"sharded_world1 {name}: k/neval/fx {st_m.k}/{st_m.prob.neval}/{st_m.prob.fx} "
+                f"against {st_s.k}/{st_s.prob.neval}/{st_s.prob.fx}, launches {lc_m} against "
+                f"{lc_s}")
+        _expect_on_card(f"sharded_world1 {name} (solo)", lc_s, pc_s, kernels)
+        _expect_on_card(f"sharded_world1 {name}", lc_m, pc_m, kernels)
+        formula = generic_collectives(params, st_m.k, st_m.prob.neval)
+        if coll != formula and st_m.ls_status == 0:
+            raise AssertionError(f"sharded_world1 {name}: {coll} collectives, the formula "
+                                 f"{formula}")
+        iters = st_m.k - 1
+        out[name] = dict(iters=iters, evals=st_s.prob.neval, fx=float(st_s.prob.fx))
+        emit(phase="sharded_world1_generic", path=name, world=1, backend="nccl",
+             iters=iters, evals=st_m.prob.neval, fx=float(st_m.prob.fx), status=st_m.status,
+             bit_for_bit=True, collectives_per_iter=coll / iters,
+             collectives_formula_per_iter=formula / iters,
+             ms_per_iter_solo=1e3 * dt_s / iters, ms_per_iter_mesh=1e3 * dt_m / iters,
+             launches={k: lc_m[k] for k in kernels})
+        del obj, x0, st_s, st_m
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_sharded_world1() -> dict:
     """The main path and the OWL-QN main path at n = 2^24 under
     ``kernels_on_mesh`` of an NCCL group of world size 1 in this process
@@ -6502,7 +6804,10 @@ def phase_sharded_world1() -> dict:
     Prints the collectives per iteration and the ms per iteration of both
     (runs in turns, ``WORLD1_TURNS``: their medians, their spreads, and
     whether the mesh's overhead exceeds both spreads), the all-reduce ms,
-    and where one all-reduce spends its time (``_collective_probe``)."""
+    and where one all-reduce spends its time (``_collective_probe``).
+    Then the generic objectives under the local contract
+    (``_generic_world1``: one run each, solo and sharded, bit for bit),
+    whose solo runs it returns under "generic"."""
     init_distributed(init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
     out = {}
     try:
@@ -6557,6 +6862,7 @@ def phase_sharded_world1() -> dict:
         out["collective_probe"] = _collective_probe(mesh)
         emit(phase="sharded_world1_collective", world=1, backend="nccl",
              **out["collective_probe"])
+        out["generic"] = _generic_world1(mesh)
     finally:
         dist.destroy_process_group()
     return out
@@ -6564,7 +6870,15 @@ def phase_sharded_world1() -> dict:
 
 def phase_sharded_two_rank(solo: dict) -> dict:
     """Two spawned ranks of a gloo group, both on cuda:0, n = 2^24 in all
-    (2^23 each): the main, OWL-QN and damped main paths.  Each rank's runs
+    (2^23 each): the main, OWL-QN and damped main paths, and the generic
+    objectives under the local contract (``GENERIC_SHARDED``; the Poisson
+    regression with each rank's 2048 x 2^19 column block of X, the whole X
+    freed): both ranks bit for bit alike, their kernels launched and no
+    plain version, no gather, the collectives the formula's, fx within rel
+    1e-3 of the world-size-1 phase's solo runs (``solo["generic"]``) and
+    the first 8 iterations in float64 the solo run's steps; then the
+    sharded checkpoint (``_checkpoint_save``, ``_checkpoint_resume``).
+    The factory paths:  Each rank's runs
     must agree bit for bit with the other's (iterations, evaluations, fx,
     the gathered x), launch K1, K2 (K8 under OWL-QN), K4 (K14) and K15
     (K16) on the card and no plain version, and hold every mesh form it
@@ -6643,9 +6957,44 @@ def phase_sharded_two_rank(solo: dict) -> dict:
             launches=[{k: v for k, v in rk[name]["launches"].items() if v} for rk in ranks])
         emit(phase="sharded_two_rank", path=name, n=N_BIG, world=2, backend="gloo",
              device="cuda:0 (both ranks)", **out[name])
-    for f in outdir.iterdir():
-        f.unlink()
-    outdir.rmdir()
+    for name, (params, model, kernels) in GENERIC_SHARDED.items():
+        a, b = (rk[name] for rk in ranks)
+        keys = ("k", "neval", "status", "fx_hex", "x_sha")
+        if any(a[k] != b[k] for k in keys) or a["early"] != b["early"]:
+            raise AssertionError(f"sharded_two_rank {name}: the ranks part: "
+                                 f"{[{k: rk[name][k] for k in (*keys, 'early')} for rk in ranks]}")
+        for r, rk in enumerate(ranks):
+            _expect_on_card(f"sharded_two_rank {name} rank {r}", rk[name]["launches"],
+                            rk[name]["plain_calls"], kernels)
+            if rk[name]["gathers"] or (rk[name]["collectives"] != rk[name]["collectives_formula"]
+                                       and rk[name]["ls_status"] == 0):
+                raise AssertionError(f"sharded_two_rank {name} rank {r}: {rk[name]['gathers']} "
+                                     f"gathers, {rk[name]['collectives']} collectives against "
+                                     f"the formula's {rk[name]['collectives_formula']}")
+        ref = solo["generic"][name]
+        iters = a["k"] - 1
+        rel = abs(a["fx"] - ref["fx"]) / (abs(ref["fx"]) or 1.0)
+        e, e_s = a["early"]["f64"], _early_generic(params, model)
+        rel64 = abs(e["fx"] / e_s["fx"] - 1)
+        if (e["k"], e["neval"]) != (e_s["k"], e_s["neval"]) or not rel64 <= EARLY_F64_REL:
+            raise AssertionError(f"sharded_two_rank {name}: float64, after 8 iterations {e} "
+                                 f"against the solo run's {e_s}")
+        if not rel <= 1e-3:
+            raise AssertionError(f"sharded_two_rank {name}: {iters} iterations to fx {a['fx']} "
+                                 f"against the solo run's {ref['iters']} to {ref['fx']}")
+        out[name] = dict(
+            iters=iters, iters_solo=ref["iters"], evals=a["neval"], evals_solo=ref["evals"],
+            fx=a["fx"], fx_solo=ref["fx"], rel_fx_vs_solo=rel, status=a["status"],
+            early_f64=dict(k_neval=[e["k"], e["neval"]], k_neval_solo=[e_s["k"], e_s["neval"]],
+                           rel_fx=rel64), ranks_bit_for_bit=True,
+            collectives_per_iter=a["collectives"] / iters,
+            collectives_formula_per_iter=a["collectives_formula"] / iters,
+            ms_per_iter=[rk[name]["ms_per_iter"] for rk in ranks],
+            launches=[{k: rk[name]["launches"][k] for k in kernels} for rk in ranks])
+        emit(phase="sharded_two_rank_generic", path=name, world=2, backend="gloo",
+             device="cuda:0 (both ranks)", **out[name])
+    out["checkpoint"] = _checkpoint_resume(outdir, ranks)
+    shutil.rmtree(outdir)
     return out
 
 
@@ -6670,7 +7019,9 @@ def _gidx_body():
 
 def _mesh_kernel_checks(mesh) -> dict:
     """Every mesh form the sharded paths launch (K1, K2, K4 +-gp, K8 in
-    both forms, K10, K14 +-gp, K15 +-fix, K16), the quadratic's K1 and K4
+    both forms, K10, K14 +-gp, K15 +-fix, K16; the generic objectives' K3,
+    K9, K11, K12 +-gp and K13; K6, which the trial-only route's damped
+    capped combine launches), the quadratic's K1 and K4
     with its extras passed whole (each rank narrows them to its shard) and
     a body that reads the global index beyond its parity (K1, K2), each
     called under the mesh on this rank's shard of seeded inputs at n =
@@ -6681,9 +7032,9 @@ def _mesh_kernel_checks(mesh) -> dict:
     that starts and ends in different shards and on one inside rank 1's
     shard only.  Raises on any mismatch; returns the offset and each
     case's largest relative scalar difference.  At m = 80 ring rows (n =
-    2^20; ``_m80``) K4 and K14 (the tensor-core form) and the deep K15 and
-    K16 take the same checks, rank 1's kernels with the shard's offset
-    compiled in (``SHARD``)."""
+    2^20; ``_m80``) K4 and K14 (the tensor-core form), the deep K15 and
+    K16 and K12 +-gp take the same checks, rank 1's kernels with the
+    shard's offset compiled in (``SHARD``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
 
     def r(*shape, s=1.0):
@@ -6756,6 +7107,29 @@ def _mesh_kernel_checks(mesh) -> dict:
                                                   v.S, v.Y, 2, with_gp=gp), (0, 1, 2),
                           {**ow_epi_b, **({8: MESH_NORM, 9: MESH_DOT} if gp else {})}, True))
 
+    # the composed paths' mesh forms (generic objectives and the trial-only
+    # route): K3, K6, K12 with and without its . gp column, and K9, K11 and
+    # K13 on both windows
+    cases += [
+        ("K3_combine", fused.combine, lambda v: fused.combine(v.d, v.S, v.Y, gamma, v.cs, v.cy),
+         (0,), {1: MESH_NORM, 2: MESH_DOT}, False),
+        ("K6_combine_fix", fused.combine_fix, lambda v: fused.combine_fix(
+            v.d, v.S, v.Y, gamma, v.cs, v.cy, *fix), (0,), {1: MESH_NORM, 2: MESH_DOT}, True),
+        *[(f"K12_pair_gram_xg{'_gp' if gp else ''}", fused.pair_gram_xg, lambda v, gp=gp:
+           fused.pair_gram_xg(v.x, v.xp, v.gx, v.gp, v.pg, v.S, v.Y, 2, with_gp=gp), (),
+           {0: MESH_GRAM, 1: MESH_GRAM, **({2: MESH_NORM, 3: MESH_DOT} if gp else {})}, True)
+          for gp in (False, True)],
+    ]
+    for w, (lo, hi) in windows.items():
+        cases += [
+            (f"K9_owlqn_trial_step_{w}", fused.owlqn_trial_step, lambda v, lo=lo, hi=hi: (
+                fused.owlqn_trial_step(v.xp, v.d, v.wp, 0.3, lo, hi),), (0,), {}, False),
+            (f"K11_pseudo_gradient_{w}", fused.pseudo_gradient, lambda v, lo=lo, hi=hi: (
+                fused.pseudo_gradient(v.xz, v.gx, c, lo, hi),), (0,), {}, False),
+            (f"K13_combine_ow_{w}", fused.combine_ow, lambda v, lo=lo, hi=hi: fused.combine_ow(
+                v.pg, v.S, v.Y, -gamma, v.cs, v.cy, lo, hi), (0,),
+             {1: MESH_NORM, 2: MESH_NORM, 3: MESH_DOT}, False)]
+
     def plain_total() -> int:
         return (sum(plain_calls().values())
                 + sum(getattr(o.kernels, ref).calls for o in (quad, gobj) for ref in FACTORY_REFS))
@@ -6781,6 +7155,10 @@ def _mesh_kernel_checks(mesh) -> dict:
         ("K16_combine_ow_probe_m80", k.combine_ow_probe, lambda v: k.combine_ow_probe(
             v.pg, v.xz, v.S, v.Y, -gamma, v.cs, v.cy, c, lo_d, hi_d, 0.3), (0,),
          {1: MESH_NORM, 2: MESH_NORM, 3: MESH_DOT, 4: MESH_NORM, 5: MESH_DOT}, False),
+        *[(f"K12_pair_gram_xg{'_gp' if gp else ''}_m80", fused.pair_gram_xg, lambda v, gp=gp:
+           fused.pair_gram_xg(v.x, v.xp, v.gx, v.gp, v.pg, v.S, v.Y, 2, with_gp=gp), (),
+           {0: MESH_GRAM, 1: MESH_GRAM, **({2: MESH_NORM, 3: MESH_DOT} if gp else {})}, True)
+          for gp in (False, True)],
     ]
 
     res = _mesh_cases(mesh, a, cases, off, n_loc, plain_total)
@@ -6817,7 +7195,8 @@ def _mesh_cases(mesh, a: dict, cases: list, off: int, n_loc: int, plain_total) -
         if wrapper.launches != launched + 1 or plain_total() != plain:
             raise AssertionError(f"mesh check {name}: {wrapper.launches - launched} launches, "
                                  f"{plain_total() - plain} plain calls")
-        if name.endswith("_m80") and wrapper.deep_launches != deep + 1:
+        if (name.endswith("_m80") and hasattr(wrapper, "deep_launches")
+                and wrapper.deep_launches != deep + 1):
             raise AssertionError(f"mesh check {name}: the deep form did not launch")
         # K4 and K14 at 80 rows of bf16: the tensor-core form, spilling nothing
         # (rank 1's with the shard's offset compiled in)
@@ -6843,6 +7222,91 @@ def _mesh_cases(mesh, a: dict, cases: list, off: int, n_loc: int, plain_total) -
         res[name] = worst
         del whole, part, single, got
     return res
+
+
+#: the sharded checkpoint: the main path at n = 2^22, saved by both ranks
+#: at iteration ``CKPT_AT`` and resumed in one process with no mesh
+CKPT_N, CKPT_AT = 1 << 22, 10
+
+
+def _until(state: LbfgsState, k: int | None = None) -> None:
+    """Propagate ``state`` to iteration k, or to its end."""
+    while not state.is_converged() and (k is None or state.state.k < k):
+        state.propagate()
+
+
+def _checkpoint_save(mesh, outdir: str) -> dict:
+    """The main path at ``CKPT_N`` on this rank's shard through
+    ``LbfgsState`` to iteration ``CKPT_AT``, saved with the sharded
+    ``save_state`` under the mesh into OUTDIR/ckpt (the gathers of the
+    save counted); rank 0 then writes ``gather_state``'s whole state with
+    no mesh (OUTDIR/ckpt_whole.npz), outside the run."""
+    x0 = rosenbrock.initial_point(CKPT_N, torch.float32, "cuda")
+    reset_counts()
+    with kernels_on_mesh(mesh):
+        state = LbfgsState.build(MAIN_PARAMS, shard_vector(x0, mesh), default_evaluate())
+        _until(state, CKPT_AT)
+        mesh.reset_counts()
+        save_state(os.path.join(outdir, "ckpt"), state.state)
+        gathers = mesh.gathers
+    lc, pc = launches(), plain_calls()
+    whole = gather_state(state.state, mesh)
+    if mesh.rank == 0:
+        save_state(os.path.join(outdir, "ckpt_whole.npz"), whole)
+    return dict(k=int(state.state.k), save_gathers=gathers, launches=lc, plain_calls=pc)
+
+
+def _checkpoint_resume(outdir, ranks: list) -> dict:
+    """The two-rank phase's checkpoint, loaded with no mesh in this process:
+    the sharded checkpoint (OUTDIR/ckpt) and the gathered whole state
+    (OUTDIR/ckpt_whole.npz) into fresh states of the main path at
+    ``CKPT_N``, every tensor bit for bit alike; the two runs resumed from
+    them to their ends bit for bit alike (k, evaluations, fx, x) on the
+    kernels, and ending as the same path's solo run does (the same k, fx
+    rel 1e-3)."""
+    for r, rk in enumerate(ranks):
+        c = rk["checkpoint"]
+        if c["k"] != CKPT_AT or c["save_gathers"]:
+            raise AssertionError(f"checkpoint: rank {r} saved at k = {c['k']} with "
+                                 f"{c['save_gathers']} gathers")
+        _expect_on_card(f"checkpoint rank {r}", c["launches"], c["plain_calls"], PLAIN_PATH)
+    x0 = rosenbrock.initial_point(CKPT_N, torch.float32, "cuda")
+    states = {}
+    for key, path in (("sharded", outdir / "ckpt"), ("whole", outdir / "ckpt_whole.npz")):
+        like = LbfgsState.build(MAIN_PARAMS, x0, default_evaluate())
+        states[key] = (like, load_state(str(path), like.state))
+    if _state_bits(states["sharded"][1]) != _state_bits(states["whole"][1]):
+        raise AssertionError("checkpoint: the sharded checkpoint's state is not the gathered "
+                             "state bit for bit")
+    ends = {}
+    for key, (state, st) in states.items():
+        state.restore(st)
+        reset_counts()
+        _until(state)
+        # past the init: no K1
+        _expect_on_card(f"checkpoint resumed from {key}", launches(), plain_calls(),
+                        PLAIN_PATH[1:])
+        s = state.state
+        ends[key] = dict(k=s.k, neval=s.prob.neval, fx=float(s.prob.fx),
+                         fx_hex=float(s.prob.fx).hex(), x=s.prob.x)
+    solo = LbfgsState.build(MAIN_PARAMS, x0, default_evaluate())
+    _until(solo)
+    a, b = ends["sharded"], ends["whole"]
+    if (a["k"], a["neval"], a["fx_hex"]) != (b["k"], b["neval"], b["fx_hex"]) or not same_bits(
+            a["x"], b["x"]):
+        raise AssertionError(f"checkpoint: the resumed runs part: {a['k']}/{a['fx']} against "
+                             f"{b['k']}/{b['fx']}")
+    fx_solo = float(solo.state.prob.fx)
+    rel = abs(a["fx"] - fx_solo) / (abs(fx_solo) or 1.0)
+    if a["k"] != solo.state.k or not rel <= 1e-3:
+        raise AssertionError(f"checkpoint: resumed to k = {a['k']}, fx {a['fx']}; the solo "
+                             f"run {solo.state.k}, {fx_solo}")
+    out = dict(n=CKPT_N, saved_at=CKPT_AT, world_saved=2, loaded_bit_for_bit=True,
+               resumed_bit_for_bit=True, k=a["k"], evals=a["neval"], fx=a["fx"],
+               k_solo=solo.state.k, fx_solo=fx_solo, rel_fx_vs_solo=rel,
+               files=sorted(f.name for f in (outdir / "ckpt").iterdir()))
+    emit(phase="sharded_checkpoint", **out)
+    return out
 
 
 def sharded_rank(rank: int, port: int, outdir: str) -> None:
@@ -6876,11 +7340,198 @@ def sharded_rank(rank: int, port: int, outdir: str) -> None:
                 early=_early_runs(params, mesh))
             del st, x, x0
             torch.cuda.empty_cache()
+        for name, (params, model, _) in GENERIC_SHARDED.items():
+            obj, x0 = generic_problem(model, torch.float32, mesh)
+            st, dt, lc, pc, coll, gathers = _generic_sharded_run(params, obj, x0, mesh)
+            x = gather_vector(st.prob.x, mesh)
+            res[name] = dict(
+                k=st.k, neval=st.prob.neval, status=st.status, fx=float(st.prob.fx),
+                fx_hex=float(st.prob.fx).hex(),
+                x_sha=hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest(),
+                launches=lc, plain_calls=pc, collectives=coll, gathers=gathers,
+                ls_status=int(st.ls_status),
+                collectives_formula=generic_collectives(params, st.k, st.prob.neval),
+                ms_per_iter=1e3 * dt / (st.k - 1))
+            del obj, x0, st, x
+            torch.cuda.empty_cache()
+            res[name]["early"] = {"f64": _early_generic(params, model, mesh)}
+        res["checkpoint"] = _checkpoint_save(mesh, outdir)
         res["kernel_checks"] = _mesh_kernel_checks(mesh)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+
+
+# ---------------------------------------------------------------------------
+# the port's example scripts (examples/*_torch.py) on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+
+
+def _example(name: str):
+    if EXAMPLES_DIR not in sys.path:
+        sys.path.insert(0, EXAMPLES_DIR)
+    return importlib.import_module(name)
+
+
+def _near(name: str, x: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    gap = float(torch.max(torch.abs(x - want) - rtol * torch.abs(want)))
+    if not gap <= atol:
+        raise AssertionError(f"example {name}: off its oracle by {gap} beyond rtol {rtol}")
+    return gap
+
+
+def _sample_ok(rep) -> dict:
+    """The reference's sample: converged to Rosenbrock's minimum."""
+    if rep.status != Status.CONVERGED or not rep.fx <= 1e-10:
+        raise AssertionError(f"example sample: status {rep.status}, fx {rep.fx}")
+    _near("sample", rep.x, torch.ones_like(rep.x), 0.0, 1e-5)
+    return dict(niter=rep.niter, fx=rep.fx)
+
+
+def _lj_ok(rep) -> dict:
+    """The relaxed LJ38 energy ``phase_lj38`` checks."""
+    if abs(rep.fx - (-164.2701507)) > 1e-4:
+        raise AssertionError(f"example lj: energy {rep.fx} after {rep.niter} iterations")
+    return dict(niter=rep.niter, fx=rep.fx)
+
+
+def _owlqn_logistic_ok(rep) -> dict:
+    """The 500 x 21 float64 fit, against the same script on the CPU."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = _example("owlqn_logistic_torch").main(["--device", "cpu"])
+    rel = abs(rep.fx / cpu.fx - 1)
+    if (rep.niter, rep.neval, rep.status) != (cpu.niter, cpu.neval, cpu.status) or rel > 1e-9:
+        raise AssertionError(f"example owlqn_logistic: {rep.niter}/{rep.neval}/{rep.fx} on the "
+                             f"card, {cpu.niter}/{cpu.neval}/{cpu.fx} on the CPU")
+    return dict(niter=rep.niter, neval=rep.neval, fx=rep.fx, rel_fx_vs_cpu=rel,
+                nnz=int((rep.x != 0).sum()))
+
+
+def _owlqn_wide_fx_ok(rep) -> dict:
+    """CONVERGED with a float64 fx over float32 vectors."""
+    if rep.status != Status.CONVERGED or type(rep.fx) is not np.float64:
+        raise AssertionError(f"example owlqn_wide_fx: status {rep.status}, fx {rep.fx!r}")
+    return dict(niter=rep.niter, neval=rep.neval, fx=float(rep.fx))
+
+
+def _separable_ok(reps) -> dict:
+    """The three runs at their oracles (``tests/test_factory_objective.py``'s
+    bounds): the quadratic's and the Huber loss's x = t at rtol and atol
+    1e-3, the LASSO's soft threshold at rtol 1e-2, atol 2e-3."""
+    n = reps[0].x.shape[0]
+    rng = np.random.RandomState(0)
+    w = torch.from_numpy((0.5 + np.abs(rng.randn(n))).astype(np.float32)).cuda()
+    t = torch.from_numpy(rng.randn(n).astype(np.float32)).cuda()
+    star = torch.sign(t) * torch.clamp(torch.abs(t) - 0.3 / w, min=0.0)
+    gaps = [_near("separable quadratic", reps[0].x, t, 1e-3, 1e-3),
+            _near("separable lasso", reps[1].x, star, 1e-2, 2e-3),
+            _near("separable huber", reps[2].x, t, 1e-3, 1e-3)]
+    return dict(niter=[r.niter for r in reps], fx=[float(r.fx) for r in reps],
+                oracle_gaps=gaps)
+
+
+#: the in-process examples: (the kernels each must launch, its check)
+EXAMPLES = {
+    "sample_torch": (("K1_trial", "K2_probe", "K4_trial_pair_gram", "K3_combine"), _sample_ok),
+    "lj_torch": (("K3_combine",), _lj_ok),
+    "owlqn_logistic_torch": (POISSON_PATH + ("K10_pseudo_gradient_norm", "K13_combine_ow"),
+                             _owlqn_logistic_ok),
+    "owlqn_wide_fx_torch": (("K7_owlqn_trial", "K8_owlqn_probe", "K10_pseudo_gradient_norm",
+                             "K14_owlqn_trial_pair_gram", "K16_combine_ow_probe"),
+                            _owlqn_wide_fx_ok),
+    "separable_torch": (("K1_trial_ex", "K2_probe_ex", "K4_trial_pair_gram_ex",
+                         "K15_combine_probe_ex", "K8_owlqn_probe_ex",
+                         "K14_owlqn_trial_pair_gram_ex", "K16_combine_ow_probe_ex"),
+                        _separable_ok),
+}
+#: the sharded example's kernels (the factory run capped: K1, K2, K4, K3;
+#: the generic run K3)
+SHARDED_EXAMPLE_KERNELS = ("K1_trial", "K2_probe", "K4_trial_pair_gram", "K3_combine")
+
+
+def _run_example(name: str, argv: list) -> tuple:
+    """``examples/<name>.py``'s ``main(argv)`` with its printout captured,
+    counting the launches and plain calls of the factory objectives it
+    builds beside this module's (``EXTRAS`` for the run): (its result,
+    seconds, launches, plain calls, its last printed lines)."""
+    mod = _example(name)
+    made, orig = [], factory.make_fused_objective
+
+    def recording(*a, **kw):
+        obj = orig(*a, **kw)
+        made.append(obj)
+        return obj
+
+    factory.make_fused_objective = recording
+    if hasattr(mod, "make_fused_objective"):
+        mod.make_fused_objective = recording
+    reset_counts()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            rep = mod.main(argv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        for i, obj in enumerate(made):
+            EXTRAS[f"example_{i}"] = obj
+        lc, pc = launches(), plain_calls()
+    finally:
+        factory.make_fused_objective = orig
+        if hasattr(mod, "make_fused_objective"):
+            mod.make_fused_objective = orig
+        for i in range(len(made)):
+            EXTRAS.pop(f"example_{i}", None)
+    return rep, dt, lc, pc, buf.getvalue().strip().splitlines()[-3:]
+
+
+def example_sharded() -> None:
+    """``examples/sharded_giant_torch.py`` in this process, its rank taken
+    from the environment (as ``torchrun`` sets it): prints one JSON line of
+    its reports, launches and plain calls."""
+    reps, dt, lc, pc, last = _run_example("sharded_giant_torch", [])
+    print(json.dumps(dict(reports=[dict(niter=r.niter, neval=r.neval, fx=float(r.fx),
+                                        status=r.status) for r in reps],
+                          seconds=dt, launches=lc, plain_calls=pc, last_lines=last)))
+
+
+def phase_examples() -> dict:
+    """The port's example scripts on the card at their default sizes: five
+    in this process (``EXAMPLES``: each launches its kernels and calls no
+    plain version, and ends as its JAX script says it should), and
+    ``sharded_giant_torch.py`` as a subprocess at world size 1 over NCCL
+    (its rendezvous in the environment, as ``torchrun`` sets it): both of
+    its runs (the factory Rosenbrock and the generic one under the local
+    contract) at n = 2^22 finite, its kernels launched, no plain version."""
+    out = {}
+    for name, (kernels, ok) in EXAMPLES.items():
+        rep, dt, lc, pc, last = _run_example(name, [])
+        _expect_on_card(f"example {name}", lc, pc, kernels)
+        out[name] = dict(seconds=dt, **ok(rep))
+        emit(phase="examples", example=name, **out[name], printed=last,
+             launches={k: lc[k] for k in kernels})
+        del rep
+        torch.cuda.empty_cache()
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--example-sharded"],
+                       env=env, capture_output=True, text=True, timeout=SHARDED_TIMEOUT)
+    if p.returncode != 0:
+        raise AssertionError(f"example sharded_giant_torch exited {p.returncode}:\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    res = json.loads(p.stdout.strip().splitlines()[-1])
+    _expect_on_card("example sharded_giant_torch", res["launches"], res["plain_calls"],
+                    SHARDED_EXAMPLE_KERNELS)
+    if not all(np.isfinite(r["fx"]) for r in res["reports"]) or len(res["reports"]) != 2:
+        raise AssertionError(f"example sharded_giant_torch: {res['reports']}")
+    out["sharded_giant_torch"] = dict(reports=res["reports"], seconds=res["seconds"])
+    emit(phase="examples", example="sharded_giant_torch", world=1, backend="nccl",
+         reports=res["reports"], seconds=res["seconds"], printed=res["last_lines"],
+         launches={k: res["launches"][k] for k in SHARDED_EXAMPLE_KERNELS})
+    return out
 
 
 def main() -> None:
@@ -6891,9 +7542,14 @@ def main() -> None:
                     help=argparse.SUPPRESS)
     ap.add_argument("--warm", nargs=2, type=int, metavar=("PART", "PARTS"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--example-sharded", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.warm:
         warm_part(*args.warm)
+        return
+    if args.example_sharded:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        example_sharded()
         return
     if args.sharded_rank:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6957,6 +7613,7 @@ def main() -> None:
     batched_ow = run(phase_batched_owlqn_kernels)
     lc_batched_ow, batched_ow_out = run(phase_batched_owlqn_main_path, batched_out)
     batched_fu = run(phase_batched_fusion_kernels)
+    run(phase_batched_mma_rules)
     lc_bu, bu_out = run(phase_batched_uncapped_main_path, batched_out)
     lc_bowu, bowu_out = run(phase_batched_owlqn_uncapped_main_path, batched_ow_out)
     lc_bdeep = run(phase_batched_deep)
@@ -6973,9 +7630,10 @@ def main() -> None:
     lc_bscan = run(phase_batched_scan_main_path)
     run(phase_batched_float16_main_path)
     lc_btrial = run(phase_batched_trial_route_main_path)
-    run(phase_sharded_world1)
+    world1 = run(phase_sharded_world1)
     run(phase_sharded_two_rank, {"main_path": main_out, "owlqn_main_path": ow_out,
-                                 "damped_main_path": d_out})
+                                 "damped_main_path": d_out, "generic": world1["generic"]})
+    run(phase_examples)
     for key in ("errs", "times", "bounds", "timed_by"):
         k[key].update(deep[key])
         k[key].update(batched[key])

@@ -93,9 +93,22 @@ launch for its scalars::
     # report.x is this rank's slice; fx, the norms and the counts are global
 
 The objectives built by ``ops.factory.make_fused_objective`` run sharded
-(Rosenbrock and the separable models); on a mesh a generic objective, the
-native backend, the batched runner and checkpoints raise
+(Rosenbrock and the separable models), and so does a generic objective
+that keeps the local contract (``parallel.local_objective``): handed this
+rank's shard, it returns the whole vector's fx, the same bits on every rank
+(its partial summed with ``parallel.mesh_sum``), and the shard's gradient.
+``models.rosenbrock.generic_value_and_grad`` and the Poisson regression
+(``models.logistic.make_objective`` over this rank's column block of X,
+``parallel.shard_vector``) keep it.  Checkpoints save and load on a mesh,
+each rank its own element range, and move between world sizes
+(``utils.checkpoint``).  On a mesh a generic objective without the
+contract, the native backend and the batched runner raise
 ``NotImplementedError``.
+
+The user programs are ``examples/*_torch.py`` (the sample run, LJ38, the
+OWL-QN Poisson fit, wide-fx OWL-QN, the factory's separable objectives and
+the sharded giant vector, under ``torchrun``): each runs on the card, or
+on the CPU with ``--device cpu``.
 
 Scenario batches (``Lbfgs.minimize_batched``, ``batched``): B independent
 instances of one objective as a [B, n] tensor, advanced together

@@ -8,7 +8,15 @@ a [nrow, ncol] design matrix X and a count vector y,
 
 The objective is generic: it carries no fused trial, so under OWL-QN the
 solver takes the composed branch (K9 per trial point, K10, K12 and K13
-per iteration, K11 at the start).  Its two products with X are plain
+per iteration, K11 at the start).  It keeps the mesh's local contract
+(``ops.collective.local_objective``) with X split by columns: on a mesh X
+is this rank's column block (``parallel.shard_vector``) and beta its
+shard, each rank forms its partial X_local . beta_local, one all-reduce
+adds the partials with the shard's sum of beta^2 (the ``prec`` term), and
+fx and the residual follow from the reduced X . beta on every rank alike;
+the gradient X_local^T r + prec*beta_local is the shard's.  With no mesh
+that all-reduce is the identity and the objective is the single-process
+one bit for bit.  Its two products with X are plain
 matrix products, as the JAX package leaves them to XLA outside any
 Pallas kernel: ``torch.matmul`` in full float32 (the port does not touch
 the TF32 or matmul-precision settings).
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from ..ops import fused
+from ..ops.collective import active_mesh, local_objective, mesh_sum
 
 
 def make_objective(X: torch.Tensor, y: torch.Tensor, prec: float = 0.0,
@@ -69,12 +78,20 @@ def make_objective(X: torch.Tensor, y: torch.Tensor, prec: float = 0.0,
     def vag(beta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         if beta.dtype != y.dtype:
             raise ValueError(f"beta {beta.dtype} against y {y.dtype}")
+        if beta.shape[0] != X.shape[1]:
+            where = " (on a mesh X is this rank's column block: parallel.shard_vector)" \
+                if active_mesh() is not None else ""
+            raise ValueError(f"beta has {beta.shape[0]} elements against X's {X.shape[1]} "
+                             f"columns{where}")
         if narrow:
             xbeta = bf16_matvec(X, beta, Xw)
         else:
             xbeta = torch.matmul(X, beta)
+        # the ranks' partials of X . beta and of beta . beta in one
+        # collective (the identity with no mesh)
+        xbeta, bb = mesh_sum(xbeta, torch.sum(beta * beta))
         exp_xbeta = torch.exp(xbeta)
-        fx = -fused.obj_sum(y * xbeta - exp_xbeta) + 0.5 * prec * torch.sum(beta * beta)
+        fx = -fused.obj_sum(y * xbeta - exp_xbeta) + 0.5 * prec * bb
         r = y - exp_xbeta
         if narrow:
             xtr = bf16_matvec(X.T, r, None if Xw is None else Xw.T)
@@ -82,8 +99,7 @@ def make_objective(X: torch.Tensor, y: torch.Tensor, prec: float = 0.0,
             xtr = torch.matmul(X.T, r)
         return fx, -xtr + prec * beta
 
-    vag.__lbfgs_value_and_grad__ = True
-    return vag
+    return local_objective(vag)
 
 
 def bf16_matvec(A: torch.Tensor, v: torch.Tensor, Aw: torch.Tensor | None = None):

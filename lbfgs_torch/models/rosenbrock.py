@@ -10,7 +10,11 @@ Per-pair form with a = 1, b = 10 (squared inside), matching the reference
 ``value_and_grad`` carries the fused-kernel protocol generated by
 ``ops.factory.make_fused_objective`` from the per-block Triton body
 ``_rosenbrock_block.rosen_block``; ``_plain_value_and_grad`` is the plain
-torch evaluation, which the kernels' plain versions use.
+torch evaluation, which the kernels' plain versions use (on a mesh their
+dispatchers sum its partials over the ranks, so it never reduces on its
+own).  ``generic_value_and_grad`` is the generic form, with no kernel hooks,
+that keeps the mesh's local contract (``ops.collective.local_objective``):
+the pair view of this rank's shard, and fx summed over the ranks.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import factory, fused
+from ..ops.collective import local_objective, mesh_sum
 
 
 def _plain_value_and_grad(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -32,6 +37,22 @@ def _plain_value_and_grad(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ge = -2.0 * (xe * go + t1)
     fx = fused.obj_sum(t1 * t1 + t2 * t2)
     return fx, torch.stack([ge, go], dim=1).reshape(-1)
+
+
+@local_objective
+def generic_value_and_grad(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Extended Rosenbrock as a generic objective (the JAX package's jnp
+    ``value_and_grad``, ``lbfgs_tpu/models/rosenbrock.py:31-55``) under the
+    local contract: on a mesh x is this rank's shard, the pairs (x_i,
+    x_{i+1}) start at even i, so a shard of even length holds whole pairs,
+    and fx is the shards' sums added over the ranks in one collective, in
+    the objective scalar's dtype (float64 under ``params.fx_wide``); the
+    gradient is the shard's.  With no mesh it is ``_plain_value_and_grad``
+    bit for bit.  A shard of odd length raises ``ValueError``, as an odd n
+    does (``_check_even``)."""
+    fx, g = _plain_value_and_grad(x)
+    (fx,) = mesh_sum(fx)
+    return fx, g
 
 
 def _check_even(n: int) -> None:

@@ -210,9 +210,10 @@ partials, but K4 b's and K14 b's.
   ``owlqn_trial_pair_gram_mma_batched_kernel``): per chunk of K elements
   the ring rows are one ``tl.dot`` operand ([RP, K] bf16, exact), the
   pair's vectors y, s, d0 and gp, each split into three bf16 parts that
-  carry float32's 24 bits, the other ([K, 16]), and the [RP, 16] float32
-  sums stay in the MMA's registers across the program's chunks; each
-  product is (p1 + p2) + p3 at the end.  That takes the 6 (8) per-thread
+  carry float32's 24 bits, the other ([K, 16]); each chunk's [RP, 16]
+  float32 products are added to the program's running sums by float32
+  adds (``CARRY_RN``, below), and each product is (p1 + p2) + p3 at the
+  end.  That takes the 6 (8) per-thread
   [T // V, MP] sums out of the registers, so no depth up to MMA_MAX_M
   needs a group pass: xp, d, gp (pg) are read and the body runs once per
   element.  Row ``end`` (the new pair, unrounded, never read) is masked
@@ -237,11 +238,12 @@ partials, but K4 b's and K14 b's.
   of 128 elements at n = 2^20), so the launch caps its programs
   (``factory.SOLO_MMA_PROGRAMS``) to spread each program's closing
   reductions over more chunks; and since the MMA's own accumulation does
-  not round to nearest, the solo forms add each chunk's products to their
-  running sums by float32 adds (``_ring_chunk``'s ``CARRY_RN``; the
-  batched forms keep their sums as they were), so their products stay
-  within ~1e-7 normwise of the float64 product at any chunk count.  An n
-  off a multiple of 16 takes the fold forms (``factory.MMA_ALIGN``).
+  not round to nearest, every tensor-core form, solo and batched, adds
+  each chunk's products to its running sums by float32 adds
+  (``_ring_chunk``'s ``CARRY_RN``), so the products stay within ~1e-7
+  normwise of the float64 product at any chunk count, and sums at most
+  ``factory.MMA_MAX_CHUNKS`` chunks a program.  An n off a multiple of 16
+  takes the fold forms, solo and batched (``factory.MMA_ALIGN``).
 
 On a mesh each kernel runs on one rank's shard of the vectors: ``off``,
 the shard's global offset, is added to the local offsets only where the
@@ -1639,8 +1641,9 @@ def trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr,
     # pid*tiles + tiles - 1 of K elements of instance b, in place.  Per
     # chunk the point, the body and the pair as K4 b forms them, the
     # scalar sums and row end's products folded into per-element float32
-    # sums, and the ring rows' products with the split vectors summed by
-    # ``tl.dot`` across the program's chunks.  The . gp column rides in the
+    # sums, and the ring rows' products with the split vectors by
+    # ``tl.dot``, each chunk's added to the program's sums by float32 adds
+    # (``CARRY_RN``).  The . gp column rides in the
     # same operand: the . gp launch and the 3-column one run this one
     # binary, and with_gp (a run-time flag) only stores the column
     pid = tl.program_id(0)
@@ -1671,7 +1674,7 @@ def trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr,
         _, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y = \
             _k4_chunk(xp_ptr, d_ptr, gp_ptr, xp_ptr, gp_ptr, S_ptr, Y_ptr, offs, offs,
                       (offs < n) & live, n, m, end, stp, ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss,
-                      e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W, False)
+                      e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True)
     prog = b.to(tl.int64) * tl.num_programs(0) + pid
     part = part_ptr + prog * (4 + 6 * m)
     tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
@@ -1725,7 +1728,7 @@ def owlqn_trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_
          acc_y) = _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, xp_ptr, gp_ptr, pg_ptr, S_ptr, Y_ptr,
                              offs, offs, (offs < n) & live, n, m, lo, hi, end, stp, c, ex, a_xx,
                              a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg,
-                             acc_s, acc_y, body, RP, K, W, False)
+                             acc_s, acc_y, body, RP, K, W, True)
     prog = b.to(tl.int64) * tl.num_programs(0) + pid
     part = part_ptr + prog * (3 + 6 * m)
     tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)

@@ -11,6 +11,15 @@ counterpart of the JAX package's psum inside ``shard_map``.  The [m]-sized
 algebra and the host's line search then run replicated, and bit for bit
 the same on every rank, since every rank reads the same reduced bits.
 
+A generic objective (one without the factory's fused kernels) runs on a
+mesh under the LOCAL CONTRACT, which it declares with ``local_objective``
+(the ``__lbfgs_local__`` marker): handed this rank's shard of x, it returns
+the whole vector's fx, the same bits on every rank (its shard's partial
+added over the ranks, e.g. by ``mesh_sum``), and this shard's gradient.
+The solver then treats that fx as it treats a kernel's reduced scalars.
+An objective without the marker is refused on a mesh: a function of the
+whole vector handed a shard would return a wrong fx silently.
+
 With no mesh active every helper here is the identity, so a run outside
 ``kernels_on_mesh`` is the single-process run bit for bit.  The mesh
 object is duck-typed (``parallel.sharding.Mesh``): ``size``, ``rank`` and
@@ -96,3 +105,33 @@ def mesh_sum(*vals: torch.Tensor) -> tuple:
         out.append(piece > 0 if v.dtype == torch.bool else piece.to(v.dtype))
         i += v.numel()
     return tuple(out)
+
+
+#: the marker of an objective that keeps the local contract
+LOCAL = "__lbfgs_local__"
+
+
+def local_objective(fn):
+    """Declare that the value-and-grad objective ``fn`` keeps the local
+    contract on a mesh: called on this rank's shard of x (every [n] vector
+    a kernel sees is one), it returns (fx, g) with fx the WHOLE vector's
+    objective, the same bits on every rank (e.g. its shard's partial summed
+    by ``mesh_sum``, which is the identity with no mesh), and g this
+    shard's gradient.  Returns ``fn`` itself, marked (``__lbfgs_local__``)
+    and taken as a value-and-grad function, or a marked wrapper where
+    ``fn`` takes no attributes.  Usable as a decorator."""
+    try:
+        setattr(fn, LOCAL, True)
+        fn.__lbfgs_value_and_grad__ = True
+        return fn
+    except AttributeError:
+        def wrapped(x):
+            return fn(x)
+
+        wrapped.__qualname__ = getattr(fn, "__qualname__", repr(fn))
+        return local_objective(wrapped)
+
+
+def keeps_local_contract(fn) -> bool:
+    """Whether ``fn`` declared the local contract (``local_objective``)."""
+    return bool(getattr(fn, LOCAL, False))

@@ -204,8 +204,9 @@ DEEP_GROUP = {
 #: walks chunks of K elements of one instance; the ring rows of a chunk are
 #: one operand ([RP, K] bf16, RP = m rounded up to a power of two, at least
 #: 16), the pair's vectors split into three bf16 parts the other ([K, 16]),
-#: and ``tl.dot`` sums [RP, 16] in float32 over all of the program's chunks
-#: (``_factory_triton.trial_pair_gram_mma_batched_kernel``).  Per RP: the
+#: and ``tl.dot`` gives each chunk's [RP, 16] float32 products, added to the
+#: program's sums by float32 adds (``_factory_triton._ring_chunk``'s
+#: ``CARRY_RN``, solo and batched alike).  Per RP: the
 #: chunk K, warps and pipeline stages, the fastest launch that spills
 #: nothing in ``tools/tune_batched_epilogues.py``'s sweep (K 64-256, 4 or 8
 #: warps, 1-3 stages; K4 b ·gp and K14 b ·gp at 1024 x 2^14 and m = 6, 19,
@@ -318,13 +319,17 @@ def batched_epilogue_grid(B: int, n: int, m: int, vdtype: torch.dtype,
     ``ntiles`` tiles of T elements (the tensor-core form's chunks of K),
     and each of its ``programs`` programs takes ``tiles`` consecutive ones,
     so that B * programs stays at or under ``EPILOGUE_PROGRAMS`` wherever B
-    does (one program an instance above it).  A program never straddles
-    two instances; the last one's tiles may run past n, masked.  ``consts``
-    are the form's compile-time constants, ``launch`` its warps and
-    stages."""
-    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype)
+    does (one program an instance above it).  The tensor-core form takes
+    the solo form's rules: n a multiple of ``MMA_ALIGN`` (the fold forms
+    take any other n), and at most ``MMA_MAX_CHUNKS`` chunks a program (a
+    larger n takes more programs, not more chunks).  A program never
+    straddles two instances; the last one's tiles may run past n, masked.
+    ``consts`` are the form's compile-time constants, ``launch`` its warps
+    and stages."""
+    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=n % MMA_ALIGN == 0)
     ntiles = -(-n // T)
-    return _form_grid(form, cfg, T, consts, ntiles, max(1, EPILOGUE_PROGRAMS // B), B, ntiles)
+    most = MMA_MAX_CHUNKS if form == "mma" else ntiles
+    return _form_grid(form, cfg, T, consts, ntiles, max(1, EPILOGUE_PROGRAMS // B), B, most)
 
 
 def batched_epilogue_partials(grid: SimpleNamespace, B: int, m: int, owlqn: bool,

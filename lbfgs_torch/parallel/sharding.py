@@ -18,6 +18,12 @@ Usage (one process per GPU, e.g. ``torchrun --nproc_per_node=4 run.py``)::
         report = lbfgs().minimize_jit(x0, objective)
     x = gather_vector(report.x, mesh)      # for a report only
 
+A generic objective runs there under the local contract
+(``ops.collective.local_objective``): it gets this rank's shard and returns
+the whole vector's fx, the same on every rank, and the shard's gradient.
+Checkpoints save and load on the mesh, each rank its own element range
+(``utils.checkpoint``).
+
 The whole vector is never gathered inside a run: ``gather_vector`` counts
 its calls on the mesh (``Mesh.gathers``) beside the collectives
 (``Mesh.collectives``, ``Mesh.collective_bytes``).
@@ -98,8 +104,11 @@ def _split(n: int, mesh: Mesh) -> int:
 
 def shard_vector(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This rank's contiguous slice of ``x`` along its last axis (an [n]
-    vector, or an [m, n] ring), as a contiguous tensor of its own on the
-    mesh's device.  n must split evenly over the ranks (pad upstream)."""
+    vector, an [m, n] ring, or an [nrow, n] design matrix, whose column
+    block multiplies this rank's shard of an [n] vector: the Poisson
+    regression's X under the local contract), as a contiguous tensor of its
+    own on the mesh's device.  n must split evenly over the ranks (pad
+    upstream)."""
     k = _split(x.shape[-1], mesh)
     return x.narrow(-1, mesh.rank * k, k).to(mesh.device, copy=True).contiguous()
 
@@ -116,16 +125,21 @@ def gather_vector(x_local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return torch.cat(parts, dim=-1).view(x_local.dtype)
 
 
+#: the state's fields split over the ranks on their last (n) axis: the [n]
+#: vectors of ``ProblemState`` and the rings of ``History``; everything else
+#: is replicated
+VECTORS, RINGS = ("x", "gx", "xp", "gp", "pg", "d"), ("s", "y")
+
+
 def _map_state(st: SolverState, vec) -> SolverState:
-    """``st`` with ``vec`` applied to its [n] vectors and ring rows; the
-    [m] stacks, the [m, m] Gram blocks and the host scalars are kept (the
-    counterpart of ``state_shardings``, ``lbfgs_tpu/parallel/sharding.py:
-    71-92``)."""
+    """``st`` with ``vec`` applied to its [n] vectors and ring rows (a slot
+    that is None stays None); the [m] stacks, the [m, m] Gram blocks and the
+    host scalars are kept (the counterpart of ``state_shardings``,
+    ``lbfgs_tpu/parallel/sharding.py:71-92``)."""
     p, h = st.prob, st.hist
     opt = lambda t: None if t is None else vec(t)
-    prob = p._replace(x=vec(p.x), gx=vec(p.gx), xp=opt(p.xp), gp=opt(p.gp), pg=opt(p.pg),
-                      d=vec(p.d))
-    return st._replace(prob=prob, hist=h._replace(s=vec(h.s), y=vec(h.y)))
+    prob = p._replace(**{f: opt(getattr(p, f)) for f in VECTORS})
+    return st._replace(prob=prob, hist=h._replace(**{f: vec(getattr(h, f)) for f in RINGS}))
 
 
 def shard_state(st: SolverState, mesh: Mesh) -> SolverState:

@@ -70,8 +70,11 @@ rings [m, n_local]) each kernel's scalars arrive summed over the ranks
 (``ops.collective``), and every reduction the solver takes outside a
 kernel goes through ``ops.vecmath`` or ``collective.mesh_sum``, one
 collective for the products of one pass; the [m]-sized algebra and the
-host's decisions then run on every rank alike.  A generic objective
-raises there (``check_supported``).
+host's decisions then run on every rank alike.  A generic objective runs
+there on every branch above when it keeps the local contract
+(``collective.local_objective``: it gets the rank's shard and returns the
+whole fx, the same on every rank, and the shard's gradient); without the
+contract it raises (``check_supported``).
 """
 
 from __future__ import annotations
@@ -99,7 +102,7 @@ from .core import (
 from .linesearch import find as ls_find
 from .ops import fused
 from .ops import vecmath as vm
-from .ops.collective import active_mesh, mesh_sum
+from .ops.collective import active_mesh, keeps_local_contract, mesh_sum
 from .params import LbfgsParams
 from .status import Status
 
@@ -830,16 +833,25 @@ def start_state(st: SolverState, params: Optional[LbfgsParams] = None) -> Solver
 def check_supported(params: LbfgsParams, pdef: Optional[ProblemDef] = None) -> None:
     """Raise ``NotImplementedError`` naming any setting this package does
     not run: the speculative (K-way) line search, and on a mesh a generic
-    objective (one not built by ``ops.factory.make_fused_objective``, whose
-    evaluation of a shard has no contract yet)."""
+    objective that does not declare the local contract
+    (``ops.collective.local_objective``: handed this rank's shard, it
+    returns the whole vector's fx and the shard's gradient).  On a mesh an
+    objective built by ``ops.factory.make_fused_objective`` runs its
+    kernels on the shard, and a generic one under the contract runs every
+    branch a generic objective takes without one: plain, OWL-QN, damped,
+    the scan two-loop and the wide objective scalar."""
     if int(params.linesearch.speculative) > 1:
         raise NotImplementedError("speculative line search")
-    if pdef is not None and active_mesh() is not None and getattr(
-            pdef.value_and_grad, "__lbfgs_trial__", None) is None:
-        name = getattr(pdef.value_and_grad, "__qualname__", repr(pdef.value_and_grad))
+    vag = None if pdef is None else pdef.value_and_grad
+    if (vag is not None and active_mesh() is not None
+            and getattr(vag, "__lbfgs_trial__", None) is None
+            and not keeps_local_contract(vag)):
+        name = getattr(vag, "__qualname__", repr(vag))
         raise NotImplementedError(
-            f"a generic objective ({name}) on a mesh: only objectives built by "
-            f"make_fused_objective run sharded")
+            f"a generic objective ({name}) on a mesh without the local contract: "
+            "declare it with parallel.local_objective once, handed this rank's shard "
+            "of x, it returns the whole vector's fx (the same on every rank) and the "
+            "shard's gradient; or build it with make_fused_objective")
 
 
 def init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,

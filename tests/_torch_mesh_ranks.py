@@ -403,7 +403,233 @@ def job_runs(mesh, args: dict) -> dict:
     return out
 
 
-JOBS = {"kernels": job_kernels, "runs": job_runs}
+def poisson_data(nrow: int, ncol: int, seed: int):
+    """The generic tests' Poisson regression data, float64, made with numpy
+    from ``seed`` (the same on every rank and in the test process): X with
+    an intercept column, y Poisson counts of a sparse true beta."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    X = rng.randn(nrow, ncol) * 0.3
+    X[:, 0] = 1.0
+    beta = np.zeros(ncol)
+    beta[1:9] = 0.4 * (-1.0) ** np.arange(8)
+    y = rng.poisson(np.exp(np.clip(X @ beta, -6, 6))).astype(float)
+    return X, y
+
+
+def generic_problem(model: str, args: dict, mesh=None):
+    """(objective, whole x0) of a generic model under the local contract:
+    ``rosenbrock`` (``generic_value_and_grad`` at args["n"]) or ``poisson``
+    (``logistic.make_objective`` over this rank's column block of the
+    seeded X, or the whole X with no mesh), float64 unless
+    args["dtype"] says otherwise."""
+    import torch
+
+    from lbfgs_torch.models import logistic, rosenbrock
+    from lbfgs_torch.parallel import shard_vector
+
+    dtype = getattr(torch, args.get("dtype", "float64"))
+    if model == "rosenbrock":
+        return rosenbrock.generic_value_and_grad, rosenbrock.initial_point(
+            args["n"], dtype, device="cpu")
+    X, y = (torch.from_numpy(a).to(dtype) for a in poisson_data(*args["poisson"]))
+    return (logistic.make_objective(X if mesh is None else shard_vector(X, mesh), y),
+            torch.zeros(X.shape[1], dtype=dtype))
+
+
+def _generic_run(mesh, params, obj, x0, stepwise: bool = False):
+    """One sharded run of a generic objective from x0 (whole): through
+    ``minimize_jit`` (or, ``stepwise``, ``LbfgsState`` step by step, as
+    ``minimize`` runs it); its state, x gathered after the run and the
+    mesh's counts of the run (the init's, the iterations', gathers)."""
+    from lbfgs_torch import solver
+    from lbfgs_torch.core import ProblemDef, normalize_objective
+    from lbfgs_torch.minimize import LbfgsState, _run_while
+    from lbfgs_torch.parallel import gather_vector, kernels_on_mesh, shard_vector
+
+    pdef = ProblemDef(value_and_grad=normalize_objective(obj), owlqn=params.orthantwise)
+    xs = shard_vector(x0, mesh)
+    mesh.reset_counts()
+    with kernels_on_mesh(mesh):
+        if stepwise:
+            state = LbfgsState(pdef, params, solver.init_state(pdef, params, xs))
+            init = mesh.collectives
+            while not state.is_converged():
+                state.propagate()
+            st = state.state
+        else:
+            st = solver.init_state(pdef, params, xs, lean=True)
+            init = mesh.collectives
+            st = _run_while(pdef, params, st)
+    counts = dict(init=init, iterations=mesh.collectives - init, gathers=mesh.gathers)
+    return st, gather_vector(st.prob.x, mesh), counts
+
+
+def job_generic(mesh, args: dict) -> dict:
+    """Whole runs of the generic Rosenbrock and the column-split Poisson
+    regression under the local contract, one per path of
+    ``args["paths"]`` (model -> {name: LbfgsParams fields}): each run's
+    iterations, evaluations, fx, x (rank 0 writes it to
+    OUT_DIR/<model>_<name>.npy) and collectives, through ``minimize_jit``
+    and, for the paths named in ``args["stepwise"]``, step by step
+    (``LbfgsState``); at world size 1 also the run with no mesh.  Then the refusals: an objective without the contract, and a
+    Rosenbrock shard of odd length."""
+    import numpy as np
+
+    from lbfgs_torch.minimize import minimize_jit
+    from lbfgs_torch.models import rosenbrock
+    from lbfgs_torch.parallel import kernels_on_mesh, shard_vector
+
+    out = {}
+    for model, paths in args["paths"].items():
+        obj, x0 = generic_problem(model, args, mesh)
+        for name, cfg in paths.items():
+            params = _params(cfg)
+            st, x, counts = _generic_run(mesh, params, obj, x0)
+            res = dict(_summary(st, x), collectives=counts)
+            if f"{model}_{name}" in args.get("stepwise", ()):
+                st2, x2, _ = _generic_run(mesh, params, obj, x0, stepwise=True)
+                res["stepwise"] = _summary(st2, x2)
+            if mesh.rank == 0:
+                np.save(os.path.join(args["out_dir"], f"{model}_{name}.npy"), x.numpy())
+            if mesh.size == 1:
+                solo_obj, _ = generic_problem(model, args)
+                solo = minimize_jit(params, x0.clone(), solo_obj, return_state=True)
+                res["solo"] = _summary(solo, solo.prob.x)
+            out[f"{model}_{name}"] = res
+    x0 = shard_vector(rosenbrock.initial_point(args["n"], device="cpu"), mesh)
+    with kernels_on_mesh(mesh):
+        try:
+            minimize_jit(_params({}), x0, lambda x: ((x * x).sum(), 2 * x))
+            out["refused"] = None
+        except NotImplementedError as exc:
+            out["refused"] = str(exc)
+        try:
+            rosenbrock.generic_value_and_grad(x0[:-1])
+            out["odd_shard"] = None
+        except ValueError as exc:
+            out["odd_shard"] = str(exc)
+    return out
+
+
+def checkpoint_case(case: dict, mesh=None):
+    """(params, objective, whole x0) of a checkpoint case: a generic model
+    of ``generic_problem`` with its LbfgsParams fields and dtype."""
+    obj, x0 = generic_problem(case["model"], case, mesh)
+    return _params(case["params"]), obj, x0
+
+
+def _until(state, k: int = None) -> None:
+    """Propagate ``state`` (an ``LbfgsState``) to iteration k, or to its
+    end."""
+    while not state.is_converged() and (k is None or state.state.k < k):
+        state.propagate()
+
+
+def _state_bits(a, b) -> bool:
+    """Two states hold the same slots, tensors bit for bit (dtype too)."""
+    import numpy as np
+    import torch
+
+    from lbfgs_torch.utils.checkpoint import fields
+
+    for (ka, va), (kb, vb) in zip(fields(a), fields(b)):
+        if ka != kb or (va is None) != (vb is None):
+            return False
+        if isinstance(va, torch.Tensor):
+            if not _bits(va.cpu(), vb.cpu()):
+                return False
+        elif va is not None and not np.array_equal(np.asarray(va), np.asarray(vb)):
+            return False
+    return True
+
+
+def job_checkpoint(mesh, args: dict) -> dict:
+    """Sharded checkpoints.  ``args["mode"]`` "save": each case of
+    ``args["cases"]`` runs to iteration ``args["at"]`` through
+    ``LbfgsState`` on this rank's shard and is saved with ``save_state``
+    under the mesh into ``<dir>/<case>_w<W>``; rank 0 also writes the
+    gathered whole state with no mesh (``<case>_w<W>_whole.npz``); the run
+    then goes on to its end.  "load": for each (case, source, whole) of
+    ``args["loads"]`` the checkpoint ``source`` is loaded under the mesh
+    into this rank's fresh state (the gathers of the load counted), the
+    loaded state gathered against ``whole`` loaded with no mesh (bit for
+    bit), and two runs resumed to their ends, one from the loaded state and
+    one from ``shard_state`` of the whole; beside them the run of the same
+    case uninterrupted.  With ``args["mismatch"]`` a template with another
+    m or n must raise ``ValueError``."""
+    import torch
+
+    from lbfgs_torch.minimize import LbfgsState
+    from lbfgs_torch.parallel import gather_state, gather_vector, kernels_on_mesh, shard_state
+    from lbfgs_torch.parallel import shard_vector
+    from lbfgs_torch.utils.checkpoint import load_state, save_state
+
+    root, out = args["dir"], {}
+
+    def build(params, obj, x0):
+        with kernels_on_mesh(mesh):
+            return LbfgsState.build(params, shard_vector(x0, mesh), obj)
+
+    def finish(state):
+        # the run to its end (its gathers counted), then x gathered
+        before = mesh.gathers
+        with kernels_on_mesh(mesh):
+            _until(state)
+        st = state.state
+        return dict(_summary(st, gather_vector(st.prob.x, mesh)),
+                    gathers=mesh.gathers - 1 - before)
+
+    if args["mode"] == "save":
+        for name, case in args["cases"].items():
+            params, obj, x0 = checkpoint_case(case, mesh)
+            state = build(params, obj, x0)
+            with kernels_on_mesh(mesh):
+                _until(state, args["at"])
+                mesh.reset_counts()
+                save_state(os.path.join(root, f"{name}_w{mesh.size}"), state.state)
+                gathers = mesh.gathers
+            whole = gather_state(state.state, mesh)
+            if mesh.rank == 0:
+                save_state(os.path.join(root, f"{name}_w{mesh.size}_whole.npz"), whole)
+            out[name] = dict(saved_k=int(state.state.k), save_gathers=gathers,
+                             uninterrupted=finish(state))
+        return out
+    for name, src, whole_path in args["loads"]:
+        case = args["cases"][name]
+        params, obj, x0 = checkpoint_case(case, mesh)
+        template = build(params, obj, x0)
+        mesh.reset_counts()
+        with kernels_on_mesh(mesh):
+            loaded = load_state(src, template.state)
+        load_gathers = mesh.gathers
+        wparams, wobj, _ = checkpoint_case(case)
+        whole = load_state(whole_path, LbfgsState.build(wparams, x0.clone(), wobj).state)
+        same = _state_bits(gather_state(loaded, mesh), whole)
+        a = LbfgsState(template.pdef, params, loaded)
+        b = LbfgsState(template.pdef, params, shard_state(whole, mesh))
+        out[f"{name}<-{os.path.basename(src)}"] = dict(
+            loaded_bits=same, load_gathers=load_gathers, resumed=finish(a),
+            resumed_from_shard_state=finish(b), uninterrupted=finish(build(params, obj, x0)))
+    if args.get("mismatch"):
+        name, src = args["mismatch"]
+        case = args["cases"][name]
+        params, obj, x0 = checkpoint_case(case, mesh)
+        out["mismatch"] = {}
+        for what, p, x in (("m", params.replace(m=params.m - 2), x0),
+                           ("n", params, torch.cat([x0, x0[:2 * mesh.size]]))):
+            try:
+                with kernels_on_mesh(mesh):
+                    load_state(src, build(p, obj, x).state)
+                out["mismatch"][what] = None
+            except ValueError as exc:
+                out["mismatch"][what] = str(exc)
+    return out
+
+
+JOBS = {"kernels": job_kernels, "runs": job_runs, "generic": job_generic,
+        "checkpoint": job_checkpoint}
 
 
 def main() -> None:

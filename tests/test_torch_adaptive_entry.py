@@ -25,6 +25,7 @@ import lbfgs_torch
 from lbfgs_torch.linesearch import carried
 from lbfgs_torch.minimize import LbfgsState as TState
 from lbfgs_torch.models import rosenbrock as t_rosen
+from lbfgs_torch.models import separable as t_separable
 from lbfgs_torch.ops import fused as t_fused
 from lbfgs_torch.orthantwise import Orthantwise as TOW
 from lbfgs_torch.params import LbfgsParams as TParams
@@ -97,17 +98,13 @@ def test_entry_steps_match_jax_f64():
 
 def _stiff_quad(n, seed=0, w_scale=64.0):
     """The same uniformly stiff diagonal quadratic 1/2 sum w (x - t)^2 in
-    both packages: a plain torch value-and-grad here, the JAX package's
-    ``separable.quadratic`` there (``tests/test_adaptive_entry.py:42-50``)."""
+    both packages: the port's ``separable.quadratic`` (its kernels' plain
+    versions on the CPU) here, the JAX package's there
+    (``tests/test_adaptive_entry.py:42-50``)."""
     w = np.full(n, w_scale, np.float32)
     t = (np.random.RandomState(seed + 1).randn(n)).astype(np.float32)
-    wt, tt = torch.from_numpy(w), torch.from_numpy(t)
-
-    def vag(x):
-        r = x - tt
-        return 0.5 * torch.sum(wt * (r * r)), wt * r
-
-    return vag, separable.quadratic(jnp.asarray(w), jnp.asarray(t)), t
+    t_obj = t_separable.quadratic(torch.from_numpy(w), torch.from_numpy(t))
+    return t_obj, separable.quadratic(jnp.asarray(w), jnp.asarray(t)), t
 
 
 def test_adaptive_no_regression_on_well_scaled():

@@ -21,9 +21,11 @@ The cases marked ``cuda`` hold the card's forms to their plain versions
 solo K4 and K14 on each live instance (x, g, pg and the rings bit for bit)
 and the . gp launch's other outputs to the 3-column launch's (bit for
 bit): over a bf16 ring at m = 6, 19, 40, 80, 200 and 260 (every form and
-tensor-core launch) and n = 2^14 and 2^14 + 2, over f32 and f64 rings at
-m = 6 and 80, a third of the instances frozen; and an inf in gp to
-non-finite products.  They skip without a card.  This module imports JAX
+tensor-core launch) and n = 2^14 and 2^14 + 2 (which takes the fold forms,
+as the solo launch does), over f32 and f64 rings at m = 6 and 80, a third
+of the instances frozen; the tensor-core products against the float64
+product of their own operands (3e-7 normwise) and the forms' spills; and
+an inf in gp to non-finite products.  They skip without a card.  This module imports JAX
 only inside the tests that compare with it, so the card's cases run
 without it.
 """
@@ -84,13 +86,51 @@ def test_every_element_once_and_programs_capped(B, n, m):
         # no program lies wholly past the instance's end
         assert (g.programs - 1) * g.tiles < g.ntiles <= g.programs * g.tiles
         assert g.total == B * g.programs
-        if B <= factory.EPILOGUE_PROGRAMS:
+        # the tensor-core form sums at most MMA_MAX_CHUNKS chunks a program
+        capped = g.form == "mma" and g.tiles == factory.MMA_MAX_CHUNKS
+        if B <= factory.EPILOGUE_PROGRAMS and not capped:
             assert g.total <= factory.EPILOGUE_PROGRAMS
-        else:
+        elif not capped:
             assert g.programs == 1
         # as few tiles a program as the cap allows
-        if g.tiles > 1:
+        if g.tiles > 1 and not capped:
             assert B * -(-g.ntiles // (g.tiles - 1)) > factory.EPILOGUE_PROGRAMS
+
+
+@pytest.mark.parametrize("n", [100, (1 << 14) + 2, 3_000_002, (1 << 20) + 8])
+@pytest.mark.parametrize("m", [9, 19, 80, 256])
+def test_unaligned_n_takes_the_fold_forms(n, m):
+    """The solo form's alignment rule: an n off a multiple of MMA_ALIGN
+    takes the fold forms (the tensor-core form's ring loads would go
+    scalar and spill), as the solo launch does at that n."""
+    assert n % factory.MMA_ALIGN
+    for B in (1, 4, 1024):
+        g = factory.batched_epilogue_grid(B, n, m, F32, BF16)
+        assert g.form == ("static" if m <= factory.EPILOGUE_MAX_M[(F32, BF16)] else "deep")
+        assert g.form == factory.solo_epilogue_grid(n, m, F32, BF16).form
+        assert factory.batched_epilogue_grid(B, n - n % 16, m, F32, BF16).form == "mma"
+
+
+@pytest.mark.parametrize("m", [19, 80, 200])
+@pytest.mark.parametrize("B,n", [(4, 1 << 24), (1, 1 << 26), (2, 5 << 22), (1024, 1 << 14)])
+def test_mma_programs_sum_at_most_max_chunks(B, n, m):
+    """The tensor-core form sums at most MMA_MAX_CHUNKS chunks a program:
+    a large n takes more programs (B = 4 at n = 2^24: 2048 programs of 64
+    chunks an instance, not 1056 of 124), and every chunk lies in one
+    program of its instance."""
+    g = factory.batched_epilogue_grid(B, n, m, F32, BF16)
+    assert g.form == "mma"
+    assert g.tiles <= factory.MMA_MAX_CHUNKS
+    assert (g.programs - 1) * g.tiles < g.ntiles <= g.programs * g.tiles
+    assert g.total == B * g.programs
+    per = max(1, factory.EPILOGUE_PROGRAMS // B)
+    if -(-g.ntiles // per) > factory.MMA_MAX_CHUNKS:
+        assert g.tiles == factory.MMA_MAX_CHUNKS
+        assert g.programs == -(-g.ntiles // factory.MMA_MAX_CHUNKS)
+    else:
+        assert g.total <= max(factory.EPILOGUE_PROGRAMS, B)
+    if (B, n) == (4, 1 << 24):
+        assert (g.programs, g.tiles) == ((1 << 24) // g.T // 64, 64)
 
 
 def test_main_path_shape_takes_the_solo_2e24_shape():
@@ -369,8 +409,54 @@ def test_batched_epilogues_on_card(cuda, m, n, ow):
     the 3-column launch and (but at m = 40, whose solo static form
     compiles for minutes) the solo kernel."""
     form = _held(_card_batch(cuda, m, n), ow, solo=m != 40)
+    aligned = n % factory.MMA_ALIGN == 0
     assert form == ("static" if m < factory.MMA_MIN_M else
-                    "mma" if m <= factory.MMA_MAX_M else "deep")
+                    "mma" if m <= factory.MMA_MAX_M and aligned else "deep")
+
+
+def _products_f64(a, t, ow, b):
+    """Instance b's SP and YP ([m, 4] against y, s, d0, gp) in float64 from
+    the tensor-core form's own operands: the ring rows as the launch left
+    them, widened, row ``end`` the unrounded pair."""
+    gp = a["gp"][b]
+    g = t["gp"][b]
+    s = t["xp"][b] - a["xp"][b] if ow else float(a["stp"][b]) * a["d"][b]
+    d0 = -t["pg"][b] if ow else -g
+    V = torch.stack([g - gp, s, d0, gp], dim=1).double()
+    out = []
+    for ring, new in (("S", s), ("Y", g - gp)):
+        P = t[ring][b].double() @ V
+        P[a["end"]] = new.double() @ V
+        out.append(P)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ow", [False, True], ids=["K4b", "K14b"])
+@pytest.mark.parametrize("n", [1 << 14, (1 << 14) + 2])
+@pytest.mark.parametrize("m", [19, 80])
+def test_batched_forms_take_the_solo_rules_on_card(cuda, m, n, ow):
+    """The batched epilogues under the solo forms' rules: an n off a
+    multiple of 16 takes the fold form, as the solo launch does, and
+    spills nothing; at an aligned n the tensor-core form sums its chunks
+    in float32 adds, so each live instance's products (with the . gp
+    column) stay within 3e-7 normwise of the float64 product of its own
+    operands; both against the plain version and the solo kernel
+    (``_held``)."""
+    a = _card_batch(cuda, m, n)
+    form = _held(a, ow)
+    kern = K.owlqn_trial_pair_gram_batched if ow else K.trial_pair_gram_batched
+    assert form == factory.solo_epilogue_grid(n, m, F32, BF16).form
+    assert form == ("mma" if n % factory.MMA_ALIGN == 0 else "deep")
+    assert kern.last_form.compiled.n_spills == 0
+    t, out = _run(a, kern, ow, with_gp=True)
+    SP, YP = out[3:5] if ow else out[4:6]
+    if form == "mma":
+        assert kern.last_form.tiles <= factory.MMA_MAX_CHUNKS
+        for b in torch.nonzero(a["live"]).flatten().tolist():
+            want = _products_f64(a, t, ow, b)
+            assert _normwise(SP[b], want[0]) <= 3e-7
+            assert _normwise(YP[b], want[1]) <= 3e-7
 
 
 @pytest.mark.cuda

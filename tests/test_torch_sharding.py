@@ -26,8 +26,11 @@ Held:
   exactly on the fused paths; the init one (K1), three under OWL-QN (K1,
   the L1 term, K10);
   no gather of an [n] vector inside a run;
-- under a mesh the native backend, the batched runner, checkpoints and a
-  generic objective raise ``NotImplementedError`` naming the setting.
+- under a mesh the native backend, the batched runner and a generic
+  objective without the local contract raise ``NotImplementedError``
+  naming the setting (checkpoints and objectives under the contract run
+  there: ``tests/test_torch_sharded_checkpoint.py``,
+  ``tests/test_torch_sharded_generic.py``).
 """
 
 import pickle
@@ -187,24 +190,18 @@ def test_collectives_per_iteration(port, w, name):
     assert c["iterations"] <= 3 * iters + (trips - iters)
 
 
-@pytest.mark.parametrize("setting", ["native backend", "batched", "checkpoint",
-                                     "generic objective"])
+@pytest.mark.parametrize("setting", ["native backend", "batched", "generic objective"])
 def test_refused_on_a_mesh(tmp_path, setting):
     import lbfgs_torch
     from lbfgs_torch.models import rosenbrock
     from lbfgs_torch.parallel import kernels_on_mesh
-    from lbfgs_torch.solver import init_state
-    from lbfgs_torch.core import ProblemDef
-    from lbfgs_torch.params import LbfgsParams
-    from lbfgs_torch.utils.checkpoint import save_state
 
     x0 = rosenbrock.initial_point(64, device="cpu")
     b = lbfgs_torch.lbfgs()
-    st = init_state(ProblemDef(rosenbrock.value_and_grad), LbfgsParams(), x0)
     calls = {
         "native backend": lambda: b.minimize(x0, rosenbrock.value_and_grad, backend="native"),
         "batched": lambda: b.minimize_batched(x0[None], rosenbrock.value_and_grad),
-        "checkpoint": lambda: save_state(str(tmp_path / "st.npz"), st),
+        # an objective without the local contract
         "generic objective": lambda: b.minimize_jit(x0, lambda x: ((x * x).sum(), 2 * x)),
     }
     with ranks.local_mesh() as mesh, kernels_on_mesh(mesh):

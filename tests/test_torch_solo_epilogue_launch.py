@@ -82,11 +82,12 @@ def test_solo_form_by_dtype_pair_and_depth(pair, m):
 def test_unaligned_n_takes_the_fold_forms(n, m):
     """A ring row that does not start on a 16-element boundary takes the
     fold form (the tensor-core form's ring loads would go scalar); the
-    batched launch keeps its own choice."""
+    batched launch takes the same rule."""
     assert n % factory.MMA_ALIGN
     g = factory.solo_epilogue_grid(n, m, F32, BF16)
     assert g.form == ("static" if m <= factory.EPILOGUE_MAX_M[(F32, BF16)] else "deep")
     assert factory.solo_epilogue_grid(n - n % 16, m, F32, BF16).form == "mma"
+    assert factory.batched_epilogue_grid(1024, n, m, F32, BF16).form == g.form
 
 
 def test_fold_caps_and_the_fusions_cap():
