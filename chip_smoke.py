@@ -317,6 +317,27 @@ Phases (any failure raises and the script exits nonzero):
      default sizes (``examples/*_torch.py``; the sharded one in a
      subprocess at world size 1 over NCCL), each launching its kernels,
      calling no plain version and ending as its JAX script says;
+ 44c. the speculative K-way search (``with_speculative_linesearch``, K =
+     ``SPEC_K`` = 4): ``speculative_kernels`` holds K2 s and K8 s at 2,
+     4, 8 and 11 lanes (above
+     ``factory.SPEC_MAX_LANES`` in chunks) at n = 2^24 and 2^14 + 2, in
+     f64 and with the quadratic's extras, each lane bit for bit K2's and
+     K8's at its step (at 2^24 in both scalar modes) and within the sum
+     tolerance of the plain versions, and K2 b s and K8 b s at 1024 x
+     2^14 bit for bit K2 b's and K8 b's per lane on the live instances;
+     registers (a spill fails), times beside the bounds, every lane count
+     against that many one-lane launches; ``speculative_main_path`` and
+     ``speculative_owlqn_main_path`` at n = 2^24 in turns with the
+     sequential run on the same route (the objective without K4 / K14:
+     bit for bit) and with the sequential main path (the same status),
+     launches, reads, logical and physical evaluations per iteration;
+     ``speculative_poisson`` (run after the Poisson main path, on its
+     X: vmapped candidates, two GEMMs a round; in turns with the
+     sequential run, its iterations and fx rel 1e-6); ``batched_speculative`` at 1024 x 2^14,
+     plain and OWL-QN, in turns with the sequential runs (bit for bit on
+     the same route), instances 0-7 against their solo speculative runs;
+     ``sharded_speculative_world1``: both main paths on an NCCL mesh of
+     one rank, bit for bit the solo runs;
  45. launch_overhead: microseconds per back-to-back launch of the
      calibration kernel (``csrc/calibrate.cu``) and per launch with one
      synchronising read, and the share of each main path's ms/iter that
@@ -578,6 +599,25 @@ KERNELS.update({
     "K5b_pair_gram_batched_gp": ("cuda", "lbfgs_torch/csrc/pair_gram.cu",
                                  "lbfgs_tpu/ops/fused.py:837 (with_gp)" + VMAPPED),
 })
+#: the speculative search's K-lane probes: no Pallas kernel (the JAX
+#: package's candidate pass is XLA's fusion of the vmapped value_and_grad)
+SPEC_REPLACES = ("none: the counterpart of the vmapped _fts, "
+                 "lbfgs_tpu/linesearch.py:999-1008")
+KERNELS.update({
+    "K2s_probe_steps": ("triton", "lbfgs_torch/ops/_factory_triton.py", SPEC_REPLACES),
+    "K8s_owlqn_probe_steps": ("triton", "lbfgs_torch/ops/_factory_triton.py", SPEC_REPLACES),
+    "K2bs_probe_steps_batched": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                 SPEC_REPLACES + VMAPPED),
+    "K8bs_owlqn_probe_steps_batched": ("triton", "lbfgs_torch/ops/_factory_triton.py",
+                                       SPEC_REPLACES + VMAPPED),
+})
+#: the lanes of the speculative phases (``with_speculative_linesearch``),
+#: at which the K-lane rows are timed and bounded
+SPEC_K = 4
+#: every lane count a K-lane probe launch takes in the speculative phases
+#: (11 lanes launch as 8 + 3: ``factory.SPEC_MAX_LANES``)
+SPEC_LANES = (2, SPEC_K, 8, factory.SPEC_MAX_LANES + 3)
+SPEC_WARM_LANES = (2, 3, SPEC_K, 8)
 BATCHED_UNCAPPED_PATH = ("K2b_probe_batched", "K4b_trial_pair_gram_batched",
                          "K15b_combine_probe_batched")
 BATCHED_OWLQN_UNCAPPED_PATH = ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gram_batched",
@@ -682,6 +722,12 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
         "K7b_owlqn_trial_batched": (5 * v, 30),
         "K5b_pair_gram_batched": (3 * v + rings, 12 * m + 4),
         "K5b_pair_gram_batched_gp": (3 * v + rings, 16 * m + 4),
+        # the K-lane probes: K2's and K8's vectors read once, the body per
+        # lane (SPEC_K lanes), no gradient product
+        "K2s_probe_steps": (2 * v, 16 * SPEC_K),
+        "K8s_owlqn_probe_steps": (3 * v, 24 * SPEC_K),
+        "K2bs_probe_steps_batched": (2 * v, 16 * SPEC_K),
+        "K8bs_owlqn_probe_steps_batched": (3 * v, 24 * SPEC_K),
         # reads and writes one float32 per element, at n = N_NULL
         "cal_null_launch": (8, 1),
     }[name]
@@ -1095,7 +1141,35 @@ def warm_steps() -> list:
     steps += [deep(*bf16, m) for m in (DEEP_VS_STATIC_M, 130)]
     steps += [deep(*bf16, DEEP_VS_STATIC_M, force=M),
               deep(*bf16, DEEP_VS_STATIC_M, force=DEEP_VS_STATIC_M)]
-    steps += [north_star, extras(4096), extras(4098), quartic, batched_rules]
+    def speculative(n, K):
+        # the K-lane probes at the lanes the speculative phases take (K2 s
+        # and K8 s at 2, 3, 4 and 8 lanes, 11 as 8 + 3; f32, n divisible by
+        # 16 or not) and their batched forms; at SPEC_K lanes off 16 also
+        # f64 and the quadratic's extras
+        def step(lib):
+            k = rosenbrock.value_and_grad.kernels
+            x = torch.ones(n, device="cuda")
+            stp = np.full(K, 0.5, np.float32)
+            k.probe_steps(x, x, stp)
+            k.owlqn_probe_steps(x, x, x, stp, 1.0, 0, n - 1)
+            if n % 16 == 0:
+                xb = x.view(2, n // 2)
+                stb = torch.full((2, K), 0.5, device="cuda")
+                live = torch.ones(2, dtype=torch.bool, device="cuda")
+                k.probe_steps_batched(xb, xb, stb, live)
+                k.owlqn_probe_pg_steps_batched(xb, xb, xb, stb, 1.0, 0, n // 2 - 1, live)
+            if K != SPEC_K:
+                return
+            if n % 16:
+                x64, stp64 = x.double(), stp.astype(np.float64)
+                k.probe_steps(x64, x64, stp64)
+                k.owlqn_probe_steps(x64, x64, x64, stp64, 1.0, 0, n - 1)
+                q = separable.quadratic(x.clone(), x.clone()).kernels
+                q.probe_steps(x, x, stp)
+                q.owlqn_probe_steps(x, x, x, stp, 1.0, 0, n - 1)
+        return step
+
+    steps += [speculative(n, K) for n in (8192, 4098) for K in SPEC_WARM_LANES]
     steps += [batched(m) for m in (M, DEEP_VS_STATIC_M, DEEP_M)]
     return steps
 
@@ -1854,13 +1928,19 @@ FACTORY_REFS = ("trial_ref", "probe_ref", "trial_pair_gram_ref", "owlqn_trial_re
                 "combine_probe_ref", "combine_ow_probe_ref", "probe_batched_ref",
                 "trial_pair_gram_batched_ref", "owlqn_probe_pg_batched_ref",
                 "owlqn_trial_pair_gram_batched_ref", "combine_probe_batched_ref",
-                "combine_ow_probe_batched_ref", "trial_batched_ref", "owlqn_trial_batched_ref")
+                "combine_ow_probe_batched_ref", "trial_batched_ref", "owlqn_trial_batched_ref",
+                "probe_steps_ref", "owlqn_probe_steps_ref", "probe_steps_batched_ref",
+                "owlqn_probe_pg_steps_batched_ref")
 FACTORY_WRAPPERS = ("trial", "probe", "trial_pair_gram", "owlqn_trial", "owlqn_probe",
                     "owlqn_probe_pg", "owlqn_trial_pair_gram", "combine_probe",
                     "combine_ow_probe", "probe_batched", "trial_pair_gram_batched",
                     "owlqn_probe_pg_batched", "owlqn_trial_pair_gram_batched",
                     "combine_probe_batched", "combine_ow_probe_batched", "trial_batched",
-                    "owlqn_trial_batched")
+                    "owlqn_trial_batched", "probe_steps", "owlqn_probe_steps",
+                    "probe_steps_batched", "owlqn_probe_pg_steps_batched")
+#: the K-lane probes, whose lanes are counted too (``.lanes``)
+LANE_PROBES = ("probe_steps", "owlqn_probe_steps", "probe_steps_batched",
+               "owlqn_probe_pg_steps_batched")
 
 
 def _factory_launches(k, sfx: str) -> dict:
@@ -1947,6 +2027,12 @@ def launches() -> dict:
                                   - fused.pair_gram_sd_batched.gp_launches),
         "K5b_pair_gram_batched_gp": fused.pair_gram_sd_batched.gp_launches,
         **_batched_forms(rosenbrock.value_and_grad.kernels),
+        "K2s_probe_steps": rosenbrock.value_and_grad.kernels.probe_steps.launches,
+        "K8s_owlqn_probe_steps": rosenbrock.value_and_grad.kernels.owlqn_probe_steps.launches,
+        "K2bs_probe_steps_batched":
+            rosenbrock.value_and_grad.kernels.probe_steps_batched.launches,
+        "K8bs_owlqn_probe_steps_batched":
+            rosenbrock.value_and_grad.kernels.owlqn_probe_pg_steps_batched.launches,
     }
     ex = dict.fromkeys(_factory_launches(rosenbrock.value_and_grad.kernels, "_ex"), 0)
     for obj in EXTRAS.values():
@@ -1994,6 +2080,11 @@ PLAIN = {
     "K1b_trial_batched": rosenbrock.value_and_grad.kernels.trial_batched_ref,
     "K7b_owlqn_trial_batched": rosenbrock.value_and_grad.kernels.owlqn_trial_batched_ref,
     "K5b_pair_gram_batched": fused.pair_gram_sd_batched_ref,
+    "K2s_probe_steps": rosenbrock.value_and_grad.kernels.probe_steps_ref,
+    "K8s_owlqn_probe_steps": rosenbrock.value_and_grad.kernels.owlqn_probe_steps_ref,
+    "K2bs_probe_steps_batched": rosenbrock.value_and_grad.kernels.probe_steps_batched_ref,
+    "K8bs_owlqn_probe_steps_batched":
+        rosenbrock.value_and_grad.kernels.owlqn_probe_pg_steps_batched_ref,
 }
 
 
@@ -2009,6 +2100,8 @@ def plain_calls() -> dict:
 def _reset_factory(k) -> None:
     for name in FACTORY_WRAPPERS:
         getattr(k, name).launches = 0
+    for name in LANE_PROBES:
+        getattr(k, name).lanes = 0
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.trial_pair_gram_batched,
                k.owlqn_trial_pair_gram_batched):
         fn.gp_launches = fn.deep_gp_launches = fn.mma_launches = 0
@@ -2038,7 +2131,7 @@ def reset_counts() -> None:
     for fn in PLAIN.values():
         fn.calls = 0
     to_host.reads = 0
-    carried.used = 0
+    carried.used = carried.ignored = 0
 
 
 def phase_goldens() -> None:
@@ -7534,6 +7627,504 @@ def phase_examples() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the speculative K-way search: K2 s, K8 s and their batched forms
+# ---------------------------------------------------------------------------
+
+#: the speculative kernel checks: (n, vector dtype, objective, lanes); the
+#: main path's n, and n = 2^14 + 2 (off 16) in f32 and f64 and with the
+#: quadratic's two extras (the lasso's under OWL-QN)
+SPEC_SOLO_CASES = ((N_BIG, torch.float32, "rosenbrock", SPEC_LANES),
+                   ((1 << 14) + 2, torch.float32, "rosenbrock", SPEC_LANES),
+                   ((1 << 14) + 2, torch.float64, "rosenbrock", (SPEC_K,)),
+                   ((1 << 14) + 2, torch.float32, "quadratic", (SPEC_K,)))
+#: timed calls per ``device_time`` in the speculative kernel phase
+SPEC_REPS = 10
+
+
+def _ladder(stp: float, K: int, vd) -> np.ndarray:
+    """K steps of the backtracking ladder from stp, in the vectors' dtype."""
+    f = np.float32 if vd == torch.float32 else np.float64
+    return f(stp) * f(0.5) ** np.arange(K).astype(f)
+
+
+def _lanes_held(name: str, got: torch.Tensor, want: list, live=None) -> None:
+    """Each lane of a K-lane probe bit for bit the one-lane kernel's value
+    at its step (the live instances' of a batched one)."""
+    for j, w in enumerate(want):
+        g = got[..., j] if got.ndim == 2 else got[j]
+        if live is not None:
+            g, w = g[live].contiguous(), w[live].contiguous()
+        if not same_bits(g, w):
+            raise AssertionError(f"{name}: lane {j} differs from the one-lane kernel")
+
+
+def _kernel_only_ms(fn, reps: int, name: str) -> float | None:
+    """Device ms per call of fn's kernels whose name holds ``name`` alone
+    (the K-lane kernel without its wrapper's torch sums and copies), from
+    one profiler session; None where the session came back empty."""
+    prof, _ = profiled(lambda: [fn() for _ in range(reps)])
+    if prof is None:
+        return None
+    return sum(e.self_device_time_total for e in device_events(prof)
+               if name in e.key) / 1e3 / reps
+
+
+def phase_speculative_kernels() -> dict:
+    """K2 s and K8 s at the lanes of ``SPEC_SOLO_CASES``
+    (above ``factory.SPEC_MAX_LANES`` in chunks), each lane bit for bit K2's
+    and K8's at its step (at n = 2^24 in both modes of the objective
+    scalar), and against their plain versions on the card within the sum
+    tolerance (``TOL``); K2 b s and K8 b s at B x n = 1024 x 2^14 with a
+    third of the instances frozen, at 2, 4, 8 and 11 lanes, each live
+    instance's lane bit for bit K2 b's and K8 b's.  Registers and spills of
+    every compiled form (a spill fails).  Then each at SPEC_K lanes timed
+    beside its plain version and bound, and at every lane count against
+    that many one-lane launches, in turns."""
+    k = rosenbrock.value_and_grad.kernels
+    errs, times, timed_by, bounds = {}, {}, {}, {}
+    lanes_vs_seq, kernel_only = {}, {}
+    for n, vd, model, Ks in SPEC_SOLO_CASES:
+        a = inputs(n, vd, torch.float32 if vd == torch.float32 else vd, SEED + 30)
+        kk = k if model == "rosenbrock" else separable.quadratic(
+            *quadratic_data(n, SEED + 31)).kernels
+        xp, d, x0, pg = a["xp"], a["d"], a["xp0"], a["pg"]
+        lo, hi = windows(n)[0]
+        wp = choose_orthant(Orthantwise(C_L1, lo, hi), x0, pg)
+        tag = f"{model} {str(vd)[6:]} n={n}"
+        tv = TOL[(vd, "sum")]
+        for K in Ks:
+            steps = _ladder(STP, K, vd)
+            modes = (True, False) if n == N_BIG and K == SPEC_K else (False,)
+            for wide in modes:
+                with fused.wide_fx(wide):
+                    f2 = kk.probe_steps(xp, d, steps)
+                    _lanes_held(f"K2 s {tag} K={K}", f2, [kk.probe(xp, d, s)[0] for s in steps])
+                    f8 = kk.owlqn_probe_steps(x0, d, wp, steps, C_L1, lo, hi)
+                    _lanes_held(f"K8 s {tag} K={K}", f8,
+                                [kk.owlqn_probe(x0, d, wp, s, C_L1, lo, hi)[0] for s in steps])
+            errs.setdefault("K2s_probe_steps", []).append(check(
+                f"K2 s {tag}", f2, kk.probe_steps_ref(xp, d, steps), tv))
+            errs.setdefault("K8s_owlqn_probe_steps", []).append(check(
+                f"K8 s {tag}", f8, kk.owlqn_probe_steps_ref(x0, d, wp, steps, C_L1, lo, hi), tv))
+        if n == N_BIG:
+            steps = _ladder(STP, SPEC_K, vd)
+            k2 = lambda: k.probe_steps(xp, d, steps)
+            k8 = lambda: k.owlqn_probe_steps(x0, d, wp, steps, C_L1, lo, hi)
+            for name, kern, plain in (
+                    ("K2s_probe_steps", k2, lambda: k.probe_steps_ref(xp, d, steps)),
+                    ("K8s_owlqn_probe_steps", k8,
+                     lambda: k.owlqn_probe_steps_ref(x0, d, wp, steps, C_L1, lo, hi))):
+                t = kernel_vs_plain(kern, plain, SPEC_REPS)
+                times[name], timed_by[name] = t[:2], t[2:]
+                bounds[name] = bound(name, n, 4, 2, M)
+                kernel_only[name] = _kernel_only_ms(kern, SPEC_REPS, "probe_steps")
+            # every lane count against that many one-lane launches, in turns
+            for K in SPEC_LANES:
+                steps = _ladder(STP, K, vd)
+                turns = {}
+                for label, fn in (
+                        ("k2_seq", lambda: [k.probe(xp, d, s) for s in steps]),
+                        ("k2s", lambda: k.probe_steps(xp, d, steps)),
+                        ("k8_seq", lambda: [k.owlqn_probe(x0, d, wp, s, C_L1, lo, hi)
+                                            for s in steps]),
+                        ("k8s", lambda: k.owlqn_probe_steps(x0, d, wp, steps, C_L1, lo, hi))):
+                    turns[label] = device_time(fn, SPEC_REPS)
+                lanes_vs_seq[K] = dict(
+                    **{f"{key}_ms": v for key, v in turns.items()},
+                    k2s_bound_ms=bound("K2_probe", n, 4, 2, M)[0],
+                    k8s_bound_ms=bound("K8_owlqn_probe", n, 4, 2, M)[0],
+                    k2s_wall_ms=wall_ms(lambda: k.probe_steps(xp, d, steps), SPEC_REPS),
+                    k2_seq_wall_ms=wall_ms(lambda: [k.probe(xp, d, s) for s in steps],
+                                           SPEC_REPS))
+        del a, xp, d, x0, pg, wp
+        torch.cuda.empty_cache()
+    # the batched forms
+    b = batched_inputs(SEED + 32)
+    xp, d, live, stp = b["xp"], b["d"], b["live"], b["stp"]
+    pg = torch.randn(xp.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 33),
+                     device="cuda")
+    lo, hi = 0, BATCH_N - 1
+    for K in SPEC_LANES:
+        stps = (stp[:, None] * 0.5 ** torch.arange(K, device="cuda")).contiguous()
+        cols = [stps[:, j].contiguous() for j in range(K)]
+        f2 = k.probe_steps_batched(xp, d, stps, live)
+        _lanes_held(f"K2 b s K={K}", f2, [k.probe_batched(xp, d, c, live)[0] for c in cols],
+                    live)
+        f8 = k.owlqn_probe_pg_steps_batched(xp, d, pg, stps, C_L1, lo, hi, live)
+        _lanes_held(f"K8 b s K={K}", f8,
+                    [k.owlqn_probe_pg_batched(xp, d, pg, c, C_L1, lo, hi, live)[0] for c in cols],
+                    live)
+        tv = TOL[(torch.float32, "sum")]
+        errs.setdefault("K2bs_probe_steps_batched", []).append(check(
+            f"K2 b s K={K}", f2[live], k.probe_steps_batched_ref(xp, d, stps, live)[live], tv))
+        errs.setdefault("K8bs_owlqn_probe_steps_batched", []).append(check(
+            f"K8 b s K={K}", f8[live],
+            k.owlqn_probe_pg_steps_batched_ref(xp, d, pg, stps, C_L1, lo, hi, live)[live], tv))
+    every = torch.ones_like(live)
+    stps = (stp[:, None] * 0.5 ** torch.arange(SPEC_K, device="cuda")).contiguous()
+    for name, kern, plain in (
+            ("K2bs_probe_steps_batched", lambda: k.probe_steps_batched(xp, d, stps, every),
+             lambda: k.probe_steps_batched_ref(xp, d, stps, every)),
+            ("K8bs_owlqn_probe_steps_batched",
+             lambda: k.owlqn_probe_pg_steps_batched(xp, d, pg, stps, C_L1, lo, hi, every),
+             lambda: k.owlqn_probe_pg_steps_batched_ref(xp, d, pg, stps, C_L1, lo, hi, every))):
+        t = kernel_vs_plain(kern, plain, SPEC_REPS)
+        times[name], timed_by[name] = t[:2], t[2:]
+        bounds[name] = bound(name, BATCH_B * BATCH_N, 4, 2, M)
+        kernel_only[name] = _kernel_only_ms(kern, SPEC_REPS, "probe_steps")
+    del b, xp, d, pg, stps
+    compiled = []
+    for label, fn in (("K2s", k.probe_steps), ("K8s", k.owlqn_probe_steps),
+                      ("K2bs", k.probe_steps_batched), ("K8bs", k.owlqn_probe_pg_steps_batched)):
+        for (vd, lanes), ck in sorted(fn.compiled.items(), key=str):
+            compiled.append(dict(kernel=label, vectors=str(vd)[6:], lanes=lanes,
+                                 **_compiled_info(ck)))
+    emit(phase="speculative_compiled", forms=compiled, max_lanes=factory.SPEC_MAX_LANES)
+    if any(c["n_spills"] for c in compiled):
+        raise AssertionError(f"K-lane probes spill registers: {compiled}")
+    errs = {name: (max(e[0] for e in v), max(e[1] for e in v)) for name, v in errs.items()}
+    emit(phase="speculative_kernels", lanes=list(SPEC_LANES), max_lanes=factory.SPEC_MAX_LANES,
+         cases=[dict(n=n, vectors=str(vd)[6:], model=m, lanes=list(Ks))
+                for n, vd, m, Ks in SPEC_SOLO_CASES],
+         batched=dict(B=BATCH_B, n=BATCH_N), lanes_vs_one_lane_kernels="bit-exact",
+         max_abs_err={n_: e[0] for n_, e in errs.items()},
+         max_normwise_err={n_: e[1] for n_, e in errs.items()},
+         device_ms={n_: {"kernel": t_[0], "plain": t_[1], "bound": bounds[n_][0]}
+                    for n_, t_ in times.items()},
+         timed_by={n_: {"kernel": t_[0], "plain": t_[1]} for n_, t_ in timed_by.items()},
+         kernel_only_ms=kernel_only, lanes_vs_sequential_n2e24=lanes_vs_seq)
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
+
+
+#: the speculative main path: the main path's widths (n = 2^24, f32, m = 6,
+#: bf16 ring, uncapped, epsilon 0, at most 100 iterations) on the Armijo
+#: ladder, sequential and with SPEC_K lanes; the OWL-QN main path with
+#: SPEC_K lanes.  The Armijo ladder's L-BFGS pairs may lose their
+#: curvature, and its searches then start uphill: the reference's ascent
+#: warning (one log line a search) is off in these runs
+SPEC_SEQ_PARAMS = MAIN_PARAMS.replace_ls(algorithm=LineSearchAlgorithm.BacktrackingArmijo,
+                                         warn_ascent=False)
+SPEC_PARAMS = SPEC_SEQ_PARAMS.replace_ls(speculative=SPEC_K)
+SPEC_OWLQN_PARAMS = OWLQN_PARAMS.replace_ls(speculative=SPEC_K)
+#: the order of the timed runs of a speculative phase: the sequential run
+#: on the speculative run's route (s), the sequential run with the one-pass
+#: epilogue, as the main paths run (e), and the speculative run (p)
+SPEC_TURNS = "seppes"
+#: what each key of SPEC_TURNS names in the phases' lines
+SPEC_SIDES = {"s": "sequential_same_route", "e": "sequential_epilogue", "p": "speculative"}
+
+
+def epilogue_free(fn):
+    """The objective ``fn`` without its one-pass epilogues (K4, K14 and their
+    batched forms): a sequential search on it takes the speculative
+    search's route, the accepted point materialized by K1 (K7; K1 b, K7 b)
+    and the pair by K5 (K12; K5 b, K12 b), so the two runs differ in their
+    searches alone."""
+    def vag(x):
+        return fn(x)
+
+    vag.__dict__.update({k: v for k, v in fn.__dict__.items()
+                         if not k.startswith(("__lbfgs_trial_pair_gram",
+                                              "__lbfgs_owlqn_trial_pair_gram"))})
+    return vag
+
+
+def _spec_turns(runners: dict) -> dict:
+    """One warm run of each of ``runners`` (key -> a run returning its
+    state), then the timed runs of ``SPEC_TURNS``, the counts reset before
+    each.  Returns key -> [(state, seconds, launches, plain calls, host
+    reads, lanes evaluated, carried probes unused), ...]."""
+    for run in runners.values():
+        run()
+    torch.cuda.synchronize()
+    k = rosenbrock.value_and_grad.kernels
+    out = {key: [] for key in runners}
+    for turn in SPEC_TURNS:
+        if turn not in runners:
+            continue
+        reset_counts()
+        got = []
+        dt = profiling.timed(lambda: got.append(runners[turn]()), warmup=0)
+        lanes = sum(getattr(k, f).lanes for f in LANE_PROBES)
+        out[turn].append((got[0], dt, launches(), plain_calls(), to_host.reads, lanes,
+                          carried.ignored))
+    return out
+
+
+def _same_run(name: str, a, b) -> None:
+    """Two solo runs alike: iterations, evaluations, status, fx and x bit
+    for bit."""
+    if not ((a.k, a.prob.neval, a.status) == (b.k, b.prob.neval, b.status)
+            and _bits(np.asarray(a.prob.fx)) == _bits(np.asarray(b.prob.fx))
+            and _bits(a.prob.x) == _bits(b.prob.x)):
+        raise AssertionError(f"{name}: k/neval/status/fx {a.k}/{a.prob.neval}/{a.status}/"
+                             f"{a.prob.fx} against {b.k}/{b.prob.neval}/{b.status}/{b.prob.fx}")
+
+
+def _spec_report(phase: str, runs: dict, fx_tol: float, **extra) -> dict:
+    """The runs side by side: ms per iteration of every turn, reads, probe
+    launches, logical and physical evaluations per iteration.  The
+    speculative run is held to the sequential run on its route bit for bit
+    where ``fx_tol`` is None, else to the same status and fx within fx_tol
+    relative; to the sequential run with the epilogue (another pair + Gram
+    pass, so another trajectory) by the same status alone."""
+    rows = {}
+    for side, label in SPEC_SIDES.items():
+        if side not in runs:
+            continue
+        st, _, lc, _, reads, lanes, ignored = runs[side][0]
+        iters = st.k - 1
+        probes = sum(lc[name] for name in ("K2_probe", "K8_owlqn_probe", "K2s_probe_steps",
+                                           "K8s_owlqn_probe_steps"))
+        # each trial is one evaluation; the speculative search's physical
+        # ones are its lanes and one materialization an iteration
+        physical = (lanes + iters) if side == "p" else st.prob.neval - 1
+        rows[label] = dict(
+            iters=iters, status=st.status, fx=float(st.prob.fx), evals=st.prob.neval,
+            ms_per_iter=[1e3 * r[1] / (r[0].k - 1) for r in runs[side]],
+            reads_per_iter=reads / iters, probe_launches_per_iter=probes / iters,
+            logical_evals_per_iter=(st.prob.neval - 1) / iters,
+            physical_evals_per_iter=physical / iters, carried_probes_unused=ignored,
+            launches={n_: v for n_, v in lc.items() if v})
+    s, p = runs["s"][0][0], runs["p"][0][0]
+    rel = abs(float(p.prob.fx) / float(s.prob.fx) - 1) if float(s.prob.fx) else abs(
+        float(p.prob.fx))
+    out = dict(phase=phase, lanes=SPEC_K, turns=SPEC_TURNS, **rows, rel_fx=rel,
+               vs_same_route="bit-exact" if fx_tol is None else dict(fx_tol=fx_tol), **extra)
+    emit(**out)
+    if fx_tol is None:
+        _same_run(phase, p, s)
+    elif p.status != s.status or not rel <= fx_tol:
+        raise AssertionError(f"{phase}: status {p.status} against the sequential {s.status}, "
+                             f"rel fx {rel:.3e} (tol {fx_tol})")
+    if "e" in runs and runs["e"][0][0].status != p.status:
+        raise AssertionError(f"{phase}: status {p.status} against the epilogue run's "
+                             f"{runs['e'][0][0].status}")
+    return out
+
+
+def _spec_rounds(name: str, runs: dict, probe: str, expect) -> dict:
+    """The speculative runs' launches: ``expect(iters, rounds)`` for the
+    named kernels, nothing else and no plain version; one read per round
+    and per iteration after the init's."""
+    st, _, lc, pc, reads, lanes, _ = runs["p"][0]
+    iters, rounds = st.k - 1, lc[probe]
+    if not iters <= rounds <= iters * 19 or reads != 1 + rounds + iters:
+        raise AssertionError(f"{name}: {rounds} rounds, {reads} reads in {iters} iterations")
+    _expect(name, lc, pc, **expect(iters, rounds))
+    return lc
+
+
+def _solo_runners(seq: LbfgsParams, spec: LbfgsParams, x0, fn=None) -> dict:
+    fn = fn or default_evaluate()
+    bare = epilogue_free(fn)
+    return {"s": lambda: minimize_jit(seq, x0, bare, return_state=True),
+            "e": lambda: minimize_jit(seq, x0, fn, return_state=True),
+            "p": lambda: minimize_jit(spec, x0, fn, return_state=True)}
+
+
+def phase_speculative_main_path() -> dict:
+    """``SPEC_PARAMS`` at n = 2^24 in turns (``SPEC_TURNS``) with the
+    sequential Armijo run on its route (the objective without its
+    epilogue), held bit for bit, and with the sequential run through K4
+    (the same status).  The speculative run launches K1 at the init and per
+    iteration (the accepted point), K2 s per round, K5 and K15 per
+    iteration, nothing else; one read per round and per iteration."""
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    runs = _spec_turns(_solo_runners(SPEC_SEQ_PARAMS, SPEC_PARAMS, x0))
+    lc = _spec_rounds("speculative main path", runs, "K2s_probe_steps", lambda it, r: dict(
+        K1_trial=it + 1, K2s_probe_steps=r, K5_pair_gram=it, K15_combine_probe=it))
+    _spec_report("speculative_main_path", runs, None)
+    del runs
+    torch.cuda.empty_cache()
+    return lc
+
+
+def phase_speculative_owlqn_main_path() -> dict:
+    """``SPEC_OWLQN_PARAMS`` (bench_owlqn.py:61-76's configuration, c = 1 on
+    [0, n - 1), epsilon 3e-2) in turns with the sequential OWL-QN run on
+    its route (without K14), held bit for bit, and with the OWL-QN main
+    path (K14): all CONVERGED.  The speculative run launches K1 and K10 at
+    the init, K8 s per round, K7, K10, K12 and K16 per iteration."""
+    x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+    runs = _spec_turns(_solo_runners(OWLQN_PARAMS, SPEC_OWLQN_PARAMS, x0))
+    lc = _spec_rounds("speculative OWL-QN main path", runs, "K8s_owlqn_probe_steps",
+                      lambda it, r: dict(K1_trial=1, K10_pseudo_gradient_norm=it + 1,
+                                         K8s_owlqn_probe_steps=r, K7_owlqn_trial=it,
+                                         K12_pair_gram_xg=it, K16_combine_ow_probe=it))
+    if runs["p"][0][0].status != Status.CONVERGED:
+        raise AssertionError(f"speculative OWL-QN main path: status {runs['p'][0][0].status}")
+    _spec_report("speculative_owlqn_main_path", runs, None, eps=OWLQN_PARAMS.epsilon)
+    del runs
+    torch.cuda.empty_cache()
+    return lc
+
+
+#: the speculative Poisson path: the Poisson main path's configuration
+#: (X f32, c = 1 on [1, n), Armijo, uncapped) for 20 iterations
+SPEC_POISSON_ITERS = 20
+#: its fx against the sequential run's, relative (0 on an H100, where the
+#: accepted steps are the sequential run's)
+SPEC_POISSON_FX_TOL = 1e-6
+
+
+def phase_speculative_poisson(data: dict) -> dict:
+    """The Poisson regression at 2048 x 2^20 (the Poisson main path's X,
+    which stays allocated for the batched Poisson phase) with SPEC_K lanes
+    in turns with the sequential run, ``SPEC_POISSON_ITERS`` iterations: a
+    generic objective, so each round evaluates its SPEC_K candidate points
+    under ``torch.func.vmap`` (the objective's two products with X as
+    GEMMs); K11 at the init, K9 (the accepted point), K10, K12 and K13 per
+    iteration; the sequential run's iterations and status, finite fx within
+    ``SPEC_POISSON_FX_TOL`` of its fx, 0 < nnz < n - 1."""
+    obj = data["obj"]
+    x0 = torch.zeros(POISSON_NCOL, device="cuda")
+    seq = poisson_params(False, SPEC_POISSON_ITERS)
+    spec = seq.replace_ls(speculative=SPEC_K)
+    runs = _spec_turns({"s": lambda: minimize_jit(seq, x0, obj, return_state=True),
+                        "p": lambda: minimize_jit(spec, x0, obj, return_state=True)})
+    st, _, lc, pc, reads, _, _ = runs["p"][0]
+    iters = st.k - 1
+    rounds = reads - 1 - iters
+    _expect("speculative Poisson", lc, pc, K11_pseudo_gradient=1, K9_owlqn_trial_step=iters,
+            K10_pseudo_gradient_norm=iters, K12_pair_gram_xg=iters, K13_combine_ow=iters)
+    nnz = int((st.prob.x[1:] != 0).sum())
+    if not (np.isfinite(float(st.prob.fx)) and 0 < nnz < POISSON_NCOL - 1):
+        raise AssertionError(f"speculative Poisson: fx {st.prob.fx}, {nnz} nonzero")
+    # the candidates' products are one GEMM over the lanes, the sequential
+    # search's one GEMV a trial: another summation order, which decides
+    # acceptance alone; fx comes from the accepted point's evaluation
+    if st.k != runs["s"][0][0].k:
+        raise AssertionError(f"speculative Poisson: {iters} iterations against the "
+                             f"sequential run's {runs['s'][0][0].k - 1}")
+    _spec_report("speculative_poisson", runs, SPEC_POISSON_FX_TOL, nrow=POISSON_NROW,
+                 ncol=POISSON_NCOL, rounds_per_iter=rounds / iters, nnz=nnz)
+    del runs, st
+    torch.cuda.empty_cache()
+    return lc
+
+
+def _spec_batched_runs(seq: LbfgsParams, x0b: torch.Tensor) -> dict:
+    """The batched run with SPEC_K lanes in turns with the sequential ones:
+    on its route (the objective without its batched epilogue) and through
+    the batched epilogue."""
+    fn = default_evaluate()
+    bare = epilogue_free(fn)
+    spec = seq.replace_ls(speculative=SPEC_K)
+    return _spec_turns({"s": lambda: minimize_batched(seq, x0b, bare, return_state=True),
+                        "e": lambda: minimize_batched(seq, x0b, fn, return_state=True),
+                        "p": lambda: minimize_batched(spec, x0b, fn, return_state=True)})
+
+
+def phase_batched_speculative() -> dict:
+    """``minimize_batched`` at 1024 x 2^14 (the batched main path's starts,
+    bf16 ring, capped, epsilon 0, 30 iterations), plain and OWL-QN (c = 1
+    on [0, n - 1)), on the Armijo ladder with SPEC_K lanes, in turns with
+    the sequential runs: K2 b s (K8 b s) per round, K1 b (K7 b, then K10 b)
+    and K5 b (K12 b) and K3 b (K13 b) per iteration, nothing else; every fx
+    finite.  Then instances 0-7 against their solo speculative runs after 8
+    iterations: the same iterations and evaluations, fx rel
+    ``FUSION_TOL_8``."""
+    x0b = batched_x0(BATCH_B, BATCH_N)
+    out = {}
+    for label, seq, lanes, expect in (
+            ("plain", BATCHED_PARAMS.replace_ls(algorithm=LineSearchAlgorithm.BacktrackingArmijo,
+                                                warn_ascent=False),
+             "K2bs_probe_steps_batched",
+             lambda it, r: dict(K2bs_probe_steps_batched=r, K1b_trial_batched=it,
+                                K5b_pair_gram_batched=it, K3b_combine_batched=it)),
+            ("owlqn", BATCHED_OWLQN_PARAMS, "K8bs_owlqn_probe_steps_batched",
+             lambda it, r: dict(K8bs_owlqn_probe_steps_batched=r, K7b_owlqn_trial_batched=it,
+                                K10b_pseudo_gradient_norm_batched=it + 1,
+                                K12b_pair_gram_xg_batched=it, K13b_combine_ow_batched=it))):
+        name = f"batched speculative {label}"
+        runs = _spec_batched_runs(seq, x0b)
+        st, walls, lc, pc, reads, lanes_n, _ = runs["p"][0]
+        iters = int(st.k.max()) - 1
+        rounds = lc[lanes]
+        if reads != 1 + rounds + iters or not np.isfinite(st.fx).all():
+            raise AssertionError(f"{name}: {rounds} rounds, {reads} reads in {iters} "
+                                 f"iterations; fx finite {np.isfinite(st.fx).all()}")
+        _expect(name, lc, pc, **expect(iters, rounds))
+        # on its route the sequential run is the speculative one bit for bit
+        s_st = runs["s"][0][0]
+        for field in ("k", "neval", "status", "fx"):
+            if not np.array_equal(getattr(s_st, field), getattr(st, field)):
+                raise AssertionError(f"{name}: {field} differs from the sequential run on its "
+                                     f"route")
+        if not same_bits(s_st.x, st.x):
+            raise AssertionError(f"{name}: x differs from the sequential run on its route")
+        rows = {}
+        for side, tag in SPEC_SIDES.items():
+            r_st, _, r_lc, _, r_reads, r_lanes, _ = runs[side][0]
+            r_it = int(r_st.k.max()) - 1
+            inst = int(np.maximum(r_st.k - 1, 0).sum())
+            rows[tag] = dict(
+                iters=r_it, wall_ms_per_iter=[1e3 * r[1] / r_it for r in runs[side]],
+                instance_iters_per_s=[inst / r[1] for r in runs[side]],
+                syncs_per_iter=r_reads / r_it,
+                evals_per_instance=float(r_st.neval.mean()),
+                physical_evals_per_instance=(r_lanes / BATCH_B + r_it) if side == "p" else None,
+                fx_median=float(np.median(r_st.fx)),
+                status={int(c): int(v) for c, v in zip(*np.unique(r_st.status,
+                                                                   return_counts=True))})
+        vs_solo = _vs_solo_8(name, seq.replace_ls(speculative=SPEC_K), x0b)
+        emit(phase="batched_speculative", path=label, B=BATCH_B, n=BATCH_N, lanes=SPEC_K,
+             turns=SPEC_TURNS, **rows, launches={k_: v for k_, v in lc.items() if v},
+             vs_same_route="bit-exact", vs_solo=vs_solo, fx_tol=FUSION_TOL_8)
+        out[label] = lc
+        del runs, st
+    del x0b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_speculative_world1() -> dict:
+    """The speculative main path and OWL-QN main path at n = 2^24 under
+    ``kernels_on_mesh`` of an NCCL group of world size 1 in this process,
+    each against the same run with no mesh: iterations, evaluations, fx and
+    x bit for bit, the same launches (K2 s and K8 s on the rank's shard,
+    one collective per round for all its lanes); collectives per
+    iteration."""
+    init_distributed(init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = make_mesh()
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"world-size-1 mesh on {dist.get_backend()}, not NCCL")
+        mesh.all_reduce(torch.zeros(1, device="cuda"))
+        for name, params, lanes in (("main_path", SPEC_PARAMS, "K2s_probe_steps"),
+                                    ("owlqn_main_path", SPEC_OWLQN_PARAMS,
+                                     "K8s_owlqn_probe_steps")):
+            x0 = rosenbrock.initial_point(N_BIG, torch.float32, "cuda")
+            reset_counts()
+            st_s = minimize_jit(params, x0, default_evaluate(), return_state=True)
+            lc_s = launches()
+            st_m, dt, lc_m, pc_m, reads, coll = _sharded_run(mesh, params, x0)
+            same = (st_s.k == st_m.k and st_s.prob.neval == st_m.prob.neval
+                    and _bits(np.asarray(st_s.prob.fx)) == _bits(np.asarray(st_m.prob.fx))
+                    and _bits(st_s.prob.x) == _bits(st_m.prob.x))
+            if not same or lc_s != lc_m or not lc_m[lanes]:
+                raise AssertionError(
+                    f"sharded speculative {name}: k/neval/fx {st_m.k}/{st_m.prob.neval}/"
+                    f"{st_m.prob.fx} against {st_s.k}/{st_s.prob.neval}/{st_s.prob.fx}, "
+                    f"launches {lc_m} against {lc_s}")
+            iters = st_m.k - 1
+            out[name] = dict(iters=iters, evals=st_m.prob.neval, fx=float(st_m.prob.fx),
+                             bit_for_bit=True, rounds=lc_m[lanes],
+                             collectives_per_iter=coll / iters, syncs_per_iter=reads / iters,
+                             ms_per_iter_mesh=1e3 * dt / iters)
+            emit(phase="sharded_speculative_world1", path=name, n=N_BIG, world=1,
+                 backend="nccl", lanes=SPEC_K, **out[name])
+            del st_s, st_m
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -7584,6 +8175,7 @@ def main() -> None:
     lc_k12 = run(phase_k12_route)
     run(phase_wide_kernels)
     lc_poisson, poisson_out, poisson_data = run(phase_poisson_main_path)
+    lc_spec_poisson = run(phase_speculative_poisson, poisson_data)
     run(phase_batched_poisson, poisson_data)
     run(phase_poisson_bf16_main_path, poisson_out)
     run(phase_poisson_f64_vs_cpu)
@@ -7634,7 +8226,13 @@ def main() -> None:
     run(phase_sharded_two_rank, {"main_path": main_out, "owlqn_main_path": ow_out,
                                  "damped_main_path": d_out, "generic": world1["generic"]})
     run(phase_examples)
+    spec = run(phase_speculative_kernels)
+    lc_spec = run(phase_speculative_main_path)
+    lc_spec_ow = run(phase_speculative_owlqn_main_path)
+    lc_spec_b = run(phase_batched_speculative)
+    run(phase_sharded_speculative_world1)
     for key in ("errs", "times", "bounds", "timed_by"):
+        k[key].update(spec[key])
         k[key].update(deep[key])
         k[key].update(batched[key])
         k[key].update(batched_ow[key])
@@ -7698,7 +8296,13 @@ def main() -> None:
           "K7b_owlqn_trial_batched": lc_bscan["owlqn"]["K7b_owlqn_trial_batched"],
           "K5b_pair_gram_batched": lc_btrial["plain"]["K5b_pair_gram_batched"],
           "K5b_pair_gram_batched_gp": lc_btrial["damped"]["K5b_pair_gram_batched_gp"],
-          "K17_axpy_dot": lc_main["K17_axpy_dot"], **lc_cal}
+          "K17_axpy_dot": lc_main["K17_axpy_dot"],
+          # the K-lane probes from the speculative main paths, solo and batched
+          "K2s_probe_steps": lc_spec["K2s_probe_steps"],
+          "K8s_owlqn_probe_steps": lc_spec_ow["K8s_owlqn_probe_steps"],
+          "K2bs_probe_steps_batched": lc_spec_b["plain"]["K2bs_probe_steps_batched"],
+          "K8bs_owlqn_probe_steps_batched": lc_spec_b["owlqn"]["K8bs_owlqn_probe_steps_batched"],
+          **lc_cal}
     # library_ms: one PyTorch call computing the same function, where one
     # exists (only the calibration kernel's o = x + 1)
     table = [

@@ -75,7 +75,14 @@ core (``minimize(..., backend="native")``, ``native``), checkpoints
 (``utils.checkpoint``) and the pytree front end (``pytree_api``).  The
 Poisson regression takes a bfloat16 X over float32 vectors.  Their CPU
 tests hold each to ``lbfgs_tpu`` (``tests/test_torch_parity_slice.py``).
-The speculative search and fp8 histories raise ``NotImplementedError``.
+The speculative K-way backtracking search
+(``with_speculative_linesearch(K)``, ``linesearch.backtracking_speculative``)
+runs on every entry point, plain and under OWL-QN: each round one K-lane
+candidate pass (K2 s, K8 s; on a generic objective ``torch.func.vmap``)
+and one read, each search ending as the sequential Armijo ladder on the
+same inputs.  The one-pass epilogue is off under it (K5's s = stp*d for
+K4's x - xp), so in float32 its iterates are not the default sequential
+run's.  Only fp8 histories raise ``NotImplementedError``.
 
 Giant vectors shard over ``torch.distributed`` (``parallel``): one process
 per GPU, each holding a contiguous slice of every [n] vector and of the
@@ -148,7 +155,9 @@ with OWL-QN and without, damped or not: where no batched epilogue runs
 epilogue) each iteration materializes the accepted points with one K1 b
 (K7 b), then the scan's torch recursion, the composed torch pair + Gram
 pass and combine of a float16 ring, or K5 b (K12 b under OWL-QN) and the
-combine kernels.  Only the speculative search and a mesh raise
+combine kernels.  The speculative search runs batched as the JAX runner
+runs it: one K2 b s (K8 b s) a round over the running instances, then
+that route (K1 b or K7 b, K5 b or K12 b).  Only a mesh raises
 ``NotImplementedError`` there.
 """
 

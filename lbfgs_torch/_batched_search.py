@@ -52,7 +52,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 
-from .linesearch import carried
+from .linesearch import carried, check_speculative
 from .params import LineSearchAlgorithm, LineSearchParams
 from .status import Status
 
@@ -389,21 +389,112 @@ def backtracking(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
                          status=status)
 
 
+#: probe_steps(steps [B, lanes], live [B] bool) -> ft [B, lanes]: the
+#: f-values of the instances in ``live`` at ``lanes`` steps each, one
+#: candidate pass and one read
+ProbeSteps = Callable[[np.ndarray, np.ndarray], np.ndarray]
+
+
+def backtracking_speculative(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
+                             probe_steps: ProbeSteps,
+                             probe1: Optional[tuple] = None) -> BatchedSearch:
+    """``linesearch.backtracking_speculative`` over the instances in
+    ``live``: each round one ``probe_steps`` of K ladder steps per running
+    instance (K2 b s, K8 b s on the card; only the trials left in the last
+    round), and each instance selects its first event in ladder order,
+    the Armijo test or after a failed trial the step bounds, as the scalar
+    search does for it, bit for bit.  An instance that selected leaves the
+    later rounds; a frozen one never enters.  The carried first trials
+    ``probe1`` go unused (``linesearch.carried.ignored`` counts the
+    instances that would have used them)."""
+    f, ff = stp0.dtype.type, finit.dtype.type
+    K = int(ls.speculative)
+    max_ls = ls.max_linesearch
+    trials = max_ls - 1  # `for count in 1..max_linesearch` (src/line.rs:739)
+    dec = f(0.5)
+    dgtest = f(ls.ftol) * dginit
+    min_step, max_step = f(ls.min_step), f(ls.max_step)
+    B = finit.shape[0]
+    if probe1 is not None:
+        carried.ignored += int((live & (probe1[2] == stp0)).sum())
+
+    stp_eval = stp0.copy()
+    stp_eval[live] = f(0.0)
+    if trials <= 0:
+        # zero-trial parity: the entry points, result = max_linesearch
+        return BatchedSearch(fx=finit.copy(), step=stp0.copy(), step_eval=stp_eval,
+                             ncall=np.where(live, max_ls, 0), neval=neval0.copy(),
+                             status=np.zeros(B, np.int64))
+    ladder = dec ** np.arange(K).astype(f)  # [K]: 1, 0.5, 0.25, ...
+    stp_base = stp0.copy()
+    done = np.zeros(B, bool)
+    count = np.zeros(B, np.int64)
+    status = np.zeros(B, np.int64)
+    sel_step = stp0.copy()
+    ft = finit.copy()
+    r = 0
+    with np.errstate(all="ignore"):
+        while r * K < trials:
+            run = live & ~done
+            if not run.any():
+                break
+            lanes = min(K, trials - r * K)
+            steps = stp_base[:, None] * ladder[None, :lanes]
+            fts = probe_steps(steps, run)
+            for j in range(lanes):
+                stp, ft_j = steps[:, j], fts[:, j].astype(ff)
+                # Armijo test (src/line.rs:745-751); step validation only after
+                # a failed trial (src/line.rs:776, :166-178)
+                fail = ft_j > finit + stp * dgtest
+                st = np.where(fail & (stp < min_step), int(Status.LS_MIN_STEP),
+                              np.where(fail & (stp > max_step), int(Status.LS_MAX_STEP), 0))
+                hit = run & ~done & (~fail | (st != 0))
+                count = np.where(hit, 1 + r * K + j, count)
+                sel_step = np.where(hit, stp, sel_step)
+                status = np.where(hit, st, status)
+                # the last evaluated trial's f-value (the accepted one, or on
+                # exhaustion the ladder's last)
+                ft = np.where(run & ~done, ft_j, ft)
+                done = done | hit
+            stp_base = stp_base * dec ** K
+            r += 1
+
+    # exhaustion parity (src/line.rs:777): x at the last evaluated trial,
+    # the next (never evaluated) step reported, ncall max_linesearch
+    last = stp0 * dec ** (trials - 1)
+    ended = live & ~done
+    stp_eval = np.where(done, sel_step, np.where(ended, last, stp_eval))
+    step = np.where(done, sel_step, np.where(ended, last * dec, stp0))
+    ncall = np.where(done & (status == 0), count, np.where(ended, max_ls, 0))
+    neval = neval0 + np.where(done, count, np.where(ended, trials, 0))
+    return BatchedSearch(fx=ft, step=step, step_eval=stp_eval, ncall=ncall, neval=neval,
+                         status=status)
+
+
 def find(ls: LineSearchParams, live, finit, dginit, stp0, neval0,
-         probe: Probe, ow: bool = False, probe1: Optional[tuple] = None) -> BatchedSearch:
+         probe: Probe, ow: bool = False, probe1: Optional[tuple] = None,
+         probe_steps: Optional[ProbeSteps] = None) -> BatchedSearch:
     """``linesearch.find`` over [B] instances: More-Thuente when the
     algorithm selects it and OWL-QN (``ow``) is off, else backtracking,
     each with the combine+probe fusion's carried first trips ``probe1``
-    (ft, g.d, stp_probe; [B] each) when given.  The gradient-only mode
-    with More-Thuente is the reference's hard error (``src/line.rs:208``).
-    An instance with a negative entry step leaves before any evaluation
-    with ``ERR_NEGATIVE_STEP`` (``src/line.rs:197-201``)."""
+    (ft, g.d, stp_probe; [B] each) when given; under the speculative
+    search (``ls.speculative`` > 1) ``backtracking_speculative`` over
+    ``probe_steps``, with the scalar ``find``'s rules (the Armijo-only
+    ladder without the gradient-only mode, else ``ValueError``).  The
+    gradient-only mode with More-Thuente is the reference's hard error
+    (``src/line.rs:208``).  An instance with a negative entry step leaves
+    before any evaluation with ``ERR_NEGATIVE_STEP``
+    (``src/line.rs:197-201``)."""
     use_mt = ls.algorithm == LineSearchAlgorithm.MoreThuente and not ow
     if use_mt and ls.gradient_only:
         raise ValueError(
             "Gradient only optimization is incompatible with MoreThuente line search.")
     neg = live & np.signbit(stp0)
-    if use_mt:
+    if int(ls.speculative) > 1:
+        check_speculative(ls, ow)
+        out = backtracking_speculative(ls, live & ~neg, finit, dginit, stp0, neval0,
+                                       probe_steps, probe1)
+    elif use_mt:
         out = morethuente(ls, live & ~neg, finit, dginit, stp0, neval0, probe, probe1)
     else:
         out = backtracking(ls, live & ~neg, finit, dginit, stp0, neval0, probe, ow, probe1)

@@ -132,9 +132,15 @@ searches, the step capped or not, damped or not, at any history depth
 (above ``factory.MAX_M`` ring rows the deep forms of K4 b, K14 b, K15 b
 and K16 b, and K3 b, K13 b and K6 b with their coefficients sized at
 launch; K5 b and K12 b take any depth), under either objective scalar,
-with either two-loop and any history dtype; ``check_supported_batched``
-raises ``NotImplementedError`` for the speculative search and a mesh,
-which the JAX runner does not take either.
+with either two-loop and any history dtype, and under the speculative
+K-way search (``_batched_search.backtracking_speculative``: each round
+one K-lane probe, K2 b s or K8 b s, over the running instances, or on a
+generic objective one ``torch.func.vmap`` over the B*K candidate points,
+and one read; then the ``TRIAL`` route, or on a generic objective the
+accepted points evaluated once), as the JAX runner runs it
+(``tests/test_speculative.py:193-218``); ``check_supported_batched``
+raises ``NotImplementedError`` for a mesh, which the JAX runner does not
+take either.
 """
 
 from __future__ import annotations
@@ -147,8 +153,9 @@ import torch
 
 from . import _batched_search, solver
 from .core import History, _required_positional, np_type, to_host_rows
+from .linesearch import candidate_values
 from .ops import fused
-from .orthantwise import project_window
+from .orthantwise import choose_orthant, project_window
 from .params import LbfgsParams
 from .status import Status
 
@@ -201,7 +208,9 @@ def route(params: LbfgsParams, evaluate: Callable, x: torch.Tensor, S: torch.Ten
       * ``TRIAL``: each trip one batched probe, and the accepted points
         materialized by one batched trial (K1 b; K7 b), where the objective
         carries them but the epilogue does not run (an objective with a
-        fused trial and no epilogue, the scan two-loop, a float16 ring);
+        fused trial and no epilogue, the scan two-loop, a float16 ring, the
+        speculative search, whose rounds are K-lane probes, K2 b s and K8 b
+        s, and which materializes the accepted points itself);
       * ``GENERIC``: each trip the trials materialized and evaluated with
         ``torch.func.vmap``, for an objective without the batched probe and
         trial (the JAX package's generic branch)."""
@@ -211,6 +220,7 @@ def route(params: LbfgsParams, evaluate: Callable, x: torch.Tensor, S: torch.Ten
     if not has(probe):
         return GENERIC
     if (has(pre + "trial_pair_gram_batched__") and params.compact_two_loop
+            and int(params.linesearch.speculative) <= 1
             and (x.dtype, S.dtype) in fused.SUPPORTED):
         return EPILOGUE
     return TRIAL if has(pre + "trial_batched__") else GENERIC
@@ -256,21 +266,17 @@ def batched_objective(evaluate: Callable, x0_batch: torch.Tensor) -> Callable:
         return fx, g
 
     value_and_grad.__lbfgs_value_and_grad__ = True
+    # fx alone, for the speculative search's candidates (no gradient)
+    value_and_grad.__lbfgs_value__ = evaluate
     return value_and_grad
 
 
 def check_supported_batched(params: LbfgsParams, evaluate: Callable,
                             x0_batch: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` naming each setting the batched runner
-    does not run: the speculative search (the JAX runner's K-way search
-    is left out) and a mesh (``parallel``: the JAX runner takes none)."""
-    unsupported = [
-        (fused.active_mesh() is not None, "a mesh (sharded batches are not ported)"),
-        (int(params.linesearch.speculative) > 1, "the speculative line search"),
-    ]
-    for refused, what in unsupported:
-        if refused:
-            raise NotImplementedError(f"minimize_batched: {what}")
+    does not run: a mesh (``parallel``: the JAX runner takes none)."""
+    if fused.active_mesh() is not None:
+        raise NotImplementedError("minimize_batched: a mesh (sharded batches are not ported)")
 
 
 def _to_device(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -487,19 +493,24 @@ def _propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
         # gradient, written by the trips it runs (the others keep theirs)
         xt, gt = x.clone(), g.clone()
 
-        def probe(stp, run):
+        def trial(stp, run):
+            # the running instances' trial points and gradients into xt, gt;
+            # (ft, g) of the whole batch, evaluated at once
             stp, run = _to_device(stp, x), _to_device(run, x)
             if ow is None:
                 xt.copy_(torch.where(run[:, None], x + stp[:, None] * d, xt))
             else:
                 # K9 b: the projected points, the orthant from (x, pg)
                 fused.owlqn_trial_step_batched(x, d, pg, stp, lo, hi, run, xt)
-            # the whole batch evaluated at once; only the running rows kept
             ft, g_all = torch.func.vmap(evaluate)(xt)
             gt.copy_(torch.where(run[:, None], g_all, gt))
             ft = fused.obj_lift(ft, x.dtype)
             if ow is not None:
                 ft = ft + fused.l1_batched(xt, lo, hi) * c
+            return ft, g_all
+
+        def probe(stp, run):
+            ft, g_all = trial(stp, run)
             return to_host_rows(ft, fused.row_dot(g_all, d))
     else:
         def probe(stp, run):
@@ -510,9 +521,35 @@ def _propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
             return to_host_rows(*evaluate.__lbfgs_owlqn_probe_pg_batched__(x, d, pg, stp, c, lo,
                                                                           hi, run))
 
+    def probe_steps(steps, run):
+        # the speculative search's round: the [B, lanes] f-values of K2 b s
+        # (K8 b s, its orthant rebuilt from (x, pg)), or of a generic
+        # objective at the B*lanes candidate points under one vmap (the JAX
+        # package's double vmap, its OWL-QN points by the plain projection
+        # formula), and one read
+        stp = fused.to_device(torch.from_numpy(np.ascontiguousarray(steps)), x)
+        run = fused.to_device(torch.from_numpy(run), x)
+        hook = ("__lbfgs_probe_steps_batched__" if ow is None
+                else "__lbfgs_owlqn_probe_pg_steps_batched__")
+        lanes = getattr(evaluate, hook, None)
+        if lanes is not None and way != GENERIC:
+            ft = (lanes(x, d, stp, run) if ow is None
+                  else lanes(x, d, pg, stp, c, lo, hi, run))
+        else:
+            ft = candidate_values(evaluate, x, d, stp, ow,
+                                  None if ow is None else choose_orthant(ow, x, pg))
+        return np.stack(to_host_rows(*ft.unbind(1)), axis=1)
+
     ls = _batched_search.find(params.linesearch, live, st.fx, st.dg0, st.step, st.neval,
-                              probe, ow=ow is not None, probe1=st.probe1)
+                              probe, ow=ow is not None, probe1=st.probe1,
+                              probe_steps=probe_steps)
     ok = live & (ls.status == 0)
+    fx_mat = None
+    if way == GENERIC and int(params.linesearch.speculative) > 1 and ok.any():
+        # the speculative rounds wrote no trial: the accepted points, their
+        # gradients and f-values, at each accepted instance's evaluated
+        # step (fx from this evaluation, as the solo search takes it)
+        fx_mat, _ = trial(ls.step_eval, ok)
     status = np.where(live, int(Status.ERR_X_NOT_CHANGED), st.status)
     gnorm2, xnorm2, dg0, step = st.gnorm2, st.xnorm2, st.dg0, st.step
     step_ls = np.where(ls.status != 0, st.step, ls.step)
@@ -718,8 +755,11 @@ def _propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
                        sy=keep(sy, hist.sy), yy=keep(yy, hist.yy))
         # the one read of the iteration's epilogue (or pair update) and
         # combine, the fusion's probe and the damping cases included
-        gg_h, xx_h, yy_h, dd_h, rd_h, changed_h, *rest = to_host_rows(
-            gg, xx, yy_new, dd, rd, changed, *extra, *fused_out)
+        vals = to_host_rows(*(() if fx_mat is None else (fx_mat,)), gg, xx, yy_new, dd, rd,
+                            changed, *extra, *fused_out)
+        if fx_mat is not None:
+            fx_mat, *vals = vals
+        gg_h, xx_h, yy_h, dd_h, rd_h, changed_h, *rest = vals
         rc2_h = rest[:1] if ow is not None else ()
         if case is not None:
             _log_damping(rest[len(extra) - 1], ok)
@@ -754,8 +794,9 @@ def _propagate(params: LbfgsParams, evaluate: Callable, st: BatchedState,
     status = np.where(live & (ls.status == Status.ERR_NEGATIVE_STEP),
                       int(Status.ERR_NEGATIVE_STEP), status)
     at = lambda new, old: np.where(live, new, old)
+    fx = ls.fx if fx_mat is None else np.where(ok, fx_mat, ls.fx).astype(ls.fx.dtype)
     st = st._replace(
-        x=x, gx=g, hist=hist, fx=at(ls.fx, st.fx), gnorm2=gnorm2, xnorm2=xnorm2,
+        x=x, gx=g, hist=hist, fx=at(fx, st.fx), gnorm2=gnorm2, xnorm2=xnorm2,
         neval=at(ls.neval, st.neval), k=k, end=at((st.end + 1) % m, st.end), step=step,
         step_ls=at(step_ls, st.step_ls), ncall=at(ls.ncall, st.ncall), status=status,
         ls_status=at(ls.status, st.ls_status), dg0=dg0, probe1=probe1,

@@ -185,10 +185,14 @@ def normalize_objective(fn: Callable) -> EvalFn:
             fx = fn(x, g)
             return torch.as_tensor(fx, dtype=x.dtype, device=x.device), g
 
+        # a mutating closure evaluates one point at a time (the speculative
+        # search refuses it, as the JAX package refuses its io_callback)
+        closure_vag.__lbfgs_closure__ = True
         return closure_vag
 
     # 1-arg: a scalar objective or a value-and-grad one, told apart by
-    # what the first call returns
+    # what the first call returns; ``value`` is fx alone (the speculative
+    # search evaluates its candidates through it under torch.func.vmap)
     kind = []
 
     def vag(x):
@@ -205,6 +209,10 @@ def normalize_objective(fn: Callable) -> EvalFn:
             (g,) = torch.autograd.grad(out, xg)
         return out.detach(), g
 
+    def value(x):
+        return fn(x) if kind == ["scalar"] else fn(x)[0]
+
+    vag.__lbfgs_value__ = value
     return vag
 
 

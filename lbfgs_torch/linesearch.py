@@ -29,6 +29,14 @@ when the algorithm selects it AND OWL-QN is off; otherwise backtracking,
 and under OWL-QN with the Armijo-only exit and every trial point
 projected onto the orthant chosen before the loop.
 
+The speculative K-way search (``LineSearchParams.speculative`` = K > 1,
+``backtracking_speculative``) takes the Armijo-only ladder, whose steps
+stp*0.5^j are known before any is evaluated: each round evaluates K of
+them in one candidate pass (K2 s, under OWL-QN K8 s; a generic objective
+under ``torch.func.vmap``) and reads their f-values in one transfer, so a
+ladder of t trials reads ceil(t/K) times instead of t.  ``find`` routes
+to it with the JAX package's rules (``check_speculative``).
+
 Reference quirks kept (each cited in ``lbfgs_tpu/linesearch.py``): the
 More-Thuente loop makes at most ``max_linesearch - 1`` trials and then
 succeeds with ``max_linesearch`` (``src/line.rs:258,395-398``); its first
@@ -48,7 +56,7 @@ import numpy as np
 import torch
 
 from . import orthantwise as ow_ops
-from .core import ProblemDef, evaluate, np_type, to_host
+from .core import ProblemDef, evaluate, np_type, to_host, to_host_rows
 from .ops import fused
 from .ops import vecmath as vm
 from .params import LineSearchAlgorithm, LineSearchParams
@@ -218,7 +226,8 @@ def update_trial_interval(x, fx, dx, y, fy, dy, t, ft, dt, tmin, tmax,
 
 class LineSearchResult(NamedTuple):
     x: Optional[torch.Tensor]   #: evaluated trial point (None: scalars-only mode)
-    fx: np.floating             #: objective there (host)
+    fx: np.floating             #: objective there (host; from the
+                                #: speculative search a 0-d device tensor)
     gx: Optional[torch.Tensor]  #: gradient there
     step: np.floating           #: accepted step length (reported)
     ncall: int                  #: evaluations used (0 on failure)
@@ -287,6 +296,9 @@ def carried(probe1: Optional[tuple], count: int, stp) -> Optional[tuple]:
 
 
 carried.used = 0
+#: the carried first trials a speculative search left unused (it evaluates
+#: its own ladder): each is one combine+probe fusion's probe spent
+carried.ignored = 0
 
 
 def _trial(pdef: ProblemDef, xp, d, stp, wp=None):
@@ -300,15 +312,20 @@ def _trial(pdef: ProblemDef, xp, d, stp, wp=None):
     (``lbfgs_tpu/linesearch.py:272-283, 345-363``)."""
     if _has_fused_trial(pdef):
         return pdef.value_and_grad.__lbfgs_trial__(xp, d, stp)
-    if pdef.orthantwise:
+    if _has_fused_owlqn_trial(pdef):
         c, start, end = _owlqn_args(pdef, xp.shape[0])
-        if _has_fused_owlqn_trial(pdef):
-            return pdef.value_and_grad.__lbfgs_owlqn_trial__(xp, d, wp, stp, c, start, end)
-        xt = fused.owlqn_trial_step(xp, d, wp, stp, start, end)
-    else:
-        xt = xp + float(stp) * d
+        return pdef.value_and_grad.__lbfgs_owlqn_trial__(xp, d, wp, stp, c, start, end)
+    xt = _trial_point(pdef, xp, d, stp, wp)
     ft, gt = evaluate(pdef, xt)
     return xt, ft, gt, vm.dot(gt, d)
+
+
+def _trial_point(pdef: ProblemDef, xp, d, stp, wp=None):
+    """A generic objective's trial point: xp + stp*d, under OWL-QN projected
+    onto ``wp`` inside the window (K9)."""
+    if pdef.orthantwise:
+        return fused.owlqn_trial_step(xp, d, wp, stp, *pdef.owlqn.start_end(xp.shape[0]))
+    return xp + float(stp) * d
 
 
 # ---------------------------------------------------------------------------
@@ -601,6 +618,211 @@ def backtracking(
 
 
 # ---------------------------------------------------------------------------
+# Speculative K-way backtracking (the Armijo-only ladder)
+# ---------------------------------------------------------------------------
+
+
+def _candidates(pdef: ProblemDef, xp, d, steps: np.ndarray, wp=None) -> torch.Tensor:
+    """The [K] objective values (with the L1 term under OWL-QN) at the
+    candidate steps ``steps``, on the device: K2 s (K8 s) where the
+    objective has it, one pass over the vectors.  A generic objective
+    evaluates the K candidate points under ``torch.func.vmap`` (the JAX
+    package's vmapped scalar pass, ``lbfgs_tpu/linesearch.py:999-1008``),
+    under OWL-QN projected by the plain formula (``owlqn_trial_step_ref``'s,
+    bit for bit K9's) with the L1 term added per point; on a mesh it keeps
+    the local contract, and its objective's collective cannot be vmapped,
+    so it evaluates the points in turn (one collective each, two under
+    OWL-QN)."""
+    vag = pdef.value_and_grad
+    if pdef.orthantwise:
+        c, start, end = _owlqn_args(pdef, xp.shape[0])
+        lanes = getattr(vag, "__lbfgs_owlqn_probe_steps__", None)
+        if lanes is not None:
+            return lanes(xp, d, wp, steps, c, start, end)
+    elif getattr(vag, "__lbfgs_probe_steps__", None) is not None:
+        return vag.__lbfgs_probe_steps__(xp, d, steps)
+    if fused.active_mesh() is not None:
+        return torch.stack([evaluate(pdef, _trial_point(pdef, xp, d, s, wp))[0]
+                            for s in steps])
+    stp = fused.to_device(torch.as_tensor(steps, dtype=xp.dtype), xp)
+    return candidate_values(vag, xp, d, stp, pdef.owlqn, wp)
+
+
+def candidate_values(vag, x: torch.Tensor, d: torch.Tensor, steps: torch.Tensor,
+                     owlqn=None, wp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A generic objective's values at the candidate points x + steps*d
+    under ONE ``torch.func.vmap``: x, d (and wp) [n] with steps [K] for a
+    solo search, or [B, n] with steps [B, K] for the batched one (the JAX
+    package's double vmap), giving [K] or [B, K].  Under OWL-QN
+    (``owlqn``) each point is projected onto the orthant ``wp`` inside the
+    window by the plain formula (``owlqn_trial_step_ref``'s, bit for bit
+    K9's) and c*L1 is added per point.  The objective's fx-only form
+    ``__lbfgs_value__`` is used where it has one (a scalar objective then
+    needs no gradient), else fx of its value and gradient."""
+    pts = x.unsqueeze(-2) + steps.unsqueeze(-1) * d.unsqueeze(-2)
+    if owlqn is not None:
+        lo, hi = owlqn.start_end(x.shape[-1])
+        pts = ow_ops.project_window(pts, wp.unsqueeze(-2), lo, hi)
+    flat = pts.reshape(-1, x.shape[-1])
+    value = getattr(vag, "__lbfgs_value__", None) or (lambda p: vag(p)[0])
+    try:
+        fx = fused.obj_lift(torch.func.vmap(value)(flat), x.dtype)
+    except Exception as e:
+        name = getattr(vag, "__qualname__", repr(vag))
+        raise ValueError(
+            f"Speculative line search requires a traceable objective: {name} cannot be "
+            "evaluated under torch.func.vmap over the candidate steps.  Use the sequential "
+            "search, or provide an objective torch.func.vmap can trace.") from e
+    if owlqn is not None:
+        fx = fx + fused.l1_batched(flat, lo, hi) * owlqn.c
+    return fx.reshape(pts.shape[:-1])
+
+
+def backtracking_speculative(
+    pdef: ProblemDef,
+    ls: LineSearchParams,
+    xp: torch.Tensor,
+    finit: np.floating,
+    gp: torch.Tensor,
+    d: torch.Tensor,
+    stp0: np.floating,
+    dginit: np.floating,
+    neval0: int,
+    wp: Optional[torch.Tensor] = None,
+    probe1: Optional[tuple] = None,
+) -> LineSearchResult:
+    """The speculative K-way form of the Armijo-only backtracking ladder
+    (``lbfgs_tpu/linesearch.py:870-1060``).  The ladder shrinks the step
+    by the constant 0.5 after each failed trial (``src/line.rs:725,
+    747-751``), so its candidate steps stp*0.5^j are known before any is
+    evaluated: each round evaluates K of them in one candidate pass
+    (``_candidates``: K2 s, K8 s, or a vmapped generic pass), reads their
+    [K] f-values in ONE transfer, and selects the first event in ladder
+    order: the Armijo test passes, or after a failed trial the step is
+    below ``min_step`` (``LS_MIN_STEP``) or above ``max_step``
+    (``LS_MAX_STEP``).  The accepted point is materialized once at the end
+    (``_trial``: K1, or under OWL-QN K7 where the objective has it, else
+    K9's point and one evaluation).  So a ladder of t trials costs
+    ceil(t/K) reads and candidate passes instead of t.
+
+    The steps are those of the JAX package: stp_base*0.5^j with stp_base
+    *= 0.5^K each round, numpy scalars in the vectors' dtype, each equal
+    to the sequentially halved step bit for bit; the Armijo test compares
+    each lane's f-value (float64 under the wide objective scalar) with
+    finit + stp*dgtest as ``backtracking`` does.  ``step``, ``step_eval``,
+    ``ncall``, ``neval`` (counted in logical trials) and ``status`` are the
+    sequential search's, exhaustion (the next, never evaluated, step
+    reported) and the zero-trial exit included; only the physical
+    evaluations differ: the rounds' lanes (the last round evaluates only
+    the trials left) and the materialization.  The reported fx, x and gx
+    come from that one materialization, as the JAX package's ``_finish``
+    takes them; fx stays a 0-d device tensor, which the solver reads with
+    the rest of its iteration (on a factory objective it equals the
+    accepted lane's value bit for bit).  The combine+probe fusion's carried first trial
+    ``probe1`` is not used (``lbfgs_tpu/linesearch.py:1236`` passes none);
+    ``carried.ignored`` counts the searches that would have used it.
+    """
+    f = np_type(xp.dtype)
+    ff = np.dtype(finit.dtype).type
+    finit, dginit = ff(finit), f(dginit)
+    K = int(ls.speculative)
+    max_ls = ls.max_linesearch
+    trials = max_ls - 1  # `for count in 1..max_linesearch` (src/line.rs:739)
+    dec = f(0.5)
+    dgtest = f(ls.ftol) * dginit
+    min_step, max_step = f(ls.min_step), f(ls.max_step)
+    remat = _has_fused_trial(pdef) or _has_fused_owlqn_trial(pdef)
+    if probe1 is not None and probe1[2] == f(stp0):
+        carried.ignored += 1
+
+    if trials <= 0:
+        # zero-trial parity: the sequential loop never runs (max_ls <= 1);
+        # the entry point comes back with result = max_linesearch
+        gg = None if pdef.orthantwise else vm.dot(gp, gp)
+        changed = torch.zeros((), dtype=torch.bool, device=xp.device) if remat else None
+        return LineSearchResult(
+            x=xp, fx=finit, gx=gp, step=f(stp0), ncall=max_ls, neval=neval0, status=0,
+            gg=gg, xx=vm.dot(xp, xp), changed=changed, step_eval=f(0.0))
+
+    ladder = dec ** np.arange(K).astype(f)  # [K]: 1, 0.5, 0.25, ...
+    stp_base = f(stp0)
+    sel = None  # (count, step, status) of the first event
+    r = 0
+    with np.errstate(all="ignore"):
+        while sel is None and r * K < trials:
+            lanes = min(K, trials - r * K)
+            steps = (stp_base * ladder)[:lanes]
+            (fts,) = to_host_rows(_candidates(pdef, xp, d, steps, wp))
+            for j in range(lanes):
+                stp, ft = steps[j], ff(fts[j])
+                # Armijo test (src/line.rs:745-751); step validation only
+                # after a failed trial (src/line.rs:776, :166-178)
+                if not ft > finit + stp * dgtest:
+                    sel = (1 + r * K + j, stp, 0)
+                elif stp < min_step:
+                    sel = (1 + r * K + j, stp, int(Status.LS_MIN_STEP))
+                elif stp > max_step:
+                    sel = (1 + r * K + j, stp, int(Status.LS_MAX_STEP))
+                if sel is not None:
+                    break
+            stp_base = stp_base * dec ** K
+            r += 1
+
+    if sel is not None:
+        count, eval_step, status = sel
+        report_step = eval_step
+        ncall = count if status == 0 else 0
+        neval = neval0 + count
+    else:
+        # exhaustion parity: the sequential loop leaves stp at the NEXT
+        # (never evaluated) proposal while (x, f, g) sit at the last
+        # evaluated trial (src/line.rs:777); ncall stays max_linesearch
+        eval_step = f(stp0) * dec ** (trials - 1)
+        report_step = eval_step * dec
+        status, ncall, neval = 0, max_ls, neval0 + trials
+    # the accepted point materialized once; fx, g and x from this one
+    # evaluation (lbfgs_tpu/linesearch.py:942-957), fx left on the device
+    # for the solver's read
+    res = _trial(pdef, xp, d, eval_step, wp)
+    xt, ft, gt = res[:3]
+    if not torch.is_tensor(ft):
+        ft = ff(ft)
+    if _has_fused_trial(pdef):
+        gg, xx, changed = res[4:]
+    elif _has_fused_owlqn_trial(pdef):
+        gg, (xx, changed) = None, res[4:]
+    elif pdef.orthantwise:
+        gg, xx, changed = None, vm.dot(xt, xt), None
+    else:
+        (gg, xx), changed = vm.dots((gt, gt), (xt, xt)), None
+    return LineSearchResult(
+        x=xt, fx=ft, gx=gt, step=report_step, ncall=ncall, neval=neval, status=status,
+        gg=gg, xx=xx, changed=changed, step_eval=eval_step,
+    )
+
+
+def check_speculative(ls: LineSearchParams, ow: bool, value_and_grad=None) -> None:
+    """The speculative search's rules (``lbfgs_tpu/linesearch.py:1130-1150``):
+    the Armijo-only ladder (BacktrackingArmijo, or under OWL-QN, ``ow``,
+    any backtracking search) without gradient_only, and a traceable
+    objective ``value_and_grad`` (not a mutating closure f(x, g));
+    ``ValueError`` otherwise."""
+    armijo_ladder = ow or ls.algorithm == LineSearchAlgorithm.BacktrackingArmijo
+    if not armijo_ladder or ls.gradient_only:
+        raise ValueError(
+            "Speculative line search requires the Armijo-only ladder "
+            "(BacktrackingArmijo, or any backtracking search under OWL-QN) without "
+            "gradient_only; More-Thuente and the Wolfe ladders choose data-dependent "
+            "trial steps.")
+    if getattr(value_and_grad, "__lbfgs_closure__", False):
+        raise ValueError(
+            "Speculative line search requires a traceable objective: a reference-style "
+            "closure f(x, gx) evaluates one point at a time and cannot be vmapped over "
+            "the candidate steps.  Use the sequential search, or provide an "
+            "f(x) -> fx or f(x) -> (fx, gx) objective.")
+
+
+# ---------------------------------------------------------------------------
 # Dispatcher
 # ---------------------------------------------------------------------------
 
@@ -651,6 +873,13 @@ def find(
         raise ValueError(
             "Gradient only optimization is incompatible with MoreThuente line search."
         )
+    speculative = int(ls.speculative) > 1
+    if speculative:
+        check_speculative(ls, ow, pdef.value_and_grad)
+        if not materialize:
+            raise ValueError(
+                "materialize=False is incompatible with the speculative search (its "
+                "candidate pass does not write the accepted point)")
     if dginit is None:
         # pg.d under OWL-QN, else g.d (src/core.rs:78-92)
         (dginit,) = to_host(vm.dot(pgp if ow else gp, d))
@@ -672,5 +901,8 @@ def find(
     wp_is_pg = ow and not materialize
     if ow:
         wp = pgp if wp_is_pg else ow_ops.choose_orthant(pdef.owlqn, xp, pgp)
+    if speculative:
+        return backtracking_speculative(pdef, ls, xp, finit, gp, d, stp0, dginit, neval0, wp,
+                                        probe1=probe1)
     return backtracking(pdef, ls, xp, finit, gp, d, stp0, dginit, neval0, wp,
                         materialize=materialize, wp_is_pg=wp_is_pg, probe1=probe1)

@@ -70,6 +70,22 @@ float32, to every kernel's count below):
     ft and g.d are K8's bit for bit (the remat contract; K7's x.x and
     changed go to an array of their own, since a column of a wider
     partials array would be summed in another order).
+  * K2 s ``probe_steps_kernel`` and K8 s ``owlqn_probe_steps_kernel``
+    (the speculative search's candidate pass; they replace no Pallas
+    kernel: the JAX package runs it as XLA's fusion of the vmapped
+    ``value_and_grad``, ``lbfgs_tpu/linesearch.py:999-1008``): K2's and
+    K8's block at K steps of the backtracking ladder in one pass.  Each
+    program loads its blocks of xp, d (K8: the orthant's operand) and
+    the extras once and runs the body per lane, so the vectors are read
+    once whatever K is (8 and 12 B/elem in f32, K2's and K8's); K is a
+    compile-time constant (``factory.SPEC_MAX_LANES`` at most: the
+    wrappers launch more lanes in chunks), and the body's work grows with
+    it.  Lane k's partials are a row of K2's (K8's) [programs, 2 | 3]
+    array at the same place, the objective's (and the window's |x|) sum
+    by K2's (K8's) expressions, so the wrappers reduce each lane by K2's
+    (K8's) code path and each lane's fx equals K2's (K8's) at that step
+    bit for bit; the g.d column is written 0, so the gradient's product
+    is never formed.
   * K14 ``owlqn_trial_pair_gram_kernel`` (replaces
     factory.py:_owlqn_tpg_kernel): the accepted projected point x with wp
     rebuilt from (xp, pg_old), its gradient g and pseudo-gradient pg, the
@@ -189,7 +205,12 @@ b's and K8 b's expressions into arrays of K2 b's and K8 b's layout, so
 that at the same step their scalars are K2 b's and K8 b's bit for bit
 (the remat contract).  Each batched form's r, x, g, pg and ring rows are
 its solo kernel's on that instance alone bit for bit, and so are its
-partials, but K4 b's and K14 b's.
+partials, but K4 b's and K14 b's.  The speculative search's batched
+candidate pass is K2 b s ``probe_steps_batched_kernel`` (K8 b s
+``owlqn_probe_steps_batched_kernel`` under OWL-QN): K2 b's (K8 b's)
+program at K steps per instance, each instance's steps a row of a [B, K]
+array, lane k's partials in K2 b's (K8 b's) [B, programs, 2 | 3] layout,
+so that each lane's fx is K2 b's (K8 b's) at that step bit for bit.
 
   How K4 b and K14 b are laid out.  Their launch is sized over the whole
   batch (``factory.batched_epilogue_grid``), not per instance: each
@@ -1130,6 +1151,108 @@ def owlqn_probe_kernel(xp_ptr, d_ptr, w_ptr, stp_ptr, part_ptr, n, lo, hi, off, 
     x = _ow_point(xp, d, stp, wp_sign, in_win)
     fe, g = body(x, _gidx(offs, off, SHARD), *exb)
     _store_ow_probe(part_ptr, fe, x, g, d, mask, in_win)
+
+
+@triton.jit
+def probe_steps_kernel(xp_ptr, d_ptr, stp_ptr, part_ptr, n, off, ex,
+                       body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+                       K: tl.constexpr, SHARD: tl.constexpr):
+    # K2 s: K2's block at the K steps stp_ptr[0 .. K-1], xp, d and the
+    # extras loaded once; lane k's row of K2's [programs, 2] partials at
+    # part_ptr + k*programs*2, the objective's sum in column 0 and 0 in
+    # column 1 (the search reads the objective alone, so g.d is not formed)
+    offs = _offsets(ROWS, W)
+    mask = offs < n
+    xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+    exb = _extras(ex, offs, mask)
+    gidx = _gidx(offs, off, SHARD)
+    part = part_ptr + tl.program_id(0) * 2
+    lane = tl.num_programs(0) * 2
+    for k in tl.static_range(K):
+        x = xp + tl.load(stp_ptr + k) * d
+        fe, g = body(x, gidx, *exb)
+        tl.store(part + k * lane, _block_sum(fe, mask))
+        tl.store(part + k * lane + 1, 0.0)
+
+
+@triton.jit(do_not_specialize=["stp_stride"])
+def probe_steps_batched_kernel(xp_ptr, d_ptr, stp_ptr, stp_stride, live_ptr, part_ptr, n, ex,
+                               body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+                               K: tl.constexpr):
+    # K2 b s: program (i, b) is K2 b's at the K steps stp_ptr[b*stp_stride
+    # + k]; lane k's partials in K2 b's [B, programs, 2] layout at
+    # part_ptr + k*B*programs*2 (column 1 0, as K2 s)
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    offs = _offsets(ROWS, W)
+    mask = (offs < n) & live
+    xp = tl.load(xp_ptr + row + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + row + offs, mask=mask, other=0.0)
+    exb = _extras(ex, offs, mask)
+    progs = tl.num_programs(0).to(tl.int64)
+    part = part_ptr + (b.to(tl.int64) * progs + tl.program_id(0)) * 2
+    lane = tl.num_programs(1) * progs * 2
+    for k in tl.static_range(K):
+        x = xp + tl.load(stp_ptr + b * stp_stride + k) * d
+        fe, g = body(x, offs, *exb)
+        tl.store(part + k * lane, _block_sum(fe, mask), mask=live)
+        tl.store(part + k * lane + 1, 0.0, mask=live)
+
+
+@triton.jit(do_not_specialize=["lo", "hi"])
+def owlqn_probe_steps_kernel(xp_ptr, d_ptr, wp_ptr, stp_ptr, part_ptr, n, lo, hi, off, ex,
+                             body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+                             K: tl.constexpr, SHARD: tl.constexpr):
+    # K8 s: K8's block at K steps, the orthant's signs formed once; lane k's
+    # row of K8's [programs, 3] partials at part_ptr + k*programs*3: the
+    # objective's and the window's |x| sums, 0 for g.d
+    offs = _offsets(ROWS, W)
+    mask = offs < n
+    xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + offs, mask=mask, other=0.0)
+    wp_sign = _msign(tl.load(wp_ptr + offs, mask=mask, other=0.0))
+    exb = _extras(ex, offs, mask)
+    in_win = (offs >= lo) & (offs < hi)
+    gidx = _gidx(offs, off, SHARD)
+    part = part_ptr + tl.program_id(0) * 3
+    lane = tl.num_programs(0) * 3
+    for k in tl.static_range(K):
+        x = _ow_point(xp, d, tl.load(stp_ptr + k), wp_sign, in_win)
+        fe, g = body(x, gidx, *exb)
+        tl.store(part + k * lane, _block_sum(fe, mask))
+        tl.store(part + k * lane + 1, _block_sum(tl.abs(x), mask & in_win))
+        tl.store(part + k * lane + 2, 0.0)
+
+
+@triton.jit(do_not_specialize=["stp_stride", "lo", "hi"])
+def owlqn_probe_steps_batched_kernel(xp_ptr, d_ptr, pg_ptr, stp_ptr, stp_stride, live_ptr,
+                                     part_ptr, n, lo, hi, ex, body: tl.constexpr,
+                                     ROWS: tl.constexpr, W: tl.constexpr, K: tl.constexpr):
+    # K8 b s: program (i, b) is K8 b's at K steps, the orthant rebuilt from
+    # (xp, pg) once; lane k's (f, L1, 0) partials in K8 b's layout at
+    # part_ptr + k*B*programs*3
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    offs = _offsets(ROWS, W)
+    mask = (offs < n) & live
+    xp = tl.load(xp_ptr + row + offs, mask=mask, other=0.0)
+    d = tl.load(d_ptr + row + offs, mask=mask, other=0.0)
+    pg = tl.load(pg_ptr + row + offs, mask=mask, other=0.0)
+    exb = _extras(ex, offs, mask)
+    wp_sign = tl.where(xp == 0.0, _msign(-pg), _msign(xp))
+    in_win = (offs >= lo) & (offs < hi)
+    progs = tl.num_programs(0).to(tl.int64)
+    part = part_ptr + (b.to(tl.int64) * progs + tl.program_id(0)) * 3
+    lane = tl.num_programs(1) * progs * 3
+    for k in tl.static_range(K):
+        x = _ow_point(xp, d, tl.load(stp_ptr + b * stp_stride + k), wp_sign, in_win)
+        fe, g = body(x, offs, *exb)
+        tl.store(part + k * lane, _block_sum(fe, mask), mask=live)
+        tl.store(part + k * lane + 1, _block_sum(tl.abs(x), mask & in_win), mask=live)
+        tl.store(part + k * lane + 2, 0.0, mask=live)
 
 
 @triton.jit(do_not_specialize=["end", "lo", "hi", "tiles"])

@@ -62,7 +62,16 @@ protocol the solver looks for:
     ``__lbfgs_trial_batched__`` / ``__lbfgs_owlqn_trial_batched__``: K1 b
     and K7 b, K1 and K7 over a batch, which materialize the accepted
     points where no batched epilogue runs (the scan two-loop, a float16
-    ring, an objective without the epilogue) and evaluate the wide init.
+    ring, an objective without the epilogue, the speculative search) and
+    evaluate the wide init.
+  * ``__lbfgs_probe_steps__`` / ``__lbfgs_owlqn_probe_steps__`` — K2 s and
+    K8 s, the speculative search's candidate pass: the objective (+ c*L1)
+    at K steps of the backtracking ladder from one pass over the vectors,
+    each lane K2's (K8's) fx at its step bit for bit; over a batch
+    ``__lbfgs_probe_steps_batched__`` /
+    ``__lbfgs_owlqn_probe_pg_steps_batched__`` (K2 b s, K8 b s: [B, K]
+    steps, each lane K2 b's and K8 b's).  Above ``SPEC_MAX_LANES`` lanes a
+    call launches in chunks.
 
 Under the wide objective scalar (``fused.wide_fx``, ``params.fx_wide``)
 the objective's column of K1, K2, K4, K7, K8, K15 and K16 and of their
@@ -257,6 +266,17 @@ MMA_MAX_CHUNKS = 64
 #: stages) and run 1.4-3x slower than at the aligned n (m = 80: 0.43-0.51
 #: ms at n = 2^20 + 2, 0.15-0.17 at 2^20), so the fold forms take such an n
 MMA_ALIGN = 16
+
+#: most lanes one launch of the K-lane probes (K2 s, K8 s and their batched
+#: forms) takes: each lane is one more unrolled body call in the kernel, so
+#: the lanes are a compile-time constant; more lanes run as launches of at
+#: most this many before the search's one read of the round
+SPEC_MAX_LANES = 8
+
+
+def spec_chunks(K: int) -> list:
+    """The (first lane, lanes) of each launch of a K-lane probe."""
+    return [(k0, min(SPEC_MAX_LANES, K - k0)) for k0 in range(0, K, SPEC_MAX_LANES)]
 
 
 def _epilogue_form(m: int, vdtype: torch.dtype, hdtype: torch.dtype,
@@ -495,6 +515,24 @@ def _ow_scalars_batched(part: torch.Tensor, c: float) -> tuple:
         fl = fused.obj_reduce(part[:, :, :2], dim=1)
         return fl[:, 0] + c * fl[:, 1], tot[:, 2]
     return tot[:, 0] + tot[:, 1] * c, tot[:, 2]
+
+
+def _ow_lane(part: torch.Tensor) -> tuple:
+    """(f, L1) of one lane of K8 s: ``_ow_probe_scalars``' sums of a
+    [programs, 3] partials array, before the mesh's collective and the
+    L1 weight (float64 under the wide mode)."""
+    if fused.wide(part.dtype):
+        fl = fused.obj_reduce(part[:, :2])
+        return fl[0], fl[1]
+    tot = fused.reduce_partials(part)
+    return tot[0], tot[1]
+
+
+def _ow_lanes_total(fx: torch.Tensor, l1: torch.Tensor, c: float) -> torch.Tensor:
+    """The lanes' [K] fx + c*L1 from their (f, L1) sums, added over the mesh
+    in one collective first, as ``_ow_probe_scalars`` forms one lane's."""
+    fx, l1 = fused.mesh_sum(fx, l1)
+    return fx + l1 * c
 
 
 def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int = 1,
@@ -1050,6 +1088,155 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         owlqn_probe_pg.launches += 1
         return out
 
+    # ------------------- K2 s, K8 s: the speculative search's K-lane probes
+
+    def _lanes(kernel: str, stps, like: torch.Tensor) -> torch.Tensor:
+        # the lanes' steps (a host sequence) as a [K] tensor on like's device
+        stp = torch.as_tensor(stps, dtype=like.dtype).reshape(-1)
+        if stp.numel() < 1:
+            raise ValueError(f"{kernel}: no steps")
+        return fused.to_device(stp, like)
+
+    def probe_steps_ref(xp, d, stps):
+        """Plain version of ``probe_steps``: ``probe_ref``'s evaluation at each
+        step in turn."""
+        probe_steps_ref.calls += 1
+        (fx,) = fused.mesh_sum(torch.stack([_probe_plain(xp, d, s)[0] for s in stps]))
+        return fx
+
+    def probe_steps(xp, d, stps):
+        """K2 s: the [K] objective values fx(xp + stps[k]*d) of K steps
+        (a host sequence in the vectors' dtype) from one pass over xp and d
+        (several launches above ``SPEC_MAX_LANES`` steps), each lane equal
+        to ``probe``'s fx at its step bit for bit; on a mesh the lanes' sums
+        are added over the ranks in one collective."""
+        off, ex = _check(xp)
+        if not fused.on_cuda(xp, "probe_steps"):
+            return probe_steps_ref(xp, d, stps)
+        fused.check_contiguous("probe_steps", xp, d)
+        n = xp.shape[0]
+        grid = _grid(n)
+        stp = _lanes("probe_steps", stps, xp)
+        K = stp.shape[0]
+        part = torch.empty((K, grid[0], 2), dtype=xp.dtype, device=xp.device)
+        for k0, kc in spec_chunks(K):
+            probe_steps.compiled[(xp.dtype, kc)] = _kernels().probe_steps_kernel[grid](
+                xp, d, stp[k0:], part[k0], n, off, ex=ex, SHARD=off != 0, body=block_fn(),
+                ROWS=rows, W=W, K=kc, **LAUNCH,
+            )
+            probe_steps.launches += 1
+            probe_steps.lanes += kc
+        (fx,) = fused.mesh_sum(torch.stack(
+            [_fx(part[k], fused.reduce_partials(part[k])) for k in range(K)]))
+        return fx
+
+    def owlqn_probe_steps_ref(xp, d, wp, stps, c, start, end):
+        """Plain version of ``owlqn_probe_steps``: ``owlqn_probe_ref``'s
+        evaluation at each step in turn."""
+        owlqn_probe_steps_ref.calls += 1
+        lanes = [_ow_eval(xp, d, wp, s, c, start, end)[1:3] for s in stps]
+        return _ow_lanes_total(torch.stack([f for f, _ in lanes]),
+                               torch.stack([l1 for _, l1 in lanes]), c)
+
+    def owlqn_probe_steps(xp, d, wp, stps, c, start, end):
+        """K8 s: the [K] values fx + c*L1 at x = pi(xp + stps[k]*d; wp)
+        inside the window [start, end) from one pass, each lane equal to
+        ``owlqn_probe``'s ft at its step bit for bit; on a mesh one
+        collective for all lanes."""
+        off, ex = _check(xp)
+        if not fused.on_cuda(xp, "owlqn_probe_steps"):
+            return owlqn_probe_steps_ref(xp, d, wp, stps, c, start, end)
+        fused.check_contiguous("owlqn_probe_steps", xp, d, wp)
+        n = xp.shape[0]
+        lo, hi = _window(n, start, end)
+        grid = _grid(n)
+        stp = _lanes("owlqn_probe_steps", stps, xp)
+        K = stp.shape[0]
+        part = torch.empty((K, grid[0], 3), dtype=xp.dtype, device=xp.device)
+        for k0, kc in spec_chunks(K):
+            owlqn_probe_steps.compiled[(xp.dtype, kc)] = _kernels().owlqn_probe_steps_kernel[grid](
+                xp, d, wp, stp[k0:], part[k0], n, lo, hi, off, ex=ex, SHARD=off != 0,
+                body=block_fn(), ROWS=rows, W=W, K=kc, **LAUNCH,
+            )
+            owlqn_probe_steps.launches += 1
+            owlqn_probe_steps.lanes += kc
+        lanes = [_ow_lane(part[k]) for k in range(K)]
+        return _ow_lanes_total(torch.stack([f for f, _ in lanes]),
+                               torch.stack([l1 for _, l1 in lanes]), c)
+
+    def _check_steps(kernel: str, xp: torch.Tensor, stps: torch.Tensor) -> int:
+        if (stps.ndim != 2 or stps.shape[0] != xp.shape[0] or stps.shape[1] < 1
+                or stps.dtype != xp.dtype or stps.device != xp.device
+                or stps.stride(1) != 1):
+            raise ValueError(f"{kernel}: stps must be a [B, K] tensor of the iterates' dtype "
+                             f"on their device, each row contiguous")
+        return stps.shape[1]
+
+    def probe_steps_batched_ref(xp, d, stps, live):
+        """Plain version of ``probe_steps_batched``: ``probe_batched_ref``'s
+        evaluation at each lane's steps in turn."""
+        probe_steps_batched_ref.calls += 1
+        return torch.stack([_probe_batched_plain(xp, d, stps[:, k])[0]
+                            for k in range(stps.shape[1])], dim=1)
+
+    def probe_steps_batched(xp, d, stps, live):
+        """K2 s over B instances (K2 b s): the [B, K] objective values at
+        xp[b] + stps[b, k]*d[b] for every live instance b from one pass over
+        its xp and d, each equal to ``probe_batched``'s fx at that step bit
+        for bit; a frozen instance's values are undefined."""
+        B = _check_batched("probe_steps_batched", xp, live)
+        K = _check_steps("probe_steps_batched", xp, stps)
+        _batched_scalars("probe_steps_batched", xp, stps[:, 0], d)
+        if not fused.on_cuda(xp, "probe_steps_batched"):
+            return probe_steps_batched_ref(xp, d, stps, live)
+        fused.check_contiguous("probe_steps_batched", xp, d, live)
+        n = xp.shape[1]
+        grid = (_grid(n)[0], B)
+        part = torch.empty((K, B, grid[0], 2), dtype=xp.dtype, device=xp.device)
+        for k0, kc in spec_chunks(K):
+            probe_steps_batched.compiled[(xp.dtype, kc)] = \
+                _kernels().probe_steps_batched_kernel[grid](
+                    xp, d, stps[:, k0:], stps.stride(0), live.view(torch.uint8), part[k0], n,
+                    ex=extras, body=block_fn(), ROWS=rows, W=W, K=kc, **LAUNCH,
+                )
+            probe_steps_batched.launches += 1
+            probe_steps_batched.lanes += kc * B
+        return torch.stack([_fx_batched(part[k], part[k].sum(dim=1)) for k in range(K)], dim=1)
+
+    def owlqn_probe_pg_steps_batched_ref(xp, d, pg, stps, c, start, end, live):
+        """Plain version of ``owlqn_probe_pg_steps_batched``:
+        ``owlqn_probe_pg_batched_ref``'s evaluation at each lane's steps in
+        turn."""
+        owlqn_probe_pg_steps_batched_ref.calls += 1
+        return torch.stack([_ow_probe_batched_plain(xp, d, pg, stps[:, k], c, start, end)[0]
+                            for k in range(stps.shape[1])], dim=1)
+
+    def owlqn_probe_pg_steps_batched(xp, d, pg, stps, c, start, end, live):
+        """K8's pg form over B instances at K steps each (K8 b s): the
+        [B, K] values fx + c*L1 at pi(xp[b] + stps[b, k]*d[b]; wp), wp
+        rebuilt from (xp[b], pg[b]), each equal to
+        ``owlqn_probe_pg_batched``'s ft at that step bit for bit; a frozen
+        instance's values are undefined."""
+        B = _check_batched("owlqn_probe_pg_steps_batched", xp, live)
+        K = _check_steps("owlqn_probe_pg_steps_batched", xp, stps)
+        _batched_scalars("owlqn_probe_pg_steps_batched", xp, stps[:, 0], d, pg)
+        start, end = fused._check_window(xp.shape[1], start, end)
+        if not fused.on_cuda(xp, "owlqn_probe_pg_steps_batched"):
+            return owlqn_probe_pg_steps_batched_ref(xp, d, pg, stps, c, start, end, live)
+        fused.check_contiguous("owlqn_probe_pg_steps_batched", xp, d, pg, live)
+        n = xp.shape[1]
+        grid = (_grid(n)[0], B)
+        part = torch.empty((K, B, grid[0], 3), dtype=xp.dtype, device=xp.device)
+        for k0, kc in spec_chunks(K):
+            owlqn_probe_pg_steps_batched.compiled[(xp.dtype, kc)] = \
+                _kernels().owlqn_probe_steps_batched_kernel[grid](
+                    xp, d, pg, stps[:, k0:], stps.stride(0), live.view(torch.uint8), part[k0],
+                    n, start, end, ex=extras, body=block_fn(), ROWS=rows, W=W, K=kc, **LAUNCH,
+                )
+            owlqn_probe_pg_steps_batched.launches += 1
+            owlqn_probe_pg_steps_batched.lanes += kc * B
+        return torch.stack([_ow_scalars_batched(part[k], c)[0] for k in range(K)], dim=1)
+
     # ------------------------ K14 OWL-QN trial + pseudo-gradient + pair + Gram
 
     def owlqn_trial_pair_gram_ref(xp, d, gp, pg, stp, c, start, end_w, S, Y, end,
@@ -1404,6 +1591,16 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         return (ctot[:, 0], ctot[:, 1], ctot[:, 2], *_ow_scalars_batched(ppart, c))
 
     batched_fusions = (combine_probe_batched, combine_ow_probe_batched)
+    # the K-lane probes: their launches (one per chunk of at most
+    # SPEC_MAX_LANES lanes), the lanes they evaluated (instance-lanes in
+    # the batched forms) and their compiled kernels per (dtype, lanes)
+    lane_probes = (probe_steps, owlqn_probe_steps, probe_steps_batched,
+                   owlqn_probe_pg_steps_batched)
+    for fn in lane_probes:
+        fn.launches, fn.lanes, fn.compiled = 0, 0, {}
+    for fn in (probe_steps_ref, owlqn_probe_steps_ref, probe_steps_batched_ref,
+               owlqn_probe_pg_steps_batched_ref):
+        fn.calls = 0
     for fn in (trial, probe, trial_pair_gram, owlqn_trial, owlqn_probe, owlqn_probe_pg,
                owlqn_trial_pair_gram, combine_probe, combine_ow_probe, probe_batched,
                trial_pair_gram_batched, owlqn_probe_pg_batched, owlqn_trial_pair_gram_batched,
@@ -1479,6 +1676,11 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         trial_batched=trial_batched, trial_batched_ref=trial_batched_ref,
         owlqn_trial_batched=owlqn_trial_batched,
         owlqn_trial_batched_ref=owlqn_trial_batched_ref,
+        probe_steps=probe_steps, probe_steps_ref=probe_steps_ref,
+        owlqn_probe_steps=owlqn_probe_steps, owlqn_probe_steps_ref=owlqn_probe_steps_ref,
+        probe_steps_batched=probe_steps_batched, probe_steps_batched_ref=probe_steps_batched_ref,
+        owlqn_probe_pg_steps_batched=owlqn_probe_pg_steps_batched,
+        owlqn_probe_pg_steps_batched_ref=owlqn_probe_pg_steps_batched_ref,
     )
 
     def vag(x):
@@ -1514,6 +1716,10 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
                     fused.combine_ow_batched_ref, fused.pseudo_gradient_norm_batched_ref,
                     combine_probe_batched_ref, combine_ow_probe_batched_ref,
                     combine_probe_batched_ok, trial_batched_ref, owlqn_trial_batched_ref)
+    _attach_speculative(vag, probe_steps, owlqn_probe_steps, probe_steps_batched,
+                        owlqn_probe_pg_steps_batched)
+    _attach_speculative(plain, probe_steps_ref, owlqn_probe_steps_ref, probe_steps_batched_ref,
+                        owlqn_probe_pg_steps_batched_ref)
     vag.kernels = plain.kernels = ns
     vag.plain = plain
     return vag
@@ -1584,6 +1790,16 @@ def _attach_batched(obj, probe, tpg, combine, combine_fix, ow_probe_pg, ow_tpg, 
     obj.__lbfgs_combine_ow_probe_batched__ = cp_ow
     # K16 b takes the same shapes and dtypes as K15 b
     obj.__lbfgs_combine_ow_probe_batched_ok__ = cp_ok
+
+
+def _attach_speculative(obj, probe_steps, ow_probe_steps, probe_steps_batched,
+                        ow_probe_steps_batched) -> None:
+    """The speculative search's candidate passes: K2 s and K8 s, and over a
+    batch K2 b s and K8 b s (the pg form)."""
+    obj.__lbfgs_probe_steps__ = probe_steps
+    obj.__lbfgs_owlqn_probe_steps__ = ow_probe_steps
+    obj.__lbfgs_probe_steps_batched__ = probe_steps_batched
+    obj.__lbfgs_owlqn_probe_pg_steps_batched__ = ow_probe_steps_batched
 
 
 #: the [B] row products of two [B, n] batches

@@ -128,6 +128,16 @@ def check_contiguous(kernel: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{kernel}: operands must be contiguous")
 
 
+def to_device(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A small host tensor on like's device without a synchronisation: to
+    a card through a pinned staging copy and an asynchronous transfer (a
+    copy from pageable memory waits for the card to drain), elsewhere as
+    it is."""
+    if like.device.type != "cuda":
+        return host.to(like.device)
+    return host.pin_memory().to(like.device, non_blocking=True)
+
+
 def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
     """Column sums of a [programs, k] partial-sum array, in a fixed order
     (the same shape always reduces the same way; no atomics)."""

@@ -3,11 +3,12 @@
 The reference's builder pattern (``LbfgsParam`` ``src/lbfgs.rs:72-177``
 and the 15 ``with_*`` setters ``src/lbfgs.rs:194-383``; ``LineSearch``
 params ``src/line.rs:91-163``), field for field the same as
-``lbfgs_tpu.params``.  One field selects a feature this package does
-not run (speculation); ``solver.init_state`` raises
-``NotImplementedError`` naming it.  Damping, damping_fixed,
-gradient_only, fx_wide, the adaptive entry step, the scan two-loop and
-every history dtype but fp8 run, plain and under OWL-QN.
+``lbfgs_tpu.params``.  Damping, damping_fixed, gradient_only, fx_wide,
+the adaptive entry step, the scan two-loop, the speculative K-way search
+(on the Armijo-only ladder; More-Thuente, the Wolfe ladders and
+gradient_only raise ``ValueError`` with it, as in the JAX package) and
+every history dtype but fp8 run, plain and under OWL-QN; an fp8 history
+raises ``NotImplementedError`` in the builder.
 
 Defaults are the reference defaults, including the documented quirks:
 ``max_linesearch`` defaults to 20 (the reference docstring claims 40,
@@ -52,7 +53,8 @@ class LineSearchParams:
     max_linesearch: int = 20
     gradient_only: bool = False
     #: speculative K-way backtracking (1 = off, the reference-faithful
-    #: sequential search); values above 1 are not ported
+    #: sequential search): K candidate steps of the Armijo-only ladder per
+    #: candidate pass and read (``linesearch.backtracking_speculative``)
     speculative: int = 1
     #: log the reference's ascent-direction warning (``src/core.rs:78-92``)
     warn_ascent: bool = True
@@ -229,7 +231,12 @@ class Lbfgs:
         return self._new(self.param.replace(compact_two_loop=enabled))
 
     def with_speculative_linesearch(self, k: int) -> "Lbfgs":
-        """Speculative K-way backtracking (extension; not ported yet)."""
+        """Speculative K-way backtracking (extension): K ladder candidates
+        stp*0.5^j per candidate pass and read instead of one per trial, on
+        the Armijo-only ladder (BacktrackingArmijo, or any backtracking
+        search under OWL-QN); the other searches raise ``ValueError``.
+        The one-pass epilogue is off under it, so in float32 the iterates
+        are not the default sequential run's."""
         assert int(k) >= 1, "Invalid speculative line-search width."
         return self._new(self.param.replace_ls(speculative=int(k)))
 

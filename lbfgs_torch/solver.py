@@ -50,6 +50,19 @@ K3 (K6, K13) there.  ``params.adaptive_entry_step`` (the JAX package's
 extension) enters each search at clip(growth*step, 2^-16, 1) of the last
 accepted step instead of 1.0, where the step is not capped.
 
+Under the speculative search (``LineSearchParams.speculative`` = K > 1,
+``linesearch.backtracking_speculative``) each round of the search is one
+K-lane candidate pass (K2 s; under OWL-QN K8 s) and one read, and the
+search materializes the accepted point itself (K1; K7), so the one-pass
+epilogue is off, as in the JAX package (``lbfgs_tpu/solver.py:518,
+542``): the pair + Gram pass is K5 (K12 under OWL-QN), then the
+combine.  K5's pair s = stp*d is not K4's x - xp in float32, so the
+iterates are not the default sequential run's; against the sequential
+search on the same route (an objective without the epilogue) they are
+the same.  The combine+probe fusion still runs where the step is not
+capped (its slot is the JAX package's), and its carried probe goes
+unused (``linesearch.carried.ignored``).
+
 With ``compact_two_loop=False`` an iteration is the reference's literal
 one (``lbfgs_tpu/solver.py:628-653, 726-728``): the search materializes
 the accepted point, ``update_pair`` forms the pair and writes it into the
@@ -532,12 +545,15 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     # save state (src/core.rs:207-210): same buffers, no copy
     xp, gp = prob.x, prob.gx
 
-    # the one-pass epilogue: K4, or under OWL-QN K14
+    # the one-pass epilogue: K4, or under OWL-QN K14; not under the
+    # speculative search, whose candidate pass materializes nothing: it
+    # materializes the accepted point itself (K1, K7), and the pair + Gram
+    # pass is K5 or K12 (lbfgs_tpu/solver.py:518, 542)
     prefix = "__lbfgs_owlqn_trial_pair_gram" if ow else "__lbfgs_trial_pair_gram"
     mega_fn = getattr(vag, prefix + "__", None)
     mega_ok = getattr(vag, prefix + "_ok__", None)
-    use_mega = (not scan and mega_fn is not None and mega_ok is not None
-                and mega_ok(xp, hist.s))
+    use_mega = (not scan and int(params.linesearch.speculative) <= 1 and mega_fn is not None
+                and mega_ok is not None and mega_ok(xp, hist.s))
     # a history the ring kernels refuse (float16): the composed pair +
     # Gram pass and combine in torch ops (lbfgs_tpu/solver.py:475-484, 144)
     composed = not fused.can_pair_gram(xp, hist.s)
@@ -720,12 +736,17 @@ def _propagate_core(pdef: ProblemDef, params: LbfgsParams, st: SolverState) -> S
     rc2, rd = rd if ow else (None, rd)
     extra = ([rc2] if ow else []) + ([case] if case is not None else [])
     lead = [dd, rd] if pu is not None else [yy_new, dd, rd, ls_changed]
-    scalars = lead + extra + (probe or [])
+    # the speculative search leaves its fx, the materialized trial's, on
+    # the device for this read
+    fx_dev = [fx] if torch.is_tensor(fx) else []
+    scalars = fx_dev + lead + extra + (probe or [])
     if ls_failed:
         gnorm2, xnorm2 = prob.gnorm2, prob.xnorm2
         vals = to_host(*scalars)
     else:
         gnorm2, xnorm2, *vals = to_host(pgpg if ow else ls_gg, ls_xx, *scalars)
+    if fx_dev:
+        fx, *vals = vals
     if pu is not None:
         dd_h, dg0, *extra_h = vals
     else:
@@ -832,16 +853,14 @@ def start_state(st: SolverState, params: Optional[LbfgsParams] = None) -> Solver
 
 def check_supported(params: LbfgsParams, pdef: Optional[ProblemDef] = None) -> None:
     """Raise ``NotImplementedError`` naming any setting this package does
-    not run: the speculative (K-way) line search, and on a mesh a generic
-    objective that does not declare the local contract
+    not run: on a mesh a generic objective that does not declare the local
+    contract
     (``ops.collective.local_objective``: handed this rank's shard, it
     returns the whole vector's fx and the shard's gradient).  On a mesh an
     objective built by ``ops.factory.make_fused_objective`` runs its
     kernels on the shard, and a generic one under the contract runs every
     branch a generic objective takes without one: plain, OWL-QN, damped,
     the scan two-loop and the wide objective scalar."""
-    if int(params.linesearch.speculative) > 1:
-        raise NotImplementedError("speculative line search")
     vag = None if pdef is None else pdef.value_and_grad
     if (vag is not None and active_mesh() is not None
             and getattr(vag, "__lbfgs_trial__", None) is None

@@ -284,13 +284,12 @@ def _params(cfg: dict):
     from lbfgs_torch.orthantwise import Orthantwise
     from lbfgs_torch.params import LbfgsParams
 
-    p = LbfgsParams(**{key: v for key, v in cfg.items()
-                       if key not in ("orthantwise", "algorithm")})
+    ls = ("algorithm", "speculative")
+    p = LbfgsParams(**{key: v for key, v in cfg.items() if key != "orthantwise"
+                       and key not in ls})
     if "orthantwise" in cfg:
         p = p.replace(orthantwise=Orthantwise(*cfg["orthantwise"]))
-    if "algorithm" in cfg:
-        p = p.replace_ls(algorithm=cfg["algorithm"])
-    return p
+    return p.replace_ls(**{key: cfg[key] for key in ls if key in cfg})
 
 
 def fx_trace(run):

@@ -111,13 +111,17 @@ def test_progress_cancellation_gives_status_4():
 
 #: OWL-QN, the backtracking searches, damping (damped OWL-QN included),
 #: gradient_only, the wide objective scalar, the adaptive entry step, the
-#: scan two-loop and float16 history run; what of them still raises is
-#: each with the one setting not ported: the speculative (K-way)
-#: backtracking search.  ``fx_wide``, ``adaptive_entry_step``, ``damping``
-#: (here with the scan two-loop), ``scan_two_loop`` and ``float16_history``
-#: raised until they were ported: their cases now check that both entry
-#: points run them (fx carried as float64 over float32 vectors under
-#: ``fx_wide``)
+#: scan two-loop, float16 history and the speculative (K-way) search run.
+#: Each case raised until its setting was ported and now checks that both
+#: entry points run it (fx carried as float64 over float32 vectors under
+#: ``fx_wide``): ``fx_wide``, ``adaptive_entry_step``, ``damping`` (here
+#: with the scan two-loop), ``scan_two_loop``, ``float16_history``, and
+#: ``orthantwise`` (damped, wide, speculative) and ``speculative`` (on the
+#: Armijo ladder, the one it takes) once the speculative search was.
+#: ``gradient_only`` and ``backtracking`` (the Wolfe ladder) with the
+#: speculative search raised ``NotImplementedError`` with it, and now
+#: raise ``ValueError`` as ``lbfgs_tpu`` does: the speculative search takes
+#: the Armijo-only ladder without gradient_only
 UNPORTED = {
     "orthantwise": lambda b: (b.with_orthantwise(1.0, 0, 99).with_damping(True)
                               .with_fx_wide().with_speculative_linesearch(2)),
@@ -127,7 +131,8 @@ UNPORTED = {
                                .with_speculative_linesearch(2)),
     "scan_two_loop": lambda b: b.with_compact_two_loop(False),
     "fx_wide": lambda b: b.with_fx_wide(),
-    "speculative": lambda b: b.with_speculative_linesearch(2),
+    "speculative": lambda b: (b.with_linesearch_algorithm("BacktrackingArmijo")
+                              .with_speculative_linesearch(2)),
     "adaptive_entry_step": lambda b: b.with_adaptive_entry_step(2.0),
     "float16_history": lambda b: b.with_history_dtype("float16"),
 }
@@ -162,10 +167,20 @@ def test_unported_settings_raise(name):
             assert np.isfinite(rep.fx) and rep.fx < (1.0 if f16 else 1e-3)
         return
     x0 = t_rosen.initial_point(100, device="cpu")
-    with pytest.raises(NotImplementedError):
-        b.minimize(x0, lbfgs_torch.default_evaluate())
-    with pytest.raises(NotImplementedError):
-        b.minimize_jit(x0, lbfgs_torch.default_evaluate())
+    if name in ("gradient_only", "backtracking"):
+        for entry in ("minimize", "minimize_jit"):
+            with pytest.raises(ValueError, match="Armijo-only ladder"):
+                getattr(b, entry)(x0, lbfgs_torch.default_evaluate())
+        return
+    # both to convergence: "orthantwise" to the OWL-QN golden's fx,
+    # "speculative" (675 iterations of the Armijo ladder) to Rosenbrock's 0
+    for entry in ("minimize", "minimize_jit"):
+        rep = getattr(b, entry)(x0, lbfgs_torch.default_evaluate())
+        assert rep.status == t_status.Status.CONVERGED
+        if name == "orthantwise":
+            assert type(rep.fx) is np.float64 and rep.fx == pytest.approx(43.5025, rel=1e-6)
+        else:
+            assert rep.fx < 1e-9
 
 
 def test_unported_entry_points_raise():
@@ -184,18 +199,16 @@ def test_unported_entry_points_raise():
     # batched runner does not run yet still raises, damped too
     ow = b.with_orthantwise(1.0, 0, None)
     damped = ow.with_constrain_step_size(False).with_damping(True)
-    # and the wide objective scalar, the scan two-loop and a float16
-    # history until they were: now each runs as its solo run, and the
-    # speculative search still raises, damped too
+    # and the wide objective scalar, the scan two-loop, a float16 history
+    # and the speculative search until they were: now each runs as its
+    # solo run, damped too
     for opt in (ow, ow.with_constrain_step_size(False), damped, damped.with_fx_wide(),
-                damped.with_compact_two_loop(False), damped.with_history_dtype("float16")):
+                damped.with_compact_two_loop(False), damped.with_history_dtype("float16"),
+                damped.with_speculative_linesearch(4)):
         out = opt.minimize_batched(x0[None], lbfgs_torch.default_evaluate())
         solo = opt.minimize_jit(x0, lbfgs_torch.default_evaluate())
         assert int(out["niter"][0]) == solo.niter and int(out["status"][0]) == solo.status
         assert float(out["fx"][0]) == pytest.approx(float(solo.fx), rel=1e-9)
-    with pytest.raises(NotImplementedError, match="batched"):
-        damped.with_speculative_linesearch(4).minimize_batched(
-            x0[None], lbfgs_torch.default_evaluate())
     # the native backend raised until it was ported: now it runs the C++
     # core (the defaults' 35 iterations, tests/test_native_parity.py:83-94)
     rep = b.minimize(x0, lbfgs_torch.default_evaluate(), backend="native")

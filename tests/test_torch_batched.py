@@ -446,8 +446,11 @@ UNSUPPORTED = {
     # mode (tests/test_torch_batched_damped.py), generic objectives
     # (tests/test_torch_batched_generic.py), and the wide objective scalar,
     # the scan two-loop and a float16 history
-    # (tests/test_torch_batched_settings.py) run batched now; the
-    # speculative search still raises, with the gradient-only mode too
+    # (tests/test_torch_batched_settings.py) run batched now, and so does
+    # the speculative search (on the Armijo ladder it takes;
+    # tests/test_torch_batched_speculative.py), which raised
+    # ``NotImplementedError`` until it was ported; with the gradient-only
+    # mode it raises ``ValueError``, as ``lbfgs_tpu`` does
     "damped_fx_wide": lambda b: b.with_damping(True).with_fx_wide(),
     "damped_scan_two_loop": lambda b: b.with_damping(True).with_compact_two_loop(False),
     "damped_float16_history": lambda b: b.with_damping(True).with_history_dtype("float16"),
@@ -459,17 +462,20 @@ UNSUPPORTED = {
     "scan_two_loop": lambda b: b.with_compact_two_loop(False),
     "float16_history": lambda b: b.with_history_dtype("float16"),
     "float16_deep_history": lambda b: b._new(b.param.replace(m=80)).with_history_dtype("float16"),
-    "speculative": lambda b: b.with_speculative_linesearch(4),
+    "speculative": lambda b: (b.with_linesearch_algorithm("BacktrackingArmijo")
+                              .with_speculative_linesearch(4)),
     "generic_float16_history": lambda b: b.with_history_dtype("float16"),
 }
-#: the settings of ``UNSUPPORTED`` the batched runner still refuses
-STILL_REFUSED = ("gradient_only_speculative", "speculative")
+#: the settings of ``UNSUPPORTED`` the batched runner refuses, as
+#: ``lbfgs_tpu`` refuses them
+STILL_REFUSED = ("gradient_only_speculative",)
 
 
 @pytest.mark.parametrize("setting", list(UNSUPPORTED))
 def test_unsupported_settings_raise(setting):
-    """The speculative search raises ``NotImplementedError`` naming the
-    runner, as it did; each setting the runner refused until it took it
+    """The speculative search with the gradient-only mode raises
+    ``ValueError``, as ``lbfgs_tpu`` does; each setting the runner refused
+    until it took it
     now runs, every instance of the early-finisher batch as its solo run
     (the whole-run loop): the same iterations, evaluations and status, fx
     rel 1e-9 (1e-5 over a float16 ring, whose 11-bit pairs carry the
@@ -480,7 +486,7 @@ def test_unsupported_settings_raise(setting):
     if setting.startswith("generic"):
         fn = t_rosen._plain_value_and_grad
     if setting in STILL_REFUSED:
-        with pytest.raises(NotImplementedError, match="minimize_batched"):
+        with pytest.raises(ValueError, match="Armijo-only ladder"):
             opt.minimize_batched(x0b, fn)
         return
     opt = opt.with_max_iterations(20)
