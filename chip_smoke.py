@@ -20,7 +20,13 @@ Phases (any failure raises and the script exits nonzero):
      and each kernel's time at n = 2^24 beside its plain version's (device
      time from torch.profiler, a session that saw nothing on the card run
      again and, after three such, CUDA events behind a spin kernel; the
-     event times of every kernel are printed beside the profiler's);
+     event times of every kernel are printed beside the profiler's); R,
+     the second stage of every kernel's partials (``csrc/partials.cu``),
+     at the paths' row counts and widths in float32, float64 and the wide
+     form: bit for bit its order twin in torch ops, within the sum
+     tolerance of a float64 sum, a column's bits alike at every width, in
+     a batch and through a strided view, and timed beside torch's sum;
+     every path's launch counts show R ran;
   4. goldens: the n = 100 float64 Rosenbrock runs through the kernels
      (35 iterations at the defaults; the recorded 2018 trajectory,
      38 iterations, without the step cap), through ``lbfgs().minimize``
@@ -469,6 +475,12 @@ KERNELS = {
                              "lbfgs_tpu/ops/factory.py:1345"),
     "K17_axpy_dot": ("cuda", "lbfgs_torch/csrc/axpy_dot.cu", "lbfgs_tpu/ops/fused.py:743"),
     "cal_null_launch": ("cuda", "lbfgs_torch/csrc/calibrate.cu", "bench_kernels.py:108"),
+    # R: every kernel's second stage (the TPU kernels carry their sums
+    # across their sequential grid; what is left the JAX package adds with
+    # jnp.sum, no pallas_call)
+    "R_reduce_partials": ("cuda", "lbfgs_torch/csrc/partials.cu",
+                          "none: the kernels' cross-program sums, jnp.sum in "
+                          "lbfgs_tpu/ops/fused.py:285-296"),
 }
 #: the factory kernels with extra operand streams (``_ex`` rows: checked
 #: and timed with the quadratic's two extras, their launches counted on
@@ -628,7 +640,9 @@ BATCHED_OWLQN_DEEP_PATH = ("K8b_owlqn_probe_batched", "K14b_owlqn_trial_pair_gra
                            "K16b_combine_ow_probe_batched_m80")
 #: the kernels each main path must launch, and whose launches the kernel
 #: table shows from that path
-PLAIN_PATH = ("K1_trial", "K2_probe", "K4_trial_pair_gram", "K15_combine_probe")
+#: R, the second stage of every kernel's partials (every path launches it)
+R_NAME = "R_reduce_partials"
+PLAIN_PATH = ("K1_trial", "K2_probe", "K4_trial_pair_gram", "K15_combine_probe", R_NAME)
 OWLQN_PATH = ("K1_trial", "K8_owlqn_probe", "K10_pseudo_gradient_norm",
               "K14_owlqn_trial_pair_gram", "K16_combine_ow_probe")
 #: the kernel of each other path whose launches the kernel table shows
@@ -744,6 +758,13 @@ def bound(name: str, n: int, v: int, h: int, m: int) -> tuple:
     b, f = cost(name, v, h, m)
     t_bytes, t_ops = n * b / HBM_BYTES_PER_S, n * f / F32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+def r_bound(P: int, C: int, v: int) -> tuple:
+    """R's (ms, bound kind) on a [P, C] array of v-byte partials: P*C
+    values read and C written, P*C adds."""
+    t_bytes, t_ops = (P * C + C) * v / HBM_BYTES_PER_S, P * C / F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
 #: the OWL-QN kernels' L1 weight in the kernel checks (not 1: its
 #: rounding to the vectors' dtype is part of what is checked)
 C_L1 = 0.7
@@ -837,6 +858,10 @@ def device_events(prof) -> list:
 #: were run again, and device times that came from CUDA events because
 #: every session was empty or partial
 PROFILER_MISSES = {"empty_sessions": 0, "partial_sessions": 0, "event_timed": 0}
+#: what the timing costs the script: profiler sessions and their host
+#: seconds, and the host seconds inside ``device_time`` (each phase's share
+#: is printed with its seconds)
+TIMING_COST = {"profiler_sessions": 0, "profiler_s": 0.0, "device_time_s": 0.0}
 
 
 def profiled(fn, tries: int = 3):
@@ -846,10 +871,14 @@ def profiled(fn, tries: int = 3):
     session is run again, and after ``tries`` empty ones the profiler
     returned is None."""
     for _ in range(tries):
+        t0 = time.perf_counter()
         with profiling.trace() as prof:
             out = fn()
             torch.cuda.synchronize()
-        if sum(e.self_device_time_total for e in device_events(prof)) > 0:
+        seen = sum(e.self_device_time_total for e in device_events(prof)) > 0
+        TIMING_COST["profiler_sessions"] += 1
+        TIMING_COST["profiler_s"] += time.perf_counter() - t0
+        if seen:
             return prof, out
         PROFILER_MISSES["empty_sessions"] += 1
     return None, out
@@ -891,42 +920,54 @@ def event_time(fn, reps: int) -> float:
 PARTIAL_SHARE, PARTIAL_MIN_MS = 0.9, 0.01
 
 
-def device_time(fn, reps: int, tries: int = 3) -> float:
+def device_time(fn, reps: int, tries: int = 1) -> float:
     """Device milliseconds per call of fn: the summed durations of every
     kernel and copy it puts on the card (kernel, partial sums,
     allocations' fills), from torch.profiler.  A session that saw part of
-    the work (``PARTIAL_SHARE`` of ``event_time``) is run again; where
-    every session came back empty or partial the time is
-    ``event_time``'s.  ``device_time.source`` then says which timed it:
-    "profiler" or "events"."""
-    fn()
-    torch.cuda.synchronize()
-    ev = event_time(fn, reps)
-    for _ in range(tries):
-        prof, _ = profiled(lambda: [fn() for _ in range(reps)])
-        if prof is None:
-            break
-        t = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / reps
-        if t >= PARTIAL_SHARE * ev or ev < PARTIAL_MIN_MS:
-            device_time.source = "profiler"
-            return t
-        PROFILER_MISSES["partial_sessions"] += 1
-    PROFILER_MISSES["event_timed"] += 1
-    device_time.source = "events"
-    return ev
+    the work (``PARTIAL_SHARE`` of ``event_time``) is run again up to
+    ``tries`` sessions (an empty one twice); where every session came
+    back empty or partial the time is ``event_time``'s.
+    ``device_time.source`` then says which timed it: "profiler" or
+    "events"."""
+    t0 = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+        ev = event_time(fn, reps)
+        for _ in range(tries):
+            prof, _ = profiled(lambda: [fn() for _ in range(reps)], tries=2)
+            if prof is None:
+                break
+            t = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / reps
+            if t >= PARTIAL_SHARE * ev or ev < PARTIAL_MIN_MS:
+                device_time.source = "profiler"
+                return t
+            PROFILER_MISSES["partial_sessions"] += 1
+        PROFILER_MISSES["event_timed"] += 1
+        device_time.source = "events"
+        return ev
+    finally:
+        TIMING_COST["device_time_s"] += time.perf_counter() - t0
 
 
 device_time.source = None
 
 
+#: calls a sample of a plain version takes, at most: the plain versions
+#: are torch compositions 10-200x slower than their kernels, timed for the
+#: record and compared with nothing
+PLAIN_REPS = 4
+
+
 def kernel_vs_plain(kern, plain, reps: int) -> tuple:
     """(kernel ms, plain ms, the kernel's timer, the plain's timer) from
-    ``device_time`` in the order plain, kernel, kernel, plain, so that both
-    sides see the same clocks; each side the lesser of its two calls, with
-    the timer ("profiler" or "events") that gave that one."""
-    p1, k1, k2, p2 = ((device_time(f, reps), device_time.source)
-                      for f in (plain, kern, kern, plain))
-    k, p = min(k1, k2), min(p1, p2)
+    ``device_time`` in the order kernel, plain, kernel, so that both sides
+    see the same clocks; the kernel the lesser of its two calls of reps
+    calls, the plain version one call of at most ``PLAIN_REPS``, each with
+    the timer ("profiler" or "events") that gave it."""
+    k1, p, k2 = ((device_time(f, n), device_time.source)
+                 for f, n in ((kern, reps), (plain, min(reps, PLAIN_REPS)), (kern, reps)))
+    k = min(k1, k2)
     return k[0], p[0], k[1], p[1]
 
 
@@ -1176,8 +1217,11 @@ def warm_steps() -> list:
 
 def warm_part(part: int, parts: int) -> None:
     """``warm_steps``' steps part, part + parts, ... without the CUDA
-    library (a build worker)."""
+    library (a build worker).  The Triton wrappers' second stage, R, is
+    the library's; a worker only compiles Triton's kernels, so torch's sum
+    takes R's place here."""
     _build.import_triton()
+    fused.reduce_partials = fused.reduce_partials_ref
     for i, step in enumerate(warm_steps()):
         if i % parts == part:
             step(False)
@@ -1264,6 +1308,7 @@ def phase_kernels() -> dict:
                   "k17_z": "bit-exact", "null_launch": "bit-exact"})
 
     check_k17_null(errs)
+    r_times = check_r(errs)
 
     # times at the main path's shapes: n = 2^24, f32 vectors, bf16 history
     a = inputs(N_BIG, torch.float32, torch.bfloat16, SEED)
@@ -1372,6 +1417,10 @@ def phase_kernels() -> dict:
         "cal_null_launch": (lambda: profiling.null_launch(xn),
                             lambda: profiling.null_launch_ref(xn)),
     })
+    # R on K2's and K15's partials at n = 2^24
+    rp = torch.randn(R_TIMED["p16384_c2"][0], device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(SEED + 41))
+    cases[R_NAME] = (lambda: fused.reduce_partials(rp), lambda: fused.reduce_partials_ref(rp))
     # the factory kernels with the quadratic's two extras, in the forms the
     # extras paths run them (K8 with the orthant rebuilt from pg)
     wq, tq = quadratic_data(N_BIG, SEED + 5)
@@ -1417,12 +1466,15 @@ def phase_kernels() -> dict:
     # the one kernel a single PyTorch call computes: the calibration
     # kernel's o = x + 1 (timed here only, used nowhere in the port)
     library = {"cal_null_launch": min(device_time(lambda: torch.add(xn, 1.0), 20)
-                                      for _ in range(2))}
+                                      for _ in range(2)),
+               # and R's column sums: torch's sum over the same axis
+               R_NAME: min(device_time(lambda: rp.sum(dim=0), 20) for _ in range(2))}
     # each kernel's bound from this run's shapes: n = 2^24, 4-byte vectors,
-    # a 2-byte history, m = M
+    # a 2-byte history, m = M; R's from its [16384, 2] float32 partials
     bounds = {name: bound(name, N_NULL if name == "cal_null_launch" else N_BIG,
                           xp0.element_size(), S.element_size(), S.shape[0])
-              for name in KERNELS if not name.endswith("_m80")}
+              for name in KERNELS if not name.endswith("_m80") and name != R_NAME}
+    bounds[R_NAME] = r_bound(*rp.shape, rp.element_size())
     # what K15 replaces: K3 and one K2, two launches and 40 B/elem
     k3_k2 = dict(ms=times["K3_combine"][0] + times["K2_probe"][0],
                  bound_ms=bounds["K3_combine"][0] + bounds["K2_probe"][0])
@@ -1431,7 +1483,7 @@ def phase_kernels() -> dict:
                     for k, v in times.items()},
          event_ms={k: {"kernel": v[0], "plain": v[1]} for k, v in walls.items()},
          timed_by={k: {"kernel": v[0], "plain": v[1]} for k, v in timed_by.items()},
-         library_ms=library, k15_replaces_k3_plus_k2=k3_k2)
+         library_ms=library, k15_replaces_k3_plus_k2=k3_k2, r_vs_torch_sum=r_times)
     epilogue_compiled()
     pair_gram_compiled()
     del a, S, Y, Yf, x9, xn, wq, tq, qk, Yq, ex_cases
@@ -1706,6 +1758,69 @@ def check_k17_null(errs: dict) -> None:
     if not same_bits(profiling.null_launch(x), profiling.null_launch_ref(x)):
         raise AssertionError("the calibration kernel differs from x + 1")
     _fold(errs, "cal_null_launch", (0.0, 0.0))
+
+
+#: R's checks: the row counts of the paths' partials (the batched
+#: kernels' 16 programs an instance at 2^14, K2's 1024 and 16384 at 2^20
+#: and 2^24, the epilogue's 4224) and odd ones, at the widths the wrappers
+#: pass (1-8 lanes, K1's 5, 4 + 6m at m = 6 and 80)
+R_ROWS = (1, 16, 33, 1024, 3001, 4224, 16384)
+R_WIDTHS = (1, 2, 5, 8, 4 + 6 * M, 4 + 6 * 80)
+#: R's timed shapes: K2's and K15's [16384, 2] at n = 2^24 (the kernel
+#: table's row), K2 s's four lanes, K8 b s's four lanes per instance at
+#: 1024 x 2^14
+R_TIMED = {"p16384_c2": ((N_BIG // 1024, 2), 0), "p16384_c4": ((N_BIG // 1024, 4), 0),
+           "b1024_p16_c8": ((1024, 16, 8), 1)}
+
+
+def check_r(errs: dict) -> dict:
+    """R (``fused.reduce_partials``) at ``R_ROWS`` x ``R_WIDTHS``, in float32,
+    float64 and the wide form, one instance and a batch of three: its sums
+    bit for bit its order twin's (``fused.reduce_partials_order_ref`` in
+    torch ops) and within the sum tolerance of a float64 sum; a column's
+    bits the same at every width, in every instance and through a strided
+    view.  Then R at ``R_TIMED`` beside torch's sum over the same axis,
+    in turns (torch, R, R, torch).  Returns the timed shapes' ms."""
+    lib = _build.load_library()
+    if fused.PARTIAL_LANES != lib.lbfgs_partials_lanes() or any(
+            fused.partials_scratch(*bpc) != lib.lbfgs_partials_scratch(*bpc)
+            for bpc in ((1, 16384, 2), (1, 16384, 40), (3, 4224, 40), (3, 1024, 484),
+                        (2, 8192, 32))):
+        raise AssertionError("R's lanes or scratch rule differ between the source and fused")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    for P in R_ROWS:
+        for vd, wide in ((torch.float32, False), (torch.float64, False), (torch.float32, True)):
+            tol = TOL[(torch.float64 if wide else vd, "sum")]
+            col = torch.randn(P, generator=g, device="cuda", dtype=vd)
+            want = fused.reduce_partials(col, 0, wide)
+            for C in R_WIDTHS:
+                x = torch.randn(3, P, C, generator=g, device="cuda", dtype=vd)
+                j = C // 3
+                x[1, :, j] = col
+                for t, dim in ((x[1], 0), (x, 1)):
+                    got = fused.reduce_partials(t, dim, wide)
+                    if not same_bits(got, fused.reduce_partials_order_ref(t, dim, wide)):
+                        raise AssertionError(f"R P={P} C={C} {vd} wide={wide}: not its "
+                                             f"order's bits")
+                    _fold(errs, R_NAME, check(f"R P={P} C={C} {vd} wide={wide}", got,
+                                              t.double().sum(dim=dim), tol))
+                cols = (fused.reduce_partials(x[1], 0, wide)[j],
+                        fused.reduce_partials(x[1, :, j], 0, wide),
+                        fused.reduce_partials(x, 1, wide)[1, j],
+                        fused.reduce_partials(x[:, :, j], 1, wide)[1])
+                if not all(same_bits(c, want) for c in cols):
+                    raise AssertionError(f"R P={P} C={C} {vd} wide={wide}: a column's sum "
+                                         f"depends on the array around it")
+    times = {}
+    for key, (shape, dim) in R_TIMED.items():
+        x = torch.randn(shape, generator=g, device="cuda")
+        lib, mine = (lambda: x.sum(dim=dim)), (lambda: fused.reduce_partials(x, dim))
+        t1, k1, k2, t2 = (device_time(f, 20) for f in (lib, mine, mine, lib))
+        times[key] = dict(torch_ms=min(t1, t2), ms=min(k1, k2), runs=[t1, k1, k2, t2])
+    emit(phase="partials", rows=list(R_ROWS), widths=list(R_WIDTHS), batch=3,
+         order_twin="bit-exact", column_vs_width_batch_view="bit-exact",
+         lanes=fused.PARTIAL_LANES, max_normwise_err=errs[R_NAME][1], times=times)
+    return times
 
 
 def check_owlqn(errs: dict, a: dict, lo: int, hi: int, tag: str, tv: float,
@@ -2011,6 +2126,7 @@ def launches() -> dict:
         "K13_combine_ow": fused.combine_ow.launches,
         "K17_axpy_dot": fused.axpy_dot.launches,
         "cal_null_launch": profiling.null_launch.launches,
+        "R_reduce_partials": fused.reduce_partials.launches,
         "K2b_probe_batched": rosenbrock.value_and_grad.kernels.probe_batched.launches,
         "K3b_combine_batched": fused.combine_batched.launches,
         "K6b_combine_fix_batched": fused.combine_fix_batched.launches,
@@ -2125,7 +2241,7 @@ def reset_counts() -> None:
                profiling.null_launch, fused.combine_batched, fused.combine_ow_batched,
                fused.pseudo_gradient_norm_batched, fused.combine_fix_batched,
                fused.owlqn_trial_step_batched, fused.pseudo_gradient_batched,
-               fused.pair_gram_xg_batched, fused.pair_gram_sd_batched):
+               fused.pair_gram_xg_batched, fused.pair_gram_sd_batched, fused.reduce_partials):
         fn.launches = 0
     fused.pair_gram_xg.gp_launches = fused.pair_gram_sd_batched.gp_launches = 0
     for fn in PLAIN.values():
@@ -2528,11 +2644,16 @@ def _run_2e24(name: str, params: LbfgsParams, fn=None, x0=None) -> tuple:
 
 def _expect(name: str, lc: dict, pc: dict, **counts) -> None:
     """A run's launches are ``counts`` for the named kernels and none of
-    any other, and it called no plain version (stand-ins included)."""
+    any other, and it called no plain version (stand-ins included).  R,
+    the second stage of every kernel's partials, launched at least once
+    if any kernel did (its count is each wrapper's own affair)."""
     want = dict.fromkeys(lc, 0)
     want.update(counts)
+    want[R_NAME] = counts.get(R_NAME, lc[R_NAME])
     if lc != want:
         raise AssertionError(f"{name} launch counts {lc}, expected {want}")
+    if any(counts.values()) and not lc[R_NAME]:
+        raise AssertionError(f"{name}: no launch of R, the partials' second stage")
     if max(pc.values()) != 0:
         raise AssertionError(f"{name} called plain versions: {pc}")
 
@@ -8147,15 +8268,17 @@ def main() -> None:
         rank, port, outdir = args.sharded_rank
         sharded_rank(int(rank), int(port), outdir)
         return
-    seconds = {}
+    seconds, timing = {}, {}
 
     def run(fn, *a):
-        t0 = time.perf_counter()
+        t0, before = time.perf_counter(), dict(TIMING_COST)
         out = fn(*a)
         name = fn.__name__.removeprefix("phase_")
         seconds[name] = round(time.perf_counter() - t0, 3)
+        spent = {k: round(v - before[k], 3) for k, v in TIMING_COST.items()}
+        timing[name] = spent
         # each phase's seconds as it ends (the timing line comes at the end)
-        print(f"phase {name}: {seconds[name]} s", file=sys.stderr, flush=True)
+        print(f"phase {name}: {seconds[name]} s {spent}", file=sys.stderr, flush=True)
         return out
 
     run(phase_device)
@@ -8249,7 +8372,8 @@ def main() -> None:
             ("owlqn_main_path_unfused", OWLQN_PARAMS, False, unow_out))})
     if args.profile:
         run(phase_profile, args.profile)
-    emit(phase="timing", seconds=seconds, profiler_misses=PROFILER_MISSES)
+    emit(phase="timing", seconds=seconds, profiler_misses=PROFILER_MISSES,
+         timing_cost=TIMING_COST, timing_cost_by_phase=timing)
     # each kernel's launches on its own path; K17 lies on no solver path,
     # and its count is the main path's run's, which stays 0
     lc = {**{name: lc_main[name] for name in PLAIN_PATH},

@@ -127,6 +127,12 @@ _SIGNATURES = {
             [_P, _P, ctypes.c_double, _P, _P, _P, _LL, _P], ctypes.c_int)
         for sfx in ("f32", "f64")
     },
+    "lbfgs_partials_lanes": ([], ctypes.c_int),
+    "lbfgs_partials_scratch": ([_LL, _LL, _LL], _LL),
+    **{
+        f"lbfgs_partials_{sfx}": ([_P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P], ctypes.c_int)
+        for sfx in ("f32", "f64", "f32_wide")
+    },
     "lbfgs_null_elems": ([], ctypes.c_int),
     "lbfgs_null_launch": ([_P, _P, _P], ctypes.c_int),
 }

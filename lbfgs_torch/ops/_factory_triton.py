@@ -27,8 +27,9 @@ own registers.
 
 Each program of K1, K2, K7, K8, K15 and K16 handles one block of ROWS*W
 consecutive elements and writes its partial sums into its own row of a
-[programs, k] array, which ``fused.reduce_partials`` adds in a fixed
-order: no float atomics, so runs repeat bit for bit.  Every reduction is
+[programs, k] array, which ``fused.reduce_partials`` (R) adds in an order
+that the row count alone fixes: no float atomics, so runs repeat bit for
+bit, and a column sums alike in arrays of any width.  Every reduction is
 masked by global index (n need not be a multiple of the block).  The
 epilogues K4 and K14 take many more sums per element (6m to 8m products)
 and are laid out otherwise, below.
@@ -80,12 +81,14 @@ float32, to every kernel's count below):
     once whatever K is (8 and 12 B/elem in f32, K2's and K8's); K is a
     compile-time constant (``factory.SPEC_MAX_LANES`` at most: the
     wrappers launch more lanes in chunks), and the body's work grows with
-    it.  Lane k's partials are a row of K2's (K8's) [programs, 2 | 3]
-    array at the same place, the objective's (and the window's |x|) sum
-    by K2's (K8's) expressions, so the wrappers reduce each lane by K2's
-    (K8's) code path and each lane's fx equals K2's (K8's) at that step
-    bit for bit; the g.d column is written 0, so the gradient's product
-    is never formed.
+    it.  Each program stores its lanes side by side, lane-minor, in one
+    [programs, K] (K8: [programs, K, 2]) array: lane k's objective sum
+    (and the window's |x|) by K2's (K8's) expressions over the same
+    1024-element block, so its per-program partial is K2's (K8's) column
+    0 (and 1) bit for bit.  The wrappers add every lane with one launch
+    of R, whose order depends on the row count alone, so each lane's fx
+    equals K2's (K8's) at that step bit for bit.  No g.d column is
+    stored: the gradient's product is never formed.
   * K14 ``owlqn_trial_pair_gram_kernel`` (replaces
     factory.py:_owlqn_tpg_kernel): the accepted projected point x with wp
     rebuilt from (xp, pg_old), its gradient g and pseudo-gradient pg, the
@@ -1153,36 +1156,34 @@ def owlqn_probe_kernel(xp_ptr, d_ptr, w_ptr, stp_ptr, part_ptr, n, lo, hi, off, 
     _store_ow_probe(part_ptr, fe, x, g, d, mask, in_win)
 
 
-@triton.jit
-def probe_steps_kernel(xp_ptr, d_ptr, stp_ptr, part_ptr, n, off, ex,
+@triton.jit(do_not_specialize=["stride"])
+def probe_steps_kernel(xp_ptr, d_ptr, stp_ptr, part_ptr, stride, n, off, ex,
                        body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
                        K: tl.constexpr, SHARD: tl.constexpr):
     # K2 s: K2's block at the K steps stp_ptr[0 .. K-1], xp, d and the
-    # extras loaded once; lane k's row of K2's [programs, 2] partials at
-    # part_ptr + k*programs*2, the objective's sum in column 0 and 0 in
-    # column 1 (the search reads the objective alone, so g.d is not formed)
+    # extras loaded once; lane k's objective sum (K2's column 0; the search
+    # reads the objective alone, so g.d is not formed) at part_ptr +
+    # program*stride + k, the lanes of one program side by side
     offs = _offsets(ROWS, W)
     mask = offs < n
     xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
     d = tl.load(d_ptr + offs, mask=mask, other=0.0)
     exb = _extras(ex, offs, mask)
     gidx = _gidx(offs, off, SHARD)
-    part = part_ptr + tl.program_id(0) * 2
-    lane = tl.num_programs(0) * 2
+    part = part_ptr + tl.program_id(0).to(tl.int64) * stride
     for k in tl.static_range(K):
         x = xp + tl.load(stp_ptr + k) * d
         fe, g = body(x, gidx, *exb)
-        tl.store(part + k * lane, _block_sum(fe, mask))
-        tl.store(part + k * lane + 1, 0.0)
+        tl.store(part + k, _block_sum(fe, mask))
 
 
-@triton.jit(do_not_specialize=["stp_stride"])
-def probe_steps_batched_kernel(xp_ptr, d_ptr, stp_ptr, stp_stride, live_ptr, part_ptr, n, ex,
-                               body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+@triton.jit(do_not_specialize=["stp_stride", "stride"])
+def probe_steps_batched_kernel(xp_ptr, d_ptr, stp_ptr, stp_stride, live_ptr, part_ptr, stride,
+                               n, ex, body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
                                K: tl.constexpr):
     # K2 b s: program (i, b) is K2 b's at the K steps stp_ptr[b*stp_stride
-    # + k]; lane k's partials in K2 b's [B, programs, 2] layout at
-    # part_ptr + k*B*programs*2 (column 1 0, as K2 s)
+    # + k]; lane k's objective sum at part_ptr + (b*programs + i)*stride +
+    # k, as K2 s
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
     row = b.to(tl.int64) * n
@@ -1192,22 +1193,20 @@ def probe_steps_batched_kernel(xp_ptr, d_ptr, stp_ptr, stp_stride, live_ptr, par
     d = tl.load(d_ptr + row + offs, mask=mask, other=0.0)
     exb = _extras(ex, offs, mask)
     progs = tl.num_programs(0).to(tl.int64)
-    part = part_ptr + (b.to(tl.int64) * progs + tl.program_id(0)) * 2
-    lane = tl.num_programs(1) * progs * 2
+    part = part_ptr + (b.to(tl.int64) * progs + tl.program_id(0)) * stride
     for k in tl.static_range(K):
         x = xp + tl.load(stp_ptr + b * stp_stride + k) * d
         fe, g = body(x, offs, *exb)
-        tl.store(part + k * lane, _block_sum(fe, mask), mask=live)
-        tl.store(part + k * lane + 1, 0.0, mask=live)
+        tl.store(part + k, _block_sum(fe, mask), mask=live)
 
 
-@triton.jit(do_not_specialize=["lo", "hi"])
-def owlqn_probe_steps_kernel(xp_ptr, d_ptr, wp_ptr, stp_ptr, part_ptr, n, lo, hi, off, ex,
-                             body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+@triton.jit(do_not_specialize=["stride", "lo", "hi"])
+def owlqn_probe_steps_kernel(xp_ptr, d_ptr, wp_ptr, stp_ptr, part_ptr, stride, n, lo, hi, off,
+                             ex, body: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
                              K: tl.constexpr, SHARD: tl.constexpr):
     # K8 s: K8's block at K steps, the orthant's signs formed once; lane k's
-    # row of K8's [programs, 3] partials at part_ptr + k*programs*3: the
-    # objective's and the window's |x| sums, 0 for g.d
+    # objective and window |x| sums (K8's columns 0 and 1; g.d is not
+    # formed) at part_ptr + program*stride + 2k and + 2k + 1
     offs = _offsets(ROWS, W)
     mask = offs < n
     xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
@@ -1216,23 +1215,21 @@ def owlqn_probe_steps_kernel(xp_ptr, d_ptr, wp_ptr, stp_ptr, part_ptr, n, lo, hi
     exb = _extras(ex, offs, mask)
     in_win = (offs >= lo) & (offs < hi)
     gidx = _gidx(offs, off, SHARD)
-    part = part_ptr + tl.program_id(0) * 3
-    lane = tl.num_programs(0) * 3
+    part = part_ptr + tl.program_id(0).to(tl.int64) * stride
     for k in tl.static_range(K):
         x = _ow_point(xp, d, tl.load(stp_ptr + k), wp_sign, in_win)
         fe, g = body(x, gidx, *exb)
-        tl.store(part + k * lane, _block_sum(fe, mask))
-        tl.store(part + k * lane + 1, _block_sum(tl.abs(x), mask & in_win))
-        tl.store(part + k * lane + 2, 0.0)
+        tl.store(part + 2 * k, _block_sum(fe, mask))
+        tl.store(part + 2 * k + 1, _block_sum(tl.abs(x), mask & in_win))
 
 
-@triton.jit(do_not_specialize=["stp_stride", "lo", "hi"])
+@triton.jit(do_not_specialize=["stp_stride", "stride", "lo", "hi"])
 def owlqn_probe_steps_batched_kernel(xp_ptr, d_ptr, pg_ptr, stp_ptr, stp_stride, live_ptr,
-                                     part_ptr, n, lo, hi, ex, body: tl.constexpr,
+                                     part_ptr, stride, n, lo, hi, ex, body: tl.constexpr,
                                      ROWS: tl.constexpr, W: tl.constexpr, K: tl.constexpr):
     # K8 b s: program (i, b) is K8 b's at K steps, the orthant rebuilt from
-    # (xp, pg) once; lane k's (f, L1, 0) partials in K8 b's layout at
-    # part_ptr + k*B*programs*3
+    # (xp, pg) once; lane k's (f, L1) sums at part_ptr + (b*programs +
+    # i)*stride + 2k and + 2k + 1, as K8 s
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
     row = b.to(tl.int64) * n
@@ -1245,14 +1242,12 @@ def owlqn_probe_steps_batched_kernel(xp_ptr, d_ptr, pg_ptr, stp_ptr, stp_stride,
     wp_sign = tl.where(xp == 0.0, _msign(-pg), _msign(xp))
     in_win = (offs >= lo) & (offs < hi)
     progs = tl.num_programs(0).to(tl.int64)
-    part = part_ptr + (b.to(tl.int64) * progs + tl.program_id(0)) * 3
-    lane = tl.num_programs(1) * progs * 3
+    part = part_ptr + (b.to(tl.int64) * progs + tl.program_id(0)) * stride
     for k in tl.static_range(K):
         x = _ow_point(xp, d, tl.load(stp_ptr + b * stp_stride + k), wp_sign, in_win)
         fe, g = body(x, offs, *exb)
-        tl.store(part + k * lane, _block_sum(fe, mask), mask=live)
-        tl.store(part + k * lane + 1, _block_sum(tl.abs(x), mask & in_win), mask=live)
-        tl.store(part + k * lane + 2, 0.0, mask=live)
+        tl.store(part + 2 * k, _block_sum(fe, mask), mask=live)
+        tl.store(part + 2 * k + 1, _block_sum(tl.abs(x), mask & in_win), mask=live)
 
 
 @triton.jit(do_not_specialize=["end", "lo", "hi", "tiles"])

@@ -510,22 +510,23 @@ def _ow_scalars_batched(part: torch.Tensor, c: float) -> tuple:
     mode the f and L1 columns summed in float64 and fx + c*L1 formed there
     (``_ow_probe_scalars``' wide form per instance), else in the vectors'
     dtype."""
-    tot = part.sum(dim=1)
+    tot = fused.reduce_partials(part, dim=1)
     if fused.wide(part.dtype):
         fl = fused.obj_reduce(part[:, :, :2], dim=1)
         return fl[:, 0] + c * fl[:, 1], tot[:, 2]
     return tot[:, 0] + tot[:, 1] * c, tot[:, 2]
 
 
-def _ow_lane(part: torch.Tensor) -> tuple:
-    """(f, L1) of one lane of K8 s: ``_ow_probe_scalars``' sums of a
-    [programs, 3] partials array, before the mesh's collective and the
-    L1 weight (float64 under the wide mode)."""
+def _lane_sums(part: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The K-lane probes' objective (and L1) columns, [programs, K*c]
+    (batched: [B, programs, K*c]), summed over their programs by one
+    launch of R: in float64 under the wide mode, as ``_fx`` and
+    ``_ow_probe_scalars`` sum K2's and K8's columns, else in the vectors'
+    dtype.  R's order depends on the row count alone, so each column is
+    the one-lane kernel's sum bit for bit."""
     if fused.wide(part.dtype):
-        fl = fused.obj_reduce(part[:, :2])
-        return fl[0], fl[1]
-    tot = fused.reduce_partials(part)
-    return tot[0], tot[1]
+        return fused.obj_reduce(part, dim)
+    return fused.reduce_partials(part, dim)
 
 
 def _ow_lanes_total(fx: torch.Tensor, l1: torch.Tensor, c: float) -> torch.Tensor:
@@ -732,7 +733,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             W=W, **LAUNCH,
         )
         probe_batched.launches += 1
-        tot = part.sum(dim=1)
+        tot = fused.reduce_partials(part, dim=1)
         return _fx_batched(part, tot), tot[:, 1]
 
     # ----------------------------------------- K1 b: the batched trial
@@ -775,7 +776,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             body=block_fn(), ROWS=rows, W=W, **LAUNCH,
         )
         trial_batched.launches += 1
-        ptot, tot = ppart.sum(dim=1), part.sum(dim=1)
+        ptot, tot = fused.reduce_partials(ppart, dim=1), fused.reduce_partials(part, dim=1)
         return _fx_batched(ppart, ptot), ptot[:, 1], tot[:, 0], tot[:, 1], tot[:, 2] > 0
 
     # ------------------------------------------- K4 trial + pair + Gram
@@ -893,11 +894,11 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             trial_pair_gram_batched, eg, m, xp.dtype, S.dtype, with_gp,
             xp, d, gp, stp, live.view(torch.uint8), S, Y, part, gpart, n, int(end),
             ex=extras, body=block_fn(), W=W)
-        tot = part.sum(dim=1)
+        tot = fused.reduce_partials(part, dim=1)
         P = tot[:, 4:].reshape(B, m, 6)
         SP, YP = P[:, :, :3], P[:, :, 3:]
         if with_gp:
-            SP, YP = fused.append_gp(SP, YP, gpart.sum(dim=1))
+            SP, YP = fused.append_gp(SP, YP, fused.reduce_partials(gpart, dim=1))
         return tot[:, 0], tot[:, 1], tot[:, 2], tot[:, 3] > 0, SP, YP
 
     # ----------------------------------- K8 b: the batched OWL-QN probe
@@ -989,7 +990,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             ex=extras, body=block_fn(), ROWS=rows, W=W, **LAUNCH,
         )
         owlqn_trial_batched.launches += 1
-        tot = part.sum(dim=1)
+        tot = fused.reduce_partials(part, dim=1)
         return (*_ow_scalars_batched(ppart, c), tot[:, 0], tot[:, 1] > 0)
 
     # ------------------------------------------- K8 OWL-QN probe
@@ -1118,16 +1119,15 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         grid = _grid(n)
         stp = _lanes("probe_steps", stps, xp)
         K = stp.shape[0]
-        part = torch.empty((K, grid[0], 2), dtype=xp.dtype, device=xp.device)
+        part = torch.empty((grid[0], K), dtype=xp.dtype, device=xp.device)
         for k0, kc in spec_chunks(K):
             probe_steps.compiled[(xp.dtype, kc)] = _kernels().probe_steps_kernel[grid](
-                xp, d, stp[k0:], part[k0], n, off, ex=ex, SHARD=off != 0, body=block_fn(),
-                ROWS=rows, W=W, K=kc, **LAUNCH,
+                xp, d, stp[k0:], part[:, k0:], K, n, off, ex=ex, SHARD=off != 0,
+                body=block_fn(), ROWS=rows, W=W, K=kc, **LAUNCH,
             )
             probe_steps.launches += 1
             probe_steps.lanes += kc
-        (fx,) = fused.mesh_sum(torch.stack(
-            [_fx(part[k], fused.reduce_partials(part[k])) for k in range(K)]))
+        (fx,) = fused.mesh_sum(_lane_sums(part))
         return fx
 
     def owlqn_probe_steps_ref(xp, d, wp, stps, c, start, end):
@@ -1152,17 +1152,16 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         grid = _grid(n)
         stp = _lanes("owlqn_probe_steps", stps, xp)
         K = stp.shape[0]
-        part = torch.empty((K, grid[0], 3), dtype=xp.dtype, device=xp.device)
+        part = torch.empty((grid[0], K, 2), dtype=xp.dtype, device=xp.device)
         for k0, kc in spec_chunks(K):
             owlqn_probe_steps.compiled[(xp.dtype, kc)] = _kernels().owlqn_probe_steps_kernel[grid](
-                xp, d, wp, stp[k0:], part[k0], n, lo, hi, off, ex=ex, SHARD=off != 0,
-                body=block_fn(), ROWS=rows, W=W, K=kc, **LAUNCH,
+                xp, d, wp, stp[k0:], part[:, k0:], 2 * K, n, lo, hi, off, ex=ex,
+                SHARD=off != 0, body=block_fn(), ROWS=rows, W=W, K=kc, **LAUNCH,
             )
             owlqn_probe_steps.launches += 1
             owlqn_probe_steps.lanes += kc
-        lanes = [_ow_lane(part[k]) for k in range(K)]
-        return _ow_lanes_total(torch.stack([f for f, _ in lanes]),
-                               torch.stack([l1 for _, l1 in lanes]), c)
+        fl = _lane_sums(part.view(grid[0], 2 * K)).view(K, 2)
+        return _ow_lanes_total(fl[:, 0], fl[:, 1], c)
 
     def _check_steps(kernel: str, xp: torch.Tensor, stps: torch.Tensor) -> int:
         if (stps.ndim != 2 or stps.shape[0] != xp.shape[0] or stps.shape[1] < 1
@@ -1192,16 +1191,17 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         fused.check_contiguous("probe_steps_batched", xp, d, live)
         n = xp.shape[1]
         grid = (_grid(n)[0], B)
-        part = torch.empty((K, B, grid[0], 2), dtype=xp.dtype, device=xp.device)
+        part = torch.empty((B, grid[0], K), dtype=xp.dtype, device=xp.device)
         for k0, kc in spec_chunks(K):
             probe_steps_batched.compiled[(xp.dtype, kc)] = \
                 _kernels().probe_steps_batched_kernel[grid](
-                    xp, d, stps[:, k0:], stps.stride(0), live.view(torch.uint8), part[k0], n,
-                    ex=extras, body=block_fn(), ROWS=rows, W=W, K=kc, **LAUNCH,
+                    xp, d, stps[:, k0:], stps.stride(0), live.view(torch.uint8),
+                    part[:, :, k0:], K, n, ex=extras, body=block_fn(), ROWS=rows, W=W, K=kc,
+                    **LAUNCH,
                 )
             probe_steps_batched.launches += 1
             probe_steps_batched.lanes += kc * B
-        return torch.stack([_fx_batched(part[k], part[k].sum(dim=1)) for k in range(K)], dim=1)
+        return _lane_sums(part, dim=1)
 
     def owlqn_probe_pg_steps_batched_ref(xp, d, pg, stps, c, start, end, live):
         """Plain version of ``owlqn_probe_pg_steps_batched``:
@@ -1226,16 +1226,18 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         fused.check_contiguous("owlqn_probe_pg_steps_batched", xp, d, pg, live)
         n = xp.shape[1]
         grid = (_grid(n)[0], B)
-        part = torch.empty((K, B, grid[0], 3), dtype=xp.dtype, device=xp.device)
+        part = torch.empty((B, grid[0], K, 2), dtype=xp.dtype, device=xp.device)
         for k0, kc in spec_chunks(K):
             owlqn_probe_pg_steps_batched.compiled[(xp.dtype, kc)] = \
                 _kernels().owlqn_probe_steps_batched_kernel[grid](
-                    xp, d, pg, stps[:, k0:], stps.stride(0), live.view(torch.uint8), part[k0],
-                    n, start, end, ex=extras, body=block_fn(), ROWS=rows, W=W, K=kc, **LAUNCH,
+                    xp, d, pg, stps[:, k0:], stps.stride(0), live.view(torch.uint8),
+                    part[:, :, k0:], 2 * K, n, start, end, ex=extras, body=block_fn(),
+                    ROWS=rows, W=W, K=kc, **LAUNCH,
                 )
             owlqn_probe_pg_steps_batched.launches += 1
             owlqn_probe_pg_steps_batched.lanes += kc * B
-        return torch.stack([_ow_scalars_batched(part[k], c)[0] for k in range(K)], dim=1)
+        fl = _lane_sums(part.view(B, grid[0], 2 * K), dim=1).view(B, K, 2)
+        return fl[..., 0] + fl[..., 1] * c
 
     # ------------------------ K14 OWL-QN trial + pseudo-gradient + pair + Gram
 
@@ -1359,12 +1361,12 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             owlqn_trial_pair_gram_batched, eg, m, xp.dtype, S.dtype, with_gp,
             xp, d, gp, pg, stp, _scalar(c, xp), live.view(torch.uint8), S, Y, part, gpart, n,
             start, end_w, int(end), ex=extras, body=block_fn(), W=W)
-        tot = part.sum(dim=1)
+        tot = fused.reduce_partials(part, dim=1)
         P = tot[:, 3:].reshape(B, m, 6)
         out = (tot[:, 0], tot[:, 1], tot[:, 2] > 0, P[:, :, :3], P[:, :, 3:])
         if not with_gp:
             return out
-        G = gpart.sum(dim=1)
+        G = fused.reduce_partials(gpart, dim=1)
         SP, YP = fused.append_gp(out[3], out[4], G[:, 2:])
         return (*out[:3], SP, YP, G[:, 0], G[:, 1])
 
@@ -1515,7 +1517,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
             d, x, S, Y, coef, stp1, live.view(torch.uint8), out, cpart, ppart, n, m, *args,
             ex=extras, body=block_fn(), M=0 if deep else m, ROWS=rows, W=W, **consts, **LAUNCH)
         _count(fn, deep, **{k.lower(): v for k, v in consts.items()})
-        return cpart.sum(dim=1), ppart
+        return fused.reduce_partials(cpart, dim=1), ppart
 
     def combine_probe_batched_ref(g, x, S, Y, coef, stp1, live, out, fix=None):
         """Plain version of ``combine_probe_batched``: K3 b's plain
@@ -1557,7 +1559,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         ctot, ppart = _combine_batched_launch(combine_probe_batched, g, x, S, Y, coef, stp1, live,
                                               out, 2, 0 if fix is None else fix,
                                               FIX=fix is not None)
-        ptot = ppart.sum(dim=1)
+        ptot = fused.reduce_partials(ppart, dim=1)
         return ctot[:, 0], ctot[:, 1], _fx_batched(ppart, ptot), ptot[:, 1]
 
     def combine_ow_probe_batched_ref(pg, x, S, Y, coef, c, start, end, stp1, live, out):

@@ -44,10 +44,15 @@ share.
   ``csrc/axpy_dot.cu``); on a CPU tensor it runs its plain version
   (``*_ref``).
 
-  * ``reduce_partials`` — the fixed-order cross-block sum that every
-    kernel of the package uses: each kernel program writes its own
-    partial sums, and this adds them, so no float atomics touch the
-    trajectory and runs repeat bit for bit.
+  * ``reduce_partials`` (R, ``csrc/partials.cu``) — the fixed-order
+    cross-block sum that every kernel of the package uses: each kernel
+    program writes its own partial sums, and this adds them, so no float
+    atomics touch the trajectory and runs repeat bit for bit.  "Fixed
+    order" means fixed by the row count alone: a column's sum does not
+    depend on the array's width, on the batch or on the lanes around it,
+    so the solo, batched and K-lane forms of a kernel agree bit for bit
+    wherever their programs' partials do (``reduce_partials_order_ref``
+    writes the order in torch ops).  On a CPU tensor it is torch's sum.
   * the wide objective scalar (``wide_fx``, ``params.fx_wide``):
     ``obj_reduce`` and ``obj_sum`` take the objective's sums in float64
     over float32 vectors.
@@ -138,10 +143,97 @@ def to_device(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return host.pin_memory().to(like.device, non_blocking=True)
 
 
-def reduce_partials(partials: torch.Tensor) -> torch.Tensor:
-    """Column sums of a [programs, k] partial-sum array, in a fixed order
-    (the same shape always reduces the same way; no atomics)."""
-    return partials.sum(dim=0)
+#: lanes of R's order of addition (``csrc/partials.cu``, kLanes)
+PARTIAL_LANES = 1024
+#: R takes its two-launch form (``csrc/partials.cu``) from
+#: ``PARTIAL_TILE_COLS`` columns, more than ``PARTIAL_LANES`` rows and
+#: ``PARTIAL_TILE_ELEMS`` values an instance (kTileCols, kTileMinElems)
+PARTIAL_TILE_COLS, PARTIAL_TILE_ELEMS = 32, 1 << 18
+
+
+def partials_scratch(B: int, P: int, C: int) -> int:
+    """Elements of the scratch R's two-launch form needs for B instances of
+    [P, C] partials (``lbfgs_partials_scratch``): the [B, PARTIAL_LANES,
+    C] lane sums, or none in the one-launch forms."""
+    two = C >= PARTIAL_TILE_COLS and P > PARTIAL_LANES and P * C >= PARTIAL_TILE_ELEMS
+    return B * PARTIAL_LANES * C if two else 0
+
+_PARTIALS = {(torch.float32, False): "f32", (torch.float32, True): "f32_wide",
+             (torch.float64, False): "f64", (torch.float64, True): "f64"}
+
+
+def _partials_view(partials: torch.Tensor, dim: int) -> tuple:
+    """(B, P, C, strides in elements, the output's shape) of a partials
+    array summed over its axis ``dim``: [P] or [P, C] with dim = 0, a
+    batch's [B, P] or [B, P, C] with dim = 1."""
+    shape, st = list(partials.shape), list(partials.stride())
+    if dim == 0 and partials.ndim in (1, 2):
+        shape, st = [1] + shape, [0] + st
+    elif not (dim == 1 and partials.ndim in (2, 3)):
+        raise ValueError(f"reduce_partials: cannot sum a {partials.ndim}-d array over axis {dim}")
+    if len(shape) == 2:
+        shape, st = shape + [1], st + [0]
+    out = tuple(partials.shape[:dim]) + tuple(partials.shape[dim + 1:])
+    return (*shape, *st, out)
+
+
+def reduce_partials_ref(partials: torch.Tensor, dim: int = 0,
+                        wide: bool = False) -> torch.Tensor:
+    """Plain version of ``reduce_partials``: torch's sum over axis ``dim``
+    (in float64 with ``wide``)."""
+    return (partials.to(torch.float64) if wide else partials).sum(dim=dim)
+
+
+def reduce_partials_order_ref(partials: torch.Tensor, dim: int = 0,
+                              wide: bool = False) -> torch.Tensor:
+    """R's order of addition in torch ops, for checks: with L =
+    min(``PARTIAL_LANES``, P rounded up to a power of two) lanes, lane l
+    adds rows l, l + PARTIAL_LANES, ... in turn from +0, then lane l takes
+    lane l + h for h = L/2, ..., 1.  Every add is one rounded IEEE add, so
+    on any device this gives R's bits."""
+    x = (partials.to(torch.float64) if wide else partials).movedim(dim, 0)
+    P = x.shape[0]
+    lanes = 1
+    while lanes < min(P, PARTIAL_LANES):
+        lanes *= 2
+    acc = x.new_zeros((lanes,) + tuple(x.shape[1:]))
+    for r0 in range(0, P, PARTIAL_LANES):
+        rows = x[r0:r0 + PARTIAL_LANES]
+        acc[:rows.shape[0]] = acc[:rows.shape[0]] + rows
+    while lanes > 1:
+        lanes //= 2
+        acc = acc[:lanes] + acc[lanes:2 * lanes]
+    return acc[0]
+
+
+def reduce_partials(partials: torch.Tensor, dim: int = 0, wide: bool = False) -> torch.Tensor:
+    """R: the sums of a kernel's partials over its programs, axis ``dim``
+    ([P] or [P, C] with dim = 0; a batched kernel's [B, P] or [B, P, C]
+    per instance with dim = 1), each column in the order its row count P
+    fixes (``reduce_partials_order_ref``), whatever the width, the batch
+    or the strides.  With ``wide`` float32 partials are added in float64
+    (``obj_reduce``).  On a CPU tensor the plain version, torch's sum."""
+    if not on_cuda(partials, "reduce_partials"):
+        return reduce_partials_ref(partials, dim, wide)
+    sfx = _PARTIALS.get((partials.dtype, bool(wide)))
+    if sfx is None:
+        raise TypeError(f"reduce_partials: no kernel for {partials.dtype} partials")
+    B, P, C, sB, sP, sC, shape = _partials_view(partials, dim)
+    lib = _build.load_library()
+    dtype = torch.float64 if wide else partials.dtype
+    out = torch.empty(shape, device=partials.device, dtype=dtype)
+    need = partials_scratch(B, P, C)
+    scratch = torch.empty(need, device=partials.device, dtype=dtype) if need else None
+    code = getattr(lib, f"lbfgs_partials_{sfx}")(
+        partials.data_ptr(), out.data_ptr(), B, P, C, sB, sP, sC,
+        None if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream(partials.device).cuda_stream)
+    _build.check_launch(code, "reduce_partials")
+    reduce_partials.launches += 1
+    return out
+
+
+reduce_partials.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +286,7 @@ def obj_reduce(parts: torch.Tensor, dim: int = 0) -> torch.Tensor:
     ``reduce_partials`` for the objective's columns.  A batched kernel's
     [B, programs, k] (or [B, programs]) partials are summed per instance
     over their programs, ``dim=1``."""
-    return parts.to(torch.float64).sum(dim=dim)
+    return reduce_partials(parts, dim, wide=True)
 
 
 #: elements per float32 partial in ``obj_sum``'s wide form
@@ -207,13 +299,15 @@ def obj_sum(v: torch.Tensor) -> torch.Tensor:
     as the kernels are, float32 sums over blocks of ``OBJ_SUM_BLOCK``
     elements and a float64 total (``lbfgs_tpu/ops/fused.py:299-313``);
     the kernels' blocks hold 1024 elements, so the two forms differ in the
-    last bits of the blocks' float32 sums.  Otherwise one plain sum."""
+    last bits of the blocks' float32 sums.  Otherwise one plain sum.  Both
+    stages are torch's on every device: it runs under ``torch.func``
+    transforms (a batch of generic objectives), where no kernel can."""
     if not wide(v.dtype):
         return torch.sum(v)
     pad = (-v.shape[0]) % OBJ_SUM_BLOCK
     if pad:
         v = torch.cat([v, v.new_zeros(pad)])
-    return obj_reduce(v.reshape(-1, OBJ_SUM_BLOCK).sum(dim=1))
+    return reduce_partials_ref(v.reshape(-1, OBJ_SUM_BLOCK).sum(dim=1), wide=True)
 
 
 def l1_batched(x: torch.Tensor, start: int, end: int) -> torch.Tensor:
@@ -424,7 +518,7 @@ def _launch_combine_batched(name: str, g, S, Y, coef, live, out, nparts: int, *a
               out.data_ptr(), part.data_ptr(), n, m, *args, B,
               torch.cuda.current_stream(g.device).cuda_stream)
     _build.check_launch(code, name)
-    return part.sum(dim=1)
+    return reduce_partials(part, dim=1)
 
 
 def combine_batched(g, S, Y, coef, live, out):
@@ -762,7 +856,7 @@ def pseudo_gradient_norm_batched(x, g, c: float, start: int, end: int, live, out
         part.data_ptr(), n, B, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(code, "pseudo_gradient_norm_batched")
     pseudo_gradient_norm_batched.launches += 1
-    return part.sum(dim=1)
+    return reduce_partials(part, dim=1)
 
 
 pseudo_gradient_norm_batched.launches = 0
@@ -1198,10 +1292,10 @@ def pair_gram_sd_batched(stp, d, gx, gp, S, Y, end: int, live, with_gp: bool = F
     _build.check_launch(code, "pair_gram_sd_batched")
     pair_gram_sd_batched.launches += 1
     pair_gram_sd_batched.gp_launches += bool(with_gp)
-    P = part.sum(dim=1).reshape(B, m, 6)
+    P = reduce_partials(part, dim=1).reshape(B, m, 6)
     SP, YP = P[..., :3], P[..., 3:]
     if with_gp:
-        SP, YP = append_gp(SP, YP, gpart.sum(dim=1))
+        SP, YP = append_gp(SP, YP, reduce_partials(gpart, dim=1))
     return SP, YP
 
 
@@ -1309,7 +1403,7 @@ def pair_gram_xg_batched(x, xp, gx, gp, pg, S, Y, end: int, live):
               grid.tiles, grid.blocks, B, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(code, "pair_gram_xg_batched")
     pair_gram_xg_batched.launches += 1
-    P = part.sum(dim=1).reshape(B, m, 6)
+    P = reduce_partials(part, dim=1).reshape(B, m, 6)
     return P[..., :3], P[..., 3:]
 
 

@@ -460,7 +460,9 @@ def _objective(name: str, n: int, dtype):
 @pytest.mark.parametrize("dtype", ["float64", "float32", "float32_wide"])
 def test_lane_probes_per_lane(model, dtype):
     """Each lane of K2 s and K8 s and of K2 b s and K8 b s (its orthant
-    rebuilt from pg) equals the one-lane plain probe at its step bit for bit."""
+    rebuilt from pg) equals the one-lane plain probe at its step bit for
+    bit, at 1 to 11 lanes (past ``factory.SPEC_MAX_LANES``, where the card
+    launches in chunks)."""
     vd = torch.float64 if dtype == "float64" else torch.float32
     n, c, lo, hi = 34, 0.7, 3, 30
     k = _objective(model, n, vd)
@@ -471,27 +473,30 @@ def test_lane_probes_per_lane(model, dtype):
     pg = torch.randn(n, generator=g, dtype=torch.float64).to(vd)
     wp = choose_orthant(Orthantwise(c, lo, hi), x, pg)
     f = np.float32 if vd == torch.float32 else np.float64
-    steps = f(0.9) * f(0.5) ** np.arange(5).astype(f)
-    with fused.wide_fx(dtype == "float32_wide"):
-        fx = k.probe_steps(x, d, steps)
-        fw = k.owlqn_probe_steps(x, d, wp, steps, c, lo, hi)
-        for j, s in enumerate(steps):
-            assert torch.equal(fx[j], k.probe_ref(x, d, s)[0])
-            assert torch.equal(fw[j], k.owlqn_probe_ref(x, d, wp, s, c, lo, hi)[0])
-        xb, db, pgb = x[None].repeat(3, 1), d[None].repeat(3, 1), pg[None].repeat(3, 1)
-        xb[1] = xb[1] * 0.5
-        live = torch.tensor([True, True, False])
-        st = torch.from_numpy(np.stack([steps, steps * f(0.25), steps]))
-        fb = k.probe_steps_batched(xb, db, st, live)
-        fo = k.owlqn_probe_pg_steps_batched(xb, db, pgb, st, c, lo, hi, live)
-        assert fb.shape == fo.shape == (3, 5)
-        for j in range(5):
-            col = st[:, j].contiguous()
-            assert torch.equal(fb[:2, j], k.probe_batched_ref(xb, db, col, live)[0][:2])
-            assert torch.equal(fo[:2, j],
-                               k.owlqn_probe_pg_batched_ref(xb, db, pgb, col, c, lo, hi, live)[0][:2])
-    if dtype == "float32_wide":
-        assert fx.dtype == fw.dtype == fb.dtype == torch.float64
+    assert factory.SPEC_MAX_LANES < 11
+    for K in range(1, 12):
+        steps = f(0.9) * f(0.5) ** np.arange(K).astype(f)
+        with fused.wide_fx(dtype == "float32_wide"):
+            fx = k.probe_steps(x, d, steps)
+            fw = k.owlqn_probe_steps(x, d, wp, steps, c, lo, hi)
+            assert fx.shape == fw.shape == (K,)
+            for j, s in enumerate(steps):
+                assert torch.equal(fx[j], k.probe_ref(x, d, s)[0])
+                assert torch.equal(fw[j], k.owlqn_probe_ref(x, d, wp, s, c, lo, hi)[0])
+            xb, db, pgb = x[None].repeat(3, 1), d[None].repeat(3, 1), pg[None].repeat(3, 1)
+            xb[1] = xb[1] * 0.5
+            live = torch.tensor([True, True, False])
+            st = torch.from_numpy(np.stack([steps, steps * f(0.25), steps]))
+            fb = k.probe_steps_batched(xb, db, st, live)
+            fo = k.owlqn_probe_pg_steps_batched(xb, db, pgb, st, c, lo, hi, live)
+            assert fb.shape == fo.shape == (3, K)
+            for j in range(K):
+                col = st[:, j].contiguous()
+                assert torch.equal(fb[:2, j], k.probe_batched_ref(xb, db, col, live)[0][:2])
+                assert torch.equal(
+                    fo[:2, j], k.owlqn_probe_pg_batched_ref(xb, db, pgb, col, c, lo, hi, live)[0][:2])
+        if dtype == "float32_wide":
+            assert fx.dtype == fw.dtype == fb.dtype == fo.dtype == torch.float64
 
 
 def test_lane_probes_refuse_bad_steps():
@@ -575,12 +580,20 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1 << 14, (1 << 14) + 2])
+@pytest.mark.parametrize("n", [1 << 14, (1 << 14) + 2, 1 << 20, 1 << 24])
 @pytest.mark.parametrize("K", [3, 11])
-def test_lane_kernels_on_card(cuda, n, K):
+@pytest.mark.parametrize("wide", [False, True])
+def test_lane_kernels_on_card(cuda, n, K, wide):
     """K2 s and K8 s (11 lanes launch as 8 + 3) and
     K2 b s and K8 b s: each lane the one-lane kernel's fx at its step bit
-    for bit, on the live instances of a batch."""
+    for bit, on the live instances of a batch, at 16 to 16384 programs
+    (n = 2^14 to 2^24), in both modes of the objective scalar."""
+    with fused.wide_fx(wide):
+        _lane_kernels_on_card(n, K)
+
+
+def _lane_kernels_on_card(n, K):
+    cuda = torch.device("cuda")
     k = t_rosen.value_and_grad.kernels
     g = torch.Generator(device=cuda).manual_seed(n + K)
     x = t_rosen.initial_point(n, torch.float32, "cuda") + 0.1 * torch.randn(
