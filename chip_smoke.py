@@ -153,7 +153,21 @@ Phases (any failure raises and the script exits nonzero):
      K15-fix's r and row K6's, K16's rc and probe K13's and K8's), the
      deep epilogues bit for bit the static ones at m = 19, every deep
      form's registers and spills (``deep_compiled``: a spill fails), and
-     each ``_m80`` kernel timed;
+     each ``_m80`` kernel timed; over f32 and f64 rings K4 and K14 take
+     their tensor-core row-block form at these depths (held the same way,
+     and their deep fold forms too at m = 80), and at the ``FOLD_ROWS``
+     rows (f32 and f64 rings at m = 80, a bf16 ring at m = 260) the
+     row-block form is held to its plain version and to the fold form on
+     the same inputs and timed;
+ 29c. solo tensor-core kernels (``solo_mma_kernels``): the one-pass
+     form's products against the float64 product of their operands at m =
+     19, 80 and 200, the row-block form's at the ``FOLD_ROWS`` rows with 2,
+     32 and 64 chunks a program (1e-6 normwise with f32 vectors, 1e-12 with
+     f64), the matrix instructions each row-block kernel compiled to, and
+     every solo tensor-core kernel's registers (a spill fails);
+ 29d. deep fold paths: the ``FOLD_ROWS`` rows through the plain and
+     OWL-QN deep-history settings, 10 iterations, every K4 and K14 launch
+     in the row-block form, fx finite;
  29b. deep main path: the main path's settings at m = 80 (n = 2^24, two
      bf16 rings of 2.7 GB), epsilon 0, 40 iterations, through the deep
      forms (K1 once, K4 and K15 per iteration, K2 per probe K15 did not
@@ -507,15 +521,18 @@ DEEP_FORMS = ("K4_trial_pair_gram", "K4_trial_pair_gram_gp", "K14_owlqn_trial_pa
 DEEP_KERNELS += DEEP_FORMS
 KERNELS.update({f"{name}_m80": (route, src, f"{rep} (m = 80)")
                 for name, (route, src, rep) in list(KERNELS.items()) if name in DEEP_KERNELS})
-#: the fold forms the solo K4 and K14 keep above 64 ring rows, where the
-#: tensor-core form (f32 vectors over a bf16 ring, ``factory.MMA_MIN_M``
-#: to ``factory.MMA_MAX_M`` rows) does not run: f32 and f64 rings at m =
-#: 80 and a bf16 ring at m = 260, n = 2^20 (``phase_deep_fold_paths``)
+#: the depths the solo K4 and K14 took in their fold forms until the
+#: tensor-core row-block form (``"mma_rows"``) took them: f32 and f64
+#: rings at m = 80 and a bf16 ring at m = 260, n = 2^20
+#: (``phase_deep_fold_paths``; the one-pass tensor-core form runs f32
+#: vectors over a bf16 ring from ``factory.MMA_MIN_M`` to
+#: ``factory.MMA_MAX_M`` rows)
 FOLD_ROWS = {"_f32_m80": (torch.float32, torch.float32, 80),
              "_f64_m80": (torch.float64, torch.float64, 80),
              "_m260": (torch.float32, torch.bfloat16, 260)}
 KERNELS.update({
-    f"{name}{sfx}": (route, src, f"{rep} (m = {m}, {str(vd)[6:]}/{str(hd)[6:]}, deep form)")
+    f"{name}{sfx}": (route, src,
+                     f"{rep} (m = {m}, {str(vd)[6:]}/{str(hd)[6:]}, tensor-core row-block form)")
     for name, (route, src, rep) in list(KERNELS.items())
     if name in ("K4_trial_pair_gram", "K14_owlqn_trial_pair_gram")
     for sfx, (vd, hd, m) in FOLD_ROWS.items()})
@@ -1182,6 +1199,10 @@ def warm_steps() -> list:
     steps += [deep(*bf16, m) for m in (DEEP_VS_STATIC_M, 130)]
     steps += [deep(*bf16, DEEP_VS_STATIC_M, force=M),
               deep(*bf16, DEEP_VS_STATIC_M, force=DEEP_VS_STATIC_M)]
+    # the row-block form over a bf16 ring above 256 rows, and the fold forms
+    # the row-block form's checks hold it to at the FOLD_ROWS depths
+    steps += [deep(*bf16, FOLD_ROWS["_m260"][2])]
+    steps += [deep(vd, hd, m, force=M) for vd, hd, m in FOLD_ROWS.values() if hd != bf16[1]]
     def speculative(n, K):
         # the K-lane probes at the lanes the speculative phases take (K2 s
         # and K8 s at 2, 3, 4 and 8 lanes, 11 as 8 + 3; f32, n divisible by
@@ -2221,6 +2242,7 @@ def _reset_factory(k) -> None:
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.trial_pair_gram_batched,
                k.owlqn_trial_pair_gram_batched):
         fn.gp_launches = fn.deep_gp_launches = fn.mma_launches = 0
+    k.trial_pair_gram.mma_rows_launches = k.owlqn_trial_pair_gram.mma_rows_launches = 0
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.combine_probe, k.combine_ow_probe,
                k.trial_pair_gram_batched, k.owlqn_trial_pair_gram_batched,
                k.combine_probe_batched, k.combine_ow_probe_batched):
@@ -2658,13 +2680,16 @@ def _expect(name: str, lc: dict, pc: dict, **counts) -> None:
         raise AssertionError(f"{name} called plain versions: {pc}")
 
 
-def _expect_mma(name: str, iters: int, owlqn: bool = False) -> None:
+def _expect_mma(name: str, iters: int, owlqn: bool = False, rows: int = 0) -> None:
     """The solo epilogue (K4, or K14 under OWL-QN) ran in its tensor-core
-    form ``iters`` times since the last ``reset_counts`` (0: never)."""
+    form ``iters`` times and in its row-block form ``rows`` times since the
+    last ``reset_counts`` (0: never)."""
     k = rosenbrock.value_and_grad.kernels
-    got = (k.owlqn_trial_pair_gram if owlqn else k.trial_pair_gram).mma_launches
-    if got != iters:
-        raise AssertionError(f"{name}: {got} tensor-core epilogue launches, {iters} expected")
+    fn = k.owlqn_trial_pair_gram if owlqn else k.trial_pair_gram
+    if (fn.mma_launches, fn.mma_rows_launches) != (iters, rows):
+        raise AssertionError(f"{name}: {fn.mma_launches} tensor-core and "
+                             f"{fn.mma_rows_launches} row-block epilogue launches, {iters} and "
+                             f"{rows} expected")
 
 
 def _carried_all(name: str, used: int, iters: int) -> None:
@@ -3651,11 +3676,11 @@ def _deep_launches(name: str, iters: int, evals: int, used: int, route: str) -> 
 
 
 def _deep_run(label: str, name: str, params: LbfgsParams, x0, route: str,
-              mma: bool = True) -> tuple:
+              form: str = "mma") -> tuple:
     """One ``minimize_jit`` of a deep-history configuration through a route
     (``DEEP_ROUTES``), after a 3-iteration warm-up, its launches checked
     (``_deep_launches``; through the epilogue route every K4 or K14 in the
-    tensor-core form, or with ``mma`` off in none); returns (state,
+    tensor-core form ``form``, "mma" or "mma_rows"); returns (state,
     seconds, launches, host reads, carried first trips)."""
     fn = DEEP_ROUTES[route]()
     minimize_jit(params.replace(max_iterations=3), x0, fn, return_state=True)
@@ -3672,9 +3697,11 @@ def _deep_run(label: str, name: str, params: LbfgsParams, x0, route: str,
     _expect(f"{label} {name} ({route})", lc, pc,
             **_deep_launches(name, st.k - 1, st.prob.neval, used, route))
     # f32 vectors over a bf16 ring of 80 rows: K4 and K14 in the tensor-core
-    # form, every launch; the any-depth route launches neither
-    _expect_mma(f"{label} {name} ({route})", (st.k - 1) * (route == "epilogue" and mma),
-                name in ("owlqn", "damped_owlqn"))
+    # form, every launch (the fold paths' rings: the row-block form); the
+    # any-depth route launches neither
+    ep = (st.k - 1) * (route == "epilogue")
+    _expect_mma(f"{label} {name} ({route})", ep * (form == "mma"),
+                name in ("owlqn", "damped_owlqn"), ep * (form == "mma_rows"))
     return st, dt, lc, reads, used
 
 
@@ -3739,7 +3766,15 @@ def phase_deep_history() -> tuple:
             a = deep_inputs(vd, hd, m)
             bits = check_deep_forms(errs, a, f"m={m} {vd} {hd}", tv, ts)
             emit(phase="deep_forms_checked", m=m, dtypes=f"{vd}/{hd}".replace("torch.", ""),
-                 scalar_sums_bit_for_bit_vs_m6=bits)
+                 scalar_sums_bit_for_bit_vs_m6=bits,
+                 form=rosenbrock.trial_pair_gram.last_form.form)
+            if m == DEEP_M and rosenbrock.trial_pair_gram.last_form.form == "mma_rows":
+                # the deep fold forms, which these rings take at an n off a
+                # multiple of 16, on the same inputs
+                with static_forms_up_to(M):
+                    bits = check_deep_forms(errs, a, f"m={m} {vd} {hd} fold", tv, ts)
+                emit(phase="deep_forms_checked", m=m, dtypes=f"{vd}/{hd}".replace("torch.", ""),
+                     scalar_sums_bit_for_bit_vs_m6=bits, form="deep")
             del a
         torch.cuda.empty_cache()
     # the deep epilogues against the static ones where both run (the other
@@ -3825,9 +3860,11 @@ def phase_deep_history() -> tuple:
             forms[name + "_m80"] = epilogues[name.split("_")[0]].last_form.kernel
     del a, S, Y, Yf, x9
     torch.cuda.empty_cache()
-    # the fold forms K4 and K14 keep above 64 rows (FOLD_ROWS), each held to
-    # its plain version (vectors, sums and products normwise, the ring rows
-    # bit for bit) and timed beside it and its bound
+    # the row-block form at the depths the fold forms took until it came
+    # (FOLD_ROWS), each held to its plain version (x, g, pg and the ring
+    # rows bit for bit, sums and products normwise) and to the fold form on
+    # the same inputs (x, g, pg, the rings and the changed flag bit for
+    # bit), and timed beside its plain version and its bound
     fold_errs = {}
     for sfx, (vd, hd, m) in FOLD_ROWS.items():
         a = deep_inputs(vd, hd, m)
@@ -3847,17 +3884,28 @@ def phase_deep_history() -> tuple:
         }
         for name, (kern, plain, vecs, sums) in fold.items():
             row = name + sfx
-            Sk, Yk, Sp, Yp = (a[r].clone() for r in ("S", "Y", "S", "Y"))
+            Sk, Yk, Sp, Yp, Sf, Yf = (a[r].clone() for r in ("S", "Y") * 3)
             k_out, p_out = kern(Sk, Yk), plain(Sp, Yp)
-            f = epilogues[name.split("_")[0]].last_form
-            if f.form != "deep":
+            fn = epilogues[name.split("_")[0]]
+            f = fn.last_form
+            if f.form != "mma_rows":
                 raise AssertionError(f"{row}: the {f.form} form ran")
-            if not (same_bits(Sk, Sp) and same_bits(Yk, Yp)):
-                raise AssertionError(f"{row}: the rings differ from the plain version's")
+            solo_form(fn, DEEP_N)
+            if not (same_bits(Sk, Sp) and same_bits(Yk, Yp)
+                    and all(same_bits(k_out[i], p_out[i]) for i in vecs)):
+                raise AssertionError(f"{row}: x, g, pg or the rings differ from the plain "
+                                     f"version's")
+            with static_forms_up_to(M):
+                f_out = kern(Sf, Yf)
+            flag = 7 if name.startswith("K14") else 6
+            if not (same_bits(Sk, Sf) and same_bits(Yk, Yf)
+                    and all(same_bits(k_out[i], f_out[i]) for i in vecs + (flag,))):
+                raise AssertionError(f"{row}: x, g, pg, the rings or the flag differ from the "
+                                     f"fold form's")
             fold_errs[row] = (0.0, 0.0)
             _fold(fold_errs, row, *(check(f"{row} out{i}", k_out[i], p_out[i], tv) for i in vecs),
                   *(check(f"{row} out{i}", k_out[i], p_out[i], ts) for i in sums))
-            del Sk, Yk, Sp, Yp, k_out, p_out
+            del Sk, Yk, Sp, Yp, Sf, Yf, k_out, p_out, f_out
             k_ms, p_ms, k_by, p_by = kernel_vs_plain(lambda: kern(a["S"], a["Y"]),
                                                      lambda: plain(a["S"], a["Y"]), 10)
             times[row], timed_by[row], forms[row] = (k_ms, p_ms), (k_by, p_by), f.kernel
@@ -3929,19 +3977,44 @@ class static_forms_up_to:
     """Inside, the fold forms alone run: the static K4, K14, K15 and K16
     take rings of at most ``m`` rows (``factory.EPILOGUE_MAX_M`` of every
     dtype pair and ``factory.MAX_M`` are m), the deep forms every deeper
-    ring, and the tensor-core form none (``factory.MMA_MAX_M`` is 0): to
-    hold the forms to each other at a depth several take."""
+    ring, and the tensor-core forms none (``factory.MMA_MAX_M`` is 0 and
+    ``factory.MMA_ROWS_MIN_M`` past any depth): to hold the forms to each
+    other at a depth several take."""
 
     def __init__(self, m: int):
         self.m = m
 
     def __enter__(self):
-        self.saved = (factory.MAX_M, factory.EPILOGUE_MAX_M, factory.MMA_MAX_M)
+        self.saved = (factory.MAX_M, factory.EPILOGUE_MAX_M, factory.MMA_MAX_M,
+                      factory.MMA_ROWS_MIN_M)
         factory.MAX_M, factory.MMA_MAX_M = self.m, 0
         factory.EPILOGUE_MAX_M = dict.fromkeys(factory.EPILOGUE_MAX_M, self.m)
+        factory.MMA_ROWS_MIN_M = dict.fromkeys(factory.MMA_ROWS_MIN_M, 1 << 62)
 
     def __exit__(self, *exc):
-        factory.MAX_M, factory.EPILOGUE_MAX_M, factory.MMA_MAX_M = self.saved
+        (factory.MAX_M, factory.EPILOGUE_MAX_M, factory.MMA_MAX_M,
+         factory.MMA_ROWS_MIN_M) = self.saved
+
+
+class rows_form_from:
+    """Inside, the solo K4 and K14 take the tensor-core row-block form
+    (``"mma_rows"``) at every depth from ``m`` rows in every dtype pair
+    (the static forms up to m - 1 rows, the one-pass tensor-core form
+    none): to time it against the fold forms at depths the routing gives
+    to them."""
+
+    def __init__(self, m: int):
+        self.m = m
+
+    def __enter__(self):
+        self.saved = (factory.EPILOGUE_MAX_M, factory.MMA_MAX_M, factory.MMA_ROWS_MIN_M)
+        factory.MMA_MAX_M = 0
+        factory.EPILOGUE_MAX_M = {pair: min(cap, self.m - 1)
+                                  for pair, cap in factory.EPILOGUE_MAX_M.items()}
+        factory.MMA_ROWS_MIN_M = dict.fromkeys(factory.MMA_ROWS_MIN_M, self.m)
+
+    def __exit__(self, *exc):
+        factory.EPILOGUE_MAX_M, factory.MMA_MAX_M, factory.MMA_ROWS_MIN_M = self.saved
 
 
 def deep_inputs(vd, hd, m: int = DEEP_M, n: int = DEEP_N) -> dict:
@@ -4024,7 +4097,8 @@ def check_deep_forms(errs: dict, a: dict, tag: str, tv: float, ts: float) -> dic
         k = rosenbrock.trial_pair_gram(xp, d, gp, STP, Sk, Yk, end, with_gp=wg)
         # the tensor-core form sums the objective per chunk of its own, the
         # fold forms per tile of the static launch's
-        fx_bits = () if solo_form(rosenbrock.trial_pair_gram, n)["form"] == "mma" else (1,)
+        fx_bits = (() if solo_form(rosenbrock.trial_pair_gram, n)["form"] in ("mma", "mma_rows")
+                   else (1,))
         Sp, Yp = ring()
         p = rosenbrock.trial_pair_gram_ref(xp, d, gp, STP, Sp, Yp, end, with_gp=wg)
         check_ring(f"{t} kernel", Sk, Yk, S, Y, STP * d, k[2] - gp, end)
@@ -4217,15 +4291,29 @@ SOLO_FORMS = {}
 def solo_form(fn, n: int) -> dict:
     """The form and geometry of a solo epilogue's last launch
     (``fn.last_form``, ``factory.solo_epilogue_grid``) and, for the
-    tensor-core form, its compiled kernel's registers and spills, kept in
+    tensor-core forms, its compiled kernel's registers and spills (and for
+    the row-block form its passes and matrix instructions), kept in
     ``SOLO_FORMS``."""
     f = fn.last_form
-    out = dict(kernel=f.kernel, form=f.form, programs=f.programs, tiles_per_program=f.tiles,
-               tile=f.T, **{key: v for key, v in f.consts.items() if key != "m"}, **f.launch)
-    if f.form == "mma":
+    out = dict(kernel=f.kernel, form=f.form,
+               dtypes="/".join(str(t).removeprefix("torch.") for t in f.dtypes),
+               programs=f.programs, tiles_per_program=f.tiles, tile=f.T,
+               **{key: v for key, v in f.consts.items() if key != "m"}, **f.launch)
+    if f.form in ("mma", "mma_rows"):
         out.update(_compiled_info(f.compiled))
-        SOLO_FORMS[(f.kernel, f.consts["RP"], n % 16 == 0)] = out
+        if f.form == "mma_rows":
+            out.update(passes=-(-f.consts["m"] // f.consts["RP"]), **_dot_instructions(f.compiled))
+        SOLO_FORMS[(f.kernel, out["dtypes"], f.consts["RP"], n % 16 == 0)] = out
     return out
+
+
+def _dot_instructions(ck) -> dict:
+    """The matrix instructions in a compiled Triton kernel's PTX (``mma``,
+    ``wgmma``), and its float64 fused multiply-adds: whether a float64
+    ``tl.dot`` became Hopper's FP64 tensor-core MMA or an FMA loop."""
+    ptx = ck.asm["ptx"]
+    return dict(dot_instructions=sorted(set(re.findall(r"\b(?:wgmma|mma)\.[\w.]+", ptx))),
+                fma_f64=len(re.findall(r"\bfma\.rn\.f64\b", ptx)))
 
 
 def numerics_inputs(n: int, m: int, seed: int) -> dict:
@@ -4308,7 +4396,74 @@ def solo_mma_numerics() -> list:
                 del out, want, g
             del a, s
             torch.cuda.empty_cache()
+    rows += rows_form_numerics()
     emit(phase="solo_mma_numerics", rows=rows)
+    return rows
+
+
+#: the row-block form's products against the float64 product of the same
+#: operands: at the ``FOLD_ROWS`` depths and pairs, n = 2^20, with the
+#: program cap forced for these chunks a program, within the vectors'
+#: dtype's bound
+ROWS_CHUNKS = (2, 32, 64)
+ROWS_PRODUCT_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+
+
+def rows_form_numerics() -> list:
+    """The row-block K4's and K14's SP and YP with the . gp column (its 3
+    columns are the 3-column launch's bit for bit) against
+    ``products_f64`` at each ``FOLD_ROWS`` row with ``ROWS_CHUNKS`` chunks
+    a program, each gap within ``ROWS_PRODUCT_TOL``; the deep fold form's
+    gap beside them."""
+    k = rosenbrock.value_and_grad.kernels
+    rows = []
+    for sfx, (vd, hd, m) in FOLD_ROWS.items():
+        a = deep_inputs(vd, hd, m)
+        hi = DEEP_N - 1
+        tol = ROWS_PRODUCT_TOL[vd]
+        ntiles = factory.solo_epilogue_grid(DEEP_N, m, vd, hd).ntiles
+
+        def k4():
+            out = k.trial_pair_gram(a["xp"], a["d"], a["gp"], STP, a["S"], a["Y"], END,
+                                    with_gp=True)
+            g = out[2]
+            s = torch.full((1,), STP, dtype=vd, device="cuda") * a["d"]
+            return k.trial_pair_gram, out[7:9], (s, g - a["gp"], -g)
+
+        def k14():
+            out = k.owlqn_trial_pair_gram(a["xp0"], a["d"], a["gp"], a["pg"], STP, 1.0, 0, hi,
+                                          a["S"], a["Y"], END, with_gp=True)
+            return k.owlqn_trial_pair_gram, out[3:5], (out[0] - a["xp0"], out[1] - a["gp"],
+                                                       -out[2])
+
+        for name, call in (("K4", k4), ("K14", k14)):
+            for chunks in ROWS_CHUNKS:
+                saved = factory.SOLO_MMA_PROGRAMS, factory.MMA_MAX_CHUNKS
+                factory.SOLO_MMA_PROGRAMS, factory.MMA_MAX_CHUNKS = -(-ntiles // chunks), chunks
+                try:
+                    fn, (SP, YP), (s, y, d0) = call()
+                finally:
+                    factory.SOLO_MMA_PROGRAMS, factory.MMA_MAX_CHUNKS = saved
+                form = solo_form(fn, DEEP_N)
+                if form["form"] != "mma_rows" or form["tiles_per_program"] != chunks:
+                    raise AssertionError(f"numerics {name}{sfx}: {form}")
+                want = products_f64(a["S"], a["Y"], s, y, d0, a["gp"], END)
+                tag = f"row-block {name}{sfx} chunks={chunks}"
+                row = dict(kernel=name + sfx, m=m, n=DEEP_N, dtypes=form["dtypes"],
+                           form=form["form"], RP=form["RP"], passes=form["passes"],
+                           programs=form["programs"],
+                           chunks_per_program=chunks, tol=tol,
+                           sp_gap=check(f"{tag} SP vs float64", SP, want[0], tol)[1],
+                           yp_gap=check(f"{tag} YP vs float64", YP, want[1], tol)[1])
+                if chunks == ROWS_CHUNKS[-1]:
+                    with static_forms_up_to(M):
+                        _, (SP, YP), (s, y, d0) = call()
+                    want = products_f64(a["S"], a["Y"], s, y, d0, a["gp"], END)
+                    row.update(fold_sp_gap=err(SP, want[0]), fold_yp_gap=err(YP, want[1]))
+                rows.append(row)
+                del SP, YP, want
+        del a
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4316,7 +4471,7 @@ def solo_mma_compiled() -> list:
     """Registers and spills of every solo tensor-core kernel the checks
     launched (``SOLO_FORMS``: K4 and K14 by RP, n a multiple of 16 or
     not); a form that spills, or none at all, fails the phase."""
-    forms = [dict(f, n_multiple_of_16=div16) for (_, _, div16), f in
+    forms = [dict(f, n_multiple_of_16=div16) for (*_, div16), f in
              sorted(SOLO_FORMS.items(), key=str)]
     emit(phase="solo_mma_compiled", programs_max=factory.SOLO_MMA_PROGRAMS,
          chunks_max=factory.MMA_MAX_CHUNKS, forms=forms)
@@ -4341,22 +4496,24 @@ DEEP_FOLD_ITERS = 11
 
 
 def phase_deep_fold_paths() -> dict:
-    """The fold forms the solo K4 and K14 keep above 64 rows
-    (``FOLD_ROWS``: f32 and f64 rings at m = 80, a bf16 ring at m = 260,
-    n = 2^20), each through the deep-history path's plain and OWL-QN
-    settings (``DEEP_CONFIGS``), 10 iterations of ``minimize_jit``: the
-    launches checked (``_deep_run``; no tensor-core launch), fx finite;
-    returns each fold row's launches."""
+    """The depths the solo K4 and K14 took in their fold forms until the
+    row-block form (``FOLD_ROWS``: f32 and f64 rings at m = 80, a bf16 ring
+    at m = 260, n = 2^20), each through the deep-history path's plain and
+    OWL-QN settings (``DEEP_CONFIGS``), 10 iterations of ``minimize_jit``:
+    the launches checked (``_deep_run``: every K4 and K14 launch in the
+    row-block form), fx finite; returns each row's launches (the row-block
+    form's count)."""
+    k = rosenbrock.value_and_grad.kernels
     lc_rows = {}
     for sfx, (vd, hd, m) in FOLD_ROWS.items():
         x0 = rosenbrock.initial_point(DEEP_N, vd, "cuda")
-        for name, kern in (("plain", "K4_trial_pair_gram"),
-                           ("owlqn", "K14_owlqn_trial_pair_gram")):
+        for name, kern, fn in (("plain", "K4_trial_pair_gram", k.trial_pair_gram),
+                               ("owlqn", "K14_owlqn_trial_pair_gram", k.owlqn_trial_pair_gram)):
             params = DEEP_CONFIGS[name].replace(m=m, history_dtype=str(hd)[6:],
                                                 max_iterations=DEEP_FOLD_ITERS)
             st, dt, lc, reads, _ = _deep_run("deep fold path", name, params, x0, "epilogue",
-                                             mma=False)
-            lc_rows[kern + sfx] = lc[kern + "_m80"]
+                                             form="mma_rows")
+            lc_rows[kern + sfx] = fn.mma_rows_launches
             emit(phase="deep_fold_path", config=name, row=kern + sfx, n=DEEP_N, m=m,
                  iters=st.k - 1, evals=st.prob.neval, status=st.status, fx=float(st.prob.fx),
                  seconds=dt, syncs_per_iter=reads / (st.k - 1))
@@ -7247,18 +7404,20 @@ def _mesh_kernel_checks(mesh) -> dict:
     shard only.  Raises on any mismatch; returns the offset and each
     case's largest relative scalar difference.  At m = 80 ring rows (n =
     2^20; ``_m80``) K4 and K14 (the tensor-core form), the deep K15 and
-    K16 and K12 +-gp take the same checks, rank 1's kernels with the
-    shard's offset compiled in (``SHARD``)."""
+    K16 and K12 +-gp take the same checks, and so do K4 and K14 +-gp over
+    f32 and f64 rings in their row-block form (``_m80_f32``, ``_m80_f64``),
+    rank 1's kernels with the shard's offset compiled in (``SHARD``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
 
     def r(*shape, s=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * s
 
-    def data(n: int, m: int) -> dict:
+    def data(n: int, m: int, vd=torch.float32, hd=torch.bfloat16) -> dict:
         x0 = rosenbrock.initial_point(n, torch.float32, "cuda")
         a = dict(xp=x0 + r(n, s=0.1), d=r(n, s=0.1), gp=r(n), gx=r(n), pg=r(n),
-                 x=x0 + r(n, s=0.1), wp=torch.sign(r(n)), S=r(m, n, s=0.1).bfloat16(),
-                 Y=r(m, n, s=0.1).bfloat16(), cs=r(m), cy=r(m))
+                 x=x0 + r(n, s=0.1), wp=torch.sign(r(n)), cs=r(m), cy=r(m))
+        a = {key: v.to(vd) for key, v in a.items()}
+        a.update(S=r(m, n, s=0.1).to(hd), Y=r(m, n, s=0.1).to(hd))
         a["xz"] = a["xp"].clone()
         a["xz"][::5] = 0.0
         return a
@@ -7375,10 +7534,28 @@ def _mesh_kernel_checks(mesh) -> dict:
           for gp in (False, True)],
     ]
 
+    # the row-block form at m = 80 over f32 and f64 rings (n = 2^20): K4 and
+    # K14 with and without the . gp column
+    rows_cases = [
+        *[(f"K4_trial_pair_gram{'_gp' if gp else ''}_m80", k.trial_pair_gram, lambda v, gp=gp:
+           k.trial_pair_gram(v.xp, v.d, v.gp, 0.6, v.S, v.Y, 4, with_gp=gp), (0, 2), epi_b,
+           True) for gp in (False, True)],
+        *[(f"K14_owlqn_trial_pair_gram{'_gp' if gp else ''}_m80", k.owlqn_trial_pair_gram,
+           lambda v, gp=gp: k.owlqn_trial_pair_gram(v.xz, v.d, v.gp, v.pg, 0.37, c, lo_d, hi_d,
+                                                    v.S, v.Y, 2, with_gp=gp), (0, 1, 2),
+           {**ow_epi_b, **({8: MESH_NORM, 9: MESH_DOT} if gp else {})}, True)
+          for gp in (False, True)],
+    ]
+
     res = _mesh_cases(mesh, a, cases, off, n_loc, plain_total)
     n_loc_d = n_deep // mesh.size
     res.update(_mesh_cases(mesh, data(n_deep, DEEP_M), deep_cases, mesh.rank * n_loc_d, n_loc_d,
                            plain_total))
+    for vd, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        got = _mesh_cases(mesh, data(n_deep, DEEP_M, vd, vd), rows_cases, mesh.rank * n_loc_d,
+                          n_loc_d, plain_total, form="mma_rows")
+        res.update({f"{name}_{tag}": v for name, v in got.items()})
+        torch.cuda.empty_cache()
     # the index body's single-process launch against its plain version
     xt, _, g, *_ = gobj.kernels.trial(a["xp"], a["d"], 0.4)
     _, _, g_ref, *_ = gobj.kernels.trial_ref(a["xp"], a["d"], 0.4)
@@ -7388,11 +7565,13 @@ def _mesh_kernel_checks(mesh) -> dict:
     return dict(offset=off, cases=res)
 
 
-def _mesh_cases(mesh, a: dict, cases: list, off: int, n_loc: int, plain_total) -> dict:
+def _mesh_cases(mesh, a: dict, cases: list, off: int, n_loc: int, plain_total,
+                form: str = "mma") -> dict:
     """``_mesh_kernel_checks``'s cases on the inputs ``a``, this rank's
     shard the elements [off, off + n_loc); a case named ``_m80`` must
     launch above ``factory.MAX_M`` rows (``.deep_launches``), K4 and K14 in
-    their tensor-core form."""
+    their tensor-core form ``form`` ("mma", or "mma_rows": the row-block
+    form)."""
     res = {}
     for name, wrapper, fn, vecs, bounds, rings in cases:
         whole = SimpleNamespace(**{key: (t.clone() if key in ("S", "Y") else t)
@@ -7402,7 +7581,8 @@ def _mesh_cases(mesh, a: dict, cases: list, off: int, n_loc: int, plain_total) -
                                   for key, t in a.items()})
         launched, plain = wrapper.launches, plain_total()
         deep = getattr(wrapper, "deep_launches", 0)
-        mma = getattr(wrapper, "mma_launches", 0)
+        count = form + "_launches"
+        mma = getattr(wrapper, count, 0)
         with kernels_on_mesh(mesh):
             got = fn(part)
         torch.cuda.synchronize()
@@ -7412,13 +7592,14 @@ def _mesh_cases(mesh, a: dict, cases: list, off: int, n_loc: int, plain_total) -
         if (name.endswith("_m80") and hasattr(wrapper, "deep_launches")
                 and wrapper.deep_launches != deep + 1):
             raise AssertionError(f"mesh check {name}: the deep form did not launch")
-        # K4 and K14 at 80 rows of bf16: the tensor-core form, spilling nothing
-        # (rank 1's with the shard's offset compiled in)
-        if name.endswith("_m80") and hasattr(wrapper, "mma_launches"):
+        # K4 and K14 at 80 rows: the tensor-core form (bf16 rings) or the
+        # row-block form (f32 and f64), spilling nothing (rank 1's with the
+        # shard's offset compiled in)
+        if name.endswith("_m80") and hasattr(wrapper, count):
             info = _compiled_info(wrapper.last_form.compiled)
-            if wrapper.mma_launches != mma + 1 or info["n_spills"]:
-                raise AssertionError(f"mesh check {name}: {wrapper.mma_launches - mma} "
-                                     f"tensor-core launches, {info}")
+            if getattr(wrapper, count) != mma + 1 or info["n_spills"]:
+                raise AssertionError(f"mesh check {name}: {getattr(wrapper, count) - mma} "
+                                     f"{form} launches, {info}")
         shard = lambda t: t.narrow(-1, off, n_loc)
         bad = [f"out{i}" for i in vecs if not same_bits(got[i], shard(single[i]))]
         if rings:

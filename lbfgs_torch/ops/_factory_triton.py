@@ -269,6 +269,26 @@ so that each lane's fx is K2 b's (K8 b's) at that step bit for bit.
   ``factory.MMA_MAX_CHUNKS`` chunks a program.  An n off a multiple of 16
   takes the fold forms, solo and batched (``factory.MMA_ALIGN``).
 
+  Where the solo fold forms' group passes ran (f32 and f64 rings above the
+  static cap, bf16 rings above 256 rows) the solo K4 and K14 take the
+  tensor-core row-block form (``trial_pair_gram_mma_rows_kernel``,
+  ``owlqn_trial_pair_gram_mma_rows_kernel``; ``factory.MMA_ROWS_EPILOGUE``):
+  the same chunk bodies, once per block of ring rows (``_k4_rows_pass``,
+  ``_k14_rows_pass``: RP rows a block, the last one RT, so 260 bf16 rows
+  take two blocks of 128 and one of 16 where the deep fold form passed
+  over the vectors 33 times).  Each block's rows are the dot's first operand in
+  the ring's own dtype (``_ring_dot``): a bf16 ring as it is; an f32 ring
+  split into three bf16 parts as the vectors are, so every part's product
+  is exact in the MMA and the nine are summed there; an f64 ring against
+  the f64 vectors as they are (``_operand``), in a float64 dot.  The sums
+  and accumulators take the vectors' dtype.  The point's outputs, the
+  objective's partials and the scalar sums come from the last block's
+  pass, which alone stores x, g (pg), so in-place calls stay safe as in the
+  deep fold form; the block that holds row ``end`` stores the new pair.
+  Bytes still bound it: the f32 ring's split costs ~6 ALU operations and
+  three MMAs per ring element, the f64 dot (Hopper's FP64 MMA, whose n8
+  shape the [K, 8] operand takes) 8 columns of which 4 are the vectors.
+
 On a mesh each kernel runs on one rank's shard of the vectors: ``off``,
 the shard's global offset, is added to the local offsets only where the
 body sees them (its ``gidx``, ``lbfgs_tpu/ops/factory.py:174``;
@@ -1596,56 +1616,100 @@ def _split_operand(y, s, d0, gp):
 
 
 @triton.jit
-def _column(acc, v: tl.constexpr):
-    # the [RP] products of the ring rows with vector v: its three parts'
-    # sums, each picked out of acc ([RP, 16]) exactly, added as (p1 + p2)
-    # + p3
-    col = tl.arange(0, 16)[None, :]
-    p1 = tl.sum(tl.where(col == 4 * v, acc, 0.0), axis=1)
-    p2 = tl.sum(tl.where(col == 4 * v + 1, acc, 0.0), axis=1)
-    p3 = tl.sum(tl.where(col == 4 * v + 2, acc, 0.0), axis=1)
-    return (p1 + p2) + p3
+def _operand(y, s, d0, gp):
+    # the pair's vectors as the products' operand: float32 vectors in three
+    # bf16 parts each ([K, 16], ``_split_operand``); float64 vectors as they
+    # are ([K, 8]: the FP64 MMA's n8 shape), vector v (y, s, d0, gp) in
+    # column 2v and the odd columns zero
+    if y.dtype == tl.float64:
+        K: tl.constexpr = y.shape[0]
+        b = tl.reshape(tl.join(tl.join(y, d0), tl.join(s, gp)), [K, 4])
+        return tl.reshape(tl.join(b, tl.zeros_like(b)), [K, 8])
+    else:
+        return _split_operand(y, s, d0, gp)
 
 
 @triton.jit
-def _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s, acc_y,
+def _ring_dot(R, op, acc):
+    # one ring's [RP, K] tile R times the operand, added to acc by adds of
+    # acc's dtype (``_ring_chunk``'s CARRY_RN).  A bf16 tile is exact as a
+    # bf16 operand and a float64 tile goes to a float64 dot as it is; a
+    # float32 tile is split into three bf16 parts as the vectors are (each
+    # difference exact, b1 + b2 + b3 == R for a finite R), the nine products
+    # of the parts exact in the MMA and summed there over the chunk, the
+    # smallest parts first.  The zero is acc times 0, not a constant: the
+    # compiler folds an add of a dot from a constant zero back into the
+    # MMA's accumulator
+    if R.dtype == tl.float32:
+        R1 = R.to(tl.bfloat16)
+        r1 = R - R1.to(tl.float32)
+        R2 = r1.to(tl.bfloat16)
+        R3 = (r1 - R2.to(tl.float32)).to(tl.bfloat16)
+        c = tl.dot(R3, op, acc * 0.0)
+        c = tl.dot(R2, op, c)
+        return acc + tl.dot(R1, op, c)
+    elif R.dtype == tl.float64:
+        return acc + tl.dot(R, op, acc * 0.0, out_dtype=tl.float64)
+    else:
+        return acc + tl.dot(R, op, acc * 0.0)
+
+
+@triton.jit
+def _column(acc, v: tl.constexpr):
+    # the [RP] products of the ring rows with vector v: its three parts'
+    # sums, each picked out of acc ([RP, 16]) exactly, added as (p1 + p2)
+    # + p3; with float64 vectors column 2v of acc ([RP, 8]) alone
+    if acc.dtype == tl.float64:
+        col8 = tl.arange(0, 8)[None, :]
+        return tl.sum(tl.where(col8 == 2 * v, acc, 0.0), axis=1)
+    else:
+        col = tl.arange(0, 16)[None, :]
+        p1 = tl.sum(tl.where(col == 4 * v, acc, 0.0), axis=1)
+        p2 = tl.sum(tl.where(col == 4 * v + 1, acc, 0.0), axis=1)
+        p3 = tl.sum(tl.where(col == 4 * v + 2, acc, 0.0), axis=1)
+        return (p1 + p2) + p3
+
+
+@triton.jit
+def _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, j0, holds_end, s, y, d0, gp, acc_s, acc_y,
                 RP: tl.constexpr, CARRY_RN: tl.constexpr):
-    # one chunk's pass over the rings: the old rows (j < m, j != end) as
-    # the first operand ([RP, K] bf16: a bf16 value is exact there), row
-    # `end` masked to zero (its products are the f32 folds of the
-    # unrounded pair), the split vectors as the second, summed into acc_s
-    # and acc_y ([RP, 16] float32) by the tensor cores; then the new pair
-    # stored into row `end`, rounded to bf16.  The MMA's own accumulation
-    # does not round to nearest: carried through it across chunks, the
-    # products drift from the float64 product about linearly in the chunk
-    # count.  With CARRY_RN each chunk's products start from zero and are
-    # added to the running sums by float32 adds, which round to nearest.
-    # The zero is the sums times 0, not a constant: the compiler folds an
-    # add of a dot from a constant zero back into the MMA's accumulator
-    op = _split_operand(y, s, d0, gp)
-    rows = tl.arange(0, RP)
+    # one chunk's pass over ring rows j0 .. j0 + RP - 1: the old rows (j <
+    # m, j != end) as the first operand ([RP, K], in the ring's dtype:
+    # ``_ring_dot``), row `end` masked to zero (its products are the folds
+    # of the unrounded pair), the vectors as the second (``_operand``),
+    # summed into acc_s and acc_y ([RP, 16] float32 for float32 vectors,
+    # [RP, 8] float64 for float64) by the tensor cores; then, where the rows
+    # hold `end` (``holds_end``), the new pair stored into row `end`,
+    # rounded to the ring's dtype.  The MMA's own accumulation does not
+    # round to nearest: carried through it across chunks, the products drift
+    # from the float64 product about linearly in the chunk count.  With
+    # CARRY_RN each chunk's products start from zero and are added to the
+    # running sums by adds of the sums' dtype, which round to nearest
+    op = _operand(y, s, d0, gp)
+    rows = j0 + tl.arange(0, RP)
     rmask = ((rows < m) & (rows != end))[:, None] & mask[None, :]
     roffs = rows.to(tl.int64)[:, None] * n + offs[None, :]
     if CARRY_RN:
-        acc_s += tl.dot(tl.load(S_ptr + roffs, mask=rmask, other=0.0), op, acc_s * 0.0)
-        acc_y += tl.dot(tl.load(Y_ptr + roffs, mask=rmask, other=0.0), op, acc_y * 0.0)
+        acc_s = _ring_dot(tl.load(S_ptr + roffs, mask=rmask, other=0.0), op, acc_s)
+        acc_y = _ring_dot(tl.load(Y_ptr + roffs, mask=rmask, other=0.0), op, acc_y)
     else:
         acc_s = tl.dot(tl.load(S_ptr + roffs, mask=rmask, other=0.0), op, acc_s)
         acc_y = tl.dot(tl.load(Y_ptr + roffs, mask=rmask, other=0.0), op, acc_y)
     row = end.to(tl.int64) * n
-    tl.store(S_ptr + row + offs, s.to(S_ptr.dtype.element_ty), mask=mask)
-    tl.store(Y_ptr + row + offs, y.to(Y_ptr.dtype.element_ty), mask=mask)
+    tl.store(S_ptr + row + offs, s.to(S_ptr.dtype.element_ty), mask=mask & holds_end)
+    tl.store(Y_ptr + row + offs, y.to(Y_ptr.dtype.element_ty), mask=mask & holds_end)
     return acc_s, acc_y
 
 
 @triton.jit
-def _store_gram_mma(part, gpart, live, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd, e_sg,
-                    e_yy, e_yd, e_yg, RP: tl.constexpr):
-    # the program's partials of the 6m products (row j at part + 6j, in
-    # ``_store_gram``'s order) and with with_gp the . gp column's (S_j.gp,
-    # Y_j.gp at gpart + 2j): each row's from the tensor cores, row `end`'s
-    # from the folds of the unrounded pair; nothing for a frozen instance
-    r = tl.arange(0, RP)
+def _store_gram_mma(part, gpart, live, j0, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
+                    e_sg, e_yy, e_yd, e_yg, RP: tl.constexpr):
+    # the program's partials of the products of ring rows j0 .. j0 + RP - 1
+    # (row j at part + 6j, in ``_store_gram``'s order) and with with_gp the
+    # . gp column's (S_j.gp, Y_j.gp at gpart + 2j): each row's from the
+    # tensor cores, row `end`'s from the folds of the unrounded pair;
+    # nothing for a frozen instance
+    r = j0 + tl.arange(0, RP)
     keep = (r < m) & live
     at_end = r == end
     sy = tl.sum(e_sy, axis=0)
@@ -1665,17 +1729,20 @@ def _store_gram_mma(part, gpart, live, m, end, with_gp, acc_s, acc_y, e_sy, e_ss
 
 @triton.jit
 def _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs, gidx, mask, n, m, end,
-              stp, ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
-              acc_y, body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
-              CARRY_RN: tl.constexpr):
-    # one chunk of K4's tensor-core forms (the solo kernel and K4 b's): the
+              j0, last, holds_end, stp, ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy,
+              e_yd, e_yg, acc_s, acc_y, body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr,
+              W: tl.constexpr, CARRY_RN: tl.constexpr):
+    # one chunk of K4's tensor-core forms (the solo kernels and K4 b's): the
     # point, the body (at the indices gidx) and the pair as K4 forms them,
-    # the scalar sums and row end's products folded into per-element
-    # float32 sums, the ring rows' products with the split vectors into
-    # acc_s and acc_y (``_ring_chunk``), x and g stored.  x_ptr and g_ptr
-    # may be xp_ptr and gp_ptr: each element is loaded before it is stored
-    # and no element reads another's.  Returns the body's objective terms
-    # ([K], zero off the mask) and the sums
+    # the scalar sums and row end's products folded into per-element sums
+    # of the sums' dtype, the products of ring rows j0 .. j0 + RP - 1 with
+    # the vectors into acc_s and acc_y (``_ring_chunk``; the new pair stored
+    # where ``holds_end``), x and g stored where ``last`` (the one pass
+    # over the rows, or the last of several).  x_ptr and g_ptr may be
+    # xp_ptr and gp_ptr: each element is loaded before it is stored, no
+    # element reads another's, and no pass follows the one that stores.
+    # Returns the body's objective terms ([K], zero off the mask) and the
+    # sums
     xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
     d = tl.load(d_ptr + offs, mask=mask, other=0.0)
     gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
@@ -1697,24 +1764,26 @@ def _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs, gidx, mas
     e_yy += y * y
     e_yd += y * d0
     e_yg += y * gp
-    acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s, acc_y,
-                               RP, CARRY_RN)
-    tl.store(x_ptr + offs, x, mask=mask)
-    tl.store(g_ptr + offs, g, mask=mask)
+    acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, j0, holds_end, s, y, d0, gp,
+                               acc_s, acc_y, RP, CARRY_RN)
+    tl.store(x_ptr + offs, x, mask=mask & last)
+    tl.store(g_ptr + offs, g, mask=mask & last)
     fe = tl.where(mask, tl.reshape(fe, [K]), 0.0)
     return fe, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y
 
 
 @triton.jit
 def _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, offs, gidx,
-               mask, n, m, lo, hi, end, stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss,
-               e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body: tl.constexpr,
-               RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr, CARRY_RN: tl.constexpr):
+               mask, n, m, lo, hi, end, j0, last, holds_end, stp, c, ex, a_xx, a_pp, a_ch, a_gg,
+               a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y,
+               body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
+               CARRY_RN: tl.constexpr):
     # one chunk of K14's tensor-core forms, as ``_k4_chunk``: the projected
     # point with the orthant from (xp, pg_old) (the window [lo, hi) in the
     # kernel's own indices offs), its gradient and pseudo-gradient, the
     # pair (x - xp, g - gp) and d0 = -pg; gp.gp and gp.pg summed in every
-    # launch; x, g and pg stored (they may alias xp, gp and pg_old)
+    # launch; x, g and pg stored where ``last`` (they may alias xp, gp and
+    # pg_old)
     xp = tl.load(xp_ptr + offs, mask=mask, other=0.0)
     d = tl.load(d_ptr + offs, mask=mask, other=0.0)
     gp = tl.load(gp_ptr + offs, mask=mask, other=0.0)
@@ -1741,11 +1810,11 @@ def _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_pt
     e_yy += y * y
     e_yd += y * d0
     e_yg += y * gp
-    acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, s, y, d0, gp, acc_s, acc_y,
-                               RP, CARRY_RN)
-    tl.store(x_ptr + offs, x, mask=mask)
-    tl.store(g_ptr + offs, g, mask=mask)
-    tl.store(pgn_ptr + offs, pg, mask=mask)
+    acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, j0, holds_end, s, y, d0, gp,
+                               acc_s, acc_y, RP, CARRY_RN)
+    tl.store(x_ptr + offs, x, mask=mask & last)
+    tl.store(g_ptr + offs, g, mask=mask & last)
+    tl.store(pgn_ptr + offs, pg, mask=mask & last)
     return a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y
 
 
@@ -1791,15 +1860,16 @@ def trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr,
         offs = _chunk(pid * tiles + t, K)
         _, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y = \
             _k4_chunk(xp_ptr, d_ptr, gp_ptr, xp_ptr, gp_ptr, S_ptr, Y_ptr, offs, offs,
-                      (offs < n) & live, n, m, end, stp, ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss,
-                      e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True)
+                      (offs < n) & live, n, m, end, 0, True, True, stp, ex, a_gd, a_gg, a_xx,
+                      a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K,
+                      W, True)
     prog = b.to(tl.int64) * tl.num_programs(0) + pid
     part = part_ptr + prog * (4 + 6 * m)
     tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
     tl.store(part + 1, tl.sum(a_gg, axis=0), mask=live)
     tl.store(part + 2, tl.sum(a_xx, axis=0), mask=live)
     tl.store(part + 3, tl.sum(a_ch, axis=0), mask=live)
-    _store_gram_mma(part + 4, gpart_ptr + prog * (2 * m), live, m, end, with_gp, acc_s, acc_y,
+    _store_gram_mma(part + 4, gpart_ptr + prog * (2 * m), live, 0, m, end, with_gp, acc_s, acc_y,
                     e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, RP)
 
 
@@ -1844,9 +1914,9 @@ def owlqn_trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_
         offs = _chunk(pid * tiles + t, K)
         (a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
          acc_y) = _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, xp_ptr, gp_ptr, pg_ptr, S_ptr, Y_ptr,
-                             offs, offs, (offs < n) & live, n, m, lo, hi, end, stp, c, ex, a_xx,
-                             a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg,
-                             acc_s, acc_y, body, RP, K, W, True)
+                             offs, offs, (offs < n) & live, n, m, lo, hi, end, 0, True, True,
+                             stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg,
+                             e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True)
     prog = b.to(tl.int64) * tl.num_programs(0) + pid
     part = part_ptr + prog * (3 + 6 * m)
     tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
@@ -1855,7 +1925,7 @@ def owlqn_trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_
     gpart = gpart_ptr + prog * (2 + 2 * m)
     tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=live & (with_gp != 0))
     tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=live & (with_gp != 0))
-    _store_gram_mma(part + 3, gpart + 2, live, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
+    _store_gram_mma(part + 3, gpart + 2, live, 0, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
                     e_sg, e_yy, e_yd, e_yg, RP)
 
 
@@ -1892,16 +1962,16 @@ def trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_p
         offs = _chunk(chunk, K)
         fe, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y = \
             _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs,
-                      _gidx(offs, off, SHARD), offs < n, n, m, end, stp, ex, a_gd, a_gg, a_xx,
-                      a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K,
-                      W, True)
+                      _gidx(offs, off, SHARD), offs < n, n, m, end, 0, True, True, stp, ex,
+                      a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
+                      acc_y, body, RP, K, W, True)
         tl.store(fx_ptr + chunk, tl.sum(fe, axis=0))
     part = part_ptr + pid * (4 + 6 * m)
     tl.store(part + 0, tl.sum(a_gd, axis=0))
     tl.store(part + 1, tl.sum(a_gg, axis=0))
     tl.store(part + 2, tl.sum(a_xx, axis=0))
     tl.store(part + 3, tl.sum(a_ch, axis=0))
-    _store_gram_mma(part + 4, gpart_ptr + pid * (2 * m), True, m, end, with_gp, acc_s, acc_y,
+    _store_gram_mma(part + 4, gpart_ptr + pid * (2 * m), True, 0, m, end, with_gp, acc_s, acc_y,
                     e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, RP)
 
 
@@ -1937,9 +2007,9 @@ def owlqn_trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_p
         offs = _chunk(pid * tiles + t, K)
         (a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
          acc_y) = _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr,
-                             offs, _gidx(offs, off, SHARD), offs < n, n, m, lo, hi, end, stp, c,
-                             ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy,
-                             e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True)
+                             offs, _gidx(offs, off, SHARD), offs < n, n, m, lo, hi, end, 0,
+                             True, True, stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss,
+                             e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True)
     part = part_ptr + pid * (3 + 6 * m)
     tl.store(part + 0, tl.sum(a_xx, axis=0))
     tl.store(part + 1, tl.sum(a_pp, axis=0))
@@ -1947,5 +2017,160 @@ def owlqn_trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_p
     gpart = gpart_ptr + pid * (2 + 2 * m)
     tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=with_gp != 0)
     tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=with_gp != 0)
-    _store_gram_mma(part + 3, gpart + 2, True, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
+    _store_gram_mma(part + 3, gpart + 2, True, 0, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
                     e_sg, e_yy, e_yd, e_yg, RP)
+
+
+@triton.jit
+def _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, n, m,
+                  end, j0, stp, pid, tiles, with_gp, off, ex, body: tl.constexpr,
+                  RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr, SHARD: tl.constexpr,
+                  LAST: tl.constexpr):
+    # one pass of the row-block K4 over the program's chunks with ring rows
+    # j0 .. j0 + RP - 1 as the dot's operand: their products stored, and on
+    # the LAST pass the point (x, g), the objective's partial per chunk; the
+    # scalar sums returned (the last pass's are stored)
+    dt = xp_ptr.dtype.element_ty
+    holds_end = (end >= j0) & (end < j0 + RP)
+    a_gd = tl.zeros([K], dt)
+    a_gg = tl.zeros([K], dt)
+    a_xx = tl.zeros([K], dt)
+    a_ch = tl.zeros([K], dt)
+    e_sy = tl.zeros([K], dt)
+    e_ss = tl.zeros([K], dt)
+    e_sd = tl.zeros([K], dt)
+    e_sg = tl.zeros([K], dt)
+    e_yy = tl.zeros([K], dt)
+    e_yd = tl.zeros([K], dt)
+    e_yg = tl.zeros([K], dt)
+    # the running products: [RP, 16] float32 (three parts of four vectors)
+    # with float32 vectors, [RP, 8] float64 with float64 ones (``_operand``)
+    if dt == tl.float64:
+        acc_s = tl.zeros([RP, 8], dt)
+        acc_y = tl.zeros([RP, 8], dt)
+    else:
+        acc_s = tl.zeros([RP, 16], dt)
+        acc_y = tl.zeros([RP, 16], dt)
+    for t in range(tiles):
+        chunk = pid * tiles + t
+        offs = _chunk(chunk, K)
+        fe, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y = \
+            _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs,
+                      _gidx(offs, off, SHARD), offs < n, n, m, end, j0, LAST, holds_end, stp,
+                      ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg,
+                      acc_s, acc_y, body, RP, K, W, True)
+        if LAST:
+            tl.store(fx_ptr + chunk, tl.sum(fe, axis=0))
+    _store_gram_mma(part + 4, gpart, True, j0, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
+                    e_sg, e_yy, e_yd, e_yg, RP)
+    return a_gd, a_gg, a_xx, a_ch
+
+
+@triton.jit(do_not_specialize=["m", "end", "tiles", "with_gp"])
+def trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr,
+                                    fx_ptr, part_ptr, gpart_ptr, n, end, tiles, with_gp, off, ex,
+                                    m, body: tl.constexpr, RP: tl.constexpr, RT: tl.constexpr,
+                                    K: tl.constexpr, W: tl.constexpr, SHARD: tl.constexpr):
+    # the solo K4 with the Gram products on the tensor cores over any
+    # dtype pair and any depth (``factory.solo_epilogue_grid``'s
+    # "mma_rows" form): program pid takes the tensor-core form's chunks
+    # and passes over them once per block of ring rows, RP rows a block and
+    # RT in the last (one pass up to RP rows), each chunk through
+    # ``_k4_chunk`` with the block's rows as the dot's operand: f32 vectors
+    # over a bf16 ring (above the one-pass form's 256 rows), over an f32
+    # ring (its rows in three bf16 parts) and f64 vectors over an f64 ring
+    # (float64 dots), the sums in the vectors' dtype.  The point's outputs,
+    # the objective's partials and the scalar sums come from the last pass,
+    # so x and g may alias xp and gp (every earlier pass has read the
+    # program's chunks before the last one stores over them, and no other
+    # program reads them); the block that holds row `end` stores the new
+    # pair there.  The . gp column rides in the operand: one binary for
+    # both launches, with_gp only stores it
+    pid = tl.program_id(0)
+    stp = tl.load(stp_ptr)
+    part = part_ptr + pid * (4 + 6 * m)
+    gpart = gpart_ptr + pid * (2 * m)
+    for p in range(tl.cdiv(m - RT, RP)):
+        _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, n,
+                      m, end, p * RP, stp, pid, tiles, with_gp, off, ex, body, RP, K, W, SHARD,
+                      False)
+    a_gd, a_gg, a_xx, a_ch = _k4_rows_pass(
+        xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, n, m, end,
+        tl.cdiv(m - RT, RP) * RP, stp, pid, tiles, with_gp, off, ex, body, RT, K, W, SHARD,
+        True)
+    tl.store(part + 0, tl.sum(a_gd, axis=0))
+    tl.store(part + 1, tl.sum(a_gg, axis=0))
+    tl.store(part + 2, tl.sum(a_xx, axis=0))
+    tl.store(part + 3, tl.sum(a_ch, axis=0))
+
+
+@triton.jit
+def _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part,
+                   gpart, n, m, lo, hi, end, j0, stp, c, pid, tiles, with_gp, off, ex,
+                   body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
+                   SHARD: tl.constexpr, LAST: tl.constexpr):
+    # ``_k4_rows_pass`` for K14: x, g and pg stored on the LAST pass
+    dt = xp_ptr.dtype.element_ty
+    holds_end = (end >= j0) & (end < j0 + RP)
+    a_xx = tl.zeros([K], dt)
+    a_pp = tl.zeros([K], dt)
+    a_ch = tl.zeros([K], dt)
+    a_gg = tl.zeros([K], dt)
+    a_gpg = tl.zeros([K], dt)
+    e_sy = tl.zeros([K], dt)
+    e_ss = tl.zeros([K], dt)
+    e_sd = tl.zeros([K], dt)
+    e_sg = tl.zeros([K], dt)
+    e_yy = tl.zeros([K], dt)
+    e_yd = tl.zeros([K], dt)
+    e_yg = tl.zeros([K], dt)
+    # the running products: [RP, 16] float32 (three parts of four vectors)
+    # with float32 vectors, [RP, 8] float64 with float64 ones (``_operand``)
+    if dt == tl.float64:
+        acc_s = tl.zeros([RP, 8], dt)
+        acc_y = tl.zeros([RP, 8], dt)
+    else:
+        acc_s = tl.zeros([RP, 16], dt)
+        acc_y = tl.zeros([RP, 16], dt)
+    for t in range(tiles):
+        offs = _chunk(pid * tiles + t, K)
+        (a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
+         acc_y) = _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr,
+                             offs, _gidx(offs, off, SHARD), offs < n, n, m, lo, hi, end, j0,
+                             LAST, holds_end, stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy,
+                             e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W,
+                             True)
+    _store_gram_mma(part + 3, gpart + 2, True, j0, m, end, with_gp, acc_s, acc_y, e_sy, e_ss,
+                    e_sd, e_sg, e_yy, e_yd, e_yg, RP)
+    return a_xx, a_pp, a_ch, a_gg, a_gpg
+
+
+@triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles", "with_gp"])
+def owlqn_trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr, x_ptr,
+                                          g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n,
+                                          lo, hi, end, tiles, with_gp, off, ex, m,
+                                          body: tl.constexpr, RP: tl.constexpr,
+                                          RT: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
+                                          SHARD: tl.constexpr):
+    # the solo K14 laid out as ``trial_pair_gram_mma_rows_kernel``, through
+    # ``_k14_chunk``: x, g and pg (which may alias xp, gp and pg_old)
+    # stored by the last pass; gp.gp and gp.pg summed in both launches and
+    # stored with with_gp
+    pid = tl.program_id(0)
+    stp = tl.load(stp_ptr)
+    c = tl.load(c_ptr)
+    part = part_ptr + pid * (3 + 6 * m)
+    gpart = gpart_ptr + pid * (2 + 2 * m)
+    for p in range(tl.cdiv(m - RT, RP)):
+        _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part,
+                       gpart, n, m, lo, hi, end, p * RP, stp, c, pid, tiles, with_gp, off, ex,
+                       body, RP, K, W, SHARD, False)
+    a_xx, a_pp, a_ch, a_gg, a_gpg = _k14_rows_pass(
+        xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part, gpart, n, m,
+        lo, hi, end, tl.cdiv(m - RT, RP) * RP, stp, c, pid, tiles, with_gp, off, ex, body, RT, K,
+        W, SHARD, True)
+    tl.store(part + 0, tl.sum(a_xx, axis=0))
+    tl.store(part + 1, tl.sum(a_pp, axis=0))
+    tl.store(part + 2, tl.sum(a_ch, axis=0))
+    tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=with_gp != 0)
+    tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=with_gp != 0)

@@ -190,14 +190,16 @@ MAX_M = 64
 #: the deep form, at m = 7 all four are spill-free and 2-17% ahead.  A
 #: deeper history takes the deep form (``DEEP_GROUP`` rows a pass), one
 #: compile for every m.  With f32 vectors over a bf16 ring the tensor-core
-#: form takes ``MMA_MIN_M`` to ``MMA_MAX_M`` rows first
+#: form takes ``MMA_MIN_M`` to ``MMA_MAX_M`` rows first; the solo kernels
+#: take the row-block form from ``MMA_ROWS_MIN_M`` rows (the deep form
+#: keeps an n off a multiple of ``MMA_ALIGN`` and the batched kernels)
 EPILOGUE_MAX_M = {
     (torch.float32, torch.bfloat16): 8,
     (torch.float32, torch.float32): 8,
     (torch.float64, torch.float64): 7,
 }
-#: ring rows per pass of the deep epilogues per (vector, history) dtype
-#: pair: their per-thread sums are [T // V, G] per product kind.  The
+#: ring rows per pass of the deep fold epilogues per (vector, history)
+#: dtype pair: their per-thread sums are [T // V, G] per product kind.  The
 #: largest G (a power of two) at which no form spills on an NVIDIA H100
 #: with n divisible by 16 and not: 8 with float32 vectors (148-214
 #: registers), 2 with float64 (106-124; at 4 and 8 K4's . gp form spills)
@@ -237,6 +239,66 @@ MMA_EPILOGUE = {
 MMA_MIN_M, MMA_MAX_M = 9, max(MMA_EPILOGUE)
 #: the one dtype pair whose ring values are exact as a bf16 operand
 MMA_DTYPES = (torch.float32, torch.bfloat16)
+#: the solo epilogues' tensor-core form over any dtype pair and any depth
+#: (``"mma_rows"``: ``trial_pair_gram_mma_rows_kernel``,
+#: ``owlqn_trial_pair_gram_mma_rows_kernel``): the chunks of the form above,
+#: passed over once per block of at most ``MMA_ROWS_RP[pair]`` ring rows
+#: (one pass up to that many rows; the last block ``rows_tail`` rows), each
+#: block's rows one ``tl.dot`` operand: a bf16 ring as it is, an f32 ring
+#: in three bf16 parts (as the vectors are split: exact, where one bf16
+#: part is not), an f64 ring in float64 dots (Hopper's FP64 MMA); the sums
+#: in the vectors' dtype.  It takes f32 and f64 rings from
+#: ``MMA_ROWS_MIN_M[pair]`` rows and bf16 rings above ``MMA_MAX_M`` (the
+#: batched forms keep their fold forms there).  The launch per (pair,
+#: RP), RP the block's rows (m rounded up to a power of two, at least 16,
+#: at most ``MMA_ROWS_RP``): the fastest launch that spills nothing in
+#: ``tools/tune_batched_epilogues.py --solo --rows``'s sweep (blocks of
+#: 16-256 rows, K 16-128, 4 or 8 warps, 1-3 stages; K4 ·gp and K14 ·gp at
+#: n = 2^20, f32 and f64 rings at m = 9-200, bf16 at 260) on an NVIDIA
+#: H100 80GB HBM3 at its 700 W limit.  Blocks of 128 bf16 rows ran 260
+#: rows (K4 ·gp) in 0.483 ms against 0.557 in blocks of 256; f32 rings in
+#: blocks of 64 (m = 80: K4 ·gp 0.3381 ms, K14 ·gp 0.3398, against 0.3350
+#: and 0.3776 in blocks of 128; at 200 and 260 rows blocks of 64 lead
+#: both), where the f32 tile's split keeps every launch at 253-255
+#: registers; f64 rings in blocks of 128 (m = 80: K4 ·gp 0.5114 ms, K14
+#: ·gp 0.5143, against 0.5360 and 0.5407 in blocks of 64), their [RP, 8]
+#: sums in the FP64 MMA's n8 shape (with [RP, 16] sums the fastest f64
+#: launch that spilled nothing ran m = 80 in 0.7988 and 0.9535 ms)
+MMA_ROWS_EPILOGUE = {
+    (torch.float32, torch.bfloat16): {128: dict(K=128, num_warps=8, num_stages=3)},
+    (torch.float32, torch.float32): {
+        16: dict(K=64, num_warps=4, num_stages=2),
+        32: dict(K=64, num_warps=4, num_stages=2),
+        64: dict(K=64, num_warps=4, num_stages=3),
+    },
+    (torch.float64, torch.float64): {
+        16: dict(K=32, num_warps=4, num_stages=3),
+        32: dict(K=32, num_warps=4, num_stages=3),
+        64: dict(K=32, num_warps=4, num_stages=3),
+        128: dict(K=32, num_warps=8, num_stages=3),
+    },
+}
+MMA_ROWS_RP = {pair: max(cfgs) for pair, cfgs in MMA_ROWS_EPILOGUE.items()}
+#: the depth from which the solo K4 and K14 take the row-block form, per
+#: dtype pair: above the one-pass form over a bf16 ring; over f32 and f64
+#: rings the depth from which it beats the deep fold form (the static form
+#: spills above its cap), from ``tools/deep_crossover.py --forms deep rows``
+#: at n = 2^20 on an NVIDIA H100 80GB HBM3 at its 700 W limit.  f32 rings:
+#: the deep form's passes are one per 8 rows, so its time steps at 25 rows,
+#: and there the row-block form leads all four launches (K4 0.1440 ms
+#: against 0.1636, K4 ·gp 0.1496 against 0.1789, K14 0.1408 against 0.1582,
+#: K14 ·gp 0.1459 against 0.1675); at 24 the deep form leads both ·gp
+#: launches (0.1466 against 0.1485, 0.1398 against 0.1462).  f64 rings:
+#: the deep form passes once per 2 rows; at 12 rows (its 6 passes, as at
+#: 11) the row-block form leads all four (K4 0.1549 against 0.1596, K4 ·gp
+#: 0.1586 against 0.1934, K14 0.1365 against 0.1812, K14 ·gp 0.1418
+#: against 0.2011), at 8 the deep form leads K4 (0.1138 against 0.1533)
+#: and K4 ·gp (0.1399 against 0.1592)
+MMA_ROWS_MIN_M = {
+    (torch.float32, torch.bfloat16): MMA_MAX_M + 1,
+    (torch.float32, torch.float32): 25,
+    (torch.float64, torch.float64): 11,
+}
 
 
 #: the most programs a solo tensor-core launch takes (each walks ``tiles``
@@ -280,13 +342,15 @@ def spec_chunks(K: int) -> list:
 
 
 def _epilogue_form(m: int, vdtype: torch.dtype, hdtype: torch.dtype,
-                   mma: bool = True) -> tuple:
+                   mma: bool = True, solo: bool = False) -> tuple:
     """(form, its launch table's entry, its tile or chunk T, its
-    compile-time constants) of K4 and K14, solo and batched alike, at m
-    ring rows: the tensor-core form (``"mma"``; with ``mma`` on) for f32
-    vectors over a bf16 ring from ``MMA_MIN_M`` to ``MMA_MAX_M`` rows, else
-    the static fold form up to ``EPILOGUE_MAX_M`` rows and the deep fold
-    form above, both on ``EPILOGUE``'s tiles."""
+    compile-time constants) of K4 and K14 at m ring rows: the tensor-core
+    form (``"mma"``; with ``mma`` on) for f32 vectors over a bf16 ring from
+    ``MMA_MIN_M`` to ``MMA_MAX_M`` rows, else the static fold form up to
+    ``EPILOGUE_MAX_M`` rows, then for the solo kernels (``solo``, with
+    ``mma`` on) the tensor-core row-block form (``"mma_rows"``) from
+    ``MMA_ROWS_MIN_M`` rows, and the deep fold form above (the batched
+    kernels' only form there), the fold forms on ``EPILOGUE``'s tiles."""
     pair = (vdtype, hdtype)
     if mma and pair == MMA_DTYPES and MMA_MIN_M <= m <= MMA_MAX_M:
         rp = max(16, _rows(m))
@@ -295,7 +359,19 @@ def _epilogue_form(m: int, vdtype: torch.dtype, hdtype: torch.dtype,
     cfg = EPILOGUE[pair]
     if m <= EPILOGUE_MAX_M[pair]:
         return "static", cfg, cfg["T"], dict(M=m, MP=_rows(m), T=cfg["T"], V=cfg["V"])
+    if solo and mma and m >= MMA_ROWS_MIN_M[pair]:
+        rp = min(max(16, _rows(m)), MMA_ROWS_RP[pair])
+        cfg = MMA_ROWS_EPILOGUE[pair][rp]
+        return "mma_rows", cfg, cfg["K"], dict(m=m, RP=rp, RT=rows_tail(m, rp), K=cfg["K"])
     return "deep", cfg, cfg["T"], dict(m=m, G=DEEP_GROUP[pair], T=cfg["T"], V=cfg["V"])
+
+
+def rows_tail(m: int, rp: int) -> int:
+    """The row-block form's last block: the rows left after the full blocks
+    of rp rows (rp when none is left), rounded up to a power of two, at
+    least 16, so that a few rows past a block do not take a whole block's
+    products."""
+    return max(16, _rows(m - (-(-m // rp) - 1) * rp))
 
 
 def _form_grid(form: str, cfg: dict, T: int, consts: dict, ntiles: int, per: int,
@@ -318,14 +394,15 @@ def solo_epilogue_grid(n: int, m: int, vdtype: torch.dtype,
     the fold forms on ``EPILOGUE``'s tiles of T elements, the tiles each
     program loops over and the program count (at most
     ``EPILOGUE_PROGRAMS``; fewer, with one tile each, for a small n); the
-    tensor-core form, where n is a multiple of ``MMA_ALIGN``, on chunks of
-    K, at most ``SOLO_MMA_PROGRAMS`` programs (more where a program would
-    sum more than ``MMA_MAX_CHUNKS`` chunks), each taking ``tiles``
-    consecutive chunks.  The last program's tiles may run past n, masked.
-    Fields as ``batched_epilogue_grid``'s at B = 1."""
-    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=n % MMA_ALIGN == 0)
+    tensor-core forms (``"mma"`` and ``"mma_rows"``), where n is a multiple
+    of ``MMA_ALIGN``, on chunks of K, at most ``SOLO_MMA_PROGRAMS`` programs
+    (more where a program would sum more than ``MMA_MAX_CHUNKS`` chunks),
+    each taking ``tiles`` consecutive chunks (``"mma_rows"``: once per
+    block of RP ring rows).  The last program's tiles may run past n,
+    masked.  Fields as ``batched_epilogue_grid``'s at B = 1."""
+    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=n % MMA_ALIGN == 0, solo=True)
     ntiles = -(-n // T)
-    if form == "mma":
+    if form in ("mma", "mma_rows"):
         return _form_grid(form, cfg, T, consts, ntiles, SOLO_MMA_PROGRAMS, 1, MMA_MAX_CHUNKS)
     return _form_grid(form, cfg, T, consts, ntiles, EPILOGUE_PROGRAMS, 1, ntiles)
 
@@ -366,15 +443,45 @@ def batched_epilogue_partials(grid: SimpleNamespace, B: int, m: int, owlqn: bool
 
 
 def bf16_split_ref(v: torch.Tensor) -> tuple:
-    """The tensor-core form's split of a float32 vector into three bf16
-    parts (``_factory_triton._split_operand``), in torch: b1 = bf16(v), b2 =
-    bf16(v - b1), b3 = bf16(v - b1 - b2).  For a finite v below bf16's
-    largest value b1 + b2 + b3 == v exactly; an inf or NaN leaves NaN in
-    b2 and b3."""
+    """The tensor-core forms' split of a float32 vector, or of an f32
+    ring's rows, into three bf16 parts (``_factory_triton._split_operand``,
+    ``_ring_dot``), in torch: b1 = bf16(v), b2 = bf16(v - b1), b3 = bf16(v
+    - b1 - b2).  For a finite v below bf16's largest value b1 + b2 + b3 ==
+    v exactly; an inf or NaN leaves NaN in b2 and b3."""
     b1 = v.to(torch.bfloat16)
     r1 = v - b1.float()
     b2 = r1.to(torch.bfloat16)
     return b1, b2, (r1 - b2.float()).to(torch.bfloat16)
+
+
+def mma_products_ref(R: torch.Tensor, V: torch.Tensor, K: int) -> torch.Tensor:
+    """The tensor-core forms' products R.V of ring rows R ([r, n]: bf16,
+    float32 or float64) with vectors V ([n, c]: float32 or float64), in
+    torch, split as the kernels split their operands
+    (``_factory_triton._operand``, ``_ring_dot``): f32 vectors in three bf16
+    parts each (``bf16_split_ref``), an f32 ring's rows in three bf16 parts
+    too, a bf16 ring and f64 operands as they are; per chunk of K elements
+    every part's product summed in the sums' dtype (float32 for f32
+    vectors, float64 for f64; the ring's smallest parts first), each
+    chunk's sums added to the running sums in that dtype (``CARRY_RN``),
+    and each product (p1 + p2) + p3 over the vector's parts.  Returns [r,
+    c] in the sums' dtype."""
+    if V.dtype == torch.float64:
+        rings, parts = [R.double()], [V]
+    else:
+        rings = [q.float() for q in (bf16_split_ref(R) if R.dtype == torch.float32 else (R,))]
+        parts = [q.float() for q in bf16_split_ref(V)]
+    sums = [torch.zeros(R.shape[0], V.shape[1], dtype=V.dtype, device=V.device) for _ in parts]
+    for c0 in range(0, R.shape[1], K):
+        for i, v in enumerate(parts):
+            chunk = rings[-1][:, c0:c0 + K] @ v[c0:c0 + K]
+            for q in reversed(rings[:-1]):
+                chunk = chunk + q[:, c0:c0 + K] @ v[c0:c0 + K]
+            sums[i] = sums[i] + chunk
+    out = sums[0]
+    for t in sums[1:]:
+        out = out + t
+    return out
 
 
 def epilogue_partials(grid: SimpleNamespace, m: int, owlqn: bool, with_gp: bool) -> dict:
@@ -418,25 +525,29 @@ def _launch_epilogue(fn, eg: SimpleNamespace, m: int, vdtype: torch.dtype,
     and over the grid ``eg`` (``solo_epilogue_grid``,
     ``batched_epilogue_grid``: the batched grid's axis 1 is the instance),
     keep the compiled kernel in the form's dict (``fn.mma_compiled``,
-    ``fn.compiled``, ``fn.deep_compiled``) and, with the geometry, in
-    ``fn.last_form``, and count the launch (``_count``; ``fn.mma_launches``
-    for the tensor-core form).  ``args`` run up to the tiles argument,
+    ``fn.mma_rows_compiled``, ``fn.compiled``, ``fn.deep_compiled``) and,
+    with the geometry, in ``fn.last_form``, and count the launch
+    (``_count``; ``fn.mma_launches`` for the tensor-core form,
+    ``fn.mma_rows_launches`` for the solo row-block form).  ``args`` run up to the tiles argument,
     ``kw`` names the rest."""
     batched = fn.__name__.endswith("_batched")
     name = fn.__name__.removesuffix("_batched")
-    name += {"mma": "_mma", "static": "", "deep": "_deep"}[eg.form]
+    name += {"mma": "_mma", "mma_rows": "_mma_rows", "static": "", "deep": "_deep"}[eg.form]
     name += "_batched_kernel" if batched else "_kernel"
     grid = (eg.programs, eg.total // eg.programs) if batched else (eg.programs,)
-    compiled = {"mma": fn.mma_compiled, "static": fn.compiled,
-                "deep": fn.deep_compiled}[eg.form]
-    # the tensor-core form's . gp column is a run-time flag (one binary for
+    compiled = getattr(fn, {"mma": "mma_compiled", "mma_rows": "mma_rows_compiled",
+                            "static": "compiled", "deep": "deep_compiled"}[eg.form])
+    # the tensor-core forms' . gp column is a run-time flag (one binary for
     # both launches); the fold forms' a compile-time one
-    flag = dict(with_gp=int(with_gp)) if eg.form == "mma" else dict(WITH_GP=bool(with_gp))
+    mma = eg.form in ("mma", "mma_rows")
+    flag = dict(with_gp=int(with_gp)) if mma else dict(WITH_GP=bool(with_gp))
     ck = getattr(_kernels(), name)[grid](*args, eg.tiles, **flag, **kw, **eg.consts,
                                          **dict(LAUNCH, **eg.launch))
     compiled[(vdtype, hdtype, bool(with_gp))] = ck
-    fn.last_form = SimpleNamespace(kernel=name, compiled=ck, **vars(eg))
+    fn.last_form = SimpleNamespace(kernel=name, compiled=ck, dtypes=(vdtype, hdtype), **vars(eg))
     fn.mma_launches += eg.form == "mma"
+    if eg.form == "mma_rows":
+        fn.mma_rows_launches += 1
     _count(fn, m > MAX_M, gp=bool(with_gp))
 
 
@@ -553,7 +664,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
       block_ref: the body's plain torch twin ``(x, gidx, *ex) -> (fx_elem,
         g)``; needed when ``value_and_grad`` is None.
     """
-    tiles = [cfg["T"] for cfg in EPILOGUE.values()] + [cfg["K"] for cfg in MMA_EPILOGUE.values()]
+    tiles = ([cfg["T"] for cfg in EPILOGUE.values()] + [cfg["K"] for cfg in MMA_EPILOGUE.values()]
+             + [cfg["K"] for cfgs in MMA_ROWS_EPILOGUE.values() for cfg in cfgs.values()])
     if BLOCK % row or any(t % row for t in tiles):
         raise ValueError(f"row={row} must divide the block of {BLOCK} and the epilogues' tiles")
     # the kernels lay a block out as rows of W elements, at least two: with
@@ -810,10 +922,13 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         for bit.  The form is ``solo_epilogue_grid``'s: the static fold up
         to ``EPILOGUE_MAX_M`` ring rows, the deep fold above (x, g, the ring
         row and every sum but the products the static form's bit for bit),
-        and with f32 vectors over a bf16 ring the tensor-core form from
+        with f32 vectors over a bf16 ring the tensor-core form from
         ``MMA_MIN_M`` to ``MMA_MAX_M`` rows (x, g and the ring row the fold
         forms' bit for bit, the sums and the objective in its own order,
-        counted in ``.mma_launches``)."""
+        counted in ``.mma_launches``), and over f32 and f64 rings from
+        ``MMA_ROWS_MIN_M`` rows and bf16 rings above ``MMA_MAX_M`` the
+        tensor-core row-block form (the same relation to the fold forms,
+        counted in ``.mma_rows_launches``)."""
         off, ex = _check(xp)
         fused._check_hist(xp, S, Y)
         if not fused.on_cuda(xp, "trial_pair_gram"):
@@ -1632,6 +1747,9 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     for fn in (trial_pair_gram, owlqn_trial_pair_gram, trial_pair_gram_batched,
                owlqn_trial_pair_gram_batched):
         fn.mma_launches, fn.mma_compiled, fn.last_form = 0, {}, None
+    # the solo epilogues' tensor-core row-block form (``"mma_rows"``)
+    for fn in (trial_pair_gram, owlqn_trial_pair_gram):
+        fn.mma_rows_launches, fn.mma_rows_compiled = 0, {}
     # the fusions' deep forms per (vector dtype, history dtype, fix), and
     # the batched fusions' forms per (vector dtype, history dtype, deep,
     # and for K15 b fix)

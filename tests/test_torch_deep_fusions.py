@@ -285,8 +285,8 @@ CARD_CASES.append((2_500_002, 65, (torch.float32, torch.bfloat16)))
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,dtypes", CARD_CASES, ids=str)
 def test_deep_forms_on_card(cuda, n, m, dtypes, monkeypatch):
-    """The deep forms (the tensor-core form off: with f32 vectors over a
-    bf16 ring it takes these depths, ``tests/test_torch_solo_epilogue_launch.py``)
+    """The deep forms (the tensor-core forms off: the solo K4 and K14 take
+    them at these depths, ``tests/test_torch_solo_epilogue_launch.py``)
     against their plain versions: ring rows bit for bit;
     K4's and K14's x, g, pg, objective and changed bit for bit the static
     launch's at m = 6 on the same vectors and their scalar sums at the sum
@@ -300,6 +300,8 @@ def test_deep_forms_on_card(cuda, n, m, dtypes, monkeypatch):
     vd, hd = dtypes
     tv, ts = (1e-5, 1e-4) if vd == torch.float32 else (1e-12, 1e-10)
     monkeypatch.setattr(t_factory, "MMA_MAX_M", 0)
+    monkeypatch.setattr(t_factory, "MMA_ROWS_MIN_M",
+                        dict.fromkeys(t_factory.MMA_ROWS_MIN_M, 1 << 62))
     a = _card_inputs(n, m, vd, hd)
     xp, xp0, d, gp, pg, S, Y = (a[k] for k in ("xp", "xp0", "d", "gp", "pg", "S", "Y"))
     end, lo, hi = m - 3, 5, n - 9
@@ -421,6 +423,8 @@ def test_deep_epilogues_are_the_static_ones_where_both_run(cuda, dtypes, monkeyp
         return out
 
     monkeypatch.setattr(t_factory, "MMA_MAX_M", 0)
+    monkeypatch.setattr(t_factory, "MMA_ROWS_MIN_M",
+                        dict.fromkeys(t_factory.MMA_ROWS_MIN_M, 1 << 62))
     monkeypatch.setattr(t_factory, "EPILOGUE_MAX_M",
                         dict.fromkeys(t_factory.EPILOGUE_MAX_M, t_factory.MAX_M))
     static = run()

@@ -6,10 +6,16 @@ run:
     takes (the tensor-core form for f32 vectors over a bf16 ring from
     ``factory.MMA_MIN_M`` to ``factory.MMA_MAX_M`` rows, else the static
     fold form up to the pair's ``factory.EPILOGUE_MAX_M`` and the deep fold
-    form above, while K15 and K16 keep ``factory.MAX_M``), every element
-    covered by exactly one (program, chunk), the programs at or under the
-    form's cap, one objective partial per chunk, and the . gp launch's
-    partials on the 3-column launch's programs;
+    form above, while K15 and K16 keep ``factory.MAX_M``; the solo
+    tensor-core row-block form over f32 and f64 rings from
+    ``factory.MMA_ROWS_MIN_M`` rows and over bf16 rings above 256, which
+    the batched forms never take), every element covered by exactly one
+    (program, chunk) and every ring row by one block, the programs at or
+    under the form's cap, one objective partial per chunk, and the . gp
+    launch's partials on the 3-column launch's programs;
+  * the row-block form's split of an f32 ring into three bf16 parts
+    (exact) and its products emulated in torch
+    (``factory.mma_products_ref``) against the float64 product;
   * the plain K4 and K14, with and without the . gp column, at m = 19 and
     200 (depths the tensor-core form takes that
     ``tests/test_torch_deep_fusions.py`` skips): in float32 against the JAX
@@ -31,8 +37,11 @@ launch's other outputs to the 3-column launch's and an in-place launch to
 the launch into fresh vectors (bit for bit, both ways), its compiled
 kernel spilling nothing; the tensor-core products to the float64 product of its own
 operands at 2, 32 and 256 chunks per program (1e-4 normwise); and an inf
-in gp to non-finite products.  They skip without a card.  This module
-imports JAX only inside the tests that compare with it, so the card's
+in gp to non-finite products.  The row-block form's ``cuda`` cases hold
+it the same way over f32 and f64 rings at m = 9, 19, 80 and 200 and bf16
+rings at 257 and 260 (its products within 1e-6 / 1e-12 of the float64
+product at 2, 32 and 64 chunks a program).  They skip without a card.
+This module imports JAX only inside the tests that compare with it, so the card's
 cases run without it.
 """
 
@@ -68,13 +77,26 @@ def test_solo_form_by_dtype_pair_and_depth(pair, m):
         assert g.tiles <= factory.MMA_MAX_CHUNKS
         assert g.programs <= max(factory.SOLO_MMA_PROGRAMS,
                                  -(-g.ntiles // factory.MMA_MAX_CHUNKS))
-    else:
-        assert g.form == ("static" if m <= factory.EPILOGUE_MAX_M[pair] else "deep")
+    elif m <= factory.EPILOGUE_MAX_M[pair]:
+        assert g.form == "static"
         assert g.T == factory.EPILOGUE[pair]["T"] and g.programs <= factory.EPILOGUE_PROGRAMS
-        if g.form == "deep":
-            assert g.consts["G"] == factory.DEEP_GROUP[pair]
-    # one choice of form for the solo and the batched epilogues
-    assert g.form == factory.batched_epilogue_grid(1024, 1 << 14, m, *pair).form
+    elif m >= factory.MMA_ROWS_MIN_M[pair]:
+        # above the static cap over f32 and f64 rings, and above the
+        # one-pass form over a bf16 ring: the tensor-core row-block form
+        assert g.form == "mma_rows"
+        rp = g.consts["RP"]
+        assert rp == min(max(16, 1 << (m - 1).bit_length()), factory.MMA_ROWS_RP[pair])
+        assert g.T == g.consts["K"] == factory.MMA_ROWS_EPILOGUE[pair][rp]["K"]
+        assert g.tiles <= factory.MMA_MAX_CHUNKS
+    else:
+        assert g.form == "deep"
+        assert g.T == factory.EPILOGUE[pair]["T"] and g.programs <= factory.EPILOGUE_PROGRAMS
+        assert g.consts["G"] == factory.DEEP_GROUP[pair]
+    # one choice of form for the solo and the batched epilogues, but where
+    # the solo kernels take the row-block form: the batched ones keep the
+    # deep fold form there
+    b = factory.batched_epilogue_grid(1024, 1 << 14, m, *pair).form
+    assert b == ("deep" if g.form == "mma_rows" else g.form)
 
 
 @pytest.mark.parametrize("n", [100, (1 << 14) + 2, 3_000_002, (1 << 20) + 8])
@@ -117,7 +139,7 @@ def test_every_element_once_and_programs_capped(pair, n, m):
     assert g.ntiles == -(-n // g.T)
     # no program lies wholly past n, and as few chunks a program as the cap allows
     assert (g.programs - 1) * g.tiles < g.ntiles <= g.programs * g.tiles
-    if g.form == "mma":
+    if g.form in ("mma", "mma_rows"):
         # the cap, unless a program would then sum more than MMA_MAX_CHUNKS
         cap = max(factory.SOLO_MMA_PROGRAMS, -(-g.ntiles // factory.MMA_MAX_CHUNKS))
         assert g.tiles <= factory.MMA_MAX_CHUNKS
@@ -158,6 +180,167 @@ def test_partials_per_chunk_and_gp_launch_on_the_3_column_grid(owlqn, m, n):
         else:
             # the objective: one partial per chunk (tile) of every program
             assert three["fx"] == gp["fx"] == (g.programs * g.tiles,)
+
+
+#: the depths and widths the row-block form's routing is held at
+ROWS_DEPTHS = [9, 16, 64, 80, 200, 256, 257, 260, 512]
+ROWS_WIDTHS = [64, 100, (1 << 14) + 2, 1 << 14, (1 << 20) + 2, 1 << 20]
+
+
+def _fold_form(m, pair):
+    return "static" if m <= factory.EPILOGUE_MAX_M[pair] else "deep"
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
+@pytest.mark.parametrize("n", ROWS_WIDTHS)
+@pytest.mark.parametrize("m", ROWS_DEPTHS)
+def test_rows_form_by_pair_depth_and_width(pair, n, m):
+    """The solo epilogues' form by dtype pair, depth and width: f32 vectors
+    over a bf16 ring the one-pass tensor-core form up to 256 rows and the
+    row-block form above; f32 and f64 rings the row-block form from
+    ``MMA_ROWS_MIN_M`` rows (the fold forms below); an n off a multiple of
+    16 the fold forms everywhere.  The row-block form's blocks are RP rows
+    (m rounded up to a power of two, at least 16, at most the pair's
+    ``MMA_ROWS_RP``), the last one RT (the rows left, rounded up), so it
+    passes over its chunks cdiv(m, RP) times: at most three at 260 bf16
+    rows, where the deep fold form passed 33 times."""
+    g = factory.solo_epilogue_grid(n, m, *pair)
+    if n % factory.MMA_ALIGN:
+        assert g.form == _fold_form(m, pair)
+        return
+    if pair == factory.MMA_DTYPES and m <= factory.MMA_MAX_M:
+        assert g.form == "mma"
+        return
+    if m < factory.MMA_ROWS_MIN_M[pair]:
+        # under the crossover depth the deep fold form is the faster
+        assert g.form == _fold_form(m, pair)
+        return
+    assert g.form == "mma_rows"
+    rp, cfg = g.consts["RP"], factory.MMA_ROWS_EPILOGUE[pair][g.consts["RP"]]
+    assert 16 <= rp <= factory.MMA_ROWS_RP[pair] and rp & (rp - 1) == 0
+    passes = -(-m // rp)
+    assert (passes - 1) * rp < m <= passes * rp
+    assert passes == 1 or rp == factory.MMA_ROWS_RP[pair]
+    # the last block: the rows left, rounded up to a power of two (at least
+    # 16), so the tail of a deep ring takes no whole block's products
+    rt = g.consts["RT"]
+    assert rt & (rt - 1) == 0 and 16 <= rt <= rp
+    left = m - (passes - 1) * rp
+    assert rt == max(16, 1 << (left - 1).bit_length()) and left <= rt
+    assert g.consts == dict(m=m, RP=rp, RT=rt, K=cfg["K"]) and g.T == cfg["K"]
+    assert g.launch == dict(num_warps=cfg["num_warps"], num_stages=cfg["num_stages"])
+    if pair == factory.MMA_DTYPES and m == 260:
+        # blocks of 128 or 256 rows and a tail of 16, where the deep fold
+        # form passed over the vectors 33 times
+        assert passes <= 3 and rt == 16
+    # the launch is the one-pass form's: at most SOLO_MMA_PROGRAMS programs
+    # (more where one would sum more than MMA_MAX_CHUNKS chunks)
+    assert g.tiles <= factory.MMA_MAX_CHUNKS
+    assert g.programs <= max(factory.SOLO_MMA_PROGRAMS, -(-g.ntiles // factory.MMA_MAX_CHUNKS))
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
+@pytest.mark.parametrize("B,n", [(1, 1 << 20), (4, 1 << 16), (1024, 1 << 14), (2, 100)])
+@pytest.mark.parametrize("m", [6, 8, 9, 19, 80, 200, 256, 257, 260, 512])
+def test_batched_grids_keep_their_forms(pair, B, n, m):
+    """The batched epilogues never take the solo row-block form: the
+    tensor-core form with f32 vectors over a bf16 ring from ``MMA_MIN_M``
+    to ``MMA_MAX_M`` rows at an aligned n, else the static fold form up to
+    the pair's cap and the deep fold form above, on the fold forms' tiles
+    and the batch-wide program count."""
+    g = factory.batched_epilogue_grid(B, n, m, *pair)
+    aligned = n % factory.MMA_ALIGN == 0
+    if aligned and pair == factory.MMA_DTYPES and factory.MMA_MIN_M <= m <= factory.MMA_MAX_M:
+        assert g.form == "mma"
+        return
+    assert g.form == _fold_form(m, pair)
+    cfg = factory.EPILOGUE[pair]
+    assert g.T == cfg["T"] and g.launch == dict(num_warps=cfg["num_warps"],
+                                                num_stages=cfg["num_stages"])
+    per = max(1, factory.EPILOGUE_PROGRAMS // B)
+    assert g.tiles == -(-g.ntiles // per) and g.total == B * g.programs
+    assert "RP" not in g.consts
+    # the form is the same function's as the solo grid's with the solo
+    # forms off
+    assert factory._epilogue_form(m, *pair, mma=aligned)[0] == g.form
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)
+@pytest.mark.parametrize("n", [1 << 14, 3_000_000, 1 << 20, 1 << 24])
+@pytest.mark.parametrize("m", [9, 33, 80, 260, 512])
+def test_rows_form_covers_every_element_and_row_once(pair, n, m):
+    """The row-block form's launch: each element in exactly one (program,
+    chunk), at most ``MMA_MAX_CHUNKS`` chunks a program, and each ring row
+    in exactly one block of RP rows, so every (row, element) product is
+    taken once and the point is stored once, by the last pass."""
+    g = factory.solo_epilogue_grid(n, m, *pair)
+    if m < factory.MMA_ROWS_MIN_M[pair] and pair != factory.MMA_DTYPES:
+        assert g.form == "deep"
+        return
+    assert g.form == "mma_rows" or (pair == factory.MMA_DTYPES and g.form == "mma")
+    covered = np.zeros(g.programs * g.tiles * g.T, np.int64)
+    for p in range(g.programs):
+        for t in range(g.tiles):
+            chunk = p * g.tiles + t
+            covered[chunk * g.T:(chunk + 1) * g.T] += 1
+    assert np.all(covered[:n] == 1) and g.tiles <= factory.MMA_MAX_CHUNKS
+    rp = g.consts["RP"]
+    rt = g.consts.get("RT", rp)
+    # the kernel's blocks: cdiv(m - RT, RP) full blocks, then one of RT rows
+    full = -(-(m - rt) // rp)
+    blocks = [(j * rp, rp) for j in range(full)] + [(full * rp, rt)]
+    rows = np.zeros(full * rp + rt, np.int64)
+    for j0, r in blocks:
+        rows[j0:j0 + r] += 1
+    assert np.all(rows[:m] == 1)
+    # row `end` lies in exactly one block, which stores the new pair
+    for end in (0, m // 2, m - 1):
+        assert sum(j0 <= end < j0 + r for j0, r in blocks) == 1
+
+
+def test_f32_ring_split_is_exact():
+    """An f32 ring row's three bf16 parts (``factory.bf16_split_ref``, the
+    row-block form's split of its [RP, K] ring tile) sum exactly to the
+    row, over float32's exponents and at bf16's rounding ties; an inf
+    leaves NaN in the lower parts (its products stay non-finite)."""
+    rng = np.random.default_rng(25)
+    v = rng.standard_normal(1 << 16) * np.exp2(rng.integers(-100, 100, 1 << 16))
+    exps = np.resize(np.arange(-120, 121), 256)
+    ties = (1.0 + np.arange(1, 257) * 2.0 ** -8 + 2.0 ** -9) * 2.0 ** exps
+    v = torch.from_numpy(np.concatenate([v, ties, -ties, [0.0, -0.0, 1e-30, 3e38]])).float()
+    b1, b2, b3 = factory.bf16_split_ref(v)
+    assert all(b.dtype == torch.bfloat16 for b in (b1, b2, b3))
+    assert torch.isfinite(v).all()
+    assert torch.equal((b1.double() + b2.double()) + b3.double(), v.double())
+    assert torch.equal((b1.float() + b2.float()) + b3.float(), v)
+    inf = factory.bf16_split_ref(torch.tensor([float("inf")]))
+    assert torch.isinf(inf[0]).all() and torch.isnan(inf[1]).all() and torch.isnan(inf[2]).all()
+
+
+@pytest.mark.parametrize("hd", [F32, BF16, F64], ids=["f32-ring", "bf16-ring", "f64-ring"])
+@pytest.mark.parametrize("K", [32, 64, 128])
+def test_mma_products_twin_near_float64(hd, K):
+    """The row-block form's products emulated in torch
+    (``factory.mma_products_ref``: the split operands' products summed per
+    chunk of K in the sums' dtype, the chunks carried in adds of that
+    dtype) at n = 2^12 against the float64 product of the same operands:
+    within 1e-6 normwise with f32 vectors (an f32 ring in three bf16
+    parts), 1e-12 with f64 vectors."""
+    n = 1 << 12
+    vd = F64 if hd == F64 else F32
+    rng = np.random.default_rng(K)
+    R = torch.from_numpy(rng.standard_normal((80, n))).to(hd)
+    V = torch.from_numpy(rng.standard_normal((n, 4))).to(vd)
+    P = factory.mma_products_ref(R, V, K)
+    assert P.dtype == vd and P.shape == (80, 4)
+    want = R.double() @ V.double()
+    gap = float((P.double() - want).abs().max() / want.abs().max())
+    assert gap <= (1e-12 if vd == F64 else 1e-6)
+    if hd == F32:
+        # one bf16 part of the ring would not do: its products part from
+        # the float64 product by bf16's rounding
+        one = factory.mma_products_ref(R.bfloat16(), V, K)
+        assert float((one.double() - want).abs().max() / want.abs().max()) > 1e-4
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +671,136 @@ def test_inf_in_gp_gives_non_finite_products_on_card(cuda, ow):
     a = _card(cuda, 19, 1 << 14)
     a["gp"][1234] = float("inf")
     out, _, _ = _launch(a, ow, True)
+    SP, YP = out[3:5] if ow else out[7:9]
+    assert not torch.isfinite(SP[:, 3]).all() and not torch.isfinite(YP[:, 3]).all()
+    assert not torch.isfinite(SP[:, 0]).all() and not torch.isfinite(YP[:, 0]).all()
+
+
+# ---------------------------------------------------------------------------
+# the row-block form on the card
+# ---------------------------------------------------------------------------
+
+
+def _card_pair(dev, m, n, vd, hd, seed=0):
+    """``_card``'s inputs with vectors of ``vd`` and rings of ``hd``."""
+    g = torch.Generator(device=dev).manual_seed(seed + m + n)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev, dtype=F64)
+    xp = (t_rosen.initial_point(n, F64, dev) + 0.1 * r(n)).to(vd)
+    xp0 = xp.clone()
+    xp0[::17] = 0.0
+    return dict(xp=xp, xp0=xp0, d=(0.1 * r(n)).to(vd), gp=r(n).to(vd), pg=r(n).to(vd),
+                S=(0.1 * r(m, n)).to(hd), Y=(0.1 * r(m, n)).to(hd), end=m - 3,
+                window=(5, max(n - 9, 6)))
+
+
+#: (vector dtype, ring dtype, m) of the row-block form's card cases: f32
+#: and f64 rings from one row past the static cap to several blocks, bf16
+#: rings past the one-pass form
+ROWS_CARD = ([(F32, F32, m) for m in (9, 19, 80, 200)] + [(F64, F64, m) for m in (9, 19, 80, 200)]
+             + [(F32, BF16, m) for m in (257, 260)])
+
+
+def _no_rows_form(monkeypatch):
+    """The fold forms alone (the tensor-core forms off)."""
+    monkeypatch.setattr(factory, "MMA_MAX_M", 0)
+    monkeypatch.setattr(factory, "MMA_ROWS_MIN_M", dict.fromkeys(factory.MMA_ROWS_MIN_M, 1 << 62))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ow", [False, True], ids=["K4", "K14"])
+@pytest.mark.parametrize("n", [64, 100, (1 << 14) + 2, 1 << 20])
+@pytest.mark.parametrize("vd,hd,m", ROWS_CARD, ids=str)
+def test_rows_form_on_card(cuda, vd, hd, m, n, ow, monkeypatch):
+    """The row-block form (at an n off a multiple of 16, the fold form;
+    forced at the depths the routing gives to the deep fold form) with
+    the . gp column against its plain version (ring rows bit for bit,
+    vectors 1e-5 / 1e-12, sums and products 1e-4 / 1e-10 normwise in f32 /
+    f64) and against the fold form on the same inputs (x, g, pg, the rings
+    and the changed flag bit for bit, the sums at the sum tolerance); the
+    3-column launch's outputs the . gp launch's bit for bit, an in-place
+    launch the launch into fresh vectors', and no spill."""
+    tv, ts = (1e-5, 1e-4) if vd == F32 else (1e-12, 1e-10)
+    # the row-block form wherever the static form does not run (the
+    # routing gives the shallower of these depths to the deep fold form)
+    monkeypatch.setattr(factory, "MMA_ROWS_MIN_M", dict.fromkeys(factory.MMA_ROWS_MIN_M, 1))
+    a = _card_pair(cuda, m, n, vd, hd)
+    fn = K.owlqn_trial_pair_gram if ow else K.trial_pair_gram
+    rows = fn.mma_rows_launches
+    form = factory.solo_epilogue_grid(n, m, vd, hd).form
+    assert form == ("mma_rows" if n % factory.MMA_ALIGN == 0 else _fold_form(m, (vd, hd)))
+    out, vecs, (S, Y) = _launch(a, ow, True)
+    assert fn.last_form.form == form and fn.mma_rows_launches == rows + (form == "mma_rows")
+    assert fn.last_form.compiled.n_spills == 0
+    refn = K.owlqn_trial_pair_gram_ref if ow else K.trial_pair_gram_ref
+    Sp, Yp = a["S"].clone(), a["Y"].clone()
+    if ow:
+        lo, hi = a["window"]
+        ref = refn(a["xp0"], a["d"], a["gp"], a["pg"], STP, C, lo, hi, Sp, Yp, a["end"],
+                   with_gp=True)
+    else:
+        ref = refn(a["xp"], a["d"], a["gp"], STP, Sp, Yp, a["end"], with_gp=True)
+    assert _bits(S, Sp) and _bits(Y, Yp)
+    for i, (u, v) in enumerate(zip(out, ref)):
+        if i == FLAG[ow]:
+            assert bool(u) == bool(v)
+        else:
+            assert _normwise_t(u, v) <= (tv if i in VECS[ow] else ts), i
+    three, _, (S3, Y3) = _launch(a, ow, False)
+    assert _bits(S3, S) and _bits(Y3, Y)
+    cols = (3, 4) if ow else (7, 8)
+    for i, u in enumerate(three):
+        assert _bits(u, out[i][:, :3] if i in cols else out[i]), i
+    ip, _, (Si, Yi) = _launch(a, ow, True, inplace=True)
+    assert _bits(Si, S) and _bits(Yi, Y)
+    assert all(_bits(u, v) for u, v in zip(ip, out))
+    _no_rows_form(monkeypatch)
+    fold, fvecs, (Sf, Yf) = _launch(a, ow, True)
+    assert fn.last_form.form in ("static", "deep")
+    assert _bits(Sf, S) and _bits(Yf, Y)
+    assert all(_bits(u, v) for u, v in zip(vecs, fvecs))
+    assert bool(fold[FLAG[ow]]) == bool(out[FLAG[ow]])
+    for i, (u, v) in enumerate(zip(out, fold)):
+        if i not in VECS[ow] and i != FLAG[ow]:
+            assert _normwise_t(u, v) <= ts, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [2, 32, 64])
+@pytest.mark.parametrize("vd,hd,m", [(F32, F32, 80), (F64, F64, 80), (F32, BF16, 260)],
+                         ids=str)
+def test_rows_form_products_near_float64_on_card(cuda, vd, hd, m, chunks, monkeypatch):
+    """The row-block K4's SP and YP (with the . gp column) against the
+    float64 product of its own operands (the ring widened, row end the
+    unrounded pair, the vectors widened) at n = 2^20 with ``chunks`` chunks
+    a program: within 1e-6 normwise with f32 vectors, 1e-12 with f64."""
+    n = 1 << 20
+    a = _card_pair(cuda, m, n, vd, hd, seed=7)
+    g0 = factory.solo_epilogue_grid(n, m, vd, hd)
+    assert g0.form == "mma_rows"
+    monkeypatch.setattr(factory, "SOLO_MMA_PROGRAMS", -(-g0.ntiles // chunks))
+    monkeypatch.setattr(factory, "MMA_MAX_CHUNKS", chunks)
+    S, Y = a["S"].clone(), a["Y"].clone()
+    out = K.trial_pair_gram(a["xp"], a["d"], a["gp"], STP, S, Y, a["end"], with_gp=True)
+    assert K.trial_pair_gram.last_form.tiles == chunks
+    s = torch.full((1,), STP, dtype=vd, device=cuda) * a["d"]
+    g = out[2]
+    SPw, YPw = _products_f64(S, Y, s, g - a["gp"], -g, a["gp"], a["end"])
+    tol = 1e-6 if vd == F32 else 1e-12
+    assert _normwise_t(out[7], SPw) <= tol
+    assert _normwise_t(out[8], YPw) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ow", [False, True], ids=["K4", "K14"])
+@pytest.mark.parametrize("vd,hd,m", [(F32, F32, 80), (F64, F64, 80), (F32, BF16, 260)],
+                         ids=str)
+def test_rows_form_inf_in_gp_on_card(cuda, vd, hd, m, ow):
+    """An inf in gp: the row-block form's . gp column and products with y
+    are non-finite, as the fold's are."""
+    a = _card_pair(cuda, m, 1 << 14, vd, hd)
+    a["gp"][1234] = float("inf")
+    out, _, _ = _launch(a, ow, True)
+    assert (K.owlqn_trial_pair_gram if ow else K.trial_pair_gram).last_form.form == "mma_rows"
     SP, YP = out[3:5] if ow else out[7:9]
     assert not torch.isfinite(SP[:, 3]).all() and not torch.isfinite(YP[:, 3]).all()
     assert not torch.isfinite(SP[:, 0]).all() and not torch.isfinite(YP[:, 0]).all()

@@ -3,16 +3,19 @@ forms at a few ring depths, and the deep forms' registers at other group
 sizes, on one CUDA card: what ``factory.EPILOGUE_MAX_M`` is chosen from.
 
     PYTHONPATH=. python3 tools/deep_crossover.py [--depths 8 16 32] [--reps N]
-        [--pairs bf16 f32 f64] [--groups 8 4 2]
+        [--pairs bf16 f32 f64] [--forms static deep rows] [--groups 8 4 2]
 
 For each dtype pair of ``--pairs`` (f32 vectors over a bf16 or an f32
 history, f64 over f64) and depth m, at the deep-history path's n = 2^20
 (``chip_smoke.deep_inputs``): K4 and K14, each with and without the . gp
-column, in their static form and in their deep form (each forced by
-``chip_smoke.static_forms_up_to``: m rows static, 0 rows static; the
-tensor-core form off), each form's
+column, in each form of ``--forms``: the static form and the deep form
+(each forced by ``chip_smoke.static_forms_up_to``: m rows static, 0 rows
+static; the tensor-core forms off) and the tensor-core row-block form
+(``rows``: forced by ``chip_smoke.rows_form_from``), each form's
 registers and spills from its compiled Triton kernel, and the device time
-of both in turns, static, deep, deep, static (``chip_smoke.device_time``).
+of each in turns, the forms in order and then in reverse (static, deep,
+deep, static by default; ``chip_smoke.device_time``): what
+``factory.EPILOGUE_MAX_M`` and ``factory.MMA_ROWS_MIN_M`` are chosen from.
 The static forms compile per m and unroll every ring row, so at 32 rows
 and more their compiles take minutes: this runs apart from
 ``chip_smoke.py``.
@@ -45,6 +48,8 @@ def main() -> None:
                     choices=["bf16", "f32", "f64"])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--groups", type=int, nargs="*", default=[])
+    ap.add_argument("--forms", nargs="*", default=["static", "deep"],
+                    choices=["static", "deep", "rows"])
     args = ap.parse_args()
     cs.phase_device()
     k = rosenbrock.value_and_grad.kernels
@@ -74,6 +79,8 @@ def main() -> None:
     pairs = {"bf16": (torch.float32, torch.bfloat16), "f32": (torch.float32, torch.float32),
              "f64": (torch.float64, torch.float64)}
     hi = cs.DEEP_N - 1
+    forced = {"static": cs.static_forms_up_to, "deep": lambda m: cs.static_forms_up_to(0),
+              "rows": cs.rows_form_from}
     for pair in args.pairs:
         vd, hd = pairs[pair]
         for m in args.depths:
@@ -88,9 +95,9 @@ def main() -> None:
                         with_gp=gp)),
                 }
                 for name, (fn, call) in forms.items():
-                    ms, regs = {"static": [], "deep": []}, {}
-                    for form in ("static", "deep", "deep", "static"):
-                        with cs.static_forms_up_to(m if form == "static" else 0):
+                    ms, regs = {form: [] for form in args.forms}, {}
+                    for form in args.forms + args.forms[::-1]:
+                        with forced[form](m):
                             call()
                             regs[form] = dict(kernel=fn.last_form.kernel,
                                               **cs._compiled_info(fn.last_form.compiled))

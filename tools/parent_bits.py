@@ -1,7 +1,8 @@
 """Hold this tree's kernels to another tree's, bit for bit, on one CUDA card.
 
     PYTHONPATH=. python3 tools/parent_bits.py --parent DIR [--reps N]
-        [--epilogue-depths 16 19 80 [--epilogue-n 1048576 16777216]]
+        [--epilogue-depths 16 19 80 [--epilogue-n 1048576 16777216]
+         [--epilogue-pairs bf16 f32 f64]] [--binaries]
 
 DIR is the root of another tree of this repository (e.g. a ``git archive``
 of the parent commit unpacked under ``build/``), whose ``lbfgs_torch`` is
@@ -27,12 +28,22 @@ m = 6) in turns, other tree, this, this, other (``chip_smoke.device_time``).
 
 With ``--epilogue-depths`` it runs only the solo epilogues K4 and K14,
 each with and without the . gp column, at those ring depths and the
-widths of ``--epilogue-n`` (f32 vectors over bf16 rings,
-``chip_smoke.numerics_inputs``, K14 on the window [5, n - 9)): x, g, pg
-and both rings must be the other tree's bit for bit (whatever form each
-tree picks), the sums and products within the sum tolerance (normwise,
-the gap printed), then each is timed other tree, this, this, other, with
-the form each tree ran.
+widths of ``--epilogue-n``, in the dtype pairs of ``--epilogue-pairs``
+(f32 vectors over bf16 rings, ``chip_smoke.numerics_inputs``, by default;
+f32 over f32 rings and f64 over f64, ``chip_smoke.deep_inputs``; K14 on
+the window [5, n - 9)): x, g, pg and both rings must be the other tree's
+bit for bit (whatever form each tree picks), the sums and products within
+the sum tolerance (normwise, the gap printed), then each is timed other
+tree, this, this, other, with the form each tree ran and, where both ran
+the same kernel, whether its PTX is the other tree's (``same_ptx``).
+
+With ``--binaries`` it compiles, in both trees, the epilogue forms this
+tree's solo row-block form leaves as they were (the solo K4 and K14 at
+m = 6 in the three dtype pairs, their tensor-core form over bf16 rings of
+16-256 rows, their fold forms at an n off a multiple of 16, and every
+batched K4 b and K14 b form), each with and without the . gp column at
+small sizes, and prints whether each kernel's PTX is the other tree's
+(``ptx_code``: the debug lines and sections aside).
 
 Prints one JSON line per check group and per timed kernel; the card's
 nvidia-smi name and power limit first.
@@ -176,61 +187,147 @@ def compiled(rosen) -> dict:
     return out
 
 
-def epilogue_depths(prosen, depths: list, widths: list, reps: int) -> None:
+#: the dtype pairs of ``--epilogue-pairs``
+PAIRS = {"bf16": (torch.float32, torch.bfloat16), "f32": (torch.float32, torch.float32),
+         "f64": (torch.float64, torch.float64)}
+
+
+def ptx_code(ck) -> list:
+    """A compiled Triton kernel's PTX lines without its debug lines
+    (``.loc``, ``.file``, comments, the ``$L__tmp`` labels that mark source
+    locations) and debug sections, which follow the source's lines."""
+    ptx = ck.asm["ptx"]
+    cut = ptx.find(".section\t.debug")
+    lines = (ptx if cut < 0 else ptx[:cut]).splitlines()
+    return [ln for ln in lines if not ln.strip().startswith((".loc", ".file", "//", "$L__tmp"))]
+
+
+def same_ptx(mine, theirs):
+    """Whether two launches' last compiled kernels (``fn.last_form``) have
+    the same PTX, or None where they ran different kernels."""
+    f, g = mine.last_form, theirs.last_form
+    return ptx_code(f.compiled) == ptx_code(g.compiled) if f.kernel == g.kernel else None
+
+
+def ptx_diff(mine, theirs, lines: int = 12) -> list:
+    """The first lines where two launches' PTX differ (``difflib``)."""
+    import difflib
+    a, b = ptx_code(theirs.last_form.compiled), ptx_code(mine.last_form.compiled)
+    return [ln for ln in difflib.unified_diff(a, b, "other", "this", n=0, lineterm="")][:lines]
+
+
+def epilogue_depths(prosen, depths: list, widths: list, reps: int, pairs=("bf16",)) -> None:
     """``--epilogue-depths``: the solo K4 and K14 (±·gp) of both trees."""
-    tol = cs.TOL[(torch.float32, "sum")]
-    for n in widths:
-        for m in depths:
-            a = cs.numerics_inputs(n, m, cs.SEED + 40 + m)
+    for pair, n, m in ((p, n, m) for p in pairs for n in widths for m in depths):
+        vd, hd = PAIRS[pair]
+        tol = cs.TOL[(vd, "sum")]
+        a = (cs.numerics_inputs(n, m, cs.SEED + 40 + m) if pair == "bf16"
+             else cs.deep_inputs(vd, hd, m, n))
 
-            def calls(rosen, S, Y):
-                return {
-                    "K4": lambda: rosen.trial_pair_gram(a["xp"], a["d"], a["gp"], cs.STP, S, Y,
-                                                        cs.END),
-                    "K4_gp": lambda: rosen.trial_pair_gram(a["xp"], a["d"], a["gp"], cs.STP, S,
-                                                           Y, cs.END, with_gp=True),
-                    "K14": lambda: rosen.owlqn_trial_pair_gram(
-                        a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, cs.C_L1, 5, n - 9, S, Y,
-                        cs.END),
-                    "K14_gp": lambda: rosen.owlqn_trial_pair_gram(
-                        a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, cs.C_L1, 5, n - 9, S, Y,
-                        cs.END, with_gp=True),
-                }
+        def calls(rosen, S, Y):
+            return {
+                "K4": lambda: rosen.trial_pair_gram(a["xp"], a["d"], a["gp"], cs.STP, S, Y,
+                                                    cs.END),
+                "K4_gp": lambda: rosen.trial_pair_gram(a["xp"], a["d"], a["gp"], cs.STP, S,
+                                                       Y, cs.END, with_gp=True),
+                "K14": lambda: rosen.owlqn_trial_pair_gram(
+                    a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, cs.C_L1, 5, n - 9, S, Y,
+                    cs.END),
+                "K14_gp": lambda: rosen.owlqn_trial_pair_gram(
+                    a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, cs.C_L1, 5, n - 9, S, Y,
+                    cs.END, with_gp=True),
+            }
 
-            for name in ("K4", "K4_gp", "K14", "K14_gp"):
-                outs = {}
-                for label, rosen in (("this", rosenbrock), ("other", prosen)):
-                    S, Y = a["S"].clone(), a["Y"].clone()
-                    out = calls(rosen, S, Y)[name]()
-                    outs[label] = (out, S, Y)
-                (mine, S1, Y1), (theirs, S2, Y2) = outs["this"], outs["other"]
-                if not (cs.same_bits(S1, S2) and cs.same_bits(Y1, Y2)):
-                    raise AssertionError(f"{name} m={m} n={n}: the rings differ")
-                vec = (0, 1, 2) if name.startswith("K14") else (0, 2)
-                gaps = []
-                for i, (u, v) in enumerate(zip(mine, theirs)):
-                    if i in vec or u.dtype == torch.bool:
-                        if not cs.same_bits(u, v):
-                            raise AssertionError(f"{name} m={m} n={n}: output {i} differs")
+        for name in ("K4", "K4_gp", "K14", "K14_gp"):
+            outs = {}
+            for label, rosen in (("this", rosenbrock), ("other", prosen)):
+                S, Y = a["S"].clone(), a["Y"].clone()
+                out = calls(rosen, S, Y)[name]()
+                outs[label] = (out, S, Y)
+            (mine, S1, Y1), (theirs, S2, Y2) = outs["this"], outs["other"]
+            if not (cs.same_bits(S1, S2) and cs.same_bits(Y1, Y2)):
+                raise AssertionError(f"{name} m={m} n={n}: the rings differ")
+            vec = (0, 1, 2) if name.startswith("K14") else (0, 2)
+            gaps = []
+            for i, (u, v) in enumerate(zip(mine, theirs)):
+                if i in vec or u.dtype == torch.bool:
+                    if not cs.same_bits(u, v):
+                        raise AssertionError(f"{name} m={m} n={n}: output {i} differs")
+                else:
+                    gaps.append(cs.check(f"{name} m={m} n={n} output {i}", u, v, tol)[1])
+            del outs, mine, theirs, S1, Y1, S2, Y2
+            wrapper = ("owlqn_trial_pair_gram" if name.startswith("K14")
+                       else "trial_pair_gram")
+            fn, pfn = getattr(rosenbrock, wrapper), getattr(prosen, wrapper)
+            mk, tk = calls(rosenbrock, a["S"], a["Y"])[name], calls(prosen, a["S"],
+                                                                     a["Y"])[name]
+            p1, k1, k2, p2 = (cs.device_time(f, reps) for f in (tk, mk, mk, tk))
+            cs.emit(compare="other_tree", kernel=name, dtypes=pair, m=m, n=n,
+                    other_ms=min(p1, p2), ms=min(k1, k2), runs=[p1, k1, k2, p2],
+                    timed_by=cs.device_time.source, form=fn.last_form.kernel,
+                    other_form=pfn.last_form.kernel, programs=fn.last_form.programs,
+                    chunks_per_program=fn.last_form.tiles,
+                    **cs._compiled_info(fn.last_form.compiled),
+                    same_ptx=same_ptx(fn, pfn),
+                    bound_ms=cs.bound(("K4_trial_pair_gram" if name.startswith("K4")
+                                       else "K14_owlqn_trial_pair_gram")
+                                      + ("_gp" if name.endswith("_gp") else ""),
+                                      n, vd.itemsize, hd.itemsize, m)[0],
+                    vectors_and_rings="bit for bit", sum_gap=max(gaps))
+        del a
+        torch.cuda.empty_cache()
+
+
+def binaries(prosen) -> None:
+    """``--binaries``: the PTX of every epilogue form the row-block form
+    leaves as it was, in both trees."""
+    prosen_k = prosen.value_and_grad.kernels
+    mine_k = rosenbrock.value_and_grad.kernels
+    bf16 = PAIRS["bf16"]
+    # (pair, m, n, whether the solo forms there are unchanged too): the
+    # batched forms everywhere; the solo ones but at the depths the
+    # row-block form takes
+    cases = [(pair, m, n, True) for pair in PAIRS.values() for m, n in ((6, 4096), (6, 4098))]
+    cases += [(bf16, m, 4096, True) for m in (16, 19, 80, 256)]
+    cases += [(pair, 80, 4098, True) for pair in PAIRS.values()] + [(bf16, 260, 4098, True)]
+    cases += [(pair, 80, 4096, False) for pair in (PAIRS["f32"], PAIRS["f64"])]
+    cases += [(bf16, 260, 4096, False)]
+    wrappers = (("trial_pair_gram", True), ("owlqn_trial_pair_gram", True),
+                ("trial_pair_gram_batched", False), ("owlqn_trial_pair_gram_batched", False))
+    rows = []
+    for (vd, hd), m, n, solo_too in cases:
+        a = cs.deep_inputs(vd, hd, m, n)
+        for gp in (False, True):
+            for wrapper, solo in wrappers:
+                if solo and not solo_too:
+                    continue
+                for k in (mine_k, prosen_k):
+                    fn = getattr(k, wrapper)
+                    if solo and wrapper.startswith("owlqn"):
+                        fn(a["xp0"], a["d"], a["gp"], a["pg"], cs.STP, 1.0, 5, n - 9,
+                           a["S"].clone(), a["Y"].clone(), cs.END, with_gp=gp)
+                    elif solo:
+                        fn(a["xp"], a["d"], a["gp"], cs.STP, a["S"].clone(), a["Y"].clone(),
+                           cs.END, with_gp=gp)
                     else:
-                        gaps.append(cs.check(f"{name} m={m} n={n} output {i}", u, v, tol)[1])
-                del outs, mine, theirs, S1, Y1, S2, Y2
-                fn = (rosenbrock.owlqn_trial_pair_gram if name.startswith("K14")
-                      else rosenbrock.trial_pair_gram)
-                mk, tk = calls(rosenbrock, a["S"], a["Y"])[name], calls(prosen, a["S"],
-                                                                         a["Y"])[name]
-                p1, k1, k2, p2 = (cs.device_time(f, reps) for f in (tk, mk, mk, tk))
-                cs.emit(compare="other_tree", kernel=name, m=m, n=n, other_ms=min(p1, p2),
-                        ms=min(k1, k2), runs=[p1, k1, k2, p2], timed_by=cs.device_time.source,
-                        form=fn.last_form.kernel, programs=fn.last_form.programs,
-                        chunks_per_program=fn.last_form.tiles,
-                        bound_ms=cs.bound(("K4_trial_pair_gram" if name.startswith("K4")
-                                           else "K14_owlqn_trial_pair_gram")
-                                          + ("_gp" if name.endswith("_gp") else ""),
-                                          n, 4, 2, m)[0],
-                        vectors_and_rings="bit for bit", sum_gap=max(gaps))
-            del a
-            torch.cuda.empty_cache()
+                        x = torch.stack([a["xp"], a["xp0"]])
+                        stp = torch.full((2,), cs.STP, dtype=vd, device="cuda")
+                        live = torch.ones(2, dtype=torch.bool, device="cuda")
+                        S, Y = torch.stack([a["S"]] * 2), torch.stack([a["Y"]] * 2)
+                        args = (x, torch.stack([a["d"]] * 2), torch.stack([a["gp"]] * 2))
+                        if wrapper.startswith("owlqn"):
+                            fn(*args, torch.stack([a["pg"]] * 2), stp, 1.0, 5, n - 9, S, Y,
+                               cs.END, live, with_gp=gp)
+                        else:
+                            fn(*args, stp, S, Y, cs.END, live, with_gp=gp)
+                mine, theirs = getattr(mine_k, wrapper), getattr(prosen_k, wrapper)
+                row = dict(kernel=mine.last_form.kernel, dtypes=f"{vd}/{hd}".replace(
+                    "torch.", ""), m=m, n=n, with_gp=gp, same_ptx=same_ptx(mine, theirs))
+                if row["same_ptx"] is False:
+                    row["diff"] = ptx_diff(mine, theirs)
+                rows.append(row)
+        del a
+    cs.emit(check="binaries", forms=rows, all_same=all(r["same_ptx"] for r in rows))
 
 
 def main() -> None:
@@ -239,13 +336,19 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--epilogue-depths", type=int, nargs="*")
     ap.add_argument("--epilogue-n", type=int, nargs="*", default=[1 << 20])
+    ap.add_argument("--epilogue-pairs", nargs="*", default=["bf16"], choices=list(PAIRS))
+    ap.add_argument("--binaries", action="store_true")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
     prosen = load_tree(args.parent.resolve(), "parent_lbfgs_torch")
+    if args.binaries:
+        binaries(prosen)
     if args.epilogue_depths:
-        epilogue_depths(prosen, args.epilogue_depths, args.epilogue_n, args.reps)
+        epilogue_depths(prosen, args.epilogue_depths, args.epilogue_n, args.reps,
+                        args.epilogue_pairs)
+    if args.binaries or args.epilogue_depths:
         return
     pfused = sys.modules["parent_lbfgs_torch.ops.fused"]
     for n in (cs.N_RAGGED, cs.N_BIG):

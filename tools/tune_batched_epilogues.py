@@ -43,6 +43,24 @@ With ``--solo`` (one instance, f32 vectors over a bf16 ring,
     tensor-core, tensor-core, static, for K4 and K14 with and without the
     . gp column, with both forms' registers.
 
+With ``--rows`` (the solo K4 and K14 in their tensor-core row-block form,
+``factory.MMA_ROWS_EPILOGUE``; ``chip_smoke.deep_inputs``, K14 on the
+window [5, n - 9)):
+
+    PYTHONPATH=. python3 tools/tune_batched_epilogues.py --rows [--pairs f32 f64 bf16]
+        [--depths 9 19 80 200] [--widths 1048576] [--jobs 6] [--reps N] [--out PATH]
+
+  at each dtype pair of ``--pairs`` (f32 vectors over an f32 or a bf16
+  ring, f64 over f64) and depth of ``--depths`` (bf16: above
+  ``factory.MMA_MAX_M`` only), every launch of ``ROWS_GRID`` (block rows
+  RP, chunk K, warps, stages) runs the . gp launches of K4 and K14 (one
+  binary with the 3-column launch), timed (``chip_smoke.event_time``) with
+  its registers, spills and gaps to the plain version; ``--jobs`` worker
+  processes compile every launch first (``--rows-warm``), so the timing
+  process only loads them.  Per (pair, RP) the launch whose runs spill
+  nothing and sum the least time relative to the fastest of each (depth,
+  n, form) is printed beside ``factory.MMA_ROWS_EPILOGUE``'s.
+
 Prints one JSON line per launch and depth, the card's nvidia-smi name and
 power limit first; ``--out`` writes the same lines to a file.
 """
@@ -52,6 +70,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import sys
 
 import torch
 
@@ -271,6 +290,138 @@ def solo_crossover(m: int, widths: list, reps: int, emit) -> None:
         factory.MMA_MIN_M = lo
 
 
+#: the row-block sweep's launches per dtype pair: (block rows RP, chunk K,
+#: warps, stages)
+ROWS_GRID = {
+    pair: [(rp, k, w, st) for rp in rps for k in ks for w in (4, 8) for st in (1, 2, 3)]
+    for pair, rps, ks in (("bf16", (128, 256), (32, 64, 128)),
+                          ("f32", (16, 32, 64, 128), (32, 64, 128)),
+                          ("f64", (16, 32, 64, 128), (16, 32, 64)))}
+ROWS_PAIRS = {"bf16": (torch.float32, torch.bfloat16), "f32": (torch.float32, torch.float32),
+              "f64": (torch.float64, torch.float64)}
+
+
+def rows_launches(pairs: list, depths: list) -> list:
+    """(pair name, m, RP, K, warps, stages) of every row-block launch the
+    sweep runs: each depth at the RPs it can take (m rounded up to a power
+    of two, at least 16, or a smaller block)."""
+    out = []
+    for name in pairs:
+        for m in depths:
+            if name == "bf16" and m <= factory.MMA_MAX_M:
+                continue
+            top = max(16, 1 << (m - 1).bit_length())
+            out += [(name, m, rp, k, w, st) for rp, k, w, st in ROWS_GRID[name] if rp <= top]
+    return out
+
+
+class rows_launch:
+    """Inside, the solo K4 and K14 take the row-block form at depth m with
+    the launch (RP, K, warps, stages) for the pair."""
+
+    def __init__(self, pair, m, rp, k, w, st):
+        self.pair, self.m, self.cfg = pair, m, (rp, dict(K=k, num_warps=w, num_stages=st))
+
+    def __enter__(self):
+        self.saved = (dict(factory.MMA_ROWS_EPILOGUE), dict(factory.MMA_ROWS_RP))
+        rp, cfg = self.cfg
+        factory.MMA_ROWS_EPILOGUE[self.pair] = {rp: cfg}
+        factory.MMA_ROWS_RP[self.pair] = rp
+        self.forced = cs.rows_form_from(self.m)
+        self.forced.__enter__()
+
+    def __exit__(self, *exc):
+        self.forced.__exit__(*exc)
+        factory.MMA_ROWS_EPILOGUE, factory.MMA_ROWS_RP = (dict(t) for t in self.saved)
+
+
+def rows_warm(part: int, parts: int, pairs: list, depths: list) -> None:
+    """Compile launches part, part + parts, ... of ``rows_launches`` (a
+    worker of ``--jobs``): K4 and K14 . gp at n = 4096."""
+    for i, (name, m, rp, k, w, st) in enumerate(rows_launches(pairs, depths)):
+        if i % parts != part:
+            continue
+        a = cs.deep_inputs(*ROWS_PAIRS[name], m, 4096)
+        with rows_launch(ROWS_PAIRS[name], m, rp, k, w, st):
+            for form in ("K4_gp", "K14_gp"):
+                try:
+                    solo_calls(a)[form][1]()
+                except Exception:  # the timing process records the refusal
+                    pass
+    torch.cuda.synchronize()
+
+
+def rows_sweep(pairs: list, depths: list, widths: list, reps: int, emit) -> list:
+    """Every row-block launch at every width, timed, with its registers,
+    spills and, at n <= 2^20, its gaps to the plain version; returns the
+    rows."""
+    rows = []
+    for name in pairs:
+        pair = ROWS_PAIRS[name]
+        vd, hd = pair
+        for m in depths:
+            launches = [x for x in rows_launches([name], [m])]
+            if not launches:
+                continue
+            for n in widths:
+                a = cs.deep_inputs(vd, hd, m, n)
+                calls = solo_calls(a)
+                want = ({form: calls[form][2]() for form in ("K4_gp", "K14_gp")}
+                        if n <= 1 << 20 else {})
+                for _, _, rp, k, w, st in launches:
+                    with rows_launch(pair, m, rp, k, w, st):
+                        for form in ("K4_gp", "K14_gp"):
+                            fn, call, _ = calls[form]
+                            base = dict(rows_sweep=form, dtypes=name, m=m, n=n, RP=rp, K=k,
+                                        num_warps=w, num_stages=st)
+                            try:
+                                out = call()
+                                torch.cuda.synchronize()
+                            except Exception as e:  # a refused launch is a result
+                                emit(dict(base, refused=f"{type(e).__name__}: {str(e)[-300:]}"))
+                                continue
+                            f = fn.last_form
+                            row = dict(base, passes=-(-m // rp), programs=f.programs,
+                                       chunks_per_program=f.tiles,
+                                       ms=cs.event_time(call, reps),
+                                       bound_ms=cs.bound(SOLO_NAMES[form], n, vd.itemsize,
+                                                         hd.itemsize, m)[0],
+                                       **cs._compiled_info(f.compiled))
+                            if form in want:
+                                row["sum_gap"] = max(cs.err(u, v) for u, v in
+                                                     zip(out, want[form])
+                                                     if u.dtype != torch.bool and u.ndim <= 2
+                                                     and u.numel() < n)
+                            emit(row)
+                            rows.append(row)
+                            del out
+                del a, calls, want
+                torch.cuda.empty_cache()
+    return rows
+
+
+def rows_best(rows: list, emit) -> None:
+    """Per (pair, RP), the launch whose runs spill nothing and sum the least
+    time relative to the fastest run of each (depth, n, form)."""
+    fastest = {}
+    for r in rows:
+        key = (r["dtypes"], r["m"], r["n"], r["rows_sweep"])
+        fastest[key] = min(fastest.get(key, r["ms"]), r["ms"])
+    for pair in sorted({r["dtypes"] for r in rows}):
+        for rp in sorted({r["RP"] for r in rows if r["dtypes"] == pair}):
+            score = {}
+            for r in rows:
+                if (r["dtypes"], r["RP"]) == (pair, rp):
+                    launch = (r["K"], r["num_warps"], r["num_stages"])
+                    rel = r["ms"] / fastest[(pair, r["m"], r["n"], r["rows_sweep"])]
+                    score[launch] = score.get(launch, 0.0) + (rel if r["n_spills"] == 0
+                                                              else float("inf"))
+            best = min(score, key=score.get)
+            emit(dict(rows_best=pair, RP=rp, K=best[0], num_warps=best[1], num_stages=best[2],
+                      relative_time_sum=score[best],
+                      chosen=factory.MMA_ROWS_EPILOGUE[ROWS_PAIRS[pair]].get(rp)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--depths", type=int, nargs="*")
@@ -280,9 +431,19 @@ def main() -> None:
     ap.add_argument("--widths", type=int, nargs="*", default=list(SOLO_N))
     ap.add_argument("--solo", action="store_true",
                     help="the solo K4 and K14 at one instance instead of the batched forms")
+    ap.add_argument("--rows", action="store_true",
+                    help="the solo K4 and K14 in their tensor-core row-block form")
+    ap.add_argument("--pairs", nargs="*", default=["f32", "f64", "bf16"],
+                    choices=list(ROWS_PAIRS))
+    ap.add_argument("--jobs", type=int, default=6)
+    ap.add_argument("--rows-warm", nargs=2, type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rows_warm:
+        rows_warm(*args.rows_warm, args.pairs, args.depths)
+        return
     if args.depths is None:
-        args.depths = [16, 19, 80, 200] if args.solo else [6, 19, 48, 80, 200]
+        args.depths = ([9, 19, 80, 200, 260] if args.rows else [16, 19, 80, 200] if args.solo
+                       else [6, 19, 48, 80, 200])
     if args.crossover is None:
         args.crossover = [8, 9, 12, 16] if args.solo else [6, 8, 12, 16, 19, 32]
     out = open(args.out, "w") if args.out else None
@@ -297,6 +458,15 @@ def main() -> None:
     emit(dict(card=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                    "--format=csv,noheader"], capture_output=True,
                                   text=True).stdout.strip()))
+    if args.rows:
+        workers = [subprocess.Popen([sys.executable, __file__, "--rows-warm", str(i),
+                                     str(args.jobs), "--pairs", *args.pairs, "--depths",
+                                     *map(str, args.depths)])
+                   for i in range(args.jobs)]
+        for w in workers:
+            w.wait()
+        rows_best(rows_sweep(args.pairs, args.depths, args.widths, args.reps, emit), emit)
+        return
     if args.solo:
         rows = []
         for m in args.depths:
