@@ -302,6 +302,25 @@ Phases (any failure raises and the script exits nonzero):
      form at an n that is a multiple of 16 (at most 64 chunks a program,
      the products within 3e-7 normwise of the float64 product of their own
      operands), the deep fold form at 2^14 + 2, no spill;
+ 42j. batched fold kernels (``batched_fold_kernels``, after the batched
+     tensor-core rules): K4 b and K14 b with and without their . gp
+     columns at the ``FOLD_ROWS`` settings (f32 and f64 rings at m = 80, a
+     bf16 ring at m = 260), which the deep fold form took until the row-block
+     form did, in the tensor-core row-block form (``"mma_rows"``) on the batch-wide grid:
+     against their plain versions and the deep fold form on the same
+     inputs (x, g, pg, the rings and the frozen instances bit for bit, the
+     sums within the sum tolerance) on 512 (f32, bf16) and 256 (f64)
+     instances of 2^14, three instances against the solo K4 and K14 bit
+     for bit, the products within ``BATCHED_ROWS_GAP`` of the float64
+     product of their own operands at 2, 32 and 64 chunks a program; then
+     each timed at 1024 x 2^14 beside its plain version and in turns
+     against the deep fold form, with its bound; every compiled batched
+     form's registers (a spill fails);
+ 42k. batched fold paths (``batched_fold_paths``, after the batched m = 80
+     runs): ``minimize_batched`` at 1024 x 2^14 at each ``FOLD_ROWS``
+     setting, plain and OWL-QN (uncapped, epsilon 0), 10 iterations: every
+     K4 b (K14 b) launch in the row-block form, every fx finite; instances
+     0-7 solo against the batch after 8 iterations;
  43. sharded world size 1: an NCCL group of one rank in this process
      (``lbfgs_torch.parallel``), the main path and the OWL-QN main path at
      n = 2^24 under ``kernels_on_mesh``, each against the same run with no
@@ -598,6 +617,16 @@ KERNELS.update({
 BATCHED_DAMPED_FORMS = ("K4b_trial_pair_gram_batched_gp", "K14b_owlqn_trial_pair_gram_batched_gp",
                         "K6b_combine_fix_batched", "K15b_combine_probe_batched_fix",
                         "K3b_combine_batched", "K13b_combine_ow_batched")
+#: the batched epilogues at the ``FOLD_ROWS`` settings, where they took
+#: their deep fold forms until the row-block form (``"mma_rows"``) took
+#: them: at 1024 x 2^14 (``phase_batched_fold_kernels``,
+#: ``phase_batched_fold_paths``)
+KERNELS.update({
+    f"{name}{sfx}": (route, src,
+                     f"{rep} (m = {m}, {str(vd)[6:]}/{str(hd)[6:]}, tensor-core row-block form)")
+    for name, (route, src, rep) in list(KERNELS.items())
+    if name in ("K4b_trial_pair_gram_batched", "K14b_owlqn_trial_pair_gram_batched")
+    for sfx, (vd, hd, m) in FOLD_ROWS.items()})
 KERNELS.update({f"{name}_m80": (route, src, f"{rep} (m = 80)")
                 for name, (route, src, rep) in list(KERNELS.items())
                 if name in BATCHED_DAMPED_FORMS})
@@ -1231,8 +1260,37 @@ def warm_steps() -> list:
                 q.owlqn_probe_steps(x, x, x, stp, 1.0, 0, n - 1)
         return step
 
+    def batched_fold(vd, hd, m):
+        # the batched runner's forms at a ``FOLD_ROWS`` setting: K4 b and K14
+        # b in the row-block form (one binary for both launches) and in the
+        # deep fold form their checks hold them to (each with and without
+        # the . gp column), and the fold paths' probes and M = 0 fusions
+        def step(lib):
+            k = rosenbrock.value_and_grad.kernels
+            n = 4096
+            x = torch.ones((2, n), dtype=vd, device="cuda")
+            S = torch.zeros((2, m, n), dtype=hd, device="cuda")
+            stp = torch.zeros(2, dtype=vd, device="cuda")
+            live = torch.ones(2, dtype=torch.bool, device="cuda")
+            for force in (None, M):
+                with static_forms_up_to(force) if force is not None else nullcontext():
+                    for gp in (False, True):
+                        k.trial_pair_gram_batched(x.clone(), x, x.clone(), stp, S, S.clone(), 1,
+                                                  live, with_gp=gp)
+                        k.owlqn_trial_pair_gram_batched(x.clone(), x, x.clone(), x.clone(), stp,
+                                                        1.0, 0, n - 1, S, S.clone(), 1, live,
+                                                        with_gp=gp)
+            if vd != torch.float32:
+                k.probe_batched(x, x, stp, live)
+                k.owlqn_probe_pg_batched(x, x, x, stp, 1.0, 0, n - 1, live)
+            coef = torch.zeros((2, 2 * m + 1), dtype=vd, device="cuda")
+            k.combine_probe_batched(x, x, S, S, coef, stp, live, x.clone())
+            k.combine_ow_probe_batched(x, x, S, S, coef, 1.0, 0, n - 1, stp, live, x.clone())
+        return step
+
     steps += [speculative(n, K) for n in (8192, 4098) for K in SPEC_WARM_LANES]
     steps += [batched(m) for m in (M, DEEP_VS_STATIC_M, DEEP_M)]
+    steps += [batched_fold(vd, hd, m) for vd, hd, m in FOLD_ROWS.values()]
     return steps
 
 
@@ -2242,7 +2300,9 @@ def _reset_factory(k) -> None:
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.trial_pair_gram_batched,
                k.owlqn_trial_pair_gram_batched):
         fn.gp_launches = fn.deep_gp_launches = fn.mma_launches = 0
-    k.trial_pair_gram.mma_rows_launches = k.owlqn_trial_pair_gram.mma_rows_launches = 0
+    for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.trial_pair_gram_batched,
+               k.owlqn_trial_pair_gram_batched):
+        fn.mma_rows_launches = 0
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram, k.combine_probe, k.combine_ow_probe,
                k.trial_pair_gram_batched, k.owlqn_trial_pair_gram_batched,
                k.combine_probe_batched, k.combine_ow_probe_batched):
@@ -4939,14 +4999,14 @@ def phase_batched_kernels() -> dict:
 
 
 def _batched_run(name: str, params: LbfgsParams, B: int, n: int, path=BATCHED_PATH,
-                 init=(), runs: int = BATCHED_RUNS) -> tuple:
+                 init=(), runs: int = BATCHED_RUNS, dtype=torch.float32) -> tuple:
     """One warm and ``runs`` timed ``minimize_batched`` of B instances of n
-    elements from ``batched_x0``, the counts reset before each; returns
+    elements from ``batched_x0`` (in ``dtype``), the counts reset before each; returns
     (state, the walls in seconds, launches, plain calls, host reads, loop
     iterations, the starts), the counts and state of the last run.
     ``path`` names the run's probe, epilogue and combine kernels, ``init``
     the kernels its init launches once."""
-    x0b = batched_x0(B, n)
+    x0b = batched_x0(B, n).to(dtype)
     fn = default_evaluate()
     minimize_batched(params, x0b, fn)
     torch.cuda.synchronize()
@@ -5291,8 +5351,9 @@ def batched_form(fn, with_gp: bool) -> dict:
     (``fn.last_form``, ``factory.batched_epilogue_grid``) and its compiled
     kernel's registers and spills."""
     f = fn.last_form
-    compiled = {"mma": fn.mma_compiled, "static": fn.compiled, "deep": fn.deep_compiled}[f.form]
-    ck = compiled[(torch.float32, torch.bfloat16, with_gp)]
+    compiled = {"mma": fn.mma_compiled, "mma_rows": fn.mma_rows_compiled, "static": fn.compiled,
+                "deep": fn.deep_compiled}[f.form]
+    ck = compiled[(*f.dtypes, with_gp)]
     return dict(kernel=f.kernel, form=f.form, programs_per_instance=f.programs,
                 tiles_per_program=f.tiles, tile=f.T, programs=f.total,
                 **{key: v for key, v in f.consts.items() if key != "m"}, **f.launch,
@@ -5458,7 +5519,7 @@ def _check_batched_deep_epilogues(k, a: dict, m: int, sfx: str, errs: dict, solo
 
 def batched_compiled() -> list:
     """Registers and spills of every compiled batched epilogue and fusion
-    (K4 b, K14 b, their tensor-core and deep forms, each with and without
+    (K4 b, K14 b, their tensor-core, row-block and deep forms, each with and without
     the . gp column, K15 b (with and without its fix form) and K16 b with M
     = m and M = 0); a form that spills fails the phase."""
     k = rosenbrock.value_and_grad.kernels
@@ -5466,7 +5527,7 @@ def batched_compiled() -> list:
     for form, fn in (("K4b", k.trial_pair_gram_batched),
                      ("K14b", k.owlqn_trial_pair_gram_batched)):
         for kind, compiled in (("", fn.compiled), (" mma", fn.mma_compiled),
-                               (" deep", fn.deep_compiled)):
+                               (" mma_rows", fn.mma_rows_compiled), (" deep", fn.deep_compiled)):
             for (vd, hd, gp), ck in sorted(compiled.items(), key=str):
                 forms.append(dict(form=form + (" gp" if gp else "") + kind,
                                   vectors=str(vd), history=str(hd), **_compiled_info(ck)))
@@ -6186,6 +6247,304 @@ def phase_batched_m80() -> dict:
         del st, x0b
         torch.cuda.empty_cache()
     return lc_all
+
+
+# ---------------------------------------------------------------------------
+# the batched row-block form: K4 b and K14 b at the FOLD_ROWS settings
+# ---------------------------------------------------------------------------
+
+#: the instances of the batched row-block checks per ``FOLD_ROWS`` setting
+#: (the timings and the paths take ``BATCH_B``): a check holds four copies
+#: of the rings (an f32 ring of 1024 x 80 x 2^14 is 10.7 GB, an f64 one
+#: 21.5 GB) and the plain version widens a bf16 ring to float32
+BATCHED_FOLD_CHECK_B = {"_f32_m80": 512, "_f64_m80": 256, "_m260": 512}
+#: chunks a program at which the row-block form's products (the . gp
+#: launches') are held to the float64 product of their own operands, and
+#: the normwise gap they must keep per vector dtype (the solo row-block
+#: form kept 4.3e-8-1.7e-7 with f32 vectors, 1.2e-16-2.1e-15 with f64)
+BATCHED_ROWS_CHUNKS = (2, 32, 64)
+BATCHED_ROWS_GAP = {torch.float32: 3e-7, torch.float64: 2e-15}
+#: the batched epilogues' table rows and their ``with_gp`` launches
+BATCHED_FOLD_EPILOGUES = ("K4b_trial_pair_gram_batched", "K14b_owlqn_trial_pair_gram_batched")
+
+
+class forced_chunks:
+    """Inside, a batched tensor-core launch on B instances sums ``chunks``
+    chunks a program (one program's worth of the batch-wide cap an
+    instance, at most ``chunks`` chunks each)."""
+
+    def __init__(self, B: int, chunks: int):
+        self.B, self.chunks = B, chunks
+
+    def __enter__(self):
+        self.saved = factory.EPILOGUE_PROGRAMS, factory.MMA_MAX_CHUNKS
+        factory.EPILOGUE_PROGRAMS, factory.MMA_MAX_CHUNKS = self.B, self.chunks
+
+    def __exit__(self, *exc):
+        factory.EPILOGUE_PROGRAMS, factory.MMA_MAX_CHUNKS = self.saved
+
+
+def _fold_epilogues(k, a: dict, m: int) -> dict:
+    """K4 b's and K14 b's (wrapper, plain version, call(fn, vectors and
+    rings t, live, with_gp) in place on t, the solo launch on instance b
+    with_gp on fresh rings) on the inputs ``a`` at ring depth m: end = m -
+    3, K14 b on a window whose ends fall inside the kernels' chunks."""
+    n = a["xp"].shape[1]
+    lo, hi = windows(n)[1]
+    end = m - 3
+
+    def k4(fn, t, lv, gp):
+        return fn(t["xp"], a["d"], t["gp"], a["stp"], t["S"], t["Y"], end, lv, with_gp=gp)
+
+    def k14(fn, t, lv, gp):
+        return fn(t["xp"], a["d"], t["gp"], t["pg"], a["stp"], C_L1, lo, hi, t["S"], t["Y"],
+                  end, lv, with_gp=gp)
+
+    def k4_solo(b, gp, S, Y):
+        x, _, g, *_, SP, YP = k.trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b],
+                                                float(a["stp"][b]), S, Y, end, with_gp=gp)
+        return (x, g, None), (SP, YP)
+
+    def k14_solo(b, gp, S, Y):
+        x, g, pg, SP, YP = k.owlqn_trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b],
+                                                   a["pg"][b], float(a["stp"][b]), C_L1, lo, hi,
+                                                   S, Y, end, with_gp=gp)[:5]
+        return (x, g, pg), (SP, YP)
+
+    return {
+        "K4b_trial_pair_gram_batched": (k.trial_pair_gram_batched,
+                                        k.trial_pair_gram_batched_ref, k4, k4_solo),
+        "K14b_owlqn_trial_pair_gram_batched": (k.owlqn_trial_pair_gram_batched,
+                                               k.owlqn_trial_pair_gram_batched_ref, k14,
+                                               k14_solo),
+    }
+
+
+def _check_batched_rows(k, a: dict, m: int, sfx: str, errs: dict, solo: dict, gaps: list,
+                        forms: dict) -> None:
+    """K4 b and K14 b, each with and without the . gp column, at ring depth
+    m in the row-block form (``.mma_rows_launches``) against their plain
+    versions (vectors and sums normwise, the changed flags, ring row
+    ``end`` bit for bit the rounding of the kernel's own pair, the other
+    rows kept, frozen instances untouched), against the deep fold form
+    (which ran these depths before the row-block form) on the same inputs (x, g, pg, the rings and the flags
+    bit for bit, the sums at the sum tolerance), the . gp launch's columns
+    0-2 and other outputs against the 3-column launch's (bit for bit), on
+    three instances against the solo K4 and K14 (x, g, pg and the rings
+    bit for bit; the products' normwise gap printed), and the . gp
+    launches' products against the float64 product of their own operands
+    at ``BATCHED_ROWS_CHUNKS`` chunks a program (``BATCHED_ROWS_GAP``)."""
+    vd, hd = a["xp"].dtype, a["S"].dtype
+    tv, ts = TOL[(vd, "vec")], TOL[(vd, "sum")]
+    B = a["xp"].shape[0]
+    live, frozen = a["live"], ~a["live"]
+    end = m - 3
+    names = ("xp", "gp", "pg", "S", "Y")
+    for base, (kern, ref, call, one) in _fold_epilogues(k, a, m).items():
+        ow = base.startswith("K14b")
+        vecs = ("xp", "gp", "pg") if ow else ("xp", "gp")
+        three = None
+        for gp in (False, True):
+            name = base + ("_gp" if gp else "") + sfx
+            tk = {n_: a[n_].clone() for n_ in names}
+            rows = kern.mma_rows_launches
+            outk = call(kern, tk, live, gp)
+            if kern.last_form.form != "mma_rows" or kern.mma_rows_launches != rows + 1:
+                raise AssertionError(f"{name}: the {kern.last_form.form} form ran")
+            forms[name] = batched_form(kern, gp)
+            tq = {n_: a[n_].clone() for n_ in names}
+            outq = call(ref, tq, live, gp)
+            e = [check(f"{name} {n_}", tk[n_][live], tq[n_][live], tv) for n_ in vecs]
+            e += [check(f"{name} sum{i}", u[live], v[live], ts)
+                  for i, (u, v) in enumerate(zip(outk, outq)) if u.dtype != torch.bool]
+            if not all(torch.equal(u[live], v[live])
+                       for u, v in zip(outk, outq) if u.dtype == torch.bool):
+                raise AssertionError(f"{name}: changed differs from the plain version")
+            errs[name] = tuple(e)
+            del tq, outq
+            torch.cuda.empty_cache()
+            s_new = ((tk["xp"] - a["xp"]) if ow else a["stp"][:, None] * a["d"]).to(hd)
+            y_new = (tk["gp"] - a["gp"]).to(hd)
+            keep = [j for j in range(m) if j != end]
+            if not (same_bits(tk["S"][live][:, end], s_new[live])
+                    and same_bits(tk["Y"][live][:, end], y_new[live])
+                    and same_bits(tk["S"][:, keep], a["S"][:, keep])
+                    and same_bits(tk["Y"][:, keep], a["Y"][:, keep])):
+                raise AssertionError(f"{name}: the ring rows are not the rounded pair and the "
+                                     f"kept rows")
+            if not all(same_bits(tk[n_][frozen], a[n_][frozen]) for n_ in names):
+                raise AssertionError(f"{name} wrote a frozen instance")
+            del s_new, y_new
+            # the deep fold form on the same inputs
+            tf = {n_: a[n_].clone() for n_ in names}
+            with static_forms_up_to(M):
+                outf = call(kern, tf, live, gp)
+            if kern.last_form.form != "deep":
+                raise AssertionError(f"{name}: the {kern.last_form.form} form ran as the fold")
+            bits = {n_: same_bits(tk[n_], tf[n_]) for n_ in names}
+            bits["changed"] = all(torch.equal(u[live], v[live]) for u, v in zip(outk, outf)
+                                  if u.dtype == torch.bool)
+            if not all(bits.values()):
+                raise AssertionError(f"{name} against the deep fold form: {bits}")
+            for i, (u, v) in enumerate(zip(outk, outf)):
+                if u.dtype != torch.bool:
+                    check(f"{name} sum{i} vs the fold form", u[live], v[live], ts)
+            del tf, outf
+            torch.cuda.empty_cache()
+            if gp:
+                t3, o3 = three
+                if not (all(same_bits(t3[n_], tk[n_]) for n_ in names) and all(
+                        same_bits((u[..., :3] if u.ndim == 3 else u)[live], v[live])
+                        for u, v in zip(outk, o3))):
+                    raise AssertionError(f"{name}: columns 0-2 or another output differ from "
+                                         f"the 3-column launch's")
+            SP, YP = outk[3:5] if ow else outk[4:6]
+            for b in _generic_solo(B):
+                Sb, Yb = a["S"][b].clone(), a["Y"][b].clone()
+                (x1, g1, pg1), (SP1, YP1) = one(b, gp, Sb, Yb)
+                bits = dict(x=same_bits(tk["xp"][b], x1), g=same_bits(tk["gp"][b], g1),
+                            pg=pg1 is None or same_bits(tk["pg"][b], pg1),
+                            S=same_bits(tk["S"][b], Sb), Y=same_bits(tk["Y"][b], Yb))
+                if not all(bits.values()):
+                    raise AssertionError(f"{name} instance {b} differs from the solo kernel: "
+                                         f"{bits}")
+                solo[f"{name}_{b}"] = dict(bits, products_normwise=max(err(SP[b], SP1),
+                                                                       err(YP[b], YP1)))
+                del Sb, Yb, SP1, YP1
+            del SP, YP
+            if gp:
+                del three, t3, o3
+            else:
+                three = (tk, outk)
+                continue
+            del tk, outk
+            torch.cuda.empty_cache()
+            # the products against the float64 product at chunks a program
+            for chunks in BATCHED_ROWS_CHUNKS:
+                t = {n_: a[n_].clone() for n_ in names}
+                with forced_chunks(B, chunks):
+                    out = call(kern, t, live, True)
+                if kern.last_form.tiles != chunks:
+                    raise AssertionError(f"{name}: {kern.last_form.tiles} chunks a program")
+                SP, YP = out[3:5] if ow else out[4:6]
+                row = dict(kernel=name, m=m, B=B, chunks_per_program=chunks,
+                           programs_per_instance=kern.last_form.programs,
+                           tol=BATCHED_ROWS_GAP[vd], sp_gap=0.0, yp_gap=0.0)
+                for b in _generic_solo(B):
+                    g = t["gp"][b]
+                    s = t["xp"][b] - a["xp"][b] if ow else a["stp"][b] * a["d"][b]
+                    d0 = -t["pg"][b] if ow else -g
+                    want = products_f64(t["S"][b], t["Y"][b], s, g - a["gp"][b], d0, a["gp"][b],
+                                        end)
+                    tag = f"{name} chunks={chunks} instance {b}"
+                    row["sp_gap"] = max(row["sp_gap"], check(f"{tag} SP vs float64", SP[b],
+                                                             want[0], BATCHED_ROWS_GAP[vd])[1])
+                    row["yp_gap"] = max(row["yp_gap"], check(f"{tag} YP vs float64", YP[b],
+                                                             want[1], BATCHED_ROWS_GAP[vd])[1])
+                    del want
+                gaps.append(row)
+                del t, out, SP, YP
+                torch.cuda.empty_cache()
+
+
+def phase_batched_fold_kernels() -> dict:
+    """K4 b and K14 b (each with and without the . gp column) in the
+    tensor-core row-block form at each ``FOLD_ROWS`` setting (f32 and f64
+    rings at m = 80, a bf16 ring at m = 260), which the deep fold form took
+    until the row-block form did: checked on ``BATCHED_FOLD_CHECK_B`` instances of 2^14
+    (``_check_batched_rows``; a third of the instances frozen), then at
+    1024 x 2^14 with every instance live each launch timed beside its plain
+    version and in turns against the deep fold form (fold, row-block,
+    row-block, fold), with its bound; the compiled forms' registers
+    (``batched_compiled``: a spill fails).  Returns the table's errs,
+    times, bounds and timers (the 3-column launches' rows; the . gp
+    launches' in the phase's line)."""
+    k = rosenbrock.value_and_grad.kernels
+    errs, solo, gaps, forms = {}, {}, [], {}
+    times, timed_by, bounds, turns = {}, {}, {}, {}
+    for sfx, (vd, hd, m) in FOLD_ROWS.items():
+        a = batched_generic_inputs(SEED + 26 + m, vd, hd, m, BATCHED_FOLD_CHECK_B[sfx])
+        _check_batched_rows(k, a, m, sfx, errs, solo, gaps, forms)
+        del a
+        torch.cuda.empty_cache()
+        a = batched_generic_inputs(SEED + 27 + m, vd, hd, m, BATCH_B)
+        every = torch.ones_like(a["live"])
+        t = {n_: a[n_] for n_ in ("xp", "gp", "pg", "S", "Y")}
+        for base, (kern, ref, call, _) in _fold_epilogues(k, a, m).items():
+            for gp in (False, True):
+                name = base + ("_gp" if gp else "") + sfx
+                rows = lambda kern=kern, call=call, gp=gp: call(kern, t, every, gp)
+                plain = lambda ref=ref, call=call, gp=gp: call(ref, t, every, gp)
+
+                def fold(kern=kern, call=call, gp=gp):
+                    with static_forms_up_to(M):
+                        return call(kern, t, every, gp)
+
+                k_ms, p_ms, k_by, p_by = kernel_vs_plain(rows, plain, 5)
+                f1, r1, r2, f2 = (device_time(f, 5) for f in (fold, rows, rows, fold))
+                times[name], timed_by[name] = (k_ms, p_ms), (k_by, p_by)
+                bounds[name] = bound(name, BATCH_B * BATCH_N, vd.itemsize, hd.itemsize, m)
+                turns[name] = dict(fold_ms=[f1, f2], rows_ms=[r1, r2])
+        del a, t, every
+        torch.cuda.empty_cache()
+    compiled = batched_compiled()
+    errs = {name: (max(e[0] for e in v), max(e[1] for e in v)) for name, v in errs.items()}
+    emit(phase="batched_fold_kernels", B=BATCH_B, n=BATCH_N, checked_B=BATCHED_FOLD_CHECK_B,
+         settings={sfx: dict(vectors=str(vd)[6:], rings=str(hd)[6:], m=m)
+                   for sfx, (vd, hd, m) in FOLD_ROWS.items()},
+         max_abs_err={n_: e[0] for n_, e in errs.items()},
+         max_normwise_err={n_: e[1] for n_, e in errs.items()},
+         tol=dict(vec={str(v)[6:]: TOL[(v, "vec")] for v in (torch.float32, torch.float64)},
+                  sum={str(v)[6:]: TOL[(v, "sum")] for v in (torch.float32, torch.float64)},
+                  products_vs_float64={str(v)[6:]: g for v, g in BATCHED_ROWS_GAP.items()},
+                  ring_rows="bit-exact", frozen="bit-exact",
+                  vs_fold_form_and_solo_x_g_pg_rings="bit-exact"),
+         vs_solo=solo, products_vs_float64=gaps, compiled=len(compiled), forms=forms,
+         device_ms={n_: {"kernel": v[0], "plain": v[1], "bound": bounds[n_][0],
+                         "share_of_bound": bounds[n_][0] / v[0], **turns[n_]}
+                    for n_, v in times.items()},
+         timed_by={n_: {"kernel": v[0], "plain": v[1]} for n_, v in timed_by.items()})
+    return {"errs": errs, "times": times, "bounds": bounds, "timed_by": timed_by}
+
+
+#: the iterations of each batched fold path (``phase_batched_fold_paths``)
+BATCHED_FOLD_ITERS = 11
+
+
+def phase_batched_fold_paths() -> dict:
+    """``minimize_batched`` at each ``FOLD_ROWS`` setting (f32 vectors over
+    an f32 ring at m = 80, f64 over f64 at m = 80, f32 over a bf16 ring at
+    m = 260), 1024 x 2^14 from ``batched_x0`` in the vectors' dtype, the
+    batched deep phase's plain and OWL-QN settings (uncapped, epsilon 0),
+    10 iterations (one warm and one timed run each): K4 b (K14 b under
+    OWL-QN) per iteration, every launch in the row-block form
+    (``.mma_rows_launches``), K15 b's (K16 b's) M = 0 form, the probes,
+    nothing else and no plain version, every fx finite; then instances 0-7
+    solo against the batch after 8 iterations (``_vs_solo_8``).  Returns
+    each setting's row-block launches under the table's rows."""
+    k = rosenbrock.value_and_grad.kernels
+    lc_rows = {}
+    for sfx, (vd, hd, m) in FOLD_ROWS.items():
+        for label, (params, path, init) in BATCHED_DEEP_PARAMS.items():
+            params = params.replace(m=m, history_dtype=str(hd)[6:],
+                                    max_iterations=BATCHED_FOLD_ITERS)
+            fn = k.owlqn_trial_pair_gram_batched if label == "owlqn" else \
+                k.trial_pair_gram_batched
+            row = BATCHED_FOLD_EPILOGUES[label == "owlqn"] + sfx
+            st, walls, lc, pc, reads, iters, x0b = _batched_run(
+                f"batched fold {label}{sfx}", params, BATCH_B, BATCH_N, path, init, runs=1,
+                dtype=vd)
+            if fn.mma_rows_launches != lc[path[1]] or fn.last_form.form != "mma_rows":
+                raise AssertionError(f"batched fold {label}{sfx}: {fn.mma_rows_launches} "
+                                     f"row-block launches of {lc[path[1]]} epilogues")
+            lc_rows[row] = fn.mma_rows_launches
+            _batched_report(f"batched_fold_{label}{sfx}", st, walls, lc, reads, iters, path,
+                            m=m, vectors=str(vd)[6:], rings=str(hd)[6:], plain_calls=pc,
+                            row_block_launches=fn.mma_rows_launches,
+                            instances=_vs_solo_8(f"batched fold {label}{sfx}", params, x0b))
+            del st, x0b
+            torch.cuda.empty_cache()
+    return lc_rows
 
 
 # ---------------------------------------------------------------------------
@@ -8510,6 +8869,7 @@ def main() -> None:
     lc_batched_ow, batched_ow_out = run(phase_batched_owlqn_main_path, batched_out)
     batched_fu = run(phase_batched_fusion_kernels)
     run(phase_batched_mma_rules)
+    batched_fold = run(phase_batched_fold_kernels)
     lc_bu, bu_out = run(phase_batched_uncapped_main_path, batched_out)
     lc_bowu, bowu_out = run(phase_batched_owlqn_uncapped_main_path, batched_ow_out)
     lc_bdeep = run(phase_batched_deep)
@@ -8518,6 +8878,7 @@ def main() -> None:
         "capped": batched_out, "owlqn_capped": batched_ow_out,
         "uncapped": bu_out["literal"]["fused"], "owlqn_uncapped": bowu_out["fused"]})
     lc_b80 = run(phase_batched_m80)
+    lc_bfold = run(phase_batched_fold_paths)
     batched_gen = run(phase_batched_generic_kernels)
     run(phase_batched_generic_main_path)
     lc_bgow = run(phase_batched_generic_owlqn_main_path)
@@ -8541,6 +8902,7 @@ def main() -> None:
         k[key].update(batched[key])
         k[key].update(batched_ow[key])
         k[key].update(batched_fu[key])
+        k[key].update(batched_fold[key])
         k[key].update(batched_dm[key])
         k[key].update(batched_gen[key])
         k[key].update(batched_tr[key])
@@ -8576,7 +8938,7 @@ def main() -> None:
           **{name: lc_batched_ow[name] for name in BATCHED_OWLQN_PATH + BATCHED_OWLQN_INIT},
           "K15b_combine_probe_batched": lc_bu["K15b_combine_probe_batched"],
           "K16b_combine_ow_probe_batched": lc_bowu["K16b_combine_ow_probe_batched"],
-          **lc_bdeep,
+          **lc_bdeep, **lc_bfold,
           # the damped batched forms from the damped main paths (m = 6) and
           # the m = 80 runs, K3 b and K13 b at m = 80 from the capped ones
           **{name: lc_bd[label][name] for label, name in (

@@ -288,6 +288,15 @@ so that each lane's fx is K2 b's (K8 b's) at that step bit for bit.
   Bytes still bound it: the f32 ring's split costs ~6 ALU operations and
   three MMAs per ring element, the f64 dot (Hopper's FP64 MMA, whose n8
   shape the [K, 8] operand takes) 8 columns of which 4 are the vectors.
+  K4 b and K14 b take the row-block form at the same depths, on the
+  batch-wide grid (``trial_pair_gram_mma_rows_batched_kernel``,
+  ``owlqn_trial_pair_gram_mma_rows_batched_kernel``): the one-pass batched
+  kernels' instance offsets, step and live mask, and the same passes
+  (``_k4_rows_pass``, ``_k14_rows_pass``) with the live flag masking
+  every load and store, the objective's partial off (``FX``) and no shard
+  offset, so an instance's x, g, pg and ring row stay the solo launch's
+  bit for bit; the solo kernels pass True and the constant flags, which
+  fold, so their code is as it was.
 
 On a mesh each kernel runs on one rank's shard of the vectors: ``off``,
 the shard's global offset, is added to the local offsets only where the
@@ -2022,14 +2031,16 @@ def owlqn_trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_p
 
 
 @triton.jit
-def _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, n, m,
-                  end, j0, stp, pid, tiles, with_gp, off, ex, body: tl.constexpr,
+def _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, live, n,
+                  m, end, j0, stp, pid, tiles, with_gp, off, ex, body: tl.constexpr,
                   RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr, SHARD: tl.constexpr,
-                  LAST: tl.constexpr):
+                  LAST: tl.constexpr, FX: tl.constexpr):
     # one pass of the row-block K4 over the program's chunks with ring rows
     # j0 .. j0 + RP - 1 as the dot's operand: their products stored, and on
-    # the LAST pass the point (x, g), the objective's partial per chunk; the
-    # scalar sums returned (the last pass's are stored)
+    # the LAST pass the point (x, g) and, with FX, the objective's partial
+    # per chunk; the scalar sums returned (the last pass's are stored).
+    # ``live`` masks every load and store of a frozen instance (the solo
+    # kernels pass True, the batched one the instance's flag)
     dt = xp_ptr.dtype.element_ty
     holds_end = (end >= j0) & (end < j0 + RP)
     a_gd = tl.zeros([K], dt)
@@ -2056,12 +2067,13 @@ def _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, par
         offs = _chunk(chunk, K)
         fe, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y = \
             _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs,
-                      _gidx(offs, off, SHARD), offs < n, n, m, end, j0, LAST, holds_end, stp,
-                      ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg,
-                      acc_s, acc_y, body, RP, K, W, True)
+                      _gidx(offs, off, SHARD), (offs < n) & live, n, m, end, j0, LAST,
+                      holds_end, stp, ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy,
+                      e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True)
         if LAST:
-            tl.store(fx_ptr + chunk, tl.sum(fe, axis=0))
-    _store_gram_mma(part + 4, gpart, True, j0, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
+            if FX:
+                tl.store(fx_ptr + chunk, tl.sum(fe, axis=0))
+    _store_gram_mma(part + 4, gpart, live, j0, m, end, with_gp, acc_s, acc_y, e_sy, e_ss, e_sd,
                     e_sg, e_yy, e_yd, e_yg, RP)
     return a_gd, a_gg, a_xx, a_ch
 
@@ -2091,13 +2103,13 @@ def trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr
     part = part_ptr + pid * (4 + 6 * m)
     gpart = gpart_ptr + pid * (2 * m)
     for p in range(tl.cdiv(m - RT, RP)):
-        _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, n,
-                      m, end, p * RP, stp, pid, tiles, with_gp, off, ex, body, RP, K, W, SHARD,
-                      False)
+        _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart,
+                      True, n, m, end, p * RP, stp, pid, tiles, with_gp, off, ex, body, RP, K, W,
+                      SHARD, False, True)
     a_gd, a_gg, a_xx, a_ch = _k4_rows_pass(
-        xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, n, m, end,
+        xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, True, n, m, end,
         tl.cdiv(m - RT, RP) * RP, stp, pid, tiles, with_gp, off, ex, body, RT, K, W, SHARD,
-        True)
+        True, True)
     tl.store(part + 0, tl.sum(a_gd, axis=0))
     tl.store(part + 1, tl.sum(a_gg, axis=0))
     tl.store(part + 2, tl.sum(a_xx, axis=0))
@@ -2106,7 +2118,7 @@ def trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr
 
 @triton.jit
 def _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part,
-                   gpart, n, m, lo, hi, end, j0, stp, c, pid, tiles, with_gp, off, ex,
+                   gpart, live, n, m, lo, hi, end, j0, stp, c, pid, tiles, with_gp, off, ex,
                    body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
                    SHARD: tl.constexpr, LAST: tl.constexpr):
     # ``_k4_rows_pass`` for K14: x, g and pg stored on the LAST pass
@@ -2136,11 +2148,11 @@ def _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, 
         offs = _chunk(pid * tiles + t, K)
         (a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
          acc_y) = _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr,
-                             offs, _gidx(offs, off, SHARD), offs < n, n, m, lo, hi, end, j0,
-                             LAST, holds_end, stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy,
-                             e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W,
-                             True)
-    _store_gram_mma(part + 3, gpart + 2, True, j0, m, end, with_gp, acc_s, acc_y, e_sy, e_ss,
+                             offs, _gidx(offs, off, SHARD), (offs < n) & live, n, m, lo, hi,
+                             end, j0, LAST, holds_end, stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg,
+                             e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K,
+                             W, True)
+    _store_gram_mma(part + 3, gpart + 2, live, j0, m, end, with_gp, acc_s, acc_y, e_sy, e_ss,
                     e_sd, e_sg, e_yy, e_yd, e_yg, RP)
     return a_xx, a_pp, a_ch, a_gg, a_gpg
 
@@ -2163,14 +2175,100 @@ def owlqn_trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr
     gpart = gpart_ptr + pid * (2 + 2 * m)
     for p in range(tl.cdiv(m - RT, RP)):
         _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part,
-                       gpart, n, m, lo, hi, end, p * RP, stp, c, pid, tiles, with_gp, off, ex,
-                       body, RP, K, W, SHARD, False)
+                       gpart, True, n, m, lo, hi, end, p * RP, stp, c, pid, tiles, with_gp, off,
+                       ex, body, RP, K, W, SHARD, False)
     a_xx, a_pp, a_ch, a_gg, a_gpg = _k14_rows_pass(
-        xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part, gpart, n, m,
-        lo, hi, end, tl.cdiv(m - RT, RP) * RP, stp, c, pid, tiles, with_gp, off, ex, body, RT, K,
-        W, SHARD, True)
+        xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part, gpart, True, n,
+        m, lo, hi, end, tl.cdiv(m - RT, RP) * RP, stp, c, pid, tiles, with_gp, off, ex, body, RT,
+        K, W, SHARD, True)
     tl.store(part + 0, tl.sum(a_xx, axis=0))
     tl.store(part + 1, tl.sum(a_pp, axis=0))
     tl.store(part + 2, tl.sum(a_ch, axis=0))
     tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=with_gp != 0)
     tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=with_gp != 0)
+
+
+@triton.jit(do_not_specialize=["m", "end", "tiles", "with_gp"])
+def trial_pair_gram_mma_rows_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr,
+                                            Y_ptr, part_ptr, gpart_ptr, n, end, tiles, with_gp,
+                                            ex, m, body: tl.constexpr, RP: tl.constexpr,
+                                            RT: tl.constexpr, K: tl.constexpr,
+                                            W: tl.constexpr):
+    # K4 b in the row-block form (``factory.batched_epilogue_grid``'s
+    # "mma_rows": f32 and f64 rings from ``factory.rows_min_m`` rows, bf16
+    # rings above 256; bytes bound it, as the solo form): program (pid, b)
+    # takes chunks pid*tiles .. pid*tiles + tiles - 1 of instance b, laid
+    # out as ``trial_pair_gram_mma_batched_kernel`` (the instance's
+    # offsets, its step, its live flag masking every load and store), and
+    # passes over them once per block of ring rows as
+    # ``trial_pair_gram_mma_rows_kernel`` does, through the same
+    # ``_k4_rows_pass``: no objective partial (the runner takes fx from the
+    # search), the body at the instance's own indices.  x and g go over xp
+    # and gp on the last pass alone; every earlier pass reads the program's
+    # chunks first, and no program reads another's
+    pid = tl.program_id(0)
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    xp_ptr += row
+    d_ptr += row
+    gp_ptr += row
+    S_ptr += row * m
+    Y_ptr += row * m
+    stp = tl.load(stp_ptr + b)
+    prog = b.to(tl.int64) * tl.num_programs(0) + pid
+    part = part_ptr + prog * (4 + 6 * m)
+    gpart = gpart_ptr + prog * (2 * m)
+    for p in range(tl.cdiv(m - RT, RP)):
+        _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, xp_ptr, gp_ptr, S_ptr, Y_ptr, part_ptr, part, gpart,
+                      live, n, m, end, p * RP, stp, pid, tiles, with_gp, 0, ex, body, RP, K, W,
+                      False, False, False)
+    a_gd, a_gg, a_xx, a_ch = _k4_rows_pass(
+        xp_ptr, d_ptr, gp_ptr, xp_ptr, gp_ptr, S_ptr, Y_ptr, part_ptr, part, gpart, live, n, m,
+        end, tl.cdiv(m - RT, RP) * RP, stp, pid, tiles, with_gp, 0, ex, body, RT, K, W, False,
+        True, False)
+    tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
+    tl.store(part + 1, tl.sum(a_gg, axis=0), mask=live)
+    tl.store(part + 2, tl.sum(a_xx, axis=0), mask=live)
+    tl.store(part + 3, tl.sum(a_ch, axis=0), mask=live)
+
+
+@triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles", "with_gp"])
+def owlqn_trial_pair_gram_mma_rows_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
+                                                  live_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n,
+                                                  lo, hi, end, tiles, with_gp, ex, m,
+                                                  body: tl.constexpr, RP: tl.constexpr,
+                                                  RT: tl.constexpr, K: tl.constexpr,
+                                                  W: tl.constexpr):
+    # K14 b laid out as ``trial_pair_gram_mma_rows_batched_kernel``, through
+    # ``_k14_rows_pass``: x, g and pg over xp, gp and pg_old on the last
+    # pass alone; gp.gp and gp.pg summed in both launches and stored with
+    # with_gp
+    pid = tl.program_id(0)
+    b = tl.program_id(1)
+    live = tl.load(live_ptr + b) != 0
+    row = b.to(tl.int64) * n
+    xp_ptr += row
+    d_ptr += row
+    gp_ptr += row
+    pg_ptr += row
+    S_ptr += row * m
+    Y_ptr += row * m
+    stp = tl.load(stp_ptr + b)
+    c = tl.load(c_ptr)
+    prog = b.to(tl.int64) * tl.num_programs(0) + pid
+    part = part_ptr + prog * (3 + 6 * m)
+    gpart = gpart_ptr + prog * (2 + 2 * m)
+    for p in range(tl.cdiv(m - RT, RP)):
+        _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, xp_ptr, gp_ptr, pg_ptr, S_ptr, Y_ptr, part,
+                       gpart, live, n, m, lo, hi, end, p * RP, stp, c, pid, tiles, with_gp, 0,
+                       ex, body, RP, K, W, False, False)
+    a_xx, a_pp, a_ch, a_gg, a_gpg = _k14_rows_pass(
+        xp_ptr, d_ptr, gp_ptr, pg_ptr, xp_ptr, gp_ptr, pg_ptr, S_ptr, Y_ptr, part, gpart, live,
+        n, m, lo, hi, end, tl.cdiv(m - RT, RP) * RP, stp, c, pid, tiles, with_gp, 0, ex, body,
+        RT, K, W, False, True)
+    tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
+    tl.store(part + 1, tl.sum(a_pp, axis=0), mask=live)
+    tl.store(part + 2, tl.sum(a_ch, axis=0), mask=live)
+    tl.store(gpart + 0, tl.sum(a_gg, axis=0), mask=live & (with_gp != 0))
+    tl.store(gpart + 1, tl.sum(a_gpg, axis=0), mask=live & (with_gp != 0))

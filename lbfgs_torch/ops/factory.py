@@ -55,10 +55,12 @@ protocol the solver looks for:
     K16 b, each instance's combine and its next first probe at its own
     entry step.  At every depth: above ``MAX_M`` ring rows K15 b and K16 b
     take their solo kernels' deep forms; K4 b and K14 b take the form and
-    the batch-wide launch of ``batched_epilogue_grid`` (with f32 vectors
-    over a bf16 ring their Gram products on the tensor cores from
-    ``MMA_MIN_M`` to ``MMA_MAX_M`` rows), as K4 and K14 take theirs on one
-    instance (``solo_epilogue_grid``).
+    the batch-wide launch of ``batched_epilogue_grid`` (their Gram products
+    on the tensor cores with f32 vectors over a bf16 ring from
+    ``MMA_MIN_M`` to ``MMA_MAX_M`` rows, and in the row-block form over f32
+    and f64 rings from ``rows_min_m`` rows and bf16 rings above
+    ``MMA_MAX_M``), as K4 and K14 take theirs on one instance
+    (``solo_epilogue_grid``).
     ``__lbfgs_trial_batched__`` / ``__lbfgs_owlqn_trial_batched__``: K1 b
     and K7 b, K1 and K7 over a batch, which materialize the accepted
     points where no batched epilogue runs (the scan two-loop, a float16
@@ -190,9 +192,9 @@ MAX_M = 64
 #: the deep form, at m = 7 all four are spill-free and 2-17% ahead.  A
 #: deeper history takes the deep form (``DEEP_GROUP`` rows a pass), one
 #: compile for every m.  With f32 vectors over a bf16 ring the tensor-core
-#: form takes ``MMA_MIN_M`` to ``MMA_MAX_M`` rows first; the solo kernels
-#: take the row-block form from ``MMA_ROWS_MIN_M`` rows (the deep form
-#: keeps an n off a multiple of ``MMA_ALIGN`` and the batched kernels)
+#: form takes ``MMA_MIN_M`` to ``MMA_MAX_M`` rows first; the solo and
+#: batched kernels take the row-block form from ``MMA_ROWS_MIN_M`` rows
+#: (the deep form keeps an n off a multiple of ``MMA_ALIGN``)
 EPILOGUE_MAX_M = {
     (torch.float32, torch.bfloat16): 8,
     (torch.float32, torch.float32): 8,
@@ -239,43 +241,60 @@ MMA_EPILOGUE = {
 MMA_MIN_M, MMA_MAX_M = 9, max(MMA_EPILOGUE)
 #: the one dtype pair whose ring values are exact as a bf16 operand
 MMA_DTYPES = (torch.float32, torch.bfloat16)
-#: the solo epilogues' tensor-core form over any dtype pair and any depth
-#: (``"mma_rows"``: ``trial_pair_gram_mma_rows_kernel``,
-#: ``owlqn_trial_pair_gram_mma_rows_kernel``): the chunks of the form above,
-#: passed over once per block of at most ``MMA_ROWS_RP[pair]`` ring rows
-#: (one pass up to that many rows; the last block ``rows_tail`` rows), each
-#: block's rows one ``tl.dot`` operand: a bf16 ring as it is, an f32 ring
-#: in three bf16 parts (as the vectors are split: exact, where one bf16
-#: part is not), an f64 ring in float64 dots (Hopper's FP64 MMA); the sums
-#: in the vectors' dtype.  It takes f32 and f64 rings from
-#: ``MMA_ROWS_MIN_M[pair]`` rows and bf16 rings above ``MMA_MAX_M`` (the
-#: batched forms keep their fold forms there).  The launch per (pair,
-#: RP), RP the block's rows (m rounded up to a power of two, at least 16,
-#: at most ``MMA_ROWS_RP``): the fastest launch that spills nothing in
-#: ``tools/tune_batched_epilogues.py --solo --rows``'s sweep (blocks of
-#: 16-256 rows, K 16-128, 4 or 8 warps, 1-3 stages; K4 ·gp and K14 ·gp at
-#: n = 2^20, f32 and f64 rings at m = 9-200, bf16 at 260) on an NVIDIA
-#: H100 80GB HBM3 at its 700 W limit.  Blocks of 128 bf16 rows ran 260
-#: rows (K4 ·gp) in 0.483 ms against 0.557 in blocks of 256; f32 rings in
-#: blocks of 64 (m = 80: K4 ·gp 0.3381 ms, K14 ·gp 0.3398, against 0.3350
-#: and 0.3776 in blocks of 128; at 200 and 260 rows blocks of 64 lead
-#: both), where the f32 tile's split keeps every launch at 253-255
-#: registers; f64 rings in blocks of 128 (m = 80: K4 ·gp 0.5114 ms, K14
-#: ·gp 0.5143, against 0.5360 and 0.5407 in blocks of 64), their [RP, 8]
-#: sums in the FP64 MMA's n8 shape (with [RP, 16] sums the fastest f64
-#: launch that spilled nothing ran m = 80 in 0.7988 and 0.9535 ms)
+#: the epilogues' tensor-core form over any dtype pair and any depth, solo
+#: and batched (``"mma_rows"``: ``trial_pair_gram_mma_rows_kernel``,
+#: ``owlqn_trial_pair_gram_mma_rows_kernel`` and their ``_batched``
+#: forms): the chunks of the form above, passed over once per block of at
+#: most ``MMA_ROWS_RP[pair]`` ring rows (one pass up to that many rows; the
+#: last block ``rows_tail`` rows), each block's rows one ``tl.dot``
+#: operand: a bf16 ring as it is, an f32 ring in three bf16 parts (as the
+#: vectors are split: exact, where one bf16 part is not), an f64 ring in
+#: float64 dots (Hopper's FP64 MMA); the sums in the vectors' dtype.  It
+#: takes f32 and f64 rings from ``rows_min_m`` rows and bf16 rings above
+#: ``MMA_MAX_M``.  The launch per (pair, RP), RP the block's rows (m
+#: rounded up to a power of two, at least 16, at most ``MMA_ROWS_RP``):
+#: the fastest launch that spills nothing in ``tools/tune_batched_epilogues.py
+#: --solo --rows``'s sweep (blocks of 16-256 rows, K 16-128, 4 or 8 warps,
+#: 1-3 stages; K4 ·gp and K14 ·gp at n = 2^20, f32 and f64 rings at m =
+#: 9-200, bf16 at 260) on an NVIDIA H100 80GB HBM3 at its 700 W limit.
+#: Blocks of 128 bf16 rows ran 260 rows (K4 ·gp) in 0.483 ms against 0.557
+#: in blocks of 256; f32 rings in blocks of 64 (m = 80: K4 ·gp 0.3381 ms,
+#: K14 ·gp 0.3398, against 0.3350 and 0.3776 in blocks of 128; at 200 and
+#: 260 rows blocks of 64 lead both), where the f32 tile's split keeps every
+#: launch at 253-255 registers; f64 rings in blocks of 128 (m = 80: K4 ·gp
+#: 0.5114 ms, K14 ·gp 0.5143, against 0.5360 and 0.5407 in blocks of 64),
+#: their [RP, 8] sums in the FP64 MMA's n8 shape (with [RP, 16] sums the
+#: fastest f64 launch that spilled nothing ran m = 80 in 0.7988 and 0.9535
+#: ms).  The batched K4 b and K14 b take the same launches but where an
+#: entry names its own (``batched``; None: the batched form takes no block
+#: of that many rows), from ``tools/tune_batched_epilogues.py --rows
+#: --batched``'s sweep at 1024 x 2^14 (K 16-128, 4 or 8 warps, 2 or 3
+#: stages; K4 b ·gp and K14 b ·gp, f32 rings at m = 25, 32, 48, 80, f64 at
+#: 11, 16, 32, 80, bf16 at 260) on the same card.  There the solo launches
+#: of blocks of 16 and 64 f64 rows, 64 f32 rows and 128 bf16 rows are the
+#: fastest that spill nothing on the paths' binaries (f64 m = 80 in blocks
+#: of 64: 7.73 / 7.90 ms; f32 m = 80: 4.62 / 4.84; bf16 m = 260: 6.40 /
+#: 6.56); the f64 launch of 128-row blocks spills (6 and 10 registers) and
+#: the fastest that does not ran 8.80 / 9.07 ms, so the batched form takes
+#: f64 rings in blocks of 64; the f32 launch of 32-row blocks spills 2 in
+#: K14 b, and K 32 with 3 stages ran m = 32 in 1.93 / 2.10 ms spill-free.
+#: The f32 launch of 64-row blocks spills 2-4 registers where one pass
+#: takes all the rows (m = 33-64: m = 48 2.50 / 2.58 ms, against 3.08 /
+#: 3.28 for the fastest that does not, which at m = 80 loses to the deep
+#: fold form)
 MMA_ROWS_EPILOGUE = {
     (torch.float32, torch.bfloat16): {128: dict(K=128, num_warps=8, num_stages=3)},
     (torch.float32, torch.float32): {
         16: dict(K=64, num_warps=4, num_stages=2),
-        32: dict(K=64, num_warps=4, num_stages=2),
+        32: dict(K=64, num_warps=4, num_stages=2,
+                 batched=dict(K=32, num_warps=4, num_stages=3)),
         64: dict(K=64, num_warps=4, num_stages=3),
     },
     (torch.float64, torch.float64): {
         16: dict(K=32, num_warps=4, num_stages=3),
         32: dict(K=32, num_warps=4, num_stages=3),
         64: dict(K=32, num_warps=4, num_stages=3),
-        128: dict(K=32, num_warps=8, num_stages=3),
+        128: dict(K=32, num_warps=8, num_stages=3, batched=None),
     },
 }
 MMA_ROWS_RP = {pair: max(cfgs) for pair, cfgs in MMA_ROWS_EPILOGUE.items()}
@@ -293,12 +312,51 @@ MMA_ROWS_RP = {pair: max(cfgs) for pair, cfgs in MMA_ROWS_EPILOGUE.items()}
 #: 11) the row-block form leads all four (K4 0.1549 against 0.1596, K4 ·gp
 #: 0.1586 against 0.1934, K14 0.1365 against 0.1812, K14 ·gp 0.1418
 #: against 0.2011), at 8 the deep form leads K4 (0.1138 against 0.1533)
-#: and K4 ·gp (0.1399 against 0.1592)
+#: and K4 ·gp (0.1399 against 0.1592).  The batched K4 b and K14 b take the
+#: same depths but where the pair has an entry of its own (``(vector,
+#: history, "batched")``), from ``tools/deep_crossover.py --batched
+#: --forms deep rows`` at 1024 x 2^14 on the same card.  Over f64 rings at
+#: 11 rows the row-block form leads all four launches (K14 b ·gp 2.06 ms
+#: against 2.24), at 10 it ties K14 b ·gp (2.055 against 2.049) and at 8
+#: trails it (2.04 against 1.60).  Over f32 rings the batch-wide grid gives
+#: the deep fold form 61-68% of its bound (its solo form 38-52%): at 25-28
+#: rows the row-block form leads K4 b, K14 b and K4 b ·gp by 10-18% and
+#: trails K14 b ·gp (2.08-2.11 ms against 1.93-1.98); at 31 and 32 it
+#: leads the three by 17-22% and ties K14 b ·gp within the turns' spread
+#: (2.03-2.12 against 2.05-2.19); from 33 rows (one block of 64) it leads
+#: the three by 6-13% and trails K14 b ·gp by up to 3% until the deep
+#: form's next pass (2.44-2.48 against 2.40-2.41 at 33; at 48 2.58
+#: against 3.13)
 MMA_ROWS_MIN_M = {
     (torch.float32, torch.bfloat16): MMA_MAX_M + 1,
     (torch.float32, torch.float32): 25,
     (torch.float64, torch.float64): 11,
+    (torch.float32, torch.float32, "batched"): 32,
 }
+
+
+def rows_min_m(pair: tuple, batched: bool = False) -> int:
+    """The depth from which K4 and K14 (with ``batched``, K4 b and K14 b)
+    take the row-block form over the dtype pair's ring
+    (``MMA_ROWS_MIN_M``)."""
+    if batched:
+        return MMA_ROWS_MIN_M.get((*pair, "batched"), MMA_ROWS_MIN_M[pair])
+    return MMA_ROWS_MIN_M[pair]
+
+
+def rows_launch(pair: tuple, m: int, batched: bool = False) -> tuple:
+    """(RP, launch) of the row-block form at m ring rows: RP is m rounded up
+    to a power of two, at least 16, at most the pair's largest block
+    (``MMA_ROWS_RP``; for the batched kernels the largest whose entry has a
+    batched launch), the launch ``MMA_ROWS_EPILOGUE``'s, an entry's
+    ``batched`` launch for the batched kernels."""
+    table = MMA_ROWS_EPILOGUE[pair]
+    top = MMA_ROWS_RP[pair]
+    if batched:
+        table = {rp: cfg.get("batched", cfg) for rp, cfg in table.items()}
+        top = max(rp for rp, cfg in table.items() if cfg is not None and rp <= top)
+    rp = min(max(16, _rows(m)), top)
+    return rp, table[rp]
 
 
 #: the most programs a solo tensor-core launch takes (each walks ``tiles``
@@ -342,15 +400,15 @@ def spec_chunks(K: int) -> list:
 
 
 def _epilogue_form(m: int, vdtype: torch.dtype, hdtype: torch.dtype,
-                   mma: bool = True, solo: bool = False) -> tuple:
+                   mma: bool = True, batched: bool = False) -> tuple:
     """(form, its launch table's entry, its tile or chunk T, its
-    compile-time constants) of K4 and K14 at m ring rows: the tensor-core
-    form (``"mma"``; with ``mma`` on) for f32 vectors over a bf16 ring from
-    ``MMA_MIN_M`` to ``MMA_MAX_M`` rows, else the static fold form up to
-    ``EPILOGUE_MAX_M`` rows, then for the solo kernels (``solo``, with
-    ``mma`` on) the tensor-core row-block form (``"mma_rows"``) from
-    ``MMA_ROWS_MIN_M`` rows, and the deep fold form above (the batched
-    kernels' only form there), the fold forms on ``EPILOGUE``'s tiles."""
+    compile-time constants) of K4 and K14 (with ``batched``, K4 b and K14
+    b) at m ring rows: the tensor-core form (``"mma"``; with ``mma`` on)
+    for f32 vectors over a bf16 ring from ``MMA_MIN_M`` to ``MMA_MAX_M``
+    rows, else the static fold form up to ``EPILOGUE_MAX_M`` rows, then
+    (with ``mma`` on) the tensor-core row-block form (``"mma_rows"``) from
+    ``rows_min_m`` rows in ``rows_launch``'s blocks, and the deep fold form
+    between, the fold forms on ``EPILOGUE``'s tiles."""
     pair = (vdtype, hdtype)
     if mma and pair == MMA_DTYPES and MMA_MIN_M <= m <= MMA_MAX_M:
         rp = max(16, _rows(m))
@@ -359,9 +417,8 @@ def _epilogue_form(m: int, vdtype: torch.dtype, hdtype: torch.dtype,
     cfg = EPILOGUE[pair]
     if m <= EPILOGUE_MAX_M[pair]:
         return "static", cfg, cfg["T"], dict(M=m, MP=_rows(m), T=cfg["T"], V=cfg["V"])
-    if solo and mma and m >= MMA_ROWS_MIN_M[pair]:
-        rp = min(max(16, _rows(m)), MMA_ROWS_RP[pair])
-        cfg = MMA_ROWS_EPILOGUE[pair][rp]
+    if mma and m >= rows_min_m(pair, batched):
+        rp, cfg = rows_launch(pair, m, batched)
         return "mma_rows", cfg, cfg["K"], dict(m=m, RP=rp, RT=rows_tail(m, rp), K=cfg["K"])
     return "deep", cfg, cfg["T"], dict(m=m, G=DEEP_GROUP[pair], T=cfg["T"], V=cfg["V"])
 
@@ -400,7 +457,7 @@ def solo_epilogue_grid(n: int, m: int, vdtype: torch.dtype,
     each taking ``tiles`` consecutive chunks (``"mma_rows"``: once per
     block of RP ring rows).  The last program's tiles may run past n,
     masked.  Fields as ``batched_epilogue_grid``'s at B = 1."""
-    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=n % MMA_ALIGN == 0, solo=True)
+    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=n % MMA_ALIGN == 0)
     ntiles = -(-n // T)
     if form in ("mma", "mma_rows"):
         return _form_grid(form, cfg, T, consts, ntiles, SOLO_MMA_PROGRAMS, 1, MMA_MAX_CHUNKS)
@@ -411,21 +468,24 @@ def batched_epilogue_grid(B: int, n: int, m: int, vdtype: torch.dtype,
                           hdtype: torch.dtype) -> SimpleNamespace:
     """The form and launch of K4 b and K14 b (the ·gp launch and the
     3-column one alike) on B instances of n elements with m ring rows, the
-    form as the solo kernels' (``_epilogue_form``).  The launch is sized
-    over the whole batch: each instance's n elements are cut into
-    ``ntiles`` tiles of T elements (the tensor-core form's chunks of K),
-    and each of its ``programs`` programs takes ``tiles`` consecutive ones,
-    so that B * programs stays at or under ``EPILOGUE_PROGRAMS`` wherever B
-    does (one program an instance above it).  The tensor-core form takes
-    the solo form's rules: n a multiple of ``MMA_ALIGN`` (the fold forms
-    take any other n), and at most ``MMA_MAX_CHUNKS`` chunks a program (a
+    form as the solo kernels' (``_epilogue_form``), the row-block form's
+    depth and launch the batched ones (``rows_min_m``, ``rows_launch``).
+    The launch is sized over the whole batch: each instance's n elements
+    are cut into ``ntiles`` tiles of T elements (the tensor-core forms'
+    chunks of K), and each of its ``programs`` programs takes ``tiles``
+    consecutive ones, so that B * programs stays at or under
+    ``EPILOGUE_PROGRAMS`` wherever B does (one program an instance above
+    it).  The tensor-core forms (``"mma"`` and ``"mma_rows"``) take the
+    solo forms' rules: n a multiple of ``MMA_ALIGN`` (the fold forms take
+    any other n), and at most ``MMA_MAX_CHUNKS`` chunks a program (a
     larger n takes more programs, not more chunks).  A program never
     straddles two instances; the last one's tiles may run past n, masked.
     ``consts`` are the form's compile-time constants, ``launch`` its warps
     and stages."""
-    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=n % MMA_ALIGN == 0)
+    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=n % MMA_ALIGN == 0,
+                                          batched=True)
     ntiles = -(-n // T)
-    most = MMA_MAX_CHUNKS if form == "mma" else ntiles
+    most = MMA_MAX_CHUNKS if form in ("mma", "mma_rows") else ntiles
     return _form_grid(form, cfg, T, consts, ntiles, max(1, EPILOGUE_PROGRAMS // B), B, most)
 
 
@@ -528,7 +588,7 @@ def _launch_epilogue(fn, eg: SimpleNamespace, m: int, vdtype: torch.dtype,
     ``fn.mma_rows_compiled``, ``fn.compiled``, ``fn.deep_compiled``) and,
     with the geometry, in ``fn.last_form``, and count the launch
     (``_count``; ``fn.mma_launches`` for the tensor-core form,
-    ``fn.mma_rows_launches`` for the solo row-block form).  ``args`` run up to the tiles argument,
+    ``fn.mma_rows_launches`` for the row-block form).  ``args`` run up to the tiles argument,
     ``kw`` names the rest."""
     batched = fn.__name__.endswith("_batched")
     name = fn.__name__.removesuffix("_batched")
@@ -993,7 +1053,7 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         instance's x, g and ring row equal ``trial_pair_gram``'s on that
         instance alone bit for bit, its sums within the sum tolerance (the
         launch is sized over the batch and sums in its own order).  The
-        form (static, tensor-core or deep) and the grid are
+        form (static, tensor-core, row-block or deep) and the grid are
         ``batched_epilogue_grid``'s."""
         B = _check_batched("trial_pair_gram_batched", xp, live)
         _batched_scalars("trial_pair_gram_batched", xp, stp, d, gp)
@@ -1747,8 +1807,9 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
     for fn in (trial_pair_gram, owlqn_trial_pair_gram, trial_pair_gram_batched,
                owlqn_trial_pair_gram_batched):
         fn.mma_launches, fn.mma_compiled, fn.last_form = 0, {}, None
-    # the solo epilogues' tensor-core row-block form (``"mma_rows"``)
-    for fn in (trial_pair_gram, owlqn_trial_pair_gram):
+    # the epilogues' tensor-core row-block form (``"mma_rows"``)
+    for fn in (trial_pair_gram, owlqn_trial_pair_gram, trial_pair_gram_batched,
+               owlqn_trial_pair_gram_batched):
         fn.mma_rows_launches, fn.mma_rows_compiled = 0, {}
     # the fusions' deep forms per (vector dtype, history dtype, fix), and
     # the batched fusions' forms per (vector dtype, history dtype, deep,

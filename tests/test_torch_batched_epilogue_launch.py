@@ -21,8 +21,10 @@ The cases marked ``cuda`` hold the card's forms to their plain versions
 solo K4 and K14 on each live instance (x, g, pg and the rings bit for bit)
 and the . gp launch's other outputs to the 3-column launch's (bit for
 bit): over a bf16 ring at m = 6, 19, 40, 80, 200 and 260 (every form and
-tensor-core launch) and n = 2^14 and 2^14 + 2 (which takes the fold forms,
-as the solo launch does), over f32 and f64 rings at m = 6 and 80, a third
+tensor-core launch, the row-block form at 260;
+``tests/test_torch_batched_rows.py`` holds that form over every ring) and
+n = 2^14 and 2^14 + 2 (which takes the fold forms, as the solo launch
+does), over f32 and f64 rings at m = 6 and 80 (at an n off 16), a third
 of the instances frozen; the tensor-core products against the float64
 product of their own operands (3e-7 normwise) and the forms' spills; and
 an inf in gp to non-finite products.  They skip without a card.  This module imports JAX
@@ -59,6 +61,13 @@ def test_form_by_dtype_pair_and_depth(pair, m):
         assert g.form == "mma"
         assert g.consts["RP"] >= max(16, m) and g.consts["RP"] & (g.consts["RP"] - 1) == 0
         assert g.T == g.consts["K"]
+    elif m >= factory.rows_min_m(pair, True):
+        # f32 and f64 rings from the row-block form's depth, bf16 rings
+        # above the one-pass form's: the row-block form, at most
+        # MMA_ROWS_RP rows a block
+        assert g.form == "mma_rows"
+        assert 16 <= g.consts["RP"] <= factory.MMA_ROWS_RP[pair]
+        assert g.T == g.consts["K"]
     else:
         assert g.form == ("static" if m <= factory.EPILOGUE_MAX_M[pair] and (
             pair != (F32, BF16) or m < factory.MMA_MIN_M) else "deep")
@@ -86,8 +95,8 @@ def test_every_element_once_and_programs_capped(B, n, m):
         # no program lies wholly past the instance's end
         assert (g.programs - 1) * g.tiles < g.ntiles <= g.programs * g.tiles
         assert g.total == B * g.programs
-        # the tensor-core form sums at most MMA_MAX_CHUNKS chunks a program
-        capped = g.form == "mma" and g.tiles == factory.MMA_MAX_CHUNKS
+        # the tensor-core forms sum at most MMA_MAX_CHUNKS chunks a program
+        capped = g.form in ("mma", "mma_rows") and g.tiles == factory.MMA_MAX_CHUNKS
         if B <= factory.EPILOGUE_PROGRAMS and not capped:
             assert g.total <= factory.EPILOGUE_PROGRAMS
         elif not capped:
@@ -404,14 +413,15 @@ def _held(a, ow, solo=True, vtol=1e-5, stol=1e-4):
 @pytest.mark.parametrize("m", [6, 19, 40, 80, 200, 260])
 def test_batched_epilogues_on_card(cuda, m, n, ow):
     """f32 vectors over a bf16 ring: the static form at m = 6, the
-    tensor-core form at every RP it takes (19, 40, 80, 200) and the deep
-    form above ``factory.MMA_MAX_M`` (260), each against its plain version,
-    the 3-column launch and (but at m = 40, whose solo static form
-    compiles for minutes) the solo kernel."""
+    tensor-core form at every RP it takes (19, 40, 80, 200) and the
+    row-block form above ``factory.MMA_MAX_M`` (260; the deep form at an n
+    off 16), each against its plain version, the 3-column launch and (but
+    at m = 40, whose solo static form compiles for minutes) the solo
+    kernel."""
     form = _held(_card_batch(cuda, m, n), ow, solo=m != 40)
     aligned = n % factory.MMA_ALIGN == 0
-    assert form == ("static" if m < factory.MMA_MIN_M else
-                    "mma" if m <= factory.MMA_MAX_M and aligned else "deep")
+    assert form == ("static" if m < factory.MMA_MIN_M else "deep" if not aligned else
+                    "mma" if m <= factory.MMA_MAX_M else "mma_rows")
 
 
 def _products_f64(a, t, ow, b):

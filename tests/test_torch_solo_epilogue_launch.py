@@ -6,10 +6,10 @@ run:
     takes (the tensor-core form for f32 vectors over a bf16 ring from
     ``factory.MMA_MIN_M`` to ``factory.MMA_MAX_M`` rows, else the static
     fold form up to the pair's ``factory.EPILOGUE_MAX_M`` and the deep fold
-    form above, while K15 and K16 keep ``factory.MAX_M``; the solo
-    tensor-core row-block form over f32 and f64 rings from
-    ``factory.MMA_ROWS_MIN_M`` rows and over bf16 rings above 256, which
-    the batched forms never take), every element covered by exactly one
+    form above, while K15 and K16 keep ``factory.MAX_M``; the tensor-core
+    row-block form over f32 and f64 rings from ``factory.MMA_ROWS_MIN_M``
+    rows and over bf16 rings above 256, which the batched forms take by
+    the same rule), every element covered by exactly one
     (program, chunk) and every ring row by one block, the programs at or
     under the form's cap, one objective partial per chunk, and the . gp
     launch's partials on the 3-column launch's programs;
@@ -92,11 +92,11 @@ def test_solo_form_by_dtype_pair_and_depth(pair, m):
         assert g.form == "deep"
         assert g.T == factory.EPILOGUE[pair]["T"] and g.programs <= factory.EPILOGUE_PROGRAMS
         assert g.consts["G"] == factory.DEEP_GROUP[pair]
-    # one choice of form for the solo and the batched epilogues, but where
-    # the solo kernels take the row-block form: the batched ones keep the
-    # deep fold form there
+    # one choice of form for the solo and the batched epilogues, the
+    # row-block form's too, from the batched kernels' own crossover depth
     b = factory.batched_epilogue_grid(1024, 1 << 14, m, *pair).form
-    assert b == ("deep" if g.form == "mma_rows" else g.form)
+    assert b == ("deep" if g.form == "mma_rows" and m < factory.rows_min_m(pair, True)
+                 else g.form)
 
 
 @pytest.mark.parametrize("n", [100, (1 << 14) + 2, 3_000_002, (1 << 20) + 8])
@@ -243,26 +243,44 @@ def test_rows_form_by_pair_depth_and_width(pair, n, m):
 @pytest.mark.parametrize("B,n", [(1, 1 << 20), (4, 1 << 16), (1024, 1 << 14), (2, 100)])
 @pytest.mark.parametrize("m", [6, 8, 9, 19, 80, 200, 256, 257, 260, 512])
 def test_batched_grids_keep_their_forms(pair, B, n, m):
-    """The batched epilogues never take the solo row-block form: the
-    tensor-core form with f32 vectors over a bf16 ring from ``MMA_MIN_M``
-    to ``MMA_MAX_M`` rows at an aligned n, else the static fold form up to
-    the pair's cap and the deep fold form above, on the fold forms' tiles
-    and the batch-wide program count."""
+    """The batched epilogues take the solo forms' rule: the tensor-core
+    form with f32 vectors over a bf16 ring from ``MMA_MIN_M`` to
+    ``MMA_MAX_M`` rows and the row-block form from ``MMA_ROWS_MIN_M`` rows
+    (f32 and f64 rings above the static cap, bf16 rings above 256), both at
+    an aligned n, on chunks of their launch's K, at most ``MMA_MAX_CHUNKS``
+    a program; else the static fold form up to the pair's cap and the deep
+    fold form above, on the fold forms' tiles; every form on the
+    batch-wide program count."""
     g = factory.batched_epilogue_grid(B, n, m, *pair)
     aligned = n % factory.MMA_ALIGN == 0
+    # the form is the solo grid's at the same width and depth, but between
+    # the solo and the batched row-block depths
+    solo = factory.solo_epilogue_grid(n, m, *pair).form
+    assert g.form == ("deep" if solo == "mma_rows" and m < factory.rows_min_m(pair, True)
+                      else solo)
+    assert factory._epilogue_form(m, *pair, mma=aligned, batched=True)[0] == g.form
+    per = max(1, factory.EPILOGUE_PROGRAMS // B)
+    assert g.total == B * g.programs
     if aligned and pair == factory.MMA_DTYPES and factory.MMA_MIN_M <= m <= factory.MMA_MAX_M:
         assert g.form == "mma"
+        return
+    if aligned and m >= factory.rows_min_m(pair, True):
+        assert g.form == "mma_rows"
+        rp, cfg = factory.rows_launch(pair, m, True)
+        assert g.consts["RP"] == rp <= factory.MMA_ROWS_RP[pair]
+        assert rp == min(max(16, 1 << (m - 1).bit_length()), max(
+            r for r, c in factory.MMA_ROWS_EPILOGUE[pair].items() if c.get("batched", c)))
+        assert g.consts == dict(m=m, RP=rp, RT=factory.rows_tail(m, rp), K=cfg["K"])
+        assert g.T == cfg["K"] and g.launch == dict(num_warps=cfg["num_warps"],
+                                                    num_stages=cfg["num_stages"])
+        assert g.tiles == min(-(-g.ntiles // per), factory.MMA_MAX_CHUNKS)
         return
     assert g.form == _fold_form(m, pair)
     cfg = factory.EPILOGUE[pair]
     assert g.T == cfg["T"] and g.launch == dict(num_warps=cfg["num_warps"],
                                                 num_stages=cfg["num_stages"])
-    per = max(1, factory.EPILOGUE_PROGRAMS // B)
-    assert g.tiles == -(-g.ntiles // per) and g.total == B * g.programs
+    assert g.tiles == -(-g.ntiles // per)
     assert "RP" not in g.consts
-    # the form is the same function's as the solo grid's with the solo
-    # forms off
-    assert factory._epilogue_form(m, *pair, mma=aligned)[0] == g.form
 
 
 @pytest.mark.parametrize("pair", PAIRS, ids=PAIR_IDS)

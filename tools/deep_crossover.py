@@ -4,6 +4,7 @@ sizes, on one CUDA card: what ``factory.EPILOGUE_MAX_M`` is chosen from.
 
     PYTHONPATH=. python3 tools/deep_crossover.py [--depths 8 16 32] [--reps N]
         [--pairs bf16 f32 f64] [--forms static deep rows] [--groups 8 4 2]
+        [--n 1048576] [--batched [--batch 1024]]
 
 For each dtype pair of ``--pairs`` (f32 vectors over a bf16 or an f32
 history, f64 over f64) and depth m, at the deep-history path's n = 2^20
@@ -26,6 +27,13 @@ and K14, each with and without the . gp column, in the three dtype pairs,
 compiled at m = 80 and at an n divisible by 16 and one that is not (Triton
 specialises on that): what ``factory.DEEP_GROUP`` is chosen from.
 
+``--n`` sets the vectors' length (an n off a multiple of 16 keeps the
+fold forms whatever is forced).  With ``--batched`` the same forms of the
+batched K4 b and K14 b run instead, on ``--batch`` instances of ``--n``
+elements (1024 x 2^14 by default, the batched main path's shape, every
+instance live; ``chip_smoke.batched_generic_inputs``): what the batched
+entries of ``factory.MMA_ROWS_MIN_M`` are chosen from.
+
 Prints one JSON line per depth and form; the card's nvidia-smi name and
 power limit first.
 """
@@ -41,6 +49,57 @@ from lbfgs_torch.models import rosenbrock
 from lbfgs_torch.ops import factory
 
 
+PAIRS = {"bf16": (torch.float32, torch.bfloat16), "f32": (torch.float32, torch.float32),
+         "f64": (torch.float64, torch.float64)}
+#: each form of ``--forms`` forced at depth m
+FORCED = {"static": cs.static_forms_up_to, "deep": lambda m: cs.static_forms_up_to(0),
+          "rows": cs.rows_form_from}
+
+
+def batched(args) -> None:
+    """``--batched``: the forms of K4 b and K14 b (each with and without
+    the . gp column) at each pair and depth, in turns, on ``args.batch``
+    instances of ``args.n`` elements, every instance live."""
+    k = rosenbrock.value_and_grad.kernels
+    B, n = args.batch, args.n or cs.BATCH_N
+    lo, hi = cs.windows(n)[1]
+    for pair in args.pairs:
+        vd, hd = PAIRS[pair]
+        for m in args.depths:
+            a = cs.batched_generic_inputs(cs.SEED + 30 + m, vd, hd, m, B, n)
+            every = torch.ones_like(a["live"])
+            end = m - 3
+            for gp in (False, True):
+                forms = {
+                    "K4b": (k.trial_pair_gram_batched, lambda gp=gp: k.trial_pair_gram_batched(
+                        a["xp"], a["d"], a["gp"], a["stp"], a["S"], a["Y"], end, every,
+                        with_gp=gp)),
+                    "K14b": (k.owlqn_trial_pair_gram_batched,
+                             lambda gp=gp: k.owlqn_trial_pair_gram_batched(
+                                 a["xp"], a["d"], a["gp"], a["pg"], a["stp"], cs.C_L1, lo, hi,
+                                 a["S"], a["Y"], end, every, with_gp=gp)),
+                }
+                for name, (fn, call) in forms.items():
+                    ms, regs = {form: [] for form in args.forms}, {}
+                    for form in args.forms + args.forms[::-1]:
+                        with FORCED[form](m):
+                            call()
+                            regs[form] = dict(kernel=fn.last_form.kernel,
+                                              programs=fn.last_form.total,
+                                              chunks_per_program=fn.last_form.tiles,
+                                              **cs._compiled_info(fn.last_form.compiled))
+                            ms[form].append(cs.device_time(call, args.reps))
+                    table = ("K4b_trial_pair_gram_batched" if name == "K4b"
+                             else "K14b_owlqn_trial_pair_gram_batched") + ("_gp" if gp else "")
+                    cs.emit(form=name + ("_gp" if gp else ""), m=m, B=B, n=n,
+                            dtypes=f"{vd}/{hd}".replace("torch.", ""), ms=ms,
+                            bound_ms=cs.bound(table, B * n, vd.itemsize, hd.itemsize, m)[0],
+                            timed_by=cs.device_time.source, registers=regs,
+                            chosen=factory.batched_epilogue_grid(B, n, m, vd, hd).form)
+            del a, every
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--depths", type=int, nargs="*", default=[8, 16, 32])
@@ -50,8 +109,14 @@ def main() -> None:
     ap.add_argument("--groups", type=int, nargs="*", default=[])
     ap.add_argument("--forms", nargs="*", default=["static", "deep"],
                     choices=["static", "deep", "rows"])
+    ap.add_argument("--n", type=int)
+    ap.add_argument("--batched", action="store_true")
+    ap.add_argument("--batch", type=int, default=cs.BATCH_B)
     args = ap.parse_args()
     cs.phase_device()
+    if args.batched:
+        batched(args)
+        return
     k = rosenbrock.value_and_grad.kernels
     chosen = dict(factory.DEEP_GROUP)
     for G in args.groups:
@@ -76,15 +141,12 @@ def main() -> None:
     factory.DEEP_GROUP = chosen
     for fn in (k.trial_pair_gram, k.owlqn_trial_pair_gram):
         fn.deep_compiled.clear()
-    pairs = {"bf16": (torch.float32, torch.bfloat16), "f32": (torch.float32, torch.float32),
-             "f64": (torch.float64, torch.float64)}
-    hi = cs.DEEP_N - 1
-    forced = {"static": cs.static_forms_up_to, "deep": lambda m: cs.static_forms_up_to(0),
-              "rows": cs.rows_form_from}
+    n = args.n or cs.DEEP_N
+    hi = n - 1
     for pair in args.pairs:
-        vd, hd = pairs[pair]
+        vd, hd = PAIRS[pair]
         for m in args.depths:
-            a = cs.deep_inputs(vd, hd, m)
+            a = cs.deep_inputs(vd, hd, m, n)
             S, Y = a["S"], a["Y"]
             for gp in (False, True):
                 forms = {
@@ -97,19 +159,19 @@ def main() -> None:
                 for name, (fn, call) in forms.items():
                     ms, regs = {form: [] for form in args.forms}, {}
                     for form in args.forms + args.forms[::-1]:
-                        with forced[form](m):
+                        with FORCED[form](m):
                             call()
                             regs[form] = dict(kernel=fn.last_form.kernel,
                                               **cs._compiled_info(fn.last_form.compiled))
                             ms[form].append(cs.device_time(call, args.reps))
-                    cs.emit(form=name + ("_gp" if gp else ""), m=m, n=cs.DEEP_N,
+                    cs.emit(form=name + ("_gp" if gp else ""), m=m, n=n,
                             dtypes=f"{vd}/{hd}".replace("torch.", ""), ms=ms,
                             bound_ms=cs.bound(("K4_trial_pair_gram" if name == "K4" else
                                                "K14_owlqn_trial_pair_gram")
-                                              + ("_gp" if gp else ""), cs.DEEP_N, vd.itemsize,
+                                              + ("_gp" if gp else ""), n, vd.itemsize,
                                               hd.itemsize, m)[0],
                             timed_by=cs.device_time.source, registers=regs,
-                            chosen=factory.solo_epilogue_grid(cs.DEEP_N, m, vd, hd).form)
+                            chosen=factory.solo_epilogue_grid(n, m, vd, hd).form)
             del a, S, Y
             torch.cuda.empty_cache()
 

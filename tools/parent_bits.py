@@ -37,13 +37,16 @@ the sum tolerance (normwise, the gap printed), then each is timed other
 tree, this, this, other, with the form each tree ran and, where both ran
 the same kernel, whether its PTX is the other tree's (``same_ptx``).
 
-With ``--binaries`` it compiles, in both trees, the epilogue forms this
-tree's solo row-block form leaves as they were (the solo K4 and K14 at
-m = 6 in the three dtype pairs, their tensor-core form over bf16 rings of
-16-256 rows, their fold forms at an n off a multiple of 16, and every
-batched K4 b and K14 b form), each with and without the . gp column at
-small sizes, and prints whether each kernel's PTX is the other tree's
-(``ptx_code``: the debug lines and sections aside).
+With ``--binaries`` it compiles, in both trees, every solo K4 and K14
+form (at m = 6 in the three dtype pairs, the tensor-core form over bf16
+rings of 16-256 rows, the fold forms at an n off a multiple of 16, the
+row-block form over f32 and f64 rings at m = 80 and a bf16 ring at 260)
+and every batched K4 b and K14 b form, each with and without the . gp
+column at small sizes, and prints whether each kernel's PTX is the other
+tree's (``ptx_code``: the debug lines and sections aside); the batched
+launches at the row-block form's depths and an n that is a multiple of 16
+run a kernel the other tree does not have (``new``), and every other
+kernel must be the other tree's.
 
 Prints one JSON line per check group and per timed kernel; the card's
 nvidia-smi name and power limit first.
@@ -279,28 +282,25 @@ def epilogue_depths(prosen, depths: list, widths: list, reps: int, pairs=("bf16"
 
 
 def binaries(prosen) -> None:
-    """``--binaries``: the PTX of every epilogue form the row-block form
-    leaves as it was, in both trees."""
+    """``--binaries``: the PTX of every solo and batched epilogue form, in
+    both trees."""
     prosen_k = prosen.value_and_grad.kernels
     mine_k = rosenbrock.value_and_grad.kernels
     bf16 = PAIRS["bf16"]
-    # (pair, m, n, whether the solo forms there are unchanged too): the
-    # batched forms everywhere; the solo ones but at the depths the
-    # row-block form takes
-    cases = [(pair, m, n, True) for pair in PAIRS.values() for m, n in ((6, 4096), (6, 4098))]
-    cases += [(bf16, m, 4096, True) for m in (16, 19, 80, 256)]
-    cases += [(pair, 80, 4098, True) for pair in PAIRS.values()] + [(bf16, 260, 4098, True)]
-    cases += [(pair, 80, 4096, False) for pair in (PAIRS["f32"], PAIRS["f64"])]
-    cases += [(bf16, 260, 4096, False)]
+    # (pair, m, n, whether the batched form there is the row-block form,
+    # which the other tree does not have)
+    cases = [(pair, m, n, False) for pair in PAIRS.values() for m, n in ((6, 4096), (6, 4098))]
+    cases += [(bf16, m, 4096, False) for m in (16, 19, 80, 256)]
+    cases += [(pair, 80, 4098, False) for pair in PAIRS.values()] + [(bf16, 260, 4098, False)]
+    cases += [(pair, 80, 4096, True) for pair in (PAIRS["f32"], PAIRS["f64"])]
+    cases += [(bf16, 260, 4096, True)]
     wrappers = (("trial_pair_gram", True), ("owlqn_trial_pair_gram", True),
                 ("trial_pair_gram_batched", False), ("owlqn_trial_pair_gram_batched", False))
     rows = []
-    for (vd, hd), m, n, solo_too in cases:
+    for (vd, hd), m, n, rows_batched in cases:
         a = cs.deep_inputs(vd, hd, m, n)
         for gp in (False, True):
             for wrapper, solo in wrappers:
-                if solo and not solo_too:
-                    continue
                 for k in (mine_k, prosen_k):
                     fn = getattr(k, wrapper)
                     if solo and wrapper.startswith("owlqn"):
@@ -322,12 +322,15 @@ def binaries(prosen) -> None:
                             fn(*args, stp, S, Y, cs.END, live, with_gp=gp)
                 mine, theirs = getattr(mine_k, wrapper), getattr(prosen_k, wrapper)
                 row = dict(kernel=mine.last_form.kernel, dtypes=f"{vd}/{hd}".replace(
-                    "torch.", ""), m=m, n=n, with_gp=gp, same_ptx=same_ptx(mine, theirs))
+                    "torch.", ""), m=m, n=n, with_gp=gp, same_ptx=same_ptx(mine, theirs),
+                           new=rows_batched and not solo)
                 if row["same_ptx"] is False:
                     row["diff"] = ptx_diff(mine, theirs)
                 rows.append(row)
         del a
-    cs.emit(check="binaries", forms=rows, all_same=all(r["same_ptx"] for r in rows))
+    cs.emit(check="binaries", forms=rows,
+            all_same=all(r["same_ptx"] for r in rows if not r["new"]),
+            new=[r["kernel"] for r in rows if r["new"]])
 
 
 def main() -> None:

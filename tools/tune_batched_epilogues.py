@@ -47,8 +47,9 @@ With ``--rows`` (the solo K4 and K14 in their tensor-core row-block form,
 ``factory.MMA_ROWS_EPILOGUE``; ``chip_smoke.deep_inputs``, K14 on the
 window [5, n - 9)):
 
-    PYTHONPATH=. python3 tools/tune_batched_epilogues.py --rows [--pairs f32 f64 bf16]
-        [--depths 9 19 80 200] [--widths 1048576] [--jobs 6] [--reps N] [--out PATH]
+    PYTHONPATH=. python3 tools/tune_batched_epilogues.py --rows [--batched]
+        [--pairs f32 f64 bf16] [--depths 9 19 80 200] [--rps 64 128] [--widths 1048576]
+        [--jobs 6] [--reps N] [--out PATH]
 
   at each dtype pair of ``--pairs`` (f32 vectors over an f32 or a bf16
   ring, f64 over f64) and depth of ``--depths`` (bf16: above
@@ -59,7 +60,12 @@ window [5, n - 9)):
   processes compile every launch first (``--rows-warm``), so the timing
   process only loads them.  Per (pair, RP) the launch whose runs spill
   nothing and sum the least time relative to the fastest of each (depth,
-  n, form) is printed beside ``factory.MMA_ROWS_EPILOGUE``'s.
+  n, form) is printed beside ``factory.MMA_ROWS_EPILOGUE``'s.  ``--rps``
+  keeps the blocks of those row counts only.  With ``--batched`` the
+  batched K4 b and K14 b run the sweep instead, at the batched main path's
+  1024 x 2^14 (``chip_smoke.batched_generic_inputs``, every instance live
+  in the timings), each launch's gaps to the plain version taken on
+  ``BATCHED_CHECK_B`` instances, in place on copies (``--widths`` unused).
 
 Prints one JSON line per launch and depth, the card's nvidia-smi name and
 power limit first; ``--out`` writes the same lines to a file.
@@ -301,18 +307,122 @@ ROWS_PAIRS = {"bf16": (torch.float32, torch.bfloat16), "f32": (torch.float32, to
               "f64": (torch.float64, torch.float64)}
 
 
-def rows_launches(pairs: list, depths: list) -> list:
+#: the batched sweep's narrower grid per pair: (chunk K, warps, stages)
+#: around the solo sweep's choices
+BATCHED_GRID = {"bf16": ((64, 128), (4, 8), (2, 3)), "f32": ((32, 64), (4, 8), (2, 3)),
+                "f64": ((16, 32), (4, 8), (2, 3))}
+
+
+def rows_launches(pairs: list, depths: list, rps=None, batched: bool = False) -> list:
     """(pair name, m, RP, K, warps, stages) of every row-block launch the
     sweep runs: each depth at the RPs it can take (m rounded up to a power
-    of two, at least 16, or a smaller block)."""
+    of two, at least 16, or a smaller block; with ``rps`` only those).
+    ``batched``: each depth at its own RP (m rounded up, at most the
+    grid's largest block) and those of ``rps``, over ``BATCHED_GRID``."""
     out = []
     for name in pairs:
         for m in depths:
             if name == "bf16" and m <= factory.MMA_MAX_M:
                 continue
             top = max(16, 1 << (m - 1).bit_length())
-            out += [(name, m, rp, k, w, st) for rp, k, w, st in ROWS_GRID[name] if rp <= top]
+            if batched:
+                own = min(top, max(rp for rp, *_ in ROWS_GRID[name]))
+                ks, ws, sts = BATCHED_GRID[name]
+                out += [(name, m, rp, k, w, st) for rp, k, w, st in ROWS_GRID[name]
+                        if (rp == own or rp in (rps or ())) and rp <= top and k in ks
+                        and w in ws and st in sts]
+                continue
+            out += [(name, m, rp, k, w, st) for rp, k, w, st in ROWS_GRID[name]
+                    if rp <= top and (not rps or rp in rps)]
     return out
+
+
+#: the batched sweep's check instances (its timings take ``cs.BATCH_B``)
+BATCHED_CHECK_B = 48
+#: the batched sweep's launches: (wrapper, ``chip_smoke.cost``'s row)
+BATCHED_FORMS = {"K4b_gp": ("trial_pair_gram_batched", "K4b_trial_pair_gram_batched_gp"),
+                 "K14b_gp": ("owlqn_trial_pair_gram_batched",
+                             "K14b_owlqn_trial_pair_gram_batched_gp")}
+
+
+def batched_call(fn, a: dict, t: dict):
+    """The . gp launch of the batched wrapper (or plain version) ``fn``
+    (K4 b or K14 b by name) on the vectors and rings t, in place, every
+    instance live."""
+    n, m = a["xp"].shape[1], a["S"].shape[1]
+    lo, hi = cs.windows(n)[1]
+    every = torch.ones_like(a["live"])
+    if fn.__name__.startswith("owlqn"):
+        return fn(t["xp"], a["d"], t["gp"], t["pg"], a["stp"], cs.C_L1, lo, hi, t["S"], t["Y"],
+                  m - 3, every, with_gp=True)
+    return fn(t["xp"], a["d"], t["gp"], a["stp"], t["S"], t["Y"], m - 3, every, with_gp=True)
+
+
+def batched_warm(part: int, parts: int, pairs: list, depths: list, rps) -> None:
+    """``rows_warm`` for the batched forms: K4 b and K14 b . gp on 2 x
+    4096."""
+    for i, (name, m, rp, k, w, st) in enumerate(rows_launches(pairs, depths, rps, True)):
+        if i % parts != part:
+            continue
+        a = cs.batched_generic_inputs(cs.SEED, *ROWS_PAIRS[name], m, 2, 4096)
+        with rows_launch(ROWS_PAIRS[name], m, rp, k, w, st):
+            for wrapper, _ in BATCHED_FORMS.values():
+                try:
+                    batched_call(getattr(K, wrapper), a, pb.fresh(a))
+                except Exception:  # the timing process records the refusal
+                    pass
+    torch.cuda.synchronize()
+
+
+def batched_rows_sweep(pairs: list, depths: list, rps, reps: int, emit) -> list:
+    """Every batched row-block launch at 1024 x 2^14, timed in place with
+    every instance live, with its registers, spills and its gaps to the
+    plain version on ``BATCHED_CHECK_B`` instances; returns the rows."""
+    rows = []
+    for name in pairs:
+        pair = ROWS_PAIRS[name]
+        vd, hd = pair
+        for m in depths:
+            launches = rows_launches([name], [m], rps, True)
+            if not launches:
+                continue
+            small = cs.batched_generic_inputs(cs.SEED + 90 + m, vd, hd, m, BATCHED_CHECK_B)
+            want = {}
+            for form, (wrapper, _) in BATCHED_FORMS.items():
+                t = pb.fresh(small)
+                want[form] = (t, batched_call(getattr(K, wrapper + "_ref"), small, t))
+            a = cs.batched_generic_inputs(cs.SEED + 91 + m, vd, hd, m, cs.BATCH_B)
+            for _, _, rp, k, w, st in launches:
+                with rows_launch(pair, m, rp, k, w, st):
+                    for form, (wrapper, table) in BATCHED_FORMS.items():
+                        fn = getattr(K, wrapper)
+                        base = dict(rows_sweep=form, dtypes=name, m=m, B=cs.BATCH_B,
+                                    n=cs.BATCH_N, RP=rp, K=k, num_warps=w, num_stages=st)
+                        try:
+                            t = pb.fresh(small)
+                            out = batched_call(fn, small, t)
+                            torch.cuda.synchronize()
+                        except Exception as e:  # a refused launch is a result
+                            emit(dict(base, refused=f"{type(e).__name__}: {str(e)[-300:]}"))
+                            continue
+                        tq, oq = want[form]
+                        vec = max(cs.err(t[v], tq[v]) for v in ("xp", "gp", "pg"))
+                        sums = max(cs.err(u, v) for u, v in zip(out, oq)
+                                   if u.dtype != torch.bool)
+                        del t, out
+                        row = dict(base, passes=-(-m // rp),
+                                   ms=cs.event_time(lambda: batched_call(fn, a, a), reps),
+                                   programs=fn.last_form.total,
+                                   chunks_per_program=fn.last_form.tiles,
+                                   bound_ms=cs.bound(table, cs.BATCH_B * cs.BATCH_N,
+                                                     vd.itemsize, hd.itemsize, m)[0],
+                                   vec_gap=vec, sum_gap=sums,
+                                   **cs._compiled_info(fn.last_form.compiled))
+                        emit(row)
+                        rows.append(row)
+            del a, small, want
+            torch.cuda.empty_cache()
+    return rows
 
 
 class rows_launch:
@@ -436,10 +546,16 @@ def main() -> None:
     ap.add_argument("--pairs", nargs="*", default=["f32", "f64", "bf16"],
                     choices=list(ROWS_PAIRS))
     ap.add_argument("--jobs", type=int, default=6)
+    ap.add_argument("--batched", action="store_true",
+                    help="with --rows: the batched K4 b and K14 b at 1024 x 2^14")
+    ap.add_argument("--rps", type=int, nargs="*", help="with --rows: these block row counts only")
     ap.add_argument("--rows-warm", nargs=2, type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rows_warm:
-        rows_warm(*args.rows_warm, args.pairs, args.depths)
+        if args.batched:
+            batched_warm(*args.rows_warm, args.pairs, args.depths, args.rps)
+        else:
+            rows_warm(*args.rows_warm, args.pairs, args.depths)
         return
     if args.depths is None:
         args.depths = ([9, 19, 80, 200, 260] if args.rows else [16, 19, 80, 200] if args.solo
@@ -461,11 +577,17 @@ def main() -> None:
     if args.rows:
         workers = [subprocess.Popen([sys.executable, __file__, "--rows-warm", str(i),
                                      str(args.jobs), "--pairs", *args.pairs, "--depths",
-                                     *map(str, args.depths)])
+                                     *map(str, args.depths)]
+                                    + (["--batched"] if args.batched else [])
+                                    + (["--rps", *map(str, args.rps)] if args.rps else []))
                    for i in range(args.jobs)]
         for w in workers:
             w.wait()
-        rows_best(rows_sweep(args.pairs, args.depths, args.widths, args.reps, emit), emit)
+        if args.batched:
+            rows = batched_rows_sweep(args.pairs, args.depths, args.rps, args.reps, emit)
+        else:
+            rows = rows_sweep(args.pairs, args.depths, args.widths, args.reps, emit)
+        rows_best(rows, emit)
         return
     if args.solo:
         rows = []
