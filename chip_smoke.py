@@ -436,7 +436,7 @@ import torch.distributed as dist
 
 from lbfgs_torch import LbfgsError, default_evaluate, lbfgs
 from lbfgs_torch.batched import minimize_batched
-from lbfgs_torch.core import to_host
+from lbfgs_torch.core import as_ring, is_ring, ring_stride, ring_zeros, to_host
 from lbfgs_torch.linesearch import carried
 from lbfgs_torch.minimize import LbfgsState, minimize_jit
 from lbfgs_torch.models import booth, lennard_jones, logistic, rosenbrock, separable
@@ -723,13 +723,13 @@ def cost(name: str, v: int, h: int, m: int) -> tuple:
     reads the quadratic's two extras too (2v bytes); its operations are
     counted as Rosenbrock's body's, which does more per element than the
     quadratic's (5); ``_m80`` (``_m19``, ``_m260``; ``_f32_m80`` and
-    ``_f64_m80`` over f32 and f64 rings) rows are their kernel's at ring
-    depth m."""
+    ``_f64_m80`` over f32 and f64 rings; ``_rg`` at an n off 16 over the
+    padded ring) rows are their kernel's at ring depth m."""
     if name.endswith("_ex"):
         b, f = cost(name[:-3], v, h, m)
         return b + 2 * v, f
     rings = 2 * (m - 1) * h + 2 * h
-    name = re.sub(r"(_f32|_f64)?_m\d+$", "", name)
+    name = re.sub(r"(_rg)?(_f32|_f64)?_m\d+$", "", name)
     return {
         "K1_trial": (4 * v, 20),
         "K2_probe": (2 * v, 16),
@@ -1288,7 +1288,52 @@ def warm_steps() -> list:
             k.combine_ow_probe_batched(x, x, S, S, coef, 1.0, 0, n - 1, stp, live, x.clone())
         return step
 
+    def ragged(vd, hd, m):
+        # the ragged phases' forms at an n off 16 (n = 4098 compiles what
+        # 2^20 + 2, 2^24 + 2 and 2^14 + 2 take): K4 and K14, K4 b and K14 b
+        # over the padded ring (the tensor-core forms) and over a ring of
+        # row stride n (the deep fold forms they are held to), each with and
+        # without the . gp column; the ragged paths' fusions at m = 80 and
+        # their probes
+        def step(lib):
+            k = rosenbrock.value_and_grad.kernels
+            n = 4098
+            x = torch.ones(n, dtype=vd, device="cuda")
+            xb = torch.ones((2, n), dtype=vd, device="cuda")
+            stp = torch.zeros(2, dtype=vd, device="cuda")
+            live = torch.ones(2, dtype=torch.bool, device="cuda")
+            for ring in (lambda *sh: ring_zeros(sh, hd, "cuda"),
+                         lambda *sh: torch.zeros(sh, dtype=hd, device="cuda")):
+                S, Y, Sb, Yb = ring(m, n), ring(m, n), ring(2, m, n), ring(2, m, n)
+                for gp in (False, True):
+                    k.trial_pair_gram(x, x, x.clone(), 0.0, S, Y, 1, with_gp=gp)
+                    k.owlqn_trial_pair_gram(x, x, x.clone(), x.clone(), 0.0, 1.0, 0, n - 1, S,
+                                            Y, 1, with_gp=gp)
+                    k.trial_pair_gram_batched(xb.clone(), xb, xb.clone(), stp, Sb, Yb, 1, live,
+                                              with_gp=gp)
+                    k.owlqn_trial_pair_gram_batched(xb.clone(), xb, xb.clone(), xb.clone(), stp,
+                                                    1.0, 0, n - 1, Sb, Yb, 1, live, with_gp=gp)
+            if m != DEEP_M:
+                return
+            S = ring_zeros((m, n), hd, "cuda")
+            Sb = ring_zeros((2, m, n), hd, "cuda")
+            z = torch.zeros(m, dtype=vd, device="cuda")
+            k.combine_probe(x, x, S, S, z[0], z, z, 1.0)
+            k.combine_ow_probe(x, x, S, S, z[0], z, z, 1.0, 0, n - 1, 1.0)
+            coef = torch.zeros((2, 2 * m + 1), dtype=vd, device="cuda")
+            k.combine_probe_batched(xb, xb, Sb, Sb, coef, stp, live, xb.clone())
+            k.combine_ow_probe_batched(xb, xb, Sb, Sb, coef, 1.0, 0, n - 1, stp, live,
+                                       xb.clone())
+            k.probe_batched(xb, xb, stp, live)
+            k.owlqn_probe_pg_batched(xb, xb, xb, stp, 1.0, 0, n - 1, live)
+            k.probe(x, x, 0.0)
+            k.owlqn_probe(x, x, x, 0.0, 1.0, 0, n - 1)
+            k.trial(x, x, 0.0)
+            k.owlqn_trial(x, x, x, 0.0, 1.0, 0, n - 1)
+        return step
+
     steps += [speculative(n, K) for n in (8192, 4098) for K in SPEC_WARM_LANES]
+    steps += [ragged(vd, hd, m) for vd, hd, m in RAGGED_ROWS.values()]
     steps += [batched(m) for m in (M, DEEP_VS_STATIC_M, DEEP_M)]
     steps += [batched_fold(vd, hd, m) for vd, hd, m in FOLD_ROWS.values()]
     return steps
@@ -4339,7 +4384,7 @@ def deep_compiled() -> list:
 #: forced at n = 2^20 and 2^24 (``factory.SOLO_MMA_PROGRAMS`` and
 #: ``factory.MMA_MAX_CHUNKS``), and the
 #: widths below one chunk and off a whole chunk, which take the chosen
-#: grid (off the 16-element alignment, 100 and 2^14 + 2, the fold form)
+#: grid (off the 16-element alignment, 100 and 2^14 + 2, over the padded ring)
 NUMERICS_DEPTHS = (DEEP_VS_STATIC_M, DEEP_M, 200)
 NUMERICS_CHUNKS = (2, 32, 64, 256)
 NUMERICS_SMALL_N = (64, 96, 100, (1 << 14) + 16, (1 << 14) + 2)
@@ -4378,9 +4423,10 @@ def _dot_instructions(ck) -> dict:
 
 def numerics_inputs(n: int, m: int, seed: int) -> dict:
     """Seeded f32 vectors (xp0: xp with zeros at every 17th element, and a
-    pseudo-gradient pg) and bf16 rings of m rows at n elements, the rings
-    made 16 rows at a time (at 2^24 x 200 a float32 draw of a whole ring
-    would take 13 GB)."""
+    pseudo-gradient pg) and bf16 rings of m rows at n elements in the
+    solver's padded layout (``core.ring_zeros``), the rings made 16 rows at
+    a time (at 2^24 x 200 a float32 draw of a whole ring would take 13
+    GB)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")
     a = dict(xp=rosenbrock.initial_point(n, torch.float32, "cuda") + 0.1 * r(n),
@@ -4388,7 +4434,7 @@ def numerics_inputs(n: int, m: int, seed: int) -> dict:
     a["xp0"] = a["xp"].clone()
     a["xp0"][::17] = 0.0
     for ring in ("S", "Y"):
-        a[ring] = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        a[ring] = ring_zeros((m, n), torch.bfloat16, "cuda")
         for j in range(0, m, 16):
             a[ring][j:j + 16] = r(min(16, m - j), n)
     return a
@@ -4411,8 +4457,8 @@ def solo_mma_numerics() -> list:
     """The solo tensor-core K4's SP and YP with the . gp column against
     ``products_f64`` at ``NUMERICS_DEPTHS``: at n = 2^20 and 2^24 with
     ``NUMERICS_CHUNKS`` chunks per program (the program cap and the chunk
-    bound forced) and at ``NUMERICS_SMALL_N`` on the chosen grid (the fold
-    form where n is not a multiple of 16), each normwise gap within the
+    bound forced) and at ``NUMERICS_SMALL_N`` on the chosen grid (over the
+    padded ring the tensor-core form at every n), each normwise gap within the
     sum tolerance and printed beside its form and chunk count; at n = 2^20
     the deep fold form's gap beside them."""
     ts = TOL[(torch.float32, "sum")]
@@ -4435,7 +4481,8 @@ def solo_mma_numerics() -> list:
                 finally:
                     factory.SOLO_MMA_PROGRAMS, factory.MMA_MAX_CHUNKS = saved
                 form = solo_form(k.trial_pair_gram, n)
-                want_form = "mma" if n % factory.MMA_ALIGN == 0 else "deep"
+                # the padded ring: the tensor-core form at every n
+                want_form = "mma"
                 if form["form"] != want_form:
                     raise AssertionError(f"numerics m={m} n={n}: the {form['form']} form ran")
                 g = out[2]
@@ -5601,7 +5648,8 @@ RULES_GAP = 3e-7
 
 def rules_inputs(B: int, n: int, m: int, seed: int) -> dict:
     """Seeded inputs of the batched epilogues at B x n with m bf16 ring rows
-    (made 16 rows of one instance at a time: at 4 x 2^24 x 80 a float32
+    in the runner's padded layout (``core.ring_zeros``; made 16 rows of one
+    instance at a time: at 4 x 2^24 x 80 a float32
     draw of a whole ring would take 21 GB), every instance live, xp zero at
     every 17th element."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -5612,7 +5660,7 @@ def rules_inputs(B: int, n: int, m: int, seed: int) -> dict:
              stp=0.2 + torch.rand(B, generator=g, device="cuda"),
              live=torch.ones(B, dtype=torch.bool, device="cuda"))
     for ring in ("S", "Y"):
-        a[ring] = torch.empty((B, m, n), dtype=torch.bfloat16, device="cuda")
+        a[ring] = ring_zeros((B, m, n), torch.bfloat16, "cuda")
         for b in range(B):
             for j in range(0, m, 16):
                 a[ring][b, j:j + 16] = 0.1 * r(min(16, m - j), n)
@@ -5621,9 +5669,9 @@ def rules_inputs(B: int, n: int, m: int, seed: int) -> dict:
 
 def phase_batched_mma_rules() -> list:
     """K4 b and K14 b with their . gp columns under the solo form's rules,
-    at ``RULES_DEPTHS`` and ``RULES_SHAPES``: the form the grid picks (the
-    tensor-core form at an n that is a multiple of 16, the deep fold form
-    at 2^14 + 2, as the solo launch picks at that n), its compiled
+    at ``RULES_DEPTHS`` and ``RULES_SHAPES``: the form the grid picks (over
+    the runner's padded ring the tensor-core form at every n, 2^14 + 2
+    too, as the solo launch picks there), its compiled
     registers (a spill fails), and for the tensor-core form the chunks a
     program sums (at most ``factory.MMA_MAX_CHUNKS``) and each instance's
     SP and YP against the float64 product of its own operands
@@ -5655,7 +5703,8 @@ def phase_batched_mma_rules() -> list:
                 f = kern.last_form
                 info = _compiled_info(f.compiled)
                 grid = factory.batched_epilogue_grid(B, n, m, torch.float32, torch.bfloat16)
-                want = "mma" if n % factory.MMA_ALIGN == 0 else "deep"
+                # the padded ring: the tensor-core form at every n
+                want = "mma"
                 tag = f"{'K14b' if ow else 'K4b'} gp m={m} B={B} n={n}"
                 if f.form != want or grid.form != want or info["n_spills"]:
                     raise AssertionError(f"{tag}: the {f.form} form ran ({want} wanted), {info}")
@@ -8786,6 +8835,636 @@ def phase_sharded_speculative_world1() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the tensor-core epilogues at an n off a multiple of 16, over the ring
+# whose row stride is padded to 16 elements
+# ---------------------------------------------------------------------------
+
+#: the widths off a multiple of 16 of the ragged phases: solo (n = 2^20 + 2;
+#: the paths 2^24 + 2) and batched (1024 x (2^14 + 2))
+RAGGED_N, RAGGED_PATH_N, RAGGED_BN = (1 << 20) + 2, (1 << 24) + 2, (1 << 14) + 2
+#: the settings the ragged checks take: f32 and f64 rings at m = 80 (the
+#: row-block form), a bf16 ring at m = 80 (the one-pass tensor-core form)
+#: and at m = 260 (the row-block form); before the padded ring every one
+#: of them took the deep fold form at such an n
+RAGGED_ROWS = {"_rg_m80": (torch.float32, torch.bfloat16, 80),
+               "_rg_m260": (torch.float32, torch.bfloat16, 260),
+               "_rg_f64_m80": (torch.float64, torch.float64, 80),
+               "_rg_f32_m80": (torch.float32, torch.float32, 80)}
+#: the settings the ragged paths run (``phase_ragged_paths``), whose rows
+#: the kernel table shows: solo over f32 and bf16 rings, batched over f32,
+#: f64 and bf16 rings, m = 80
+RAGGED_SOLO_ROWS = ("_rg_f32_m80", "_rg_m80")
+RAGGED_BATCHED_ROWS = ("_rg_f32_m80", "_rg_f64_m80", "_rg_m80")
+#: instances of the batched ragged checks, which hold four copies of the
+#: rings (the timings take ``BATCH_B`` and hold their launches there too,
+#: on two copies: ``_hold_timed``)
+RAGGED_CHECK_B = 48
+#: timed calls of each launch in the ragged phases' turns
+RAGGED_REPS = 5
+KERNELS.update({
+    f"{name}{sfx}": (route, src, f"{rep} (m = {RAGGED_ROWS[sfx][2]}, "
+                                 f"{str(RAGGED_ROWS[sfx][0])[6:]}/{str(RAGGED_ROWS[sfx][1])[6:]}"
+                                 f", an n off 16 over the padded ring)")
+    for name, (route, src, rep) in list(KERNELS.items())
+    for sfx in (RAGGED_SOLO_ROWS if name in ("K4_trial_pair_gram", "K14_owlqn_trial_pair_gram")
+                else RAGGED_BATCHED_ROWS if name in BATCHED_FOLD_EPILOGUES else ())})
+#: K5 b at m = 80 (the batched trial route over a bf16 ring; ``phase_ragged_paths``)
+KERNELS["K5b_pair_gram_batched_m80"] = (
+    "cuda", "lbfgs_torch/csrc/pair_gram.cu", "lbfgs_tpu/ops/fused.py:837 (m = 80)" + VMAPPED)
+
+
+def ring_pads_zero(R: torch.Tensor) -> bool:
+    """Whether every pad column [n, ld) of a padded ring ([m, n] or [B, m,
+    n]) is exactly zero."""
+    *lead, n = R.shape
+    ld = R.stride(-2)
+    rows = int(np.prod(lead))
+    return bool((R.as_strided((rows, ld), (ld, 1), R.storage_offset())[:, n:] == 0).all())
+
+
+def _ld_global(ck) -> dict:
+    """The global loads in a compiled Triton kernel's PTX: register loads,
+    vector (``.v2``, ``.v4``) and scalar, and the pipelined loads into
+    shared memory (``cp.async``) by their bytes: a ring tile that loads in
+    16-byte vectors takes ``cp.async`` of 16 bytes."""
+    ptx = ck.asm["ptx"]
+    loads = re.findall(r"\bld\.global(?:\.[\w:]+)*", ptx)
+    vec = [ld for ld in loads if re.search(r"\.v[24]\b", ld)]
+    cp = re.findall(r"\bcp\.async\.c[ag]\.shared\.global\s*\[[^\]]*\],\s*\[[^\]]*\],"
+                    r"\s*(0x[0-9a-fA-F]+|\d+)", ptx)
+    sizes = {}
+    for b in cp:
+        sizes[str(int(b, 0))] = sizes.get(str(int(b, 0)), 0) + 1
+    return dict(ld_global_vector=len(vec), ld_global_scalar=len(loads) - len(vec),
+                cp_async_bytes=sizes)
+
+
+def ragged_inputs(vd, hd, m: int, n: int, B=None, seed: int = SEED + 27) -> dict:
+    """Seeded vectors near the Rosenbrock start ([n], or [B, n] with every
+    third instance from the third frozen) and rings of m rows in the
+    padded layout (``core.as_ring``), made 16 rows at a time."""
+    g = torch.Generator(device="cuda").manual_seed(seed + m + n)
+    lead = () if B is None else (B,)
+    r = lambda *s: torch.randn(*lead, *s, generator=g, device="cuda", dtype=vd)
+    a = dict(xp=rosenbrock.initial_point(n, vd, "cuda") + 0.1 * r(n), d=0.1 * r(n), gp=r(n),
+             pg=r(n), end=m - 3, window=(5, n - 7))
+    a["xp"] = a["xp"].expand(*lead, n).contiguous()
+    a["xp0"] = a["xp"].clone()
+    a["xp0"][..., ::17] = 0.0
+    for ring in ("S", "Y"):
+        R = ring_zeros((*lead, m, n), hd, "cuda")
+        for j in range(0, m, 16):
+            R[..., j:j + 16, :] = (0.1 * r(min(16, m - j), n)).to(hd)
+        a[ring] = R
+    if B is not None:
+        a["stp"] = 0.2 + torch.rand(B, generator=g, device="cuda", dtype=vd)
+        a["live"] = torch.ones(B, dtype=torch.bool, device="cuda")
+        a["live"][2::3] = False
+    return a
+
+
+def _ragged_calls(k, a: dict, batched: bool) -> dict:
+    """name: (wrapper, plain version, call(fn, rings, with_gp, live) ->
+    (the vectors it wrote, its outputs)) of K4 and K14 (K4 b and K14 b) on
+    copies of a's vectors; the solo launches in place."""
+    lo, hi = a["window"]
+    end = a["end"]
+
+    def k4(fn, R, gp, live):
+        t = dict(xp=a["xp"].clone(), gp=a["gp"].clone())
+        if batched:
+            out = fn(t["xp"], a["d"], t["gp"], a["stp"], *R, end, live, with_gp=gp)
+        else:
+            out = fn(t["xp"], a["d"], t["gp"], STP, *R, end, inplace=True, with_gp=gp)
+        return t, out
+
+    def k14(fn, R, gp, live):
+        t = dict(xp=a["xp0"].clone(), gp=a["gp"].clone(), pg=a["pg"].clone())
+        if batched:
+            out = fn(t["xp"], a["d"], t["gp"], t["pg"], a["stp"], C_L1, lo, hi, *R, end, live,
+                     with_gp=gp)
+        else:
+            out = fn(t["xp"], a["d"], t["gp"], t["pg"], STP, C_L1, lo, hi, *R, end,
+                     inplace=True, with_gp=gp)
+        return t, out
+
+    b = "_batched" if batched else ""
+    return {
+        ("K4b_trial_pair_gram_batched" if batched else "K4_trial_pair_gram"): (
+            getattr(k, "trial_pair_gram" + b), getattr(k, f"trial_pair_gram{b}_ref"), k4),
+        ("K14b_owlqn_trial_pair_gram_batched" if batched else "K14_owlqn_trial_pair_gram"): (
+            getattr(k, "owlqn_trial_pair_gram" + b), getattr(k, f"owlqn_trial_pair_gram{b}_ref"),
+            k14),
+    }
+
+
+def _is_sum(u: torch.Tensor, n: int) -> bool:
+    """Whether an epilogue's output is a sum (a scalar, a [B] sum, the
+    products), not one of its [n] vectors or a changed flag."""
+    return u.dtype.is_floating_point and (u.ndim == 0 or u.shape[-1] != n)
+
+
+def _ragged_pair(a: dict, t: dict, ow: bool, hd):
+    """The pair the launch formed from its own outputs, rounded to the
+    ring's dtype: s = stp*d (K4) or x - xp (K14), y = g - gp."""
+    xp = a["xp0"] if ow else a["xp"]
+    if ow:
+        s = t["xp"] - xp
+    elif "stp" in a:
+        s = a["stp"][:, None] * a["d"]
+    else:
+        s = torch.full((1,), STP, dtype=a["d"].dtype, device="cuda") * a["d"]
+    return s, t["gp"] - a["gp"]
+
+
+def _check_ragged(k, a: dict, m: int, tag: str, batched: bool, errs: dict, rows: list) -> None:
+    """K4 and K14 (K4 b and K14 b), each with and without the . gp column,
+    at an n off 16 over the padded ring: the tensor-core form the depth
+    takes (``factory.solo_epilogue_grid`` / ``batched_epilogue_grid``)
+    against the plain version (vectors and sums normwise, the changed flags,
+    ring row ``end`` the rounding of the kernel's own pair, the other rows
+    kept, frozen instances untouched), against the deep fold form on the
+    same values in a ring of row stride n (x, g, pg and the rings bit for
+    bit, the sums at the sum tolerance), the pads zero, the . gp launch's
+    products against the float64 product of its own operands
+    (``BATCHED_ROWS_GAP``); the compiled kernel's registers, spills and
+    global loads (a spill fails)."""
+    vd, hd = a["xp"].dtype, a["S"].dtype
+    tv, ts = TOL[(vd, "vec")], TOL[(vd, "sum")]
+    n = a["xp"].shape[-1]
+    live = a.get("live")
+    sel = (lambda v: v[live]) if batched else (lambda v: v)
+    grid = (factory.batched_epilogue_grid(a["xp"].shape[0], n, m, vd, hd) if batched
+            else factory.solo_epilogue_grid(n, m, vd, hd))
+    want = "mma" if hd == torch.bfloat16 and m <= factory.MMA_MAX_M else "mma_rows"
+    if grid.form != want:
+        raise AssertionError(f"{tag}: the grid picks {grid.form}, {want} wanted")
+    end = a["end"]
+    keep = [j for j in range(m) if j != end]
+    for base, (kern, ref, call) in _ragged_calls(k, a, batched).items():
+        ow = base.startswith("K14")
+        vecs = ("xp", "gp", "pg") if ow else ("xp", "gp")
+        for gp in (False, True):
+            name = base + ("_gp" if gp else "") + tag
+            R = (as_ring(a["S"].clone()), as_ring(a["Y"].clone()))
+            t, out = call(kern, R, gp, live)
+            f = kern.last_form
+            info = dict(_compiled_info(f.compiled), **_ld_global(f.compiled))
+            if f.form != want or info["n_spills"]:
+                raise AssertionError(f"{name}: the {f.form} form ran ({want} wanted), {info}")
+            if not all(is_ring(r_) and ring_pads_zero(r_) for r_ in R):
+                raise AssertionError(f"{name}: the ring lost its padded layout or its zero pads")
+            Rq = (a["S"].clone(), a["Y"].clone())
+            tq, outq = call(ref, Rq, gp, live)
+            e = [check(f"{name} {v}", sel(t[v]), sel(tq[v]), tv) for v in vecs]
+            e += [check(f"{name} sum{i}", sel(u), sel(w), ts) for i, (u, w) in
+                  enumerate(zip(out, outq)) if _is_sum(u, n)]
+            if not all(torch.equal(sel(u), sel(w)) for u, w in zip(out, outq)
+                       if u.dtype == torch.bool):
+                raise AssertionError(f"{name}: changed differs from the plain version")
+            errs[name] = (max(x[0] for x in e), max(x[1] for x in e))
+            s, y = _ragged_pair(a, t, ow, hd)
+            rows_ok = (same_bits(sel(R[0][..., end, :]), sel(s.to(hd)))
+                       and same_bits(sel(R[1][..., end, :]), sel(y.to(hd)))
+                       and same_bits(R[0][..., keep, :], a["S"][..., keep, :])
+                       and same_bits(R[1][..., keep, :], a["Y"][..., keep, :]))
+            if not rows_ok:
+                raise AssertionError(f"{name}: the ring rows are not the rounded pair and the "
+                                     f"kept rows")
+            if batched and not all(same_bits(t[v][~live], a["xp0" if (ow and v == "xp")
+                                                          else v][~live]) for v in vecs):
+                raise AssertionError(f"{name} wrote a frozen instance")
+            del tq, outq, Rq
+            # the deep fold form on the same values in a ring of row stride n
+            Rf = (a["S"].contiguous(), a["Y"].contiguous())
+            tf, outf = call(kern, Rf, gp, live)
+            if kern.last_form.form != "deep":
+                raise AssertionError(f"{name}: the {kern.last_form.form} form ran as the fold")
+            bits = {v: same_bits(t[v], tf[v]) for v in vecs}
+            bits.update(S=torch.equal(R[0], Rf[0]), Y=torch.equal(R[1], Rf[1]))
+            if not all(bits.values()):
+                raise AssertionError(f"{name} against the deep fold form: {bits}")
+            fold_info = dict(_compiled_info(kern.last_form.compiled),
+                             **_ld_global(kern.last_form.compiled))
+            gap = 0.0
+            for i, (u, w) in enumerate(zip(out, outf)):
+                if _is_sum(u, n):
+                    gap = max(gap, check(f"{name} sum{i} vs the fold form", sel(u), sel(w),
+                                         ts)[1])
+            del tf, outf, Rf
+            row = dict(kernel=f.kernel, name=name, form=f.form, m=m, n=n,
+                       programs=f.programs, chunks_per_program=f.tiles,
+                       **{key: v for key, v in f.consts.items() if key != "m"}, **info,
+                       fold=dict(kernel="deep", **fold_info), vs_fold_sum_gap=gap)
+            if gp:
+                SP, YP = out[3:5] if ow else (out[4:6] if batched else out[7:9])
+                d0 = -(t["pg"] if ow else t["gp"])
+                # three live instances: the first, the middle one and the last
+                held = torch.nonzero(live).flatten().tolist() if batched else []
+                held = [held[0], held[len(held) // 2], held[-1]] if batched else []
+                want_p = ([products_f64(R[0][b], R[1][b], s[b], y[b], d0[b], a["gp"][b], end)
+                           for b in held] if batched else
+                          [products_f64(R[0], R[1], s, y, d0, a["gp"], end)])
+                got = [(SP[b], YP[b]) for b in held] if batched else [(SP, YP)]
+                row["products_vs_float64"] = max(
+                    max(check(f"{name} SP vs float64", g_[0], w_[0], BATCHED_ROWS_GAP[vd])[1],
+                        check(f"{name} YP vs float64", g_[1], w_[1], BATCHED_ROWS_GAP[vd])[1])
+                    for g_, w_ in zip(got, want_p))
+            rows.append(row)
+            del t, out, R
+            torch.cuda.empty_cache()
+
+
+def _hold_timed(name: str, kern, ref, call, a: dict, R: tuple, gp: bool, ow: bool, want: str,
+                errs: dict) -> None:
+    """One batched launch at the timed shape (``BATCH_B`` x (2^14 + 2), a
+    third of the instances frozen) on the rings R the timings take, held
+    to its plain version on the same values: the form the grid picks with
+    no spill, vectors and sums at the tolerances, the changed flags, ring
+    row ``end`` the rounding of the launch's own pair (the pads zero), the
+    frozen instances' vectors and row untouched, the . gp launch's products
+    against the float64 product of its own operands at three instances;
+    errs[name] takes the larger error of this and ``_check_ragged``'s."""
+    vd, hd = a["xp"].dtype, a["S"].dtype
+    tv, ts = TOL[(vd, "vec")], TOL[(vd, "sum")]
+    n, end, live = a["xp"].shape[-1], a["end"], a["live"]
+    vecs = ("xp", "gp", "pg") if ow else ("xp", "gp")
+    row0 = (R[0][:, end].clone(), R[1][:, end].clone())
+    t, out = call(kern, R, gp, live)
+    f = kern.last_form
+    info = _compiled_info(f.compiled)
+    if f.form != want or info["n_spills"]:
+        raise AssertionError(f"{name} at B = {BATCH_B}: the {f.form} form ran ({want} "
+                             f"wanted), {info}")
+    s, y = _ragged_pair(a, t, ow, hd)
+    if not (same_bits(R[0][live, end], s.to(hd)[live]) and same_bits(R[1][live, end],
+                                                                      y.to(hd)[live])
+            and same_bits(R[0][~live, end], row0[0][~live])
+            and same_bits(R[1][~live, end], row0[1][~live])
+            and all(ring_pads_zero(r_) for r_ in R)):
+        raise AssertionError(f"{name} at B = {BATCH_B}: ring row end is not the rounded pair "
+                             f"(a frozen instance's row untouched), or a pad is not zero")
+    if not all(same_bits(t[v][~live], a["xp0" if (ow and v == "xp") else v][~live])
+               for v in vecs):
+        raise AssertionError(f"{name} at B = {BATCH_B} wrote a frozen instance")
+    e = []
+    if gp:
+        SP, YP = out[3:5] if ow else out[4:6]
+        d0 = -(t["pg"] if ow else t["gp"])
+        idx = torch.nonzero(live).flatten().tolist()
+        for b in (idx[0], idx[len(idx) // 2], idx[-1]):
+            wS, wY = products_f64(R[0][b], R[1][b], s[b], y[b], d0[b], a["gp"][b], end)
+            check(f"{name} SP[{b}] vs float64", SP[b], wS, BATCHED_ROWS_GAP[vd])
+            check(f"{name} YP[{b}] vs float64", YP[b], wY, BATCHED_ROWS_GAP[vd])
+    del row0, s, y
+    tq, outq = call(ref, R, gp, live)
+    e += [check(f"{name} {v} at B = {BATCH_B}", t[v][live], tq[v][live], tv) for v in vecs]
+    e += [check(f"{name} sum{i} at B = {BATCH_B}", u[live], w[live], ts)
+          for i, (u, w) in enumerate(zip(out, outq)) if _is_sum(u, n)]
+    if not all(torch.equal(u[live], w[live]) for u, w in zip(out, outq) if u.dtype == torch.bool):
+        raise AssertionError(f"{name} at B = {BATCH_B}: changed differs from the plain version")
+    errs[name] = tuple(max(x) for x in zip(errs[name], *e))
+
+
+def _time_ragged(k, a: dict, m: int, tag: str, batched: bool, times: dict, timed_by: dict,
+                 bounds: dict, turns: dict, errs: dict) -> None:
+    """Each launch of ``_check_ragged`` timed: its plain version once, then
+    in turns against the deep fold form over a ring of row stride n, the
+    layout and form such an n took before (fold, padded, padded, fold;
+    the launch's time the lesser of its two), with its bound.  Batched,
+    the launches are held at this shape too, on the rings the timings take
+    (a third of the instances frozen): to the plain version
+    (``_hold_timed``), then after the turns to the fold form (x, g, pg and
+    both whole rings bit for bit, the sums at the sum tolerance), and the
+    rings' kept rows to their values before the first launch (their
+    float64 row sums, bit for bit)."""
+    vd, hd = a["xp"].dtype, a["S"].dtype
+    every = torch.ones_like(a["live"]) if batched else None
+    elems = a["xp"].numel()
+    n, end = a["xp"].shape[-1], a["end"]
+    keep = [j for j in range(m) if j != end]
+    R = (a["S"], a["Y"])
+    kept = [r_.sum(-1, dtype=torch.float64)[..., keep] for r_ in R]
+    want = "mma" if hd == torch.bfloat16 and m <= factory.MMA_MAX_M else "mma_rows"
+    calls = _ragged_calls(k, a, batched)
+    # the plain versions first: they widen the ring, so the fold form's
+    # copy of the rings is made after
+    plain_ms = {}
+    for base, (kern, ref, call) in calls.items():
+        for gp in (False, True):
+            name = base + ("_gp" if gp else "") + tag
+            plain = lambda ref=ref, call=call, gp=gp: call(ref, R, gp, every)
+            plain_ms[name] = (device_time(plain, min(RAGGED_REPS, PLAIN_REPS)),
+                              device_time.source)
+            bounds[name] = bound(base + ("_gp" if gp else "") + "_m80", elems, vd.itemsize,
+                                 hd.itemsize, m)
+            if batched:
+                _hold_timed(name, kern, ref, call, a, R, gp, base.startswith("K14"), want, errs)
+            torch.cuda.empty_cache()
+    Rf = (a["S"].contiguous(), a["Y"].contiguous())
+    for base, (kern, ref, call) in calls.items():
+        for gp in (False, True):
+            name = base + ("_gp" if gp else "") + tag
+            new = lambda kern=kern, call=call, gp=gp: call(kern, R, gp, every)
+            fold = lambda kern=kern, call=call, gp=gp: call(kern, Rf, gp, every)
+            f1 = device_time(fold, RAGGED_REPS)
+            r1 = device_time(new, RAGGED_REPS)
+            r2, by = device_time(new, RAGGED_REPS), device_time.source
+            f2 = device_time(fold, RAGGED_REPS)
+            times[name] = (min(r1, r2), plain_ms[name][0])
+            timed_by[name] = (by, plain_ms[name][1])
+            turns[name] = dict(fold_ms=[f1, f2], padded_ms=[r1, r2],
+                               share_of_bound=bounds[name][0] / min(r1, r2),
+                               fold_share_of_bound=bounds[name][0] / min(f1, f2))
+            if batched:
+                live = a["live"]
+                t, out = call(kern, R, gp, live)
+                tf, outf = call(kern, Rf, gp, live)
+                if kern.last_form.form != "deep":
+                    raise AssertionError(f"{name}: the {kern.last_form.form} form ran as the "
+                                         f"fold")
+                vecs = ("xp", "gp", "pg") if base.startswith("K14") else ("xp", "gp")
+                bits = {v: same_bits(t[v], tf[v]) for v in vecs}
+                bits.update(S=torch.equal(R[0], Rf[0]), Y=torch.equal(R[1], Rf[1]))
+                if not all(bits.values()):
+                    raise AssertionError(f"{name} at B = {BATCH_B} against the deep fold form: "
+                                         f"{bits}")
+                for i, (u, w) in enumerate(zip(out, outf)):
+                    if _is_sum(u, n):
+                        turns[name]["vs_fold_sum_gap"] = max(
+                            turns[name].get("vs_fold_sum_gap", 0.0),
+                            check(f"{name} sum{i} vs the fold form at B = {BATCH_B}",
+                                  u[live], w[live], TOL[(vd, "sum")])[1])
+                del t, out, tf, outf
+    if not all(torch.equal(r_.sum(-1, dtype=torch.float64)[..., keep], k_)
+               for r_, k_ in zip(R, kept)):
+        raise AssertionError(f"{tag}: a launch changed a ring row other than row end")
+    del Rf
+    torch.cuda.empty_cache()
+
+
+def _check_k5b_m80(errs: dict, rows: list, times: dict, timed_by: dict, bounds: dict) -> None:
+    """K5 b (each with and without the . gp column) at m = 80 over a bf16
+    ring: at 1024 x 2^14 (rings of row stride n) and at 1024 x (2^14 + 2)
+    over the padded ring, against its plain version (its products at the
+    sum tolerance, the ring rows bit for bit, the pads zero), timed beside
+    the plain version at 1024 x 2^14 with its bound."""
+    vd, hd, m = torch.float32, torch.bfloat16, DEEP_M
+    ts = TOL[(vd, "sum")]
+    for n, padded in ((BATCH_N, False), (RAGGED_BN, True)):
+        a = ragged_inputs(vd, hd, m, n, BATCH_B)
+        if not padded:
+            a["S"], a["Y"] = a["S"].contiguous(), a["Y"].contiguous()
+        s = a["stp"][:, None] * a["d"]
+        gx = a["gp"] + 0.1 * a["pg"]
+        for gp in (False, True):
+            name = "K5b_pair_gram_batched" + ("_gp" if gp else "") + "_m80" + (
+                "_rg" if padded else "")
+            Rk = (a["S"].clone(), a["Y"].clone()) if not padded else (as_ring(a["S"].clone()),
+                                                                     as_ring(a["Y"].clone()))
+            Rq = (a["S"].clone(), a["Y"].clone())
+            out = fused.pair_gram_sd_batched(a["stp"], a["d"], gx, a["gp"], *Rk, a["end"],
+                                             a["live"], with_gp=gp)
+            ref = fused.pair_gram_sd_batched_ref(a["stp"], a["d"], gx, a["gp"], *Rq, a["end"],
+                                                 a["live"], with_gp=gp)
+            live = a["live"]
+            e = [check(f"{name} {i}", u[live], w[live], ts) for i, (u, w) in
+                 enumerate(zip(out, ref))]
+            if not (torch.equal(Rk[0], Rq[0]) and torch.equal(Rk[1], Rq[1])):
+                raise AssertionError(f"{name}: the ring rows differ from the plain version's")
+            if padded and not all(ring_pads_zero(r_) for r_ in Rk):
+                raise AssertionError(f"{name}: a pad column is not zero")
+            errs[name] = (max(x[0] for x in e), max(x[1] for x in e))
+            row = dict(kernel=name, n=n, m=m, B=int(a["xp"].shape[0]), padded=padded,
+                       ring_stride=Rk[0].stride(-2), normwise=errs[name][1])
+            if not padded:
+                call = lambda gp=gp: fused.pair_gram_sd_batched(
+                    a["stp"], a["d"], gx, a["gp"], a["S"], a["Y"], a["end"], a["live"],
+                    with_gp=gp)
+                plain = lambda gp=gp: fused.pair_gram_sd_batched_ref(
+                    a["stp"], a["d"], gx, a["gp"], a["S"], a["Y"], a["end"], a["live"],
+                    with_gp=gp)
+                k_ms, p_ms, k_by, p_by = kernel_vs_plain(call, plain, RAGGED_REPS)
+                key = "K5b_pair_gram_batched" + ("_gp" if gp else "") + "_m80"
+                times[key], timed_by[key] = (k_ms, p_ms), (k_by, p_by)
+                bounds[key] = bound("K5b_pair_gram_batched" + ("_gp" if gp else "") + "_m80",
+                                    a["xp"].numel(), vd.itemsize, hd.itemsize, m)
+                row.update(ms=k_ms, plain_ms=p_ms, bound_ms=bounds[key][0],
+                           share_of_bound=bounds[key][0] / k_ms)
+            rows.append(row)
+            del Rk, Rq, out, ref
+        del a, s, gx
+        torch.cuda.empty_cache()
+
+
+def _check_ragged_extras(errs: dict, rows: list) -> None:
+    """The extras forms at an n off 16 over the padded ring: the quadratic's
+    K4 (``K4_trial_pair_gram_ex``) and K14 (the lasso's,
+    ``K14_owlqn_trial_pair_gram_ex``), each with and without the . gp
+    column, at n = 2^20 + 2 with a bf16 ring of 80 rows (the tensor-core
+    form) against their plain versions: vectors and sums normwise, the
+    ring row the rounded pair, the other rows kept, the pads zero."""
+    vd, hd, m, n = torch.float32, torch.bfloat16, DEEP_M, RAGGED_N
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    w = 0.5 + torch.rand(n, generator=g, device="cuda")
+    tq = torch.randn(n, generator=g, device="cuda")
+    q = separable.quadratic(w, tq).kernels
+    a = ragged_inputs(vd, hd, m, n)
+    tv, ts = TOL[(vd, "vec")], TOL[(vd, "sum")]
+    for base, (kern, ref, call) in _ragged_calls(q, a, False).items():
+        ow = base.startswith("K14")
+        for gp in (False, True):
+            name = base + ("_gp" if gp else "") + "_ex_rg"
+            R = (as_ring(a["S"].clone()), as_ring(a["Y"].clone()))
+            t, out = call(kern, R, gp, None)
+            form, info = kern.last_form.form, _compiled_info(kern.last_form.compiled)
+            if form != "mma" or info["n_spills"]:
+                raise AssertionError(f"{name}: the {form} form ran, {info}")
+            Rq = (a["S"].clone(), a["Y"].clone())
+            tr, outr = call(ref, Rq, gp, None)
+            vecs = ("xp", "gp", "pg") if ow else ("xp", "gp")
+            e = [check(f"{name} {v}", t[v], tr[v], tv) for v in vecs]
+            e += [check(f"{name} sum{i}", u, v_, ts) for i, (u, v_) in enumerate(zip(out, outr))
+                  if _is_sum(u, n)]
+            s, y = _ragged_pair(a, t, ow, hd)
+            keep = [j for j in range(m) if j != a["end"]]
+            if not (same_bits(R[0][a["end"]], s.to(hd)) and same_bits(R[1][a["end"]], y.to(hd))
+                    and same_bits(R[0][keep], a["S"][keep])
+                    and all(ring_pads_zero(r_) for r_ in R)):
+                raise AssertionError(f"{name}: the ring rows or pads are wrong")
+            errs[name] = (max(x[0] for x in e), max(x[1] for x in e))
+            rows.append(dict(kernel=kern.last_form.kernel, name=name, n=n, m=m, form=form,
+                             **info, normwise=errs[name][1]))
+            del t, out, tr, outr, R, Rq
+    del a, q, w, tq
+    torch.cuda.empty_cache()
+
+
+def phase_ragged_kernels() -> dict:
+    """K4, K14, K4 b and K14 b (each with and without the . gp column) at an
+    n off a multiple of 16 over the padded ring, at each ``RAGGED_ROWS``
+    setting: solo at n = 2^20 + 2 and batched at ``RAGGED_CHECK_B`` x
+    (2^14 + 2), a third of the instances frozen (``_check_ragged``), then
+    solo at 2^20 + 2 and batched at 1024 x (2^14 + 2), every instance live,
+    timed against the plain version and in turns against the deep fold form
+    over a ring of row stride n (``_time_ragged``), the batched launches
+    held at that shape too (``_hold_timed``, and the fold form after the
+    turns); the solo launches held again at the paths' n = 2^24 + 2
+    (``RAGGED_SOLO_ROWS``); the extras forms at n = 2^20 + 2
+    (``_check_ragged_extras``) and K5 b at m = 80 (``_check_k5b_m80``).
+    Returns the table's errs, times, bounds and timers for the rows the
+    ragged paths run."""
+    k = rosenbrock.value_and_grad.kernels
+    errs, rows = {}, []
+    times, timed_by, bounds, turns = {}, {}, {}, {}
+    for sfx, (vd, hd, m) in RAGGED_ROWS.items():
+        for batched in (False, True):
+            a = ragged_inputs(vd, hd, m, RAGGED_BN if batched else RAGGED_N,
+                              RAGGED_CHECK_B if batched else None)
+            _check_ragged(k, a, m, sfx, batched, errs, rows)
+            del a
+            torch.cuda.empty_cache()
+            a = ragged_inputs(vd, hd, m, RAGGED_BN if batched else RAGGED_N,
+                              BATCH_B if batched else None)
+            _time_ragged(k, a, m, sfx, batched, times, timed_by, bounds, turns, errs)
+            del a
+            torch.cuda.empty_cache()
+    # the solo launches at the ragged paths' width (2^24 + 2: more chunks a
+    # program than at 2^20 + 2), held as at 2^20 + 2
+    for sfx in RAGGED_SOLO_ROWS:
+        vd, hd, m = RAGGED_ROWS[sfx]
+        a = ragged_inputs(vd, hd, m, RAGGED_PATH_N)
+        path_errs = {}
+        _check_ragged(k, a, m, sfx, False, path_errs, rows)
+        for name, e in path_errs.items():
+            errs[name] = tuple(max(x) for x in zip(errs[name], e))
+        del a
+        torch.cuda.empty_cache()
+    extras, k5b = [], []
+    _check_ragged_extras(errs, extras)
+    _check_k5b_m80(errs, k5b, times, timed_by, bounds)
+    emit(phase="ragged_kernels", n=RAGGED_N, B=BATCH_B, batched_n=RAGGED_BN,
+         checked_B=RAGGED_CHECK_B,
+         settings={sfx: dict(vectors=str(vd)[6:], rings=str(hd)[6:], m=m,
+                             ring_stride=ring_stride(RAGGED_N))
+                   for sfx, (vd, hd, m) in RAGGED_ROWS.items()},
+         tol=dict(vec={str(v)[6:]: TOL[(v, "vec")] for v in (torch.float32, torch.float64)},
+                  sum={str(v)[6:]: TOL[(v, "sum")] for v in (torch.float32, torch.float64)},
+                  products_vs_float64={str(v)[6:]: g for v, g in BATCHED_ROWS_GAP.items()},
+                  ring_rows="bit-exact", frozen="bit-exact",
+                  vs_fold_form_x_g_pg_rings="bit-exact"),
+         max_normwise_err={n_: e[1] for n_, e in errs.items()}, forms=rows,
+         extras=extras, k5b_m80=k5b,
+         device_ms={n_: {"kernel": v[0], "plain": v[1], "bound": bounds[n_][0], **turns.get(
+             n_, {"share_of_bound": bounds[n_][0] / v[0]})} for n_, v in times.items()},
+         timed_by={n_: {"kernel": v[0], "plain": v[1]} for n_, v in timed_by.items()})
+    table = {n_ for n_ in KERNELS if n_ in times}
+    return {"errs": {n_: errs[n_] for n_ in table},
+            "times": {n_: times[n_] for n_ in table},
+            "bounds": {n_: bounds[n_] for n_ in table},
+            "timed_by": {n_: timed_by[n_] for n_ in table}}
+
+
+#: the iterations of each ragged path
+RAGGED_ITERS = 11
+
+
+def phase_ragged_paths() -> dict:
+    """The main paths' settings at an n off a multiple of 16, m = 80, 10
+    iterations each: solo ``minimize_jit`` at n = 2^24 + 2 over f32 and
+    bf16 rings (``RAGGED_SOLO_ROWS``) through the deep-history path's plain
+    and OWL-QN settings (``_deep_run``: every K4 and K14 launch in the
+    tensor-core form the ring takes, the one-pass form over bf16, the
+    row-block form over f32), and ``minimize_batched`` at 1024 x (2^14 + 2)
+    over f32, f64 and bf16 rings (``RAGGED_BATCHED_ROWS``) through the
+    batched deep phase's settings, every K4 b and K14 b launch in the
+    tensor-core form, instances 0-7 held to solo runs (``_vs_solo_8``);
+    after each path the rings' layout and zero pads.  Then K5 b at m = 80:
+    the batched trial route (``trial_only_objective``) at 1024 x 2^14 over
+    a bf16 ring.  Returns each row's launches."""
+    k = rosenbrock.value_and_grad.kernels
+    lc_rows = {}
+
+    def held(label, st):
+        R = (st.hist.s, st.hist.y)
+        if not all(is_ring(r_) and r_.stride(-2) == ring_stride(r_.shape[-1])
+                   and ring_pads_zero(r_) for r_ in R):
+            raise AssertionError(f"{label}: the rings lost the padded layout or a pad is not "
+                                 f"zero")
+
+    for sfx in RAGGED_SOLO_ROWS:
+        vd, hd, m = RAGGED_ROWS[sfx]
+        form = "mma" if hd == torch.bfloat16 else "mma_rows"
+        x0 = rosenbrock.initial_point(RAGGED_PATH_N, vd, "cuda")
+        for name, kern, fn in (("plain", "K4_trial_pair_gram", k.trial_pair_gram),
+                               ("owlqn", "K14_owlqn_trial_pair_gram", k.owlqn_trial_pair_gram)):
+            params = DEEP_CONFIGS[name].replace(m=m, history_dtype=str(hd)[6:],
+                                                max_iterations=RAGGED_ITERS)
+            if name == "owlqn":
+                params = params.replace(orthantwise=Orthantwise(1.0, 0, RAGGED_PATH_N - 1))
+            st, dt, lc, reads, _ = _deep_run("ragged path", name, params, x0, "epilogue",
+                                             form=form)
+            held(f"ragged path {name}{sfx}", st)
+            lc_rows[kern + sfx] = fn.mma_launches if form == "mma" else fn.mma_rows_launches
+            emit(phase="ragged_path", config=name, row=kern + sfx, n=RAGGED_PATH_N, m=m,
+                 vectors=str(vd)[6:], rings=str(hd)[6:], form=form,
+                 ring_stride=st.hist.s.stride(0), iters=st.k - 1, evals=st.prob.neval,
+                 status=st.status, fx=float(st.prob.fx), seconds=dt,
+                 ms_per_iter=1e3 * dt / (st.k - 1), syncs_per_iter=reads / (st.k - 1))
+            del st
+        del x0
+        torch.cuda.empty_cache()
+    for sfx in RAGGED_BATCHED_ROWS:
+        vd, hd, m = RAGGED_ROWS[sfx]
+        form = "mma" if hd == torch.bfloat16 else "mma_rows"
+        for label, (params, path, init) in BATCHED_DEEP_PARAMS.items():
+            params = params.replace(m=m, history_dtype=str(hd)[6:],
+                                    max_iterations=RAGGED_ITERS)
+            fn = k.owlqn_trial_pair_gram_batched if label == "owlqn" else \
+                k.trial_pair_gram_batched
+            row = BATCHED_FOLD_EPILOGUES[label == "owlqn"] + sfx
+            st, walls, lc, pc, reads, iters, x0b = _batched_run(
+                f"batched ragged {label}{sfx}", params, BATCH_B, RAGGED_BN, path, init, runs=1,
+                dtype=vd)
+            count = fn.mma_launches if form == "mma" else fn.mma_rows_launches
+            if count != lc[path[1]] or fn.last_form.form != form:
+                raise AssertionError(f"batched ragged {label}{sfx}: {count} {form} launches of "
+                                     f"{lc[path[1]]} epilogues")
+            held(f"batched ragged {label}{sfx}", st)
+            lc_rows[row] = count
+            _batched_report(f"batched_ragged_{label}{sfx}", st, walls, lc, reads, iters, path,
+                            m=m, vectors=str(vd)[6:], rings=str(hd)[6:], plain_calls=pc,
+                            form=form, tensor_core_launches=count,
+                            ring_stride=st.hist.s.stride(1),
+                            instances=_vs_solo_8(f"batched ragged {label}{sfx}", params, x0b))
+            del st, x0b
+            torch.cuda.empty_cache()
+    # K5 b at m = 80: the batched trial route over a bf16 ring
+    params = BATCHED_PARAMS.replace(m=DEEP_M, max_iterations=RAGGED_ITERS)
+    x0b = batched_x0(BATCH_B, BATCH_N)
+    fn = trial_only_objective()
+    minimize_batched(params.replace(max_iterations=3), x0b, fn)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = minimize_batched(params, x0b, fn, return_state=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lc = launches()
+    iters = int(st.k.max()) - 1
+    if lc["K5b_pair_gram_batched"] != iters or not np.isfinite(st.fx).all():
+        raise AssertionError(f"K5 b m80 path: {lc['K5b_pair_gram_batched']} K5 b launches in "
+                             f"{iters} iterations")
+    lc_rows["K5b_pair_gram_batched_m80"] = lc["K5b_pair_gram_batched"]
+    emit(phase="ragged_path", config="k5b_m80", B=BATCH_B, n=BATCH_N, m=DEEP_M, iters=iters,
+         seconds=dt, launches={key: v for key, v in lc.items() if v},
+         fx_median=float(np.median(st.fx)))
+    del st, x0b
+    torch.cuda.empty_cache()
+    return lc_rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="PATH",
@@ -8879,6 +9558,8 @@ def main() -> None:
         "uncapped": bu_out["literal"]["fused"], "owlqn_uncapped": bowu_out["fused"]})
     lc_b80 = run(phase_batched_m80)
     lc_bfold = run(phase_batched_fold_paths)
+    ragged = run(phase_ragged_kernels)
+    lc_ragged = run(phase_ragged_paths)
     batched_gen = run(phase_batched_generic_kernels)
     run(phase_batched_generic_main_path)
     lc_bgow = run(phase_batched_generic_owlqn_main_path)
@@ -8906,6 +9587,7 @@ def main() -> None:
         k[key].update(batched_dm[key])
         k[key].update(batched_gen[key])
         k[key].update(batched_tr[key])
+        k[key].update(ragged[key])
     lc_cal = run(phase_launch_overhead, {
         name: (params, fused, out["ms_per_iter"], out["syncs_per_iter"])
         for name, params, fused, out in (
@@ -8938,7 +9620,7 @@ def main() -> None:
           **{name: lc_batched_ow[name] for name in BATCHED_OWLQN_PATH + BATCHED_OWLQN_INIT},
           "K15b_combine_probe_batched": lc_bu["K15b_combine_probe_batched"],
           "K16b_combine_ow_probe_batched": lc_bowu["K16b_combine_ow_probe_batched"],
-          **lc_bdeep, **lc_bfold,
+          **lc_bdeep, **lc_bfold, **lc_ragged,
           # the damped batched forms from the damped main paths (m = 6) and
           # the m = 80 runs, K3 b and K13 b at m = 80 from the capped ones
           **{name: lc_bd[label][name] for label, name in (

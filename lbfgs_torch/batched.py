@@ -152,7 +152,7 @@ import numpy as np
 import torch
 
 from . import _batched_search, solver
-from .core import History, _required_positional, np_type, to_host_rows
+from .core import History, _required_positional, np_type, ring_zeros, to_host_rows
 from .linesearch import candidate_values
 from .ops import fused
 from .orthantwise import choose_orthant, project_window
@@ -366,8 +366,8 @@ def _init_state(params: LbfgsParams, evaluate: Callable, x0_batch: torch.Tensor)
     hdtype = getattr(torch, params.history_dtype) if params.history_dtype else x.dtype
     z = dict(dtype=x.dtype, device=x.device)
     hist = History(
-        s=torch.zeros((B, m, n), dtype=hdtype, device=x.device),
-        y=torch.zeros((B, m, n), dtype=hdtype, device=x.device),
+        s=ring_zeros((B, m, n), hdtype, x.device),
+        y=ring_zeros((B, m, n), hdtype, x.device),
         ys=torch.zeros((B, m), **z), alpha=torch.zeros((B, m), **z),
         sy=torch.zeros((B, m, m), **z), yy=torch.zeros((B, m, m), **z),
     )

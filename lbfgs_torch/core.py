@@ -60,6 +60,15 @@ class ProblemState(NamedTuple):
 class History(NamedTuple):
     """Circular (s, y) correction history, stored ``[m, n]``.
 
+    ``s`` and ``y`` are the ``[:, :n]`` views of zero-filled ``[m, ld]``
+    buffers (``[B, m, ld]`` in the batched runner), ``ld = ring_stride(n)``:
+    n itself where it is a multiple of ``RING_ALIGN``, else n rounded up to
+    one, so that every ring row starts on a 32-byte boundary and the
+    tensor-core epilogues load the ring in vectors at any n.  The pad
+    columns stay zero: every writer writes the n columns alone (or zeros
+    past n).  ``ring_zeros`` allocates such a ring and ``as_ring`` gives one
+    the layout.
+
     ``sy``/``yy`` cache the Gram blocks of the Byrd-Nocedal-Schnabel
     compact representation (sy[i, j] = s_i . y_j in ring-slot indexing),
     updated by the epilogue's 6m products each iteration, so the compact
@@ -105,6 +114,42 @@ class SolverState(NamedTuple):
     #: equals stp_probe exactly.  ``None`` where the fusion does not run;
     #: the initial slot is dead (stp_probe = -1, which no entry step is)
     probe1: Optional[tuple] = None
+
+
+#: the ring's row stride is a multiple of this many elements (or n itself)
+RING_ALIGN = 16
+
+
+def ring_stride(n: int) -> int:
+    """The row stride of a ring of n columns: n rounded up to a multiple of
+    ``RING_ALIGN`` (n itself where it is one)."""
+    return -(-n // RING_ALIGN) * RING_ALIGN
+
+
+def ring_zeros(shape: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """A zero ring of ``shape`` ([m, n], or [B, m, n]): the ``[..., :n]``
+    view of a zero [..., ld] buffer, ld = ``ring_stride(n)``."""
+    *lead, n = shape
+    return torch.zeros((*lead, ring_stride(n)), dtype=dtype, device=device)[..., :n]
+
+
+def is_ring(t: torch.Tensor) -> bool:
+    """Whether ``t`` ([m, n] or [B, m, n]) has ``ring_zeros``' layout."""
+    *lead, n = t.shape
+    ld = ring_stride(n)
+    want = [1, ld]
+    if t.ndim == 3:
+        want.append(lead[1] * ld)
+    return list(t.stride())[::-1] == want
+
+
+def as_ring(t: torch.Tensor) -> torch.Tensor:
+    """``t`` ([m, n] or [B, m, n]) in ``ring_zeros``' layout: itself where
+    it has it, else a padded copy of its values (a loaded checkpoint, a
+    rank's shard, a contiguous ring handed in)."""
+    if is_ring(t):
+        return t
+    return ring_zeros(tuple(t.shape), t.dtype, t.device).copy_(t)
 
 
 def np_type(dtype: torch.dtype) -> type:

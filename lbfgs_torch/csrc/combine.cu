@@ -48,6 +48,11 @@
 // below), are K3, K13 and K6 over [B, n] instances with blockIdx.y as the
 // instance, at any depth as the solo forms.
 //
+// The rings are [m, n] with a row stride ld: n, or n rounded up to a
+// multiple of 16 elements (the package's padded ring, whose pad columns
+// are zero and never read here); row j of instance b starts at element
+// (b*m + j)*ld.
+//
 // Any history depth: the 2m+1 coefficients (2m+3 for K6) sit in shared
 // memory.  Up to kStaticM ring rows that is a static array, as it always
 // was; a deeper ring runs the same body (kDyn) with the array sized at
@@ -135,7 +140,7 @@ template <typename T, typename H, bool kOw, bool kFix, bool kDyn>
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __restrict__ Y,
                const T* __restrict__ coef, T* __restrict__ r, T* __restrict__ partials,
-               long long n, int m, long long lo, long long hi, int fix_end) {
+               long long n, long long ld, int m, long long lo, long long hi, int fix_end) {
   constexpr int kParts = kOw ? 3 : 2;
   // the coefficients: the static array, or (kDyn) the one sized at launch
   __shared__ T c_static[kDyn ? 1 : 3 + 2 * kStaticM];
@@ -161,8 +166,8 @@ combine_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __restrict__
       // the combination rounds as K15, K16 and the plain versions do: each
       // product and each add on its own, in their order
       for (int j = 0; j < m; ++j) {
-        acc_s = add_rn(acc_s, mul_rn(c[1 + j], widen<T, H>(S[j * n + i])));
-        const T yj = widen<T, H>(Y[j * n + i]);
+        acc_s = add_rn(acc_s, mul_rn(c[1 + j], widen<T, H>(S[j * ld + i])));
+        const T yj = widen<T, H>(Y[j * ld + i]);
         acc_y = add_rn(acc_y, mul_rn(c[1 + m + j], yj));
         if constexpr (kFix) {
           if (j == fix_end) y_end = yj;
@@ -170,7 +175,7 @@ combine_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __restrict__
       }
       const T rv = add_rn(mul_rn(c[0], gv), add_rn(acc_s, acc_y));
       if constexpr (kFix) {
-        Y[fix_end * n + i] = narrow<H, T>(blend_rn(c[1 + 2 * m], y_end, c[2 + 2 * m], gv));
+        Y[fix_end * ld + i] = narrow<H, T>(blend_rn(c[1 + 2 * m], y_end, c[2 + 2 * m], gv));
       }
       acc[0] += rv * rv;
       if constexpr (kOw) {
@@ -205,9 +210,9 @@ combine_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __restrict__
 
 template <typename T, typename H, bool kOw, bool kFix>
 int launch_combine(const void* g, const void* S, void* Y, const void* coef, void* r,
-                   void* partials, long long n, int m, long long lo, long long hi,
-                   int fix_end, void* stream) {
-  if (n <= 0 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+                   void* partials, long long n, long long ld, int m, long long lo,
+                   long long hi, int fix_end, void* stream) {
+  if (n <= 0 || ld < n || m < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (kFix && (fix_end < 0 || fix_end >= m)) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kBlockElems - 1) / kBlockElems;
   const bool dyn = m > kStaticM;
@@ -225,7 +230,7 @@ int launch_combine(const void* g, const void* S, void* Y, const void* coef, void
   kernel<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(smem),
            reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(g), static_cast<const H*>(S), static_cast<H*>(Y),
-      static_cast<const T*>(coef), static_cast<T*>(r), static_cast<T*>(partials), n, m,
+      static_cast<const T*>(coef), static_cast<T*>(r), static_cast<T*>(partials), n, ld, m,
       lo, hi, fix_end);
   return static_cast<int>(cudaGetLastError());
 }
@@ -260,8 +265,8 @@ template <typename T, typename H, bool kOw, bool kFix, bool kDyn>
 __global__ void __launch_bounds__(kThreads)
 combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __restrict__ Y,
                        const T* __restrict__ coef, const unsigned char* __restrict__ live,
-                       T* __restrict__ r, T* __restrict__ partials, long long n, int m,
-                       long long lo, long long hi, int fix_end) {
+                       T* __restrict__ r, T* __restrict__ partials, long long n,
+                       long long ld, int m, long long lo, long long hi, int fix_end) {
   constexpr int kParts = kOw ? 3 : 2;
   const long long b = blockIdx.y;
   if (!live[b]) return;
@@ -274,8 +279,8 @@ combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __re
   __syncthreads();
   g += b * n;
   r += b * n;
-  S += b * m * n;
-  Y += b * m * n;
+  S += b * m * ld;
+  Y += b * m * ld;
 
   const long long base = static_cast<long long>(blockIdx.x) * kBlockElems;
   T acc[kParts];
@@ -291,8 +296,8 @@ combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __re
       T y_end = T(0);
       // K3's combination, product by product and add by add
       for (int j = 0; j < m; ++j) {
-        acc_s = add_rn(acc_s, mul_rn(c[1 + j], widen<T, H>(S[j * n + i])));
-        const T yj = widen<T, H>(Y[j * n + i]);
+        acc_s = add_rn(acc_s, mul_rn(c[1 + j], widen<T, H>(S[j * ld + i])));
+        const T yj = widen<T, H>(Y[j * ld + i]);
         acc_y = add_rn(acc_y, mul_rn(c[1 + m + j], yj));
         if constexpr (kFix) {
           if (j == fix_end) y_end = yj;
@@ -301,7 +306,7 @@ combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __re
       const T rv = add_rn(mul_rn(c[0], gv), add_rn(acc_s, acc_y));
       if constexpr (kFix) {
         // K6's damped row, from the row as read
-        Y[fix_end * n + i] = narrow<H, T>(blend_rn(c[1 + 2 * m], y_end, c[2 + 2 * m], gv));
+        Y[fix_end * ld + i] = narrow<H, T>(blend_rn(c[1 + 2 * m], y_end, c[2 + 2 * m], gv));
       }
       acc[0] += rv * rv;
       if constexpr (kOw) {
@@ -338,9 +343,10 @@ combine_batched_kernel(const T* __restrict__ g, const H* __restrict__ S, H* __re
 
 template <typename T, typename H, bool kOw, bool kFix>
 int launch_combine_batched(const void* g, const void* S, void* Y, const void* coef,
-                           const void* live, void* r, void* partials, long long n, int m,
-                           long long lo, long long hi, int fix_end, int batch, void* stream) {
-  if (n <= 0 || m < 1 || batch < 1 || batch > 65535)
+                           const void* live, void* r, void* partials, long long n,
+                           long long ld, int m, long long lo, long long hi, int fix_end,
+                           int batch, void* stream) {
+  if (n <= 0 || ld < n || m < 1 || batch < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kFix && (fix_end < 0 || fix_end >= m)) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kBlockElems - 1) / kBlockElems;
@@ -362,7 +368,7 @@ int launch_combine_batched(const void* g, const void* S, void* Y, const void* co
   kernel<<<grid, kThreads, static_cast<size_t>(smem), reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(g), static_cast<const H*>(S), static_cast<H*>(Y),
       static_cast<const T*>(coef), static_cast<const unsigned char*>(live),
-      static_cast<T*>(r), static_cast<T*>(partials), n, m, lo, hi, fix_end);
+      static_cast<T*>(r), static_cast<T*>(partials), n, ld, m, lo, hi, fix_end);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -378,41 +384,41 @@ const char* lbfgs_cuda_error_string(int code) {
 
 #define LBFGS_COMBINE_ENTRY(SFX, T, H)                                                      \
   int lbfgs_combine_##SFX(const void* g, const void* S, void* Y, const void* coef, void* r, \
-                          void* partials, long long n, int m, void* stream) {              \
-    return launch_combine<T, H, false, false>(g, S, Y, coef, r, partials, n, m, 0, 0, 0,   \
-                                              stream);                                     \
+                          void* partials, long long n, long long ld, int m, void* stream) { \
+    return launch_combine<T, H, false, false>(g, S, Y, coef, r, partials, n, ld, m, 0, 0,  \
+                                              0, stream);                                  \
   }                                                                                         \
   int lbfgs_combine_fix_##SFX(const void* g, const void* S, void* Y, const void* coef,     \
-                              void* r, void* partials, long long n, int m, int end,        \
-                              void* stream) {                                              \
-    return launch_combine<T, H, false, true>(g, S, Y, coef, r, partials, n, m, 0, 0, end,  \
-                                             stream);                                      \
+                              void* r, void* partials, long long n, long long ld, int m,   \
+                              int end, void* stream) {                                     \
+    return launch_combine<T, H, false, true>(g, S, Y, coef, r, partials, n, ld, m, 0, 0,   \
+                                             end, stream);                                 \
   }                                                                                         \
   int lbfgs_combine_ow_##SFX(const void* g, const void* S, void* Y, const void* coef,      \
-                             void* r, void* partials, long long n, int m, long long lo,    \
-                             long long hi, void* stream) {                                 \
-    return launch_combine<T, H, true, false>(g, S, Y, coef, r, partials, n, m, lo, hi, 0,  \
-                                             stream);                                      \
+                             void* r, void* partials, long long n, long long ld, int m,    \
+                             long long lo, long long hi, void* stream) {                   \
+    return launch_combine<T, H, true, false>(g, S, Y, coef, r, partials, n, ld, m, lo, hi, \
+                                             0, stream);                                   \
   }                                                                                         \
   int lbfgs_combine_batched_##SFX(const void* g, const void* S, void* Y, const void* coef,   \
                                   const void* live, void* r, void* partials, long long n,  \
-                                  int m, int batch, void* stream) {                        \
+                                  long long ld, int m, int batch, void* stream) {          \
     return launch_combine_batched<T, H, false, false>(g, S, Y, coef, live, r, partials, n, \
-                                                      m, 0, 0, 0, batch, stream);          \
+                                                      ld, m, 0, 0, 0, batch, stream);      \
   }                                                                                         \
   int lbfgs_combine_fix_batched_##SFX(const void* g, const void* S, void* Y,               \
                                       const void* coef, const void* live, void* r,         \
-                                      void* partials, long long n, int m, int end,         \
-                                      int batch, void* stream) {                           \
+                                      void* partials, long long n, long long ld, int m,    \
+                                      int end, int batch, void* stream) {                  \
     return launch_combine_batched<T, H, false, true>(g, S, Y, coef, live, r, partials, n,  \
-                                                     m, 0, 0, end, batch, stream);         \
+                                                     ld, m, 0, 0, end, batch, stream);     \
   }                                                                                         \
   int lbfgs_combine_ow_batched_##SFX(const void* g, const void* S, void* Y,                \
                                      const void* coef, const void* live, void* r,          \
-                                     void* partials, long long n, int m, long long lo,     \
-                                     long long hi, int batch, void* stream) {              \
+                                     void* partials, long long n, long long ld, int m,     \
+                                     long long lo, long long hi, int batch, void* stream) {\
     return launch_combine_batched<T, H, true, false>(g, S, Y, coef, live, r, partials, n,  \
-                                                     m, lo, hi, 0, batch, stream);         \
+                                                     ld, m, lo, hi, 0, batch, stream);     \
   }
 
 LBFGS_COMBINE_ENTRY(f32_bf16, float, __nv_bfloat16)

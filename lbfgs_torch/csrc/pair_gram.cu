@@ -254,7 +254,7 @@ __device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ a,
                                                const T* __restrict__ gp,
                                                const T* __restrict__ pg, H* __restrict__ S,
                                                H* __restrict__ Y, long long i, long long n,
-                                               int m, int j0, int end, bool writes,
+                                               long long ld, int m, int j0, int end, bool writes,
                                                bool scalars, T (&acc)[MP][6],
                                                T (&gacc)[MP][2], T (&gs)[2]) {
   constexpr int V = kV<T>;
@@ -272,7 +272,7 @@ __device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ a,
       const int j = j0 + r;
       // row `end` is never read: its products use the unrounded pair
       if (j < m && j != end) {
-        const long long off = static_cast<long long>(j) * n + i;
+        const long long off = static_cast<long long>(j) * ld + i;
         sraw[r] = *reinterpret_cast<const RawH*>(S + off);
         yraw[r] = *reinterpret_cast<const RawH*>(Y + off);
       }
@@ -316,7 +316,7 @@ __device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ a,
           yj[v] = widen<T, H>(ye[v]);
         }
       } else {
-        const long long off = static_cast<long long>(j) * n;
+        const long long off = static_cast<long long>(j) * ld;
         load_run(S + off, i, n, false, sj);
         load_run(Y + off, i, n, false, yj);
       }
@@ -330,7 +330,7 @@ __device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ a,
   if (writes) {
     // the new pair into ring row `end`, rounded to the history type,
     // after the tile's reads
-    const long long off = static_cast<long long>(end) * n;
+    const long long off = static_cast<long long>(end) * ld;
     store_run(S + off, i, n, kVec, s);
     store_run(Y + off, i, n, kVec, y);
   }
@@ -342,21 +342,24 @@ __device__ __forceinline__ void pair_gram_tile(T stp, const T* __restrict__ a,
 // MP) inside m (MP: pair_gram_rows).  partials = [blocks, 6m]: per ring
 // row j, (S_j.y, S_j.s, S_j.d0, Y_j.y, Y_j.s, Y_j.d0); gpartials =
 // [blocks, 2m]: (S_j.gp, Y_j.gp), after K12's gp.gp and gp.pg ([blocks,
-// 2 + 2m]; only the first group's blocks add those).  vec: every array
-// starts on a 16-byte (vectors) or V-element (rings) boundary and n is a
-// multiple of V, so every whole run takes one load per array.
+// 2 + 2m]; only the first group's blocks add those).  Ring row j starts
+// at element j*ld: ld is n, or n rounded up to a multiple of 16 (the
+// package's padded ring; its pad columns are never read or written here).
+// vec: every array starts on a 16-byte (vectors) or V-element (rings)
+// boundary and n and ld are multiples of V, so every whole run takes one
+// load per array.
 //
 // kBatched (K12 b, K5 b): the grid's third index is the instance; its
 // vectors, rings and [blocks, 6m] (. gp: [blocks, 2m]) partials are at
-// offsets of its index times n, m*n and blocks*6m (blocks*2m), K5 b's step
+// offsets of its index times n, m*ld and blocks*6m (blocks*2m), K5 b's step
 // is stps[instance], and a frozen instance's blocks return at once.
 template <typename T, typename H, int MP, bool kGp, bool kXg, bool kBatched>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<H>)
 pair_gram_kernel(T stp, const T* __restrict__ a, const T* __restrict__ b,
                  const T* __restrict__ gx, const T* __restrict__ gp, const T* __restrict__ pg,
                  H* __restrict__ S, H* __restrict__ Y, T* __restrict__ partials,
-                 T* __restrict__ gpartials, long long n, int m, int end, long long tiles,
-                 bool vec, const unsigned char* __restrict__ live,
+                 T* __restrict__ gpartials, long long n, long long ld, int m, int end,
+                 long long tiles, bool vec, const unsigned char* __restrict__ live,
                  const T* __restrict__ stps) {
   static_assert(!kBatched || !(kXg && kGp), "K12 b has no . gp column");
   constexpr int kScalars = kXg && kGp ? 2 : 0;
@@ -373,8 +376,8 @@ pair_gram_kernel(T stp, const T* __restrict__ a, const T* __restrict__ b,
     a += off;
     gx += off;
     gp += off;
-    S += inst * m * n;
-    Y += inst * m * n;
+    S += inst * m * ld;
+    Y += inst * m * ld;
     partials += inst * gridDim.y * 6LL * m;
     if constexpr (kGp) gpartials += inst * gridDim.y * (2LL * m + kScalars);
   }
@@ -401,11 +404,11 @@ pair_gram_kernel(T stp, const T* __restrict__ a, const T* __restrict__ b,
     const long long i = t * kTile + static_cast<long long>(threadIdx.x) * V;
     if (i >= n) break;  // past the ragged end of the last tile
     if (vec && i + V <= n) {
-      pair_gram_tile<true, kXg, T, H, MP, kGp>(stp, a, b, gx, gp, pg, S, Y, i, n, m, j0, end,
-                                               writes, scalars, acc, gacc, gs);
+      pair_gram_tile<true, kXg, T, H, MP, kGp>(stp, a, b, gx, gp, pg, S, Y, i, n, ld, m, j0,
+                                               end, writes, scalars, acc, gacc, gs);
     } else {
-      pair_gram_tile<false, kXg, T, H, MP, kGp>(stp, a, b, gx, gp, pg, S, Y, i, n, m, j0,
-                                                end, writes, scalars, acc, gacc, gs);
+      pair_gram_tile<false, kXg, T, H, MP, kGp>(stp, a, b, gx, gp, pg, S, Y, i, n, ld, m,
+                                                j0, end, writes, scalars, acc, gacc, gs);
     }
   }
   // one reduction per sum per block: warp shuffles, then one pass over
@@ -453,13 +456,13 @@ pair_gram_kernel(T stp, const T* __restrict__ a, const T* __restrict__ b,
 
 template <typename T, typename H, int MP, bool kGp, bool kXg, bool kBatched>
 int launch_pair_gram(const PairIn<T>& in, H* S, H* Y, T* partials, T* gpartials, long long n,
-                     int m, int end, long long tiles, long long blocks, bool vec,
+                     long long ld, int m, int end, long long tiles, long long blocks, bool vec,
                      const unsigned char* live, int batch, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((m + kGroup - 1) / kGroup),
                   static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
   pair_gram_kernel<T, H, MP, kGp, kXg, kBatched><<<grid, kThreads, 0, stream>>>(
-      in.stp, in.a, in.b, in.gx, in.gp, in.pg, S, Y, partials, gpartials, n, m, end, tiles,
-      vec, live, in.stps);
+      in.stp, in.a, in.b, in.gx, in.gp, in.pg, S, Y, partials, gpartials, n, ld, m, end,
+      tiles, vec, live, in.stps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -469,11 +472,11 @@ int launch_pair_gram(const PairIn<T>& in, H* S, H* Y, T* partials, T* gpartials,
 // sums and its loaded rows are live through the whole loop.
 template <typename T, typename H, bool kGp, bool kXg, bool kBatched = false>
 int pair_gram_rows(const PairIn<T>& in, H* S, H* Y, T* partials, T* gpartials, long long n,
-                   int m, int end, long long tiles, long long blocks, bool vec,
+                   long long ld, int m, int end, long long tiles, long long blocks, bool vec,
                    cudaStream_t stream, const unsigned char* live, int batch) {
   const auto launch = [&](auto rows) {
     return launch_pair_gram<T, H, decltype(rows)::value, kGp, kXg, kBatched>(
-        in, S, Y, partials, gpartials, n, m, end, tiles, blocks, vec, live, batch, stream);
+        in, S, Y, partials, gpartials, n, ld, m, end, tiles, blocks, vec, live, batch, stream);
   };
   switch (m < 5 ? m : kGroup) {
     case 1: return launch(std::integral_constant<int, 1>());
@@ -492,35 +495,38 @@ bool aligned(const void* p, unsigned bytes) {
 // refused unless the tile is this instantiation's and the blocks' runs of
 // `tiles` tiles cover n exactly once
 template <typename T>
-bool launch_ok(long long n, int m, int end, long long tile, long long tiles, long long blocks) {
+bool launch_ok(long long n, long long ld, int m, int end, long long tile, long long tiles,
+               long long blocks) {
   constexpr long long kTile = static_cast<long long>(kThreads) * kV<T>;
-  if (n <= 0 || m < 1 || end < 0 || end >= m || tile != kTile || tiles < 1) return false;
+  if (n <= 0 || ld < n || m < 1 || end < 0 || end >= m || tile != kTile || tiles < 1)
+    return false;
   const long long ntiles = (n + kTile - 1) / kTile;
   return blocks == (ntiles + tiles - 1) / tiles && blocks <= kMaxBlocks;
 }
 
 // whether every whole run takes one load per array: each array on a
-// 16-byte (vectors) or V-element (rings) boundary and n a multiple of V,
-// which keeps every instance's rows of a batch so aligned too
+// 16-byte (vectors) or V-element (rings) boundary and n and the ring's
+// row stride ld multiples of V, which keeps every ring row and every
+// instance's rows of a batch so aligned too
 template <typename T, typename H, bool kXg>
-bool vec_ok(const PairIn<T>& in, const void* S, const void* Y, long long n) {
+bool vec_ok(const PairIn<T>& in, const void* S, const void* Y, long long n, long long ld) {
   bool vec = aligned(in.a, 16) && aligned(in.gx, 16) && aligned(in.gp, 16) &&
              aligned(S, kV<T> * sizeof(H)) && aligned(Y, kV<T> * sizeof(H)) &&
-             n % kV<T> == 0;
+             n % kV<T> == 0 && ld % kV<T> == 0;
   if (kXg) vec = vec && aligned(in.b, 16) && aligned(in.pg, 16);
   return vec;
 }
 
 template <typename T, typename H, bool kXg>
 int pair_gram(const PairIn<T>& in, void* S, void* Y, void* partials, void* gpartials,
-              long long n, int m, int end, int with_gp, long long tile, long long tiles,
-              long long blocks, void* stream) {
-  if (!launch_ok<T>(n, m, end, tile, tiles, blocks))
+              long long n, long long ld, int m, int end, int with_gp, long long tile,
+              long long tiles, long long blocks, void* stream) {
+  if (!launch_ok<T>(n, ld, m, end, tile, tiles, blocks))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = vec_ok<T, H, kXg>(in, S, Y, n);
+  const bool vec = vec_ok<T, H, kXg>(in, S, Y, n, ld);
   const auto run = with_gp ? pair_gram_rows<T, H, true, kXg> : pair_gram_rows<T, H, false, kXg>;
   return run(in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials),
-             static_cast<T*>(gpartials), n, m, end, tiles, blocks, vec,
+             static_cast<T*>(gpartials), n, ld, m, end, tiles, blocks, vec,
              reinterpret_cast<cudaStream_t>(stream), nullptr, 1);
 }
 
@@ -528,13 +534,14 @@ int pair_gram(const PairIn<T>& in, void* S, void* Y, void* partials, void* gpart
 // [batch, blocks, 6m]; the launch of each instance is the solo one's
 template <typename T, typename H>
 int pair_gram_xg_batched(const PairIn<T>& in, void* S, void* Y, const void* live,
-                         void* partials, long long n, int m, int end, long long tile,
-                         long long tiles, long long blocks, int batch, void* stream) {
-  if (!launch_ok<T>(n, m, end, tile, tiles, blocks) || batch < 1 || batch > 65535)
+                         void* partials, long long n, long long ld, int m, int end,
+                         long long tile, long long tiles, long long blocks, int batch,
+                         void* stream) {
+  if (!launch_ok<T>(n, ld, m, end, tile, tiles, blocks) || batch < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return pair_gram_rows<T, H, false, true, true>(
-      in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials), nullptr, n, m,
-      end, tiles, blocks, vec_ok<T, H, true>(in, S, Y, n),
+      in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials), nullptr, n, ld,
+      m, end, tiles, blocks, vec_ok<T, H, true>(in, S, Y, n, ld),
       reinterpret_cast<cudaStream_t>(stream), static_cast<const unsigned char*>(live), batch);
 }
 
@@ -543,21 +550,21 @@ int pair_gram_xg_batched(const PairIn<T>& in, void* S, void* Y, const void* live
 // of each instance is the solo one's
 template <typename T, typename H>
 int pair_gram_sd_batched(const PairIn<T>& in, void* S, void* Y, const void* live,
-                         void* partials, void* gpartials, long long n, int m, int end,
-                         int with_gp, long long tile, long long tiles, long long blocks, int batch,
-                         void* stream) {
-  if (!launch_ok<T>(n, m, end, tile, tiles, blocks) || batch < 1 || batch > 65535)
+                         void* partials, void* gpartials, long long n, long long ld, int m,
+                         int end, int with_gp, long long tile, long long tiles,
+                         long long blocks, int batch, void* stream) {
+  if (!launch_ok<T>(n, ld, m, end, tile, tiles, blocks) || batch < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = vec_ok<T, H, false>(in, S, Y, n);
+  const bool vec = vec_ok<T, H, false>(in, S, Y, n, ld);
   const auto* lv = static_cast<const unsigned char*>(live);
   const auto cs = reinterpret_cast<cudaStream_t>(stream);
   if (with_gp)
     return pair_gram_rows<T, H, true, false, true>(
         in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials),
-        static_cast<T*>(gpartials), n, m, end, tiles, blocks, vec, cs, lv, batch);
+        static_cast<T*>(gpartials), n, ld, m, end, tiles, blocks, vec, cs, lv, batch);
   return pair_gram_rows<T, H, false, false, true>(
-      in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials), nullptr, n, m,
-      end, tiles, blocks, vec, cs, lv, batch);
+      in, static_cast<H*>(S), static_cast<H*>(Y), static_cast<T*>(partials), nullptr, n, ld,
+      m, end, tiles, blocks, vec, cs, lv, batch);
 }
 
 }  // namespace
@@ -569,12 +576,13 @@ extern "C" {
 #define LBFGS_PAIR_GRAM_ENTRY(SFX, T, H)                                                    \
   int lbfgs_pair_gram_##SFX(double stp, const void* d, const void* gx, const void* gp,      \
                             void* S, void* Y, void* partials, void* gpartials,             \
-                            long long n, int m, int end, int with_gp, long long tile,      \
-                            long long tiles, long long blocks, void* stream) {             \
+                            long long n, long long ld, int m, int end, int with_gp,        \
+                            long long tile, long long tiles, long long blocks,             \
+                            void* stream) {                                                \
     const PairIn<T> in{static_cast<T>(stp), static_cast<const T*>(d), nullptr,             \
                        static_cast<const T*>(gx), static_cast<const T*>(gp), nullptr};     \
-    return pair_gram<T, H, false>(in, S, Y, partials, gpartials, n, m, end, with_gp, tile,  \
-                                  tiles, blocks, stream);                                  \
+    return pair_gram<T, H, false>(in, S, Y, partials, gpartials, n, ld, m, end, with_gp,    \
+                                  tile, tiles, blocks, stream);                            \
   }
 
 LBFGS_PAIR_GRAM_ENTRY(f32_bf16, float, __nv_bfloat16)
@@ -587,14 +595,14 @@ LBFGS_PAIR_GRAM_ENTRY(f64_f64, double, double)
 #define LBFGS_PAIR_GRAM_XG_ENTRY(SFX, T, H)                                               \
   int lbfgs_pair_gram_xg_##SFX(const void* x, const void* xp, const void* gx,            \
                                const void* gp, const void* pg, void* S, void* Y,         \
-                               void* partials, void* gpartials, long long n, int m,      \
-                               int end, int with_gp, long long tile, long long tiles,    \
-                               long long blocks, void* stream) {                         \
+                               void* partials, void* gpartials, long long n,             \
+                               long long ld, int m, int end, int with_gp, long long tile, \
+                               long long tiles, long long blocks, void* stream) {        \
     const PairIn<T> in{T(0), static_cast<const T*>(x), static_cast<const T*>(xp),        \
                        static_cast<const T*>(gx), static_cast<const T*>(gp),             \
                        static_cast<const T*>(pg)};                                       \
-    return pair_gram<T, H, true>(in, S, Y, partials, gpartials, n, m, end, with_gp, tile, \
-                                 tiles, blocks, stream);                                 \
+    return pair_gram<T, H, true>(in, S, Y, partials, gpartials, n, ld, m, end, with_gp,   \
+                                 tile, tiles, blocks, stream);                           \
   }
 
 LBFGS_PAIR_GRAM_XG_ENTRY(f32_bf16, float, __nv_bfloat16)
@@ -608,12 +616,13 @@ LBFGS_PAIR_GRAM_XG_ENTRY(f64_f64, double, double)
   int lbfgs_pair_gram_xg_batched_##SFX(const void* x, const void* xp, const void* gx,       \
                                        const void* gp, const void* pg, void* S, void* Y,    \
                                        const void* live, void* partials, long long n,       \
-                                       int m, int end, long long tile, long long tiles,     \
-                                       long long blocks, int batch, void* stream) {         \
+                                       long long ld, int m, int end, long long tile,        \
+                                       long long tiles, long long blocks, int batch,        \
+                                       void* stream) {                                      \
     const PairIn<T> in{T(0), static_cast<const T*>(x), static_cast<const T*>(xp),           \
                        static_cast<const T*>(gx), static_cast<const T*>(gp),                \
                        static_cast<const T*>(pg)};                                          \
-    return pair_gram_xg_batched<T, H>(in, S, Y, live, partials, n, m, end, tile, tiles,      \
+    return pair_gram_xg_batched<T, H>(in, S, Y, live, partials, n, ld, m, end, tile, tiles,  \
                                       blocks, batch, stream);                               \
   }
 
@@ -627,13 +636,14 @@ LBFGS_PAIR_GRAM_XG_BATCHED_ENTRY(f64_f64, double, double)
 #define LBFGS_PAIR_GRAM_BATCHED_ENTRY(SFX, T, H)                                             \
   int lbfgs_pair_gram_batched_##SFX(const void* stp, const void* d, const void* gx,         \
                                     const void* gp, void* S, void* Y, const void* live,     \
-                                    void* partials, void* gpartials, long long n, int m,    \
-                                    int end, int with_gp, long long tile, long long tiles,  \
-                                    long long blocks, int batch, void* stream) {            \
+                                    void* partials, void* gpartials, long long n,           \
+                                    long long ld, int m, int end, int with_gp,              \
+                                    long long tile, long long tiles, long long blocks,      \
+                                    int batch, void* stream) {                              \
     const PairIn<T> in{T(0),    static_cast<const T*>(d),  nullptr,                         \
                        static_cast<const T*>(gx), static_cast<const T*>(gp), nullptr,       \
                        static_cast<const T*>(stp)};                                         \
-    return pair_gram_sd_batched<T, H>(in, S, Y, live, partials, gpartials, n, m, end,       \
+    return pair_gram_sd_batched<T, H>(in, S, Y, live, partials, gpartials, n, ld, m, end,   \
                                       with_gp, tile, tiles, blocks, batch, stream);         \
   }
 

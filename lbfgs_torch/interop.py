@@ -25,7 +25,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .core import History, ProblemState, SolverState
+from .core import History, ProblemState, SolverState, as_ring
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -59,8 +59,8 @@ def state_from_jax(tree: Any, device, mesh=None) -> SolverState:
         gnorm2=f(np.asarray(p.gnorm2)), xnorm2=f(np.asarray(p.xnorm2)),
     )
     hist = History(
-        s=_tensor(np.asarray(h.s).reshape(m, -1), device),
-        y=_tensor(np.asarray(h.y).reshape(m, -1), device),
+        s=as_ring(_tensor(np.asarray(h.s).reshape(m, -1), device)),
+        y=as_ring(_tensor(np.asarray(h.y).reshape(m, -1), device)),
         ys=vec(h.ys), alpha=vec(h.alpha), sy=vec(h.sy), yy=vec(h.yy),
     )
     scalar = lambda a: None if a is None else f(np.asarray(a))
@@ -97,8 +97,8 @@ def batched_state_from_jax(tree: Any, device):
     host = lambda a, t=f: np.asarray(a).astype(t)
     return BatchedState(
         x=vec(p.x), gx=vec(p.gx), d=vec(p.d),
-        hist=History(s=_tensor(np.asarray(h.s).reshape(B, m, -1), device),
-                     y=_tensor(np.asarray(h.y).reshape(B, m, -1), device),
+        hist=History(s=as_ring(_tensor(np.asarray(h.s).reshape(B, m, -1), device)),
+                     y=as_ring(_tensor(np.asarray(h.y).reshape(B, m, -1), device)),
                      ys=vec(h.ys), alpha=vec(h.alpha), sy=vec(h.sy), yy=vec(h.yy)),
         fx=np.array(p.fx), gnorm2=host(p.gnorm2), xnorm2=host(p.xnorm2),
         neval=host(p.neval, np.int64), k=host(tree.k, np.int64), end=host(tree.end, np.int64),

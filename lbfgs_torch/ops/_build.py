@@ -36,45 +36,46 @@ _SIGNATURES = {
     "lbfgs_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     **{
         f"lbfgs_combine_{sfx}": (
-            [_P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, _P], ctypes.c_int)
+            [_P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, _P], ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{
         f"lbfgs_combine_fix_{sfx}": (
-            [_P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int)
+            [_P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{
         f"lbfgs_combine_batched_{sfx}": (
-            [_P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int)
-        for sfx in ("f32_bf16", "f32_f32", "f64_f64")
-    },
-    **{
-        f"lbfgs_combine_fix_batched_{sfx}": (
-            [_P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+            [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int, _P],
             ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{
+        f"lbfgs_combine_fix_batched_{sfx}": (
+            [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             _P], ctypes.c_int)
+        for sfx in ("f32_bf16", "f32_f32", "f64_f64")
+    },
+    **{
         f"lbfgs_combine_ow_batched_{sfx}": (
-            [_P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, _LL, _LL, ctypes.c_int, _P],
+            [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, _LL, _LL, ctypes.c_int, _P],
             ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{
         f"lbfgs_pair_gram_{sfx}": (
-            [ctypes.c_double, _P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int,
+            [ctypes.c_double, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, _LL, _LL, _LL, _P], ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{
         f"lbfgs_combine_ow_{sfx}": (
-            [_P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, _LL, _LL, _P], ctypes.c_int)
+            [_P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, _LL, _LL, _P], ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{
         f"lbfgs_pair_gram_xg_{sfx}": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int,
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, _LL, _LL, _LL, _P], ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
@@ -91,14 +92,14 @@ _SIGNATURES = {
     },
     **{
         f"lbfgs_pair_gram_xg_batched_{sfx}": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _LL, _LL, _LL,
-             ctypes.c_int, _P], ctypes.c_int)
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int, _LL, _LL,
+             _LL, ctypes.c_int, _P], ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{
         f"lbfgs_pair_gram_batched_{sfx}": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             _LL, _LL, _LL, ctypes.c_int, _P], ctypes.c_int)
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, _LL, _LL, _LL, ctypes.c_int, _P], ctypes.c_int)
         for sfx in ("f32_bf16", "f32_f32", "f64_f64")
     },
     **{

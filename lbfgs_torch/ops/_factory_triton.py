@@ -266,8 +266,16 @@ so that each lane's fx is K2 b's (K8 b's) at that step bit for bit.
   each chunk's products to its running sums by float32 adds
   (``_ring_chunk``'s ``CARRY_RN``), so the products stay within ~1e-7
   normwise of the float64 product at any chunk count, and sums at most
-  ``factory.MMA_MAX_CHUNKS`` chunks a program.  An n off a multiple of 16
-  takes the fold forms, solo and batched (``factory.MMA_ALIGN``).
+  ``factory.MMA_MAX_CHUNKS`` chunks a program.  Every ring reader takes
+  the ring's row stride ld (row j at j*ld): n, or n rounded up to a
+  multiple of 16 with zero pad columns (the solver's rings,
+  ``core.ring_zeros``), and the constant LD_IS_N (ld == n), with which it
+  takes n as its stride and compiles to its code before the stride
+  argument (``_stride``).  The tensor-core forms take a ring whose ld is
+  a multiple of 16, at any n; over a padded ring they mask its tile by
+  offs < ld, so that it loads in vectors.  A ring of row stride n at an
+  n off a multiple of 16 takes the fold forms, solo and batched
+  (``factory.MMA_ALIGN``).
 
   Where the solo fold forms' group passes ran (f32 and f64 rings above the
   static cap, bf16 rings above 256 rows) the solo K4 and K14 take the
@@ -406,6 +414,20 @@ def _store_probe(part_ptr, fe, g, d, mask):
 
 
 @triton.jit
+def _stride(n, ld, LD_IS_N: tl.constexpr):
+    # the ring's row stride: n where the ring is not padded (LD_IS_N: the
+    # kernel then compiles as it did before the stride argument, bar that
+    # parameter, which comes after the others), else ld.  On an H100 a
+    # stride used where n would do slowed some fold forms by 3-14%, and
+    # the parameter among the others cost the batched f32 row-block K14 b
+    # two spilled registers
+    if LD_IS_N:
+        return n
+    else:
+        return ld
+
+
+@triton.jit
 def _combine_row(g, acc_s, acc_y, s_row, y_row, coef_ptr, mask, fix_end, j, m, FIX: tl.constexpr):
     # ring row j's terms of the combination, in K3's order (cs_j*S_j into
     # acc_s, then cy_j*Y_j into acc_y), the row widened in registers; with
@@ -422,14 +444,15 @@ def _combine_row(g, acc_s, acc_y, s_row, y_row, coef_ptr, mask, fix_end, j, m, F
 
 
 @triton.jit
-def _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, m, fix_end, M: tl.constexpr,
+def _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, st, m, fix_end, M: tl.constexpr,
                  FIX: tl.constexpr):
     # (g, r) with r = gamma*g + sum_j cs_j S_j + sum_j cy_j Y_j over the m
     # ring rows; coef = [gamma, cs_0 .. cs_{m-1}, cy_0 ..] and with FIX then
     # (ca, cb).  M > 0 unrolls the M = m rows (the static forms, m <=
     # factory.MAX_M); M = 0 loops over the m rows at run time (the deep
     # forms: one compile for every m).  Both add the rows in the same order
-    # and round the same, so r does not depend on the form
+    # and round the same, so r does not depend on the form.  Ring row j
+    # starts at j*st (the ring's row stride, ``_stride``)
     g = tl.load(g_ptr + offs, mask=mask, other=0.0)
     acc_s = tl.zeros_like(g)
     acc_y = tl.zeros_like(g)
@@ -439,14 +462,14 @@ def _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, m, fix_end, M: tl
         for j in tl.static_range(M):
             acc_s, acc_y = _combine_row(g, acc_s, acc_y, s_row, y_row, coef_ptr, mask, fix_end,
                                         j, M, FIX)
-            s_row += n
-            y_row += n
+            s_row += st
+            y_row += st
     else:
         for j in range(m):
             acc_s, acc_y = _combine_row(g, acc_s, acc_y, s_row, y_row, coef_ptr, mask, fix_end,
                                         j, m, FIX)
-            s_row += n
-            y_row += n
+            s_row += st
+            y_row += st
     return g, tl.load(coef_ptr) * g + (acc_s + acc_y)
 
 
@@ -595,14 +618,15 @@ def owlqn_trial_batched_kernel(xp_ptr, d_ptr, pg_ptr, stp_ptr, live_ptr, xt_ptr,
 
 
 @triton.jit(do_not_specialize=["m", "fix_end"])
-def combine_probe_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, cpart_ptr,
-                         ppart_ptr, n, m, fix_end, off, ex, body: tl.constexpr, M: tl.constexpr,
+def combine_probe_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, cpart_ptr, ppart_ptr,
+                         n, m, fix_end, off, ex, ld, body: tl.constexpr, M: tl.constexpr,
                          ROWS: tl.constexpr, W: tl.constexpr, FIX: tl.constexpr,
-                         SHARD: tl.constexpr):
+                         SHARD: tl.constexpr, LD_IS_N: tl.constexpr):
     # M = m: the static form; M = 0: the deep form (``_combination``)
+    st = _stride(n, ld, LD_IS_N)
     offs = _offsets(ROWS, W)
     mask = offs < n
-    g, r = _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, m, fix_end, M, FIX)
+    g, r = _combination(g_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, st, m, fix_end, M, FIX)
     tl.store(r_ptr + offs, r, mask=mask)
     cpart = cpart_ptr + tl.program_id(0) * 2
     tl.store(cpart + 0, _block_sum(r * r, mask))
@@ -618,13 +642,14 @@ def combine_probe_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, c
 
 @triton.jit(do_not_specialize=["m", "lo", "hi"])
 def combine_ow_probe_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, r_ptr, cpart_ptr,
-                            ppart_ptr, n, m, lo, hi, off, ex, body: tl.constexpr,
+                            ppart_ptr, n, m, lo, hi, off, ex, ld, body: tl.constexpr,
                             M: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
-                            SHARD: tl.constexpr):
+                            SHARD: tl.constexpr, LD_IS_N: tl.constexpr):
     # M = m: the static form; M = 0: the deep form (``_combination``)
+    st = _stride(n, ld, LD_IS_N)
     offs = _offsets(ROWS, W)
     mask = offs < n
-    pg, r = _combination(pg_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, n, m, 0, M, False)
+    pg, r = _combination(pg_ptr, S_ptr, Y_ptr, coef_ptr, offs, mask, st, m, 0, M, False)
     in_win = (offs >= lo) & (offs < hi)
     # the direction constraint against -pg inside the window (K13's)
     rc = tl.where(in_win & (_msign(r) != _msign(-pg)), 0.0, r)
@@ -651,13 +676,14 @@ def _batched_part(part_ptr, b, k: tl.constexpr):
 
 @triton.jit(do_not_specialize=["m", "fix_end"])
 def combine_probe_batched_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, live_ptr, r_ptr,
-                                 cpart_ptr, ppart_ptr, n, m, fix_end, ex, body: tl.constexpr,
+                                 cpart_ptr, ppart_ptr, n, m, fix_end, ex, ld, body: tl.constexpr,
                                  M: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
-                                 FIX: tl.constexpr):
+                                 FIX: tl.constexpr, LD_IS_N: tl.constexpr):
     # program (i, b): K15's block i of instance b, its coefficient row and
     # its own stp1; M = m the static form, M = 0 the deep form.  With FIX
     # the row ends in (ca, cb) and ring row fix_end of the instance is
     # rewritten as K15's fix form rewrites it
+    st = _stride(n, ld, LD_IS_N)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
     row = b.to(tl.int64) * n
@@ -666,8 +692,9 @@ def combine_probe_batched_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, 
     ncoef = 1 + 2 * m
     if FIX:
         ncoef += 2
-    g, r = _combination(g_ptr + row, S_ptr + row * m, Y_ptr + row * m,
-                        coef_ptr + b.to(tl.int64) * ncoef, offs, mask, n, m, fix_end, M, FIX)
+    ring = (b.to(tl.int64) * st) * m
+    g, r = _combination(g_ptr + row, S_ptr + ring, Y_ptr + ring,
+                        coef_ptr + b.to(tl.int64) * ncoef, offs, mask, st, m, fix_end, M, FIX)
     tl.store(r_ptr + row + offs, r, mask=mask)
     cpart = _batched_part(cpart_ptr, b, 2)
     tl.store(cpart + 0, _block_sum(r * r, mask), mask=live)
@@ -684,19 +711,21 @@ def combine_probe_batched_kernel(g_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, 
 
 
 @triton.jit(do_not_specialize=["m", "lo", "hi"])
-def combine_ow_probe_batched_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, live_ptr,
-                                    r_ptr, cpart_ptr, ppart_ptr, n, m, lo, hi, ex,
-                                    body: tl.constexpr, M: tl.constexpr, ROWS: tl.constexpr,
-                                    W: tl.constexpr):
+def combine_ow_probe_batched_kernel(pg_ptr, x_ptr, S_ptr, Y_ptr, coef_ptr, stp_ptr, live_ptr, r_ptr,
+                                    cpart_ptr, ppart_ptr, n, m, lo, hi, ex, ld, body: tl.constexpr,
+                                    M: tl.constexpr, ROWS: tl.constexpr, W: tl.constexpr,
+                                    LD_IS_N: tl.constexpr):
     # program (i, b): K16's block i of instance b, the window in the
     # instance's own indices
+    st = _stride(n, ld, LD_IS_N)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
     row = b.to(tl.int64) * n
     offs = _offsets(ROWS, W)
     mask = (offs < n) & live
-    pg, r = _combination(pg_ptr + row, S_ptr + row * m, Y_ptr + row * m,
-                         coef_ptr + b.to(tl.int64) * (1 + 2 * m), offs, mask, n, m, 0, M, False)
+    ring = (b.to(tl.int64) * st) * m
+    pg, r = _combination(pg_ptr + row, S_ptr + ring, Y_ptr + ring,
+                         coef_ptr + b.to(tl.int64) * (1 + 2 * m), offs, mask, st, m, 0, M, False)
     in_win = (offs >= lo) & (offs < hi)
     rc = tl.where(in_win & (_msign(r) != _msign(-pg)), 0.0, r)
     tl.store(r_ptr + row + offs, rc, mask=mask)
@@ -757,11 +786,12 @@ def _gram_row(Sj, Yj, y, s, d0, a0, a1, a2, a3, a4, a5, j: tl.constexpr,
 
 
 @triton.jit
-def _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0, gp, a0, a1, a2, a3, a4, a5, b0,
+def _ring_pass(S_ptr, Y_ptr, offs, mask, st, end, s, y, d0, gp, a0, a1, a2, a3, a4, a5, b0,
                b1, M: tl.constexpr, MP: tl.constexpr, WITH_GP: tl.constexpr):
     # one tile's pass over the rings: the m-1 old rows widen in registers,
     # row `end` is the new pair, unrounded and never read; the new pair is
-    # then stored into row `end`, rounded to the history dtype
+    # then stored into row `end`, rounded to the history dtype; ring row j
+    # starts at j*st (``_stride``)
     s_row = S_ptr + offs
     y_row = Y_ptr + offs
     for j in tl.static_range(M):
@@ -775,22 +805,22 @@ def _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0, gp, a0, a1, a2, a3, a
             # the damped update's basis column, in sums of its own
             b0 = _add_col(b0, _fold(Sj * gp), j, MP)
             b1 = _add_col(b1, _fold(Yj * gp), j, MP)
-        s_row += n
-        y_row += n
-    row = end.to(tl.int64) * n
+        s_row += st
+        y_row += st
+    row = end.to(tl.int64) * st
     tl.store(S_ptr + row + offs, s.to(S_ptr.dtype.element_ty), mask=mask)
     tl.store(Y_ptr + row + offs, y.to(Y_ptr.dtype.element_ty), mask=mask)
     return a0, a1, a2, a3, a4, a5, b0, b1
 
 
 @triton.jit
-def _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end, j0, s, y, d0, gp, a0, a1, a2, a3, a4, a5,
+def _group_pass(S_ptr, Y_ptr, offs, mask, st, m, end, j0, s, y, d0, gp, a0, a1, a2, a3, a4, a5,
                 b0, b1, G: tl.constexpr, WITH_GP: tl.constexpr):
     # ``_ring_pass`` over ring rows j0 .. j0 + G - 1 alone (those below m),
     # row j0 + c into column c of the [T // V, G] sums; the group that holds
     # row `end` stores the new pair there
-    s_row = S_ptr + j0.to(tl.int64) * n + offs
-    y_row = Y_ptr + j0.to(tl.int64) * n + offs
+    s_row = S_ptr + j0.to(tl.int64) * st + offs
+    y_row = Y_ptr + j0.to(tl.int64) * st + offs
     for c in tl.static_range(G):
         j = j0 + c
         is_end = end == j
@@ -803,10 +833,10 @@ def _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end, j0, s, y, d0, gp, a0, a1, a
         if WITH_GP:
             b0 = _add_col(b0, _fold(Sj * gp), c, G)
             b1 = _add_col(b1, _fold(Yj * gp), c, G)
-        s_row += n
-        y_row += n
+        s_row += st
+        y_row += st
     holds_end = (end >= j0) & (end < j0 + G)
-    row = end.to(tl.int64) * n
+    row = end.to(tl.int64) * st
     tl.store(S_ptr + row + offs, s.to(S_ptr.dtype.element_ty), mask=mask & holds_end)
     tl.store(Y_ptr + row + offs, y.to(Y_ptr.dtype.element_ty), mask=mask & holds_end)
     return a0, a1, a2, a3, a4, a5, b0, b1
@@ -839,13 +869,14 @@ def _store_gp(gpart, j0, m, b0, b1, MP: tl.constexpr):
 
 
 @triton.jit(do_not_specialize=["end", "tiles"])
-def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
-                           S_ptr, Y_ptr, fx_ptr, part_ptr, gpart_ptr, n, end, tiles, off, ex,
-                           body: tl.constexpr, M: tl.constexpr, MP: tl.constexpr,
-                           T: tl.constexpr, V: tl.constexpr, W: tl.constexpr,
-                           WITH_GP: tl.constexpr, SHARD: tl.constexpr):
+def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr,
+                           part_ptr, gpart_ptr, n, end, tiles, off, ex, ld, body: tl.constexpr,
+                           M: tl.constexpr, MP: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
+                           W: tl.constexpr, WITH_GP: tl.constexpr, SHARD: tl.constexpr,
+                           LD_IS_N: tl.constexpr):
     # program pid takes tiles pid*tiles .. pid*tiles + tiles - 1 of T
     # elements each; the sums stay in per-thread registers across them
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     dt = xp_ptr.dtype.element_ty
     stp = tl.load(stp_ptr)
@@ -888,7 +919,7 @@ def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
         a_gg += _fold(g * g)
         a_xx += _fold(x * x)
         a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
-        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y,
+        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, st, end, s, y,
                                                     d0, gp, a0, a1, a2, a3, a4, a5, b0, b1,
                                                     M, MP, WITH_GP)
         tl.store(x_ptr + offs, x, mask=mask)
@@ -904,11 +935,11 @@ def trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
 
 
 @triton.jit(do_not_specialize=["m", "end", "tiles"])
-def trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
-                                S_ptr, Y_ptr, fx_ptr, part_ptr, gpart_ptr, n, end, tiles, off,
-                                ex, m, body: tl.constexpr, G: tl.constexpr, T: tl.constexpr,
+def trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr,
+                                part_ptr, gpart_ptr, n, end, tiles, off, ex, m, ld,
+                                body: tl.constexpr, G: tl.constexpr, T: tl.constexpr,
                                 V: tl.constexpr, W: tl.constexpr, WITH_GP: tl.constexpr,
-                                SHARD: tl.constexpr):
+                                SHARD: tl.constexpr, LD_IS_N: tl.constexpr):
     # K4 at any depth: program pid takes the static form's tiles
     # (``factory.solo_epilogue_grid``) and passes over them once per group of G
     # ring rows, recomputing the point, the body and the pair each pass and
@@ -919,6 +950,7 @@ def trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
     # last pass forms and folds the point's sums as the static form does,
     # tile by tile in the same order, so x, g, the objective's partials and
     # the scalar partials are the static launch's bit for bit
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     dt = xp_ptr.dtype.element_ty
     stp = tl.load(stp_ptr)
@@ -967,7 +999,7 @@ def trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr,
             s = stp * d
             y = g - gp
             d0 = -g
-            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end,
+            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, st, m, end,
                                                          j0, s, y, d0, gp, a0, a1, a2, a3, a4,
                                                          a5, b0, b1, G, WITH_GP)
         _store_gram(part + 4, j0, m, a0, a1, a2, a3, a4, a5, G)
@@ -1003,13 +1035,15 @@ def _store_gp_live(gpart, live, j0, m, b0, b1, MP: tl.constexpr):
 
 
 @triton.jit(do_not_specialize=["end", "tiles"])
-def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr, Y_ptr,
-                                   part_ptr, gpart_ptr, n, end, tiles, ex, body: tl.constexpr,
+def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr, Y_ptr, part_ptr,
+                                   gpart_ptr, n, end, tiles, ex, ld, body: tl.constexpr,
                                    M: tl.constexpr, MP: tl.constexpr, T: tl.constexpr,
-                                   V: tl.constexpr, W: tl.constexpr, WITH_GP: tl.constexpr):
+                                   V: tl.constexpr, W: tl.constexpr, WITH_GP: tl.constexpr,
+                                   LD_IS_N: tl.constexpr):
     # program (pid, b): K4's program pid of instance b, in place, without
     # the objective's partials; with WITH_GP the . gp column into partials
     # of its own, [B, programs, 2m], as K4's WITH_GP form adds it
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -1017,8 +1051,8 @@ def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_p
     xp_ptr += row
     d_ptr += row
     gp_ptr += row
-    S_ptr += row * M
-    Y_ptr += row * M
+    S_ptr += (b.to(tl.int64) * st) * M
+    Y_ptr += (b.to(tl.int64) * st) * M
     dt = xp_ptr.dtype.element_ty
     stp = tl.load(stp_ptr + b)
     R: tl.constexpr = T // V
@@ -1052,7 +1086,7 @@ def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_p
         a_gg += _fold(g * g)
         a_xx += _fold(x * x)
         a_ch += _fold(tl.where(x != xp, 1.0, 0.0).to(dt))
-        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0,
+        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, st, end, s, y, d0,
                                                     gp, a0, a1, a2, a3, a4, a5, b0, b1, M, MP,
                                                     WITH_GP)
         tl.store(xp_ptr + offs, x, mask=mask)
@@ -1070,14 +1104,15 @@ def trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_p
 
 @triton.jit(do_not_specialize=["m", "end", "tiles"])
 def trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr, Y_ptr,
-                                        part_ptr, gpart_ptr, n, end, tiles, ex, m,
+                                        part_ptr, gpart_ptr, n, end, tiles, ex, m, ld,
                                         body: tl.constexpr, G: tl.constexpr, T: tl.constexpr,
-                                        V: tl.constexpr, W: tl.constexpr,
-                                        WITH_GP: tl.constexpr):
+                                        V: tl.constexpr, W: tl.constexpr, WITH_GP: tl.constexpr,
+                                        LD_IS_N: tl.constexpr):
     # program (pid, b): the deep K4's program pid of instance b, in place,
     # without the objective's partials (with WITH_GP the . gp column, per
     # group, as the deep K4's WITH_GP form); x and g go over xp and gp on
     # the last pass alone, as the deep K4 stores them
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -1085,8 +1120,8 @@ def trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr
     xp_ptr += row
     d_ptr += row
     gp_ptr += row
-    S_ptr += row * m
-    Y_ptr += row * m
+    S_ptr += (b.to(tl.int64) * st) * m
+    Y_ptr += (b.to(tl.int64) * st) * m
     dt = xp_ptr.dtype.element_ty
     stp = tl.load(stp_ptr + b)
     R: tl.constexpr = T // V
@@ -1129,7 +1164,7 @@ def trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr
             s = stp * d
             y = g - gp
             d0 = -g
-            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end,
+            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, st, m, end,
                                                          j0, s, y, d0, gp, a0, a1, a2, a3, a4,
                                                          a5, b0, b1, G, WITH_GP)
         _store_gram_live(part + 4, live, j0, m, a0, a1, a2, a3, a4, a5, G)
@@ -1280,13 +1315,12 @@ def owlqn_probe_steps_batched_kernel(xp_ptr, d_ptr, pg_ptr, stp_ptr, stp_stride,
 
 
 @triton.jit(do_not_specialize=["end", "lo", "hi", "tiles"])
-def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
-                                 x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr,
-                                 n, lo, hi, end, tiles, off, ex, body: tl.constexpr,
-                                 M: tl.constexpr,
-                                 MP: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
-                                 W: tl.constexpr, WITH_GP: tl.constexpr,
-                                 SHARD: tl.constexpr):
+def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr, x_ptr, g_ptr,
+                                 pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo, hi, end, tiles,
+                                 off, ex, ld, body: tl.constexpr, M: tl.constexpr, MP: tl.constexpr,
+                                 T: tl.constexpr, V: tl.constexpr, W: tl.constexpr,
+                                 WITH_GP: tl.constexpr, SHARD: tl.constexpr, LD_IS_N: tl.constexpr):
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     dt = xp_ptr.dtype.element_ty
     stp = tl.load(stp_ptr)
@@ -1337,7 +1371,7 @@ def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
             # in-place pass, so both come from here
             a_gg += _fold(gp * gp)
             a_gpg += _fold(gp * pg)
-        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y,
+        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, st, end, s, y,
                                                     d0, gp, a0, a1, a2, a3, a4, a5, b0, b1,
                                                     M, MP, WITH_GP)
         tl.store(x_ptr + offs, x, mask=mask)
@@ -1356,17 +1390,18 @@ def owlqn_trial_pair_gram_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
 
 
 @triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles"])
-def owlqn_trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
-                                      x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr,
-                                      n, lo, hi, end, tiles, off, ex, m, body: tl.constexpr,
-                                      G: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
-                                      W: tl.constexpr, WITH_GP: tl.constexpr,
-                                      SHARD: tl.constexpr):
+def owlqn_trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr, x_ptr, g_ptr,
+                                      pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo, hi, end,
+                                      tiles, off, ex, m, ld, body: tl.constexpr, G: tl.constexpr,
+                                      T: tl.constexpr, V: tl.constexpr, W: tl.constexpr,
+                                      WITH_GP: tl.constexpr, SHARD: tl.constexpr,
+                                      LD_IS_N: tl.constexpr):
     # K14 at any depth, laid out as ``trial_pair_gram_deep_kernel``: a pass
     # over the program's tiles per group of G ring rows, the point's
     # outputs and sums (x, g, pg, x.x, pg.pg, changed, and gp.gp, gp.pg
     # with WITH_GP) from the last pass alone, so x, g and pg may alias xp,
     # gp and pg_old, and each is the static launch's bit for bit
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     dt = xp_ptr.dtype.element_ty
     stp = tl.load(stp_ptr)
@@ -1420,7 +1455,7 @@ def owlqn_trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_
             s = x - xp
             y = g - gp
             d0 = -pg
-            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end,
+            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, st, m, end,
                                                          j0, s, y, d0, gp, a0, a1, a2, a3, a4,
                                                          a5, b0, b1, G, WITH_GP)
         _store_gram(part + 3, j0, m, a0, a1, a2, a3, a4, a5, G)
@@ -1435,15 +1470,17 @@ def owlqn_trial_pair_gram_deep_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_
 
 
 @triton.jit(do_not_specialize=["end", "lo", "hi", "tiles"])
-def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
-                                         live_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo, hi,
-                                         end, tiles, ex, body: tl.constexpr, M: tl.constexpr,
+def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr, live_ptr,
+                                         S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo, hi, end, tiles,
+                                         ex, ld, body: tl.constexpr, M: tl.constexpr,
                                          MP: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
-                                         W: tl.constexpr, WITH_GP: tl.constexpr):
+                                         W: tl.constexpr, WITH_GP: tl.constexpr,
+                                         LD_IS_N: tl.constexpr):
     # program (pid, b): K14's program pid of instance b, in place (x, g and
     # pg over xp, gp and pg_old); with WITH_GP gp.gp, gp.pg and the . gp
     # column into partials of their own, [B, programs, 2 + 2m], taken
     # before g overwrites gp, as K14's WITH_GP form takes them
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -1452,8 +1489,8 @@ def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr,
     d_ptr += row
     gp_ptr += row
     pg_ptr += row
-    S_ptr += row * M
-    Y_ptr += row * M
+    S_ptr += (b.to(tl.int64) * st) * M
+    Y_ptr += (b.to(tl.int64) * st) * M
     dt = xp_ptr.dtype.element_ty
     stp = tl.load(stp_ptr + b)
     c = tl.load(c_ptr)
@@ -1495,7 +1532,7 @@ def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr,
         if WITH_GP:
             a_gg += _fold(gp * gp)
             a_gpg += _fold(gp * pg)
-        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, n, end, s, y, d0,
+        a0, a1, a2, a3, a4, a5, b0, b1 = _ring_pass(S_ptr, Y_ptr, offs, mask, st, end, s, y, d0,
                                                     gp, a0, a1, a2, a3, a4, a5, b0, b1, M, MP,
                                                     WITH_GP)
         tl.store(xp_ptr + offs, x, mask=mask)
@@ -1517,13 +1554,15 @@ def owlqn_trial_pair_gram_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr,
 @triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles"])
 def owlqn_trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
                                               live_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo,
-                                              hi, end, tiles, ex, m, body: tl.constexpr,
+                                              hi, end, tiles, ex, m, ld, body: tl.constexpr,
                                               G: tl.constexpr, T: tl.constexpr, V: tl.constexpr,
-                                              W: tl.constexpr, WITH_GP: tl.constexpr):
+                                              W: tl.constexpr, WITH_GP: tl.constexpr,
+                                              LD_IS_N: tl.constexpr):
     # program (pid, b): the deep K14's program pid of instance b, in place
     # (with WITH_GP gp.gp and gp.pg from the last pass and the . gp column
     # per group, as the deep K14's WITH_GP form); x, g and pg go over xp,
     # gp and pg_old on the last pass alone
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -1532,8 +1571,8 @@ def owlqn_trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp
     d_ptr += row
     gp_ptr += row
     pg_ptr += row
-    S_ptr += row * m
-    Y_ptr += row * m
+    S_ptr += (b.to(tl.int64) * st) * m
+    Y_ptr += (b.to(tl.int64) * st) * m
     dt = xp_ptr.dtype.element_ty
     stp = tl.load(stp_ptr + b)
     c = tl.load(c_ptr)
@@ -1586,7 +1625,7 @@ def owlqn_trial_pair_gram_deep_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp
             s = x - xp
             y = g - gp
             d0 = -pg
-            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, n, m, end,
+            a0, a1, a2, a3, a4, a5, b0, b1 = _group_pass(S_ptr, Y_ptr, offs, mask, st, m, end,
                                                          j0, s, y, d0, gp, a0, a1, a2, a3, a4,
                                                          a5, b0, b1, G, WITH_GP)
         _store_gram_live(part + 3, live, j0, m, a0, a1, a2, a3, a4, a5, G)
@@ -1680,8 +1719,8 @@ def _column(acc, v: tl.constexpr):
 
 
 @triton.jit
-def _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, j0, holds_end, s, y, d0, gp, acc_s, acc_y,
-                RP: tl.constexpr, CARRY_RN: tl.constexpr):
+def _ring_chunk(S_ptr, Y_ptr, offs, mask, live, st, m, end, j0, holds_end, s, y, d0, gp, acc_s,
+                acc_y, RP: tl.constexpr, CARRY_RN: tl.constexpr, LD_IS_N: tl.constexpr):
     # one chunk's pass over ring rows j0 .. j0 + RP - 1: the old rows (j <
     # m, j != end) as the first operand ([RP, K], in the ring's dtype:
     # ``_ring_dot``), row `end` masked to zero (its products are the folds
@@ -1693,20 +1732,35 @@ def _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, j0, holds_end, s, y, d0, gp
     # round to nearest: carried through it across chunks, the products drift
     # from the float64 product about linearly in the chunk count.  With
     # CARRY_RN each chunk's products start from zero and are added to the
-    # running sums by adds of the sums' dtype, which round to nearest
+    # running sums by adds of the sums' dtype, which round to nearest.
+    # Ring row j starts at j*st (``_stride``).  Over a padded ring (LD_IS_N
+    # off) the tile is masked by the ring's columns, offs < st, not by the
+    # vectors' offs < n: st is a multiple of 16, so the mask is constant
+    # over each run of 16 elements and the tile loads in vectors at any n;
+    # a frozen instance (``live`` off) is masked by its rows.  The pad
+    # columns past n are zero, and so are the vectors there (loaded as 0
+    # off ``mask``), so they add nothing, and the new row stored over them
+    # is zeros (s and y are 0 there)
     op = _operand(y, s, d0, gp)
     rows = j0 + tl.arange(0, RP)
-    rmask = ((rows < m) & (rows != end))[:, None] & mask[None, :]
-    roffs = rows.to(tl.int64)[:, None] * n + offs[None, :]
+    if LD_IS_N:
+        rmask = ((rows < m) & (rows != end))[:, None] & mask[None, :]
+    else:
+        rmask = ((rows < m) & (rows != end) & live)[:, None] & (offs < st)[None, :]
+    roffs = rows.to(tl.int64)[:, None] * st + offs[None, :]
     if CARRY_RN:
         acc_s = _ring_dot(tl.load(S_ptr + roffs, mask=rmask, other=0.0), op, acc_s)
         acc_y = _ring_dot(tl.load(Y_ptr + roffs, mask=rmask, other=0.0), op, acc_y)
     else:
         acc_s = tl.dot(tl.load(S_ptr + roffs, mask=rmask, other=0.0), op, acc_s)
         acc_y = tl.dot(tl.load(Y_ptr + roffs, mask=rmask, other=0.0), op, acc_y)
-    row = end.to(tl.int64) * n
-    tl.store(S_ptr + row + offs, s.to(S_ptr.dtype.element_ty), mask=mask & holds_end)
-    tl.store(Y_ptr + row + offs, y.to(Y_ptr.dtype.element_ty), mask=mask & holds_end)
+    row = end.to(tl.int64) * st
+    if LD_IS_N:
+        keep = mask & holds_end
+    else:
+        keep = (offs < st) & (holds_end & live)
+    tl.store(S_ptr + row + offs, s.to(S_ptr.dtype.element_ty), mask=keep)
+    tl.store(Y_ptr + row + offs, y.to(Y_ptr.dtype.element_ty), mask=keep)
     return acc_s, acc_y
 
 
@@ -1737,10 +1791,10 @@ def _store_gram_mma(part, gpart, live, j0, m, end, with_gp, acc_s, acc_y, e_sy, 
 
 
 @triton.jit
-def _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs, gidx, mask, n, m, end,
-              j0, last, holds_end, stp, ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy,
-              e_yd, e_yg, acc_s, acc_y, body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr,
-              W: tl.constexpr, CARRY_RN: tl.constexpr):
+def _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs, gidx, mask, live, st, m,
+              end, j0, last, holds_end, stp, ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg,
+              e_yy, e_yd, e_yg, acc_s, acc_y, body: tl.constexpr, RP: tl.constexpr,
+              K: tl.constexpr, W: tl.constexpr, CARRY_RN: tl.constexpr, LD_IS_N: tl.constexpr):
     # one chunk of K4's tensor-core forms (the solo kernels and K4 b's): the
     # point, the body (at the indices gidx) and the pair as K4 forms them,
     # the scalar sums and row end's products folded into per-element sums
@@ -1773,8 +1827,8 @@ def _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs, gidx, mas
     e_yy += y * y
     e_yd += y * d0
     e_yg += y * gp
-    acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, j0, holds_end, s, y, d0, gp,
-                               acc_s, acc_y, RP, CARRY_RN)
+    acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, live, st, m, end, j0, holds_end, s, y,
+                               d0, gp, acc_s, acc_y, RP, CARRY_RN, LD_IS_N)
     tl.store(x_ptr + offs, x, mask=mask & last)
     tl.store(g_ptr + offs, g, mask=mask & last)
     fe = tl.where(mask, tl.reshape(fe, [K]), 0.0)
@@ -1783,10 +1837,10 @@ def _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs, gidx, mas
 
 @triton.jit
 def _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, offs, gidx,
-               mask, n, m, lo, hi, end, j0, last, holds_end, stp, c, ex, a_xx, a_pp, a_ch, a_gg,
-               a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y,
+               mask, live, st, m, lo, hi, end, j0, last, holds_end, stp, c, ex, a_xx, a_pp, a_ch,
+               a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y,
                body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
-               CARRY_RN: tl.constexpr):
+               CARRY_RN: tl.constexpr, LD_IS_N: tl.constexpr):
     # one chunk of K14's tensor-core forms, as ``_k4_chunk``: the projected
     # point with the orthant from (xp, pg_old) (the window [lo, hi) in the
     # kernel's own indices offs), its gradient and pseudo-gradient, the
@@ -1819,8 +1873,8 @@ def _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_pt
     e_yy += y * y
     e_yd += y * d0
     e_yg += y * gp
-    acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, n, m, end, j0, holds_end, s, y, d0, gp,
-                               acc_s, acc_y, RP, CARRY_RN)
+    acc_s, acc_y = _ring_chunk(S_ptr, Y_ptr, offs, mask, live, st, m, end, j0, holds_end, s, y,
+                               d0, gp, acc_s, acc_y, RP, CARRY_RN, LD_IS_N)
     tl.store(x_ptr + offs, x, mask=mask & last)
     tl.store(g_ptr + offs, g, mask=mask & last)
     tl.store(pgn_ptr + offs, pg, mask=mask & last)
@@ -1829,9 +1883,9 @@ def _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_pt
 
 @triton.jit(do_not_specialize=["m", "end", "tiles", "with_gp"])
 def trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr, Y_ptr,
-                                       part_ptr, gpart_ptr, n, end, tiles, with_gp, ex, m,
+                                       part_ptr, gpart_ptr, n, end, tiles, with_gp, ex, m, ld,
                                        body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr,
-                                       W: tl.constexpr):
+                                       W: tl.constexpr, LD_IS_N: tl.constexpr):
     # K4 b with the Gram products on the tensor cores (f32 vectors, a bf16
     # ring of at most RP rows): program (pid, b) takes chunks pid*tiles ..
     # pid*tiles + tiles - 1 of K elements of instance b, in place.  Per
@@ -1842,6 +1896,7 @@ def trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr,
     # (``CARRY_RN``).  The . gp column rides in the
     # same operand: the . gp launch and the 3-column one run this one
     # binary, and with_gp (a run-time flag) only stores the column
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -1849,8 +1904,8 @@ def trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr,
     xp_ptr += row
     d_ptr += row
     gp_ptr += row
-    S_ptr += row * m
-    Y_ptr += row * m
+    S_ptr += (b.to(tl.int64) * st) * m
+    Y_ptr += (b.to(tl.int64) * st) * m
     stp = tl.load(stp_ptr + b)
     a_gd = tl.zeros([K], tl.float32)
     a_gg = tl.zeros([K], tl.float32)
@@ -1869,9 +1924,9 @@ def trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr,
         offs = _chunk(pid * tiles + t, K)
         _, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y = \
             _k4_chunk(xp_ptr, d_ptr, gp_ptr, xp_ptr, gp_ptr, S_ptr, Y_ptr, offs, offs,
-                      (offs < n) & live, n, m, end, 0, True, True, stp, ex, a_gd, a_gg, a_xx,
-                      a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K,
-                      W, True)
+                      (offs < n) & live, live, st, m, end, 0, True, True, stp, ex,
+                      a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
+                      acc_y, body, RP, K, W, True, LD_IS_N)
     prog = b.to(tl.int64) * tl.num_programs(0) + pid
     part = part_ptr + prog * (4 + 6 * m)
     tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
@@ -1884,15 +1939,16 @@ def trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr,
 
 @triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles", "with_gp"])
 def owlqn_trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
-                                             live_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo,
-                                             hi, end, tiles, with_gp, ex, m, body: tl.constexpr,
-                                             RP: tl.constexpr, K: tl.constexpr,
-                                             W: tl.constexpr):
+                                             live_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo, hi,
+                                             end, tiles, with_gp, ex, m, ld, body: tl.constexpr,
+                                             RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
+                                             LD_IS_N: tl.constexpr):
     # K14 b laid out as ``trial_pair_gram_mma_batched_kernel``, in place (x,
     # g and pg over xp, gp and pg_old): the projected point with the
     # orthant from (xp, pg_old), its gradient and pseudo-gradient, the pair
     # (x - xp, g - gp) and d0 = -pg; gp.gp and gp.pg are summed in both
     # launches and stored with with_gp
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -1901,8 +1957,8 @@ def owlqn_trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_
     d_ptr += row
     gp_ptr += row
     pg_ptr += row
-    S_ptr += row * m
-    Y_ptr += row * m
+    S_ptr += (b.to(tl.int64) * st) * m
+    Y_ptr += (b.to(tl.int64) * st) * m
     stp = tl.load(stp_ptr + b)
     c = tl.load(c_ptr)
     a_xx = tl.zeros([K], tl.float32)
@@ -1923,9 +1979,10 @@ def owlqn_trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_
         offs = _chunk(pid * tiles + t, K)
         (a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
          acc_y) = _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, xp_ptr, gp_ptr, pg_ptr, S_ptr, Y_ptr,
-                             offs, offs, (offs < n) & live, n, m, lo, hi, end, 0, True, True,
-                             stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg,
-                             e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True)
+                             offs, offs, (offs < n) & live, live, st, m, lo, hi,
+                             end, 0, True, True, stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy,
+                             e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W,
+                             True, LD_IS_N)
     prog = b.to(tl.int64) * tl.num_programs(0) + pid
     part = part_ptr + prog * (3 + 6 * m)
     tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
@@ -1939,10 +1996,10 @@ def owlqn_trial_pair_gram_mma_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_
 
 
 @triton.jit(do_not_specialize=["m", "end", "tiles", "with_gp"])
-def trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr,
-                               fx_ptr, part_ptr, gpart_ptr, n, end, tiles, with_gp, off, ex, m,
+def trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr,
+                               part_ptr, gpart_ptr, n, end, tiles, with_gp, off, ex, m, ld,
                                body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr,
-                               W: tl.constexpr, SHARD: tl.constexpr):
+                               W: tl.constexpr, SHARD: tl.constexpr, LD_IS_N: tl.constexpr):
     # the solo K4 with the Gram products on the tensor cores (f32 vectors,
     # a bf16 ring of at most RP rows): program pid takes chunks pid*tiles ..
     # pid*tiles + tiles - 1 of K elements (``factory.solo_epilogue_grid``),
@@ -1951,6 +2008,7 @@ def trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_p
     # the objective's partial per chunk; x and g may alias xp and gp.  The
     # . gp column rides in the operand, so the . gp launch and the 3-column
     # one run this one binary and with_gp only stores the column
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     stp = tl.load(stp_ptr)
     a_gd = tl.zeros([K], tl.float32)
@@ -1971,9 +2029,10 @@ def trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_p
         offs = _chunk(chunk, K)
         fe, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y = \
             _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs,
-                      _gidx(offs, off, SHARD), offs < n, n, m, end, 0, True, True, stp, ex,
+                      _gidx(offs, off, SHARD), offs < n, True, st, m, end, 0, True, True,
+                      stp, ex,
                       a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
-                      acc_y, body, RP, K, W, True)
+                      acc_y, body, RP, K, W, True, LD_IS_N)
         tl.store(fx_ptr + chunk, tl.sum(fe, axis=0))
     part = part_ptr + pid * (4 + 6 * m)
     tl.store(part + 0, tl.sum(a_gd, axis=0))
@@ -1987,14 +2046,15 @@ def trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_p
 @triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles", "with_gp"])
 def owlqn_trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr, x_ptr, g_ptr,
                                      pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo, hi, end,
-                                     tiles, with_gp, off, ex, m, body: tl.constexpr,
+                                     tiles, with_gp, off, ex, m, ld, body: tl.constexpr,
                                      RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
-                                     SHARD: tl.constexpr):
+                                     SHARD: tl.constexpr, LD_IS_N: tl.constexpr):
     # the solo K14 laid out as ``trial_pair_gram_mma_kernel``, through K14
     # b's chunk body (``_k14_chunk``): x, g and pg may alias xp, gp and
     # pg_old; the window [lo, hi) in the shard's own indices (the wrapper
     # translates it), the body at the global ones; gp.gp and gp.pg summed in
     # both launches and stored with with_gp
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     stp = tl.load(stp_ptr)
     c = tl.load(c_ptr)
@@ -2016,9 +2076,10 @@ def owlqn_trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_p
         offs = _chunk(pid * tiles + t, K)
         (a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
          acc_y) = _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr,
-                             offs, _gidx(offs, off, SHARD), offs < n, n, m, lo, hi, end, 0,
-                             True, True, stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss,
-                             e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True)
+                             offs, _gidx(offs, off, SHARD), offs < n, True, st, m, lo, hi,
+                             end, 0, True, True, stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy,
+                             e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K, W,
+                             True, LD_IS_N)
     part = part_ptr + pid * (3 + 6 * m)
     tl.store(part + 0, tl.sum(a_xx, axis=0))
     tl.store(part + 1, tl.sum(a_pp, axis=0))
@@ -2032,9 +2093,9 @@ def owlqn_trial_pair_gram_mma_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_p
 
 @triton.jit
 def _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, live, n,
-                  m, end, j0, stp, pid, tiles, with_gp, off, ex, body: tl.constexpr,
+                  st, m, end, j0, stp, pid, tiles, with_gp, off, ex, body: tl.constexpr,
                   RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr, SHARD: tl.constexpr,
-                  LAST: tl.constexpr, FX: tl.constexpr):
+                  LAST: tl.constexpr, FX: tl.constexpr, LD_IS_N: tl.constexpr):
     # one pass of the row-block K4 over the program's chunks with ring rows
     # j0 .. j0 + RP - 1 as the dot's operand: their products stored, and on
     # the LAST pass the point (x, g) and, with FX, the objective's partial
@@ -2067,9 +2128,9 @@ def _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, par
         offs = _chunk(chunk, K)
         fe, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y = \
             _k4_chunk(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, offs,
-                      _gidx(offs, off, SHARD), (offs < n) & live, n, m, end, j0, LAST,
+                      _gidx(offs, off, SHARD), (offs < n) & live, live, st, m, end, j0, LAST,
                       holds_end, stp, ex, a_gd, a_gg, a_xx, a_ch, e_sy, e_ss, e_sd, e_sg, e_yy,
-                      e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True)
+                      e_yd, e_yg, acc_s, acc_y, body, RP, K, W, True, LD_IS_N)
         if LAST:
             if FX:
                 tl.store(fx_ptr + chunk, tl.sum(fe, axis=0))
@@ -2080,9 +2141,10 @@ def _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, par
 
 @triton.jit(do_not_specialize=["m", "end", "tiles", "with_gp"])
 def trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr,
-                                    fx_ptr, part_ptr, gpart_ptr, n, end, tiles, with_gp, off, ex,
-                                    m, body: tl.constexpr, RP: tl.constexpr, RT: tl.constexpr,
-                                    K: tl.constexpr, W: tl.constexpr, SHARD: tl.constexpr):
+                                    fx_ptr, part_ptr, gpart_ptr, n, end, tiles, with_gp, off, ex, m,
+                                    ld, body: tl.constexpr, RP: tl.constexpr, RT: tl.constexpr,
+                                    K: tl.constexpr, W: tl.constexpr, SHARD: tl.constexpr,
+                                    LD_IS_N: tl.constexpr):
     # the solo K4 with the Gram products on the tensor cores over any
     # dtype pair and any depth (``factory.solo_epilogue_grid``'s
     # "mma_rows" form): program pid takes the tensor-core form's chunks
@@ -2098,18 +2160,19 @@ def trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr
     # program reads them); the block that holds row `end` stores the new
     # pair there.  The . gp column rides in the operand: one binary for
     # both launches, with_gp only stores it
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     stp = tl.load(stp_ptr)
     part = part_ptr + pid * (4 + 6 * m)
     gpart = gpart_ptr + pid * (2 * m)
     for p in range(tl.cdiv(m - RT, RP)):
         _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart,
-                      True, n, m, end, p * RP, stp, pid, tiles, with_gp, off, ex, body, RP, K, W,
-                      SHARD, False, True)
+                      True, n, st, m, end, p * RP, stp, pid, tiles, with_gp, off, ex, body, RP,
+                      K, W, SHARD, False, True, LD_IS_N)
     a_gd, a_gg, a_xx, a_ch = _k4_rows_pass(
-        xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, True, n, m, end,
-        tl.cdiv(m - RT, RP) * RP, stp, pid, tiles, with_gp, off, ex, body, RT, K, W, SHARD,
-        True, True)
+        xp_ptr, d_ptr, gp_ptr, x_ptr, g_ptr, S_ptr, Y_ptr, fx_ptr, part, gpart, True, n, st, m,
+        end, tl.cdiv(m - RT, RP) * RP, stp, pid, tiles, with_gp, off, ex, body, RT, K, W, SHARD,
+        True, True, LD_IS_N)
     tl.store(part + 0, tl.sum(a_gd, axis=0))
     tl.store(part + 1, tl.sum(a_gg, axis=0))
     tl.store(part + 2, tl.sum(a_xx, axis=0))
@@ -2118,9 +2181,9 @@ def trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, x_ptr, g_ptr
 
 @triton.jit
 def _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part,
-                   gpart, live, n, m, lo, hi, end, j0, stp, c, pid, tiles, with_gp, off, ex,
+                   gpart, live, n, st, m, lo, hi, end, j0, stp, c, pid, tiles, with_gp, off, ex,
                    body: tl.constexpr, RP: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
-                   SHARD: tl.constexpr, LAST: tl.constexpr):
+                   SHARD: tl.constexpr, LAST: tl.constexpr, LD_IS_N: tl.constexpr):
     # ``_k4_rows_pass`` for K14: x, g and pg stored on the LAST pass
     dt = xp_ptr.dtype.element_ty
     holds_end = (end >= j0) & (end < j0 + RP)
@@ -2148,10 +2211,10 @@ def _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, 
         offs = _chunk(pid * tiles + t, K)
         (a_xx, a_pp, a_ch, a_gg, a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s,
          acc_y) = _k14_chunk(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr,
-                             offs, _gidx(offs, off, SHARD), (offs < n) & live, n, m, lo, hi,
-                             end, j0, LAST, holds_end, stp, c, ex, a_xx, a_pp, a_ch, a_gg, a_gpg,
-                             e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body, RP, K,
-                             W, True)
+                             offs, _gidx(offs, off, SHARD), (offs < n) & live, live, st, m, lo,
+                             hi, end, j0, LAST, holds_end, stp, c, ex, a_xx, a_pp, a_ch, a_gg,
+                             a_gpg, e_sy, e_ss, e_sd, e_sg, e_yy, e_yd, e_yg, acc_s, acc_y, body,
+                             RP, K, W, True, LD_IS_N)
     _store_gram_mma(part + 3, gpart + 2, live, j0, m, end, with_gp, acc_s, acc_y, e_sy, e_ss,
                     e_sd, e_sg, e_yy, e_yd, e_yg, RP)
     return a_xx, a_pp, a_ch, a_gg, a_gpg
@@ -2159,15 +2222,16 @@ def _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, 
 
 @triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles", "with_gp"])
 def owlqn_trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr, x_ptr,
-                                          g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n,
-                                          lo, hi, end, tiles, with_gp, off, ex, m,
-                                          body: tl.constexpr, RP: tl.constexpr,
-                                          RT: tl.constexpr, K: tl.constexpr, W: tl.constexpr,
-                                          SHARD: tl.constexpr):
+                                          g_ptr, pgn_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n, lo,
+                                          hi, end, tiles, with_gp, off, ex, m, ld,
+                                          body: tl.constexpr, RP: tl.constexpr, RT: tl.constexpr,
+                                          K: tl.constexpr, W: tl.constexpr, SHARD: tl.constexpr,
+                                          LD_IS_N: tl.constexpr):
     # the solo K14 laid out as ``trial_pair_gram_mma_rows_kernel``, through
     # ``_k14_chunk``: x, g and pg (which may alias xp, gp and pg_old)
     # stored by the last pass; gp.gp and gp.pg summed in both launches and
     # stored with with_gp
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     stp = tl.load(stp_ptr)
     c = tl.load(c_ptr)
@@ -2175,12 +2239,12 @@ def owlqn_trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr
     gpart = gpart_ptr + pid * (2 + 2 * m)
     for p in range(tl.cdiv(m - RT, RP)):
         _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part,
-                       gpart, True, n, m, lo, hi, end, p * RP, stp, c, pid, tiles, with_gp, off,
-                       ex, body, RP, K, W, SHARD, False)
+                       gpart, True, n, st, m, lo, hi, end, p * RP, stp, c, pid, tiles, with_gp,
+                       off, ex, body, RP, K, W, SHARD, False, LD_IS_N)
     a_xx, a_pp, a_ch, a_gg, a_gpg = _k14_rows_pass(
         xp_ptr, d_ptr, gp_ptr, pg_ptr, x_ptr, g_ptr, pgn_ptr, S_ptr, Y_ptr, part, gpart, True, n,
-        m, lo, hi, end, tl.cdiv(m - RT, RP) * RP, stp, c, pid, tiles, with_gp, off, ex, body, RT,
-        K, W, SHARD, True)
+        st, m, lo, hi, end, tl.cdiv(m - RT, RP) * RP, stp, c, pid, tiles, with_gp, off, ex, body,
+        RT, K, W, SHARD, True, LD_IS_N)
     tl.store(part + 0, tl.sum(a_xx, axis=0))
     tl.store(part + 1, tl.sum(a_pp, axis=0))
     tl.store(part + 2, tl.sum(a_ch, axis=0))
@@ -2189,11 +2253,11 @@ def owlqn_trial_pair_gram_mma_rows_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr
 
 
 @triton.jit(do_not_specialize=["m", "end", "tiles", "with_gp"])
-def trial_pair_gram_mma_rows_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr,
-                                            Y_ptr, part_ptr, gpart_ptr, n, end, tiles, with_gp,
-                                            ex, m, body: tl.constexpr, RP: tl.constexpr,
-                                            RT: tl.constexpr, K: tl.constexpr,
-                                            W: tl.constexpr):
+def trial_pair_gram_mma_rows_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live_ptr, S_ptr, Y_ptr,
+                                            part_ptr, gpart_ptr, n, end, tiles, with_gp, ex, m, ld,
+                                            body: tl.constexpr, RP: tl.constexpr, RT: tl.constexpr,
+                                            K: tl.constexpr, W: tl.constexpr,
+                                            LD_IS_N: tl.constexpr):
     # K4 b in the row-block form (``factory.batched_epilogue_grid``'s
     # "mma_rows": f32 and f64 rings from ``factory.rows_min_m`` rows, bf16
     # rings above 256; bytes bound it, as the solo form): program (pid, b)
@@ -2206,6 +2270,7 @@ def trial_pair_gram_mma_rows_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live
     # search), the body at the instance's own indices.  x and g go over xp
     # and gp on the last pass alone; every earlier pass reads the program's
     # chunks first, and no program reads another's
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -2213,20 +2278,20 @@ def trial_pair_gram_mma_rows_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live
     xp_ptr += row
     d_ptr += row
     gp_ptr += row
-    S_ptr += row * m
-    Y_ptr += row * m
+    S_ptr += (b.to(tl.int64) * st) * m
+    Y_ptr += (b.to(tl.int64) * st) * m
     stp = tl.load(stp_ptr + b)
     prog = b.to(tl.int64) * tl.num_programs(0) + pid
     part = part_ptr + prog * (4 + 6 * m)
     gpart = gpart_ptr + prog * (2 * m)
     for p in range(tl.cdiv(m - RT, RP)):
         _k4_rows_pass(xp_ptr, d_ptr, gp_ptr, xp_ptr, gp_ptr, S_ptr, Y_ptr, part_ptr, part, gpart,
-                      live, n, m, end, p * RP, stp, pid, tiles, with_gp, 0, ex, body, RP, K, W,
-                      False, False, False)
+                      live, n, st, m, end, p * RP, stp, pid, tiles, with_gp, 0, ex, body, RP, K,
+                      W, False, False, False, LD_IS_N)
     a_gd, a_gg, a_xx, a_ch = _k4_rows_pass(
-        xp_ptr, d_ptr, gp_ptr, xp_ptr, gp_ptr, S_ptr, Y_ptr, part_ptr, part, gpart, live, n, m,
-        end, tl.cdiv(m - RT, RP) * RP, stp, pid, tiles, with_gp, 0, ex, body, RT, K, W, False,
-        True, False)
+        xp_ptr, d_ptr, gp_ptr, xp_ptr, gp_ptr, S_ptr, Y_ptr, part_ptr, part, gpart, live, n, st,
+        m, end, tl.cdiv(m - RT, RP) * RP, stp, pid, tiles, with_gp, 0, ex, body, RT, K, W, False,
+        True, False, LD_IS_N)
     tl.store(part + 0, tl.sum(a_gd, axis=0), mask=live)
     tl.store(part + 1, tl.sum(a_gg, axis=0), mask=live)
     tl.store(part + 2, tl.sum(a_xx, axis=0), mask=live)
@@ -2236,14 +2301,15 @@ def trial_pair_gram_mma_rows_batched_kernel(xp_ptr, d_ptr, gp_ptr, stp_ptr, live
 @triton.jit(do_not_specialize=["m", "end", "lo", "hi", "tiles", "with_gp"])
 def owlqn_trial_pair_gram_mma_rows_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr, stp_ptr, c_ptr,
                                                   live_ptr, S_ptr, Y_ptr, part_ptr, gpart_ptr, n,
-                                                  lo, hi, end, tiles, with_gp, ex, m,
+                                                  lo, hi, end, tiles, with_gp, ex, m, ld,
                                                   body: tl.constexpr, RP: tl.constexpr,
                                                   RT: tl.constexpr, K: tl.constexpr,
-                                                  W: tl.constexpr):
+                                                  W: tl.constexpr, LD_IS_N: tl.constexpr):
     # K14 b laid out as ``trial_pair_gram_mma_rows_batched_kernel``, through
     # ``_k14_rows_pass``: x, g and pg over xp, gp and pg_old on the last
     # pass alone; gp.gp and gp.pg summed in both launches and stored with
     # with_gp
+    st = _stride(n, ld, LD_IS_N)
     pid = tl.program_id(0)
     b = tl.program_id(1)
     live = tl.load(live_ptr + b) != 0
@@ -2252,8 +2318,8 @@ def owlqn_trial_pair_gram_mma_rows_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr,
     d_ptr += row
     gp_ptr += row
     pg_ptr += row
-    S_ptr += row * m
-    Y_ptr += row * m
+    S_ptr += (b.to(tl.int64) * st) * m
+    Y_ptr += (b.to(tl.int64) * st) * m
     stp = tl.load(stp_ptr + b)
     c = tl.load(c_ptr)
     prog = b.to(tl.int64) * tl.num_programs(0) + pid
@@ -2261,12 +2327,12 @@ def owlqn_trial_pair_gram_mma_rows_batched_kernel(xp_ptr, d_ptr, gp_ptr, pg_ptr,
     gpart = gpart_ptr + prog * (2 + 2 * m)
     for p in range(tl.cdiv(m - RT, RP)):
         _k14_rows_pass(xp_ptr, d_ptr, gp_ptr, pg_ptr, xp_ptr, gp_ptr, pg_ptr, S_ptr, Y_ptr, part,
-                       gpart, live, n, m, lo, hi, end, p * RP, stp, c, pid, tiles, with_gp, 0,
-                       ex, body, RP, K, W, False, False)
+                       gpart, live, n, st, m, lo, hi, end, p * RP, stp, c, pid, tiles, with_gp, 0,
+                       ex, body, RP, K, W, False, False, LD_IS_N)
     a_xx, a_pp, a_ch, a_gg, a_gpg = _k14_rows_pass(
         xp_ptr, d_ptr, gp_ptr, pg_ptr, xp_ptr, gp_ptr, pg_ptr, S_ptr, Y_ptr, part, gpart, live,
-        n, m, lo, hi, end, tl.cdiv(m - RT, RP) * RP, stp, c, pid, tiles, with_gp, 0, ex, body,
-        RT, K, W, False, True)
+        n, st, m, lo, hi, end, tl.cdiv(m - RT, RP) * RP, stp, c, pid, tiles, with_gp, 0, ex, body,
+        RT, K, W, False, True, LD_IS_N)
     tl.store(part + 0, tl.sum(a_xx, axis=0), mask=live)
     tl.store(part + 1, tl.sum(a_pp, axis=0), mask=live)
     tl.store(part + 2, tl.sum(a_ch, axis=0), mask=live)

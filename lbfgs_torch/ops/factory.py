@@ -135,6 +135,7 @@ from types import SimpleNamespace
 import torch
 
 from . import _build, fused
+from ..core import ring_stride
 from ..orthantwise import Orthantwise, choose_orthant, project_window, pseudo_gradient, x1sum
 
 #: elements per kernel program (a power of two; ``row`` divides it)
@@ -194,7 +195,8 @@ MAX_M = 64
 #: compile for every m.  With f32 vectors over a bf16 ring the tensor-core
 #: form takes ``MMA_MIN_M`` to ``MMA_MAX_M`` rows first; the solo and
 #: batched kernels take the row-block form from ``MMA_ROWS_MIN_M`` rows
-#: (the deep form keeps an n off a multiple of ``MMA_ALIGN``)
+#: (the deep form keeps a ring whose row stride is n at an n off a
+#: multiple of ``MMA_ALIGN``; the solver's rings are padded, ``MMA_ALIGN``)
 EPILOGUE_MAX_M = {
     (torch.float32, torch.bfloat16): 8,
     (torch.float32, torch.float32): 8,
@@ -281,14 +283,21 @@ MMA_DTYPES = (torch.float32, torch.bfloat16)
 #: The f32 launch of 64-row blocks spills 2-4 registers where one pass
 #: takes all the rows (m = 33-64: m = 48 2.50 / 2.58 ms, against 3.08 /
 #: 3.28 for the fastest that does not, which at m = 80 loses to the deep
-#: fold form)
+#: fold form).  Over a padded ring at an n off 16 the batched kernels take
+#: an entry's ``batched_padded`` launch where it has one: there the f32
+#: launch of 64-row blocks spills (2 in K14 b at m = 80, 1024 x (2^14 +
+#: 2)), and the fastest that does not in ``tools/tune_batched_epilogues.py
+#: --rows --batched --pairs f32 --depths 80 --rps 64 32 --n 16386``'s sweep
+#: on the same card is K 32, 4 warps, 3 stages (K4 b ·gp 6.11 ms, K14 b ·gp
+#: 6.48, against 5.59 and 5.72 with the spill)
 MMA_ROWS_EPILOGUE = {
     (torch.float32, torch.bfloat16): {128: dict(K=128, num_warps=8, num_stages=3)},
     (torch.float32, torch.float32): {
         16: dict(K=64, num_warps=4, num_stages=2),
         32: dict(K=64, num_warps=4, num_stages=2,
                  batched=dict(K=32, num_warps=4, num_stages=3)),
-        64: dict(K=64, num_warps=4, num_stages=3),
+        64: dict(K=64, num_warps=4, num_stages=3,
+                 batched_padded=dict(K=32, num_warps=4, num_stages=3)),
     },
     (torch.float64, torch.float64): {
         16: dict(K=32, num_warps=4, num_stages=3),
@@ -344,16 +353,19 @@ def rows_min_m(pair: tuple, batched: bool = False) -> int:
     return MMA_ROWS_MIN_M[pair]
 
 
-def rows_launch(pair: tuple, m: int, batched: bool = False) -> tuple:
+def rows_launch(pair: tuple, m: int, batched: bool = False, padded: bool = False) -> tuple:
     """(RP, launch) of the row-block form at m ring rows: RP is m rounded up
     to a power of two, at least 16, at most the pair's largest block
     (``MMA_ROWS_RP``; for the batched kernels the largest whose entry has a
     batched launch), the launch ``MMA_ROWS_EPILOGUE``'s, an entry's
-    ``batched`` launch for the batched kernels."""
+    ``batched`` launch for the batched kernels, and its ``batched_padded``
+    launch for them over a padded ring at an n off 16 (``padded``)."""
     table = MMA_ROWS_EPILOGUE[pair]
     top = MMA_ROWS_RP[pair]
     if batched:
-        table = {rp: cfg.get("batched", cfg) for rp, cfg in table.items()}
+        pick = lambda cfg: (cfg["batched_padded"] if padded and "batched_padded" in cfg
+                            else cfg.get("batched", cfg))
+        table = {rp: pick(cfg) for rp, cfg in table.items()}
         top = max(rp for rp, cfg in table.items() if cfg is not None and rp <= top)
     rp = min(max(16, _rows(m)), top)
     return rp, table[rp]
@@ -379,12 +391,18 @@ SOLO_MMA_PROGRAMS = 2 * 132
 #: increases the objective (its sums add in another order; both within
 #: the sum tolerance of the float64 product)
 MMA_MAX_CHUNKS = 64
-#: the solo tensor-core form takes n a multiple of MMA_ALIGN: then every
-#: ring row starts on a 32-byte boundary and a chunk's [RP, K] ring tile
-#: loads as 16-byte vectors.  At another n the loads go scalar, and on an
-#: H100 the kernels spill from RP = 64 (96-248 spills at 1-3 pipeline
-#: stages) and run 1.4-3x slower than at the aligned n (m = 80: 0.43-0.51
-#: ms at n = 2^20 + 2, 0.15-0.17 at 2^20), so the fold forms take such an n
+#: the tensor-core forms take a ring whose row stride is a multiple of
+#: MMA_ALIGN elements: then every ring row starts on a 32-byte boundary and
+#: a chunk's [RP, K] ring tile, masked by the ring's columns (offs < ld,
+#: constant over each run of 16), loads as 16-byte vectors.  The solver's
+#: rings have such a stride at any n (``core.ring_zeros``: n rounded up to
+#: a multiple of 16, the pad columns zero), so the rule is on the stride,
+#: not on n.  A ring of row stride n at an n off a multiple of 16 (one
+#: handed in contiguous) takes the fold forms: there the rows are not
+#: aligned, the loads go scalar, and on an H100 the tensor-core kernels
+#: spilled from RP = 64 (96-248 spills at 1-3 pipeline stages) and ran
+#: 1.4-3x slower than at an aligned n (m = 80: 0.43-0.51 ms at n = 2^20 +
+#: 2 with row stride n, 0.15-0.17 at 2^20)
 MMA_ALIGN = 16
 
 #: most lanes one launch of the K-lane probes (K2 s, K8 s and their batched
@@ -400,15 +418,18 @@ def spec_chunks(K: int) -> list:
 
 
 def _epilogue_form(m: int, vdtype: torch.dtype, hdtype: torch.dtype,
-                   mma: bool = True, batched: bool = False) -> tuple:
+                   mma: bool = True, batched: bool = False, padded: bool = False) -> tuple:
     """(form, its launch table's entry, its tile or chunk T, its
     compile-time constants) of K4 and K14 (with ``batched``, K4 b and K14
-    b) at m ring rows: the tensor-core form (``"mma"``; with ``mma`` on)
+    b) at m ring rows: the tensor-core form (``"mma"``; with ``mma`` on:
+    the ring's row stride a multiple of ``MMA_ALIGN``)
     for f32 vectors over a bf16 ring from ``MMA_MIN_M`` to ``MMA_MAX_M``
     rows, else the static fold form up to ``EPILOGUE_MAX_M`` rows, then
     (with ``mma`` on) the tensor-core row-block form (``"mma_rows"``) from
-    ``rows_min_m`` rows in ``rows_launch``'s blocks, and the deep fold form
-    between, the fold forms on ``EPILOGUE``'s tiles."""
+    ``rows_min_m`` rows in ``rows_launch``'s blocks (``padded``: a ring
+    whose stride is padded past n, which may take a launch of its own),
+    and the deep fold form between, the fold forms on ``EPILOGUE``'s
+    tiles."""
     pair = (vdtype, hdtype)
     if mma and pair == MMA_DTYPES and MMA_MIN_M <= m <= MMA_MAX_M:
         rp = max(16, _rows(m))
@@ -418,7 +439,7 @@ def _epilogue_form(m: int, vdtype: torch.dtype, hdtype: torch.dtype,
     if m <= EPILOGUE_MAX_M[pair]:
         return "static", cfg, cfg["T"], dict(M=m, MP=_rows(m), T=cfg["T"], V=cfg["V"])
     if mma and m >= rows_min_m(pair, batched):
-        rp, cfg = rows_launch(pair, m, batched)
+        rp, cfg = rows_launch(pair, m, batched, padded)
         return "mma_rows", cfg, cfg["K"], dict(m=m, RP=rp, RT=rows_tail(m, rp), K=cfg["K"])
     return "deep", cfg, cfg["T"], dict(m=m, G=DEEP_GROUP[pair], T=cfg["T"], V=cfg["V"])
 
@@ -444,28 +465,32 @@ def _form_grid(form: str, cfg: dict, T: int, consts: dict, ntiles: int, per: int
                                        num_stages=cfg["num_stages"]))
 
 
-def solo_epilogue_grid(n: int, m: int, vdtype: torch.dtype,
-                       hdtype: torch.dtype) -> SimpleNamespace:
+def solo_epilogue_grid(n: int, m: int, vdtype: torch.dtype, hdtype: torch.dtype,
+                       ld: int | None = None) -> SimpleNamespace:
     """The form and launch of the solo K4 and K14 (the ·gp launch and the
     3-column one alike) at n elements and m ring rows (``_epilogue_form``):
     the fold forms on ``EPILOGUE``'s tiles of T elements, the tiles each
     program loops over and the program count (at most
     ``EPILOGUE_PROGRAMS``; fewer, with one tile each, for a small n); the
-    tensor-core forms (``"mma"`` and ``"mma_rows"``), where n is a multiple
-    of ``MMA_ALIGN``, on chunks of K, at most ``SOLO_MMA_PROGRAMS`` programs
+    tensor-core forms (``"mma"`` and ``"mma_rows"``), where the ring's row
+    stride ``ld`` is a multiple of ``MMA_ALIGN`` (by default the solver's
+    ring's, ``core.ring_stride(n)``, which is at any n; a ring of row
+    stride n at an n off 16 takes the fold forms), on chunks of K, at most
+    ``SOLO_MMA_PROGRAMS`` programs
     (more where a program would sum more than ``MMA_MAX_CHUNKS`` chunks),
     each taking ``tiles`` consecutive chunks (``"mma_rows"``: once per
     block of RP ring rows).  The last program's tiles may run past n,
     masked.  Fields as ``batched_epilogue_grid``'s at B = 1."""
-    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=n % MMA_ALIGN == 0)
+    ld = ring_stride(n) if ld is None else ld
+    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=ld % MMA_ALIGN == 0)
     ntiles = -(-n // T)
     if form in ("mma", "mma_rows"):
         return _form_grid(form, cfg, T, consts, ntiles, SOLO_MMA_PROGRAMS, 1, MMA_MAX_CHUNKS)
     return _form_grid(form, cfg, T, consts, ntiles, EPILOGUE_PROGRAMS, 1, ntiles)
 
 
-def batched_epilogue_grid(B: int, n: int, m: int, vdtype: torch.dtype,
-                          hdtype: torch.dtype) -> SimpleNamespace:
+def batched_epilogue_grid(B: int, n: int, m: int, vdtype: torch.dtype, hdtype: torch.dtype,
+                          ld: int | None = None) -> SimpleNamespace:
     """The form and launch of K4 b and K14 b (the ·gp launch and the
     3-column one alike) on B instances of n elements with m ring rows, the
     form as the solo kernels' (``_epilogue_form``), the row-block form's
@@ -476,14 +501,17 @@ def batched_epilogue_grid(B: int, n: int, m: int, vdtype: torch.dtype,
     consecutive ones, so that B * programs stays at or under
     ``EPILOGUE_PROGRAMS`` wherever B does (one program an instance above
     it).  The tensor-core forms (``"mma"`` and ``"mma_rows"``) take the
-    solo forms' rules: n a multiple of ``MMA_ALIGN`` (the fold forms take
-    any other n), and at most ``MMA_MAX_CHUNKS`` chunks a program (a
-    larger n takes more programs, not more chunks).  A program never
+    solo forms' rules: the rings' row stride ``ld`` a multiple of
+    ``MMA_ALIGN`` (by default ``core.ring_stride(n)``, the runner's rings';
+    a ring of row stride n at an n off 16 takes the fold forms), and at
+    most ``MMA_MAX_CHUNKS`` chunks a program (a larger n takes more
+    programs, not more chunks).  A program never
     straddles two instances; the last one's tiles may run past n, masked.
     ``consts`` are the form's compile-time constants, ``launch`` its warps
     and stages."""
-    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=n % MMA_ALIGN == 0,
-                                          batched=True)
+    ld = ring_stride(n) if ld is None else ld
+    form, cfg, T, consts = _epilogue_form(m, vdtype, hdtype, mma=ld % MMA_ALIGN == 0,
+                                          batched=True, padded=ld != n)
     ntiles = -(-n // T)
     most = MMA_MAX_CHUNKS if form in ("mma", "mma_rows") else ntiles
     return _form_grid(form, cfg, T, consts, ntiles, max(1, EPILOGUE_PROGRAMS // B), B, most)
@@ -993,17 +1021,18 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         fused._check_hist(xp, S, Y)
         if not fused.on_cuda(xp, "trial_pair_gram"):
             return trial_pair_gram_ref(xp, d, gp, stp, S, Y, end, inplace, with_gp)
-        fused.check_contiguous("trial_pair_gram", xp, d, gp, S, Y)
+        fused.check_contiguous("trial_pair_gram", xp, d, gp)
+        ld = fused.ring_ld("trial_pair_gram", S, Y)
         m, n = S.shape
-        eg = solo_epilogue_grid(n, m, xp.dtype, S.dtype)
+        eg = solo_epilogue_grid(n, m, xp.dtype, S.dtype, ld)
         x = xp if inplace else torch.empty_like(xp)
         g = gp if inplace else torch.empty_like(gp)
         bufs = _epilogue_buffers(xp, eg, m, False, with_gp)
         part = bufs["part"]
         _launch_epilogue(trial_pair_gram, eg, m, xp.dtype, S.dtype, with_gp,
                          xp, d, gp, _scalar(stp, xp), x, g, S, Y, bufs["fx"], part,
-                         bufs.get("gpart", part), n, int(end), off=off, ex=ex,
-                         SHARD=off != 0, body=block_fn(), W=W)
+                         bufs.get("gpart", part), n, int(end), off=off, ex=ex, ld=ld,
+                         SHARD=off != 0, body=block_fn(), W=W, LD_IS_N=ld == n)
         tot = fused.reduce_partials(part)
         sums = (_fx_tiles(bufs["fx"]), tot[0], tot[1], tot[2], tot[3] > 0, tot[4:])
         if with_gp:
@@ -1062,13 +1091,14 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         end = fused._check_row(S[0], end)
         if not fused.on_cuda(xp, "trial_pair_gram_batched"):
             return trial_pair_gram_batched_ref(xp, d, gp, stp, S, Y, end, live, with_gp)
-        fused.check_contiguous("trial_pair_gram_batched", xp, d, gp, stp, live, S, Y)
-        eg = batched_epilogue_grid(B, n, m, xp.dtype, S.dtype)
+        fused.check_contiguous("trial_pair_gram_batched", xp, d, gp, stp, live)
+        ld = fused.ring_ld("trial_pair_gram_batched", S, Y)
+        eg = batched_epilogue_grid(B, n, m, xp.dtype, S.dtype, ld)
         part, gpart = _batched_buffers(xp, eg, m, False, with_gp)
         _launch_epilogue(
             trial_pair_gram_batched, eg, m, xp.dtype, S.dtype, with_gp,
             xp, d, gp, stp, live.view(torch.uint8), S, Y, part, gpart, n, int(end),
-            ex=extras, body=block_fn(), W=W)
+            ex=extras, ld=ld, body=block_fn(), W=W, LD_IS_N=ld == n)
         tot = fused.reduce_partials(part, dim=1)
         P = tot[:, 4:].reshape(B, m, 6)
         SP, YP = P[:, :, :3], P[:, :, 3:]
@@ -1456,10 +1486,11 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         if not fused.on_cuda(xp, "owlqn_trial_pair_gram"):
             return owlqn_trial_pair_gram_ref(xp, d, gp, pg, stp, c, start, end_w,
                                              S, Y, end, inplace, with_gp)
-        fused.check_contiguous("owlqn_trial_pair_gram", xp, d, gp, pg, S, Y)
+        fused.check_contiguous("owlqn_trial_pair_gram", xp, d, gp, pg)
+        ld = fused.ring_ld("owlqn_trial_pair_gram", S, Y)
         m, n = S.shape
         lo, hi = _window(n, start, end_w)
-        eg = solo_epilogue_grid(n, m, xp.dtype, S.dtype)
+        eg = solo_epilogue_grid(n, m, xp.dtype, S.dtype, ld)
         x = xp if inplace else torch.empty_like(xp)
         g = gp if inplace else torch.empty_like(gp)
         pg_new = pg if inplace else torch.empty_like(pg)
@@ -1468,8 +1499,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         gpart = bufs.get("gpart", part)
         _launch_epilogue(owlqn_trial_pair_gram, eg, m, xp.dtype, S.dtype,
                          with_gp, xp, d, gp, pg, _scalar(stp, xp), _scalar(c, xp), x, g, pg_new,
-                         S, Y, part, gpart, n, lo, hi, int(end), off=off, ex=ex,
-                         SHARD=off != 0, body=block_fn(), W=W)
+                         S, Y, part, gpart, n, lo, hi, int(end), off=off, ex=ex, ld=ld,
+                         SHARD=off != 0, body=block_fn(), W=W, LD_IS_N=ld == n)
         tot = fused.reduce_partials(part)
         sums = (tot[0], tot[1], tot[2] > 0, tot[3:])
         if with_gp:
@@ -1529,13 +1560,14 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         if not fused.on_cuda(xp, "owlqn_trial_pair_gram_batched"):
             return owlqn_trial_pair_gram_batched_ref(xp, d, gp, pg, stp, c, start, end_w, S, Y,
                                                      end, live, with_gp)
-        fused.check_contiguous("owlqn_trial_pair_gram_batched", xp, d, gp, pg, stp, live, S, Y)
-        eg = batched_epilogue_grid(B, n, m, xp.dtype, S.dtype)
+        fused.check_contiguous("owlqn_trial_pair_gram_batched", xp, d, gp, pg, stp, live)
+        ld = fused.ring_ld("owlqn_trial_pair_gram_batched", S, Y)
+        eg = batched_epilogue_grid(B, n, m, xp.dtype, S.dtype, ld)
         part, gpart = _batched_buffers(xp, eg, m, True, with_gp)
         _launch_epilogue(
             owlqn_trial_pair_gram_batched, eg, m, xp.dtype, S.dtype, with_gp,
             xp, d, gp, pg, stp, _scalar(c, xp), live.view(torch.uint8), S, Y, part, gpart, n,
-            start, end_w, int(end), ex=extras, body=block_fn(), W=W)
+            start, end_w, int(end), ex=extras, ld=ld, body=block_fn(), W=W, LD_IS_N=ld == n)
         tot = fused.reduce_partials(part, dim=1)
         P = tot[:, 3:].reshape(B, m, 6)
         out = (tot[:, 0], tot[:, 1], tot[:, 2] > 0, P[:, :, :3], P[:, :, 3:])
@@ -1575,7 +1607,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         ``FIX``); returns (r, column sums of the combine's partials, the
         probe's partials)."""
         kernel = fn.__name__
-        fused.check_contiguous(kernel, d, x, S, Y)
+        fused.check_contiguous(kernel, d, x)
+        ld = fused.ring_ld(kernel, S, Y)
         m, n = S.shape
         off, ex = shard
         grid = _grid(n)
@@ -1587,8 +1620,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         deep = m > MAX_M
         compiled = getattr(_kernels(), kernel + "_kernel")[grid](
             d, x, S, Y, fused.coef_vector(d, *coefs), _scalar(stp1, d), r, cpart, ppart,
-            n, m, *args, off, ex=ex, SHARD=off != 0, body=block_fn(), M=0 if deep else m,
-            ROWS=rows, W=W, **consts, **LAUNCH,
+            n, m, *args, off, ex=ex, ld=ld, SHARD=off != 0, body=block_fn(),
+            M=0 if deep else m, ROWS=rows, W=W, LD_IS_N=ld == n, **consts, **LAUNCH,
         )
         flags = {k.lower(): v for k, v in consts.items()}
         if deep:
@@ -1681,7 +1714,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         the [B, nparts] column sums of the combine's [B, programs, nparts]
         partials and the probe's partials themselves."""
         kernel = fn.__name__
-        fused.check_contiguous(kernel, d, x, S, Y, coef, stp1, live, out)
+        fused.check_contiguous(kernel, d, x, coef, stp1, live, out)
+        ld = fused.ring_ld(kernel, S, Y)
         B, m, n = S.shape
         grid = (_grid(n)[0], B)
         cpart = torch.empty((B, grid[0], nparts), dtype=d.dtype, device=d.device)
@@ -1690,7 +1724,8 @@ def make_fused_objective(block_fn, value_and_grad=None, *, extras=(), row: int =
         key = (d.dtype, S.dtype, deep, *consts.values())
         fn.compiled[key] = getattr(_kernels(), kernel + "_kernel")[grid](
             d, x, S, Y, coef, stp1, live.view(torch.uint8), out, cpart, ppart, n, m, *args,
-            ex=extras, body=block_fn(), M=0 if deep else m, ROWS=rows, W=W, **consts, **LAUNCH)
+            ex=extras, ld=ld, body=block_fn(), M=0 if deep else m, ROWS=rows, W=W,
+            LD_IS_N=ld == n, **consts, **LAUNCH)
         _count(fn, deep, **{k.lower(): v for k, v in consts.items()})
         return fused.reduce_partials(cpart, dim=1), ppart
 

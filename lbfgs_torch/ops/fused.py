@@ -96,6 +96,7 @@ from . import _build
 from .collective import (active_mesh, global_length, kernels_on_mesh, local_window,
                          mesh_sum, shard_offset)
 from .. import orthantwise as ow_ops
+from ..core import RING_ALIGN, ring_stride
 from ..orthantwise import Orthantwise, project_window
 
 #: (vector dtype, history dtype) pairs the kernels take
@@ -131,6 +132,28 @@ def check_contiguous(kernel: str, *ts: torch.Tensor) -> None:
     for t in ts:
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: operands must be contiguous")
+
+
+def ring_ld(kernel: str, S: torch.Tensor, Y: torch.Tensor) -> int:
+    """The row stride ld (in elements) of the rings S and Y ([m, n], or a
+    batch's [B, m, n]) that a kernel takes: each row contiguous, ld n or
+    ``ring_stride(n)`` (``core.ring_zeros``' padded layout, whose pads are
+    zero), S and Y alike, and a batch's instances m*ld apart.  A padded
+    ring's storage holds every row's pad, the last row's too: the
+    tensor-core epilogues load the ring over [0, ld) and store row end's
+    pad as zeros, so a wider view of some other buffer is refused."""
+    n, ld = S.shape[-1], S.stride(-2)
+    rows = S.numel() // max(n, 1)
+    held = all((R.storage_offset() + rows * ld) * R.element_size()
+               <= R.untyped_storage().nbytes() for R in (S, Y))
+    ok = (S.stride() == Y.stride() and S.stride(-1) == 1
+          and (ld == n or (ld == ring_stride(n) and held))
+          and (S.ndim == 2 or S.stride(0) == S.shape[1] * ld))
+    if not ok:
+        raise ValueError(f"{kernel}: ring rows must be contiguous, with a row stride of n or "
+                         f"{ring_stride(n)} (n rounded up to a multiple of {RING_ALIGN}; got "
+                         f"strides {S.stride()}, {Y.stride()} at n = {n})")
+    return ld
 
 
 def to_device(host: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -397,7 +420,8 @@ def _launch_combine(name, d, S, Y, coefs, nparts, *args):
     (ca, cb) and ``args`` = (end,); K13 with ``args`` = (lo, hi)); returns
     (r, column sums of its [blocks, nparts] partials)."""
     m, n = S.shape
-    check_contiguous(name, d, S, Y)
+    check_contiguous(name, d)
+    ld = ring_ld(name, S, Y)
     lib = _build.load_library()
     coef = coef_vector(d, *coefs)
     blocks = -(-n // lib.lbfgs_combine_block_elems())
@@ -405,7 +429,7 @@ def _launch_combine(name, d, S, Y, coefs, nparts, *args):
     part = torch.empty((blocks, nparts), dtype=d.dtype, device=d.device)
     fn = getattr(lib, f"lbfgs_{name}_{_SUFFIX[d.dtype]}_{_SUFFIX[S.dtype]}")
     code = fn(d.data_ptr(), S.data_ptr(), Y.data_ptr(), coef.data_ptr(),
-              r.data_ptr(), part.data_ptr(), n, m, *args,
+              r.data_ptr(), part.data_ptr(), n, ld, m, *args,
               torch.cuda.current_stream(d.device).cuda_stream)
     _build.check_launch(code, name)
     return r, reduce_partials(part)
@@ -508,14 +532,15 @@ def _launch_combine_batched(name: str, g, S, Y, coef, live, out, nparts: int, *a
     row end); returns the [B, nparts] column sums of its [B, blocks,
     nparts] partials, each instance's in the order its solo launch's
     would be added."""
-    check_contiguous(name, g, S, Y, coef, live, out)
+    check_contiguous(name, g, coef, live, out)
+    ld = ring_ld(name, S, Y)
     B, m, n = S.shape
     lib = _build.load_library()
     blocks = -(-n // lib.lbfgs_combine_block_elems())
     part = torch.empty((B, blocks, nparts), dtype=g.dtype, device=g.device)
     fn = getattr(lib, f"lbfgs_{name}_{_SUFFIX[g.dtype]}_{_SUFFIX[S.dtype]}")
     code = fn(g.data_ptr(), S.data_ptr(), Y.data_ptr(), coef.data_ptr(), live.data_ptr(),
-              out.data_ptr(), part.data_ptr(), n, m, *args, B,
+              out.data_ptr(), part.data_ptr(), n, ld, m, *args, B,
               torch.cuda.current_stream(g.device).cuda_stream)
     _build.check_launch(code, name)
     return reduce_partials(part, dim=1)
@@ -1179,7 +1204,8 @@ def _launch_pair_gram(kernel: str, entry: str, lead: tuple, vectors: tuple, S, Y
     partials' column sums (else None)."""
     v = vectors[0]
     m, n = S.shape
-    check_contiguous(kernel, *vectors, S, Y)
+    check_contiguous(kernel, *vectors)
+    ld = ring_ld(kernel, S, Y)
     lib = _build.load_library()
     grid = pair_gram_grid(n, v.dtype, S.dtype)
     bufs = {k: torch.empty(shape, dtype=v.dtype, device=v.device)
@@ -1187,7 +1213,7 @@ def _launch_pair_gram(kernel: str, entry: str, lead: tuple, vectors: tuple, S, Y
     part = bufs["part"]
     fn = getattr(lib, f"{entry}_{_SUFFIX[v.dtype]}_{_SUFFIX[S.dtype]}")
     code = fn(*lead, *(t.data_ptr() for t in vectors), S.data_ptr(), Y.data_ptr(),
-              part.data_ptr(), bufs.get("gpart", part).data_ptr(), n, m, end, int(with_gp),
+              part.data_ptr(), bufs.get("gpart", part).data_ptr(), n, ld, m, end, int(with_gp),
               grid.T, grid.tiles, grid.blocks, torch.cuda.current_stream(v.device).cuda_stream)
     _build.check_launch(code, kernel)
     P = reduce_partials(part).reshape(m, 6)
@@ -1277,7 +1303,8 @@ def pair_gram_sd_batched(stp, d, gx, gp, S, Y, end: int, live, with_gp: bool = F
     end = _check_row(S[0], end)
     if not on_cuda(d, "pair_gram_sd_batched"):
         return pair_gram_sd_batched_ref(stp, d, gx, gp, S, Y, end, live, with_gp)
-    check_contiguous("pair_gram_sd_batched", stp, d, gx, gp, S, Y, live)
+    check_contiguous("pair_gram_sd_batched", stp, d, gx, gp, live)
+    ld = ring_ld("pair_gram_sd_batched", S, Y)
     _, m, n = S.shape
     grid = pair_gram_grid(n, d.dtype, S.dtype)
     part = torch.empty((B, grid.blocks, 6 * m), dtype=d.dtype, device=d.device)
@@ -1286,7 +1313,7 @@ def pair_gram_sd_batched(stp, d, gx, gp, S, Y, end: int, live, with_gp: bool = F
     fn = getattr(_build.load_library(),
                  f"lbfgs_pair_gram_batched_{_SUFFIX[d.dtype]}_{_SUFFIX[S.dtype]}")
     code = fn(stp.data_ptr(), d.data_ptr(), gx.data_ptr(), gp.data_ptr(), S.data_ptr(),
-              Y.data_ptr(), live.data_ptr(), part.data_ptr(), gpart.data_ptr(), n, m, end,
+              Y.data_ptr(), live.data_ptr(), part.data_ptr(), gpart.data_ptr(), n, ld, m, end,
               int(with_gp), grid.T, grid.tiles, grid.blocks, B,
               torch.cuda.current_stream(d.device).cuda_stream)
     _build.check_launch(code, "pair_gram_sd_batched")
@@ -1392,15 +1419,16 @@ def pair_gram_xg_batched(x, xp, gx, gp, pg, S, Y, end: int, live):
     end = _check_row(S[0], end)
     if not on_cuda(x, "pair_gram_xg_batched"):
         return pair_gram_xg_batched_ref(x, xp, gx, gp, pg, S, Y, end, live)
-    check_contiguous("pair_gram_xg_batched", x, xp, gx, gp, pg, S, Y, live)
+    check_contiguous("pair_gram_xg_batched", x, xp, gx, gp, pg, live)
+    ld = ring_ld("pair_gram_xg_batched", S, Y)
     _, m, n = S.shape
     grid = pair_gram_grid(n, x.dtype, S.dtype)
     part = torch.empty((B, grid.blocks, 6 * m), dtype=x.dtype, device=x.device)
     fn = getattr(_build.load_library(),
                  f"lbfgs_pair_gram_xg_batched_{_SUFFIX[x.dtype]}_{_SUFFIX[S.dtype]}")
     code = fn(x.data_ptr(), xp.data_ptr(), gx.data_ptr(), gp.data_ptr(), pg.data_ptr(),
-              S.data_ptr(), Y.data_ptr(), live.data_ptr(), part.data_ptr(), n, m, end, grid.T,
-              grid.tiles, grid.blocks, B, torch.cuda.current_stream(x.device).cuda_stream)
+              S.data_ptr(), Y.data_ptr(), live.data_ptr(), part.data_ptr(), n, ld, m, end,
+              grid.T, grid.tiles, grid.blocks, B, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch(code, "pair_gram_xg_batched")
     pair_gram_xg_batched.launches += 1
     P = reduce_partials(part, dim=1).reshape(B, m, 6)

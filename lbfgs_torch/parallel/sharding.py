@@ -38,7 +38,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..core import History, SolverState
+from ..core import SolverState, as_ring, ring_zeros
 
 AXIS = "shard"
 
@@ -131,29 +131,41 @@ def gather_vector(x_local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 VECTORS, RINGS = ("x", "gx", "xp", "gp", "pg", "d"), ("s", "y")
 
 
-def _map_state(st: SolverState, vec) -> SolverState:
-    """``st`` with ``vec`` applied to its [n] vectors and ring rows (a slot
-    that is None stays None); the [m] stacks, the [m, m] Gram blocks and the
-    host scalars are kept (the counterpart of ``state_shardings``,
-    ``lbfgs_tpu/parallel/sharding.py:71-92``)."""
+def _map_state(st: SolverState, vec, ring) -> SolverState:
+    """``st`` with ``vec`` applied to its [n] vectors (a slot that is None
+    stays None) and ``ring`` to its rings; the [m] stacks, the [m, m] Gram
+    blocks and the host scalars are kept (the counterpart of
+    ``state_shardings``, ``lbfgs_tpu/parallel/sharding.py:71-92``)."""
     p, h = st.prob, st.hist
     opt = lambda t: None if t is None else vec(t)
     prob = p._replace(**{f: opt(getattr(p, f)) for f in VECTORS})
-    return st._replace(prob=prob, hist=h._replace(**{f: vec(getattr(h, f)) for f in RINGS}))
+    return st._replace(prob=prob, hist=h._replace(**{f: ring(getattr(h, f)) for f in RINGS}))
+
+
+def shard_ring(R: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's shard of an [m, n] ring on the mesh's device, in the
+    ring's padded layout for the shard's own width k (``core.ring_zeros``),
+    copied once."""
+    k = _split(R.shape[-1], mesh)
+    return ring_zeros((*R.shape[:-1], k), R.dtype, mesh.device).copy_(
+        R.narrow(-1, mesh.rank * k, k))
 
 
 def shard_state(st: SolverState, mesh: Mesh) -> SolverState:
     """This rank's shard of a whole ``SolverState``: the [n] fields and the
-    ring rows sliced on the n axis, onto the mesh's device; the [m] stacks,
-    the Gram blocks and the scalars replicated (moved with it)."""
-    st = _map_state(st, lambda t: shard_vector(t, mesh))
+    ring rows sliced on the n axis, onto the mesh's device (the rings in
+    their padded layout for the shard's width); the [m] stacks, the Gram
+    blocks and the scalars replicated (moved with it)."""
+    st = _map_state(st, lambda t: shard_vector(t, mesh), lambda R: shard_ring(R, mesh))
     h = st.hist
     rep = lambda t: t.to(mesh.device)
-    return st._replace(hist=History(s=h.s, y=h.y, ys=rep(h.ys), alpha=rep(h.alpha),
-                                    sy=rep(h.sy), yy=rep(h.yy)))
+    return st._replace(hist=h._replace(ys=rep(h.ys), alpha=rep(h.alpha), sy=rep(h.sy),
+                                       yy=rep(h.yy)))
 
 
 def gather_state(st: SolverState, mesh: Mesh) -> SolverState:
     """The whole ``SolverState`` from every rank's shard (on every rank),
-    for reports, checkpoints and tests."""
-    return _map_state(st, lambda t: gather_vector(t, mesh))
+    for reports, checkpoints and tests; the rings in the padded layout of
+    the whole width (``core.as_ring``)."""
+    return _map_state(st, lambda t: gather_vector(t, mesh),
+                      lambda R: as_ring(gather_vector(R, mesh)))

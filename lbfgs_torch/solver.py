@@ -109,6 +109,7 @@ from .core import (
     np_type,
     pseudo_gradient,
     pseudo_gradient_and_norm,
+    ring_zeros,
     to_host,
     xnorm_of,
 )
@@ -942,8 +943,8 @@ def _init_state(pdef: ProblemDef, params: LbfgsParams, x0: torch.Tensor,
     )
     z = dict(dtype=x0.dtype, device=x0.device)
     hist = History(
-        s=torch.zeros((m, n), dtype=hdtype, device=x0.device),
-        y=torch.zeros((m, n), dtype=hdtype, device=x0.device),
+        s=ring_zeros((m, n), hdtype, x0.device),
+        y=ring_zeros((m, n), hdtype, x0.device),
         ys=torch.zeros(m, **z), alpha=torch.zeros(m, **z),
         sy=torch.zeros((m, m), **z), yy=torch.zeros((m, m), **z),
     )

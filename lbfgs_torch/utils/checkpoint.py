@@ -33,13 +33,14 @@ import zipfile
 import numpy as np
 import torch
 
-from ..core import SolverState
+from ..core import SolverState, as_ring
 from ..ops.collective import active_mesh, global_length, shard_offset
 from ..parallel.sharding import RINGS, VECTORS
 
 _NARROW = (torch.bfloat16, torch.float16)
 #: the field paths split over a mesh's ranks on their last (n) axis
-SHARDED = tuple(f"prob.{f}" for f in VECTORS) + tuple(f"hist.{f}" for f in RINGS)
+RING_KEYS = tuple(f"hist.{f}" for f in RINGS)
+SHARDED = tuple(f"prob.{f}" for f in VECTORS) + RING_KEYS
 MANIFEST = "manifest.json"
 REPLICATED = "replicated.npz"
 FORMAT = "lbfgs_torch sharded checkpoint"
@@ -253,7 +254,9 @@ def _restore(like, path: str, src):
                 f"checkpoint slot {key!r} has shape {tuple(src.shape(key))} but the template "
                 f"expects {want} (different element count: m, n or configuration)")
         off = shard_offset(n_loc)
-        return _tensor(src.range(key, off, off + n_loc), src.narrow(key), like)
+        t = _tensor(src.range(key, off, off + n_loc), src.narrow(key), like)
+        # a ring in the padded layout the kernels take (``core.as_ring``)
+        return as_ring(t) if key in RING_KEYS else t
     a = src.whole(key)
     if isinstance(like, (torch.Tensor, np.ndarray)):
         count = like.numel() if isinstance(like, torch.Tensor) else like.size

@@ -627,8 +627,75 @@ def job_checkpoint(mesh, args: dict) -> dict:
     return out
 
 
+def job_ragged(mesh, args: dict) -> dict:
+    """A ring sharded at a width off a multiple of 16: the run with no mesh
+    to ``args["at"]`` iterations (its state), ``shard_state`` of that state
+    (whether the ring shards have the padded layout for the shard's own
+    width, zero pads and the whole ring's values), then the run continued
+    on the mesh to ``args["iters"]`` (its summary, x on rank 0, and whether
+    the pads stay zero) beside the same continuation with no mesh, and
+    ``gather_state`` of the result (the whole rings' layout and values)."""
+    import numpy as np
+    import torch
+
+    from lbfgs_torch.core import ProblemDef, is_ring, ring_stride
+    from lbfgs_torch.minimize import _run_while
+    from lbfgs_torch.models import rosenbrock
+    from lbfgs_torch.parallel import gather_state, gather_vector, kernels_on_mesh, shard_state
+    from lbfgs_torch.parallel import shard_vector
+    from lbfgs_torch import solver
+
+    def pads_zero(R):
+        m, k = R.shape
+        ld = R.stride(0)
+        return bool((R.as_strided((m, ld), (ld, 1))[:, k:] == 0).all())
+
+    params = _params(args["params"])
+    pdef = ProblemDef(value_and_grad=rosenbrock.value_and_grad, owlqn=params.orthantwise)
+    x0 = rosenbrock.initial_point(args["n"], torch.float64, device="cpu")
+    st = _run_while(pdef, params.replace(max_iterations=args["at"]),
+                    solver.init_state(pdef, params, x0, lean=True))
+    st = st._replace(status=0)
+
+    def resume(s):
+        # the run continued step by step to args["iters"] iterations
+        while s.status == 0 and s.k < args["iters"]:
+            s = solver.propagate_hot(pdef, params, s)
+        return s
+
+    # the shards first: a lean run writes its state's buffers in place
+    part = shard_state(st, mesh)
+    k = part.prob.x.shape[0]
+    out = dict(k_local=k, stride=[list(part.hist.s.stride()), list(part.hist.y.stride())],
+               want_stride=ring_stride(k),
+               layout=all(is_ring(R) for R in (part.hist.s, part.hist.y)),
+               pads_zero=all(pads_zero(R) for R in (part.hist.s, part.hist.y)),
+               values=all(_bits(R, shard_vector(W, mesh))
+                          for R, W in ((part.hist.s, st.hist.s), (part.hist.y, st.hist.y))))
+    solo = resume(st)
+    with kernels_on_mesh(mesh):
+        done = resume(part)
+    x = gather_vector(done.prob.x, mesh)
+    out["pads_zero_after"] = all(pads_zero(R) for R in (done.hist.s, done.hist.y))
+    out["layout_after"] = all(is_ring(R) for R in (done.hist.s, done.hist.y))
+    # the whole state gathered back: its rings in the padded layout of the
+    # whole width, each rank's columns its shard's
+    back = gather_state(done, mesh)
+    whole = (back.hist.s, back.hist.y)
+    out["gathered_stride"] = [list(R.stride()) for R in whole]
+    out["gathered_layout"] = all(is_ring(R) and pads_zero(R) for R in whole)
+    out["gathered_values"] = all(_bits(W.narrow(-1, mesh.rank * k, k), R) for W, R in
+                                 zip(whole, (done.hist.s, done.hist.y)))
+    out["run"] = _summary(done, x)
+    out["solo"] = _summary(solo, solo.prob.x)
+    if mesh.rank == 0:
+        np.save(os.path.join(args["out_dir"], "x.npy"), x.numpy())
+        np.save(os.path.join(args["out_dir"], "x_solo.npy"), solo.prob.x.numpy())
+    return out
+
+
 JOBS = {"kernels": job_kernels, "runs": job_runs, "generic": job_generic,
-        "checkpoint": job_checkpoint}
+        "checkpoint": job_checkpoint, "ragged": job_ragged}
 
 
 def main() -> None:

@@ -23,8 +23,9 @@ and the . gp launch's other outputs to the 3-column launch's (bit for
 bit): over a bf16 ring at m = 6, 19, 40, 80, 200 and 260 (every form and
 tensor-core launch, the row-block form at 260;
 ``tests/test_torch_batched_rows.py`` holds that form over every ring) and
-n = 2^14 and 2^14 + 2 (which takes the fold forms, as the solo launch
-does), over f32 and f64 rings at m = 6 and 80 (at an n off 16), a third
+n = 2^14 and 2^14 + 2 (which takes the same forms over the runner's
+padded ring, as the solo launch does), over f32 and f64 rings of row
+stride n at m = 6 and 80 (at an n off 16: the fold forms), a third
 of the instances frozen; the tensor-core products against the float64
 product of their own operands (3e-7 normwise) and the forms' spills; and
 an inf in gp to non-finite products.  They skip without a card.  This module imports JAX
@@ -37,6 +38,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from lbfgs_torch.core import as_ring, is_ring
 from lbfgs_torch.models import rosenbrock as t_rosen
 from lbfgs_torch.ops import factory
 
@@ -109,15 +111,19 @@ def test_every_element_once_and_programs_capped(B, n, m):
 @pytest.mark.parametrize("n", [100, (1 << 14) + 2, 3_000_002, (1 << 20) + 8])
 @pytest.mark.parametrize("m", [9, 19, 80, 256])
 def test_unaligned_n_takes_the_fold_forms(n, m):
-    """The solo form's alignment rule: an n off a multiple of MMA_ALIGN
-    takes the fold forms (the tensor-core form's ring loads would go
-    scalar and spill), as the solo launch does at that n."""
+    """The solo form's alignment rule: rings of row stride n at an n off a
+    multiple of MMA_ALIGN take the fold forms (the tensor-core form's ring
+    loads would go scalar and spill), as the solo launch does at that n;
+    the runner's rings, whose row stride is padded to a multiple of 16
+    (the grid's default), take the tensor-core form there, as at an
+    aligned n."""
     assert n % factory.MMA_ALIGN
     for B in (1, 4, 1024):
-        g = factory.batched_epilogue_grid(B, n, m, F32, BF16)
+        g = factory.batched_epilogue_grid(B, n, m, F32, BF16, ld=n)
         assert g.form == ("static" if m <= factory.EPILOGUE_MAX_M[(F32, BF16)] else "deep")
-        assert g.form == factory.solo_epilogue_grid(n, m, F32, BF16).form
+        assert g.form == factory.solo_epilogue_grid(n, m, F32, BF16, ld=n).form
         assert factory.batched_epilogue_grid(B, n - n % 16, m, F32, BF16).form == "mma"
+        assert factory.batched_epilogue_grid(B, n, m, F32, BF16).form == "mma"
 
 
 @pytest.mark.parametrize("m", [19, 80, 200])
@@ -331,7 +337,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_batch(dev, m, n, Bk=24, seed=0, vd=F32, hd=BF16):
+def _card_batch(dev, m, n, Bk=24, seed=0, vd=F32, hd=BF16, padded=True):
+    # the rings in the runner's padded layout, or (``padded`` off) of row
+    # stride n
+    ring = as_ring if padded else (lambda t: t)
     g = torch.Generator(device=dev).manual_seed(seed + m)
     r = lambda *s: torch.randn(*s, generator=g, device=dev, dtype=vd)
     live = torch.ones(Bk, dtype=torch.bool, device=dev)
@@ -339,7 +348,7 @@ def _card_batch(dev, m, n, Bk=24, seed=0, vd=F32, hd=BF16):
     xp = t_rosen.initial_point(n, vd, dev)[None, :] + 0.1 * r(Bk, n)
     xp[:, ::17] = 0.0
     return dict(xp=xp, d=0.1 * r(Bk, n), gp=r(Bk, n), pg=r(Bk, n),
-                S=(0.1 * r(Bk, m, n)).to(hd), Y=(0.1 * r(Bk, m, n)).to(hd),
+                S=ring((0.1 * r(Bk, m, n)).to(hd)), Y=ring((0.1 * r(Bk, m, n)).to(hd)),
                 stp=0.2 + torch.rand(Bk, generator=g, device=dev, dtype=vd), live=live,
                 end=m - 3, window=(5, n - 7), c=0.7)
 
@@ -347,8 +356,13 @@ def _card_batch(dev, m, n, Bk=24, seed=0, vd=F32, hd=BF16):
 NAMES = ("xp", "gp", "pg", "S", "Y")
 
 
+def _copy(t):
+    # a copy of an input in its own layout (a padded ring's too)
+    return as_ring(t.clone()) if t.ndim > 1 and is_ring(t) else t.clone()
+
+
 def _run(a, fn, ow, **kw):
-    t = {n_: a[n_].clone() for n_ in NAMES}
+    t = {n_: _copy(a[n_]) for n_ in NAMES}
     lo, hi = a["window"]
     if ow:
         out = fn(t["xp"], a["d"], t["gp"], t["pg"], a["stp"], a["c"], lo, hi, t["S"], t["Y"],
@@ -372,7 +386,7 @@ def _held(a, ow, solo=True, vtol=1e-5, stol=1e-4):
     ref = K.owlqn_trial_pair_gram_batched_ref if ow else K.trial_pair_gram_batched_ref
     B, n = a["xp"].shape
     form = factory.batched_epilogue_grid(B, n, a["S"].shape[1], a["xp"].dtype,
-                                         a["S"].dtype).form
+                                         a["S"].dtype, a["S"].stride(-2)).form
     mma = kern.mma_launches
     tk, ok = _run(a, kern, ow, with_gp=True)
     assert kern.last_form.form == form
@@ -393,7 +407,7 @@ def _held(a, ow, solo=True, vtol=1e-5, stol=1e-4):
             assert _normwise(u[live], v[live]) <= stol
     lo, hi = a["window"]
     for b in torch.nonzero(live).flatten().tolist() if solo else ():
-        Sb, Yb = a["S"][b].clone(), a["Y"][b].clone()
+        Sb, Yb = _copy(a["S"][b]), _copy(a["Y"][b])
         stp = float(a["stp"][b])
         if ow:
             x1, g1, pg1 = K.owlqn_trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b], a["pg"][b],
@@ -414,13 +428,12 @@ def _held(a, ow, solo=True, vtol=1e-5, stol=1e-4):
 def test_batched_epilogues_on_card(cuda, m, n, ow):
     """f32 vectors over a bf16 ring: the static form at m = 6, the
     tensor-core form at every RP it takes (19, 40, 80, 200) and the
-    row-block form above ``factory.MMA_MAX_M`` (260; the deep form at an n
-    off 16), each against its plain version, the 3-column launch and (but
+    row-block form above ``factory.MMA_MAX_M`` (260), at an n off 16 too
+    (the padded ring), each against its plain version, the 3-column launch and (but
     at m = 40, whose solo static form compiles for minutes) the solo
     kernel."""
     form = _held(_card_batch(cuda, m, n), ow, solo=m != 40)
-    aligned = n % factory.MMA_ALIGN == 0
-    assert form == ("static" if m < factory.MMA_MIN_M else "deep" if not aligned else
+    assert form == ("static" if m < factory.MMA_MIN_M else
                     "mma" if m <= factory.MMA_MAX_M else "mma_rows")
 
 
@@ -446,9 +459,9 @@ def _products_f64(a, t, ow, b):
 @pytest.mark.parametrize("n", [1 << 14, (1 << 14) + 2])
 @pytest.mark.parametrize("m", [19, 80])
 def test_batched_forms_take_the_solo_rules_on_card(cuda, m, n, ow):
-    """The batched epilogues under the solo forms' rules: an n off a
-    multiple of 16 takes the fold form, as the solo launch does, and
-    spills nothing; at an aligned n the tensor-core form sums its chunks
+    """The batched epilogues under the solo forms' rules: over the padded
+    ring an n off a multiple of 16 takes the tensor-core form, as the
+    solo launch does, and spills nothing; the tensor-core form sums its chunks
     in float32 adds, so each live instance's products (with the . gp
     column) stay within 3e-7 normwise of the float64 product of its own
     operands; both against the plain version and the solo kernel
@@ -457,7 +470,7 @@ def test_batched_forms_take_the_solo_rules_on_card(cuda, m, n, ow):
     form = _held(a, ow)
     kern = K.owlqn_trial_pair_gram_batched if ow else K.trial_pair_gram_batched
     assert form == factory.solo_epilogue_grid(n, m, F32, BF16).form
-    assert form == ("mma" if n % factory.MMA_ALIGN == 0 else "deep")
+    assert form == "mma"
     assert kern.last_form.compiled.n_spills == 0
     t, out = _run(a, kern, ow, with_gp=True)
     SP, YP = out[3:5] if ow else out[4:6]
@@ -474,11 +487,11 @@ def test_batched_forms_take_the_solo_rules_on_card(cuda, m, n, ow):
 @pytest.mark.parametrize("m", [6, 80])
 @pytest.mark.parametrize("pair", [(F32, F32), (F64, F64)], ids=["f32", "f64"])
 def test_fold_forms_on_the_batch_grid_on_card(cuda, pair, m, ow):
-    """The f32/f32 and f64 rings keep the static and deep fold forms, on
-    the batch-wide grid: against their plain versions, the 3-column launch
-    and the solo kernels."""
+    """The f32/f32 and f64 rings of row stride n at an n off 16 keep the
+    static and deep fold forms, on the batch-wide grid: against their
+    plain versions, the 3-column launch and the solo kernels."""
     vtol, stol = (1e-5, 1e-4) if pair[0] == F32 else (1e-12, 1e-10)
-    a = _card_batch(cuda, m, (1 << 12) + 2, vd=pair[0], hd=pair[1])
+    a = _card_batch(cuda, m, (1 << 12) + 2, vd=pair[0], hd=pair[1], padded=False)
     assert _held(a, ow, vtol=vtol, stol=stol) == ("static" if m <= factory.EPILOGUE_MAX_M[pair]
                                                   else "deep")
 

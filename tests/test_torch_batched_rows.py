@@ -31,8 +31,8 @@ layout on 24 instances, a third frozen, to its plain version (vectors
 form on the same inputs (x, g, pg, the rings and the flags bit for bit),
 to the solo K4 and K14 on each live instance (x, g, pg and the rings bit
 for bit) and the . gp launch's other outputs to the 3-column launch's
-(bit for bit), with no spill; at an n off a multiple of 16 the fold form
-runs instead; the products against the float64 product of their own
+(bit for bit), with no spill, at n = 2^14 and 2^14 + 2 (the runner's
+ring padded to a multiple of 16 there); the products against the float64 product of their own
 operands at 2, 32 and 64 chunks a program (3e-7 with f32 vectors, 2e-15
 with f64); and an inf in gp to non-finite products.  They skip without a
 card.  This module imports JAX only inside the tests that compare with
@@ -44,6 +44,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from lbfgs_torch.core import as_ring
 from lbfgs_torch.models import rosenbrock as t_rosen
 from lbfgs_torch.ops import factory
 
@@ -286,15 +287,20 @@ def _card_batch(dev, vd, hd, m, n, Bk=24, seed=0):
     xp = t_rosen.initial_point(n, vd, dev)[None, :] + 0.1 * r(Bk, n)
     xp[:, ::17] = 0.0
     return dict(xp=xp, d=0.1 * r(Bk, n), gp=r(Bk, n), pg=r(Bk, n),
-                S=(0.1 * r(Bk, m, n)).to(hd), Y=(0.1 * r(Bk, m, n)).to(hd),
+                S=as_ring((0.1 * r(Bk, m, n)).to(hd)), Y=as_ring((0.1 * r(Bk, m, n)).to(hd)),
                 stp=0.2 + torch.rand(Bk, generator=g, device=dev, dtype=vd), live=live,
                 end=m - 3, window=(5, n - 7))
+
+
+def _copy(a, k):
+    # a copy of an input, the rings in the runner's padded layout
+    return as_ring(a[k].clone()) if k in ("S", "Y") else a[k].clone()
 
 
 def _run(a, ow, fn=None, with_gp=True, live=None):
     """One launch of K4 b or K14 b (or ``fn``) on copies of the vectors and
     rings; returns (the copies, the outputs)."""
-    t = {k: a[k].clone() for k in NAMES}
+    t = {k: _copy(a, k) for k in NAMES}
     live = a["live"] if live is None else live
     lo, hi = a["window"]
     if ow:
@@ -338,7 +344,7 @@ def test_batched_rows_form_on_card(cuda, vd, hd, m, n, ow, monkeypatch):
     kern = K.owlqn_trial_pair_gram_batched if ow else K.trial_pair_gram_batched
     ref = K.owlqn_trial_pair_gram_batched_ref if ow else K.trial_pair_gram_batched_ref
     form = factory.batched_epilogue_grid(24, n, m, vd, hd).form
-    assert form == ("mma_rows" if n % factory.MMA_ALIGN == 0 else "deep")
+    assert form == "mma_rows"
     rows = kern.mma_rows_launches
     tk, ok = _run(a, ow)
     assert kern.last_form.form == form
@@ -366,7 +372,7 @@ def test_batched_rows_form_on_card(cuda, vd, hd, m, n, ow, monkeypatch):
     # the solo kernels on each live instance
     lo, hi = a["window"]
     for b in torch.nonzero(live).flatten().tolist()[:4]:
-        Sb, Yb = a["S"][b].clone(), a["Y"][b].clone()
+        Sb, Yb = as_ring(a["S"][b].clone()), as_ring(a["Y"][b].clone())
         stp = float(a["stp"][b])
         if ow:
             x1, g1, pg1 = K.owlqn_trial_pair_gram(a["xp"][b], a["d"][b], a["gp"][b], a["pg"][b],

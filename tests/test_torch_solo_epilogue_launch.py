@@ -9,7 +9,9 @@ run:
     form above, while K15 and K16 keep ``factory.MAX_M``; the tensor-core
     row-block form over f32 and f64 rings from ``factory.MMA_ROWS_MIN_M``
     rows and over bf16 rings above 256, which the batched forms take by
-    the same rule), every element covered by exactly one
+    the same rule; at any n over the solver's rings, whose row stride is
+    padded to a multiple of 16, and the fold forms over a ring of row
+    stride n at an n off 16), every element covered by exactly one
     (program, chunk) and every ring row by one block, the programs at or
     under the form's cap, one objective partial per chunk, and the . gp
     launch's partials on the 3-column launch's programs;
@@ -29,7 +31,7 @@ run:
 
 The cases marked ``cuda`` hold the card's solo form at m = 9, 16, 19,
 64, 80, 200 and 256 and n = 64, 100, 2^14 + 2 and 2^20 (the tensor-core
-form where n is a multiple of 16, the fold form else) to its plain
+form over the padded ring at every n) to its plain
 version (vectors 1e-5, sums, products and fx 1e-4 normwise, ring rows bit
 for bit) and, for the tensor-core form, to the fold form on the same
 inputs (x, g, pg, the rings and the changed flag bit for bit), the . gp
@@ -50,6 +52,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from lbfgs_torch.core import as_ring
 from lbfgs_torch.models import rosenbrock as t_rosen
 from lbfgs_torch.ops import factory
 
@@ -102,14 +105,21 @@ def test_solo_form_by_dtype_pair_and_depth(pair, m):
 @pytest.mark.parametrize("n", [100, (1 << 14) + 2, 3_000_002, (1 << 20) + 8])
 @pytest.mark.parametrize("m", [9, 19, 80, 256])
 def test_unaligned_n_takes_the_fold_forms(n, m):
-    """A ring row that does not start on a 16-element boundary takes the
-    fold form (the tensor-core form's ring loads would go scalar); the
-    batched launch takes the same rule."""
+    """A ring row that does not start on a 16-element boundary (a ring of
+    row stride n at an n off a multiple of 16) takes the fold form (the
+    tensor-core form's ring loads would go scalar); the batched launch
+    takes the same rule.  The solver's rings have a row stride padded to a
+    multiple of 16 (``core.ring_stride``, the grids' default), so at the
+    same n they take the tensor-core form, as at an aligned n."""
     assert n % factory.MMA_ALIGN
-    g = factory.solo_epilogue_grid(n, m, F32, BF16)
+    g = factory.solo_epilogue_grid(n, m, F32, BF16, ld=n)
     assert g.form == ("static" if m <= factory.EPILOGUE_MAX_M[(F32, BF16)] else "deep")
     assert factory.solo_epilogue_grid(n - n % 16, m, F32, BF16).form == "mma"
-    assert factory.batched_epilogue_grid(1024, n, m, F32, BF16).form == g.form
+    assert factory.batched_epilogue_grid(1024, n, m, F32, BF16, ld=n).form == g.form
+    padded = factory.solo_epilogue_grid(n, m, F32, BF16)
+    assert padded.form == factory.solo_epilogue_grid(n - n % 16, m, F32, BF16).form
+    assert padded.form == factory.solo_epilogue_grid(n, m, F32, BF16, ld=n + 16 - n % 16).form
+    assert factory.batched_epilogue_grid(1024, n, m, F32, BF16).form == padded.form
 
 
 def test_fold_caps_and_the_fusions_cap():
@@ -198,16 +208,16 @@ def test_rows_form_by_pair_depth_and_width(pair, n, m):
     """The solo epilogues' form by dtype pair, depth and width: f32 vectors
     over a bf16 ring the one-pass tensor-core form up to 256 rows and the
     row-block form above; f32 and f64 rings the row-block form from
-    ``MMA_ROWS_MIN_M`` rows (the fold forms below); an n off a multiple of
+    ``MMA_ROWS_MIN_M`` rows (the fold forms below), at any n over the
+    solver's padded ring; a ring of row stride n at an n off a multiple of
     16 the fold forms everywhere.  The row-block form's blocks are RP rows
     (m rounded up to a power of two, at least 16, at most the pair's
     ``MMA_ROWS_RP``), the last one RT (the rows left, rounded up), so it
     passes over its chunks cdiv(m, RP) times: at most three at 260 bf16
     rows, where the deep fold form passed 33 times."""
-    g = factory.solo_epilogue_grid(n, m, *pair)
     if n % factory.MMA_ALIGN:
-        assert g.form == _fold_form(m, pair)
-        return
+        assert factory.solo_epilogue_grid(n, m, *pair, ld=n).form == _fold_form(m, pair)
+    g = factory.solo_epilogue_grid(n, m, *pair)
     if pair == factory.MMA_DTYPES and m <= factory.MMA_MAX_M:
         assert g.form == "mma"
         return
@@ -247,26 +257,31 @@ def test_batched_grids_keep_their_forms(pair, B, n, m):
     form with f32 vectors over a bf16 ring from ``MMA_MIN_M`` to
     ``MMA_MAX_M`` rows and the row-block form from ``MMA_ROWS_MIN_M`` rows
     (f32 and f64 rings above the static cap, bf16 rings above 256), both at
-    an aligned n, on chunks of their launch's K, at most ``MMA_MAX_CHUNKS``
-    a program; else the static fold form up to the pair's cap and the deep
-    fold form above, on the fold forms' tiles; every form on the
-    batch-wide program count."""
+    a ring row stride that is a multiple of 16 (the runner's padded rings,
+    the grid's default, at any n), on chunks of their launch's K, at most
+    ``MMA_MAX_CHUNKS`` a program; else the static fold form up to the
+    pair's cap and the deep fold form above, on the fold forms' tiles;
+    every form on the batch-wide program count.  A ring of row stride n
+    at an n off 16 takes the fold forms."""
+    if n % factory.MMA_ALIGN:
+        assert factory.batched_epilogue_grid(B, n, m, *pair, ld=n).form == \
+            factory._epilogue_form(m, *pair, mma=False, batched=True)[0]
     g = factory.batched_epilogue_grid(B, n, m, *pair)
-    aligned = n % factory.MMA_ALIGN == 0
     # the form is the solo grid's at the same width and depth, but between
     # the solo and the batched row-block depths
     solo = factory.solo_epilogue_grid(n, m, *pair).form
     assert g.form == ("deep" if solo == "mma_rows" and m < factory.rows_min_m(pair, True)
                       else solo)
-    assert factory._epilogue_form(m, *pair, mma=aligned, batched=True)[0] == g.form
+    assert factory._epilogue_form(m, *pair, batched=True)[0] == g.form
     per = max(1, factory.EPILOGUE_PROGRAMS // B)
     assert g.total == B * g.programs
-    if aligned and pair == factory.MMA_DTYPES and factory.MMA_MIN_M <= m <= factory.MMA_MAX_M:
+    if pair == factory.MMA_DTYPES and factory.MMA_MIN_M <= m <= factory.MMA_MAX_M:
         assert g.form == "mma"
         return
-    if aligned and m >= factory.rows_min_m(pair, True):
+    if m >= factory.rows_min_m(pair, True):
         assert g.form == "mma_rows"
-        rp, cfg = factory.rows_launch(pair, m, True)
+        # over a padded ring (an n off 16) an entry's batched_padded launch
+        rp, cfg = factory.rows_launch(pair, m, True, n % factory.MMA_ALIGN != 0)
         assert g.consts["RP"] == rp <= factory.MMA_ROWS_RP[pair]
         assert rp == min(max(16, 1 << (m - 1).bit_length()), max(
             r for r, c in factory.MMA_ROWS_EPILOGUE[pair].items() if c.get("batched", c)))
@@ -553,14 +568,16 @@ def _card(dev, m, n, seed=0):
     xp = t_rosen.initial_point(n, F32, dev) + 0.1 * r(n)
     xp0 = xp.clone()
     xp0[::17] = 0.0
-    return dict(xp=xp, xp0=xp0, d=0.1 * r(n), gp=r(n), pg=r(n), S=(0.1 * r(m, n)).to(BF16),
-                Y=(0.1 * r(m, n)).to(BF16), end=m - 3, window=(5, max(n - 9, 6)))
+    return dict(xp=xp, xp0=xp0, d=0.1 * r(n), gp=r(n), pg=r(n),
+                S=as_ring((0.1 * r(m, n)).to(BF16)), Y=as_ring((0.1 * r(m, n)).to(BF16)),
+                end=m - 3, window=(5, max(n - 9, 6)))
 
 
 def _launch(a, ow, with_gp, inplace=False, ring=None):
     """One launch of the solo K4 or K14 on copies of the inputs; returns
-    (its outputs, the vectors it wrote or returned, the rings)."""
-    S, Y = ring if ring is not None else (a["S"].clone(), a["Y"].clone())
+    (its outputs, the vectors it wrote or returned, the rings: copies in
+    the solver's padded layout, ``core.as_ring``)."""
+    S, Y = ring if ring is not None else (as_ring(a["S"].clone()), as_ring(a["Y"].clone()))
     if ow:
         xp, gp, pg = a["xp0"].clone(), a["gp"].clone(), a["pg"].clone()
         lo, hi = a["window"]
@@ -604,7 +621,8 @@ def test_solo_tensor_core_form_on_card(cuda, m, n, ow, monkeypatch):
     fn = K.owlqn_trial_pair_gram if ow else K.trial_pair_gram
     mma = fn.mma_launches
     form = factory.solo_epilogue_grid(n, m, F32, BF16).form
-    assert form == ("mma" if n % factory.MMA_ALIGN == 0 else "deep" if m > 8 else "static")
+    # the padded ring takes the tensor-core form at every n
+    assert form == "mma"
     out, vecs, (S, Y) = _launch(a, ow, True)
     assert fn.last_form.form == form and fn.mma_launches == mma + (form == "mma")
     assert fn.last_form.compiled.n_spills == 0
@@ -707,8 +725,8 @@ def _card_pair(dev, m, n, vd, hd, seed=0):
     xp0 = xp.clone()
     xp0[::17] = 0.0
     return dict(xp=xp, xp0=xp0, d=(0.1 * r(n)).to(vd), gp=r(n).to(vd), pg=r(n).to(vd),
-                S=(0.1 * r(m, n)).to(hd), Y=(0.1 * r(m, n)).to(hd), end=m - 3,
-                window=(5, max(n - 9, 6)))
+                S=as_ring((0.1 * r(m, n)).to(hd)), Y=as_ring((0.1 * r(m, n)).to(hd)),
+                end=m - 3, window=(5, max(n - 9, 6)))
 
 
 #: (vector dtype, ring dtype, m) of the row-block form's card cases: f32
@@ -745,7 +763,7 @@ def test_rows_form_on_card(cuda, vd, hd, m, n, ow, monkeypatch):
     fn = K.owlqn_trial_pair_gram if ow else K.trial_pair_gram
     rows = fn.mma_rows_launches
     form = factory.solo_epilogue_grid(n, m, vd, hd).form
-    assert form == ("mma_rows" if n % factory.MMA_ALIGN == 0 else _fold_form(m, (vd, hd)))
+    assert form == "mma_rows"
     out, vecs, (S, Y) = _launch(a, ow, True)
     assert fn.last_form.form == form and fn.mma_rows_launches == rows + (form == "mma_rows")
     assert fn.last_form.compiled.n_spills == 0

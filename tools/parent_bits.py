@@ -43,10 +43,13 @@ rings of 16-256 rows, the fold forms at an n off a multiple of 16, the
 row-block form over f32 and f64 rings at m = 80 and a bf16 ring at 260)
 and every batched K4 b and K14 b form, each with and without the . gp
 column at small sizes, and prints whether each kernel's PTX is the other
-tree's (``ptx_code``: the debug lines and sections aside); the batched
-launches at the row-block form's depths and an n that is a multiple of 16
-run a kernel the other tree does not have (``new``), and every other
-kernel must be the other tree's.
+tree's (``ptx_code``: the debug lines and sections aside, the first
+differing lines where it is not), on rings of row stride n; then the
+Triton kernels that read no ring (K1 b, K7 b and the K-lane probes K2 s,
+K8 s, K2 b s and K8 b s, at 4 lanes, n divisible by 16 or not, f32 and
+f64), whose PTX must be the other tree's (``untouched_same``).  Against a
+tree whose kernels take no ring stride every ring reader's PTX differs by
+the stride's parameter and its row offsets.
 
 Prints one JSON line per check group and per timed kernel; the card's
 nvidia-smi name and power limit first.
@@ -219,6 +222,14 @@ def ptx_diff(mine, theirs, lines: int = 12) -> list:
     return [ln for ln in difflib.unified_diff(a, b, "other", "this", n=0, lineterm="")][:lines]
 
 
+def ptx_diff_lines(mine, theirs) -> int:
+    """How many PTX lines two launches' kernels differ by (``difflib``)."""
+    import difflib
+    a, b = ptx_code(theirs.last_form.compiled), ptx_code(mine.last_form.compiled)
+    return sum(1 for ln in difflib.unified_diff(a, b, n=0, lineterm="")
+               if ln[:1] in "+-" and not ln.startswith(("+++", "---")))
+
+
 def epilogue_depths(prosen, depths: list, widths: list, reps: int, pairs=("bf16",)) -> None:
     """``--epilogue-depths``: the solo K4 and K14 (±·gp) of both trees."""
     for pair, n, m in ((p, n, m) for p in pairs for n in widths for m in depths):
@@ -326,10 +337,35 @@ def binaries(prosen) -> None:
                            new=rows_batched and not solo)
                 if row["same_ptx"] is False:
                     row["diff"] = ptx_diff(mine, theirs)
+                    row["diff_lines"] = ptx_diff_lines(mine, theirs)
                 rows.append(row)
         del a
+    untouched = []
+    for vd in (torch.float32, torch.float64):
+        for n in (4096, 4098):
+            x = torch.ones(n, dtype=vd, device="cuda")
+            xb = torch.ones((2, n), dtype=vd, device="cuda")
+            stb = torch.full((2, 4), 0.5, dtype=vd, device="cuda")
+            stp2 = torch.zeros(2, dtype=vd, device="cuda")
+            live = torch.ones(2, dtype=torch.bool, device="cuda")
+            for k in (mine_k, prosen_k):
+                k.trial_batched(xb, xb, stp2, live, xb.clone(), xb.clone())
+                k.owlqn_trial_batched(xb, xb, xb, stp2, 1.0, 0, n - 1, live, xb.clone(),
+                                      xb.clone())
+                k.probe_steps(x, x, stb[0].cpu().numpy())
+                k.owlqn_probe_steps(x, x, x, stb[0].cpu().numpy(), 1.0, 0, n - 1)
+                k.probe_steps_batched(xb, xb, stb, live)
+                k.owlqn_probe_pg_steps_batched(xb, xb, xb, stb, 1.0, 0, n - 1, live)
+    for wrapper in ("trial_batched", "owlqn_trial_batched", "probe_steps", "owlqn_probe_steps",
+                    "probe_steps_batched", "owlqn_probe_pg_steps_batched"):
+        mine, theirs = getattr(mine_k, wrapper).compiled, getattr(prosen_k, wrapper).compiled
+        for key in sorted(mine, key=str):
+            untouched.append(dict(kernel=wrapper, key=str(key), same_ptx=key in theirs and (
+                ptx_code(mine[key]) == ptx_code(theirs[key]))))
     cs.emit(check="binaries", forms=rows,
-            all_same=all(r["same_ptx"] for r in rows if not r["new"]),
+            ring_readers_same=sum(bool(r["same_ptx"]) for r in rows),
+            ring_readers=len(rows), untouched=untouched,
+            untouched_same=all(r["same_ptx"] for r in untouched),
             new=[r["kernel"] for r in rows if r["new"]])
 
 

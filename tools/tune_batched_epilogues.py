@@ -65,7 +65,8 @@ window [5, n - 9)):
   batched K4 b and K14 b run the sweep instead, at the batched main path's
   1024 x 2^14 (``chip_smoke.batched_generic_inputs``, every instance live
   in the timings), each launch's gaps to the plain version taken on
-  ``BATCHED_CHECK_B`` instances, in place on copies (``--widths`` unused).
+  ``BATCHED_CHECK_B`` instances, in place on copies (``--widths`` unused);
+  ``--n 16386`` runs it at an n off 16 over the runner's padded ring.
 
 Prints one JSON line per launch and depth, the card's nvidia-smi name and
 power limit first; ``--out`` writes the same lines to a file.
@@ -81,6 +82,7 @@ import sys
 import torch
 
 import chip_smoke as cs
+from lbfgs_torch.core import as_ring, is_ring
 from lbfgs_torch.models import rosenbrock
 from lbfgs_torch.ops import factory
 from tools import parent_batched as pb
@@ -358,26 +360,41 @@ def batched_call(fn, a: dict, t: dict):
     return fn(t["xp"], a["d"], t["gp"], a["stp"], t["S"], t["Y"], m - 3, every, with_gp=True)
 
 
-def batched_warm(part: int, parts: int, pairs: list, depths: list, rps) -> None:
+def padded(a: dict) -> dict:
+    """The inputs with their rings in the runner's padded layout
+    (``core.as_ring``: a row stride of n rounded up to a multiple of 16)."""
+    return dict(a, S=as_ring(a["S"]), Y=as_ring(a["Y"]))
+
+
+def fresh(a: dict) -> dict:
+    """Copies of the vectors and rings, each ring in its own layout."""
+    return {k: as_ring(v.clone()) if k in ("S", "Y") and is_ring(v) else v.clone()
+            for k, v in pb.fresh(a).items()}
+
+
+def batched_warm(part: int, parts: int, pairs: list, depths: list, rps, n: int) -> None:
     """``rows_warm`` for the batched forms: K4 b and K14 b . gp on 2 x
-    4096."""
+    4096 (at an n off 16, 2 x 4098 over the padded ring)."""
     for i, (name, m, rp, k, w, st) in enumerate(rows_launches(pairs, depths, rps, True)):
         if i % parts != part:
             continue
-        a = cs.batched_generic_inputs(cs.SEED, *ROWS_PAIRS[name], m, 2, 4096)
+        a = padded(cs.batched_generic_inputs(cs.SEED, *ROWS_PAIRS[name], m, 2,
+                                             4096 + n % 16))
         with rows_launch(ROWS_PAIRS[name], m, rp, k, w, st):
             for wrapper, _ in BATCHED_FORMS.values():
                 try:
-                    batched_call(getattr(K, wrapper), a, pb.fresh(a))
+                    batched_call(getattr(K, wrapper), a, fresh(a))
                 except Exception:  # the timing process records the refusal
                     pass
     torch.cuda.synchronize()
 
 
-def batched_rows_sweep(pairs: list, depths: list, rps, reps: int, emit) -> list:
-    """Every batched row-block launch at 1024 x 2^14, timed in place with
-    every instance live, with its registers, spills and its gaps to the
-    plain version on ``BATCHED_CHECK_B`` instances; returns the rows."""
+def batched_rows_sweep(pairs: list, depths: list, rps, reps: int, emit,
+                       n: int = cs.BATCH_N) -> list:
+    """Every batched row-block launch at 1024 x n (2^14 by default; the
+    rings in the runner's padded layout), timed in place with every
+    instance live, with its registers, spills and its gaps to the plain
+    version on ``BATCHED_CHECK_B`` instances; returns the rows."""
     rows = []
     for name in pairs:
         pair = ROWS_PAIRS[name]
@@ -386,20 +403,21 @@ def batched_rows_sweep(pairs: list, depths: list, rps, reps: int, emit) -> list:
             launches = rows_launches([name], [m], rps, True)
             if not launches:
                 continue
-            small = cs.batched_generic_inputs(cs.SEED + 90 + m, vd, hd, m, BATCHED_CHECK_B)
+            small = padded(cs.batched_generic_inputs(cs.SEED + 90 + m, vd, hd, m,
+                                                     BATCHED_CHECK_B, n))
             want = {}
             for form, (wrapper, _) in BATCHED_FORMS.items():
-                t = pb.fresh(small)
+                t = fresh(small)
                 want[form] = (t, batched_call(getattr(K, wrapper + "_ref"), small, t))
-            a = cs.batched_generic_inputs(cs.SEED + 91 + m, vd, hd, m, cs.BATCH_B)
+            a = padded(cs.batched_generic_inputs(cs.SEED + 91 + m, vd, hd, m, cs.BATCH_B, n))
             for _, _, rp, k, w, st in launches:
                 with rows_launch(pair, m, rp, k, w, st):
                     for form, (wrapper, table) in BATCHED_FORMS.items():
                         fn = getattr(K, wrapper)
                         base = dict(rows_sweep=form, dtypes=name, m=m, B=cs.BATCH_B,
-                                    n=cs.BATCH_N, RP=rp, K=k, num_warps=w, num_stages=st)
+                                    n=n, RP=rp, K=k, num_warps=w, num_stages=st)
                         try:
-                            t = pb.fresh(small)
+                            t = fresh(small)
                             out = batched_call(fn, small, t)
                             torch.cuda.synchronize()
                         except Exception as e:  # a refused launch is a result
@@ -414,7 +432,7 @@ def batched_rows_sweep(pairs: list, depths: list, rps, reps: int, emit) -> list:
                                    ms=cs.event_time(lambda: batched_call(fn, a, a), reps),
                                    programs=fn.last_form.total,
                                    chunks_per_program=fn.last_form.tiles,
-                                   bound_ms=cs.bound(table, cs.BATCH_B * cs.BATCH_N,
+                                   bound_ms=cs.bound(table, cs.BATCH_B * n,
                                                      vd.itemsize, hd.itemsize, m)[0],
                                    vec_gap=vec, sum_gap=sums,
                                    **cs._compiled_info(fn.last_form.compiled))
@@ -549,11 +567,14 @@ def main() -> None:
     ap.add_argument("--batched", action="store_true",
                     help="with --rows: the batched K4 b and K14 b at 1024 x 2^14")
     ap.add_argument("--rps", type=int, nargs="*", help="with --rows: these block row counts only")
+    ap.add_argument("--n", type=int, default=cs.BATCH_N,
+                    help="with --rows --batched: the instances' width (an n off 16 over the "
+                         "padded ring)")
     ap.add_argument("--rows-warm", nargs=2, type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rows_warm:
         if args.batched:
-            batched_warm(*args.rows_warm, args.pairs, args.depths, args.rps)
+            batched_warm(*args.rows_warm, args.pairs, args.depths, args.rps, args.n)
         else:
             rows_warm(*args.rows_warm, args.pairs, args.depths)
         return
@@ -578,13 +599,13 @@ def main() -> None:
         workers = [subprocess.Popen([sys.executable, __file__, "--rows-warm", str(i),
                                      str(args.jobs), "--pairs", *args.pairs, "--depths",
                                      *map(str, args.depths)]
-                                    + (["--batched"] if args.batched else [])
+                                    + (["--batched", "--n", str(args.n)] if args.batched else [])
                                     + (["--rps", *map(str, args.rps)] if args.rps else []))
                    for i in range(args.jobs)]
         for w in workers:
             w.wait()
         if args.batched:
-            rows = batched_rows_sweep(args.pairs, args.depths, args.rps, args.reps, emit)
+            rows = batched_rows_sweep(args.pairs, args.depths, args.rps, args.reps, emit, args.n)
         else:
             rows = rows_sweep(args.pairs, args.depths, args.widths, args.reps, emit)
         rows_best(rows, emit)
